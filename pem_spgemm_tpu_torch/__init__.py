@@ -1,0 +1,30 @@
+"""pem_spgemm_tpu_torch: the PyTorch/CUDA port of pem_spgemm_tpu.
+
+A second package beside the JAX one, with the same sub-package and module
+names so a reader finds each counterpart.  Plain tensor code is PyTorch;
+the kernels are written by hand for Hopper (csrc/, built at first use).
+Entry points run on the GPU unless the caller passes ``device="cpu"``.
+
+Ported so far: the binned element engine end to end (COO -> Tile16 ->
+element CSR -> chunk table -> binned plan -> multiply -> sorted COO) and
+its benchmark harness.  The DIA, Macro128 and Tile16 engines, the f64
+merge engine, .mtx I/O, persistence and the multi-GPU layer raise
+NotImplementedError or are absent until their slices land (ROADMAP.md).
+"""
+
+from pem_spgemm_tpu_torch.config import SpGEMMConfig
+from pem_spgemm_tpu_torch.formats.coo import COOMatrix
+from pem_spgemm_tpu_torch.formats.tiled import TiledMatrix
+from pem_spgemm_tpu_torch.ops.convert import coo_to_tiled
+from pem_spgemm_tpu_torch.ops.spgemm import SpGEMM, SpGEMMResult
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "SpGEMMConfig",
+    "COOMatrix",
+    "TiledMatrix",
+    "coo_to_tiled",
+    "SpGEMM",
+    "SpGEMMResult",
+]

@@ -1,0 +1,4 @@
+from pem_spgemm_tpu_torch.formats.coo import COOMatrix
+from pem_spgemm_tpu_torch.formats.tiled import TiledMatrix
+
+__all__ = ["COOMatrix", "TiledMatrix"]

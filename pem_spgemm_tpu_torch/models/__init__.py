@@ -1,0 +1,4 @@
+from pem_spgemm_tpu_torch.models.synthetic import (banded, power_law, rmat,
+                                                   uniform_random, by_name)
+
+__all__ = ["banded", "power_law", "rmat", "uniform_random", "by_name"]

@@ -1,0 +1,130 @@
+"""Synthetic sparse-matrix generators: the benchmark corpus.
+
+Deterministic numpy families that span the structural regimes SpGEMM cares
+about, identical (same triplets from the same seed) to the JAX package's:
+
+  * banded        : diagonal stencils (dense tiles, regular tile rows)
+  * power_law     : scale-free row/col degree distribution (webbase-1M /
+                    scircuit-like; hot rows, skewed tile fill)
+  * rmat          : recursive Kronecker graph (graph-analytics regime)
+  * uniform_random: worst case for tiling (near-1 nnz per tile)
+
+All generators return canonical COOMatrix (sorted, duplicates summed).  The
+device-side generators of the banded and wandering families arrive with
+their engines.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from pem_spgemm_tpu_torch.formats.coo import COOMatrix
+
+
+def _canonical(rows, cols, vals, shape) -> COOMatrix:
+    return COOMatrix(rows, cols, vals, shape).sum_duplicates()
+
+
+def banded(n: int, bands=(0, 1, -1, 16, -16, 200, -200), value: float = 0.0,
+           seed: int = 0) -> COOMatrix:
+    """Diagonal-stencil matrix; value=0 draws random values."""
+    rs = np.random.default_rng(seed)
+    bs = np.array(sorted(set(int(b) for b in bands)), np.int64)
+    # Build row-major directly (rows x bands grid, masked at the borders):
+    # distinct bands cannot collide, so the result is canonical without the
+    # O(nnz log nnz) host lexsort (which dominated generation at 10^8 nnz).
+    cols_mat = np.arange(n, dtype=np.int64)[:, None] + bs[None, :]
+    valid = (cols_mat >= 0) & (cols_mat < n)
+    rows = np.broadcast_to(np.arange(n, dtype=np.int32)[:, None],
+                           cols_mat.shape)[valid]
+    cols = cols_mat[valid].astype(np.int32)
+    vals = (np.full(len(rows), value) if value
+            else rs.standard_normal(len(rows)))
+    return COOMatrix(rows, cols, vals, (n, n))
+
+
+def power_law(n: int, nnz: int, alpha: float = 2.1, seed: int = 0,
+              locality: float = 0.7, hub_correlation: float = 1.0) -> COOMatrix:
+    """Scale-free row-degree matrix with tunable column locality
+    (webbase-1M-like: hot rows, mostly-local links).
+
+    Every row gets a Pareto-distributed degree scaled so the total lands
+    near `nnz`; a `locality` fraction of each row's columns are drawn from
+    a +-256 window around the row index, the rest from a Zipf-popular
+    global column set.  Duplicates are summed, costing a few percent of
+    nnz at most (unlike naive iid zipf sampling, which collapses).
+
+    `hub_correlation` controls whether popular columns point AT high-degree
+    rows (webs: hubs link to hubs).  This drives the A@A intermediate-product
+    count flop = sum_j colcnt(j)*rowdeg(j): at 1.0 the Zipf column ranks map
+    onto rows in descending-degree order, reproducing webbase-1M-like
+    compression (products/nnz ~ 20); at 0.0 the mapping is a random
+    permutation and the product stays near-diagonal-sparse (products/nnz ~ 2).
+    """
+    rs = np.random.default_rng(seed)
+    raw = (1.0 - rs.random(n)) ** (-1.0 / (alpha - 1.0))   # Pareto >= 1
+    raw = np.minimum(raw, n / 8)                           # cap hub rows
+    deg_f = raw * (nnz / raw.sum())
+    deg = deg_f.astype(np.int64)
+    deg += rs.random(n) < (deg_f - deg)                    # stochastic round
+    total = int(deg.sum())
+    rows = np.repeat(np.arange(n, dtype=np.int32), deg)
+    local = rs.random(total) < locality
+    off = rs.integers(-256, 257, total)
+    near = np.clip(rows.astype(np.int64) + off, 0, n - 1).astype(np.int32)
+    u2 = rs.random(total)
+    ranks2 = np.minimum((u2 ** (-1.0 / (alpha - 1.0)) - 1.0).astype(np.int64),
+                        n - 1)
+    # Zipf rank -> column id: rank 0 = most popular.  Correlated mapping
+    # sends low ranks to the highest-degree rows.
+    by_degree = np.argsort(-deg, kind="stable").astype(np.int32)
+    perm = rs.permutation(n).astype(np.int32)
+    corr = rs.random(total) < hub_correlation
+    far = np.where(corr, by_degree[ranks2], perm[ranks2])
+    cols = np.where(local, near, far)
+    vals = rs.standard_normal(total)
+    return _canonical(rows, cols, vals, (n, n))
+
+
+def rmat(scale: int, edge_factor: int = 8, seed: int = 0,
+         probs=(0.57, 0.19, 0.19, 0.05)) -> COOMatrix:
+    """R-MAT / Kronecker graph: n = 2**scale, ~edge_factor*n edges."""
+    rs = np.random.default_rng(seed)
+    n = 1 << scale
+    m = edge_factor * n
+    a, b, c, _d = probs
+    rows = np.zeros(m, np.int64)
+    cols = np.zeros(m, np.int64)
+    for bit in range(scale):
+        u = rs.random(m)
+        r_bit = u >= a + b                     # quadrants c+d set the row bit
+        c_bit = ((u >= a) & (u < a + b)) | (u >= a + b + c)  # b or d
+        rows |= r_bit.astype(np.int64) << bit
+        cols |= c_bit.astype(np.int64) << bit
+    vals = rs.standard_normal(m)
+    return _canonical(rows.astype(np.int32), cols.astype(np.int32), vals,
+                      (n, n))
+
+
+def uniform_random(n_rows: int, n_cols: int, nnz: int,
+                   seed: int = 0) -> COOMatrix:
+    rs = np.random.default_rng(seed)
+    return _canonical(rs.integers(0, n_rows, nnz).astype(np.int32),
+                      rs.integers(0, n_cols, nnz).astype(np.int32),
+                      rs.standard_normal(nnz), (n_rows, n_cols))
+
+
+def by_name(spec: str) -> COOMatrix:
+    """Parse 'family:k=v,k=v' benchmark specs, e.g. 'banded:n=200000'."""
+    name, _, argstr = spec.partition(":")
+    kwargs = {}
+    if argstr:
+        for part in argstr.split(","):
+            k, _, v = part.partition("=")
+            kwargs[k] = float(v) if "." in v else int(v)
+    fams = {"banded": banded, "power_law": power_law, "rmat": rmat,
+            "uniform_random": uniform_random}
+    if name not in fams:
+        raise ValueError(f"unknown synthetic family {name!r}; "
+                         f"one of {sorted(fams)}")
+    return fams[name](**kwargs)

@@ -1,0 +1,134 @@
+"""The SpGEMM orchestrator: structural dispatch + the timed phases.
+
+Phase naming follows the reference for benchmark parity (step1 / step2 /
+step3).  Only the binned element engine is ported so far; every other
+engine raises NotImplementedError naming the ROADMAP slice that brings it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from pem_spgemm_tpu_torch.config import SpGEMMConfig, DEFAULT_CONFIG
+from pem_spgemm_tpu_torch.formats.coo import COOMatrix
+from pem_spgemm_tpu_torch.formats.tiled import TiledMatrix
+from pem_spgemm_tpu_torch.utils.timing import PhaseTimers
+
+_NOT_PORTED = {
+    "dia": "the DIA engine is ROADMAP slice 2",
+    "macro": "the Macro128 engine is ROADMAP slice 3",
+    "fused": "the Tile16 tier is ROADMAP slice 4",
+    "masks": "the Tile16 tier is ROADMAP slice 4",
+}
+
+
+def not_ported(engine: str) -> NotImplementedError:
+    why = _NOT_PORTED.get(engine, "unknown engine")
+    return NotImplementedError(
+        f"engine {engine!r} is not ported yet ({why}); only the binned "
+        "element engine runs in this package so far")
+
+
+@dataclasses.dataclass
+class SpGEMMResult:
+    """C = A@B from the element engine."""
+
+    vals: torch.Tensor      # (cap,) value dtype
+    shape: tuple
+    c_nnz: int              # true C nnz (structural, exact)
+    n_pairs: int            # intermediate products
+    engine: str
+    # direct COO form, (row, col)-sorted (the empty product)
+    rows: Optional[torch.Tensor] = None
+    cols: Optional[torch.Tensor] = None
+    first: Optional[torch.Tensor] = None
+    # bucketed stream form (ops/binned.BinnedStream): padded per-C-row
+    # segments with group totals at first-flagged slots
+    binned: Optional[object] = None
+
+    def to_coo(self) -> COOMatrix:
+        """Assemble + sort to canonical global COO (host)."""
+        if self.binned is not None:
+            rows, cols, vals = self.binned.to_coo_arrays()
+            return COOMatrix(rows, cols, vals, self.shape)
+        n = self.c_nnz
+        return COOMatrix(self.rows.cpu().numpy()[:n],
+                         self.cols.cpu().numpy()[:n],
+                         self.vals.cpu().numpy()[:n], self.shape)
+
+
+def _empty_result(shape, engine: str, device) -> "SpGEMMResult":
+    """A structurally empty C: an empty product is a result, not an
+    error (the reference still reports and benchmarks it)."""
+    z32 = torch.zeros(0, dtype=torch.int32, device=device)
+    return SpGEMMResult(
+        vals=torch.zeros(0, dtype=torch.float32, device=device),
+        shape=shape, c_nnz=0, n_pairs=0, engine=engine, rows=z32, cols=z32)
+
+
+class SpGEMM:
+    """C = A@B (or A@A.T) on Tile16 operands."""
+
+    def __init__(self, config: SpGEMMConfig = DEFAULT_CONFIG):
+        self.config = config
+
+    def pick_engine(self, a: TiledMatrix, b: TiledMatrix) -> str:
+        """Three-tier structural dispatch: macro (dense 128x128) /
+        fused (Tile16) / element."""
+        cfg = self.config
+        if cfg.engine != "auto":
+            return cfg.engine
+        fill_m = 0.5 * (a.macro_stats()[1] + b.macro_stats()[1])
+        if fill_m >= cfg.macro_threshold:
+            return "macro"
+        fill = 0.5 * (a.fill_ratio() + b.fill_ratio())
+        return "element" if fill < cfg.element_threshold else "fused"
+
+    def __call__(self, a: TiledMatrix, b: TiledMatrix,
+                 timers: Optional[PhaseTimers] = None) -> SpGEMMResult:
+        timers = timers if timers is not None else PhaseTimers()
+        if a.shape[1] != b.shape[0]:
+            raise ValueError(f"shape mismatch: {a.shape} @ {b.shape}")
+        engine = self.pick_engine(a, b)
+        if engine != "element":
+            raise not_ported(engine)
+        cfg = self.config
+        if cfg.element_impl != "binned" or cfg.dtype != torch.float32:
+            raise NotImplementedError(
+                f"element_impl={cfg.element_impl!r} with dtype={cfg.dtype} "
+                "needs the merge-sort element engine (f64 parity, ROADMAP "
+                "slice 5), which is not ported yet")
+        return self._element_binned(a, b, timers)
+
+    def _element_binned(self, a: TiledMatrix, b: TiledMatrix,
+                        timers: PhaseTimers) -> SpGEMMResult:
+        """Binned element engine (ops/binned.py).  Phase mapping:
+        step1 = chunk binning plan; step3 = expansion + segment sorts +
+        group reduction (fused numeric+structural); step2 = exact-nnz
+        reduce + its device-to-host copy."""
+        from pem_spgemm_tpu_torch.ops import binned
+
+        with timers.phase("step1") as box:
+            plan = binned.build_plan_device(a, b)
+            if plan.n_products == 0:
+                return _empty_result((a.shape[0], b.shape[1]), "element",
+                                     a.device)
+            box["sync"] = plan.res_src
+
+        with timers.phase("step3") as box:
+            kernel_sort = self.config.element_vmem_sort and a.vals.is_cuda
+            stream = binned.binned_multiply(plan, vmem_sort=kernel_sort)
+            box["sync"] = (stream.bucket_vals[-1] if stream.bucket_vals
+                           else stream.res[2])
+
+        with timers.phase("step2"):
+            c_nnz = int(stream.c_nnz)             # the one D2H feedback
+            stream.c_nnz = c_nnz
+
+        return SpGEMMResult(
+            vals=stream.res[2], shape=(a.shape[0], b.shape[1]),
+            c_nnz=c_nnz, n_pairs=plan.n_products, engine="element",
+            binned=stream)

@@ -1,0 +1,106 @@
+"""The port stands alone: importing it (and chip_smoke.py's module graph)
+pulls in neither jax nor the JAX package, and nothing falls back to the CPU
+on its own."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _run(code):
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    return subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+_FORBIDDEN = ("bad = sorted(m for m in sys.modules if m == 'jax' or "
+              "m.startswith(('jax.', 'jaxlib', 'pem_spgemm_tpu.')) or "
+              "m == 'pem_spgemm_tpu'); print('BAD', bad); "
+              "sys.exit(1 if bad else 0)")
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    mods = ["pem_spgemm_tpu_torch", "pem_spgemm_tpu_torch.interop",
+            "pem_spgemm_tpu_torch.bench.harness",
+            "pem_spgemm_tpu_torch.ops.binned",
+            "pem_spgemm_tpu_torch.ops.fixed",
+            "pem_spgemm_tpu_torch.ops.dia",
+            "pem_spgemm_tpu_torch.ops.segment_sort",
+            "pem_spgemm_tpu_torch.models.synthetic",
+            "pem_spgemm_tpu_torch.utils.csv_report"]
+    p = _run("import sys; import " + ", ".join(mods) + "; " + _FORBIDDEN)
+    assert p.returncode == 0, p.stdout + p.stderr
+
+
+def test_chip_smoke_module_graph_is_clean():
+    p = _run("import sys; import chip_smoke; " + _FORBIDDEN)
+    assert p.returncode == 0, p.stdout + p.stderr
+
+
+def test_sources_name_no_jax_import():
+    hits = []
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for base, _dirs, names in os.walk(os.path.join(ROOT,
+                                                   "pem_spgemm_tpu_torch")):
+        files += [os.path.join(base, n) for n in names if n.endswith(".py")]
+    for path in files:
+        with open(path) as f:
+            for i, line in enumerate(f, 1):
+                s = line.strip()
+                if s.startswith(("import jax", "from jax",
+                                 "import pem_spgemm_tpu ",
+                                 "from pem_spgemm_tpu ",
+                                 "from pem_spgemm_tpu.",
+                                 "import pem_spgemm_tpu.")) or \
+                        s == "import pem_spgemm_tpu":
+                    hits.append(f"{path}:{i}: {s}")
+    assert not hits, hits
+
+
+def test_device_none_without_cuda_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None is the GPU here")
+    from pem_spgemm_tpu_torch import COOMatrix, SpGEMMConfig, coo_to_tiled
+    from pem_spgemm_tpu_torch import interop
+    from pem_spgemm_tpu_torch.bench.harness import run_benchmark
+    from pem_spgemm_tpu_torch.config import resolve_device
+    coo = COOMatrix(np.array([0, 1], np.int32), np.array([1, 0], np.int32),
+                    np.array([1.0, 2.0], np.float32), (2, 2))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        coo_to_tiled(coo)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_benchmark(coo, "m", SpGEMMConfig(), verbose=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        interop.plan_from_numpy({})
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_chip_smoke_fails_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    p = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py")],
+                       cwd=ROOT, env=env, capture_output=True, text=True,
+                       timeout=300)
+    assert p.returncode != 0
+    assert '"ok"' not in p.stdout
+
+
+def test_kernel_source_and_loader_agree():
+    from pem_spgemm_tpu_torch.ops import segment_sort as ss
+    assert os.path.isfile(ss.SOURCE)
+    src = open(ss.SOURCE).read()
+    for symbol in ("segment_sort_dedup_f32", "segment_dedup_f32"):
+        assert f"int {symbol}(" in src
+    assert "compute_90a" in " ".join(ss.NVCC_FLAGS)
+    assert "torch/extension.h" not in src
+    assert os.path.relpath(ss.BUILD_DIR, ROOT) == os.path.join(
+        "pem_spgemm_tpu_torch", "build")
