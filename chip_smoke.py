@@ -3,21 +3,31 @@
     python3 chip_smoke.py              # every phase
     python3 chip_smoke.py --only kernel_check
     python3 chip_smoke.py --profile rmat-16 [--no-pack] [--iters 20]
+    python3 chip_smoke.py --profile banded64-1M
 
-Builds the port's CUDA kernel from the sources in this checkout, holds both
-of its entries against their plain PyTorch versions on the card, drives the
-binned element engine end to end at full size (powerlaw-1M, rmat-16,
-uniform-1M through bench.harness.run_benchmark; powerlaw-1M again through
-the chunk-granular plan that reaches the sort+dedup entry), checks C against
-scipy on the host, and times both kernel entries at powerlaw-1M's largest
-bucket beside their memory bound.
+Builds the port's CUDA kernels from the sources in this checkout (one nvcc
+per source, started together) and holds every entry against its plain
+PyTorch version on the card.  Then it drives both ported engines end to end
+at full size through bench.harness.run_benchmark with engine="auto":
+
+  * the binned element engine on powerlaw-1M, rmat-16 and uniform-1M, and
+    powerlaw-1M again through the chunk-granular plan that reaches the
+    sort+dedup entry; C is checked against scipy on the host;
+  * the DIA engine on pairbands-500k, banded16-1M, banded64-1M and
+    banded128-1M; C_nnz and flop are held against the values the JAX package
+    recorded for the same generators, the sorted COO against scipy's for the
+    first two, and the C band stack and counts against the plain PyTorch
+    path on the card for the two wide stencils.
+
+Last it times every kernel entry at the largest shape its path gives it,
+beside its bound.
 
 With --profile the script instead shows where one matrix's steady multiply
-spends its time: each stream of the planned multiply timed alone with CUDA
-events, the host-clock time per multiply (synchronising after each one, and
-only once after a batch) with the kernel launches counted per multiply, and
-a torch.profiler pass that gives device-busy time, the idle share and the
-kernels that take most device time.
+spends its time: the host-clock time per multiply (synchronising after each
+one, and only once after a batch) with the kernel launches counted per
+multiply, and a torch.profiler pass that gives device-busy time, the idle
+share and the kernels that take most device time; for the element matrices
+also each stream of the planned multiply timed alone with CUDA events.
 
 Each phase prints one JSON line.  There is no CPU path: without a CUDA
 device the script fails.  It exits non-zero on the first failed phase and
@@ -35,9 +45,12 @@ import torch
 
 from pem_spgemm_tpu_torch.bench.harness import run_benchmark
 from pem_spgemm_tpu_torch.config import SpGEMMConfig
-from pem_spgemm_tpu_torch.models.synthetic import (power_law, rmat,
-                                                   uniform_random)
-from pem_spgemm_tpu_torch.ops import binned
+from pem_spgemm_tpu_torch.formats.coo import COOMatrix
+from pem_spgemm_tpu_torch.models.synthetic import (banded_device, power_law,
+                                                   rmat, uniform_random)
+from pem_spgemm_tpu_torch.ops import _build, binned
+from pem_spgemm_tpu_torch.ops import dia as D
+from pem_spgemm_tpu_torch.ops import dia_kernels as dk
 from pem_spgemm_tpu_torch.ops import segment_sort as ss
 from pem_spgemm_tpu_torch.ops.convert import coo_to_tiled
 
@@ -52,6 +65,8 @@ VAL_RTOL, VAL_ATOL = 1e-4, 1e-6     # kernel vs plain: summation order differs
 # for them in float32; the script counts those entries and prints the count.
 COO_RTOL, COO_ATOL = 1e-5, 1e-6
 SOURCE = "pem_spgemm_tpu_torch/csrc/segment_sort.cu"
+DIA_SOURCE = "pem_spgemm_tpu_torch/csrc/dia_multiply.cu"
+DEV = "cuda"            # where the DIA checks make their inputs
 
 # C_nnz the JAX package recorded for the same generators (BENCH_r05.json)
 RECORDED_C_NNZ = {"rmat-16": 66_875_950, "uniform-1M": 16_004_570}
@@ -63,6 +78,36 @@ MATRICES = {
     "uniform-1M": lambda: uniform_random(1_000_000, 1_000_000, 4_000_000,
                                          seed=3),
 }
+
+
+# The DIA matrices of the JAX package's suite (generators and arguments of its
+# bench.py), with the C_nnz and flop that package recorded for them.  Both are
+# facts of the structure, which banded_device reproduces; they do not depend
+# on the values.
+PAIRBANDS = (0, 1, 600, 601, -600, -601, 1200, 1201, -1200, -1201)
+PAIRBANDS_SORTED = tuple(sorted(PAIRBANDS))
+DIA_MATRICES = {
+    "pairbands-500k": dict(n=500_000, seed=9, bands=PAIRBANDS),
+    "banded16-1M": dict(n=1_000_000, seed=1, bands=tuple(range(-8, 8))),
+    "banded64-1M": dict(n=1_000_000, seed=1, bands=tuple(range(-32, 32))),
+    "banded128-1M": dict(n=1_000_000, seed=1, bands=tuple(range(-64, 64))),
+}
+DIA_RECORDED = {        # name: (C_nnz, flop, kernel entry)
+    "pairbands-500k": (14_962_177, 49_879_920, "pairs"),
+    "banded16-1M": (30_999_759, 255_998_288, "dense"),
+    "banded64-1M": (126_995_967, 4_095_890_752, "dense"),
+    "banded128-1M": (254_983_743, 16_383_126_144, "dense"),
+}
+# scipy's product and a host sort of C are affordable up to here; the two
+# wide stencils (4.1 G and 16.4 G products, 127 M and 255 M entries of C)
+# would take most of the script's time limit on the host alone, so their C
+# is held against the plain PyTorch path on the card instead.
+DIA_SCIPY = ("pairbands-500k", "banded16-1M")
+
+
+def reset_launch_counts():
+    ss.reset_launch_counts()
+    dk.reset_launch_counts()
 
 
 def emit(phase, **kw):
@@ -213,12 +258,163 @@ def phase_kernel_check():
 
 
 # --------------------------------------------------------------------------
+# DIA kernels against their plain version
+
+def make_bands(offs, n_rows, n_cols, seed, zero_frac=0.2):
+    """(len(offs), n_rows) float32 row-aligned band stack on the card:
+    standard normals with interior zeros, zero outside each band's valid
+    range (the tails a converted matrix has)."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    x = torch.randn((len(offs), n_rows), generator=g, device=DEV)
+    x[torch.rand(x.shape, generator=g, device=DEV) < zero_frac] = 0.0
+    col = (torch.arange(n_rows, device=DEV)[None, :]
+           + torch.tensor(offs, device=DEV)[:, None])
+    x[(col < 0) | (col >= n_cols)] = 0.0
+    return x.contiguous()
+
+
+def dia_bound(a, b, offs_a, idx_map, dcn, n_out):
+    """COO_RTOL * sum|a*b| + COO_ATOL for every C element: the forward
+    error bound of a float32 dot product, from the plain path run on the
+    absolute values."""
+    mag, _ = D._dia_multiply_torch(a.abs(), b.abs(), offs_a=offs_a,
+                                   idx_map=idx_map, dc_count=dcn,
+                                   n_out=n_out, values_only=True)
+    return COO_RTOL * mag + COO_ATOL
+
+
+def dia_hold(got, want, bound, what):
+    """Counts exactly equal (so cnt > 0 is too), values inside the bound.
+    Returns the max abs error of the values."""
+    (gc, gn), (wc, wn) = got, want
+    if (gn is None) != (wn is None):
+        raise AssertionError(f"{what}: one side returned no counts")
+    if gn is not None and not torch.equal(gn, wn):
+        raise AssertionError(f"{what}: structural counts differ")
+    err = (gc - wc).abs()
+    if not bool(torch.isfinite(gc).all()):
+        raise AssertionError(f"{what}: non-finite values")
+    over = float((err / bound).max())
+    if over > 1.0:
+        raise AssertionError(f"{what}: values exceed the float32 "
+                             f"dot-product bound by {over}x")
+    return float(err.max())
+
+
+def dia_case(a, b, offs_a, offs_b, modes, what):
+    """Every mode in ``modes``, with and without counts, against the plain
+    version; where both modes run they must agree bit for bit (same order
+    of additions).  Returns {mode: max abs err}."""
+    dc_list, idx_map = D._plan_maps(offs_a, offs_b)
+    n_out = a.shape[1]
+    kw = dict(offs_a=offs_a, idx_map=idx_map, dc_count=len(dc_list),
+              n_out=n_out)
+    bound = dia_bound(a, b, offs_a, idx_map, len(dc_list), n_out)
+    tables = {mode: dk.dia_tables(offs_a, offs_b, dc_list, mode, a.device)
+              for mode in modes}
+    errs, outs = {}, {}
+    for values_only in (False, True):
+        want = D._dia_multiply_torch(a, b, values_only=values_only, **kw)
+        for mode in modes:
+            got = dk.dia_multiply(a, b, offs_a=offs_a, offs_b=offs_b,
+                                  dc_list=dc_list, n_out=n_out, mode=mode,
+                                  values_only=values_only,
+                                  tables=tables[mode])
+            torch.cuda.synchronize()
+            e = dia_hold(got, want, bound,
+                         f"{what} mode={mode} values_only={values_only}")
+            errs[mode] = max(errs.get(mode, 0.0), e)
+            outs[mode, values_only] = got
+        if len(modes) == 2 and not torch.equal(
+                outs["dense", values_only][0], outs["pairs", values_only][0]):
+            raise AssertionError(f"{what}: the two entries disagree")
+    return errs
+
+
+def phase_dia_kernel_check():
+    worst = {"dia_multiply_dense": 0.0, "dia_multiply_pairs": 0.0}
+    cases = 0
+
+    def run(offs_a, offs_b, n_i, n_k, n_cols_b, modes, what, seed):
+        nonlocal cases
+        a = make_bands(offs_a, n_i, n_k, seed)
+        b = make_bands(offs_b, n_k, n_cols_b, seed + 1)
+        for mode, e in dia_case(a, b, offs_a, offs_b, modes, what).items():
+            worst[f"dia_multiply_{mode}"] = max(
+                worst[f"dia_multiply_{mode}"], e)
+        cases += 2 * len(modes)
+
+    both = ("dense", "pairs")
+    # stencils of every width the path uses and below; n is no multiple of
+    # the kernels' 256-column blocks nor of anything else
+    for d in (1, 3, 9, 16, 64, 128):
+        offs = tuple(range(-(d // 2), d - d // 2))
+        n = 10_007
+        run(offs, offs, n, n, n, both if d <= 16 else ("dense",),
+            f"stencil D={d}", seed=d)
+    # one A band against five B bands (a B stack that is no multiple of 8)
+    run((5,), (-2, -1, 0, 1, 2), 6_001, 6_001, 6_001, both, "D2=5", 50)
+    # A and B with different offset sets
+    run((0, 2, 4), (-3, -2, -1, 0), 7_919, 7_919, 7_919, both, "A!=B", 60)
+    # rectangular: A is 5003 x 7001, B is 7001 x 6007
+    run((-1, 0, 1, 2), (-2, -1, 0), 5_003, 7_001, 6_007, both, "rect", 70)
+    # offsets within a few columns of +n and -n
+    n = 4_099
+    run((n - 3, n - 2, n - 1), (-1, 0, 1), n, n, n, both, "near +n", 80)
+    run((-(n - 1), -(n - 2)), (0, 1), n, n, n, both, "near -n", 90)
+    run((-(n - 2), 0, n - 3), (-(n - 2), 0, n - 3), n, n, n, ("pairs",),
+        "near +-n, gapped", 100)
+    # the pairbands offsets, and the same set blown out 1000x: its span
+    # (2.4 M columns) is beyond any window a block could stage
+    run(PAIRBANDS_SORTED, PAIRBANDS_SORTED, 20_011, 20_011, 20_011,
+        ("pairs",), "pairbands", 110)
+    wide = tuple(o * 1000 for o in PAIRBANDS_SORTED)
+    run(wide, wide, 1_500_007, 1_500_007, 1_500_007, ("pairs",),
+        "pairbands x1000", 120)
+
+    # an engineered cancellation: C[0, 3] = 1*1 + 1*(-1) is numerically zero
+    # and structurally present (count 2)
+    coo = COOMatrix(
+        torch.tensor([0, 0, 1, 2], dtype=torch.int32, device=DEV),
+        torch.tensor([1, 2, 3, 3], dtype=torch.int32, device=DEV),
+        torch.tensor([1.0, 1.0, 1.0, -1.0], device=DEV), (64, 64))
+    m = D.coo_to_dia(coo)
+    dc_list, _ = D._plan_maps(m.offsets, m.offsets)
+    for mode in both:
+        c, cnt = dk.dia_multiply(
+            m.bands, m.bands, offs_a=m.offsets, offs_b=m.offsets,
+            dc_list=dc_list, n_out=64, mode=mode,
+            tables=dk.dia_tables(m.offsets, m.offsets, dc_list, mode, DEV))
+        k = dc_list.index(3)
+        if float(c[k, 0]) != 0.0 or float(cnt[k, 0]) != 2.0:
+            raise AssertionError(f"cancellation, mode={mode}: value "
+                                 f"{float(c[k, 0])}, count {float(cnt[k, 0])}")
+        if int((cnt > 0).sum()) != 1:
+            raise AssertionError(f"cancellation, mode={mode}: C_nnz "
+                                 f"{int((cnt > 0).sum())} != 1")
+        cases += 1
+    # the device alone picks the path: float64 bands on the card raise,
+    # they do not take the plain version
+    m64 = D.coo_to_dia(coo, dtype=torch.float64)
+    try:
+        D.make_dia_plan(m64, m64).run(m64, m64)
+    except NotImplementedError:
+        cases += 1
+    else:
+        raise AssertionError("float64 bands on the card did not raise")
+    emit("dia_kernel_check", cases=cases, max_abs_err=worst,
+         bound="abs err <= 1e-5 * sum|a*b| + 1e-6 (float32 dot product); "
+               "counts equal exactly")
+    return worst
+
+
+# --------------------------------------------------------------------------
 # end-to-end paths
 
 def scipy_square(coo, with_abs=False):
     """scipy's A@A as canonical COO; with_abs also returns |A|@|A| in the
     same entry order (same structure: absolute values never cancel)."""
-    s = coo.to_scipy().tocsr()
+    s = coo.to_scipy().tocsr().astype(np.float64)
     want = (s @ s).tocoo()
     want.sum_duplicates()
     if not with_abs:
@@ -266,7 +462,7 @@ def phase_default_path(coo_pl, want_pl):
     """run_benchmark with the default configuration on the three matrices;
     returns the dedup entry's launch count of the powerlaw-1M run."""
     cfg = SpGEMMConfig(engine="auto")
-    ss.reset_launch_counts()
+    reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     rec, res = run_benchmark(coo_pl, "powerlaw-1M", cfg, verbose=False)
     launches = dict(ss.LAUNCHES)
@@ -290,7 +486,7 @@ def phase_default_path(coo_pl, want_pl):
     for name in ("rmat-16", "uniform-1M"):
         coo = MATRICES[name]()
         want_nnz = int(scipy_square(coo).nnz)
-        ss.reset_launch_counts()
+        reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
         rec, res = run_benchmark(coo, name, cfg.with_(repeat=3),
                                  verbose=False)
@@ -305,6 +501,91 @@ def phase_default_path(coo_pl, want_pl):
     return launches["segment_dedup"]
 
 
+def sparse_mm_ms(coo):
+    """ms of torch.sparse.mm(A, A) with A in CSR: the library's product of
+    the same matrix from another format.  A yardstick only: the port never
+    calls it."""
+    n = coo.shape[0]
+    m = torch.sparse_coo_tensor(
+        torch.stack([coo.rows.long(), coo.cols.long()]), coo.vals,
+        (n, n)).coalesce().to_sparse_csr()
+    return time_ms(lambda: torch.sparse.mm(m, m), 3)
+
+
+def phase_dia_path():
+    """The four DIA matrices of the suite through run_benchmark with
+    engine="auto", at full size.  Returns, for the two matrices the kernel
+    rows are timed at, {name: dict(launch counts of the run, operand, plan
+    maps, max abs err against the plain path or None, library ms or None)}."""
+    cfg = SpGEMMConfig(engine="auto", repeat=5)
+    kept = {}
+    for name, args in DIA_MATRICES.items():
+        want_nnz, want_flop, want_mode = DIA_RECORDED[name]
+        coo = banded_device(**args)
+        n = args["n"]
+        reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        rec, res = run_benchmark(coo, name, cfg, verbose=False)
+        launches = dict(dk.LAUNCHES)
+        if res.engine != "dia":
+            raise AssertionError(f"{name}: engine {res.engine!r}, not 'dia'")
+        offs = tuple(int(x) for x in D.diag_offsets(coo))
+        dc_list, idx_map = D._plan_maps(offs, offs)
+        mode = dk.dia_mode(offs, offs, dc_list)
+        if mode != want_mode or res.dia_dc != dc_list:
+            raise AssertionError(f"{name}: mode {mode!r}, expected "
+                                 f"{want_mode!r}")
+        other = "pairs" if mode == "dense" else "dense"
+        if (launches[f"dia_multiply_{mode}"] <= 0
+                or launches[f"dia_multiply_{other}"] != 0):
+            raise AssertionError(f"{name}: launches {launches}")
+        if res.c_nnz != want_nnz or rec.flop != want_flop:
+            raise AssertionError(
+                f"{name}: C_nnz {res.c_nnz} (recorded {want_nnz}), flop "
+                f"{rec.flop} (recorded {want_flop})")
+        if mode == "dense":                 # full bands: a closed form
+            closed = sum(n - abs(dc) for dc in dc_list)
+            if res.c_nnz != closed:
+                raise AssertionError(f"{name}: C_nnz {res.c_nnz} != {closed}")
+        info = dict(matrix=name, mode=mode, flop=rec.flop, c_nnz=res.c_nnz,
+                    jax_recorded_c_nnz=want_nnz, bands=len(offs),
+                    c_bands=len(dc_list), launches=launches,
+                    times_ms=record_times(rec),
+                    peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+        a = D.coo_to_dia(coo)
+        err = library = None
+        if name in DIA_SCIPY:
+            library = sparse_mm_ms(coo)
+            info.update(sparse_mm_csr_ms=library)
+            c = res.to_coo()
+            cancelled, ratio = check_coo(
+                c.rows, c.cols, c.vals, scipy_square(coo, with_abs=True),
+                name)
+            info.update(scipy_c_nnz=len(c.rows), coo_equal=True,
+                        values_worst_over_bound=ratio,
+                        values_outside_plain_rtol=cancelled)
+            del c
+        else:
+            kw = dict(offs_a=offs, idx_map=idx_map, dc_count=len(dc_list),
+                      n_out=n)
+            want = D._dia_multiply_torch(a.bands, a.bands, **kw)
+            bound = dia_bound(a.bands, a.bands, offs, idx_map, len(dc_list),
+                              n)
+            err = dia_hold((res.vals, res.c_counts), want, bound,
+                           f"{name} against the plain path")
+            info.update(plain_path_equal=True, max_abs_err=err)
+            del want, bound
+        emit("dia_path", **info)
+        del res, coo
+        if name in ("pairbands-500k", "banded128-1M"):
+            kept[name] = dict(launches=launches, a=a, offs=offs,
+                              dc_list=dc_list, idx_map=idx_map, err=err,
+                              library_ms=library)
+        del a
+        torch.cuda.empty_cache()
+    return kept
+
+
 def phase_kernel_sort_path(coo_pl, want_pl):
     """powerlaw-1M through the chunk-granular plan and the sort+dedup
     entry; returns (launch count, the plan)."""
@@ -312,7 +593,7 @@ def phase_kernel_sort_path(coo_pl, want_pl):
     b = coo_to_tiled(coo_pl, with_tmasks=True)
     plan = binned.build_plan_device(a, b, pack=False)
     torch.cuda.synchronize()
-    ss.reset_launch_counts()
+    reset_launch_counts()
     t0 = time.perf_counter()
     stream = binned.binned_multiply(plan, vmem_sort=True)
     c_nnz = int(stream.c_nnz)
@@ -396,7 +677,7 @@ def phase_kernels(plan_cg, a, b, launches, check_err):
     # dedup entry: the packed class with the most slots of the default plan
     plan = binned.build_plan_device(a, b)
     torch.cuda.synchronize()
-    ss.reset_launch_counts()
+    reset_launch_counts()
     int(binned.binned_multiply(plan).c_nnz)
     per_multiply = dict(ss.LAUNCHES)    # counted over this one multiply
     p = max(plan.packed, key=lambda x: x.keys.numel())
@@ -430,6 +711,115 @@ def phase_kernels(plan_cg, a, b, launches, check_err):
     for row in (sort_row, dedup_row):
         row["kernel_ms"] = row["ms"]
     return [sort_row, dedup_row]
+
+
+def dia_times(a, offs, dc_list, idx_map, mode, n_plain):
+    """(kernel ms with counts, values-only, plain ms with counts,
+    values-only) of one A*A multiply, the kernel with its tables uploaded
+    once as a plan does."""
+    n = a.shape[1]
+    tables = dk.dia_tables(offs, offs, dc_list, mode, a.device)
+    kw = dict(offs_a=offs, idx_map=idx_map, dc_count=len(dc_list), n_out=n)
+
+    def kernel(values_only):
+        return lambda: dk.dia_multiply(
+            a, a, offs_a=offs, offs_b=offs, dc_list=dc_list, n_out=n,
+            mode=mode, values_only=values_only, tables=tables)
+
+    def plain(values_only):
+        return lambda: D._dia_multiply_torch(a, a, values_only=values_only,
+                                             **kw)
+
+    return (time_ms(kernel(False)), time_ms(kernel(True)),
+            time_ms(plain(False), n_plain), time_ms(plain(True), n_plain))
+
+
+# There is no PyTorch call on band stacks.  Where the path phase timed
+# torch.sparse.mm on the row's own matrix in CSR (the small matrices), the
+# row carries that as a yardstick; elsewhere it carries none.
+LIBRARY_COVERS = {True: "torch.sparse.mm(A, A) on this matrix in CSR: "
+                        "another format",
+                  False: "none: no PyTorch call takes band stacks"}
+
+
+def dia_kernel_row(name, matrix, kept, check_err, per_multiply):
+    launches, a, offs, dc_list, idx_map, err = (
+        kept[k] for k in ("launches", "a", "offs", "dc_list", "idx_map",
+                          "err"))
+    mode = name.rsplit("_", 1)[1]
+    if err is None:             # the path check was scipy's: hold it here
+        n = a.n
+        got = dk.dia_multiply(
+            a.bands, a.bands, offs_a=offs, offs_b=offs, dc_list=dc_list,
+            n_out=n, mode=mode,
+            tables=dk.dia_tables(offs, offs, dc_list, mode, a.device))
+        want = D._dia_multiply_torch(a.bands, a.bands, offs_a=offs,
+                                     idx_map=idx_map, dc_count=len(dc_list),
+                                     n_out=n)
+        err = dia_hold(got, want, dia_bound(a.bands, a.bands, offs, idx_map,
+                                            len(dc_list), n),
+                       f"{name} at {matrix}")
+        del got, want
+    ms, ms_vo, plain, plain_vo = dia_times(a.bands, offs, dc_list, idx_map,
+                                           mode, n_plain=3)
+    flop = DIA_RECORDED[matrix][1]
+    c_bytes = 4 * len(dc_list) * a.n
+    # the timed function is A*A on one band stack (as on the main path,
+    # where the harness passes the same operand twice): it is read once
+    in_bytes = 4 * a.bands.numel()
+
+    def bound(with_counts):
+        by = (in_bytes + c_bytes * (2 if with_counts else 1)) \
+            / HBM_BYTES_PER_S
+        ops = flop * (4 if with_counts else 2) / FP32_OPS_PER_S
+        return max(by, ops) * 1e3, "bytes" if by >= ops else "operations"
+
+    (b_ms, b_by), (bv_ms, bv_by) = bound(True), bound(False)
+    return {
+        "name": name, "route": "cuda", "source": DIA_SOURCE,
+        "replaces": "pem_spgemm_tpu/ops/pallas_dia.py:"
+                    + ("140" if mode == "dense" else "171"),
+        "launches": launches[name],
+        "max_abs_err": max(err, check_err[name]),
+        "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": kept["library_ms"],
+        "library_covers": LIBRARY_COVERS[kept["library_ms"] is not None],
+        "values_only_ms": ms_vo, "values_only_plain_ms": plain_vo,
+        "values_only_bound_ms": bv_ms, "values_only_bound_by": bv_by,
+        "matrix": matrix, "shape": [len(offs), a.n], "c_rows": len(dc_list),
+        "products": flop, "bytes": in_bytes + 2 * c_bytes,
+        "operations": 4 * flop, "launches_per_multiply": per_multiply,
+        "kernel_ms": ms,
+    }
+
+
+def phase_dia_kernels(kept, check_err):
+    """Both DIA entries at the largest shape the path gives them, and the
+    small-product case (tridiagonal, n = 1,000,000) that a gate between
+    kernel and plain path would be decided on."""
+    rows = []
+    for name, matrix in (("dia_multiply_dense", "banded128-1M"),
+                         ("dia_multiply_pairs", "pairbands-500k")):
+        a = kept[matrix]["a"]
+        plan = D.make_dia_plan(a, a)
+        reset_launch_counts()
+        plan.run(a, a)
+        per_multiply = dk.LAUNCHES[name]    # counted over this one multiply
+        del plan
+        rows.append(dia_kernel_row(name, matrix, kept[matrix], check_err,
+                                   per_multiply))
+    n = 1_000_000
+    offs = (-1, 0, 1)
+    a = make_bands(offs, n, n, seed=3, zero_frac=0.0)
+    dc_list, idx_map = D._plan_maps(offs, offs)
+    small = {}
+    for mode in ("dense", "pairs"):
+        ms, ms_vo, plain, plain_vo = dia_times(a, offs, dc_list, idx_map,
+                                               mode, n_plain=20)
+        small[mode] = {"ms": ms, "values_only_ms": ms_vo}
+    small["plain"] = {"ms": plain, "values_only_ms": plain_vo}
+    emit("dia_small_product", shape=[3, n], c_rows=len(dc_list), times=small)
+    return rows
 
 
 # --------------------------------------------------------------------------
@@ -502,7 +892,7 @@ def run_profile(matrix, no_pack, n):
          stages=stage_times(plan, no_pack, n))
 
     torch.cuda.reset_peak_memory_stats()
-    ss.reset_launch_counts()
+    reset_launch_counts()
     t0 = time.perf_counter()
     for _ in range(n):
         int(multiply())
@@ -519,6 +909,13 @@ def run_profile(matrix, no_pack, n):
          kernel_launches_per_multiply=launches,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
 
+    profile_device(matrix, multiply, n)
+
+
+def profile_device(matrix, multiply, n):
+    """torch.profiler over n queued multiplies: device-busy time, the idle
+    share of the wall time, device operations per multiply and the kernels
+    that take most device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -527,7 +924,7 @@ def run_profile(matrix, no_pack, n):
         t0 = time.perf_counter()
         for _ in range(n):
             last = multiply()
-        int(last)
+        last.reshape(-1)[0].item()
         wall = (time.perf_counter() - t0) / n
     # kernel entries only: an operator's entry repeats its kernels' time
     rows = [(e.key, e.count, e.self_device_time_total)
@@ -546,11 +943,49 @@ def run_profile(matrix, no_pack, n):
                "ms_per_multiply": t / 1e3 / n} for k, c, t in rows[:12]])
 
 
+def run_profile_dia(matrix, n):
+    """A DIA matrix's steady multiply: the cached plan replayed (values-only
+    kernel, the counts come from the plan's first run)."""
+    coo = banded_device(**DIA_MATRICES[matrix])
+    a = D.coo_to_dia(coo)
+    del coo
+    plan = D.make_dia_plan(a, a)
+    out = plan.run(a, a)                    # values + counts, cached
+    emit("profile_setup", matrix=matrix, mode=plan.kernel_mode,
+         bands=a.nbands, c_bands=len(plan.dc_list), c_nnz=int(out[2]))
+    del out
+
+    def multiply():
+        return plan.run(a, a)[0]
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        multiply()
+        torch.cuda.synchronize()
+    synced = (time.perf_counter() - t0) / n
+    launches = {k: v / n for k, v in dk.LAUNCHES.items()}
+    t0 = time.perf_counter()
+    for _ in range(n):
+        last = multiply()
+    torch.cuda.synchronize()
+    queued = (time.perf_counter() - t0) / n
+    del last
+    emit("profile_steady", matrix=matrix, synced_ms=synced * 1e3,
+         queued_ms=queued * 1e3, device_ms=time_ms(multiply, n),
+         kernel_launches_per_multiply=launches,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+    profile_device(matrix, multiply, n)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=["kernel_check"], default=None,
-                    help="build the kernel, check it, and stop")
-    ap.add_argument("--profile", choices=sorted(MATRICES), default=None,
+                    help="build the kernels, check them, and stop")
+    ap.add_argument("--profile",
+                    choices=sorted(MATRICES) + sorted(DIA_MATRICES),
+                    default=None,
                     help="profile this matrix's steady multiply and stop")
     ap.add_argument("--no-pack", action="store_true",
                     help="with --profile: the chunk-granular plan "
@@ -563,16 +998,20 @@ def main():
         return 1
     t_start = time.perf_counter()
     smi = nvidia_smi_line()
-    build_s = ss.build_kernels(verbose=args.only is not None)
+    build_s = _build.build_kernels(verbose=args.only is not None)
     emit("device", kind=torch.cuda.get_device_name(0), nvidia_smi=smi,
          torch=torch.__version__, cuda=torch.version.cuda,
          kernel_build_s=build_s)
 
+    if args.profile in DIA_MATRICES:
+        run_profile_dia(args.profile, args.iters)
+        return 0
     if args.profile is not None:
         run_profile(args.profile, args.no_pack, args.iters)
         return 0
 
     check_err = phase_kernel_check()
+    check_err.update(phase_dia_kernel_check())
     if args.only == "kernel_check":
         return 0
 
@@ -584,6 +1023,9 @@ def main():
         plan_cg, a, b,
         {"segment_dedup": dedup_launches,
          "segment_sort_dedup": sort_launches}, check_err)
+    del plan_cg, a, b, coo_pl, want_pl
+    torch.cuda.empty_cache()
+    kernels += phase_dia_kernels(phase_dia_path(), check_err)
     for row in kernels:
         if row["launches"] <= 0:
             raise AssertionError(f"{row['name']} was never launched on "

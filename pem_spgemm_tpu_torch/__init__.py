@@ -6,16 +6,22 @@ the kernels are written by hand for Hopper (csrc/, built at first use).
 Entry points run on the GPU unless the caller passes ``device="cpu"``.
 
 Ported so far: the binned element engine end to end (COO -> Tile16 ->
-element CSR -> chunk table -> binned plan -> multiply -> sorted COO) and
-its benchmark harness.  The DIA, Macro128 and Tile16 engines, the f64
-merge engine, .mtx I/O, persistence and the multi-GPU layer raise
-NotImplementedError or are absent until their slices land (ROADMAP.md).
+element CSR -> chunk table -> binned plan -> multiply -> sorted COO), the
+DIA engine end to end (COO -> diagonal census -> band stacks -> plan ->
+multiply with exact structural counts -> sorted COO), the benchmark
+harness, MatrixMarket I/O and the command line (bench/cli.py).  The
+Macro128 and Tile16 engines, the f64 merge engine, persistence and the
+multi-GPU layer raise NotImplementedError or are absent until their slices
+land (ROADMAP.md).
 """
 
 from pem_spgemm_tpu_torch.config import SpGEMMConfig
 from pem_spgemm_tpu_torch.formats.coo import COOMatrix
+from pem_spgemm_tpu_torch.formats.dia import DiaMatrix
 from pem_spgemm_tpu_torch.formats.tiled import TiledMatrix
+from pem_spgemm_tpu_torch.io.mtx import read_matrix_market
 from pem_spgemm_tpu_torch.ops.convert import coo_to_tiled
+from pem_spgemm_tpu_torch.ops.dia import coo_to_dia, detect_dia
 from pem_spgemm_tpu_torch.ops.spgemm import SpGEMM, SpGEMMResult
 
 __version__ = "0.1.0"
@@ -23,8 +29,12 @@ __version__ = "0.1.0"
 __all__ = [
     "SpGEMMConfig",
     "COOMatrix",
+    "DiaMatrix",
     "TiledMatrix",
     "coo_to_tiled",
+    "coo_to_dia",
+    "detect_dia",
+    "read_matrix_market",
     "SpGEMM",
     "SpGEMMResult",
 ]

@@ -11,7 +11,7 @@ Mirrors the reference's measurement protocol:
 Three tiers are reported: interactive (plan + multiply + c_nnz feedback per
 iteration, the CSV's pem_spgemm_time), steady (the cached plan replayed, one
 sync per iteration) and pipelined (replays queued back to back, one sync at
-the end).  Only the element/auto branches are ported so far.
+the end).  The element, dia and auto branches are ported.
 """
 
 from __future__ import annotations
@@ -60,7 +60,7 @@ def run_benchmark(coo: COOMatrix, name: str,
     """
     cfg = config
     dev = resolve_device(device)
-    if cfg.engine not in ("auto", "element"):
+    if cfg.engine not in ("auto", "element", "dia"):
         raise not_ported(cfg.engine)
 
     # --- conversion (timed once, like the reference) ---
@@ -82,21 +82,21 @@ def run_benchmark(coo: COOMatrix, name: str,
     coo_dev = _to_device(coo)
     b_coo_dev = coo_dev if not aat else _to_device(b_coo)
 
-    # Structural dispatch at the conversion layer: the DIA census operates
-    # on COO, before any tiling.  "auto" still asks the question; a matrix
-    # that qualifies belongs to an engine that is not ported yet.
-    if cfg.engine == "auto":
-        from pem_spgemm_tpu_torch.ops.dia import detect_dia
+    # Structural dispatch at the conversion layer (the DIA census operates
+    # on COO, before any tiling): explicit engine "dia", or "auto" when the
+    # distinct-diagonal census qualifies.
+    from pem_spgemm_tpu_torch.ops.dia import detect_dia, coo_to_dia
+    dia_offs = dia_offs_b = None
+    if cfg.engine in ("dia", "auto"):
         dia_offs = detect_dia(coo_dev, max_bands=cfg.dia_max_bands)
         if dia_offs is not None and aat:
-            if detect_dia(b_coo_dev, max_bands=cfg.dia_max_bands) is None:
+            dia_offs_b = detect_dia(b_coo_dev, max_bands=cfg.dia_max_bands)
+            if dia_offs_b is None:
                 dia_offs = None
-        if dia_offs is not None:
-            raise NotImplementedError(
-                f"{name}: the diagonal census qualifies ({len(dia_offs)} "
-                "distinct diagonals), so engine='auto' dispatches to the "
-                "DIA engine, which is not ported yet (ROADMAP slice 2); "
-                "pass engine='element' to force the element engine")
+        if cfg.engine == "dia" and dia_offs is None:
+            raise ValueError(
+                "engine='dia' but the matrix does not qualify (diagonal "
+                "census exceeds dia_max_bands, or explicit zeros present)")
 
     # Conversion runs twice; the kernel columns report the SECOND run, so
     # one-time costs (allocator growth, lazy CUDA initialisation) stay out
@@ -108,6 +108,17 @@ def run_benchmark(coo: COOMatrix, name: str,
     for _rep in range(2):
         # release the previous rep's converted operands first
         a = b = None
+        if dia_offs is not None:
+            t0 = time.perf_counter()
+            a = coo_to_dia(coo_dev, dtype=cfg.dtype, offsets=dia_offs)
+            force_sync(a.bands)
+            t_a = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            b = a if not aat else coo_to_dia(b_coo_dev, dtype=cfg.dtype,
+                                             offsets=dia_offs_b)
+            force_sync(b.bands)
+            t_b = time.perf_counter() - t0
+            continue
         t0 = time.perf_counter()
         a = coo_to_tiled(coo_dev, dtype=cfg.dtype)
         if element_f32:
@@ -164,7 +175,7 @@ def run_benchmark(coo: COOMatrix, name: str,
 
     # the steady tiers replay a plan; an empty product has none
     steady = pipelined = 0.0
-    if result.binned is not None:
+    if result.binned is not None or result.dia_dc is not None:
         steady, pipelined = _steady_tiers(result, cfg, a, b, dev)
 
     record = BenchmarkRecord(
@@ -203,6 +214,13 @@ def _steady_tiers(result, cfg, a, b, dev):
     per-multiply device time when the host keeps ahead."""
     from pem_spgemm_tpu_torch.ops.fixed import make_plan
     plan = make_plan(result, cfg, a, b)
+    is_dia = result.engine == "dia"
+    if is_dia:
+        # the dense C band stacks are the big allocation: release the
+        # interactive result's for the timing loops and refresh them from
+        # the last planned output below
+        result.vals = None
+        result.c_counts = None
     out = plan.run(a, b)
     force_sync(plan.fence(out))              # warm
     for _ in range(4):
@@ -235,7 +253,9 @@ def _steady_tiers(result, cfg, a, b, dev):
                     if isinstance(x, torch.Tensor))
     inflight = _inflight_bound(gen_bytes, dev)
     reps = max(cfg.repeat, 8) if inflight >= 8 else cfg.repeat
-    warm_out = out = None
+    warm_out = None
+    if not is_dia:
+        out = None
     last = None
     t0 = time.perf_counter()
     for i in range(reps):
@@ -244,4 +264,7 @@ def _steady_tiers(result, cfg, a, b, dev):
             force_sync(last)
     force_sync(last)
     pipelined = (time.perf_counter() - t0) / reps
+    if is_dia:
+        result.vals = out[0]
+        result.c_counts = out[1]
     return steady, pipelined

@@ -67,8 +67,8 @@ class SpGEMMConfig:
 
     # Structure engine: "fused" | "masks" | "element" | "dia" | "macro" |
     # "auto".  "auto" dispatches on structure: DIA census first (harness
-    # level, on COO), then mean macro-tile / tile fill.  Only the element
-    # engine is ported so far; the others raise NotImplementedError.
+    # level, on COO), then mean macro-tile / tile fill.  The element and
+    # DIA engines are ported; the others raise NotImplementedError.
     engine: str = "auto"
 
     # "auto"/"dia" consider the DIA engine only when the matrix's
@@ -100,8 +100,10 @@ class SpGEMMConfig:
     # Macro-tile pairs per matmul chunk (unused by this slice).
     macro_chunk: int = 256
 
-    # Use the hand-written numeric kernels of the tiled engines when
-    # available (unused by this slice).
+    # The JAX package's switch between its hand-written kernels and their
+    # plain versions.  Unused by the ported engines: here the tensors'
+    # device alone decides (GPU tensors launch the kernels, CPU tensors
+    # take the plain versions).  Kept for the tiled engines (not ported yet).
     use_pallas: bool = True
 
     # Benchmark protocol (reference defaults: WARMUP=1, REPEAT=10).

@@ -1,4 +1,5 @@
 from pem_spgemm_tpu_torch.formats.coo import COOMatrix
+from pem_spgemm_tpu_torch.formats.dia import DiaMatrix
 from pem_spgemm_tpu_torch.formats.tiled import TiledMatrix
 
-__all__ = ["COOMatrix", "TiledMatrix"]
+__all__ = ["COOMatrix", "DiaMatrix", "TiledMatrix"]

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from pem_spgemm_tpu_torch.config import resolve_device
+from pem_spgemm_tpu_torch.formats.dia import DiaMatrix
 from pem_spgemm_tpu_torch.formats.tiled import TiledMatrix
 from pem_spgemm_tpu_torch.ops.binned import (BinnedPlan, Bucket, ChunkedB,
                                              FineStream, FineTable,
@@ -42,6 +43,14 @@ def tiled_from_numpy(d: dict, device=None) -> TiledMatrix:
               "elem_tile", "tile_rowptr", "tmasks")
     return TiledMatrix(**{k: _t(d.get(k), dev) for k in arrays},
                        shape=tuple(d["shape"]), ntiles=int(d["ntiles"]))
+
+
+def dia_from_numpy(d: dict, device=None) -> DiaMatrix:
+    """DiaMatrix from a dict of its fields (``bands`` a numpy array)."""
+    dev = resolve_device(device)
+    return DiaMatrix(bands=_t(d["bands"], dev), shape=tuple(d["shape"]),
+                     offsets=tuple(int(x) for x in d["offsets"]),
+                     nnz=int(d["nnz"]))
 
 
 def chunked_b_from_numpy(d: dict, device=None) -> ChunkedB:

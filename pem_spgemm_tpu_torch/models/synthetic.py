@@ -9,9 +9,10 @@ about, identical (same triplets from the same seed) to the JAX package's:
   * rmat          : recursive Kronecker graph (graph-analytics regime)
   * uniform_random: worst case for tiling (near-1 nnz per tile)
 
-All generators return canonical COOMatrix (sorted, duplicates summed).  The
-device-side generators of the banded and wandering families arrive with
-their engines.
+All generators return canonical COOMatrix (sorted, duplicates summed), apart
+from banded_device, which generates the banded family on the device in
+band-major order.  The device-side generator of the wandering family arrives
+with its engine.
 """
 
 from __future__ import annotations
@@ -112,6 +113,36 @@ def uniform_random(n_rows: int, n_cols: int, nnz: int,
     return _canonical(rs.integers(0, n_rows, nnz).astype(np.int32),
                       rs.integers(0, n_cols, nnz).astype(np.int32),
                       rs.standard_normal(nnz), (n_rows, n_cols))
+
+
+def banded_device(n: int, bands=(0, 1, -1, 16, -16), seed: int = 0,
+                  device=None) -> COOMatrix:
+    """banded(), generated directly on the device (``None``: the GPU).
+
+    Counterpart of the JAX package's banded_device: identical structure to
+    banded() and to the JAX function (band-major order: ascending offset,
+    then row); the values are float32 standard normals from a
+    ``torch.Generator`` on the device, so they differ from JAX's PRNG and
+    between devices.  A draw that is exactly 0.0 (float32 normals do hit
+    it at 10^7 draws) is replaced by 1.0: an explicit zero would drop its
+    coordinate from the structure, and the DIA census refuses such inputs.
+    For 10^8-nnz inputs this replaces a multi-GB host-to-device copy with
+    on-device index arithmetic.
+    """
+    import torch
+    from pem_spgemm_tpu_torch.config import resolve_device
+    dev = resolve_device(device)
+    bs = torch.tensor(sorted(set(int(b) for b in bands)), dtype=torch.int32,
+                      device=dev)
+    r = torch.arange(n, dtype=torch.int32, device=dev)
+    c = bs[:, None] + r[None, :]                       # (nb, n) band-major
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    vals2 = torch.randn((len(bs), n), generator=gen, device=dev,
+                        dtype=torch.float32)
+    vals2[vals2 == 0] = 1.0
+    valid = (c >= 0) & (c < n)                         # drop the borders
+    rows = r[None, :].expand(len(bs), n)[valid]
+    return COOMatrix(rows, c[valid], vals2[valid], (n, n))
 
 
 def by_name(spec: str) -> COOMatrix:

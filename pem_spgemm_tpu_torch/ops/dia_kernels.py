@@ -1,0 +1,209 @@
+"""DIA multiply kernels: wrappers of csrc/dia_multiply.cu.
+
+Counterpart of the JAX package's ops/pallas_dia.py (``dia_multiply_pallas``
+and ``pallas_dia_mode``).  Two entries, one CUDA source (built with nvcc at
+first use and bound with ctypes by ops/_build.py):
+
+  mode="dense"   the stencil kernel: B's offsets are a dense integer range
+                 and ``dc_list`` is the dense sum range, so the B band of
+                 every product is arithmetic on the row index;
+  mode="pairs"   any offset sets: the products of each C row come from a
+                 small CSR table of (A band, B band, shift) triples.
+
+Both compute ``C[d1 + d2][i] += A[d1][i] * B[d2][i + d1]`` over all band
+pairs, in ascending A-band order per C element, and the same sum over the
+0/1 masks (float32 structural counts).  ``values_only=True`` launches the
+variant without the mask algebra and returns ``None`` for the counts.
+
+Dispatch is by the tensors' device and nothing else: CUDA tensors launch the
+kernel (or raise, if the build or the launch fails); CPU tensors take the
+plain PyTorch version, ``ops.dia._dia_multiply_torch``.  Each wrapper call
+adds one to its entry in ``LAUNCHES`` where it launches its kernel, and
+nowhere else: an output with no elements returns without a launch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from pem_spgemm_tpu_torch.ops import _build
+from pem_spgemm_tpu_torch.ops.dia import _dia_multiply_torch, _plan_maps
+
+SOURCE = _build.cuda_source("dia_multiply")
+ROWS = 8                    # C rows per thread of the dense entry (the .cu's)
+MAX_GRID_Y = 65535
+
+# kernel launches per entry (plain-version calls are not counted)
+LAUNCHES = {"dia_multiply_dense": 0, "dia_multiply_pairs": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _declare(lib) -> None:
+    vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.dia_multiply_dense_f32.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci,
+                                           ll, ll, ll, vp]
+    lib.dia_multiply_dense_f32.restype = ci
+    lib.dia_multiply_pairs_f32.argtypes = [vp, vp, vp, vp, vp, vp, ci, ll,
+                                           ll, ll, vp]
+    lib.dia_multiply_pairs_f32.restype = ci
+
+
+def _library():
+    return _build.cuda_library("dia_multiply", _declare)
+
+
+# --------------------------------------------------------------------------
+# mode choice
+
+def dense_qualifies(offs_a, offs_b, dc_list) -> bool:
+    """The dense entry's structural precondition: B's offsets form a dense
+    integer range and the plan's C offsets are the dense sum range.  The
+    kernel maps product (d1, d2) to row (d1 + d2) - dc_list[0]; a gapped
+    offs_a (spacing wider than B's range) leaves gaps in dc_list, and that
+    mapping would misindex the plan's rows."""
+    if not offs_a or not offs_b:
+        return False
+    dense_b = max(offs_b) - min(offs_b) + 1 == len(offs_b)
+    dc_dense = (max(offs_a) + max(offs_b)) - (min(offs_a) + min(offs_b)) + 1
+    return dense_b and len(dc_list) == dc_dense
+
+
+def dia_mode(offs_a, offs_b, dc_list):
+    """Which kernel entry a plan uses: 'dense' | 'pairs' (None for empty
+    offset sets).
+
+    Only the structural precondition decides: 'dense' where it holds, else
+    'pairs', which takes any offset sets.  There is no profitability gate:
+    bands on the GPU always launch a kernel."""
+    if not offs_a or not offs_b:
+        return None
+    return "dense" if dense_qualifies(offs_a, offs_b, dc_list) else "pairs"
+
+
+# --------------------------------------------------------------------------
+# offset tables
+
+def pair_table(offs_a, offs_b, dc_list):
+    """(row_ptr, trip) int32 numpy: a CSR over C rows of the (k1, k2, d1)
+    triples of every band pair, ascending k1 within a row."""
+    _, idx_map = _plan_maps(offs_a, offs_b)
+    trip = np.array([(idx_map[k1][k2], k1, k2, d1)
+                     for k1, d1 in enumerate(offs_a)
+                     for k2 in range(len(offs_b))], np.int64).reshape(-1, 4)
+    trip = trip[np.lexsort((trip[:, 1], trip[:, 0]))]
+    row_ptr = np.zeros(len(dc_list) + 1, np.int32)
+    row_ptr[1:] = np.cumsum(np.bincount(trip[:, 0], minlength=len(dc_list)))
+    return row_ptr, np.ascontiguousarray(trip[:, 1:], np.int32)
+
+
+def dia_tables(offs_a, offs_b, dc_list, mode, device):
+    """The kernel's offset tables as int32 tensors on ``device``: (offs_a,)
+    for 'dense', (row_ptr, trip) for 'pairs'.  A plan builds them once."""
+    if mode == "dense":
+        host = (np.asarray(offs_a, np.int32),)
+    elif mode == "pairs":
+        host = pair_table(offs_a, offs_b, dc_list)
+    else:
+        raise ValueError(f"unknown mode {mode!r}")
+    return tuple(torch.from_numpy(x).to(device) for x in host)
+
+
+# --------------------------------------------------------------------------
+# wrapper
+
+def _check_bands(x, name, device=None):
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"{name} must be a tensor")
+    if x.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32, got {x.dtype}")
+    if x.dim() != 2:
+        raise ValueError(f"{name} must be 2-D (bands, n), got "
+                         f"{tuple(x.shape)}")
+    if device is not None and x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def dia_multiply(a_bands, b_bands, *, offs_a, offs_b, dc_list, n_out,
+                 mode="dense", values_only=False, tables=None):
+    """(c_bands, c_counts | None), both (len(dc_list), n_out) float32.
+
+    a_bands (len(offs_a), n_i) and b_bands (len(offs_b), n_k) float32,
+    row-aligned band stacks; offs_a / offs_b ascending offset tuples;
+    dc_list the plan's C offsets (``ops.dia._plan_maps``); n_out <= n_i.
+    mode='dense' requires ``dense_qualifies``.  ``tables`` are the device
+    tables of ``dia_tables`` for these offsets and this mode: CUDA bands
+    need them (a plan builds them once), CPU bands do not read them.
+    """
+    offs_a, offs_b, dc_list = tuple(offs_a), tuple(offs_b), tuple(dc_list)
+    _check_bands(a_bands, "a_bands")
+    _check_bands(b_bands, "b_bands", a_bands.device)
+    if a_bands.shape[0] != len(offs_a) or b_bands.shape[0] != len(offs_b):
+        raise ValueError(
+            f"band stacks {tuple(a_bands.shape)}, {tuple(b_bands.shape)} do "
+            f"not match {len(offs_a)} and {len(offs_b)} offsets")
+    if not offs_a or not offs_b:
+        raise ValueError("empty offset set")
+    n_i, n_k = int(a_bands.shape[1]), int(b_bands.shape[1])
+    if not 0 <= n_out <= n_i:
+        raise ValueError(f"n_out={n_out} exceeds the A bands' length {n_i}")
+    if mode not in ("dense", "pairs"):
+        raise ValueError(f"unknown mode {mode!r}")
+    if mode == "dense" and not dense_qualifies(offs_a, offs_b, dc_list):
+        raise ValueError("mode='dense' needs a dense B offset range and a "
+                         "dense range of offset sums")
+    dcn = len(dc_list)
+    if not a_bands.is_cuda:
+        want_dc, idx_map = _plan_maps(offs_a, offs_b)
+        if dc_list != want_dc:
+            raise ValueError("dc_list is not the sorted set of offset sums")
+        return _dia_multiply_torch(a_bands, b_bands, offs_a=offs_a,
+                                   idx_map=idx_map, dc_count=dcn,
+                                   n_out=n_out, values_only=values_only)
+    if tables is None:
+        raise ValueError("CUDA bands need the offset tables of dia_tables()")
+    dev = a_bands.device
+    c = torch.empty((dcn, n_out), dtype=torch.float32, device=dev)
+    cnt = None if values_only else torch.empty_like(c)
+    if c.numel() == 0:                  # nothing to launch, nothing counted
+        return c, cnt
+    if mode == "dense" and -(-dcn // ROWS) > MAX_GRID_Y:
+        raise ValueError(f"{dcn} C rows exceed the dense entry's grid")
+    for t in tables:
+        if t.device != dev or t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError("tables must be contiguous int32 tensors on "
+                             "the bands' device")
+    lib = _library()
+    cnt_ptr = None if cnt is None else cnt.data_ptr()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        if mode == "dense":
+            (offs_dev,) = tables
+            if offs_dev.numel() != len(offs_a):
+                raise ValueError("tables do not match offs_a")
+            err = lib.dia_multiply_dense_f32(
+                a_bands.data_ptr(), b_bands.data_ptr(), offs_dev.data_ptr(),
+                c.data_ptr(), cnt_ptr, len(offs_a), len(offs_b), dcn, n_i,
+                n_k, n_out, stream)
+        else:
+            row_ptr, trip = tables
+            if (row_ptr.numel() != dcn + 1
+                    or trip.numel() != 3 * len(offs_a) * len(offs_b)):
+                raise ValueError("tables do not match the offset sets")
+            err = lib.dia_multiply_pairs_f32(
+                a_bands.data_ptr(), b_bands.data_ptr(), row_ptr.data_ptr(),
+                trip.data_ptr(), c.data_ptr(), cnt_ptr, dcn, n_i, n_k, n_out,
+                stream)
+    if err != 0:
+        raise RuntimeError(f"dia_multiply_{mode}: CUDA launch failed with "
+                           f"error {err}")
+    LAUNCHES[f"dia_multiply_{mode}"] += 1
+    return c, cnt

@@ -1,6 +1,7 @@
 """Steady-state plans: the multiply with its structure already planned.
 
-Only the binned element engine's adapter is ported so far.
+Ported: the binned element engine's adapter and the DIA branch (a DIA
+plan is already fixed-step, ops/dia.DiaPlan).
 """
 
 from __future__ import annotations
@@ -41,6 +42,11 @@ class BinnedElementPlan:
 
 def make_plan(result, config, a, b):
     """Build a steady-state plan from an interactive SpGEMMResult."""
+    if result.engine == "dia":
+        # C structure is static given the offset sets: rebuild the plan
+        # from the operands' offsets
+        from pem_spgemm_tpu_torch.ops.dia import make_dia_plan
+        return make_dia_plan(a, b)
     if result.engine == "element" and result.binned is not None:
         from pem_spgemm_tpu_torch.ops.binned import build_plan_device
         return BinnedElementPlan(

@@ -2,7 +2,7 @@
 
 Counterpart of the JAX package's ops/pallas_sort.py.  Two entries, one CUDA
 source (csrc/segment_sort.cu, built with nvcc at first use and bound with
-ctypes):
+ctypes by ops/_build.py):
 
   segment_sort_dedup(cols, vals, rounds=, presorted_w=) -> (keys, vals, first)
       per row: keys ascending (SENTINEL padding last), each duplicate
@@ -25,27 +25,20 @@ else: an input with no slots returns empty outputs without a launch.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 
 import torch
+
+from pem_spgemm_tpu_torch.ops import _build
+from pem_spgemm_tpu_torch.ops._build import (BUILD_DIR, NVCC_FLAGS,
+                                             build_kernels)
 
 SENTINEL = 0x7FFFFFFF
 SORT_MAX = 4096             # widest segment the sort entry takes
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "segment_sort.cu")
-BUILD_DIR = os.path.join(_PKG_DIR, "build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+SOURCE = _build.cuda_source("segment_sort")
 
 # kernel launches per entry (plain-version calls are not counted)
 LAUNCHES = {"segment_sort_dedup": 0, "segment_dedup": 0}
-
-_lib = None
 
 
 def reset_launch_counts() -> None:
@@ -53,59 +46,17 @@ def reset_launch_counts() -> None:
         LAUNCHES[k] = 0
 
 
-def _find_nvcc() -> str:
-    for cand in (shutil.which("nvcc"),
-                 os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
-                 "/usr/local/cuda/bin/nvcc"):
-        if cand and os.path.isfile(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the segment sort kernel is built "
-                       "from csrc/segment_sort.cu at first use")
-
-
-def build_kernels(verbose: bool = False) -> float:
-    """Build (if not built for this source) and load the kernel library.
-
-    Returns the seconds the build took (0.0 when the library for this
-    exact source was already there).  A failed build raises.
-    """
-    global _lib
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:12]
-    so_path = os.path.join(BUILD_DIR, f"libsegment_sort_{digest}.so")
-    seconds = 0.0
-    if not os.path.isfile(so_path):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{so_path}.{os.getpid()}.tmp"
-        cmd = [_find_nvcc(), *NVCC_FLAGS]
-        if verbose:
-            cmd += ["-Xptxas", "-v"]
-        cmd += ["-o", tmp, SOURCE]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}")
-        if verbose:
-            print(proc.stderr, flush=True)
-        os.replace(tmp, so_path)
-    lib = ctypes.CDLL(so_path)
+def _declare(lib) -> None:
     vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.segment_sort_dedup_f32.argtypes = [vp, vp, vp, vp, vp, ll, ci, ci,
                                            ci, vp]
     lib.segment_sort_dedup_f32.restype = ci
     lib.segment_dedup_f32.argtypes = [vp, vp, vp, vp, vp, vp, ll, ll, vp]
     lib.segment_dedup_f32.restype = ci
-    _lib = lib
-    return seconds
 
 
 def _library():
-    if _lib is None:
-        build_kernels()
-    return _lib
+    return _build.cuda_library("segment_sort", _declare)
 
 
 def _check(x, name, dtype, device=None, shape=None):

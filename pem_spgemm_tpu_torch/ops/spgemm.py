@@ -1,8 +1,9 @@
 """The SpGEMM orchestrator: structural dispatch + the timed phases.
 
 Phase naming follows the reference for benchmark parity (step1 / step2 /
-step3).  Only the binned element engine is ported so far; every other
-engine raises NotImplementedError naming the ROADMAP slice that brings it.
+step3).  The binned element engine and the DIA engine are ported; every
+other engine raises NotImplementedError naming the ROADMAP slice that brings
+it.
 """
 
 from __future__ import annotations
@@ -14,11 +15,11 @@ import torch
 
 from pem_spgemm_tpu_torch.config import SpGEMMConfig, DEFAULT_CONFIG
 from pem_spgemm_tpu_torch.formats.coo import COOMatrix
+from pem_spgemm_tpu_torch.formats.dia import DiaMatrix
 from pem_spgemm_tpu_torch.formats.tiled import TiledMatrix
 from pem_spgemm_tpu_torch.utils.timing import PhaseTimers
 
 _NOT_PORTED = {
-    "dia": "the DIA engine is ROADMAP slice 2",
     "macro": "the Macro128 engine is ROADMAP slice 3",
     "fused": "the Tile16 tier is ROADMAP slice 4",
     "masks": "the Tile16 tier is ROADMAP slice 4",
@@ -28,13 +29,14 @@ _NOT_PORTED = {
 def not_ported(engine: str) -> NotImplementedError:
     why = _NOT_PORTED.get(engine, "unknown engine")
     return NotImplementedError(
-        f"engine {engine!r} is not ported yet ({why}); only the binned "
-        "element engine runs in this package so far")
+        f"engine {engine!r} is not ported yet ({why}); the binned element "
+        "engine and the DIA engine run in this package so far")
 
 
 @dataclasses.dataclass
 class SpGEMMResult:
-    """C = A@B from the element engine."""
+    """C = A@B.  The element engine fills the stream form (or direct COO
+    coordinates for the empty product); the DIA engine the band form."""
 
     vals: torch.Tensor      # (cap,) value dtype
     shape: tuple
@@ -48,9 +50,18 @@ class SpGEMMResult:
     # bucketed stream form (ops/binned.BinnedStream): padded per-C-row
     # segments with group totals at first-flagged slots
     binned: Optional[object] = None
+    # dia form (engine == "dia"): vals = (dc, n) C band stack, c_counts =
+    # (dc, n) structural counts, dia_dc = the C diagonal offsets
+    c_counts: Optional[torch.Tensor] = None
+    dia_dc: Optional[tuple] = None
 
     def to_coo(self) -> COOMatrix:
         """Assemble + sort to canonical global COO (host)."""
+        if self.dia_dc is not None:
+            from pem_spgemm_tpu_torch.ops.dia import dia_to_coo
+            rows, cols, vals = dia_to_coo(self.vals, self.c_counts,
+                                          self.dia_dc, self.shape, self.c_nnz)
+            return COOMatrix(rows, cols, vals, self.shape)
         if self.binned is not None:
             rows, cols, vals = self.binned.to_coo_arrays()
             return COOMatrix(rows, cols, vals, self.shape)
@@ -70,7 +81,7 @@ def _empty_result(shape, engine: str, device) -> "SpGEMMResult":
 
 
 class SpGEMM:
-    """C = A@B (or A@A.T) on Tile16 operands."""
+    """C = A@B (or A@A.T) on Tile16 or DIA operands."""
 
     def __init__(self, config: SpGEMMConfig = DEFAULT_CONFIG):
         self.config = config
@@ -92,7 +103,13 @@ class SpGEMM:
         timers = timers if timers is not None else PhaseTimers()
         if a.shape[1] != b.shape[0]:
             raise ValueError(f"shape mismatch: {a.shape} @ {b.shape}")
+        if isinstance(a, DiaMatrix):
+            return self._dia(a, b, timers)
         engine = self.pick_engine(a, b)
+        if engine == "dia":
+            raise TypeError(
+                "engine='dia' takes DiaMatrix operands (ops.dia.coo_to_dia); "
+                "bench.harness.run_benchmark converts a COO matrix to them")
         if engine != "element":
             raise not_ported(engine)
         cfg = self.config
@@ -102,6 +119,31 @@ class SpGEMM:
                 "needs the merge-sort element engine (f64 parity, ROADMAP "
                 "slice 5), which is not ported yet")
         return self._element_binned(a, b, timers)
+
+    def _dia(self, a: DiaMatrix, b: DiaMatrix,
+             timers: PhaseTimers) -> SpGEMMResult:
+        """DIA engine (ops/dia.py).  step1 = the offset-pair plan (host);
+        step3 = the shifted multiply of values AND 0/1 masks; step2 = the
+        exact-nnz reduce + its one device-to-host copy."""
+        from pem_spgemm_tpu_torch.ops import dia as D
+
+        with timers.phase("step1"):
+            plan = D.make_dia_plan(a, b)
+            if not plan.dc_list:
+                return _empty_result((a.shape[0], b.shape[1]), "dia",
+                                     a.device)
+
+        with timers.phase("step3") as box:
+            out = plan.run(a, b)
+            box["sync"] = out[1]
+
+        with timers.phase("step2"):
+            c_nnz = int(out[2])               # the one D2H feedback
+
+        return SpGEMMResult(
+            vals=out[0], shape=(a.shape[0], b.shape[1]), c_nnz=c_nnz,
+            n_pairs=len(plan.offs_a) * len(plan.offs_b), engine="dia",
+            c_counts=out[1], dia_dc=plan.dc_list)
 
     def _element_binned(self, a: TiledMatrix, b: TiledMatrix,
                         timers: PhaseTimers) -> SpGEMMResult:

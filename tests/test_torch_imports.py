@@ -28,6 +28,11 @@ _FORBIDDEN = ("bad = sorted(m for m in sys.modules if m == 'jax' or "
 def test_port_imports_neither_jax_nor_the_jax_package():
     mods = ["pem_spgemm_tpu_torch", "pem_spgemm_tpu_torch.interop",
             "pem_spgemm_tpu_torch.bench.harness",
+            "pem_spgemm_tpu_torch.bench.cli",
+            "pem_spgemm_tpu_torch.formats.dia",
+            "pem_spgemm_tpu_torch.io.mtx",
+            "pem_spgemm_tpu_torch.ops._build",
+            "pem_spgemm_tpu_torch.ops.dia_kernels",
             "pem_spgemm_tpu_torch.ops.binned",
             "pem_spgemm_tpu_torch.ops.fixed",
             "pem_spgemm_tpu_torch.ops.dia",
@@ -80,6 +85,11 @@ def test_device_none_without_cuda_raises():
         run_benchmark(coo, "m", SpGEMMConfig(), verbose=False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         interop.plan_from_numpy({})
+    from pem_spgemm_tpu_torch import coo_to_dia, detect_dia
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        detect_dia(coo)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        coo_to_dia(coo)
     assert resolve_device("cpu") == torch.device("cpu")
 
 
@@ -104,3 +114,43 @@ def test_kernel_source_and_loader_agree():
     assert "torch/extension.h" not in src
     assert os.path.relpath(ss.BUILD_DIR, ROOT) == os.path.join(
         "pem_spgemm_tpu_torch", "build")
+
+
+def test_dia_kernel_source_and_loader_agree():
+    import re
+    from pem_spgemm_tpu_torch.ops import _build
+    from pem_spgemm_tpu_torch.ops import dia_kernels as dk
+    assert os.path.isfile(dk.SOURCE)
+    src = open(dk.SOURCE).read()
+    for symbol in ("dia_multiply_dense_f32", "dia_multiply_pairs_f32"):
+        assert f"int {symbol}(" in src
+    assert "torch/extension.h" not in src
+    # the wrapper sizes the dense entry's grid with the source's constant
+    assert int(re.search(r"constexpr int ROWS = (\d+);", src).group(1)) \
+        == dk.ROWS
+    # one build module serves every CUDA source, and each is a file
+    assert set(_build.CUDA_SOURCES) == {"segment_sort", "dia_multiply"}
+    for stem in _build.CUDA_SOURCES:
+        assert os.path.isfile(_build.cuda_source(stem))
+        assert _build.library_path(_build.cuda_source(stem)).startswith(
+            os.path.join(_build.BUILD_DIR, f"lib{stem}_"))
+
+
+def test_build_is_by_content_and_a_failed_build_raises(tmp_path, monkeypatch):
+    from pem_spgemm_tpu_torch.ops import _build
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    src = tmp_path / "unit.cpp"
+    src.write_text('extern "C" int answer() { return 42; }\n')
+    first = _build.library_path(str(src))
+    src.write_text('extern "C" int answer() { return 43; }\n')
+    assert _build.library_path(str(src)) != first
+    import shutil
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ here")
+    so = _build.compile_shared(["g++", *_build.GXX_FLAGS], str(src))
+    assert _build.load(so).answer() == 43
+    assert _build.compile_shared(["false"], str(src)) == so    # not rebuilt
+    src.write_text("this is not C++\n")
+    with pytest.raises(RuntimeError, match="build failed"):
+        _build.compile_shared(["g++", *_build.GXX_FLAGS], str(src))
+    assert not [n for n in os.listdir(_build.BUILD_DIR) if n.endswith(".tmp")]

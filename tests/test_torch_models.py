@@ -40,6 +40,39 @@ def test_generators_give_the_same_triplets(spec):
     _same_coo(j_syn.by_name(spec), t_syn.by_name(spec))
 
 
+@pytest.mark.parametrize("bands", [(0, 1, -1, 16, -16), (3,),
+                                   tuple(range(-8, 8)),
+                                   (0, 1, 60, 61, -60, -61)])
+def test_banded_device_structure_equals_banded(bands):
+    n = 257
+    dev = t_syn.banded_device(n, bands=bands, seed=5, device="cpu")
+    assert isinstance(dev.rows, torch.Tensor) and dev.shape == (n, n)
+    assert dev.vals.dtype == torch.float32 and not bool((dev.vals == 0).any())
+    host = t_syn.banded(n, bands=bands, seed=5)
+    got = TCOO(dev.rows.numpy(), dev.cols.numpy(), dev.vals.numpy(),
+               dev.shape)
+    order = np.lexsort((got.cols, got.rows))
+    np.testing.assert_array_equal(got.rows[order], host.rows)
+    np.testing.assert_array_equal(got.cols[order], host.cols)
+    # the JAX generator emits the same coordinates in the same (band-major)
+    # order; the values come from another generator
+    j = j_syn.banded_device(n, bands=bands, seed=5)
+    np.testing.assert_array_equal(got.rows, np.asarray(j.rows))
+    np.testing.assert_array_equal(got.cols, np.asarray(j.cols))
+    # same seed, same values; another seed, other values
+    again = t_syn.banded_device(n, bands=bands, seed=5, device="cpu")
+    other = t_syn.banded_device(n, bands=bands, seed=6, device="cpu")
+    assert torch.equal(again.vals, dev.vals)
+    assert not torch.equal(other.vals, dev.vals)
+
+
+def test_banded_device_defaults_to_the_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None is the GPU here")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        t_syn.banded_device(64)
+
+
 def test_by_name_rejects_unknown_family():
     with pytest.raises(ValueError, match="unknown synthetic family"):
         t_syn.by_name("wandering:n=1024")
@@ -133,10 +166,10 @@ def test_dia_census_matches(kind):
         if kind == "explicit_zero":
             coo.vals[5] = 0.0
     tcoo = TCOO(coo.rows, coo.cols, coo.vals, coo.shape)
-    np.testing.assert_array_equal(t_dia.diag_offsets(tcoo),
+    np.testing.assert_array_equal(t_dia.diag_offsets(tcoo, device="cpu"),
                                   j_dia.diag_offsets(coo))
     want = j_dia.detect_dia(coo, max_bands=64)
-    got = t_dia.detect_dia(tcoo, max_bands=64)
+    got = t_dia.detect_dia(tcoo, max_bands=64, device="cpu")
     if want is None:
         assert got is None
     else:
