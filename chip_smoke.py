@@ -4,11 +4,13 @@
     python3 chip_smoke.py --only kernel_check
     python3 chip_smoke.py --profile rmat-16 [--no-pack] [--iters 20]
     python3 chip_smoke.py --profile banded64-1M
+    python3 chip_smoke.py --profile wandering64-1M
 
 Builds the port's CUDA kernels from the sources in this checkout (one nvcc
 per source, started together) and holds every entry against its plain
-PyTorch version on the card.  Then it drives both ported engines end to end
-at full size through bench.harness.run_benchmark with engine="auto":
+PyTorch version on the card.  Then it drives the three ported engines end to
+end at full size through bench.harness.run_benchmark (engine="auto" for the
+first two, engine="macro" for the third):
 
   * the binned element engine on powerlaw-1M, rmat-16 and uniform-1M, and
     powerlaw-1M again through the chunk-granular plan that reaches the
@@ -17,9 +19,16 @@ at full size through bench.harness.run_benchmark with engine="auto":
     banded128-1M; C_nnz and flop are held against the values the JAX package
     recorded for the same generators, the sorted COO against scipy's for the
     first two, and the C band stack and counts against the plain PyTorch
-    path on the card for the two wide stencils.
+    path on the card for the two wide stencils;
+  * the Macro128 engine on wandering64-1M (run-plan classes, the ragged class
+    kernel), banded64-1M (stencil classes) and pairbands-500k (neither
+    planner covers it: the pair-stream kernel), each with C_nnz equal on the
+    interactive (plain) and the steady (kernel) path and the C tiles held
+    against the plain accumulation on the card; per-row nnz against scipy on
+    20,000 sampled rows of wandering64-1M, the recorded C_nnz for banded64-1M,
+    scipy's sorted COO for pairbands-500k.
 
-Last it times every kernel entry at the largest shape its path gives it,
+Beside each path it times every kernel entry at the largest shape its path gives it,
 beside its bound.
 
 With --profile the script instead shows where one matrix's steady multiply
@@ -47,12 +56,19 @@ from pem_spgemm_tpu_torch.bench.harness import run_benchmark
 from pem_spgemm_tpu_torch.config import SpGEMMConfig
 from pem_spgemm_tpu_torch.formats.coo import COOMatrix
 from pem_spgemm_tpu_torch.models.synthetic import (banded_device, power_law,
-                                                   rmat, uniform_random)
-from pem_spgemm_tpu_torch.ops import _build, binned
+                                                   rmat, uniform_random,
+                                                   wandering_device)
+from pem_spgemm_tpu_torch.ops import _build, binned, symbolic
 from pem_spgemm_tpu_torch.ops import dia as D
 from pem_spgemm_tpu_torch.ops import dia_kernels as dk
+from pem_spgemm_tpu_torch.ops import macro as M
+from pem_spgemm_tpu_torch.ops import macro_kernels as mk
 from pem_spgemm_tpu_torch.ops import segment_sort as ss
-from pem_spgemm_tpu_torch.ops.convert import coo_to_tiled
+from pem_spgemm_tpu_torch.ops import stencil as st
+from pem_spgemm_tpu_torch.ops.convert import coo_to_macro, coo_to_tiled
+from pem_spgemm_tpu_torch.ops.fixed import (MacroPlan, StencilMacroPlan,
+                                            make_plan)
+from pem_spgemm_tpu_torch.ops.spgemm import SpGEMM
 
 SENT = ss.SENTINEL
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
@@ -66,6 +82,7 @@ VAL_RTOL, VAL_ATOL = 1e-4, 1e-6     # kernel vs plain: summation order differs
 COO_RTOL, COO_ATOL = 1e-5, 1e-6
 SOURCE = "pem_spgemm_tpu_torch/csrc/segment_sort.cu"
 DIA_SOURCE = "pem_spgemm_tpu_torch/csrc/dia_multiply.cu"
+MACRO_SOURCE = "pem_spgemm_tpu_torch/csrc/macro_accumulate.cu"
 DEV = "cuda"            # where the DIA checks make their inputs
 
 # C_nnz the JAX package recorded for the same generators (BENCH_r05.json)
@@ -105,9 +122,28 @@ DIA_RECORDED = {        # name: (C_nnz, flop, kernel entry)
 DIA_SCIPY = ("pairbands-500k", "banded16-1M")
 
 
+# The Macro128 matrices: wandering64-1M as the JAX package's bench.py generates
+# it (engine="macro" there too), and two DIA matrices forced onto the macro
+# engine because they reach the other plans: banded64-1M the periodic stencil
+# classes, pairbands-500k (which neither planner covers) the pair stream.
+MACRO_MATRICES = {
+    "wandering64-1M": lambda: wandering_device(n=999_936, seed=4),
+    "banded64-1M": lambda: banded_device(**DIA_MATRICES["banded64-1M"]),
+    "pairbands-500k": lambda: banded_device(**DIA_MATRICES["pairbands-500k"]),
+}
+MACRO_EXPECT = {        # name: (plan type, planner, entry on the steady path)
+    "wandering64-1M": (StencilMacroPlan, "plan_runs", "macro_class_ragged"),
+    "banded64-1M": (StencilMacroPlan, "plan_stencil", "macro_class_ragged"),
+    "pairbands-500k": (MacroPlan, None, "macro_accumulate_pairs"),
+}
+MACRO_SAMPLE_ROWS = 20_000
+TILE_FLOP = 2 * 128 ** 3        # operations of one 128x128x128 product
+
+
 def reset_launch_counts():
     ss.reset_launch_counts()
     dk.reset_launch_counts()
+    mk.reset_launch_counts()
 
 
 def emit(phase, **kw):
@@ -409,6 +445,267 @@ def phase_dia_kernel_check():
 
 
 # --------------------------------------------------------------------------
+# Macro128 kernels against their plain versions
+
+def macro_pairs(am, bm, gran=256):
+    """(n_pairs, n_tiles, (c_row, c_col, a_idx, b_idx, seg)) of am @ bm, the
+    stream padded to a multiple of ``gran``."""
+    offsets = symbolic.pair_counts(am.tile_col, bm.tile_rowptr, am.ntiles)
+    n_pairs = int(offsets[-1])
+    p_cap = max(gran, -(-n_pairs // gran) * gran)
+    out = symbolic.expand_pairs(offsets, am.tile_row, am.tile_col,
+                                bm.tile_rowptr, bm.tile_col, n_pairs, p_cap,
+                                True)
+    return n_pairs, int(out[5]), out[:5]
+
+
+def macro_hold(got, want, mag, what):
+    """Flags equal exactly, values inside the float32 dot-product bound
+    COO_RTOL * sum|a*b| + COO_ATOL.  Returns the max abs error."""
+    (gn, gf), (wn, wf) = got, want
+    if gf.dtype != torch.uint8 or not torch.equal(gf > 0, wf > 0):
+        raise AssertionError(f"{what}: structural flags differ")
+    if not bool(torch.isfinite(gn).all()):
+        raise AssertionError(f"{what}: non-finite values")
+    err = (gn - wn).abs()
+    over = float((err / (COO_RTOL * mag + COO_ATOL)).max()) \
+        if err.numel() else 0.0
+    if over > 1.0:
+        raise AssertionError(f"{what}: values exceed the float32 "
+                             f"dot-product bound by {over}x")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def fresh_slabs(rows, fill=float("nan")):
+    """Slabs filled with what no kernel writes, so a row that was skipped or
+    written twice shows."""
+    return (torch.full((rows, 128, 128), fill, device=DEV),
+            torch.full((rows, 128, 128), 7, dtype=torch.uint8, device=DEV))
+
+
+def class_case(a_dense, b_dense, cls, bases, tables, n_steps, entries, what):
+    """One class (its first n_steps steps) through each entry in ``entries``
+    against the plain version; where both entries run they must agree bit
+    for bit.  Returns {entry: max abs err}."""
+    t, p, ar, br, a_offs, b_offs, _base = cls
+    bases = bases[:2 * n_steps].contiguous()
+    rows = n_steps * t + 3
+    base = 2                    # rows 0, 1 and the last stay untouched
+    wn, wf = fresh_slabs(rows)
+    st.class_call_plain(wn, wf, a_dense, b_dense, bases, t, p, a_offs,
+                        b_offs, base)
+    mn, mf = fresh_slabs(rows, 0.0)
+    st.class_call_plain(mn, mf, a_dense.abs(), b_dense.abs(), bases, t, p,
+                        a_offs, b_offs, base)
+    errs, outs = {}, {}
+    live = slice(base, base + n_steps * t)
+    for entry in entries:
+        gn, gf = fresh_slabs(rows)
+        if entry == "macro_class_ragged":
+            mk.class_call2(gn, gf, a_dense, b_dense, bases, t, p, ar, br,
+                           a_offs, b_offs, base, n_steps, tables=tables)
+        else:
+            mk.class_call(gn, gf, a_dense, b_dense, bases, t, p, ar, br,
+                          a_offs, b_offs, base, tables=tables)
+        torch.cuda.synchronize()
+        for x in (gn[:base], gn[base + n_steps * t:]):
+            if not bool(torch.isnan(x).all()):
+                raise AssertionError(f"{what} {entry}: wrote outside its "
+                                     "rows")
+        errs[entry] = macro_hold((gn[live], gf[live]), (wn[live], wf[live]),
+                                 mn[live], f"{what} {entry}")
+        outs[entry] = gn[live]
+    if len(entries) == 2 and not torch.equal(*outs.values()):
+        raise AssertionError(f"{what}: the two class entries disagree")
+    return errs
+
+
+def plan_case(am, bm, planner, what, worst, uniform):
+    """A whole plan: every class through the class kernels (uniform classes
+    through both entries), a one-step and an odd-step slice of the first
+    class, and stencil_accumulate (classes + residual pairs) against the
+    plain pair accumulation in sorted-tile order.  Returns (cases, plan)."""
+    n_pairs, n_tiles, (c_row, c_col, a_idx, b_idx, seg) = macro_pairs(am, bm)
+    plan = planner(seg, a_idx, b_idx, c_row, c_col, n_pairs, n_tiles,
+                   am.dense.shape[0], bm.dense.shape[0])
+    if not plan.classes:
+        raise AssertionError(f"{what}: the plan has no class")
+    entries = ("macro_class_ragged", "macro_class_uniform") if uniform \
+        else ("macro_class_ragged",)
+    cases = 0
+
+    def run(cls, bases, tables, n_steps, tag):
+        nonlocal cases
+        if uniform != isinstance(cls[1], int):
+            raise AssertionError(f"{what}: class p={cls[1]!r}")
+        for k, e in class_case(am.dense, bm.dense, cls, bases, tables,
+                               n_steps, entries, f"{what} {tag}").items():
+            worst[k] = max(worst[k], e)
+        cases += len(entries)
+
+    for ci, (cls, bases, tables) in enumerate(zip(
+            plan.classes, plan.class_bases, plan.class_tables)):
+        run(cls, bases, tables, bases.shape[0] // 2, f"class {ci}")
+    cls, bases, tables = (plan.classes[0], plan.class_bases[0],
+                          plan.class_tables[0])
+    n0 = bases.shape[0] // 2
+    run(cls, bases, tables, 1, "one step")
+    run(cls, bases, tables, n0 - 1 if n0 % 2 == 0 else n0, "odd steps")
+
+    c_cap = -(-n_tiles // 256) * 256
+    want = M.accumulate_macro(am.dense, bm.dense, a_idx, b_idx, seg, c_cap,
+                              256)
+    mag = M.accumulate_macro(am.dense.abs(), bm.dense.abs(), a_idx, b_idx,
+                             seg, c_cap, 256)[0]
+    got = st.stencil_accumulate(am.dense, bm.dense, plan)
+    torch.cuda.synchronize()
+    order = torch.from_numpy(plan.order).to(DEV)
+    rows = len(plan.order)
+    if not (np.unique(plan.order).size == n_tiles == rows):
+        raise AssertionError(f"{what}: slab order is no permutation")
+    e = macro_hold((got[0][:rows], got[1][:rows]),
+                   (want[0][order], want[1][order]), mag[order],
+                   f"{what} stencil_accumulate")
+    if bool(got[0][rows:].any()) or bool(got[1][rows:].any()):
+        raise AssertionError(f"{what}: slab rows past the last are not zero")
+    worst["macro_class_ragged"] = max(worst["macro_class_ragged"], e)
+    return cases + 1, plan
+
+
+def pairs_case(a_dense, b_dense, a_idx, b_idx, seg, c_cap, what, worst):
+    want = M.accumulate_macro(a_dense, b_dense, a_idx, b_idx, seg, c_cap,
+                              256)
+    mag = M.accumulate_macro(a_dense.abs(), b_dense.abs(), a_idx, b_idx, seg,
+                             c_cap, 256)[0]
+    got = mk.accumulate_macro_pairs(a_dense, b_dense, a_idx, b_idx, seg,
+                                    c_cap)
+    torch.cuda.synchronize()
+    e = macro_hold(got, want, mag, what)
+    worst["macro_accumulate_pairs"] = max(worst["macro_accumulate_pairs"], e)
+    return got
+
+
+def phase_macro_kernel_check():
+    worst = {k: 0.0 for k in mk.LAUNCHES}
+    cases = 0
+    info = {}
+
+    # a ragged run-plan class set, with residual pairs (at this size many row
+    # signatures are too rare for a class)
+    am = coo_to_macro(wandering_device(n=16_384, seed=4))
+    n, plan = plan_case(am, am, st.plan_runs, "wandering", worst,
+                        uniform=False)
+    if not plan.res_pa.numel():
+        raise AssertionError("wandering: the plan has no residual pair")
+    cases += n
+    info["wandering"] = dict(classes=len(plan.classes),
+                             coverage=plan.coverage,
+                             residual_pairs=int(plan.res_pa.numel()))
+    # a uniform stencil class set: both class entries, bit-equal
+    ab = coo_to_macro(banded_device(n=16_384, seed=1,
+                                    bands=tuple(range(-32, 32))))
+    n, plan = plan_case(ab, ab, st.plan_stencil, "banded64", worst,
+                        uniform=True)
+    cases += n
+    info["banded64"] = dict(classes=len(plan.classes),
+                            coverage=plan.coverage,
+                            residual_pairs=int(plan.res_pa.numel()))
+    # A != B operands (A @ A^T of the wandering band), classes and stream
+    coo = wandering_device(n=16_384, seed=5)
+    at = coo_to_macro(COOMatrix(coo.cols, coo.rows, coo.vals, coo.shape))
+    aw = coo_to_macro(coo)
+    n, plan = plan_case(aw, at, st.plan_runs, "A@A^T", worst, uniform=False)
+    cases += n
+    n_pairs, n_tiles, (_r, _c, a_idx, b_idx, seg) = macro_pairs(aw, at)
+    pairs_case(aw.dense, at.dense, a_idx, b_idx, seg,
+               -(-n_tiles // 256) * 256, "pairs A@A^T", worst)
+    cases += 1
+    del at, aw, ab, am
+
+    # the pair stream of a gapped-band matrix (neither planner covers it),
+    # with padding pairs, cut to a tile count that is no multiple of 4 and a
+    # c_cap beyond it
+    ap = coo_to_macro(banded_device(n=32_768, seed=9, bands=PAIRBANDS))
+    n_pairs, n_tiles, (_r, _c, a_idx, b_idx, seg) = macro_pairs(ap, ap)
+    if n_pairs == a_idx.numel():
+        raise AssertionError("pairs: the stream has no padding pair")
+    pairs_case(ap.dense, ap.dense, a_idx, b_idx, seg,
+               -(-n_tiles // 256) * 256, "pairs gapped bands", worst)
+    cnt_c = n_tiles - 1 - (n_tiles - 1) % 4 + 1        # = 1 mod 4
+    cut = seg >= cnt_c
+    seg_cut = torch.where(cut, symbolic.INT32_MAX, seg)
+    a_cut = torch.where(cut, ap.dense.shape[0] - 1, a_idx)
+    b_cut = torch.where(cut, ap.dense.shape[0] - 1, b_idx)
+    got = pairs_case(ap.dense, ap.dense, a_cut, b_cut, seg_cut, cnt_c + 6,
+                     f"pairs cnt_c={cnt_c}", worst)
+    if bool(got[0][cnt_c:].any()) or bool(got[1][cnt_c:].any()):
+        raise AssertionError("pairs: tiles past cnt_c are not zero")
+    cases += 2
+    # an engineered stream: a C tile of one pair, one of 70, an empty one,
+    # one of 3; 5 tiles in a c_cap of 9
+    g = torch.Generator(device=DEV).manual_seed(11)
+    per_tile = [1, 70, 0, 3, 2]
+    seg_e = torch.repeat_interleave(
+        torch.arange(len(per_tile), device=DEV),
+        torch.tensor(per_tile, device=DEV)).to(torch.int32)
+    pad = 256 - seg_e.numel()
+    seg_e = torch.cat([seg_e, torch.full((pad,), symbolic.INT32_MAX,
+                                         dtype=torch.int32, device=DEV)])
+    idx = torch.randint(0, ap.ntiles, (2, 256), generator=g, device=DEV,
+                        dtype=torch.int32)
+    idx[:, 256 - pad:] = ap.dense.shape[0] - 1
+    got = pairs_case(ap.dense, ap.dense, idx[0].contiguous(),
+                     idx[1].contiguous(), seg_e, 9, "pairs 1/70/0/3/2",
+                     worst)
+    if bool(got[1][2].any()) or bool(got[1][5:].any()):
+        raise AssertionError("pairs: a tile without pairs is not zero")
+    cases += 1
+    del ap
+
+    # an engineered cancellation: C[0, 3] = 1*1 + 1*(-1) is numerically zero
+    # and structurally present
+    coo = COOMatrix(
+        torch.tensor([0, 0, 1, 2], dtype=torch.int32, device=DEV),
+        torch.tensor([1, 2, 3, 3], dtype=torch.int32, device=DEV),
+        torch.tensor([1.0, 1.0, 1.0, -1.0], device=DEV), (256, 256))
+    m = coo_to_macro(coo)
+    _np, n_tiles, (_r, _c, a_idx, b_idx, seg) = macro_pairs(m, m)
+    num, flag = mk.accumulate_macro_pairs(m.dense, m.dense, a_idx, b_idx,
+                                          seg, 256)
+    if (float(num[0, 0, 3]) != 0.0 or int(flag[0, 0, 3]) != 1
+            or int(M.macro_structure(flag)[-1]) != 1):
+        raise AssertionError(
+            f"cancellation: value {float(num[0, 0, 3])}, flag "
+            f"{int(flag[0, 0, 3])}, C_nnz {int(M.macro_structure(flag)[-1])}")
+    cases += 1
+    # the device alone picks the path: float64 tiles on the card raise, they
+    # do not take the plain version
+    m64 = coo_to_macro(coo, dtype=torch.float64)
+    slabs = fresh_slabs(8)
+    tables = st.class_tables(((1, 1, 1, 1, (0,), (0,), 0),), DEV)[0]
+    bases = torch.zeros(2, dtype=torch.int32, device=DEV)
+    for call in (
+            lambda: mk.accumulate_macro_pairs(m64.dense, m64.dense, a_idx,
+                                              b_idx, seg, 256),
+            lambda: mk.class_call2(*slabs, m64.dense, m64.dense, bases, 1, 1,
+                                   1, 1, (0,), (0,), 0, 1, tables=tables),
+            lambda: mk.class_call(*slabs, m64.dense, m64.dense, bases, 1, 1,
+                                  1, 1, (0,), (0,), 0, tables=tables)):
+        try:
+            call()
+        except NotImplementedError:
+            cases += 1
+        else:
+            raise AssertionError("float64 tiles on the card did not raise")
+    emit("macro_kernel_check", cases=cases, max_abs_err=worst, plans=info,
+         allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+         flags_dtype="uint8",
+         bound="abs err <= 1e-5 * sum|a*b| + 1e-6 (float32 dot product); "
+               "flags equal exactly")
+    return worst
+
+
+# --------------------------------------------------------------------------
 # end-to-end paths
 
 def scipy_square(coo, with_abs=False):
@@ -558,9 +855,8 @@ def phase_dia_path():
             library = sparse_mm_ms(coo)
             info.update(sparse_mm_csr_ms=library)
             c = res.to_coo()
-            cancelled, ratio = check_coo(
-                c.rows, c.cols, c.vals, scipy_square(coo, with_abs=True),
-                name)
+            ref = scipy_square(coo, with_abs=True)
+            cancelled, ratio = check_coo(c.rows, c.cols, c.vals, ref, name)
             info.update(scipy_c_nnz=len(c.rows), coo_equal=True,
                         values_worst_over_bound=ratio,
                         values_outside_plain_rtol=cancelled)
@@ -580,7 +876,9 @@ def phase_dia_path():
         if name in ("pairbands-500k", "banded128-1M"):
             kept[name] = dict(launches=launches, a=a, offs=offs,
                               dc_list=dc_list, idx_map=idx_map, err=err,
-                              library_ms=library)
+                              library_ms=library,
+                              ref=ref if name == "pairbands-500k" else None)
+        ref = None
         del a
         torch.cuda.empty_cache()
     return kept
@@ -979,12 +1277,334 @@ def run_profile_dia(matrix, n):
     profile_device(matrix, multiply, n)
 
 
+# --------------------------------------------------------------------------
+# the Macro128 engine end to end, and its kernel rows
+
+def row_nnz_of_tiles(c_tile_row, c_flags, n_macro_rows):
+    """Per-row nnz of C from its tile form, on the device."""
+    per = (c_flags > 0).sum(dim=2, dtype=torch.int64)          # (cap, 128)
+    live = c_tile_row.long() < n_macro_rows
+    rows = (c_tile_row.long()[:, None] * 128
+            + torch.arange(128, device=per.device)[None, :])
+    out = torch.zeros(n_macro_rows * 128, dtype=torch.int64,
+                      device=per.device)
+    out.index_add_(0, rows[live].reshape(-1), per[live].reshape(-1))
+    return out
+
+
+def scipy_row_nnz(coo, rows):
+    """Structural nnz of the rows ``rows`` of A@A from scipy: the product of
+    the patterns, whose all-positive sums never cancel."""
+    s = coo.to_scipy().tocsr()
+    s.data = np.ones_like(s.data)
+    return np.diff((s[rows] @ s).tocsr().indptr)
+
+
+def bmm_ms(a_dense, b_dense, pa, pb, per=16_384):
+    """ms of torch.bmm over the pre-gathered (P, 128, 128) operands, the
+    products only (no gather, no sum per C tile), taken ``per`` pairs at a
+    time so the gathered copies fit beside the run's own tensors.  A
+    yardstick: the port never calls it on this path."""
+    M.require_full_fp32()
+    total = 0.0
+    for lo in range(0, pa.numel(), per):
+        ad = a_dense[pa[lo:lo + per].long()]
+        bd = b_dense[pb[lo:lo + per].long()]
+        total += time_ms(lambda: torch.bmm(ad, bd), 3)
+        del ad, bd
+    return total
+
+
+def class_pairs(plan):
+    """(pa, pb) int32 on the card: every pair of the plan's class path."""
+    pa, pb = [], []
+    for (t, p, _ar, _br, a_offs, b_offs, _base), bases in zip(
+            plan.classes, plan.class_bases):
+        b2 = bases.reshape(-1, 2)
+        pa.append((b2[:, :1] + torch.tensor(a_offs, dtype=torch.int32,
+                                            device=DEV)[None, :]).reshape(-1))
+        pb.append((b2[:, 1:] + torch.tensor(b_offs, dtype=torch.int32,
+                                            device=DEV)[None, :]).reshape(-1))
+    return torch.cat(pa), torch.cat(pb)
+
+
+def macro_row(name, replaces, matrix, fn, plain_fn, lib_pairs, a, n_pairs,
+              c_rows, launches, per_multiply, err, extra):
+    """One row of the kernels line.  Operations: 2 * 128^3 a pair, the
+    values' product; the pattern is a bit operation per k-slab in the kernel
+    and is not counted.  Bytes: the operand table read once (A @ A reads one
+    table) and every C row written once, values and flags."""
+    ops = TILE_FLOP * n_pairs
+    nbytes = a.dense.numel() * 4 + c_rows * 128 * 128 * 5
+    b_o, b_b = ops / FP32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    ms = time_ms(fn)
+    return {
+        "name": name, "route": "cuda", "source": MACRO_SOURCE,
+        "replaces": replaces, "launches": launches, "max_abs_err": err,
+        "ms": ms, "plain_ms": time_ms(plain_fn, 2),
+        "bound_ms": max(b_o, b_b) * 1e3,
+        "bound_by": "operations" if b_o >= b_b else "bytes",
+        "library_ms": bmm_ms(a.dense, a.dense, *lib_pairs),
+        "library_covers": "torch.bmm over the pre-gathered (P, 128, 128) "
+                          "operands in chunks of 16,384 pairs: the products "
+                          "only, without gather and sum per C tile",
+        "matrix": matrix, "pairs": n_pairs, "c_rows": c_rows,
+        "a_tiles": a.ntiles, "operations": ops, "bytes": nbytes,
+        "launches_per_multiply": per_multiply, "kernel_ms": ms, **extra}
+
+
+def macro_plan_of(a, cfg):
+    """(interactive result, steady plan) of A @ A, as the harness builds
+    them."""
+    res = SpGEMM(cfg)(a, a)
+    plan = make_plan(res, cfg, a, a)
+    return res, plan
+
+
+def hold_macro_output(a, plan, out, what):
+    """The steady output's C tiles against the plain pair accumulation on
+    the card, in the plan's row order.  Returns the max abs error."""
+    n_pairs, n_tiles, (_r, _c, a_idx, b_idx, seg) = macro_pairs(a, a)
+    c_cap = -(-n_tiles // 256) * 256
+    want = M.accumulate_macro(a.dense, a.dense, a_idx, b_idx, seg, c_cap, 256)
+    mag = M.accumulate_macro(a.dense.abs(), a.dense.abs(), a_idx, b_idx, seg,
+                             c_cap, 256)[0]
+    if isinstance(plan, StencilMacroPlan):
+        order = torch.from_numpy(plan.plan.order).to(DEV)
+    else:
+        order = torch.arange(n_tiles, device=DEV)
+    rows = order.numel()
+    worst = 0.0
+    for lo in range(0, rows, 8192):         # bounded gathers
+        o = order[lo:lo + 8192]
+        worst = max(worst, macro_hold(
+            (out[2][lo:lo + o.numel()], out[3][lo:lo + o.numel()]),
+            (want[0][o], want[1][o]), mag[o], what))
+    if bool(out[3][rows:].any()):
+        raise AssertionError(f"{what}: rows past the last real tile hold "
+                             "flags")
+    return worst, n_pairs, n_tiles
+
+
+def phase_macro_path(check_err, pairbands_ref, repeat=3):
+    """wandering64-1M, banded64-1M and pairbands-500k through
+    run_benchmark(engine="macro") at full size, and the three kernel rows,
+    each timed at the matrix that reaches its entry."""
+    cfg = SpGEMMConfig(engine="macro", repeat=repeat)
+    rows_out = []
+    for name, make in MACRO_MATRICES.items():
+        want_type, want_planner, entry = MACRO_EXPECT[name]
+        coo = make()
+        n = coo.shape[0]
+        reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        rec, res = run_benchmark(coo, name, cfg, verbose=False)
+        launches = dict(mk.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if res.engine != "macro":
+            raise AssertionError(f"{name}: engine {res.engine!r}")
+        steady_nnz = int(res.cptr[-1])
+        if steady_nnz != res.c_nnz:
+            raise AssertionError(
+                f"{name}: C_nnz {res.c_nnz} on the interactive (plain) path, "
+                f"{steady_nnz} on the steady (kernel) path")
+        if launches[entry] <= 0 or sum(launches.values()) != launches[entry]:
+            raise AssertionError(f"{name}: launches {launches}")
+        info = dict(matrix=name, engine=res.engine, n=n, nnz=coo.nnz,
+                    flop=rec.flop, c_nnz=res.c_nnz, steady_c_nnz=steady_nnz,
+                    c_tiles=res.c_ntiles, pairs=res.n_pairs,
+                    launches=launches, times_ms=record_times(rec),
+                    peak_mem_gb=peak)
+        if name in DIA_RECORDED:
+            info["jax_recorded_c_nnz"] = DIA_RECORDED[name][0]
+            if res.c_nnz != DIA_RECORDED[name][0]:
+                raise AssertionError(f"{name}: C_nnz {res.c_nnz} != "
+                                     f"{DIA_RECORDED[name][0]}")
+        if name == "wandering64-1M":
+            g = np.random.default_rng(20)
+            sample = np.sort(g.choice(n, MACRO_SAMPLE_ROWS, replace=False))
+            got = row_nnz_of_tiles(res.c_tile_row, res.c_counts,
+                                   -(-n // 128))[
+                torch.from_numpy(sample).to(DEV)].cpu().numpy()
+            want = scipy_row_nnz(coo, sample)
+            if not np.array_equal(got, want):
+                raise AssertionError(
+                    f"{name}: per-row nnz differs from scipy's on "
+                    f"{int((got != want).sum())} of {len(sample)} rows")
+            info.update(sampled_rows=len(sample), row_nnz_equal=True,
+                        sampled_nnz=int(want.sum()))
+        if name == "pairbands-500k":
+            c = res.to_coo()
+            cancelled, ratio = check_coo(c.rows, c.cols, c.vals,
+                                         pairbands_ref, f"{name} as macro")
+            info.update(scipy_c_nnz=len(c.rows), coo_equal=True,
+                        values_worst_over_bound=ratio,
+                        values_outside_plain_rtol=cancelled)
+            del c
+        del res
+        torch.cuda.empty_cache()
+
+        # the plan again, outside the harness: what it is, what one steady
+        # multiply launches, and its C tiles against the plain path
+        a = coo_to_macro(coo)
+        del coo
+        res, plan = macro_plan_of(a, cfg)
+        del res
+        if not isinstance(plan, want_type) or \
+                getattr(plan, "planner", None) != want_planner:
+            raise AssertionError(
+                f"{name}: plan {type(plan).__name__} from "
+                f"{getattr(plan, 'planner', None)}, expected "
+                f"{want_type.__name__} from {want_planner}")
+        reset_launch_counts()
+        out = plan.run(a, a)
+        torch.cuda.synchronize()
+        per_multiply = mk.LAUNCHES[entry]
+        err, n_pairs, n_tiles = hold_macro_output(
+            a, plan, out, f"{name} steady output against the plain path")
+        info.update(plan=type(plan).__name__, a_tiles=a.ntiles,
+                    plain_path_equal=True, max_abs_err=err,
+                    launches_per_multiply=per_multiply)
+        c_rows = int(out[2].shape[0])
+        del out
+        torch.cuda.empty_cache()
+        if isinstance(plan, StencilMacroPlan):
+            sp = plan.plan
+            uniform = all(isinstance(c[1], int) for c in sp.classes)
+            info.update(planner=plan.planner, coverage=sp.coverage,
+                        classes=len(sp.classes), uniform_p=uniform,
+                        residual_pairs=int(sp.res_pa.numel()),
+                        residual_tiles=sp.n_res_tiles,
+                        max_pairs_a_step=max(sum(st.p_list_of(c[0], c[1]))
+                                             for c in sp.classes))
+            slabs = (torch.empty((sp.c_cap, 128, 128), device=DEV),
+                     torch.empty((sp.c_cap, 128, 128), dtype=torch.uint8,
+                                 device=DEV))
+            class_rows = sum(c[0] * (b.numel() // 2) for c, b in
+                             zip(sp.classes, sp.class_bases))
+            lib_pairs = class_pairs(sp)
+
+            def classes_through(call):
+                def run():
+                    for cls, bases, tables in zip(sp.classes, sp.class_bases,
+                                                  sp.class_tables):
+                        call(cls, bases, tables)
+                return run
+
+            def ragged(cls, bases, tables):
+                mk.class_call2(*slabs, a.dense, a.dense, bases, *cls,
+                               bases.numel() // 2, tables=tables)
+
+            def uniform_entry(cls, bases, tables):
+                mk.class_call(*slabs, a.dense, a.dense, bases, *cls,
+                              tables=tables)
+
+            def plain(cls, bases, tables):
+                st.class_call_plain(*slabs, a.dense, a.dense, bases, cls[0],
+                                    cls[1], cls[4], cls[5], cls[6])
+
+            timed = ("the plan's class launches, one after another: the "
+                     "class path of one steady multiply")
+            if name == "wandering64-1M":
+                rows_out.append(macro_row(
+                    "macro_class_ragged",
+                    "pem_spgemm_tpu/ops/pallas_stencil.py:309", name,
+                    classes_through(ragged), classes_through(plain),
+                    lib_pairs, a, int(lib_pairs[0].numel()), class_rows,
+                    launches[entry], per_multiply,
+                    max(err, check_err["macro_class_ragged"]),
+                    dict(classes=len(sp.classes), timed=timed)))
+            elif uniform:
+                # the uniform entry has no caller on the path: its row is
+                # timed on these classes beside the ragged entry, and both
+                # write the same bits
+                reset_launch_counts()
+                classes_through(uniform_entry)()
+                got_u = slabs[0][:class_rows].clone()
+                classes_through(ragged)()
+                torch.cuda.synchronize()
+                if not torch.equal(got_u, slabs[0][:class_rows]):
+                    raise AssertionError(f"{name}: the two class entries "
+                                         "disagree")
+                del got_u
+                rows_out.append(macro_row(
+                    "macro_class_uniform",
+                    "pem_spgemm_tpu/ops/pallas_stencil.py:118", name,
+                    classes_through(uniform_entry), classes_through(plain),
+                    lib_pairs, a, int(lib_pairs[0].numel()), class_rows, 0, 0,
+                    max(err, check_err["macro_class_uniform"]),
+                    dict(classes=len(sp.classes), timed=timed,
+                         ragged_entry_ms=time_ms(classes_through(ragged)),
+                         bit_equal_to_ragged_entry=True,
+                         caller="none on the path, as in the JAX package")))
+            del slabs, lib_pairs
+        else:
+            _np, _nt, (_r, _c, a_idx, b_idx, seg) = macro_pairs(a, a)
+            rows_out.append(macro_row(
+                "macro_accumulate_pairs",
+                "pem_spgemm_tpu/ops/pallas_macro2.py:232", name,
+                lambda: mk.accumulate_macro_pairs(a.dense, a.dense, a_idx,
+                                                  b_idx, seg, plan.c_cap),
+                lambda: M.accumulate_macro(a.dense, a.dense, a_idx, b_idx,
+                                           seg, plan.c_cap, 256),
+                (a_idx[:n_pairs], b_idx[:n_pairs]), a, n_pairs, plan.c_cap,
+                launches[entry], per_multiply,
+                max(err, check_err["macro_accumulate_pairs"]),
+                dict(c_tiles=n_tiles, p_cap=int(a_idx.numel()))))
+            del a_idx, b_idx, seg
+        emit("macro_path", **info)
+        del a, plan
+        torch.cuda.empty_cache()
+    return rows_out
+
+
+def run_profile_macro(matrix, n):
+    """A Macro128 matrix's steady multiply: the cached plan replayed."""
+    cfg = SpGEMMConfig(engine="macro")
+    a = coo_to_macro(MACRO_MATRICES[matrix]())
+    res, plan = macro_plan_of(a, cfg)
+    info = dict(matrix=matrix, plan=type(plan).__name__, a_tiles=a.ntiles,
+                pairs=res.n_pairs, c_tiles=res.c_ntiles, c_nnz=res.c_nnz)
+    if isinstance(plan, StencilMacroPlan):
+        info.update(planner=plan.planner, coverage=plan.plan.coverage,
+                    classes=len(plan.plan.classes),
+                    residual_pairs=int(plan.plan.res_pa.numel()))
+    emit("profile_setup", **info)
+    del res
+
+    def multiply():
+        return plan.run(a, a)[4]
+
+    multiply()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        multiply()
+        torch.cuda.synchronize()
+    synced = (time.perf_counter() - t0) / n
+    launches = {k: v / n for k, v in mk.LAUNCHES.items()}
+    t0 = time.perf_counter()
+    for _ in range(n):
+        last = multiply()
+    torch.cuda.synchronize()
+    queued = (time.perf_counter() - t0) / n
+    del last
+    emit("profile_steady", matrix=matrix, synced_ms=synced * 1e3,
+         queued_ms=queued * 1e3, device_ms=time_ms(multiply, n),
+         kernel_launches_per_multiply=launches,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+    profile_device(matrix, multiply, n)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=["kernel_check"], default=None,
                     help="build the kernels, check them, and stop")
     ap.add_argument("--profile",
-                    choices=sorted(MATRICES) + sorted(DIA_MATRICES),
+                    choices=sorted(MATRICES) + sorted(DIA_MATRICES)
+                    + ["wandering64-1M"],
                     default=None,
                     help="profile this matrix's steady multiply and stop")
     ap.add_argument("--no-pack", action="store_true",
@@ -1003,6 +1623,9 @@ def main():
          torch=torch.__version__, cuda=torch.version.cuda,
          kernel_build_s=build_s)
 
+    if args.profile == "wandering64-1M":
+        run_profile_macro(args.profile, args.iters)
+        return 0
     if args.profile in DIA_MATRICES:
         run_profile_dia(args.profile, args.iters)
         return 0
@@ -1012,6 +1635,7 @@ def main():
 
     check_err = phase_kernel_check()
     check_err.update(phase_dia_kernel_check())
+    check_err.update(phase_macro_kernel_check())
     if args.only == "kernel_check":
         return 0
 
@@ -1025,9 +1649,17 @@ def main():
          "segment_sort_dedup": sort_launches}, check_err)
     del plan_cg, a, b, coo_pl, want_pl
     torch.cuda.empty_cache()
-    kernels += phase_dia_kernels(phase_dia_path(), check_err)
+    kept = phase_dia_path()
+    pairbands_ref = kept["pairbands-500k"].pop("ref")
+    kernels += phase_dia_kernels(kept, check_err)
+    del kept
+    torch.cuda.empty_cache()
+    kernels += phase_macro_path(check_err, pairbands_ref)
     for row in kernels:
-        if row["launches"] <= 0:
+        # the uniform class entry has no caller on any path (nor has the
+        # kernel it replaces in the JAX package): it is held against its
+        # plain version and the ragged entry above, and reports 0 launches
+        if row["launches"] <= 0 and row["name"] != "macro_class_uniform":
             raise AssertionError(f"{row['name']} was never launched on "
                                  "the main path")
     emit("total", seconds=time.perf_counter() - t_start)

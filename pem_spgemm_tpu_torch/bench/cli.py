@@ -6,7 +6,7 @@ and adds flags for the knobs the reference bakes in at compile time:
 
   python -m pem_spgemm_tpu_torch.bench.cli <matrix> <0|1 save> [1]
          [--repeat N] [--warmup N] [--fastest] [--dtype f32]
-         [--engine auto|element|dia] [--device DEVICE]
+         [--engine auto|element|dia|macro] [--device DEVICE]
          [--csv PATH] [--no-csv] [--outdir DIR]
 
 <matrix> is a .mtx path or a synthetic spec like
@@ -43,7 +43,7 @@ def main(argv=None):
     p.add_argument("--save-converted", metavar="PATH",
                    help="persist the converted A operand (not ported yet)")
     p.add_argument("--engine", default="auto",
-                   choices=("auto", "element", "dia"))
+                   choices=("auto", "element", "dia", "macro"))
     p.add_argument("--device", default=None,
                    help="torch device of the multiply (default: the GPU)")
     args = p.parse_args(argv)
@@ -66,7 +66,7 @@ def main(argv=None):
     if args.matrix.endswith(".mtx"):
         coo = read_matrix_market(args.matrix).sum_duplicates()
     else:
-        coo = by_name(args.matrix)
+        coo = by_name(args.matrix, device=args.device)
     if args.aat == 0 and coo.shape[0] != coo.shape[1]:
         p.error("A@A needs a square matrix; rectangular inputs are only "
                 "allowed in A@A.T mode (pass trailing 1)")

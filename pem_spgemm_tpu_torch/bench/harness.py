@@ -11,7 +11,7 @@ Mirrors the reference's measurement protocol:
 Three tiers are reported: interactive (plan + multiply + c_nnz feedback per
 iteration, the CSV's pem_spgemm_time), steady (the cached plan replayed, one
 sync per iteration) and pipelined (replays queued back to back, one sync at
-the end).  The element, dia and auto branches are ported.
+the end).  The element, dia, macro and auto branches are ported.
 """
 
 from __future__ import annotations
@@ -60,7 +60,7 @@ def run_benchmark(coo: COOMatrix, name: str,
     """
     cfg = config
     dev = resolve_device(device)
-    if cfg.engine not in ("auto", "element", "dia"):
+    if cfg.engine not in ("auto", "element", "dia", "macro"):
         raise not_ported(cfg.engine)
 
     # --- conversion (timed once, like the reference) ---
@@ -119,6 +119,19 @@ def run_benchmark(coo: COOMatrix, name: str,
             force_sync(b.bands)
             t_b = time.perf_counter() - t0
             continue
+        if cfg.engine == "macro":
+            # macro-dispatched workloads convert straight to Macro128 (the
+            # Tile16 form would only hold the operand a second time)
+            from pem_spgemm_tpu_torch.ops.convert import coo_to_macro
+            t0 = time.perf_counter()
+            a = coo_to_macro(coo_dev, dtype=cfg.dtype)
+            force_sync(a.dense)
+            t_a = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            b = a if not aat else coo_to_macro(b_coo_dev, dtype=cfg.dtype)
+            force_sync(b.dense)
+            t_b = time.perf_counter() - t0
+            continue
         t0 = time.perf_counter()
         a = coo_to_tiled(coo_dev, dtype=cfg.dtype)
         if element_f32:
@@ -175,7 +188,8 @@ def run_benchmark(coo: COOMatrix, name: str,
 
     # the steady tiers replay a plan; an empty product has none
     steady = pipelined = 0.0
-    if result.binned is not None or result.dia_dc is not None:
+    if (result.binned is not None or result.dia_dc is not None
+            or result.c_tile_row is not None):
         steady, pipelined = _steady_tiers(result, cfg, a, b, dev)
 
     record = BenchmarkRecord(
@@ -215,10 +229,12 @@ def _steady_tiers(result, cfg, a, b, dev):
     from pem_spgemm_tpu_torch.ops.fixed import make_plan
     plan = make_plan(result, cfg, a, b)
     is_dia = result.engine == "dia"
-    if is_dia:
-        # the dense C band stacks are the big allocation: release the
-        # interactive result's for the timing loops and refresh them from
-        # the last planned output below
+    is_macro = result.engine == "macro"
+    if is_dia or is_macro:
+        # the dense C band stacks (DIA) and the multi-GB dense C tiles
+        # (macro) are the big allocation: release the interactive result's
+        # for the timing loops and refresh them from the last planned output
+        # below
         result.vals = None
         result.c_counts = None
     out = plan.run(a, b)
@@ -254,7 +270,7 @@ def _steady_tiers(result, cfg, a, b, dev):
     inflight = _inflight_bound(gen_bytes, dev)
     reps = max(cfg.repeat, 8) if inflight >= 8 else cfg.repeat
     warm_out = None
-    if not is_dia:
+    if not (is_dia or is_macro):
         out = None
     last = None
     t0 = time.perf_counter()
@@ -267,4 +283,10 @@ def _steady_tiers(result, cfg, a, b, dev):
     if is_dia:
         result.vals = out[0]
         result.c_counts = out[1]
+    if is_macro:
+        # a macro plan may emit another order and capacity than the
+        # interactive run (the stencil plan emits slab order): the
+        # coordinates are refreshed together with the values
+        (result.c_tile_row, result.c_tile_col, result.vals,
+         result.c_counts, result.cptr) = out[:5]
     return steady, pipelined

@@ -56,10 +56,11 @@ class SpGEMMConfig:
     # float32; other dtypes belong to the merge engine, not ported yet.
     dtype: torch.dtype = torch.float32
 
-    # Accumulation dtype of the tiled engines (unused by this slice).
+    # Accumulation dtype of the tiled engines (None: the value dtype).
     acc_dtype: Optional[torch.dtype] = None
 
-    # Matmul precision of the tiled engines (unused by this slice).
+    # Matmul precision of the tiled engines.  The Macro128 engine runs in
+    # full float32 ("highest") and refuses anything else.
     precision: str = "highest"
 
     # Pairs per matmul chunk of the tiled engines (unused by this slice).
@@ -97,13 +98,14 @@ class SpGEMMConfig:
     # occupied 128x128 macro tile of both operands is at least this.
     macro_threshold: float = 512.0
 
-    # Macro-tile pairs per matmul chunk (unused by this slice).
+    # Macro-tile pairs per batched product of the Macro128 engine's plain
+    # accumulation (the interactive path and the residual pairs).
     macro_chunk: int = 256
 
     # The JAX package's switch between its hand-written kernels and their
     # plain versions.  Unused by the ported engines: here the tensors'
     # device alone decides (GPU tensors launch the kernels, CPU tensors
-    # take the plain versions).  Kept for the tiled engines (not ported yet).
+    # take the plain versions).  Kept for the Tile16 engines (not ported yet).
     use_pallas: bool = True
 
     # Benchmark protocol (reference defaults: WARMUP=1, REPEAT=10).

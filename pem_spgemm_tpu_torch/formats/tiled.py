@@ -25,7 +25,7 @@ class TiledMatrix:
     one device.
 
     Instances are immutable.  Derived conversion products (element_csr,
-    macro_stats, the binned chunk table, the binned plan) are cached on
+    macro, macro_stats, the binned chunk table, the binned plan) are cached on
     the instance via object.__setattr__ and never invalidated: to change
     values or structure, convert again from COO.
     """
@@ -115,9 +115,13 @@ class TiledMatrix:
         return cached
 
     def macro(self):
-        raise NotImplementedError(
-            "the Macro128 form belongs to the macro engine "
-            "(ROADMAP slice 3), which is not ported yet")
+        """Cached Macro128 (dense 128x128) form for the macro engine."""
+        cached = getattr(self, "_macro_cache", None)
+        if cached is None:
+            from pem_spgemm_tpu_torch.ops.convert import tiled_to_macro
+            cached = tiled_to_macro(self)
+            object.__setattr__(self, "_macro_cache", cached)
+        return cached
 
     def dense_flat(self):
         raise NotImplementedError(

@@ -15,6 +15,7 @@ import torch
 
 from pem_spgemm_tpu_torch.config import resolve_device
 from pem_spgemm_tpu_torch.formats.dia import DiaMatrix
+from pem_spgemm_tpu_torch.formats.macro import MacroMatrix
 from pem_spgemm_tpu_torch.formats.tiled import TiledMatrix
 from pem_spgemm_tpu_torch.ops.binned import (BinnedPlan, Bucket, ChunkedB,
                                              FineStream, FineTable,
@@ -51,6 +52,35 @@ def dia_from_numpy(d: dict, device=None) -> DiaMatrix:
     return DiaMatrix(bands=_t(d["bands"], dev), shape=tuple(d["shape"]),
                      offsets=tuple(int(x) for x in d["offsets"]),
                      nnz=int(d["nnz"]))
+
+
+def macro_from_numpy(d: dict, device=None) -> MacroMatrix:
+    """MacroMatrix from a dict of its fields."""
+    dev = resolve_device(device)
+    arrays = ("tile_row", "tile_col", "tile_rowptr", "dense")
+    return MacroMatrix(**{k: _t(d[k], dev) for k in arrays},
+                       shape=tuple(d["shape"]), ntiles=int(d["ntiles"]),
+                       nnz=int(d["nnz"]))
+
+
+def stencil_plan_from_numpy(d: dict, device=None):
+    """ops.stencil.StencilPlan from a dict of the JAX package's StencilPlan
+    fields (``classes`` tuples, ``class_bases`` a list of arrays); the class
+    kernels' tables are rebuilt for ``device``."""
+    from pem_spgemm_tpu_torch.ops.stencil import StencilPlan, class_tables
+    dev = resolve_device(device)
+    classes = tuple(
+        (int(t), int(p) if np.ndim(p) == 0 else tuple(int(x) for x in p),
+         int(ar), int(br), tuple(int(x) for x in ao),
+         tuple(int(x) for x in bo), int(base))
+        for (t, p, ar, br, ao, bo, base) in d["classes"])
+    return StencilPlan(
+        classes=classes, class_bases=_tt(d["class_bases"], dev),
+        res_pa=_t(d["res_pa"], dev), res_pb=_t(d["res_pb"], dev),
+        res_seg=_t(d["res_seg"], dev), n_res_tiles=int(d["n_res_tiles"]),
+        order=np.asarray(d["order"], np.int64), c_cap=int(d["c_cap"]),
+        n_tiles=int(d["n_tiles"]), coverage=float(d["coverage"]),
+        class_tables=class_tables(classes, dev))
 
 
 def chunked_b_from_numpy(d: dict, device=None) -> ChunkedB:

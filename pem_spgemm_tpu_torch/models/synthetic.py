@@ -145,8 +145,58 @@ def banded_device(n: int, bands=(0, 1, -1, 16, -16), seed: int = 0,
     return COOMatrix(rows, c[valid], vals2[valid], (n, n))
 
 
-def by_name(spec: str) -> COOMatrix:
-    """Parse 'family:k=v,k=v' benchmark specs, e.g. 'banded:n=200000'."""
+def wandering_device(n: int, width: int = 64, block: int = 128,
+                     step_max: int = 2, seed: int = 0,
+                     device=None) -> COOMatrix:
+    """Irregular-macro regime: a dense band whose center WANDERS, generated
+    on the device (``None``: the GPU).
+
+    Each 128-row block g carries a ``width``-wide dense band centered at
+    column ``i + 128*m_g``, where m_g is a reflected random walk (steps in
+    [-step_max, step_max]).  Locally this is banded-like (dense-ish 128x128
+    macro tiles), but the diagonal census is ~width * (#distinct walk
+    values), so the DIA engine refuses it, and the macro pair stream has no
+    periodic signature, so the periodic stencil planner does not cover it.
+
+    Counterpart of the JAX package's wandering_device: the walk is drawn
+    from ``np.random.default_rng(seed)`` exactly as there, so the structure
+    (and the k-major element order) is identical for the same arguments;
+    the values are float32 standard normals from a ``torch.Generator`` on
+    the device, exact zeros replaced by 1.0 as in banded_device.  Offsets
+    are multiples of ``block`` and the walk is reflected into per-block
+    bounds, so every element is in range: nnz == n * width exactly.
+    """
+    import torch
+    from pem_spgemm_tpu_torch.config import resolve_device
+    dev = resolve_device(device)
+    if n % block:
+        raise ValueError(f"n={n} must be a multiple of block={block}")
+    nb = n // block
+    w2 = width // 2
+    rs = np.random.default_rng(seed)
+    steps = rs.integers(-step_max, step_max + 1, nb)
+    m = np.empty(nb, np.int64)
+    cur = 1                                   # m_0 >= 1 keeps col-32 >= 0
+    for g in range(nb):
+        cur = int(np.clip(cur + steps[g], 1 - g, nb - g - 2))
+        m[g] = cur
+    m_dev = torch.from_numpy(m.astype(np.int32)).to(dev)
+    r = torch.arange(n, dtype=torch.int32, device=dev)
+    center = r + block * m_dev[(r // block).long()]
+    ks = torch.arange(-w2, width - w2, dtype=torch.int32, device=dev)
+    cols2 = ks[:, None] + center[None, :]              # (width, n) k-major
+    rows2 = r[None, :].expand(width, n)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    vals2 = torch.randn((width, n), generator=gen, device=dev,
+                        dtype=torch.float32)
+    vals2[vals2 == 0] = 1.0
+    return COOMatrix(rows2.reshape(-1), cols2.reshape(-1),
+                     vals2.reshape(-1), (n, n))
+
+
+def by_name(spec: str, device=None) -> COOMatrix:
+    """Parse 'family:k=v,k=v' benchmark specs, e.g. 'banded:n=200000'.
+    ``device`` goes to the families that generate on the device."""
     name, _, argstr = spec.partition(":")
     kwargs = {}
     if argstr:
@@ -154,8 +204,11 @@ def by_name(spec: str) -> COOMatrix:
             k, _, v = part.partition("=")
             kwargs[k] = float(v) if "." in v else int(v)
     fams = {"banded": banded, "power_law": power_law, "rmat": rmat,
-            "uniform_random": uniform_random}
+            "uniform_random": uniform_random,
+            "wandering": wandering_device}
     if name not in fams:
         raise ValueError(f"unknown synthetic family {name!r}; "
                          f"one of {sorted(fams)}")
+    if name == "wandering":
+        kwargs["device"] = device
     return fams[name](**kwargs)

@@ -132,6 +132,11 @@ def test_segment_ids_from_offsets_equal(offsets, cap):
 
 @pytest.mark.parametrize("member", ["macro", "dense_flat", "intra_rowptr"])
 def test_tile16_members_of_later_slices_raise(member):
-    _, ta = both_tiled(_matrix("square"))
+    ja, ta = both_tiled(_matrix("square"))
+    if member == "macro":
+        # slice 3 has landed: the member gives the Macro128 form, equal to
+        # the JAX package's
+        assert_same(ja.macro(), ta.macro(), "macro")
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP slice"):
         getattr(ta, member)()

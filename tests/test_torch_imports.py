@@ -30,6 +30,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "pem_spgemm_tpu_torch.bench.harness",
             "pem_spgemm_tpu_torch.bench.cli",
             "pem_spgemm_tpu_torch.formats.dia",
+            "pem_spgemm_tpu_torch.formats.macro",
+            "pem_spgemm_tpu_torch.ops.symbolic",
+            "pem_spgemm_tpu_torch.ops.cstruct",
+            "pem_spgemm_tpu_torch.ops.macro",
+            "pem_spgemm_tpu_torch.ops.stencil",
+            "pem_spgemm_tpu_torch.ops.macro_kernels",
             "pem_spgemm_tpu_torch.io.mtx",
             "pem_spgemm_tpu_torch.ops._build",
             "pem_spgemm_tpu_torch.ops.dia_kernels",
@@ -90,6 +96,19 @@ def test_device_none_without_cuda_raises():
         detect_dia(coo)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         coo_to_dia(coo)
+    from pem_spgemm_tpu_torch import coo_to_macro
+    from pem_spgemm_tpu_torch.models.synthetic import by_name, \
+        wandering_device
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        coo_to_macro(coo)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        wandering_device(n=256)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        by_name("wandering:n=256")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_benchmark(coo, "m", SpGEMMConfig(engine="macro"), verbose=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        interop.macro_from_numpy({})
     assert resolve_device("cpu") == torch.device("cpu")
 
 
@@ -129,11 +148,42 @@ def test_dia_kernel_source_and_loader_agree():
     assert int(re.search(r"constexpr int ROWS = (\d+);", src).group(1)) \
         == dk.ROWS
     # one build module serves every CUDA source, and each is a file
-    assert set(_build.CUDA_SOURCES) == {"segment_sort", "dia_multiply"}
+    assert set(_build.CUDA_SOURCES) == {"segment_sort", "dia_multiply",
+                                        "macro_accumulate"}
     for stem in _build.CUDA_SOURCES:
         assert os.path.isfile(_build.cuda_source(stem))
         assert _build.library_path(_build.cuda_source(stem)).startswith(
             os.path.join(_build.BUILD_DIR, f"lib{stem}_"))
+
+
+def test_macro_kernel_source_and_loader_agree():
+    import ctypes
+    from pem_spgemm_tpu_torch.ops import macro_kernels as mk
+    assert os.path.isfile(mk.SOURCE)
+    src = open(mk.SOURCE).read()
+    entries = ("macro_accumulate_pairs_f32", "macro_class_ragged_f32",
+               "macro_class_uniform_f32")
+    for symbol in entries:
+        assert f'extern "C" int {symbol}(' in src
+    # hand-written products: no library GEMM, no PyTorch headers
+    for banned in ("torch/extension.h", "cublas", "cutlass", "wmma"):
+        assert banned not in src.lower()
+    assert "fmaf(" in src
+    assert set(mk.LAUNCHES) == {e[:-4] for e in entries}
+
+    # the ctypes declarations match the number of C parameters
+    class Lib:
+        pass
+
+    lib = Lib()
+    for e in entries:
+        setattr(lib, e, Lib())
+    mk._declare(lib)
+    for e in entries:
+        params = src.split(f'extern "C" int {e}(')[1].split(")")[0]
+        fn = getattr(lib, e)
+        assert len(fn.argtypes) == params.count(",") + 1, e
+        assert fn.restype is ctypes.c_int
 
 
 def test_build_is_by_content_and_a_failed_build_raises(tmp_path, monkeypatch):

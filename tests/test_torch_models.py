@@ -75,7 +75,11 @@ def test_banded_device_defaults_to_the_gpu():
 
 def test_by_name_rejects_unknown_family():
     with pytest.raises(ValueError, match="unknown synthetic family"):
-        t_syn.by_name("wandering:n=1024")
+        t_syn.by_name("kronecker:n=1024")
+    # "wandering" was refused here until the Macro128 engine was ported: now
+    # it is a family, generated on the device the caller names
+    got = t_syn.by_name("wandering:n=1024", device="cpu")
+    assert got.nnz == 1024 * 64 and tuple(got.shape) == (1024, 1024)
 
 
 def test_config_fields_and_defaults_match():

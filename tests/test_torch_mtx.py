@@ -189,10 +189,10 @@ def test_cli_save_result(tmp_path):
     assert len(vals) == nnz
 
 
-@pytest.mark.parametrize("engine", ["auto", "element", "dia"])
+@pytest.mark.parametrize("engine", ["auto", "element", "dia", "macro"])
 def test_cli_reads_a_matrix_market_file(tmp_path, engine):
     # a tridiagonal matrix written as a symmetric .mtx: auto takes the DIA
-    # engine, element is forced past it, and all agree with scipy
+    # engine, element and macro are forced past it, and all agree with scipy
     n = 120
     lines = [f"{i + 1} {i + 1} {1.0 + i % 7}" for i in range(n)]
     lines += [f"{i + 2} {i + 1} {0.5 + i % 3}" for i in range(n - 1)]
@@ -227,8 +227,10 @@ def test_cli_rejects_what_is_not_ported(tmp_path):
         cli.main(base + ["--dtype", "bf16"])
     with pytest.raises(NotImplementedError, match="slice 6"):
         cli.main(base + ["--save-converted", str(tmp_path / "a.npz")])
-    with pytest.raises(SystemExit):
-        cli.main(base + ["--engine", "macro"])
+    with pytest.raises(SystemExit):             # the Tile16 tier: slice 4
+        cli.main(base + ["--engine", "fused"])
+    assert cli.main(base + ["--engine", "macro", "--repeat", "1"]).c_nnz == \
+        cli.main(base + ["--engine", "dia", "--repeat", "1"]).c_nnz
     with pytest.raises(SystemExit):             # A@A of a rectangular matrix
         cli.main(["uniform_random:n_rows=30,n_cols=20,nnz=50", "0",
                   "--no-csv", "--device", "cpu"])

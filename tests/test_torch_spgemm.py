@@ -1,6 +1,7 @@
 """The slice as a whole: SpGEMM(SpGEMMConfig()) of the port against the JAX
-package's on the same numpy inputs, the engines that are not ported yet,
-and the benchmark harness with its 14-column CSV."""
+package's on the same numpy inputs, the engines that are not ported yet
+(and those that have landed since), and the benchmark harness with its
+14-column CSV."""
 
 import numpy as np
 import pytest
@@ -16,7 +17,8 @@ from pem_spgemm_tpu_torch import SpGEMM, SpGEMMConfig, SpGEMMResult
 from pem_spgemm_tpu_torch.bench.harness import run_benchmark
 from pem_spgemm_tpu_torch.formats.coo import COOMatrix as TCOO
 from pem_spgemm_tpu_torch.ops import segment_sort as ss
-from pem_spgemm_tpu_torch.ops.fixed import BinnedElementPlan, make_plan
+from pem_spgemm_tpu_torch.ops.fixed import (BinnedElementPlan, MacroPlan,
+                                            make_plan)
 from pem_spgemm_tpu_torch.utils.timing import PhaseTimers
 
 
@@ -103,6 +105,23 @@ def test_pick_engine_matches_jax():
     ("macro", 3), ("fused", 4), ("masks", 4), ("dia", 2)])
 def test_engines_of_later_slices_raise(engine, slice_no):
     _, ta = both_tiled(JCOO.from_scipy(random_sparse(64, 64, 0.1, seed=2)))
+    if engine == "macro":
+        # slice 3 has landed: the engine runs on Tile16 operands (through
+        # their Macro128 form) and through the harness, and agrees with scipy
+        coo = TCOO.from_scipy(random_sparse(64, 64, 0.1, seed=2))
+        wr, wc, wv, wnnz = scipy_product(coo)
+        res = SpGEMM(SpGEMMConfig(engine=engine))(ta, ta)
+        rec, res_h = run_benchmark(coo, "m", SpGEMMConfig(engine=engine,
+                                                          repeat=1),
+                                   device="cpu", verbose=False)
+        for r in (res, res_h):
+            assert r.engine == "macro" and r.c_nnz == wnnz
+            got = r.to_coo()
+            np.testing.assert_array_equal(got.rows, wr)
+            np.testing.assert_array_equal(got.cols, wc)
+            np.testing.assert_allclose(got.vals, wv, rtol=1e-4, atol=1e-4)
+        assert rec.c_nnz == wnnz
+        return
     if engine == "dia":
         # slice 2 has landed: the engine refuses Tile16 operands by type, and
         # the harness converts the matrix (at most 127 diagonals) and runs it
@@ -135,13 +154,24 @@ def test_merge_engine_configurations_raise(cfg_kw):
 
 
 def test_auto_dispatch_to_macro_raises_not_detours():
-    # dense tiles: "auto" resolves to the macro engine, which is not
-    # ported; it must raise, never quietly take the element engine
-    _, ta = both_tiled(JCOO.from_scipy(random_sparse(256, 256, 0.9, seed=3)))
+    """The name dates from when the Macro128 engine was not ported and
+    "auto" raised on dense tiles; now "auto" runs the macro engine there, as
+    the JAX package does, and never quietly takes the element engine."""
+    coo = JCOO.from_scipy(random_sparse(256, 256, 0.9, seed=3))
+    ja, ta = both_tiled(coo)
     eng = SpGEMM(SpGEMMConfig(macro_threshold=100.0))
     assert eng.pick_engine(ta, ta) == "macro"
-    with pytest.raises(NotImplementedError, match="ROADMAP slice 3"):
-        eng(ta, ta)
+    res = eng(ta, ta)
+    jres = JSpGEMM(JConfig(macro_threshold=100.0))(ja, ja)
+    assert res.engine == jres.engine == "macro" and res.binned is None
+    assert (res.c_nnz, res.n_pairs, res.c_ntiles) == \
+        (jres.c_nnz, jres.n_pairs, jres.c_ntiles)
+    wr, wc, wv, wnnz = scipy_product(coo)
+    got = res.to_coo()
+    assert res.c_nnz == wnnz
+    np.testing.assert_array_equal(got.rows, wr)
+    np.testing.assert_array_equal(got.cols, wc)
+    np.testing.assert_allclose(got.vals, wv, rtol=1e-4, atol=1e-4)
 
 
 def test_run_benchmark_writes_the_14_column_csv(tmp_path):
@@ -210,7 +240,15 @@ def test_make_plan_element_branch():
     assert plan.grown() is plan
     out = plan.run(ta, ta)
     assert int(plan.fence(out)) == res.c_nnz and not bool(out[-1])
-    res.engine = "macro"
+    # the macro branch: a MacroPlan on CPU operands, equal to the
+    # interactive macro result; an engine that is not ported still raises
+    mcfg = SpGEMMConfig(engine="macro")
+    mres = SpGEMM(mcfg)(ta, ta)
+    mplan = make_plan(mres, mcfg, ta, ta)
+    assert isinstance(mplan, MacroPlan)
+    mout = mplan.run(ta, ta)
+    assert int(mout[5]) == mres.c_nnz == res.c_nnz and not bool(mout[-1])
+    res.engine = "fused"
     res.binned = None
-    with pytest.raises(NotImplementedError, match="ROADMAP slice 3"):
+    with pytest.raises(NotImplementedError, match="ROADMAP slice 4"):
         make_plan(res, cfg, ta, ta)
