@@ -29,7 +29,10 @@ first two, engine="macro" for the third):
     scipy's sorted COO for pairbands-500k.
 
 Beside each path it times every kernel entry at the largest shape its path gives it,
-beside its bound.
+beside its bound (the class entries run on the tensor cores with a 3xTF32
+split: their rows carry the tensor-core bound too).  Last, phase probe
+checks and times the row-copy probe (the port of the JAX package's
+scripts/pallas_probe3.py), which no path runs.
 
 With --profile the script instead shows where one matrix's steady multiply
 spends its time: the host-clock time per multiply (synchronising after each
@@ -52,6 +55,7 @@ import time
 import numpy as np
 import torch
 
+from pem_spgemm_tpu_torch.bench import probe as pr
 from pem_spgemm_tpu_torch.bench.harness import run_benchmark
 from pem_spgemm_tpu_torch.config import SpGEMMConfig
 from pem_spgemm_tpu_torch.formats.coo import COOMatrix
@@ -73,6 +77,7 @@ from pem_spgemm_tpu_torch.ops.spgemm import SpGEMM
 SENT = ss.SENTINEL
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12          # H100 SXM data sheet, outside tensor cores
+TF32_OPS_PER_S = 495e12         # H100 SXM data sheet, tensor cores, dense
 VAL_RTOL, VAL_ATOL = 1e-4, 1e-6     # kernel vs plain: summation order differs
 # C values vs scipy's float64 product: |got - want| <= COO_RTOL * S + COO_ATOL
 # with S the sum of |a*b| over the entry's products (the forward-error bound
@@ -144,6 +149,19 @@ def reset_launch_counts():
     ss.reset_launch_counts()
     dk.reset_launch_counts()
     mk.reset_launch_counts()
+    pr.reset_launch_counts()
+
+
+# the row-copy probe's launches, summed over every path run (no path calls
+# it: its row reports what was counted all the same)
+PATH_LAUNCHES = {"row_copy": 0}
+
+
+def path_launches(counts):
+    """A copy of an engine's launch counts, read just after a path run;
+    the probe's count of the same run is added to PATH_LAUNCHES."""
+    PATH_LAUNCHES["row_copy"] += pr.LAUNCHES["row_copy"]
+    return dict(counts)
 
 
 def emit(phase, **kw):
@@ -319,9 +337,19 @@ def dia_bound(a, b, offs_a, idx_map, dcn, n_out):
     return COO_RTOL * mag + COO_ATOL
 
 
-def dia_hold(got, want, bound, what):
+# worst |err| / bound of each kernel entry over its kernel-check cases
+WORST_OVER = {}
+
+
+def note_over(key, over):
+    if key is not None:
+        WORST_OVER[key] = max(WORST_OVER.get(key, 0.0), over)
+
+
+def dia_hold(got, want, bound, what, key=None):
     """Counts exactly equal (so cnt > 0 is too), values inside the bound.
-    Returns the max abs error of the values."""
+    Returns the max abs error of the values; ``key`` names the entry whose
+    worst ratio to the bound is kept in WORST_OVER."""
     (gc, gn), (wc, wn) = got, want
     if (gn is None) != (wn is None):
         raise AssertionError(f"{what}: one side returned no counts")
@@ -334,6 +362,7 @@ def dia_hold(got, want, bound, what):
     if over > 1.0:
         raise AssertionError(f"{what}: values exceed the float32 "
                              f"dot-product bound by {over}x")
+    note_over(key, over)
     return float(err.max())
 
 
@@ -358,7 +387,8 @@ def dia_case(a, b, offs_a, offs_b, modes, what):
                                   tables=tables[mode])
             torch.cuda.synchronize()
             e = dia_hold(got, want, bound,
-                         f"{what} mode={mode} values_only={values_only}")
+                         f"{what} mode={mode} values_only={values_only}",
+                         key=f"dia_multiply_{mode}")
             errs[mode] = max(errs.get(mode, 0.0), e)
             outs[mode, values_only] = got
         if len(modes) == 2 and not torch.equal(
@@ -388,6 +418,22 @@ def phase_dia_kernel_check():
         n = 10_007
         run(offs, offs, n, n, n, both if d <= 16 else ("dense",),
             f"stencil D={d}", seed=d)
+    # the dense entry's last column block holds one column: n = 1 mod L
+    # (dk.dense_launch: 32 columns a block at 128 bands, 256 at 16)
+    for d, n in ((128, 6_401), (16, 6_145)):
+        offs = tuple(range(-(d // 2), d - d // 2))
+        if n % dk.dense_launch(offs, d, 2 * d - 1)["L"] != 1:
+            raise AssertionError(f"D={d}: n={n} leaves no 1-column block")
+        run(offs, offs, n, n, n, both if d <= 16 else ("dense",),
+            f"stencil D={d}, 1-column last block", seed=d + 1)
+    # n a multiple of 4 with a ragged last block (4 of its 256 columns): the
+    # dense entry's 16-byte stores end exactly at the last column
+    offs16 = tuple(range(-8, 8))
+    run(offs16, offs16, 6_148, 6_148, 6_148, both, "stencil D=16, n=6148", 17)
+    # gapped A offsets in the dense mode: chunks of one and of three bands,
+    # reloads at the gaps, a window wider than L + the chunk's band count
+    run((0, 3, 40, 41, 42), tuple(range(-20, 20)), 3_001, 3_001, 3_001, both,
+        "gapped dense", 55)
     # one A band against five B bands (a B stack that is no multiple of 8)
     run((5,), (-2, -1, 0, 1, 2), 6_001, 6_001, 6_001, both, "D2=5", 50)
     # A and B with different offset sets
@@ -439,6 +485,7 @@ def phase_dia_kernel_check():
     else:
         raise AssertionError("float64 bands on the card did not raise")
     emit("dia_kernel_check", cases=cases, max_abs_err=worst,
+         worst_over_bound={k: WORST_OVER.get(k) for k in dk.LAUNCHES},
          bound="abs err <= 1e-5 * sum|a*b| + 1e-6 (float32 dot product); "
                "counts equal exactly")
     return worst
@@ -459,9 +506,10 @@ def macro_pairs(am, bm, gran=256):
     return n_pairs, int(out[5]), out[:5]
 
 
-def macro_hold(got, want, mag, what):
+def macro_hold(got, want, mag, what, key=None):
     """Flags equal exactly, values inside the float32 dot-product bound
-    COO_RTOL * sum|a*b| + COO_ATOL.  Returns the max abs error."""
+    COO_RTOL * sum|a*b| + COO_ATOL.  Returns the max abs error; ``key`` as
+    in dia_hold."""
     (gn, gf), (wn, wf) = got, want
     if gf.dtype != torch.uint8 or not torch.equal(gf > 0, wf > 0):
         raise AssertionError(f"{what}: structural flags differ")
@@ -473,6 +521,7 @@ def macro_hold(got, want, mag, what):
     if over > 1.0:
         raise AssertionError(f"{what}: values exceed the float32 "
                              f"dot-product bound by {over}x")
+    note_over(key, over)
     return float(err.max()) if err.numel() else 0.0
 
 
@@ -513,11 +562,12 @@ def class_case(a_dense, b_dense, cls, bases, tables, n_steps, entries, what):
                 raise AssertionError(f"{what} {entry}: wrote outside its "
                                      "rows")
         errs[entry] = macro_hold((gn[live], gf[live]), (wn[live], wf[live]),
-                                 mn[live], f"{what} {entry}")
-        outs[entry] = gn[live]
-    if len(entries) == 2 and not torch.equal(*outs.values()):
+                                 mn[live], f"{what} {entry}", key=entry)
+        outs[entry] = (gn[live], gf[live])
+    if len(entries) == 2 and not all(
+            torch.equal(x, y) for x, y in zip(*outs.values())):
         raise AssertionError(f"{what}: the two class entries disagree")
-    return errs
+    return errs, outs
 
 
 def plan_case(am, bm, planner, what, worst, uniform):
@@ -539,7 +589,7 @@ def plan_case(am, bm, planner, what, worst, uniform):
         if uniform != isinstance(cls[1], int):
             raise AssertionError(f"{what}: class p={cls[1]!r}")
         for k, e in class_case(am.dense, bm.dense, cls, bases, tables,
-                               n_steps, entries, f"{what} {tag}").items():
+                               n_steps, entries, f"{what} {tag}")[0].items():
             worst[k] = max(worst[k], e)
         cases += len(entries)
 
@@ -565,7 +615,7 @@ def plan_case(am, bm, planner, what, worst, uniform):
         raise AssertionError(f"{what}: slab order is no permutation")
     e = macro_hold((got[0][:rows], got[1][:rows]),
                    (want[0][order], want[1][order]), mag[order],
-                   f"{what} stencil_accumulate")
+                   f"{what} stencil_accumulate", key="macro_class_ragged")
     if bool(got[0][rows:].any()) or bool(got[1][rows:].any()):
         raise AssertionError(f"{what}: slab rows past the last are not zero")
     worst["macro_class_ragged"] = max(worst["macro_class_ragged"], e)
@@ -580,9 +630,70 @@ def pairs_case(a_dense, b_dense, a_idx, b_idx, seg, c_cap, what, worst):
     got = mk.accumulate_macro_pairs(a_dense, b_dense, a_idx, b_idx, seg,
                                     c_cap)
     torch.cuda.synchronize()
-    e = macro_hold(got, want, mag, what)
+    e = macro_hold(got, want, mag, what, key="macro_accumulate_pairs")
     worst["macro_accumulate_pairs"] = max(worst["macro_accumulate_pairs"], e)
     return got
+
+
+def engineered_tiles(n_tiles, seed):
+    """(n_tiles + 1, 128, 128) float32 tiles on the card, about 1/3 stored,
+    with subnormal (1e-40) and negative-zero entries sprinkled in; the last
+    tile is the all-zero padding tile."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    x = torch.randn((n_tiles + 1, 128, 128), generator=g, device=DEV)
+    u = torch.rand(x.shape, generator=g, device=DEV)
+    x[u < 0.67] = 0.0
+    x[(u >= 0.67) & (u < 0.69)] = 1e-40
+    x[(u >= 0.69) & (u < 0.71)] = -0.0
+    x[-1] = 0.0
+    return x.contiguous()
+
+
+def engineered_class_cases(worst):
+    """The tensor-core class kernel's failure modes on engineered tiles:
+    tiles of 1, 0, 9 and 3 pairs (the 9-pair tile wraps the stage ring
+    across pairs), subnormal and -0.0 entries (flags from the raw values),
+    a tile whose only products are subnormal x normal (flags 1) and one
+    whose only A entries are -0.0 (flags 0); then a uniform class of 9
+    pairs a tile through both entries, bit for bit.  Returns the count."""
+    a = engineered_tiles(24, seed=21)
+    b = engineered_tiles(24, seed=22)
+    # tile pair (A 0, B 0): A row 5 holds one subnormal, row 6 one -0.0, in
+    # column 7; B row 7 is all normal
+    a[0, 5:7] = 0.0
+    a[0, 5, 7] = 1e-42          # its tf32 hi (round to nearest) is 0
+    a[0, 6, 7] = -0.0
+    b[0, 7] = torch.randn(128, device=DEV).abs() + 0.5
+    g = np.random.default_rng(23)
+    cases = 0
+    p = (1, 0, 9, 3)
+    n_p = sum(p)
+    a_offs = (0,) + tuple(int(x) for x in g.integers(0, 12, n_p - 1))
+    b_offs = (0,) + tuple(int(x) for x in g.integers(0, 12, n_p - 1))
+    cls = (4, p, 12, 12, a_offs, b_offs, 0)
+    tables = st.class_tables((cls,), DEV)[0]
+    bases = torch.tensor([0, 0, 12, 12], dtype=torch.int32, device=DEV)
+    errs, outs = class_case(a, b, cls, bases, tables, 2,
+                            ("macro_class_ragged",), "engineered 1/0/9/3")
+    worst["macro_class_ragged"] = max(worst["macro_class_ragged"],
+                                      errs["macro_class_ragged"])
+    num, flag = outs["macro_class_ragged"]
+    # step 0, tile 0: the single pair (A 0, B 0)
+    if not (bool((flag[0, 5] == 1).all()) and not bool(flag[0, 6].any())):
+        raise AssertionError("engineered: the subnormal row must flag every "
+                             "column and the -0.0 row none")
+    if bool(flag[1].any()) or bool(num[1].any()):
+        raise AssertionError("engineered: the tile without pairs is not zero")
+    cases += 1
+    cls_u = (3, 9, 12, 12, tuple(int(x) for x in g.integers(0, 12, 27)),
+             tuple(int(x) for x in g.integers(0, 12, 27)), 0)
+    tables_u = st.class_tables((cls_u,), DEV)[0]
+    errs, _ = class_case(a, b, cls_u, bases, tables_u, 2,
+                         ("macro_class_ragged", "macro_class_uniform"),
+                         "engineered uniform 9")
+    for k, e in errs.items():
+        worst[k] = max(worst[k], e)
+    return cases + 2
 
 
 def phase_macro_kernel_check():
@@ -621,6 +732,9 @@ def phase_macro_kernel_check():
                -(-n_tiles // 256) * 256, "pairs A@A^T", worst)
     cases += 1
     del at, aw, ab, am
+
+    n = engineered_class_cases(worst)
+    cases += n
 
     # the pair stream of a gapped-band matrix (neither planner covers it),
     # with padding pairs, cut to a tile count that is no multiple of 4 and a
@@ -698,6 +812,7 @@ def phase_macro_kernel_check():
         else:
             raise AssertionError("float64 tiles on the card did not raise")
     emit("macro_kernel_check", cases=cases, max_abs_err=worst, plans=info,
+         worst_over_bound={k: WORST_OVER.get(k) for k in mk.LAUNCHES},
          allow_tf32=torch.backends.cuda.matmul.allow_tf32,
          flags_dtype="uint8",
          bound="abs err <= 1e-5 * sum|a*b| + 1e-6 (float32 dot product); "
@@ -762,7 +877,7 @@ def phase_default_path(coo_pl, want_pl):
     reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     rec, res = run_benchmark(coo_pl, "powerlaw-1M", cfg, verbose=False)
-    launches = dict(ss.LAUNCHES)
+    launches = path_launches(ss.LAUNCHES)
     if res.engine != "element" or res.binned is None:
         raise AssertionError("powerlaw-1M did not take the binned engine")
     if launches["segment_dedup"] <= 0:
@@ -792,7 +907,8 @@ def phase_default_path(coo_pl, want_pl):
                                  f"{want_nnz}")
         emit("default_path", matrix=name, flop=rec.flop, c_nnz=res.c_nnz,
              scipy_c_nnz=want_nnz, jax_recorded_c_nnz=RECORDED_C_NNZ[name],
-             launches=dict(ss.LAUNCHES), times_ms=record_times(rec),
+             launches=path_launches(ss.LAUNCHES),
+             times_ms=record_times(rec),
              peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
         del res
     return launches["segment_dedup"]
@@ -823,7 +939,7 @@ def phase_dia_path():
         reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
         rec, res = run_benchmark(coo, name, cfg, verbose=False)
-        launches = dict(dk.LAUNCHES)
+        launches = path_launches(dk.LAUNCHES)
         if res.engine != "dia":
             raise AssertionError(f"{name}: engine {res.engine!r}, not 'dia'")
         offs = tuple(int(x) for x in D.diag_offsets(coo))
@@ -896,7 +1012,7 @@ def phase_kernel_sort_path(coo_pl, want_pl):
     stream = binned.binned_multiply(plan, vmem_sort=True)
     c_nnz = int(stream.c_nnz)
     ms = (time.perf_counter() - t0) * 1e3
-    launches = dict(ss.LAUNCHES)
+    launches = path_launches(ss.LAUNCHES)
     stream.c_nnz = c_nnz
     if launches["segment_sort_dedup"] <= 0:
         raise AssertionError("chunk-granular path launched no sort kernel")
@@ -1329,14 +1445,22 @@ def class_pairs(plan):
 
 
 def macro_row(name, replaces, matrix, fn, plain_fn, lib_pairs, a, n_pairs,
-              c_rows, launches, per_multiply, err, extra):
+              c_rows, launches, per_multiply, err, extra, tensor_cores=False):
     """One row of the kernels line.  Operations: 2 * 128^3 a pair, the
     values' product; the pattern is a bit operation per k-slab in the kernel
     and is not counted.  Bytes: the operand table read once (A @ A reads one
-    table) and every C row written once, values and flags."""
+    table) and every C row written once, values and flags.  The class
+    entries run on the tensor cores with a 3xTF32 split: their rows also
+    carry bound_tc_ms, three tf32 products a product at the TF32 rate, or
+    the bytes where those take longer."""
     ops = TILE_FLOP * n_pairs
     nbytes = a.dense.numel() * 4 + c_rows * 128 * 128 * 5
     b_o, b_b = ops / FP32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    if tensor_cores:
+        b_tc = 3 * ops / TF32_OPS_PER_S
+        extra = dict(extra, bound_tc_ms=max(b_tc, b_b) * 1e3,
+                     bound_tc_by="operations (3xTF32)" if b_tc >= b_b
+                     else "bytes", tf32_operations=3 * ops)
     ms = time_ms(fn)
     return {
         "name": name, "route": "cuda", "source": MACRO_SOURCE,
@@ -1399,7 +1523,7 @@ def phase_macro_path(check_err, pairbands_ref, repeat=3):
         reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
         rec, res = run_benchmark(coo, name, cfg, verbose=False)
-        launches = dict(mk.LAUNCHES)
+        launches = path_launches(mk.LAUNCHES)
         peak = torch.cuda.max_memory_allocated() / 2**30
         if res.engine != "macro":
             raise AssertionError(f"{name}: engine {res.engine!r}")
@@ -1513,17 +1637,19 @@ def phase_macro_path(check_err, pairbands_ref, repeat=3):
                     lib_pairs, a, int(lib_pairs[0].numel()), class_rows,
                     launches[entry], per_multiply,
                     max(err, check_err["macro_class_ragged"]),
-                    dict(classes=len(sp.classes), timed=timed)))
+                    dict(classes=len(sp.classes), timed=timed),
+                    tensor_cores=True))
             elif uniform:
                 # the uniform entry has no caller on the path: its row is
                 # timed on these classes beside the ragged entry, and both
                 # write the same bits
                 reset_launch_counts()
                 classes_through(uniform_entry)()
-                got_u = slabs[0][:class_rows].clone()
+                got_u = [x[:class_rows].clone() for x in slabs]
                 classes_through(ragged)()
                 torch.cuda.synchronize()
-                if not torch.equal(got_u, slabs[0][:class_rows]):
+                if not all(torch.equal(x, y[:class_rows])
+                           for x, y in zip(got_u, slabs)):
                     raise AssertionError(f"{name}: the two class entries "
                                          "disagree")
                 del got_u
@@ -1536,7 +1662,8 @@ def phase_macro_path(check_err, pairbands_ref, repeat=3):
                     dict(classes=len(sp.classes), timed=timed,
                          ragged_entry_ms=time_ms(classes_through(ragged)),
                          bit_equal_to_ragged_entry=True,
-                         caller="none on the path, as in the JAX package")))
+                         caller="none on the path, as in the JAX package"),
+                    tensor_cores=True))
             del slabs, lib_pairs
         else:
             _np, _nt, (_r, _c, a_idx, b_idx, seg) = macro_pairs(a, a)
@@ -1556,6 +1683,60 @@ def phase_macro_path(check_err, pairbands_ref, repeat=3):
         del a, plan
         torch.cuda.empty_cache()
     return rows_out
+
+
+def phase_probe():
+    """P1, the row-copy probe, at the JAX script's shapes: rows of a
+    (500,000, W) int32 table, W = 128 and 256, copied to 100,000 permuted
+    destination rows.  Held against the plain version and against numpy's
+    table[src][argsort(dst)] (the JAX script's own check).  Returns its row
+    of the kernels line (at W = 128; both widths under by_width)."""
+    by_width = {}
+    err = 0
+    for w in pr.WIDTHS:
+        table, src, dst = pr.probe_inputs(w, device=DEV)
+        got = pr.row_copy(table, src, dst)
+        want = pr.row_copy_plain(table, src, dst)
+        err = max(err, int((got.long() - want.long()).abs().max()))
+        if not torch.equal(got, want):
+            raise AssertionError(f"row_copy W={w}: differs from the plain "
+                                 "version")
+        host = table.cpu().numpy()[src.cpu().numpy()][
+            np.argsort(dst.cpu().numpy())]
+        if not np.array_equal(got.cpu().numpy(), host):
+            raise AssertionError(f"row_copy W={w}: differs from numpy's "
+                                 "table[src][argsort(dst)]")
+        rows = src.numel()
+        src_l, dst_l = src.long(), dst.long()
+        out = torch.empty_like(got)
+        ms = time_ms(lambda: pr.row_copy(table, src, dst))
+        moved = 2 * rows * w * 4        # each row read once, written once
+        by_width[w] = {
+            "ms": ms,
+            "plain_ms": time_ms(lambda: pr.row_copy_plain(table, src, dst)),
+            "library_ms": time_ms(lambda: out.index_copy_(
+                0, dst_l, table.index_select(0, src_l))),
+            "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
+            "ns_per_row": ms * 1e6 / rows,
+            "copied_gb_per_s": rows * w * 4 / (ms * 1e-3) / 1e9,
+            "bytes": moved, "rows": rows, "table_rows": table.shape[0]}
+        del table, src, dst, got, want, out
+    first = by_width[pr.WIDTHS[0]]
+    emit("probe", by_width=by_width)
+    return {
+        "name": "row_copy", "route": "cuda",
+        "source": "pem_spgemm_tpu_torch/csrc/row_copy.cu",
+        "replaces": "scripts/pallas_probe3.py:67",
+        # counted over the path runs; no path calls it (the JAX package
+        # runs it from scripts/ only), so the assertion in main exempts it
+        "launches": PATH_LAUNCHES["row_copy"], "caller": "not on any path",
+        "max_abs_err": float(err), "ms": first["ms"],
+        "plain_ms": first["plain_ms"],
+        "bound_ms": first["bound_ms"], "bound_by": "bytes",
+        "library_ms": first["library_ms"],
+        "library_covers": "index_select + index_copy_ with int64 indices",
+        "shape": [pr.TABLE_ROWS, pr.WIDTHS[0]], "kernel_ms": first["ms"],
+        "by_width": by_width}
 
 
 def run_profile_macro(matrix, n):
@@ -1637,6 +1818,7 @@ def main():
     check_err.update(phase_dia_kernel_check())
     check_err.update(phase_macro_kernel_check())
     if args.only == "kernel_check":
+        phase_probe()
         return 0
 
     coo_pl = MATRICES["powerlaw-1M"]()
@@ -1655,11 +1837,15 @@ def main():
     del kept
     torch.cuda.empty_cache()
     kernels += phase_macro_path(check_err, pairbands_ref)
+    kernels.append(phase_probe())
     for row in kernels:
         # the uniform class entry has no caller on any path (nor has the
-        # kernel it replaces in the JAX package): it is held against its
-        # plain version and the ragged entry above, and reports 0 launches
-        if row["launches"] <= 0 and row["name"] != "macro_class_uniform":
+        # kernel it replaces in the JAX package), nor has the row-copy
+        # probe: each is held against its plain version (the uniform entry
+        # also against the ragged one) and reports its count from the path
+        # runs as measured, 0 today
+        if row["launches"] <= 0 and row["name"] not in (
+                "macro_class_uniform", "row_copy"):
             raise AssertionError(f"{row['name']} was never launched on "
                                  "the main path")
     emit("total", seconds=time.perf_counter() - t_start)

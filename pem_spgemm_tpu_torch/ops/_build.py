@@ -29,7 +29,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 GXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-pthread", "-shared")
 
 # every CUDA source of the package, by stem (csrc/<stem>.cu)
-CUDA_SOURCES = ("segment_sort", "dia_multiply", "macro_accumulate")
+CUDA_SOURCES = ("segment_sort", "dia_multiply", "macro_accumulate",
+                "row_copy")
 
 _loaded = {}            # library path -> ctypes.CDLL
 _cuda = {}              # CUDA source stem -> ctypes.CDLL

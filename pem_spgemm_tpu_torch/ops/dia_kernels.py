@@ -13,7 +13,9 @@ first use and bound with ctypes by ops/_build.py):
 Both compute ``C[d1 + d2][i] += A[d1][i] * B[d2][i + d1]`` over all band
 pairs, in ascending A-band order per C element, and the same sum over the
 0/1 masks (float32 structural counts).  ``values_only=True`` launches the
-variant without the mask algebra and returns ``None`` for the counts.
+variant without the mask algebra and returns ``None`` for the counts.  The
+dense entry stages a window of B in shared memory: ``dense_launch`` gives
+its block shape and shared-memory layout, ``dense_chunks`` its band chunks.
 
 Dispatch is by the tensors' device and nothing else: CUDA tensors launch the
 kernel (or raise, if the build or the launch fails); CPU tensors take the
@@ -33,8 +35,13 @@ from pem_spgemm_tpu_torch.ops import _build
 from pem_spgemm_tpu_torch.ops.dia import _dia_multiply_torch, _plan_maps
 
 SOURCE = _build.cuda_source("dia_multiply")
-ROWS = 8                    # C rows per thread of the dense entry (the .cu's)
-MAX_GRID_Y = 65535
+ROWS = 8                    # C rows a thread of the dense entry (the .cu's)
+COLS = 4                    # C columns a thread of the dense entry (its I)
+MAX_ROW_BLOCKS = 8          # row blocks of 8 a thread block, at most
+MAX_COL_BLOCKS = 64         # column blocks a thread block, at most
+MAX_THREADS = 256
+COPY_WIDTH = 32             # window columns a pass of the staging copies
+SMEM_BUDGET = 112 * 1024    # bytes a block of the dense entry: two an SM
 
 # kernel launches per entry (plain-version calls are not counted)
 LAUNCHES = {"dia_multiply_dense": 0, "dia_multiply_pairs": 0}
@@ -48,7 +55,8 @@ def reset_launch_counts() -> None:
 def _declare(lib) -> None:
     vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.dia_multiply_dense_f32.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci,
-                                           ll, ll, ll, vp]
+                                           ll, ll, ll, ci, ci, ci, ci, ci,
+                                           ci, ci, vp]
     lib.dia_multiply_dense_f32.restype = ci
     lib.dia_multiply_pairs_f32.argtypes = [vp, vp, vp, vp, vp, vp, ci, ll,
                                            ll, ll, vp]
@@ -85,6 +93,85 @@ def dia_mode(offs_a, offs_b, dc_list):
     if not offs_a or not offs_b:
         return None
     return "dense" if dense_qualifies(offs_a, offs_b, dc_list) else "pairs"
+
+
+# --------------------------------------------------------------------------
+# the dense entry's launch shape
+
+def _pow2_at_least(x: int) -> int:
+    return 1 << max(0, int(x) - 1).bit_length()
+
+
+def dense_chunks(offs_a, kc: int):
+    """[(kb, ke)]: the A-band chunks the dense kernel stages, in order: at
+    most kc bands whose offsets span less than kc (the .cu's chunk_end)."""
+    offs_a = tuple(offs_a)
+    out, kb = [], 0
+    while kb < len(offs_a):
+        ke = kb + 1
+        while (ke < len(offs_a) and ke - kb < kc
+               and offs_a[ke] - offs_a[kb] < kc):
+            ke += 1
+        out.append((kb, ke))
+        kb = ke
+    return out
+
+
+def dense_launch(offs_a, d2n: int, dcn: int):
+    """The dense entry's launch shape for A's offsets, B's d2n bands and dcn
+    C rows (the same for both variants).
+
+    A thread owns ROWS x COLS C elements; a block 2^tr_log2 row blocks
+    (enough for every C row, at most 8) x tc_n column blocks (at most 64,
+    at most 256 threads, so at least 32), so L = tc_n * COLS columns;
+    threads take column blocks first, so the lanes of a warp share their
+    rows and skip or take a band together.  Per
+    chunk of at most kc A bands spanning less than kc (``dense_chunks``),
+    the block stages the A chunk (a_rows x L words: a_rows the most bands a
+    chunk has) and, from word b_off, the B window: at most rows_cap rows
+    (the B rows the block's C rows reach, plus ROWS - 1 zero rows on each
+    side) of at most cols_cap = L + the widest chunk's offset span columns,
+    each row a ring of s words (cols_cap rounded up to 32) rotated by its
+    row index.  s >= L + span > rows_cap + 3 (L >= 128 >= rb + 2 * ROWS),
+    which keeps the .cu's positions below 2 s.  kc is the largest power of
+    two up to 128 whose shared memory fits in SMEM_BUDGET (fewer chunks
+    stage fewer windows).  The grid is one-dimensional: grid_y row blocks of
+    each column range, neighbours.  Returns a dict; raises ValueError where
+    even kc = 1 does not fit or there are 2^16 A bands or more (a count is
+    kept in 16 bits)."""
+    offs_a = tuple(offs_a)
+    if not offs_a or d2n <= 0 or dcn <= 0:
+        raise ValueError(f"{len(offs_a)} A bands, d2n={d2n}, dcn={dcn}")
+    if len(offs_a) >= 1 << 16:
+        raise ValueError(f"{len(offs_a)} A bands: the kernel's counts are "
+                         "16-bit")
+    tr = min(MAX_ROW_BLOCKS, _pow2_at_least(-(-dcn // ROWS)))
+    tc_n = min(MAX_THREADS // tr, MAX_COL_BLOCKS)
+    L = tc_n * COLS
+    rb = ROWS * tr
+    grid_y = -(-dcn // rb)
+    for kc in (128, 64, 32, 16, 8, 4, 2, 1):
+        chunks = dense_chunks(offs_a, kc)
+        a_rows = max(ke - kb for kb, ke in chunks)
+        span = max(offs_a[ke - 1] - offs_a[kb] for kb, ke in chunks)
+        rows_cap = min(d2n, rb + span) + 2 * (ROWS - 1)
+        cols_cap = L + span
+        s = -(-cols_cap // 32) * 32
+        b_off = a_rows * L
+        stage = b_off + rows_cap * s
+        if 4 * stage <= SMEM_BUDGET:
+            break
+    else:
+        raise ValueError(f"the dense entry's window for {d2n} B bands does "
+                         "not fit in shared memory")
+    threads = tr * tc_n
+    cw = min(COPY_WIDTH, _pow2_at_least(cols_cap))
+    return dict(tr_log2=tr.bit_length() - 1, tc_n=tc_n, cols=COLS, L=L,
+                rows_per_block=rb, grid_y=grid_y, kc=kc, a_rows=a_rows,
+                span=span, rows_cap=rows_cap, cols_cap=cols_cap, s=s,
+                cw_log2=cw.bit_length() - 1, b_off=b_off,
+                stage_floats=stage, smem_bytes=4 * stage,
+                threads=threads, chunks=len(chunks))
 
 
 # --------------------------------------------------------------------------
@@ -175,8 +262,8 @@ def dia_multiply(a_bands, b_bands, *, offs_a, offs_b, dc_list, n_out,
     cnt = None if values_only else torch.empty_like(c)
     if c.numel() == 0:                  # nothing to launch, nothing counted
         return c, cnt
-    if mode == "dense" and -(-dcn // ROWS) > MAX_GRID_Y:
-        raise ValueError(f"{dcn} C rows exceed the dense entry's grid")
+    shape = dense_launch(offs_a, len(offs_b), dcn) \
+        if mode == "dense" else None
     for t in tables:
         if t.device != dev or t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError("tables must be contiguous int32 tensors on "
@@ -192,7 +279,9 @@ def dia_multiply(a_bands, b_bands, *, offs_a, offs_b, dc_list, n_out,
             err = lib.dia_multiply_dense_f32(
                 a_bands.data_ptr(), b_bands.data_ptr(), offs_dev.data_ptr(),
                 c.data_ptr(), cnt_ptr, len(offs_a), len(offs_b), dcn, n_i,
-                n_k, n_out, stream)
+                n_k, n_out, shape["tr_log2"], shape["tc_n"], shape["kc"],
+                shape["s"], shape["cw_log2"], shape["b_off"],
+                shape["stage_floats"], stream)
         else:
             row_ptr, trip = tables
             if (row_ptr.numel() != dcn + 1

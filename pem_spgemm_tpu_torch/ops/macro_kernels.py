@@ -13,9 +13,11 @@ with nvcc at first use and bound with ctypes by ops/_build.py):
                            reference's single-buffered class kernel, which
                            has no caller in either package).
 
-Each computes its 128x128x128 products in its own body in FP32 FMA, and the
-structural pattern of the same products as uint8 flags (see ops/macro.py).
-A thread block owns one C tile and writes it once.
+The pair-stream entry computes its 128x128x128 products in FP32 FMA, the
+class entries on the tensor cores (wgmma on tf32 operands with a 3xTF32
+split, which keeps float32 accuracy); each also forms the structural
+pattern of the same products as uint8 flags from the raw values (see
+ops/macro.py).  A thread block owns one C tile and writes it once.
 
 Dispatch is by the tensors' device and nothing else: CUDA tensors launch
 the kernel (or raise, if the build or the launch fails); CPU tensors take

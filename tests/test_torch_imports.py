@@ -29,6 +29,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     mods = ["pem_spgemm_tpu_torch", "pem_spgemm_tpu_torch.interop",
             "pem_spgemm_tpu_torch.bench.harness",
             "pem_spgemm_tpu_torch.bench.cli",
+            "pem_spgemm_tpu_torch.bench.probe",
+            "pem_spgemm_tpu_torch.bench.k2_split",
             "pem_spgemm_tpu_torch.formats.dia",
             "pem_spgemm_tpu_torch.formats.macro",
             "pem_spgemm_tpu_torch.ops.symbolic",
@@ -149,7 +151,7 @@ def test_dia_kernel_source_and_loader_agree():
         == dk.ROWS
     # one build module serves every CUDA source, and each is a file
     assert set(_build.CUDA_SOURCES) == {"segment_sort", "dia_multiply",
-                                        "macro_accumulate"}
+                                        "macro_accumulate", "row_copy"}
     for stem in _build.CUDA_SOURCES:
         assert os.path.isfile(_build.cuda_source(stem))
         assert _build.library_path(_build.cuda_source(stem)).startswith(
@@ -169,6 +171,9 @@ def test_macro_kernel_source_and_loader_agree():
     for banned in ("torch/extension.h", "cublas", "cutlass", "wmma"):
         assert banned not in src.lower()
     assert "fmaf(" in src
+    # the class entries multiply on the tensor cores with the 3xTF32 split
+    assert "wgmma.mma_async" in src and ".tf32.tf32" in src
+    assert "cvt.rna.tf32.f32" in src
     assert set(mk.LAUNCHES) == {e[:-4] for e in entries}
 
     # the ctypes declarations match the number of C parameters
@@ -204,3 +209,23 @@ def test_build_is_by_content_and_a_failed_build_raises(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="build failed"):
         _build.compile_shared(["g++", *_build.GXX_FLAGS], str(src))
     assert not [n for n in os.listdir(_build.BUILD_DIR) if n.endswith(".tmp")]
+
+
+def test_probe_kernel_source_and_loader_agree():
+    import ctypes
+    from pem_spgemm_tpu_torch.bench import probe as pr
+    assert os.path.isfile(pr.SOURCE)
+    src = open(pr.SOURCE).read()
+    assert 'extern "C" int row_copy_i32(' in src
+    assert "torch/extension.h" not in src
+    assert set(pr.LAUNCHES) == {"row_copy"}
+
+    class Lib:
+        pass
+
+    lib = Lib()
+    lib.row_copy_i32 = Lib()
+    pr._declare(lib)
+    params = src.split('extern "C" int row_copy_i32(')[1].split(")")[0]
+    assert len(lib.row_copy_i32.argtypes) == params.count(",") + 1
+    assert lib.row_copy_i32.restype is ctypes.c_int
