@@ -55,6 +55,7 @@ import time
 import numpy as np
 import torch
 
+from pem_spgemm_tpu_torch.bench import k1_split
 from pem_spgemm_tpu_torch.bench import probe as pr
 from pem_spgemm_tpu_torch.bench.harness import run_benchmark
 from pem_spgemm_tpu_torch.config import SpGEMMConfig
@@ -189,6 +190,33 @@ def time_ms(fn, n=20):
     return start.elapsed_time(stop) / n
 
 
+def graph_ms(fn, n=20, replays=3):
+    """Device ms per call with no host time in it: n calls captured in one
+    CUDA graph, the graph replayed and timed by CUDA events.  For entries
+    whose launches are shorter than their wrapper's host work (time_ms
+    then measures the host)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                            # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(stop) / (n * replays)
+
+
 # --------------------------------------------------------------------------
 # seeded kernel inputs
 
@@ -232,10 +260,109 @@ def compare(kernel_out, plain_out, what):
     return (a - b).abs().max().item() if a.numel() else 0.0
 
 
+def bound_ratio(got_v, want_v, first, mag, what):
+    """Worst |got - want| / (COO_RTOL * sum|v| + COO_ATOL) over first slots,
+    sum|v| being the group's sum of magnitudes: the float32 bound the path
+    phases hold C to.  Raises above 1."""
+    if not bool(first.any()):
+        return 0.0
+    err = (got_v[first] - want_v[first]).abs()
+    ratio = float((err / (COO_RTOL * mag[first] + COO_ATOL)).max())
+    if ratio > 1.0:
+        raise AssertionError(f"{what}: group totals exceed the float32 "
+                             f"bound by {ratio}x")
+    return ratio
+
+
+def hold_dedup(keys, vals, abits, what, relative=True):
+    """The dedup entry against its plain version: flags and count exact,
+    totals within the float32 bound and, with ``relative``, within
+    VAL_RTOL of the plain totals as well.  A path's own inputs are held to
+    the bound alone: there groups of products cancel (as C's entries do at
+    full size), and a tolerance relative to a cancelled total cannot hold
+    in float32.  Returns (max abs error, worst error over the bound)."""
+    kv, kf, kc = ss.segment_dedup(keys, vals, abits)
+    torch.cuda.synchronize()
+    pv, pf, pc = ss.segment_dedup_plain(keys, vals, abits)
+    if relative:
+        err = compare((None, kv, kf), (None, pv, pf), what)
+    elif not torch.equal(kf, pf):
+        raise AssertionError(f"{what}: first-flags differ")
+    else:
+        err = float((kv[pf] - pv[pf]).abs().max()) if bool(pf.any()) else 0.0
+    if int(kc) != int(pc):
+        raise AssertionError(f"{what}: count {int(kc)} != {int(pc)}")
+    v = (vals.view(torch.float32) * abits.view(torch.float32)
+         if abits is not None else vals)
+    mag = ss.segment_dedup_plain(keys, v.abs())[0]
+    return err, bound_ratio(kv, pv, pf, mag, what)
+
+
+def sorted_rows(r, l, seed, key_space=None, tails=True):
+    """Rows sorted by key on the card: duplicate runs of 1-4 (keys drawn
+    from key_space, l/2 by default), sentinel tails of random length;
+    values standard normal."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    keys = torch.randint(0, key_space or max(4, l // 2), (r, l),
+                         generator=g, device="cuda", dtype=torch.int32)
+    if tails:
+        live = torch.randint(0, l + 1, (r, 1), generator=g, device="cuda")
+        keys[torch.arange(l, device="cuda")[None, :] >= live] = SENT
+    vals = torch.randn((r, l), generator=g, device="cuda")
+    return torch.sort(keys, dim=1)[0].contiguous(), vals
+
+
+def engineered_dedup_cases():
+    """(name, keys, vals, abits) at the kernel's edges: runs across and
+    longer than its tiles of ss.DEDUP_TILE slots, widths that are not a
+    multiple of 4, the residual's single row, sentinel rows, signed zeros
+    and subnormals in the fused product, the widest packed class, and
+    pointers that are not 16-byte aligned."""
+    tile = ss.DEDUP_TILE
+    keys, vals = sorted_rows(64, 2 * tile, seed=21, tails=False)
+    keys[:, tile - 5:tile + 7] = keys[:, tile - 5:tile - 4]
+    yield ("run across a tile boundary", torch.sort(keys, 1)[0].contiguous(),
+           vals, None)
+    keys, vals = sorted_rows(16, 8 * tile, seed=22, key_space=8 * tile,
+                             tails=False)
+    lo = tile // 2
+    keys[:, lo:lo + 2 * tile + 300] = keys[:, lo:lo + 1]
+    yield ("run longer than two tiles", torch.sort(keys, 1)[0].contiguous(),
+           vals.abs() + 0.5, None)
+    yield ("l = 2", *sorted_rows(1_000_003, 2, seed=23, key_space=2), None)
+    yield ("l = 6", *sorted_rows(333_335, 6, seed=24, key_space=4), None)
+    keys, vals = sorted_rows(1, 3_000_017, seed=25, key_space=1_000_000)
+    keys[0, 1000:1000 + 3 * tile] = keys[0, 1000]
+    yield ("residual: one row, l >> tile",
+           torch.sort(keys, 1)[0].contiguous(), vals, None)
+    keys, vals = sorted_rows(4096, 96, seed=26)
+    keys[::3] = SENT
+    yield "all-sentinel rows", keys, vals, None
+    keys, bv = sorted_rows(8192, 48, seed=27, key_space=12)
+    av = torch.randn_like(bv)
+    bv[::2, ::5] = -0.0
+    bv[1::2, ::7] = 1e-40               # subnormal operand
+    av[::3, 1::4] = 1e-20
+    bv[::3, 1::4] = 1e-20               # subnormal product
+    yield ("fused: -0.0 and subnormals", keys, bv.view(torch.int32),
+           av.view(torch.int32))
+    l = binned.PACK_CLASSES[-1]
+    keys, bv = sorted_rows(9, l, seed=28)
+    yield ("fused, widest packed class", keys, bv.view(torch.int32),
+           torch.randn_like(bv).view(torch.int32))
+    keys, vals = sorted_rows(1, 300_001, seed=29)
+    flat_k = torch.cat([keys.new_zeros(1), keys.reshape(-1)])
+    flat_v = torch.cat([vals.new_zeros(1), vals.reshape(-1)])
+    yield ("offset by one slot (scalar loads)", flat_k[1:].view(1, -1),
+           flat_v[1:].view(1, -1), None)
+
+
 def phase_kernel_check():
     worst = {"segment_sort_dedup": 0.0, "segment_dedup": 0.0}
+    over = {"segment_sort_dedup": 0.0, "segment_dedup": 0.0}
     cases = 0
-    widths = {16: 8, 48: 16, 96: 32, 192: 64, 1024: 64, 3072: 64, 4096: 64}
+    widths = {16: 8, 48: 16, 96: 32, 192: 64, 1024: 64, 1536: 64, 3072: 64,
+              4096: 64, 24: 8, 6: 2}
     for mw, pw in widths.items():
         r = max(67, (1 << 20) // mw + 3)         # odd counts: ragged blocks
         for presorted_w in (0, pw):
@@ -245,7 +372,12 @@ def phase_kernel_check():
                                         presorted_w=presorted_w)
             torch.cuda.synchronize()
             want = ss.segment_sort_dedup_plain(cols, vals)
-            err = compare(got, want, f"sort mw={mw} presorted={presorted_w}")
+            what = f"sort mw={mw} presorted={presorted_w}"
+            err = compare(got, want, what)
+            mag = ss.segment_sort_dedup_plain(cols, vals.abs())[1]
+            over["segment_sort_dedup"] = max(
+                over["segment_sort_dedup"],
+                bound_ratio(got[1], want[1], want[2], mag, what))
             worst["segment_sort_dedup"] = max(worst["segment_sort_dedup"],
                                               err)
             cases += 1
@@ -259,17 +391,18 @@ def phase_kernel_check():
             if fused:
                 args = (keys, vals.view(torch.int32), avals.view(torch.int32))
             else:
-                args = (keys, vals)
-            kv, kf, kc = ss.segment_dedup(*args)
-            torch.cuda.synchronize()
-            pv, pf, pc = ss.segment_dedup_plain(*args)
-            err = compare((None, kv, kf), (None, pv, pf),
-                          f"dedup l={l} fused={fused}")
-            if int(kc) != int(pc):
-                raise AssertionError(f"dedup l={l}: count {int(kc)} != "
-                                     f"{int(pc)}")
+                args = (keys, vals, None)
+            err, ratio = hold_dedup(*args, f"dedup l={l} fused={fused}")
             worst["segment_dedup"] = max(worst["segment_dedup"], err)
+            over["segment_dedup"] = max(over["segment_dedup"], ratio)
             cases += 1
+    engineered = {}
+    for name, keys, vals, abits in engineered_dedup_cases():
+        err, ratio = hold_dedup(keys, vals, abits, f"dedup, {name}")
+        engineered[name] = {"shape": list(keys.shape),
+                            "max_abs_err": err, "worst_over_bound": ratio}
+        over["segment_dedup"] = max(over["segment_dedup"], ratio)
+        cases += 1
     # one key across a whole 4096-slot row: the thread at the row's first
     # slot walks all of it.  Positive values, so the total cannot cancel.
     r, l = 512, 4096
@@ -297,16 +430,19 @@ def phase_kernel_check():
         # max_abs_err, which speaks of the shapes the path uses
         "max_abs_err": {"segment_sort_dedup": err_sort,
                         "segment_dedup": err_dedup},
-        "dedup_ms_one_run_a_row": time_ms(
+        # device time (CUDA-graph replay): the wrapper's host work is
+        # longer than these launches
+        "dedup_ms_one_run_a_row": graph_ms(
             lambda: ss.segment_dedup(one_key, vals)),
-        "dedup_ms_runs_of_1_to_4": time_ms(
+        "dedup_ms_runs_of_1_to_4": graph_ms(
             lambda: ss.segment_dedup(short_keys, vals)),
-        "sort_ms_one_run_a_row": time_ms(
+        "sort_ms_one_run_a_row": graph_ms(
             lambda: ss.segment_sort_dedup(one_key, vals, rounds=1)),
-        "sort_ms_runs_of_1_to_4": time_ms(
+        "sort_ms_runs_of_1_to_4": graph_ms(
             lambda: ss.segment_sort_dedup(short_keys, vals, rounds=1)),
     }
     emit("kernel_check", cases=cases, max_abs_err=worst,
+         worst_over_bound=over, engineered_dedup=engineered,
          rtol=VAL_RTOL, atol=VAL_ATOL, long_run=long_run)
     return worst
 
@@ -1040,24 +1176,40 @@ def sort_network_ops(r, mw, presorted_w):
     return r * (p2 // 2) * sum(stages)
 
 
+def rmat16_dedup_reading():
+    """The dedup entry over every launch of one steady multiply of
+    rmat-16's default plan (each packed class and the residual call, with
+    the inputs the path gives them): each held against its plain version,
+    then timed alone; times and bytes bounds summed."""
+    calls = k1_split.rmat16_dedup_calls()
+    ms = wrapper = plain = 0.0
+    nbytes = slots = 0
+    worst = 0.0
+    for i, (keys, vals, abits) in enumerate(calls):
+        worst = max(worst, hold_dedup(keys, vals, abits,
+                                      f"dedup, rmat-16 launch {i}",
+                                      relative=False)[1])
+        call = lambda: ss.segment_dedup(keys, vals, abits)
+        ms += graph_ms(call)
+        wrapper += time_ms(call)
+        plain += time_ms(lambda: ss.segment_dedup_plain(keys, vals, abits), 3)
+        nbytes += k1_split.dedup_bytes(keys, abits)
+        slots += keys.numel()
+    return {"launches": len(calls), "slots": slots, "ms": ms,
+            "wrapper_ms": wrapper, "plain_ms": plain, "bytes": nbytes,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "worst_over_bound": worst,
+            "timed": "each launch alone, summed: ms by CUDA-graph replay "
+                     "(device only), wrapper_ms by CUDA events around "
+                     "wrapper calls (host-bound for the small classes)"}
+
+
 def phase_kernels(plan_cg, a, b, launches, check_err):
-    w = plan_cg.w
     # sort entry: the sort bucket with the most slots among those the
     # kernel takes, with the inputs the path gives it
-    sort_b = [bk for bk in plan_cg.buckets
-              if not bk.single and bk.m * w <= binned.VMEM_SORT_MAX]
-    bk = max(sort_b, key=lambda x: x.src.numel())
-    r, mw = int(bk.src.shape[0]), bk.m * w
-    cols, vals = binned._expand_bucket(plan_cg.table, bk.src, bk.avals,
-                                       bk.m, w)
-    if bk.m > 1:
-        odd = (torch.arange(bk.m, device="cuda") & 1).bool()[None, :, None]
-        cols = torch.where(odd, cols.flip(2), cols)
-        vals = torch.where(odd, vals.flip(2), vals)
-    cols = cols.reshape(r, mw).contiguous()
-    vals = vals.reshape(r, mw).contiguous()
-    got = ss.segment_sort_dedup(cols, vals, rounds=bk.rounds or 1,
-                                presorted_w=w)
+    cols, vals, w = k1_split.largest_sort_bucket(plan_cg)
+    r, mw = cols.shape
+    got = ss.segment_sort_dedup(cols, vals, rounds=1, presorted_w=w)
     want = ss.segment_sort_dedup_plain(cols, vals)
     err_sort = compare(got, want, "sort entry at the largest bucket")
     slots = r * mw
@@ -1074,7 +1226,9 @@ def phase_kernels(plan_cg, a, b, launches, check_err):
         "replaces": "pem_spgemm_tpu/ops/pallas_sort.py:38",
         "launches": launches["segment_sort_dedup"],
         "max_abs_err": max(err_sort, check_err["segment_sort_dedup"]),
-        "ms": time_ms(lambda: ss.segment_sort_dedup(
+        "ms": graph_ms(lambda: ss.segment_sort_dedup(
+            cols, vals, rounds=1, presorted_w=w)),
+        "wrapper_ms": time_ms(lambda: ss.segment_sort_dedup(
             cols, vals, rounds=1, presorted_w=w)),
         "plain_ms": time_ms(lambda: ss.segment_sort_dedup_plain(cols, vals)),
         "bound_ms": max(bound_b, bound_o) * 1e3,
@@ -1095,12 +1249,8 @@ def phase_kernels(plan_cg, a, b, launches, check_err):
     int(binned.binned_multiply(plan).c_nnz)
     per_multiply = dict(ss.LAUNCHES)    # counted over this one multiply
     p = max(plan.packed, key=lambda x: x.keys.numel())
-    got = ss.segment_dedup(p.keys, p.bbits, p.abits)
-    want = ss.segment_dedup_plain(p.keys, p.bbits, p.abits)
-    err_dedup = compare((None,) + tuple(got[:2]), (None,) + tuple(want[:2]),
-                        "dedup entry at the largest class")
-    if int(got[2]) != int(want[2]):
-        raise AssertionError("dedup entry: counts differ")
+    err_dedup, over_dedup = hold_dedup(p.keys, p.bbits, p.abits,
+                                       "dedup entry at the largest class")
     slots = p.keys.numel()
     bytes_dedup = slots * (12 + 5)
     ops_dedup = slots * 2               # one multiply, at most one add a slot
@@ -1111,16 +1261,20 @@ def phase_kernels(plan_cg, a, b, launches, check_err):
         "replaces": "pem_spgemm_tpu/ops/pallas_sort.py:77",
         "launches": launches["segment_dedup"],
         "max_abs_err": max(err_dedup, check_err["segment_dedup"]),
-        "ms": time_ms(lambda: ss.segment_dedup(p.keys, p.bbits, p.abits)),
+        "ms": graph_ms(lambda: ss.segment_dedup(p.keys, p.bbits, p.abits)),
+        "wrapper_ms": time_ms(lambda: ss.segment_dedup(p.keys, p.bbits,
+                                                       p.abits)),
         "plain_ms": time_ms(lambda: ss.segment_dedup_plain(
             p.keys, p.bbits, p.abits)),
         "bound_ms": max(bound_b, bound_o) * 1e3,
         "bound_by": "bytes" if bound_b >= bound_o else "operations",
         "library_ms": None,
         "shape": [int(p.keys.shape[0]), p.l], "fused_product": True,
+        "worst_over_bound": over_dedup,
         "bytes": bytes_dedup, "operations": ops_dedup,
         "launches_per_multiply": per_multiply["segment_dedup"],
         "packed_classes": len(plan.packed),
+        "rmat16_multiply": rmat16_dedup_reading(),
     }
     for row in (sort_row, dedup_row):
         row["kernel_ms"] = row["ms"]
@@ -1449,18 +1603,21 @@ def macro_row(name, replaces, matrix, fn, plain_fn, lib_pairs, a, n_pairs,
     """One row of the kernels line.  Operations: 2 * 128^3 a pair, the
     values' product; the pattern is a bit operation per k-slab in the kernel
     and is not counted.  Bytes: the operand table read once (A @ A reads one
-    table) and every C row written once, values and flags.  The class
-    entries run on the tensor cores with a 3xTF32 split: their rows also
-    carry bound_tc_ms, three tf32 products a product at the TF32 rate, or
-    the bytes where those take longer."""
+    table) and every C row written once, values and flags.  Every row also
+    carries bound_tc_ms, the same products as three tf32 products each at
+    the TF32 tensor-core rate (a 3xTF32 split), or the bytes where those
+    take longer: the class entries run that way (tensor_cores), the
+    pair-stream entry runs FP32 FMA and has it as the bound of the same
+    work on the tensor cores."""
     ops = TILE_FLOP * n_pairs
     nbytes = a.dense.numel() * 4 + c_rows * 128 * 128 * 5
     b_o, b_b = ops / FP32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
-    if tensor_cores:
-        b_tc = 3 * ops / TF32_OPS_PER_S
-        extra = dict(extra, bound_tc_ms=max(b_tc, b_b) * 1e3,
-                     bound_tc_by="operations (3xTF32)" if b_tc >= b_b
-                     else "bytes", tf32_operations=3 * ops)
+    b_tc = 3 * ops / TF32_OPS_PER_S
+    extra = dict(extra, bound_tc_ms=max(b_tc, b_b) * 1e3,
+                 bound_tc_by="operations (3xTF32)" if b_tc >= b_b
+                 else "bytes", tf32_operations=3 * ops,
+                 runs_on="tensor cores, 3xTF32" if tensor_cores
+                 else "FP32 FMA")
     ms = time_ms(fn)
     return {
         "name": name, "route": "cuda", "source": MACRO_SOURCE,

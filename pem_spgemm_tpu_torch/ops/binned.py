@@ -899,7 +899,7 @@ def _dedup_tail(key, vals):
     """Group totals at first slots over per-row sorted keys, first-flags
     and their count: the dedup entry of ops/segment_sort.py (its kernel
     for CUDA tensors).  The JAX scan's depth and width arguments have no
-    counterpart: a run is walked whole."""
+    counterpart: the kernel's scan covers runs of any length."""
     return segment_dedup(key.contiguous(), vals.contiguous())
 
 

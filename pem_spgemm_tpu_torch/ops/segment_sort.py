@@ -34,6 +34,18 @@ from pem_spgemm_tpu_torch.ops._build import (BUILD_DIR, NVCC_FLAGS,
 
 SENTINEL = 0x7FFFFFFF
 SORT_MAX = 4096             # widest segment the sort entry takes
+# the CUDA source's launch shape (csrc/segment_sort.cu, kThreads and
+# kDedupItems); tests/test_torch_segment_tiles.py replays both entries with
+# these, so the two change together
+THREADS = 256               # threads a block, both entries
+DEDUP_ITEMS = 8             # consecutive slots a thread of the dedup entry
+DEDUP_TILE = THREADS * DEDUP_ITEMS      # slots a block of the dedup entry
+
+
+def sort_items(p2: int) -> int:
+    """Consecutive slots a thread of the sort entry holds for segments of
+    p2 slots (a block holds THREADS times as many, whole segments)."""
+    return 8 if p2 <= THREADS * 8 else 16
 
 SOURCE = _build.cuda_source("segment_sort")
 
