@@ -22,15 +22,20 @@ first two, engine="macro" for the third):
     path on the card for the two wide stencils;
   * the Macro128 engine on wandering64-1M (run-plan classes, the ragged class
     kernel), banded64-1M (stencil classes) and pairbands-500k (neither
-    planner covers it: the pair-stream kernel), each with C_nnz equal on the
-    interactive (plain) and the steady (kernel) path and the C tiles held
-    against the plain accumulation on the card; per-row nnz against scipy on
-    20,000 sampled rows of wandering64-1M, the recorded C_nnz for banded64-1M,
-    scipy's sorted COO for pairbands-500k.
+    planner covers it: the pair-stream kernel); every interactive multiply
+    goes through the pair-stream kernel (one launch, counted), each
+    matrix's C_nnz is equal on the interactive and the steady path and its
+    C tiles are held against the plain accumulation on the card; per-row
+    nnz against scipy on 20,000 sampled rows of wandering64-1M, the
+    recorded C_nnz for banded64-1M, scipy's sorted COO for pairbands-500k.
 
-Beside each path it times every kernel entry at the largest shape its path gives it,
-beside its bound (the class entries run on the tensor cores with a 3xTF32
-split: their rows carry the tensor-core bound too).  Last, phase probe
+Beside each path it times every kernel entry at the largest shape its path
+gives it, beside its bound (the Macro128 entries run on the tensor cores
+with a 3xTF32 split: their rows carry the tensor-core bound too; the
+pair-stream entry is timed at pairbands-500k's stream and at
+wandering64-1M's).  The kernel checks hold the Macro128 entries to the
+plain version's NaN positions and Inf signs on engineered tiles with Inf,
+NaN and near-FLT_MAX values.  Last, phase probe
 checks and times the row-copy probe (the port of the JAX package's
 scripts/pallas_probe3.py), which no path runs.
 
@@ -589,6 +594,19 @@ def phase_dia_kernel_check():
     wide = tuple(o * 1000 for o in PAIRBANDS_SORTED)
     run(wide, wide, 1_500_007, 1_500_007, 1_500_007, ("pairs",),
         "pairbands x1000", 120)
+    # the pairs entry where its A bands do not fit in shared memory (40
+    # gapped bands), and where its pair table does not either (12,000
+    # pairs): what is not staged is read where it lies (pairs_launch)
+    gapped40 = tuple(range(0, 120, 3))
+    if dk.pairs_launch(40, 80, 80, 3_001)["stage_a"]:
+        raise AssertionError("40 A bands: expected unstaged")
+    run(gapped40, (0, 1), 3_001, 3_001, 3_001, ("pairs",),
+        "pairs, A not staged", 130)
+    n_dc = len(D._plan_maps(tuple(range(0, 900, 3)), tuple(range(40)))[0])
+    if dk.pairs_launch(300, n_dc, 12_000, 3_001)["stage_tables"]:
+        raise AssertionError("12,000 pairs: expected unstaged tables")
+    run(tuple(range(0, 900, 3)), tuple(range(40)), 3_001, 3_001, 3_001,
+        ("pairs",), "pairs, nothing staged", 140)
 
     # an engineered cancellation: C[0, 3] = 1*1 + 1*(-1) is numerically zero
     # and structurally present (count 2)
@@ -832,6 +850,145 @@ def engineered_class_cases(worst):
     return cases + 2
 
 
+def macro_hold_ieee(got, want, mag, what, key=None):
+    """Non-finite operands: flags equal, NaN at the plain version's NaNs and
+    an Inf of the same sign at each of its Infs (IEEE), finite entries
+    within the float32 bound.  Returns the max abs error over the finite
+    entries."""
+    (gn, gf), (wn, wf) = got, want
+    if gf.dtype != torch.uint8 or not torch.equal(gf > 0, wf > 0):
+        raise AssertionError(f"{what}: structural flags differ")
+    if not torch.equal(torch.isnan(gn), torch.isnan(wn)):
+        raise AssertionError(
+            f"{what}: NaN at {int(torch.isnan(gn).sum())} entries, the plain "
+            f"version at {int(torch.isnan(wn).sum())}")
+    inf = torch.isinf(wn)
+    if not torch.equal(torch.isinf(gn), inf) or \
+            not torch.equal(gn[inf] > 0, wn[inf] > 0):
+        raise AssertionError(f"{what}: Inf positions or signs differ")
+    fin = torch.isfinite(wn)
+    err = (gn[fin] - wn[fin]).abs()
+    over = float((err / (COO_RTOL * mag[fin] + COO_ATOL)).max())
+    if not over <= 1.0:
+        raise AssertionError(f"{what}: finite values exceed the float32 "
+                             f"dot-product bound by {over}x")
+    note_over(key, over)
+    return float(err.max())
+
+
+def nonfinite_tiles():
+    """(a, b): 12 + 1 engineered tiles each (the last the zero tile) with,
+    in tiles 0-6, +Inf and NaN in A, -Inf and NaN in B, an A -Inf whose
+    k-slab of B is all zero (an Inf that meets only zeros), and finite A
+    and B values whose tf32 rounding overflows (3.4025e38)."""
+    a = engineered_tiles(12, seed=31)
+    b = engineered_tiles(12, seed=32)
+    a[0, 3, 5] = float("inf")           # B[0] row 5: +-Inf, NaN at its zeros
+    b[2, 7, 33] = float("-inf")
+    a[3, 10, 40] = float("-inf")        # k-slab 1 of B[3] is all zero
+    b[3, 32:64] = 0.0
+    b[4, 20, 9] = float("nan")          # one column of C all NaN
+    a[5, 17, 100] = float("nan")        # one row of C all NaN
+    a[6, 40, 50] = 3.4025e38            # finite; its tf32 rounding is Inf
+    b[6, 50] = 0.5
+    a[6, :, 90] = 0.0
+    a[6, ::3, 90] = 0.25
+    b[6, 90, 100] = -3.4025e38
+    return a.contiguous(), b.contiguous()
+
+
+def pairs_direct(a_dense, b_dense, a_idx, b_idx, seg, c_cap, grid):
+    """The pair-stream entry launched with ``grid`` blocks (the wrapper
+    launches one an SM), so that each block takes several C tiles; not
+    counted."""
+    seg_ptr = mk.segment_offsets(seg, c_cap)
+    next_tile = torch.zeros(1, dtype=torch.int32, device=DEV)
+    num, flag = fresh_slabs(c_cap)
+    mk._raise_on(mk._library().macro_accumulate_pairs_f32(
+        a_dense.data_ptr(), b_dense.data_ptr(), a_idx.data_ptr(),
+        b_idx.data_ptr(), seg_ptr.data_ptr(), num.data_ptr(),
+        flag.data_ptr(), c_cap, grid, next_tile.data_ptr(),
+        torch.cuda.current_stream().cuda_stream), "pairs_direct")
+    torch.cuda.synchronize()
+    return num, flag
+
+
+def engineered_nonfinite_cases(worst):
+    """K4, K5 and K6 on operands with Inf, -Inf, NaN and near-FLT_MAX
+    values: each against the plain version (macro_hold_ieee), K4 through the
+    wrapper and with 2 blocks (several tiles a block, an empty tile, tiles
+    past the stream's count), the two class entries bit for bit equal.
+    Returns the count of cases."""
+    a, b = nonfinite_tiles()
+    amag, bmag = a.abs(), b.abs()
+    # a pair stream: C tiles of 3, 2, 0, 2 and 2 pairs in a c_cap of 7
+    pairs = [(0, 0, 0), (1, 1, 0), (2, 2, 0), (3, 3, 1), (7, 7, 1),
+             (4, 4, 3), (5, 5, 3), (6, 6, 4), (1, 6, 4)]
+    pad = 256 - len(pairs)
+    cols = torch.tensor(pairs, dtype=torch.int32, device=DEV).T
+    a_idx, b_idx, seg = (torch.cat([x, torch.full((pad,), f, dtype=torch.int32,
+                                                  device=DEV)]).contiguous()
+                         for x, f in zip(cols, (12, 12, symbolic.INT32_MAX)))
+    want = M.accumulate_macro(a, b, a_idx, b_idx, seg, 7, 256)
+    mag = M.accumulate_macro(amag, bmag, a_idx, b_idx, seg, 7, 256)[0]
+    if not (bool(torch.isnan(want[0]).any()) and bool(
+            torch.isinf(want[0]).any())):
+        raise AssertionError("non-finite: the plain product has no NaN/Inf")
+    cases = 0
+    for what, got in (
+            ("wrapper", mk.accumulate_macro_pairs(a, b, a_idx, b_idx, seg,
+                                                  7)),
+            ("2 blocks", pairs_direct(a, b, a_idx, b_idx, seg, 7, 2))):
+        torch.cuda.synchronize()
+        e = macro_hold_ieee(got, want, mag, f"non-finite pairs, {what}",
+                            key="macro_accumulate_pairs")
+        worst["macro_accumulate_pairs"] = max(
+            worst["macro_accumulate_pairs"], e)
+        if bool(got[0][2].any()) or bool(got[1][2].any()) or \
+                bool(got[0][5:].any()) or bool(got[1][5:].any()):
+            raise AssertionError(f"non-finite pairs, {what}: an empty tile "
+                                 "is not zero")
+        cases += 1
+    # the -Inf that meets only zeros: row 10 of C tile 1 is NaN
+    if not bool(torch.isnan(want[0][1, 10]).all()):
+        raise AssertionError("non-finite: the plain row 10 is not all NaN")
+
+    bases = torch.tensor([0, 0, 4, 4], dtype=torch.int32, device=DEV)
+    ragged = (2, (3, 2), 8, 8, (0, 1, 2, 3, 7), (0, 1, 2, 3, 7), 0)
+    uniform = (2, 2, 8, 8, (0, 1, 2, 3), (0, 1, 2, 3), 0)
+    for cls, entries in ((ragged, ("macro_class_ragged",)),
+                         (uniform, ("macro_class_ragged",
+                                    "macro_class_uniform"))):
+        t, p, ar, br, a_offs, b_offs, _ = cls
+        tables = st.class_tables((cls,), DEV)[0]
+        rows = 2 * t
+        wn, wf = fresh_slabs(rows)
+        st.class_call_plain(wn, wf, a, b, bases, t, p, a_offs, b_offs, 0)
+        mn, mf = fresh_slabs(rows, 0.0)
+        st.class_call_plain(mn, mf, amag, bmag, bases, t, p, a_offs, b_offs,
+                            0)
+        outs = []
+        for entry in entries:
+            gn, gf = fresh_slabs(rows)
+            if entry == "macro_class_ragged":
+                mk.class_call2(gn, gf, a, b, bases, t, p, ar, br, a_offs,
+                               b_offs, 0, 2, tables=tables)
+            else:
+                mk.class_call(gn, gf, a, b, bases, t, p, ar, br, a_offs,
+                              b_offs, 0, tables=tables)
+            torch.cuda.synchronize()
+            e = macro_hold_ieee((gn, gf), (wn, wf), mn,
+                                f"non-finite class p={p!r} {entry}",
+                                key=entry)
+            worst[entry] = max(worst[entry], e)
+            outs.append((gn.view(torch.int32), gf))
+            cases += 1
+        if len(outs) == 2 and not all(torch.equal(x, y)
+                                      for x, y in zip(*outs)):
+            raise AssertionError("non-finite: the two class entries differ")
+    return cases
+
+
 def phase_macro_kernel_check():
     worst = {k: 0.0 for k in mk.LAUNCHES}
     cases = 0
@@ -871,6 +1028,7 @@ def phase_macro_kernel_check():
 
     n = engineered_class_cases(worst)
     cases += n
+    cases += engineered_nonfinite_cases(worst)
 
     # the pair stream of a gapped-band matrix (neither planner covers it),
     # with padding pairs, cut to a tile count that is no multiple of 4 and a
@@ -909,7 +1067,13 @@ def phase_macro_kernel_check():
                      worst)
     if bool(got[1][2].any()) or bool(got[1][5:].any()):
         raise AssertionError("pairs: a tile without pairs is not zero")
-    cases += 1
+    # the same stream with 2 blocks: each takes several tiles, the empty
+    # tile 2 and the tiles past the stream's count are zeroed on the way
+    two = pairs_direct(ap.dense, ap.dense, idx[0].contiguous(),
+                       idx[1].contiguous(), seg_e, 9, 2)
+    if not all(torch.equal(x, y) for x, y in zip(two, got)):
+        raise AssertionError("pairs: 2 blocks and one a tile disagree")
+    cases += 2
     del ap
 
     # an engineered cancellation: C[0, 3] = 1*1 + 1*(-1) is numerically zero
@@ -1125,7 +1289,7 @@ def phase_dia_path():
             del want, bound
         emit("dia_path", **info)
         del res, coo
-        if name in ("pairbands-500k", "banded128-1M"):
+        if name in ("pairbands-500k", "banded16-1M", "banded128-1M"):
             kept[name] = dict(launches=launches, a=a, offs=offs,
                               dc_list=dc_list, idx_map=idx_map, err=err,
                               library_ms=library,
@@ -1308,6 +1472,10 @@ def dia_times(a, offs, dc_list, idx_map, mode, n_plain):
 LIBRARY_COVERS = {True: "torch.sparse.mm(A, A) on this matrix in CSR: "
                         "another format",
                   False: "none: no PyTorch call takes band stacks"}
+# cuSPARSE's SpGEMM refuses banded64-1M and banded128-1M (insufficient
+# resources in cusparseSpGEMM_workEstimation), so the dense entry's row
+# carries the library call, and the kernel beside it, at banded16-1M.
+DENSE_LIBRARY_MATRIX = "banded16-1M"
 
 
 def dia_kernel_row(name, matrix, kept, check_err, per_multiply):
@@ -1376,6 +1544,16 @@ def phase_dia_kernels(kept, check_err):
         del plan
         rows.append(dia_kernel_row(name, matrix, kept[matrix], check_err,
                                    per_multiply))
+    lib = kept[DENSE_LIBRARY_MATRIX]
+    ms, ms_vo, _plain, _plain_vo = dia_times(
+        lib["a"].bands, lib["offs"], lib["dc_list"], lib["idx_map"], "dense",
+        n_plain=1)
+    rows[0].update(
+        library_ms=lib["library_ms"], library_matrix=DENSE_LIBRARY_MATRIX,
+        library_kernel_ms=ms, library_kernel_values_only_ms=ms_vo,
+        library_covers="torch.sparse.mm(A, A) in CSR at banded16-1M, beside "
+                       "the kernel's time there (library_kernel_ms): "
+                       "cuSPARSE refuses banded64-1M and banded128-1M")
     n = 1_000_000
     offs = (-1, 0, 1)
     a = make_bands(offs, n, n, seed=3, zero_frac=0.0)
@@ -1598,39 +1776,40 @@ def class_pairs(plan):
     return torch.cat(pa), torch.cat(pb)
 
 
-def macro_row(name, replaces, matrix, fn, plain_fn, lib_pairs, a, n_pairs,
-              c_rows, launches, per_multiply, err, extra, tensor_cores=False):
-    """One row of the kernels line.  Operations: 2 * 128^3 a pair, the
-    values' product; the pattern is a bit operation per k-slab in the kernel
-    and is not counted.  Bytes: the operand table read once (A @ A reads one
-    table) and every C row written once, values and flags.  Every row also
-    carries bound_tc_ms, the same products as three tf32 products each at
-    the TF32 tensor-core rate (a 3xTF32 split), or the bytes where those
-    take longer: the class entries run that way (tensor_cores), the
-    pair-stream entry runs FP32 FMA and has it as the bound of the same
-    work on the tensor cores."""
+def macro_bounds(a, n_pairs, c_rows):
+    """Bounds of a Macro128 entry's work.  Operations: 2 * 128^3 a pair,
+    the values' product; the pattern is a bit operation per k-slab in the
+    kernel and is not counted.  Bytes: the operand table read once (A @ A
+    reads one table) and every C row written once, values and flags.
+    bound_ms takes the operations at the FP32 rate; bound_tc_ms the same
+    products as three tf32 products each at the TF32 tensor-core rate (the
+    3xTF32 split every entry runs), or the bytes where those take longer."""
     ops = TILE_FLOP * n_pairs
     nbytes = a.dense.numel() * 4 + c_rows * 128 * 128 * 5
     b_o, b_b = ops / FP32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
     b_tc = 3 * ops / TF32_OPS_PER_S
-    extra = dict(extra, bound_tc_ms=max(b_tc, b_b) * 1e3,
-                 bound_tc_by="operations (3xTF32)" if b_tc >= b_b
-                 else "bytes", tf32_operations=3 * ops,
-                 runs_on="tensor cores, 3xTF32" if tensor_cores
-                 else "FP32 FMA")
+    return {"bound_ms": max(b_o, b_b) * 1e3,
+            "bound_by": "operations" if b_o >= b_b else "bytes",
+            "bound_tc_ms": max(b_tc, b_b) * 1e3,
+            "bound_tc_by": "operations (3xTF32)" if b_tc >= b_b else "bytes",
+            "operations": ops, "tf32_operations": 3 * ops, "bytes": nbytes}
+
+
+def macro_row(name, replaces, matrix, fn, plain_fn, lib_pairs, a, n_pairs,
+              c_rows, launches, per_multiply, err, extra):
+    """One row of the kernels line, bounds as macro_bounds counts them."""
+    bounds = macro_bounds(a, n_pairs, c_rows)
     ms = time_ms(fn)
     return {
         "name": name, "route": "cuda", "source": MACRO_SOURCE,
         "replaces": replaces, "launches": launches, "max_abs_err": err,
-        "ms": ms, "plain_ms": time_ms(plain_fn, 2),
-        "bound_ms": max(b_o, b_b) * 1e3,
-        "bound_by": "operations" if b_o >= b_b else "bytes",
+        "ms": ms, "plain_ms": time_ms(plain_fn, 2), **bounds,
         "library_ms": bmm_ms(a.dense, a.dense, *lib_pairs),
         "library_covers": "torch.bmm over the pre-gathered (P, 128, 128) "
                           "operands in chunks of 16,384 pairs: the products "
                           "only, without gather and sum per C tile",
-        "matrix": matrix, "pairs": n_pairs, "c_rows": c_rows,
-        "a_tiles": a.ntiles, "operations": ops, "bytes": nbytes,
+        "runs_on": "tensor cores, 3xTF32", "matrix": matrix,
+        "pairs": n_pairs, "c_rows": c_rows, "a_tiles": a.ntiles,
         "launches_per_multiply": per_multiply, "kernel_ms": ms, **extra}
 
 
@@ -1667,12 +1846,46 @@ def hold_macro_output(a, plan, out, what):
     return worst, n_pairs, n_tiles
 
 
+def pairs_point(a, name, n_pairs, n_tiles):
+    """The pair-stream entry (K4) at this matrix's own pair stream, the
+    second point its row is timed at: held against the plain version (flags
+    equal, values in the float32 bound), then kernel, plain version and the
+    bounds as macro_row counts them."""
+    _np, _nt, (_r, _c, a_idx, b_idx, seg) = macro_pairs(a, a)
+    c_cap = -(-n_tiles // 256) * 256
+    want = M.accumulate_macro(a.dense, a.dense, a_idx, b_idx, seg, c_cap, 256)
+    mag = M.accumulate_macro(a.dense.abs(), a.dense.abs(), a_idx, b_idx, seg,
+                             c_cap, 256)[0]
+    got = mk.accumulate_macro_pairs(a.dense, a.dense, a_idx, b_idx, seg,
+                                    c_cap)
+    torch.cuda.synchronize()
+    err = 0.0
+    for lo in range(0, c_cap, 8192):       # bounded temporaries
+        sl = slice(lo, lo + 8192)
+        err = max(err, macro_hold((got[0][sl], got[1][sl]),
+                                  (want[0][sl], want[1][sl]), mag[sl],
+                                  f"{name}: K4 on its pair stream",
+                                  key="macro_accumulate_pairs"))
+    del want, mag, got
+    torch.cuda.empty_cache()
+    return {
+        "ms": time_ms(lambda: mk.accumulate_macro_pairs(
+            a.dense, a.dense, a_idx, b_idx, seg, c_cap)),
+        "plain_ms": time_ms(lambda: M.accumulate_macro(
+            a.dense, a.dense, a_idx, b_idx, seg, c_cap, 256), 2),
+        **macro_bounds(a, n_pairs, c_cap),
+        "library_ms": bmm_ms(a.dense, a.dense, a_idx[:n_pairs],
+                             b_idx[:n_pairs]),
+        "max_abs_err": err, "pairs": n_pairs, "c_rows": c_cap}
+
+
 def phase_macro_path(check_err, pairbands_ref, repeat=3):
     """wandering64-1M, banded64-1M and pairbands-500k through
     run_benchmark(engine="macro") at full size, and the three kernel rows,
     each timed at the matrix that reaches its entry."""
     cfg = SpGEMMConfig(engine="macro", repeat=repeat)
     rows_out = []
+    k4_wandering = None
     for name, make in MACRO_MATRICES.items():
         want_type, want_planner, entry = MACRO_EXPECT[name]
         coo = make()
@@ -1687,9 +1900,12 @@ def phase_macro_path(check_err, pairbands_ref, repeat=3):
         steady_nnz = int(res.cptr[-1])
         if steady_nnz != res.c_nnz:
             raise AssertionError(
-                f"{name}: C_nnz {res.c_nnz} on the interactive (plain) path, "
-                f"{steady_nnz} on the steady (kernel) path")
-        if launches[entry] <= 0 or sum(launches.values()) != launches[entry]:
+                f"{name}: C_nnz {res.c_nnz} on the interactive path, "
+                f"{steady_nnz} on the steady path")
+        # interactive multiplies through the pair-stream entry, steady ones
+        # through the plan's entry; the uniform class entry has no caller
+        if (launches[entry] <= 0 or launches["macro_accumulate_pairs"] <= 0
+                or launches["macro_class_uniform"] != 0):
             raise AssertionError(f"{name}: launches {launches}")
         info = dict(matrix=name, engine=res.engine, n=n, nnz=coo.nnz,
                     flop=rec.flop, c_nnz=res.c_nnz, steady_c_nnz=steady_nnz,
@@ -1729,7 +1945,14 @@ def phase_macro_path(check_err, pairbands_ref, repeat=3):
         # multiply launches, and its C tiles against the plain path
         a = coo_to_macro(coo)
         del coo
-        res, plan = macro_plan_of(a, cfg)
+        reset_launch_counts()
+        res = SpGEMM(cfg)(a, a)
+        interactive = dict(mk.LAUNCHES)
+        if interactive["macro_accumulate_pairs"] != 1 or \
+                sum(interactive.values()) != 1:
+            raise AssertionError(f"{name}: one interactive multiply "
+                                 f"launched {interactive}")
+        plan = make_plan(res, cfg, a, a)
         del res
         if not isinstance(plan, want_type) or \
                 getattr(plan, "planner", None) != want_planner:
@@ -1741,11 +1964,16 @@ def phase_macro_path(check_err, pairbands_ref, repeat=3):
         out = plan.run(a, a)
         torch.cuda.synchronize()
         per_multiply = mk.LAUNCHES[entry]
+        steady = dict(mk.LAUNCHES)
         err, n_pairs, n_tiles = hold_macro_output(
             a, plan, out, f"{name} steady output against the plain path")
         info.update(plan=type(plan).__name__, a_tiles=a.ntiles,
                     plain_path_equal=True, max_abs_err=err,
-                    launches_per_multiply=per_multiply)
+                    launches_per_multiply=per_multiply,
+                    launches_steady_multiply=steady,
+                    launches_interactive_multiply=interactive,
+                    interactive_step3_entry="macro_accumulate_pairs",
+                    interactive_step3_ms=info["times_ms"]["step3_time"])
         c_rows = int(out[2].shape[0])
         del out
         torch.cuda.empty_cache()
@@ -1787,6 +2015,7 @@ def phase_macro_path(check_err, pairbands_ref, repeat=3):
             timed = ("the plan's class launches, one after another: the "
                      "class path of one steady multiply")
             if name == "wandering64-1M":
+                k4_wandering = pairs_point(a, name, n_pairs, n_tiles)
                 rows_out.append(macro_row(
                     "macro_class_ragged",
                     "pem_spgemm_tpu/ops/pallas_stencil.py:309", name,
@@ -1794,8 +2023,7 @@ def phase_macro_path(check_err, pairbands_ref, repeat=3):
                     lib_pairs, a, int(lib_pairs[0].numel()), class_rows,
                     launches[entry], per_multiply,
                     max(err, check_err["macro_class_ragged"]),
-                    dict(classes=len(sp.classes), timed=timed),
-                    tensor_cores=True))
+                    dict(classes=len(sp.classes), timed=timed)))
             elif uniform:
                 # the uniform entry has no caller on the path: its row is
                 # timed on these classes beside the ragged entry, and both
@@ -1819,8 +2047,7 @@ def phase_macro_path(check_err, pairbands_ref, repeat=3):
                     dict(classes=len(sp.classes), timed=timed,
                          ragged_entry_ms=time_ms(classes_through(ragged)),
                          bit_equal_to_ragged_entry=True,
-                         caller="none on the path, as in the JAX package"),
-                    tensor_cores=True))
+                         caller="none on the path, as in the JAX package")))
             del slabs, lib_pairs
         else:
             _np, _nt, (_r, _c, a_idx, b_idx, seg) = macro_pairs(a, a)
@@ -1833,8 +2060,10 @@ def phase_macro_path(check_err, pairbands_ref, repeat=3):
                                            seg, plan.c_cap, 256),
                 (a_idx[:n_pairs], b_idx[:n_pairs]), a, n_pairs, plan.c_cap,
                 launches[entry], per_multiply,
-                max(err, check_err["macro_accumulate_pairs"]),
-                dict(c_tiles=n_tiles, p_cap=int(a_idx.numel()))))
+                max(err, check_err["macro_accumulate_pairs"],
+                    k4_wandering["max_abs_err"]),
+                {"c_tiles": n_tiles, "p_cap": int(a_idx.numel()),
+                 "at_wandering64-1M": k4_wandering}))
             del a_idx, b_idx, seg
         emit("macro_path", **info)
         del a, plan

@@ -68,8 +68,9 @@ class SpGEMMConfig:
 
     # Structure engine: "fused" | "masks" | "element" | "dia" | "macro" |
     # "auto".  "auto" dispatches on structure: DIA census first (harness
-    # level, on COO), then mean macro-tile / tile fill.  The element and
-    # DIA engines are ported; the others raise NotImplementedError.
+    # level, on COO), then mean macro-tile / tile fill.  The element, DIA
+    # and Macro128 engines are ported; the Tile16 engines ("fused",
+    # "masks") raise NotImplementedError.
     engine: str = "auto"
 
     # "auto"/"dia" consider the DIA engine only when the matrix's

@@ -54,7 +54,11 @@
 // Every C element still sums its products in ascending A-band order with
 // fmaf, so the dense and pairs entries agree bit for bit.  The pairs entry
 // makes no assumption about the offsets (a gapped set has an unbounded
-// span), keeps to one C row per thread and the caches.
+// span, so no B window is staged): a block owns a range of 1,024 columns
+// of every C row, stages its A bands' words (and the pair tables) in
+// shared memory once, so each A word is read from device memory once and
+// not once for every C row that uses it, reads B through L1 at each pair's
+// shift, and writes each C row (and count row) once, coalesced.
 //
 // Plain C interface, no PyTorch headers: the wrapper
 // (ops/dia_kernels.py) allocates the outputs, computes the dense entry's
@@ -65,7 +69,9 @@
 
 namespace {
 
-constexpr int THREADS = 256;    // columns per block of the pairs entry
+constexpr int PAIR_THREADS = 256;   // threads a block of the pairs entry
+constexpr int PAIR_COLS = 4;        // columns a thread of the pairs entry
+constexpr int PAIR_L = PAIR_THREADS * PAIR_COLS;  // columns a block
 constexpr int ROWS = 8;         // C rows a thread of the dense entry
 constexpr int PADR = ROWS - 1;  // zero rows on each side of the B window
 constexpr int MAX_SMEM = 227 * 1024;
@@ -328,35 +334,154 @@ dia_dense_kernel(const float* __restrict__ a, const float* __restrict__ b,
     }
 }
 
+// The pairs entry's C rows r = blockIdx.y, blockIdx.y + gridDim.y, ... at
+// the block's columns i0 + t + PAIR_THREADS * e.  CHECK false: an interior
+// block, all of whose columns lie below n_out and all of whose shifted B
+// columns lie in [0, n_k), so nothing is tested; else a product outside B
+// adds nothing (no fmaf with a zero, which would turn an acc of -0.0 into
+// +0.0: the dense entry's order) and columns past n_out are not stored.
+// Two pairs a step: their loads in flight together, their products added in
+// ascending k1.
+template <bool COUNTS, bool CHECK>
+__device__ __forceinline__ void pair_rows(
+        const float* ap, long long a_stride, const float* __restrict__ b,
+        const int* rp, const int* tp, float* __restrict__ c,
+        float* __restrict__ cnt, int dcn, long long i0, long long n_k,
+        long long n_out) {
+    const int t = threadIdx.x;
+    const long long jlo = -i0, jhi = n_k - i0;  // B columns jj of the block
+    bool col[PAIR_COLS];
+#pragma unroll
+    for (int e = 0; e < PAIR_COLS; ++e)
+        col[e] = !CHECK || i0 + t + PAIR_THREADS * e < n_out;
+    auto inside = [&](int e, int d1) {
+        const long long jj = t + PAIR_THREADS * e + d1;
+        return !CHECK || (col[e] && jj >= jlo && jj < jhi);
+    };
+    // pair p's A and B words at this thread's columns (0 outside B); its
+    // shift
+    auto load = [&](int p, float (&av)[PAIR_COLS], float (&bv)[PAIR_COLS]) {
+        const int k1 = tp[3 * p];
+        const int k2 = tp[3 * p + 1];
+        const int d1 = tp[3 * p + 2];
+        const float* ak = ap + k1 * a_stride + t;
+        const float* bk = b + i0 + (long long)k2 * n_k + d1 + t;
+#pragma unroll
+        for (int e = 0; e < PAIR_COLS; ++e) {
+            const bool ok = inside(e, d1);
+            av[e] = ok ? ak[PAIR_THREADS * e] : 0.f;
+            bv[e] = ok ? __ldg(bk + PAIR_THREADS * e) : 0.f;
+        }
+        return d1;
+    };
+    for (int r = blockIdx.y; r < dcn; r += gridDim.y) {
+        float acc[PAIR_COLS], num[PAIR_COLS];
+#pragma unroll
+        for (int e = 0; e < PAIR_COLS; ++e) {
+            acc[e] = 0.f;
+            num[e] = 0.f;
+        }
+        auto add = [&](int d1, const float (&av)[PAIR_COLS],
+                       const float (&bv)[PAIR_COLS]) {
+#pragma unroll
+            for (int e = 0; e < PAIR_COLS; ++e) {
+                if (!inside(e, d1)) continue;
+                acc[e] = fmaf(av[e], bv[e], acc[e]);
+                if (COUNTS)
+                    num[e] += (av[e] != 0.f && bv[e] != 0.f) ? 1.f : 0.f;
+            }
+        };
+        int p = rp[r];
+        const int p1 = rp[r + 1];
+        for (; p + 1 < p1; p += 2) {
+            float a0[PAIR_COLS], b0[PAIR_COLS], a1[PAIR_COLS], b1[PAIR_COLS];
+            const int d0 = load(p, a0, b0);
+            const int d1 = load(p + 1, a1, b1);
+            add(d0, a0, b0);
+            add(d1, a1, b1);
+        }
+        if (p < p1) {
+            float a0[PAIR_COLS], b0[PAIR_COLS];
+            const int d0 = load(p, a0, b0);
+            add(d0, a0, b0);
+        }
+        float* cr = c + (long long)r * n_out + i0 + t;
+        float* nr = COUNTS ? cnt + (long long)r * n_out + i0 + t : nullptr;
+#pragma unroll
+        for (int e = 0; e < PAIR_COLS; ++e) {
+            if (!col[e]) continue;
+            cr[PAIR_THREADS * e] = acc[e];
+            if (COUNTS) nr[PAIR_THREADS * e] = num[e];
+        }
+    }
+}
+
 // Pairs entry.  Any offset sets: the products of C row r are the triples
 // trip[3 * p + {0, 1, 2}] = (k1, k2, d1) for p in [row_ptr[r], row_ptr[r+1]),
-// in ascending k1.
+// in ascending k1.  A block owns the C columns [i0, i0 + PAIR_L) of every
+// C row r = blockIdx.y, blockIdx.y + gridDim.y, ...; thread t the columns
+// i0 + t + PAIR_THREADS * e (e < PAIR_COLS), so a warp's loads and stores of
+// one e are 32 consecutive words.  The block first stages, by asynchronous
+// copies, the A bands' words of its columns (stage_a: all d1n bands x
+// PAIR_L, words past n_i zero) and the two tables (stage_tables), from
+// shared-memory word 0 on in that order; what is not staged is read from
+// global memory where it lies (ops/dia_kernels.pairs_launch decides by
+// size).  B is read through L1 at the pair's shift: a C row's pairs are
+// consecutive in the table and the C rows ascend, so the shifted reads of
+// one B band by neighbouring rows meet in L1, and the blocks in flight
+// (a 1-D grid over column ranges, row groups only where columns are few)
+// cover neighbouring columns and meet in L2.  Each C row is written once.
+// A block whose columns and shifted B columns all lie inside (every block
+// but the few at the ends, d1_min / d1_max being the extreme A offsets)
+// runs its rows with no bounds test at all (pair_rows).
 template <bool COUNTS>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(PAIR_THREADS)
 dia_pairs_kernel(const float* __restrict__ a, const float* __restrict__ b,
                  const int* __restrict__ row_ptr,
                  const int* __restrict__ trip, float* __restrict__ c,
-                 float* __restrict__ cnt, int dcn, long long n_i,
-                 long long n_k, long long n_out) {
-    const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
-    if (i >= n_out) return;
-    for (int r = blockIdx.y; r < dcn; r += gridDim.y) {
-        float acc = 0.f;
-        float num = 0.f;
-        const int p1 = row_ptr[r + 1];
-        for (int p = row_ptr[r]; p < p1; ++p) {
-            const int k1 = trip[3 * p];
-            const int k2 = trip[3 * p + 1];
-            const long long j = i + trip[3 * p + 2];
-            if (j < 0 || j >= n_k) continue;
-            const float av = a[(long long)k1 * n_i + i];
-            const float bv = b[(long long)k2 * n_k + j];
-            acc = fmaf(av, bv, acc);
-            if (COUNTS) num += (av != 0.f && bv != 0.f) ? 1.f : 0.f;
+                 float* __restrict__ cnt, int d1n, int dcn, int n_pairs,
+                 int d1_min, int d1_max, long long n_i, long long n_k,
+                 long long n_out, int stage_a, int stage_tables) {
+    extern __shared__ __align__(16) float smem[];
+    const int t = threadIdx.x;
+    const long long i0 = (long long)blockIdx.x * PAIR_L;
+    // A word (k1, column t + PAIR_THREADS * e) at ap[k1 * a_stride + ...]
+    const float* ap = a + i0;
+    long long a_stride = n_i;
+    if (stage_a) {
+        for (int k1 = 0; k1 < d1n; ++k1) {
+#pragma unroll
+            for (int e = 0; e < PAIR_COLS; ++e) {
+                const int cc = t + PAIR_THREADS * e;
+                const bool ok = i0 + cc < n_i;
+                copy4(smem + k1 * PAIR_L + cc,
+                      ok ? a + (long long)k1 * n_i + i0 + cc : a, ok);
+            }
         }
-        c[(long long)r * n_out + i] = acc;
-        if (COUNTS) cnt[(long long)r * n_out + i] = num;
+        ap = smem;
+        a_stride = PAIR_L;
     }
+    const int* rp = row_ptr;
+    const int* tp = trip;
+    if (stage_tables) {
+        int* st = reinterpret_cast<int*>(smem + (stage_a ? d1n * PAIR_L : 0));
+        for (int x = t; x <= dcn; x += PAIR_THREADS) st[x] = __ldg(row_ptr + x);
+        for (int x = t; x < 3 * n_pairs; x += PAIR_THREADS)
+            st[dcn + 1 + x] = __ldg(trip + x);
+        rp = st;
+        tp = st + dcn + 1;
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+
+    const bool interior = i0 + PAIR_L <= n_out && i0 + d1_min >= 0 &&
+                          i0 + PAIR_L - 1 + d1_max < n_k;
+    if (interior)
+        pair_rows<COUNTS, false>(ap, a_stride, b, rp, tp, c, cnt, dcn, i0,
+                                 n_k, n_out);
+    else
+        pair_rows<COUNTS, true>(ap, a_stride, b, rp, tp, c, cnt, dcn, i0,
+                                n_k, n_out);
 }
 
 template <bool COUNTS, int I>
@@ -411,23 +536,41 @@ extern "C" int dia_multiply_dense_f32(const void* a, const void* b,
         cw_log2, b_off, stage_floats, st);
 }
 
-// row_ptr (dcn + 1) int32, trip (3 * row_ptr[dcn]) int32; the rest as above.
+// row_ptr (dcn + 1) int32, trip (3 * n_pairs) int32, d1_min / d1_max the
+// least and the greatest A offset; the rest as above.  The launch shape (grid_y row groups, what is staged, the block's bytes of
+// shared memory) is ops/dia_kernels.pairs_launch's.
 extern "C" int dia_multiply_pairs_f32(const void* a, const void* b,
                                       const void* row_ptr, const void* trip,
-                                      void* c, void* cnt, int dcn,
+                                      void* c, void* cnt, int d1n, int dcn,
+                                      int n_pairs, int d1_min, int d1_max,
                                       long long n_i, long long n_k,
-                                      long long n_out, void* stream) {
-    dim3 grid((unsigned)((n_out + THREADS - 1) / THREADS),
-              (unsigned)(dcn < 65535 ? dcn : 65535));
+                                      long long n_out, int grid_y,
+                                      int stage_a, int stage_tables,
+                                      int smem_bytes, void* stream) {
+    const long long grid_x = (n_out + PAIR_L - 1) / PAIR_L;
+    if (grid_x > 0x7fffffffLL || grid_y <= 0 || grid_y > 65535)
+        return (int)cudaErrorInvalidConfiguration;
+    const dim3 grid((unsigned)grid_x, (unsigned)grid_y);
     cudaStream_t s = (cudaStream_t)stream;
+    // per launch: the attribute belongs to the current device
+    const cudaError_t attr = cnt != nullptr
+        ? cudaFuncSetAttribute(dia_pairs_kernel<true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem_bytes)
+        : cudaFuncSetAttribute(dia_pairs_kernel<false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem_bytes);
+    if (attr != cudaSuccess) return (int)attr;
     if (cnt != nullptr) {
-        dia_pairs_kernel<true><<<grid, THREADS, 0, s>>>(
+        dia_pairs_kernel<true><<<grid, PAIR_THREADS, smem_bytes, s>>>(
             (const float*)a, (const float*)b, (const int*)row_ptr,
-            (const int*)trip, (float*)c, (float*)cnt, dcn, n_i, n_k, n_out);
+            (const int*)trip, (float*)c, (float*)cnt, d1n, dcn, n_pairs,
+            d1_min, d1_max, n_i, n_k, n_out, stage_a, stage_tables);
     } else {
-        dia_pairs_kernel<false><<<grid, THREADS, 0, s>>>(
+        dia_pairs_kernel<false><<<grid, PAIR_THREADS, smem_bytes, s>>>(
             (const float*)a, (const float*)b, (const int*)row_ptr,
-            (const int*)trip, (float*)c, nullptr, dcn, n_i, n_k, n_out);
+            (const int*)trip, (float*)c, nullptr, d1n, dcn, n_pairs,
+            d1_min, d1_max, n_i, n_k, n_out, stage_a, stage_tables);
     }
     return (int)cudaGetLastError();
 }

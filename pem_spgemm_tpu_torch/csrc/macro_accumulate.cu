@@ -6,7 +6,7 @@
 // Hopper counterparts of the JAX package's Macro128 kernels:
 //   * `macro_accumulate_pairs_f32` replaces ops/pallas_macro2.py
 //     (accumulate_macro_pipelined / _kernel): a pair stream sorted by C tile,
-//     one C tile a thread block, its pairs found from segment offsets;
+//     its tiles' pairs found from segment offsets;
 //   * `macro_class_ragged_f32` replaces ops/pallas_stencil.py class_call2 /
 //     _kernel2: one signature class, tile (step s, tt) = the pairs
 //     [p_ptr[tt], p_ptr[tt+1]) of the class's offset tables at the step's
@@ -18,57 +18,73 @@
 // step to step (a spill carry, windows of the pair stream in scalar memory,
 // double-buffered window copies, one compiled kernel a class because every
 // offset is a compile-time constant).  Here blocks run in parallel and in no
-// order, and OWNERSHIP does the work: a block owns one C tile, walks that
-// tile's pairs in stream order with the tile's 128x128 sums in registers
-// (8x8 a thread, 256 threads), and stores values and flags once.  No atomics,
-// no zero-fill pass, no carry; a tile without pairs is stored as zeros.  All
-// offsets are run-time int32 tables, so one build serves every plan, and
-// every tile address is 64-bit (113k C tiles are 1.85e9 floats).
+// order, and OWNERSHIP does the work: every C tile has one owner block, which
+// walks that tile's pairs in stream order with the tile's 128x128 sums in
+// registers and stores values and flags once.  No atomics on C (the
+// persistent entry takes its tiles from one atomic counter), no zero-fill
+// pass, no carry; a tile without pairs is stored as zeros.  All offsets are
+// run-time int32 tables, so one build serves every plan, and every tile
+// address is 64-bit (113k C tiles are 1.85e9 floats).
 //
 // What bounds them on an H100: 2 * 128^3 operations a pair against 128 KB of
 // operand tile a pair at most (fewer where tiles repeat) and 80 KB of C tile
-// written once: operations.
+// written once: operations, on the tensor cores 3 tf32 products a product.
 //
-// The pair-stream entry (tile_product) is a shared-memory tiled SGEMM in FP32
-// FMA: per pair, eight k-slabs of 16; the A slab is staged transposed, the B
-// slab as it lies, and a thread multiplies an 8-row by 8-column register
-// tile.  Its pattern costs no second accumulator: per k-slab each (k, 8-row
-// group) of A and (k, 8-column group) of B is reduced once to an 8-bit
-// non-zero mask, and a thread ORs the 8x8 outer product of its two masks into
-// 64 bits with two integer multiplies (the A mask is stored with one bit a
-// byte, so mask_a * mask_b has no carries between bytes).
+// Each block runs a STREAM of (tile, pair, 32-deep k-slab) stages over a
+// two-stage ring; one stage's work (tc_stage) is the same in all three
+// entries.  The class entries run one C tile a block (tile_product_tc, their
+// launch shape).  The pair-stream entry is PERSISTENT (pair_stream): one
+// block an SM takes C tiles in stream order from an atomic counter, so the
+// tiles in flight stay neighbours in the C-sorted stream and share operand
+// tiles in L2 (a fixed round robin lets the blocks drift apart and loses
+// that); a tile has few pairs (1.6-3.3 on the suite's streams, 7-13
+// stages), and the stream runs across tile boundaries: the next tile's
+// first raw slabs are in flight while the current one runs its last
+// products and stores its sums, and no tile fills or drains the ring on its
+// own.
 //
-// The class entries (tile_product_tc) run on the tensor cores: wgmma on tf32
-// operands with a 3xTF32 split, which keeps the reference's precision
-// "highest" (one tf32 product keeps 11 bits of each operand; plain TF32 is not
-// allowed).  Every operand x is split as hi = tf32_rna(x), lo = tf32_rna(x -
-// hi), and C accumulates hi*hi + hi*lo + lo*hi: each product is then exact to
-// about 2^-22 of |a*b|.  A tile's pairs are one stream of (pair, 32-deep
-// k-slab) stages.  wgmma takes tf32 operands K-major only: A's tiles lie so
+// The tile product runs on the tensor cores: wgmma on tf32 operands with a
+// 3xTF32 split, which keeps the reference's precision "highest" (one tf32
+// product keeps 11 bits of each operand; plain TF32 is not allowed).  Every
+// operand x is split as hi = tf32_rna(x), lo = tf32_rna(x - hi), and C
+// accumulates hi*hi + hi*lo + lo*hi: each product is then exact to about
+// 2^-22 of |a*b|.  wgmma takes tf32 operands K-major only: A's tiles lie so
 // (row i, contiguous k), B's do not (row k, contiguous j), so every slab
 // passes through registers once: 256 threads copy it raw with cp.async two
 // stages ahead (a ring of two raw 32 KB slabs), read it back, split it, and
 // write A as it lies and B transposed, each into the 128-byte swizzle that
 // the shared-memory descriptors name, over a ring of two split stages (4 x
 // 16 KB a stage) while the tensor cores work on the other one.  Two
-// warpgroups each own a 64 x 128 half of the C tile (64 f32
-// registers a thread) and issue 3 x 4 wgmma.m64n128k8 a stage; the stage's
-// partial is added to a second register sum in FP32 (round to nearest), so
-// the tensor cores' accumulation rounds over one 32-deep slab only.  The
-// pattern comes from the raw f32 values (x != 0; the tf32 hi of a subnormal
-// can be 0): per stage a 32-bit k-mask of each A row and of each B column,
-// and a thread ORs (mask_row & mask_col) != 0 into the 64 bits of the
-// accumulator elements it owns, so values and flags are stored together.
-// A slab in which a warpgroup's 64 A rows or the B slab hold no non-zero
-// adds exact zeros, and the warpgroup skips it (wandering64's tiles are
-// about 1/6 full); ptxas then serializes the stage's wgmma chain (warning
-// C7518), which costs less than the skipped slabs save (PERF.md).  The
-// skip is exact for finite tiles: an Inf or NaN that meets only zeros gives
-// 0 here where a dense product gives NaN.
+// warpgroups each own a 64 x 128 half of the C tile (64 f32 registers a
+// thread) and issue 3 x 4 wgmma.m64n128k8 a stage; the stage's partial is
+// added to a second register sum in FP32 (round to nearest), so the tensor
+// cores' accumulation rounds over one 32-deep slab only.  The pattern comes
+// from the raw f32 values (x != 0; the tf32 hi of a subnormal can be 0):
+// per stage a 32-bit k-mask of each A row and of each B column, and a
+// thread ORs (mask_row & mask_col) != 0 into the 64 bits of the accumulator
+// elements it owns, so values and flags are stored together.  A slab in
+// which a warpgroup's 64 A rows or the B slab hold no non-zero adds exact
+// zeros, and the warpgroup skips it (wandering64's tiles are about 1/6
+// full); ptxas then serializes the stage's wgmma chain (warning C7518),
+// which costs less than the skipped slabs save (PERF.md).
+//
+// Non-finite operands keep IEEE results.  A stage that holds a value with
+// |x| >= 2^63, an Inf or a NaN is MARKED (the warps that split it vote):
+// both warpgroups skip its wgmma (a marked stage is never skipped as empty)
+// and form the slab's partial in FP32 FMA on the raw operands, read again
+// from device memory, then add it to the sum as a wgmma partial would be.
+// So an Inf or NaN gives the NaNs and the signed Infs of a dense product,
+// also where it meets only zeros, and a finite value near FLT_MAX (whose
+// tf32 rounding would be Inf), or a subnormal against it (whose split
+// misses it by up to 2^-137), gives the float32 product.  Below 2^63 no
+// product of the split can overflow and a subnormal's split error stays
+// under 2^-74 of its partner's scale: unmarked stages run exactly as
+// before.
 //
 // Plain C interface, no PyTorch headers: the wrappers
-// (ops/macro_kernels.py) allocate the outputs, pass raw pointers and the
-// current stream, and raise if the returned cudaError_t is not 0.
+// (ops/macro_kernels.py) allocate the outputs, pass raw pointers, the grid
+// of the persistent entry and the current stream, and raise if the returned
+// cudaError_t is not 0.
 
 #include <cuda_runtime.h>
 
@@ -76,145 +92,14 @@ namespace {
 
 constexpr int TILE = 128;
 constexpr long long TILE_ELEMS = (long long)TILE * TILE;
-constexpr int THREADS = 256;    // 16 x 16 threads, an 8 x 8 register tile each
-constexpr int KB = 16;          // k-slab depth
-constexpr int A_LD = TILE + 4;  // padded row of the transposed A slab
-
-struct alignas(16) Slab {       // rows are read as float4
-    alignas(16) float a[KB][A_LD];  // a[k][i] = A[i][k0 + k]
-    alignas(16) float b[KB][TILE];  // b[k][j] = B[k0 + k][j]
-    uint2 am[KB][16];           // non-zero mask of 8 A rows, one bit a byte
-    unsigned bm[KB][16];        // non-zero mask of 8 B columns, bits 0..7
-};
-
-__device__ __forceinline__ unsigned nz(float x) { return x != 0.f ? 1u : 0u; }
-
-// Thread (ty, tx) owns C rows 4*ty + {0..3} and 64 + 4*ty + {0..3}, columns
-// 4*tx + {0..3} and 64 + 4*tx + {0..3}.  Its pattern bits: byte i of `lo`
-// is row 4*ty + i, byte i of `hi` row 64 + 4*ty + i; bit j of a byte is
-// column 4*tx + j (j < 4) or 64 + 4*tx + j - 4.
-__device__ void tile_product(const float* __restrict__ a_dense,
-                             const float* __restrict__ b_dense,
-                             const int* __restrict__ a_tab,
-                             const int* __restrict__ b_tab,
-                             long long a0, long long b0, int n_pairs,
-                             float* __restrict__ c_num,
-                             unsigned char* __restrict__ c_flag, Slab& s) {
-    const int t = threadIdx.x;
-    const int tx = t & 15, ty = t >> 4;
-    float acc[8][8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-    unsigned plo = 0u, phi = 0u;
-
-    for (int q = 0; q < n_pairs; ++q) {
-        const float* ap = a_dense + (a0 + a_tab[q]) * TILE_ELEMS;
-        const float* bp = b_dense + (b0 + b_tab[q]) * TILE_ELEMS;
-        for (int k0 = 0; k0 < TILE; k0 += KB) {
-            // stage: 128 rows x 16 k of A (transposed), 16 k x 128 of B
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-                const int row = (t >> 2) + 64 * h, q4 = t & 3;
-                const float4 v = *reinterpret_cast<const float4*>(
-                    ap + row * TILE + k0 + 4 * q4);
-                s.a[4 * q4 + 0][row] = v.x;
-                s.a[4 * q4 + 1][row] = v.y;
-                s.a[4 * q4 + 2][row] = v.z;
-                s.a[4 * q4 + 3][row] = v.w;
-                const int kk = (t >> 5) + 8 * h, c4 = t & 31;
-                *reinterpret_cast<float4*>(&s.b[kk][4 * c4]) =
-                    *reinterpret_cast<const float4*>(
-                        bp + (k0 + kk) * TILE + 4 * c4);
-            }
-            __syncthreads();
-            {   // one (k, group) mask of each operand a thread
-                const int kk = t >> 4, g = t & 15;
-                float4 x = *reinterpret_cast<const float4*>(&s.a[kk][4 * g]);
-                float4 y = *reinterpret_cast<const float4*>(
-                    &s.a[kk][64 + 4 * g]);
-                s.am[kk][g] = make_uint2(
-                    nz(x.x) | nz(x.y) << 8 | nz(x.z) << 16 | nz(x.w) << 24,
-                    nz(y.x) | nz(y.y) << 8 | nz(y.z) << 16 | nz(y.w) << 24);
-                x = *reinterpret_cast<const float4*>(&s.b[kk][4 * g]);
-                y = *reinterpret_cast<const float4*>(&s.b[kk][64 + 4 * g]);
-                s.bm[kk][g] =
-                    nz(x.x) | nz(x.y) << 1 | nz(x.z) << 2 | nz(x.w) << 3 |
-                    nz(y.x) << 4 | nz(y.y) << 5 | nz(y.z) << 6 | nz(y.w) << 7;
-            }
-            __syncthreads();
-#pragma unroll
-            for (int kk = 0; kk < KB; ++kk) {
-                const float4 a_lo =
-                    *reinterpret_cast<const float4*>(&s.a[kk][4 * ty]);
-                const float4 a_hi =
-                    *reinterpret_cast<const float4*>(&s.a[kk][64 + 4 * ty]);
-                const float4 b_lo =
-                    *reinterpret_cast<const float4*>(&s.b[kk][4 * tx]);
-                const float4 b_hi =
-                    *reinterpret_cast<const float4*>(&s.b[kk][64 + 4 * tx]);
-                const float av[8] = {a_lo.x, a_lo.y, a_lo.z, a_lo.w,
-                                     a_hi.x, a_hi.y, a_hi.z, a_hi.w};
-                const float bv[8] = {b_lo.x, b_lo.y, b_lo.z, b_lo.w,
-                                     b_hi.x, b_hi.y, b_hi.z, b_hi.w};
-#pragma unroll
-                for (int i = 0; i < 8; ++i)
-#pragma unroll
-                    for (int j = 0; j < 8; ++j)
-                        acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-                const uint2 ma = s.am[kk][ty];
-                const unsigned mb = s.bm[kk][tx];
-                plo |= ma.x * mb;
-                phi |= ma.y * mb;
-            }
-            __syncthreads();
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-        const int row = (i < 4 ? 4 * ty + i : 64 + 4 * ty + (i - 4));
-        const unsigned bits = ((i < 4 ? plo : phi) >> (8 * (i & 3))) & 0xFFu;
-        float* cr = c_num + row * TILE;
-        unsigned char* fr = c_flag + row * TILE;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-            const int col = 64 * h + 4 * tx;
-            *reinterpret_cast<float4*>(cr + col) = make_float4(
-                acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
-                acc[i][4 * h + 3]);
-            const unsigned x = (bits >> (4 * h)) & 0xFu;
-            *reinterpret_cast<unsigned*>(fr + col) =
-                (x & 1u) | (x & 2u) << 7 | (x & 4u) << 14 | (x & 8u) << 21;
-        }
-    }
-}
-
-// One block a C tile of a pair stream sorted by C tile: tile c owns the
-// pairs [seg_ptr[c], seg_ptr[c + 1]).  Padding pairs lie past seg_ptr[c_cap]
-// and are never read.
-__global__ void __launch_bounds__(THREADS, 2)
-macro_pairs_kernel(const float* __restrict__ a_dense,
-                   const float* __restrict__ b_dense,
-                   const int* __restrict__ a_idx,
-                   const int* __restrict__ b_idx,
-                   const int* __restrict__ seg_ptr,
-                   float* __restrict__ c_num,
-                   unsigned char* __restrict__ c_flag) {
-    __shared__ Slab s;
-    const long long c = blockIdx.x;
-    const int lo = seg_ptr[c], hi = seg_ptr[c + 1];
-    tile_product(a_dense, b_dense, a_idx + lo, b_idx + lo, 0, 0, hi - lo,
-                 c_num + c * TILE_ELEMS, c_flag + c * TILE_ELEMS, s);
-}
-
-// ---------------------------------------------------------------------------
-// the tensor-core tile product of the class entries
-
 constexpr int KS = 32;                      // k-slab depth: one 128-byte row
 constexpr int OPERAND = TILE * KS * 4;      // bytes of one split operand slab
 constexpr int SLABS_PER_PAIR = TILE / KS;
+constexpr int TC_THREADS = 256;             // two consumer warpgroups
+constexpr unsigned ANY_NZ = 1u;             // a_any / b_any bits
+constexpr unsigned ANY_BAD = 2u;
+constexpr int CLAIMS = 8;                   // slots of the claim ring
+constexpr int AHEAD = 3;                    // claims ahead of the issue cursor
 
 struct alignas(1024) TcStage {              // 1024: the swizzle atom
     unsigned char a_hi[OPERAND];            // [i][k], 128-byte swizzle
@@ -228,14 +113,28 @@ struct TcShared {
     float raw_b[2][KS * TILE];              // and B [k][j]
     unsigned am[2][TILE];                   // k-mask of each A row
     unsigned bm[2][TILE];                   // k-mask of each B column
-    unsigned a_any[2][8];                   // warp w's A rows: any non-zero
-    unsigned b_any[2][8];                   // warp w's B columns: the same
+    unsigned a_any[2][8];                   // warp w's A rows: ANY_NZ if any
+    unsigned b_any[2][8];                   // non-zero; b_any: ANY_BAD if the
+                                            // warp's A or B words mark it
+    long long q_row[CLAIMS];                // claimed tiles: C row (-1: none
+    int q_lo[CLAIMS];                       // left) and pairs [lo, hi)
+    int q_hi[CLAIMS];
 };
 constexpr int TC_SMEM = (int)sizeof(TcShared) + 1024;   // + alignment slack
 
 __device__ __forceinline__ unsigned tf32_rna(float x) {
     unsigned r;
     asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+    return r;
+}
+
+// A stage with a value at or above BIG in magnitude, an Inf or a NaN is
+// marked (see the head of the file).
+constexpr float BIG = 0x1p63f;
+
+__device__ __forceinline__ float max_nan(float a, float b) {
+    float r;
+    asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
     return r;
 }
 
@@ -341,12 +240,14 @@ __device__ __forceinline__ void tc_fetch(TcRegs& r, const float* ra,
     }
 }
 
-// Split the stage into hi / lo, write it swizzled, and write its k-masks.
+// Split the stage into hi / lo, write it swizzled, and write its k-masks and
+// the warp's ANY_NZ / ANY_BAD bits.
 __device__ __forceinline__ void tc_store(const TcRegs& r, TcStage& s,
                                          unsigned* am, unsigned* bm,
                                          unsigned* a_any, unsigned* b_any) {
     const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
     unsigned a_nz = 0u;
+    float mx = 0.f;                         // max |x|, NaN if any x is
 #pragma unroll
     for (int h = 0; h < 4; ++h) {           // A: one 16-byte chunk a row
         const int row = 16 * w + (l >> 3) + 4 * h;
@@ -357,6 +258,7 @@ __device__ __forceinline__ void tc_store(const TcRegs& r, TcStage& s,
             hi[e] = tf32_rna(v[e]);
             lo[e] = tf32_rna(v[e] - __uint_as_float(hi[e]));
             nzb |= (v[e] != 0.f ? 1u : 0u) << e;
+            mx = max_nan(mx, fabsf(v[e]));
         }
         const unsigned off = swz(row, 4 * (l & 7));
         *reinterpret_cast<uint4*>(s.a_hi + off) =
@@ -384,6 +286,7 @@ __device__ __forceinline__ void tc_store(const TcRegs& r, TcStage& s,
             *reinterpret_cast<unsigned*>(s.b_hi + off) = hi;
             *reinterpret_cast<unsigned*>(s.b_lo + off) = lo;
             cm[c] |= (v[c] != 0.f ? 1u : 0u) << k;
+            mx = max_nan(mx, fabsf(v[c]));
         }
     }
 #pragma unroll
@@ -397,14 +300,41 @@ __device__ __forceinline__ void tc_store(const TcRegs& r, TcStage& s,
         for (int c = 0; c < 4; ++c) bm[4 * (4 * w + l) + c] = cm[c];
     }
     const bool b_nz = (cm[0] | cm[1] | cm[2] | cm[3]) != 0u;
-    const unsigned a_w = __any_sync(0xFFFFFFFFu, a_nz != 0u);
-    const unsigned b_w = __any_sync(0xFFFFFFFFu, b_nz);
+    const unsigned bad = __any_sync(0xFFFFFFFFu, !(mx < BIG)) ? ANY_BAD : 0u;
+    const unsigned a_w = __any_sync(0xFFFFFFFFu, a_nz != 0u) ? ANY_NZ : 0u;
+    const unsigned b_w = __any_sync(0xFFFFFFFFu, b_nz) ? ANY_NZ : 0u;
     if (l == 0) {
         a_any[w] = a_w;
-        b_any[w] = b_w;
+        b_any[w] = b_w | bad;
     }
     // the generic-proxy writes above are read by wgmma (the async proxy)
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A marked stage's partial in FP32 FMA on its raw values, read again from
+// device memory (ap, bp: the pair's tiles; k0: the slab's first k), into the
+// wgmma accumulator's registers in the fragment layout (rows r0, r0 + 8;
+// see Frag).  No shared memory is touched, so no barrier is needed.
+__device__ __forceinline__ void fma_stage(float (&acc)[64],
+                                          const float* __restrict__ ap,
+                                          const float* __restrict__ bp,
+                                          int k0, int r0, int l) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+        const int n0 = 8 * j + 2 * (l & 3);
+        acc[4 * j] = acc[4 * j + 1] = acc[4 * j + 2] = acc[4 * j + 3] = 0.f;
+#pragma unroll 1
+        for (int k = k0; k < k0 + KS; ++k) {
+            const float a0 = __ldg(ap + r0 * TILE + k);
+            const float a1 = __ldg(ap + (r0 + 8) * TILE + k);
+            const float b0 = __ldg(bp + k * TILE + n0);
+            const float b1 = __ldg(bp + k * TILE + n0 + 1);
+            acc[4 * j] = fmaf(a0, b0, acc[4 * j]);
+            acc[4 * j + 1] = fmaf(a0, b1, acc[4 * j + 1]);
+            acc[4 * j + 2] = fmaf(a1, b0, acc[4 * j + 2]);
+            acc[4 * j + 3] = fmaf(a1, b1, acc[4 * j + 3]);
+        }
+    }
 }
 
 // Warpgroup g = warp / 4 owns C rows 64g .. 64g + 63.  In the accumulator
@@ -412,31 +342,130 @@ __device__ __forceinline__ void tc_store(const TcRegs& r, TcStage& s,
 // l/4 and r0 + 8, columns 8j + 2(l % 4) + {0, 1} (j = 0..15): d[4j + e] is
 // row r0 + 8 * (e / 2), column 8j + 2(l % 4) + e % 2.  Flag bit 2j + e % 2
 // of f[e / 2] is the same element.
-__device__ void tile_product_tc(const float* __restrict__ a_dense,
-                                const float* __restrict__ b_dense,
-                                const int* __restrict__ a_tab,
-                                const int* __restrict__ b_tab,
-                                long long a0, long long b0, int n_pairs,
-                                float* __restrict__ c_num,
-                                unsigned char* __restrict__ c_flag,
-                                TcShared& sh) {
-    const int t = threadIdx.x, l = t & 31, g = t >> 7;
-    const int r0 = 64 * g + 16 * ((t >> 5) & 3) + (l >> 2);
-    float acc[64], sum[64];
+struct Frag {
+    float acc[64];                          // the stage's wgmma partial
+    float sum[64];                          // the tile's sums
+    unsigned f[2];                          // the tile's flags
+    int g, r0, l;
+    __device__ __forceinline__ Frag() {
+        const int t = threadIdx.x;
+        l = t & 31;
+        g = t >> 7;
+        r0 = 64 * g + 16 * ((t >> 5) & 3) + (l >> 2);
 #pragma unroll
-    for (int i = 0; i < 64; ++i) { acc[i] = 0.f; sum[i] = 0.f; }
-    unsigned f[2] = {0u, 0u};
+        for (int i = 0; i < 64; ++i) { acc[i] = 0.f; sum[i] = 0.f; }
+        f[0] = f[1] = 0u;
+    }
+    __device__ __forceinline__ void store(float* c_num, unsigned char* c_flag,
+                                          long long row) const {
+#pragma unroll
+        for (int e2 = 0; e2 < 2; ++e2) {
+            const int r = r0 + 8 * e2;
+            float* cr = c_num + row * TILE_ELEMS + r * TILE;
+            unsigned char* fr = c_flag + row * TILE_ELEMS + r * TILE;
+#pragma unroll
+            for (int j = 0; j < 16; ++j) {
+                const int col = 8 * j + 2 * (l & 3);
+                *reinterpret_cast<float2*>(cr + col) =
+                    make_float2(sum[4 * j + 2 * e2], sum[4 * j + 2 * e2 + 1]);
+                const unsigned bits = (f[e2] >> (2 * j)) & 3u;
+                *reinterpret_cast<unsigned short*>(fr + col) =
+                    (unsigned short)((bits & 1u) | (bits & 2u) << 7);
+            }
+        }
+    }
+    __device__ __forceinline__ void reset() {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) sum[i] = 0.f;
+        f[0] = f[1] = 0u;
+    }
+};
+
+// One stage of the tile product on split slot cur, and the split of the
+// next stage's raw slabs into slot cur ^ 1 (when `next`) while the tensor
+// cores run: a marked stage runs in FP32 FMA on the raw operands that
+// operands(ap, bp, k0) names; else a k-slab whose 64 A rows or whose B slab
+// hold no non-zero adds exact zeros to values and flags, and the warpgroup
+// skips it.  The caller's barrier follows.
+template <class Operands>
+__device__ __forceinline__ void tc_stage(TcShared& sh, int cur, bool next,
+                                         Operands operands, TcRegs& regs,
+                                         Frag& fr) {
+    const int g = fr.g, l = fr.l, r0 = fr.r0;
+    const TcStage& s = sh.stage[cur];
+    const unsigned ag = sh.a_any[cur][4 * g] | sh.a_any[cur][4 * g + 1] |
+                        sh.a_any[cur][4 * g + 2] | sh.a_any[cur][4 * g + 3];
+    const unsigned bg = sh.b_any[cur][0] | sh.b_any[cur][1] |
+                        sh.b_any[cur][2] | sh.b_any[cur][3] |
+                        sh.b_any[cur][4] | sh.b_any[cur][5] |
+                        sh.b_any[cur][6] | sh.b_any[cur][7];
+    const bool bad = (bg & ANY_BAD) != 0u;
+    const bool run = !bad && (ag & bg & ANY_NZ) != 0u;
+    if (run) {
+        const unsigned long long a_hi = smem_desc(s.a_hi + 64 * g * 128);
+        const unsigned long long a_lo = smem_desc(s.a_lo + 64 * g * 128);
+        const unsigned long long b_hi = smem_desc(s.b_hi);
+        const unsigned long long b_lo = smem_desc(s.b_lo);
+        fence_regs(fr.acc);
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+        for (int kk = 0; kk < KS / 8; ++kk) {   // 8 tf32 = 32 bytes
+            const unsigned long long dk = (unsigned long long)(kk * 2);
+            wgmma_tf32(fr.acc, a_lo + dk, b_hi + dk, kk);
+            wgmma_tf32(fr.acc, a_hi + dk, b_lo + dk, 1);
+            wgmma_tf32(fr.acc, a_hi + dk, b_hi + dk, 1);
+        }
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    }
+    if (next) {
+        cp_async_wait1();
+        tc_fetch(regs, sh.raw_a[cur ^ 1], sh.raw_b[cur ^ 1]);
+        tc_store(regs, sh.stage[cur ^ 1], sh.am[cur ^ 1], sh.bm[cur ^ 1],
+                 sh.a_any[cur ^ 1], sh.b_any[cur ^ 1]);
+    }
+    const unsigned m0 = sh.am[cur][r0], m1 = sh.am[cur][r0 + 8];
+    if ((run || bad) && (m0 | m1) != 0u) {  // pattern of this stage
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+                const unsigned mb = sh.bm[cur][8 * j + 2 * (l & 3) + e];
+                fr.f[0] |= ((m0 & mb) != 0u ? 1u : 0u) << (2 * j + e);
+                fr.f[1] |= ((m1 & mb) != 0u ? 1u : 0u) << (2 * j + e);
+            }
+        }
+    }
+    if (run) {
+        asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+        fence_regs(fr.acc);
+    } else if (bad) {
+        const float *ap, *bp;
+        int k0;
+        operands(ap, bp, k0);
+        fma_stage(fr.acc, ap, bp, k0, r0, l);
+    }
+    if (run || bad) {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) fr.sum[i] += fr.acc[i];
+    }
+}
+
+// One C tile a block (the class entries): the tile's pairs q < n_pairs,
+// operands A[a0 + a_tab[q]], B[b0 + b_tab[q]], as a stream of (pair, k-slab)
+// stages over a two-stage ring, stored at c_num / c_flag.
+__device__ __forceinline__ void tile_product_tc(
+        const float* __restrict__ a_dense, const float* __restrict__ b_dense,
+        const int* __restrict__ a_tab, const int* __restrict__ b_tab,
+        long long a0, long long b0, int n_pairs, float* __restrict__ c_num,
+        unsigned char* __restrict__ c_flag, TcShared& sh) {
+    Frag fr;
     const int n_stages = n_pairs * SLABS_PER_PAIR;
     TcRegs regs;
-    auto operands = [&](int st, const float*& ap, const float*& bp) {
-        const int q = st / SLABS_PER_PAIR;
-        ap = a_dense + (a0 + a_tab[q]) * TILE_ELEMS;
-        bp = b_dense + (b0 + b_tab[q]) * TILE_ELEMS;
-    };
     auto issue = [&](int st) {              // stage st's raw slabs, in flight
-        const float *ap, *bp;
-        operands(st, ap, bp);
-        tc_issue(sh.raw_a[st & 1], sh.raw_b[st & 1], ap, bp,
+        const int q = st / SLABS_PER_PAIR;
+        tc_issue(sh.raw_a[st & 1], sh.raw_b[st & 1],
+                 a_dense + (a0 + a_tab[q]) * TILE_ELEMS,
+                 b_dense + (b0 + b_tab[q]) * TILE_ELEMS,
                  KS * (st % SLABS_PER_PAIR));
     };
     if (n_stages > 0) issue(0);
@@ -451,80 +480,199 @@ __device__ void tile_product_tc(const float* __restrict__ a_dense,
     }
     __syncthreads();
     for (int st = 0; st < n_stages; ++st) {
-        const int cur = st & 1;
-        const bool next = st + 1 < n_stages;
         if (st + 2 < n_stages) issue(st + 2);   // into the raw slab of st
         cp_async_commit();
-        const TcStage& s = sh.stage[cur];
-        // a k-slab whose 64 A rows or whose B slab hold no non-zero adds
-        // exact zeros to values and flags: the warpgroup skips it
-        const bool run =
-            (sh.a_any[cur][4 * g] | sh.a_any[cur][4 * g + 1] |
-             sh.a_any[cur][4 * g + 2] | sh.a_any[cur][4 * g + 3]) != 0u &&
-            (sh.b_any[cur][0] | sh.b_any[cur][1] | sh.b_any[cur][2] |
-             sh.b_any[cur][3] | sh.b_any[cur][4] | sh.b_any[cur][5] |
-             sh.b_any[cur][6] | sh.b_any[cur][7]) != 0u;
-        if (run) {
-            const unsigned long long a_hi = smem_desc(s.a_hi + 64 * g * 128);
-            const unsigned long long a_lo = smem_desc(s.a_lo + 64 * g * 128);
-            const unsigned long long b_hi = smem_desc(s.b_hi);
-            const unsigned long long b_lo = smem_desc(s.b_lo);
-            fence_regs(acc);
-            asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-#pragma unroll
-            for (int kk = 0; kk < KS / 8; ++kk) {   // 8 tf32 = 32 bytes
-                const unsigned long long dk = (unsigned long long)(kk * 2);
-                wgmma_tf32(acc, a_lo + dk, b_hi + dk, kk);
-                wgmma_tf32(acc, a_hi + dk, b_lo + dk, 1);
-                wgmma_tf32(acc, a_hi + dk, b_hi + dk, 1);
-            }
-            asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-        }
-        if (next) {                          // split stage st + 1
-            cp_async_wait1();
-            tc_fetch(regs, sh.raw_a[cur ^ 1], sh.raw_b[cur ^ 1]);
-            tc_store(regs, sh.stage[cur ^ 1], sh.am[cur ^ 1], sh.bm[cur ^ 1],
-                     sh.a_any[cur ^ 1], sh.b_any[cur ^ 1]);
-        }
-        const unsigned m0 = sh.am[cur][r0], m1 = sh.am[cur][r0 + 8];
-        if (run && (m0 | m1) != 0u) {        // pattern of this stage
-#pragma unroll
-            for (int j = 0; j < 16; ++j) {
-#pragma unroll
-                for (int e = 0; e < 2; ++e) {
-                    const unsigned mb = sh.bm[cur][8 * j + 2 * (l & 3) + e];
-                    f[0] |= ((m0 & mb) != 0u ? 1u : 0u) << (2 * j + e);
-                    f[1] |= ((m1 & mb) != 0u ? 1u : 0u) << (2 * j + e);
-                }
-            }
-        }
-        if (run) {
-            asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-            fence_regs(acc);
-#pragma unroll
-            for (int i = 0; i < 64; ++i) sum[i] += acc[i];
-        }
+        const int q = st / SLABS_PER_PAIR;
+        tc_stage(sh, st & 1, st + 1 < n_stages,
+                 [&](const float*& ap, const float*& bp, int& k0) {
+                     ap = a_dense + (a0 + a_tab[q]) * TILE_ELEMS;
+                     bp = b_dense + (b0 + b_tab[q]) * TILE_ELEMS;
+                     k0 = KS * (st % SLABS_PER_PAIR);
+                 }, regs, fr);
         __syncthreads();
     }
+    fr.store(c_num, c_flag, 0);
+}
 
-#pragma unroll
-    for (int e2 = 0; e2 < 2; ++e2) {
-        const int row = r0 + 8 * e2;
-        float* cr = c_num + row * TILE;
-        unsigned char* fr = c_flag + row * TILE;
-#pragma unroll
-        for (int j = 0; j < 16; ++j) {
-            const int col = 8 * j + 2 * (l & 3);
-            *reinterpret_cast<float2*>(cr + col) =
-                make_float2(sum[4 * j + 2 * e2], sum[4 * j + 2 * e2 + 1]);
-            const unsigned bits = (f[e2] >> (2 * j)) & 3u;
-            *reinterpret_cast<unsigned short*>(fr + col) =
-                (unsigned short)((bits & 1u) | (bits & 2u) << 7);
+// The persistent entry's tiles: thread 0 takes tickets (atomicAdd on
+// `next`, zero at the launch), in stream order; the tiles without pairs are
+// stored as zeros before the stream, round robin, by single threads.
+struct PairWalk {
+    const int* seg_ptr;
+    const int* a_tab;
+    const int* b_tab;
+    int* next;
+    int c_cap;
+};
+
+// The block's tiles with pairs come through a ring of CLAIMS slots in shared
+// memory, which thread 0 keeps AHEAD claims in front of the issue cursor.
+// A claim takes two iterations, so that no thread waits on it: a ticket
+// (the atomic) is taken at the top of one iteration, its pair range read
+// from seg_ptr at the top of the next, and the slot written at that
+// iteration's end, before the barrier that precedes the slot's first read.
+// Two cursors read the ring in order: the ISSUE cursor (pair iq of [iq,
+// iq_end), slab is) two stages ahead of the compute, and the COMPUTE
+// cursor (the tile at C row c_row, `left` stages to go), which stores a
+// tile's sums and flags after its last stage and resets them.
+// Stage st's raw slabs sit in raw slot st % 2, its split in stage slot
+// st % 2, whatever tile it belongs to; `issued` counts the stages issued, so
+// stage st + 1 exists when st + 1 < issued.  The issue cursor is at most
+// one tile ahead of the compute (a tile has 4 stages or more), so at most
+// AHEAD + 3 < CLAIMS slots are in use at once.
+__device__ __forceinline__ void pair_stream(
+        const float* __restrict__ a_dense, const float* __restrict__ b_dense,
+        const PairWalk& w, float* __restrict__ c_num,
+        unsigned char* __restrict__ c_flag, TcShared& sh) {
+    const int t = threadIdx.x;
+    for (long long c = blockIdx.x + (long long)t * gridDim.x; c < w.c_cap;
+         c += (long long)TC_THREADS * gridDim.x) {
+        if (w.seg_ptr[c] != w.seg_ptr[c + 1]) continue;
+        float4* cv = reinterpret_cast<float4*>(c_num + c * TILE_ELEMS);
+        uint4* cf = reinterpret_cast<uint4*>(c_flag + c * TILE_ELEMS);
+        for (int i = 0; i < TILE_ELEMS / 4; ++i)
+            cv[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+        for (int i = 0; i < TILE_ELEMS / 16; ++i)
+            cf[i] = make_uint4(0u, 0u, 0u, 0u);
+    }
+    // thread 0: slot n <- the first tile with pairs from ticket tk on, whose
+    // pairs [lo, hi) were read already (row -1: none left)
+    auto publish = [&](int n, int tk, int lo, int hi) {
+        while (tk < w.c_cap && hi == lo) {  // a tile without pairs: rare
+            tk = atomicAdd(w.next, 1);
+            if (tk < w.c_cap) {
+                lo = w.seg_ptr[tk];
+                hi = w.seg_ptr[tk + 1];
+            }
         }
+        const int slot = n % CLAIMS;
+        sh.q_row[slot] = tk < w.c_cap ? tk : -1;
+        sh.q_lo[slot] = lo;
+        sh.q_hi[slot] = hi;
+    };
+    auto read_range = [&](int tk, int& lo, int& hi) {
+        lo = hi = 0;
+        if (tk < w.c_cap) {
+            lo = w.seg_ptr[tk];
+            hi = w.seg_ptr[tk + 1];
+        }
+    };
+    if (t == 0) {
+        for (int n = 0; n <= AHEAD; ++n) {
+            int lo, hi;
+            const int tk = atomicAdd(w.next, 1);
+            read_range(tk, lo, hi);
+            publish(n, tk, lo, hi);
+        }
+    }
+    int n_claimed = AHEAD + 1, n_used = 0;
+    bool pending = false;                   // a ticket taken, not published
+    int tk_pend = 0;                        // thread 0: its ticket
+    __syncthreads();
+
+    Frag fr;
+    TcRegs regs;
+    int iq = 0, iq_end = 0, is = 0, issued = 0;
+    bool i_live = true;
+    auto take = [&]() {                     // the issue cursor's next tile
+        const int slot = n_used++ % CLAIMS;
+        i_live = sh.q_row[slot] >= 0;
+        iq = sh.q_lo[slot];
+        iq_end = sh.q_hi[slot];
+    };
+    auto issue = [&]() {                    // the next stage's raw slabs
+        if (!i_live) return;
+        tc_issue(sh.raw_a[issued & 1], sh.raw_b[issued & 1],
+                 a_dense + (long long)w.a_tab[iq] * TILE_ELEMS,
+                 b_dense + (long long)w.b_tab[iq] * TILE_ELEMS, KS * is);
+        ++issued;
+        if (++is == SLABS_PER_PAIR) {
+            is = 0;
+            if (++iq == iq_end) take();
+        }
+    };
+    int c_used = 0, left = 0, cq = 0, cs = 0;
+    long long c_row = 0;
+    auto advance = [&]() {                  // the compute cursor's next tile
+        const int slot = c_used++ % CLAIMS;
+        c_row = sh.q_row[slot];
+        cq = sh.q_lo[slot];
+        cs = 0;
+        left = c_row >= 0 ? (sh.q_hi[slot] - cq) * SLABS_PER_PAIR : 0;
+    };
+
+    take();
+    issue();
+    cp_async_commit();
+    issue();
+    cp_async_commit();
+    advance();
+    if (issued > 0) {
+        cp_async_wait1();
+        tc_fetch(regs, sh.raw_a[0], sh.raw_b[0]);
+        tc_store(regs, sh.stage[0], sh.am[0], sh.bm[0], sh.a_any[0],
+                 sh.b_any[0]);
+    }
+    __syncthreads();
+    for (int st = 0; st < issued; ++st) {
+        // the claim pipeline: the pending ticket's range, a new ticket
+        const bool publish_now = pending;
+        int lo_p = 0, hi_p = 0;
+        if (publish_now && t == 0) read_range(tk_pend, lo_p, hi_p);
+        const bool fresh = i_live && n_claimed + (pending ? 1 : 0) <
+                                         n_used + AHEAD;
+        int tk_new = 0;
+        if (fresh && t == 0) tk_new = atomicAdd(w.next, 1);
+        issue();                            // stage st + 2, into raw slot
+        cp_async_commit();                  // st % 2
+        tc_stage(sh, st & 1, st + 1 < issued,
+                 [&](const float*& ap, const float*& bp, int& k0) {
+                     ap = a_dense + (long long)w.a_tab[cq] * TILE_ELEMS;
+                     bp = b_dense + (long long)w.b_tab[cq] * TILE_ELEMS;
+                     k0 = KS * cs;
+                 }, regs, fr);
+        if (++cs == SLABS_PER_PAIR) {       // the compute cursor's pair
+            cs = 0;
+            ++cq;
+        }
+        if (--left == 0) {                  // the tile's last stage
+            fr.store(c_num, c_flag, c_row);
+            fr.reset();
+            advance();
+        }
+        if (publish_now) {
+            if (t == 0) publish(n_claimed, tk_pend, lo_p, hi_p);
+            ++n_claimed;
+        }
+        pending = fresh;
+        tk_pend = tk_new;
+        __syncthreads();
     }
 }
 
-constexpr int TC_THREADS = 256;             // two consumer warpgroups
+// Aligns the dynamic shared memory to the swizzle atom.
+__device__ __forceinline__ TcShared& tc_shared() {
+    extern __shared__ unsigned char smem_raw[];
+    const unsigned raw = (unsigned)__cvta_generic_to_shared(smem_raw);
+    return *reinterpret_cast<TcShared*>(
+        smem_raw + (((raw + 1023u) & ~1023u) - raw));
+}
+
+// Persistent: the blocks take the C tiles of a pair stream sorted by C tile
+// in stream order, one at a time, from the counter `next`; tile c's pairs
+// are [seg_ptr[c], seg_ptr[c + 1]).  Padding pairs lie past seg_ptr[c_cap]
+// and are never read.
+__global__ void __launch_bounds__(TC_THREADS, 1)
+macro_pairs_kernel(const float* __restrict__ a_dense,
+                   const float* __restrict__ b_dense,
+                   const int* __restrict__ a_idx,
+                   const int* __restrict__ b_idx,
+                   const int* __restrict__ seg_ptr, int* next, int c_cap,
+                   float* __restrict__ c_num,
+                   unsigned char* __restrict__ c_flag) {
+    pair_stream(a_dense, b_dense, PairWalk{seg_ptr, a_idx, b_idx, next, c_cap},
+                c_num, c_flag, tc_shared());
+}
 
 // One block a (step, tile) of a signature class.  RAGGED: the tile's pairs
 // are [p_ptr[tt], p_ptr[tt + 1]) of the offset tables; else p pairs a tile.
@@ -538,17 +686,21 @@ macro_class_kernel(const float* __restrict__ a_dense,
                    const int* __restrict__ b_offs, int t, int p,
                    long long base, float* __restrict__ c_num,
                    unsigned char* __restrict__ c_flag) {
-    extern __shared__ unsigned char smem_raw[];
-    const unsigned raw = (unsigned)__cvta_generic_to_shared(smem_raw);
-    TcShared& sh = *reinterpret_cast<TcShared*>(
-        smem_raw + (((raw + 1023u) & ~1023u) - raw));
     const int step = blockIdx.x / t, tt = blockIdx.x % t;
     const int lo = RAGGED ? p_ptr[tt] : tt * p;
     const int n = RAGGED ? p_ptr[tt + 1] - lo : p;
     const long long row = base + (long long)blockIdx.x;
     tile_product_tc(a_dense, b_dense, a_offs + lo, b_offs + lo,
                     ab_bases[2 * step], ab_bases[2 * step + 1], n,
-                    c_num + row * TILE_ELEMS, c_flag + row * TILE_ELEMS, sh);
+                    c_num + row * TILE_ELEMS, c_flag + row * TILE_ELEMS,
+                    tc_shared());
+}
+
+// per launch: the attribute belongs to the current device
+template <class Kernel>
+cudaError_t allow_tc_smem(Kernel kernel) {
+    return cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TC_SMEM);
 }
 
 template <bool RAGGED>
@@ -557,10 +709,7 @@ cudaError_t launch_class(const float* a_dense, const float* b_dense,
                          const int* a_offs, const int* b_offs, int t, int p,
                          int n_steps, long long base, float* c_num,
                          unsigned char* c_flag, cudaStream_t stream) {
-    // per launch: the attribute belongs to the current device
-    const cudaError_t attr = cudaFuncSetAttribute(
-        macro_class_kernel<RAGGED>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, TC_SMEM);
+    const cudaError_t attr = allow_tc_smem(macro_class_kernel<RAGGED>);
     if (attr != cudaSuccess) return attr;
     macro_class_kernel<RAGGED><<<n_steps * t, TC_THREADS, TC_SMEM, stream>>>(
         a_dense, b_dense, ab_bases, p_ptr, a_offs, b_offs, t, p, base,
@@ -571,14 +720,21 @@ cudaError_t launch_class(const float* a_dense, const float* b_dense,
 }  // namespace
 
 // c_num (c_cap, 128, 128) f32 and c_flag (c_cap, 128, 128) u8 are written
-// whole; seg_ptr has c_cap + 1 entries.
+// whole; seg_ptr has c_cap + 1 entries; next is one int, 0 at the launch.
+// grid: blocks of the persistent kernel (the wrapper passes the SM count;
+// at most c_cap are launched).
 extern "C" int macro_accumulate_pairs_f32(
         const float* a_dense, const float* b_dense, const int* a_idx,
         const int* b_idx, const int* seg_ptr, float* c_num,
-        unsigned char* c_flag, int c_cap, cudaStream_t stream) {
+        unsigned char* c_flag, int c_cap, int grid, int* next,
+        cudaStream_t stream) {
     if (c_cap <= 0) return (int)cudaSuccess;
-    macro_pairs_kernel<<<c_cap, THREADS, 0, stream>>>(
-        a_dense, b_dense, a_idx, b_idx, seg_ptr, c_num, c_flag);
+    if (grid <= 0) return (int)cudaErrorInvalidConfiguration;
+    const cudaError_t attr = allow_tc_smem(macro_pairs_kernel);
+    if (attr != cudaSuccess) return (int)attr;
+    macro_pairs_kernel<<<grid < c_cap ? grid : c_cap, TC_THREADS, TC_SMEM,
+                         stream>>>(a_dense, b_dense, a_idx, b_idx, seg_ptr,
+                                   next, c_cap, c_num, c_flag);
     return (int)cudaGetLastError();
 }
 

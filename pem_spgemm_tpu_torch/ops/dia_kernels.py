@@ -16,6 +16,8 @@ pairs, in ascending A-band order per C element, and the same sum over the
 variant without the mask algebra and returns ``None`` for the counts.  The
 dense entry stages a window of B in shared memory: ``dense_launch`` gives
 its block shape and shared-memory layout, ``dense_chunks`` its band chunks.
+The pairs entry stages its column range of the A bands and the pair tables:
+``pairs_launch`` gives its grid and what is staged.
 
 Dispatch is by the tensors' device and nothing else: CUDA tensors launch the
 kernel (or raise, if the build or the launch fails); CPU tensors take the
@@ -41,7 +43,11 @@ MAX_ROW_BLOCKS = 8          # row blocks of 8 a thread block, at most
 MAX_COL_BLOCKS = 64         # column blocks a thread block, at most
 MAX_THREADS = 256
 COPY_WIDTH = 32             # window columns a pass of the staging copies
-SMEM_BUDGET = 112 * 1024    # bytes a block of the dense entry: two an SM
+SMEM_BUDGET = 112 * 1024    # bytes a block of either entry: two an SM
+PAIR_THREADS = 256          # threads a block of the pairs entry (the .cu's)
+PAIR_COLS = 4               # columns a thread of the pairs entry
+PAIR_L = PAIR_THREADS * PAIR_COLS   # columns a block of the pairs entry
+PAIRS_MIN_BLOCKS = 264      # pairs-entry blocks wanted: two an SM of 132
 
 # kernel launches per entry (plain-version calls are not counted)
 LAUNCHES = {"dia_multiply_dense": 0, "dia_multiply_pairs": 0}
@@ -58,8 +64,9 @@ def _declare(lib) -> None:
                                            ll, ll, ll, ci, ci, ci, ci, ci,
                                            ci, ci, vp]
     lib.dia_multiply_dense_f32.restype = ci
-    lib.dia_multiply_pairs_f32.argtypes = [vp, vp, vp, vp, vp, vp, ci, ll,
-                                           ll, ll, vp]
+    lib.dia_multiply_pairs_f32.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci,
+                                           ci, ci, ci, ll, ll, ll, ci, ci,
+                                           ci, ci, vp]
     lib.dia_multiply_pairs_f32.restype = ci
 
 
@@ -175,6 +182,37 @@ def dense_launch(offs_a, d2n: int, dcn: int):
 
 
 # --------------------------------------------------------------------------
+# the pairs entry's launch shape
+
+def pairs_launch(d1n: int, dcn: int, n_pairs: int, n_out: int):
+    """The pairs entry's launch shape for d1n A bands, dcn C rows, n_pairs
+    band pairs and n_out columns.
+
+    A block owns PAIR_L columns (PAIR_COLS a thread, PAIR_THREADS apart) of
+    the C rows blockIdx.y, blockIdx.y + grid_y, ...: grid_x column ranges,
+    neighbours in the grid, and grid_y row groups only where the column
+    ranges alone give fewer than PAIRS_MIN_BLOCKS blocks.  Shared memory
+    holds, from word 0 on, the block's words of every A band (stage_a:
+    d1n x PAIR_L floats) and then the row_ptr / trip tables
+    (stage_tables), each where it fits in SMEM_BUDGET beside what comes
+    before it; what is not staged is read where it lies."""
+    if d1n <= 0 or dcn <= 0 or n_pairs <= 0 or n_out <= 0:
+        raise ValueError(f"d1n={d1n}, dcn={dcn}, n_pairs={n_pairs}, "
+                         f"n_out={n_out}")
+    grid_x = -(-n_out // PAIR_L)
+    grid_y = min(dcn, max(1, -(-PAIRS_MIN_BLOCKS // grid_x)))
+    a_bytes = 4 * d1n * PAIR_L
+    t_bytes = 4 * (dcn + 1 + 3 * n_pairs)
+    stage_a = a_bytes <= SMEM_BUDGET
+    used = a_bytes if stage_a else 0
+    stage_tables = used + t_bytes <= SMEM_BUDGET
+    return dict(grid_x=grid_x, grid_y=grid_y, L=PAIR_L, cols=PAIR_COLS,
+                threads=PAIR_THREADS, stage_a=stage_a,
+                stage_tables=stage_tables,
+                smem_bytes=used + (t_bytes if stage_tables else 0))
+
+
+# --------------------------------------------------------------------------
 # offset tables
 
 def pair_table(offs_a, offs_b, dc_list):
@@ -284,13 +322,17 @@ def dia_multiply(a_bands, b_bands, *, offs_a, offs_b, dc_list, n_out,
                 shape["stage_floats"], stream)
         else:
             row_ptr, trip = tables
-            if (row_ptr.numel() != dcn + 1
-                    or trip.numel() != 3 * len(offs_a) * len(offs_b)):
+            n_pairs = len(offs_a) * len(offs_b)
+            if row_ptr.numel() != dcn + 1 or trip.numel() != 3 * n_pairs:
                 raise ValueError("tables do not match the offset sets")
+            shape = pairs_launch(len(offs_a), dcn, n_pairs, n_out)
             err = lib.dia_multiply_pairs_f32(
                 a_bands.data_ptr(), b_bands.data_ptr(), row_ptr.data_ptr(),
-                trip.data_ptr(), c.data_ptr(), cnt_ptr, dcn, n_i, n_k, n_out,
-                stream)
+                trip.data_ptr(), c.data_ptr(), cnt_ptr, len(offs_a), dcn,
+                n_pairs, offs_a[0], offs_a[-1], n_i, n_k, n_out,
+                shape["grid_y"],
+                int(shape["stage_a"]), int(shape["stage_tables"]),
+                shape["smem_bytes"], stream)
     if err != 0:
         raise RuntimeError(f"dia_multiply_{mode}: CUDA launch failed with "
                            f"error {err}")

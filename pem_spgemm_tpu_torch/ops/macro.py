@@ -5,10 +5,11 @@ sorted by C tile, fused numeric + 0/1 structural accumulation, exact-nnz
 structure.  C tiles are dense (c_cap, 128, 128) and written once.
 
 ``accumulate_macro`` is the plain PyTorch accumulation (a chunked batched
-product and a scatter-add): it is the interactive path on every device, the
-version a CPU tensor takes, and the parity oracle of the pair-stream kernel
-(ops/macro_kernels.accumulate_macro_pairs), which carries the steady path
-on the GPU.
+product and a scatter-add): it is the version a CPU tensor takes and the
+parity oracle of the pair-stream kernel
+(ops/macro_kernels.accumulate_macro_pairs), which carries the interactive
+multiply, the MacroPlan steady multiply and the stencil plan's residual
+pairs on the GPU.
 
 Structural counts are returned as **uint8 flags** (1 where at least one
 product of two stored entries lands, else 0): downstream reads only

@@ -7,17 +7,24 @@ with nvcc at first use and bound with ctypes by ops/_build.py):
   accumulate_macro_pairs   a pair stream sorted by C tile:
                            C[seg[p]] += A[a_idx[p]] @ B[b_idx[p]]
                            (accumulate_macro_pipelined of the reference);
+                           the macro engine's interactive multiply, its
+                           MacroPlan steady multiply and the stencil plan's
+                           residual pairs;
   class_call2              one signature class of a stencil / run plan, per
                            tile pair counts ragged or uniform;
   class_call               the same for uniform pair counts only (the
                            reference's single-buffered class kernel, which
                            has no caller in either package).
 
-The pair-stream entry computes its 128x128x128 products in FP32 FMA, the
-class entries on the tensor cores (wgmma on tf32 operands with a 3xTF32
-split, which keeps float32 accuracy); each also forms the structural
-pattern of the same products as uint8 flags from the raw values (see
-ops/macro.py).  A thread block owns one C tile and writes it once.
+All three compute their 128x128x128 products on the tensor cores (wgmma on
+tf32 operands with a 3xTF32 split, which keeps float32 accuracy; a slab
+holding an Inf, a NaN or a value of 2^63 or more runs in FP32 FMA, so
+non-finite operands give IEEE results) and form the structural pattern of the same products as uint8
+flags from the raw values (see ops/macro.py).  Every C tile is written once
+by the block that owns it: the class entries launch one block a tile, the
+pair-stream entry one persistent block an SM (``persistent_grid``), each
+taking tiles in stream order from a counter the wrapper zeroes and running
+them as one stream of stages.
 
 Dispatch is by the tensors' device and nothing else: CUDA tensors launch
 the kernel (or raise, if the build or the launch fails); CPU tensors take
@@ -52,7 +59,7 @@ def reset_launch_counts() -> None:
 def _declare(lib) -> None:
     vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.macro_accumulate_pairs_f32.argtypes = [vp, vp, vp, vp, vp, vp, vp,
-                                               ci, vp]
+                                               ci, ci, vp, vp]
     lib.macro_class_ragged_f32.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci,
                                            ll, vp, vp, vp]
     lib.macro_class_uniform_f32.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci,
@@ -116,6 +123,12 @@ def segment_offsets(seg, c_cap: int):
     return torch.searchsorted(seg, edges, out_int32=True)
 
 
+def persistent_grid(device) -> int:
+    """Blocks of the pair-stream entry: one an SM of ``device`` (a block
+    takes most of an SM's shared memory)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def accumulate_macro_pairs(a_dense, b_dense, a_idx, b_idx, seg, c_cap: int,
                            *, chunk: int = 256, acc_dtype=torch.float32):
     """(c_dense (c_cap,128,128), c_flags (c_cap,128,128) uint8) of a pair
@@ -144,13 +157,14 @@ def accumulate_macro_pairs(a_dense, b_dense, a_idx, b_idx, seg, c_cap: int,
     if c_cap == 0:                      # nothing to launch, nothing counted
         return c_num, c_flag
     seg_ptr = segment_offsets(seg, c_cap)
+    next_tile = torch.zeros(1, dtype=torch.int32, device=dev)
     lib = _library()
     with torch.cuda.device(dev):
         _raise_on(lib.macro_accumulate_pairs_f32(
             a_dense.data_ptr(), b_dense.data_ptr(), a_idx.data_ptr(),
             b_idx.data_ptr(), seg_ptr.data_ptr(), c_num.data_ptr(),
-            c_flag.data_ptr(), c_cap,
-            torch.cuda.current_stream().cuda_stream),
+            c_flag.data_ptr(), c_cap, persistent_grid(dev),
+            next_tile.data_ptr(), torch.cuda.current_stream().cuda_stream),
             "macro_accumulate_pairs")
     LAUNCHES["macro_accumulate_pairs"] += 1
     return c_num, c_flag

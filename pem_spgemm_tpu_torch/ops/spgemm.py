@@ -140,12 +140,16 @@ class SpGEMM:
         return self._element_binned(a, b, timers)
 
     def _macro(self, a, b, timers: PhaseTimers) -> SpGEMMResult:
-        """Macro128 engine (ops/macro.py): dense 128x128 tile products on
-        the plain path (a chunked batched product and a scatter-add).
+        """Macro128 engine (ops/macro.py): dense 128x128 tile products.
         step1 = pair expansion sorted by C tile (two size feedbacks);
-        step3 = fused numeric + structural accumulation; step2 = tile
-        coordinates + the exact-nnz scan and its size feedback."""
+        step3 = fused numeric + structural accumulation through
+        ``macro_kernels.accumulate_macro_pairs`` (the pair-stream kernel
+        for CUDA tiles, the plain chunked batched product and scatter-add
+        for CPU tiles); step2 = tile coordinates + the exact-nnz scan and
+        its size feedback."""
         from pem_spgemm_tpu_torch.ops import cstruct, macro as M, symbolic
+        from pem_spgemm_tpu_torch.ops.macro_kernels import \
+            accumulate_macro_pairs
         from pem_spgemm_tpu_torch.ops.scanops import can_pack
         cfg = self.config
         if cfg.precision != "highest":
@@ -173,9 +177,9 @@ class SpGEMM:
 
         c_cap = max(256, -(-c_ntiles // 256) * 256)
         with timers.phase("step3") as box:
-            c_dense, c_flags = M.accumulate_macro(
-                am.dense, bm.dense, a_idx, b_idx, c_tile_id, c_cap, chunk,
-                cfg.acc())
+            c_dense, c_flags = accumulate_macro_pairs(
+                am.dense, bm.dense, a_idx, b_idx, c_tile_id, c_cap,
+                chunk=chunk, acc_dtype=cfg.acc())
             box["sync"] = c_dense
 
         with timers.phase("step2") as box:

@@ -16,7 +16,8 @@ Counterpart of the planner half of the JAX package's ops/pallas_stencil.py
     the tile's pair products from ``base + offset`` operand positions and
     writes the tile's slab row once.
   * steps whose pattern is rare or too wide fall back to the residual path:
-    the plain chunked scatter-add into reserved rows of the same slabs.
+    their pairs, sorted by slab row, go through the pair-stream entry into
+    reserved rows of the same slabs.
 
 C arrays come out SLAB-ORDERED (class-major); ``StencilPlan.order`` maps a
 slab row to its sorted-tile index.  The planners are host numpy and give
@@ -30,8 +31,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from pem_spgemm_tpu_torch.ops.macro import TILE, accumulate_macro, \
-    require_full_fp32
+from pem_spgemm_tpu_torch.ops.macro import TILE, require_full_fp32
 
 T_STEP = 8              # C tiles per step of the stencil plan
 MIN_CLASS_STEPS = 4     # rarer patterns go to the residual path
@@ -333,11 +333,15 @@ def class_call_plain(c_num, c_pat, a_dense, b_dense, ab_bases, t, p, a_offs,
 def _residual_add(c_num, c_pat, a_dense, b_dense, pa, pb, seg, row0, n_rows,
                   chunk):
     """The residual pairs into slab rows [row0, row0 + n_rows), in place.
-    No class writes those rows, so the chunked scatter-add runs on a buffer
-    of n_rows tiles (``accumulate_macro``) that is then copied in; pairs
-    whose seg is outside the range (the padding) are dropped."""
-    num, flags = accumulate_macro(a_dense, b_dense, pa, pb, seg - row0,
-                                  n_rows, chunk, c_num.dtype)
+    No class writes those rows, so the pair stream (sorted by slab row) is
+    accumulated into a buffer of n_rows tiles that is then copied in: by
+    the pair-stream kernel for CUDA tiles, by ``accumulate_macro`` for CPU
+    tiles (``macro_kernels.accumulate_macro_pairs`` decides by the device);
+    pairs whose seg is past the range (the padding) are dropped."""
+    from pem_spgemm_tpu_torch.ops.macro_kernels import accumulate_macro_pairs
+    num, flags = accumulate_macro_pairs(a_dense, b_dense, pa, pb, seg - row0,
+                                        n_rows, chunk=chunk,
+                                        acc_dtype=c_num.dtype)
     c_num[row0:row0 + n_rows] = num
     c_pat[row0:row0 + n_rows] = flags
     return c_num, c_pat
@@ -346,7 +350,7 @@ def _residual_add(c_num, c_pat, a_dense, b_dense, pa, pb, seg, row0, n_rows,
 def stencil_accumulate(a_dense, b_dense, plan: StencilPlan,
                        macro_chunk: int = 256):
     """Full macro accumulation: one class call per class + the residual
-    scatter-add.
+    pair stream.
 
     Returns (c_num (c_cap,128,128) f32, c_flags (c_cap,128,128) uint8) in
     SLAB order (plan.order maps slab row -> sorted-tile index).  Every slab

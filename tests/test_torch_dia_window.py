@@ -1,4 +1,5 @@
-"""The dense DIA kernel's launch shape and its staged B window.
+"""The DIA kernels' launch shapes, the dense entry's staged B window and the
+pairs entry's block walk.
 
 csrc/dia_multiply.cu's dense entry cannot run here.  What surrounds it is
 host-side Python and index arithmetic: ``dia_kernels.dense_launch`` picks
@@ -10,6 +11,13 @@ replay the kernel block by block in numpy: the staged window (zero-filled
 outside B), the register block named by anti-diagonal and slot, the reload
 at a gap or where a thread's rows leave B's range.  The replay must give
 the plain version's values to float32 rounding and its counts exactly.
+
+The pairs entry (any offset sets) is replayed the same way from
+``dia_kernels.pairs_launch``'s grid: a block's column range, its staged A
+words, its rows and each row's pairs; every product of a C element is
+added once, in ascending A band, a block taken as interior (no bounds
+test) needs none, and the pairbands offsets blown out 1000x launch with no
+interior block.
 """
 
 import numpy as np
@@ -254,3 +262,154 @@ def test_split_builds_cut_one_place_each():
         text = f.read()
     for name, (old, new) in k2_split.CUTS.items():
         assert text.count(old) == 1 and new != old, name
+
+
+# --------------------------------------------------------------------------
+# the pairs entry (any offset sets)
+
+PAIRBANDS = (-1201, -1200, -601, -600, 0, 1, 600, 601, 1200, 1201)
+
+
+def _replay_pairs_kernel(a, b, offs_a, offs_b, n_out, blocks=None):
+    """csrc/dia_multiply.cu's pairs entry, block by block: pairs_launch's
+    grid, a block's staged A words (zero past n_i), thread t's columns
+    i0 + t + PAIR_THREADS * e, the block's rows r = by, by + grid_y, ...,
+    each row's pairs in table order (two a step in the kernel, added in
+    order).  An interior block (pair_rows without tests) is asserted to
+    need no test.  Returns (c, cnt, visits, last_k1, interior) over the
+    replayed blocks' columns (NaN / -1 elsewhere): visits counts the
+    products added to each element, last_k1 asserts that they come in
+    ascending A band."""
+    d1n, n_i = a.shape
+    _d2n, n_k = b.shape
+    dc_list, _ = _plan_maps(offs_a, offs_b)
+    row_ptr, trip = dk.pair_table(offs_a, offs_b, dc_list)
+    dcn = len(dc_list)
+    sh = dk.pairs_launch(d1n, dcn, len(trip), n_out)
+    L, T, E, gy = sh["L"], sh["threads"], sh["cols"], sh["grid_y"]
+    assert L == T * E
+    with open(dk.SOURCE) as f:              # the .cu's constants
+        src = f.read()
+    assert f"constexpr int PAIR_THREADS = {T};" in src
+    assert f"constexpr int PAIR_COLS = {E};" in src
+    c = np.full((dcn, n_out), np.nan, np.float32)
+    cnt = np.full((dcn, n_out), np.nan, np.float32)
+    visits = np.zeros((dcn, n_out), np.int64)
+    written = np.zeros((dcn, n_out), np.int64)
+    interior = []
+    for bx in (range(sh["grid_x"]) if blocks is None else blocks):
+        i0 = bx * L
+        inner = (i0 + L <= n_out and i0 + offs_a[0] >= 0
+                 and i0 + L - 1 + offs_a[-1] < n_k)
+        interior.append(inner)
+        cols = i0 + np.arange(T)[:, None] + T * np.arange(E)[None, :]
+        col_ok = cols < n_out
+        staged = np.zeros((d1n, L), np.float32)
+        w = max(0, min(L, n_i - i0))
+        staged[:, :w] = a[:, i0:i0 + w]
+        for by in range(gy):
+            for r in range(by, dcn, gy):
+                acc = np.zeros((T, E), np.float32)
+                num = np.zeros((T, E), np.float32)
+                last = np.full((T, E), -1)
+                for p in range(row_ptr[r], row_ptr[r + 1]):
+                    k1, k2, d1 = (int(x) for x in trip[p])
+                    j = cols + d1
+                    ok = col_ok & (j >= 0) & (j < n_k)
+                    if inner:
+                        assert ok.all()
+                    av = staged[k1, cols - i0]
+                    bv = b[k2, np.clip(j, 0, n_k - 1)]
+                    acc = np.where(ok, (acc + av * bv).astype(np.float32),
+                                   acc)
+                    num += ok & (av != 0) & (bv != 0)
+                    assert (last[ok] < k1).all()
+                    last[ok] = k1
+                    visits[r, cols[ok]] += 1
+                c[r, cols[col_ok]] = acc[col_ok]
+                cnt[r, cols[col_ok]] = num[col_ok]
+                written[r, cols[col_ok]] += 1
+    return c, cnt, visits, written, interior
+
+
+@pytest.mark.parametrize("name,offs_a,offs_b,n_i,n_k", [
+    ("pairbands", PAIRBANDS, PAIRBANDS, 5_003, 5_003),
+    ("gapped", (0, 2, 4), (-3, -2, -1, 0), 2_100, 2_100),
+    ("rect", (-1, 0, 1, 2), (-2, -1, 0), 3_001, 2_500),
+    ("near +-n", (-1200, 0, 1197), (-1200, 0, 1197), 1_201, 1_201),
+])
+def test_pairs_replay_visits_each_product_once_in_band_order(
+        name, offs_a, offs_b, n_i, n_k):
+    rng = np.random.default_rng(n_i + n_k)
+    a = rng.standard_normal((len(offs_a), n_i)).astype(np.float32)
+    b = rng.standard_normal((len(offs_b), n_k)).astype(np.float32)
+    a[rng.random(a.shape) < 0.2] = 0
+    b[rng.random(b.shape) < 0.2] = 0
+    dc_list, idx_map = _plan_maps(offs_a, offs_b)
+    c, cnt, visits, written, interior = _replay_pairs_kernel(
+        a, b, offs_a, offs_b, n_i)
+    assert (written == 1).all()             # every C element stored once
+    # every product of the element's band pairs with its B column inside
+    want_visits = np.zeros_like(visits)
+    i = np.arange(n_i)
+    for k1, d1 in enumerate(offs_a):
+        for k2 in range(len(offs_b)):
+            j = i + d1
+            want_visits[dc_list.index(d1 + offs_b[k2])] += (j >= 0) & \
+                (j < n_k)
+    np.testing.assert_array_equal(visits, want_visits)
+    want_c, want_n = _dia_multiply_torch(
+        torch.from_numpy(a), torch.from_numpy(b), offs_a=offs_a,
+        idx_map=idx_map, dc_count=len(dc_list), n_out=n_i)
+    np.testing.assert_allclose(c, want_c.numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(cnt, want_n.numpy())
+    if name == "pairbands":
+        assert interior == [False, False, True, False, False]
+
+
+def test_pairs_launch_shape_at_pairbands_x1000():
+    # the pairbands offsets blown out 1000x: a span of 2.4 M columns, more
+    # than n; no block is interior, every block tests its columns
+    wide = tuple(o * 1000 for o in PAIRBANDS)
+    n = 1_500_007
+    dc_list, _ = _plan_maps(wide, wide)
+    assert dk.dia_mode(wide, wide, dc_list) == "pairs"
+    sh = dk.pairs_launch(len(wide), len(dc_list), len(wide) ** 2, n)
+    assert sh["grid_x"] == -(-n // dk.PAIR_L) and sh["grid_y"] == 1
+    assert sh["stage_a"] and sh["stage_tables"]
+    assert sh["smem_bytes"] == 4 * (len(wide) * dk.PAIR_L + len(dc_list) + 1
+                                    + 3 * len(wide) ** 2)
+    assert sh["smem_bytes"] <= dk.SMEM_BUDGET
+    rng = np.random.default_rng(5)
+    a = rng.standard_normal((len(wide), n)).astype(np.float32)
+    blocks = [0, 1, sh["grid_x"] // 2, sh["grid_x"] - 1]
+    c, cnt, _v, written, interior = _replay_pairs_kernel(
+        a, a, wide, wide, n, blocks)
+    assert not any(interior)
+    want_c, want_n = _dia_multiply_torch(
+        torch.from_numpy(a), torch.from_numpy(a), offs_a=wide,
+        idx_map=_plan_maps(wide, wide)[1], dc_count=len(dc_list), n_out=n)
+    cols = written[0] == 1
+    assert cols.sum() == 3 * dk.PAIR_L + (n - (sh["grid_x"] - 1) * dk.PAIR_L)
+    np.testing.assert_allclose(c[:, cols], want_c.numpy()[:, cols],
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(cnt[:, cols], want_n.numpy()[:, cols])
+
+
+@pytest.mark.parametrize("d1n,dcn,n_pairs,n_out,stage_a,stage_tables", [
+    (10, 30, 100, 500_000, True, True),     # pairbands-500k
+    (40, 80, 80, 3_001, False, True),       # A past the budget
+    (300, 937, 12_000, 3_001, False, False),  # the tables too
+    (1, 1, 1, 1, True, True),
+])
+def test_pairs_launch_stages_what_fits(d1n, dcn, n_pairs, n_out, stage_a,
+                                       stage_tables):
+    sh = dk.pairs_launch(d1n, dcn, n_pairs, n_out)
+    assert (sh["stage_a"], sh["stage_tables"]) == (stage_a, stage_tables)
+    assert sh["smem_bytes"] <= dk.SMEM_BUDGET
+    assert sh["grid_x"] * sh["L"] >= n_out > (sh["grid_x"] - 1) * sh["L"]
+    assert 1 <= sh["grid_y"] <= dcn
+    assert sh["grid_x"] * sh["grid_y"] >= min(dk.PAIRS_MIN_BLOCKS,
+                                              sh["grid_x"] * dcn)
+    with pytest.raises(ValueError):
+        dk.pairs_launch(0, dcn, n_pairs, n_out)

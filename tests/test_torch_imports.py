@@ -30,7 +30,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "pem_spgemm_tpu_torch.bench.harness",
             "pem_spgemm_tpu_torch.bench.cli",
             "pem_spgemm_tpu_torch.bench.probe",
+            "pem_spgemm_tpu_torch.bench.k1_split",
             "pem_spgemm_tpu_torch.bench.k2_split",
+            "pem_spgemm_tpu_torch.bench.k4_split",
             "pem_spgemm_tpu_torch.formats.dia",
             "pem_spgemm_tpu_torch.formats.macro",
             "pem_spgemm_tpu_torch.ops.symbolic",

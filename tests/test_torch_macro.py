@@ -302,66 +302,224 @@ def test_pair_accumulation_matches_jax(gapped_stream, entry, against):
                                   want_ptr[:g["c_cap"] + 1])
 
 
-def _replay_tile_product(a_tiles, b_tiles):
-    """numpy replay of the kernel's tile product for one C tile: the 8x8
-    register tile of thread (ty, tx), the k-slabs of 16, the per-slab
-    non-zero masks (one bit a byte for A rows, one bit a column for B), the
-    integer-multiply outer product and the flag bytes of the epilogue."""
-    num = np.zeros((128, 128), np.float32)
-    flag = np.zeros((128, 128), np.uint8)
-    ty, tx = np.meshgrid(np.arange(16), np.arange(16), indexing="ij")
-    rows = np.concatenate([4 * ty[..., None] + np.arange(4),
-                           64 + 4 * ty[..., None] + np.arange(4)], -1)
-    cols = np.concatenate([4 * tx[..., None] + np.arange(4),
-                           64 + 4 * tx[..., None] + np.arange(4)], -1)
-    plo = np.zeros((16, 16), np.uint32)
-    phi = np.zeros((16, 16), np.uint32)
-    for a, b in zip(a_tiles, b_tiles):
-        num += a @ b                    # the order of additions is not held
-        for k in range(128):
-            nza = (a[:, k] != 0).astype(np.uint32)
-            nzb = (b[k, :] != 0).astype(np.uint32)
-            g = np.arange(16)
-            am_lo = sum(nza[4 * g + i] << (8 * i) for i in range(4))
-            am_hi = sum(nza[64 + 4 * g + i] << (8 * i) for i in range(4))
-            bm = sum(nzb[4 * g + j] << j for j in range(4)) \
-                + sum(nzb[64 + 4 * g + j] << (4 + j) for j in range(4))
-            assert bm.max(initial=0) < 256
-            plo |= am_lo[ty] * bm[tx]           # no carry between bytes
-            phi |= am_hi[ty] * bm[tx]
-    for i in range(8):
-        bits = ((plo if i < 4 else phi) >> (8 * (i & 3))) & 0xFF
-        for h in range(2):
-            x = (bits >> (4 * h)) & 0xF
-            word = (x & 1) | (x & 2) << 7 | (x & 4) << 14 | (x & 8) << 21
-            for j in range(4):
-                flag[rows[..., i], cols[..., 4 * h + j]] = \
-                    (word >> (8 * j)) & 0xFF
-    return num, flag
+def _cu_constant(name):
+    """An int constexpr of csrc/macro_accumulate.cu, read from the source."""
+    import re
+    with open(mk.SOURCE) as f:
+        m = re.search(rf"constexpr int {name} = (\d+);", f.read())
+    return int(m.group(1))
 
 
-def test_pair_kernel_index_arithmetic_replayed_in_numpy(gapped_stream):
-    """What the pair-stream kernel does with the tables its wrapper uploads:
-    block c walks the pairs [seg_ptr[c], seg_ptr[c+1]), never a padding
-    pair, and writes tile c once."""
+def _replay_pair_stream(dense_a, dense_b, a_idx, b_idx, seg_ptr, c_cap,
+                        grid, seed):
+    """Python replay of the persistent pair-stream kernel (pair_stream in
+    csrc/macro_accumulate.cu): ``grid`` blocks, each a generator that runs
+    from one barrier to the next, advanced in a seeded random order so
+    that the shared ticket counter is taken in every interleaving; per block
+    the claim ring (CLAIMS slots, AHEAD claims ahead, a claim published two
+    iterations after its ticket), the issue cursor two stages ahead of the
+    compute cursor, the two-slot raw ring, the tile boundaries.  Returns
+    (values, flags, owner, events): the C tiles as the replay forms them
+    (each stage's 32-deep k-slab product added in float64, flags from the
+    raw values' k-masks), the block that wrote each tile (-1: zeroed before
+    the stream), and per tile its (pair, slab) stages in the order run."""
+    CLAIMS, AHEAD = _cu_constant("CLAIMS"), _cu_constant("AHEAD")
+    KS, SLABS, THREADS = 32, 4, 256
+    counter = [0]
+    values = np.full((c_cap, 128, 128), np.nan)
+    flags = np.full((c_cap, 128, 128), 7, np.uint8)
+    owner = np.full(c_cap, -2)
+    events = {}
+
+    def write(c, b, v, f):
+        assert owner[c] == -2, f"tile {c} written twice"
+        owner[c] = b
+        values[c], flags[c] = v, f
+
+    # tiles without pairs: round robin, a thread each, before the stream
+    for b in range(grid):
+        for t in range(THREADS):
+            for c in range(b + t * grid, c_cap, THREADS * grid):
+                if seg_ptr[c] == seg_ptr[c + 1]:
+                    write(c, -1, 0.0, 0)
+
+    def block(b):
+        ring = [None] * CLAIMS
+        published = [0]             # entries visible after the last barrier
+        used_by_compute = [0]
+
+        def ticket():
+            counter[0] += 1
+            return counter[0] - 1
+
+        def read_range(tk):
+            return (seg_ptr[tk], seg_ptr[tk + 1]) if tk < c_cap else (0, 0)
+
+        def publish(n, tk, lo, hi):
+            while tk < c_cap and hi == lo:
+                tk = ticket()
+                lo, hi = read_range(tk)
+            # the slot's last entry was read by the compute cursor already
+            assert n - CLAIMS < used_by_compute[0], "a slot overwritten early"
+            ring[n % CLAIMS] = (tk if tk < c_cap else -1, lo, hi, n)
+
+        def read(n):
+            assert n < published[0], "a slot read before it was published"
+            e = ring[n % CLAIMS]
+            assert e[3] == n
+            return e
+
+        for n in range(AHEAD + 1):
+            tk = ticket()
+            publish(n, tk, *read_range(tk))
+        n_claimed, n_used, pending, tk_pend = AHEAD + 1, 0, False, 0
+        published[0] = n_claimed
+        yield                               # __syncthreads
+        cur = dict(iq=0, iq_end=0, slab=0, live=True)
+        issued, raw = [], [None, None]
+
+        def take():
+            nonlocal n_used
+            row, lo, hi, _ = read(n_used)
+            n_used += 1
+            cur.update(live=row >= 0, iq=lo, iq_end=hi)
+
+        def issue():
+            if not cur["live"]:
+                return
+            raw[len(issued) % 2] = len(issued)
+            issued.append((cur["iq"], cur["slab"]))
+            cur["slab"] += 1
+            if cur["slab"] == SLABS:
+                cur["slab"] = 0
+                cur["iq"] += 1
+                if cur["iq"] == cur["iq_end"]:
+                    take()
+
+        comp = {}
+
+        def advance():
+            row, lo, hi, _ = read(used_by_compute[0])
+            used_by_compute[0] += 1
+            comp.update(row=row, cq=lo, cs=0, left=(hi - lo) * SLABS,
+                        v=np.zeros((128, 128)), f=np.zeros((128, 128), bool))
+            if row >= 0:
+                events[row] = []
+
+        take()
+        issue()
+        issue()
+        advance()
+        split = set()
+        if issued:
+            assert raw[0] == 0              # the split reads stage 0
+            split.add(0)
+        yield
+        st = 0
+        while st < len(issued):
+            publish_now = pending
+            rng_p = read_range(tk_pend) if publish_now else None
+            fresh = cur["live"] and n_claimed + pending < n_used + AHEAD
+            tk_new = ticket() if fresh else 0
+            assert st in split              # this stage was split already
+            issue()                         # stage st + 2, raw slot st % 2
+            if st + 1 < len(issued):        # split stage st + 1
+                assert raw[(st + 1) % 2] == st + 1
+                split.add(st + 1)
+            q, slab = issued[st]
+            assert (q, slab) == (comp["cq"], comp["cs"])
+            events[comp["row"]].append((q, slab))
+            ks = slice(KS * slab, KS * slab + KS)
+            a = dense_a[a_idx[q]][:, ks].astype(np.float64)
+            bb = dense_b[b_idx[q]][ks, :].astype(np.float64)
+            comp["v"] += a @ bb
+            comp["f"] |= ((a != 0).astype(np.int64)
+                          @ (bb != 0).astype(np.int64)) > 0
+            comp["cs"] += 1
+            if comp["cs"] == SLABS:
+                comp["cs"] = 0
+                comp["cq"] += 1
+            comp["left"] -= 1
+            if comp["left"] == 0:
+                write(comp["row"], b, comp["v"], comp["f"])
+                advance()
+            if publish_now:
+                publish(n_claimed, tk_pend, *rng_p)
+                n_claimed += 1
+            pending, tk_pend = fresh, tk_new
+            published[0] = n_claimed
+            st += 1
+            yield
+
+    rng = np.random.default_rng(seed)
+    live = {b: block(b) for b in range(min(grid, c_cap))}
+    while live:
+        b = list(live)[rng.integers(len(live))]
+        try:
+            next(live[b])
+        except StopIteration:
+            del live[b]
+    return values, flags, owner, events
+
+
+@pytest.mark.parametrize("grid,stream", [(3, "gapped"), (64, "gapped"),
+                                         (2, "1/70/0/3/2")])
+def test_pair_kernel_index_arithmetic_replayed_in_numpy(gapped_stream, grid,
+                                                        stream):
+    """What the persistent pair-stream kernel does with the tables its
+    wrapper uploads, replayed block by block in every interleaving of a
+    seeded schedule: tiles are taken in stream order from one counter,
+    every C tile is written once (a tile with pairs by the block that took
+    it, a tile without pairs, among them every tile from the stream's count
+    up to c_cap, as zeros before the stream), a tile's stages are its pairs
+    in stream order, each in 4 k-slabs, the claim ring and the raw ring are
+    never read before they are filled, and the result is the plain
+    version's."""
     g = gapped_stream
     tm, (_r, _c, a_idx, b_idx, seg, _cnt) = g["tm"], g["t_out"]
-    c_cap = g["c_cap"] + 5                      # tiles past the stream's
+    if stream == "1/70/0/3/2":          # a tile of 70 pairs, an empty one
+        per_tile = [1, 70, 0, 3, 2]
+        n = sum(per_tile)
+        seg = torch.cat([
+            torch.repeat_interleave(torch.arange(5),
+                                    torch.tensor(per_tile)).int(),
+            torch.full((a_idx.numel() - n,), symbolic.INT32_MAX,
+                       dtype=torch.int32)])
+        c_cap = 9
+    else:
+        c_cap = g["c_cap"] + 5          # tiles past the stream's
     seg_ptr = mk.segment_offsets(seg, c_cap).numpy()
     assert seg_ptr.dtype == np.int32 and seg_ptr[0] == 0
     n_pairs = int((seg != symbolic.INT32_MAX).sum())
     assert seg_ptr[-1] == n_pairs < seg.numel()
-    assert (np.diff(seg_ptr)[g["n_c"]:] == 0).all()
-    want_n, want_f = macro.accumulate_macro(tm.dense, tm.dense, a_idx, b_idx,
-                                            seg, c_cap, 32)
     d = tm.dense.numpy()
     pa, pb = a_idx.numpy(), b_idx.numpy()
-    for c in list(range(0, g["n_c"], 7)) + [g["n_c"], c_cap - 1]:
+    num, flag, owner, events = _replay_pair_stream(
+        d, d, pa, pb, seg_ptr, c_cap, grid, seed=grid)
+    empty = np.diff(seg_ptr) == 0
+    assert (owner[empty] == -1).all() and (owner[~empty] >= 0).all()
+    assert empty[-5:].all() if stream == "gapped" else empty[2]
+    assert np.bincount(owner[~empty]).max() > 1     # a block's stream
+                                                    # crosses tiles
+    for c in np.flatnonzero(~empty):
         lo, hi = seg_ptr[c], seg_ptr[c + 1]
-        num, flag = _replay_tile_product(d[pa[lo:hi]], d[pb[lo:hi]])
-        np.testing.assert_allclose(num, want_n[c].numpy(), rtol=1e-5,
-                                   atol=1e-5)
-        np.testing.assert_array_equal(flag, want_f[c].numpy())
+        assert events[c] == [(q, s) for q in range(lo, hi) for s in range(4)]
+    want_n, want_f = macro.accumulate_macro(tm.dense, tm.dense, a_idx, b_idx,
+                                            seg, c_cap, 32)
+    np.testing.assert_allclose(num, want_n.numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(flag, want_f.numpy())
+
+
+def test_k4_split_cuts_cut_one_place_each():
+    # bench/k4_split.py times the tile product with one piece of a stage cut
+    # out and with one tile a block, each a text substitution
+    from pem_spgemm_tpu_torch.bench import k4_split
+    with open(mk.SOURCE) as f:
+        text = f.read()
+    for name, cuts in [*k4_split.CUTS.items(),
+                       ("one tile", k4_split.ONE_TILE)]:
+        for old, new in cuts:
+            assert text.count(old) == 1 and new != old, name
 
 
 def test_macro_structure_counts_flags_exactly():
@@ -442,6 +600,30 @@ def _check_macro(coo, cfg, b_coo=None):
     np.testing.assert_allclose(got.vals, wv, rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(got.vals, jgot.vals, rtol=1e-4, atol=1e-4)
     return ta, res
+
+
+def test_interactive_macro_goes_through_the_pair_stream_entry(monkeypatch):
+    """SpGEMM(engine="macro")'s accumulation is
+    macro_kernels.accumulate_macro_pairs, the wrapper that launches the
+    pair-stream kernel for CUDA tiles and takes the plain version for CPU
+    tiles (so no launch is counted here): called once, with the stream's
+    c_cap and the config's chunk, and the result is the JAX package's."""
+    calls = []
+    real = mk.accumulate_macro_pairs
+
+    def counted(*args, **kw):
+        calls.append((args[5], kw))
+        return real(*args, **kw)
+
+    monkeypatch.setattr(mk, "accumulate_macro_pairs", counted)
+    mk.reset_launch_counts()
+    _ta, res = _check_macro(MATRICES["gapped"](),
+                            SpGEMMConfig(engine="macro", macro_chunk=32))
+    assert len(calls) == 1
+    c_cap, kw = calls[0]
+    assert c_cap == max(256, -(-res.c_ntiles // 256) * 256)
+    assert kw == {"chunk": 32, "acc_dtype": torch.float32}
+    assert sum(mk.LAUNCHES.values()) == 0
 
 
 def test_macro_banded_matches_scipy():

@@ -14,19 +14,30 @@ float32 dot-product bound, which is what the reference's precision
 about 2^-22 of |a*b| a product, far inside it; one tf32 product alone
 (plain TF32) costs about 2^-11 and must fall outside it.  The pattern is
 taken from the raw values: the tf32 hi of a small subnormal is 0.
+
+Non-finite operands: a stage (one pair's 32-deep k-slab) that holds a value
+with |x| >= 2^63, an Inf or a NaN is marked and runs in float32 on the raw
+values instead (stage_rule_product), so the kernels' NaN positions and Inf
+signs are the plain version's (IEEE); the split alone (split_rule_old, the
+kernels' earlier rule) turns an Inf into NaN and skips an Inf that meets
+only zeros.
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from pem_spgemm_tpu.ops import macro as j_macro
 from pem_spgemm_tpu_torch.models.synthetic import (banded_device,
                                                    wandering_device)
-from pem_spgemm_tpu_torch.ops import symbolic
+from pem_spgemm_tpu_torch.ops import macro, symbolic
 from pem_spgemm_tpu_torch.ops.convert import coo_to_macro
 
 RTOL, ATOL = 1e-5, 1e-6         # chip_smoke.COO_RTOL, COO_ATOL
 KS = 32                         # the kernel's k-slab depth
+BIG = 2.0 ** 63                 # the kernel's BIG: a stage holding |x| >=
+                                # BIG, an Inf or a NaN is marked
 
 
 def tf32_rna(x: torch.Tensor) -> torch.Tensor:
@@ -128,3 +139,149 @@ def test_flags_come_from_raw_values_not_from_hi():
     a[0, 6, 7] = -0.0
     assert not bool((torch.bmm((a != 0).float(), (b != 0).float())
                      > 0)[0, 6].any())
+
+
+# --------------------------------------------------------------------------
+# non-finite operands
+
+def stage_rule_product(a, b):
+    """(128, 128) @ (128, 128) by the kernels' per-stage rule: each 32-deep
+    k-slab is a stage; a marked stage (its A slab or its B slab holds a
+    value with |x| >= BIG, an Inf or a NaN) adds its float32 product of the
+    raw values, any other stage its 3xTF32 split product; stages added in
+    order in float32."""
+    out = torch.zeros(128, 128)
+    for k0 in range(0, 128, KS):
+        sa, sb = a[:, k0:k0 + KS], b[k0:k0 + KS, :]
+        marked = not bool((sa.abs() < BIG).all() and (sb.abs() < BIG).all())
+        if marked:
+            part = sa @ sb
+        else:
+            part = split_product(sa[None], sb[None])[0]
+        out = out + part
+    return out
+
+
+def split_rule_old(a, b):
+    """The same stages by the earlier rule: every slab split, and a slab in
+    which a warpgroup's 64 A rows or the B slab hold no non-zero skipped."""
+    out = torch.zeros(128, 128)
+    for k0 in range(0, 128, KS):
+        sa, sb = a[:, k0:k0 + KS], b[k0:k0 + KS, :]
+        part = split_product(sa[None], sb[None])[0]
+        for g in range(2):
+            rows = slice(64 * g, 64 * g + 64)
+            if not (bool((sa[rows] != 0).any()) and bool((sb != 0).any())):
+                part[rows] = 0.0
+        out = out + part
+    return out
+
+
+def _nonfinite_tiles():
+    """8 + 1 tiles (the last the zero tile): about 1/3 stored normals, with
+    +Inf, -Inf and NaN in A and in B, values near FLT_MAX whose tf32
+    rounding overflows (3.4025e38), subnormals against them, an Inf whose
+    k-slab of B is all zero, and a finite value at 2^63."""
+    g = np.random.default_rng(61)
+    x = g.standard_normal((9, 128, 128)).astype(np.float32)
+    x[g.random(x.shape) < 0.67] = 0.0
+    x[8] = 0.0
+    x[0, 3, 5] = np.inf
+    x[1, 7, 33] = -np.inf
+    x[2, 10, 40] = -np.inf
+    x[3, 32:64] = 0.0                   # tile 2's k-slab 1 meets this B
+    x[4, 20, 9] = np.nan
+    x[5, 17, 100] = np.nan
+    x[6, 40, 50] = 3.4025e38
+    x[6, 50] = 0.5
+    x[6, 41, 50] = 1e-40                # a subnormal against 0.5 and
+    x[7, 90, 100] = -3.4025e38          # against -3.4025e38 below
+    x[7, 60, :] = 0.25
+    x[6, :, 90] = 0.0
+    x[6, ::3, 90] = 1e-40
+    x[7, 1, 2] = 2.0 ** 63
+    return x
+
+
+# C tile 0: pairs (0, 0), (1, 1), (2, 3); tile 1: (2, 3) alone (the Inf that
+# meets only zeros); tile 2: (4, 4), (5, 5); tile 3: (6, 6), (6, 7), (7, 7)
+_PAIRS = [(0, 0, 0), (1, 1, 0), (2, 3, 0), (2, 3, 1), (4, 4, 2), (5, 5, 2),
+          (6, 6, 3), (6, 7, 3), (7, 7, 3)]
+
+
+def _nonfinite_stream():
+    pairs = np.array(_PAIRS, np.int32)
+    pad = 32 - len(pairs)
+    a_idx = np.concatenate([pairs[:, 0], np.full(pad, 8, np.int32)])
+    b_idx = np.concatenate([pairs[:, 1], np.full(pad, 8, np.int32)])
+    seg = np.concatenate([pairs[:, 2], np.full(pad, np.iinfo(np.int32).max,
+                                               np.int32)])
+    return a_idx, b_idx, seg
+
+
+def test_nonfinite_stages_give_the_plain_results():
+    x = _nonfinite_tiles()
+    a_idx, b_idx, seg = _nonfinite_stream()
+    tx = torch.from_numpy(x)
+    ti = [torch.from_numpy(v) for v in (a_idx, b_idx, seg)]
+    want, want_f = macro.accumulate_macro(tx, tx, *ti, 4, 32)
+    jwant, jwant_f = j_macro.accumulate_macro(
+        jnp.asarray(x), jnp.asarray(x), *(jnp.asarray(v) for v in
+                                          (a_idx, b_idx, seg)), 4, 32,
+        jnp.float32)
+    jwant, jwant_f = torch.tensor(np.asarray(jwant)), np.asarray(jwant_f)
+    got = torch.zeros(4, 128, 128)
+    old = torch.zeros(4, 128, 128)
+    flags = torch.zeros(4, 128, 128, dtype=torch.bool)
+    for ai, bi, c in _PAIRS:            # stream order, a tile's sum in f32
+        got[c] = got[c] + stage_rule_product(tx[ai], tx[bi])
+        old[c] = old[c] + split_rule_old(tx[ai], tx[bi])
+        flags[c] |= ((tx[ai] != 0).float() @ (tx[bi] != 0).float()) > 0
+    np.testing.assert_array_equal(flags.numpy(), want_f.numpy() > 0)
+    np.testing.assert_array_equal(jwant_f > 0, want_f.numpy() > 0)
+    for ref in (want, jwant):           # IEEE: the same NaNs, signed Infs
+        assert torch.equal(torch.isnan(got), torch.isnan(ref))
+        inf = torch.isinf(ref)
+        assert torch.equal(torch.isinf(got), inf)
+        assert torch.equal(got[inf] > 0, ref[inf] > 0)
+    x64 = torch.from_numpy(x.astype(np.float64))
+    mag = torch.zeros(4, 128, 128, dtype=torch.float64)
+    exact = torch.zeros(4, 128, 128, dtype=torch.float64)
+    for ai, bi, c in _PAIRS:
+        mag[c] += x64[ai].abs() @ x64[bi].abs()
+        exact[c] += x64[ai] @ x64[bi]
+    fin = torch.isfinite(want)
+    assert int(torch.isnan(want).sum()) > 128 and int(torch.isinf(
+        want).sum()) > 10 and int(fin.sum()) > 50_000
+    err = (got.double() - exact).abs()[fin]
+    assert float((err / (RTOL * mag[fin] + ATOL)).max()) < 0.1
+    # the fault, shown: the split alone makes NaN of the Infs of tile 0's
+    # row 3 (hi = Inf, lo = tf32(Inf - Inf) = NaN) ...
+    row3 = torch.isinf(want[0, 3])
+    assert bool(row3.any()) and bool(torch.isnan(old[0, 3][row3]).all())
+    # ... and skips the -Inf of tile 1 that meets only zeros: the plain
+    # version's NaN row is 0 there
+    assert bool(torch.isnan(want[1, 10]).all())
+    assert not bool(torch.isnan(old[1, 10]).any())
+    # and where a value near FLT_MAX meets finite partners the product is
+    # finite, not NaN (hi = Inf there)
+    fin40 = torch.isfinite(want[3, 40])
+    assert bool(fin40.any()) and bool(torch.isnan(old[3, 40][fin40]).any())
+
+
+def test_stage_marks_match_the_tf32_overflow():
+    """BIG = 2^63 marks every value whose tf32 rounding overflows, every
+    non-finite value, and leaves room: below it no product of two split
+    parts overflows, and a subnormal's split error (at most 2^-137) times a
+    partner below BIG stays under 2^-74."""
+    near = torch.tensor([3.4025e38, -3.4025e38, float("inf"),
+                         float("nan")])
+    assert not bool(torch.isfinite(tf32_rna(near)).all())
+    assert not bool((near.abs() < BIG).any())
+    below = torch.tensor([2.0 ** 63 * (1 - 2 ** -24), -1e18, 3.0])
+    assert bool((below.abs() < BIG).all())
+    assert float(tf32_rna(below).abs().max()) ** 2 < 3.4e38
+    sub = torch.tensor([1e-40, 3e-42, 1.17e-38])
+    hi, lo = split(sub)
+    assert float((hi + lo - sub).abs().max()) <= 2.0 ** -137
+    assert 2.0 ** -137 * BIG <= 2.0 ** -74
