@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py              # every phase
     python3 chip_smoke.py --only kernel_check
-    python3 chip_smoke.py --profile rmat-16 [--no-pack] [--iters 20]
+    python3 chip_smoke.py --only f64_path
+    python3 chip_smoke.py --profile rmat-16 [--no-pack] [--iters 20] [--graph]
     python3 chip_smoke.py --profile banded64-1M
     python3 chip_smoke.py --profile wandering64-1M
 
@@ -14,7 +15,19 @@ first two, engine="macro" for the third):
 
   * the binned element engine on powerlaw-1M, rmat-16 and uniform-1M, and
     powerlaw-1M again through the chunk-granular plan that reaches the
-    sort+dedup entry; C is checked against scipy on the host;
+    sort+dedup entry; C is checked against scipy on the host.  Phase
+    graph_replay holds the steady multiply's CUDA graph (the harness's
+    steady and pipelined tiers replay it) to the eager multiply bit for bit
+    on the three matrices, packed and (powerlaw-1M) with pack=False, also
+    after the plan's values are changed in place between replays, and
+    reports the launches a multiply recorded at capture;
+  * the f64 parity mode (phase f64_path): powerlaw-1M through the merge
+    element engine, pairbands-500k and banded64-1M through the DIA kernels'
+    float64 entries, wandering64-1M through the pair-stream kernel's
+    float64 entry (engine="macro"), each through run_benchmark at
+    dtype=float64 with C_nnz as recorded and C against scipy's float64
+    product within 1e-12 * sum|a*b| (every entry for the first two, 20,000
+    sampled rows for the wide two);
   * the DIA engine on pairbands-500k, banded16-1M, banded64-1M and
     banded128-1M; C_nnz and flop are held against the values the JAX package
     recorded for the same generators, the sorted COO against scipy's for the
@@ -40,7 +53,8 @@ checks and times the row-copy probe (the port of the JAX package's
 scripts/pallas_probe3.py), which no path runs.
 
 With --profile the script instead shows where one matrix's steady multiply
-spends its time: the host-clock time per multiply (synchronising after each
+spends its time (with --graph: the eager multiply and its CUDA graph
+replay, in turns): the host-clock time per multiply (synchronising after each
 one, and only once after a batch) with the kernel launches counted per
 multiply, and a torch.profiler pass that gives device-busy time, the idle
 share and the kernels that take most device time; for the element matrices
@@ -53,6 +67,7 @@ prints the line {"ok": true, ...} last only when every phase passed.
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -84,6 +99,8 @@ SENT = ss.SENTINEL
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12          # H100 SXM data sheet, outside tensor cores
 TF32_OPS_PER_S = 495e12         # H100 SXM data sheet, tensor cores, dense
+FP64_OPS_PER_S = 34e12          # H100 SXM data sheet, FP64 outside the
+                                # tensor cores (the f64 entries' FMA)
 VAL_RTOL, VAL_ATOL = 1e-4, 1e-6     # kernel vs plain: summation order differs
 # C values vs scipy's float64 product: |got - want| <= COO_RTOL * S + COO_ATOL
 # with S the sum of |a*b| over the entry's products (the forward-error bound
@@ -91,6 +108,9 @@ VAL_RTOL, VAL_ATOL = 1e-4, 1e-6     # kernel vs plain: summation order differs
 # so a tolerance relative to |want|, as the small CPU tests use, cannot hold
 # for them in float32; the script counts those entries and prints the count.
 COO_RTOL, COO_ATOL = 1e-5, 1e-6
+# The same bound for float64 (the f64 parity mode): 1e-12 * sum|a*b|; the
+# atol only keeps 0/0 out where an entry has no product.
+F64_RTOL, F64_ATOL = 1e-12, 1e-300
 SOURCE = "pem_spgemm_tpu_torch/csrc/segment_sort.cu"
 DIA_SOURCE = "pem_spgemm_tpu_torch/csrc/dia_multiply.cu"
 MACRO_SOURCE = "pem_spgemm_tpu_torch/csrc/macro_accumulate.cu"
@@ -487,7 +507,7 @@ def note_over(key, over):
         WORST_OVER[key] = max(WORST_OVER.get(key, 0.0), over)
 
 
-def dia_hold(got, want, bound, what, key=None):
+def dia_hold(got, want, bound, what, key=None, label="float32"):
     """Counts exactly equal (so cnt > 0 is too), values inside the bound.
     Returns the max abs error of the values; ``key`` names the entry whose
     worst ratio to the bound is kept in WORST_OVER."""
@@ -500,17 +520,60 @@ def dia_hold(got, want, bound, what, key=None):
     if not bool(torch.isfinite(gc).all()):
         raise AssertionError(f"{what}: non-finite values")
     over = float((err / bound).max())
-    if over > 1.0:
-        raise AssertionError(f"{what}: values exceed the float32 "
+    if not over <= 1.0:
+        raise AssertionError(f"{what}: values exceed the {label} "
                              f"dot-product bound by {over}x")
     note_over(key, over)
     return float(err.max())
 
 
+# per float64 entry: did every kernel-check case give the plain version's
+# values bit for bit (each product and sum rounded as the plain version
+# rounds them)?
+F64_BIT_EQUAL = {}
+
+
+def dia_case_f64(a, b, offs_a, offs_b, modes, what, tables, kw, outs32):
+    """The float64 entries on the same bands cast to float64: against the
+    plain version within the float64 bound, counts equal to the plain
+    version's and to the float32 entry's (``outs32``).  Returns
+    {entry: max abs err}."""
+    a, b = a.double(), b.double()
+    dc_list = tuple(kw["dc_list"])
+    pk = dict(offs_a=offs_a, idx_map=kw["idx_map"], dc_count=len(dc_list),
+              n_out=kw["n_out"])
+    mag, _ = D._dia_multiply_torch(a.abs(), b.abs(), values_only=True, **pk)
+    bound = F64_RTOL * mag + F64_ATOL
+    errs = {}
+    for values_only in (False, True):
+        want = D._dia_multiply_torch(a, b, values_only=values_only, **pk)
+        for mode in modes:
+            got = dk.dia_multiply(a, b, offs_a=offs_a, offs_b=offs_b,
+                                  dc_list=dc_list, n_out=kw["n_out"],
+                                  mode=mode, values_only=values_only,
+                                  tables=tables[mode])
+            torch.cuda.synchronize()
+            entry = f"dia_multiply_{mode}_f64"
+            if got[0].dtype != torch.float64:
+                raise AssertionError(f"{what}: {entry} gave {got[0].dtype}")
+            e = dia_hold(got, want, bound,
+                         f"{what} {entry} values_only={values_only}",
+                         key=entry, label="float64")
+            if not values_only and not torch.equal(
+                    got[1], outs32[mode, False][1]):
+                raise AssertionError(f"{what}: {entry}'s counts differ from "
+                                     "the float32 entry's")
+            F64_BIT_EQUAL[entry] = F64_BIT_EQUAL.get(entry, True) and \
+                torch.equal(got[0], want[0])
+            errs[entry] = max(errs.get(entry, 0.0), e)
+    return errs
+
+
 def dia_case(a, b, offs_a, offs_b, modes, what):
     """Every mode in ``modes``, with and without counts, against the plain
     version; where both modes run they must agree bit for bit (same order
-    of additions).  Returns {mode: max abs err}."""
+    of additions).  Then the float64 entries on the same bands
+    (dia_case_f64).  Returns {entry: max abs err}."""
     dc_list, idx_map = D._plan_maps(offs_a, offs_b)
     n_out = a.shape[1]
     kw = dict(offs_a=offs_a, idx_map=idx_map, dc_count=len(dc_list),
@@ -530,26 +593,30 @@ def dia_case(a, b, offs_a, offs_b, modes, what):
             e = dia_hold(got, want, bound,
                          f"{what} mode={mode} values_only={values_only}",
                          key=f"dia_multiply_{mode}")
-            errs[mode] = max(errs.get(mode, 0.0), e)
+            entry = f"dia_multiply_{mode}"
+            errs[entry] = max(errs.get(entry, 0.0), e)
             outs[mode, values_only] = got
         if len(modes) == 2 and not torch.equal(
                 outs["dense", values_only][0], outs["pairs", values_only][0]):
             raise AssertionError(f"{what}: the two entries disagree")
+    errs.update(dia_case_f64(a, b, offs_a, offs_b, modes, what, tables,
+                             dict(dc_list=dc_list, idx_map=idx_map,
+                                  n_out=n_out), outs))
     return errs
 
 
 def phase_dia_kernel_check():
-    worst = {"dia_multiply_dense": 0.0, "dia_multiply_pairs": 0.0}
+    worst = {k: 0.0 for k in dk.LAUNCHES}
     cases = 0
 
     def run(offs_a, offs_b, n_i, n_k, n_cols_b, modes, what, seed):
         nonlocal cases
         a = make_bands(offs_a, n_i, n_k, seed)
         b = make_bands(offs_b, n_k, n_cols_b, seed + 1)
-        for mode, e in dia_case(a, b, offs_a, offs_b, modes, what).items():
-            worst[f"dia_multiply_{mode}"] = max(
-                worst[f"dia_multiply_{mode}"], e)
-        cases += 2 * len(modes)
+        for entry, e in dia_case(a, b, offs_a, offs_b, modes,
+                                 what).items():
+            worst[entry] = max(worst[entry], e)
+        cases += 4 * len(modes)
 
     both = ("dense", "pairs")
     # stencils of every width the path uses and below; n is no multiple of
@@ -629,19 +696,37 @@ def phase_dia_kernel_check():
             raise AssertionError(f"cancellation, mode={mode}: C_nnz "
                                  f"{int((cnt > 0).sum())} != 1")
         cases += 1
-    # the device alone picks the path: float64 bands on the card raise,
-    # they do not take the plain version
+    # the same through the float64 entries
     m64 = D.coo_to_dia(coo, dtype=torch.float64)
+    for mode in both:
+        c, cnt = dk.dia_multiply(
+            m64.bands, m64.bands, offs_a=m64.offsets, offs_b=m64.offsets,
+            dc_list=dc_list, n_out=64, mode=mode,
+            tables=dk.dia_tables(m64.offsets, m64.offsets, dc_list, mode,
+                                 DEV))
+        k = dc_list.index(3)
+        if (c.dtype != torch.float64 or float(c[k, 0]) != 0.0
+                or float(cnt[k, 0]) != 2.0 or int((cnt > 0).sum()) != 1):
+            raise AssertionError(f"cancellation, mode={mode}, float64: "
+                                 f"value {float(c[k, 0])}, count "
+                                 f"{float(cnt[k, 0])}")
+        cases += 1
+    # the device alone picks the path: bands of a dtype no entry takes
+    # raise on the card, they do not take the plain version
+    m16 = D.coo_to_dia(coo, dtype=torch.float16)
     try:
-        D.make_dia_plan(m64, m64).run(m64, m64)
+        D.make_dia_plan(m16, m16).run(m16, m16)
     except NotImplementedError:
         cases += 1
     else:
-        raise AssertionError("float64 bands on the card did not raise")
+        raise AssertionError("float16 bands on the card did not raise")
     emit("dia_kernel_check", cases=cases, max_abs_err=worst,
          worst_over_bound={k: WORST_OVER.get(k) for k in dk.LAUNCHES},
-         bound="abs err <= 1e-5 * sum|a*b| + 1e-6 (float32 dot product); "
-               "counts equal exactly")
+         f64_bit_equal_to_plain={k: v for k, v in F64_BIT_EQUAL.items()
+                                 if k.startswith("dia")},
+         bound="abs err <= 1e-5 * sum|a*b| + 1e-6 (float32 dot product), "
+               "<= 1e-12 * sum|a*b| (float64 entries); counts equal "
+               "exactly, the float64 entries' also to the float32 entries'")
     return worst
 
 
@@ -660,20 +745,29 @@ def macro_pairs(am, bm, gran=256):
     return n_pairs, int(out[5]), out[:5]
 
 
+def dot_bound(mag):
+    """The dot-product bound in the dtype of ``mag`` (sum|a*b|)."""
+    if mag.dtype == torch.float64:
+        return F64_RTOL * mag + F64_ATOL, "float64"
+    return COO_RTOL * mag + COO_ATOL, "float32"
+
+
 def macro_hold(got, want, mag, what, key=None):
-    """Flags equal exactly, values inside the float32 dot-product bound
-    COO_RTOL * sum|a*b| + COO_ATOL.  Returns the max abs error; ``key`` as
-    in dia_hold."""
+    """Flags equal exactly, values inside the dot-product bound of their
+    dtype (dot_bound).  Returns the max abs error; ``key`` as in
+    dia_hold."""
     (gn, gf), (wn, wf) = got, want
     if gf.dtype != torch.uint8 or not torch.equal(gf > 0, wf > 0):
         raise AssertionError(f"{what}: structural flags differ")
+    if gn.dtype != wn.dtype:
+        raise AssertionError(f"{what}: values {gn.dtype}, plain {wn.dtype}")
     if not bool(torch.isfinite(gn).all()):
         raise AssertionError(f"{what}: non-finite values")
     err = (gn - wn).abs()
-    over = float((err / (COO_RTOL * mag + COO_ATOL)).max()) \
-        if err.numel() else 0.0
-    if over > 1.0:
-        raise AssertionError(f"{what}: values exceed the float32 "
+    bound, label = dot_bound(mag)
+    over = float((err / bound).max()) if err.numel() else 0.0
+    if not over <= 1.0:
+        raise AssertionError(f"{what}: values exceed the {label} "
                              f"dot-product bound by {over}x")
     note_over(key, over)
     return float(err.max()) if err.numel() else 0.0
@@ -777,6 +871,9 @@ def plan_case(am, bm, planner, what, worst, uniform):
 
 
 def pairs_case(a_dense, b_dense, a_idx, b_idx, seg, c_cap, what, worst):
+    """The pair-stream entry against the plain version, and its float64
+    entry on the same tiles cast to float64 (flags equal to the float32
+    entry's).  Returns the float32 entry's output."""
     want = M.accumulate_macro(a_dense, b_dense, a_idx, b_idx, seg, c_cap,
                               256)
     mag = M.accumulate_macro(a_dense.abs(), b_dense.abs(), a_idx, b_idx, seg,
@@ -786,6 +883,29 @@ def pairs_case(a_dense, b_dense, a_idx, b_idx, seg, c_cap, what, worst):
     torch.cuda.synchronize()
     e = macro_hold(got, want, mag, what, key="macro_accumulate_pairs")
     worst["macro_accumulate_pairs"] = max(worst["macro_accumulate_pairs"], e)
+    del want, mag
+    got64 = pairs_case_f64(a_dense.double(), b_dense.double(), a_idx, b_idx,
+                           seg, c_cap, what, worst)
+    if not torch.equal(got64[1], got[1]):
+        raise AssertionError(f"{what}: the float64 entry's flags differ "
+                             "from the float32 entry's")
+    return got
+
+
+def pairs_case_f64(a64, b64, a_idx, b_idx, seg, c_cap, what, worst,
+                   hold=None):
+    """The float64 pair-stream entry against the plain version in float64
+    (``hold``: macro_hold, or macro_hold_ieee for non-finite operands).
+    Returns its output."""
+    key = "macro_accumulate_pairs_f64"
+    want = M.accumulate_macro(a64, b64, a_idx, b_idx, seg, c_cap, 256,
+                              torch.float64)
+    mag = M.accumulate_macro(a64.abs(), b64.abs(), a_idx, b_idx, seg, c_cap,
+                             256, torch.float64)[0]
+    got = mk.accumulate_macro_pairs(a64, b64, a_idx, b_idx, seg, c_cap)
+    torch.cuda.synchronize()
+    e = (hold or macro_hold)(got, want, mag, f"{what}, float64", key=key)
+    worst[key] = max(worst[key], e)
     return got
 
 
@@ -868,9 +988,10 @@ def macro_hold_ieee(got, want, mag, what, key=None):
         raise AssertionError(f"{what}: Inf positions or signs differ")
     fin = torch.isfinite(wn)
     err = (gn[fin] - wn[fin]).abs()
-    over = float((err / (COO_RTOL * mag[fin] + COO_ATOL)).max())
+    bound, label = dot_bound(mag[fin])
+    over = float((err / bound).max())
     if not over <= 1.0:
-        raise AssertionError(f"{what}: finite values exceed the float32 "
+        raise AssertionError(f"{what}: finite values exceed the {label} "
                              f"dot-product bound by {over}x")
     note_over(key, over)
     return float(err.max())
@@ -952,6 +1073,17 @@ def engineered_nonfinite_cases(worst):
     # the -Inf that meets only zeros: row 10 of C tile 1 is NaN
     if not bool(torch.isnan(want[0][1, 10]).all()):
         raise AssertionError("non-finite: the plain row 10 is not all NaN")
+    # the float64 entry on the same tiles: the plain version's NaNs and
+    # signed Infs, flags equal to the float32 entry's
+    got64 = pairs_case_f64(a.double(), b.double(), a_idx, b_idx, seg, 7,
+                           "non-finite pairs", worst, hold=macro_hold_ieee)
+    if not torch.equal(got64[1], got[1]):
+        raise AssertionError("non-finite pairs: the float64 entry's flags "
+                             "differ from the float32 entry's")
+    if bool(got64[0][2].any()) or bool(got64[0][5:].any()):
+        raise AssertionError("non-finite pairs, float64: an empty tile is "
+                             "not zero")
+    cases += 1
 
     bases = torch.tensor([0, 0, 4, 4], dtype=torch.int32, device=DEV)
     ragged = (2, (3, 2), 8, 8, (0, 1, 2, 3, 7), (0, 1, 2, 3, 7), 0)
@@ -1092,14 +1224,26 @@ def phase_macro_kernel_check():
             f"cancellation: value {float(num[0, 0, 3])}, flag "
             f"{int(flag[0, 0, 3])}, C_nnz {int(M.macro_structure(flag)[-1])}")
     cases += 1
-    # the device alone picks the path: float64 tiles on the card raise, they
-    # do not take the plain version
+    # the same through the float64 entry
     m64 = coo_to_macro(coo, dtype=torch.float64)
+    num, flag = mk.accumulate_macro_pairs(m64.dense, m64.dense, a_idx, b_idx,
+                                          seg, 256)
+    if (num.dtype != torch.float64 or float(num[0, 0, 3]) != 0.0
+            or int(flag[0, 0, 3]) != 1
+            or int(M.macro_structure(flag)[-1]) != 1):
+        raise AssertionError(f"cancellation, float64: value "
+                             f"{float(num[0, 0, 3])}, flag "
+                             f"{int(flag[0, 0, 3])}")
+    cases += 1
+    # the device alone picks the path: tiles of a dtype an entry does not
+    # take raise on the card (float16 anywhere; float64 in the class
+    # entries), they do not take the plain version
+    m16 = coo_to_macro(coo, dtype=torch.float16)
     slabs = fresh_slabs(8)
     tables = st.class_tables(((1, 1, 1, 1, (0,), (0,), 0),), DEV)[0]
     bases = torch.zeros(2, dtype=torch.int32, device=DEV)
     for call in (
-            lambda: mk.accumulate_macro_pairs(m64.dense, m64.dense, a_idx,
+            lambda: mk.accumulate_macro_pairs(m16.dense, m16.dense, a_idx,
                                               b_idx, seg, 256),
             lambda: mk.class_call2(*slabs, m64.dense, m64.dense, bases, 1, 1,
                                    1, 1, (0,), (0,), 0, 1, tables=tables),
@@ -1110,13 +1254,15 @@ def phase_macro_kernel_check():
         except NotImplementedError:
             cases += 1
         else:
-            raise AssertionError("float64 tiles on the card did not raise")
+            raise AssertionError("tiles of a dtype the entry does not take "
+                                 "did not raise")
     emit("macro_kernel_check", cases=cases, max_abs_err=worst, plans=info,
          worst_over_bound={k: WORST_OVER.get(k) for k in mk.LAUNCHES},
          allow_tf32=torch.backends.cuda.matmul.allow_tf32,
          flags_dtype="uint8",
-         bound="abs err <= 1e-5 * sum|a*b| + 1e-6 (float32 dot product); "
-               "flags equal exactly")
+         bound="abs err <= 1e-5 * sum|a*b| + 1e-6 (float32 dot product), "
+               "<= 1e-12 * sum|a*b| (the float64 entry); flags equal "
+               "exactly, the float64 entry's also to the float32 entry's")
     return worst
 
 
@@ -1172,7 +1318,9 @@ def record_times(rec):
 
 def phase_default_path(coo_pl, want_pl):
     """run_benchmark with the default configuration on the three matrices;
-    returns the dedup entry's launch count of the powerlaw-1M run."""
+    returns the dedup entry's launch count of the powerlaw-1M run and the
+    three matrices.  The steady and pipelined tiers replay the multiply as
+    one CUDA graph (ops.fixed.BinnedElementPlan)."""
     cfg = SpGEMMConfig(engine="auto")
     reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
@@ -1195,8 +1343,9 @@ def phase_default_path(coo_pl, want_pl):
          peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
     del res, c
 
+    coos = {"powerlaw-1M": coo_pl}
     for name in ("rmat-16", "uniform-1M"):
-        coo = MATRICES[name]()
+        coo = coos[name] = MATRICES[name]()
         want_nnz = int(scipy_square(coo).nnz)
         reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
@@ -1211,7 +1360,7 @@ def phase_default_path(coo_pl, want_pl):
              times_ms=record_times(rec),
              peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
         del res
-    return launches["segment_dedup"]
+    return launches["segment_dedup"], coos
 
 
 def sparse_mm_ms(coo):
@@ -1368,7 +1517,7 @@ def rmat16_dedup_reading():
                      "wrapper calls (host-bound for the small classes)"}
 
 
-def phase_kernels(plan_cg, a, b, launches, check_err):
+def phase_kernels(plan_cg, a, b, launches, check_err, replayed):
     # sort entry: the sort bucket with the most slots among those the
     # kernel takes, with the inputs the path gives it
     cols, vals, w = k1_split.largest_sort_bucket(plan_cg)
@@ -1403,6 +1552,9 @@ def phase_kernels(plan_cg, a, b, launches, check_err):
         "operations": ops_sort,
         # the chunk-granular phase runs exactly one multiply
         "launches_per_multiply": launches["segment_sort_dedup"],
+        # recorded at the capture of the steady multiply's CUDA graph
+        "launches_per_replayed_multiply":
+            replayed["powerlaw-1M", False]["segment_sort_dedup"],
     }
     del cols, vals, got, want
 
@@ -1437,6 +1589,9 @@ def phase_kernels(plan_cg, a, b, launches, check_err):
         "worst_over_bound": over_dedup,
         "bytes": bytes_dedup, "operations": ops_dedup,
         "launches_per_multiply": per_multiply["segment_dedup"],
+        "launches_per_replayed_multiply": {
+            m: replayed[m, True]["segment_dedup"]
+            for m in ("powerlaw-1M", "rmat-16", "uniform-1M")},
         "packed_classes": len(plan.packed),
         "rmat16_multiply": rmat16_dedup_reading(),
     }
@@ -1617,9 +1772,12 @@ def stage_times(plan, kernel_sort, n):
     return {k: {"slots": s, "ms": ms} for k, (s, ms) in out.items()}
 
 
-def run_profile(matrix, no_pack, n):
+def run_profile(matrix, no_pack, n, graph=False):
     """pack=True plan, or with no_pack the chunk-granular plan with the
-    sort+dedup kernel route on."""
+    sort+dedup kernel route on.  With ``graph``: the eager multiply against
+    its CUDA graph replay (vmem_sort on, as the harness's plan has it)."""
+    if graph:
+        return run_profile_graph(matrix, no_pack, n)
     coo = MATRICES[matrix]()
     a = coo_to_tiled(coo)
     b = coo_to_tiled(coo, with_tmasks=True)
@@ -1658,10 +1816,48 @@ def run_profile(matrix, no_pack, n):
     profile_device(matrix, multiply, n)
 
 
-def profile_device(matrix, multiply, n):
+def run_profile_graph(matrix, no_pack, n):
+    """Steady multiplies of one element matrix, eager and replayed as one
+    CUDA graph, in turns in one process: host-clock synced and queued ms,
+    peak device memory, and torch.profiler's device-busy time and idle
+    share of each (eager, graph, graph, eager)."""
+    from pem_spgemm_tpu_torch.ops.fixed import BinnedElementPlan
+    coo = MATRICES[matrix]()
+    a = coo_to_tiled(coo)
+    b = coo_to_tiled(coo, with_tmasks=True)
+    plan = binned.build_plan_device(a, b, pack=not no_pack)
+    gp = BinnedElementPlan(plan=plan, vmem_sort=True)
+
+    def eager():
+        return binned.binned_multiply(plan, vmem_sort=True).c_nnz
+
+    def replay():
+        return gp.run(a, b)[0]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    int(eager())
+    peak_eager = (torch.cuda.max_memory_allocated() - base) / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    c_nnz = int(replay())
+    peak_graph = (torch.cuda.max_memory_allocated() - base) / 2**30
+    emit("profile_graph_setup", matrix=matrix, pack=not no_pack,
+         c_nnz=c_nnz, launches_per_multiply=gp.launches,
+         peak_mem_gb={"eager": peak_eager, "graph": peak_graph},
+         times=turns_ms([("eager", eager), ("graph", replay),
+                         ("graph", replay), ("eager", eager)], n))
+    for name, fn in (("eager", eager), ("graph", replay), ("graph", replay),
+                     ("eager", eager)):
+        profile_device(f"{matrix} {name}", fn, n, required=name == "eager")
+
+
+def profile_device(matrix, multiply, n, required=True):
     """torch.profiler over n queued multiplies: device-busy time, the idle
     share of the wall time, device operations per multiply and the kernels
-    that take most device time."""
+    that take most device time.  ``required``: no device time recorded is
+    an error (else it is reported as not measured)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1679,12 +1875,25 @@ def profile_device(matrix, multiply, n):
             and e.self_device_time_total > 0]
     busy_us = sum(t for _, _, t in rows)
     if busy_us <= 0:
-        raise AssertionError("torch.profiler recorded no device time")
+        if required:
+            raise AssertionError("torch.profiler recorded no device time")
+        emit("profile_device", matrix=matrix, wall_ms=wall * 1e3,
+             device_busy_ms="not measured: torch.profiler recorded no "
+                            "device time")
+        return
     rows.sort(key=lambda x: -x[2])
+
+    def per_multiply(pattern):
+        return sum(c for k, c, _ in rows if re.search(pattern, k)) / n
+
     emit("profile_device", matrix=matrix, wall_ms=wall * 1e3,
          device_busy_ms=busy_us / 1e3 / n,
          idle_share=1.0 - busy_us / 1e6 / (wall * n),
          device_ops_per_multiply=sum(c for _, c, _ in rows) / n,
+         int_fills_per_multiply=per_multiply(r"FillFunctor<int>"),
+         int_adds_per_multiply=per_multiply(
+             r"(CUDAFunctor_add|AddFunctor)<int>"),
+         calls_by_kernel={k[:200]: c / n for k, c, _ in rows},
          top=[{"name": k[:80], "calls_per_multiply": c / n,
                "ms_per_multiply": t / 1e3 / n} for k, c, t in rows[:12]])
 
@@ -2164,11 +2373,425 @@ def run_profile_macro(matrix, n):
          peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
     profile_device(matrix, multiply, n)
 
+# --------------------------------------------------------------------------
+# the steady element multiply as one CUDA graph (ops.fixed.BinnedElementPlan)
+
+def plan_value_arrays(plan):
+    """Every value array of a binned plan as a float32 view of its own
+    memory: the B values (the chunk table's value bits, the element-window
+    and fine tables' value halves, the packed classes' B bits) and the A
+    values of each stream."""
+    w = plan.w
+    out = [plan.table[:, w:].view(torch.float32)]
+    if plan.win is not None:
+        out += [plan.wintab[:, binned.WIN:].view(torch.float32),
+                plan.win[4].view(torch.float32)]
+    if plan.coarse is not None:
+        out.append(plan.coarse[1])
+    for fs in plan.fine:
+        out += [fs.table[:, fs.w:], fs.avals]
+    for pk in plan.packed:
+        out += [pk.bbits.view(torch.float32), pk.abits.view(torch.float32)]
+    out += [bk.avals for bk in plan.buckets]
+    out.append(plan.res_avals)
+    return out
+
+
+def perturb_plan_values(plan, seed):
+    """Scale every value of the plan IN PLACE by factors in [0.5, 2): the
+    graph must read the new values where they lie."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    for v in plan_value_arrays(plan):
+        if v.dtype != torch.float32:
+            raise AssertionError(f"a plan value array is {v.dtype}")
+        v.mul_(torch.empty(v.shape, device=DEV).uniform_(0.5, 2.0,
+                                                          generator=g))
+
+
+def same_stream(got, want, what):
+    """Keys, first-flags, rows, c_nnz and the values at first slots equal
+    bit for bit (the values elsewhere are unspecified by the contract).
+    Returns whether every value slot was equal too."""
+    if int(got.c_nnz) != int(want.c_nnz):
+        raise AssertionError(f"{what}: c_nnz {int(got.c_nnz)} != "
+                             f"{int(want.c_nnz)}")
+    all_equal = True
+    gs = list(zip(got.bucket_keys, got.bucket_vals, got.bucket_first,
+                  got.bucket_rows)) + [(got.res[1], got.res[2], got.res[3],
+                                        got.res[0])]
+    ws = list(zip(want.bucket_keys, want.bucket_vals, want.bucket_first,
+                  want.bucket_rows)) + [(want.res[1], want.res[2],
+                                         want.res[3], want.res[0])]
+    if len(gs) != len(ws):
+        raise AssertionError(f"{what}: {len(gs)} streams, eager {len(ws)}")
+    for i, ((gk, gv, gf, gr), (wk, wv, wf, wr)) in enumerate(zip(gs, ws)):
+        if not (torch.equal(gk, wk) and torch.equal(gf, wf)
+                and torch.equal(gr, wr)):
+            raise AssertionError(f"{what}: stream {i}: keys, flags or rows "
+                                 "differ")
+        gb, wb = gv.view(torch.int32), wv.view(torch.int32)
+        if not torch.equal(gb[gf], wb[wf]):
+            raise AssertionError(f"{what}: stream {i}: values differ")
+        all_equal &= torch.equal(gb, wb)
+    return all_equal
+
+
+def same_coo(got, want, what):
+    """The sorted COO of two streams equal bit for bit."""
+    g, w = got.to_coo_arrays(), want.to_coo_arrays()
+    if not all(np.array_equal(x.view(np.int32) if x.dtype == np.float32
+                              else x, y.view(np.int32)
+                              if y.dtype == np.float32 else y)
+               for x, y in zip(g, w)):
+        raise AssertionError(f"{what}: sorted COO differs")
+    return len(g[0])
+
+
+def turns_ms(fns, n):
+    """Host-clock ms a multiply, each fn in turn as listed (e.g. eager,
+    graph, graph, eager): synced (int() of c_nnz after each) and queued
+    (one int() after n)."""
+    out = []
+    for name, fn in fns:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            int(fn())
+        synced = (time.perf_counter() - t0) / n
+        t0 = time.perf_counter()
+        for _ in range(n):
+            last = fn()
+        int(last)
+        queued = (time.perf_counter() - t0) / n
+        out.append({"path": name, "synced_ms": synced * 1e3,
+                    "queued_ms": queued * 1e3})
+    return out
+
+
+def graph_case(name, coo, pack, n=20):
+    """One element matrix's cached plan: the replayed multiply against the
+    eager one, bit for bit, before and after three rounds of the plan's
+    values changed in place; launches recorded at capture; peak memory and
+    host-clock times of both, in turns."""
+    from pem_spgemm_tpu_torch.ops.fixed import BinnedElementPlan
+    a = coo_to_tiled(coo)
+    b = coo_to_tiled(coo, with_tmasks=True)
+    plan = binned.build_plan_device(a, b, pack=pack)
+    torch.cuda.synchronize()
+    what = f"{name} {'packed' if pack else 'pack=False'}"
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    eager = binned.binned_multiply(plan, vmem_sort=True)
+    int(eager.c_nnz)
+    peak_eager = torch.cuda.max_memory_allocated() - base
+    del eager
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    gp = BinnedElementPlan(plan=plan, vmem_sort=True)
+    reset_launch_counts()
+    gp.run(a, b)
+    captured = dict(ss.LAUNCHES)        # the eager warm-up and the capture
+    reset_launch_counts()
+    c_nnz = int(gp.run(a, b)[0])
+    if sum(ss.LAUNCHES.values()):
+        raise AssertionError(f"{what}: a replay went through a wrapper")
+    peak_graph = torch.cuda.max_memory_allocated() - base
+    held = torch.cuda.memory_allocated() - base
+    launches = gp.launches
+    if captured != {k: 2 * v for k, v in launches.items()}:
+        raise AssertionError(f"{what}: capture launches {launches}, "
+                             f"eager warm-up + capture {captured}")
+    entry = "segment_dedup" if pack else "segment_sort_dedup"
+    if launches[entry] <= 0:
+        raise AssertionError(f"{what}: the graph launches no {entry}")
+    ref = binned.binned_multiply(plan, vmem_sort=True)
+    all_slots = same_stream(gp.stream, ref, what)
+    coo_n = same_coo(gp.stream, ref, what)
+    del ref
+    for r in range(3):
+        perturb_plan_values(plan, seed=100 + r)
+        gp.run(a, b)
+        ref = binned.binned_multiply(plan, vmem_sort=True)
+        all_slots &= same_stream(gp.stream, ref, f"{what}, changed {r}")
+        if r == 2:
+            same_coo(gp.stream, ref, f"{what}, changed {r}")
+        del ref
+    times = turns_ms(
+        [("eager", lambda: binned.binned_multiply(plan,
+                                                  vmem_sort=True).c_nnz),
+         ("graph", lambda: gp.run(a, b)[0]),
+         ("graph", lambda: gp.run(a, b)[0]),
+         ("eager", lambda: binned.binned_multiply(plan,
+                                                  vmem_sort=True).c_nnz)], n)
+    emit("graph_replay", matrix=name, pack=pack, c_nnz=c_nnz,
+         coo_entries=coo_n, stream_equal=True,
+         every_value_slot_equal=all_slots, changed_value_rounds=3, launches_per_multiply=launches,
+         peak_mem_gb={"eager": peak_eager / 2**30,
+                      "graph_capture_and_replay": peak_graph / 2**30,
+                      "graph_held": held / 2**30},
+         times=times)
+    return launches
+
+
+def phase_graph_replay(coos):
+    """powerlaw-1M, rmat-16 and uniform-1M packed, and powerlaw-1M with
+    pack=False.  Returns {(matrix, pack): launches a replayed multiply}."""
+    out = {}
+    for name, pack in (("powerlaw-1M", True), ("powerlaw-1M", False),
+                       ("rmat-16", True), ("uniform-1M", True)):
+        out[name, pack] = graph_case(name, coos[name], pack)
+        torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------------------------------------
+# the f64 parity mode
+
+F64_PATH = (    # matrix, engine, the kernel entry on its path, C_nnz
+    ("powerlaw-1M", "auto", None, 43_282_438),
+    ("pairbands-500k", "auto", "dia_multiply_pairs_f64", 14_962_177),
+    ("banded64-1M", "auto", "dia_multiply_dense_f64", 126_995_967),
+    ("wandering64-1M", "macro", "macro_accumulate_pairs_f64", 151_873_407),
+)
+# scipy's whole product where it is cheap; on the two wide matrices (4.1 G
+# products each) scipy takes these rows of A, against all of A
+F64_SAMPLE_ROWS = 20_000
+
+
+def scipy_rows(coo, rows):
+    """(rows, cols, vals, mag) of the rows ``rows`` (ascending) of A@A from
+    scipy in float64, sorted, with sum|a*b| of each entry."""
+    s = coo.to_scipy().tocsr().astype(np.float64)
+    want = (s[rows] @ s).tocoo()
+    mag = (abs(s[rows]) @ abs(s)).tocoo()
+    want.sum_duplicates()
+    mag.sum_duplicates()
+    o, mo = (np.lexsort((x.col, x.row)) for x in (want, mag))
+    if not (np.array_equal(want.row[o], mag.row[mo])
+            and np.array_equal(want.col[o], mag.col[mo])):
+        raise AssertionError("|A|@|A| and A@A differ in structure")
+    return (np.asarray(rows)[want.row[o]], want.col[o], want.data[o],
+            mag.data[mo])
+
+
+def check_f64(c, want_r, want_c, want_v, mag, what):
+    """Exact structure, float64 values within 1e-12 * sum|a*b|.  Returns
+    the worst error over the bound."""
+    if c.vals.dtype != np.float64:
+        raise AssertionError(f"{what}: values are {c.vals.dtype}")
+    if not (np.array_equal(c.rows, want_r) and np.array_equal(c.cols,
+                                                                want_c)):
+        raise AssertionError(f"{what}: sorted COO structure differs")
+    over = float((np.abs(c.vals - want_v) / (F64_RTOL * mag + F64_ATOL))
+                 .max()) if len(want_v) else 0.0
+    if not over <= 1.0:
+        raise AssertionError(f"{what}: values exceed the float64 "
+                             f"dot-product bound by {over}x")
+    return over
+
+
+def f64_coo_rows(c, rows):
+    """The entries of the sorted COO ``c`` in the rows ``rows``."""
+    lo = np.searchsorted(c.rows, rows, side="left")
+    hi = np.searchsorted(c.rows, rows, side="right")
+    take = np.concatenate([np.arange(x, y) for x, y in zip(lo, hi)])
+    return COOMatrix(c.rows[take], c.cols[take], c.vals[take], c.shape)
+
+
+def phase_f64_path(coo_pl, want_pl):
+    """The four f64 matrices through run_benchmark(dtype=float64) at full
+    size, A*A, repeat 2.  Returns what the kernel rows need."""
+    cfg = SpGEMMConfig(dtype=torch.float64, repeat=2)
+    kept = {}
+    for name, engine, entry, want_nnz in F64_PATH:
+        if name == "powerlaw-1M":
+            coo = coo_pl
+        elif name == "wandering64-1M":
+            coo = MACRO_MATRICES[name]()
+        else:
+            coo = banded_device(**DIA_MATRICES[name])
+        reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        rec, res = run_benchmark(coo, name, cfg.with_(engine=engine),
+                                 verbose=False)
+        launches = {**path_launches(ss.LAUNCHES), **dict(dk.LAUNCHES),
+                    **dict(mk.LAUNCHES)}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if res.c_nnz != want_nnz:
+            raise AssertionError(f"{name} f64: C_nnz {res.c_nnz} != "
+                                 f"{want_nnz}")
+        if res.vals.dtype != torch.float64:
+            raise AssertionError(f"{name} f64: values {res.vals.dtype}")
+        if entry is None:
+            if res.engine != "element" or res.binned is not None \
+                    or any(launches.values()):
+                raise AssertionError(f"{name} f64: not the merge engine "
+                                     f"({res.engine}, {launches})")
+        elif launches[entry] <= 0 or any(
+                v for k, v in launches.items() if k != entry):
+            raise AssertionError(f"{name} f64: launches {launches}")
+        c = res.to_coo()
+        del res
+        if name == "powerlaw-1M":
+            want, order, mag = want_pl
+            over = check_f64(c, want.row[order], want.col[order],
+                             want.data[order], mag, name)
+            checked = "scipy, every entry"
+        elif name == "pairbands-500k":
+            want, order, mag = scipy_square(coo, with_abs=True)
+            over = check_f64(c, want.row[order], want.col[order],
+                             want.data[order], mag, name)
+            checked = "scipy, every entry"
+            del want, order, mag
+        else:
+            g = np.random.default_rng(17)
+            rows = np.sort(g.choice(coo.shape[0], F64_SAMPLE_ROWS,
+                                    replace=False))
+            over = check_f64(f64_coo_rows(c, rows), *scipy_rows(coo, rows),
+                             f"{name} sampled rows")
+            checked = f"scipy, {F64_SAMPLE_ROWS:,} sampled rows"
+        emit("f64_path", matrix=name, engine=engine, entry=entry,
+             flop=rec.flop, c_nnz=rec.c_nnz, expected_c_nnz=want_nnz,
+             checked_against=checked, values_worst_over_bound=over,
+             bound="|err| <= 1e-12 * sum|a*b|", launches=launches,
+             times_ms=record_times(rec), peak_mem_gb=peak)
+        del c
+        if entry is not None:
+            kept[entry] = dict(coo=coo, launches=launches[entry],
+                               matrix=name)
+        torch.cuda.empty_cache()
+    return kept
+
+
+def f64_dia_row(entry, info, check_err):
+    """A float64 DIA entry at its f64 path matrix: kernel and plain version
+    with counts and values-only, held against each other; the library call
+    on the same matrix in float64 CSR (the dense entry's at banded16-1M,
+    which cuSPARSE takes)."""
+    mode = entry.split("_")[2]
+    name = info["matrix"]
+    a = D.coo_to_dia(info["coo"], dtype=torch.float64)
+    offs = a.offsets
+    dc_list, idx_map = D._plan_maps(offs, offs)
+    kw = dict(offs_a=offs, idx_map=idx_map, dc_count=len(dc_list), n_out=a.n)
+    tables = dk.dia_tables(offs, offs, dc_list, mode, a.device)
+    got = dk.dia_multiply(a.bands, a.bands, offs_a=offs, offs_b=offs,
+                          dc_list=dc_list, n_out=a.n, mode=mode,
+                          tables=tables)
+    want = D._dia_multiply_torch(a.bands, a.bands, **kw)
+    mag = D._dia_multiply_torch(a.bands.abs(), a.bands.abs(),
+                                values_only=True, **kw)[0]
+    err = dia_hold(got, want, F64_RTOL * mag + F64_ATOL, f"{entry} at {name}",
+                   key=entry, label="float64")
+    bit_equal = torch.equal(got[0], want[0])
+    del got, want, mag
+    ms, ms_vo, plain, plain_vo = dia_times(a.bands, offs, dc_list, idx_map,
+                                           mode, n_plain=2)
+    flop = DIA_RECORDED[name][1]
+    c_bytes = 8 * len(dc_list) * a.n
+    in_bytes = 8 * a.bands.numel()
+
+    def bound(with_counts):
+        by = (in_bytes + c_bytes + (c_bytes // 2 if with_counts else 0)) \
+            / HBM_BYTES_PER_S
+        ops = 2 * flop / FP64_OPS_PER_S + (
+            2 * flop / FP32_OPS_PER_S if with_counts else 0.0)
+        return max(by, ops) * 1e3, "bytes" if by >= ops else "operations"
+
+    (b_ms, b_by), (bv_ms, bv_by) = bound(True), bound(False)
+    lib_name = DENSE_LIBRARY_MATRIX if mode == "dense" else name
+    lib_coo = banded_device(**DIA_MATRICES[lib_name]) \
+        if lib_name != name else info["coo"]
+    lib_coo = COOMatrix(lib_coo.rows, lib_coo.cols,
+                        torch.as_tensor(lib_coo.vals).to(DEV,
+                                                          torch.float64),
+                        lib_coo.shape)
+    library = sparse_mm_ms(lib_coo)
+    row = {
+        "name": entry, "route": "cuda", "source": DIA_SOURCE,
+        "replaces": "pem_spgemm_tpu/ops/pallas_dia.py:280",
+        "launches": info["launches"],
+        "max_abs_err": max(err, check_err[entry]),
+        "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": library,
+        "library_covers": f"torch.sparse.mm(A, A) in float64 CSR at "
+                          f"{lib_name}: another format",
+        "values_only_ms": ms_vo, "values_only_plain_ms": plain_vo,
+        "values_only_bound_ms": bv_ms, "values_only_bound_by": bv_by,
+        "bound_rates": "FP64 34 TFLOP/s (FMA, no tensor cores), counts at "
+                       "FP32 67 TFLOP/s, HBM 3.35 TB/s",
+        "bit_equal_to_plain": bit_equal,
+        "matrix": name, "shape": [len(offs), a.n], "c_rows": len(dc_list),
+        "products": flop, "dtype": "float64", "kernel_ms": ms,
+    }
+    if lib_name != name:
+        lib_a = D.coo_to_dia(lib_coo, dtype=torch.float64)
+        lo, li = D._plan_maps(lib_a.offsets, lib_a.offsets)
+        lk, lk_vo, _p, _pv = dia_times(lib_a.bands, lib_a.offsets, lo, li,
+                                       mode, n_plain=1)
+        row.update(library_matrix=lib_name, library_kernel_ms=lk,
+                   library_kernel_values_only_ms=lk_vo)
+    return row
+
+
+def f64_macro_row(info, check_err):
+    """The float64 pair-stream entry at wandering64-1M's stream, against
+    the plain version; torch.bmm in float64 as the yardstick."""
+    entry = "macro_accumulate_pairs_f64"
+    a = coo_to_macro(info["coo"], dtype=torch.float64)
+    n_pairs, n_tiles, (_r, _c, a_idx, b_idx, seg) = macro_pairs(a, a)
+    c_cap = -(-n_tiles // 256) * 256
+    fn = lambda: mk.accumulate_macro_pairs(a.dense, a.dense, a_idx, b_idx,
+                                           seg, c_cap)
+    plain = lambda: M.accumulate_macro(a.dense, a.dense, a_idx, b_idx, seg,
+                                       c_cap, 256, torch.float64)
+    got, want = fn(), plain()
+    mag = M.accumulate_macro(a.dense.abs(), a.dense.abs(), a_idx, b_idx, seg,
+                             c_cap, 256, torch.float64)[0]
+    err = macro_hold(got, want, mag, f"{entry} at wandering64-1M", key=entry)
+    del got, want, mag
+    ops = TILE_FLOP * n_pairs
+    nbytes = a.dense.numel() * 8 + c_cap * 128 * 128 * 9
+    b_o, b_b = ops / FP64_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    ms = time_ms(fn, 3)
+    return {
+        "name": entry, "route": "cuda", "source": MACRO_SOURCE,
+        "replaces": "pem_spgemm_tpu/ops/pallas_macro2.py:232",
+        "launches": info["launches"], "max_abs_err": max(err,
+                                                         check_err[entry]),
+        "ms": ms, "plain_ms": time_ms(plain, 1),
+        "bound_ms": max(b_o, b_b) * 1e3,
+        "bound_by": "operations" if b_o >= b_b else "bytes",
+        "library_ms": bmm_ms(a.dense, a.dense, a_idx[:n_pairs],
+                             b_idx[:n_pairs]),
+        "library_covers": "torch.bmm in float64 over the pre-gathered "
+                          "(P, 128, 128) operands in chunks of 16,384 "
+                          "pairs: the products only",
+        "bound_rates": "FP64 34 TFLOP/s (FMA, no tensor cores), HBM "
+                       "3.35 TB/s",
+        "runs_on": "FP64 FMA", "matrix": "wandering64-1M", "pairs": n_pairs,
+        "c_rows": c_cap, "operations": ops, "bytes": nbytes,
+        "dtype": "float64", "kernel_ms": ms,
+        "launches_per_multiply": 1,
+    }
+
+
+def phase_f64_kernels(kept, check_err):
+    rows = [f64_dia_row(e, kept[e], check_err)
+            for e in ("dia_multiply_dense_f64", "dia_multiply_pairs_f64")]
+    torch.cuda.empty_cache()
+    rows.append(f64_macro_row(kept["macro_accumulate_pairs_f64"], check_err))
+    return rows
+
+
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=["kernel_check"], default=None,
-                    help="build the kernels, check them, and stop")
+    ap.add_argument("--only", choices=["kernel_check", "f64_path"],
+                    default=None,
+                    help="kernel_check: build the kernels, check them, and "
+                         "stop; f64_path: build them and run the f64 parity "
+                         "phase alone")
     ap.add_argument("--profile",
                     choices=sorted(MATRICES) + sorted(DIA_MATRICES)
                     + ["wandering64-1M"],
@@ -2179,6 +2802,9 @@ def main():
                          "(pack=False) through the sort+dedup kernel")
     ap.add_argument("--iters", type=int, default=20,
                     help="with --profile: multiplies per measurement")
+    ap.add_argument("--graph", action="store_true",
+                    help="with --profile of an element matrix: the eager "
+                         "multiply and its CUDA graph replay, in turns")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2197,7 +2823,13 @@ def main():
         run_profile_dia(args.profile, args.iters)
         return 0
     if args.profile is not None:
-        run_profile(args.profile, args.no_pack, args.iters)
+        run_profile(args.profile, args.no_pack, args.iters, args.graph)
+        return 0
+    if args.only == "f64_path":
+        coo_pl = MATRICES["powerlaw-1M"]()
+        kept = phase_f64_path(coo_pl, scipy_square(coo_pl, with_abs=True))
+        rows = phase_f64_kernels(kept, {k: 0.0 for k in kept})
+        print(json.dumps({"kernels": rows}), flush=True)
         return 0
 
     check_err = phase_kernel_check()
@@ -2209,13 +2841,20 @@ def main():
 
     coo_pl = MATRICES["powerlaw-1M"]()
     want_pl = scipy_square(coo_pl, with_abs=True)
-    dedup_launches = phase_default_path(coo_pl, want_pl)
+    dedup_launches, coos = phase_default_path(coo_pl, want_pl)
+    replayed = phase_graph_replay(coos)
+    del coos
     sort_launches, plan_cg, a, b = phase_kernel_sort_path(coo_pl, want_pl)
     kernels = phase_kernels(
         plan_cg, a, b,
         {"segment_dedup": dedup_launches,
-         "segment_sort_dedup": sort_launches}, check_err)
-    del plan_cg, a, b, coo_pl, want_pl
+         "segment_sort_dedup": sort_launches}, check_err, replayed)
+    del plan_cg, a, b
+    torch.cuda.empty_cache()
+    kept = phase_f64_path(coo_pl, want_pl)
+    del coo_pl, want_pl
+    f64_rows = phase_f64_kernels(kept, check_err)
+    del kept
     torch.cuda.empty_cache()
     kept = phase_dia_path()
     pairbands_ref = kept["pairbands-500k"].pop("ref")
@@ -2223,6 +2862,7 @@ def main():
     del kept
     torch.cuda.empty_cache()
     kernels += phase_macro_path(check_err, pairbands_ref)
+    kernels += f64_rows
     kernels.append(phase_probe())
     for row in kernels:
         # the uniform class entry has no caller on any path (nor has the

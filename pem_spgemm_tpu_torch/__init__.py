@@ -12,9 +12,10 @@ multiply with exact structural counts -> sorted COO), the Macro128 engine
 end to end (COO -> dense 128x128 tiles -> pair stream -> accumulation with
 exact structural flags -> sorted COO; steady state through the stencil /
 run class plans or the generic pair stream), the benchmark harness,
-MatrixMarket I/O and the command line (bench/cli.py).  The Tile16 engines,
-the f64 merge engine, persistence and the multi-GPU layer raise
-NotImplementedError or are absent until their slices land (ROADMAP.md).
+MatrixMarket I/O and the command line (bench/cli.py), and the f64 parity
+mode (the merge element engine, the kernels' float64 entries).  The Tile16
+engines, persistence and the multi-GPU layer raise NotImplementedError or
+are absent until their slices land (ROADMAP.md).
 """
 
 from pem_spgemm_tpu_torch.config import SpGEMMConfig

@@ -5,15 +5,17 @@ pemspgemm <path.mtx> <0|1 save> [1=A*At].  This one keeps those positionals
 and adds flags for the knobs the reference bakes in at compile time:
 
   python -m pem_spgemm_tpu_torch.bench.cli <matrix> <0|1 save> [1]
-         [--repeat N] [--warmup N] [--fastest] [--dtype f32]
+         [--repeat N] [--warmup N] [--fastest] [--dtype f32|f64]
          [--engine auto|element|dia|macro] [--device DEVICE]
          [--csv PATH] [--no-csv] [--outdir DIR]
 
 <matrix> is a .mtx path or a synthetic spec like
 'power_law:n=1000000,nnz=3000000' (see models/synthetic.by_name).  With
 save=1 the sorted COO result is dumped in the reference's four-file layout
-(default: the current directory).  The multiply runs on the GPU unless --device says
-otherwise.
+(default: the current directory).  The multiply runs on the GPU unless
+--device says otherwise.  ``--dtype f64`` is the f64 parity mode (the
+reference computes in double): the merge element engine, and the float64
+entries of the DIA and Macro128 kernels.
 """
 
 from __future__ import annotations
@@ -54,10 +56,11 @@ def main(argv=None):
                                              save_result_files)
     from pem_spgemm_tpu_torch.models.synthetic import by_name
 
-    if args.dtype != "f32":
+    if args.dtype == "bf16":
         raise NotImplementedError(
-            f"--dtype {args.dtype} is not ported yet: the f64 parity mode "
-            "is ROADMAP slice 5")
+            "--dtype bf16 is not ported yet: bf16 belongs to the Tile16 "
+            "tier, ROADMAP slice 4")
+    dtype = {"f32": torch.float32, "f64": torch.float64}[args.dtype]
     if args.save_converted:
         raise NotImplementedError(
             "--save-converted is not ported yet: persistence of the "
@@ -71,7 +74,7 @@ def main(argv=None):
         p.error("A@A needs a square matrix; rectangular inputs are only "
                 "allowed in A@A.T mode (pass trailing 1)")
 
-    cfg = SpGEMMConfig(dtype=torch.float32, warmup=args.warmup,
+    cfg = SpGEMMConfig(dtype=dtype, warmup=args.warmup,
                        repeat=args.repeat, fastest=args.fastest,
                        engine=args.engine)
     record, result = run_benchmark(

@@ -11,7 +11,9 @@ Mirrors the reference's measurement protocol:
 Three tiers are reported: interactive (plan + multiply + c_nnz feedback per
 iteration, the CSV's pem_spgemm_time), steady (the cached plan replayed, one
 sync per iteration) and pipelined (replays queued back to back, one sync at
-the end).  The element, dia, macro and auto branches are ported.
+the end).  The element, dia, macro and auto branches are ported, in
+float32 and in float64 (the f64 parity mode: the merge element engine and
+the kernels' float64 entries).
 """
 
 from __future__ import annotations
@@ -188,8 +190,7 @@ def run_benchmark(coo: COOMatrix, name: str,
 
     # the steady tiers replay a plan; an empty product has none
     steady = pipelined = 0.0
-    if (result.binned is not None or result.dia_dc is not None
-            or result.c_tile_row is not None):
+    if result.n_pairs > 0:
         steady, pipelined = _steady_tiers(result, cfg, a, b, dev)
 
     record = BenchmarkRecord(

@@ -78,10 +78,10 @@ def record_dedup_calls(plan):
     calls = []
     real = binned.segment_dedup
 
-    def rec(keys, vals, abits=None):
+    def rec(keys, vals, abits=None, count=None):
         if keys.numel():
             calls.append((keys, vals, abits))
-        return real(keys, vals, abits)
+        return real(keys, vals, abits, count=count)
 
     binned.segment_dedup = rec
     try:

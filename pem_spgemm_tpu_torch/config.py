@@ -53,7 +53,9 @@ class SpGEMMConfig:
     tile: int = 16
 
     # Value dtype of the numeric phase.  The binned element engine is
-    # float32; other dtypes belong to the merge engine, not ported yet.
+    # float32; other dtypes (torch.float64: the f64 parity mode) take the
+    # merge element engine, and DIA bands and Macro128 tiles of that dtype
+    # their kernels' float64 entries on the GPU.
     dtype: torch.dtype = torch.float32
 
     # Accumulation dtype of the tiled engines (None: the value dtype).
@@ -63,7 +65,8 @@ class SpGEMMConfig:
     # full float32 ("highest") and refuses anything else.
     precision: str = "highest"
 
-    # Pairs per matmul chunk of the tiled engines (unused by this slice).
+    # Pairs per matmul chunk of the tiled engines (not ported yet); the
+    # granularity of the merge element engine's product capacity.
     numeric_chunk: int = 1 << 14
 
     # Structure engine: "fused" | "masks" | "element" | "dia" | "macro" |
@@ -92,7 +95,8 @@ class SpGEMMConfig:
     element_threshold: float = float("inf")
 
     # Element-engine implementation: "binned" (ops/binned.py, float32) or
-    # "merge" (dtype-agnostic merge-sort engine, not ported yet).
+    # "merge" (ops/element.py, the dtype-agnostic merge-sort engine, which
+    # every dtype other than float32 takes whatever this says).
     element_impl: str = "binned"
 
     # "auto" picks the macro (dense 128x128) engine when the mean nnz per

@@ -60,6 +60,18 @@
 // not once for every C row that uses it, reads B through L1 at each pair's
 // shift, and writes each C row (and count row) once, coalesced.
 //
+// The float64 entries (`dia_multiply_dense_f64`, `dia_multiply_pairs_f64`)
+// serve the f64 parity mode, which the JAX package runs through the same
+// two kernels (pallas_dia_mode does not test the dtype).  They are the
+// simple form: one thread a C element of one C row, the row's band pairs
+// in ascending A-band order (the dense entry's arithmetic on the offsets,
+// the pairs entry's CSR table), each product and sum rounded on its own
+// (__dmul_rn, __dadd_rn, no contraction into an FMA), so they agree bit for
+// bit with the plain PyTorch version, which multiplies and then adds.  A
+// and B are read through L1 and L2 at each pair (nothing is staged); each C
+// element, and its float32 count, is written once.  What bounds them is
+// the same as for the float32 entries, with 8-byte words.
+//
 // Plain C interface, no PyTorch headers: the wrapper
 // (ops/dia_kernels.py) allocates the outputs, computes the dense entry's
 // launch shape (dense_launch), passes raw pointers and the current stream,
@@ -507,6 +519,80 @@ cudaError_t launch_dense(const float* a, const float* b, const int* offs,
     return cudaGetLastError();
 }
 
+constexpr int F64_THREADS = 256;    // threads (C columns) a block, f64
+
+// float64, dense entry: C row r takes the A bands k1 (ascending) with
+// k2 = r - (offs[k1] - offs[0]) in [0, d2n); k2 falls as k1 rises.
+template <bool COUNTS>
+__global__ void __launch_bounds__(F64_THREADS)
+dia_dense_f64_kernel(const double* __restrict__ a,
+                     const double* __restrict__ b,
+                     const int* __restrict__ offs, double* __restrict__ c,
+                     float* __restrict__ cnt, int d1n, int d2n, int dcn,
+                     long long n_i, long long n_k, long long n_out) {
+    const long long i = (long long)blockIdx.x * F64_THREADS + threadIdx.x;
+    if (i >= n_out) return;
+    const int o0 = __ldg(offs);
+    for (int r = blockIdx.y; r < dcn; r += gridDim.y) {
+        double acc = 0.0;
+        float n = 0.f;
+        for (int k1 = 0; k1 < d1n; ++k1) {
+            const int d1 = __ldg(offs + k1);
+            const int k2 = r - (d1 - o0);
+            if (k2 < 0) break;
+            if (k2 >= d2n) continue;
+            const long long j = i + d1;
+            if (j < 0 || j >= n_k) continue;
+            const double av = __ldg(a + (long long)k1 * n_i + i);
+            const double bv = __ldg(b + (long long)k2 * n_k + j);
+            acc = __dadd_rn(acc, __dmul_rn(av, bv));
+            if (COUNTS && av != 0.0 && bv != 0.0) n += 1.f;
+        }
+        c[(long long)r * n_out + i] = acc;
+        if (COUNTS) cnt[(long long)r * n_out + i] = n;
+    }
+}
+
+// float64, pairs entry: C row r takes the (k1, k2, d1) triples
+// trip[row_ptr[r] .. row_ptr[r + 1]), ascending k1.
+template <bool COUNTS>
+__global__ void __launch_bounds__(F64_THREADS)
+dia_pairs_f64_kernel(const double* __restrict__ a,
+                     const double* __restrict__ b,
+                     const int* __restrict__ row_ptr,
+                     const int* __restrict__ trip, double* __restrict__ c,
+                     float* __restrict__ cnt, int dcn, long long n_i,
+                     long long n_k, long long n_out) {
+    const long long i = (long long)blockIdx.x * F64_THREADS + threadIdx.x;
+    if (i >= n_out) return;
+    for (int r = blockIdx.y; r < dcn; r += gridDim.y) {
+        double acc = 0.0;
+        float n = 0.f;
+        const int end = __ldg(row_ptr + r + 1);
+        for (int q = __ldg(row_ptr + r); q < end; ++q) {
+            const int k1 = __ldg(trip + 3 * q);
+            const int k2 = __ldg(trip + 3 * q + 1);
+            const long long j = i + __ldg(trip + 3 * q + 2);
+            if (j < 0 || j >= n_k) continue;
+            const double av = __ldg(a + (long long)k1 * n_i + i);
+            const double bv = __ldg(b + (long long)k2 * n_k + j);
+            acc = __dadd_rn(acc, __dmul_rn(av, bv));
+            if (COUNTS && av != 0.0 && bv != 0.0) n += 1.f;
+        }
+        c[(long long)r * n_out + i] = acc;
+        if (COUNTS) cnt[(long long)r * n_out + i] = n;
+    }
+}
+
+// The f64 grid: column blocks of F64_THREADS along x, C rows along y (a
+// block walks rows y, y + gridDim.y, ...).
+bool f64_grid(long long n_out, int dcn, dim3* grid) {
+    const long long gx = (n_out + F64_THREADS - 1) / F64_THREADS;
+    if (gx <= 0 || gx > 0x7fffffffLL || dcn <= 0) return false;
+    *grid = dim3((unsigned)gx, (unsigned)(dcn < 65535 ? dcn : 65535));
+    return true;
+}
+
 }  // namespace
 
 // a (d1n, n_i), b (d2n, n_k), c and cnt (dcn, n_out) float32, row-major and
@@ -572,5 +658,47 @@ extern "C" int dia_multiply_pairs_f32(const void* a, const void* b,
             (const int*)trip, (float*)c, nullptr, d1n, dcn, n_pairs,
             d1_min, d1_max, n_i, n_k, n_out, stage_a, stage_tables);
     }
+    return (int)cudaGetLastError();
+}
+
+// The float64 entries: a, b and c float64, cnt float32 (nullptr: values
+// only), the tables as for the float32 entries; one thread a C element.
+extern "C" int dia_multiply_dense_f64(const void* a, const void* b,
+                                      const void* offs_a, void* c, void* cnt,
+                                      int d1n, int d2n, int dcn,
+                                      long long n_i, long long n_k,
+                                      long long n_out, void* stream) {
+    dim3 grid;
+    if (!f64_grid(n_out, dcn, &grid))
+        return (int)cudaErrorInvalidConfiguration;
+    cudaStream_t s = (cudaStream_t)stream;
+    if (cnt != nullptr)
+        dia_dense_f64_kernel<true><<<grid, F64_THREADS, 0, s>>>(
+            (const double*)a, (const double*)b, (const int*)offs_a,
+            (double*)c, (float*)cnt, d1n, d2n, dcn, n_i, n_k, n_out);
+    else
+        dia_dense_f64_kernel<false><<<grid, F64_THREADS, 0, s>>>(
+            (const double*)a, (const double*)b, (const int*)offs_a,
+            (double*)c, nullptr, d1n, d2n, dcn, n_i, n_k, n_out);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int dia_multiply_pairs_f64(const void* a, const void* b,
+                                      const void* row_ptr, const void* trip,
+                                      void* c, void* cnt, int dcn,
+                                      long long n_i, long long n_k,
+                                      long long n_out, void* stream) {
+    dim3 grid;
+    if (!f64_grid(n_out, dcn, &grid))
+        return (int)cudaErrorInvalidConfiguration;
+    cudaStream_t s = (cudaStream_t)stream;
+    if (cnt != nullptr)
+        dia_pairs_f64_kernel<true><<<grid, F64_THREADS, 0, s>>>(
+            (const double*)a, (const double*)b, (const int*)row_ptr,
+            (const int*)trip, (double*)c, (float*)cnt, dcn, n_i, n_k, n_out);
+    else
+        dia_pairs_f64_kernel<false><<<grid, F64_THREADS, 0, s>>>(
+            (const double*)a, (const double*)b, (const int*)row_ptr,
+            (const int*)trip, (double*)c, nullptr, dcn, n_i, n_k, n_out);
     return (int)cudaGetLastError();
 }

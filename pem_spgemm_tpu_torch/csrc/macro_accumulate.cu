@@ -81,6 +81,22 @@
 // under 2^-74 of its partner's scale: unmarked stages run exactly as
 // before.
 //
+// The float64 entry `macro_accumulate_pairs_f64` serves the f64 parity mode
+// (the JAX package runs float64 tiles through accumulate_macro_pipelined
+// too).  It keeps the float32 entry's contract: a stream sorted by C tile,
+// padding pairs never read, tiles without pairs stored as zeros, uint8
+// flags from the raw values (x != 0, so NaN and Inf count), every tile
+// written once by its owner.  It is the simple form: one block a C tile,
+// 16 x 16 threads each holding an 8 x 8 register block of the tile's sums
+// (rows ty + 16 r, columns tx + 16 c), 16-deep k-slabs of A and B staged in
+// shared memory (the next slab's words held in registers while the current
+// one is multiplied), FP64 FMA.  Every product is formed (no slab is
+// skipped), so an Inf or a NaN gives a dense product's NaNs and signed
+// Infs.  The pattern: per slab a 16-bit k-mask of each A row and of each B
+// column, and a thread ORs (mask_row & mask_col) != 0 into one bit of its
+// 64 elements.  Bound on an H100: 2 * 128^3 operations a pair at the FP64
+// FMA rate (no DMMA here).
+//
 // Plain C interface, no PyTorch headers: the wrappers
 // (ops/macro_kernels.py) allocate the outputs, pass raw pointers, the grid
 // of the persistent entry and the current stream, and raise if the returned
@@ -696,6 +712,122 @@ macro_class_kernel(const float* __restrict__ a_dense,
                     tc_shared());
 }
 
+constexpr int F64_KS = 16;                  // k-slab depth, float64 entry
+constexpr int F64_THREADS = 256;            // 16 x 16 threads
+constexpr int F64_REG = 8;                  // an 8 x 8 block a thread
+constexpr int F64_LOADS = TILE * F64_KS / F64_THREADS;  // words a thread
+
+// Staged slabs: A [i][k] with a row of F64_KS + 1 words (the two row groups
+// a warp reads fall on other banks), B [k][j]; and the slab's k-masks.
+struct F64Shared {
+    double a[TILE][F64_KS + 1];
+    double b[F64_KS][TILE];
+    unsigned am[TILE];                      // bit k: A[i][k0 + k] != 0
+    unsigned bm[TILE];                      // bit k: B[k0 + k][j] != 0
+};
+
+// The next slab's words, a thread's share: A element e = t + 256 q is row
+// e / 16, column e % 16 of the slab; B element e is row e / 128, column
+// e % 128.  Both reads are coalesced.
+__device__ __forceinline__ void f64_fetch(const double* __restrict__ at,
+                                          const double* __restrict__ bt,
+                                          int k0, int t, double* ra,
+                                          double* rb) {
+#pragma unroll
+    for (int q = 0; q < F64_LOADS; ++q) {
+        const int e = t + F64_THREADS * q;
+        ra[q] = at[(e / F64_KS) * TILE + k0 + e % F64_KS];
+        rb[q] = bt[(long long)(k0 + e / TILE) * TILE + e % TILE];
+    }
+}
+
+__global__ void __launch_bounds__(F64_THREADS)
+macro_pairs_f64_kernel(const double* __restrict__ a_dense,
+                       const double* __restrict__ b_dense,
+                       const int* __restrict__ a_idx,
+                       const int* __restrict__ b_idx,
+                       const int* __restrict__ seg_ptr,
+                       double* __restrict__ c_num,
+                       unsigned char* __restrict__ c_flag) {
+    __shared__ F64Shared sh;
+    const int t = threadIdx.x, tx = t % 16, ty = t / 16;
+    const long long tile = blockIdx.x;
+    const int lo = seg_ptr[tile], hi = seg_ptr[tile + 1];
+    double acc[F64_REG][F64_REG];
+#pragma unroll
+    for (int r = 0; r < F64_REG; ++r)
+#pragma unroll
+        for (int c = 0; c < F64_REG; ++c) acc[r][c] = 0.0;
+    unsigned long long flags = 0;
+    const int n_slabs = (hi - lo) * (TILE / F64_KS);
+    double ra[F64_LOADS], rb[F64_LOADS];
+    if (n_slabs > 0)
+        f64_fetch(a_dense + (long long)a_idx[lo] * TILE_ELEMS,
+                  b_dense + (long long)b_idx[lo] * TILE_ELEMS, 0, t, ra, rb);
+    for (int s = 0; s < n_slabs; ++s) {
+#pragma unroll
+        for (int q = 0; q < F64_LOADS; ++q) {
+            const int e = t + F64_THREADS * q;
+            sh.a[e / F64_KS][e % F64_KS] = ra[q];
+            sh.b[e / TILE][e % TILE] = rb[q];
+        }
+        __syncthreads();
+        if (s + 1 < n_slabs) {              // the next slab, in flight
+            const int q = lo + (s + 1) / (TILE / F64_KS);
+            f64_fetch(a_dense + (long long)a_idx[q] * TILE_ELEMS,
+                      b_dense + (long long)b_idx[q] * TILE_ELEMS,
+                      ((s + 1) % (TILE / F64_KS)) * F64_KS, t, ra, rb);
+        }
+        {
+            unsigned m = 0;
+            if (t < TILE) {
+#pragma unroll
+                for (int k = 0; k < F64_KS; ++k)
+                    m |= (sh.a[t][k] != 0.0 ? 1u : 0u) << k;
+                sh.am[t] = m;
+            } else {
+#pragma unroll
+                for (int k = 0; k < F64_KS; ++k)
+                    m |= (sh.b[k][t - TILE] != 0.0 ? 1u : 0u) << k;
+                sh.bm[t - TILE] = m;
+            }
+        }
+#pragma unroll 4
+        for (int k = 0; k < F64_KS; ++k) {
+            double av[F64_REG], bv[F64_REG];
+#pragma unroll
+            for (int r = 0; r < F64_REG; ++r) av[r] = sh.a[ty + 16 * r][k];
+#pragma unroll
+            for (int c = 0; c < F64_REG; ++c) bv[c] = sh.b[k][tx + 16 * c];
+#pragma unroll
+            for (int r = 0; r < F64_REG; ++r)
+#pragma unroll
+                for (int c = 0; c < F64_REG; ++c)
+                    acc[r][c] = fma(av[r], bv[c], acc[r][c]);
+        }
+        __syncthreads();                    // the masks are written
+#pragma unroll
+        for (int r = 0; r < F64_REG; ++r) {
+            const unsigned mr = sh.am[ty + 16 * r];
+#pragma unroll
+            for (int c = 0; c < F64_REG; ++c)
+                if (mr & sh.bm[tx + 16 * c])
+                    flags |= 1ull << (r * F64_REG + c);
+        }
+        __syncthreads();                    // the slab is read
+    }
+    double* cn = c_num + tile * TILE_ELEMS;
+    unsigned char* cf = c_flag + tile * TILE_ELEMS;
+#pragma unroll
+    for (int r = 0; r < F64_REG; ++r)
+#pragma unroll
+        for (int c = 0; c < F64_REG; ++c) {
+            const int x = (ty + 16 * r) * TILE + tx + 16 * c;
+            cn[x] = acc[r][c];
+            cf[x] = (unsigned char)((flags >> (r * F64_REG + c)) & 1ull);
+        }
+}
+
 // per launch: the attribute belongs to the current device
 template <class Kernel>
 cudaError_t allow_tc_smem(Kernel kernel) {
@@ -759,4 +891,17 @@ extern "C" int macro_class_uniform_f32(
     return (int)launch_class<false>(a_dense, b_dense, ab_bases, nullptr,
                                     a_offs, b_offs, t, p, n_steps, base,
                                     c_num, c_flag, stream);
+}
+
+// The float64 pair stream: c_num (c_cap, 128, 128) f64 and c_flag
+// (c_cap, 128, 128) u8 are written whole, one block a C tile; seg_ptr has
+// c_cap + 1 entries.
+extern "C" int macro_accumulate_pairs_f64(
+        const double* a_dense, const double* b_dense, const int* a_idx,
+        const int* b_idx, const int* seg_ptr, double* c_num,
+        unsigned char* c_flag, int c_cap, cudaStream_t stream) {
+    if (c_cap <= 0) return (int)cudaSuccess;
+    macro_pairs_f64_kernel<<<c_cap, F64_THREADS, 0, stream>>>(
+        a_dense, b_dense, a_idx, b_idx, seg_ptr, c_num, c_flag);
+    return (int)cudaGetLastError();
 }

@@ -5,7 +5,8 @@ Python scalars**, keyed by the field names of its dataclasses (nested
 dataclasses as nested dicts, tuples of them as lists).  This module turns
 those dicts into the port's objects; it never sees a JAX type.  With them a
 caller can compare conversion products and plans array by array, or feed a
-plan built by one package into the other's multiply.
+plan built by one package into the other's multiply.  Arrays keep their
+dtype (float64 values stay float64).
 """
 
 from __future__ import annotations
@@ -81,6 +82,22 @@ def stencil_plan_from_numpy(d: dict, device=None):
         order=np.asarray(d["order"], np.int64), c_cap=int(d["c_cap"]),
         n_tiles=int(d["n_tiles"]), coverage=float(d["coverage"]),
         class_tables=class_tables(classes, dev))
+
+
+def element_plan_from_numpy(d: dict):
+    """ops.fixed.ElementPlan (the merge element engine's capacities and scan
+    depths; ``wide`` for the float64 step) from a dict of the JAX package's
+    ElementPlan fields.  Holds no array, so it has no device."""
+    from pem_spgemm_tpu_torch.ops.fixed import ElementPlan
+
+    def opt(x):
+        return None if x is None else int(x)
+
+    return ElementPlan(p_cap=int(d["p_cap"]), c_cap=int(d["c_cap"]),
+                       fill_rounds=opt(d.get("fill_rounds")),
+                       merge_rounds=opt(d.get("merge_rounds")),
+                       sum_rounds=opt(d.get("sum_rounds")),
+                       wide=bool(d.get("wide", False)))
 
 
 def chunked_b_from_numpy(d: dict, device=None) -> ChunkedB:

@@ -895,20 +895,22 @@ def _pack_sort_buckets(sort_b, table, w, gran):
     return tuple(out)
 
 
-def _dedup_tail(key, vals):
+def _dedup_tail(key, vals, count=None):
     """Group totals at first slots over per-row sorted keys, first-flags
-    and their count: the dedup entry of ops/segment_sort.py (its kernel
-    for CUDA tensors).  The JAX scan's depth and width arguments have no
-    counterpart: the kernel's scan covers runs of any length."""
-    return segment_dedup(key.contiguous(), vals.contiguous())
+    and their count (added into ``count`` where given): the dedup entry of
+    ops/segment_sort.py (its kernel for CUDA tensors).  The JAX scan's
+    depth and width arguments have no counterpart: the kernel's scan
+    covers runs of any length."""
+    return segment_dedup(key.contiguous(), vals.contiguous(), count=count)
 
 
-def packed_multiply(keys, bbits, abits, seg_rows, rounds):
+def packed_multiply(keys, bbits, abits, seg_rows, rounds, count=None):
     """Dedup one packed collision class: value multiply (the per-multiply
     numeric work) + group reduction over the plan's pre-sorted keys, fused
     into one pass of the dedup entry.  Contract matches bucket_multiply
-    (keys/vals/first (R, l), count)."""
-    vals, first, count = segment_dedup(keys, bbits, abits)
+    (keys/vals/first (R, l), count; the count added into ``count`` where
+    given)."""
+    vals, first, count = segment_dedup(keys, bbits, abits, count=count)
     return keys, vals, first, count
 
 
@@ -1111,7 +1113,7 @@ def _expand_bucket(table, src, avals, m, w):
     return cols, vals
 
 
-def bucket_multiply(table, src, avals, m, w, rounds=0):
+def bucket_multiply(table, src, avals, m, w, rounds=0, count=None):
     """Expand + sort + dedup one bucket with torch.sort; the group
     reduction is the dedup entry of ops/segment_sort.py.  Serves segments
     wider than VMEM_SORT_MAX, and every sort bucket when the kernel sort
@@ -1119,14 +1121,14 @@ def bucket_multiply(table, src, avals, m, w, rounds=0):
 
     Returns (keys (R, m*w) i32 sorted j per segment, vals (R, m*w) f32
     with each (i,j) group's total at its first slot, first (R, m*w) bool,
-    count scalar i32).
+    count scalar i32, added into ``count`` where given).
     """
     r = src.shape[0]
     cols, vals = _expand_bucket(table, src, avals, m, w)
     key, order = torch.sort(cols.reshape(r, m * w), dim=1, stable=True)
     vals = torch.gather(vals.reshape(r, m * w), 1, order)
     del order
-    vals, first, count = _dedup_tail(key, vals)
+    vals, first, count = _dedup_tail(key, vals, count)
     return key, vals, first, count
 
 
@@ -1256,7 +1258,7 @@ def fine_route_multiply(ftab, block_ids, loc, avals, rows, w):
             rows.reshape(g * p), valid.sum(dtype=torch.int32))
 
 
-def residual_multiply(table, src, avals, rowids, w):
+def residual_multiply(table, src, avals, rowids, w, count=None):
     """Expand residual chunks and sort globally by (i, j); linear dedup.
 
     The two-key sort is one stable sort on the composite int64 key
@@ -1264,7 +1266,8 @@ def residual_multiply(table, src, avals, rowids, w):
     ops/segment_sort.py over the whole stream as one row, with each
     (i, j) group's ordinal as its key.
 
-    Returns (rows, cols, vals, first, count) flat arrays (RC*w,).
+    Returns (rows, cols, vals, first, count) flat arrays (RC*w,); the count
+    is added into ``count`` where given.
     """
     raw = table[src.long()]                           # (RC, 2w)
     cols = raw[:, :w].reshape(-1)
@@ -1281,7 +1284,8 @@ def residual_multiply(table, src, avals, rowids, w):
     gid = torch.cumsum(new, 0, dtype=torch.int32) - 1
     gkey = torch.where(cols != SENTINEL, gid, SENTINEL)
     vals, first, count = segment_dedup(gkey[None, :].contiguous(),
-                                       vals[None, :].contiguous())
+                                       vals[None, :].contiguous(),
+                                       count=count)
     return rows, cols, vals[0], first[0], count
 
 
@@ -1325,26 +1329,35 @@ class BinnedStream:
 
 def binned_multiply(plan: BinnedPlan, vmem_sort: bool = False
                     ) -> BinnedStream:
-    """Execute the planned binned multiply, stage by stage, eagerly (the
-    JAX package fuses the stages into one program to cut its dispatch
-    latency; there is no counterpart to that here).
+    """Execute the planned binned multiply, stage by stage.
+
+    The JAX package fuses the stages into one jitted program to cut its
+    dispatch latency (``_binned_multiply_fused``).  Here the stages run
+    eagerly, and the counterpart of that program is a CUDA graph of this
+    function: ``ops.fixed.BinnedElementPlan`` captures one multiply of a
+    cached plan and replays it.  So nothing in here may synchronise with
+    the host, allocate outside PyTorch's allocator, or build a kernel
+    library on the way (the eager first run builds them).
 
     vmem_sort=True routes sort-path buckets of at most VMEM_SORT_MAX slots
     through the hand-written sort+dedup kernel (for CUDA tensors; CPU
     tensors take its plain version).  c_nnz stays a device scalar: the
-    caller's int() is the one device-to-host copy."""
+    caller's int() is the one device-to-host copy.  It is ONE accumulator,
+    zeroed once: every dedup-entry launch adds its count into it, and the
+    counts of the other streams are summed and added to it once."""
     w = plan.w
     table = plan.table
     keys, vals, firsts, rowids = [], [], [], []
     total = torch.zeros((), dtype=torch.int32, device=table.device)
+    others = []         # counts of the streams the dedup entry does not see
 
-    def emit(k, v, f, rows, cnt):
-        nonlocal total
+    def emit(k, v, f, rows, cnt=None):
         keys.append(k)
         vals.append(v)
         firsts.append(f)
         rowids.append(rows)
-        total = total + cnt
+        if cnt is not None:
+            others.append(cnt)
 
     if plan.win is not None:
         emit(*singles_window_multiply(plan.wintab, *plan.win))
@@ -1358,9 +1371,9 @@ def binned_multiply(plan: BinnedPlan, vmem_sort: bool = False
             emit(*fine_route_multiply(fs.table, fs.block_ids, fs.loc,
                                       fs.avals, fs.rows, fs.w))
     for p in plan.packed:
-        k, v, f, cnt = packed_multiply(p.keys, p.bbits, p.abits, p.seg_rows,
-                                       p.rounds)
-        emit(k, v, f, p.seg_rows, cnt)
+        k, v, f, _ = packed_multiply(p.keys, p.bbits, p.abits, p.seg_rows,
+                                     p.rounds, count=total)
+        emit(k, v, f, p.seg_rows)
     singles = [b for b in plan.buckets if b.single]
     if singles:
         emit(*singles_multiply_flat(
@@ -1372,13 +1385,15 @@ def binned_multiply(plan: BinnedPlan, vmem_sort: bool = False
         if vmem_sort and b.m * w <= VMEM_SORT_MAX:
             k, v, f, cnt = bucket_multiply_vmem(table, b.src, b.avals, b.m,
                                                 w, b.rounds)
+            emit(k, v, f, b.seg_rows, cnt)
         else:
-            k, v, f, cnt = bucket_multiply(table, b.src, b.avals, b.m, w,
-                                           b.rounds)
-        emit(k, v, f, b.seg_rows, cnt)
-    rr, rc_, rv, rf, rcnt = residual_multiply(
-        table, plan.res_src, plan.res_avals, plan.res_rows, w)
-    total = total + rcnt
+            k, v, f, _ = bucket_multiply(table, b.src, b.avals, b.m, w,
+                                         b.rounds, count=total)
+            emit(k, v, f, b.seg_rows)
+    rr, rc_, rv, rf, _ = residual_multiply(
+        table, plan.res_src, plan.res_avals, plan.res_rows, w, count=total)
+    if others:
+        total.add_(torch.stack(others).sum(dtype=torch.int32))
     return BinnedStream(
         bucket_keys=tuple(keys), bucket_vals=tuple(vals),
         bucket_first=tuple(firsts), bucket_rows=tuple(rowids),

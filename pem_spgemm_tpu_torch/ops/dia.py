@@ -13,8 +13,9 @@ structural pattern is the same algebra run on the bands' 0/1 masks.
 Two execution paths, chosen by the bands' device and nothing else:
   * bands on the GPU launch the hand-written CUDA kernels
     (ops/dia_kernels.py, csrc/dia_multiply.cu): each C element is gathered
-    and written once.  They take float32; other dtypes on the GPU raise
-    NotImplementedError (the f64 parity mode is ROADMAP slice 5);
+    and written once.  They take float32 and, through their float64
+    entries, float64 (the f64 parity mode); other dtypes on the GPU raise
+    NotImplementedError;
   * bands on the CPU take the plain PyTorch path (this module,
     ``_dia_multiply_torch``): one (D2, n) shifted multiply and one
     ``index_add_`` per A band.  It is the kernels' plain version.
@@ -221,12 +222,12 @@ class DiaPlan:
                 a.bands, b.bands, offs_a=self.offs_a, idx_map=self.idx_map,
                 dc_count=len(self.dc_list), n_out=self.n_out,
                 values_only=values_only)
-        if (a.bands.dtype != torch.float32
-                or b.bands.dtype != torch.float32):
+        if (a.bands.dtype not in (torch.float32, torch.float64)
+                or b.bands.dtype != a.bands.dtype):
             raise NotImplementedError(
                 f"DIA bands of dtype {a.bands.dtype} / {b.bands.dtype} on "
-                "the GPU: the kernels take float32, and the f64 parity mode "
-                "(ROADMAP slice 5) is not ported yet")
+                "the GPU: the kernels take float32 or float64 bands, both "
+                "of one dtype")
         from pem_spgemm_tpu_torch.ops import dia_kernels
         if self._tables is None:
             # the kernels' small offset tables, uploaded once a plan

@@ -12,8 +12,11 @@ first use and bound with ctypes by ops/_build.py):
 
 Both compute ``C[d1 + d2][i] += A[d1][i] * B[d2][i + d1]`` over all band
 pairs, in ascending A-band order per C element, and the same sum over the
-0/1 masks (float32 structural counts).  ``values_only=True`` launches the
-variant without the mask algebra and returns ``None`` for the counts.  The
+0/1 masks (float32 structural counts).  Each mode has a float32 entry and a
+float64 entry (the f64 parity mode: one thread a C element over the same
+offsets, rounding as the plain version does); the bands' dtype picks it.
+``values_only=True`` launches the variant without the mask algebra and
+returns ``None`` for the counts.  The
 dense entry stages a window of B in shared memory: ``dense_launch`` gives
 its block shape and shared-memory layout, ``dense_chunks`` its band chunks.
 The pairs entry stages its column range of the A bands and the pair tables:
@@ -50,7 +53,8 @@ PAIR_L = PAIR_THREADS * PAIR_COLS   # columns a block of the pairs entry
 PAIRS_MIN_BLOCKS = 264      # pairs-entry blocks wanted: two an SM of 132
 
 # kernel launches per entry (plain-version calls are not counted)
-LAUNCHES = {"dia_multiply_dense": 0, "dia_multiply_pairs": 0}
+LAUNCHES = {"dia_multiply_dense": 0, "dia_multiply_pairs": 0,
+            "dia_multiply_dense_f64": 0, "dia_multiply_pairs_f64": 0}
 
 
 def reset_launch_counts() -> None:
@@ -68,6 +72,12 @@ def _declare(lib) -> None:
                                            ci, ci, ci, ll, ll, ll, ci, ci,
                                            ci, ci, vp]
     lib.dia_multiply_pairs_f32.restype = ci
+    lib.dia_multiply_dense_f64.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci,
+                                           ll, ll, ll, vp]
+    lib.dia_multiply_dense_f64.restype = ci
+    lib.dia_multiply_pairs_f64.argtypes = [vp, vp, vp, vp, vp, vp, ci, ll,
+                                           ll, ll, vp]
+    lib.dia_multiply_pairs_f64.restype = ci
 
 
 def _library():
@@ -243,11 +253,13 @@ def dia_tables(offs_a, offs_b, dc_list, mode, device):
 # --------------------------------------------------------------------------
 # wrapper
 
-def _check_bands(x, name, device=None):
+def _check_bands(x, name, device=None, dtype=None):
     if not isinstance(x, torch.Tensor):
         raise TypeError(f"{name} must be a tensor")
-    if x.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {x.dtype}")
+    if x.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{name} must be float32 or float64, got {x.dtype}")
+    if dtype is not None and x.dtype != dtype:
+        raise TypeError(f"{name} is {x.dtype}, the A bands {dtype}")
     if x.dim() != 2:
         raise ValueError(f"{name} must be 2-D (bands, n), got "
                          f"{tuple(x.shape)}")
@@ -259,10 +271,12 @@ def _check_bands(x, name, device=None):
 
 def dia_multiply(a_bands, b_bands, *, offs_a, offs_b, dc_list, n_out,
                  mode="dense", values_only=False, tables=None):
-    """(c_bands, c_counts | None), both (len(dc_list), n_out) float32.
+    """(c_bands, c_counts | None), both (len(dc_list), n_out); c_bands in
+    the bands' dtype, c_counts float32.
 
-    a_bands (len(offs_a), n_i) and b_bands (len(offs_b), n_k) float32,
-    row-aligned band stacks; offs_a / offs_b ascending offset tuples;
+    a_bands (len(offs_a), n_i) and b_bands (len(offs_b), n_k), both float32
+    or both float64 (the float64 entries), row-aligned band stacks;
+    offs_a / offs_b ascending offset tuples;
     dc_list the plan's C offsets (``ops.dia._plan_maps``); n_out <= n_i.
     mode='dense' requires ``dense_qualifies``.  ``tables`` are the device
     tables of ``dia_tables`` for these offsets and this mode: CUDA bands
@@ -270,7 +284,7 @@ def dia_multiply(a_bands, b_bands, *, offs_a, offs_b, dc_list, n_out,
     """
     offs_a, offs_b, dc_list = tuple(offs_a), tuple(offs_b), tuple(dc_list)
     _check_bands(a_bands, "a_bands")
-    _check_bands(b_bands, "b_bands", a_bands.device)
+    _check_bands(b_bands, "b_bands", a_bands.device, a_bands.dtype)
     if a_bands.shape[0] != len(offs_a) or b_bands.shape[0] != len(offs_b):
         raise ValueError(
             f"band stacks {tuple(a_bands.shape)}, {tuple(b_bands.shape)} do "
@@ -296,21 +310,28 @@ def dia_multiply(a_bands, b_bands, *, offs_a, offs_b, dc_list, n_out,
     if tables is None:
         raise ValueError("CUDA bands need the offset tables of dia_tables()")
     dev = a_bands.device
-    c = torch.empty((dcn, n_out), dtype=torch.float32, device=dev)
-    cnt = None if values_only else torch.empty_like(c)
+    wide = a_bands.dtype == torch.float64
+    c = torch.empty((dcn, n_out), dtype=a_bands.dtype, device=dev)
+    cnt = None if values_only else torch.empty(
+        (dcn, n_out), dtype=torch.float32, device=dev)
     if c.numel() == 0:                  # nothing to launch, nothing counted
         return c, cnt
     shape = dense_launch(offs_a, len(offs_b), dcn) \
-        if mode == "dense" else None
+        if mode == "dense" and not wide else None
     for t in tables:
         if t.device != dev or t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError("tables must be contiguous int32 tensors on "
                              "the bands' device")
     lib = _library()
     cnt_ptr = None if cnt is None else cnt.data_ptr()
+    entry = f"dia_multiply_{mode}" + ("_f64" if wide else "")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        if mode == "dense":
+        if wide:
+            err = _launch_f64(lib, mode, a_bands, b_bands, tables, c,
+                              cnt_ptr, offs_a, offs_b, dcn, n_i, n_k, n_out,
+                              stream)
+        elif mode == "dense":
             (offs_dev,) = tables
             if offs_dev.numel() != len(offs_a):
                 raise ValueError("tables do not match offs_a")
@@ -334,7 +355,26 @@ def dia_multiply(a_bands, b_bands, *, offs_a, offs_b, dc_list, n_out,
                 int(shape["stage_a"]), int(shape["stage_tables"]),
                 shape["smem_bytes"], stream)
     if err != 0:
-        raise RuntimeError(f"dia_multiply_{mode}: CUDA launch failed with "
-                           f"error {err}")
-    LAUNCHES[f"dia_multiply_{mode}"] += 1
+        raise RuntimeError(f"{entry}: CUDA launch failed with error {err}")
+    LAUNCHES[entry] += 1
     return c, cnt
+
+
+def _launch_f64(lib, mode, a_bands, b_bands, tables, c, cnt_ptr, offs_a,
+                offs_b, dcn, n_i, n_k, n_out, stream):
+    """Launch the float64 entry of ``mode``; returns its cudaError_t."""
+    if mode == "dense":
+        (offs_dev,) = tables
+        if offs_dev.numel() != len(offs_a):
+            raise ValueError("tables do not match offs_a")
+        return lib.dia_multiply_dense_f64(
+            a_bands.data_ptr(), b_bands.data_ptr(), offs_dev.data_ptr(),
+            c.data_ptr(), cnt_ptr, len(offs_a), len(offs_b), dcn, n_i, n_k,
+            n_out, stream)
+    row_ptr, trip = tables
+    if row_ptr.numel() != dcn + 1 or \
+            trip.numel() != 3 * len(offs_a) * len(offs_b):
+        raise ValueError("tables do not match the offset sets")
+    return lib.dia_multiply_pairs_f64(
+        a_bands.data_ptr(), b_bands.data_ptr(), row_ptr.data_ptr(),
+        trip.data_ptr(), c.data_ptr(), cnt_ptr, dcn, n_i, n_k, n_out, stream)

@@ -1,8 +1,9 @@
 """Steady-state plans: the multiply with its structure already planned.
 
-Ported: the binned element engine's adapter, the DIA branch (a DIA plan is
-already fixed-step, ops/dia.DiaPlan) and the two plans of the Macro128
-engine.
+Ported: the binned element engine's adapter (one CUDA graph a multiply on
+the GPU), the merge element engine's plan (``ElementPlan``, the f64 parity
+mode's), the DIA branch (a DIA plan is already fixed-step, ops/dia.DiaPlan)
+and the two plans of the Macro128 engine.
 """
 
 from __future__ import annotations
@@ -22,10 +23,24 @@ class BinnedElementPlan:
     binning derives every bucket from the true chunk counts, so `overflow`
     is constantly False; a sparsity change requires re-planning, which the
     harness does per matrix.
+
+    On the GPU the multiply is ONE CUDA graph, the counterpart of the JAX
+    package's ``_binned_multiply_fused`` (one jitted program a multiply):
+    the first ``run`` multiplies eagerly once (that builds the kernel
+    libraries and warms the allocator), then captures one multiply; every
+    later ``run`` is one replay.  The graph reads the plan's arrays where
+    they lie, so values changed in place are seen by the next replay, and
+    it writes its outputs into the same memory every time: a replay
+    overwrites the stream (and c_nnz) of the replay before.  CPU plans run
+    eagerly.
     """
 
     plan: object            # ops.binned.BinnedPlan
     vmem_sort: bool = False  # kernel sort+dedup for sort-path buckets
+    # the captured graph, its static BinnedStream and overflow flag, and the
+    # kernel launches of one multiply (counted while capturing)
+    _graph: dict = dataclasses.field(default_factory=dict, compare=False,
+                                     repr=False)
 
     def grown(self):
         return self
@@ -33,14 +48,95 @@ class BinnedElementPlan:
     def fence(self, out):
         return out[0]                         # c_nnz depends on every stream
 
+    @property
+    def stream(self):
+        """The static BinnedStream the replays write (None before the
+        first GPU run)."""
+        return self._graph.get("stream")
+
+    @property
+    def launches(self):
+        """Kernel launches of one multiply, by entry, recorded at capture
+        (a replay does not pass through the wrappers' counters)."""
+        return dict(self._graph.get("launches", {}))
+
+    def capture(self):
+        """Multiply eagerly once, with any host synchronisation an error
+        (it would break the capture), then capture one multiply."""
+        from pem_spgemm_tpu_torch.ops import segment_sort as ss
+        from pem_spgemm_tpu_torch.ops.binned import binned_multiply
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with torch.cuda.stream(side):
+                binned_multiply(self.plan, vmem_sort=self.vmem_sort)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        torch.cuda.current_stream().wait_stream(side)
+        before = dict(ss.LAUNCHES)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            stream = binned_multiply(self.plan, vmem_sort=self.vmem_sort)
+            overflow = torch.zeros((), dtype=torch.bool,
+                                   device=stream.c_nnz.device)
+        self._graph.update(
+            graph=graph, stream=stream, overflow=overflow,
+            launches={k: v - before[k] for k, v in ss.LAUNCHES.items()})
+
     def run(self, a, b):
         """Dispatch the planned multiply; returns (c_nnz_device, overflow).
         The c_nnz scalar depends on every stream, so syncing it fences the
         whole multiply."""
-        from pem_spgemm_tpu_torch.ops.binned import binned_multiply
-        stream = binned_multiply(self.plan, vmem_sort=self.vmem_sort)
-        return stream.c_nnz, torch.zeros((), dtype=torch.bool,
-                                         device=stream.c_nnz.device)
+        if not self.plan.table.is_cuda:
+            from pem_spgemm_tpu_torch.ops.binned import binned_multiply
+            stream = binned_multiply(self.plan, vmem_sort=self.vmem_sort)
+            return stream.c_nnz, torch.zeros((), dtype=torch.bool)
+        if not self._graph:
+            self.capture()
+        self._graph["graph"].replay()
+        return self._graph["stream"].c_nnz, self._graph["overflow"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ElementPlan:
+    """Static capacities for the merge element engine's fixed step
+    (ops/element.py)."""
+
+    p_cap: int
+    c_cap: int
+    fill_rounds: object = None
+    merge_rounds: object = None
+    sum_rounds: object = None
+    wide: bool = False      # >4-byte dtype: the gather-based wide step
+
+    def grown(self):
+        """Next-size plan after an overflow trip (double every capacity)."""
+        return dataclasses.replace(self, p_cap=self.p_cap * 2,
+                                   c_cap=self.c_cap * 2)
+
+    def fence(self, out):
+        return out[2]                         # vals
+
+    def run(self, a, b):
+        """C stream form (rows, cols, vals, first, c_nnz, overflow), with
+        no device-to-host copy.  The wide step keeps the values' dtype end
+        to end: the float32 merge pipeline moves value bits as float32 and
+        would downcast."""
+        from pem_spgemm_tpu_torch.ops.element import (element_fixed,
+                                                      element_fixed_wide)
+        b_rowptr, _b_rows, b_cols, b_vals = b.element_csr()
+        a_rows, a_cols = a.element_coords()
+        if self.wide:
+            return element_fixed_wide(
+                a_rows, a_cols, a.vals, b_rowptr, b_cols, b_vals,
+                p_cap=self.p_cap, c_cap=self.c_cap)
+        return element_fixed(a_rows, a_cols, a.vals, b_rowptr, b_cols,
+                             b_vals, p_cap=self.p_cap, c_cap=self.c_cap,
+                             fill_rounds=self.fill_rounds,
+                             merge_rounds=self.merge_rounds,
+                             sum_rounds=self.sum_rounds)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -170,6 +266,20 @@ def make_plan(result, config, a, b):
         return BinnedElementPlan(
             plan=build_plan_device(a, b),
             vmem_sort=config.element_vmem_sort and a.vals.is_cuda)
+    if result.engine == "element":
+        # the merge engine: capacities from the interactive run, scan
+        # depths bounded on the host
+        import numpy as np
+        from pem_spgemm_tpu_torch.config import round_up_pow2
+        from pem_spgemm_tpu_torch.ops.element import scan_round_bounds
+        b_rowptr = b.element_csr()[0].cpu().numpy()
+        a_rows, a_cols = (x.cpu().numpy() for x in a.element_coords())
+        fr, mr, sr = scan_round_bounds(a_rows, a_cols, np.diff(b_rowptr))
+        return ElementPlan(
+            p_cap=gran(result.n_pairs, config.numeric_chunk),
+            c_cap=round_up_pow2(max(1, result.c_nnz)),
+            fill_rounds=fr, merge_rounds=mr, sum_rounds=sr,
+            wide=config.dtype.itemsize > 4)
     if result.engine == "macro":
         # the class kernels serve float32 tiles on the GPU; CPU operands (and
         # structure that neither planner covers) take the generic pair

@@ -1,7 +1,7 @@
 """Macro128 accumulation kernels: wrappers of csrc/macro_accumulate.cu.
 
 Counterpart of the JAX package's ops/pallas_macro2.py and of the kernel
-half of its ops/pallas_stencil.py.  Three entries, one CUDA source (built
+half of its ops/pallas_stencil.py.  Four entries, one CUDA source (built
 with nvcc at first use and bound with ctypes by ops/_build.py):
 
   accumulate_macro_pairs   a pair stream sorted by C tile:
@@ -14,17 +14,22 @@ with nvcc at first use and bound with ctypes by ops/_build.py):
                            tile pair counts ragged or uniform;
   class_call               the same for uniform pair counts only (the
                            reference's single-buffered class kernel, which
-                           has no caller in either package).
+                           has no caller in either package);
+  accumulate_macro_pairs   for float64 tiles (the f64 parity mode) the pair
+  (float64)                stream's float64 entry: one block a C tile, FP64
+                           FMA over k-slabs staged in shared memory, the
+                           same contract and flags.
 
-All three compute their 128x128x128 products on the tensor cores (wgmma on
-tf32 operands with a 3xTF32 split, which keeps float32 accuracy; a slab
-holding an Inf, a NaN or a value of 2^63 or more runs in FP32 FMA, so
-non-finite operands give IEEE results) and form the structural pattern of the same products as uint8
-flags from the raw values (see ops/macro.py).  Every C tile is written once
-by the block that owns it: the class entries launch one block a tile, the
-pair-stream entry one persistent block an SM (``persistent_grid``), each
-taking tiles in stream order from a counter the wrapper zeroes and running
-them as one stream of stages.
+The three float32 entries compute their 128x128x128 products on the
+tensor cores (wgmma on tf32 operands with a 3xTF32 split, which keeps
+float32 accuracy; a slab holding an Inf, a NaN or a value of 2^63 or more
+runs in FP32 FMA, so non-finite operands give IEEE results), and every
+entry forms the structural pattern of the same products as uint8 flags from
+the raw values (see ops/macro.py).  Every C tile is written once by the
+block that owns it: the class entries and the float64 entry launch one
+block a tile, the float32 pair-stream entry one persistent block an SM
+(``persistent_grid``), each taking tiles in stream order from a counter the
+wrapper zeroes and running them as one stream of stages.
 
 Dispatch is by the tensors' device and nothing else: CUDA tensors launch
 the kernel (or raise, if the build or the launch fails); CPU tensors take
@@ -48,7 +53,7 @@ SOURCE = _build.cuda_source("macro_accumulate")
 
 # kernel launches per entry (plain-version calls are not counted)
 LAUNCHES = {"macro_accumulate_pairs": 0, "macro_class_ragged": 0,
-            "macro_class_uniform": 0}
+            "macro_class_uniform": 0, "macro_accumulate_pairs_f64": 0}
 
 
 def reset_launch_counts() -> None:
@@ -64,8 +69,10 @@ def _declare(lib) -> None:
                                            ll, vp, vp, vp]
     lib.macro_class_uniform_f32.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci,
                                             ll, vp, vp, vp]
+    lib.macro_accumulate_pairs_f64.argtypes = [vp, vp, vp, vp, vp, vp, vp,
+                                               ci, vp]
     for fn in (lib.macro_accumulate_pairs_f32, lib.macro_class_ragged_f32,
-               lib.macro_class_uniform_f32):
+               lib.macro_class_uniform_f32, lib.macro_accumulate_pairs_f64):
         fn.restype = ci
 
 
@@ -97,12 +104,16 @@ def _check_i32(x, name, device, numel=None):
         raise ValueError(f"{name} has {x.numel()} entries, expected {numel}")
 
 
-def _require_f32_on_gpu(*tensors):
+def _require_on_gpu(tensors, dtypes):
+    """CUDA tiles must have one dtype of ``dtypes`` (the kernels' entries)
+    and lie 16-byte aligned."""
     for x in tensors:
-        if x.is_cuda and x.dtype != torch.float32:
+        if x.is_cuda and (x.dtype not in dtypes
+                          or x.dtype != tensors[0].dtype):
             raise NotImplementedError(
-                f"the Macro128 kernels are float32; {x.dtype} tiles on the "
-                "GPU belong to the f64 parity mode (ROADMAP slice 5)")
+                f"{x.dtype} tiles on the GPU: this kernel entry takes "
+                f"{' or '.join(str(d) for d in dtypes)} tiles, all of one "
+                "dtype")
         if x.is_cuda and x.data_ptr() % 16:
             raise ValueError("tile tables must be 16-byte aligned")
 
@@ -130,7 +141,7 @@ def persistent_grid(device) -> int:
 
 
 def accumulate_macro_pairs(a_dense, b_dense, a_idx, b_idx, seg, c_cap: int,
-                           *, chunk: int = 256, acc_dtype=torch.float32):
+                           *, chunk: int = 256, acc_dtype=None):
     """(c_dense (c_cap,128,128), c_flags (c_cap,128,128) uint8) of a pair
     stream sorted by C tile.
 
@@ -138,7 +149,10 @@ def accumulate_macro_pairs(a_dense, b_dense, a_idx, b_idx, seg, c_cap: int,
     (p_cap,) i32, seg ascending, padding pairs carry seg = INT32_MAX (they
     are skipped, never used as an index).  Tiles without pairs, among them
     every tile from the stream's tile count up to c_cap, are zero.  ``chunk``
-    and ``acc_dtype`` are read by the plain version only (CPU tensors).
+    and ``acc_dtype`` (None: the tiles' dtype) are read by the plain version
+    only (CPU tensors).
+    CUDA tiles of float32 launch the float32 entry, of float64 the float64
+    entry (c_dense then float64); any other dtype raises.
     """
     _check_tiles(a_dense, "a_dense")
     _check_tiles(b_dense, "b_dense", a_dense.device)
@@ -148,17 +162,28 @@ def accumulate_macro_pairs(a_dense, b_dense, a_idx, b_idx, seg, c_cap: int,
         _check_i32(x, name, dev, p_cap)
     if c_cap < 0:
         raise ValueError(f"c_cap={c_cap}")
-    _require_f32_on_gpu(a_dense, b_dense)
+    _require_on_gpu((a_dense, b_dense), (torch.float32, torch.float64))
     if not a_dense.is_cuda:
         return accumulate_macro(a_dense, b_dense, a_idx, b_idx, seg, c_cap,
-                                chunk, acc_dtype)
-    c_num = torch.empty((c_cap, TILE, TILE), dtype=torch.float32, device=dev)
+                                chunk, acc_dtype or a_dense.dtype)
+    wide = a_dense.dtype == torch.float64
+    c_num = torch.empty((c_cap, TILE, TILE), dtype=a_dense.dtype, device=dev)
     c_flag = torch.empty((c_cap, TILE, TILE), dtype=torch.uint8, device=dev)
     if c_cap == 0:                      # nothing to launch, nothing counted
         return c_num, c_flag
     seg_ptr = segment_offsets(seg, c_cap)
-    next_tile = torch.zeros(1, dtype=torch.int32, device=dev)
     lib = _library()
+    if wide:
+        with torch.cuda.device(dev):
+            _raise_on(lib.macro_accumulate_pairs_f64(
+                a_dense.data_ptr(), b_dense.data_ptr(), a_idx.data_ptr(),
+                b_idx.data_ptr(), seg_ptr.data_ptr(), c_num.data_ptr(),
+                c_flag.data_ptr(), c_cap,
+                torch.cuda.current_stream().cuda_stream),
+                "macro_accumulate_pairs_f64")
+        LAUNCHES["macro_accumulate_pairs_f64"] += 1
+        return c_num, c_flag
+    next_tile = torch.zeros(1, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         _raise_on(lib.macro_accumulate_pairs_f32(
             a_dense.data_ptr(), b_dense.data_ptr(), a_idx.data_ptr(),
@@ -197,7 +222,7 @@ def _check_class(c_num, c_pat, a_dense, b_dense, ab_bases, t, p, ar, br,
     if base < 0 or base + n_steps * t > c_num.shape[0]:
         raise ValueError(f"rows [{base}, {base + n_steps * t}) exceed the "
                          f"slab's {c_num.shape[0]}")
-    _require_f32_on_gpu(a_dense, b_dense)
+    _require_on_gpu((a_dense, b_dense), (torch.float32,))
     return dev, n_p
 
 

@@ -7,10 +7,11 @@ ctypes by ops/_build.py):
   segment_sort_dedup(cols, vals, rounds=, presorted_w=) -> (keys, vals, first)
       per row: keys ascending (SENTINEL padding last), each duplicate
       group's total at its first slot, first-flags;
-  segment_dedup(keys, vals, abits=None) -> (vals, first, count)
+  segment_dedup(keys, vals, abits=None, count=None) -> (vals, first, count)
       the same group reduction over rows that are already sorted, plus the
-      count of first-flags; with ``abits`` the value is formed on the fly
-      as the product of two float32 bit patterns.
+      count of first-flags (added into ``count`` where the caller passes
+      one); with ``abits`` the value is formed on the fly as the product of
+      two float32 bit patterns.
 
 Values at slots that are not a group's first are unspecified, in the
 kernel and in the plain versions alike.
@@ -118,12 +119,15 @@ def segment_sort_dedup_plain(cols, vals, *, rounds=0, presorted_w=0):
     return keys, totals, first
 
 
-def segment_dedup_plain(keys, vals, abits=None):
+def segment_dedup_plain(keys, vals, abits=None, count=None):
     """Plain version of segment_dedup."""
     if abits is not None:
         vals = vals.view(torch.float32) * abits.view(torch.float32)
     first, totals = _group_totals(keys, vals)
-    return totals, first, first.sum(dtype=torch.int32)
+    n = first.sum(dtype=torch.int32)
+    if count is None:
+        return totals, first, n
+    return totals, first, count.add_(n)
 
 
 # --------------------------------------------------------------------------
@@ -170,12 +174,15 @@ def segment_sort_dedup(cols, vals, *, rounds, presorted_w=0):
     return keys, out, first
 
 
-def segment_dedup(keys, vals, abits=None):
+def segment_dedup(keys, vals, abits=None, count=None):
     """(vals, first, count) over rows whose keys are already sorted.
 
     keys (R, L) int32; vals (R, L) float32, or with ``abits`` two (R, L)
     int32 arrays of float32 bit patterns whose product is the value.
     count is a 0-d int32 tensor (the number of first-flags).  Any width.
+    With ``count`` given (a 0-d int32 tensor on the keys' device) the
+    number of first-flags is added into it and it is the count returned:
+    one accumulator serves every call of a multiply.
     """
     _check(keys, "keys", torch.int32)
     if abits is None:
@@ -183,12 +190,18 @@ def segment_dedup(keys, vals, abits=None):
     else:
         _check(vals, "vals", torch.int32, keys.device, keys.shape)
         _check(abits, "abits", torch.int32, keys.device, keys.shape)
+    if count is not None and (
+            not isinstance(count, torch.Tensor) or count.dtype != torch.int32
+            or count.dim() != 0 or count.device != keys.device):
+        raise ValueError("count must be a 0-d int32 tensor on the keys' "
+                         "device")
     if not keys.is_cuda:
-        return segment_dedup_plain(keys, vals, abits)
+        return segment_dedup_plain(keys, vals, abits, count)
     r, l = keys.shape
     out = torch.empty(keys.shape, dtype=torch.float32, device=keys.device)
     first = torch.empty(keys.shape, dtype=torch.bool, device=keys.device)
-    count = torch.zeros((), dtype=torch.int32, device=keys.device)
+    if count is None:
+        count = torch.zeros((), dtype=torch.int32, device=keys.device)
     if keys.numel() == 0:               # nothing to launch, nothing counted
         return out, first, count
     lib = _library()

@@ -1,9 +1,10 @@
 """The SpGEMM orchestrator: structural dispatch + the timed phases.
 
 Phase naming follows the reference for benchmark parity (step1 / step2 /
-step3).  The binned element engine, the DIA engine and the Macro128 engine
-are ported; the Tile16 engines raise NotImplementedError naming the ROADMAP
-slice that brings them.
+step3).  The element engines (binned for float32, the merge engine for
+``element_impl="merge"`` and every other dtype), the DIA engine and the
+Macro128 engine are ported; the Tile16 engines raise NotImplementedError
+naming the ROADMAP slice that brings them.
 """
 
 from __future__ import annotations
@@ -29,26 +30,28 @@ _NOT_PORTED = {
 def not_ported(engine: str) -> NotImplementedError:
     why = _NOT_PORTED.get(engine, "unknown engine")
     return NotImplementedError(
-        f"engine {engine!r} is not ported yet ({why}); the binned element "
-        "engine, the DIA engine and the Macro128 engine run in this package "
-        "so far")
+        f"engine {engine!r} is not ported yet ({why}); the element engines, "
+        "the DIA engine and the Macro128 engine run in this package so far")
 
 
 @dataclasses.dataclass
 class SpGEMMResult:
-    """C = A@B.  The element engine fills the stream form (or direct COO
-    coordinates for the empty product); the DIA engine the band form; the
-    Macro128 engine the dense-tile form."""
+    """C = A@B.  The binned element engine fills the bucketed stream form,
+    the merge engine the flagged stream (``first`` set) or, for wide
+    dtypes and the empty product, direct COO coordinates; the DIA engine
+    the band form; the Macro128 engine the dense-tile form."""
 
     vals: torch.Tensor      # (cap,) value dtype
     shape: tuple
     c_nnz: int              # true C nnz (structural, exact)
     n_pairs: int            # intermediate products
     engine: str
-    # direct COO form, (row, col)-sorted (the empty product)
+    # direct COO / stream form (the merge engine, the empty product),
+    # (row, col)-sorted; with ``first`` set the arrays are the flagged group
+    # stream and to_coo compacts them
     rows: Optional[torch.Tensor] = None
     cols: Optional[torch.Tensor] = None
-    first: Optional[torch.Tensor] = None
+    first: Optional[torch.Tensor] = None     # (cap,) i32 group-start flags
     # bucketed stream form (ops/binned.BinnedStream): padded per-C-row
     # segments with group totals at first-flagged slots
     binned: Optional[object] = None
@@ -81,17 +84,22 @@ class SpGEMMResult:
                 self.c_nnz)
             return COOMatrix(rows, cols, vals, self.shape)
         n = self.c_nnz
-        return COOMatrix(self.rows.cpu().numpy()[:n],
-                         self.cols.cpu().numpy()[:n],
-                         self.vals.cpu().numpy()[:n], self.shape)
+        rows, cols, vals = self.rows, self.cols, self.vals
+        if self.first is not None:
+            from pem_spgemm_tpu_torch.ops.element import compact_stream
+            rows, cols, vals = compact_stream(rows, cols, vals, self.first)
+        return COOMatrix(rows[:n].cpu().numpy(), cols[:n].cpu().numpy(),
+                         vals[:n].cpu().numpy(), self.shape)
 
 
-def _empty_result(shape, engine: str, device) -> "SpGEMMResult":
+def _empty_result(shape, engine: str, device,
+                  dtype=torch.float32) -> "SpGEMMResult":
     """A structurally empty C: an empty product is a result, not an
-    error (the reference still reports and benchmarks it)."""
+    error (the reference still reports and benchmarks it).  Its values
+    have the configured dtype."""
     z32 = torch.zeros(0, dtype=torch.int32, device=device)
     return SpGEMMResult(
-        vals=torch.zeros(0, dtype=torch.float32, device=device),
+        vals=torch.zeros(0, dtype=dtype, device=device),
         shape=shape, c_nnz=0, n_pairs=0, engine=engine, rows=z32, cols=z32)
 
 
@@ -131,13 +139,7 @@ class SpGEMM:
             return self._macro(a, b, timers)
         if engine != "element":
             raise not_ported(engine)
-        cfg = self.config
-        if cfg.element_impl != "binned" or cfg.dtype != torch.float32:
-            raise NotImplementedError(
-                f"element_impl={cfg.element_impl!r} with dtype={cfg.dtype} "
-                "needs the merge-sort element engine (f64 parity, ROADMAP "
-                "slice 5), which is not ported yet")
-        return self._element_binned(a, b, timers)
+        return self._element(a, b, timers)
 
     def _macro(self, a, b, timers: PhaseTimers) -> SpGEMMResult:
         """Macro128 engine (ops/macro.py): dense 128x128 tile products.
@@ -164,7 +166,8 @@ class SpGEMM:
                                            am.ntiles)
             n_pairs = int(offsets[-1])        # size feedback #1
             if n_pairs == 0:
-                return _empty_result(shape, "macro", am.device)
+                return _empty_result(shape, "macro", am.device,
+                                     cfg.dtype)
             chunk = cfg.macro_chunk
             p_cap = max(chunk, -(-n_pairs // chunk) * chunk)
             assert can_pack(am.n_macro_rows, bm.n_macro_cols)
@@ -206,7 +209,7 @@ class SpGEMM:
             plan = D.make_dia_plan(a, b)
             if not plan.dc_list:
                 return _empty_result((a.shape[0], b.shape[1]), "dia",
-                                     a.device)
+                                     a.device, self.config.dtype)
 
         with timers.phase("step3") as box:
             out = plan.run(a, b)
@@ -220,6 +223,71 @@ class SpGEMM:
             n_pairs=len(plan.offs_a) * len(plan.offs_b), engine="dia",
             c_counts=out[1], dia_dc=plan.dc_list)
 
+    def _element(self, a: TiledMatrix, b: TiledMatrix,
+                 timers: PhaseTimers) -> SpGEMMResult:
+        """Element-level engine: flop-proportional.
+
+        The float32 production path is the binned engine
+        (``_element_binned``).  ``element_impl="merge"`` and every other
+        dtype (the f64 parity mode) take the merge engine
+        (ops/element.py): float32 through the gather-free merge pipeline,
+        wider dtypes through the gather-based expansion, which keeps the
+        native dtype end to end (double accumulation, as the reference's
+        ValueType=double).  step1 = product offsets and the count's
+        device-to-host copy; step3 = expansion, sort and (float32)
+        reduction; step2 = the distinct count's copy and (wide) the
+        reduction."""
+        from pem_spgemm_tpu_torch.config import round_up_bucket
+        from pem_spgemm_tpu_torch.ops import element
+        cfg = self.config
+        if cfg.element_impl == "binned" and cfg.dtype == torch.float32:
+            return self._element_binned(a, b, timers)
+        if cfg.element_impl not in ("binned", "merge"):
+            raise ValueError(f"unknown element_impl {cfg.element_impl!r}")
+        shape = (a.shape[0], b.shape[1])
+
+        with timers.phase("step1") as box:
+            b_rowptr, _b_rows, b_cols, b_vals = b.element_csr()
+            a_rows, a_cols = a.element_coords()
+            offsets = element.product_offsets(a_cols,
+                                              b_rowptr[1:] - b_rowptr[:-1])
+            n_products = int(offsets[-1])         # size feedback #1
+            if n_products == 0:
+                return _empty_result(shape, "element", a.device, cfg.dtype)
+            box["sync"] = offsets
+
+        wide = cfg.dtype.itemsize > 4
+        with timers.phase("step3") as box:
+            # chunk-granular capacity: a pow2 bucket would pad every
+            # stream pass by up to 2x
+            chunk = cfg.numeric_chunk
+            p_cap = max(chunk, -(-n_products // chunk) * chunk)
+            if wide:
+                ci, cj, cv, out_id, c_nnz_dev = \
+                    element.expand_sorted_products(
+                        offsets, a_rows, a_cols, a.vals, b_rowptr, b_cols,
+                        b_vals, n_products, p_cap)
+                box["sync"] = cv
+            else:
+                rows, cols, vals, first, c_nnz_dev = \
+                    element.expand_reduce_products(
+                        offsets, a_rows, a_cols, a.vals, b_rowptr, b_cols,
+                        b_vals, n_products, p_cap)
+                box["sync"] = vals
+
+        with timers.phase("step2") as box:
+            c_nnz = int(c_nnz_dev)                # size feedback #2
+            if wide:
+                rows, cols, vals = element.reduce_products(
+                    ci, cj, cv, out_id, round_up_bucket(max(1, c_nnz)))
+                first = None
+                box["sync"] = vals
+
+        return SpGEMMResult(
+            vals=vals.to(cfg.dtype), shape=shape, c_nnz=c_nnz,
+            n_pairs=n_products, engine="element", rows=rows, cols=cols,
+            first=first)
+
     def _element_binned(self, a: TiledMatrix, b: TiledMatrix,
                         timers: PhaseTimers) -> SpGEMMResult:
         """Binned element engine (ops/binned.py).  Phase mapping:
@@ -232,7 +300,7 @@ class SpGEMM:
             plan = binned.build_plan_device(a, b)
             if plan.n_products == 0:
                 return _empty_result((a.shape[0], b.shape[1]), "element",
-                                     a.device)
+                                     a.device, self.config.dtype)
             box["sync"] = plan.res_src
 
         with timers.phase("step3") as box:

@@ -444,7 +444,9 @@ def test_wrapper_on_cpu_takes_the_plain_version_and_counts_nothing():
                                      values_only=values_only)
             np.testing.assert_array_equal(gc.numpy(), c.numpy())
             assert (gn is None) if values_only else torch.equal(gn, cnt)
-    assert dk.LAUNCHES == {"dia_multiply_dense": 0, "dia_multiply_pairs": 0}
+    assert dk.LAUNCHES == {"dia_multiply_dense": 0, "dia_multiply_pairs": 0,
+                           "dia_multiply_dense_f64": 0,
+                           "dia_multiply_pairs_f64": 0}
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
@@ -474,12 +476,13 @@ def test_non_f32_bands_take_the_torch_path():
     np.testing.assert_allclose(res.to_coo().vals, want.data[order],
                                rtol=1e-12, atol=1e-12)
     # only because the bands lie on the CPU: the device alone picks the
-    # path, and on the GPU the kernels take float32 or raise (a stand-in
-    # operand, since there is no card here)
-    gpu64 = types.SimpleNamespace(bands=types.SimpleNamespace(
-        is_cuda=True, dtype=torch.float64))
-    with pytest.raises(NotImplementedError, match="ROADMAP slice 5"):
-        make_dia_plan(a64, a64)._multiply(gpu64, gpu64, False)
+    # path, and on the GPU the kernels take float32 or float64 (their
+    # float64 entries) and raise on any other dtype (a stand-in operand,
+    # since there is no card here)
+    gpu16 = types.SimpleNamespace(bands=types.SimpleNamespace(
+        is_cuda=True, dtype=torch.float16))
+    with pytest.raises(NotImplementedError, match="float32 or float64"):
+        make_dia_plan(a64, a64)._multiply(gpu16, gpu16, False)
 
 
 def test_empty_offsets_give_an_empty_result():

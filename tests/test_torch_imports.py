@@ -47,6 +47,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "pem_spgemm_tpu_torch.ops.fixed",
             "pem_spgemm_tpu_torch.ops.dia",
             "pem_spgemm_tpu_torch.ops.segment_sort",
+            "pem_spgemm_tpu_torch.ops.element",
+            "pem_spgemm_tpu_torch.ops.csr",
+            "pem_spgemm_tpu_torch.ops.scanops",
             "pem_spgemm_tpu_torch.models.synthetic",
             "pem_spgemm_tpu_torch.utils.csv_report"]
     p = _run("import sys; import " + ", ".join(mods) + "; " + _FORBIDDEN)
@@ -145,7 +148,8 @@ def test_dia_kernel_source_and_loader_agree():
     from pem_spgemm_tpu_torch.ops import dia_kernels as dk
     assert os.path.isfile(dk.SOURCE)
     src = open(dk.SOURCE).read()
-    for symbol in ("dia_multiply_dense_f32", "dia_multiply_pairs_f32"):
+    for symbol in ("dia_multiply_dense_f32", "dia_multiply_pairs_f32",
+                   "dia_multiply_dense_f64", "dia_multiply_pairs_f64"):
         assert f"int {symbol}(" in src
     assert "torch/extension.h" not in src
     # the wrapper sizes the dense entry's grid with the source's constant
@@ -166,7 +170,7 @@ def test_macro_kernel_source_and_loader_agree():
     assert os.path.isfile(mk.SOURCE)
     src = open(mk.SOURCE).read()
     entries = ("macro_accumulate_pairs_f32", "macro_class_ragged_f32",
-               "macro_class_uniform_f32")
+               "macro_class_uniform_f32", "macro_accumulate_pairs_f64")
     for symbol in entries:
         assert f'extern "C" int {symbol}(' in src
     # hand-written products: no library GEMM, no PyTorch headers
@@ -176,7 +180,8 @@ def test_macro_kernel_source_and_loader_agree():
     # the class entries multiply on the tensor cores with the 3xTF32 split
     assert "wgmma.mma_async" in src and ".tf32.tf32" in src
     assert "cvt.rna.tf32.f32" in src
-    assert set(mk.LAUNCHES) == {e[:-4] for e in entries}
+    assert set(mk.LAUNCHES) == {e[:-4] for e in entries[:3]} | {
+        "macro_accumulate_pairs_f64"}
 
     # the ctypes declarations match the number of C parameters
     class Lib:

@@ -16,6 +16,7 @@ from pem_spgemm_tpu.utils.csv_report import CSV_HEADER as J_CSV_HEADER
 from pem_spgemm_tpu_torch import SpGEMM, SpGEMMConfig, SpGEMMResult
 from pem_spgemm_tpu_torch.bench.harness import run_benchmark
 from pem_spgemm_tpu_torch.formats.coo import COOMatrix as TCOO
+from pem_spgemm_tpu_torch.ops.convert import coo_to_tiled
 from pem_spgemm_tpu_torch.ops import segment_sort as ss
 from pem_spgemm_tpu_torch.ops.fixed import (BinnedElementPlan, MacroPlan,
                                             make_plan)
@@ -148,9 +149,24 @@ def test_engines_of_later_slices_raise(engine, slice_no):
     dict(engine="element", dtype=torch.float64),
     dict(engine="element", element_impl="merge")])
 def test_merge_engine_configurations_raise(cfg_kw):
-    _, ta = both_tiled(JCOO.from_scipy(random_sparse(64, 64, 0.1, seed=2)))
-    with pytest.raises(NotImplementedError, match="ROADMAP slice 5"):
-        SpGEMM(SpGEMMConfig(**cfg_kw))(ta, ta)
+    """The name dates from when the merge element engine was not ported and
+    these configurations raised; now they run it, as the JAX package does
+    (float64 keeps its dtype), and an unknown implementation raises."""
+    coo = JCOO.from_scipy(random_sparse(64, 64, 0.1, seed=2))
+    cfg = SpGEMMConfig(**cfg_kw)
+    ta = coo_to_tiled(TCOO(coo.rows, coo.cols, coo.vals, coo.shape),
+                      dtype=cfg.dtype, device="cpu")
+    res = SpGEMM(cfg)(ta, ta)
+    assert res.engine == "element" and res.binned is None
+    assert res.vals.dtype == cfg.dtype
+    wr, wc, wv, wnnz = scipy_product(coo, None)
+    got = res.to_coo()
+    assert res.c_nnz == wnnz
+    np.testing.assert_array_equal(got.rows, wr)
+    np.testing.assert_array_equal(got.cols, wc)
+    np.testing.assert_allclose(got.vals, wv, rtol=1e-5, atol=1e-6)
+    with pytest.raises(ValueError, match="element_impl"):
+        SpGEMM(cfg.with_(element_impl="sorted"))(ta, ta)
 
 
 def test_auto_dispatch_to_macro_raises_not_detours():
