@@ -99,8 +99,8 @@ SENT = ss.SENTINEL
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12          # H100 SXM data sheet, outside tensor cores
 TF32_OPS_PER_S = 495e12         # H100 SXM data sheet, tensor cores, dense
-FP64_OPS_PER_S = 34e12          # H100 SXM data sheet, FP64 outside the
-                                # tensor cores (the f64 entries' FMA)
+FP64_OPS_PER_S = 67e12          # H100 SXM data sheet, FP64 on the tensor
+                                # cores (DMMA): the card's peak for float64
 VAL_RTOL, VAL_ATOL = 1e-4, 1e-6     # kernel vs plain: summation order differs
 # C values vs scipy's float64 product: |got - want| <= COO_RTOL * S + COO_ATOL
 # with S the sum of |a*b| over the entry's products (the forward-error bound
@@ -1850,14 +1850,13 @@ def run_profile_graph(matrix, no_pack, n):
                          ("graph", replay), ("eager", eager)], n))
     for name, fn in (("eager", eager), ("graph", replay), ("graph", replay),
                      ("eager", eager)):
-        profile_device(f"{matrix} {name}", fn, n, required=name == "eager")
+        profile_device(f"{matrix} {name}", fn, n)
 
 
-def profile_device(matrix, multiply, n, required=True):
+def profile_device(matrix, multiply, n):
     """torch.profiler over n queued multiplies: device-busy time, the idle
     share of the wall time, device operations per multiply and the kernels
-    that take most device time.  ``required``: no device time recorded is
-    an error (else it is reported as not measured)."""
+    that take most device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1875,12 +1874,7 @@ def profile_device(matrix, multiply, n, required=True):
             and e.self_device_time_total > 0]
     busy_us = sum(t for _, _, t in rows)
     if busy_us <= 0:
-        if required:
-            raise AssertionError("torch.profiler recorded no device time")
-        emit("profile_device", matrix=matrix, wall_ms=wall * 1e3,
-             device_busy_ms="not measured: torch.profiler recorded no "
-                            "device time")
-        return
+        raise AssertionError("torch.profiler recorded no device time")
     rows.sort(key=lambda x: -x[2])
 
     def per_multiply(pattern):
@@ -2663,6 +2657,33 @@ def phase_f64_path(coo_pl, want_pl):
     return kept
 
 
+def f64_per_multiply(a, engine, entry):
+    """One interactive and one steady float64 multiply of ``a``·``a``, each
+    counted on its own: the launches of ``entry`` in each, which must be
+    the only kernel launched."""
+    cfg = SpGEMMConfig(dtype=torch.float64, engine=engine)
+    counted = []
+    reset_launch_counts()
+    res = SpGEMM(cfg)(a, a)
+    torch.cuda.synchronize()
+    counted.append({**path_launches(ss.LAUNCHES), **dict(dk.LAUNCHES),
+                    **dict(mk.LAUNCHES)})
+    plan = make_plan(res, cfg, a, a)
+    del res
+    reset_launch_counts()
+    out = plan.run(a, a)
+    torch.cuda.synchronize()
+    del out, plan
+    counted.append({**path_launches(ss.LAUNCHES), **dict(dk.LAUNCHES),
+                    **dict(mk.LAUNCHES)})
+    for what, got in zip(("interactive", "steady"), counted):
+        if got[entry] <= 0 or any(v for k, v in got.items() if k != entry):
+            raise AssertionError(f"{entry}: one {what} multiply launched "
+                                 f"{got}")
+    torch.cuda.empty_cache()
+    return counted[0][entry], counted[1][entry]
+
+
 def f64_dia_row(entry, info, check_err):
     """A float64 DIA entry at its f64 path matrix: kernel and plain version
     with counts and values-only, held against each other; the library call
@@ -2685,6 +2706,7 @@ def f64_dia_row(entry, info, check_err):
                    key=entry, label="float64")
     bit_equal = torch.equal(got[0], want[0])
     del got, want, mag
+    interactive, steady = f64_per_multiply(a, "dia", entry)
     ms, ms_vo, plain, plain_vo = dia_times(a.bands, offs, dc_list, idx_map,
                                            mode, n_plain=2)
     flop = DIA_RECORDED[name][1]
@@ -2718,11 +2740,14 @@ def f64_dia_row(entry, info, check_err):
                           f"{lib_name}: another format",
         "values_only_ms": ms_vo, "values_only_plain_ms": plain_vo,
         "values_only_bound_ms": bv_ms, "values_only_bound_by": bv_by,
-        "bound_rates": "FP64 34 TFLOP/s (FMA, no tensor cores), counts at "
-                       "FP32 67 TFLOP/s, HBM 3.35 TB/s",
+        "bound_rates": "FP64 67 TFLOP/s (the tensor cores' DMMA; the entry "
+                       "runs on FP64 FMA), counts at FP32 67 TFLOP/s, HBM "
+                       "3.35 TB/s",
         "bit_equal_to_plain": bit_equal,
         "matrix": name, "shape": [len(offs), a.n], "c_rows": len(dc_list),
         "products": flop, "dtype": "float64", "kernel_ms": ms,
+        "launches_per_multiply": steady,
+        "launches_interactive_multiply": interactive,
     }
     if lib_name != name:
         lib_a = D.coo_to_dia(lib_coo, dtype=torch.float64)
@@ -2750,6 +2775,7 @@ def f64_macro_row(info, check_err):
                              c_cap, 256, torch.float64)[0]
     err = macro_hold(got, want, mag, f"{entry} at wandering64-1M", key=entry)
     del got, want, mag
+    interactive, steady = f64_per_multiply(a, "macro", entry)
     ops = TILE_FLOP * n_pairs
     nbytes = a.dense.numel() * 8 + c_cap * 128 * 128 * 9
     b_o, b_b = ops / FP64_OPS_PER_S, nbytes / HBM_BYTES_PER_S
@@ -2767,12 +2793,13 @@ def f64_macro_row(info, check_err):
         "library_covers": "torch.bmm in float64 over the pre-gathered "
                           "(P, 128, 128) operands in chunks of 16,384 "
                           "pairs: the products only",
-        "bound_rates": "FP64 34 TFLOP/s (FMA, no tensor cores), HBM "
-                       "3.35 TB/s",
+        "bound_rates": "FP64 67 TFLOP/s (the tensor cores' DMMA; the entry "
+                       "runs on FP64 FMA), HBM 3.35 TB/s",
         "runs_on": "FP64 FMA", "matrix": "wandering64-1M", "pairs": n_pairs,
         "c_rows": c_cap, "operations": ops, "bytes": nbytes,
         "dtype": "float64", "kernel_ms": ms,
-        "launches_per_multiply": 1,
+        "launches_per_multiply": steady,
+        "launches_interactive_multiply": interactive,
     }
 
 

@@ -62,7 +62,8 @@ class BinnedElementPlan:
 
     def capture(self):
         """Multiply eagerly once, with any host synchronisation an error
-        (it would break the capture), then capture one multiply."""
+        (it would break the capture), then capture one multiply.  Runs on
+        the current device, which ``run`` sets to the plan's."""
         from pem_spgemm_tpu_torch.ops import segment_sort as ss
         from pem_spgemm_tpu_torch.ops.binned import binned_multiply
         side = torch.cuda.Stream()
@@ -93,9 +94,10 @@ class BinnedElementPlan:
             from pem_spgemm_tpu_torch.ops.binned import binned_multiply
             stream = binned_multiply(self.plan, vmem_sort=self.vmem_sort)
             return stream.c_nnz, torch.zeros((), dtype=torch.bool)
-        if not self._graph:
-            self.capture()
-        self._graph["graph"].replay()
+        with torch.cuda.device(self.plan.table.device):
+            if not self._graph:
+                self.capture()
+            self._graph["graph"].replay()
         return self._graph["stream"].c_nnz, self._graph["overflow"]
 
 

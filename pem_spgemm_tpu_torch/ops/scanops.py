@@ -51,14 +51,6 @@ def fill_monotone_i32(starts, values, total_cap: int):
     return torch.cumsum(acc[:-1], 0, dtype=torch.int32)
 
 
-def fill_any_32(starts, value_bits, total_cap: int):
-    """stream[k] = value_bits[s] for the largest s with starts[s] <= k.
-
-    Single-payload wrapper around fill_any_multi.
-    """
-    return fill_any_multi(starts, (value_bits,), total_cap)[0]
-
-
 def fill_any_multi(starts, value_bits_tuple, total_cap: int, rounds=None):
     """Forward-fill several per-segment int32 bit patterns in one scan.
 

@@ -146,7 +146,7 @@ def test_forward_fills_and_scan_match_jax():
         _np(TS.fill_monotone_i32(t(starts), t(mono), cap)),
         np.asarray(JS.fill_monotone_i32(starts, mono, cap)))
     np.testing.assert_array_equal(
-        _np(TS.fill_any_32(t(starts), t(bits), cap)),
+        _np(TS.fill_any_multi(t(starts), (t(bits),), cap)[0]),
         np.asarray(JS.fill_any_32(starts, bits, cap)))
     for rounds in (None, 4):
         got = TS.fill_any_multi(t(starts), (t(bits), t(bits2)), cap,
