@@ -101,6 +101,9 @@ FP32_OPS_PER_S = 67e12          # H100 SXM data sheet, outside tensor cores
 TF32_OPS_PER_S = 495e12         # H100 SXM data sheet, tensor cores, dense
 FP64_OPS_PER_S = 67e12          # H100 SXM data sheet, FP64 on the tensor
                                 # cores (DMMA): the card's peak for float64
+FP64_INSTR_PER_S = 17e12        # H100 SXM data sheet, FP64 units outside
+                                # the tensor cores: 34 TFLOP/s of FMA, so
+                                # 17 T instructions/s (DMUL or DADD alike)
 VAL_RTOL, VAL_ATOL = 1e-4, 1e-6     # kernel vs plain: summation order differs
 # C values vs scipy's float64 product: |got - want| <= COO_RTOL * S + COO_ATOL
 # with S the sum of |a*b| over the entry's products (the forward-error bound
@@ -642,6 +645,18 @@ def phase_dia_kernel_check():
     # reloads at the gaps, a window wider than L + the chunk's band count
     run((0, 3, 40, 41, 42), tuple(range(-20, 20)), 3_001, 3_001, 3_001, both,
         "gapped dense", 55)
+    # gapped A offsets again, with runs longer than the float64 entry's 4-row
+    # groups between the gaps (a group ends at a gap, mid-run or whole)
+    run((0, 1, 2, 5, 9, 10, 11, 12, 13, 14, 20, 23), tuple(range(-12, 12)),
+        9_001, 9_001, 9_001, both, "gapped dense, long runs", 57)
+    # banded128-1M's offsets: the float64 window holds fewer bands a chunk
+    # (a smaller kc, more chunks) than the float32 one
+    offs128 = tuple(range(-64, 64))
+    kc = {w: dk.dense_launch(offs128, 128, 255, w)["kc"] for w in (4, 8)}
+    if not kc[8] < kc[4]:
+        raise AssertionError(f"banded128 offsets: kc {kc}")
+    run(offs128, offs128, 40_009, 40_009, 40_009, ("dense",),
+        f"banded128 offsets, kc {kc[4]} / {kc[8]}", 58)
     # one A band against five B bands (a B stack that is no multiple of 8)
     run((5,), (-2, -1, 0, 1, 2), 6_001, 6_001, 6_001, both, "D2=5", 50)
     # A and B with different offset sets
@@ -720,6 +735,10 @@ def phase_dia_kernel_check():
         cases += 1
     else:
         raise AssertionError("float16 bands on the card did not raise")
+    unequal = [k for k, v in F64_BIT_EQUAL.items()
+               if k.startswith("dia") and not v]
+    if unequal:
+        raise AssertionError(f"{unequal}: not bit-equal to the plain version")
     emit("dia_kernel_check", cases=cases, max_abs_err=worst,
          worst_over_bound={k: WORST_OVER.get(k) for k in dk.LAUNCHES},
          f64_bit_equal_to_plain={k: v for k, v in F64_BIT_EQUAL.items()
@@ -907,6 +926,36 @@ def pairs_case_f64(a64, b64, a_idx, b_idx, seg, c_cap, what, worst,
     e = (hold or macro_hold)(got, want, mag, f"{what}, float64", key=key)
     worst[key] = max(worst[key], e)
     return got
+
+
+def f64_skipped_share(a_dense, b_dense, a_idx, b_idx, chunk=8_192):
+    """The share of the float64 entry's DMMA blocks (16 A rows x 8 B
+    columns x a 16-deep slab, 1,024 a pair) that it skips: those where no k
+    of the slab has a non-zero in both, and neither side an Inf or a NaN;
+    and the slabs it copies (those with a block that runs; the others it
+    skips whole).  Computed from the tiles on the card, as the kernel
+    decides.  The bound counts every product; this says how many the
+    kernel did not run."""
+    # A: (T, 8 slabs, 8 row groups, 16 k) non-zeros, (T, slab, row group)
+    # Inf / NaN; B: (T, slab, 16 k, 16 column groups), (T, slab, group)
+    a5 = a_dense.view(-1, 8, 16, 8, 16)
+    nza = (a5 != 0).any(2).permute(0, 2, 1, 3).to(torch.float32)
+    bada = (~torch.isfinite(a5)).any(4).any(2).permute(0, 2, 1)
+    b5 = b_dense.view(-1, 8, 16, 16, 8)
+    nzb = (b5 != 0).any(4).to(torch.float32)
+    badb = (~torch.isfinite(b5)).any(4).any(2)
+    need = slabs = 0
+    for lo in range(0, a_idx.numel(), chunk):
+        ai, bi = a_idx[lo:lo + chunk].long(), b_idx[lo:lo + chunk].long()
+        live = torch.matmul(nza[ai], nzb[bi]) > 0       # (P, 8, 8, 16)
+        bad = bada[ai][:, :, :, None] | badb[bi][:, :, None, :]
+        run = live | bad
+        need += int(run.sum())
+        slabs += int(run.flatten(2).any(2).sum())       # slabs copied
+    total = 1024 * a_idx.numel()
+    return {"share": 1.0 - need / total, "blocks_run": need,
+            "blocks": total, "slabs_copied": slabs,
+            "slabs": 8 * a_idx.numel()}
 
 
 def engineered_tiles(n_tiles, seed):
@@ -1207,6 +1256,52 @@ def phase_macro_kernel_check():
         raise AssertionError("pairs: 2 blocks and one a tile disagree")
     cases += 2
     del ap
+    # a float64 stream alone: a C tile of 40 pairs (the float64 entry's slab
+    # ring wraps across 320 slabs), an empty tile, tiles of 1, 7 and 2
+    # pairs, float64 subnormals in A and B; 5 tiles in a c_cap of 6
+    a64 = engineered_tiles(16, seed=41).double()
+    b64 = engineered_tiles(16, seed=42).double()
+    a64[0, ::7, 3] = 5e-320
+    b64[1, 3, ::5] = -5e-320
+    per_tile = [40, 0, 1, 7, 2]
+    seg_f = torch.repeat_interleave(
+        torch.arange(len(per_tile), device=DEV),
+        torch.tensor(per_tile, device=DEV)).to(torch.int32)
+    pad = 256 - seg_f.numel()
+    seg_f = torch.cat([seg_f, torch.full((pad,), symbolic.INT32_MAX,
+                                         dtype=torch.int32, device=DEV)])
+    idx = torch.randint(0, 16, (2, 256), generator=g, device=DEV,
+                        dtype=torch.int32)
+    idx[:, 256 - pad:] = 16
+    idx[:, 0] = torch.tensor([0, 1], dtype=torch.int32, device=DEV)
+    got = pairs_case_f64(a64, b64, idx[0].contiguous(), idx[1].contiguous(),
+                         seg_f, 6, "f64 pairs 40/0/1/7/2", worst)
+    if bool(got[0][1].any()) or bool(got[1][1].any()) or \
+            bool(got[0][5].any()) or bool(got[1][5].any()):
+        raise AssertionError("f64 pairs: a tile without pairs is not zero")
+    cases += 1
+    # banded float64 tiles, whose products the float64 entry mostly skips
+    # (16 x 8 blocks that multiply only zeros), with a NaN and an Inf in
+    # blocks that would be skipped but for them: the plain version's NaNs
+    # and signed Infs
+    band = (torch.arange(128, device=DEV)[:, None]
+            - torch.arange(128, device=DEV)[None, :]).abs() < 12
+    a64 *= band
+    b64 *= band
+    a64[2, 100, 3] = float("nan")
+    b64[3, 90, 5] = float("-inf")
+    a64[4, 7, 120] = float("inf")
+    got = pairs_case_f64(a64, b64, idx[0].contiguous(), idx[1].contiguous(),
+                         seg_f, 6, "f64 pairs, banded, non-finite", worst,
+                         hold=macro_hold_ieee)
+    if not (bool(torch.isnan(got[0]).any()) and bool(
+            torch.isinf(got[0]).any())):
+        raise AssertionError("f64 pairs, banded: no NaN or Inf in C")
+    skip = f64_skipped_share(a64, b64, idx[0][:50], idx[1][:50])
+    if not 0.3 < skip["share"] < 1.0:
+        raise AssertionError(f"f64 pairs, banded: skipped share {skip}")
+    cases += 1
+    del a64, b64
 
     # an engineered cancellation: C[0, 3] = 1*1 + 1*(-1) is numerically zero
     # and structurally present
@@ -2686,9 +2781,11 @@ def f64_per_multiply(a, engine, entry):
 
 def f64_dia_row(entry, info, check_err):
     """A float64 DIA entry at its f64 path matrix: kernel and plain version
-    with counts and values-only, held against each other; the library call
-    on the same matrix in float64 CSR (the dense entry's at banded16-1M,
-    which cuSPARSE takes)."""
+    with counts and values-only, held against each other (bit for bit); the
+    library call on the same matrix in float64 CSR (the dense entry's at
+    banded16-1M, which cuSPARSE takes).  Its operations are bounded at the
+    FP64 units' rate: each product is rounded on its own, a DMUL and a
+    DADD, so no DMMA can carry it."""
     mode = entry.split("_")[2]
     name = info["matrix"]
     a = D.coo_to_dia(info["coo"], dtype=torch.float64)
@@ -2705,6 +2802,9 @@ def f64_dia_row(entry, info, check_err):
     err = dia_hold(got, want, F64_RTOL * mag + F64_ATOL, f"{entry} at {name}",
                    key=entry, label="float64")
     bit_equal = torch.equal(got[0], want[0])
+    if not bit_equal:
+        raise AssertionError(f"{entry} at {name}: not bit-equal to the plain "
+                             "version")
     del got, want, mag
     interactive, steady = f64_per_multiply(a, "dia", entry)
     ms, ms_vo, plain, plain_vo = dia_times(a.bands, offs, dc_list, idx_map,
@@ -2716,7 +2816,7 @@ def f64_dia_row(entry, info, check_err):
     def bound(with_counts):
         by = (in_bytes + c_bytes + (c_bytes // 2 if with_counts else 0)) \
             / HBM_BYTES_PER_S
-        ops = 2 * flop / FP64_OPS_PER_S + (
+        ops = 2 * flop / FP64_INSTR_PER_S + (
             2 * flop / FP32_OPS_PER_S if with_counts else 0.0)
         return max(by, ops) * 1e3, "bytes" if by >= ops else "operations"
 
@@ -2740,9 +2840,12 @@ def f64_dia_row(entry, info, check_err):
                           f"{lib_name}: another format",
         "values_only_ms": ms_vo, "values_only_plain_ms": plain_vo,
         "values_only_bound_ms": bv_ms, "values_only_bound_by": bv_by,
-        "bound_rates": "FP64 67 TFLOP/s (the tensor cores' DMMA; the entry "
-                       "runs on FP64 FMA), counts at FP32 67 TFLOP/s, HBM "
-                       "3.35 TB/s",
+        "bound_rates": "a DMUL and a DADD a product at the FP64 units' 17 T "
+                       "instructions/s (34 TFLOP/s of FMA; each product "
+                       "and sum rounded on its own, as the plain version "
+                       "does, so not on the DMMA tensor cores), counts at "
+                       "FP32 67 TFLOP/s, HBM 3.35 TB/s",
+        "runs_on": "FP64 units (DMUL, DADD)",
         "bit_equal_to_plain": bit_equal,
         "matrix": name, "shape": [len(offs), a.n], "c_rows": len(dc_list),
         "products": flop, "dtype": "float64", "kernel_ms": ms,
@@ -2779,6 +2882,8 @@ def f64_macro_row(info, check_err):
     ops = TILE_FLOP * n_pairs
     nbytes = a.dense.numel() * 8 + c_cap * 128 * 128 * 9
     b_o, b_b = ops / FP64_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    skipped = f64_skipped_share(a.dense, a.dense, a_idx[:n_pairs],
+                                b_idx[:n_pairs])
     ms = time_ms(fn, 3)
     return {
         "name": entry, "route": "cuda", "source": MACRO_SOURCE,
@@ -2793,9 +2898,16 @@ def f64_macro_row(info, check_err):
         "library_covers": "torch.bmm in float64 over the pre-gathered "
                           "(P, 128, 128) operands in chunks of 16,384 "
                           "pairs: the products only",
-        "bound_rates": "FP64 67 TFLOP/s (the tensor cores' DMMA; the entry "
-                       "runs on FP64 FMA), HBM 3.35 TB/s",
-        "runs_on": "FP64 FMA", "matrix": "wandering64-1M", "pairs": n_pairs,
+        "bound_rates": "FP64 67 TFLOP/s (the tensor cores' DMMA), HBM "
+                       "3.35 TB/s",
+        "runs_on": "DMMA (mma.sync f64)", "matrix": "wandering64-1M",
+        "skipped": skipped,
+        "skipped_rule": "a 16 x 8 x 16 DMMA block whose A rows and B "
+                        "columns share no k with non-zeros on both sides, "
+                        "and hold no Inf or NaN, multiplies only zeros and "
+                        "is not run; a slab none of whose blocks runs is "
+                        "not copied; the bound counts every product",
+        "pairs": n_pairs,
         "c_rows": c_cap, "operations": ops, "bytes": nbytes,
         "dtype": "float64", "kernel_ms": ms,
         "launches_per_multiply": steady,

@@ -30,8 +30,8 @@ MATRICES = {        # the stencils of chip_smoke.py's DIA_MATRICES
 }
 # (build, text of the source, what replaces it)
 CUTS = {
-    "compute_only": ("        float* bw = smem + b_off;\n",
-                     "        float* bw = smem + b_off;\n"
+    "compute_only": ("        T* bw = smem + b_off;\n",
+                     "        T* bw = smem + b_off;\n"
                      "        if (d1n > 0) return;\n"),
     "stage_only": ("        while (k < ke) {\n",
                    "        while (d1n < 0 && k < ke) {\n"),
@@ -85,7 +85,7 @@ def split(matrix: str, libs) -> dict:
                 a.data_ptr(), a.data_ptr(), offs_dev.data_ptr(), c.data_ptr(),
                 cnt.data_ptr() if counts else None, len(offs), len(offs),
                 dcn, n, n, n, sh["tr_log2"], sh["tc_n"], sh["kc"], sh["s"],
-                sh["cw_log2"], sh["b_off"], sh["stage_floats"], stream)
+                sh["cw_log2"], sh["b_off"], sh["stage_words"], stream)
             if err:
                 raise RuntimeError(f"launch failed with error {err}")
         return run

@@ -62,15 +62,26 @@
 //
 // The float64 entries (`dia_multiply_dense_f64`, `dia_multiply_pairs_f64`)
 // serve the f64 parity mode, which the JAX package runs through the same
-// two kernels (pallas_dia_mode does not test the dtype).  They are the
-// simple form: one thread a C element of one C row, the row's band pairs
-// in ascending A-band order (the dense entry's arithmetic on the offsets,
-// the pairs entry's CSR table), each product and sum rounded on its own
-// (__dmul_rn, __dadd_rn, no contraction into an FMA), so they agree bit for
-// bit with the plain PyTorch version, which multiplies and then adds.  A
-// and B are read through L1 and L2 at each pair (nothing is staged); each C
-// element, and its float32 count, is written once.  What bounds them is
-// the same as for the float32 entries, with 8-byte words.
+// two kernels (pallas_dia_mode does not test the dtype).  Each product and
+// each sum is rounded on its own (__dmul_rn, __dadd_rn, no contraction into
+// an FMA: `madd`), in ascending A band, so they agree bit for bit with the
+// plain PyTorch version, which multiplies and then adds.  The dense entry
+// is the float32 dense kernel above, templated on the word (Dense<T>): the
+// same staged window, rotation, register naming and reloads, with 8-byte
+// cp.async copies and 16-byte pieces of 2 words.  Its geometry is its own:
+// a thread owns 4 x 4 C elements (not 8 x 4), which keeps a thread's live
+// window words, sums and counts within 128 registers, so that two blocks of
+// 256 threads share an SM and one block's staging overlaps the other's
+// products, as in float32; the window budget is the same 112 KB, so the
+// chunks hold fewer bands.  A lane's I = 4 words are 32 bytes, so a quarter
+// warp's 16-byte loads of one row span 256 bytes and meet each bank twice.
+// Against 8 x 2 a thread (207 registers, so one block of 256 an SM, or two
+// of 128), 4 x 4 measured 3% and 14% faster with counts, and values-only
+// 8% slower than one block of 256 and 6% faster than two of 128
+// (bench/k4_split.py, PERF.md).  Its arithmetic costs two FP64
+// instructions a product (DMUL, DADD).  The
+// pairs entry is the simple form: one thread a C element of one C row, the
+// row's CSR pairs read through L1 and L2 at each pair (nothing is staged).
 //
 // Plain C interface, no PyTorch headers: the wrapper
 // (ops/dia_kernels.py) allocates the outputs, computes the dense entry's
@@ -84,16 +95,66 @@ namespace {
 constexpr int PAIR_THREADS = 256;   // threads a block of the pairs entry
 constexpr int PAIR_COLS = 4;        // columns a thread of the pairs entry
 constexpr int PAIR_L = PAIR_THREADS * PAIR_COLS;  // columns a block
-constexpr int ROWS = 8;         // C rows a thread of the dense entry
-constexpr int PADR = ROWS - 1;  // zero rows on each side of the B window
 constexpr int MAX_SMEM = 227 * 1024;
 
-// Asynchronous copy of one word from global to shared memory; ok == false
-// writes a zero and reads nothing (src must still be a valid address).
-__device__ __forceinline__ void copy4(float* dst, const float* src, bool ok) {
+// The dense entry's geometry for its word type (ops/dia_kernels.py's
+// DENSE_GEOMETRY): a thread owns ROWS x I C elements (I consecutive
+// columns), a block has at most THREADS threads, and MIN_BLOCKS of them
+// share an SM (which caps the registers a thread).
+template <class T> struct Dense;
+template <> struct Dense<float> {
+    static constexpr int ROWS = 8;
+    static constexpr int I = 4;
+    static constexpr int THREADS = 256;
+    static constexpr int MIN_BLOCKS = 2;
+};
+template <> struct Dense<double> {
+    static constexpr int ROWS = 4;
+    static constexpr int I = 4;
+    static constexpr int THREADS = 256;
+    static constexpr int MIN_BLOCKS = 2;
+};
+
+// Asynchronous copy of one word (4 or 8 bytes) from global to shared
+// memory; ok == false writes a zero and reads nothing (src must still be a
+// valid address).
+__device__ __forceinline__ void copy_word(float* dst, const float* src,
+                                          bool ok) {
     const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                  :: "r"(d), "l"(src), "r"(ok ? 4 : 0) : "memory");
+}
+__device__ __forceinline__ void copy_word(double* dst, const double* src,
+                                          bool ok) {
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+                 :: "r"(d), "l"(src), "r"(ok ? 8 : 0) : "memory");
+}
+
+// 16-byte pieces: 4 floats or 2 doubles, loaded and stored whole.
+__device__ __forceinline__ void load16(const float* p, float (&w)[4]) {
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    w[0] = x.x; w[1] = x.y; w[2] = x.z; w[3] = x.w;
+}
+__device__ __forceinline__ void load16(const double* p, double (&w)[2]) {
+    const double2 x = *reinterpret_cast<const double2*>(p);
+    w[0] = x.x; w[1] = x.y;
+}
+__device__ __forceinline__ void store16(float* p, const float* w) {
+    *reinterpret_cast<float4*>(p) = make_float4(w[0], w[1], w[2], w[3]);
+}
+__device__ __forceinline__ void store16(double* p, const double* w) {
+    *reinterpret_cast<double2*>(p) = make_double2(w[0], w[1]);
+}
+
+// acc + a * b: one fused rounding in float32 (the float32 entries' order);
+// in float64 the product and the sum each rounded on their own, as the
+// plain version multiplies and then adds (no contraction into an FMA).
+__device__ __forceinline__ float madd(float acc, float a, float b) {
+    return fmaf(a, b, acc);
+}
+__device__ __forceinline__ double madd(double acc, double a, double b) {
+    return __dadd_rn(acc, __dmul_rn(a, b));
 }
 
 // The chunk of A bands that starts at kb: at most kc bands whose offsets
@@ -115,14 +176,19 @@ __device__ __forceinline__ int chunk_end(const int* __restrict__ offs,
 // lanes of a warp share their rows, and a band that misses them skips the
 // whole warp.  Shared memory: the A chunk (its bands x L) and, from word
 // b_off, the B window, rows of s words, each rotated by its row index.
-template <bool COUNTS, int I>
-__global__ void __launch_bounds__(256, 2)
-dia_dense_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                 const int* __restrict__ offs, float* __restrict__ c,
+// One template serves both word types (Dense<T>, madd).
+template <class T, bool COUNTS>
+__global__ void __launch_bounds__(Dense<T>::THREADS, Dense<T>::MIN_BLOCKS)
+dia_dense_kernel(const T* __restrict__ a, const T* __restrict__ b,
+                 const int* __restrict__ offs, T* __restrict__ c,
                  float* __restrict__ cnt, int d1n, int d2n, int dcn,
                  long long n_i, long long n_k, long long n_out, int tr_log2,
                  int kc, int s, int cw_log2, int b_off) {
-    extern __shared__ __align__(16) float smem[];
+    constexpr int ROWS = Dense<T>::ROWS, I = Dense<T>::I;
+    constexpr int PADR = ROWS - 1;  // zero rows on each side of the window
+    constexpr int VW = 16 / (int)sizeof(T);     // words a 16-byte piece
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    T* smem = reinterpret_cast<T*>(smem_raw);
     const int t = threadIdx.x, nthreads = blockDim.x;
     const int tc_n = nthreads >> tr_log2;
     const int tc = t & (tc_n - 1), tr = t >> (31 - __clz(tc_n));
@@ -146,23 +212,24 @@ dia_dense_kernel(const float* __restrict__ a, const float* __restrict__ b,
         return dhi;
     };
     // the rotation's extra shift: window row w, column cc sits at position
-    // cc + w + sh, and a thread's first word at 4 tc + P + sh with
-    // P = rc0 + 8 tr - dlo - wr0 + PADR, a multiple of 4 with this sh
+    // cc + w + sh, and a thread's first word at I tc + P + sh with
+    // P = rc0 + ROWS tr - dlo - wr0 + PADR, a multiple of VW with this sh
     auto shift = [&](int wr0, int dlo) {
-        return (dlo + wr0 - rc0 - PADR) & 3;
+        return (dlo + wr0 - rc0 - PADR) & (VW - 1);
     };
     // stage the chunk [kb, ke): its A rows, then the B window.  Every word
-    // is an asynchronous 4-byte copy (zero-filled where it lies outside A or
-    // B), so a thread has all of its copies in flight at once; neighbouring
-    // lanes copy neighbouring words
+    // is an asynchronous copy of its own (zero-filled where it lies outside
+    // A or B), so a thread has all of its copies in flight at once;
+    // neighbouring lanes copy neighbouring words
     const int l_log2 = 31 - __clz(L);
     auto stage = [&](int kb, int ke, int wr0, int nrows, int dlo, int dhi) {
-        float* bw = smem + b_off;
+        T* bw = smem + b_off;
         for (int e = t; e < (ke - kb) << l_log2; e += nthreads) {
             const int kk = e >> l_log2, cc = e & (L - 1);
             const long long i = i0 + cc;
             const bool ok = i < n_i;
-            copy4(smem + e, ok ? a + (long long)(kb + kk) * n_i + i : a, ok);
+            copy_word(smem + e, ok ? a + (long long)(kb + kk) * n_i + i : a,
+                      ok);
         }
         const int ncols = L + dhi - dlo;
         const long long wc0 = i0 + a0 + dlo;
@@ -177,24 +244,24 @@ dia_dense_kernel(const float* __restrict__ a, const float* __restrict__ b,
                 const int k2 = wr0 - PADR + w;
                 const bool ok = jok && k2 >= 0 && k2 < d2n;
                 const int p = cc + w + sh;
-                copy4(bw + w * s + (p < s ? p : p - s),
-                      ok ? b + (long long)k2 * n_k + j : b, ok);
+                copy_word(bw + w * s + (p < s ? p : p - s),
+                          ok ? b + (long long)k2 * n_k + j : b, ok);
             }
         }
         asm volatile("cp.async.wait_all;\n" ::: "memory");
     };
 
-    float acc[ROWS][I];
+    T acc[ROWS][I];
     // counts, two to a register (16 bits each: a count is at most d1n,
     // which dense_launch keeps below 2^16)
     unsigned num[ROWS][I / 2];
     // B registers by anti-diagonal d = rho + iota and slot (rho - step) % ROWS
-    float bv[ROWS + I - 1][ROWS];
+    T bv[ROWS + I - 1][ROWS];
 #pragma unroll
     for (int r = 0; r < ROWS; ++r)
 #pragma unroll
         for (int i = 0; i < I; ++i) {
-            acc[r][i] = 0.f;
+            acc[r][i] = T(0);
             if (i % 2 == 0) num[r][i / 2] = 0u;
         }
 
@@ -205,37 +272,37 @@ dia_dense_kernel(const float* __restrict__ a, const float* __restrict__ b,
         if (nrows == 0) continue;       // the block's rows reach no B row
         stage(kb, ke, wr0, nrows, dlo, dhi);
         __syncthreads();
-        const float* as = smem;
-        const float* bw = smem + b_off;
+        const T* as = smem;
+        const T* bw = smem + b_off;
         // a chunk of consecutive offsets (every chunk of a stencil) needs no
         // offset load in the band loop
         const bool consecutive = dhi - dlo == ke - 1 - kb;
         // the positions of the thread's words in every window row: NV
-        // 16-byte pieces from 4 tc + P + sh (mod s)
-        constexpr int NV = (ROWS + I - 1 + 3) / 4;
+        // 16-byte pieces from I tc + P + sh (mod s)
+        constexpr int NV = (ROWS + I - 1 + VW - 1) / VW;
         int pos[NV];
         {
-            const int p0 = I * tc + rc0 + (tr << 3) - dlo - wr0 + PADR
+            const int p0 = I * tc + rc0 + tr * ROWS - dlo - wr0 + PADR
                 + shift(wr0, dlo);
 #pragma unroll
-            for (int v = 0; v < NV; ++v) pos[v] = ((p0 + 4 * v) % s + s) % s;
+            for (int v = 0; v < NV; ++v) pos[v] = ((p0 + VW * v) % s + s) % s;
         }
         // window row w into register slot `slot`: its words at anti-
         // diagonals 0 .. ROWS + I - 2
         auto load_row = [&](const int w, const int slot) {
-            const float* row = bw + w * s;
+            const T* row = bw + w * s;
 #pragma unroll
             for (int v = 0; v < NV; ++v) {
-                const float4 x =
-                    *reinterpret_cast<const float4*>(row + pos[v]);
-                const float y[4] = {x.x, x.y, x.z, x.w};
+                T y[VW];
+                load16(row + pos[v], y);
 #pragma unroll
-                for (int e = 0; e < 4; ++e)
-                    if (4 * v + e < ROWS + I - 1) bv[4 * v + e][slot] = y[e];
+                for (int e = 0; e < VW; ++e)
+                    if (VW * v + e < ROWS + I - 1) bv[VW * v + e][slot] = y[e];
             }
         };
-        // one band: the thread's B registers (all 8 rows where `fresh`, else
-        // the one new row at slot phase u), its A words, its 8 x I FMAs
+        // one band: the thread's B registers (all ROWS rows where `fresh`,
+        // else the one new row at slot phase u), its A words, its ROWS x I
+        // products
         auto band = [&](const int u, const bool fresh, const int k2l,
                         const int k) {
             const int wb = k2l - wr0 + PADR;
@@ -246,28 +313,29 @@ dia_dense_kernel(const float* __restrict__ a, const float* __restrict__ b,
             } else {
                 load_row(wb, (0 - u) & (ROWS - 1));
             }
-            float av[I];
+            T av[I];
 #pragma unroll
-            for (int i = 0; i < I; i += 4) {
-                const float4 v = *reinterpret_cast<const float4*>(
-                    as + (k - kb) * L + tc * I + i);
-                av[i] = v.x; av[i + 1] = v.y; av[i + 2] = v.z; av[i + 3] = v.w;
+            for (int i = 0; i < I; i += VW) {
+                T y[VW];
+                load16(as + (k - kb) * L + tc * I + i, y);
+#pragma unroll
+                for (int e = 0; e < VW; ++e) av[i + e] = y[e];
             }
 #pragma unroll
             for (int r = 0; r < ROWS; ++r)
 #pragma unroll
                 for (int i = 0; i < I; ++i) {
-                    const float x = bv[r + i][(r - u) & (ROWS - 1)];
-                    acc[r][i] = fmaf(av[i], x, acc[r][i]);
-                    if (COUNTS && av[i] != 0.f && x != 0.f)
+                    const T x = bv[r + i][(r - u) & (ROWS - 1)];
+                    acc[r][i] = madd(acc[r][i], av[i], x);
+                    if (COUNTS && av[i] != T(0) && x != T(0))
                         num[r][i / 2] += 1u << (16 * (i % 2));
                 }
         };
-        // groups of up to ROWS consecutive bands: the first loads all 8
+        // groups of up to ROWS consecutive bands: the first loads all ROWS
         // rows unless it continues the previous group, the others one new
         // row each.  A group
         // of ROWS bands that all reach the thread's rows runs without a
-        // branch (its loads can be issued ahead of the FMAs); elsewhere
+        // branch (its loads can be issued ahead of the products); elsewhere
         // a gap in the offsets or rows leaving B's range end a group
         // early, and the next one reloads
         bool have = false;
@@ -275,7 +343,7 @@ dia_dense_kernel(const float* __restrict__ a, const float* __restrict__ b,
         int k = kb;
         while (k < ke) {
             int dl = consecutive ? dlo + (k - kb) : __ldg(offs + k) - a0;
-            int k2lo = rc0 + (tr << 3) - dl;
+            int k2lo = rc0 + tr * ROWS - dl;
             if (k2lo + ROWS <= 0 || k2lo >= d2n) {
                 have = false;
                 ++k;
@@ -298,7 +366,7 @@ dia_dense_kernel(const float* __restrict__ a, const float* __restrict__ b,
                     if (k >= ke) { whole = false; break; }
                     dl = consecutive ? dlo + (k - kb)
                                      : __ldg(offs + k) - a0;
-                    k2lo = rc0 + (tr << 3) - dl;
+                    k2lo = rc0 + tr * ROWS - dl;
                     if (k2lo + ROWS <= 0 || k2lo >= d2n
                             || dl != dprev + 1) {
                         whole = false;
@@ -316,7 +384,7 @@ dia_dense_kernel(const float* __restrict__ a, const float* __restrict__ b,
 
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) {
-        const int row = rc0 + (tr << 3) + r;
+        const int row = rc0 + tr * ROWS + r;
         if (row >= dcn) continue;
         float nf[I];
 #pragma unroll
@@ -327,12 +395,17 @@ dia_dense_kernel(const float* __restrict__ a, const float* __restrict__ b,
         if ((n_out & 3) == 0 && col0 + I <= n_out) {
             // whole 16-byte pieces: a warp's lanes store whole rows' spans
 #pragma unroll
-            for (int i = 0; i < I; i += 4) {
-                *reinterpret_cast<float4*>(c + at + i) = make_float4(
-                    acc[r][i], acc[r][i + 1], acc[r][i + 2], acc[r][i + 3]);
-                if (COUNTS)
+            for (int i = 0; i < I; i += VW) store16(c + at + i, &acc[r][i]);
+            if constexpr (COUNTS && I % 4 == 0) {
+#pragma unroll
+                for (int i = 0; i < I; i += 4)
                     *reinterpret_cast<float4*>(cnt + at + i) = make_float4(
                         nf[i], nf[i + 1], nf[i + 2], nf[i + 3]);
+            } else if constexpr (COUNTS) {
+#pragma unroll
+                for (int i = 0; i < I; i += 2)
+                    *reinterpret_cast<float2*>(cnt + at + i) =
+                        make_float2(nf[i], nf[i + 1]);
             }
             continue;
         }
@@ -466,8 +539,8 @@ dia_pairs_kernel(const float* __restrict__ a, const float* __restrict__ b,
             for (int e = 0; e < PAIR_COLS; ++e) {
                 const int cc = t + PAIR_THREADS * e;
                 const bool ok = i0 + cc < n_i;
-                copy4(smem + k1 * PAIR_L + cc,
-                      ok ? a + (long long)k1 * n_i + i0 + cc : a, ok);
+                copy_word(smem + k1 * PAIR_L + cc,
+                          ok ? a + (long long)k1 * n_i + i0 + cc : a, ok);
             }
         }
         ap = smem;
@@ -496,62 +569,50 @@ dia_pairs_kernel(const float* __restrict__ a, const float* __restrict__ b,
                                 n_k, n_out);
 }
 
-template <bool COUNTS, int I>
-cudaError_t launch_dense(const float* a, const float* b, const int* offs,
-                         float* c, float* cnt, int d1n, int d2n, int dcn,
+template <class T, bool COUNTS>
+cudaError_t launch_dense(const T* a, const T* b, const int* offs, T* c,
+                         float* cnt, int d1n, int d2n, int dcn,
                          long long n_i, long long n_k, long long n_out,
                          int tr_log2, int tc_n, int kc, int s, int cw_log2,
-                         int b_off, int stage_floats, cudaStream_t stream) {
+                         int b_off, int stage_words, cudaStream_t stream) {
     // per launch: the attribute belongs to the current device
     const cudaError_t attr = cudaFuncSetAttribute(
-        dia_dense_kernel<COUNTS, I>,
+        dia_dense_kernel<T, COUNTS>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
     if (attr != cudaSuccess) return attr;
-    const long long L = (long long)tc_n * I;
-    const int rb = ROWS << tr_log2;
+    const long long L = (long long)tc_n * Dense<T>::I;
+    const int rb = Dense<T>::ROWS << tr_log2;
+    const int threads = tc_n << tr_log2;
+    if (threads > Dense<T>::THREADS) return cudaErrorInvalidConfiguration;
     const long long grid = (n_out + L - 1) / L * ((dcn + rb - 1) / rb);
     if (grid > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-    dia_dense_kernel<COUNTS, I><<<(unsigned)grid, tc_n << tr_log2,
-                                  stage_floats * (int)sizeof(float),
-                                  stream>>>(
+    dia_dense_kernel<T, COUNTS><<<(unsigned)grid, threads,
+                                  stage_words * (int)sizeof(T), stream>>>(
         a, b, offs, c, cnt, d1n, d2n, dcn, n_i, n_k, n_out, tr_log2, kc, s,
         cw_log2, b_off);
     return cudaGetLastError();
 }
 
-constexpr int F64_THREADS = 256;    // threads (C columns) a block, f64
-
-// float64, dense entry: C row r takes the A bands k1 (ascending) with
-// k2 = r - (offs[k1] - offs[0]) in [0, d2n); k2 falls as k1 rises.
-template <bool COUNTS>
-__global__ void __launch_bounds__(F64_THREADS)
-dia_dense_f64_kernel(const double* __restrict__ a,
-                     const double* __restrict__ b,
-                     const int* __restrict__ offs, double* __restrict__ c,
-                     float* __restrict__ cnt, int d1n, int d2n, int dcn,
-                     long long n_i, long long n_k, long long n_out) {
-    const long long i = (long long)blockIdx.x * F64_THREADS + threadIdx.x;
-    if (i >= n_out) return;
-    const int o0 = __ldg(offs);
-    for (int r = blockIdx.y; r < dcn; r += gridDim.y) {
-        double acc = 0.0;
-        float n = 0.f;
-        for (int k1 = 0; k1 < d1n; ++k1) {
-            const int d1 = __ldg(offs + k1);
-            const int k2 = r - (d1 - o0);
-            if (k2 < 0) break;
-            if (k2 >= d2n) continue;
-            const long long j = i + d1;
-            if (j < 0 || j >= n_k) continue;
-            const double av = __ldg(a + (long long)k1 * n_i + i);
-            const double bv = __ldg(b + (long long)k2 * n_k + j);
-            acc = __dadd_rn(acc, __dmul_rn(av, bv));
-            if (COUNTS && av != 0.0 && bv != 0.0) n += 1.f;
-        }
-        c[(long long)r * n_out + i] = acc;
-        if (COUNTS) cnt[(long long)r * n_out + i] = n;
-    }
+// Both dense entries: the word type's kernel with or without counts.
+template <class T>
+int dense_entry(const void* a, const void* b, const void* offs_a, void* c,
+                void* cnt, int d1n, int d2n, int dcn, long long n_i,
+                long long n_k, long long n_out, int tr_log2, int tc_n, int kc,
+                int s, int cw_log2, int b_off, int stage_words,
+                void* stream) {
+    cudaStream_t st = (cudaStream_t)stream;
+    if (cnt != nullptr)
+        return (int)launch_dense<T, true>(
+            (const T*)a, (const T*)b, (const int*)offs_a, (T*)c,
+            (float*)cnt, d1n, d2n, dcn, n_i, n_k, n_out, tr_log2, tc_n, kc, s,
+            cw_log2, b_off, stage_words, st);
+    return (int)launch_dense<T, false>(
+        (const T*)a, (const T*)b, (const int*)offs_a, (T*)c, nullptr, d1n,
+        d2n, dcn, n_i, n_k, n_out, tr_log2, tc_n, kc, s, cw_log2, b_off,
+        stage_words, st);
 }
+
+constexpr int F64_THREADS = 256;    // threads (C columns) a block, f64 pairs
 
 // float64, pairs entry: C row r takes the (k1, k2, d1) triples
 // trip[row_ptr[r] .. row_ptr[r + 1]), ascending k1.
@@ -610,16 +671,9 @@ extern "C" int dia_multiply_dense_f32(const void* a, const void* b,
                                       long long n_out, int tr_log2, int tc_n,
                                       int kc, int s, int cw_log2, int b_off,
                                       int stage_floats, void* stream) {
-    cudaStream_t st = (cudaStream_t)stream;
-    if (cnt != nullptr)
-        return (int)launch_dense<true, 4>(
-            (const float*)a, (const float*)b, (const int*)offs_a, (float*)c,
-            (float*)cnt, d1n, d2n, dcn, n_i, n_k, n_out, tr_log2, tc_n, kc, s,
-            cw_log2, b_off, stage_floats, st);
-    return (int)launch_dense<false, 4>(
-        (const float*)a, (const float*)b, (const int*)offs_a, (float*)c,
-        nullptr, d1n, d2n, dcn, n_i, n_k, n_out, tr_log2, tc_n, kc, s,
-        cw_log2, b_off, stage_floats, st);
+    return dense_entry<float>(a, b, offs_a, c, cnt, d1n, d2n, dcn, n_i, n_k,
+                              n_out, tr_log2, tc_n, kc, s, cw_log2, b_off,
+                              stage_floats, stream);
 }
 
 // row_ptr (dcn + 1) int32, trip (3 * n_pairs) int32, d1_min / d1_max the
@@ -662,25 +716,20 @@ extern "C" int dia_multiply_pairs_f32(const void* a, const void* b,
 }
 
 // The float64 entries: a, b and c float64, cnt float32 (nullptr: values
-// only), the tables as for the float32 entries; one thread a C element.
+// only), the tables as for the float32 entries.  The dense entry is the
+// float32 dense entry's kernel on 8-byte words, its launch shape
+// dense_launch's at word size 8; the pairs entry takes one thread a C
+// element.
 extern "C" int dia_multiply_dense_f64(const void* a, const void* b,
                                       const void* offs_a, void* c, void* cnt,
                                       int d1n, int d2n, int dcn,
                                       long long n_i, long long n_k,
-                                      long long n_out, void* stream) {
-    dim3 grid;
-    if (!f64_grid(n_out, dcn, &grid))
-        return (int)cudaErrorInvalidConfiguration;
-    cudaStream_t s = (cudaStream_t)stream;
-    if (cnt != nullptr)
-        dia_dense_f64_kernel<true><<<grid, F64_THREADS, 0, s>>>(
-            (const double*)a, (const double*)b, (const int*)offs_a,
-            (double*)c, (float*)cnt, d1n, d2n, dcn, n_i, n_k, n_out);
-    else
-        dia_dense_f64_kernel<false><<<grid, F64_THREADS, 0, s>>>(
-            (const double*)a, (const double*)b, (const int*)offs_a,
-            (double*)c, nullptr, d1n, d2n, dcn, n_i, n_k, n_out);
-    return (int)cudaGetLastError();
+                                      long long n_out, int tr_log2, int tc_n,
+                                      int kc, int s, int cw_log2, int b_off,
+                                      int stage_words, void* stream) {
+    return dense_entry<double>(a, b, offs_a, c, cnt, d1n, d2n, dcn, n_i, n_k,
+                               n_out, tr_log2, tc_n, kc, s, cw_log2, b_off,
+                               stage_words, stream);
 }
 
 extern "C" int dia_multiply_pairs_f64(const void* a, const void* b,

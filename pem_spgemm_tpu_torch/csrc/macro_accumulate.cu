@@ -86,20 +86,44 @@
 // too).  It keeps the float32 entry's contract: a stream sorted by C tile,
 // padding pairs never read, tiles without pairs stored as zeros, uint8
 // flags from the raw values (x != 0, so NaN and Inf count), every tile
-// written once by its owner.  It is the simple form: one block a C tile,
-// 16 x 16 threads each holding an 8 x 8 register block of the tile's sums
-// (rows ty + 16 r, columns tx + 16 c), 16-deep k-slabs of A and B staged in
-// shared memory (the next slab's words held in registers while the current
-// one is multiplied), FP64 FMA.  Every product is formed (no slab is
-// skipped), so an Inf or a NaN gives a dense product's NaNs and signed
-// Infs.  The pattern: per slab a 16-bit k-mask of each A row and of each B
-// column, and a thread ORs (mask_row & mask_col) != 0 into one bit of its
-// 64 elements.  Bound on an H100: 2 * 128^3 operations a pair at the FP64
-// FMA rate (no DMMA here).
+// written once by its owner.  Its tile product runs on the FP64 tensor
+// cores: mma.sync m16n8k8 on f64 operands (DMMA; Hopper has no wgmma for
+// f64, and DMMA is the only way to the card's FP64 peak).  One block of
+// 8 warps a C tile; warp w owns a 32 x 64 block of it (rows 32 (w % 4),
+// columns 64 (w / 4)) as 2 x 8 DMMA blocks, 64 FP64 accumulators a lane.
+// The tile's pairs run as one stream of 16-deep k-slabs (8 a pair) through
+// a ring of 4 stages in dynamic shared memory (A [i][k] and B [k][j], 37 KB
+// a stage), each slab copied by 16-byte cp.async 3 slabs ahead of the
+// tensor cores.  The rows are padded to 20 and 132 words (4 mod 16), so a
+// half warp's 8-byte fragment loads meet no bank twice.
+//
+// Most of a banded tile pair's products are zeros, and at these sizes the
+// entry is bound by the bytes it moves, not by DMMA, so it skips work at
+// two levels, and never where an Inf or a NaN is among the operands (whose
+// products with zeros are NaN).  First, two small kernels record every
+// tile's k-masks (which columns, as an A operand, and rows, as a B operand,
+// hold a non-zero; which 16-wide k-slabs hold an Inf or a NaN) and, from
+// them, each pair's slabs that can hold a non-zero product: the others
+// are never copied (wandering64's stream copies about a quarter of its
+// slabs).  Then, in a slab that runs, a DMMA block (16 x 8, one slab deep)
+// whose rows and columns share no k with non-zeros on both sides adds only
+// +-0 to its sums and is skipped (from per-slab masks of the rows and
+// columns and their ORs over the blocks' 16-row and 8-column groups,
+// written one step before the slab runs).  chip_smoke.py reports both
+// shares; the bound counts every product.  The pattern: each lane ORs
+// (mask_row & mask_col) != 0 over the slab's k into the 64 flags of its
+// accumulator fragment, for the blocks with a non-zero product.  C tiles
+// are stored evict-first (st.global.cs), so that the 144 KB each does not
+// push the operand tiles out of L2.  The block holds 64 accumulators and a
+// k-step's fragments a thread (one block an SM).  A persistent form (one
+// block an SM taking tiles from a counter, the ring running across tile
+// boundaries) was no faster than one block a tile (PERF.md), and is not
+// kept.
 //
 // Plain C interface, no PyTorch headers: the wrappers
-// (ops/macro_kernels.py) allocate the outputs, pass raw pointers, the grid
-// of the persistent entry and the current stream, and raise if the returned
+// (ops/macro_kernels.py) allocate the outputs (and the float64 entry's
+// k-mask and per-pair scratch), pass raw pointers, the grid of the
+// persistent entry and the current stream, and raise if the returned
 // cudaError_t is not 0.
 
 #include <cuda_runtime.h>
@@ -712,120 +736,391 @@ macro_class_kernel(const float* __restrict__ a_dense,
                     tc_shared());
 }
 
-constexpr int F64_KS = 16;                  // k-slab depth, float64 entry
-constexpr int F64_THREADS = 256;            // 16 x 16 threads
-constexpr int F64_REG = 8;                  // an 8 x 8 block a thread
-constexpr int F64_LOADS = TILE * F64_KS / F64_THREADS;  // words a thread
+// The float64 entry (see the head of the file): one block of 8 warps a C
+// tile, warp w owning rows 32 (w % 4) .. + 31 and columns 64 (w / 4) .. + 63
+// as 2 x 8 DMMA blocks of 16 x 8; k-slabs of F64_KS staged by cp.async over
+// a ring of F64_STAGES.
+constexpr int F64_KS = 16;                  // k-slab depth
+constexpr int F64_STAGES = 4;               // slabs in the ring
+constexpr int F64_NEED_CAP = 1024;          // a tile's pairs staged below
+constexpr int F64_MASK_WORDS = 10;          // tile_masks words a tile
+constexpr int F64_MMA_K = 8;                // k of one mma.sync (4 or 8)
+constexpr int F64_THREADS = 256;
+constexpr int F64_AS = F64_KS + 4;          // A row stride, 4 mod 16 words
+constexpr int F64_BS = TILE + 4;            // B row stride, 4 mod 16 words
+constexpr int F64_SLABS_PER_PAIR = TILE / F64_KS;
+constexpr unsigned F64_KBITS = (1u << F64_KS) - 1u;  // mask bits: k != 0
+constexpr unsigned F64_BAD = 1u << F64_KS;  // mask bit: an Inf or a NaN
+static_assert(F64_KS <= 16 && F64_STAGES >= 3, "16-bit masks, ring of 3+");
 
-// Staged slabs: A [i][k] with a row of F64_KS + 1 words (the two row groups
-// a warp reads fall on other banks), B [k][j]; and the slab's k-masks.
-struct F64Shared {
-    double a[TILE][F64_KS + 1];
-    double b[F64_KS][TILE];
-    unsigned am[TILE];                      // bit k: A[i][k0 + k] != 0
-    unsigned bm[TILE];                      // bit k: B[k0 + k][j] != 0
+struct F64Stage {
+    double a[TILE][F64_AS];                 // A [i][k]
+    double b[F64_KS][F64_BS];               // B [k][j]
 };
+// The masks of two slabs: bit k of am[i] is A[i][k0 + k] != 0, of bm[j]
+// B[k0 + k][j] != 0, F64_BAD set where the row or column holds an Inf or a
+// NaN; ag / bg OR them over the 16-row / 8-column groups of the DMMA blocks.
+// need[q]: the slabs of the tile's pair q that run (f64_pair_need), staged
+// for its first F64_NEED_CAP pairs; n_slabs their count over the tile.
+struct F64Shared {
+    F64Stage st[F64_STAGES];
+    unsigned am[2][TILE];
+    unsigned bm[2][TILE];
+    unsigned ag[2][TILE / 16];
+    unsigned bg[2][TILE / 8];
+    unsigned char need[F64_NEED_CAP];
+    int n_slabs;
+};
+constexpr int F64_SMEM = (int)sizeof(F64Shared);
 
-// The next slab's words, a thread's share: A element e = t + 256 q is row
-// e / 16, column e % 16 of the slab; B element e is row e / 128, column
-// e % 128.  Both reads are coalesced.
-__device__ __forceinline__ void f64_fetch(const double* __restrict__ at,
-                                          const double* __restrict__ bt,
-                                          int k0, int t, double* ra,
-                                          double* rb) {
-#pragma unroll
-    for (int q = 0; q < F64_LOADS; ++q) {
-        const int e = t + F64_THREADS * q;
-        ra[q] = at[(e / F64_KS) * TILE + k0 + e % F64_KS];
-        rb[q] = bt[(long long)(k0 + e / TILE) * TILE + e % TILE];
+// d += a @ b on one 16 x 8 x MK DMMA block.  Fragments (g = lane / 4,
+// t = lane % 4): a[i] = A[g + 8 (i % 2)][t + 4 (i / 2)], b[i] = B[t + 4 i][g],
+// d[q] = C[g + 8 (q / 2)][2 t + q % 2].
+template <int MK>
+__device__ __forceinline__ void dmma(double (&d)[4], const double (&a)[MK / 2],
+                                     const double (&b)[MK / 4]) {
+    static_assert(MK == 4 || MK == 8, "m16n8k4 or m16n8k8");
+    if constexpr (MK == 4) {
+        asm("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 "
+            "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+            : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+            : "d"(a[0]), "d"(a[1]), "d"(b[0]));
+    } else {
+        asm("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
+            "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+            "{%0, %1, %2, %3};\n"
+            : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+            : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]),
+              "d"(b[1]));
     }
 }
 
+template <int N>
+__device__ __forceinline__ void cp_async_wait_n() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Slab k0 of the pair (at, bt) into stage `st`: 16-byte cp.async copies,
+// 4 of A and 4 of B a thread; 8 lanes copy one 128-byte row of the A slab,
+// 64 lanes one row of the B slab.
+__device__ __forceinline__ void f64_issue(F64Stage& st,
+                                          const double* __restrict__ at,
+                                          const double* __restrict__ bt,
+                                          int k0, int t) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+        const int e = t + F64_THREADS * q;
+        const int ar = e >> 3, ac = 2 * (e & 7);
+        cp_async16(&st.a[ar][ac], at + ar * TILE + k0 + ac);
+        const int br = e >> 6, bc = 2 * (e & 63);
+        cp_async16(&st.b[br][bc], bt + (k0 + br) * TILE + bc);
+    }
+}
+
+// The slab's masks from the raw values (x != 0: NaN and Inf count; x - x
+// != 0: an Inf or a NaN): warps 0-3 those of the A rows and their 16-row
+// groups, warps 4-7 those of the B columns and their 8-column groups.
+__device__ __forceinline__ void f64_masks(const F64Stage& st, unsigned* am,
+                                          unsigned* bm, unsigned* ag,
+                                          unsigned* bg, int t) {
+    unsigned m = 0u;
+    bool bad = false;
+    if (t < TILE) {
+#pragma unroll
+        for (int k = 0; k < F64_KS; k += 2) {
+            const double2 x = *reinterpret_cast<const double2*>(&st.a[t][k]);
+            m |= (x.x != 0.0 ? 1u : 0u) << k;
+            m |= (x.y != 0.0 ? 1u : 0u) << (k + 1);
+            bad |= (x.x - x.x != 0.0) | (x.y - x.y != 0.0);
+        }
+        m |= bad ? F64_BAD : 0u;
+        am[t] = m;
+#pragma unroll
+        for (int o = 1; o < 16; o <<= 1) m |= __shfl_xor_sync(~0u, m, o);
+        if ((t & 15) == 0) ag[t >> 4] = m;
+    } else {
+        const int c = t - TILE;
+#pragma unroll
+        for (int k = 0; k < F64_KS; ++k) {
+            const double x = st.b[k][c];
+            m |= (x != 0.0 ? 1u : 0u) << k;
+            bad |= x - x != 0.0;
+        }
+        m |= bad ? F64_BAD : 0u;
+        bm[c] = m;
+#pragma unroll
+        for (int o = 1; o < 8; o <<= 1) m |= __shfl_xor_sync(~0u, m, o);
+        if ((c & 7) == 0) bg[c >> 3] = m;
+    }
+}
+
+// A lane's C elements: acc[mi][ni][q] is row r0 + 16 mi + 8 (q / 2),
+// column c0 + 8 ni + q % 2, with r0 = 32 (w % 4) + g, c0 = 64 (w / 4) + 2 t;
+// flag bit 4 ni + q of f[mi] is the same element
+// (tests/test_torch_macro_f64.py mirrors this map in numpy).
+struct F64Frag {
+    double acc[2][8][4];
+    unsigned f[2];
+    int wm, wn, r0, c0, g, t;
+    __device__ __forceinline__ F64Frag() {
+        const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
+        g = l >> 2;
+        t = l & 3;
+        wm = w & 3;
+        wn = w >> 2;
+        r0 = 32 * wm + g;
+        c0 = 64 * wn + 2 * t;
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+            for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+                for (int q = 0; q < 4; ++q) acc[mi][ni][q] = 0.0;
+        f[0] = f[1] = 0u;
+    }
+    // One slab on the tensor cores.  DMMA block (mi, ni) is run where its
+    // 16 A rows and 8 B columns share a k with non-zeros on both sides, or
+    // where either holds an Inf or a NaN; every other block's products are
+    // exact zeros (+-0), and adding them changes no sum, so it is skipped.
+    // The decision is the warp's (its lanes read the same masks).  Returns
+    // the blocks with a non-zero product (bit 8 mi + ni), whose flags
+    // `pattern` sets.
+    __device__ __forceinline__ unsigned slab(const F64Stage& st,
+                                             const unsigned* ag,
+                                             const unsigned* bg) {
+        const unsigned gr[2] = {ag[2 * wm], ag[2 * wm + 1]};
+        unsigned need = 0u, live = 0u;
+#pragma unroll
+        for (int ni = 0; ni < 8; ++ni) {
+            const unsigned gc = bg[8 * wn + ni];
+#pragma unroll
+            for (int mi = 0; mi < 2; ++mi) {
+                const unsigned bit = 1u << (8 * mi + ni);
+                const bool nz = (gr[mi] & gc & F64_KBITS) != 0u;
+                live |= nz ? bit : 0u;
+                need |= nz || ((gr[mi] | gc) & F64_BAD) != 0u ? bit : 0u;
+            }
+        }
+        if (need == 0u) return 0u;
+#pragma unroll
+        for (int kk = 0; kk < F64_KS; kk += F64_MMA_K) {
+            double a[2][F64_MMA_K / 2], b[8][F64_MMA_K / 4];
+#pragma unroll
+            for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+                for (int i = 0; i < F64_MMA_K / 2; ++i)
+                    a[mi][i] = (need >> (8 * mi)) & 0xffu
+                        ? st.a[r0 + 16 * mi + 8 * (i % 2)]
+                              [kk + t + 4 * (i / 2)]
+                        : 0.0;
+#pragma unroll
+            for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+                for (int i = 0; i < F64_MMA_K / 4; ++i)
+                    b[ni][i] = (need >> ni) & 0x101u
+                        ? st.b[kk + t + 4 * i][c0 - 2 * t + 8 * ni + g]
+                        : 0.0;
+#pragma unroll
+            for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+                for (int ni = 0; ni < 8; ++ni)
+                    if ((need >> (8 * mi + ni)) & 1u)
+                        dmma<F64_MMA_K>(acc[mi][ni], a[mi], b[ni]);
+        }
+        return live;
+    }
+    // OR the pattern of the `live` blocks into the flags: (mask_row &
+    // mask_col) != 0 over the k bits
+    __device__ __forceinline__ void pattern(const unsigned* am,
+                                            const unsigned* bm,
+                                            unsigned live) {
+        if (live == 0u) return;
+        unsigned ra[2][2];
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+                ra[mi][h] = am[r0 + 16 * mi + 8 * h] & F64_KBITS;
+#pragma unroll
+        for (int ni = 0; ni < 8; ++ni) {
+            if (((live >> ni) & 0x101u) == 0u) continue;
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+                const unsigned cb = bm[c0 + 8 * ni + e];
+#pragma unroll
+                for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+                    for (int h = 0; h < 2; ++h)
+                        f[mi] |= ((ra[mi][h] & cb) != 0u ? 1u : 0u)
+                                 << (4 * ni + 2 * h + e);
+            }
+        }
+    }
+    __device__ __forceinline__ void store(double* __restrict__ cn,
+                                          unsigned char* __restrict__ cf)
+                                          const {
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                const int r = r0 + 16 * mi + 8 * h;
+#pragma unroll
+                for (int ni = 0; ni < 8; ++ni) {
+                    const int col = c0 + 8 * ni;
+                    __stcs(reinterpret_cast<double2*>(cn + r * TILE + col),
+                           make_double2(acc[mi][ni][2 * h],
+                                        acc[mi][ni][2 * h + 1]));
+                    const unsigned bits = (f[mi] >> (4 * ni + 2 * h)) & 3u;
+                    __stcs(reinterpret_cast<unsigned short*>(
+                               cf + r * TILE + col),
+                           (unsigned short)((bits & 1u) | (bits & 2u) << 7));
+                }
+            }
+    }
+};
+
+// The k-masks of every tile of a table, before the pair stream runs: words
+// 0-3 bit k: column k holds a non-zero (the tile as an A operand), word 4
+// bit s: columns 16 s .. 16 s + 15 hold an Inf or a NaN; words 5-8 and 9
+// the same of the rows (the tile as a B operand).  One block a tile; a
+// warp reads whole rows, its lanes neighbouring columns.
 __global__ void __launch_bounds__(F64_THREADS)
+f64_tile_masks(const double* __restrict__ tiles, unsigned* __restrict__ masks) {
+    __shared__ unsigned m[F64_MASK_WORDS];
+    const int t = threadIdx.x, w = t >> 5, l = t & 31;
+    if (t < F64_MASK_WORDS) m[t] = 0u;
+    __syncthreads();
+    const double* x = tiles + (long long)blockIdx.x * TILE_ELEMS;
+    bool cnz[4] = {false, false, false, false};
+    bool cbad[4] = {false, false, false, false};
+    for (int r = w; r < TILE; r += F64_THREADS / 32) {
+        bool rnz = false, rbad = false;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const double v = x[r * TILE + l + 32 * j];
+            cnz[j] |= v != 0.0;
+            cbad[j] |= v - v != 0.0;
+            rnz |= v != 0.0;
+            rbad |= v - v != 0.0;
+        }
+        rnz = __any_sync(~0u, rnz);
+        rbad = __any_sync(~0u, rbad);
+        if (l == 0 && rnz) atomicOr(&m[5 + (r >> 5)], 1u << (r & 31));
+        if (l == 0 && rbad) atomicOr(&m[9], 1u << (r >> 4));
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+        const unsigned nz = __ballot_sync(~0u, cnz[j]);
+        const unsigned bad = __ballot_sync(~0u, cbad[j]);
+        if (l == 0) {
+            if (nz) atomicOr(&m[j], nz);
+            const unsigned sb = ((bad & 0xffffu) ? 1u : 0u) << (2 * j)
+                              | ((bad >> 16) ? 1u : 0u) << (2 * j + 1);
+            if (sb) atomicOr(&m[4], sb);
+        }
+    }
+    __syncthreads();
+    if (t < F64_MASK_WORDS)
+        masks[(long long)blockIdx.x * F64_MASK_WORDS + t] = m[t];
+}
+
+// need[p] bit s: slab s of pair p runs, because a k of it has a non-zero
+// column of A[a_idx[p]] and a non-zero row of B[b_idx[p]], or either holds
+// an Inf or a NaN there.  Every other slab multiplies only zeros and is
+// neither copied nor run.
+__global__ void __launch_bounds__(F64_THREADS)
+f64_pair_need(const int* __restrict__ a_idx, const int* __restrict__ b_idx,
+              const unsigned* __restrict__ masks_a,
+              const unsigned* __restrict__ masks_b,
+              unsigned char* __restrict__ need, int p_cap) {
+    const int p = blockIdx.x * F64_THREADS + threadIdx.x;
+    if (p >= p_cap) return;
+    const unsigned* ma = masks_a + (long long)a_idx[p] * F64_MASK_WORDS;
+    const unsigned* mb = masks_b + (long long)b_idx[p] * F64_MASK_WORDS;
+    unsigned n = (ma[4] | mb[9]) & 0xffu;
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+        const unsigned k = ma[h] & mb[5 + h];
+        n |= ((k & 0xffffu) ? 1u : 0u) << (2 * h)
+           | ((k >> 16) ? 1u : 0u) << (2 * h + 1);
+    }
+    need[p] = (unsigned char)n;
+}
+
+// One block a C tile: the needed slabs of the tile's pairs [seg_ptr[tile],
+// seg_ptr[tile + 1]), in stream order, as a stream over the ring (every
+// thread walks them alike: pair wq, its slabs still to issue wbits).  Slab
+// s is issued F64_STAGES - 1 slabs ahead into stage s % F64_STAGES, and its
+// masks are written one step ahead: at step s, after the barrier that makes
+// slab s + 1 and the masks of slab s visible (and ends every read of slab
+// s - 1 and of the masks of slab s - 1), the block issues slab s +
+// F64_STAGES - 1 into the stage of slab s - 1, writes the masks of slab
+// s + 1, runs slab s's blocks on the tensor cores and ORs its pattern into
+// the flags.  A tile no slab of which runs is stored as zeros.
+__global__ void __launch_bounds__(F64_THREADS, 1)
 macro_pairs_f64_kernel(const double* __restrict__ a_dense,
                        const double* __restrict__ b_dense,
                        const int* __restrict__ a_idx,
                        const int* __restrict__ b_idx,
                        const int* __restrict__ seg_ptr,
+                       const unsigned char* __restrict__ need,
                        double* __restrict__ c_num,
                        unsigned char* __restrict__ c_flag) {
-    __shared__ F64Shared sh;
-    const int t = threadIdx.x, tx = t % 16, ty = t / 16;
+    extern __shared__ __align__(16) unsigned char f64_smem[];
+    F64Shared& sh = *reinterpret_cast<F64Shared*>(f64_smem);
+    const int t = threadIdx.x;
     const long long tile = blockIdx.x;
-    const int lo = seg_ptr[tile], hi = seg_ptr[tile + 1];
-    double acc[F64_REG][F64_REG];
-#pragma unroll
-    for (int r = 0; r < F64_REG; ++r)
-#pragma unroll
-        for (int c = 0; c < F64_REG; ++c) acc[r][c] = 0.0;
-    unsigned long long flags = 0;
-    const int n_slabs = (hi - lo) * (TILE / F64_KS);
-    double ra[F64_LOADS], rb[F64_LOADS];
-    if (n_slabs > 0)
-        f64_fetch(a_dense + (long long)a_idx[lo] * TILE_ELEMS,
-                  b_dense + (long long)b_idx[lo] * TILE_ELEMS, 0, t, ra, rb);
-    for (int s = 0; s < n_slabs; ++s) {
-#pragma unroll
-        for (int q = 0; q < F64_LOADS; ++q) {
-            const int e = t + F64_THREADS * q;
-            sh.a[e / F64_KS][e % F64_KS] = ra[q];
-            sh.b[e / TILE][e % TILE] = rb[q];
-        }
-        __syncthreads();
-        if (s + 1 < n_slabs) {              // the next slab, in flight
-            const int q = lo + (s + 1) / (TILE / F64_KS);
-            f64_fetch(a_dense + (long long)a_idx[q] * TILE_ELEMS,
-                      b_dense + (long long)b_idx[q] * TILE_ELEMS,
-                      ((s + 1) % (TILE / F64_KS)) * F64_KS, t, ra, rb);
-        }
-        {
-            unsigned m = 0;
-            if (t < TILE) {
-#pragma unroll
-                for (int k = 0; k < F64_KS; ++k)
-                    m |= (sh.a[t][k] != 0.0 ? 1u : 0u) << k;
-                sh.am[t] = m;
-            } else {
-#pragma unroll
-                for (int k = 0; k < F64_KS; ++k)
-                    m |= (sh.b[k][t - TILE] != 0.0 ? 1u : 0u) << k;
-                sh.bm[t - TILE] = m;
-            }
-        }
-#pragma unroll 4
-        for (int k = 0; k < F64_KS; ++k) {
-            double av[F64_REG], bv[F64_REG];
-#pragma unroll
-            for (int r = 0; r < F64_REG; ++r) av[r] = sh.a[ty + 16 * r][k];
-#pragma unroll
-            for (int c = 0; c < F64_REG; ++c) bv[c] = sh.b[k][tx + 16 * c];
-#pragma unroll
-            for (int r = 0; r < F64_REG; ++r)
-#pragma unroll
-                for (int c = 0; c < F64_REG; ++c)
-                    acc[r][c] = fma(av[r], bv[c], acc[r][c]);
-        }
-        __syncthreads();                    // the masks are written
-#pragma unroll
-        for (int r = 0; r < F64_REG; ++r) {
-            const unsigned mr = sh.am[ty + 16 * r];
-#pragma unroll
-            for (int c = 0; c < F64_REG; ++c)
-                if (mr & sh.bm[tx + 16 * c])
-                    flags |= 1ull << (r * F64_REG + c);
-        }
-        __syncthreads();                    // the slab is read
+    const int lo = seg_ptr[tile], n_pairs = seg_ptr[tile + 1] - lo;
+    if (t == 0) sh.n_slabs = 0;
+    __syncthreads();
+    for (int q = t; q < n_pairs; q += F64_THREADS) {
+        const unsigned nb = need[lo + q];
+        if (q < F64_NEED_CAP) sh.need[q] = (unsigned char)nb;
+        if (nb != 0u) atomicAdd(&sh.n_slabs, __popc(nb));
     }
-    double* cn = c_num + tile * TILE_ELEMS;
-    unsigned char* cf = c_flag + tile * TILE_ELEMS;
-#pragma unroll
-    for (int r = 0; r < F64_REG; ++r)
-#pragma unroll
-        for (int c = 0; c < F64_REG; ++c) {
-            const int x = (ty + 16 * r) * TILE + tx + 16 * c;
-            cn[x] = acc[r][c];
-            cf[x] = (unsigned char)((flags >> (r * F64_REG + c)) & 1ull);
+    __syncthreads();
+    const int n_slabs = sh.n_slabs;
+    int wq = -1;
+    unsigned wbits = 0u;
+    auto issue = [&](int s) {
+        if (s >= n_slabs) return;
+        while (wbits == 0u) {
+            ++wq;
+            wbits = wq < F64_NEED_CAP ? sh.need[wq] : need[lo + wq];
         }
+        const int ks = __ffs(wbits) - 1;
+        wbits &= wbits - 1u;
+        const int q = lo + wq;
+        f64_issue(sh.st[s % F64_STAGES],
+                  a_dense + (long long)a_idx[q] * TILE_ELEMS,
+                  b_dense + (long long)b_idx[q] * TILE_ELEMS, F64_KS * ks, t);
+    };
+    auto masks = [&](int s) {
+        f64_masks(sh.st[s % F64_STAGES], sh.am[s & 1], sh.bm[s & 1],
+                  sh.ag[s & 1], sh.bg[s & 1], t);
+    };
+    F64Frag fr;
+#pragma unroll
+    for (int s = 0; s < F64_STAGES - 1; ++s) {
+        issue(s);
+        cp_async_commit();
+    }
+    if (n_slabs > 0) {
+        cp_async_wait_n<F64_STAGES - 2>();  // slab 0
+        __syncthreads();
+        masks(0);
+    }
+    for (int s = 0; s < n_slabs; ++s) {
+        cp_async_wait_n<F64_STAGES - 3>();  // slab s + 1
+        __syncthreads();
+        issue(s + F64_STAGES - 1);
+        cp_async_commit();
+        if (s + 1 < n_slabs) masks(s + 1);
+        const unsigned live = fr.slab(sh.st[s % F64_STAGES], sh.ag[s & 1],
+                                      sh.bg[s & 1]);
+        fr.pattern(sh.am[s & 1], sh.bm[s & 1], live);
+    }
+    fr.store(c_num + tile * TILE_ELEMS, c_flag + tile * TILE_ELEMS);
 }
 
 // per launch: the attribute belongs to the current device
@@ -895,13 +1190,31 @@ extern "C" int macro_class_uniform_f32(
 
 // The float64 pair stream: c_num (c_cap, 128, 128) f64 and c_flag
 // (c_cap, 128, 128) u8 are written whole, one block a C tile; seg_ptr has
-// c_cap + 1 entries.
+// c_cap + 1 entries.  First the k-masks of the n_a A tiles and the n_b B
+// tiles (masks_a / masks_b, F64_MASK_WORDS words a tile; the same buffer,
+// computed once, where both operands are one table) and the slabs that
+// run of each of the p_cap pairs (need, a byte a pair).
 extern "C" int macro_accumulate_pairs_f64(
         const double* a_dense, const double* b_dense, const int* a_idx,
         const int* b_idx, const int* seg_ptr, double* c_num,
-        unsigned char* c_flag, int c_cap, cudaStream_t stream) {
+        unsigned char* c_flag, int c_cap, int n_a, int n_b, int p_cap,
+        unsigned* masks_a, unsigned* masks_b, unsigned char* need,
+        cudaStream_t stream) {
     if (c_cap <= 0) return (int)cudaSuccess;
-    macro_pairs_f64_kernel<<<c_cap, F64_THREADS, 0, stream>>>(
-        a_dense, b_dense, a_idx, b_idx, seg_ptr, c_num, c_flag);
+    if (n_a <= 0 || n_b <= 0 || p_cap < 0) return (int)cudaErrorInvalidValue;
+    f64_tile_masks<<<n_a, F64_THREADS, 0, stream>>>(a_dense, masks_a);
+    if (masks_b != masks_a)
+        f64_tile_masks<<<n_b, F64_THREADS, 0, stream>>>(b_dense, masks_b);
+    if (p_cap > 0)
+        f64_pair_need<<<(p_cap + F64_THREADS - 1) / F64_THREADS, F64_THREADS,
+                        0, stream>>>(a_idx, b_idx, masks_a, masks_b, need,
+                                     p_cap);
+    // per launch: the attribute belongs to the current device
+    const cudaError_t attr = cudaFuncSetAttribute(
+        macro_pairs_f64_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        F64_SMEM);
+    if (attr != cudaSuccess) return (int)attr;
+    macro_pairs_f64_kernel<<<c_cap, F64_THREADS, F64_SMEM, stream>>>(
+        a_dense, b_dense, a_idx, b_idx, seg_ptr, need, c_num, c_flag);
     return (int)cudaGetLastError();
 }

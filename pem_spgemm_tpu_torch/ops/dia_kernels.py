@@ -13,12 +13,14 @@ first use and bound with ctypes by ops/_build.py):
 Both compute ``C[d1 + d2][i] += A[d1][i] * B[d2][i + d1]`` over all band
 pairs, in ascending A-band order per C element, and the same sum over the
 0/1 masks (float32 structural counts).  Each mode has a float32 entry and a
-float64 entry (the f64 parity mode: one thread a C element over the same
-offsets, rounding as the plain version does); the bands' dtype picks it.
+float64 entry (the f64 parity mode, rounding each product and sum as the
+plain version does); the bands' dtype picks it.
 ``values_only=True`` launches the variant without the mask algebra and
 returns ``None`` for the counts.  The
-dense entry stages a window of B in shared memory: ``dense_launch`` gives
-its block shape and shared-memory layout, ``dense_chunks`` its band chunks.
+dense entries stage a window of B in shared memory (the float64 one is the
+float32 kernel on 8-byte words, with its own thread geometry):
+``dense_launch`` gives the block shape and shared-memory layout for a word
+size, ``dense_chunks`` the band chunks.
 The pairs entry stages its column range of the A bands and the pair tables:
 ``pairs_launch`` gives its grid and what is staged.
 
@@ -40,11 +42,14 @@ from pem_spgemm_tpu_torch.ops import _build
 from pem_spgemm_tpu_torch.ops.dia import _dia_multiply_torch, _plan_maps
 
 SOURCE = _build.cuda_source("dia_multiply")
-ROWS = 8                    # C rows a thread of the dense entry (the .cu's)
-COLS = 4                    # C columns a thread of the dense entry (its I)
-MAX_ROW_BLOCKS = 8          # row blocks of 8 a thread block, at most
+# The dense entries' geometry by word size (the .cu's Dense<float>,
+# Dense<double>): C rows and columns a thread, threads a block at most.
+DENSE_GEOMETRY = {4: dict(rows=8, cols=4, threads=256),
+                  8: dict(rows=4, cols=4, threads=256)}
+ROWS = DENSE_GEOMETRY[4]["rows"]    # the float32 entry's
+COLS = DENSE_GEOMETRY[4]["cols"]
+MAX_ROW_BLOCKS = 8          # row blocks a thread block, at most
 MAX_COL_BLOCKS = 64         # column blocks a thread block, at most
-MAX_THREADS = 256
 COPY_WIDTH = 32             # window columns a pass of the staging copies
 SMEM_BUDGET = 112 * 1024    # bytes a block of either entry: two an SM
 PAIR_THREADS = 256          # threads a block of the pairs entry (the .cu's)
@@ -73,7 +78,8 @@ def _declare(lib) -> None:
                                            ci, ci, vp]
     lib.dia_multiply_pairs_f32.restype = ci
     lib.dia_multiply_dense_f64.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci,
-                                           ll, ll, ll, vp]
+                                           ll, ll, ll, ci, ci, ci, ci, ci,
+                                           ci, ci, vp]
     lib.dia_multiply_dense_f64.restype = ci
     lib.dia_multiply_pairs_f64.argtypes = [vp, vp, vp, vp, vp, vp, ci, ll,
                                            ll, ll, vp]
@@ -134,61 +140,68 @@ def dense_chunks(offs_a, kc: int):
     return out
 
 
-def dense_launch(offs_a, d2n: int, dcn: int):
-    """The dense entry's launch shape for A's offsets, B's d2n bands and dcn
-    C rows (the same for both variants).
+def dense_launch(offs_a, d2n: int, dcn: int, word: int = 4):
+    """The dense entry's launch shape for A's offsets, B's d2n bands, dcn
+    C rows and ``word``-byte words (4: the float32 entry, 8: the float64
+    one; the same for the values-only variants).
 
-    A thread owns ROWS x COLS C elements; a block 2^tr_log2 row blocks
-    (enough for every C row, at most 8) x tc_n column blocks (at most 64,
-    at most 256 threads, so at least 32), so L = tc_n * COLS columns;
-    threads take column blocks first, so the lanes of a warp share their
-    rows and skip or take a band together.  Per
+    A thread owns rows x cols C elements (``DENSE_GEOMETRY[word]``); a block
+    2^tr_log2 row blocks (enough for every C row, at most threads / 32) x
+    tc_n column blocks (at most 64, at most ``threads`` threads, so at
+    least 32), so L = tc_n * cols columns; threads take column blocks
+    first, so the lanes of a warp share their rows and skip or take a band
+    together.  Per
     chunk of at most kc A bands spanning less than kc (``dense_chunks``),
     the block stages the A chunk (a_rows x L words: a_rows the most bands a
     chunk has) and, from word b_off, the B window: at most rows_cap rows
-    (the B rows the block's C rows reach, plus ROWS - 1 zero rows on each
+    (the B rows the block's C rows reach, plus rows - 1 zero rows on each
     side) of at most cols_cap = L + the widest chunk's offset span columns,
-    each row a ring of s words (cols_cap rounded up to 32) rotated by its
-    row index.  s >= L + span > rows_cap + 3 (L >= 128 >= rb + 2 * ROWS),
-    which keeps the .cu's positions below 2 s.  kc is the largest power of
-    two up to 128 whose shared memory fits in SMEM_BUDGET (fewer chunks
-    stage fewer windows).  The grid is one-dimensional: grid_y row blocks of
-    each column range, neighbours.  Returns a dict; raises ValueError where
-    even kc = 1 does not fit or there are 2^16 A bands or more (a count is
-    kept in 16 bits)."""
+    each row a ring of s words (a multiple of 32 holding cols_cap and
+    rows_cap + 3 words) rotated by its row index, which keeps the .cu's
+    positions below 2 s.  kc is the largest power of two up to 128 whose
+    shared memory fits in SMEM_BUDGET (fewer chunks stage fewer windows).
+    The grid is one-dimensional: grid_y row blocks of each column range,
+    neighbours.  Returns a dict; raises ValueError where even kc = 1 does
+    not fit or there are 2^16 A bands or more (a count is kept in 16
+    bits)."""
     offs_a = tuple(offs_a)
+    if word not in DENSE_GEOMETRY:
+        raise ValueError(f"{word}-byte words: the dense entries take 4 or 8")
     if not offs_a or d2n <= 0 or dcn <= 0:
         raise ValueError(f"{len(offs_a)} A bands, d2n={d2n}, dcn={dcn}")
     if len(offs_a) >= 1 << 16:
         raise ValueError(f"{len(offs_a)} A bands: the kernel's counts are "
                          "16-bit")
-    tr = min(MAX_ROW_BLOCKS, _pow2_at_least(-(-dcn // ROWS)))
-    tc_n = min(MAX_THREADS // tr, MAX_COL_BLOCKS)
-    L = tc_n * COLS
-    rb = ROWS * tr
+    geo = DENSE_GEOMETRY[word]
+    rows, cols, threads = geo["rows"], geo["cols"], geo["threads"]
+    tr = min(MAX_ROW_BLOCKS, threads // 32,
+             _pow2_at_least(-(-dcn // rows)))
+    tc_n = min(threads // tr, MAX_COL_BLOCKS)
+    L = tc_n * cols
+    rb = rows * tr
     grid_y = -(-dcn // rb)
     for kc in (128, 64, 32, 16, 8, 4, 2, 1):
         chunks = dense_chunks(offs_a, kc)
         a_rows = max(ke - kb for kb, ke in chunks)
         span = max(offs_a[ke - 1] - offs_a[kb] for kb, ke in chunks)
-        rows_cap = min(d2n, rb + span) + 2 * (ROWS - 1)
+        rows_cap = min(d2n, rb + span) + 2 * (rows - 1)
         cols_cap = L + span
-        s = -(-cols_cap // 32) * 32
+        s = -(-max(cols_cap, rows_cap + 3) // 32) * 32
         b_off = a_rows * L
         stage = b_off + rows_cap * s
-        if 4 * stage <= SMEM_BUDGET:
+        if word * stage <= SMEM_BUDGET:
             break
     else:
         raise ValueError(f"the dense entry's window for {d2n} B bands does "
                          "not fit in shared memory")
-    threads = tr * tc_n
     cw = min(COPY_WIDTH, _pow2_at_least(cols_cap))
-    return dict(tr_log2=tr.bit_length() - 1, tc_n=tc_n, cols=COLS, L=L,
-                rows_per_block=rb, grid_y=grid_y, kc=kc, a_rows=a_rows,
-                span=span, rows_cap=rows_cap, cols_cap=cols_cap, s=s,
-                cw_log2=cw.bit_length() - 1, b_off=b_off,
-                stage_floats=stage, smem_bytes=4 * stage,
-                threads=threads, chunks=len(chunks))
+    return dict(tr_log2=tr.bit_length() - 1, tc_n=tc_n, rows=rows,
+                cols=cols, L=L, rows_per_block=rb, grid_y=grid_y, kc=kc,
+                a_rows=a_rows, span=span, rows_cap=rows_cap,
+                cols_cap=cols_cap, s=s, cw_log2=cw.bit_length() - 1,
+                b_off=b_off, word=word, stage_words=stage,
+                smem_bytes=word * stage, threads=tr * tc_n,
+                chunks=len(chunks))
 
 
 # --------------------------------------------------------------------------
@@ -316,8 +329,8 @@ def dia_multiply(a_bands, b_bands, *, offs_a, offs_b, dc_list, n_out,
         (dcn, n_out), dtype=torch.float32, device=dev)
     if c.numel() == 0:                  # nothing to launch, nothing counted
         return c, cnt
-    shape = dense_launch(offs_a, len(offs_b), dcn) \
-        if mode == "dense" and not wide else None
+    shape = dense_launch(offs_a, len(offs_b), dcn,
+                         a_bands.element_size()) if mode == "dense" else None
     for t in tables:
         if t.device != dev or t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError("tables must be contiguous int32 tensors on "
@@ -327,20 +340,22 @@ def dia_multiply(a_bands, b_bands, *, offs_a, offs_b, dc_list, n_out,
     entry = f"dia_multiply_{mode}" + ("_f64" if wide else "")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        if wide:
-            err = _launch_f64(lib, mode, a_bands, b_bands, tables, c,
-                              cnt_ptr, offs_a, offs_b, dcn, n_i, n_k, n_out,
-                              stream)
-        elif mode == "dense":
+        if mode == "dense":
             (offs_dev,) = tables
             if offs_dev.numel() != len(offs_a):
                 raise ValueError("tables do not match offs_a")
-            err = lib.dia_multiply_dense_f32(
+            fn = lib.dia_multiply_dense_f64 if wide \
+                else lib.dia_multiply_dense_f32
+            err = fn(
                 a_bands.data_ptr(), b_bands.data_ptr(), offs_dev.data_ptr(),
                 c.data_ptr(), cnt_ptr, len(offs_a), len(offs_b), dcn, n_i,
                 n_k, n_out, shape["tr_log2"], shape["tc_n"], shape["kc"],
                 shape["s"], shape["cw_log2"], shape["b_off"],
-                shape["stage_floats"], stream)
+                shape["stage_words"], stream)
+        elif wide:
+            err = _launch_pairs_f64(lib, a_bands, b_bands, tables, c,
+                                    cnt_ptr, offs_a, offs_b, dcn, n_i, n_k,
+                                    n_out, stream)
         else:
             row_ptr, trip = tables
             n_pairs = len(offs_a) * len(offs_b)
@@ -360,17 +375,9 @@ def dia_multiply(a_bands, b_bands, *, offs_a, offs_b, dc_list, n_out,
     return c, cnt
 
 
-def _launch_f64(lib, mode, a_bands, b_bands, tables, c, cnt_ptr, offs_a,
-                offs_b, dcn, n_i, n_k, n_out, stream):
-    """Launch the float64 entry of ``mode``; returns its cudaError_t."""
-    if mode == "dense":
-        (offs_dev,) = tables
-        if offs_dev.numel() != len(offs_a):
-            raise ValueError("tables do not match offs_a")
-        return lib.dia_multiply_dense_f64(
-            a_bands.data_ptr(), b_bands.data_ptr(), offs_dev.data_ptr(),
-            c.data_ptr(), cnt_ptr, len(offs_a), len(offs_b), dcn, n_i, n_k,
-            n_out, stream)
+def _launch_pairs_f64(lib, a_bands, b_bands, tables, c, cnt_ptr, offs_a,
+                      offs_b, dcn, n_i, n_k, n_out, stream):
+    """Launch the float64 pairs entry; returns its cudaError_t."""
     row_ptr, trip = tables
     if row_ptr.numel() != dcn + 1 or \
             trip.numel() != 3 * len(offs_a) * len(offs_b):

@@ -16,9 +16,13 @@ with nvcc at first use and bound with ctypes by ops/_build.py):
                            reference's single-buffered class kernel, which
                            has no caller in either package);
   accumulate_macro_pairs   for float64 tiles (the f64 parity mode) the pair
-  (float64)                stream's float64 entry: one block a C tile, FP64
-                           FMA over k-slabs staged in shared memory, the
-                           same contract and flags.
+  (float64)                stream's float64 entry: one block a C tile, its
+                           product on the FP64 tensor cores (mma.sync f64,
+                           DMMA) over a ring of k-slabs staged by cp.async;
+                           the k-slabs and the DMMA blocks that multiply
+                           only zeros are skipped (never where an Inf or a
+                           NaN is among their operands); the same contract
+                           and flags.
 
 The three float32 entries compute their 128x128x128 products on the
 tensor cores (wgmma on tf32 operands with a 3xTF32 split, which keeps
@@ -28,7 +32,7 @@ entry forms the structural pattern of the same products as uint8 flags from
 the raw values (see ops/macro.py).  Every C tile is written once by the
 block that owns it: the class entries and the float64 entry launch one
 block a tile, the float32 pair-stream entry one persistent block an SM
-(``persistent_grid``), each taking tiles in stream order from a counter the
+(``persistent_grid``), taking tiles in stream order from a counter the
 wrapper zeroes and running them as one stream of stages.
 
 Dispatch is by the tensors' device and nothing else: CUDA tensors launch
@@ -50,6 +54,7 @@ from pem_spgemm_tpu_torch.ops.macro import TILE, accumulate_macro
 from pem_spgemm_tpu_torch.ops.stencil import class_call_plain, p_list_of
 
 SOURCE = _build.cuda_source("macro_accumulate")
+F64_MASK_WORDS = 10     # the float64 entry's k-mask words a tile (the .cu's)
 
 # kernel launches per entry (plain-version calls are not counted)
 LAUNCHES = {"macro_accumulate_pairs": 0, "macro_class_ragged": 0,
@@ -70,7 +75,8 @@ def _declare(lib) -> None:
     lib.macro_class_uniform_f32.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci,
                                             ll, vp, vp, vp]
     lib.macro_accumulate_pairs_f64.argtypes = [vp, vp, vp, vp, vp, vp, vp,
-                                               ci, vp]
+                                               ci, ci, ci, ci, vp, vp, vp,
+                                               vp]
     for fn in (lib.macro_accumulate_pairs_f32, lib.macro_class_ragged_f32,
                lib.macro_class_uniform_f32, lib.macro_accumulate_pairs_f64):
         fn.restype = ci
@@ -135,8 +141,8 @@ def segment_offsets(seg, c_cap: int):
 
 
 def persistent_grid(device) -> int:
-    """Blocks of the pair-stream entry: one an SM of ``device`` (a block
-    takes most of an SM's shared memory)."""
+    """Blocks of the float32 pair-stream entry: one an SM of ``device`` (a
+    block takes most of an SM's shared memory)."""
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
@@ -166,32 +172,40 @@ def accumulate_macro_pairs(a_dense, b_dense, a_idx, b_idx, seg, c_cap: int,
     if not a_dense.is_cuda:
         return accumulate_macro(a_dense, b_dense, a_idx, b_idx, seg, c_cap,
                                 chunk, acc_dtype or a_dense.dtype)
-    wide = a_dense.dtype == torch.float64
     c_num = torch.empty((c_cap, TILE, TILE), dtype=a_dense.dtype, device=dev)
     c_flag = torch.empty((c_cap, TILE, TILE), dtype=torch.uint8, device=dev)
     if c_cap == 0:                      # nothing to launch, nothing counted
         return c_num, c_flag
     seg_ptr = segment_offsets(seg, c_cap)
     lib = _library()
-    if wide:
-        with torch.cuda.device(dev):
-            _raise_on(lib.macro_accumulate_pairs_f64(
-                a_dense.data_ptr(), b_dense.data_ptr(), a_idx.data_ptr(),
-                b_idx.data_ptr(), seg_ptr.data_ptr(), c_num.data_ptr(),
-                c_flag.data_ptr(), c_cap,
-                torch.cuda.current_stream().cuda_stream),
-                "macro_accumulate_pairs_f64")
-        LAUNCHES["macro_accumulate_pairs_f64"] += 1
-        return c_num, c_flag
-    next_tile = torch.zeros(1, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        _raise_on(lib.macro_accumulate_pairs_f32(
-            a_dense.data_ptr(), b_dense.data_ptr(), a_idx.data_ptr(),
+    ptrs = (a_dense.data_ptr(), b_dense.data_ptr(), a_idx.data_ptr(),
             b_idx.data_ptr(), seg_ptr.data_ptr(), c_num.data_ptr(),
-            c_flag.data_ptr(), c_cap, persistent_grid(dev),
-            next_tile.data_ptr(), torch.cuda.current_stream().cuda_stream),
-            "macro_accumulate_pairs")
-    LAUNCHES["macro_accumulate_pairs"] += 1
+            c_flag.data_ptr(), c_cap)
+    if a_dense.dtype == torch.float64:
+        # scratch: the tiles' k-masks (one buffer where A and B are one
+        # table) and the slabs that run of each pair
+        entry = "macro_accumulate_pairs_f64"
+        masks_a = torch.empty((a_dense.shape[0], F64_MASK_WORDS),
+                              dtype=torch.int32, device=dev)
+        masks_b = masks_a if b_dense.data_ptr() == a_dense.data_ptr() \
+            and b_dense.shape == a_dense.shape else torch.empty(
+                (b_dense.shape[0], F64_MASK_WORDS), dtype=torch.int32,
+                device=dev)
+        need = torch.empty(p_cap, dtype=torch.uint8, device=dev)
+        with torch.cuda.device(dev):
+            err = lib.macro_accumulate_pairs_f64(
+                *ptrs, a_dense.shape[0], b_dense.shape[0], p_cap,
+                masks_a.data_ptr(), masks_b.data_ptr(), need.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
+    else:
+        entry = "macro_accumulate_pairs"
+        next_tile = torch.zeros(1, dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            err = lib.macro_accumulate_pairs_f32(
+                *ptrs, persistent_grid(dev), next_tile.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, entry)
+    LAUNCHES[entry] += 1
     return c_num, c_flag
 
 

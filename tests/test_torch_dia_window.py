@@ -9,8 +9,12 @@ against every kind of offset set ``dense_qualifies`` admits (stencils of 1
 to 128 bands, narrow and wide, gapped A offsets, rectangular operands), and
 replay the kernel block by block in numpy: the staged window (zero-filled
 outside B), the register block named by anti-diagonal and slot, the reload
-at a gap or where a thread's rows leave B's range.  The replay must give
-the plain version's values to float32 rounding and its counts exactly.
+at a gap or where a thread's rows leave B's range.  Both word sizes: the
+float32 entry (4-byte words, 8 x 4 C elements a thread) and the float64 one
+(the same kernel on 8-byte words, 4 x 4 a thread).  The replay must give the
+plain version's values to float32 rounding (bit for bit in float64, where
+the kernel rounds each product and sum as the plain version does) and its
+counts exactly; the float32 launch shapes stay as they were.
 
 The pairs entry (any offset sets) is replayed the same way from
 ``dia_kernels.pairs_launch``'s grid: a block's column range, its staged A
@@ -27,8 +31,6 @@ import torch
 from pem_spgemm_tpu_torch.ops import dia_kernels as dk
 from pem_spgemm_tpu_torch.ops.dia import _dia_multiply_torch, _plan_maps
 
-R = dk.ROWS
-PADR = R - 1
 
 # (A offsets, B offsets): every kind of set dense_qualifies admits
 QUALIFYING = {
@@ -45,36 +47,43 @@ QUALIFYING = {
 }
 
 
-def _shape(offs_a, offs_b):
+def _shape(offs_a, offs_b, word=4):
     dc_list, _ = _plan_maps(offs_a, offs_b)
     assert dk.dense_qualifies(offs_a, offs_b, dc_list)
-    return dk.dense_launch(offs_a, len(offs_b), len(dc_list))
+    return dk.dense_launch(offs_a, len(offs_b), len(dc_list), word)
 
 
+@pytest.mark.parametrize("word", [4, 8])
 @pytest.mark.parametrize("name", sorted(QUALIFYING))
-def test_launch_shape_holds_every_chunk(name):
+def test_launch_shape_holds_every_chunk(name, word):
     offs_a, offs_b = QUALIFYING[name]
     d2n = len(offs_b)
     dcn = len(_plan_maps(offs_a, offs_b)[0])
-    sh = _shape(offs_a, offs_b)
+    sh = _shape(offs_a, offs_b, word)
+    geo = dk.DENSE_GEOMETRY[word]
+    R = geo["rows"]
     tr = 1 << sh["tr_log2"]
-    assert sh["cols"] == dk.COLS == 4
-    assert tr * sh["tc_n"] == sh["threads"] <= 256
+    assert (sh["rows"], sh["cols"]) == (R, geo["cols"]) and sh["word"] == word
+    assert tr * sh["tc_n"] == sh["threads"] <= geo["threads"] <= 256
     assert sh["L"] == sh["tc_n"] * sh["cols"]
-    # a block's rows cover every C row, or MAX_ROW_BLOCKS row blocks of
-    # them, and the lanes of a warp share their rows
-    cap = R * dk.MAX_ROW_BLOCKS
+    # a block's rows cover every C row, or the most row blocks whose
+    # warps still share their rows, and the lanes of a warp share their rows
+    cap = R * min(dk.MAX_ROW_BLOCKS, geo["threads"] // 32)
     assert sh["rows_per_block"] == R * tr >= min(dcn, cap)
     assert sh["tc_n"] >= 32
     assert sh["grid_y"] * sh["rows_per_block"] >= dcn
     # one block's shared memory, small enough for two blocks an SM
-    assert sh["smem_bytes"] == 4 * sh["stage_floats"] <= dk.SMEM_BUDGET
+    assert sh["smem_bytes"] == word * sh["stage_words"] <= dk.SMEM_BUDGET
     assert 2 * sh["smem_bytes"] <= 227 * 1024
-    assert sh["s"] % 32 == 0 and sh["stage_floats"] % 4 == 0
+    # 16-byte pieces: every row of the window and of the A chunk starts on
+    # one, and a thread's first word is one
+    assert sh["s"] % 32 == 0 and (word * sh["stage_words"]) % 16 == 0
+    assert (word * sh["b_off"]) % 16 == 0 and (word * sh["L"]) % 16 == 0
+    assert (word * sh["cols"]) % 16 == 0 and sh["rows"] % (16 // word) == 0
     # a row's ring holds the window's columns, and a rotated position
     # (column + row + a shift below 4) stays below 2 s
     assert sh["cols_cap"] <= sh["s"] and sh["rows_cap"] + 3 <= sh["s"]
-    assert sh["b_off"] + sh["rows_cap"] * sh["s"] <= sh["stage_floats"]
+    assert sh["b_off"] + sh["rows_cap"] * sh["s"] <= sh["stage_words"]
     assert (1 << sh["cw_log2"]) <= min(sh["threads"], dk.COPY_WIDTH)
     chunks = dk.dense_chunks(offs_a, sh["kc"])
     assert len(chunks) == sh["chunks"]
@@ -85,11 +94,57 @@ def test_launch_shape_holds_every_chunk(name):
         span = offs_a[ke - 1] - offs_a[kb]
         assert ke == kb2 and 0 < ke - kb <= min(sh["kc"], sh["a_rows"])
         assert span < sh["kc"] and sh["L"] + span <= sh["cols_cap"]
-        rows = min(d2n, sh["rows_per_block"] + span) + 2 * PADR
+        rows = min(d2n, sh["rows_per_block"] + span) + 2 * (R - 1)
         assert rows <= sh["rows_cap"]
     if name == "gapped wide":
         assert any(offs_a[ke - 1] - offs_a[kb] > ke - kb - 1
                    for kb, ke in chunks)
+
+
+# the float32 entry's launch shapes, as they were before the dense kernel
+# took its word type as a template parameter
+FLOAT32_SHAPES = {
+    "stencil 16": (2, 64, 128, 288, 5, 4096, 12736, 1, 1),
+    "stencil 64": (3, 32, 128, 192, 5, 8192, 23168, 2, 1),
+    "stencil 128": (3, 32, 32, 160, 5, 4096, 21536, 4, 4),
+    "gapped wide": (3, 32, 128, 192, 5, 640, 11008, 2, 1),
+    "wide b": (3, 32, 128, 160, 5, 384, 13184, 16, 1),
+    "single": (0, 64, 128, 256, 5, 256, 4096, 1, 1),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FLOAT32_SHAPES))
+def test_float32_launch_shapes_are_unchanged(name):
+    sh = _shape(*QUALIFYING[name])
+    assert tuple(sh[k] for k in ("tr_log2", "tc_n", "kc", "s", "cw_log2",
+                                 "b_off", "stage_words", "grid_y",
+                                 "chunks")) == FLOAT32_SHAPES[name]
+    assert (dk.ROWS, dk.COLS) == (8, 4) and sh["smem_bytes"] == \
+        4 * sh["stage_words"]
+
+
+def test_dense_geometry_is_the_sources():
+    # DENSE_GEOMETRY mirrors the .cu's Dense<float> / Dense<double>, and
+    # the float64 window chunks fewer bands than the float32 one at the
+    # wide stencils (the same budget holds half the words)
+    import re
+    with open(dk.SOURCE) as f:
+        src = f.read()
+    for word, t in ((4, "float"), (8, "double")):
+        body = re.search(r"struct Dense<%s> \{(.*?)\};" % t, src,
+                         re.S).group(1)
+        got = {k: int(re.search(r"constexpr int %s = (\d+);" % k,
+                                body).group(1))
+               for k in ("ROWS", "I", "THREADS", "MIN_BLOCKS")}
+        geo = dk.DENSE_GEOMETRY[word]
+        assert (got["ROWS"], got["I"], got["THREADS"]) == (
+            geo["rows"], geo["cols"], geo["threads"])
+        assert got["MIN_BLOCKS"] == 2
+    for d in (64, 128):
+        offs = tuple(range(-(d // 2), d - d // 2))
+        assert _shape(offs, offs, 8)["kc"] < _shape(offs, offs, 4)["kc"]
+    with pytest.raises(ValueError, match="4 or 8"):
+        dk.dense_launch((0,), 1, 1, 2)
 
 
 def test_chunk_rule_cuts_at_count_and_at_span():
@@ -104,7 +159,7 @@ def test_chunk_rule_cuts_at_count_and_at_span():
 def test_launch_shape_bounds_the_window_by_the_block_not_by_b():
     # 200,000 B bands: a block stages only the rows its C rows reach
     sh = dk.dense_launch((0,), 200_000, 200_000)
-    assert sh["rows_cap"] == R * dk.MAX_ROW_BLOCKS + 2 * PADR
+    assert sh["rows_cap"] == dk.ROWS * dk.MAX_ROW_BLOCKS + 2 * (dk.ROWS - 1)
     assert sh["kc"] == 128
     # a count is kept in 16 bits
     with pytest.raises(ValueError, match="16-bit"):
@@ -117,16 +172,23 @@ def _replay_block_kernel(a, b, offs, dcn, n_out, values_only):
     out as the kernel's shared memory (NaN where nothing is staged; window
     row w, column cc at w * s + (cc + w + sh) mod s), then walk the bands in
     groups of up to 8, each thread loading whole window rows at its fixed
-    positions into registers named by anti-diagonal and slot, all 8 rows
-    where a group starts afresh.  Returns (c, cnt, reloads)."""
+    positions into registers named by anti-diagonal and slot, all R rows
+    where a group starts afresh.  The words' dtype picks the entry: float32
+    products are fused into the sum (fmaf), float64 ones rounded, then
+    added (madd).  Returns (c, cnt, reloads)."""
     d1n, n_i = a.shape
     d2n, n_k = b.shape
-    sh = dk.dense_launch(offs, d2n, dcn)
+    dt = a.dtype
+    word = dt.itemsize
+    vw = 16 // word                     # words a 16-byte piece
+    sh = dk.dense_launch(offs, d2n, dcn, word)
+    R = sh["rows"]
+    PADR = R - 1
     cols, s, L = sh["cols"], sh["s"], sh["L"]
     tc_n, rb = sh["tc_n"], sh["rows_per_block"]
     nth = sh["threads"]
     a0 = offs[0]
-    c = np.full((dcn, n_out), np.nan, np.float32)
+    c = np.full((dcn, n_out), np.nan, dt)
     cnt = np.full((dcn, n_out), np.nan, np.float32)
     ir, ii = np.arange(R)[:, None], np.arange(cols)[None, :]
     n_t = R + cols - 1                  # anti-diagonals of a register block
@@ -144,8 +206,8 @@ def _replay_block_kernel(a, b, offs, dcn, n_out, values_only):
                     continue
                 nrows, ncols = wr1 - wr0 + 2 * PADR, L + dhi - dlo
                 assert nrows <= sh["rows_cap"] and ncols <= sh["cols_cap"]
-                shift = (dlo + wr0 - rc0 - PADR) & 3
-                smem = np.full(sh["stage_floats"], np.nan, np.float32)
+                shift = (dlo + wr0 - rc0 - PADR) & (vw - 1)
+                smem = np.full(sh["stage_words"], np.nan, dt)
                 i = i0 + np.arange(L)
                 for kk in range(ke - kb):
                     smem[kk * L:(kk + 1) * L] = np.where(
@@ -158,22 +220,22 @@ def _replay_block_kernel(a, b, offs, dcn, n_out, values_only):
                 assert rot.max() < 2 * s
                 at = sh["b_off"] + w * s + np.where(rot < s, rot, rot - s)
                 assert len(np.unique(at)) == at.size
-                assert at.max() < sh["stage_floats"]
+                assert at.max() < sh["stage_words"]
                 smem[at] = np.where(
                     ok, b[np.clip(k2, 0, d2n - 1), np.clip(j, 0, n_k - 1)], 0)
                 stages.append((kb, ke, wr0, nrows, dlo, shift, smem))
             for th in range(nth):
                 tc, tr = th % tc_n, th // tc_n
-                acc = np.zeros((R, cols), np.float32)
+                acc = np.zeros((R, cols), dt)
                 num = np.zeros((R, cols), np.float32)
-                bv = np.full((n_t, R), np.nan, np.float32)
+                bv = np.full((n_t, R), np.nan, dt)
                 for kb, ke, wr0, nrows, dlo, shift, smem in stages:
                     p0 = cols * tc + rc0 + R * tr - dlo - wr0 + PADR + shift
-                    assert p0 % 4 == 0
+                    assert p0 % vw == 0
                     # the thread's words of any window row: whole 16-byte
                     # pieces at the same positions in every row
-                    pos = np.concatenate([(p0 + 4 * v) % s + np.arange(4)
-                                          for v in range(-(-n_t // 4))])
+                    pos = np.concatenate([(p0 + vw * v) % s + np.arange(vw)
+                                          for v in range(-(-n_t // vw))])
 
                     def load_row(w, slot):
                         bv[:, slot] = smem[sh["b_off"] + w * s + pos][:n_t]
@@ -208,9 +270,12 @@ def _replay_block_kernel(a, b, offs, dcn, n_out, values_only):
                             x = bv[ir + ii, (ir - u) % R]
                             assert not np.isnan(x).any()
                             assert not np.isnan(av).any()
-                            acc = (acc.astype(np.float64)
-                                   + av[None, :].astype(np.float64) * x
-                                   ).astype(np.float32)
+                            if dt == np.float64:
+                                acc = acc + av[None, :] * x
+                            else:
+                                acc = (acc.astype(np.float64)
+                                       + av[None, :].astype(np.float64) * x
+                                       ).astype(np.float32)
                             num += (av[None, :] != 0) & (x != 0)
                             dprev = dl
                             k += 1
@@ -224,6 +289,7 @@ def _replay_block_kernel(a, b, offs, dcn, n_out, values_only):
     return c, cnt, reloads
 
 
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
 @pytest.mark.parametrize("values_only", [False, True])
 @pytest.mark.parametrize("name,n_i,n_k", [
     ("tridiagonal", 300, 300),
@@ -234,11 +300,12 @@ def _replay_block_kernel(a, b, offs, dcn, n_out, values_only):
     ("rect", 120, 170),
     ("stencil 64", 129, 129),           # 128 + 1: one column in the last
 ])
-def test_block_replay_equals_plain_version(name, n_i, n_k, values_only):
+def test_block_replay_equals_plain_version(name, n_i, n_k, values_only,
+                                           dtype):
     offs_a, offs_b = QUALIFYING[name]
     rng = np.random.default_rng(n_i * 7 + n_k)
-    a = rng.standard_normal((len(offs_a), n_i)).astype(np.float32)
-    b = rng.standard_normal((len(offs_b), n_k)).astype(np.float32)
+    a = rng.standard_normal((len(offs_a), n_i)).astype(dtype)
+    b = rng.standard_normal((len(offs_b), n_k)).astype(dtype)
     a[rng.random(a.shape) < 0.2] = 0
     b[rng.random(b.shape) < 0.2] = 0
     dc_list, idx_map = _plan_maps(offs_a, offs_b)
@@ -248,8 +315,16 @@ def test_block_replay_equals_plain_version(name, n_i, n_k, values_only):
     got_c, got_n, reloads = _replay_block_kernel(a, b, offs_a, len(dc_list),
                                                  n_i, values_only)
     assert reloads > 0
-    # summation order differs from the plain version's index_add_
-    np.testing.assert_allclose(got_c, want_c.numpy(), rtol=1e-5, atol=1e-5)
+    if dtype == np.float64:
+        # each product and sum rounded as the plain version rounds them, in
+        # its order: bit for bit (-0.0 and +0.0 told apart)
+        assert got_c.dtype == np.float64
+        assert np.array_equal(got_c.view(np.int64),
+                              want_c.numpy().view(np.int64))
+    else:
+        # fmaf: one rounding a product, where the plain version has two
+        np.testing.assert_allclose(got_c, want_c.numpy(), rtol=1e-5,
+                                   atol=1e-5)
     if not values_only:
         np.testing.assert_array_equal(got_n, want_n.numpy())
 
