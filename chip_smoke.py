@@ -3,6 +3,7 @@
     python3 chip_smoke.py              # every phase
     python3 chip_smoke.py --only kernel_check
     python3 chip_smoke.py --only f64_path
+    python3 chip_smoke.py --only dia_path
     python3 chip_smoke.py --profile rmat-16 [--no-pack] [--iters 20] [--graph]
     python3 chip_smoke.py --profile banded64-1M
     python3 chip_smoke.py --profile wandering64-1M
@@ -32,7 +33,12 @@ first two, engine="macro" for the third):
     banded128-1M; C_nnz and flop are held against the values the JAX package
     recorded for the same generators, the sorted COO against scipy's for the
     first two, and the C band stack and counts against the plain PyTorch
-    path on the card for the two wide stencils;
+    path on the card for the two wide stencils.  Phase dia_graph_replay
+    holds a cached DIA plan's CUDA graph (the harness's steady and
+    pipelined tiers replay it) to the eager values-only multiply bit for
+    bit on pairbands-500k (float32 and float64), banded16-1M and
+    banded128-1M, also after the bands' values are changed in place and
+    after a run on other band stacks (which re-captures), and times both;
   * the Macro128 engine on wandering64-1M (run-plan classes, the ragged class
     kernel), banded64-1M (stencil classes) and pairbands-500k (neither
     planner covers it: the pair-stream kernel); every interactive multiply
@@ -66,6 +72,7 @@ prints the line {"ok": true, ...} last only when every phase passed.
 """
 
 import argparse
+import dataclasses
 import json
 import re
 import subprocess
@@ -608,6 +615,14 @@ def dia_case(a, b, offs_a, offs_b, modes, what):
     return errs
 
 
+def pairs_interior(offs_a, n, word):
+    """Which blocks of the pairs entry at ``word``-byte words run with no
+    bounds test (the .cu's `interior`), for A*A on n x n operands."""
+    L = dk.pairs_launch(len(offs_a), 1, 1, n, word)["L"]
+    return [i0 + L <= n and i0 + offs_a[0] >= 0 and i0 + L - 1 + offs_a[-1] < n
+            for i0 in range(0, n, L)]
+
+
 def phase_dia_kernel_check():
     worst = {k: 0.0 for k in dk.LAUNCHES}
     cases = 0
@@ -676,19 +691,38 @@ def phase_dia_kernel_check():
     wide = tuple(o * 1000 for o in PAIRBANDS_SORTED)
     run(wide, wide, 1_500_007, 1_500_007, 1_500_007, ("pairs",),
         "pairbands x1000", 120)
-    # the pairs entry where its A bands do not fit in shared memory (40
-    # gapped bands), and where its pair table does not either (12,000
-    # pairs): what is not staged is read where it lies (pairs_launch)
+    # the pairs entry with 40 gapped A bands, and where its pair table
+    # does not fit in shared memory (12,000 pairs): it is read where it
+    # lies (pairs_launch)
     gapped40 = tuple(range(0, 120, 3))
-    if dk.pairs_launch(40, 80, 80, 3_001)["stage_a"]:
-        raise AssertionError("40 A bands: expected unstaged")
     run(gapped40, (0, 1), 3_001, 3_001, 3_001, ("pairs",),
-        "pairs, A not staged", 130)
+        "pairs, 40 gapped A bands", 130)
     n_dc = len(D._plan_maps(tuple(range(0, 900, 3)), tuple(range(40)))[0])
     if dk.pairs_launch(300, n_dc, 12_000, 3_001)["stage_tables"]:
         raise AssertionError("12,000 pairs: expected unstaged tables")
     run(tuple(range(0, 900, 3)), tuple(range(40)), 3_001, 3_001, 3_001,
-        ("pairs",), "pairs, nothing staged", 140)
+        ("pairs",), "pairs, tables not staged", 140)
+    # 20 gapped A bands at a width where the row groups set the grid: 40 C
+    # rows in 14 groups of 2 or 3 rows, at both words' geometries
+    gapped20 = tuple(range(0, 60, 3))
+    n_dc = len(D._plan_maps(gapped20, (0, 1))[0])
+    for w in (4, 8):
+        gy = dk.pairs_launch(20, n_dc, 40, 200_003, w)["grid_y"]
+        if gy != 14 or n_dc % gy == 0:
+            raise AssertionError(f"uneven row groups, {w}-byte words: "
+                                 f"{n_dc} rows in {gy} groups")
+    run(gapped20, (0, 1), 200_003, 200_003, 200_003, ("pairs",),
+        "pairs, uneven row groups", 145)
+    # edge blocks at both ends for both words' geometries: the first block
+    # reaches left of B, the last ones right of B and past n_out, the
+    # blocks between run with no bounds test
+    offs_e, n_e = (-700, -3, 0, 5, 900), 5 * 1_024 + 77
+    for w in (4, 8):
+        inner = pairs_interior(offs_e, n_e, w)
+        if inner[0] or inner[-1] or not any(inner):
+            raise AssertionError(f"edge blocks, {w}-byte words: {inner}")
+    run(offs_e, (-2, 0, 2), n_e, n_e, n_e, ("pairs",),
+        "pairs, edge blocks at both ends", 150)
 
     # an engineered cancellation: C[0, 3] = 1*1 + 1*(-1) is numerically zero
     # and structurally present (count 2)
@@ -1536,7 +1570,7 @@ def phase_dia_path():
         if name in ("pairbands-500k", "banded16-1M", "banded128-1M"):
             kept[name] = dict(launches=launches, a=a, offs=offs,
                               dc_list=dc_list, idx_map=idx_map, err=err,
-                              library_ms=library,
+                              library_ms=library, times=info["times_ms"],
                               ref=ref if name == "pairbands-500k" else None)
         ref = None
         del a
@@ -1695,25 +1729,38 @@ def phase_kernels(plan_cg, a, b, launches, check_err, replayed):
     return [sort_row, dedup_row]
 
 
-def dia_times(a, offs, dc_list, idx_map, mode, n_plain):
-    """(kernel ms with counts, values-only, plain ms with counts,
-    values-only) of one A*A multiply, the kernel with its tables uploaded
-    once as a plan does."""
+def dia_kernel_fn(a, offs, dc_list, mode, values_only):
+    """One A*A multiply through the wrapper, with the tables uploaded once
+    as a plan does."""
     n = a.shape[1]
     tables = dk.dia_tables(offs, offs, dc_list, mode, a.device)
-    kw = dict(offs_a=offs, idx_map=idx_map, dc_count=len(dc_list), n_out=n)
+    return lambda: dk.dia_multiply(
+        a, a, offs_a=offs, offs_b=offs, dc_list=dc_list, n_out=n, mode=mode,
+        values_only=values_only, tables=tables)
 
-    def kernel(values_only):
-        return lambda: dk.dia_multiply(
-            a, a, offs_a=offs, offs_b=offs, dc_list=dc_list, n_out=n,
-            mode=mode, values_only=values_only, tables=tables)
+
+def dia_times(a, offs, dc_list, idx_map, mode, n_plain):
+    """(kernel ms with counts, values-only, plain ms with counts,
+    values-only) of one A*A multiply: the kernel's device time by CUDA-graph
+    replay (graph_ms: the small kernels are shorter than the wrapper's host
+    work), the plain version's by CUDA events around its calls."""
+    kw = dict(offs_a=offs, idx_map=idx_map, dc_count=len(dc_list),
+              n_out=a.shape[1])
 
     def plain(values_only):
         return lambda: D._dia_multiply_torch(a, a, values_only=values_only,
                                              **kw)
 
-    return (time_ms(kernel(False)), time_ms(kernel(True)),
+    return (graph_ms(dia_kernel_fn(a, offs, dc_list, mode, False)),
+            graph_ms(dia_kernel_fn(a, offs, dc_list, mode, True)),
             time_ms(plain(False), n_plain), time_ms(plain(True), n_plain))
+
+
+def dia_wrapper_ms(a, offs, dc_list, mode):
+    """(with counts, values-only) ms a wrapper call by CUDA events around
+    the calls: the host's time where it exceeds the kernel's."""
+    return tuple(time_ms(dia_kernel_fn(a, offs, dc_list, mode, vo))
+                 for vo in (False, True))
 
 
 # There is no PyTorch call on band stacks.  Where the path phase timed
@@ -1748,6 +1795,7 @@ def dia_kernel_row(name, matrix, kept, check_err, per_multiply):
         del got, want
     ms, ms_vo, plain, plain_vo = dia_times(a.bands, offs, dc_list, idx_map,
                                            mode, n_plain=3)
+    wrapper = dia_wrapper_ms(a.bands, offs, dc_list, mode)
     flop = DIA_RECORDED[matrix][1]
     c_bytes = 4 * len(dc_list) * a.n
     # the timed function is A*A on one band stack (as on the main path,
@@ -1775,8 +1823,34 @@ def dia_kernel_row(name, matrix, kept, check_err, per_multiply):
         "matrix": matrix, "shape": [len(offs), a.n], "c_rows": len(dc_list),
         "products": flop, "bytes": in_bytes + 2 * c_bytes,
         "operations": 4 * flop, "launches_per_multiply": per_multiply,
-        "kernel_ms": ms,
+        "kernel_ms": ms, "timed_by": "CUDA-graph replay of 20 wrapper calls",
+        "wrapper_ms": wrapper[0], "values_only_wrapper_ms": wrapper[1],
     }
+
+
+def all_launches():
+    return {**dict(ss.LAUNCHES), **dict(dk.LAUNCHES), **dict(mk.LAUNCHES),
+            **dict(pr.LAUNCHES)}
+
+
+def dia_steady_launches(a, entry):
+    """The launches of one steady multiply of a DIA plan for a*a: its first
+    run counts, its second captures the CUDA graph, and a replay must pass
+    no wrapper; the launches a multiply are those recorded at capture,
+    which must be one of ``entry`` and nothing else."""
+    plan = D.make_dia_plan(a, a)
+    plan.run(a, a)
+    plan.run(a, a)
+    reset_launch_counts()
+    plan.run(a, a)
+    torch.cuda.synchronize()
+    if any(all_launches().values()):
+        raise AssertionError(f"{entry}: a replay went through a wrapper: "
+                             f"{all_launches()}")
+    got = plan.launches
+    if got.get(entry, 0) != 1 or sum(got.values()) != 1:
+        raise AssertionError(f"{entry}: a replayed multiply launches {got}")
+    return got[entry]
 
 
 def phase_dia_kernels(kept, check_err):
@@ -1787,11 +1861,7 @@ def phase_dia_kernels(kept, check_err):
     for name, matrix in (("dia_multiply_dense", "banded128-1M"),
                          ("dia_multiply_pairs", "pairbands-500k")):
         a = kept[matrix]["a"]
-        plan = D.make_dia_plan(a, a)
-        reset_launch_counts()
-        plan.run(a, a)
-        per_multiply = dk.LAUNCHES[name]    # counted over this one multiply
-        del plan
+        per_multiply = dia_steady_launches(a, name)
         rows.append(dia_kernel_row(name, matrix, kept[matrix], check_err,
                                    per_multiply))
     lib = kept[DENSE_LIBRARY_MATRIX]
@@ -1816,6 +1886,112 @@ def phase_dia_kernels(kept, check_err):
     small["plain"] = {"ms": plain, "values_only_ms": plain_vo}
     emit("dia_small_product", shape=[3, n], c_rows=len(dc_list), times=small)
     return rows
+
+
+# --------------------------------------------------------------------------
+# the cached DIA multiply as one CUDA graph
+
+def dia_eager(plan, a):
+    """One eager values-only multiply of a*a through the plan's kernel
+    entry: what a cached plan's run launched before its graph."""
+    return plan._multiply(a, a, values_only=True)[0]
+
+
+def same_bits(got, want, what):
+    if got.dtype != want.dtype or not torch.equal(
+            got.view(torch.int32), want.view(torch.int32)):
+        raise AssertionError(f"{what}: the replay differs from the eager "
+                             "multiply")
+
+
+def dia_graph_case(name, a, steady, n=50):
+    """One DIA matrix's cached plan: the replayed values-only multiply
+    against the eager one, bit for bit, before and after three rounds of
+    band values changed in place and after a run on other band stacks
+    (which re-captures); launches recorded at capture and none through a
+    wrapper on a replay; peak memory and host-clock times of both, in
+    turns; the device time of one replay and of the kernel alone, beside
+    the harness's steady tier (``steady``, host-clock ms)."""
+    what = f"{name} {str(a.bands.dtype).split('.')[-1]}"
+    plan = D.make_dia_plan(a, a)
+    c_nnz = int(plan.run(a, a)[2])          # eager, with counts: cached
+    entry = f"dia_multiply_{plan.kernel_mode}" + (
+        "_f64" if a.bands.dtype == torch.float64 else "")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    eager = dia_eager(plan, a)
+    torch.cuda.synchronize()
+    peak_eager = torch.cuda.max_memory_allocated() - base
+    del eager
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_launch_counts()
+    plan.run(a, a)                  # the eager warm-up, capture, replay
+    captured = dict(dk.LAUNCHES)
+    reset_launch_counts()
+    c = plan.run(a, a)[0]
+    torch.cuda.synchronize()
+    if any(all_launches().values()):
+        raise AssertionError(f"{what}: a replay went through a wrapper")
+    peak_graph = torch.cuda.max_memory_allocated() - base
+    held = torch.cuda.memory_allocated() - base
+    launches = plan.launches
+    if captured != {k: 2 * v for k, v in launches.items()} or \
+            launches[entry] != 1 or sum(launches.values()) != 1:
+        raise AssertionError(f"{what}: capture launches {launches}, eager "
+                             f"warm-up + capture {captured}")
+    same_bits(c, dia_eager(plan, a), what)
+    g = torch.Generator(device=DEV).manual_seed(7)
+    for r in range(3):
+        a.bands.mul_(torch.empty(a.bands.shape, dtype=a.bands.dtype,
+                                 device=DEV).uniform_(0.5, 2.0, generator=g))
+        c = plan.run(a, a)[0]
+        same_bits(c, dia_eager(plan, a), f"{what}, changed {r}")
+    # other band stacks (the same structure): the plan re-captures
+    other = dataclasses.replace(a, bands=a.bands * 0.75)
+    graph = plan._graph["graph"]
+    c = plan.run(other, other)[0]
+    if plan._graph["graph"] is graph:
+        raise AssertionError(f"{what}: new operands did not re-capture")
+    same_bits(c, dia_eager(plan, other), f"{what}, other operands")
+    del other, c
+    c = plan.run(a, a)[0]                   # and back: captured again
+    same_bits(c, dia_eager(plan, a), f"{what}, operands back")
+    del c
+    times = turns_ms(
+        [("eager", lambda: dia_eager(plan, a)[0, 0]),
+         ("graph", lambda: plan.run(a, a)[0][0, 0]),
+         ("graph", lambda: plan.run(a, a)[0][0, 0]),
+         ("eager", lambda: dia_eager(plan, a)[0, 0])], n)
+    replay_ms = time_ms(lambda: plan.run(a, a), n)
+    kernel_ms = graph_ms(lambda: dia_eager(plan, a))
+    graph_synced = min(t["synced_ms"] for t in times if t["path"] == "graph")
+    eager_synced = min(t["synced_ms"] for t in times if t["path"] == "eager")
+    emit("dia_graph_replay", matrix=name, dtype=what.split()[-1],
+         c_nnz=c_nnz, entry=entry, bit_equal=True, changed_value_rounds=3,
+         recaptured_on_other_operands=True, launches_per_multiply=launches,
+         peak_mem_gb={"eager": peak_eager / 2**30,
+                      "graph_capture_and_replay": peak_graph / 2**30,
+                      "graph_held": held / 2**30},
+         times=times, replay_faster=graph_synced < eager_synced,
+         replay_device_ms=replay_ms, kernel_device_ms=kernel_ms,
+         harness_steady_ms=steady,
+         harness_steady_over_kernel_ms=steady - kernel_ms)
+    del plan
+    torch.cuda.empty_cache()
+
+
+def phase_dia_graph_replay(kept):
+    """pairbands-500k (float32 and float64), banded16-1M and banded128-1M;
+    ``kept`` the float32 matrices of phase dia_path and, under
+    "pairbands-500k f64", the float64 run's steady time."""
+    for name in ("pairbands-500k", "banded16-1M", "banded128-1M"):
+        dia_graph_case(name, kept[name]["a"],
+                       kept[name]["times"]["steady_state_time"])
+    a64 = D.coo_to_dia(banded_device(**DIA_MATRICES["pairbands-500k"]),
+                       dtype=torch.float64)
+    dia_graph_case("pairbands-500k", a64, kept["pairbands-500k f64"])
 
 
 # --------------------------------------------------------------------------
@@ -1988,8 +2164,9 @@ def profile_device(matrix, multiply, n):
 
 
 def run_profile_dia(matrix, n):
-    """A DIA matrix's steady multiply: the cached plan replayed (values-only
-    kernel, the counts come from the plan's first run)."""
+    """A DIA matrix's steady multiply: the cached plan's CUDA graph
+    replayed (values-only kernel, the counts come from the plan's first
+    run; the launches a multiply are those recorded at capture)."""
     coo = banded_device(**DIA_MATRICES[matrix])
     a = D.coo_to_dia(coo)
     del coo
@@ -1998,6 +2175,7 @@ def run_profile_dia(matrix, n):
     emit("profile_setup", matrix=matrix, mode=plan.kernel_mode,
          bands=a.nbands, c_bands=len(plan.dc_list), c_nnz=int(out[2]))
     del out
+    plan.run(a, a)                          # captures the CUDA graph
 
     def multiply():
         return plan.run(a, a)[0]
@@ -2009,7 +2187,8 @@ def run_profile_dia(matrix, n):
         multiply()
         torch.cuda.synchronize()
     synced = (time.perf_counter() - t0) / n
-    launches = {k: v / n for k, v in dk.LAUNCHES.items()}
+    if any(dk.LAUNCHES.values()):
+        raise AssertionError(f"{matrix}: a replay went through a wrapper")
     t0 = time.perf_counter()
     for _ in range(n):
         last = multiply()
@@ -2018,7 +2197,7 @@ def run_profile_dia(matrix, n):
     del last
     emit("profile_steady", matrix=matrix, synced_ms=synced * 1e3,
          queued_ms=queued * 1e3, device_ms=time_ms(multiply, n),
-         kernel_launches_per_multiply=launches,
+         kernel_launches_per_multiply=plan.launches,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
     profile_device(matrix, multiply, n)
 
@@ -2538,8 +2717,9 @@ def same_coo(got, want, what):
 
 def turns_ms(fns, n):
     """Host-clock ms a multiply, each fn in turn as listed (e.g. eager,
-    graph, graph, eager): synced (int() of c_nnz after each) and queued
-    (one int() after n)."""
+    graph, graph, eager): synced (int() after each of the one-element
+    device tensor fn returns, which the multiply writes: c_nnz or a C word)
+    and queued (one int() after n)."""
     out = []
     for name, fn in fns:
         torch.cuda.synchronize()
@@ -2747,7 +2927,7 @@ def phase_f64_path(coo_pl, want_pl):
         del c
         if entry is not None:
             kept[entry] = dict(coo=coo, launches=launches[entry],
-                               matrix=name)
+                               matrix=name, times=record_times(rec))
         torch.cuda.empty_cache()
     return kept
 
@@ -2755,7 +2935,8 @@ def phase_f64_path(coo_pl, want_pl):
 def f64_per_multiply(a, engine, entry):
     """One interactive and one steady float64 multiply of ``a``·``a``, each
     counted on its own: the launches of ``entry`` in each, which must be
-    the only kernel launched."""
+    the only kernel launched (a DIA plan's steady multiply is a replay:
+    its launches are those recorded at capture)."""
     cfg = SpGEMMConfig(dtype=torch.float64, engine=engine)
     counted = []
     reset_launch_counts()
@@ -2765,12 +2946,18 @@ def f64_per_multiply(a, engine, entry):
                     **dict(mk.LAUNCHES)})
     plan = make_plan(res, cfg, a, a)
     del res
-    reset_launch_counts()
-    out = plan.run(a, a)
-    torch.cuda.synchronize()
-    del out, plan
-    counted.append({**path_launches(ss.LAUNCHES), **dict(dk.LAUNCHES),
-                    **dict(mk.LAUNCHES)})
+    if engine == "dia":
+        # a DIA plan replays a CUDA graph: its launches a multiply are
+        # those recorded at capture (dia_steady_launches)
+        del plan
+        counted.append({entry: dia_steady_launches(a, entry)})
+    else:
+        reset_launch_counts()
+        out = plan.run(a, a)
+        torch.cuda.synchronize()
+        del out, plan
+        counted.append({**path_launches(ss.LAUNCHES), **dict(dk.LAUNCHES),
+                        **dict(mk.LAUNCHES)})
     for what, got in zip(("interactive", "steady"), counted):
         if got[entry] <= 0 or any(v for k, v in got.items() if k != entry):
             raise AssertionError(f"{entry}: one {what} multiply launched "
@@ -2809,6 +2996,7 @@ def f64_dia_row(entry, info, check_err):
     interactive, steady = f64_per_multiply(a, "dia", entry)
     ms, ms_vo, plain, plain_vo = dia_times(a.bands, offs, dc_list, idx_map,
                                            mode, n_plain=2)
+    wrapper = dia_wrapper_ms(a.bands, offs, dc_list, mode)
     flop = DIA_RECORDED[name][1]
     c_bytes = 8 * len(dc_list) * a.n
     in_bytes = 8 * a.bands.numel()
@@ -2849,6 +3037,8 @@ def f64_dia_row(entry, info, check_err):
         "bit_equal_to_plain": bit_equal,
         "matrix": name, "shape": [len(offs), a.n], "c_rows": len(dc_list),
         "products": flop, "dtype": "float64", "kernel_ms": ms,
+        "timed_by": "CUDA-graph replay of 20 wrapper calls",
+        "wrapper_ms": wrapper[0], "values_only_wrapper_ms": wrapper[1],
         "launches_per_multiply": steady,
         "launches_interactive_multiply": interactive,
     }
@@ -2926,11 +3116,13 @@ def phase_f64_kernels(kept, check_err):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=["kernel_check", "f64_path"],
+    ap.add_argument("--only", choices=["kernel_check", "f64_path",
+                                       "dia_path"],
                     default=None,
                     help="kernel_check: build the kernels, check them, and "
                          "stop; f64_path: build them and run the f64 parity "
-                         "phase alone")
+                         "phase alone; dia_path: the DIA kernel check, the "
+                         "DIA path, its kernel rows and dia_graph_replay")
     ap.add_argument("--profile",
                     choices=sorted(MATRICES) + sorted(DIA_MATRICES)
                     + ["wandering64-1M"],
@@ -2964,6 +3156,18 @@ def main():
     if args.profile is not None:
         run_profile(args.profile, args.no_pack, args.iters, args.graph)
         return 0
+    if args.only == "dia_path":
+        check_err = phase_dia_kernel_check()
+        kept = phase_dia_path()
+        kept["pairbands-500k"].pop("ref")
+        rows = phase_dia_kernels(kept, check_err)
+        rec, _res = run_benchmark(
+            banded_device(**DIA_MATRICES["pairbands-500k"]), "pairbands-500k",
+            SpGEMMConfig(dtype=torch.float64, repeat=5), verbose=False)
+        kept["pairbands-500k f64"] = rec.steady_state_time
+        phase_dia_graph_replay(kept)
+        print(json.dumps({"kernels": rows}), flush=True)
+        return 0
     if args.only == "f64_path":
         coo_pl = MATRICES["powerlaw-1M"]()
         kept = phase_f64_path(coo_pl, scipy_square(coo_pl, with_abs=True))
@@ -2993,11 +3197,15 @@ def main():
     kept = phase_f64_path(coo_pl, want_pl)
     del coo_pl, want_pl
     f64_rows = phase_f64_kernels(kept, check_err)
+    f64_pairs_steady = kept["dia_multiply_pairs_f64"]["times"][
+        "steady_state_time"]
     del kept
     torch.cuda.empty_cache()
     kept = phase_dia_path()
     pairbands_ref = kept["pairbands-500k"].pop("ref")
     kernels += phase_dia_kernels(kept, check_err)
+    kept["pairbands-500k f64"] = f64_pairs_steady
+    phase_dia_graph_replay(kept)
     del kept
     torch.cuda.empty_cache()
     kernels += phase_macro_path(check_err, pairbands_ref)

@@ -1,16 +1,15 @@
 """K4's time split, and the kernels against another version of their sources.
 
     python -m pem_spgemm_tpu_torch.bench.k4_split [--baseline-macro FILE]
-        [--baseline-dia FILE] [--only k4|k5|k3|k4f64|k2f64|library ...]
+        [--baseline-dia FILE] [--only k4|k5|k3|k3f64|k4f64|k2f64|library ...]
 
 Builds csrc/macro_accumulate.cu and csrc/dia_multiply.cu as they are and,
 with --baseline-macro / --baseline-dia, another version of each (for example
 the parent commit's, ``git show <commit>:pem_spgemm_tpu_torch/csrc/<file>``)
 as copies in the package's build directory, so that two versions run in one
 process, on one card, on the same inputs.  A baseline has the C interfaces
-of commit b689ced: the ones of today, except that its float64 entries
-``dia_multiply_dense_f64`` (no launch shape) and
-``macro_accumulate_pairs_f64`` (no scratch buffers) take fewer arguments.
+of commit 2fdbfea: the ones of today, except its pairs entries
+(``declare_baseline_dia``).
 
   k4  the pair-stream entry at wandering64-1M's stream (70,308 pairs) and at
       pairbands-500k's (389,700 pairs): as it is (persistent, one block an
@@ -22,8 +21,11 @@ of commit b689ced: the ones of today, except that its float64 entries
   k5  the ragged class entry over wandering64-1M's class launches (one
       steady multiply's): this build's and the baseline's, their slabs
       bit for bit equal, and the no_mark cut, timed in turns;
-  k3  the DIA pairs entry at pairbands-500k, with counts and values only:
-      this build's and the baseline's, bit for bit equal, timed in turns;
+  k3, k3f64  the DIA pairs entry, float32 and float64, at pairbands-500k,
+      with counts and values only: this build's, the PAIR_COLS builds
+      (other columns a thread), each also at the PAIR_GROUPS row groups,
+      and the baseline's, each bit for bit equal to the baseline's
+      (float32) or to the plain version (float64), timed in turns;
   k4f64  the pair-stream entry's float64 entry (DMMA) at wandering64-1M's
       stream: this build's, the F64_CUTS builds (another ring depth or
       DMMA shape; the flags cut out, timed only) and the baseline's, each
@@ -166,6 +168,17 @@ def dense64_cut(rows, i, threads, blocks):
              f"    static constexpr int MIN_BLOCKS = {blocks};\n")]
 
 
+# Other columns a thread of the pairs DIA entries, by word size: the .cu's
+# constant (PAIR_COLS, PAIR_COLS_F64) and pairs_launch's PAIR_GEOMETRY
+# changed together.
+PAIR_COLS_LINE = {4: "constexpr int PAIR_COLS = {};",
+                  8: "constexpr int PAIR_COLS_F64 = {};"}
+PAIR_COLS = {4: (2, 4), 8: (1, 2, 4)}
+# row groups of a column range each pairs build is also timed at, beside
+# pairs_launch's own
+PAIR_GROUPS = (1, 2, 5, 10, 15, 30)
+
+
 def emit(case, **kw):
     print(json.dumps({"case": case, **kw}), flush=True)
 
@@ -199,18 +212,14 @@ def build(stem: str, name: str, source: str, declare, cuts=()):
     return _build.load(so, declare)
 
 
-def declare_baseline_macro(lib):
-    """mk._declare, but the float64 pair-stream entry without its scratch
-    buffers (no k-masks, no per-pair slabs)."""
-    mk._declare(lib)
-    lib.macro_accumulate_pairs_f64.argtypes = [VP] * 7 + [CI, VP]
-
-
 def declare_baseline_dia(lib):
-    """dk._declare, but the float64 dense entry without a launch shape."""
+    """dk._declare, but the pairs entries of commit 2fdbfea: the float32 one
+    with d1n and stage_a (it staged its A bands), the float64 one (one
+    thread a C element) without a launch shape."""
     dk._declare(lib)
-    lib.dia_multiply_dense_f64.argtypes = [VP] * 5 + [CI, CI, CI, LL, LL,
-                                                      LL, VP]
+    lib.dia_multiply_pairs_f32.argtypes = [VP] * 6 + [CI] * 5 + [LL] * 3 \
+        + [CI] * 4 + [VP]
+    lib.dia_multiply_pairs_f64.argtypes = [VP] * 6 + [CI, LL, LL, LL, VP]
 
 
 def time_ms(fn, n):
@@ -372,50 +381,103 @@ def case_k5(base_lib):
          c_rows=rows, ms=times, bit_equal_to_baseline=equal)
 
 
-def case_k3(base_lib):
-    libs = {"current": dk._library()}
-    if base_lib is not None:
-        libs["baseline"] = base_lib
+def case_pairs(word, base_lib):
+    """A pairs DIA entry at pairbands-500k (``word`` 4: K3, float32; 8:
+    K3-f64), with counts and values only: this build, the PAIR_COLS builds,
+    each also at the PAIR_GROUPS row groups, and the baseline (commit
+    2fdbfea's entry at its own launch shape), in turns.  Every run is held
+    bit for bit: the float32 ones to the baseline's (to this build's
+    without one), the float64 ones to the plain version."""
+    case = "k3" if word == 4 else "k3f64"
+    dtype = torch.float32 if word == 4 else torch.float64
+    entry = "dia_multiply_pairs_f32" if word == 4 else "dia_multiply_pairs_f64"
     stream = torch.cuda.current_stream().cuda_stream
-    a = D.coo_to_dia(STREAMS["pairbands-500k"]())
+    geo = dict(dk.PAIR_GEOMETRY[word])
+    line = PAIR_COLS_LINE[word]
+    builds = {"current": (dk._library(), geo)}
+    for cols in PAIR_COLS[word]:
+        if cols != geo["cols"]:
+            builds[f"cols{cols}"] = (
+                build("dia_multiply", f"pairs{8 * word}_cols{cols}",
+                      dk.SOURCE, dk._declare,
+                      cuts=[(line.format(geo["cols"]), line.format(cols))]),
+                dict(geo, cols=cols))
+    a = D.coo_to_dia(STREAMS["pairbands-500k"](), dtype=dtype)
     offs = tuple(int(x) for x in a.offsets)
-    dc_list, _ = D._plan_maps(offs, offs)
+    dc_list, idx_map = D._plan_maps(offs, offs)
     row_ptr, trip = dk.dia_tables(offs, offs, dc_list, "pairs", a.device)
     n, dcn, d1n = a.n, len(dc_list), len(offs)
     n_pairs = d1n * d1n
-    shape = dk.pairs_launch(d1n, dcn, n_pairs, n)
-    out = {k: (torch.empty((dcn, n), device="cuda"),
-               torch.empty((dcn, n), device="cuda")) for k in libs}
-    bands = a.bands.data_ptr()
-
-    def current(values_only, name="current"):
-        c, cnt = out[name]
-        lib = libs[name]
-        return lambda: checked(lib.dia_multiply_pairs_f32(
-            bands, bands, row_ptr.data_ptr(), trip.data_ptr(), c.data_ptr(),
-            None if values_only else cnt.data_ptr(), d1n, dcn, n_pairs,
-            offs[0], offs[-1], n, n, n, shape["grid_y"],
-            int(shape["stage_a"]), int(shape["stage_tables"]),
-            shape["smem_bytes"], stream), name)
-
+    ptrs = (a.bands.data_ptr(), a.bands.data_ptr(), row_ptr.data_ptr(),
+            trip.data_ptr())
+    runs = {}                       # name: (launch(c, cnt), shape)
+    for name, (lib, g) in builds.items():
+        dk.PAIR_GEOMETRY[word] = g
+        try:
+            base = dk.pairs_launch(d1n, dcn, n_pairs, n, word)
+        finally:
+            dk.PAIR_GEOMETRY[word] = geo
+        for gy in (base["grid_y"],) + PAIR_GROUPS:
+            key = name if gy == base["grid_y"] else f"{name}_gy{gy}"
+            if key in runs:
+                continue
+            sh = dict(base, grid_y=gy)
+            runs[key] = ((lambda fn, sh: lambda c, cnt: fn(
+                *ptrs, c, cnt, dcn, n_pairs, offs[0], offs[-1], n, n, n,
+                sh["grid_y"], int(sh["stage_tables"]), sh["smem_bytes"],
+                stream))(getattr(lib, entry), sh), sh)
+    if base_lib is not None:
+        fn = getattr(base_lib, entry)
+        if word == 4:               # every C row a block, A and tables staged
+            t_bytes = 4 * (dcn + 1 + 3 * n_pairs)
+            runs["baseline"] = (lambda c, cnt: fn(
+                *ptrs, c, cnt, d1n, dcn, n_pairs, offs[0], offs[-1], n, n,
+                n, 1, 1, 1, 4 * d1n * 1024 + t_bytes, stream), None)
+        else:
+            runs["baseline"] = (lambda c, cnt: fn(
+                *ptrs, c, cnt, dcn, n, n, n, stream), None)
     for values_only in (False, True):
-        fns = {name: current(values_only, name) for name in libs}
-        for fn in fns.values():
-            fn()
+        want = D._dia_multiply_torch(a.bands, a.bands, offs_a=offs,
+                                     idx_map=idx_map, dc_count=dcn, n_out=n,
+                                     values_only=values_only)
+        outs, fns = {}, {}
+        for name, (launch, _sh) in runs.items():
+            outs[name] = (
+                torch.full((dcn, n), float("nan"), dtype=dtype,
+                           device="cuda"),
+                None if values_only else torch.empty((dcn, n),
+                                                     device="cuda"))
+            fns[name] = (lambda launch, name, c, cnt: lambda: checked(
+                launch(c.data_ptr(), None if cnt is None else cnt.data_ptr()),
+                name))(launch, name, *outs[name])
+            fns[name]()
         torch.cuda.synchronize()
-        equal = None
-        ref = "baseline" if base_lib is not None else "current"
-        for name in fns:
-            same = torch.equal(out[name][0], out[ref][0]) and (
-                values_only or torch.equal(out[name][1], out[ref][1]))
-            if not same:
-                raise AssertionError(f"K3: {name} and {ref} differ at "
-                                     "pairbands-500k")
-        if base_lib is not None:
-            equal = True
-        emit("k3", matrix="pairbands-500k", values_only=values_only,
-             shape=[d1n, n], c_rows=dcn, launch=shape,
-             ms=in_turns(fns, 20), bit_equal_to_baseline=equal)
+        ref = "baseline" if word == 4 and base_lib is not None else None
+        equal = {}
+        for name, (c, cnt) in outs.items():
+            wc, wn = (outs[ref] if ref else
+                      want if word == 8 else outs["current"])
+            bits = torch.int32 if word == 4 else torch.int64
+            equal[name] = torch.equal(c.view(bits), wc.view(bits)) and (
+                values_only or torch.equal(cnt, wn))
+        del want
+        if not all(equal.values()):
+            raise AssertionError(f"{case}: not bit-equal: {equal}")
+        c_bytes = word * dcn * n
+        emit(case, matrix="pairbands-500k", values_only=values_only,
+             shape=[d1n, n], c_rows=dcn,
+             launch={k: {x: v[x] for x in ("cols", "L", "grid_x", "grid_y",
+                                           "smem_bytes")}
+                     for k, (_f, v) in runs.items() if k in builds},
+             ms=in_turns(fns, 20, rounds=2),
+             bit_equal_to="baseline" if ref else
+             "plain version" if word == 8 else "current",
+             bit_equal=equal,
+             bound_ms=(word * d1n * n + c_bytes
+                       + (0 if values_only else 4 * dcn * n))
+             / 3.35e12 * 1e3)
+        del fns, outs
+        torch.cuda.empty_cache()
 
 
 def hold_f64(got, want, mag, what):
@@ -457,9 +519,6 @@ def case_k4f64(base_lib):
     need = torch.empty(a_idx.numel(), dtype=torch.uint8, device="cuda")
 
     def launch(lib, k):
-        if k == "baseline":
-            return lambda: checked(lib.macro_accumulate_pairs_f64(
-                *ptrs, stream), k)
         return lambda: checked(lib.macro_accumulate_pairs_f64(
             *ptrs, n_t, n_t, a_idx.numel(), masks.data_ptr(),
             masks.data_ptr(), need.data_ptr(), stream), k)
@@ -483,14 +542,13 @@ def case_k4f64(base_lib):
 
 def dense_args(lib_fn, a, offs, c, cnt, shape, stream):
     """A launch of a dense DIA entry on the stencil ``a`` (bands, n) with
-    ``shape`` (None: the float64 baseline's, which takes none)."""
+    ``shape``."""
     dcn, n = c.shape
     args = [a.data_ptr(), a.data_ptr(), offs.data_ptr(), c.data_ptr(),
             None if cnt is None else cnt.data_ptr(), a.shape[0], a.shape[0],
-            dcn, n, n, n]
-    if shape is not None:
-        args += [shape["tr_log2"], shape["tc_n"], shape["kc"], shape["s"],
-                 shape["cw_log2"], shape["b_off"], shape["stage_words"]]
+            dcn, n, n, n, shape["tr_log2"], shape["tc_n"], shape["kc"],
+            shape["s"], shape["cw_log2"], shape["b_off"],
+            shape["stage_words"]]
     return lambda: checked(lib_fn(*args, stream), "dense")
 
 
@@ -538,8 +596,8 @@ def case_k2f64(base_lib):
                 None if values_only else torch.empty((dcn, n),
                                                      device="cuda"))
             fns["baseline"] = dense_args(base_lib.dia_multiply_dense_f64, a,
-                                         offs_dev, *outs["baseline"], None,
-                                         stream)
+                                         offs_dev, *outs["baseline"],
+                                         shapes["current"], stream)
         for name, fn in fns.items():
             fn()
             torch.cuda.synchronize()
@@ -621,8 +679,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--baseline-macro", default=None)
     ap.add_argument("--baseline-dia", default=None)
-    ap.add_argument("--only", choices=["k4", "k5", "k3", "k4f64", "k2f64",
-                                       "library"], action="append",
+    ap.add_argument("--only", choices=["k4", "k5", "k3", "k3f64", "k4f64",
+                                       "k2f64", "library"], action="append",
                     help="run this case (repeatable; default: every case)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -634,7 +692,7 @@ def main():
     base_macro = base_dia = None
     if args.baseline_macro:
         base_macro = build("macro_accumulate", "baseline",
-                           args.baseline_macro, declare_baseline_macro)
+                           args.baseline_macro, mk._declare)
     if args.baseline_dia:
         base_dia = build("dia_multiply", "baseline", args.baseline_dia,
                          declare_baseline_dia)
@@ -643,7 +701,9 @@ def main():
     if args.only is None or "k5" in args.only:
         case_k5(base_macro)
     if args.only is None or "k3" in args.only:
-        case_k3(base_dia)
+        case_pairs(4, base_dia)
+    if args.only is None or "k3f64" in args.only:
+        case_pairs(8, base_dia)
     if args.only is None or "k4f64" in args.only:
         case_k4f64(base_macro)
     if args.only is None or "k2f64" in args.only:

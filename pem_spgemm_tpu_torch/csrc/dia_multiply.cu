@@ -55,10 +55,14 @@
 // fmaf, so the dense and pairs entries agree bit for bit.  The pairs entry
 // makes no assumption about the offsets (a gapped set has an unbounded
 // span, so no B window is staged): a block owns a range of 1,024 columns
-// of every C row, stages its A bands' words (and the pair tables) in
-// shared memory once, so each A word is read from device memory once and
-// not once for every C row that uses it, reads B through L1 at each pair's
-// shift, and writes each C row (and count row) once, coalesced.
+// of a group of 3 consecutive C rows, and the groups of one column range
+// run together, so the words of A and the shifted words of B that their
+// pairs read meet in L1 and L2 and come from device memory about once; it
+// stages only the pair tables in shared memory, and writes each C row (and
+// count row) once, coalesced.  Staging the block's A words in shared
+// memory, with one block for every C row of its columns, measured slower:
+// the stage took the L1 that the B reads hit in, and the columns in flight
+// spread over most of the matrix.
 //
 // The float64 entries (`dia_multiply_dense_f64`, `dia_multiply_pairs_f64`)
 // serve the f64 parity mode, which the JAX package runs through the same
@@ -79,23 +83,36 @@
 // of 128), 4 x 4 measured 3% and 14% faster with counts, and values-only
 // 8% slower than one block of 256 and 6% faster than two of 128
 // (bench/k4_split.py, PERF.md).  Its arithmetic costs two FP64
-// instructions a product (DMUL, DADD).  The
-// pairs entry is the simple form: one thread a C element of one C row, the
-// row's CSR pairs read through L1 and L2 at each pair (nothing is staged).
+// instructions a product (DMUL, DADD).  The pairs entry is likewise the
+// float32 pairs kernel templated on the word (Pairs<T>, pair_rows): the
+// same row groups, tables and unchecked interior blocks, two pairs' loads
+// in flight a step; its columns a thread are a constant of their own
+// (PAIR_COLS_F64), 4 as in float32, which measured 1-4% faster than 2
+// and 10-40% faster than 1 (bench/k4_split.py, PERF.md).
 //
 // Plain C interface, no PyTorch headers: the wrapper
-// (ops/dia_kernels.py) allocates the outputs, computes the dense entry's
-// launch shape (dense_launch), passes raw pointers and the current stream,
+// (ops/dia_kernels.py) allocates the outputs, computes the launch shapes
+// (dense_launch, pairs_launch), passes raw pointers and the current stream,
 // and raises if the returned cudaError_t is not 0.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int PAIR_THREADS = 256;   // threads a block of the pairs entry
-constexpr int PAIR_COLS = 4;        // columns a thread of the pairs entry
-constexpr int PAIR_L = PAIR_THREADS * PAIR_COLS;  // columns a block
+constexpr int PAIR_THREADS = 256;   // threads a block of the pairs entries
+constexpr int PAIR_COLS = 4;        // columns a thread, float32 pairs entry
+constexpr int PAIR_COLS_F64 = 4;    // columns a thread, float64 pairs entry
 constexpr int MAX_SMEM = 227 * 1024;
+
+// The pairs entries' columns a thread by word type (ops/dia_kernels.py's
+// PAIR_GEOMETRY); a block owns PAIR_THREADS * COLS columns.
+template <class T> struct Pairs;
+template <> struct Pairs<float> {
+    static constexpr int COLS = PAIR_COLS;
+};
+template <> struct Pairs<double> {
+    static constexpr int COLS = PAIR_COLS_F64;
+};
 
 // The dense entry's geometry for its word type (ops/dia_kernels.py's
 // DENSE_GEOMETRY): a thread owns ROWS x I C elements (I consecutive
@@ -419,25 +436,27 @@ dia_dense_kernel(const T* __restrict__ a, const T* __restrict__ b,
     }
 }
 
-// The pairs entry's C rows r = blockIdx.y, blockIdx.y + gridDim.y, ... at
-// the block's columns i0 + t + PAIR_THREADS * e.  CHECK false: an interior
-// block, all of whose columns lie below n_out and all of whose shifted B
-// columns lie in [0, n_k), so nothing is tested; else a product outside B
-// adds nothing (no fmaf with a zero, which would turn an acc of -0.0 into
-// +0.0: the dense entry's order) and columns past n_out are not stored.
-// Two pairs a step: their loads in flight together, their products added in
-// ascending k1.
-template <bool COUNTS, bool CHECK>
+// The pairs entries' C rows [r0, r1) at the block's columns
+// i0 + t + PAIR_THREADS * e (e < Pairs<T>::COLS).
+// CHECK false: an interior block, all of whose columns lie below n_out and
+// all of whose shifted B columns lie in [0, n_k), so nothing is tested; else
+// a product outside B adds nothing (no madd with a zero, which would turn an
+// acc of -0.0 into +0.0 in float32: the dense entry's order) and columns
+// past n_out are not stored.  Two pairs a step: their loads in flight
+// together, their products added in ascending k1.  One template serves both
+// word types (Pairs<T>, madd).
+template <class T, bool COUNTS, bool CHECK>
 __device__ __forceinline__ void pair_rows(
-        const float* ap, long long a_stride, const float* __restrict__ b,
-        const int* rp, const int* tp, float* __restrict__ c,
-        float* __restrict__ cnt, int dcn, long long i0, long long n_k,
+        const T* __restrict__ a, const T* __restrict__ b, const int* rp,
+        const int* tp, T* __restrict__ c, float* __restrict__ cnt, int r0,
+        int r1, long long i0, long long n_i, long long n_k,
         long long n_out) {
+    constexpr int E = Pairs<T>::COLS;
     const int t = threadIdx.x;
     const long long jlo = -i0, jhi = n_k - i0;  // B columns jj of the block
-    bool col[PAIR_COLS];
+    bool col[E];
 #pragma unroll
-    for (int e = 0; e < PAIR_COLS; ++e)
+    for (int e = 0; e < E; ++e)
         col[e] = !CHECK || i0 + t + PAIR_THREADS * e < n_out;
     auto inside = [&](int e, int d1) {
         const long long jj = t + PAIR_THREADS * e + d1;
@@ -445,55 +464,56 @@ __device__ __forceinline__ void pair_rows(
     };
     // pair p's A and B words at this thread's columns (0 outside B); its
     // shift
-    auto load = [&](int p, float (&av)[PAIR_COLS], float (&bv)[PAIR_COLS]) {
+    auto load = [&](int p, T (&av)[E], T (&bv)[E]) {
         const int k1 = tp[3 * p];
         const int k2 = tp[3 * p + 1];
         const int d1 = tp[3 * p + 2];
-        const float* ak = ap + k1 * a_stride + t;
-        const float* bk = b + i0 + (long long)k2 * n_k + d1 + t;
+        const T* ak = a + (long long)k1 * n_i + i0 + t;
+        const T* bk = b + i0 + (long long)k2 * n_k + d1 + t;
 #pragma unroll
-        for (int e = 0; e < PAIR_COLS; ++e) {
+        for (int e = 0; e < E; ++e) {
             const bool ok = inside(e, d1);
-            av[e] = ok ? ak[PAIR_THREADS * e] : 0.f;
-            bv[e] = ok ? __ldg(bk + PAIR_THREADS * e) : 0.f;
+            av[e] = ok ? __ldg(ak + PAIR_THREADS * e) : T(0);
+            bv[e] = ok ? __ldg(bk + PAIR_THREADS * e) : T(0);
         }
         return d1;
     };
-    for (int r = blockIdx.y; r < dcn; r += gridDim.y) {
-        float acc[PAIR_COLS], num[PAIR_COLS];
+#pragma unroll 1
+    for (int r = r0; r < r1; ++r) {
+        T acc[E];
+        float num[E];
 #pragma unroll
-        for (int e = 0; e < PAIR_COLS; ++e) {
-            acc[e] = 0.f;
+        for (int e = 0; e < E; ++e) {
+            acc[e] = T(0);
             num[e] = 0.f;
         }
-        auto add = [&](int d1, const float (&av)[PAIR_COLS],
-                       const float (&bv)[PAIR_COLS]) {
+        auto add = [&](int d1, const T (&av)[E], const T (&bv)[E]) {
 #pragma unroll
-            for (int e = 0; e < PAIR_COLS; ++e) {
+            for (int e = 0; e < E; ++e) {
                 if (!inside(e, d1)) continue;
-                acc[e] = fmaf(av[e], bv[e], acc[e]);
+                acc[e] = madd(acc[e], av[e], bv[e]);
                 if (COUNTS)
-                    num[e] += (av[e] != 0.f && bv[e] != 0.f) ? 1.f : 0.f;
+                    num[e] += (av[e] != T(0) && bv[e] != T(0)) ? 1.f : 0.f;
             }
         };
         int p = rp[r];
         const int p1 = rp[r + 1];
         for (; p + 1 < p1; p += 2) {
-            float a0[PAIR_COLS], b0[PAIR_COLS], a1[PAIR_COLS], b1[PAIR_COLS];
+            T a0[E], b0[E], a1[E], b1[E];
             const int d0 = load(p, a0, b0);
             const int d1 = load(p + 1, a1, b1);
             add(d0, a0, b0);
             add(d1, a1, b1);
         }
         if (p < p1) {
-            float a0[PAIR_COLS], b0[PAIR_COLS];
+            T a0[E], b0[E];
             const int d0 = load(p, a0, b0);
             add(d0, a0, b0);
         }
-        float* cr = c + (long long)r * n_out + i0 + t;
+        T* cr = c + (long long)r * n_out + i0 + t;
         float* nr = COUNTS ? cnt + (long long)r * n_out + i0 + t : nullptr;
 #pragma unroll
-        for (int e = 0; e < PAIR_COLS; ++e) {
+        for (int e = 0; e < E; ++e) {
             if (!col[e]) continue;
             cr[PAIR_THREADS * e] = acc[e];
             if (COUNTS) nr[PAIR_THREADS * e] = num[e];
@@ -501,72 +521,58 @@ __device__ __forceinline__ void pair_rows(
     }
 }
 
-// Pairs entry.  Any offset sets: the products of C row r are the triples
+// Pairs entries.  Any offset sets: the products of C row r are the triples
 // trip[3 * p + {0, 1, 2}] = (k1, k2, d1) for p in [row_ptr[r], row_ptr[r+1]),
-// in ascending k1.  A block owns the C columns [i0, i0 + PAIR_L) of every
-// C row r = blockIdx.y, blockIdx.y + gridDim.y, ...; thread t the columns
-// i0 + t + PAIR_THREADS * e (e < PAIR_COLS), so a warp's loads and stores of
-// one e are 32 consecutive words.  The block first stages, by asynchronous
-// copies, the A bands' words of its columns (stage_a: all d1n bands x
-// PAIR_L, words past n_i zero) and the two tables (stage_tables), from
-// shared-memory word 0 on in that order; what is not staged is read from
-// global memory where it lies (ops/dia_kernels.pairs_launch decides by
-// size).  B is read through L1 at the pair's shift: a C row's pairs are
-// consecutive in the table and the C rows ascend, so the shifted reads of
-// one B band by neighbouring rows meet in L1, and the blocks in flight
-// (a 1-D grid over column ranges, row groups only where columns are few)
-// cover neighbouring columns and meet in L2.  Each C row is written once.
-// A block whose columns and shifted B columns all lie inside (every block
-// but the few at the ends, d1_min / d1_max being the extreme A offsets)
-// runs its rows with no bounds test at all (pair_rows).
-template <bool COUNTS>
+// in ascending k1.  A block owns the C columns [i0, i0 + L) (L = PAIR_THREADS
+// * Pairs<T>::COLS) of one row group's C rows, a few consecutive ones
+// (grid_y groups a column range); thread t the columns i0 + t + PAIR_THREADS
+// * e, so a warp's loads and stores of one e are 32 consecutive words.  The
+// row groups of one column range are neighbours in the 1-D grid, so they
+// run together: their reads of the same A words and of the same B words at
+// neighbouring shifts meet in L1 and L2, and the column span in flight is
+// small enough for the A and B words it reads to stay in L2.  A and B are
+// read through L1 at each pair's shift (a group of a few rows reads an A
+// word about once, so staging A in shared memory would cost more than it
+// saves, and the L1 it would take is what the B reads hit in); the block
+// stages only the two tables in shared memory where they fit (stage_tables,
+// ops/dia_kernels.pairs_launch).  Each C row is written once, coalesced.  A
+// block whose columns and shifted B columns all lie inside (every block but
+// the few at the ends, d1_min / d1_max being the extreme A offsets) runs its
+// rows with no bounds test at all (pair_rows).
+template <class T, bool COUNTS>
 __global__ void __launch_bounds__(PAIR_THREADS)
-dia_pairs_kernel(const float* __restrict__ a, const float* __restrict__ b,
+dia_pairs_kernel(const T* __restrict__ a, const T* __restrict__ b,
                  const int* __restrict__ row_ptr,
-                 const int* __restrict__ trip, float* __restrict__ c,
-                 float* __restrict__ cnt, int d1n, int dcn, int n_pairs,
-                 int d1_min, int d1_max, long long n_i, long long n_k,
-                 long long n_out, int stage_a, int stage_tables) {
-    extern __shared__ __align__(16) float smem[];
+                 const int* __restrict__ trip, T* __restrict__ c,
+                 float* __restrict__ cnt, int dcn, int n_pairs, int d1_min,
+                 int d1_max, long long n_i, long long n_k, long long n_out,
+                 int grid_y, int stage_tables) {
+    constexpr int L = PAIR_THREADS * Pairs<T>::COLS;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
     const int t = threadIdx.x;
-    const long long i0 = (long long)blockIdx.x * PAIR_L;
-    // A word (k1, column t + PAIR_THREADS * e) at ap[k1 * a_stride + ...]
-    const float* ap = a + i0;
-    long long a_stride = n_i;
-    if (stage_a) {
-        for (int k1 = 0; k1 < d1n; ++k1) {
-#pragma unroll
-            for (int e = 0; e < PAIR_COLS; ++e) {
-                const int cc = t + PAIR_THREADS * e;
-                const bool ok = i0 + cc < n_i;
-                copy_word(smem + k1 * PAIR_L + cc,
-                          ok ? a + (long long)k1 * n_i + i0 + cc : a, ok);
-            }
-        }
-        ap = smem;
-        a_stride = PAIR_L;
-    }
+    const long long i0 = (long long)(blockIdx.x / grid_y) * L;
+    const int by = blockIdx.x % grid_y;
+    const int r0 = (int)((long long)by * dcn / grid_y);
+    const int r1 = (int)((long long)(by + 1) * dcn / grid_y);
     const int* rp = row_ptr;
     const int* tp = trip;
     if (stage_tables) {
-        int* st = reinterpret_cast<int*>(smem + (stage_a ? d1n * PAIR_L : 0));
+        int* st = reinterpret_cast<int*>(smem_raw);
         for (int x = t; x <= dcn; x += PAIR_THREADS) st[x] = __ldg(row_ptr + x);
         for (int x = t; x < 3 * n_pairs; x += PAIR_THREADS)
             st[dcn + 1 + x] = __ldg(trip + x);
         rp = st;
         tp = st + dcn + 1;
+        __syncthreads();
     }
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
-    __syncthreads();
-
-    const bool interior = i0 + PAIR_L <= n_out && i0 + d1_min >= 0 &&
-                          i0 + PAIR_L - 1 + d1_max < n_k;
+    const bool interior = i0 + L <= n_out && i0 + d1_min >= 0 &&
+                          i0 + L - 1 + d1_max < n_k;
     if (interior)
-        pair_rows<COUNTS, false>(ap, a_stride, b, rp, tp, c, cnt, dcn, i0,
-                                 n_k, n_out);
+        pair_rows<T, COUNTS, false>(a, b, rp, tp, c, cnt, r0, r1, i0, n_i,
+                                    n_k, n_out);
     else
-        pair_rows<COUNTS, true>(ap, a_stride, b, rp, tp, c, cnt, dcn, i0,
-                                n_k, n_out);
+        pair_rows<T, COUNTS, true>(a, b, rp, tp, c, cnt, r0, r1, i0, n_i,
+                                   n_k, n_out);
 }
 
 template <class T, bool COUNTS>
@@ -612,46 +618,34 @@ int dense_entry(const void* a, const void* b, const void* offs_a, void* c,
         stage_words, st);
 }
 
-constexpr int F64_THREADS = 256;    // threads (C columns) a block, f64 pairs
-
-// float64, pairs entry: C row r takes the (k1, k2, d1) triples
-// trip[row_ptr[r] .. row_ptr[r + 1]), ascending k1.
-template <bool COUNTS>
-__global__ void __launch_bounds__(F64_THREADS)
-dia_pairs_f64_kernel(const double* __restrict__ a,
-                     const double* __restrict__ b,
-                     const int* __restrict__ row_ptr,
-                     const int* __restrict__ trip, double* __restrict__ c,
-                     float* __restrict__ cnt, int dcn, long long n_i,
-                     long long n_k, long long n_out) {
-    const long long i = (long long)blockIdx.x * F64_THREADS + threadIdx.x;
-    if (i >= n_out) return;
-    for (int r = blockIdx.y; r < dcn; r += gridDim.y) {
-        double acc = 0.0;
-        float n = 0.f;
-        const int end = __ldg(row_ptr + r + 1);
-        for (int q = __ldg(row_ptr + r); q < end; ++q) {
-            const int k1 = __ldg(trip + 3 * q);
-            const int k2 = __ldg(trip + 3 * q + 1);
-            const long long j = i + __ldg(trip + 3 * q + 2);
-            if (j < 0 || j >= n_k) continue;
-            const double av = __ldg(a + (long long)k1 * n_i + i);
-            const double bv = __ldg(b + (long long)k2 * n_k + j);
-            acc = __dadd_rn(acc, __dmul_rn(av, bv));
-            if (COUNTS && av != 0.0 && bv != 0.0) n += 1.f;
-        }
-        c[(long long)r * n_out + i] = acc;
-        if (COUNTS) cnt[(long long)r * n_out + i] = n;
+// Both pairs entries: the word type's kernel with or without counts, on a
+// 1-D grid of grid_y row groups for each column range of PAIR_THREADS *
+// Pairs<T>::COLS columns.
+template <class T>
+int pairs_entry(const void* a, const void* b, const void* row_ptr,
+                const void* trip, void* c, void* cnt, int dcn, int n_pairs,
+                int d1_min, int d1_max, long long n_i, long long n_k,
+                long long n_out, int grid_y, int stage_tables,
+                int smem_bytes, void* stream) {
+    constexpr long long L = (long long)PAIR_THREADS * Pairs<T>::COLS;
+    const long long grid = (n_out + L - 1) / L * grid_y;
+    if (grid > 0x7fffffffLL || grid_y <= 0 || grid_y > dcn)
+        return (int)cudaErrorInvalidConfiguration;
+    cudaStream_t s = (cudaStream_t)stream;
+    if (cnt != nullptr) {
+        dia_pairs_kernel<T, true><<<(unsigned)grid, PAIR_THREADS, smem_bytes,
+                                    s>>>(
+            (const T*)a, (const T*)b, (const int*)row_ptr, (const int*)trip,
+            (T*)c, (float*)cnt, dcn, n_pairs, d1_min, d1_max, n_i, n_k,
+            n_out, grid_y, stage_tables);
+    } else {
+        dia_pairs_kernel<T, false><<<(unsigned)grid, PAIR_THREADS,
+                                     smem_bytes, s>>>(
+            (const T*)a, (const T*)b, (const int*)row_ptr, (const int*)trip,
+            (T*)c, nullptr, dcn, n_pairs, d1_min, d1_max, n_i, n_k, n_out,
+            grid_y, stage_tables);
     }
-}
-
-// The f64 grid: column blocks of F64_THREADS along x, C rows along y (a
-// block walks rows y, y + gridDim.y, ...).
-bool f64_grid(long long n_out, int dcn, dim3* grid) {
-    const long long gx = (n_out + F64_THREADS - 1) / F64_THREADS;
-    if (gx <= 0 || gx > 0x7fffffffLL || dcn <= 0) return false;
-    *grid = dim3((unsigned)gx, (unsigned)(dcn < 65535 ? dcn : 65535));
-    return true;
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -677,49 +671,26 @@ extern "C" int dia_multiply_dense_f32(const void* a, const void* b,
 }
 
 // row_ptr (dcn + 1) int32, trip (3 * n_pairs) int32, d1_min / d1_max the
-// least and the greatest A offset; the rest as above.  The launch shape (grid_y row groups, what is staged, the block's bytes of
+// least and the greatest A offset; the rest as above.  The launch shape
+// (grid_y row groups, whether the tables are staged, the block's bytes of
 // shared memory) is ops/dia_kernels.pairs_launch's.
 extern "C" int dia_multiply_pairs_f32(const void* a, const void* b,
                                       const void* row_ptr, const void* trip,
-                                      void* c, void* cnt, int d1n, int dcn,
+                                      void* c, void* cnt, int dcn,
                                       int n_pairs, int d1_min, int d1_max,
                                       long long n_i, long long n_k,
                                       long long n_out, int grid_y,
-                                      int stage_a, int stage_tables,
-                                      int smem_bytes, void* stream) {
-    const long long grid_x = (n_out + PAIR_L - 1) / PAIR_L;
-    if (grid_x > 0x7fffffffLL || grid_y <= 0 || grid_y > 65535)
-        return (int)cudaErrorInvalidConfiguration;
-    const dim3 grid((unsigned)grid_x, (unsigned)grid_y);
-    cudaStream_t s = (cudaStream_t)stream;
-    // per launch: the attribute belongs to the current device
-    const cudaError_t attr = cnt != nullptr
-        ? cudaFuncSetAttribute(dia_pairs_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem_bytes)
-        : cudaFuncSetAttribute(dia_pairs_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem_bytes);
-    if (attr != cudaSuccess) return (int)attr;
-    if (cnt != nullptr) {
-        dia_pairs_kernel<true><<<grid, PAIR_THREADS, smem_bytes, s>>>(
-            (const float*)a, (const float*)b, (const int*)row_ptr,
-            (const int*)trip, (float*)c, (float*)cnt, d1n, dcn, n_pairs,
-            d1_min, d1_max, n_i, n_k, n_out, stage_a, stage_tables);
-    } else {
-        dia_pairs_kernel<false><<<grid, PAIR_THREADS, smem_bytes, s>>>(
-            (const float*)a, (const float*)b, (const int*)row_ptr,
-            (const int*)trip, (float*)c, nullptr, d1n, dcn, n_pairs,
-            d1_min, d1_max, n_i, n_k, n_out, stage_a, stage_tables);
-    }
-    return (int)cudaGetLastError();
+                                      int stage_tables, int smem_bytes,
+                                      void* stream) {
+    return pairs_entry<float>(a, b, row_ptr, trip, c, cnt, dcn, n_pairs,
+                              d1_min, d1_max, n_i, n_k, n_out, grid_y,
+                              stage_tables, smem_bytes, stream);
 }
 
 // The float64 entries: a, b and c float64, cnt float32 (nullptr: values
-// only), the tables as for the float32 entries.  The dense entry is the
-// float32 dense entry's kernel on 8-byte words, its launch shape
-// dense_launch's at word size 8; the pairs entry takes one thread a C
-// element.
+// only), the tables and the launch shapes as for the float32 entries, at
+// word size 8 (dense_launch's and pairs_launch's): the float32 entries'
+// kernels on 8-byte words.
 extern "C" int dia_multiply_dense_f64(const void* a, const void* b,
                                       const void* offs_a, void* c, void* cnt,
                                       int d1n, int d2n, int dcn,
@@ -735,19 +706,12 @@ extern "C" int dia_multiply_dense_f64(const void* a, const void* b,
 extern "C" int dia_multiply_pairs_f64(const void* a, const void* b,
                                       const void* row_ptr, const void* trip,
                                       void* c, void* cnt, int dcn,
+                                      int n_pairs, int d1_min, int d1_max,
                                       long long n_i, long long n_k,
-                                      long long n_out, void* stream) {
-    dim3 grid;
-    if (!f64_grid(n_out, dcn, &grid))
-        return (int)cudaErrorInvalidConfiguration;
-    cudaStream_t s = (cudaStream_t)stream;
-    if (cnt != nullptr)
-        dia_pairs_f64_kernel<true><<<grid, F64_THREADS, 0, s>>>(
-            (const double*)a, (const double*)b, (const int*)row_ptr,
-            (const int*)trip, (double*)c, (float*)cnt, dcn, n_i, n_k, n_out);
-    else
-        dia_pairs_f64_kernel<false><<<grid, F64_THREADS, 0, s>>>(
-            (const double*)a, (const double*)b, (const int*)row_ptr,
-            (const int*)trip, (double*)c, nullptr, dcn, n_i, n_k, n_out);
-    return (int)cudaGetLastError();
+                                      long long n_out, int grid_y,
+                                      int stage_tables, int smem_bytes,
+                                      void* stream) {
+    return pairs_entry<double>(a, b, row_ptr, trip, c, cnt, dcn, n_pairs,
+                               d1_min, d1_max, n_i, n_k, n_out, grid_y,
+                               stage_tables, smem_bytes, stream);
 }

@@ -181,6 +181,22 @@ def _dia_multiply_torch(a_bands, b_bands, *, offs_a, idx_map, dc_count,
     return c, cnt
 
 
+def operand_key(x: torch.Tensor) -> tuple:
+    """What a captured graph fixes of a tensor it reads: its address,
+    shape, strides, dtype and device."""
+    return (x.data_ptr(), tuple(x.shape), x.stride(), x.dtype, x.device)
+
+
+def same_operand(held: tuple, x: torch.Tensor) -> bool:
+    """Is ``x`` the tensor a graph was captured on, as it was then?
+    ``held`` is (that tensor, its ``operand_key`` at capture).  Values
+    changed in place keep it the same; another tensor (even one with equal
+    values at the same address) or one resized, re-strided or moved since
+    does not."""
+    tensor, key = held
+    return tensor is x and operand_key(x) == key
+
+
 @dataclasses.dataclass
 class DiaPlan:
     """Fixed-step plan for the DIA engine.
@@ -195,6 +211,16 @@ class DiaPlan:
     operations and half the C write traffic.  (The interactive pipeline
     builds a fresh plan per iteration, so its repeats keep the full
     structure recomputation; only the replay of one plan reuses.)
+
+    On the GPU the values-only multiply is ONE CUDA graph, the counterpart
+    of the JAX package's jitted ``dia_multiply_pallas`` (one dispatch a
+    multiply): the second ``run`` multiplies eagerly once, then captures
+    one values-only multiply; every later ``run`` is one replay.  A graph
+    reads fixed addresses, so the plan keeps the captured band stacks
+    alive and re-captures when a run is given other tensors
+    (``same_operand``); values changed in place are seen by the next
+    replay.  A replay writes its C into the same memory every time: it
+    overwrites the C of the replay before.  CPU plans run eagerly.
     """
 
     offs_a: tuple
@@ -209,12 +235,24 @@ class DiaPlan:
         default=None, repr=False, compare=False)
     _tables: Optional[tuple] = dataclasses.field(
         default=None, repr=False, compare=False)
+    # the captured graph, the band stacks it reads, its static C and
+    # overflow flag, and the kernel launches of one multiply (counted while
+    # capturing)
+    _graph: dict = dataclasses.field(default_factory=dict, repr=False,
+                                     compare=False)
 
     def grown(self):
         return self
 
     def fence(self, out):
         return out[0]          # c_bands: the counts may be plan-cached
+
+    @property
+    def launches(self):
+        """Kernel launches of one replayed multiply, by entry, recorded at
+        capture (a replay does not pass through the wrappers' counters);
+        empty before the capture and on the CPU."""
+        return dict(self._graph.get("launches", {}))
 
     def _multiply(self, a: DiaMatrix, b: DiaMatrix, values_only: bool):
         if not a.bands.is_cuda:
@@ -239,16 +277,55 @@ class DiaPlan:
             dc_list=self.dc_list, n_out=self.n_out, mode=self.kernel_mode,
             values_only=values_only, tables=self._tables)
 
+    def capture(self, a: DiaMatrix, b: DiaMatrix):
+        """Multiply values-only eagerly once, with any host synchronisation
+        an error (it would break the capture), then capture one values-only
+        multiply of these band stacks.  Runs on the current device, which
+        ``run`` sets to the bands'.  A capture that fails raises."""
+        from pem_spgemm_tpu_torch.ops import dia_kernels
+        self._graph.clear()             # the old graph and its operands go
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with torch.cuda.stream(side):
+                self._multiply(a, b, values_only=True)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        torch.cuda.current_stream().wait_stream(side)
+        before = dict(dia_kernels.LAUNCHES)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            c, _ = self._multiply(a, b, values_only=True)
+            overflow = torch.zeros((), dtype=torch.bool, device=c.device)
+        self._graph.update(
+            graph=graph, c=c, overflow=overflow,
+            operands=tuple((x, operand_key(x))
+                           for x in (a.bands, b.bands)),
+            launches={k: v - before[k]
+                      for k, v in dia_kernels.LAUNCHES.items()})
+
     def run(self, a: DiaMatrix, b: DiaMatrix):
         """(c_bands, c_counts, c_nnz_dev, overflow)."""
-        overflow = torch.zeros((), dtype=torch.bool, device=a.bands.device)
-        if self._cnt_cache is not None:
+        if self._cnt_cache is None:
+            c, cnt = self._multiply(a, b, values_only=False)
+            nnz = _count_nnz(cnt)
+            self._cnt_cache = (cnt, nnz)
+            return c, cnt, nnz, torch.zeros((), dtype=torch.bool,
+                                            device=a.bands.device)
+        cnt, nnz = self._cnt_cache
+        if not a.bands.is_cuda or self.n_out == 0:
             c, _ = self._multiply(a, b, values_only=True)
-            return c, self._cnt_cache[0], self._cnt_cache[1], overflow
-        c, cnt = self._multiply(a, b, values_only=False)
-        nnz = _count_nnz(cnt)
-        self._cnt_cache = (cnt, nnz)
-        return c, cnt, nnz, overflow
+            return c, cnt, nnz, torch.zeros((), dtype=torch.bool,
+                                            device=a.bands.device)
+        held = self._graph.get("operands")
+        with torch.cuda.device(a.bands.device):
+            if held is None or not (same_operand(held[0], a.bands)
+                                    and same_operand(held[1], b.bands)):
+                self.capture(a, b)
+            self._graph["graph"].replay()
+        return self._graph["c"], cnt, nnz, self._graph["overflow"]
 
 
 def _count_nnz(cnt):

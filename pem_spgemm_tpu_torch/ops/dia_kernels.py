@@ -16,13 +16,14 @@ pairs, in ascending A-band order per C element, and the same sum over the
 float64 entry (the f64 parity mode, rounding each product and sum as the
 plain version does); the bands' dtype picks it.
 ``values_only=True`` launches the variant without the mask algebra and
-returns ``None`` for the counts.  The
-dense entries stage a window of B in shared memory (the float64 one is the
-float32 kernel on 8-byte words, with its own thread geometry):
+returns ``None`` for the counts.  Each float64 entry is its float32
+entry's kernel on 8-byte words, with a geometry of its own.  The
+dense entries stage a window of B in shared memory:
 ``dense_launch`` gives the block shape and shared-memory layout for a word
 size, ``dense_chunks`` the band chunks.
-The pairs entry stages its column range of the A bands and the pair tables:
-``pairs_launch`` gives its grid and what is staged.
+The pairs entries read A and B where they lie, a few C rows a block, and
+stage their pair tables: ``pairs_launch`` gives the grid and what is
+staged for a word size.
 
 Dispatch is by the tensors' device and nothing else: CUDA tensors launch the
 kernel (or raise, if the build or the launch fails); CPU tensors take the
@@ -51,11 +52,21 @@ COLS = DENSE_GEOMETRY[4]["cols"]
 MAX_ROW_BLOCKS = 8          # row blocks a thread block, at most
 MAX_COL_BLOCKS = 64         # column blocks a thread block, at most
 COPY_WIDTH = 32             # window columns a pass of the staging copies
-SMEM_BUDGET = 112 * 1024    # bytes a block of either entry: two an SM
-PAIR_THREADS = 256          # threads a block of the pairs entry (the .cu's)
-PAIR_COLS = 4               # columns a thread of the pairs entry
-PAIR_L = PAIR_THREADS * PAIR_COLS   # columns a block of the pairs entry
+SMEM_BUDGET = 112 * 1024    # bytes a dense-entry block: two an SM
+# The pairs entries' geometry by word size (the .cu's PAIR_THREADS,
+# PAIR_COLS, PAIR_COLS_F64): threads a block, columns a thread, and the C
+# rows a row group holds at most.  Short groups of one column range run
+# together, so their A and B words meet in L1 and L2 (bench/k4_split.py
+# --only k3 --only k3f64, PERF.md).
+PAIR_GEOMETRY = {4: dict(threads=256, cols=4, group_rows=3),
+                 8: dict(threads=256, cols=4, group_rows=3)}
+PAIR_THREADS = PAIR_GEOMETRY[4]["threads"]  # the float32 entry's
+PAIR_COLS = PAIR_GEOMETRY[4]["cols"]
+PAIR_L = PAIR_THREADS * PAIR_COLS   # columns a block, float32 entry
 PAIRS_MIN_BLOCKS = 264      # pairs-entry blocks wanted: two an SM of 132
+# shared memory a pairs block may stage its tables in: within the 48 KB a
+# block has without an attribute, so the L1 the A and B reads hit in stays
+PAIR_TABLE_BUDGET = 48 * 1024
 
 # kernel launches per entry (plain-version calls are not counted)
 LAUNCHES = {"dia_multiply_dense": 0, "dia_multiply_pairs": 0,
@@ -74,15 +85,14 @@ def _declare(lib) -> None:
                                            ci, ci, vp]
     lib.dia_multiply_dense_f32.restype = ci
     lib.dia_multiply_pairs_f32.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci,
-                                           ci, ci, ci, ll, ll, ll, ci, ci,
-                                           ci, ci, vp]
+                                           ci, ci, ll, ll, ll, ci, ci, ci,
+                                           vp]
     lib.dia_multiply_pairs_f32.restype = ci
     lib.dia_multiply_dense_f64.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci,
                                            ll, ll, ll, ci, ci, ci, ci, ci,
                                            ci, ci, vp]
     lib.dia_multiply_dense_f64.restype = ci
-    lib.dia_multiply_pairs_f64.argtypes = [vp, vp, vp, vp, vp, vp, ci, ll,
-                                           ll, ll, vp]
+    lib.dia_multiply_pairs_f64.argtypes = lib.dia_multiply_pairs_f32.argtypes
     lib.dia_multiply_pairs_f64.restype = ci
 
 
@@ -207,32 +217,37 @@ def dense_launch(offs_a, d2n: int, dcn: int, word: int = 4):
 # --------------------------------------------------------------------------
 # the pairs entry's launch shape
 
-def pairs_launch(d1n: int, dcn: int, n_pairs: int, n_out: int):
+def pairs_launch(d1n: int, dcn: int, n_pairs: int, n_out: int,
+                 word: int = 4):
     """The pairs entry's launch shape for d1n A bands, dcn C rows, n_pairs
-    band pairs and n_out columns.
+    band pairs, n_out columns and ``word``-byte words (4: the float32
+    entry, 8: the float64 one).
 
-    A block owns PAIR_L columns (PAIR_COLS a thread, PAIR_THREADS apart) of
-    the C rows blockIdx.y, blockIdx.y + grid_y, ...: grid_x column ranges,
-    neighbours in the grid, and grid_y row groups only where the column
-    ranges alone give fewer than PAIRS_MIN_BLOCKS blocks.  Shared memory
-    holds, from word 0 on, the block's words of every A band (stage_a:
-    d1n x PAIR_L floats) and then the row_ptr / trip tables
-    (stage_tables), each where it fits in SMEM_BUDGET beside what comes
-    before it; what is not staged is read where it lies."""
+    A block owns L = threads x cols columns (``PAIR_GEOMETRY[word]``: cols
+    a thread, ``threads`` apart) of the C rows of its row group: grid_x
+    column ranges, each split into grid_y groups of consecutive C rows of
+    at most ``group_rows`` rows (more groups where the column ranges alone
+    give fewer than PAIRS_MIN_BLOCKS blocks); the groups of one range are
+    neighbours in the 1-D grid.  A and B are read where they lie; the
+    row_ptr / trip tables (int32) are staged in shared memory where they
+    fit in PAIR_TABLE_BUDGET (stage_tables), else read where they lie.
+    d1n only checks the arguments: the tables carry the bands."""
+    if word not in PAIR_GEOMETRY:
+        raise ValueError(f"{word}-byte words: the pairs entries take 4 or 8")
     if d1n <= 0 or dcn <= 0 or n_pairs <= 0 or n_out <= 0:
         raise ValueError(f"d1n={d1n}, dcn={dcn}, n_pairs={n_pairs}, "
                          f"n_out={n_out}")
-    grid_x = -(-n_out // PAIR_L)
-    grid_y = min(dcn, max(1, -(-PAIRS_MIN_BLOCKS // grid_x)))
-    a_bytes = 4 * d1n * PAIR_L
+    geo = PAIR_GEOMETRY[word]
+    L = geo["threads"] * geo["cols"]
+    grid_x = -(-n_out // L)
+    grid_y = min(dcn, max(-(-dcn // geo["group_rows"]),
+                          -(-PAIRS_MIN_BLOCKS // grid_x)))
     t_bytes = 4 * (dcn + 1 + 3 * n_pairs)
-    stage_a = a_bytes <= SMEM_BUDGET
-    used = a_bytes if stage_a else 0
-    stage_tables = used + t_bytes <= SMEM_BUDGET
-    return dict(grid_x=grid_x, grid_y=grid_y, L=PAIR_L, cols=PAIR_COLS,
-                threads=PAIR_THREADS, stage_a=stage_a,
+    stage_tables = t_bytes <= PAIR_TABLE_BUDGET
+    return dict(grid_x=grid_x, grid_y=grid_y, L=L, cols=geo["cols"],
+                threads=geo["threads"], word=word,
                 stage_tables=stage_tables,
-                smem_bytes=used + (t_bytes if stage_tables else 0))
+                smem_bytes=t_bytes if stage_tables else 0)
 
 
 # --------------------------------------------------------------------------
@@ -352,36 +367,22 @@ def dia_multiply(a_bands, b_bands, *, offs_a, offs_b, dc_list, n_out,
                 n_k, n_out, shape["tr_log2"], shape["tc_n"], shape["kc"],
                 shape["s"], shape["cw_log2"], shape["b_off"],
                 shape["stage_words"], stream)
-        elif wide:
-            err = _launch_pairs_f64(lib, a_bands, b_bands, tables, c,
-                                    cnt_ptr, offs_a, offs_b, dcn, n_i, n_k,
-                                    n_out, stream)
         else:
             row_ptr, trip = tables
             n_pairs = len(offs_a) * len(offs_b)
             if row_ptr.numel() != dcn + 1 or trip.numel() != 3 * n_pairs:
                 raise ValueError("tables do not match the offset sets")
-            shape = pairs_launch(len(offs_a), dcn, n_pairs, n_out)
-            err = lib.dia_multiply_pairs_f32(
+            shape = pairs_launch(len(offs_a), dcn, n_pairs, n_out,
+                                 a_bands.element_size())
+            fn = lib.dia_multiply_pairs_f64 if wide \
+                else lib.dia_multiply_pairs_f32
+            err = fn(
                 a_bands.data_ptr(), b_bands.data_ptr(), row_ptr.data_ptr(),
-                trip.data_ptr(), c.data_ptr(), cnt_ptr, len(offs_a), dcn,
-                n_pairs, offs_a[0], offs_a[-1], n_i, n_k, n_out,
-                shape["grid_y"],
-                int(shape["stage_a"]), int(shape["stage_tables"]),
-                shape["smem_bytes"], stream)
+                trip.data_ptr(), c.data_ptr(), cnt_ptr, dcn, n_pairs,
+                offs_a[0], offs_a[-1], n_i, n_k, n_out, shape["grid_y"],
+                int(shape["stage_tables"]), shape["smem_bytes"], stream)
     if err != 0:
         raise RuntimeError(f"{entry}: CUDA launch failed with error {err}")
     LAUNCHES[entry] += 1
     return c, cnt
 
-
-def _launch_pairs_f64(lib, a_bands, b_bands, tables, c, cnt_ptr, offs_a,
-                      offs_b, dcn, n_i, n_k, n_out, stream):
-    """Launch the float64 pairs entry; returns its cudaError_t."""
-    row_ptr, trip = tables
-    if row_ptr.numel() != dcn + 1 or \
-            trip.numel() != 3 * len(offs_a) * len(offs_b):
-        raise ValueError("tables do not match the offset sets")
-    return lib.dia_multiply_pairs_f64(
-        a_bands.data_ptr(), b_bands.data_ptr(), row_ptr.data_ptr(),
-        trip.data_ptr(), c.data_ptr(), cnt_ptr, dcn, n_i, n_k, n_out, stream)

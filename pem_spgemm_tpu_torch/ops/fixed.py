@@ -2,8 +2,9 @@
 
 Ported: the binned element engine's adapter (one CUDA graph a multiply on
 the GPU), the merge element engine's plan (``ElementPlan``, the f64 parity
-mode's), the DIA branch (a DIA plan is already fixed-step, ops/dia.DiaPlan)
-and the two plans of the Macro128 engine.
+mode's), the DIA branch (a DIA plan is already fixed-step, and replays one
+CUDA graph a multiply on the GPU: ops/dia.DiaPlan) and the two plans of the
+Macro128 engine.
 """
 
 from __future__ import annotations

@@ -16,12 +16,15 @@ plain version's values to float32 rounding (bit for bit in float64, where
 the kernel rounds each product and sum as the plain version does) and its
 counts exactly; the float32 launch shapes stay as they were.
 
-The pairs entry (any offset sets) is replayed the same way from
-``dia_kernels.pairs_launch``'s grid: a block's column range, its staged A
-words, its rows and each row's pairs; every product of a C element is
-added once, in ascending A band, a block taken as interior (no bounds
-test) needs none, and the pairbands offsets blown out 1000x launch with no
-interior block.
+The pairs entries (any offset sets) are replayed the same way from
+``dia_kernels.pairs_launch``'s grid at either word size: a block's column
+range, its row group's rows and each row's pairs; every product of a C
+element is added once, in ascending A band, a block taken as interior (no
+bounds test) needs none, and the pairbands offsets blown out 1000x launch
+with no interior block.  The float64 entry (the float32 kernel on 8-byte
+words, ``PAIR_GEOMETRY[8]``) is held bit for bit to the plain version,
+also with edge blocks at both ends, with row groups of uneven size, and on
+zero-heavy bands full of -0.0.
 """
 
 import numpy as np
@@ -345,29 +348,35 @@ def test_split_builds_cut_one_place_each():
 PAIRBANDS = (-1201, -1200, -601, -600, 0, 1, 600, 601, 1200, 1201)
 
 
+# the .cu's constant for the columns a thread of each pairs entry
+PAIR_COLS_NAME = {4: "PAIR_COLS", 8: "PAIR_COLS_F64"}
+
+
 def _replay_pairs_kernel(a, b, offs_a, offs_b, n_out, blocks=None):
-    """csrc/dia_multiply.cu's pairs entry, block by block: pairs_launch's
-    grid, a block's staged A words (zero past n_i), thread t's columns
-    i0 + t + PAIR_THREADS * e, the block's rows r = by, by + grid_y, ...,
-    each row's pairs in table order (two a step in the kernel, added in
-    order).  An interior block (pair_rows without tests) is asserted to
-    need no test.  Returns (c, cnt, visits, last_k1, interior) over the
-    replayed blocks' columns (NaN / -1 elsewhere): visits counts the
-    products added to each element, last_k1 asserts that they come in
-    ascending A band."""
+    """csrc/dia_multiply.cu's pairs entry for the bands' word (float32 or
+    float64), block by block: pairs_launch's grid at that word, thread t's
+    columns i0 + t + PAIR_THREADS * e, the block's row group's consecutive
+    rows (A and B read where they lie, zero outside B), each row's
+    pairs in table order (two a step in the kernel, added in order: in
+    float64 the product rounded, then the sum, as madd does).  An interior
+    block (pair_rows without tests) is asserted to need no test.  Returns
+    (c, cnt, visits, last_k1, interior) over the replayed blocks' columns
+    (NaN / -1 elsewhere): visits counts the products added to each
+    element, last_k1 asserts that they come in ascending A band."""
     d1n, n_i = a.shape
     _d2n, n_k = b.shape
+    word = a.dtype.itemsize
     dc_list, _ = _plan_maps(offs_a, offs_b)
     row_ptr, trip = dk.pair_table(offs_a, offs_b, dc_list)
     dcn = len(dc_list)
-    sh = dk.pairs_launch(d1n, dcn, len(trip), n_out)
+    sh = dk.pairs_launch(d1n, dcn, len(trip), n_out, word)
     L, T, E, gy = sh["L"], sh["threads"], sh["cols"], sh["grid_y"]
-    assert L == T * E
+    assert L == T * E and sh["word"] == word
     with open(dk.SOURCE) as f:              # the .cu's constants
         src = f.read()
     assert f"constexpr int PAIR_THREADS = {T};" in src
-    assert f"constexpr int PAIR_COLS = {E};" in src
-    c = np.full((dcn, n_out), np.nan, np.float32)
+    assert f"constexpr int {PAIR_COLS_NAME[word]} = {E};" in src
+    c = np.full((dcn, n_out), np.nan, a.dtype)
     cnt = np.full((dcn, n_out), np.nan, np.float32)
     visits = np.zeros((dcn, n_out), np.int64)
     written = np.zeros((dcn, n_out), np.int64)
@@ -379,12 +388,9 @@ def _replay_pairs_kernel(a, b, offs_a, offs_b, n_out, blocks=None):
         interior.append(inner)
         cols = i0 + np.arange(T)[:, None] + T * np.arange(E)[None, :]
         col_ok = cols < n_out
-        staged = np.zeros((d1n, L), np.float32)
-        w = max(0, min(L, n_i - i0))
-        staged[:, :w] = a[:, i0:i0 + w]
-        for by in range(gy):
-            for r in range(by, dcn, gy):
-                acc = np.zeros((T, E), np.float32)
+        for by in range(gy):                # consecutive rows a group
+            for r in range(by * dcn // gy, (by + 1) * dcn // gy):
+                acc = np.zeros((T, E), a.dtype)
                 num = np.zeros((T, E), np.float32)
                 last = np.full((T, E), -1)
                 for p in range(row_ptr[r], row_ptr[r + 1]):
@@ -393,9 +399,9 @@ def _replay_pairs_kernel(a, b, offs_a, offs_b, n_out, blocks=None):
                     ok = col_ok & (j >= 0) & (j < n_k)
                     if inner:
                         assert ok.all()
-                    av = staged[k1, cols - i0]
+                    av = a[k1, np.clip(cols, 0, n_i - 1)]
                     bv = b[k2, np.clip(j, 0, n_k - 1)]
-                    acc = np.where(ok, (acc + av * bv).astype(np.float32),
+                    acc = np.where(ok, (acc + av * bv).astype(a.dtype),
                                    acc)
                     num += ok & (av != 0) & (bv != 0)
                     assert (last[ok] < k1).all()
@@ -407,6 +413,7 @@ def _replay_pairs_kernel(a, b, offs_a, offs_b, n_out, blocks=None):
     return c, cnt, visits, written, interior
 
 
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
 @pytest.mark.parametrize("name,offs_a,offs_b,n_i,n_k", [
     ("pairbands", PAIRBANDS, PAIRBANDS, 5_003, 5_003),
     ("gapped", (0, 2, 4), (-3, -2, -1, 0), 2_100, 2_100),
@@ -414,10 +421,10 @@ def _replay_pairs_kernel(a, b, offs_a, offs_b, n_out, blocks=None):
     ("near +-n", (-1200, 0, 1197), (-1200, 0, 1197), 1_201, 1_201),
 ])
 def test_pairs_replay_visits_each_product_once_in_band_order(
-        name, offs_a, offs_b, n_i, n_k):
+        name, offs_a, offs_b, n_i, n_k, dtype):
     rng = np.random.default_rng(n_i + n_k)
-    a = rng.standard_normal((len(offs_a), n_i)).astype(np.float32)
-    b = rng.standard_normal((len(offs_b), n_k)).astype(np.float32)
+    a = rng.standard_normal((len(offs_a), n_i)).astype(dtype)
+    b = rng.standard_normal((len(offs_b), n_k)).astype(dtype)
     a[rng.random(a.shape) < 0.2] = 0
     b[rng.random(b.shape) < 0.2] = 0
     dc_list, idx_map = _plan_maps(offs_a, offs_b)
@@ -436,10 +443,19 @@ def test_pairs_replay_visits_each_product_once_in_band_order(
     want_c, want_n = _dia_multiply_torch(
         torch.from_numpy(a), torch.from_numpy(b), offs_a=offs_a,
         idx_map=idx_map, dc_count=len(dc_list), n_out=n_i)
-    np.testing.assert_allclose(c, want_c.numpy(), rtol=1e-5, atol=1e-5)
+    if dtype == np.float64:
+        # madd rounds as the plain version does, in its order: bit for bit
+        assert np.array_equal(c.view(np.int64), want_c.numpy().view(np.int64))
+    else:
+        np.testing.assert_allclose(c, want_c.numpy(), rtol=1e-5, atol=1e-5)
     np.testing.assert_array_equal(cnt, want_n.numpy())
     if name == "pairbands":
-        assert interior == [False, False, True, False, False]
+        # the column ranges 1,201 in from either end run untested
+        sh = dk.pairs_launch(len(offs_a), len(dc_list), len(offs_a) ** 2,
+                             n_i, a.dtype.itemsize)
+        assert interior == {1024: [False, False, True, False, False],
+                            512: [False] * 3 + [True] * 4 + [False] * 3,
+                            }[sh["L"]]
 
 
 def test_pairs_launch_shape_at_pairbands_x1000():
@@ -450,11 +466,9 @@ def test_pairs_launch_shape_at_pairbands_x1000():
     dc_list, _ = _plan_maps(wide, wide)
     assert dk.dia_mode(wide, wide, dc_list) == "pairs"
     sh = dk.pairs_launch(len(wide), len(dc_list), len(wide) ** 2, n)
-    assert sh["grid_x"] == -(-n // dk.PAIR_L) and sh["grid_y"] == 1
-    assert sh["stage_a"] and sh["stage_tables"]
-    assert sh["smem_bytes"] == 4 * (len(wide) * dk.PAIR_L + len(dc_list) + 1
-                                    + 3 * len(wide) ** 2)
-    assert sh["smem_bytes"] <= dk.SMEM_BUDGET
+    assert sh["grid_x"] == -(-n // dk.PAIR_L) and sh["grid_y"] == 10
+    assert sh["stage_tables"]
+    assert sh["smem_bytes"] == 4 * (len(dc_list) + 1 + 3 * len(wide) ** 2)
     rng = np.random.default_rng(5)
     a = rng.standard_normal((len(wide), n)).astype(np.float32)
     blocks = [0, 1, sh["grid_x"] // 2, sh["grid_x"] - 1]
@@ -471,20 +485,112 @@ def test_pairs_launch_shape_at_pairbands_x1000():
     np.testing.assert_array_equal(cnt[:, cols], want_n.numpy()[:, cols])
 
 
-@pytest.mark.parametrize("d1n,dcn,n_pairs,n_out,stage_a,stage_tables", [
-    (10, 30, 100, 500_000, True, True),     # pairbands-500k
-    (40, 80, 80, 3_001, False, True),       # A past the budget
-    (300, 937, 12_000, 3_001, False, False),  # the tables too
-    (1, 1, 1, 1, True, True),
+@pytest.mark.parametrize("word", [4, 8])
+@pytest.mark.parametrize("d1n,dcn,n_pairs,n_out,stage_tables", [
+    (10, 30, 100, 500_000, True),           # pairbands-500k
+    (20, 40, 40, 200_003, True),
+    (40, 80, 80, 3_001, True),
+    (300, 937, 12_000, 3_001, False),       # the tables past the budget
+    (1, 1, 1, 1, True),
 ])
-def test_pairs_launch_stages_what_fits(d1n, dcn, n_pairs, n_out, stage_a,
-                                       stage_tables):
-    sh = dk.pairs_launch(d1n, dcn, n_pairs, n_out)
-    assert (sh["stage_a"], sh["stage_tables"]) == (stage_a, stage_tables)
-    assert sh["smem_bytes"] <= dk.SMEM_BUDGET
+def test_pairs_launch_stages_what_fits(d1n, dcn, n_pairs, n_out,
+                                       stage_tables, word):
+    # the tables where they fit in 48 KB; A and B are read where they lie
+    geo = dk.PAIR_GEOMETRY[word]
+    sh = dk.pairs_launch(d1n, dcn, n_pairs, n_out, word)
+    assert sh["stage_tables"] == stage_tables
+    assert sh["smem_bytes"] == (4 * (dcn + 1 + 3 * n_pairs)
+                                if stage_tables else 0)
+    assert sh["smem_bytes"] <= dk.PAIR_TABLE_BUDGET <= 48 * 1024
+    assert sh["word"] == word
+    assert sh["L"] == sh["threads"] * sh["cols"] == (
+        geo["threads"] * geo["cols"])
     assert sh["grid_x"] * sh["L"] >= n_out > (sh["grid_x"] - 1) * sh["L"]
     assert 1 <= sh["grid_y"] <= dcn
     assert sh["grid_x"] * sh["grid_y"] >= min(dk.PAIRS_MIN_BLOCKS,
                                               sh["grid_x"] * dcn)
+    # groups of at most group_rows rows; fewer only for the block count
+    assert sh["grid_y"] >= -(-dcn // geo["group_rows"])
+    if sh["grid_x"] >= dk.PAIRS_MIN_BLOCKS:
+        assert sh["grid_y"] == -(-dcn // geo["group_rows"])
     with pytest.raises(ValueError):
         dk.pairs_launch(0, dcn, n_pairs, n_out)
+    with pytest.raises(ValueError):
+        dk.pairs_launch(d1n, dcn, n_pairs, n_out, 2)
+
+
+def test_pairs_launch_at_pairbands_500k_float64():
+    # pairbands-500k at 8 bytes a word: 1,024 columns a block, ten groups
+    # of three C rows each, the tables staged
+    offs = PAIRBANDS
+    dc_list, _ = _plan_maps(offs, offs)
+    n, geo = 500_000, dk.PAIR_GEOMETRY[8]
+    L = geo["threads"] * geo["cols"]
+    sh = dk.pairs_launch(len(offs), len(dc_list), len(offs) ** 2, n, 8)
+    assert (L, sh["L"]) == (1024, 1024)
+    assert sh["grid_x"] == -(-n // L) and sh["grid_y"] == 10
+    assert -(-len(dc_list) // sh["grid_y"]) == geo["group_rows"] == 3
+    assert sh["stage_tables"]
+    assert sh["smem_bytes"] == 4 * (len(dc_list) + 1 + 3 * len(offs) ** 2)
+
+
+def _f64_case(kind):
+    """(a, b, offs_a, offs_b, n) float64 bands for the bit-equality cases."""
+    rng = np.random.default_rng(len(kind))
+    if kind == "edges":
+        offs_a, offs_b, n = (-700, -3, 0, 5, 900), (-2, 0, 2), 5 * 1_024 + 77
+    elif kind == "uneven row groups":
+        offs_a, offs_b, n = tuple(range(0, 60, 3)), (0, 1), 20_011
+    else:                                   # -0.0 and zero-heavy
+        offs_a, offs_b, n = PAIRBANDS, (-600, -1, 0, 1, 601), 4_099
+    a = rng.standard_normal((len(offs_a), n))
+    b = rng.standard_normal((len(offs_b), n))
+    if kind == "zeros":
+        for x in (a, b):
+            z = rng.random(x.shape)
+            x[z < 0.7] = 0.0
+            x[(z >= 0.7) & (z < 0.8)] = -0.0
+        a[:, : n // 3] = -0.0               # whole runs of -0.0 products
+    return a, b, offs_a, offs_b, n
+
+
+@pytest.mark.parametrize("values_only", [False, True])
+@pytest.mark.parametrize("kind", ["edges", "uneven row groups", "zeros"])
+def test_pairs_replay_float64_bit_equal(kind, values_only):
+    a, b, offs_a, offs_b, n = _f64_case(kind)
+    dc_list, idx_map = _plan_maps(offs_a, offs_b)
+    sh = dk.pairs_launch(len(offs_a), len(dc_list),
+                         len(offs_a) * len(offs_b), n, 8)
+    c, cnt, _v, written, interior = _replay_pairs_kernel(a, b, offs_a,
+                                                         offs_b, n)
+    assert (written == 1).all()
+    if kind == "edges":                     # both ends test, the rest not
+        assert not interior[0] and not interior[-1] and any(interior)
+    if kind == "uneven row groups":         # 40 C rows in 14 groups
+        assert (len(dc_list), sh["grid_y"]) == (40, 14)
+    want_c, want_n = _dia_multiply_torch(
+        torch.from_numpy(a), torch.from_numpy(b), offs_a=offs_a,
+        idx_map=idx_map, dc_count=len(dc_list), n_out=n,
+        values_only=values_only)
+    assert want_c.dtype == torch.float64
+    assert np.array_equal(c.view(np.int64), want_c.numpy().view(np.int64))
+    if kind == "zeros":                     # the products do hit -0.0
+        assert (np.signbit(a) & (a == 0)).any()
+        assert (c == 0).any()
+    if not values_only:
+        np.testing.assert_array_equal(cnt, want_n.numpy())
+
+
+@pytest.mark.parametrize("word", [4, 8])
+def test_k4_split_pair_cols_builds_cut_one_place_each(word):
+    # bench/k4_split.py builds the pairs entries with PAIR_COLS or
+    # PAIR_COLS_F64 changed: the line must occur once, and name
+    # PAIR_GEOMETRY's columns
+    from pem_spgemm_tpu_torch.bench import k4_split
+    with open(dk.SOURCE) as f:
+        text = f.read()
+    cols = dk.PAIR_GEOMETRY[word]["cols"]
+    assert cols in k4_split.PAIR_COLS[word]
+    line = k4_split.PAIR_COLS_LINE[word]
+    assert line.split()[2] == PAIR_COLS_NAME[word]
+    assert text.count(line.format(cols)) == 1
