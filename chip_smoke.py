@@ -38,7 +38,9 @@ first two, engine="macro" for the third):
     pipelined tiers replay it) to the eager values-only multiply bit for
     bit on pairbands-500k (float32 and float64), banded16-1M and
     banded128-1M, also after the bands' values are changed in place and
-    after a run on other band stacks (which re-captures), and times both;
+    after two runs on other band stacks (the first eager, the second
+    captures again), and times both, and what a run on new band stacks
+    costs beside one eager multiply;
   * the Macro128 engine on wandering64-1M (run-plan classes, the ragged class
     kernel), banded64-1M (stencil classes) and pairbands-500k (neither
     planner covers it: the pair-stream kernel); every interactive multiply
@@ -66,8 +68,10 @@ multiply, and a torch.profiler pass that gives device-busy time, the idle
 share and the kernels that take most device time; for the element matrices
 also each stream of the planned multiply timed alone with CUDA events.
 
-Each phase prints one JSON line.  There is no CPU path: without a CUDA
-device the script fails.  It exits non-zero on the first failed phase and
+A kernel's launches on a path are its wrapper's count plus the launches of
+the CUDA-graph replays (ops.graphs.REPLAYED: a replay adds those its plan
+recorded at capture).  Each phase prints one JSON line.  There is no CPU
+path: without a CUDA device the script fails.  It exits non-zero on the first failed phase and
 prints the line {"ok": true, ...} last only when every phase passed.
 """
 
@@ -90,7 +94,7 @@ from pem_spgemm_tpu_torch.formats.coo import COOMatrix
 from pem_spgemm_tpu_torch.models.synthetic import (banded_device, power_law,
                                                    rmat, uniform_random,
                                                    wandering_device)
-from pem_spgemm_tpu_torch.ops import _build, binned, symbolic
+from pem_spgemm_tpu_torch.ops import _build, binned, graphs, symbolic
 from pem_spgemm_tpu_torch.ops import dia as D
 from pem_spgemm_tpu_torch.ops import dia_kernels as dk
 from pem_spgemm_tpu_torch.ops import macro as M
@@ -186,6 +190,7 @@ def reset_launch_counts():
     dk.reset_launch_counts()
     mk.reset_launch_counts()
     pr.reset_launch_counts()
+    graphs.reset_replayed()
 
 
 # the row-copy probe's launches, summed over every path run (no path calls
@@ -194,10 +199,17 @@ PATH_LAUNCHES = {"row_copy": 0}
 
 
 def path_launches(counts):
-    """A copy of an engine's launch counts, read just after a path run;
-    the probe's count of the same run is added to PATH_LAUNCHES."""
+    """An engine's kernel launches in a path run, read just after it: each
+    entry's wrapper count plus the launches its CUDA-graph replays made
+    (a replay passes no wrapper: ops.graphs.REPLAYED adds, once a replay,
+    the launches the plan recorded at capture).  The probe's count of the
+    same run is added to PATH_LAUNCHES."""
     PATH_LAUNCHES["row_copy"] += pr.LAUNCHES["row_copy"]
-    return dict(counts)
+    return {k: v + graphs.REPLAYED.get(k, 0) for k, v in counts.items()}
+
+
+def nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
 
 
 def emit(phase, **kw):
@@ -1541,6 +1553,7 @@ def phase_dia_path():
         info = dict(matrix=name, mode=mode, flop=rec.flop, c_nnz=res.c_nnz,
                     jax_recorded_c_nnz=want_nnz, bands=len(offs),
                     c_bands=len(dc_list), launches=launches,
+                    replayed_launches=dict(graphs.REPLAYED),
                     times_ms=record_times(rec),
                     peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
         a = D.coo_to_dia(coo)
@@ -1848,8 +1861,10 @@ def dia_steady_launches(a, entry):
         raise AssertionError(f"{entry}: a replay went through a wrapper: "
                              f"{all_launches()}")
     got = plan.launches
-    if got.get(entry, 0) != 1 or sum(got.values()) != 1:
-        raise AssertionError(f"{entry}: a replayed multiply launches {got}")
+    if got.get(entry, 0) != 1 or sum(got.values()) != 1 \
+            or graphs.REPLAYED != nonzero(got):
+        raise AssertionError(f"{entry}: a replayed multiply launches {got}, "
+                             f"counted {graphs.REPLAYED}")
     return got[entry]
 
 
@@ -1907,11 +1922,14 @@ def same_bits(got, want, what):
 def dia_graph_case(name, a, steady, n=50):
     """One DIA matrix's cached plan: the replayed values-only multiply
     against the eager one, bit for bit, before and after three rounds of
-    band values changed in place and after a run on other band stacks
-    (which re-captures); launches recorded at capture and none through a
-    wrapper on a replay; peak memory and host-clock times of both, in
-    turns; the device time of one replay and of the kernel alone, beside
-    the harness's steady tier (``steady``, host-clock ms)."""
+    band values changed in place and after two runs on other band stacks
+    (the first multiplies eagerly, the second captures again); launches
+    recorded at capture, none through a wrapper on a replay and those
+    counted in ops.graphs.REPLAYED; peak memory and host-clock times of
+    both, in turns; the device time of one replay and of the kernel alone,
+    beside the harness's steady tier (``steady``, host-clock ms); and what
+    the first and the second run on new band stacks cost, beside one eager
+    multiply (host clock, synced, 3 rounds)."""
     what = f"{name} {str(a.bands.dtype).split('.')[-1]}"
     plan = D.make_dia_plan(a, a)
     c_nnz = int(plan.run(a, a)[2])          # eager, with counts: cached
@@ -1938,9 +1956,11 @@ def dia_graph_case(name, a, steady, n=50):
     held = torch.cuda.memory_allocated() - base
     launches = plan.launches
     if captured != {k: 2 * v for k, v in launches.items()} or \
-            launches[entry] != 1 or sum(launches.values()) != 1:
+            launches[entry] != 1 or sum(launches.values()) != 1 or \
+            graphs.REPLAYED != nonzero(launches):
         raise AssertionError(f"{what}: capture launches {launches}, eager "
-                             f"warm-up + capture {captured}")
+                             f"warm-up + capture {captured}, a replay "
+                             f"counted {graphs.REPLAYED}")
     same_bits(c, dia_eager(plan, a), what)
     g = torch.Generator(device=DEV).manual_seed(7)
     for r in range(3):
@@ -1948,17 +1968,22 @@ def dia_graph_case(name, a, steady, n=50):
                                  device=DEV).uniform_(0.5, 2.0, generator=g))
         c = plan.run(a, a)[0]
         same_bits(c, dia_eager(plan, a), f"{what}, changed {r}")
-    # other band stacks (the same structure): the plan re-captures
+
+    def runs_on(x, tag):
+        """Two runs on x: the first eager, the second captures again."""
+        for k, want_new in ((0, False), (1, True)):
+            before = plan._graph["captured"]
+            c = plan.run(x, x)[0]
+            if (plan._graph["captured"] is not before) != want_new:
+                raise AssertionError(f"{what}, {tag}: run {k} captured "
+                                     f"{'no' if want_new else 'a'} graph")
+            same_bits(c, dia_eager(plan, x), f"{what}, {tag}, run {k}")
+
+    # other band stacks (the same structure), and back
     other = dataclasses.replace(a, bands=a.bands * 0.75)
-    graph = plan._graph["graph"]
-    c = plan.run(other, other)[0]
-    if plan._graph["graph"] is graph:
-        raise AssertionError(f"{what}: new operands did not re-capture")
-    same_bits(c, dia_eager(plan, other), f"{what}, other operands")
-    del other, c
-    c = plan.run(a, a)[0]                   # and back: captured again
-    same_bits(c, dia_eager(plan, a), f"{what}, operands back")
-    del c
+    runs_on(other, "other operands")
+    del other
+    runs_on(a, "operands back")
     times = turns_ms(
         [("eager", lambda: dia_eager(plan, a)[0, 0]),
          ("graph", lambda: plan.run(a, a)[0][0, 0]),
@@ -1968,6 +1993,20 @@ def dia_graph_case(name, a, steady, n=50):
     kernel_ms = graph_ms(lambda: dia_eager(plan, a))
     graph_synced = min(t["synced_ms"] for t in times if t["path"] == "graph")
     eager_synced = min(t["synced_ms"] for t in times if t["path"] == "eager")
+    # a run on new band stacks: the first multiplies eagerly, the second
+    # multiplies eagerly under the sync check, captures and replays
+    cost = {"eager_multiply": [], "first_run": [], "capture_run": []}
+    for _ in range(3):
+        fresh = dataclasses.replace(a, bands=a.bands.clone())
+        for key, fn in (("eager_multiply", lambda: dia_eager(plan, fresh)),
+                        ("first_run", lambda: plan.run(fresh, fresh)),
+                        ("capture_run", lambda: plan.run(fresh, fresh))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            cost[key].append((time.perf_counter() - t0) * 1e3)
+        del fresh
     emit("dia_graph_replay", matrix=name, dtype=what.split()[-1],
          c_nnz=c_nnz, entry=entry, bit_equal=True, changed_value_rounds=3,
          recaptured_on_other_operands=True, launches_per_multiply=launches,
@@ -1977,7 +2016,8 @@ def dia_graph_case(name, a, steady, n=50):
          times=times, replay_faster=graph_synced < eager_synced,
          replay_device_ms=replay_ms, kernel_device_ms=kernel_ms,
          harness_steady_ms=steady,
-         harness_steady_over_kernel_ms=steady - kernel_ms)
+         harness_steady_over_kernel_ms=steady - kernel_ms,
+         new_operands_ms=cost)
     del plan
     torch.cuda.empty_cache()
 
@@ -2767,9 +2807,11 @@ def graph_case(name, coo, pack, n=20):
     peak_graph = torch.cuda.max_memory_allocated() - base
     held = torch.cuda.memory_allocated() - base
     launches = gp.launches
-    if captured != {k: 2 * v for k, v in launches.items()}:
+    if captured != {k: 2 * v for k, v in launches.items()} or \
+            graphs.REPLAYED != nonzero(launches):
         raise AssertionError(f"{what}: capture launches {launches}, "
-                             f"eager warm-up + capture {captured}")
+                             f"eager warm-up + capture {captured}, a "
+                             f"replay counted {graphs.REPLAYED}")
     entry = "segment_dedup" if pack else "segment_sort_dedup"
     if launches[entry] <= 0:
         raise AssertionError(f"{what}: the graph launches no {entry}")
@@ -2883,8 +2925,8 @@ def phase_f64_path(coo_pl, want_pl):
         torch.cuda.reset_peak_memory_stats()
         rec, res = run_benchmark(coo, name, cfg.with_(engine=engine),
                                  verbose=False)
-        launches = {**path_launches(ss.LAUNCHES), **dict(dk.LAUNCHES),
-                    **dict(mk.LAUNCHES)}
+        launches = path_launches({**ss.LAUNCHES, **dk.LAUNCHES,
+                                  **mk.LAUNCHES})
         peak = torch.cuda.max_memory_allocated() / 2**30
         if res.c_nnz != want_nnz:
             raise AssertionError(f"{name} f64: C_nnz {res.c_nnz} != "

@@ -168,15 +168,22 @@ def dense64_cut(rows, i, threads, blocks):
              f"    static constexpr int MIN_BLOCKS = {blocks};\n")]
 
 
-# Other columns a thread of the pairs DIA entries, by word size: the .cu's
-# constant (PAIR_COLS, PAIR_COLS_F64) and pairs_launch's PAIR_GEOMETRY
-# changed together.
-PAIR_COLS_LINE = {4: "constexpr int PAIR_COLS = {};",
-                  8: "constexpr int PAIR_COLS_F64 = {};"}
+# Other columns a thread of the pairs DIA entries, by word size: builds
+# with the .cu's PAIR_COLS line (both entries' columns) changed, launched
+# at pairs_variant's shape.
+PAIR_COLS_LINE = "constexpr int PAIR_COLS = {};"
 PAIR_COLS = {4: (2, 4), 8: (1, 2, 4)}
 # row groups of a column range each pairs build is also timed at, beside
 # pairs_launch's own
 PAIR_GROUPS = (1, 2, 5, 10, 15, 30)
+
+
+def pairs_variant(shape, cols, n_out):
+    """pairs_launch's ``shape`` for a build with ``cols`` columns a thread:
+    the kernel takes its columns a block from its build, and the row
+    groups and staged tables of ``shape`` as they are."""
+    L = dk.PAIR_THREADS * cols
+    return dict(shape, cols=cols, L=L, grid_x=-(-n_out // L))
 
 
 def emit(case, **kw):
@@ -392,16 +399,15 @@ def case_pairs(word, base_lib):
     dtype = torch.float32 if word == 4 else torch.float64
     entry = "dia_multiply_pairs_f32" if word == 4 else "dia_multiply_pairs_f64"
     stream = torch.cuda.current_stream().cuda_stream
-    geo = dict(dk.PAIR_GEOMETRY[word])
-    line = PAIR_COLS_LINE[word]
-    builds = {"current": (dk._library(), geo)}
+    builds = {"current": (dk._library(), dk.PAIR_COLS)}
     for cols in PAIR_COLS[word]:
-        if cols != geo["cols"]:
+        if cols != dk.PAIR_COLS:
             builds[f"cols{cols}"] = (
-                build("dia_multiply", f"pairs{8 * word}_cols{cols}",
-                      dk.SOURCE, dk._declare,
-                      cuts=[(line.format(geo["cols"]), line.format(cols))]),
-                dict(geo, cols=cols))
+                build("dia_multiply", f"pairs_cols{cols}", dk.SOURCE,
+                      dk._declare,
+                      cuts=[(PAIR_COLS_LINE.format(dk.PAIR_COLS),
+                             PAIR_COLS_LINE.format(cols))]),
+                cols)
     a = D.coo_to_dia(STREAMS["pairbands-500k"](), dtype=dtype)
     offs = tuple(int(x) for x in a.offsets)
     dc_list, idx_map = D._plan_maps(offs, offs)
@@ -411,12 +417,9 @@ def case_pairs(word, base_lib):
     ptrs = (a.bands.data_ptr(), a.bands.data_ptr(), row_ptr.data_ptr(),
             trip.data_ptr())
     runs = {}                       # name: (launch(c, cnt), shape)
-    for name, (lib, g) in builds.items():
-        dk.PAIR_GEOMETRY[word] = g
-        try:
-            base = dk.pairs_launch(d1n, dcn, n_pairs, n, word)
-        finally:
-            dk.PAIR_GEOMETRY[word] = geo
+    shape = dk.pairs_launch(d1n, dcn, n_pairs, n, word)
+    for name, (lib, cols) in builds.items():
+        base = pairs_variant(shape, cols, n)
         for gy in (base["grid_y"],) + PAIR_GROUPS:
             key = name if gy == base["grid_y"] else f"{name}_gy{gy}"
             if key in runs:

@@ -84,11 +84,11 @@
 // 8% slower than one block of 256 and 6% faster than two of 128
 // (bench/k4_split.py, PERF.md).  Its arithmetic costs two FP64
 // instructions a product (DMUL, DADD).  The pairs entry is likewise the
-// float32 pairs kernel templated on the word (Pairs<T>, pair_rows): the
-// same row groups, tables and unchecked interior blocks, two pairs' loads
-// in flight a step; its columns a thread are a constant of their own
-// (PAIR_COLS_F64), 4 as in float32, which measured 1-4% faster than 2
-// and 10-40% faster than 1 (bench/k4_split.py, PERF.md).
+// float32 pairs kernel templated on the word (pair_rows): the same
+// geometry (PAIR_THREADS, PAIR_COLS), row groups, tables and unchecked
+// interior blocks, two pairs' loads in flight a step.  4 columns a thread
+// measured fastest for both words: for float64 1-4% faster than 2 and
+// 10-40% faster than 1 (bench/k4_split.py, PERF.md).
 //
 // Plain C interface, no PyTorch headers: the wrapper
 // (ops/dia_kernels.py) allocates the outputs, computes the launch shapes
@@ -99,20 +99,11 @@
 
 namespace {
 
+// The pairs entries' geometry, both words (ops/dia_kernels.py's
+// PAIR_THREADS, PAIR_COLS): a block owns PAIR_THREADS * PAIR_COLS columns.
 constexpr int PAIR_THREADS = 256;   // threads a block of the pairs entries
-constexpr int PAIR_COLS = 4;        // columns a thread, float32 pairs entry
-constexpr int PAIR_COLS_F64 = 4;    // columns a thread, float64 pairs entry
+constexpr int PAIR_COLS = 4;        // columns a thread
 constexpr int MAX_SMEM = 227 * 1024;
-
-// The pairs entries' columns a thread by word type (ops/dia_kernels.py's
-// PAIR_GEOMETRY); a block owns PAIR_THREADS * COLS columns.
-template <class T> struct Pairs;
-template <> struct Pairs<float> {
-    static constexpr int COLS = PAIR_COLS;
-};
-template <> struct Pairs<double> {
-    static constexpr int COLS = PAIR_COLS_F64;
-};
 
 // The dense entry's geometry for its word type (ops/dia_kernels.py's
 // DENSE_GEOMETRY): a thread owns ROWS x I C elements (I consecutive
@@ -437,21 +428,21 @@ dia_dense_kernel(const T* __restrict__ a, const T* __restrict__ b,
 }
 
 // The pairs entries' C rows [r0, r1) at the block's columns
-// i0 + t + PAIR_THREADS * e (e < Pairs<T>::COLS).
+// i0 + t + PAIR_THREADS * e (e < PAIR_COLS).
 // CHECK false: an interior block, all of whose columns lie below n_out and
 // all of whose shifted B columns lie in [0, n_k), so nothing is tested; else
 // a product outside B adds nothing (no madd with a zero, which would turn an
 // acc of -0.0 into +0.0 in float32: the dense entry's order) and columns
 // past n_out are not stored.  Two pairs a step: their loads in flight
 // together, their products added in ascending k1.  One template serves both
-// word types (Pairs<T>, madd).
+// word types (madd).
 template <class T, bool COUNTS, bool CHECK>
 __device__ __forceinline__ void pair_rows(
         const T* __restrict__ a, const T* __restrict__ b, const int* rp,
         const int* tp, T* __restrict__ c, float* __restrict__ cnt, int r0,
         int r1, long long i0, long long n_i, long long n_k,
         long long n_out) {
-    constexpr int E = Pairs<T>::COLS;
+    constexpr int E = PAIR_COLS;
     const int t = threadIdx.x;
     const long long jlo = -i0, jhi = n_k - i0;  // B columns jj of the block
     bool col[E];
@@ -524,7 +515,7 @@ __device__ __forceinline__ void pair_rows(
 // Pairs entries.  Any offset sets: the products of C row r are the triples
 // trip[3 * p + {0, 1, 2}] = (k1, k2, d1) for p in [row_ptr[r], row_ptr[r+1]),
 // in ascending k1.  A block owns the C columns [i0, i0 + L) (L = PAIR_THREADS
-// * Pairs<T>::COLS) of one row group's C rows, a few consecutive ones
+// * PAIR_COLS) of one row group's C rows, a few consecutive ones
 // (grid_y groups a column range); thread t the columns i0 + t + PAIR_THREADS
 // * e, so a warp's loads and stores of one e are 32 consecutive words.  The
 // row groups of one column range are neighbours in the 1-D grid, so they
@@ -547,7 +538,7 @@ dia_pairs_kernel(const T* __restrict__ a, const T* __restrict__ b,
                  float* __restrict__ cnt, int dcn, int n_pairs, int d1_min,
                  int d1_max, long long n_i, long long n_k, long long n_out,
                  int grid_y, int stage_tables) {
-    constexpr int L = PAIR_THREADS * Pairs<T>::COLS;
+    constexpr int L = PAIR_THREADS * PAIR_COLS;
     extern __shared__ __align__(16) unsigned char smem_raw[];
     const int t = threadIdx.x;
     const long long i0 = (long long)(blockIdx.x / grid_y) * L;
@@ -620,14 +611,14 @@ int dense_entry(const void* a, const void* b, const void* offs_a, void* c,
 
 // Both pairs entries: the word type's kernel with or without counts, on a
 // 1-D grid of grid_y row groups for each column range of PAIR_THREADS *
-// Pairs<T>::COLS columns.
+// PAIR_COLS columns.
 template <class T>
 int pairs_entry(const void* a, const void* b, const void* row_ptr,
                 const void* trip, void* c, void* cnt, int dcn, int n_pairs,
                 int d1_min, int d1_max, long long n_i, long long n_k,
                 long long n_out, int grid_y, int stage_tables,
                 int smem_bytes, void* stream) {
-    constexpr long long L = (long long)PAIR_THREADS * Pairs<T>::COLS;
+    constexpr long long L = (long long)PAIR_THREADS * PAIR_COLS;
     const long long grid = (n_out + L - 1) / L * grid_y;
     if (grid > 0x7fffffffLL || grid_y <= 0 || grid_y > dcn)
         return (int)cudaErrorInvalidConfiguration;

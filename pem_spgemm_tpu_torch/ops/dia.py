@@ -197,6 +197,31 @@ def same_operand(held: tuple, x: torch.Tensor) -> bool:
     return tensor is x and operand_key(x) == key
 
 
+def _hold(a: DiaMatrix, b: DiaMatrix) -> tuple:
+    return tuple((x, operand_key(x)) for x in (a.bands, b.bands))
+
+
+def _holds(held: Optional[tuple], a: DiaMatrix, b: DiaMatrix) -> bool:
+    return held is not None and same_operand(held[0], a.bands) \
+        and same_operand(held[1], b.bands)
+
+
+def graph_step(g: dict, a: DiaMatrix, b: DiaMatrix) -> str:
+    """What a cached DIA plan's run on the GPU does with the band stacks of
+    ``a`` and ``b``, given its graph state ``g`` (``DiaPlan._graph``):
+    'replay' where its graph was captured on them ("operands"), 'capture'
+    where the run before had them ("seen"), else 'eager'.  Notes them as
+    the last run's."""
+    if _holds(g.get("operands"), a, b):
+        step = "replay"
+    elif _holds(g.get("seen"), a, b):
+        step = "capture"
+    else:
+        step = "eager"
+    g["seen"] = _hold(a, b)
+    return step
+
+
 @dataclasses.dataclass
 class DiaPlan:
     """Fixed-step plan for the DIA engine.
@@ -214,13 +239,23 @@ class DiaPlan:
 
     On the GPU the values-only multiply is ONE CUDA graph, the counterpart
     of the JAX package's jitted ``dia_multiply_pallas`` (one dispatch a
-    multiply): the second ``run`` multiplies eagerly once, then captures
-    one values-only multiply; every later ``run`` is one replay.  A graph
-    reads fixed addresses, so the plan keeps the captured band stacks
-    alive and re-captures when a run is given other tensors
-    (``same_operand``); values changed in place are seen by the next
-    replay.  A replay writes its C into the same memory every time: it
-    overwrites the C of the replay before.  CPU plans run eagerly.
+    multiply): a run on the band stacks of the run before captures one
+    values-only multiply (after multiplying them eagerly once), and every
+    later run on them is one replay, so the second ``run`` of a plan
+    captures.  A graph reads fixed addresses: the plan keeps the captured
+    band stacks alive, and a run on other tensors (``same_operand``,
+    ``graph_step``) multiplies eagerly, as a first run on them would, and
+    captures only if the next run has them again.  So a plan that
+    alternates between operand pairs runs eagerly and pays no capture.
+    Values changed in place are seen by the next replay.  A replay writes
+    its C into the same memory every time: it overwrites the C of the
+    replay before.  CPU plans run eagerly.  A capturing run costs far more
+    than an eager multiply: 3.2-17 ms of host time against 0.17-0.30 ms at
+    pairbands-500k, 4.3-12 against 0.25-0.51 at banded16-1M, 21-31
+    against 7.4-14 at banded128-1M (the second run on new band stacks
+    against one eager multiply of them, each synced, over two runs;
+    NVIDIA H100 80GB HBM3 at 700 W, ``chip_smoke.py`` phase
+    ``dia_graph_replay``, ``new_operands_ms``).
     """
 
     offs_a: tuple
@@ -235,9 +270,10 @@ class DiaPlan:
         default=None, repr=False, compare=False)
     _tables: Optional[tuple] = dataclasses.field(
         default=None, repr=False, compare=False)
-    # the captured graph, the band stacks it reads, its static C and
-    # overflow flag, and the kernel launches of one multiply (counted while
-    # capturing)
+    # "captured": the captured multiply (ops.graphs.Captured); "operands":
+    # the band stacks it reads with their operand_key; "seen": the last
+    # run's band stacks; "overflow": the constant flag, made once outside
+    # the graph
     _graph: dict = dataclasses.field(default_factory=dict, repr=False,
                                      compare=False)
 
@@ -250,9 +286,10 @@ class DiaPlan:
     @property
     def launches(self):
         """Kernel launches of one replayed multiply, by entry, recorded at
-        capture (a replay does not pass through the wrappers' counters);
-        empty before the capture and on the CPU."""
-        return dict(self._graph.get("launches", {}))
+        capture (a replay passes no wrapper: ``ops.graphs.REPLAYED`` counts
+        them); empty before the capture and on the CPU."""
+        captured = self._graph.get("captured")
+        return {} if captured is None else dict(captured.launches)
 
     def _multiply(self, a: DiaMatrix, b: DiaMatrix, values_only: bool):
         if not a.bands.is_cuda:
@@ -280,52 +317,49 @@ class DiaPlan:
     def capture(self, a: DiaMatrix, b: DiaMatrix):
         """Multiply values-only eagerly once, with any host synchronisation
         an error (it would break the capture), then capture one values-only
-        multiply of these band stacks.  Runs on the current device, which
-        ``run`` sets to the bands'.  A capture that fails raises."""
-        from pem_spgemm_tpu_torch.ops import dia_kernels
-        self._graph.clear()             # the old graph and its operands go
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        mode = torch.cuda.get_sync_debug_mode()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            with torch.cuda.stream(side):
-                self._multiply(a, b, values_only=True)
-        finally:
-            torch.cuda.set_sync_debug_mode(mode)
-        torch.cuda.current_stream().wait_stream(side)
-        before = dict(dia_kernels.LAUNCHES)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            c, _ = self._multiply(a, b, values_only=True)
-            overflow = torch.zeros((), dtype=torch.bool, device=c.device)
-        self._graph.update(
-            graph=graph, c=c, overflow=overflow,
-            operands=tuple((x, operand_key(x))
-                           for x in (a.bands, b.bands)),
-            launches={k: v - before[k]
-                      for k, v in dia_kernels.LAUNCHES.items()})
+        multiply of these band stacks (``ops.graphs.capture``).  Runs on
+        the current device, which ``run`` sets to the bands'.  A capture
+        that fails raises."""
+        from pem_spgemm_tpu_torch.ops import dia_kernels, graphs
+        g = self._graph
+        g.pop("captured", None)         # the old graph and its operands go
+        g.pop("operands", None)
+        g["captured"] = graphs.capture(
+            lambda: self._multiply(a, b, values_only=True)[0],
+            dia_kernels.LAUNCHES)
+        g["operands"] = _hold(a, b)
 
     def run(self, a: DiaMatrix, b: DiaMatrix):
         """(c_bands, c_counts, c_nnz_dev, overflow)."""
+        dev = a.bands.device
+        g = self._graph
+        if not a.bands.is_cuda:
+            flag = torch.zeros((), dtype=torch.bool)
+        elif "overflow" in g:
+            flag = g["overflow"]
+        else:
+            flag = g["overflow"] = torch.zeros((), dtype=torch.bool,
+                                               device=dev)
         if self._cnt_cache is None:
             c, cnt = self._multiply(a, b, values_only=False)
             nnz = _count_nnz(cnt)
             self._cnt_cache = (cnt, nnz)
-            return c, cnt, nnz, torch.zeros((), dtype=torch.bool,
-                                            device=a.bands.device)
+            if a.bands.is_cuda:
+                g["seen"] = _hold(a, b)
+            return c, cnt, nnz, flag
         cnt, nnz = self._cnt_cache
         if not a.bands.is_cuda or self.n_out == 0:
             c, _ = self._multiply(a, b, values_only=True)
-            return c, cnt, nnz, torch.zeros((), dtype=torch.bool,
-                                            device=a.bands.device)
-        held = self._graph.get("operands")
-        with torch.cuda.device(a.bands.device):
-            if held is None or not (same_operand(held[0], a.bands)
-                                    and same_operand(held[1], b.bands)):
+            return c, cnt, nnz, flag
+        with torch.cuda.device(dev):
+            step = graph_step(g, a, b)
+            if step == "eager":
+                c, _ = self._multiply(a, b, values_only=True)
+                return c, cnt, nnz, flag
+            if step == "capture":
                 self.capture(a, b)
-            self._graph["graph"].replay()
-        return self._graph["c"], cnt, nnz, self._graph["overflow"]
+            c = g["captured"].replay()
+        return c, cnt, nnz, flag
 
 
 def _count_nnz(cnt):

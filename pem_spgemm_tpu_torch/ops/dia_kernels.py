@@ -17,13 +17,13 @@ float64 entry (the f64 parity mode, rounding each product and sum as the
 plain version does); the bands' dtype picks it.
 ``values_only=True`` launches the variant without the mask algebra and
 returns ``None`` for the counts.  Each float64 entry is its float32
-entry's kernel on 8-byte words, with a geometry of its own.  The
-dense entries stage a window of B in shared memory:
-``dense_launch`` gives the block shape and shared-memory layout for a word
-size, ``dense_chunks`` the band chunks.
+entry's kernel on 8-byte words: the dense one with a geometry of its own,
+the pairs one with the float32 one's.  The dense entries stage a window
+of B in shared memory: ``dense_launch`` gives the block shape and
+shared-memory layout for a word size, ``dense_chunks`` the band chunks.
 The pairs entries read A and B where they lie, a few C rows a block, and
 stage their pair tables: ``pairs_launch`` gives the grid and what is
-staged for a word size.
+staged.
 
 Dispatch is by the tensors' device and nothing else: CUDA tensors launch the
 kernel (or raise, if the build or the launch fails); CPU tensors take the
@@ -53,16 +53,14 @@ MAX_ROW_BLOCKS = 8          # row blocks a thread block, at most
 MAX_COL_BLOCKS = 64         # column blocks a thread block, at most
 COPY_WIDTH = 32             # window columns a pass of the staging copies
 SMEM_BUDGET = 112 * 1024    # bytes a dense-entry block: two an SM
-# The pairs entries' geometry by word size (the .cu's PAIR_THREADS,
-# PAIR_COLS, PAIR_COLS_F64): threads a block, columns a thread, and the C
-# rows a row group holds at most.  Short groups of one column range run
-# together, so their A and B words meet in L1 and L2 (bench/k4_split.py
-# --only k3 --only k3f64, PERF.md).
-PAIR_GEOMETRY = {4: dict(threads=256, cols=4, group_rows=3),
-                 8: dict(threads=256, cols=4, group_rows=3)}
-PAIR_THREADS = PAIR_GEOMETRY[4]["threads"]  # the float32 entry's
-PAIR_COLS = PAIR_GEOMETRY[4]["cols"]
-PAIR_L = PAIR_THREADS * PAIR_COLS   # columns a block, float32 entry
+# The pairs entries' geometry, both words (the .cu's PAIR_THREADS and
+# PAIR_COLS): threads a block, columns a thread, and the C rows a row group
+# holds at most.  Short groups of one column range run together, so their
+# A and B words meet in L1 and L2 (bench/k4_split.py --only k3 --only
+# k3f64, PERF.md).
+PAIR_THREADS = 256
+PAIR_COLS = 4
+PAIR_GROUP_ROWS = 3
 PAIRS_MIN_BLOCKS = 264      # pairs-entry blocks wanted: two an SM of 132
 # shared memory a pairs block may stage its tables in: within the 48 KB a
 # block has without an attribute, so the L1 the A and B reads hit in stays
@@ -221,32 +219,30 @@ def pairs_launch(d1n: int, dcn: int, n_pairs: int, n_out: int,
                  word: int = 4):
     """The pairs entry's launch shape for d1n A bands, dcn C rows, n_pairs
     band pairs, n_out columns and ``word``-byte words (4: the float32
-    entry, 8: the float64 one).
+    entry, 8: the float64 one; both have one geometry).
 
-    A block owns L = threads x cols columns (``PAIR_GEOMETRY[word]``: cols
-    a thread, ``threads`` apart) of the C rows of its row group: grid_x
-    column ranges, each split into grid_y groups of consecutive C rows of
-    at most ``group_rows`` rows (more groups where the column ranges alone
-    give fewer than PAIRS_MIN_BLOCKS blocks); the groups of one range are
+    A block owns L = PAIR_THREADS x PAIR_COLS columns (PAIR_COLS a thread,
+    PAIR_THREADS apart) of the C rows of its row group: grid_x column
+    ranges, each split into grid_y groups of consecutive C rows of at most
+    PAIR_GROUP_ROWS rows (more groups where the column ranges alone give
+    fewer than PAIRS_MIN_BLOCKS blocks); the groups of one range are
     neighbours in the 1-D grid.  A and B are read where they lie; the
     row_ptr / trip tables (int32) are staged in shared memory where they
     fit in PAIR_TABLE_BUDGET (stage_tables), else read where they lie.
     d1n only checks the arguments: the tables carry the bands."""
-    if word not in PAIR_GEOMETRY:
+    if word not in (4, 8):
         raise ValueError(f"{word}-byte words: the pairs entries take 4 or 8")
     if d1n <= 0 or dcn <= 0 or n_pairs <= 0 or n_out <= 0:
         raise ValueError(f"d1n={d1n}, dcn={dcn}, n_pairs={n_pairs}, "
                          f"n_out={n_out}")
-    geo = PAIR_GEOMETRY[word]
-    L = geo["threads"] * geo["cols"]
+    L = PAIR_THREADS * PAIR_COLS
     grid_x = -(-n_out // L)
-    grid_y = min(dcn, max(-(-dcn // geo["group_rows"]),
+    grid_y = min(dcn, max(-(-dcn // PAIR_GROUP_ROWS),
                           -(-PAIRS_MIN_BLOCKS // grid_x)))
     t_bytes = 4 * (dcn + 1 + 3 * n_pairs)
     stage_tables = t_bytes <= PAIR_TABLE_BUDGET
-    return dict(grid_x=grid_x, grid_y=grid_y, L=L, cols=geo["cols"],
-                threads=geo["threads"], word=word,
-                stage_tables=stage_tables,
+    return dict(grid_x=grid_x, grid_y=grid_y, L=L, cols=PAIR_COLS,
+                threads=PAIR_THREADS, word=word, stage_tables=stage_tables,
                 smem_bytes=t_bytes if stage_tables else 0)
 
 

@@ -38,8 +38,9 @@ class BinnedElementPlan:
 
     plan: object            # ops.binned.BinnedPlan
     vmem_sort: bool = False  # kernel sort+dedup for sort-path buckets
-    # the captured graph, its static BinnedStream and overflow flag, and the
-    # kernel launches of one multiply (counted while capturing)
+    # "captured": the captured multiply (ops.graphs.Captured: its graph,
+    # static BinnedStream and launches); "overflow": the constant flag, made
+    # once outside the graph
     _graph: dict = dataclasses.field(default_factory=dict, compare=False,
                                      repr=False)
 
@@ -53,39 +54,31 @@ class BinnedElementPlan:
     def stream(self):
         """The static BinnedStream the replays write (None before the
         first GPU run)."""
-        return self._graph.get("stream")
+        captured = self._graph.get("captured")
+        return None if captured is None else captured.out
 
     @property
     def launches(self):
         """Kernel launches of one multiply, by entry, recorded at capture
         (a replay does not pass through the wrappers' counters)."""
-        return dict(self._graph.get("launches", {}))
+        captured = self._graph.get("captured")
+        return {} if captured is None else dict(captured.launches)
 
     def capture(self):
         """Multiply eagerly once, with any host synchronisation an error
-        (it would break the capture), then capture one multiply.  Runs on
-        the current device, which ``run`` sets to the plan's."""
+        (it would break the capture), then capture one multiply
+        (``ops.graphs.capture``).  Runs on the current device, which
+        ``run`` sets to the plan's."""
+        from pem_spgemm_tpu_torch.ops import graphs
         from pem_spgemm_tpu_torch.ops import segment_sort as ss
         from pem_spgemm_tpu_torch.ops.binned import binned_multiply
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        mode = torch.cuda.get_sync_debug_mode()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            with torch.cuda.stream(side):
-                binned_multiply(self.plan, vmem_sort=self.vmem_sort)
-        finally:
-            torch.cuda.set_sync_debug_mode(mode)
-        torch.cuda.current_stream().wait_stream(side)
-        before = dict(ss.LAUNCHES)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            stream = binned_multiply(self.plan, vmem_sort=self.vmem_sort)
-            overflow = torch.zeros((), dtype=torch.bool,
-                                   device=stream.c_nnz.device)
+        captured = graphs.capture(
+            lambda: binned_multiply(self.plan, vmem_sort=self.vmem_sort),
+            ss.LAUNCHES)
         self._graph.update(
-            graph=graph, stream=stream, overflow=overflow,
-            launches={k: v - before[k] for k, v in ss.LAUNCHES.items()})
+            captured=captured,
+            overflow=torch.zeros((), dtype=torch.bool,
+                                 device=captured.out.c_nnz.device))
 
     def run(self, a, b):
         """Dispatch the planned multiply; returns (c_nnz_device, overflow).
@@ -98,8 +91,8 @@ class BinnedElementPlan:
         with torch.cuda.device(self.plan.table.device):
             if not self._graph:
                 self.capture()
-            self._graph["graph"].replay()
-        return self._graph["stream"].c_nnz, self._graph["overflow"]
+            stream = self._graph["captured"].replay()
+        return stream.c_nnz, self._graph["overflow"]
 
 
 @dataclasses.dataclass(frozen=True)

@@ -6,7 +6,9 @@ On the GPU a cached plan replays one CUDA graph of its values-only multiply
 (chip_smoke.py, phase dia_graph_replay, holds the replay to the eager
 multiply on the card); a graph reads fixed addresses, so a run on other
 band stacks captures again.  Here, on the CPU, the plan stays eager and
-records no launches; the operand check (``same_operand``) is plain Python.
+records no launches; the operand check (``same_operand``) and the rule
+that decides between a replay, a capture and an eager multiply
+(``graph_step``) are plain Python.
 
 The JAX side is its XLA path (``make_dia_plan(a, b)`` with no config), run
 in this process for float32 and, for float64, in ONE subprocess for this
@@ -19,6 +21,7 @@ of the entries, at most 1.8e-15 here), and its Pallas kernels accumulate in
 float32.
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -30,9 +33,9 @@ import torch
 from pem_spgemm_tpu.formats.coo import COOMatrix as JCOO
 from pem_spgemm_tpu.ops import dia as j_dia
 from pem_spgemm_tpu_torch.formats.coo import COOMatrix
-from pem_spgemm_tpu_torch.ops.dia import (_plan_maps, coo_to_dia,
-                                          make_dia_plan, operand_key,
-                                          same_operand)
+from pem_spgemm_tpu_torch.ops.dia import (_hold, _plan_maps, coo_to_dia,
+                                          graph_step, make_dia_plan,
+                                          operand_key, same_operand)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = "cpu"
@@ -94,6 +97,36 @@ def test_same_operand_tells_a_new_tensor_from_one_changed_in_place():
     held = (y, operand_key(y))
     y.as_strided_((3, 4), (1, 3))       # the same memory, other strides
     assert not same_operand(held, y)
+
+
+def test_graph_step_captures_only_operands_met_twice_in_a_row():
+    # the GPU plan's rule, driven on CPU band stacks: its first (counting)
+    # run notes the operands, the next run on them captures; other
+    # operands run eagerly once, and a plan that alternates never captures
+    pairs = [tuple(coo_to_dia(COOMatrix(*m, (N, N)), device=CPU)
+                   for m in pair) for pair in _operand_pairs("pairs")]
+    (xa, xb), (ya, yb) = pairs
+    g = {"seen": _hold(xa, xb)}             # as the counting run leaves it
+
+    def step(a, b):
+        s = graph_step(g, a, b)
+        if s == "capture":                  # what DiaPlan.capture keeps
+            g["operands"] = _hold(a, b)
+        return s
+
+    assert step(xa, xb) == "capture"
+    assert step(xa, xb) == "replay"
+    xa.bands.mul_(2.0)                      # values changed in place
+    assert step(xa, xb) == "replay"
+    assert step(ya, yb) == "eager"
+    assert [step(*p) for p in pairs * 3] == ["replay", "eager"] * 3
+    assert step(ya, yb) == "capture"        # met twice in a row
+    assert step(ya, yb) == "replay"
+    assert step(xa, xb) == "eager"          # the graph now holds y
+    assert step(xa, yb) == "eager"          # a mixed pair is another pair
+    assert step(xa, yb) == "capture"
+    other = dataclasses.replace(xa, bands=xa.bands.clone())
+    assert step(other, yb) == "eager"       # equal values, other memory
 
 
 @pytest.mark.parametrize("name", sorted(SETS))

@@ -22,7 +22,7 @@ range, its row group's rows and each row's pairs; every product of a C
 element is added once, in ascending A band, a block taken as interior (no
 bounds test) needs none, and the pairbands offsets blown out 1000x launch
 with no interior block.  The float64 entry (the float32 kernel on 8-byte
-words, ``PAIR_GEOMETRY[8]``) is held bit for bit to the plain version,
+words, with its geometry) is held bit for bit to the plain version,
 also with edge blocks at both ends, with row groups of uneven size, and on
 zero-heavy bands full of -0.0.
 """
@@ -348,10 +348,6 @@ def test_split_builds_cut_one_place_each():
 PAIRBANDS = (-1201, -1200, -601, -600, 0, 1, 600, 601, 1200, 1201)
 
 
-# the .cu's constant for the columns a thread of each pairs entry
-PAIR_COLS_NAME = {4: "PAIR_COLS", 8: "PAIR_COLS_F64"}
-
-
 def _replay_pairs_kernel(a, b, offs_a, offs_b, n_out, blocks=None):
     """csrc/dia_multiply.cu's pairs entry for the bands' word (float32 or
     float64), block by block: pairs_launch's grid at that word, thread t's
@@ -375,7 +371,7 @@ def _replay_pairs_kernel(a, b, offs_a, offs_b, n_out, blocks=None):
     with open(dk.SOURCE) as f:              # the .cu's constants
         src = f.read()
     assert f"constexpr int PAIR_THREADS = {T};" in src
-    assert f"constexpr int {PAIR_COLS_NAME[word]} = {E};" in src
+    assert f"constexpr int PAIR_COLS = {E};" in src
     c = np.full((dcn, n_out), np.nan, a.dtype)
     cnt = np.full((dcn, n_out), np.nan, np.float32)
     visits = np.zeros((dcn, n_out), np.int64)
@@ -453,9 +449,8 @@ def test_pairs_replay_visits_each_product_once_in_band_order(
         # the column ranges 1,201 in from either end run untested
         sh = dk.pairs_launch(len(offs_a), len(dc_list), len(offs_a) ** 2,
                              n_i, a.dtype.itemsize)
-        assert interior == {1024: [False, False, True, False, False],
-                            512: [False] * 3 + [True] * 4 + [False] * 3,
-                            }[sh["L"]]
+        assert sh["L"] == 1024
+        assert interior == [False, False, True, False, False]
 
 
 def test_pairs_launch_shape_at_pairbands_x1000():
@@ -466,7 +461,8 @@ def test_pairs_launch_shape_at_pairbands_x1000():
     dc_list, _ = _plan_maps(wide, wide)
     assert dk.dia_mode(wide, wide, dc_list) == "pairs"
     sh = dk.pairs_launch(len(wide), len(dc_list), len(wide) ** 2, n)
-    assert sh["grid_x"] == -(-n // dk.PAIR_L) and sh["grid_y"] == 10
+    L = dk.PAIR_THREADS * dk.PAIR_COLS
+    assert sh["grid_x"] == -(-n // L) and sh["grid_y"] == 10
     assert sh["stage_tables"]
     assert sh["smem_bytes"] == 4 * (len(dc_list) + 1 + 3 * len(wide) ** 2)
     rng = np.random.default_rng(5)
@@ -479,7 +475,7 @@ def test_pairs_launch_shape_at_pairbands_x1000():
         torch.from_numpy(a), torch.from_numpy(a), offs_a=wide,
         idx_map=_plan_maps(wide, wide)[1], dc_count=len(dc_list), n_out=n)
     cols = written[0] == 1
-    assert cols.sum() == 3 * dk.PAIR_L + (n - (sh["grid_x"] - 1) * dk.PAIR_L)
+    assert cols.sum() == 3 * L + (n - (sh["grid_x"] - 1) * L)
     np.testing.assert_allclose(c[:, cols], want_c.numpy()[:, cols],
                                rtol=1e-5, atol=1e-5)
     np.testing.assert_array_equal(cnt[:, cols], want_n.numpy()[:, cols])
@@ -496,7 +492,6 @@ def test_pairs_launch_shape_at_pairbands_x1000():
 def test_pairs_launch_stages_what_fits(d1n, dcn, n_pairs, n_out,
                                        stage_tables, word):
     # the tables where they fit in 48 KB; A and B are read where they lie
-    geo = dk.PAIR_GEOMETRY[word]
     sh = dk.pairs_launch(d1n, dcn, n_pairs, n_out, word)
     assert sh["stage_tables"] == stage_tables
     assert sh["smem_bytes"] == (4 * (dcn + 1 + 3 * n_pairs)
@@ -504,15 +499,15 @@ def test_pairs_launch_stages_what_fits(d1n, dcn, n_pairs, n_out,
     assert sh["smem_bytes"] <= dk.PAIR_TABLE_BUDGET <= 48 * 1024
     assert sh["word"] == word
     assert sh["L"] == sh["threads"] * sh["cols"] == (
-        geo["threads"] * geo["cols"])
+        dk.PAIR_THREADS * dk.PAIR_COLS)
     assert sh["grid_x"] * sh["L"] >= n_out > (sh["grid_x"] - 1) * sh["L"]
     assert 1 <= sh["grid_y"] <= dcn
     assert sh["grid_x"] * sh["grid_y"] >= min(dk.PAIRS_MIN_BLOCKS,
                                               sh["grid_x"] * dcn)
     # groups of at most group_rows rows; fewer only for the block count
-    assert sh["grid_y"] >= -(-dcn // geo["group_rows"])
+    assert sh["grid_y"] >= -(-dcn // dk.PAIR_GROUP_ROWS)
     if sh["grid_x"] >= dk.PAIRS_MIN_BLOCKS:
-        assert sh["grid_y"] == -(-dcn // geo["group_rows"])
+        assert sh["grid_y"] == -(-dcn // dk.PAIR_GROUP_ROWS)
     with pytest.raises(ValueError):
         dk.pairs_launch(0, dcn, n_pairs, n_out)
     with pytest.raises(ValueError):
@@ -524,12 +519,12 @@ def test_pairs_launch_at_pairbands_500k_float64():
     # of three C rows each, the tables staged
     offs = PAIRBANDS
     dc_list, _ = _plan_maps(offs, offs)
-    n, geo = 500_000, dk.PAIR_GEOMETRY[8]
-    L = geo["threads"] * geo["cols"]
+    n = 500_000
+    L = dk.PAIR_THREADS * dk.PAIR_COLS
     sh = dk.pairs_launch(len(offs), len(dc_list), len(offs) ** 2, n, 8)
     assert (L, sh["L"]) == (1024, 1024)
     assert sh["grid_x"] == -(-n // L) and sh["grid_y"] == 10
-    assert -(-len(dc_list) // sh["grid_y"]) == geo["group_rows"] == 3
+    assert -(-len(dc_list) // sh["grid_y"]) == dk.PAIR_GROUP_ROWS == 3
     assert sh["stage_tables"]
     assert sh["smem_bytes"] == 4 * (len(dc_list) + 1 + 3 * len(offs) ** 2)
 
@@ -583,14 +578,20 @@ def test_pairs_replay_float64_bit_equal(kind, values_only):
 
 @pytest.mark.parametrize("word", [4, 8])
 def test_k4_split_pair_cols_builds_cut_one_place_each(word):
-    # bench/k4_split.py builds the pairs entries with PAIR_COLS or
-    # PAIR_COLS_F64 changed: the line must occur once, and name
-    # PAIR_GEOMETRY's columns
+    # bench/k4_split.py builds the pairs entries with PAIR_COLS changed (one
+    # line for both words): the line must occur once and name the columns
+    # pairs_launch reads, and each build's launch shape follows its columns
     from pem_spgemm_tpu_torch.bench import k4_split
     with open(dk.SOURCE) as f:
         text = f.read()
-    cols = dk.PAIR_GEOMETRY[word]["cols"]
-    assert cols in k4_split.PAIR_COLS[word]
-    line = k4_split.PAIR_COLS_LINE[word]
-    assert line.split()[2] == PAIR_COLS_NAME[word]
-    assert text.count(line.format(cols)) == 1
+    assert dk.PAIR_COLS in k4_split.PAIR_COLS[word]
+    line = k4_split.PAIR_COLS_LINE
+    assert line.split()[2] == "PAIR_COLS"
+    assert text.count(line.format(dk.PAIR_COLS)) == 1
+    shape = dk.pairs_launch(10, 30, 100, 500_000, word)
+    for cols in k4_split.PAIR_COLS[word]:
+        sh = k4_split.pairs_variant(shape, cols, 500_000)
+        assert sh["L"] == dk.PAIR_THREADS * cols and sh["cols"] == cols
+        assert sh["grid_x"] * sh["L"] >= 500_000 > (sh["grid_x"] - 1) * \
+            sh["L"]
+        assert sh["grid_y"] == shape["grid_y"] == 10
