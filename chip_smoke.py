@@ -4,9 +4,11 @@
     python3 chip_smoke.py --only kernel_check
     python3 chip_smoke.py --only f64_path
     python3 chip_smoke.py --only dia_path
+    python3 chip_smoke.py --only tile16_path
     python3 chip_smoke.py --profile rmat-16 [--no-pack] [--iters 20] [--graph]
     python3 chip_smoke.py --profile banded64-1M
     python3 chip_smoke.py --profile wandering64-1M
+    python3 chip_smoke.py --profile pairbands-500k --engine fused [--graph]
 
 Builds the port's CUDA kernels from the sources in this checkout (one nvcc
 per source, started together) and holds every entry against its plain
@@ -48,7 +50,18 @@ first two, engine="macro" for the third):
     matrix's C_nnz is equal on the interactive and the steady path and its
     C tiles are held against the plain accumulation on the card; per-row
     nnz against scipy on 20,000 sampled rows of wandering64-1M, the
-    recorded C_nnz for banded64-1M, scipy's sorted COO for pairbands-500k.
+    recorded C_nnz for banded64-1M, scipy's sorted COO for pairbands-500k;
+  * the Tile16 tier (phase tile16_path; torch ops, no kernel of this
+    package): pairbands-500k through engine="fused" and "masks" in
+    float32, and "fused" in float64 and in bfloat16 with float32
+    accumulation, each with C_nnz as recorded, the sorted COO equal to
+    scipy's, values within the dtype's bound, exactly three host syncs in
+    an interactive multiply (torch's sync debug mode), and the steady
+    plan's CUDA graph held to the eager step (structure bit for bit, values
+    within the bound: index_add_ adds with atomics), beside the DIA
+    engine's steady time on the same matrix;
+  * persistence (phase persist): pairbands-500k's Tile16 and DIA forms
+    saved, loaded onto the card and multiplied, C_nnz as recorded.
 
 Beside each path it times every kernel entry at the largest shape its path
 gives it, beside its bound (the Macro128 entries run on the tensor cores
@@ -61,7 +74,10 @@ checks and times the row-copy probe (the port of the JAX package's
 scripts/pallas_probe3.py), which no path runs.
 
 With --profile the script instead shows where one matrix's steady multiply
-spends its time (with --graph: the eager multiply and its CUDA graph
+spends its time (with --engine fused, pairbands-500k's steady Tile16
+multiply, with the eager step's device time split into the symbolic phase,
+the accumulation's gathers, bmm, index_add_ and the rest, and the
+structure functions) (with --graph: the eager multiply and its CUDA graph
 replay, in turns): the host-clock time per multiply (synchronising after each
 one, and only once after a batch) with the kernel launches counted per
 multiply, and a torch.profiler pass that gives device-busy time, the idle
@@ -3156,15 +3172,405 @@ def phase_f64_kernels(kept, check_err):
 
 
 
+# --------------------------------------------------------------------------
+# the Tile16 tier (fused and masks engines; no kernel of this package) and
+# the persistence of converted operands
+
+TILE16_MATRIX = "pairbands-500k"
+TILE16_RUNS = (("fused", torch.float32), ("masks", torch.float32),
+               ("fused", torch.float64), ("fused", torch.bfloat16))
+TILE16_SYNCS = 3        # size feedbacks of an interactive Tile16 multiply
+
+
+def tile16_config(engine, dtype, **kw):
+    acc = torch.float32 if dtype == torch.bfloat16 else None
+    return SpGEMMConfig(engine=engine, dtype=dtype, acc_dtype=acc, **kw)
+
+
+def count_syncs(fn):
+    """Run fn() with torch's sync debug mode on "warn": (its result, the
+    synchronizing operations it made).  An explicit device synchronise is
+    not one of them (the timers' are off here)."""
+    import warnings
+    torch.cuda.synchronize()
+    mode = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+    torch.cuda.synchronize()
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def tile16_sorted(out, n):
+    """Sorted COO (numpy) of a Tile16 step's output tuple, values as
+    float64."""
+    from pem_spgemm_tpu_torch.ops.assemble import assemble_coo
+    r, c, v = assemble_coo(out[0], out[1], out[4], out[5], out[6], n)
+    return (r[:n].cpu().numpy(), c[:n].cpu().numpy(),
+            v[:n].to(torch.float64).cpu().numpy())
+
+
+def hold_bound(vals, want, mag, rtol, atol, what):
+    """|vals - want| <= rtol * mag + atol everywhere; the worst ratio."""
+    over = float((np.abs(vals - want) / (rtol * mag + atol)).max())
+    if not over <= 1.0:
+        raise AssertionError(f"{what}: values exceed the bound by {over}x")
+    return over
+
+
+def tile16_hold_replay(res, cfg, coo, ref, what):
+    """The steady plan of this run, on freshly converted operands: a replay
+    of its CUDA graph against the eager spgemm_fixed.  Structure bit for
+    bit; values within the float32 bound (index_add_ adds with atomics, so
+    the accumulation order is not fixed), float64 within 1e-12 * sum|a*b|.
+    Returns the plan's own check against scipy (its values are in the
+    accumulation dtype) and the replay's record."""
+    from pem_spgemm_tpu_torch.ops.fixed import SpGEMMPlan
+    a = coo_to_tiled(coo, dtype=cfg.dtype)
+    b = coo_to_tiled(coo, dtype=cfg.dtype, with_tmasks=True)
+    plan = make_plan(res, cfg, a, b)
+    if not isinstance(plan, SpGEMMPlan):
+        raise AssertionError(f"{what}: plan {type(plan).__name__}")
+    graphs.reset_replayed()
+    rep = plan.run(a, b)
+    rep_again = plan.run(a, b)
+    if graphs.REPLAYED != {"spgemm_fixed": 2} or rep_again[6] is not rep[6]:
+        raise AssertionError(f"{what}: replays counted {graphs.REPLAYED}")
+    eager = plan.multiply(a, b)
+    if bool(rep[8]) or bool(eager[8]):
+        raise AssertionError(f"{what}: the plan overflows")
+    for i, field in enumerate(("c_tile_row", "c_tile_col", "cmask", "cptr",
+                               "c_rowcol", "c_elem_tile", "c_vals",
+                               "c_nnz")):
+        if field != "c_vals" and not torch.equal(rep[i], eager[i]):
+            raise AssertionError(f"{what}: replay {field} differs from the "
+                                 "eager step")
+    n = int(rep[7])
+    want, order, mag = ref
+    wr, wc, wv = want.row[order], want.col[order], want.data[order]
+    rr, rc, rv = tile16_sorted(rep, n)
+    er, ec, ev = tile16_sorted(eager, n)
+    if not (np.array_equal(rr, wr) and np.array_equal(rc, wc)
+            and np.array_equal(er, wr) and np.array_equal(ec, wc)):
+        raise AssertionError(f"{what}: the plan's sorted COO differs from "
+                             "scipy's")
+    wide = rep[6].dtype == torch.float64
+    rtol, atol = (F64_RTOL, F64_ATOL) if wide else (COO_RTOL, COO_ATOL)
+    info = dict(
+        plan=dict(p_cap=plan.p_cap, c_cap=plan.c_cap,
+                  c_nnz_cap=plan.c_nnz_cap),
+        replay_structure_bit_equal=True,
+        replay_values_bit_equal=bool(torch.equal(rep[6], eager[6])),
+        replay_vs_eager_max_abs=float(np.abs(rv - ev).max()),
+        replay_vs_eager_worst_over_bound=hold_bound(
+            rv, ev, mag, rtol, atol, f"{what} replay against eager"),
+        plan_values_dtype=str(rep[6].dtype),
+        plan_values_worst_over_bound=hold_bound(
+            rv, wv, mag, rtol, atol, f"{what} plan against scipy"))
+    del plan, a, b, rep, rep_again, eager
+    return info
+
+
+def bf16_reference(coo):
+    """(want, order, sum|a*b|) as scipy_square gives them, of the matrix
+    with its values rounded to bfloat16 as the bfloat16 run converts them.
+    Rounded values cancel exactly in places, and scipy drops an entry that
+    sums to 0.0, so C's structure is taken from |A|@|A| and A@A's values
+    read there (0.0 where scipy dropped the entry)."""
+    import types
+    v = coo.vals.to(torch.bfloat16).to(torch.float64).cpu().numpy()
+    s = COOMatrix(coo.rows, coo.cols, v, coo.shape).to_scipy().tocsr()
+    sa = abs(s)
+    mag = (sa @ sa).tocoo()
+    mag.sum_duplicates()
+    order = np.lexsort((mag.col, mag.row))
+    data = np.asarray((s @ s).tocsr()[mag.row, mag.col]).ravel()
+    want = types.SimpleNamespace(row=mag.row, col=mag.col, data=data,
+                                 nnz=mag.nnz)
+    return want, order, mag.data[order]
+
+
+def phase_tile16_path(ref, ref_bf16, dia_steady_ms):
+    """pairbands-500k through run_benchmark with engine fused and masks at
+    float32, and fused at float64 and at bfloat16 (float32 accumulation),
+    repeat 2, A*A at full size on one card.  Held: C_nnz as recorded, the
+    sorted COO equal to scipy's, values within the dtype's bound (bfloat16:
+    the float32 bound against scipy's product of the bfloat16-rounded
+    operands for the plan's float32 values, plus half a bfloat16 ulp
+    (2^-8 of the value) for the result, which is rounded to bfloat16 as in
+    the JAX package); the
+    steady tiers replay one CUDA graph (ops.graphs.REPLAYED moves, no
+    kernel wrapper does); the replay against the eager step; exactly
+    TILE16_SYNCS host syncs in an interactive multiply.  Beside each run,
+    the DIA engine's steady time on the same matrix (phase dia_path)."""
+    from pem_spgemm_tpu_torch.utils.timing import PhaseTimers
+    name = TILE16_MATRIX
+    want_nnz = DIA_RECORDED[name][0]
+    coo = banded_device(**DIA_MATRICES[name])
+    out = {}
+    for engine, dtype in TILE16_RUNS:
+        what = f"{name} {engine} {str(dtype).split('.')[-1]}"
+        cfg = tile16_config(engine, dtype, repeat=2)
+        reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rec, res = run_benchmark(coo, name, cfg, verbose=False)
+        run_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        wrappers = nonzero(path_launches({**ss.LAUNCHES, **dk.LAUNCHES,
+                                          **mk.LAUNCHES}))
+        replays = dict(graphs.REPLAYED)
+        if wrappers or set(replays) != {"spgemm_fixed"}:
+            raise AssertionError(f"{what}: kernel launches {wrappers}, "
+                                 f"replays {replays}")
+        if res.engine != engine or res.c_nnz != want_nnz \
+                or rec.c_nnz != want_nnz:
+            raise AssertionError(f"{what}: engine {res.engine}, C_nnz "
+                                 f"{res.c_nnz} (recorded {want_nnz})")
+        if res.vals.dtype != dtype:
+            raise AssertionError(f"{what}: values {res.vals.dtype}")
+        c = res.to_coo()
+        r = ref_bf16 if dtype == torch.bfloat16 else ref
+        want, order, mag = r
+        if dtype == torch.float64:
+            over = check_f64(c, want.row[order], want.col[order],
+                             want.data[order], mag, what)
+            bound = "|err| <= 1e-12 * sum|a*b|"
+        elif dtype == torch.float32:
+            _cancelled, over = check_coo(c.rows, c.cols, c.vals, r, what)
+            bound = "|err| <= 1e-5 * sum|a*b| + 1e-6"
+        else:
+            if not (np.array_equal(c.rows, want.row[order])
+                    and np.array_equal(c.cols, want.col[order])):
+                raise AssertionError(f"{what}: sorted COO differs")
+            # a value rounded to bfloat16 moves by at most half an ulp:
+            # 2^-8 of the rounded value
+            wv = want.data[order]
+            over = float((np.abs(c.vals - wv) / (
+                COO_RTOL * mag + COO_ATOL + np.abs(c.vals) * 2.0 ** -8))
+                .max())
+            if not over <= 1.0:
+                raise AssertionError(f"{what}: values exceed the bound by "
+                                     f"{over}x")
+            bound = ("result (bfloat16): |err| <= 1e-5 * sum|a*b| + 1e-6 + "
+                     "2^-8 |got|; plan (float32): |err| <= 1e-5 * "
+                     "sum|a*b| + 1e-6; against the bfloat16-rounded "
+                     "operands' product")
+        del c
+        a = coo_to_tiled(coo, dtype=dtype)
+        b = coo_to_tiled(coo, dtype=dtype, with_tmasks=True)
+        timers = PhaseTimers()
+        timers.detail = False
+        eng = SpGEMM(cfg)
+        eng(a, b, timers)
+        res2, syncs = count_syncs(lambda: eng(a, b, timers))
+        if syncs != TILE16_SYNCS or res2.c_nnz != want_nnz:
+            raise AssertionError(f"{what}: {syncs} host syncs in an "
+                                 f"interactive multiply, expected "
+                                 f"{TILE16_SYNCS}")
+        del a, b, res2
+        replay = tile16_hold_replay(res, cfg, coo, r, what)
+        del res
+        torch.cuda.empty_cache()
+        out[what] = dict(times_ms=record_times(rec), peak_mem_gb=peak)
+        emit("tile16_path", matrix=name, engine=engine,
+             dtype=str(dtype).split(".")[-1], flop=rec.flop, c_nnz=rec.c_nnz,
+             jax_recorded_c_nnz=want_nnz, checked_against="scipy, every entry",
+             values_worst_over_bound=over, bound=bound,
+             interactive_host_syncs=syncs, replays=replays,
+             kernel_wrapper_launches=wrappers, replay_check=replay,
+             times_ms=record_times(rec),
+             a_conversion_ms=rec.a_conversion_kernel_time,
+             steps_ms=dict(step1=rec.step1_time, step2=rec.step2_time,
+                           step3=rec.step3_time),
+             peak_mem_gb=peak, dia_steady_ms=dia_steady_ms,
+             run_benchmark_s=run_s)
+    return out
+
+
+def phase_persist():
+    """pairbands-500k's Tile16 and DIA forms saved to a temporary directory
+    (git-ignored, under the package's build directory), loaded onto the
+    card and multiplied: arrays equal, C_nnz as recorded."""
+    import os
+    import tempfile
+    from pem_spgemm_tpu_torch.io import persist
+    name = TILE16_MATRIX
+    want_nnz = DIA_RECORDED[name][0]
+    coo = banded_device(**DIA_MATRICES[name])
+    t = coo_to_tiled(coo, with_tmasks=True)
+    d = D.coo_to_dia(coo)
+    del coo
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    info = {}
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        for form, obj, save, load, fields in (
+                ("tile16", t, persist.save_tiled, persist.load_tiled,
+                 ("tile_row", "tile_col", "ptr", "masks", "vals", "rowcol",
+                  "elem_tile", "tile_rowptr", "tmasks")),
+                ("dia", d, persist.save_dia, persist.load_dia, ("bands",))):
+            path = os.path.join(tmp, f"{name}.{form}.npz")
+            t0 = time.perf_counter()
+            save(path, obj)
+            save_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            got = load(path)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            for f in fields:
+                if not torch.equal(getattr(got, f), getattr(obj, f)):
+                    raise AssertionError(f"persist {form}: {f} differs")
+            cfg = SpGEMMConfig(engine="fused") if form == "tile16" \
+                else SpGEMMConfig()
+            res = SpGEMM(cfg)(got, got)
+            if res.engine != ("fused" if form == "tile16" else "dia") \
+                    or res.c_nnz != want_nnz:
+                raise AssertionError(f"persist {form}: {res.engine} C_nnz "
+                                     f"{res.c_nnz} (recorded {want_nnz})")
+            info[form] = dict(save_s=save_s, load_s=load_s,
+                              archive_mb=os.path.getsize(path) / 2**20,
+                              arrays_equal=True, c_nnz=res.c_nnz)
+            del got, res
+    emit("persist", matrix=name, **info, jax_recorded_c_nnz=want_nnz,
+         macro128="not run here: Macro128 archives of the suite hold "
+                  "several GB of dense tiles; the CPU tests "
+                  "(tests/test_torch_persist.py) cover their round trip")
+
+
+# the Tile16 step's functions, as ops.fixed.spgemm_fixed calls them, by the
+# share of a steady multiply they stand for in --profile
+TILE16_SCOPES = {
+    "symbolic": (("symbolic", "pair_counts"), ("symbolic", "expand_pairs")),
+    "accumulate": (("numeric", "accumulate_fused_flat"),),
+    "structure.c_tile_coords": (("cstruct", "c_tile_coords"),),
+    "structure.counts_to_masks": (("numeric", "counts_to_masks"),),
+    "structure.c_rowcol": (("cstruct", "c_rowcol"),),
+    "structure.extract_values": (("numeric", "extract_values"),),
+}
+# kernels of the accumulation, by what launches them
+ACCUMULATE_KERNELS = (("bmm", r"gemm|cutlass|xmma|Kernel2"),
+                      ("index_add_", r"indexFunc|index_add"),
+                      ("gathers", r"index|gather"))
+
+
+def tile16_scoped(fn):
+    """Run fn() with each function of TILE16_SCOPES inside a
+    torch.profiler.record_function scope named after its share."""
+    import contextlib
+    import functools
+    from torch.profiler import record_function
+    from pem_spgemm_tpu_torch.ops import fixed
+    saved = []
+
+    def scoped(share, f):
+        @functools.wraps(f)
+        def g(*a, **kw):
+            with record_function(f"tile16.{share}"):
+                return f(*a, **kw)
+        return g
+
+    with contextlib.ExitStack() as stack:
+        for share, names in TILE16_SCOPES.items():
+            for mod, attr in names:
+                m = getattr(fixed, mod)
+                saved.append((m, attr, getattr(m, attr)))
+                setattr(m, attr, scoped(share, getattr(m, attr)))
+        stack.callback(lambda: [setattr(m, k, f) for m, k, f in saved])
+        return fn()
+
+
+def tile16_split(multiply, n):
+    """Device ms a multiply by share (symbolic, accumulate split into
+    gathers / bmm / index_add_ / other, structure), from torch.profiler
+    over n eager multiplies with the shares' scopes."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tile16_scoped(lambda: [multiply() for _ in range(n)])
+        torch.cuda.synchronize()
+    split = {}
+
+    def kernels(evt):
+        for k in evt.kernels:
+            yield k.name, k.duration
+        for ch in evt.cpu_children:
+            yield from kernels(ch)
+
+    for evt in prof.events():
+        if not evt.name.startswith("tile16."):
+            continue
+        share = evt.name.split(".", 1)[1]
+        for kname, us in kernels(evt):
+            key = share
+            if share == "accumulate":
+                key = next((f"accumulate.{k}" for k, pat in
+                            ACCUMULATE_KERNELS if re.search(pat, kname)),
+                           "accumulate.other")
+            split[key] = split.get(key, 0.0) + us / 1e3 / n
+    return split
+
+
+def run_profile_tile16(matrix, n, graph=False):
+    """pairbands-500k's steady Tile16 multiply (engine fused): the plan's
+    CUDA graph replayed (with ``graph``: the eager step and the replay in
+    turns), host-clock synced and queued ms, device-busy time, idle share
+    and device ops (torch.profiler), and the eager step's device time split
+    by share."""
+    coo = banded_device(**DIA_MATRICES[matrix])
+    a = coo_to_tiled(coo)
+    b = coo_to_tiled(coo, with_tmasks=True)
+    del coo
+    cfg = SpGEMMConfig(engine="fused")
+    res = SpGEMM(cfg)(a, b)
+    plan = make_plan(res, cfg, a, b)
+    emit("profile_setup", matrix=matrix, engine="fused", c_nnz=res.c_nnz,
+         n_pairs=res.n_pairs, c_ntiles=res.c_ntiles,
+         plan=dict(p_cap=plan.p_cap, c_cap=plan.c_cap,
+                   c_nnz_cap=plan.c_nnz_cap, chunk=plan.chunk))
+    del res
+
+    def eager():
+        return plan.multiply(a, b)[6][:1]
+
+    def replay():
+        return plan.run(a, b)[6][:1]
+
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    int(replay() != 0)                     # captures
+    peak_graph = (torch.cuda.max_memory_allocated() - base) / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    int(eager() != 0)
+    peak_eager = (torch.cuda.max_memory_allocated() - base) / 2**30
+    turns = [("graph", replay), ("graph", replay)]
+    if graph:
+        turns = [("eager", eager)] + turns + [("eager", eager)]
+    emit("profile_steady", matrix=matrix, engine="fused",
+         peak_mem_gb={"eager": peak_eager, "graph": peak_graph},
+         times=turns_ms(turns, n),
+         device_ms_replay=time_ms(replay, n),
+         device_split_ms_eager=tile16_split(eager, max(2, n // 4)))
+    for name, fn in turns:
+        profile_device(f"{matrix} fused {name}", fn, n)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=["kernel_check", "f64_path",
-                                       "dia_path"],
+                                       "dia_path", "tile16_path"],
                     default=None,
                     help="kernel_check: build the kernels, check them, and "
                          "stop; f64_path: build them and run the f64 parity "
                          "phase alone; dia_path: the DIA kernel check, the "
-                         "DIA path, its kernel rows and dia_graph_replay")
+                         "DIA path, its kernel rows and dia_graph_replay; "
+                         "tile16_path: pairbands-500k's DIA run (for its "
+                         "steady time), then phases tile16_path and persist")
     ap.add_argument("--profile",
                     choices=sorted(MATRICES) + sorted(DIA_MATRICES)
                     + ["wandering64-1M"],
@@ -3176,8 +3582,12 @@ def main():
     ap.add_argument("--iters", type=int, default=20,
                     help="with --profile: multiplies per measurement")
     ap.add_argument("--graph", action="store_true",
-                    help="with --profile of an element matrix: the eager "
-                         "multiply and its CUDA graph replay, in turns")
+                    help="with --profile of an element matrix or with "
+                         "--engine fused: the eager multiply and its CUDA "
+                         "graph replay, in turns")
+    ap.add_argument("--engine", choices=["fused"], default=None,
+                    help="with --profile pairbands-500k: the Tile16 fused "
+                         "engine's steady multiply instead of the DIA one")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3189,6 +3599,11 @@ def main():
          torch=torch.__version__, cuda=torch.version.cuda,
          kernel_build_s=build_s)
 
+    if args.engine == "fused":
+        if args.profile != TILE16_MATRIX:
+            ap.error(f"--engine fused profiles {TILE16_MATRIX} only")
+        run_profile_tile16(args.profile, args.iters, args.graph)
+        return 0
     if args.profile == "wandering64-1M":
         run_profile_macro(args.profile, args.iters)
         return 0
@@ -3209,6 +3624,16 @@ def main():
         kept["pairbands-500k f64"] = rec.steady_state_time
         phase_dia_graph_replay(kept)
         print(json.dumps({"kernels": rows}), flush=True)
+        return 0
+    if args.only == "tile16_path":
+        coo = banded_device(**DIA_MATRICES[TILE16_MATRIX])
+        rec, _res = run_benchmark(coo, TILE16_MATRIX,
+                                  SpGEMMConfig(repeat=5), verbose=False)
+        del _res
+        phase_tile16_path(scipy_square(coo, with_abs=True),
+                          bf16_reference(coo), rec.steady_state_time)
+        phase_persist()
+        emit("total", seconds=time.perf_counter() - t_start)
         return 0
     if args.only == "f64_path":
         coo_pl = MATRICES["powerlaw-1M"]()
@@ -3245,12 +3670,20 @@ def main():
     torch.cuda.empty_cache()
     kept = phase_dia_path()
     pairbands_ref = kept["pairbands-500k"].pop("ref")
+    dia_pairbands_steady = kept["pairbands-500k"]["times"][
+        "steady_state_time"]
     kernels += phase_dia_kernels(kept, check_err)
     kept["pairbands-500k f64"] = f64_pairs_steady
     phase_dia_graph_replay(kept)
     del kept
     torch.cuda.empty_cache()
     kernels += phase_macro_path(check_err, pairbands_ref)
+    torch.cuda.empty_cache()
+    phase_tile16_path(pairbands_ref, bf16_reference(
+        banded_device(**DIA_MATRICES[TILE16_MATRIX])), dia_pairbands_steady)
+    del pairbands_ref
+    phase_persist()
+    torch.cuda.empty_cache()
     kernels += f64_rows
     kernels.append(phase_probe())
     for row in kernels:

@@ -11,11 +11,13 @@ DIA engine end to end (COO -> diagonal census -> band stacks -> plan ->
 multiply with exact structural counts -> sorted COO), the Macro128 engine
 end to end (COO -> dense 128x128 tiles -> pair stream -> accumulation with
 exact structural flags -> sorted COO; steady state through the stencil /
-run class plans or the generic pair stream), the benchmark harness,
-MatrixMarket I/O and the command line (bench/cli.py), and the f64 parity
-mode (the merge element engine, the kernels' float64 entries).  The Tile16
-engines, persistence and the multi-GPU layer raise NotImplementedError or
-are absent until their slices land (ROADMAP.md).
+run class plans or the generic pair stream), the Tile16 tier (the fused
+and masks engines over 16x16 bitmask tiles, in float32, float64 and
+bfloat16; its steady step one CUDA graph), the benchmark harness,
+MatrixMarket I/O, persistence of the converted formats (io/persist.py) and
+the command line (bench/cli.py), and the f64 parity mode (the merge element
+engine, the kernels' float64 entries).  The multi-GPU layer is absent until
+its slice lands (ROADMAP.md).
 """
 
 from pem_spgemm_tpu_torch.config import SpGEMMConfig

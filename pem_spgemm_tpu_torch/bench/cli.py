@@ -5,17 +5,22 @@ pemspgemm <path.mtx> <0|1 save> [1=A*At].  This one keeps those positionals
 and adds flags for the knobs the reference bakes in at compile time:
 
   python -m pem_spgemm_tpu_torch.bench.cli <matrix> <0|1 save> [1]
-         [--repeat N] [--warmup N] [--fastest] [--dtype f32|f64]
-         [--engine auto|element|dia|macro] [--device DEVICE]
-         [--csv PATH] [--no-csv] [--outdir DIR]
+         [--repeat N] [--warmup N] [--fastest] [--dtype f32|f64|bf16]
+         [--engine auto|element|fused|masks|dia|macro] [--device DEVICE]
+         [--csv PATH] [--no-csv] [--outdir DIR] [--save-converted PATH]
 
 <matrix> is a .mtx path or a synthetic spec like
 'power_law:n=1000000,nnz=3000000' (see models/synthetic.by_name).  With
 save=1 the sorted COO result is dumped in the reference's four-file layout
 (default: the current directory).  The multiply runs on the GPU unless
 --device says otherwise.  ``--dtype f64`` is the f64 parity mode (the
-reference computes in double): the merge element engine, and the float64
-entries of the DIA and Macro128 kernels.
+reference computes in double): the merge element engine, the float64
+entries of the DIA and Macro128 kernels, and the Tile16 engines in float64.
+``--dtype bf16`` runs on the Tile16 engines (``--engine fused`` or
+``masks``) with float32 accumulation; other engines refuse it.
+``--save-converted PATH`` writes the converted A operand (Tile16, Macro128
+or DIA by the engine that ran) to an .npz archive that io/persist.py, or
+the JAX package's, loads.
 """
 
 from __future__ import annotations
@@ -43,9 +48,11 @@ def main(argv=None):
     p.add_argument("--outdir", default=".",
                    help="directory for result dumps with save=1")
     p.add_argument("--save-converted", metavar="PATH",
-                   help="persist the converted A operand (not ported yet)")
+                   help="persist the converted A operand (.npz; Tile16, "
+                        "Macro128 or DIA by engine) for instant reload")
     p.add_argument("--engine", default="auto",
-                   choices=("auto", "element", "dia", "macro"))
+                   choices=("auto", "element", "fused", "masks", "dia",
+                            "macro"))
     p.add_argument("--device", default=None,
                    help="torch device of the multiply (default: the GPU)")
     args = p.parse_args(argv)
@@ -56,15 +63,11 @@ def main(argv=None):
                                              save_result_files)
     from pem_spgemm_tpu_torch.models.synthetic import by_name
 
-    if args.dtype == "bf16":
-        raise NotImplementedError(
-            "--dtype bf16 is not ported yet: bf16 belongs to the Tile16 "
-            "tier, ROADMAP slice 4")
-    dtype = {"f32": torch.float32, "f64": torch.float64}[args.dtype]
-    if args.save_converted:
-        raise NotImplementedError(
-            "--save-converted is not ported yet: persistence of the "
-            "converted formats is ROADMAP slice 6")
+    dtype = {"f32": torch.float32, "f64": torch.float64,
+             "bf16": torch.bfloat16}[args.dtype]
+    # bfloat16 values accumulate in float32 (numpy has no bfloat16, and a
+    # bfloat16 sum loses the exactness the pattern counts need)
+    acc_dtype = torch.float32 if dtype == torch.bfloat16 else None
 
     if args.matrix.endswith(".mtx"):
         coo = read_matrix_market(args.matrix).sum_duplicates()
@@ -74,12 +77,29 @@ def main(argv=None):
         p.error("A@A needs a square matrix; rectangular inputs are only "
                 "allowed in A@A.T mode (pass trailing 1)")
 
-    cfg = SpGEMMConfig(dtype=dtype, warmup=args.warmup,
-                       repeat=args.repeat, fastest=args.fastest,
-                       engine=args.engine)
+    cfg = SpGEMMConfig(dtype=dtype, acc_dtype=acc_dtype,
+                       warmup=args.warmup, repeat=args.repeat,
+                       fastest=args.fastest, engine=args.engine)
     record, result = run_benchmark(
         coo, args.matrix, cfg, aat=bool(args.aat),
         csv_path=None if args.no_csv else args.csv, device=args.device)
+
+    if args.save_converted:
+        # the converted operand as an archive: reload with
+        # io.persist.load_tiled / load_macro / load_dia
+        from pem_spgemm_tpu_torch.io import persist
+        from pem_spgemm_tpu_torch.ops.convert import (coo_to_macro,
+                                                      coo_to_tiled)
+        kw = dict(dtype=dtype, device=args.device)
+        if result.engine == "dia":
+            from pem_spgemm_tpu_torch.ops.dia import coo_to_dia
+            persist.save_dia(args.save_converted, coo_to_dia(coo, **kw))
+        elif result.engine == "macro":
+            persist.save_macro(args.save_converted, coo_to_macro(coo, **kw))
+        else:
+            persist.save_tiled(args.save_converted,
+                               coo_to_tiled(coo, with_tmasks=True, **kw))
+        print(f"converted operand persisted to {args.save_converted}")
 
     if args.save:
         paths = save_result_files(args.outdir, result.to_coo())

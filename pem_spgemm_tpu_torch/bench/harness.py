@@ -11,9 +11,10 @@ Mirrors the reference's measurement protocol:
 Three tiers are reported: interactive (plan + multiply + c_nnz feedback per
 iteration, the CSV's pem_spgemm_time), steady (the cached plan replayed, one
 sync per iteration) and pipelined (replays queued back to back, one sync at
-the end).  The element, dia, macro and auto branches are ported, in
-float32 and in float64 (the f64 parity mode: the merge element engine and
-the kernels' float64 entries).
+the end).  Every engine runs here: the Tile16 engines (fused, masks; also
+in bfloat16 with float32 accumulation), the element, DIA and Macro128
+engines and auto dispatch, in float32 and in float64 (the f64 parity mode:
+the merge element engine and the kernels' float64 entries).
 """
 
 from __future__ import annotations
@@ -27,7 +28,8 @@ from pem_spgemm_tpu_torch.config import (SpGEMMConfig, DEFAULT_CONFIG,
                                          resolve_device)
 from pem_spgemm_tpu_torch.formats.coo import COOMatrix
 from pem_spgemm_tpu_torch.ops.convert import coo_to_tiled
-from pem_spgemm_tpu_torch.ops.spgemm import SpGEMM, SpGEMMResult, not_ported
+from pem_spgemm_tpu_torch.ops.spgemm import (TILE16_ENGINES, SpGEMM,
+                                             SpGEMMResult, refuse_bf16)
 from pem_spgemm_tpu_torch.utils.flops import (spgemm_flops, gflops,
                                               compression_ratio)
 from pem_spgemm_tpu_torch.utils.timing import PhaseTimers, force_sync
@@ -62,8 +64,9 @@ def run_benchmark(coo: COOMatrix, name: str,
     """
     cfg = config
     dev = resolve_device(device)
-    if cfg.engine not in ("auto", "element", "dia", "macro"):
-        raise not_ported(cfg.engine)
+    if cfg.engine not in ("auto", "element", "dia", "macro") + TILE16_ENGINES:
+        raise ValueError(f"unknown engine {cfg.engine!r}")
+    refuse_bf16(cfg.engine, cfg.dtype)
 
     # --- conversion (timed once, like the reference) ---
     # The host-to-device copy of the triplets is timed apart from the
@@ -105,6 +108,7 @@ def run_benchmark(coo: COOMatrix, name: str,
     # of the columns.  The first run's cost is still visible in
     # total_conversion_overhead_time.
     element_f32 = cfg.engine == "element" and cfg.dtype == torch.float32
+    tile16 = cfg.engine in TILE16_ENGINES
     t_a = t_b = None
     a = b = None
     for _rep in range(2):
@@ -138,6 +142,8 @@ def run_benchmark(coo: COOMatrix, name: str,
         a = coo_to_tiled(coo_dev, dtype=cfg.dtype)
         if element_f32:
             force_sync(a.element_csr()[2])   # row-sorted element CSR
+        if tile16:
+            force_sync(a.dense_flat())       # densification is conversion
         force_sync(a.vals)
         t_a = time.perf_counter() - t0
         t0 = time.perf_counter()
@@ -146,6 +152,8 @@ def run_benchmark(coo: COOMatrix, name: str,
             # the B chunk table is a converted-format product
             from pem_spgemm_tpu_torch.ops.binned import chunk_b
             force_sync(chunk_b(b).table)
+        if tile16:
+            force_sync(b.dense_flat())
         force_sync(b.vals)
         t_b = time.perf_counter() - t0
     t_conv_total = time.perf_counter() - t_conv0
@@ -231,6 +239,7 @@ def _steady_tiers(result, cfg, a, b, dev):
     plan = make_plan(result, cfg, a, b)
     is_dia = result.engine == "dia"
     is_macro = result.engine == "macro"
+    is_tile16 = result.engine in TILE16_ENGINES
     if is_dia or is_macro:
         # the dense C band stacks (DIA) and the multi-GB dense C tiles
         # (macro) are the big allocation: release the interactive result's
@@ -272,14 +281,14 @@ def _steady_tiers(result, cfg, a, b, dev):
     force_sync(_probe(warm_out))
     gen_bytes = sum(x.numel() * x.element_size() for x in warm_out
                     if isinstance(x, torch.Tensor))
-    # a plan that replays a CUDA graph (binned element, DIA) writes every
-    # replay into the same memory and allocates nothing a generation: the
-    # bound then only spaces the syncs, and at the wide DIA stencils (2 GB
-    # a generation) it still lets 16 replays queue on an 80 GB card
+    # a plan that replays a CUDA graph (binned element, DIA, Tile16) writes
+    # every replay into the same memory and allocates nothing a generation:
+    # the bound then only spaces the syncs, and at the wide DIA stencils
+    # (2 GB a generation) it still lets 16 replays queue on an 80 GB card
     inflight = _inflight_bound(gen_bytes, dev)
     reps = max(cfg.repeat, 8) if inflight >= 8 else cfg.repeat
     warm_out = None
-    if not (is_dia or is_macro):
+    if not (is_dia or is_macro or is_tile16):
         out = None
     last = None
     t0 = time.perf_counter()
@@ -301,4 +310,13 @@ def _steady_tiers(result, cfg, a, b, dev):
         # coordinates are refreshed together with the values
         (result.c_tile_row, result.c_tile_col, result.vals,
          result.c_counts, result.cptr) = out[:5]
+    if is_tile16:
+        # the plan's capacities differ from the interactive run's: every
+        # tiled field is refreshed together; its values are in the
+        # accumulation dtype, the result's in the value dtype.  On the GPU
+        # these are the graph's static outputs, which nothing replays after
+        # this
+        (result.c_tile_row, result.c_tile_col, result.cmask, result.cptr,
+         result.rowcol, result.elem_tile) = out[:6]
+        result.vals = out[6].to(cfg.dtype)
     return steady, pipelined

@@ -55,25 +55,24 @@ class SpGEMMConfig:
     # Value dtype of the numeric phase.  The binned element engine is
     # float32; other dtypes (torch.float64: the f64 parity mode) take the
     # merge element engine, and DIA bands and Macro128 tiles of that dtype
-    # their kernels' float64 entries on the GPU.
+    # their kernels' float64 entries on the GPU.  torch.bfloat16 runs on
+    # the Tile16 engines only (with acc_dtype=torch.float32).
     dtype: torch.dtype = torch.float32
 
     # Accumulation dtype of the tiled engines (None: the value dtype).
     acc_dtype: Optional[torch.dtype] = None
 
-    # Matmul precision of the tiled engines.  The Macro128 engine runs in
-    # full float32 ("highest") and refuses anything else.
+    # Matmul precision of the tiled engines.  The Tile16 and Macro128
+    # engines run in full float32 ("highest") and refuse anything else.
     precision: str = "highest"
 
-    # Pairs per matmul chunk of the tiled engines (not ported yet); the
-    # granularity of the merge element engine's product capacity.
+    # Pairs per batched product of the Tile16 engines; the granularity of
+    # their steady plans' and the merge element engine's pair capacity.
     numeric_chunk: int = 1 << 14
 
     # Structure engine: "fused" | "masks" | "element" | "dia" | "macro" |
     # "auto".  "auto" dispatches on structure: DIA census first (harness
-    # level, on COO), then mean macro-tile / tile fill.  The element, DIA
-    # and Macro128 engines are ported; the Tile16 engines ("fused",
-    # "masks") raise NotImplementedError.
+    # level, on COO), then mean macro-tile / tile fill.
     engine: str = "auto"
 
     # "auto"/"dia" consider the DIA engine only when the matrix's
@@ -91,7 +90,7 @@ class SpGEMMConfig:
 
     # "auto" picks the element engine when the mean nnz-per-occupied-tile
     # of both operands is below this; above it (but under the macro
-    # threshold) the Tile16 fused engine would run.
+    # threshold) the Tile16 fused engine runs.
     element_threshold: float = float("inf")
 
     # Element-engine implementation: "binned" (ops/binned.py, float32) or
@@ -108,9 +107,9 @@ class SpGEMMConfig:
     macro_chunk: int = 256
 
     # The JAX package's switch between its hand-written kernels and their
-    # plain versions.  Unused by the ported engines: here the tensors'
-    # device alone decides (GPU tensors launch the kernels, CPU tensors
-    # take the plain versions).  Kept for the Tile16 engines (not ported yet).
+    # plain versions.  Unused here: the tensors' device alone decides (GPU
+    # tensors launch the kernels, CPU tensors take the plain versions).
+    # Kept so the two packages take the same settings.
     use_pallas: bool = True
 
     # Benchmark protocol (reference defaults: WARMUP=1, REPEAT=10).

@@ -25,9 +25,9 @@ class TiledMatrix:
     one device.
 
     Instances are immutable.  Derived conversion products (element_csr,
-    macro, macro_stats, the binned chunk table, the binned plan) are cached on
-    the instance via object.__setattr__ and never invalidated: to change
-    values or structure, convert again from COO.
+    macro, macro_stats, dense_flat, the binned chunk table, the binned plan)
+    are cached on the instance via object.__setattr__ and never
+    invalidated: to change values or structure, convert again from COO.
     """
 
     # --- per-tile arrays, padded to tile_cap ---
@@ -123,12 +123,25 @@ class TiledMatrix:
             object.__setattr__(self, "_macro_cache", cached)
         return cached
 
-    def dense_flat(self):
-        raise NotImplementedError(
-            "dense value tiles belong to the Tile16 tier "
-            "(ROADMAP slice 4), which is not ported yet")
+    def dense_flat(self) -> torch.Tensor:
+        """Cached dense value tiles, (tile_cap + 1, 256): row t holds tile
+        t's 16x16 values row-major, and row tile_cap is the all-zero tile
+        that padding pairs index.  The same bytes as the JAX package's
+        (tile_cap + 1, 2, 128), whose last two dims are a TPU lane layout.
+        Part of the converted format, built once per matrix, like the JAX
+        package's."""
+        cached = getattr(self, "_dense_cache", None)
+        if cached is None:
+            from pem_spgemm_tpu_torch.ops.numeric import densify_tiles_flat
+            cached = densify_tiles_flat(self.vals, self.rowcol,
+                                        self.elem_tile, self.tile_cap)
+            object.__setattr__(self, "_dense_cache", cached)
+        return cached
 
-    def intra_rowptr(self):
-        raise NotImplementedError(
-            "intra-tile row pointers belong to the Tile16 tier "
-            "(ROADMAP slice 4), which is not ported yet")
+    def intra_rowptr(self) -> torch.Tensor:
+        """Per-tile intra-tile CSR row pointers, (cap, 17) i32, from the
+        masks' popcounts (the reference stores them; here they are
+        recomputed)."""
+        from pem_spgemm_tpu_torch.ops.cstruct import cumsum16, popcount16
+        return torch.nn.functional.pad(cumsum16(popcount16(self.masks)),
+                                       (1, 0))

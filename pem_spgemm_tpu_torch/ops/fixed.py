@@ -1,10 +1,12 @@
 """Steady-state plans: the multiply with its structure already planned.
 
-Ported: the binned element engine's adapter (one CUDA graph a multiply on
-the GPU), the merge element engine's plan (``ElementPlan``, the f64 parity
-mode's), the DIA branch (a DIA plan is already fixed-step, and replays one
-CUDA graph a multiply on the GPU: ops/dia.DiaPlan) and the two plans of the
-Macro128 engine.
+Counterpart of the JAX package's ops/fixed.py: the Tile16 step
+(``spgemm_fixed``, ``SpGEMMPlan``: one CUDA graph a multiply on the GPU),
+the binned element engine's adapter (one CUDA graph a multiply on the GPU),
+the merge element engine's plan (``ElementPlan``, the f64 parity mode's),
+the DIA branch (a DIA plan is already fixed-step, and replays one CUDA graph
+a multiply on the GPU: ops/dia.DiaPlan) and the two plans of the Macro128
+engine.
 """
 
 from __future__ import annotations
@@ -13,7 +15,123 @@ import dataclasses
 
 import torch
 
+from pem_spgemm_tpu_torch.config import round_up_pow2
 from pem_spgemm_tpu_torch.formats.macro import macro_operands
+from pem_spgemm_tpu_torch.ops import cstruct, numeric, symbolic
+from pem_spgemm_tpu_torch.ops.scanops import can_pack
+
+
+def spgemm_fixed(a_tile_row, a_tile_col, a_flat,
+                 b_tile_rowptr, b_tile_col, b_flat,
+                 ntiles_a: int, *, p_cap: int, c_cap: int, c_nnz_cap: int,
+                 chunk: int, acc_dtype=torch.float32,
+                 precision: str = "highest", packed: bool = False,
+                 packed_coords: bool = False):
+    """The fused-engine Tile16 SpGEMM at fixed capacities, with no
+    device-to-host copy (every size stays a device scalar).
+
+    Operands arrive as tile structure + dense flat value tables
+    (``TiledMatrix.dense_flat()``).  The step covers pair expansion, fused
+    numeric + structural accumulation, masks and nnz, intra-tile
+    coordinates and the compressed tile-major values, in acc_dtype.
+
+    Returns (c_tile_row, c_tile_col, cmask, cptr, c_rowcol, c_elem_tile,
+    c_vals, c_nnz, overflow).  ``overflow`` is a device bool, True when a
+    capacity was exceeded (pairs, C tiles or C nnz): the result is then
+    truncated and the caller must re-plan with larger capacities (the
+    harness does).
+    """
+    offsets = symbolic.pair_counts(a_tile_col, b_tile_rowptr, ntiles_a)
+    total = offsets[-1]
+    c_row, c_col, a_idx, b_idx, c_tile_id, cnt_c = symbolic.expand_pairs(
+        offsets, a_tile_row, a_tile_col, b_tile_rowptr, b_tile_col,
+        total.clamp(max=p_cap), p_cap, packed)
+    c_dense, c_counts = numeric.accumulate_fused_flat(
+        a_flat, b_flat, a_idx, b_idx, c_tile_id, c_cap, chunk, acc_dtype,
+        precision)
+    del a_idx, b_idx
+    c_tile_row, c_tile_col = cstruct.c_tile_coords(
+        c_tile_id, c_row, c_col, c_cap, packed_coords)
+    del c_row, c_col, c_tile_id
+    cmask, cptr = numeric.counts_to_masks(c_counts)
+    del c_counts
+    c_rowcol, c_elem_tile = cstruct.c_rowcol(cmask, cptr, c_nnz_cap)
+    c_vals = numeric.extract_values(c_dense, c_rowcol, c_elem_tile)
+    c_nnz = cptr[-1]
+    overflow = (total > p_cap) | (cnt_c > c_cap) | (c_nnz > c_nnz_cap)
+    return (c_tile_row, c_tile_col, cmask, cptr, c_rowcol, c_elem_tile,
+            c_vals, c_nnz, overflow)
+
+
+@dataclasses.dataclass(frozen=True)
+class SpGEMMPlan:
+    """Static capacities of the Tile16 step, learned from one interactive
+    run.
+
+    On the GPU the step is ONE CUDA graph, the counterpart of the JAX
+    package's one jitted ``spgemm_fixed``: the first ``run`` on a pair of
+    operands multiplies eagerly once with any host synchronisation an error,
+    then captures one multiply (``ops.graphs.capture``, replays counted
+    under ``"spgemm_fixed"`` in ``ops.graphs.REPLAYED``); every later run on
+    them is one replay.  The dense value tables are made outside the graph
+    (cached on the operands).  A graph reads fixed addresses: the plan
+    keeps the operand tensors it captured on, and a run on others captures
+    again.  A replay writes its outputs into the same memory every time: it
+    overwrites the outputs of the replay before.  A grown plan starts with
+    no graph and captures again.  CPU plans run eagerly.
+    """
+
+    p_cap: int
+    c_cap: int
+    c_nnz_cap: int
+    chunk: int
+    packed: bool
+    acc_dtype: object
+    precision: str
+    # "captured": the captured step (ops.graphs.Captured); "operands": the
+    # tensors it reads, with their operand_key
+    _graph: dict = dataclasses.field(default_factory=dict, init=False,
+                                     compare=False, repr=False)
+
+    def fence(self, out):
+        return out[6]                         # c_vals
+
+    def grown(self):
+        """Next-size plan after an overflow trip (double every capacity)."""
+        return dataclasses.replace(self, p_cap=self.p_cap * 2,
+                                   c_cap=self.c_cap * 2,
+                                   c_nnz_cap=self.c_nnz_cap * 2)
+
+    def _operands(self, a, b):
+        return (a.tile_row, a.tile_col, a.dense_flat(),
+                b.tile_rowptr, b.tile_col, b.dense_flat())
+
+    def multiply(self, a, b):
+        """The step, eagerly (what a replay is held to)."""
+        return spgemm_fixed(
+            *self._operands(a, b), a.ntiles, p_cap=self.p_cap,
+            c_cap=self.c_cap, c_nnz_cap=self.c_nnz_cap, chunk=self.chunk,
+            acc_dtype=self.acc_dtype, precision=self.precision,
+            packed=self.packed,
+            packed_coords=self.packed and a.n_tile_rows < (1 << 15))
+
+    def run(self, a, b):
+        """(c_tile_row, c_tile_col, cmask, cptr, c_rowcol, c_elem_tile,
+        c_vals, c_nnz, overflow), with no device-to-host copy."""
+        if not a.vals.is_cuda:
+            return self.multiply(a, b)
+        from pem_spgemm_tpu_torch.ops import graphs
+        from pem_spgemm_tpu_torch.ops.dia import operand_key, same_operand
+        ops = self._operands(a, b)
+        g = self._graph
+        with torch.cuda.device(a.vals.device):
+            if not g or not all(same_operand(h, x)
+                                for h, x in zip(g["operands"], ops)):
+                g.clear()               # the old graph and its operands go
+                g["captured"] = graphs.capture(
+                    lambda: self.multiply(a, b), {}, name="spgemm_fixed")
+                g["operands"] = tuple((x, operand_key(x)) for x in ops)
+            return g["captured"].replay()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -210,7 +328,6 @@ def _try_stencil_plan(config, a, b):
     covers under 0.9 of the pairs, None where neither covers 0.6."""
     import numpy as np
     from pem_spgemm_tpu_torch.ops import stencil as st
-    from pem_spgemm_tpu_torch.ops import symbolic
     am, bm = macro_operands(a, b)
     dev = am.device
     offsets = symbolic.pair_counts(am.tile_col, bm.tile_rowptr, am.ntiles)
@@ -266,7 +383,6 @@ def make_plan(result, config, a, b):
         # the merge engine: capacities from the interactive run, scan
         # depths bounded on the host
         import numpy as np
-        from pem_spgemm_tpu_torch.config import round_up_pow2
         from pem_spgemm_tpu_torch.ops.element import scan_round_bounds
         b_rowptr = b.element_csr()[0].cpu().numpy()
         a_rows, a_cols = (x.cpu().numpy() for x in a.element_coords())
@@ -288,5 +404,10 @@ def make_plan(result, config, a, b):
         return MacroPlan(p_cap=gran(result.n_pairs, config.macro_chunk),
                          c_cap=gran(result.c_ntiles, 256),
                          chunk=config.macro_chunk, acc_dtype=config.acc())
-    from pem_spgemm_tpu_torch.ops.spgemm import not_ported
-    raise not_ported(result.engine)
+    return SpGEMMPlan(
+        p_cap=gran(result.n_pairs, config.numeric_chunk),
+        c_cap=gran(result.c_ntiles, 1024),
+        c_nnz_cap=round_up_pow2(max(1, result.c_nnz)),
+        chunk=config.numeric_chunk,
+        packed=can_pack(a.n_tile_rows, b.n_tile_cols),
+        acc_dtype=config.acc(), precision=config.precision)

@@ -1,0 +1,143 @@
+"""Numeric phase of the Tile16 engines: per-C-tile accumulation.
+
+Counterpart of the JAX package's ops/numeric.py (the reference's step 3):
+
+  * operand tiles are densified once into (tiles, 256) value rows (a single
+    scatter: the tile-major element order makes the index just
+    elem_tile * 256 + rowcol);
+  * each pair contributes a dense 16x16 product A_tile @ B_tile, batched
+    over a chunk of pairs (``torch.bmm``; the JAX package's ``einsum`` runs
+    outside any Pallas kernel too);
+  * contributions are added into dense C tiles with ``index_add_``;
+  * compressed C values are gathered with the structure of the cstruct
+    phase.
+
+Padding pairs target C tile c_cap, one extra row sliced off after, and the
+flat operand tables end in an all-zero tile that they index.
+
+``index_add_`` on the GPU adds with atomics, so C values depend on the
+order the adds land in and match the JAX package (and one run another)
+within the float32 dot-product bound; the 0/1 pattern counts are integers
+below 2^24 in float32, exact in any order, so the structure is equal bit
+for bit.  Products run in full float32 (``macro.require_full_fp32``):
+never TF32.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from pem_spgemm_tpu_torch.ops.macro import require_full_fp32
+
+
+def _densify(vals, rowcol, elem_tile, rows: int):
+    """(rows * 256,) zeros with vals scattered to elem_tile*256 + rowcol;
+    positions past the end are dropped (into one extra slot)."""
+    n = rows * 256
+    pos = elem_tile.long() * 256 + rowcol.long()
+    pos = torch.where(pos < n, pos, n)
+    out = torch.zeros(n + 1, dtype=vals.dtype, device=vals.device)
+    out[pos] = vals
+    return out[:n]
+
+
+def densify_tiles(vals, rowcol, elem_tile, tile_cap: int):
+    """Scatter tile-major element values into dense (tile_cap, 16, 16)."""
+    return _densify(vals, rowcol, elem_tile, tile_cap).reshape(
+        tile_cap, 16, 16)
+
+
+def densify_tiles_flat(vals, rowcol, elem_tile, tile_cap: int):
+    """Dense value tiles, (tile_cap + 1, 256); row tile_cap is the all-zero
+    tile that padding pairs index.  The JAX package's layout is
+    (tile_cap + 1, 2, 128): the same bytes."""
+    return _densify(vals, rowcol, elem_tile, tile_cap + 1).reshape(
+        tile_cap + 1, 256)
+
+
+def _check_precision(precision: str) -> None:
+    if precision != "highest":
+        raise NotImplementedError(
+            f"precision={precision!r}: the Tile16 engines of this package "
+            "accumulate in full float32 only ('highest')")
+    require_full_fp32()
+
+
+def accumulate_fused_flat(a_flat, b_flat, a_idx, b_idx, c_tile_id,
+                          c_cap: int, chunk: int, acc_dtype=torch.float32,
+                          precision: str = "highest"):
+    """Fused numeric + structural accumulation on flat operand tables.
+
+    a_flat / b_flat: (T+1, 256) value tables (zero tile at T).  Per chunk of
+    pairs: gather both operand tiles, cast them to acc_dtype (bf16 operands
+    too), take one batched 16x16 product of the values and one of the 0/1
+    patterns (in float32: the counts stay exact integers), and add both
+    into the C tiles.  Returns (c_dense (c_cap, 256) acc_dtype, c_counts
+    (c_cap, 256) float32).
+    """
+    _check_precision(precision)
+    p_cap = a_idx.shape[0]
+    assert p_cap % chunk == 0, (p_cap, chunk)
+    dev = a_flat.device
+    seg = c_tile_id.clamp(max=c_cap).long()
+    c_dense = torch.zeros((c_cap + 1, 256), dtype=acc_dtype, device=dev)
+    c_cnt = torch.zeros((c_cap + 1, 256), dtype=torch.float32, device=dev)
+    for sl in range(0, p_cap, chunk):
+        s_c = seg[sl:sl + chunk]
+        ad = a_flat[a_idx[sl:sl + chunk].long()].view(-1, 16, 16).to(
+            acc_dtype)
+        bd = b_flat[b_idx[sl:sl + chunk].long()].view(-1, 16, 16).to(
+            acc_dtype)
+        c_dense.index_add_(0, s_c, torch.bmm(ad, bd).view(-1, 256))
+        c_cnt.index_add_(0, s_c, torch.bmm(
+            (ad != 0).to(torch.float32),
+            (bd != 0).to(torch.float32)).view(-1, 256))
+    return c_dense[:c_cap], c_cnt[:c_cap]
+
+
+def accumulate_dense(a_dense, b_dense, a_idx, b_idx, c_tile_id, c_cap: int,
+                     chunk: int, acc_dtype=torch.float32,
+                     precision: str = "highest"):
+    """C_dense[t] = sum over pairs p of tile t: A[a_idx[p]] @ B[b_idx[p]].
+
+    a_dense / b_dense: (T, 16, 16) with no zero tile, so padding pairs'
+    operand indices are clamped in range (their products land in the
+    dropped row c_cap).  Returns (c_cap, 16, 16) acc_dtype.
+    """
+    _check_precision(precision)
+    p_cap = a_idx.shape[0]
+    assert p_cap % chunk == 0, (p_cap, chunk)
+    seg = c_tile_id.clamp(max=c_cap).long()
+    a_i = a_idx.long().clamp(max=a_dense.shape[0] - 1)
+    b_i = b_idx.long().clamp(max=b_dense.shape[0] - 1)
+    c_dense = torch.zeros((c_cap + 1, 16, 16), dtype=acc_dtype,
+                          device=a_dense.device)
+    for sl in range(0, p_cap, chunk):
+        ad = a_dense[a_i[sl:sl + chunk]].to(acc_dtype)
+        bd = b_dense[b_i[sl:sl + chunk]].to(acc_dtype)
+        c_dense.index_add_(0, seg[sl:sl + chunk], torch.bmm(ad, bd))
+    return c_dense[:c_cap]
+
+
+def counts_to_masks(c_counts):
+    """Pack the structural counts into per-tile row bitmasks + nnz scan.
+
+    c_counts: (c_cap, 16, 16) (or (c_cap, 256)).  Returns (cmask (c_cap, 16)
+    i32, cptr (c_cap+1,) i32)."""
+    from pem_spgemm_tpu_torch.ops.cstruct import _exclusive_scan, popcount16
+    c_cap = c_counts.shape[0]
+    nz = (c_counts.reshape(c_cap * 16, 16) > 0).to(torch.float32)
+    # each row's 16 bits as one product with the powers of two: 0/1 times
+    # 2^c, summed below 2^16, exact in any float32 matmul mode
+    weights = torch.pow(2.0, torch.arange(16, dtype=torch.float32,
+                                          device=nz.device))
+    cmask = (nz @ weights).to(torch.int32).reshape(c_cap, 16)
+    return cmask, _exclusive_scan(popcount16(cmask).sum(1, dtype=torch.int32))
+
+
+def extract_values(c_dense, c_rowcol, c_elem_tile):
+    """Gather compressed tile-major C values from the dense C tiles."""
+    flat = c_dense.reshape(-1)
+    pos = (c_elem_tile.long() * 256 + c_rowcol.long()).clamp(
+        max=flat.shape[0] - 1)
+    return flat[pos]

@@ -1,10 +1,19 @@
 """The SpGEMM orchestrator: structural dispatch + the timed phases.
 
-Phase naming follows the reference for benchmark parity (step1 / step2 /
-step3).  The element engines (binned for float32, the merge engine for
+Counterpart of the JAX package's ops/spgemm.py.  Host-side code that
+chains the phases with the two-pass allocation protocol: each
+data-dependent size crosses to the host once (the reference's three size
+feedbacks) and the next phase runs at a capacity bucketed from it.
+
+Phase naming follows the reference for benchmark parity:
+  step1 = symbolic pair expansion + C tile structure
+  step2 = C masks / exact nnz / intra-tile coordinates
+  step3 = numeric accumulation + value extraction
+Engines: the Tile16 engines (``fused``: one pass gives values and the 0/1
+pattern; ``masks``: the bitmask structure phase, then the values), the
+element engines (binned for float32, the merge engine for
 ``element_impl="merge"`` and every other dtype), the DIA engine and the
-Macro128 engine are ported; the Tile16 engines raise NotImplementedError
-naming the ROADMAP slice that brings them.
+Macro128 engine.  bfloat16 values run on the Tile16 engines only.
 """
 
 from __future__ import annotations
@@ -21,25 +30,26 @@ from pem_spgemm_tpu_torch.formats.macro import MacroMatrix, macro_operands
 from pem_spgemm_tpu_torch.formats.tiled import TiledMatrix
 from pem_spgemm_tpu_torch.utils.timing import PhaseTimers
 
-_NOT_PORTED = {
-    "fused": "the Tile16 tier is ROADMAP slice 4",
-    "masks": "the Tile16 tier is ROADMAP slice 4",
-}
+TILE16_ENGINES = ("fused", "masks")
 
 
-def not_ported(engine: str) -> NotImplementedError:
-    why = _NOT_PORTED.get(engine, "unknown engine")
-    return NotImplementedError(
-        f"engine {engine!r} is not ported yet ({why}); the element engines, "
-        "the DIA engine and the Macro128 engine run in this package so far")
+def refuse_bf16(engine: str, dtype) -> None:
+    """bfloat16 runs on the Tile16 engines only: the element engines and the
+    DIA and Macro128 kernels take float32 and float64."""
+    if dtype == torch.bfloat16 and engine not in TILE16_ENGINES:
+        raise NotImplementedError(
+            f"bfloat16 values on engine {engine!r}: this package runs "
+            "bfloat16 on the Tile16 engines only (engine='fused' or "
+            "'masks', with acc_dtype=torch.float32)")
 
 
 @dataclasses.dataclass
 class SpGEMMResult:
-    """C = A@B.  The binned element engine fills the bucketed stream form,
-    the merge engine the flagged stream (``first`` set) or, for wide
-    dtypes and the empty product, direct COO coordinates; the DIA engine
-    the band form; the Macro128 engine the dense-tile form."""
+    """C = A@B.  The Tile16 engines fill the compressed tile form; the
+    binned element engine the bucketed stream form, the merge engine the
+    flagged stream (``first`` set) or, for wide dtypes and the empty
+    product, direct COO coordinates; the DIA engine the band form; the
+    Macro128 engine the dense-tile form."""
 
     vals: torch.Tensor      # (cap,) value dtype
     shape: tuple
@@ -59,16 +69,33 @@ class SpGEMMResult:
     # (dc, n) structural counts, dia_dc = the C diagonal offsets
     c_counts: Optional[torch.Tensor] = None
     dia_dc: Optional[tuple] = None
+    # tiled form (engine in {"fused", "masks"}): vals = (c_nnz_cap,)
+    # tile-major compressed values, with the tiles' coordinates, masks,
+    # exact nnz scan and per-element intra-tile coordinates and tiles;
     # macro form (engine == "macro"): vals = (c_cap, 128, 128) dense C tiles,
     # c_counts = (c_cap, 128, 128) uint8 structural flags, with the tiles'
     # coordinates and the exact nnz scan
     c_tile_row: Optional[torch.Tensor] = None    # (c_cap,) i32
     c_tile_col: Optional[torch.Tensor] = None    # (c_cap,) i32
+    cmask: Optional[torch.Tensor] = None         # (c_cap, 16) i32, tiled
     cptr: Optional[torch.Tensor] = None          # (c_cap+1,) i32
+    rowcol: Optional[torch.Tensor] = None        # (c_nnz_cap,) i32, tiled
+    elem_tile: Optional[torch.Tensor] = None     # (c_nnz_cap,) i32, tiled
     c_ntiles: int = 0                            # true C tile count
 
     def to_coo(self) -> COOMatrix:
-        """Assemble + sort to canonical global COO (host)."""
+        """Assemble + sort to canonical global COO (host).  bfloat16 values
+        come back as float32 (numpy has no bfloat16)."""
+        if self.rowcol is not None:
+            from pem_spgemm_tpu_torch.ops.assemble import assemble_coo
+            n = self.c_nnz
+            rows, cols, vals = assemble_coo(
+                self.c_tile_row, self.c_tile_col, self.rowcol,
+                self.elem_tile, self.vals, n)
+            if vals.dtype == torch.bfloat16:
+                vals = vals.to(torch.float32)
+            return COOMatrix(rows[:n].cpu().numpy(), cols[:n].cpu().numpy(),
+                             vals[:n].cpu().numpy(), self.shape)
         if self.dia_dc is not None:
             from pem_spgemm_tpu_torch.ops.dia import dia_to_coo
             rows, cols, vals = dia_to_coo(self.vals, self.c_counts,
@@ -127,19 +154,115 @@ class SpGEMM:
         if a.shape[1] != b.shape[0]:
             raise ValueError(f"shape mismatch: {a.shape} @ {b.shape}")
         if isinstance(a, DiaMatrix):
+            refuse_bf16("dia", self.config.dtype)
             return self._dia(a, b, timers)
         if isinstance(a, MacroMatrix):
+            refuse_bf16("macro", self.config.dtype)
             return self._macro(a, b, timers)
         engine = self.pick_engine(a, b)
+        refuse_bf16(engine, self.config.dtype)
         if engine == "dia":
             raise TypeError(
                 "engine='dia' takes DiaMatrix operands (ops.dia.coo_to_dia); "
                 "bench.harness.run_benchmark converts a COO matrix to them")
         if engine == "macro":
             return self._macro(a, b, timers)
-        if engine != "element":
-            raise not_ported(engine)
-        return self._element(a, b, timers)
+        if engine == "element":
+            return self._element(a, b, timers)
+        if engine not in TILE16_ENGINES:
+            raise ValueError(f"unknown engine {engine!r}")
+        return self._tiled(a, b, engine, timers)
+
+    def _tiled(self, a: TiledMatrix, b: TiledMatrix, engine: str,
+               timers: PhaseTimers) -> SpGEMMResult:
+        """The Tile16 engines.  step1 = pair expansion + C tile structure
+        (size feedbacks #1, pairs, and #2, C tiles).  "fused": step3 first,
+        one chunked pass over the dense tiles gives the values and the 0/1
+        pattern, then step2 derives masks and nnz from the pattern (#3,
+        C nnz).  "masks": step2 first, the bitmask structure phase (#3),
+        then step3 the values.  Then step2 enumerates C's intra-tile
+        coordinates and step3 gathers the compressed values.  These three
+        are the only device-to-host copies."""
+        from pem_spgemm_tpu_torch.config import round_up_bucket, \
+            round_up_pow2
+        from pem_spgemm_tpu_torch.ops import cstruct, numeric, symbolic
+        from pem_spgemm_tpu_torch.ops.convert import transpose_masks
+        from pem_spgemm_tpu_torch.ops.scanops import can_pack
+        cfg = self.config
+        shape = (a.shape[0], b.shape[1])
+        if engine == "masks":
+            b_tmasks = b.tmasks if b.tmasks is not None \
+                else transpose_masks(b.masks)
+
+        with timers.phase("step1") as box:
+            offsets = symbolic.pair_counts(a.tile_col, b.tile_rowptr,
+                                           a.ntiles)
+            n_pairs = int(offsets[-1])            # size feedback #1
+            if n_pairs == 0:
+                return _empty_result(shape, "fused", a.device, cfg.dtype)
+            p_cap = max(cfg.numeric_chunk, round_up_pow2(n_pairs))
+            packed = can_pack(a.n_tile_rows, b.n_tile_cols)
+            c_row, c_col, a_idx, b_idx, c_tile_id, cnt_c_dev = \
+                symbolic.expand_pairs(
+                    offsets, a.tile_row, a.tile_col, b.tile_rowptr,
+                    b.tile_col, n_pairs, p_cap, packed)
+            c_ntiles = int(cnt_c_dev)             # size feedback #2
+            box["sync"] = c_tile_id
+
+        c_cap = round_up_bucket(c_ntiles)
+        if engine == "fused":
+            with timers.phase("step3") as box:
+                a_flat = a.dense_flat()           # cached conversion product
+                b_flat = a_flat if b is a else b.dense_flat()
+                c_dense, c_counts = numeric.accumulate_fused_flat(
+                    a_flat, b_flat, a_idx, b_idx, c_tile_id, c_cap,
+                    cfg.numeric_chunk, cfg.acc(), cfg.precision)
+                box["sync"] = c_dense
+
+            with timers.phase("step2") as box:
+                c_tile_row, c_tile_col = cstruct.c_tile_coords(
+                    c_tile_id, c_row, c_col, c_cap,
+                    packed and a.n_tile_rows < (1 << 15))
+                cmask, cptr = numeric.counts_to_masks(c_counts)
+                del c_counts
+                c_nnz = int(cptr[-1])             # size feedback #3
+                box["sync"] = cmask
+        else:
+            with timers.phase("step2") as box:
+                c_tile_row, c_tile_col, cmask, cptr, _pair_ptr = \
+                    cstruct.c_masks(a.masks, b_tmasks, a_idx, b_idx,
+                                    c_tile_id, c_row, c_col, c_cap)
+                c_nnz = int(cptr[-1])             # size feedback #3
+                box["sync"] = cmask
+
+            with timers.phase("step3") as box:
+                a_dense = numeric.densify_tiles(
+                    a.vals, a.rowcol, a.elem_tile, a.tile_cap)
+                b_dense = a_dense if b is a else numeric.densify_tiles(
+                    b.vals, b.rowcol, b.elem_tile, b.tile_cap)
+                c_dense = numeric.accumulate_dense(
+                    a_dense, b_dense, a_idx, b_idx, c_tile_id, c_cap,
+                    cfg.numeric_chunk, cfg.acc(), cfg.precision)
+                del a_dense, b_dense
+                box["sync"] = c_dense
+        del c_row, c_col, a_idx, b_idx, c_tile_id
+
+        # the per-nnz derivation is timed, as the reference times its
+        # step 2c and its compressed value writes
+        c_nnz_cap = round_up_bucket(c_nnz)
+        with timers.phase("step2") as box:        # ref step 2c
+            c_rowcol, c_elem_tile = cstruct.c_rowcol(cmask, cptr, c_nnz_cap)
+            box["sync"] = c_rowcol
+        with timers.phase("step3") as box:        # ref step 3's compressed emit
+            c_vals = numeric.extract_values(
+                c_dense, c_rowcol, c_elem_tile).to(cfg.dtype)
+            box["sync"] = c_vals
+
+        return SpGEMMResult(
+            vals=c_vals, shape=shape, c_nnz=c_nnz, n_pairs=n_pairs,
+            engine=engine, c_tile_row=c_tile_row, c_tile_col=c_tile_col,
+            cmask=cmask, cptr=cptr, rowcol=c_rowcol, elem_tile=c_elem_tile,
+            c_ntiles=c_ntiles)
 
     def _macro(self, a, b, timers: PhaseTimers) -> SpGEMMResult:
         """Macro128 engine (ops/macro.py): dense 128x128 tile products.

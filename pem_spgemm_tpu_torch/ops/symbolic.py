@@ -43,7 +43,8 @@ def expand_pairs(offsets, a_tile_row, a_tile_col, b_tile_rowptr, b_tile_col,
                  n_pairs, p_cap: int, packed: bool = False):
     """Materialize all (A tile, B tile) products, sorted by C tile key.
 
-    n_pairs is an int or a device scalar (no device-to-host copy is made).
+    n_pairs is an int or a device scalar; nothing is copied between the
+    host and the device.
     Returns (c_row, c_col, a_idx, b_idx, c_tile_id, cnt_c):
       c_row/c_col: (p_cap,) i32 C tile coordinates (padding sorts last);
       a_idx/b_idx: (p_cap,) i32 operand tile indices;
@@ -88,8 +89,8 @@ def expand_pairs(offsets, a_tile_row, a_tile_col, b_tile_rowptr, b_tile_col,
             one, ((c_row[1:] != c_row[:-1])
                   | (c_col[1:] != c_col[:-1])).to(i32)])
     c_tile_id = torch.cumsum(new_tile, 0, dtype=i32) - 1
-    n = torch.as_tensor(n_pairs, device=dev)
-    cnt_c = torch.where(n > 0, c_tile_id[(n - 1).clamp(min=0).long()] + 1,
-                        0).to(i32)
+    # the valid pairs sort first: the tiles they start are the C tiles
+    # (counted on the device: no host copy, whatever n_pairs is)
+    cnt_c = (new_tile.bool() & valid).sum(dtype=i32)
     c_tile_id = torch.where(valid, c_tile_id, INT32_MAX)
     return c_row, c_col, a_idx, b_idx, c_tile_id, cnt_c

@@ -1,8 +1,8 @@
-"""Edge cases of the element and Macro128 engines of the port, against
-scipy and the JAX package on the same inputs (a mirror of the element and
-macro cases of tests/test_edge.py; the fused and bf16 cases wait for the
-Tile16 tier)."""
+"""Edge cases of the element, Tile16 (fused) and Macro128 engines of the
+port, against scipy and the JAX package on the same inputs (a mirror of
+tests/test_edge.py, its bfloat16 case included)."""
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -48,7 +48,7 @@ def _same_as_jax(res, jres):
                                atol=1e-5)
 
 
-@pytest.mark.parametrize("engine", ["element", "macro"])
+@pytest.mark.parametrize("engine", ["fused", "element", "macro"])
 def test_rectangular_aat(engine):
     rs = np.random.default_rng(5)
     nr, nc, nnz = 300, 700, 4000
@@ -77,7 +77,8 @@ def test_structurally_empty_product():
     b = _coo([0, 1], [3, 4], [1.0, 2.0], (64, 64))
     ta = coo_to_tiled(a, device=CPU)
     tb = coo_to_tiled(b, device=CPU)
-    for cfg in (SpGEMMConfig(engine="element"),
+    for cfg in (SpGEMMConfig(engine="fused"),
+                SpGEMMConfig(engine="element"),
                 SpGEMMConfig(engine="element", element_impl="merge"),
                 SpGEMMConfig(engine="element", dtype=torch.float64)):
         r = SpGEMM(cfg)(ta, tb)
@@ -90,14 +91,19 @@ def test_structurally_empty_product():
 def test_single_element_matrix():
     coo = _coo([5], [7], [3.0], (16, 16))
     t = coo_to_tiled(coo, device=CPU)
+    # a tile-level pair exists but the element product is empty: exact 0
+    r0 = SpGEMM(SpGEMMConfig(engine="fused"))(t, t)
+    assert r0.c_nnz == 0 and r0.n_pairs == 1 and r0.to_coo().nnz == 0
     # the element engine counts products directly: structurally empty
     r1 = SpGEMM(SpGEMMConfig(engine="element"))(t, t)
     assert r1.c_nnz == 0 and r1.to_coo().nnz == 0
     coo2 = _coo([7], [7], [3.0], (16, 16))
-    for dtype, impl in ((torch.float32, "binned"), (torch.float32, "merge"),
-                        (torch.float64, "binned")):
+    for dtype, engine, impl in ((torch.float32, "element", "binned"),
+                                (torch.float32, "element", "merge"),
+                                (torch.float64, "element", "binned"),
+                                (torch.float32, "fused", "binned")):
         t2 = coo_to_tiled(coo2, dtype=dtype, device=CPU)
-        r = SpGEMM(SpGEMMConfig(engine="element", dtype=dtype,
+        r = SpGEMM(SpGEMMConfig(engine=engine, dtype=dtype,
                                 element_impl=impl))(t2, t2)
         assert r.c_nnz == 1
         got = r.to_coo()
@@ -115,7 +121,7 @@ def test_identity_macro():
                                rtol=1e-6)
 
 
-@pytest.mark.parametrize("engine", ["element", "macro"])
+@pytest.mark.parametrize("engine", ["fused", "element", "macro"])
 def test_non_multiple_of_tile_shapes(engine):
     # n not a multiple of 16 or 128: border tiles are partial
     jcoo = banded(n=333, bands=(0, 1, -1, 17, -17), seed=2)
@@ -135,3 +141,33 @@ def test_non_multiple_of_tile_shapes(engine):
     np.testing.assert_allclose(r.to_coo().to_scipy().toarray(),
                                want.toarray(), rtol=1e-4, atol=1e-4)
     _same_as_jax(r, JSpGEMM(_jax_config(cfg))(jop, jop))
+
+
+def test_values_bf16_dtype():
+    """bfloat16 values on the fused engine with float32 accumulation, as
+    tests/test_edge.py runs them: exact C_nnz, values within bfloat16's
+    reach of scipy's, and the JAX package's structure and values (both
+    round the float32 sums to bfloat16 the same way).  Other engines
+    refuse bfloat16, naming themselves."""
+    jcoo = banded(n=200, bands=(0, 1, -1), seed=3)
+    coo = COOMatrix(np.asarray(jcoo.rows), np.asarray(jcoo.cols),
+                    np.asarray(jcoo.vals), tuple(jcoo.shape))
+    t = coo_to_tiled(coo, dtype=torch.bfloat16, device=CPU)
+    cfg = dict(engine="fused", acc_dtype=torch.float32, numeric_chunk=1 << 10)
+    r = SpGEMM(SpGEMMConfig(dtype=torch.bfloat16, **cfg))(t, t)
+    s = coo.to_scipy().tocsr()
+    assert r.c_nnz == (s @ s).nnz and r.vals.dtype == torch.bfloat16
+    c = r.to_coo()
+    dense = np.zeros(c.shape, np.float32)
+    dense[c.rows, c.cols] = c.vals
+    np.testing.assert_allclose(dense, (s @ s).toarray(), rtol=2e-2,
+                               atol=1e-2)
+    jt = j_coo_to_tiled(jcoo, dtype=jnp.bfloat16)
+    jr = JSpGEMM(JConfig(engine="fused", dtype=jnp.bfloat16,
+                         acc_dtype=jnp.float32, numeric_chunk=1 << 10))(jt, jt)
+    jc = jr.to_coo()
+    np.testing.assert_array_equal(c.rows, np.asarray(jc.rows))
+    np.testing.assert_array_equal(c.cols, np.asarray(jc.cols))
+    np.testing.assert_array_equal(c.vals, np.asarray(jc.vals, np.float32))
+    with pytest.raises(NotImplementedError, match="'element'"):
+        SpGEMM(SpGEMMConfig(engine="element", dtype=torch.bfloat16))(t, t)

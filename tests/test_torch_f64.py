@@ -4,8 +4,9 @@ same inputs (a mirror of tests/test_f64.py).
 
 The reference computes in double (ValueType=double).  The port runs
 float64 on the element engine (the merge engine: dispatch sends every dtype
-other than float32 there), on DIA bands and on Macro128 tiles; on the CPU
-these are the plain versions of the kernels' float64 entries.  Held: the
+other than float32 there), on DIA bands, on Macro128 tiles and on the
+Tile16 engines (fused and masks: float64 products and accumulation); on the
+CPU these are the plain versions of the kernels' float64 entries.  Held: the
 values' dtype float64, c_nnz exact, the sorted COO structure equal to
 scipy's and to the JAX package's, a relative error under 1e-12.
 
@@ -32,7 +33,7 @@ from pem_spgemm_tpu_torch.utils.csv_report import CSV_HEADER
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = "cpu"
-ENGINES = ("element", "dia", "macro")
+ENGINES = ("element", "dia", "macro", "fused", "masks")
 
 
 def _matrices():
@@ -63,7 +64,7 @@ from pem_spgemm_tpu.ops.fixed import make_plan
 from pem_spgemm_tpu.ops.spgemm import SpGEMM
 d = dict(np.load(sys.argv[1]))
 out = {}
-for engine in ("element", "dia", "macro"):
+for engine in ("element", "dia", "macro", "fused", "masks"):
     key = "b" if engine == "dia" else "m"
     coo = COOMatrix(d[key + "_rows"], d[key + "_cols"], d[key + "_vals"],
                     tuple(d[key + "_shape"]))

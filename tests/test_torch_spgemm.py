@@ -1,7 +1,7 @@
 """The slice as a whole: SpGEMM(SpGEMMConfig()) of the port against the JAX
-package's on the same numpy inputs, the engines that are not ported yet
-(and those that have landed since), and the benchmark harness with its
-14-column CSV."""
+package's on the same numpy inputs, the engines of the later slices (each
+raised until its slice landed; all run now), and the benchmark harness with
+its 14-column CSV."""
 
 import numpy as np
 import pytest
@@ -19,7 +19,7 @@ from pem_spgemm_tpu_torch.formats.coo import COOMatrix as TCOO
 from pem_spgemm_tpu_torch.ops.convert import coo_to_tiled
 from pem_spgemm_tpu_torch.ops import segment_sort as ss
 from pem_spgemm_tpu_torch.ops.fixed import (BinnedElementPlan, MacroPlan,
-                                            make_plan)
+                                            SpGEMMPlan, make_plan)
 from pem_spgemm_tpu_torch.utils.timing import PhaseTimers
 
 
@@ -105,6 +105,8 @@ def test_pick_engine_matches_jax():
 @pytest.mark.parametrize("engine,slice_no", [
     ("macro", 3), ("fused", 4), ("masks", 4), ("dia", 2)])
 def test_engines_of_later_slices_raise(engine, slice_no):
+    """The name dates from when these engines raised; every slice has
+    landed, and each engine runs as the JAX package's does."""
     _, ta = both_tiled(JCOO.from_scipy(random_sparse(64, 64, 0.1, seed=2)))
     if engine == "macro":
         # slice 3 has landed: the engine runs on Tile16 operands (through
@@ -135,14 +137,28 @@ def test_engines_of_later_slices_raise(engine, slice_no):
         s = coo.to_scipy().tocsr()
         assert res.engine == "dia" and rec.c_nnz == (s @ s).nnz
         return
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP slice {slice_no}"):
-        SpGEMM(SpGEMMConfig(engine=engine))(ta, ta)
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP slice {slice_no}"):
-        run_benchmark(TCOO.from_scipy(random_sparse(64, 64, 0.1, seed=2)),
-                      "m", SpGEMMConfig(engine=engine), device="cpu",
-                      verbose=False)
+    # slice 4 has landed: the Tile16 engines run on Tile16 operands and
+    # through the harness, with the JAX package's arrays and scipy's C
+    coo = JCOO.from_scipy(random_sparse(64, 64, 0.1, seed=2))
+    ja, _ = both_tiled(coo)
+    jres = JSpGEMM(JConfig(engine=engine))(ja, ja)
+    res = SpGEMM(SpGEMMConfig(engine=engine))(ta, ta)
+    for f in ("c_tile_row", "c_tile_col", "cmask", "cptr", "rowcol",
+              "elem_tile"):
+        np.testing.assert_array_equal(getattr(res, f).numpy(),
+                                      np.asarray(getattr(jres, f)),
+                                      err_msg=f)
+    rec, res_h = run_benchmark(TCOO(coo.rows, coo.cols, coo.vals, coo.shape),
+                               "m", SpGEMMConfig(engine=engine, repeat=1),
+                               device="cpu", verbose=False)
+    wr, wc, wv, wnnz = scipy_product(coo)
+    for r in (res, res_h):
+        assert r.engine == engine and r.c_nnz == wnnz == jres.c_nnz
+        got = r.to_coo()
+        np.testing.assert_array_equal(got.rows, wr)
+        np.testing.assert_array_equal(got.cols, wc)
+        np.testing.assert_allclose(got.vals, wv, rtol=1e-5, atol=1e-6)
+    assert rec.c_nnz == wnnz and rec.steady_state_time > 0
 
 
 @pytest.mark.parametrize("cfg_kw", [
@@ -257,14 +273,19 @@ def test_make_plan_element_branch():
     out = plan.run(ta, ta)
     assert int(plan.fence(out)) == res.c_nnz and not bool(out[-1])
     # the macro branch: a MacroPlan on CPU operands, equal to the
-    # interactive macro result; an engine that is not ported still raises
+    # interactive macro result; the Tile16 branch (it raised until slice 4
+    # landed): an SpGEMMPlan at the JAX package's granularities
     mcfg = SpGEMMConfig(engine="macro")
     mres = SpGEMM(mcfg)(ta, ta)
     mplan = make_plan(mres, mcfg, ta, ta)
     assert isinstance(mplan, MacroPlan)
     mout = mplan.run(ta, ta)
     assert int(mout[5]) == mres.c_nnz == res.c_nnz and not bool(mout[-1])
-    res.engine = "fused"
-    res.binned = None
-    with pytest.raises(NotImplementedError, match="ROADMAP slice 4"):
-        make_plan(res, cfg, ta, ta)
+    fcfg = SpGEMMConfig(engine="fused")
+    fres = SpGEMM(fcfg)(ta, ta)
+    fplan = make_plan(fres, fcfg, ta, ta)
+    assert isinstance(fplan, SpGEMMPlan)
+    assert fplan.p_cap == -(-fres.n_pairs // fcfg.numeric_chunk) \
+        * fcfg.numeric_chunk and fplan.c_cap % 1024 == 0
+    fout = fplan.run(ta, ta)
+    assert int(fout[7]) == fres.c_nnz == res.c_nnz and not bool(fout[-1])
