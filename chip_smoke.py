@@ -5,6 +5,7 @@
     python3 chip_smoke.py --only f64_path
     python3 chip_smoke.py --only dia_path
     python3 chip_smoke.py --only tile16_path
+    python3 chip_smoke.py --only sharded
     python3 chip_smoke.py --profile rmat-16 [--no-pack] [--iters 20] [--graph]
     python3 chip_smoke.py --profile banded64-1M
     python3 chip_smoke.py --profile wandering64-1M
@@ -61,7 +62,26 @@ first two, engine="macro" for the third):
     within the bound: index_add_ adds with atomics), beside the DIA
     engine's steady time on the same matrix;
   * persistence (phase persist): pairbands-500k's Tile16 and DIA forms
-    saved, loaded onto the card and multiplied, C_nnz as recorded.
+    saved, loaded onto the card and multiplied, C_nnz as recorded;
+  * bfloat16 on the element, DIA and Macro128 engines (phase bf16_path:
+    float32 accumulation, C rounded to bfloat16): powerlaw-1M (the merge
+    engine), banded64-1M (K2 on the bands' float32 copies) and
+    wandering64-1M (K4, then K5 on the steady path) through run_benchmark,
+    C_nnz equal to the float32 runs', values within the float32 bound
+    against the bfloat16-rounded operands' product plus half a bfloat16
+    ulp (structure from |A|@|A|);
+  * the multi-GPU layer (parallel/): phase sharded_path runs the four
+    decompositions at world size 1 in an NCCL process group of this card
+    (the c_nnz all_reduce and the gathers go through NCCL; no
+    point-to-point op runs at one rank): the column-sharded element engine
+    on powerlaw-1M (K1b), the DIA halo exchange on banded64-1M (K2), the
+    Macro128 ring on wandering64-1M (one K4 a stage with pairs) and the
+    Tile16 ring on pairbands-500k; phase sharded_ranks replays a 4-rank
+    plan of each on the card, rank by rank, each rank's B chunks and halos
+    read from the plan (two NCCL ranks cannot share one card: the exchange
+    is carried by the gloo tests), with each rank's time and the load
+    balance.  Each is held to scipy (sampled rows for wandering64-1M) or,
+    for banded64-1M, to the plain path on the card.
 
 Beside each path it times every kernel entry at the largest shape its path
 gives it, beside its bound (the Macro128 entries run on the tensor cores
@@ -86,7 +106,9 @@ also each stream of the planned multiply timed alone with CUDA events.
 
 A kernel's launches on a path are its wrapper's count plus the launches of
 the CUDA-graph replays (ops.graphs.REPLAYED: a replay adds those its plan
-recorded at capture).  Each phase prints one JSON line.  There is no CPU
+recorded at capture).  Each kernel row of the last lines also counts its
+launches on this slice's paths (launches_by_path: bf16_path, sharded_path,
+sharded_ranks).  Each phase prints one JSON line.  There is no CPU
 path: without a CUDA device the script fails.  It exits non-zero on the first failed phase and
 prints the line {"ok": true, ...} last only when every phase passed.
 """
@@ -3282,7 +3304,8 @@ def bf16_reference(coo):
     sums to 0.0, so C's structure is taken from |A|@|A| and A@A's values
     read there (0.0 where scipy dropped the entry)."""
     import types
-    v = coo.vals.to(torch.bfloat16).to(torch.float64).cpu().numpy()
+    v = torch.as_tensor(coo.vals).to(torch.bfloat16).to(
+        torch.float64).cpu().numpy()
     s = COOMatrix(coo.rows, coo.cols, v, coo.shape).to_scipy().tocsr()
     sa = abs(s)
     mag = (sa @ sa).tocoo()
@@ -3560,17 +3583,483 @@ def run_profile_tile16(matrix, n, graph=False):
         profile_device(f"{matrix} fused {name}", fn, n)
 
 
+# --------------------------------------------------------------------------
+# bf16 on the element, DIA and Macro128 engines; the multi-GPU layer
+
+# name, engine, C_nnz of the float32 run (recorded in the phases above)
+BF16_RUNS = (("powerlaw-1M", "element", 43_282_438),
+             ("banded64-1M", "dia", 126_995_967),
+             ("wandering64-1M", "macro", 151_873_407))
+HALF_BF16_ULP = 2.0 ** -8       # relative to the rounded value
+# launches a kernel entry made on this slice's paths, by path (read just
+# after each path run, with the counts set to 0 just before it)
+NEW_PATH_LAUNCHES = {"bf16_path": {}, "sharded_path": {}, "sharded_ranks": {}}
+SHARDED_RANKS = 4
+
+
+def add_path_launches(path, launches):
+    into = NEW_PATH_LAUNCHES[path]
+    for k, v in launches.items():
+        into[k] = into.get(k, 0) + v
+
+
+def all_counts():
+    return path_launches({**ss.LAUNCHES, **dk.LAUNCHES, **mk.LAUNCHES})
+
+
+def bf16_rows(coo, rows):
+    """(rows, cols, want, mag) of the rows ``rows`` (ascending) of A@A with
+    A's values rounded to bfloat16: C's structure from |A|@|A| (scipy drops
+    sums that cancel to 0.0, the engines keep them), A@A's float64 values
+    read there, and sum|a*b| of each entry."""
+    v = torch.as_tensor(coo.vals).to(torch.bfloat16).to(torch.float64)
+    s = COOMatrix(coo.rows, coo.cols, v.cpu().numpy(),
+                  coo.shape).to_scipy().tocsr()
+    mag = (abs(s[rows]) @ abs(s)).tocoo()
+    mag.sum_duplicates()
+    o = np.lexsort((mag.col, mag.row))
+    r, c = mag.row[o], mag.col[o]
+    want = np.asarray((s[rows] @ s).tocsr()[r, c]).ravel()
+    return np.asarray(rows)[r], c, want, mag.data[o]
+
+
+def hold_bf16(rows, cols, vals, want, what):
+    """Exact structure; |got - want| <= 1e-5 * sum|a*b| + 1e-6 + 2^-8 |got|
+    (the float32 bound against the bfloat16-rounded operands' product,
+    plus half a bfloat16 ulp of the rounded result).  The worst ratio."""
+    wr, wc, wv, mag = want
+    if not (np.array_equal(rows, wr) and np.array_equal(cols, wc)):
+        raise AssertionError(f"{what}: sorted COO structure differs")
+    if not np.all(np.isfinite(vals)):
+        raise AssertionError(f"{what}: non-finite values")
+    over = float((np.abs(vals - wv) / (COO_RTOL * mag + COO_ATOL
+                                       + HALF_BF16_ULP * np.abs(vals)))
+                 .max()) if len(wv) else 0.0
+    if not over <= 1.0:
+        raise AssertionError(f"{what}: values exceed the bfloat16 bound "
+                             f"by {over}x")
+    return over
+
+
+def sample_rows(n_rows, seed=17):
+    g = np.random.default_rng(seed)
+    return np.sort(g.choice(n_rows, F64_SAMPLE_ROWS, replace=False))
+
+
+def coo_rows(rows, cols, vals, pick):
+    """The entries of sorted COO arrays (host) in the rows ``pick``."""
+    lo = np.searchsorted(rows, pick, side="left")
+    hi = np.searchsorted(rows, pick, side="right")
+    take = np.concatenate([np.arange(x, y) for x, y in zip(lo, hi)])
+    return rows[take], cols[take], vals[take]
+
+
+def device_rows(rows, cols, vals, pick):
+    """The entries of sorted COO tensors on the card in the rows ``pick``,
+    copied to the host."""
+    keep = torch.isin(rows, torch.as_tensor(pick, device=rows.device))
+    return (rows[keep].cpu().numpy(), cols[keep].cpu().numpy(),
+            vals[keep].float().cpu().numpy())
+
+
+def phase_bf16_path(coo_pl):
+    """bfloat16 values (float32 accumulation, C rounded to bfloat16) on one
+    suite matrix an engine, through run_benchmark at full size, repeat 2:
+    powerlaw-1M on the element engine (the merge engine), banded64-1M on
+    the DIA engine (K2 on the bands' float32 copies), wandering64-1M on the
+    Macro128 engine (K4 interactive, K5 steady).  C_nnz equal to the
+    float32 run's; values within the bfloat16 bound (the Tile16 tier's):
+    powerlaw-1M against scipy, every entry; banded64-1M against the plain
+    path on the card over the bands' float32 copies; wandering64-1M
+    against scipy on sampled rows.  The structure is |A|@|A|'s."""
+    out = {}
+    for name, engine, want_nnz in BF16_RUNS:
+        if name == "powerlaw-1M":
+            coo = coo_pl
+        elif name == "wandering64-1M":
+            coo = MACRO_MATRICES[name]()
+        else:
+            coo = banded_device(**DIA_MATRICES[name])
+        cfg = SpGEMMConfig(engine=engine, dtype=torch.bfloat16,
+                           acc_dtype=torch.float32, repeat=2)
+        reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rec, res = run_benchmark(coo, name, cfg, verbose=False)
+        run_s = time.perf_counter() - t0
+        launches = nonzero(all_counts())
+        add_path_launches("bf16_path", launches)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        what = f"{name} bf16 {engine}"
+        if res.engine != engine or res.c_nnz != want_nnz \
+                or rec.c_nnz != want_nnz or res.vals.dtype != torch.bfloat16:
+            raise AssertionError(f"{what}: engine {res.engine}, C_nnz "
+                                 f"{res.c_nnz} (float32 {want_nnz}), "
+                                 f"values {res.vals.dtype}")
+        if engine == "element":
+            if res.binned is not None or launches:
+                raise AssertionError(f"{what}: not the merge engine "
+                                     f"({launches})")
+            c = res.to_coo()
+            want, order, mag = bf16_reference(coo)
+            over = hold_bf16(c.rows, c.cols, c.vals,
+                             (want.row[order], want.col[order],
+                              want.data[order], mag), what)
+            checked = "scipy, every entry"
+            del c, want
+        elif engine == "dia":
+            if launches.get("dia_multiply_dense", 0) <= 0:
+                raise AssertionError(f"{what}: launches {launches}")
+            a = D.coo_to_dia(coo, dtype=torch.bfloat16)
+            wide = a.acc_bands()
+            offs = a.offsets
+            dc_list, idx_map = D._plan_maps(offs, offs)
+            kw = dict(offs_a=offs, idx_map=idx_map, dc_count=len(dc_list),
+                      n_out=a.shape[0])
+            want = D._dia_multiply_torch(wide, wide, **kw)
+            got = res.vals.float()
+            bound = dia_bound(wide, wide, offs, idx_map, len(dc_list),
+                              a.shape[0]) + HALF_BF16_ULP * got.abs()
+            dia_hold((got, res.c_counts), want, bound, what, label="bfloat16")
+            over = float(((got - want[0]).abs() / bound).max())
+            checked = "plain path on the card over the bands' float32 copies"
+            del a, wide, want, got, bound
+        else:
+            if launches.get("macro_accumulate_pairs", 0) <= 0 or \
+                    launches.get("macro_class_ragged", 0) <= 0:
+                raise AssertionError(f"{what}: launches {launches}")
+            c = res.to_coo()
+            pick = sample_rows(coo.shape[0])
+            over = hold_bf16(*coo_rows(c.rows, c.cols, c.vals, pick),
+                             bf16_rows(coo, pick), f"{what} sampled rows")
+            checked = f"scipy, {F64_SAMPLE_ROWS:,} sampled rows"
+            del c
+        del res
+        torch.cuda.empty_cache()
+        out[name] = record_times(rec)
+        emit("bf16_path", matrix=name, engine=engine, flop=rec.flop,
+             c_nnz=rec.c_nnz, float32_c_nnz=want_nnz, checked_against=checked,
+             values_worst_over_bound=over,
+             bound="|err| <= 1e-5 * sum|a*b| + 1e-6 + 2^-8 |got|, against "
+                   "the bfloat16-rounded operands' product",
+             launches=launches, times_ms=record_times(rec), peak_mem_gb=peak,
+             run_benchmark_s=run_s)
+    return out
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def synced_ms(fn):
+    """(fn()'s result, its ms with the card synchronised on both sides)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def balance(times):
+    return max(times) / (sum(times) / len(times))
+
+
+def union_sorted(parts):
+    """The ranks' (rows, cols, vals) on the card, concatenated and sorted."""
+    rows, cols, vals = (torch.cat([x[i] for x in parts]) for i in range(3))
+    order = torch.sort((rows.long() << 32) | cols.long()).indices
+    return rows[order].long(), cols[order].long(), vals[order]
+
+
+def sharded_element_runs(coo, ref, mesh):
+    """powerlaw-1M: world size 1 over NCCL, then the 4-rank replay."""
+    from pem_spgemm_tpu_torch.parallel import sharded_element as se
+    want_nnz = BF16_RUNS[0][2]
+    a = coo_to_tiled(coo)
+    a.element_csr()
+    reset_launch_counts()
+    plan, plan_ms = synced_ms(lambda: se.plan_sharded_element(a, a, 1, 0))
+    se.sharded_element_multiply(plan, mesh)          # first: warms up
+    (stream, c_nnz), mul_ms = synced_ms(
+        lambda: se.sharded_element_multiply(plan, mesh))
+    (rows, cols, vals), asm_ms = synced_ms(
+        lambda: se.assemble_sharded_element(plan, stream, mesh))
+    launches = nonzero(all_counts())
+    add_path_launches("sharded_path", launches)
+    if launches.get("segment_dedup", 0) <= 0 or c_nnz != want_nnz:
+        raise AssertionError(f"sharded element: C_nnz {c_nnz}, launches "
+                             f"{launches}")
+    _cancelled, over = check_coo(rows, cols, vals, ref, "sharded element")
+    emit("sharded_path", decomposition="element", matrix="powerlaw-1M",
+         world_size=1, backend=torch.distributed.get_backend(), c_nnz=c_nnz,
+         checked_against="scipy, every entry", values_worst_over_bound=over,
+         launches=launches, plan_ms=plan_ms, multiply_ms=mul_ms,
+         assemble_ms=asm_ms)
+    del plan, stream, rows, cols, vals
+    n = SHARDED_RANKS
+    reset_launch_counts()
+    plans, plan_ms = [], []
+    for d in range(n):
+        p, ms = synced_ms(lambda: se.plan_sharded_element(a, a, n, d))
+        plans.append(p)
+        plan_ms.append(ms)
+    parts, times = [], []
+    for p in plans:
+        part, ms = synced_ms(lambda: se.local_coo(
+            se.local_element_multiply(p), p.col_bounds.device))
+        parts.append(part)
+        times.append(ms)
+    launches = nonzero(all_counts())
+    add_path_launches("sharded_ranks", launches)
+    rows, cols, vals = union_sorted(parts)
+    if len(rows) != want_nnz or launches.get("segment_dedup", 0) <= 0:
+        raise AssertionError(f"element replay: C_nnz {len(rows)}, launches "
+                             f"{launches}")
+    _cancelled, over = check_coo(rows.cpu().numpy(), cols.cpu().numpy(),
+                                 vals.cpu().numpy(), ref, "element replay")
+    emit("sharded_ranks", decomposition="element", matrix="powerlaw-1M",
+         ranks=n, c_nnz=len(rows), checked_against="scipy, every entry",
+         values_worst_over_bound=over, launches=launches,
+         rank_products=[p.n_products for p in plans],
+         rank_plan_ms=plan_ms, rank_ms=times, load_balance=balance(times))
+
+
+def sharded_dia_runs(mesh):
+    """banded64-1M: world size 1 over NCCL (K2), then the 4-rank replay;
+    C against the plain path on the card within the float32 bound, counts
+    exact."""
+    from pem_spgemm_tpu_torch.parallel import sharded_dia as sd
+    name = "banded64-1M"
+    want_nnz = DIA_RECORDED[name][0]
+    a = D.coo_to_dia(banded_device(**DIA_MATRICES[name]))
+    offs = a.offsets
+    dc_list, idx_map = D._plan_maps(offs, offs)
+    kw = dict(offs_a=offs, idx_map=idx_map, dc_count=len(dc_list),
+              n_out=a.shape[0])
+    want = D._dia_multiply_torch(a.bands, a.bands, **kw)
+    bound = dia_bound(a.bands, a.bands, offs, idx_map, len(dc_list),
+                      a.shape[0])
+    reset_launch_counts()
+    sd.sharded_dia_multiply(a, a, mesh)              # first: warms up
+    (c, cnt, dcs), ms = synced_ms(lambda: sd.sharded_dia_multiply(a, a, mesh))
+    launches = nonzero(all_counts())
+    add_path_launches("sharded_path", launches)
+    c_nnz = int((cnt > 0).sum())
+    if tuple(dcs) != dc_list or c_nnz != want_nnz \
+            or launches.get("dia_multiply_dense", 0) != 2:
+        raise AssertionError(f"sharded dia: C_nnz {c_nnz}, launches "
+                             f"{launches}")
+    err = dia_hold((c, cnt), want, bound, "sharded dia")
+    emit("sharded_path", decomposition="dia", matrix=name, world_size=1,
+         c_nnz=c_nnz, checked_against="plain path on the card",
+         max_abs_err=err, launches=launches, multiply_ms=ms)
+    del c, cnt
+    n = SHARDED_RANKS
+    geo = sd.dia_blocks(a, a, n)
+    tables = dk.dia_tables(offs, offs, geo.dc_list, geo.mode, a.bands.device)
+    reset_launch_counts()
+    blocks, times = [], []
+    for d in range(n):
+        a_blk, b_halo = sd.replay_blocks(a, a, geo, d)
+        out, ms = synced_ms(lambda: sd.local_dia(a_blk, b_halo, a, a, geo,
+                                                 tables))
+        blocks.append(out)
+        times.append(ms)
+    launches = nonzero(all_counts())
+    add_path_launches("sharded_ranks", launches)
+    c = torch.cat([b[0] for b in blocks], 1)[:, :a.shape[0]]
+    cnt = torch.cat([b[1] for b in blocks], 1)[:, :a.shape[0]]
+    c_nnz = int((cnt > 0).sum())
+    if c_nnz != want_nnz or launches.get("dia_multiply_dense", 0) != n:
+        raise AssertionError(f"dia replay: C_nnz {c_nnz}, launches "
+                             f"{launches}")
+    err = dia_hold((c, cnt), want, bound, "dia replay")
+    emit("sharded_ranks", decomposition="dia", matrix=name, ranks=n,
+         c_nnz=c_nnz, checked_against="plain path on the card",
+         max_abs_err=err, launches=launches, halo=(geo.hl, geo.hr),
+         block_columns=geo.l, rank_ms=times, load_balance=balance(times))
+
+
+def sharded_macro_runs(mesh):
+    """wandering64-1M: the macro ring at world size 1 over NCCL (one K4
+    stage), then the 4-rank replay (one K4 for each stage with pairs);
+    C_nnz as recorded, sampled rows against scipy."""
+    from pem_spgemm_tpu_torch.parallel import distributed as PD
+    from pem_spgemm_tpu_torch.parallel import sharded_macro as sm
+    name = "wandering64-1M"
+    want_nnz = BF16_RUNS[2][2]
+    coo = MACRO_MATRICES[name]()
+    pick = sample_rows(coo.shape[0])
+    want = scipy_rows(coo, pick)
+    m = coo_to_macro(coo)
+    reset_launch_counts()
+    plan, plan_ms = synced_ms(lambda: sm.plan_sharded_macro(m, m, 1, 0))
+    sm.sharded_macro_numeric(plan, mesh)             # first: warms up
+    out, mul_ms = synced_ms(lambda: sm.sharded_macro_numeric(plan, mesh))
+    c_nnz = PD.plan_nnz_macro(plan, out, mesh)
+    (rows, cols, vals), asm_ms = synced_ms(
+        lambda: sm.assemble_sharded_macro(plan, *out, mesh, host=False))
+    launches = nonzero(all_counts())
+    add_path_launches("sharded_path", launches)
+    stages = sum(1 for x in plan.stage_pairs if x)
+    if c_nnz != want_nnz or len(rows) != want_nnz \
+            or launches.get("macro_accumulate_pairs", 0) != 2 * stages:
+        raise AssertionError(f"macro ring: C_nnz {c_nnz}, launches "
+                             f"{launches}, stages {stages}")
+    over = check_f32_rows(device_rows(rows, cols, vals, pick), want,
+                          "macro ring")
+    emit("sharded_path", decomposition="macro", matrix=name, world_size=1,
+         c_nnz=c_nnz, checked_against=f"scipy, {F64_SAMPLE_ROWS:,} sampled "
+         "rows", values_worst_over_bound=over, launches=launches,
+         stages_with_pairs=stages, plan_ms=plan_ms, multiply_ms=mul_ms,
+         assemble_ms=asm_ms)
+    del plan, out, rows, cols, vals
+    torch.cuda.empty_cache()
+    n = SHARDED_RANKS
+    reset_launch_counts()
+    plans, plan_ms = [], []
+    for d in range(n):
+        p, ms = synced_ms(lambda: sm.plan_sharded_macro(m, m, n, d))
+        plans.append(p)
+        plan_ms.append(ms)
+    parts, times = [], []
+    for d, p in enumerate(plans):
+        part, ms = synced_ms(lambda: sm.local_macro_coo(
+            p, *sm.local_macro(p, sm.replay_chunks(plans, d))))
+        parts.append(part)
+        times.append(ms)
+    launches = nonzero(all_counts())
+    add_path_launches("sharded_ranks", launches)
+    stages = sum(1 for p in plans for x in p.stage_pairs if x)
+    rows, cols, vals = union_sorted(parts)
+    if len(rows) != want_nnz \
+            or launches.get("macro_accumulate_pairs", 0) != stages:
+        raise AssertionError(f"macro replay: C_nnz {len(rows)}, launches "
+                             f"{launches}, stages {stages}")
+    over = check_f32_rows(device_rows(rows, cols, vals, pick), want,
+                          "macro replay")
+    emit("sharded_ranks", decomposition="macro", matrix=name, ranks=n,
+         c_nnz=len(rows), checked_against=f"scipy, {F64_SAMPLE_ROWS:,} "
+         "sampled rows", values_worst_over_bound=over, launches=launches,
+         stages_with_pairs=stages,
+         rank_pairs=[int(sum(p.stage_pairs)) for p in plans],
+         rank_plan_ms=plan_ms, rank_ms=times, load_balance=balance(times))
+
+
+def check_f32_rows(got, want, what):
+    """Sampled rows: exact structure, values within the float32 bound."""
+    gr, gc, gv = got
+    wr, wc, wv, mag = want
+    if not (np.array_equal(gr, wr) and np.array_equal(gc, wc)):
+        raise AssertionError(f"{what}: sampled rows' structure differs")
+    over = float((np.abs(gv - wv) / (COO_RTOL * mag + COO_ATOL)).max())
+    if not over <= 1.0:
+        raise AssertionError(f"{what}: values exceed the float32 bound by "
+                             f"{over}x")
+    return over
+
+
+def sharded_tile16_runs(ref, mesh):
+    """pairbands-500k: the Tile16 ring at world size 1 over NCCL, then the
+    4-rank replay; scipy's sorted COO, values within the float32 bound."""
+    from pem_spgemm_tpu_torch.parallel import sharded as sh
+    name = TILE16_MATRIX
+    want_nnz = DIA_RECORDED[name][0]
+    coo = banded_device(**DIA_MATRICES[name])
+    a = coo_to_tiled(coo)
+    b = coo_to_tiled(coo, with_tmasks=True)
+    reset_launch_counts()
+    plan, plan_ms = synced_ms(lambda: sh.plan_sharded_spgemm(a, b, 1, 0))
+    sh.sharded_numeric(plan, mesh)                   # first: warms up
+    vals, mul_ms = synced_ms(lambda: sh.sharded_numeric(plan, mesh))
+    (rows, cols, vals), asm_ms = synced_ms(
+        lambda: sh.assemble_sharded(plan, vals, mesh))
+    launches = nonzero(all_counts())
+    add_path_launches("sharded_path", launches)
+    if plan.c_nnz != want_nnz or launches:
+        raise AssertionError(f"tile16 ring: C_nnz {plan.c_nnz}, launches "
+                             f"{launches}")
+    _cancelled, over = check_coo(rows, cols, vals, ref, "tile16 ring")
+    emit("sharded_path", decomposition="tile16", matrix=name, world_size=1,
+         c_nnz=plan.c_nnz, checked_against="scipy, every entry",
+         values_worst_over_bound=over, launches=launches, plan_ms=plan_ms,
+         multiply_ms=mul_ms, assemble_ms=asm_ms)
+    del plan, rows, cols, vals
+    torch.cuda.empty_cache()
+    n = SHARDED_RANKS
+    reset_launch_counts()
+    plans, plan_ms = [], []
+    for d in range(n):
+        p, ms = synced_ms(lambda: sh.plan_sharded_spgemm(a, b, n, d))
+        plans.append(p)
+        plan_ms.append(ms)
+    parts, times = [], []
+    for d, p in enumerate(plans):
+        part, ms = synced_ms(lambda: sh.local_coo(
+            p, sh.replay_numeric(plans, d)))
+        parts.append(part)
+        times.append(ms)
+    launches = nonzero(all_counts())
+    rows, cols, vals = union_sorted(parts)
+    if len(rows) != want_nnz or launches:
+        raise AssertionError(f"tile16 replay: C_nnz {len(rows)}, launches "
+                             f"{launches}")
+    _cancelled, over = check_coo(rows.cpu().numpy(), cols.cpu().numpy(),
+                                 vals.cpu().numpy(), ref, "tile16 replay")
+    emit("sharded_ranks", decomposition="tile16", matrix=name, ranks=n,
+         c_nnz=len(rows), checked_against="scipy, every entry",
+         values_worst_over_bound=over, launches=launches,
+         rank_pairs=[int(sum(p.stage_pairs)) for p in plans],
+         rank_plan_ms=plan_ms, rank_ms=times, load_balance=balance(times))
+
+
+def phase_sharded(coo_pl, want_pl, pairbands_ref):
+    """Phases sharded_path and sharded_ranks: the four decompositions of
+    the multi-GPU layer at full size.  sharded_path runs each at world size
+    1 over NCCL (a process group of this one card: no point-to-point op
+    runs, and the c_nnz all_reduce and the gathers go through NCCL);
+    sharded_ranks replays a 4-rank plan on the one card, each rank's local
+    function in turn, its B chunks and halos read from the plan (two NCCL
+    ranks cannot share one card; the exchange itself is carried by the
+    gloo tests)."""
+    from pem_spgemm_tpu_torch.parallel import distributed as PD
+    t0 = time.perf_counter()
+    PD.initialize(init_method=f"tcp://localhost:{free_port()}",
+                  world_size=1, rank=0, device="cuda")
+    try:
+        mesh = PD.pod_mesh(device="cuda")
+        if torch.distributed.get_backend() != "nccl" or mesh.group is None:
+            raise AssertionError("the world-size-1 group is not NCCL")
+        sharded_element_runs(coo_pl, want_pl, mesh)
+        torch.cuda.empty_cache()
+        sharded_dia_runs(mesh)
+        torch.cuda.empty_cache()
+        sharded_macro_runs(mesh)
+        torch.cuda.empty_cache()
+        sharded_tile16_runs(pairbands_ref, mesh)
+    finally:
+        torch.distributed.destroy_process_group()
+    torch.cuda.empty_cache()
+    emit("sharded_total", seconds=time.perf_counter() - t0)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=["kernel_check", "f64_path",
-                                       "dia_path", "tile16_path"],
+                                       "dia_path", "tile16_path",
+                                       "sharded"],
                     default=None,
                     help="kernel_check: build the kernels, check them, and "
                          "stop; f64_path: build them and run the f64 parity "
                          "phase alone; dia_path: the DIA kernel check, the "
                          "DIA path, its kernel rows and dia_graph_replay; "
                          "tile16_path: pairbands-500k's DIA run (for its "
-                         "steady time), then phases tile16_path and persist")
+                         "steady time), then phases tile16_path and persist; "
+                         "sharded: phases bf16_path, sharded_path and "
+                         "sharded_ranks")
     ap.add_argument("--profile",
                     choices=sorted(MATRICES) + sorted(DIA_MATRICES)
                     + ["wandering64-1M"],
@@ -3635,6 +4124,16 @@ def main():
         phase_persist()
         emit("total", seconds=time.perf_counter() - t_start)
         return 0
+    if args.only == "sharded":
+        coo_pl = MATRICES["powerlaw-1M"]()
+        pairbands = banded_device(**DIA_MATRICES["pairbands-500k"])
+        phase_bf16_path(coo_pl)
+        phase_sharded(coo_pl, scipy_square(coo_pl, with_abs=True),
+                      scipy_square(pairbands, with_abs=True))
+        print(json.dumps({"launches_by_path": NEW_PATH_LAUNCHES}),
+              flush=True)
+        emit("total", seconds=time.perf_counter() - t_start)
+        return 0
     if args.only == "f64_path":
         coo_pl = MATRICES["powerlaw-1M"]()
         kept = phase_f64_path(coo_pl, scipy_square(coo_pl, with_abs=True))
@@ -3662,7 +4161,6 @@ def main():
     del plan_cg, a, b
     torch.cuda.empty_cache()
     kept = phase_f64_path(coo_pl, want_pl)
-    del coo_pl, want_pl
     f64_rows = phase_f64_kernels(kept, check_err)
     f64_pairs_steady = kept["dia_multiply_pairs_f64"]["times"][
         "steady_state_time"]
@@ -3681,11 +4179,17 @@ def main():
     torch.cuda.empty_cache()
     phase_tile16_path(pairbands_ref, bf16_reference(
         banded_device(**DIA_MATRICES[TILE16_MATRIX])), dia_pairbands_steady)
-    del pairbands_ref
     phase_persist()
     torch.cuda.empty_cache()
+    phase_bf16_path(coo_pl)
+    phase_sharded(coo_pl, want_pl, pairbands_ref)
+    del coo_pl, want_pl, pairbands_ref
     kernels += f64_rows
     kernels.append(phase_probe())
+    for row in kernels:
+        row["launches_by_path"] = {path: counts.get(row["name"], 0)
+                                   for path, counts in
+                                   NEW_PATH_LAUNCHES.items()}
     for row in kernels:
         # the uniform class entry has no caller on any path (nor has the
         # kernel it replaces in the JAX package), nor has the row-copy

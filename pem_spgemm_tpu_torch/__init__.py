@@ -16,8 +16,11 @@ and masks engines over 16x16 bitmask tiles, in float32, float64 and
 bfloat16; its steady step one CUDA graph), the benchmark harness,
 MatrixMarket I/O, persistence of the converted formats (io/persist.py) and
 the command line (bench/cli.py), and the f64 parity mode (the merge element
-engine, the kernels' float64 entries).  The multi-GPU layer is absent until
-its slice lands (ROADMAP.md).
+engine, the kernels' float64 entries), bfloat16 on every engine (float32
+accumulation, C rounded to bfloat16), and the multi-GPU layer
+(``parallel/``: one process a rank over torch.distributed, NCCL on the
+GPUs, gloo on the CPU; the Tile16 and Macro128 rings, the column-sharded
+element engine and the DIA halo exchange).
 """
 
 from pem_spgemm_tpu_torch.config import SpGEMMConfig

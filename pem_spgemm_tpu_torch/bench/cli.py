@@ -16,8 +16,8 @@ save=1 the sorted COO result is dumped in the reference's four-file layout
 --device says otherwise.  ``--dtype f64`` is the f64 parity mode (the
 reference computes in double): the merge element engine, the float64
 entries of the DIA and Macro128 kernels, and the Tile16 engines in float64.
-``--dtype bf16`` runs on the Tile16 engines (``--engine fused`` or
-``masks``) with float32 accumulation; other engines refuse it.
+``--dtype bf16`` runs on every engine with float32 accumulation and C
+rounded to bfloat16.
 ``--save-converted PATH`` writes the converted A operand (Tile16, Macro128
 or DIA by the engine that ran) to an .npz archive that io/persist.py, or
 the JAX package's, loads.

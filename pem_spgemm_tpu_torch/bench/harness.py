@@ -11,10 +11,10 @@ Mirrors the reference's measurement protocol:
 Three tiers are reported: interactive (plan + multiply + c_nnz feedback per
 iteration, the CSV's pem_spgemm_time), steady (the cached plan replayed, one
 sync per iteration) and pipelined (replays queued back to back, one sync at
-the end).  Every engine runs here: the Tile16 engines (fused, masks; also
-in bfloat16 with float32 accumulation), the element, DIA and Macro128
-engines and auto dispatch, in float32 and in float64 (the f64 parity mode:
-the merge element engine and the kernels' float64 entries).
+the end).  Every engine runs here: the Tile16 engines (fused, masks), the element, DIA and Macro128
+engines and auto dispatch, in float32, in float64 (the f64 parity mode:
+the merge element engine and the kernels' float64 entries) and in bfloat16
+(float32 accumulation, C rounded to bfloat16).
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ from pem_spgemm_tpu_torch.config import (SpGEMMConfig, DEFAULT_CONFIG,
 from pem_spgemm_tpu_torch.formats.coo import COOMatrix
 from pem_spgemm_tpu_torch.ops.convert import coo_to_tiled
 from pem_spgemm_tpu_torch.ops.spgemm import (TILE16_ENGINES, SpGEMM,
-                                             SpGEMMResult, refuse_bf16)
+                                             SpGEMMResult)
 from pem_spgemm_tpu_torch.utils.flops import (spgemm_flops, gflops,
                                               compression_ratio)
 from pem_spgemm_tpu_torch.utils.timing import PhaseTimers, force_sync
@@ -66,7 +66,6 @@ def run_benchmark(coo: COOMatrix, name: str,
     dev = resolve_device(device)
     if cfg.engine not in ("auto", "element", "dia", "macro") + TILE16_ENGINES:
         raise ValueError(f"unknown engine {cfg.engine!r}")
-    refuse_bf16(cfg.engine, cfg.dtype)
 
     # --- conversion (timed once, like the reference) ---
     # The host-to-device copy of the triplets is timed apart from the
@@ -116,13 +115,14 @@ def run_benchmark(coo: COOMatrix, name: str,
         a = b = None
         if dia_offs is not None:
             t0 = time.perf_counter()
+            # bfloat16 bands' float32 copies are a conversion product
             a = coo_to_dia(coo_dev, dtype=cfg.dtype, offsets=dia_offs)
-            force_sync(a.bands)
+            force_sync(a.acc_bands())
             t_a = time.perf_counter() - t0
             t0 = time.perf_counter()
             b = a if not aat else coo_to_dia(b_coo_dev, dtype=cfg.dtype,
                                              offsets=dia_offs_b)
-            force_sync(b.bands)
+            force_sync(b.acc_bands())
             t_b = time.perf_counter() - t0
             continue
         if cfg.engine == "macro":
@@ -131,11 +131,11 @@ def run_benchmark(coo: COOMatrix, name: str,
             from pem_spgemm_tpu_torch.ops.convert import coo_to_macro
             t0 = time.perf_counter()
             a = coo_to_macro(coo_dev, dtype=cfg.dtype)
-            force_sync(a.dense)
+            force_sync(a.acc_dense())
             t_a = time.perf_counter() - t0
             t0 = time.perf_counter()
             b = a if not aat else coo_to_macro(b_coo_dev, dtype=cfg.dtype)
-            force_sync(b.dense)
+            force_sync(b.acc_dense())
             t_b = time.perf_counter() - t0
             continue
         t0 = time.perf_counter()
@@ -302,7 +302,7 @@ def _steady_tiers(result, cfg, a, b, dev):
         # on the GPU out[0] is the plan's graph's static C: the pipelined
         # replays above rewrote it with the same values, and nothing
         # replays the plan after this, so the result may alias it
-        result.vals = out[0]
+        result.vals = out[0].to(cfg.dtype)
         result.c_counts = out[1]
     if is_macro:
         # a macro plan may emit another order and capacity than the
@@ -310,6 +310,7 @@ def _steady_tiers(result, cfg, a, b, dev):
         # coordinates are refreshed together with the values
         (result.c_tile_row, result.c_tile_col, result.vals,
          result.c_counts, result.cptr) = out[:5]
+        result.vals = result.vals.to(cfg.dtype)
     if is_tile16:
         # the plan's capacities differ from the interactive run's: every
         # tiled field is refreshed together; its values are in the

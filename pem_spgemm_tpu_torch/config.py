@@ -56,7 +56,9 @@ class SpGEMMConfig:
     # float32; other dtypes (torch.float64: the f64 parity mode) take the
     # merge element engine, and DIA bands and Macro128 tiles of that dtype
     # their kernels' float64 entries on the GPU.  torch.bfloat16 runs on
-    # the Tile16 engines only (with acc_dtype=torch.float32).
+    # every engine with float32 accumulation (the Tile16 and Macro128
+    # engines need acc_dtype=torch.float32 for it) and C rounded to
+    # bfloat16.
     dtype: torch.dtype = torch.float32
 
     # Accumulation dtype of the tiled engines (None: the value dtype).

@@ -13,9 +13,33 @@ import torch
 
 
 def _to_numpy(x) -> np.ndarray:
+    """Host numpy copy; bfloat16 values come back as float32 (numpy has no
+    bfloat16)."""
     if isinstance(x, torch.Tensor):
+        if x.dtype == torch.bfloat16:
+            x = x.to(torch.float32)
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def widened(owner, slot: str, x: torch.Tensor) -> torch.Tensor:
+    """``x`` as the kernels take it: float32 and float64 tensors as they
+    are, a bfloat16 tensor as its float32 copy.  The copy is made once and
+    cached on ``owner`` under ``slot``; where ``x`` was changed in place
+    since (its version counter moved), the copy is refreshed in place, so
+    it keeps its address (a captured CUDA graph that reads it stays
+    valid) and sees the new values."""
+    if x.dtype != torch.bfloat16:
+        return x
+    held = getattr(owner, slot, None)
+    if held is not None and held[0] is x:
+        if held[1] != x._version:
+            held[2].copy_(x)
+            held[1] = x._version
+        return held[2]
+    held = [x, x._version, x.to(torch.float32)]
+    object.__setattr__(owner, slot, held)
+    return held[2]
 
 
 @dataclasses.dataclass

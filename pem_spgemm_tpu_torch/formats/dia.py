@@ -21,6 +21,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from pem_spgemm_tpu_torch.formats.coo import widened
+
 
 @dataclasses.dataclass
 class DiaMatrix:
@@ -50,6 +52,9 @@ class DiaMatrix:
     def device(self) -> torch.device:
         return self.bands.device
 
+    def acc_bands(self) -> torch.Tensor:
+        return acc_bands(self)
+
     def to_coo_numpy(self):
         """Round-trip to COO triplets (host; tests/debug)."""
         bands = self.bands.detach().cpu().numpy()
@@ -69,3 +74,10 @@ class DiaMatrix:
         vals = np.concatenate(vals_l) if vals_l else np.zeros(0)
         order = np.lexsort((cols, rows))
         return rows[order], cols[order], vals[order]
+
+
+def acc_bands(m) -> torch.Tensor:
+    """The bands of ``m`` as the kernels take them: ``m.bands`` itself, or
+    for bfloat16 bands their float32 copy, made once and cached on ``m``
+    (``formats.coo.widened``)."""
+    return widened(m, "_acc_cache", m.bands)

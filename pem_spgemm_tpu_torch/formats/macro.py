@@ -13,6 +13,8 @@ import dataclasses
 
 import torch
 
+from pem_spgemm_tpu_torch.formats.coo import widened
+
 TILE = 128
 
 
@@ -56,6 +58,12 @@ class MacroMatrix:
     def fill_ratio(self) -> float:
         """Mean nonzeros per occupied macro tile (dispatch statistic)."""
         return self.nnz / max(1, self.ntiles)
+
+    def acc_dense(self) -> torch.Tensor:
+        """The tiles as the kernels take them: ``dense`` itself, or for
+        bfloat16 tiles their float32 copy, made once and cached here
+        (``formats.coo.widened``)."""
+        return widened(self, "_acc_cache", self.dense)
 
 
 def macro_operands(a, b):

@@ -25,10 +25,16 @@ from pem_spgemm_tpu_torch.ops.binned import (BinnedPlan, Bucket, ChunkedB,
 
 def _t(x, dev):
     """numpy array -> tensor on dev, through a writable copy (None stays
-    None)."""
+    None).  bfloat16 arrays (numpy holds them only through an extension
+    dtype that torch does not read) cross as their uint16 bit patterns and
+    are viewed back as torch.bfloat16."""
     if x is None:
         return None
-    return torch.from_numpy(np.array(x, order="C")).to(dev)
+    x = np.array(x, order="C")
+    if x.dtype.name == "bfloat16":
+        return torch.from_numpy(x.view(np.uint16)).view(
+            torch.bfloat16).to(dev)
+    return torch.from_numpy(x).to(dev)
 
 
 def _tt(xs, dev):
@@ -147,3 +153,70 @@ def plan_from_numpy(d: dict, device=None) -> BinnedPlan:
         n_products=int(d["n_products"]), table=_t(d["table"], dev),
         win=_tt(d.get("win"), dev), wintab=_t(d.get("wintab"), dev),
         coarse=_tt(d.get("coarse"), dev), fine=fine, packed=packed)
+
+
+# --------------------------------------------------------------------------
+# the sharded planners: rank d's slice of a JAX plan (arrays with a leading
+# device axis) as the port's per-rank plan
+
+def _row(d: dict, key: str, rank: int, dev):
+    return _t(np.asarray(d[key])[rank], dev)
+
+
+def sharded_macro_plan_from_numpy(d: dict, rank: int, device=None):
+    """parallel.sharded_macro.ShardedMacroPlan of rank ``rank`` from a dict
+    of the JAX package's ShardedMacroPlan fields.  The one sentinel that
+    differs is mapped: the JAX plan pads ``seg`` with ``c_cap``, the port
+    with INT32_MAX (the pair-stream kernel skips only that)."""
+    from pem_spgemm_tpu_torch.parallel.sharded_macro import (SENT,
+                                                             ShardedMacroPlan)
+    dev = resolve_device(device)
+    c_cap = int(d["c_cap"])
+    seg = np.asarray(d["seg"])[rank]
+    live = seg != c_cap
+    return ShardedMacroPlan(
+        n_devices=int(d["n_devices"]), rank=rank,
+        a_dense=_row(d, "a_dense", rank, dev),
+        b_dense=_row(d, "b_dense", rank, dev),
+        pairs_a=_row(d, "pairs_a", rank, dev),
+        pairs_b=_row(d, "pairs_b", rank, dev),
+        seg=_t(np.where(live, seg, SENT).astype(np.int32), dev),
+        stage_pairs=tuple(int(x) for x in live.sum(axis=1)), c_cap=c_cap,
+        c_tile_row=_row(d, "c_tile_row", rank, dev),
+        c_tile_col=_row(d, "c_tile_col", rank, dev),
+        c_counts_dev=np.asarray(d["c_counts_dev"], np.int64),
+        n_pairs=int(d["n_pairs"]))
+
+
+def sharded_plan_from_numpy(d: dict, rank: int, device=None):
+    """parallel.sharded.ShardedPlan (the Tile16 ring) of rank ``rank`` from
+    a dict of the JAX package's ShardedPlan fields; its padding is the
+    port's, so every array is row ``rank`` as it is (``a_dense`` and
+    ``b_dense`` reshaped to 16x16 tiles)."""
+    from pem_spgemm_tpu_torch.parallel.sharded import ShardedPlan
+    dev = resolve_device(device)
+    c_cap = int(d["c_cap"])
+    seg = np.asarray(d["seg"])[rank]
+    return ShardedPlan(
+        n_devices=int(d["n_devices"]), rank=rank,
+        a_dense=_row(d, "a_dense", rank, dev).reshape(-1, 16, 16),
+        b_dense=_row(d, "b_dense", rank, dev).reshape(-1, 16, 16),
+        pairs_a=_row(d, "pairs_a", rank, dev),
+        pairs_b=_row(d, "pairs_b", rank, dev), seg=_t(seg, dev),
+        stage_pairs=tuple(int(x) for x in (seg != c_cap).sum(axis=1)),
+        rowcol=_row(d, "rowcol", rank, dev),
+        elem_tile=_row(d, "elem_tile", rank, dev), c_cap=c_cap,
+        c_tile_row=_row(d, "c_tile_row", rank, dev),
+        c_tile_col=_row(d, "c_tile_col", rank, dev),
+        c_nnz_per_dev=np.asarray(d["c_nnz_per_dev"], np.int64),
+        c_nnz=int(d["c_nnz"]), n_pairs=int(d["n_pairs"]))
+
+
+def sharded_element_range_from_numpy(d: dict, rank: int):
+    """(lo, hi, w): rank ``rank``'s column range of B and the chunk width,
+    from a dict of the JAX package's ShardedElementPlan fields.  That is
+    what the two packages' element shards share: the JAX plan pads every
+    shard's buckets to common shapes for one ``shard_map`` program, the
+    port plans each shard on its own rank (``build_plan_device``)."""
+    bounds = np.asarray(d["col_bounds"], np.int64)
+    return int(bounds[rank]), int(bounds[rank + 1]), int(d["w"])

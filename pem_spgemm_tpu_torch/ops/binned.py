@@ -1306,6 +1306,14 @@ class BinnedStream:
         """Untimed assembly -> sorted global COO (host numpy).  The
         first-flagged slots are compacted and sorted on the stream's own
         device, so only C crosses to the host."""
+        rows, cols, vals = self.device_coo()
+        order = torch.sort((rows.long() << 32) | cols.long()).indices
+        return (rows[order].cpu().numpy(), cols[order].cpu().numpy(),
+                vals[order].cpu().numpy())
+
+    def device_coo(self):
+        """C's entries (rows, cols, vals) compacted on the stream's device,
+        in stream order (not sorted)."""
         rs, cs, vs = [], [], []
         for k, v, f, rows in zip(self.bucket_keys, self.bucket_vals,
                                  self.bucket_first, self.bucket_rows):
@@ -1322,9 +1330,7 @@ class BinnedStream:
         if len(rows) != int(self.c_nnz):
             raise RuntimeError(f"stream holds {len(rows)} first-flagged "
                                f"slots but c_nnz is {int(self.c_nnz)}")
-        order = torch.sort((rows.long() << 32) | cols.long()).indices
-        return (rows[order].cpu().numpy(), cols[order].cpu().numpy(),
-                vals[order].cpu().numpy())
+        return rows, cols, vals
 
 
 def binned_multiply(plan: BinnedPlan, vmem_sort: bool = False

@@ -14,8 +14,9 @@ Two execution paths, chosen by the bands' device and nothing else:
   * bands on the GPU launch the hand-written CUDA kernels
     (ops/dia_kernels.py, csrc/dia_multiply.cu): each C element is gathered
     and written once.  They take float32 and, through their float64
-    entries, float64 (the f64 parity mode); other dtypes on the GPU raise
-    NotImplementedError;
+    entries, float64 (the f64 parity mode); bfloat16 bands run as their
+    float32 copies (``DiaMatrix.acc_bands``, made once an operand), on the
+    CPU too; other dtypes on the GPU raise NotImplementedError;
   * bands on the CPU take the plain PyTorch path (this module,
     ``_dia_multiply_torch``): one (D2, n) shifted multiply and one
     ``index_add_`` per A band.  It is the kernels' plain version.
@@ -35,7 +36,7 @@ import torch
 
 from pem_spgemm_tpu_torch.config import resolve_device
 from pem_spgemm_tpu_torch.formats.coo import _to_numpy
-from pem_spgemm_tpu_torch.formats.dia import DiaMatrix
+from pem_spgemm_tpu_torch.formats.dia import DiaMatrix, acc_bands
 
 # Dispatch caps: D distinct diagonals, and total band-stack footprint
 # (A + B + C values + C counts) in bytes.
@@ -198,12 +199,12 @@ def same_operand(held: tuple, x: torch.Tensor) -> bool:
 
 
 def _hold(a: DiaMatrix, b: DiaMatrix) -> tuple:
-    return tuple((x, operand_key(x)) for x in (a.bands, b.bands))
+    return tuple((x, operand_key(x)) for x in (acc_bands(a), acc_bands(b)))
 
 
 def _holds(held: Optional[tuple], a: DiaMatrix, b: DiaMatrix) -> bool:
-    return held is not None and same_operand(held[0], a.bands) \
-        and same_operand(held[1], b.bands)
+    return held is not None and same_operand(held[0], acc_bands(a)) \
+        and same_operand(held[1], acc_bands(b))
 
 
 def graph_step(g: dict, a: DiaMatrix, b: DiaMatrix) -> str:
@@ -292,25 +293,28 @@ class DiaPlan:
         return {} if captured is None else dict(captured.launches)
 
     def _multiply(self, a: DiaMatrix, b: DiaMatrix, values_only: bool):
-        if not a.bands.is_cuda:
+        # bfloat16 bands multiply as their float32 copies, made once and
+        # cached on the operands (formats.dia.acc_bands); C is float32 then
+        ab, bb = acc_bands(a), acc_bands(b)
+        if not ab.is_cuda:
             return _dia_multiply_torch(
-                a.bands, b.bands, offs_a=self.offs_a, idx_map=self.idx_map,
+                ab, bb, offs_a=self.offs_a, idx_map=self.idx_map,
                 dc_count=len(self.dc_list), n_out=self.n_out,
                 values_only=values_only)
-        if (a.bands.dtype not in (torch.float32, torch.float64)
-                or b.bands.dtype != a.bands.dtype):
+        if (ab.dtype not in (torch.float32, torch.float64)
+                or bb.dtype != ab.dtype):
             raise NotImplementedError(
                 f"DIA bands of dtype {a.bands.dtype} / {b.bands.dtype} on "
-                "the GPU: the kernels take float32 or float64 bands, both "
-                "of one dtype")
+                "the GPU: the kernels take float32 or float64 bands (and "
+                "bfloat16 bands as float32), both of one dtype")
         from pem_spgemm_tpu_torch.ops import dia_kernels
         if self._tables is None:
             # the kernels' small offset tables, uploaded once a plan
             self._tables = dia_kernels.dia_tables(
                 self.offs_a, self.offs_b, self.dc_list, self.kernel_mode,
-                a.bands.device)
+                ab.device)
         return dia_kernels.dia_multiply(
-            a.bands, b.bands, offs_a=self.offs_a, offs_b=self.offs_b,
+            ab, bb, offs_a=self.offs_a, offs_b=self.offs_b,
             dc_list=self.dc_list, n_out=self.n_out, mode=self.kernel_mode,
             values_only=values_only, tables=self._tables)
 
@@ -330,7 +334,8 @@ class DiaPlan:
         g["operands"] = _hold(a, b)
 
     def run(self, a: DiaMatrix, b: DiaMatrix):
-        """(c_bands, c_counts, c_nnz_dev, overflow)."""
+        """(c_bands, c_counts, c_nnz_dev, overflow); c_bands float32 for
+        bfloat16 bands (the caller rounds C)."""
         dev = a.bands.device
         g = self._graph
         if not a.bands.is_cuda:

@@ -255,7 +255,9 @@ class ElementPlan:
 
 @dataclasses.dataclass(frozen=True)
 class StencilMacroPlan:
-    """Macro fixed step through the class kernels (ops/stencil.py).
+    """Macro fixed step through the class kernels (ops/stencil.py).  The
+    Macro128 plans read bfloat16 tiles as their float32 copies
+    (``MacroMatrix.acc_dense``) and emit float32 C.
 
     Built when the pair structure repeats enough (plan coverage >= 0.6); C
     arrays come out slab-ordered with precomputed slab-order tile
@@ -283,8 +285,8 @@ class StencilMacroPlan:
         from pem_spgemm_tpu_torch.ops.macro import macro_structure
         from pem_spgemm_tpu_torch.ops.stencil import stencil_accumulate
         am, bm = macro_operands(a, b)
-        c_dense, c_flags = stencil_accumulate(am.dense, bm.dense, self.plan,
-                                              self.macro_chunk)
+        c_dense, c_flags = stencil_accumulate(am.acc_dense(), bm.acc_dense(),
+                                              self.plan, self.macro_chunk)
         cptr = macro_structure(c_flags)
         return (self.c_tile_row, self.c_tile_col, c_dense, c_flags, cptr,
                 cptr[-1], torch.zeros((), dtype=torch.bool,
@@ -315,8 +317,8 @@ class MacroPlan:
         from pem_spgemm_tpu_torch.ops.macro import macro_spgemm_fixed
         am, bm = macro_operands(a, b)
         return macro_spgemm_fixed(
-            am.tile_row, am.tile_col, am.dense,
-            bm.tile_rowptr, bm.tile_col, bm.dense, am.ntiles,
+            am.tile_row, am.tile_col, am.acc_dense(),
+            bm.tile_rowptr, bm.tile_col, bm.acc_dense(), am.ntiles,
             p_cap=self.p_cap, c_cap=self.c_cap, chunk=self.chunk,
             acc_dtype=self.acc_dtype,
             packed_coords=am.n_macro_rows < (1 << 15))

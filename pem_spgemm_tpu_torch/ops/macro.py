@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from pem_spgemm_tpu_torch.formats.coo import _to_numpy
 from pem_spgemm_tpu_torch.ops import symbolic
 
 TILE = 128
@@ -143,4 +144,4 @@ def assemble_macro_coo(c_tile_row, c_tile_col, c_dense, c_flags, c_nnz):
     # tiles hold disjoint coordinates, so the key is unique: any sort works
     order = torch.sort((rows << 32) | cols).indices
     return (rows[order].cpu().numpy(), cols[order].cpu().numpy(),
-            vals[order].cpu().numpy())
+            _to_numpy(vals[order]))

@@ -13,7 +13,10 @@ Engines: the Tile16 engines (``fused``: one pass gives values and the 0/1
 pattern; ``masks``: the bitmask structure phase, then the values), the
 element engines (binned for float32, the merge engine for
 ``element_impl="merge"`` and every other dtype), the DIA engine and the
-Macro128 engine.  bfloat16 values run on the Tile16 engines only.
+Macro128 engine.  bfloat16 values run on every engine with one rule:
+bfloat16 operands, float32 accumulation, C rounded to bfloat16 (the element
+engines take them through the merge engine, the DIA and Macro128 engines
+through their float32 kernels on operands widened once, cached on them).
 """
 
 from __future__ import annotations
@@ -24,23 +27,13 @@ from typing import Optional
 import torch
 
 from pem_spgemm_tpu_torch.config import SpGEMMConfig, DEFAULT_CONFIG
-from pem_spgemm_tpu_torch.formats.coo import COOMatrix
+from pem_spgemm_tpu_torch.formats.coo import COOMatrix, _to_numpy
 from pem_spgemm_tpu_torch.formats.dia import DiaMatrix
 from pem_spgemm_tpu_torch.formats.macro import MacroMatrix, macro_operands
 from pem_spgemm_tpu_torch.formats.tiled import TiledMatrix
 from pem_spgemm_tpu_torch.utils.timing import PhaseTimers
 
 TILE16_ENGINES = ("fused", "masks")
-
-
-def refuse_bf16(engine: str, dtype) -> None:
-    """bfloat16 runs on the Tile16 engines only: the element engines and the
-    DIA and Macro128 kernels take float32 and float64."""
-    if dtype == torch.bfloat16 and engine not in TILE16_ENGINES:
-        raise NotImplementedError(
-            f"bfloat16 values on engine {engine!r}: this package runs "
-            "bfloat16 on the Tile16 engines only (engine='fused' or "
-            "'masks', with acc_dtype=torch.float32)")
 
 
 @dataclasses.dataclass
@@ -92,10 +85,8 @@ class SpGEMMResult:
             rows, cols, vals = assemble_coo(
                 self.c_tile_row, self.c_tile_col, self.rowcol,
                 self.elem_tile, self.vals, n)
-            if vals.dtype == torch.bfloat16:
-                vals = vals.to(torch.float32)
             return COOMatrix(rows[:n].cpu().numpy(), cols[:n].cpu().numpy(),
-                             vals[:n].cpu().numpy(), self.shape)
+                             _to_numpy(vals[:n]), self.shape)
         if self.dia_dc is not None:
             from pem_spgemm_tpu_torch.ops.dia import dia_to_coo
             rows, cols, vals = dia_to_coo(self.vals, self.c_counts,
@@ -116,7 +107,7 @@ class SpGEMMResult:
             from pem_spgemm_tpu_torch.ops.element import compact_stream
             rows, cols, vals = compact_stream(rows, cols, vals, self.first)
         return COOMatrix(rows[:n].cpu().numpy(), cols[:n].cpu().numpy(),
-                         vals[:n].cpu().numpy(), self.shape)
+                         _to_numpy(vals[:n]), self.shape)
 
 
 def _empty_result(shape, engine: str, device,
@@ -154,13 +145,10 @@ class SpGEMM:
         if a.shape[1] != b.shape[0]:
             raise ValueError(f"shape mismatch: {a.shape} @ {b.shape}")
         if isinstance(a, DiaMatrix):
-            refuse_bf16("dia", self.config.dtype)
             return self._dia(a, b, timers)
         if isinstance(a, MacroMatrix):
-            refuse_bf16("macro", self.config.dtype)
             return self._macro(a, b, timers)
         engine = self.pick_engine(a, b)
-        refuse_bf16(engine, self.config.dtype)
         if engine == "dia":
             raise TypeError(
                 "engine='dia' takes DiaMatrix operands (ops.dia.coo_to_dia); "
@@ -282,6 +270,10 @@ class SpGEMM:
                 f"precision={cfg.precision!r}: the Macro128 engine of this "
                 "package accumulates in full float32 only")
         am, bm = macro_operands(a, b)
+        if am.dense.dtype == torch.bfloat16 and cfg.acc() != torch.float32:
+            raise NotImplementedError(
+                "bfloat16 tiles on the Macro128 engine accumulate in float32: "
+                "pass acc_dtype=torch.float32")
         shape = (a.shape[0], b.shape[1])
 
         with timers.phase("step1") as box:
@@ -303,9 +295,12 @@ class SpGEMM:
 
         c_cap = max(256, -(-c_ntiles // 256) * 256)
         with timers.phase("step3") as box:
+            # bfloat16 tiles run as their float32 copies (made once, cached
+            # on the operands) and C is rounded to bfloat16
             c_dense, c_flags = accumulate_macro_pairs(
-                am.dense, bm.dense, a_idx, b_idx, c_tile_id, c_cap,
-                chunk=chunk, acc_dtype=cfg.acc())
+                am.acc_dense(), bm.acc_dense(), a_idx, b_idx, c_tile_id,
+                c_cap, chunk=chunk, acc_dtype=cfg.acc())
+            c_dense = c_dense.to(am.dense.dtype)
             box["sync"] = c_dense
 
         with timers.phase("step2") as box:
@@ -341,8 +336,11 @@ class SpGEMM:
         with timers.phase("step2"):
             c_nnz = int(out[2])               # the one D2H feedback
 
+        # bfloat16 bands multiply as float32 (ops.dia.DiaPlan): C is rounded
+        # to the bands' dtype here
         return SpGEMMResult(
-            vals=out[0], shape=(a.shape[0], b.shape[1]), c_nnz=c_nnz,
+            vals=out[0].to(a.bands.dtype), shape=(a.shape[0], b.shape[1]),
+            c_nnz=c_nnz,
             n_pairs=len(plan.offs_a) * len(plan.offs_b), engine="dia",
             c_counts=out[1], dia_dc=plan.dc_list)
 

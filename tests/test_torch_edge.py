@@ -147,8 +147,9 @@ def test_values_bf16_dtype():
     """bfloat16 values on the fused engine with float32 accumulation, as
     tests/test_edge.py runs them: exact C_nnz, values within bfloat16's
     reach of scipy's, and the JAX package's structure and values (both
-    round the float32 sums to bfloat16 the same way).  Other engines
-    refuse bfloat16, naming themselves."""
+    round the float32 sums to bfloat16 the same way).  The element engine
+    takes bfloat16 too (through the merge engine), with the same structure
+    (tests/test_torch_bf16.py holds every engine's values)."""
     jcoo = banded(n=200, bands=(0, 1, -1), seed=3)
     coo = COOMatrix(np.asarray(jcoo.rows), np.asarray(jcoo.cols),
                     np.asarray(jcoo.vals), tuple(jcoo.shape))
@@ -169,5 +170,8 @@ def test_values_bf16_dtype():
     np.testing.assert_array_equal(c.rows, np.asarray(jc.rows))
     np.testing.assert_array_equal(c.cols, np.asarray(jc.cols))
     np.testing.assert_array_equal(c.vals, np.asarray(jc.vals, np.float32))
-    with pytest.raises(NotImplementedError, match="'element'"):
-        SpGEMM(SpGEMMConfig(engine="element", dtype=torch.bfloat16))(t, t)
+    re = SpGEMM(SpGEMMConfig(engine="element", dtype=torch.bfloat16))(t, t)
+    ce = re.to_coo()
+    assert re.c_nnz == r.c_nnz and re.vals.dtype == torch.bfloat16
+    np.testing.assert_array_equal(ce.rows, c.rows)
+    np.testing.assert_array_equal(ce.cols, c.cols)

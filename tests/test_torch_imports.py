@@ -51,7 +51,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "pem_spgemm_tpu_torch.ops.csr",
             "pem_spgemm_tpu_torch.ops.scanops",
             "pem_spgemm_tpu_torch.models.synthetic",
-            "pem_spgemm_tpu_torch.utils.csv_report"]
+            "pem_spgemm_tpu_torch.utils.csv_report",
+            "pem_spgemm_tpu_torch.parallel",
+            "pem_spgemm_tpu_torch.parallel.distributed",
+            "pem_spgemm_tpu_torch.parallel.launch",
+            "pem_spgemm_tpu_torch.parallel.dryrun",
+            "pem_spgemm_tpu_torch.parallel.sharded",
+            "pem_spgemm_tpu_torch.parallel.sharded_dia",
+            "pem_spgemm_tpu_torch.parallel.sharded_element",
+            "pem_spgemm_tpu_torch.parallel.sharded_macro"]
     p = _run("import sys; import " + ", ".join(mods) + "; " + _FORBIDDEN)
     assert p.returncode == 0, p.stdout + p.stderr
 

@@ -220,10 +220,10 @@ def test_cli_reads_a_matrix_market_file(tmp_path, engine):
 
 
 def test_cli_rejects_what_is_not_ported(tmp_path):
-    """What still raises: bfloat16 on an engine that does not take it (the
-    Tile16 engines do), and A@A of a rectangular matrix.  The f64 parity
-    mode, --dtype bf16 on the Tile16 engines, --engine fused and
-    --save-converted run (each raised until its slice landed)."""
+    """What still raises: A@A of a rectangular matrix.  The f64 parity
+    mode, --dtype bf16 on every engine (auto, which takes the DIA engine
+    here, included), --engine fused and --save-converted run (each raised
+    until its slice landed)."""
     from pem_spgemm_tpu_torch.io.persist import load_dia, load_tiled
     base = ["banded:n=100", "0", "--no-csv", "--device", "cpu"]
     want = cli.main(base + ["--repeat", "1"]).c_nnz
@@ -232,10 +232,10 @@ def test_cli_rejects_what_is_not_ported(tmp_path):
     for engine in ("fused", "masks"):
         assert cli.main(base + ["--engine", engine, "--dtype", "bf16",
                                 "--repeat", "1"]).c_nnz == want
-    with pytest.raises(NotImplementedError, match="'dia'"):
-        cli.main(base + ["--dtype", "bf16", "--engine", "dia"])
-    with pytest.raises(NotImplementedError, match="'auto'"):
-        cli.main(base + ["--dtype", "bf16"])
+    assert cli.main(base + ["--dtype", "bf16", "--engine", "dia",
+                            "--repeat", "1"]).c_nnz == want
+    assert cli.main(base + ["--dtype", "bf16", "--repeat", "1"]).c_nnz == \
+        want
     path = tmp_path / "a.npz"
     cli.main(base + ["--save-converted", str(path), "--repeat", "1"])
     assert load_dia(str(path), device="cpu").shape == (100, 100)
