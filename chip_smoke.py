@@ -6,6 +6,8 @@
     python3 chip_smoke.py --only dia_path
     python3 chip_smoke.py --only tile16_path
     python3 chip_smoke.py --only sharded
+    python3 chip_smoke.py --only aat_path
+    python3 chip_smoke.py --only suite
     python3 chip_smoke.py --profile rmat-16 [--no-pack] [--iters 20] [--graph]
     python3 chip_smoke.py --profile banded64-1M
     python3 chip_smoke.py --profile wandering64-1M
@@ -64,12 +66,13 @@ first two, engine="macro" for the third):
   * persistence (phase persist): pairbands-500k's Tile16 and DIA forms
     saved, loaded onto the card and multiplied, C_nnz as recorded;
   * bfloat16 on the element, DIA and Macro128 engines (phase bf16_path:
-    float32 accumulation, C rounded to bfloat16): powerlaw-1M (the merge
-    engine), banded64-1M (K2 on the bands' float32 copies) and
-    wandering64-1M (K4, then K5 on the steady path) through run_benchmark,
-    C_nnz equal to the float32 runs', values within the float32 bound
-    against the bfloat16-rounded operands' product plus half a bfloat16
-    ulp (structure from |A|@|A|);
+    float32 accumulation): powerlaw-1M (the merge engine), banded64-1M (K2
+    on the bands' float32 copies) and wandering64-1M (K4, then K5 on the
+    steady path) through run_benchmark, C_nnz equal to the float32 runs',
+    values within the float32 bound against the bfloat16-rounded operands'
+    product, plus half a bfloat16 ulp where C is rounded to bfloat16 (the
+    Macro128 engine keeps C in float32, as the JAX package does; structure
+    from |A|@|A|);
   * the multi-GPU layer (parallel/): phase sharded_path runs the four
     decompositions at world size 1 in an NCCL process group of this card
     (the c_nnz all_reduce and the gathers go through NCCL; no
@@ -81,7 +84,19 @@ first two, engine="macro" for the third):
     read from the plan (two NCCL ranks cannot share one card: the exchange
     is carried by the gloo tests), with each rank's time and the load
     balance.  Each is held to scipy (sampled rows for wandering64-1M) or,
-    for banded64-1M, to the plain path on the card.
+    for banded64-1M, to the plain path on the card;
+  * A.A^T (phase aat_path, run_benchmark(aat=True), B = A^T != A): rmat-16
+    and a rectangular 1,000,000 x 500,000 uniform matrix on the binned
+    element engine (K1b), banded16-1M on K2, pairbands-500k on K3 and
+    wandering64-1M on the Macro128 engine (K4, then the steady plan's
+    entry), each with C_nnz and the sorted coordinates equal to the
+    structure of |A|.|A|^T from scipy (20,000 sampled rows of
+    wandering64-1M) and values within the float32 bound;
+  * the suite driver (phase suite): python -m
+    pem_spgemm_tpu_torch.bench.suite, the counterpart of the JAX package's
+    bench.py, cut to its first four rows (one matrix an engine tier), in a
+    child process: its summary line has bench.py's keys, n_matrices 4 and
+    no "partial", and every matrix's C_nnz is the one on record.
 
 Beside each path it times every kernel entry at the largest shape its path
 gives it, beside its bound (the Macro128 entries run on the tensor cores
@@ -107,18 +122,22 @@ also each stream of the planned multiply timed alone with CUDA events.
 A kernel's launches on a path are its wrapper's count plus the launches of
 the CUDA-graph replays (ops.graphs.REPLAYED: a replay adds those its plan
 recorded at capture).  Each kernel row of the last lines also counts its
-launches on this slice's paths (launches_by_path: bf16_path, sharded_path,
-sharded_ranks).  Each phase prints one JSON line.  There is no CPU
-path: without a CUDA device the script fails.  It exits non-zero on the first failed phase and
-prints the line {"ok": true, ...} last only when every phase passed.
+launches on the later slices' paths (launches_by_path: bf16_path,
+sharded_path, sharded_ranks, aat_path).  Each phase prints one JSON line.
+There is no CPU path: without a CUDA device the script fails.  It exits
+non-zero on the first failed phase and prints the line {"ok": true, ...}
+last only when every phase passed.
 """
 
 import argparse
 import dataclasses
 import json
+import os
 import re
+import signal
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -126,6 +145,7 @@ import torch
 
 from pem_spgemm_tpu_torch.bench import k1_split
 from pem_spgemm_tpu_torch.bench import probe as pr
+from pem_spgemm_tpu_torch.bench import suite
 from pem_spgemm_tpu_torch.bench.harness import run_benchmark
 from pem_spgemm_tpu_torch.config import SpGEMMConfig
 from pem_spgemm_tpu_torch.formats.coo import COOMatrix
@@ -3593,7 +3613,8 @@ BF16_RUNS = (("powerlaw-1M", "element", 43_282_438),
 HALF_BF16_ULP = 2.0 ** -8       # relative to the rounded value
 # launches a kernel entry made on this slice's paths, by path (read just
 # after each path run, with the counts set to 0 just before it)
-NEW_PATH_LAUNCHES = {"bf16_path": {}, "sharded_path": {}, "sharded_ranks": {}}
+NEW_PATH_LAUNCHES = {"bf16_path": {}, "sharded_path": {}, "sharded_ranks": {},
+                     "aat_path": {}}
 SHARDED_RANKS = 4
 
 
@@ -3607,37 +3628,54 @@ def all_counts():
     return path_launches({**ss.LAUNCHES, **dk.LAUNCHES, **mk.LAUNCHES})
 
 
-def bf16_rows(coo, rows):
-    """(rows, cols, want, mag) of the rows ``rows`` (ascending) of A@A with
-    A's values rounded to bfloat16: C's structure from |A|@|A| (scipy drops
-    sums that cancel to 0.0, the engines keep them), A@A's float64 values
-    read there, and sum|a*b| of each entry."""
-    v = torch.as_tensor(coo.vals).to(torch.bfloat16).to(torch.float64)
-    s = COOMatrix(coo.rows, coo.cols, v.cpu().numpy(),
+def product_rows(coo, rows=None, aat=False, bf16=False):
+    """(rows, cols, want, mag) of A@A (A@A.T with ``aat``) in the rows
+    ``rows`` (ascending; every row when None), sorted, on the host: C's
+    structure from the product of |A| (scipy drops sums that cancel to 0.0,
+    the engines keep them), the float64 product's values read there (0.0
+    where scipy dropped the entry), and sum|a*b| of each entry.  With
+    ``bf16``, of A's values rounded to bfloat16."""
+    v = torch.as_tensor(coo.vals)
+    if bf16:
+        v = v.to(torch.bfloat16)
+    s = COOMatrix(coo.rows, coo.cols, v.to(torch.float64).cpu().numpy(),
                   coo.shape).to_scipy().tocsr()
-    mag = (abs(s[rows]) @ abs(s)).tocoo()
-    mag.sum_duplicates()
-    o = np.lexsort((mag.col, mag.row))
-    r, c = mag.row[o], mag.col[o]
-    want = np.asarray((s[rows] @ s).tocsr()[r, c]).ravel()
-    return np.asarray(rows)[r], c, want, mag.data[o]
+    right = s.T.tocsr() if aat else s
+    left = s if rows is None else s[rows]
+    mag = abs(left) @ abs(right)
+    val = left @ right
+    mag.sort_indices()
+    val.sort_indices()
+    r = np.repeat(np.arange(mag.shape[0]), np.diff(mag.indptr))
+    c = mag.indices
+    if val.nnz == mag.nnz:       # scipy dropped nothing: the same structure
+        want = val.data
+    else:
+        key = r.astype(np.int64) * mag.shape[1] + c
+        vr = np.repeat(np.arange(val.shape[0]), np.diff(val.indptr))
+        want = np.zeros(len(key))
+        want[np.searchsorted(key, vr.astype(np.int64) * val.shape[1]
+                             + val.indices)] = val.data
+    if rows is not None:
+        r = np.asarray(rows)[r]
+    return r, c, want, mag.data
 
 
-def hold_bf16(rows, cols, vals, want, what):
-    """Exact structure; |got - want| <= 1e-5 * sum|a*b| + 1e-6 + 2^-8 |got|
-    (the float32 bound against the bfloat16-rounded operands' product,
-    plus half a bfloat16 ulp of the rounded result).  The worst ratio."""
+def hold_product(rows, cols, vals, want, what, ulp=HALF_BF16_ULP):
+    """Exact structure; |got - want| <= 1e-5 * sum|a*b| + 1e-6 + ulp |got|
+    (the float32 bound against the product of the operands as converted,
+    plus, where C is rounded to bfloat16, half a bfloat16 ulp of the
+    rounded result; ``ulp=0`` where C stays float32).  The worst ratio."""
     wr, wc, wv, mag = want
     if not (np.array_equal(rows, wr) and np.array_equal(cols, wc)):
         raise AssertionError(f"{what}: sorted COO structure differs")
     if not np.all(np.isfinite(vals)):
         raise AssertionError(f"{what}: non-finite values")
     over = float((np.abs(vals - wv) / (COO_RTOL * mag + COO_ATOL
-                                       + HALF_BF16_ULP * np.abs(vals)))
+                                       + ulp * np.abs(vals)))
                  .max()) if len(wv) else 0.0
     if not over <= 1.0:
-        raise AssertionError(f"{what}: values exceed the bfloat16 bound "
-                             f"by {over}x")
+        raise AssertionError(f"{what}: values exceed the bound by {over}x")
     return over
 
 
@@ -3663,15 +3701,18 @@ def device_rows(rows, cols, vals, pick):
 
 
 def phase_bf16_path(coo_pl):
-    """bfloat16 values (float32 accumulation, C rounded to bfloat16) on one
-    suite matrix an engine, through run_benchmark at full size, repeat 2:
-    powerlaw-1M on the element engine (the merge engine), banded64-1M on
-    the DIA engine (K2 on the bands' float32 copies), wandering64-1M on the
-    Macro128 engine (K4 interactive, K5 steady).  C_nnz equal to the
-    float32 run's; values within the bfloat16 bound (the Tile16 tier's):
+    """bfloat16 values (float32 accumulation) on one suite matrix an
+    engine, through run_benchmark at full size, repeat 2: powerlaw-1M on
+    the element engine (the merge engine), banded64-1M on the DIA engine
+    (K2 on the bands' float32 copies), wandering64-1M on the Macro128
+    engine (K4 interactive, K5 steady).  C_nnz equal to the float32 run's.
+    C is rounded to bfloat16 on the first two, and its values are held to
+    the bfloat16 bound (the Tile16 tier's); the Macro128 engine keeps C in
+    float32, as the JAX package does, held to the float32 bound.
     powerlaw-1M against scipy, every entry; banded64-1M against the plain
     path on the card over the bands' float32 copies; wandering64-1M
-    against scipy on sampled rows.  The structure is |A|@|A|'s."""
+    against scipy on sampled rows.  The structure is |A|@|A|'s, A's values
+    rounded to bfloat16."""
     out = {}
     for name, engine, want_nnz in BF16_RUNS:
         if name == "powerlaw-1M":
@@ -3691,8 +3732,9 @@ def phase_bf16_path(coo_pl):
         add_path_launches("bf16_path", launches)
         peak = torch.cuda.max_memory_allocated() / 2**30
         what = f"{name} bf16 {engine}"
+        c_dtype = torch.float32 if engine == "macro" else torch.bfloat16
         if res.engine != engine or res.c_nnz != want_nnz \
-                or rec.c_nnz != want_nnz or res.vals.dtype != torch.bfloat16:
+                or rec.c_nnz != want_nnz or res.vals.dtype != c_dtype:
             raise AssertionError(f"{what}: engine {res.engine}, C_nnz "
                                  f"{res.c_nnz} (float32 {want_nnz}), "
                                  f"values {res.vals.dtype}")
@@ -3702,7 +3744,7 @@ def phase_bf16_path(coo_pl):
                                      f"({launches})")
             c = res.to_coo()
             want, order, mag = bf16_reference(coo)
-            over = hold_bf16(c.rows, c.cols, c.vals,
+            over = hold_product(c.rows, c.cols, c.vals,
                              (want.row[order], want.col[order],
                               want.data[order], mag), what)
             checked = "scipy, every entry"
@@ -3730,8 +3772,10 @@ def phase_bf16_path(coo_pl):
                 raise AssertionError(f"{what}: launches {launches}")
             c = res.to_coo()
             pick = sample_rows(coo.shape[0])
-            over = hold_bf16(*coo_rows(c.rows, c.cols, c.vals, pick),
-                             bf16_rows(coo, pick), f"{what} sampled rows")
+            over = hold_product(*coo_rows(c.rows, c.cols, c.vals, pick),
+                             product_rows(coo, pick, bf16=True),
+                             f"{what} sampled rows",
+                             ulp=0.0)
             checked = f"scipy, {F64_SAMPLE_ROWS:,} sampled rows"
             del c
         del res
@@ -3739,9 +3783,10 @@ def phase_bf16_path(coo_pl):
         out[name] = record_times(rec)
         emit("bf16_path", matrix=name, engine=engine, flop=rec.flop,
              c_nnz=rec.c_nnz, float32_c_nnz=want_nnz, checked_against=checked,
-             values_worst_over_bound=over,
-             bound="|err| <= 1e-5 * sum|a*b| + 1e-6 + 2^-8 |got|, against "
-                   "the bfloat16-rounded operands' product",
+             values_worst_over_bound=over, c_dtype=str(c_dtype),
+             bound=("|err| <= 1e-5 * sum|a*b| + 1e-6"
+                    + (" + 2^-8 |got|" if engine != "macro" else "")
+                    + ", against the bfloat16-rounded operands' product"),
              launches=launches, times_ms=record_times(rec), peak_mem_gb=peak,
              run_benchmark_s=run_s)
     return out
@@ -4046,11 +4091,154 @@ def phase_sharded(coo_pl, want_pl, pairbands_ref):
     emit("sharded_total", seconds=time.perf_counter() - t0)
 
 
+# A.A^T on the card (phase aat_path): (name, its generator, engine passed,
+# engine expected, the entries that must launch (one of each tuple))
+AAT_RUNS = (
+    ("rmat-16", MATRICES["rmat-16"], "auto", "element",
+     (("segment_dedup",),)),
+    # rectangular: 1,000,000 x 500,000, so B = A^T is 500,000 x 1,000,000
+    ("uniform-1Mx500k",
+     lambda: uniform_random(1_000_000, 500_000, 4_000_000, seed=3),
+     "auto", "element", (("segment_dedup",),)),
+    ("banded16-1M", lambda: banded_device(**DIA_MATRICES["banded16-1M"]),
+     "auto", "dia", (("dia_multiply_dense",),)),
+    ("pairbands-500k",
+     lambda: banded_device(**DIA_MATRICES["pairbands-500k"]),
+     "auto", "dia", (("dia_multiply_pairs",),)),
+    ("wandering64-1M", MACRO_MATRICES["wandering64-1M"], "macro", "macro",
+     (("macro_accumulate_pairs",),
+      ("macro_class_ragged", "macro_accumulate_pairs"))),
+)
+# the kernels A.A^T must reach on the card, over the whole phase
+AAT_KERNELS = (("segment_dedup",), ("dia_multiply_dense",),
+               ("dia_multiply_pairs",),
+               ("macro_accumulate_pairs", "macro_class_ragged"))
+
+
+def phase_aat_path(repeat=3):
+    """C = A.A^T (run_benchmark(aat=True)) at full size through every
+    engine with B = A^T != A: rmat-16 and a rectangular uniform matrix on
+    the binned element engine (K1b), banded16-1M on the dense DIA kernel
+    (K2), pairbands-500k on the pairs kernel (K3), wandering64-1M on the
+    Macro128 engine (K4 interactive, the steady plan's entry after).  C_nnz
+    and the sorted coordinates equal the structure of |A|.|A|^T from
+    scipy (every entry; 20,000 sampled rows of wandering64-1M), values
+    within the float32 bound; the steady path's C_nnz equals the
+    interactive one."""
+    for name, make, engine, want_engine, entries in AAT_RUNS:
+        coo = make()
+        reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rec, res = run_benchmark(coo, name, SpGEMMConfig(engine=engine,
+                                                         repeat=repeat),
+                                 aat=True, verbose=False)
+        run_s = time.perf_counter() - t0
+        launches = nonzero(all_counts())
+        add_path_launches("aat_path", launches)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        what = f"{name} A.A^T"
+        if res.engine != want_engine or rec.c_nnz != res.c_nnz:
+            raise AssertionError(f"{what}: engine {res.engine}, C_nnz "
+                                 f"{rec.c_nnz} / {res.c_nnz}")
+        if not all(any(launches.get(k, 0) > 0 for k in one)
+                   for one in entries):
+            raise AssertionError(f"{what}: launches {launches}")
+        n_rows = coo.shape[0]
+        if tuple(res.shape) != (n_rows, n_rows):
+            raise AssertionError(f"{what}: C is {res.shape}")
+        info = dict(matrix=name, shape=list(coo.shape), nnz=coo.nnz,
+                    engine_asked=engine, engine=res.engine, flop=rec.flop,
+                    c_nnz=res.c_nnz, launches=launches,
+                    times_ms=record_times(rec), peak_mem_gb=peak,
+                    run_benchmark_s=run_s)
+        c = res.to_coo()
+        if res.engine == "macro":
+            steady_nnz = int(res.cptr[-1])
+            if steady_nnz != res.c_nnz:
+                raise AssertionError(f"{what}: C_nnz {res.c_nnz} on the "
+                                     f"interactive path, {steady_nnz} on "
+                                     "the steady path")
+            pick = sample_rows(n_rows)
+            over = hold_product(*coo_rows(c.rows, c.cols, c.vals, pick),
+                             product_rows(coo, pick, aat=True),
+                             f"{what} sampled rows", ulp=0.0)
+            info.update(steady_c_nnz=steady_nnz,
+                        steady_entry=("macro_class_ragged" if launches.get(
+                            "macro_class_ragged", 0) else
+                            "macro_accumulate_pairs"),
+                        checked_against=f"scipy, {len(pick):,} sampled rows")
+        else:
+            want = product_rows(coo, aat=True)
+            if len(c.rows) != len(want[0]) or res.c_nnz != len(want[0]):
+                raise AssertionError(f"{what}: C_nnz {res.c_nnz} != scipy "
+                                     f"{len(want[0])}")
+            over = hold_product(c.rows, c.cols, c.vals, want, what, ulp=0.0)
+            info.update(scipy_c_nnz=len(want[0]),
+                        checked_against="scipy, every entry")
+            del want
+        del c, res, coo
+        torch.cuda.empty_cache()
+        emit("aat_path", coo_equal=True, values_worst_over_bound=over,
+             bound="|err| <= 1e-5 * sum|a*b| + 1e-6, structure |A|.|A|^T's",
+             **info)
+    got = NEW_PATH_LAUNCHES["aat_path"]
+    if not all(any(got.get(k, 0) > 0 for k in one) for one in AAT_KERNELS):
+        raise AssertionError(f"aat_path launched {got}")
+
+
+SUITE_ROWS = 4          # one matrix an engine tier: element, pairs, dense,
+                        # macro
+
+
+def phase_suite(timeout_s=600):
+    """The suite driver (bench/suite.py, the counterpart of the JAX
+    package's bench.py) as a user runs it, in a child process that runs each
+    matrix in a child of its own, cut to its first SUITE_ROWS rows: its
+    summary line parses with bench.py's keys, n_matrices is SUITE_ROWS with
+    no ``partial``, and each child's C_nnz (from the CSV rows the children
+    wrote) is the one on record."""
+    keys = {"metric", "value", "unit", "vs_baseline", "steady_gflops_geomean",
+            "steady_vs_baseline", "pipelined_gflops_geomean",
+            "pipelined_vs_baseline", "n_matrices"}
+    torch.cuda.empty_cache()
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        csv = os.path.join(tmp, "suite.csv")
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "pem_spgemm_tpu_torch.bench.suite",
+             "--first", str(SUITE_ROWS), "--csv", csv],
+            stdout=subprocess.PIPE, text=True, cwd=root)
+        try:
+            out, _ = proc.communicate(timeout=timeout_s)
+        except subprocess.TimeoutExpired:
+            proc.send_signal(signal.SIGTERM)   # it kills its child and exits
+            proc.communicate()
+            raise AssertionError(f"suite: still running after {timeout_s} s")
+        seconds = time.perf_counter() - t0
+        with open(csv) as f:
+            rows = [line.split(",") for line in f.read().splitlines()[1:]]
+    lines = out.splitlines()
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"suite: exit code {proc.returncode}, "
+                             f"stdout {out!r}")
+    summary = json.loads(lines[-1])
+    if not keys <= set(summary) or summary["n_matrices"] != SUITE_ROWS \
+            or "partial" in summary:
+        raise AssertionError(f"suite: summary {summary}")
+    c_nnz = {r[0]: int(r[2]) for r in rows}
+    want = {name: nnz for name, *_r, nnz in suite.SUITE[:SUITE_ROWS]}
+    if c_nnz != want:
+        raise AssertionError(f"suite: C_nnz {c_nnz}, on record {want}")
+    emit("suite", summary=summary, c_nnz=c_nnz, seconds=seconds)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=["kernel_check", "f64_path",
                                        "dia_path", "tile16_path",
-                                       "sharded"],
+                                       "sharded", "aat_path", "suite"],
                     default=None,
                     help="kernel_check: build the kernels, check them, and "
                          "stop; f64_path: build them and run the f64 parity "
@@ -4059,7 +4247,8 @@ def main():
                          "tile16_path: pairbands-500k's DIA run (for its "
                          "steady time), then phases tile16_path and persist; "
                          "sharded: phases bf16_path, sharded_path and "
-                         "sharded_ranks")
+                         "sharded_ranks; aat_path: phase aat_path; suite: "
+                         "phase suite")
     ap.add_argument("--profile",
                     choices=sorted(MATRICES) + sorted(DIA_MATRICES)
                     + ["wandering64-1M"],
@@ -4134,6 +4323,16 @@ def main():
               flush=True)
         emit("total", seconds=time.perf_counter() - t_start)
         return 0
+    if args.only == "aat_path":
+        phase_aat_path()
+        print(json.dumps({"launches_by_path": NEW_PATH_LAUNCHES}),
+              flush=True)
+        emit("total", seconds=time.perf_counter() - t_start)
+        return 0
+    if args.only == "suite":
+        phase_suite()
+        emit("total", seconds=time.perf_counter() - t_start)
+        return 0
     if args.only == "f64_path":
         coo_pl = MATRICES["powerlaw-1M"]()
         kept = phase_f64_path(coo_pl, scipy_square(coo_pl, with_abs=True))
@@ -4184,6 +4383,9 @@ def main():
     phase_bf16_path(coo_pl)
     phase_sharded(coo_pl, want_pl, pairbands_ref)
     del coo_pl, want_pl, pairbands_ref
+    torch.cuda.empty_cache()
+    phase_aat_path()
+    phase_suite()
     kernels += f64_rows
     kernels.append(phase_probe())
     for row in kernels:

@@ -14,7 +14,8 @@ sync per iteration) and pipelined (replays queued back to back, one sync at
 the end).  Every engine runs here: the Tile16 engines (fused, masks), the element, DIA and Macro128
 engines and auto dispatch, in float32, in float64 (the f64 parity mode:
 the merge element engine and the kernels' float64 entries) and in bfloat16
-(float32 accumulation, C rounded to bfloat16).
+(float32 accumulation, C rounded to bfloat16; the Macro128 engine keeps C
+in float32).
 """
 
 from __future__ import annotations
@@ -307,10 +308,10 @@ def _steady_tiers(result, cfg, a, b, dev):
     if is_macro:
         # a macro plan may emit another order and capacity than the
         # interactive run (the stencil plan emits slab order): the
-        # coordinates are refreshed together with the values
+        # coordinates are refreshed together with the values, which stay
+        # in the accumulation dtype, as the interactive run's
         (result.c_tile_row, result.c_tile_col, result.vals,
          result.c_counts, result.cptr) = out[:5]
-        result.vals = result.vals.to(cfg.dtype)
     if is_tile16:
         # the plan's capacities differ from the interactive run's: every
         # tiled field is refreshed together; its values are in the

@@ -13,10 +13,13 @@ Engines: the Tile16 engines (``fused``: one pass gives values and the 0/1
 pattern; ``masks``: the bitmask structure phase, then the values), the
 element engines (binned for float32, the merge engine for
 ``element_impl="merge"`` and every other dtype), the DIA engine and the
-Macro128 engine.  bfloat16 values run on every engine with one rule:
-bfloat16 operands, float32 accumulation, C rounded to bfloat16 (the element
-engines take them through the merge engine, the DIA and Macro128 engines
-through their float32 kernels on operands widened once, cached on them).
+Macro128 engine.  bfloat16 values run on every engine with bfloat16
+operands and float32 accumulation (the element engines take them through
+the merge engine, the DIA and Macro128 engines through their float32
+kernels on operands widened once, cached on them).  C is rounded to
+bfloat16 on every engine but the Macro128 one, which keeps C in
+``acc_dtype`` (float32), as the JAX package's does and as its steady plans
+emit it.
 """
 
 from __future__ import annotations
@@ -282,7 +285,7 @@ class SpGEMM:
             n_pairs = int(offsets[-1])        # size feedback #1
             if n_pairs == 0:
                 return _empty_result(shape, "macro", am.device,
-                                     cfg.dtype)
+                                     cfg.acc())
             chunk = cfg.macro_chunk
             p_cap = max(chunk, -(-n_pairs // chunk) * chunk)
             assert can_pack(am.n_macro_rows, bm.n_macro_cols)
@@ -296,11 +299,10 @@ class SpGEMM:
         c_cap = max(256, -(-c_ntiles // 256) * 256)
         with timers.phase("step3") as box:
             # bfloat16 tiles run as their float32 copies (made once, cached
-            # on the operands) and C is rounded to bfloat16
+            # on the operands); C stays in the accumulation dtype
             c_dense, c_flags = accumulate_macro_pairs(
                 am.acc_dense(), bm.acc_dense(), a_idx, b_idx, c_tile_id,
                 c_cap, chunk=chunk, acc_dtype=cfg.acc())
-            c_dense = c_dense.to(am.dense.dtype)
             box["sync"] = c_dense
 
         with timers.phase("step2") as box:

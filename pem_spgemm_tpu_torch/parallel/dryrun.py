@@ -104,9 +104,10 @@ def run_case(case: dict, mesh: D.RankGroup) -> dict:
     return D.to_numpy_tree(out)
 
 
-def rank_cases(cases, device="cpu") -> list:
+def rank_cases(cases, device=None) -> list:
     """What one rank runs for a list of cases (``run_case`` each), on the
-    group of every rank."""
+    group of every rank.  ``device=None`` means the GPU, as everywhere in
+    the package: gloo ranks pass ``device="cpu"``."""
     mesh = D.pod_mesh(device=device)
     return [run_case(c, mesh) for c in cases]
 

@@ -8,11 +8,13 @@ import pytest
 import torch
 
 from pem_spgemm_tpu import SpGEMM as JSpGEMM, SpGEMMConfig as JConfig
+from pem_spgemm_tpu.bench.harness import run_benchmark as j_run_benchmark
 from pem_spgemm_tpu.formats.coo import COOMatrix as JCOO
-from pem_spgemm_tpu.models.synthetic import banded
+from pem_spgemm_tpu.models.synthetic import banded, uniform_random
 from pem_spgemm_tpu.ops.convert import coo_to_macro as j_coo_to_macro
 from pem_spgemm_tpu.ops.convert import coo_to_tiled as j_coo_to_tiled
 from pem_spgemm_tpu_torch import SpGEMM, SpGEMMConfig
+from pem_spgemm_tpu_torch.bench.harness import run_benchmark
 from pem_spgemm_tpu_torch.formats.coo import COOMatrix
 from pem_spgemm_tpu_torch.ops.convert import coo_to_macro, coo_to_tiled
 
@@ -31,9 +33,10 @@ def _j(c):
 
 def _jax_config(cfg):
     """The JAX package's configuration for the same run; its element cases
-    take the merge engine, whose compile is a few seconds (the binned
-    planner's is tens), and which gives the same structure."""
-    if cfg["engine"] == "element":
+    (and those "auto" sends to the element engine) take the merge engine,
+    whose compile is a few seconds (the binned planner's is tens), and which
+    gives the same structure."""
+    if cfg["engine"] in ("element", "auto"):
         return JConfig(**cfg, element_impl="merge")
     return JConfig(**cfg)
 
@@ -69,6 +72,30 @@ def test_rectangular_aat(engine):
         j_coo_to_tiled(jc, dtype=np.float32),
         j_coo_to_tiled(jc.transpose(), dtype=np.float32, with_tmasks=True))
     _same_as_jax(r, jr)
+
+
+@pytest.mark.parametrize("kind,engine", [("rectangular", "element"),
+                                         ("banded", "dia")])
+def test_harness_aat_matches_jax(kind, engine):
+    """run_benchmark(aat=True, engine="auto") in both packages: the same
+    engine, C's structure bit for bit, values within rtol=1e-5.  The
+    rectangular case is the uniform suite family at 1,200 x 600 (4 nnz a
+    row, as the card's rectangular A.A^T); the banded one has offsets whose
+    transposes differ from them, so B = A^T has other bands than A."""
+    if kind == "rectangular":
+        jcoo = uniform_random(1200, 600, 4800, seed=3)
+    else:
+        jcoo = banded(600, bands=(0, 1, -1, 5, -7), seed=2)
+    coo = _coo(jcoo.rows, jcoo.cols, jcoo.vals, tuple(jcoo.shape))
+    rec, res = run_benchmark(coo, kind, SpGEMMConfig(repeat=1, warmup=0),
+                             aat=True, verbose=False, device=CPU)
+    jrec, jres = j_run_benchmark(
+        jcoo, kind, _jax_config(dict(engine="auto", repeat=1, warmup=0)),
+        aat=True, verbose=False)
+    assert res.engine == jres.engine == engine
+    assert tuple(res.shape) == tuple(jres.shape) == (coo.shape[0],) * 2
+    assert rec.c_nnz == jrec.c_nnz and rec.flop == jrec.flop
+    _same_as_jax(res, jres)
 
 
 def test_structurally_empty_product():

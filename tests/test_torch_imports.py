@@ -1,6 +1,6 @@
 """The port stands alone: importing it (and chip_smoke.py's module graph)
-pulls in neither jax nor the JAX package, and nothing falls back to the CPU
-on its own."""
+pulls in neither jax, the JAX package nor its root bench.py, and nothing
+falls back to the CPU on its own."""
 
 import os
 import subprocess
@@ -21,7 +21,7 @@ def _run(code):
 
 _FORBIDDEN = ("bad = sorted(m for m in sys.modules if m == 'jax' or "
               "m.startswith(('jax.', 'jaxlib', 'pem_spgemm_tpu.')) or "
-              "m == 'pem_spgemm_tpu'); print('BAD', bad); "
+              "m in ('pem_spgemm_tpu', 'bench')); print('BAD', bad); "
               "sys.exit(1 if bad else 0)")
 
 
@@ -33,6 +33,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "pem_spgemm_tpu_torch.bench.k1_split",
             "pem_spgemm_tpu_torch.bench.k2_split",
             "pem_spgemm_tpu_torch.bench.k4_split",
+            "pem_spgemm_tpu_torch.bench.suite",
+            "pem_spgemm_tpu_torch.bench.tiers_ab",
             "pem_spgemm_tpu_torch.formats.dia",
             "pem_spgemm_tpu_torch.formats.macro",
             "pem_spgemm_tpu_torch.ops.symbolic",
@@ -83,8 +85,10 @@ def test_sources_name_no_jax_import():
                                  "import pem_spgemm_tpu ",
                                  "from pem_spgemm_tpu ",
                                  "from pem_spgemm_tpu.",
-                                 "import pem_spgemm_tpu.")) or \
-                        s == "import pem_spgemm_tpu":
+                                 "import pem_spgemm_tpu.",
+                                 "import bench ", "import bench,",
+                                 "from bench ")) or \
+                        s in ("import pem_spgemm_tpu", "import bench"):
                     hits.append(f"{path}:{i}: {s}")
     assert not hits, hits
 
@@ -124,6 +128,9 @@ def test_device_none_without_cuda_raises():
         run_benchmark(coo, "m", SpGEMMConfig(engine="macro"), verbose=False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         interop.macro_from_numpy({})
+    from pem_spgemm_tpu_torch.parallel import dryrun
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun.rank_cases([])
     assert resolve_device("cpu") == torch.device("cpu")
 
 

@@ -75,7 +75,7 @@ def ranks(request):
     """(world size, {case: [rank 0's result, ...]}) from one spawn."""
     n = request.param
     per_rank = launch.spawn(dryrun.rank_cases, n,
-                            [CASES[k] for k in NAMES])
+                            [CASES[k] for k in NAMES], "cpu")
     return n, {k: [r[i] for r in per_rank] for i, k in enumerate(NAMES)}
 
 

@@ -87,7 +87,8 @@ def ranks(request):
     """(world size, {case: [rank 0's result, ...]}) from one spawn."""
     n = request.param
     cases = _cases(n)
-    per_rank = launch.spawn(dryrun.rank_cases, n, list(cases.values()))
+    per_rank = launch.spawn(dryrun.rank_cases, n, list(cases.values()),
+                            "cpu")
     return n, {k: [r[i] for r in per_rank] for i, k in enumerate(cases)}
 
 
