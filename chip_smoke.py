@@ -8,6 +8,7 @@
     python3 chip_smoke.py --only sharded
     python3 chip_smoke.py --only aat_path
     python3 chip_smoke.py --only suite
+    python3 chip_smoke.py --only precision_path
     python3 chip_smoke.py --profile rmat-16 [--no-pack] [--iters 20] [--graph]
     python3 chip_smoke.py --profile banded64-1M
     python3 chip_smoke.py --profile wandering64-1M
@@ -92,6 +93,15 @@ first two, engine="macro" for the third):
     entry), each with C_nnz and the sorted coordinates equal to the
     structure of |A|.|A|^T from scipy (20,000 sampled rows of
     wandering64-1M) and values within the float32 bound;
+  * SpGEMMConfig.precision "high" and "default" beside "highest" (phase
+    precision_path, run_benchmark at each, repeat 2): wandering64-1M as
+    macro (K4 interactive, K5 steady), pairbands-500k as macro (K4) and
+    through engine="fused" (the Tile16 tier's torch ops), and the macro
+    ring as a 4-rank plan of wandering64-1M replayed on the card (K4 a
+    stage at the precision); C_nnz and structure equal the "highest"
+    run's, sorted COO scipy's |A|.|A| (20,000 sampled rows of
+    wandering64-1M), values within (2u + u^2) sum|a*b| plus the float32
+    bound (u = 2^-11 for tf32, 2^-8 for bfloat16);
   * the suite driver (phase suite): python -m
     pem_spgemm_tpu_torch.bench.suite, the counterpart of the JAX package's
     bench.py, cut to its first four rows (one matrix an engine tier), in a
@@ -102,9 +112,18 @@ Beside each path it times every kernel entry at the largest shape its path
 gives it, beside its bound (the Macro128 entries run on the tensor cores
 with a 3xTF32 split: their rows carry the tensor-core bound too; the
 pair-stream entry is timed at pairbands-500k's stream and at
-wandering64-1M's).  The kernel checks hold the Macro128 entries to the
-plain version's NaN positions and Inf signs on engineered tiles with Inf,
-NaN and near-FLT_MAX values.  Last, phase probe
+wandering64-1M's; the three float32 Macro128 entries also at "high" and
+"default", rows K4@high ... K6@default, bounded at one TF32 or bf16 pass).
+The kernel checks hold the Macro128 entries at each precision to the
+plain version at it (and each entry at "high" / "default" to itself at
+"highest" on tables rounded beforehand), with the plain version's NaN
+positions and Inf signs on engineered tiles with Inf, NaN, near-FLT_MAX
+values and subnormals that round to 0; phase macro_path runs each
+matrix's steady plan at "high" and "default" too and holds its C tiles to
+the plain pair accumulation at that mode, so every @precision row's
+max_abs_err is also taken at the shapes it is timed at (the uniform class
+entry, which no plan calls, is held bit-equal to the ragged one at each
+mode on those classes).  Last, phase probe
 checks and times the row-copy probe (the port of the JAX package's
 scripts/pallas_probe3.py), which no path runs.
 
@@ -123,7 +142,8 @@ A kernel's launches on a path are its wrapper's count plus the launches of
 the CUDA-graph replays (ops.graphs.REPLAYED: a replay adds those its plan
 recorded at capture).  Each kernel row of the last lines also counts its
 launches on the later slices' paths (launches_by_path: bf16_path,
-sharded_path, sharded_ranks, aat_path).  Each phase prints one JSON line.
+sharded_path, sharded_ranks, aat_path); the @precision rows count their
+entry's launches over phase precision_path's runs at that precision.  Each phase prints one JSON line.
 There is no CPU path: without a CUDA device the script fails.  It exits
 non-zero on the first failed phase and prints the line {"ok": true, ...}
 last only when every phase passed.
@@ -168,6 +188,7 @@ SENT = ss.SENTINEL
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12          # H100 SXM data sheet, outside tensor cores
 TF32_OPS_PER_S = 495e12         # H100 SXM data sheet, tensor cores, dense
+BF16_OPS_PER_S = 989e12         # H100 SXM data sheet, tensor cores, dense
 FP64_OPS_PER_S = 67e12          # H100 SXM data sheet, FP64 on the tensor
                                 # cores (DMMA): the card's peak for float64
 FP64_INSTR_PER_S = 17e12        # H100 SXM data sheet, FP64 units outside
@@ -903,17 +924,24 @@ def fresh_slabs(rows, fill=float("nan")):
             torch.full((rows, 128, 128), 7, dtype=torch.uint8, device=DEV))
 
 
-def class_case(a_dense, b_dense, cls, bases, tables, n_steps, entries, what):
+def prec_key(entry, precision):
+    """An entry's key at a precision: the entry at "highest", else
+    entry@precision (its own worst error and kernel row)."""
+    return entry if precision == "highest" else f"{entry}@{precision}"
+
+
+def class_case(a_dense, b_dense, cls, bases, tables, n_steps, entries, what,
+               precision="highest"):
     """One class (its first n_steps steps) through each entry in ``entries``
-    against the plain version; where both entries run they must agree bit
-    for bit.  Returns {entry: max abs err}."""
+    at ``precision`` against the plain version at it; where both entries run
+    they must agree bit for bit.  Returns ({key: max abs err}, outputs)."""
     t, p, ar, br, a_offs, b_offs, _base = cls
     bases = bases[:2 * n_steps].contiguous()
     rows = n_steps * t + 3
     base = 2                    # rows 0, 1 and the last stay untouched
     wn, wf = fresh_slabs(rows)
     st.class_call_plain(wn, wf, a_dense, b_dense, bases, t, p, a_offs,
-                        b_offs, base)
+                        b_offs, base, precision)
     mn, mf = fresh_slabs(rows, 0.0)
     st.class_call_plain(mn, mf, a_dense.abs(), b_dense.abs(), bases, t, p,
                         a_offs, b_offs, base)
@@ -921,31 +949,35 @@ def class_case(a_dense, b_dense, cls, bases, tables, n_steps, entries, what):
     live = slice(base, base + n_steps * t)
     for entry in entries:
         gn, gf = fresh_slabs(rows)
+        key = prec_key(entry, precision)
         if entry == "macro_class_ragged":
             mk.class_call2(gn, gf, a_dense, b_dense, bases, t, p, ar, br,
-                           a_offs, b_offs, base, n_steps, tables=tables)
+                           a_offs, b_offs, base, n_steps, tables=tables,
+                           precision=precision)
         else:
             mk.class_call(gn, gf, a_dense, b_dense, bases, t, p, ar, br,
-                          a_offs, b_offs, base, tables=tables)
+                          a_offs, b_offs, base, tables=tables,
+                          precision=precision)
         torch.cuda.synchronize()
         for x in (gn[:base], gn[base + n_steps * t:]):
             if not bool(torch.isnan(x).all()):
-                raise AssertionError(f"{what} {entry}: wrote outside its "
+                raise AssertionError(f"{what} {key}: wrote outside its "
                                      "rows")
-        errs[entry] = macro_hold((gn[live], gf[live]), (wn[live], wf[live]),
-                                 mn[live], f"{what} {entry}", key=entry)
-        outs[entry] = (gn[live], gf[live])
+        errs[key] = macro_hold((gn[live], gf[live]), (wn[live], wf[live]),
+                               mn[live], f"{what} {key}", key=key)
+        outs[key] = (gn[live], gf[live])
     if len(entries) == 2 and not all(
             torch.equal(x, y) for x, y in zip(*outs.values())):
         raise AssertionError(f"{what}: the two class entries disagree")
     return errs, outs
 
 
-def plan_case(am, bm, planner, what, worst, uniform):
-    """A whole plan: every class through the class kernels (uniform classes
-    through both entries), a one-step and an odd-step slice of the first
-    class, and stencil_accumulate (classes + residual pairs) against the
-    plain pair accumulation in sorted-tile order.  Returns (cases, plan)."""
+def plan_case(am, bm, planner, what, worst, uniform, precision="highest"):
+    """A whole plan at ``precision``: every class through the class kernels
+    (uniform classes through both entries), a one-step and an odd-step
+    slice of the first class, and stencil_accumulate (classes + residual
+    pairs) against the plain pair accumulation in sorted-tile order.
+    Returns (cases, plan)."""
     n_pairs, n_tiles, (c_row, c_col, a_idx, b_idx, seg) = macro_pairs(am, bm)
     plan = planner(seg, a_idx, b_idx, c_row, c_col, n_pairs, n_tiles,
                    am.dense.shape[0], bm.dense.shape[0])
@@ -960,7 +992,8 @@ def plan_case(am, bm, planner, what, worst, uniform):
         if uniform != isinstance(cls[1], int):
             raise AssertionError(f"{what}: class p={cls[1]!r}")
         for k, e in class_case(am.dense, bm.dense, cls, bases, tables,
-                               n_steps, entries, f"{what} {tag}")[0].items():
+                               n_steps, entries, f"{what} {tag}",
+                               precision)[0].items():
             worst[k] = max(worst[k], e)
         cases += len(entries)
 
@@ -975,40 +1008,45 @@ def plan_case(am, bm, planner, what, worst, uniform):
 
     c_cap = -(-n_tiles // 256) * 256
     want = M.accumulate_macro(am.dense, bm.dense, a_idx, b_idx, seg, c_cap,
-                              256)
+                              256, precision=precision)
     mag = M.accumulate_macro(am.dense.abs(), bm.dense.abs(), a_idx, b_idx,
                              seg, c_cap, 256)[0]
-    got = st.stencil_accumulate(am.dense, bm.dense, plan)
+    got = st.stencil_accumulate(am.dense, bm.dense, plan,
+                                precision=precision)
     torch.cuda.synchronize()
     order = torch.from_numpy(plan.order).to(DEV)
     rows = len(plan.order)
     if not (np.unique(plan.order).size == n_tiles == rows):
         raise AssertionError(f"{what}: slab order is no permutation")
+    key = prec_key("macro_class_ragged", precision)
     e = macro_hold((got[0][:rows], got[1][:rows]),
                    (want[0][order], want[1][order]), mag[order],
-                   f"{what} stencil_accumulate", key="macro_class_ragged")
+                   f"{what} stencil_accumulate", key=key)
     if bool(got[0][rows:].any()) or bool(got[1][rows:].any()):
         raise AssertionError(f"{what}: slab rows past the last are not zero")
-    worst["macro_class_ragged"] = max(worst["macro_class_ragged"], e)
+    worst[key] = max(worst[key], e)
     return cases + 1, plan
 
 
-def pairs_case(a_dense, b_dense, a_idx, b_idx, seg, c_cap, what, worst):
-    """The pair-stream entry against the plain version, and its float64
-    entry on the same tiles cast to float64 (flags equal to the float32
-    entry's).  Returns the float32 entry's output."""
+def pairs_case(a_dense, b_dense, a_idx, b_idx, seg, c_cap, what, worst,
+               precision="highest"):
+    """The pair-stream entry at ``precision`` against the plain version at
+    it, and its float64 entry on the same tiles cast to float64 (which
+    ignores the precision; flags equal to the float32 entry's).  Returns
+    the float32 entry's output."""
+    key = prec_key("macro_accumulate_pairs", precision)
     want = M.accumulate_macro(a_dense, b_dense, a_idx, b_idx, seg, c_cap,
-                              256)
+                              256, precision=precision)
     mag = M.accumulate_macro(a_dense.abs(), b_dense.abs(), a_idx, b_idx, seg,
                              c_cap, 256)[0]
     got = mk.accumulate_macro_pairs(a_dense, b_dense, a_idx, b_idx, seg,
-                                    c_cap)
+                                    c_cap, precision=precision)
     torch.cuda.synchronize()
-    e = macro_hold(got, want, mag, what, key="macro_accumulate_pairs")
-    worst["macro_accumulate_pairs"] = max(worst["macro_accumulate_pairs"], e)
+    e = macro_hold(got, want, mag, f"{what} {key}", key=key)
+    worst[key] = max(worst[key], e)
     del want, mag
     got64 = pairs_case_f64(a_dense.double(), b_dense.double(), a_idx, b_idx,
-                           seg, c_cap, what, worst)
+                           seg, c_cap, what, worst, precision=precision)
     if not torch.equal(got64[1], got[1]):
         raise AssertionError(f"{what}: the float64 entry's flags differ "
                              "from the float32 entry's")
@@ -1016,16 +1054,18 @@ def pairs_case(a_dense, b_dense, a_idx, b_idx, seg, c_cap, what, worst):
 
 
 def pairs_case_f64(a64, b64, a_idx, b_idx, seg, c_cap, what, worst,
-                   hold=None):
+                   hold=None, precision="highest"):
     """The float64 pair-stream entry against the plain version in float64
-    (``hold``: macro_hold, or macro_hold_ieee for non-finite operands).
-    Returns its output."""
+    (``hold``: macro_hold, or macro_hold_ieee for non-finite operands),
+    called with ``precision``, which float64 ignores.  Returns its
+    output."""
     key = "macro_accumulate_pairs_f64"
     want = M.accumulate_macro(a64, b64, a_idx, b_idx, seg, c_cap, 256,
                               torch.float64)
     mag = M.accumulate_macro(a64.abs(), b64.abs(), a_idx, b_idx, seg, c_cap,
                              256, torch.float64)[0]
-    got = mk.accumulate_macro_pairs(a64, b64, a_idx, b_idx, seg, c_cap)
+    got = mk.accumulate_macro_pairs(a64, b64, a_idx, b_idx, seg, c_cap,
+                                    precision=precision)
     torch.cuda.synchronize()
     e = (hold or macro_hold)(got, want, mag, f"{what}, float64", key=key)
     worst[key] = max(worst[key], e)
@@ -1076,13 +1116,14 @@ def engineered_tiles(n_tiles, seed):
     return x.contiguous()
 
 
-def engineered_class_cases(worst):
-    """The tensor-core class kernel's failure modes on engineered tiles:
-    tiles of 1, 0, 9 and 3 pairs (the 9-pair tile wraps the stage ring
-    across pairs), subnormal and -0.0 entries (flags from the raw values),
-    a tile whose only products are subnormal x normal (flags 1) and one
-    whose only A entries are -0.0 (flags 0); then a uniform class of 9
-    pairs a tile through both entries, bit for bit.  Returns the count."""
+def engineered_class_cases(worst, precision="highest"):
+    """The tensor-core class kernel's failure modes on engineered tiles, at
+    ``precision``: tiles of 1, 0, 9 and 3 pairs (the 9-pair tile wraps the
+    stage ring across pairs), subnormal and -0.0 entries (flags from the
+    raw values), a tile whose only products are subnormal x normal (flags
+    1; 1e-42 rounds to 0 in tf32 and in bfloat16 alike) and one whose only
+    A entries are -0.0 (flags 0); then a uniform class of 9 pairs a tile
+    through both entries, bit for bit.  Returns the count."""
     a = engineered_tiles(24, seed=21)
     b = engineered_tiles(24, seed=22)
     # tile pair (A 0, B 0): A row 5 holds one subnormal, row 6 one -0.0, in
@@ -1100,11 +1141,12 @@ def engineered_class_cases(worst):
     cls = (4, p, 12, 12, a_offs, b_offs, 0)
     tables = st.class_tables((cls,), DEV)[0]
     bases = torch.tensor([0, 0, 12, 12], dtype=torch.int32, device=DEV)
+    key = prec_key("macro_class_ragged", precision)
     errs, outs = class_case(a, b, cls, bases, tables, 2,
-                            ("macro_class_ragged",), "engineered 1/0/9/3")
-    worst["macro_class_ragged"] = max(worst["macro_class_ragged"],
-                                      errs["macro_class_ragged"])
-    num, flag = outs["macro_class_ragged"]
+                            ("macro_class_ragged",), "engineered 1/0/9/3",
+                            precision)
+    worst[key] = max(worst[key], errs[key])
+    num, flag = outs[key]
     # step 0, tile 0: the single pair (A 0, B 0)
     if not (bool((flag[0, 5] == 1).all()) and not bool(flag[0, 6].any())):
         raise AssertionError("engineered: the subnormal row must flag every "
@@ -1117,7 +1159,7 @@ def engineered_class_cases(worst):
     tables_u = st.class_tables((cls_u,), DEV)[0]
     errs, _ = class_case(a, b, cls_u, bases, tables_u, 2,
                          ("macro_class_ragged", "macro_class_uniform"),
-                         "engineered uniform 9")
+                         "engineered uniform 9", precision)
     for k, e in errs.items():
         worst[k] = max(worst[k], e)
     return cases + 2
@@ -1153,8 +1195,10 @@ def macro_hold_ieee(got, want, mag, what, key=None):
 def nonfinite_tiles():
     """(a, b): 12 + 1 engineered tiles each (the last the zero tile) with,
     in tiles 0-6, +Inf and NaN in A, -Inf and NaN in B, an A -Inf whose
-    k-slab of B is all zero (an Inf that meets only zeros), and finite A
-    and B values whose tf32 rounding overflows (3.4025e38)."""
+    k-slab of B is all zero (an Inf that meets only zeros), finite A and B
+    values whose tf32 and bfloat16 roundings overflow (3.4025e38), and
+    subnormals that round to 0 in both (1e-42) in a stage that also holds
+    a value above 2^63 (so the marked stage's FMA rounds them too)."""
     a = engineered_tiles(12, seed=31)
     b = engineered_tiles(12, seed=32)
     a[0, 3, 5] = float("inf")           # B[0] row 5: +-Inf, NaN at its zeros
@@ -1168,10 +1212,13 @@ def nonfinite_tiles():
     a[6, :, 90] = 0.0
     a[6, ::3, 90] = 0.25
     b[6, 90, 100] = -3.4025e38
+    a[6, 41, 51] = 1e-42
+    b[6, 51, 7] = 2.0 ** 100
     return a.contiguous(), b.contiguous()
 
 
-def pairs_direct(a_dense, b_dense, a_idx, b_idx, seg, c_cap, grid):
+def pairs_direct(a_dense, b_dense, a_idx, b_idx, seg, c_cap, grid,
+                 precision="highest"):
     """The pair-stream entry launched with ``grid`` blocks (the wrapper
     launches one an SM), so that each block takes several C tiles; not
     counted."""
@@ -1182,14 +1229,16 @@ def pairs_direct(a_dense, b_dense, a_idx, b_idx, seg, c_cap, grid):
         a_dense.data_ptr(), b_dense.data_ptr(), a_idx.data_ptr(),
         b_idx.data_ptr(), seg_ptr.data_ptr(), num.data_ptr(),
         flag.data_ptr(), c_cap, grid, next_tile.data_ptr(),
+        M.precision_code(precision),
         torch.cuda.current_stream().cuda_stream), "pairs_direct")
     torch.cuda.synchronize()
     return num, flag
 
 
-def engineered_nonfinite_cases(worst):
-    """K4, K5 and K6 on operands with Inf, -Inf, NaN and near-FLT_MAX
-    values: each against the plain version (macro_hold_ieee), K4 through the
+def engineered_nonfinite_cases(worst, precision="highest"):
+    """K4, K5 and K6 at ``precision`` on operands with Inf, -Inf, NaN,
+    near-FLT_MAX values and subnormals: each against the plain version at
+    it (macro_hold_ieee: its NaN positions and Inf signs), K4 through the
     wrapper and with 2 blocks (several tiles a block, an empty tile, tiles
     past the stream's count), the two class entries bit for bit equal.
     Returns the count of cases."""
@@ -1203,21 +1252,23 @@ def engineered_nonfinite_cases(worst):
     a_idx, b_idx, seg = (torch.cat([x, torch.full((pad,), f, dtype=torch.int32,
                                                   device=DEV)]).contiguous()
                          for x, f in zip(cols, (12, 12, symbolic.INT32_MAX)))
-    want = M.accumulate_macro(a, b, a_idx, b_idx, seg, 7, 256)
+    want = M.accumulate_macro(a, b, a_idx, b_idx, seg, 7, 256,
+                              precision=precision)
     mag = M.accumulate_macro(amag, bmag, a_idx, b_idx, seg, 7, 256)[0]
     if not (bool(torch.isnan(want[0]).any()) and bool(
             torch.isinf(want[0]).any())):
         raise AssertionError("non-finite: the plain product has no NaN/Inf")
     cases = 0
+    k4 = prec_key("macro_accumulate_pairs", precision)
     for what, got in (
             ("wrapper", mk.accumulate_macro_pairs(a, b, a_idx, b_idx, seg,
-                                                  7)),
-            ("2 blocks", pairs_direct(a, b, a_idx, b_idx, seg, 7, 2))):
+                                                  7, precision=precision)),
+            ("2 blocks", pairs_direct(a, b, a_idx, b_idx, seg, 7, 2,
+                                      precision))):
         torch.cuda.synchronize()
-        e = macro_hold_ieee(got, want, mag, f"non-finite pairs, {what}",
-                            key="macro_accumulate_pairs")
-        worst["macro_accumulate_pairs"] = max(
-            worst["macro_accumulate_pairs"], e)
+        e = macro_hold_ieee(got, want, mag, f"non-finite pairs, {what}, "
+                            f"{precision}", key=k4)
+        worst[k4] = max(worst[k4], e)
         if bool(got[0][2].any()) or bool(got[1][2].any()) or \
                 bool(got[0][5:].any()) or bool(got[1][5:].any()):
             raise AssertionError(f"non-finite pairs, {what}: an empty tile "
@@ -1229,7 +1280,8 @@ def engineered_nonfinite_cases(worst):
     # the float64 entry on the same tiles: the plain version's NaNs and
     # signed Infs, flags equal to the float32 entry's
     got64 = pairs_case_f64(a.double(), b.double(), a_idx, b_idx, seg, 7,
-                           "non-finite pairs", worst, hold=macro_hold_ieee)
+                           "non-finite pairs", worst, hold=macro_hold_ieee,
+                           precision=precision)
     if not torch.equal(got64[1], got[1]):
         raise AssertionError("non-finite pairs: the float64 entry's flags "
                              "differ from the float32 entry's")
@@ -1248,24 +1300,26 @@ def engineered_nonfinite_cases(worst):
         tables = st.class_tables((cls,), DEV)[0]
         rows = 2 * t
         wn, wf = fresh_slabs(rows)
-        st.class_call_plain(wn, wf, a, b, bases, t, p, a_offs, b_offs, 0)
+        st.class_call_plain(wn, wf, a, b, bases, t, p, a_offs, b_offs, 0,
+                            precision)
         mn, mf = fresh_slabs(rows, 0.0)
         st.class_call_plain(mn, mf, amag, bmag, bases, t, p, a_offs, b_offs,
                             0)
         outs = []
         for entry in entries:
             gn, gf = fresh_slabs(rows)
+            key = prec_key(entry, precision)
             if entry == "macro_class_ragged":
                 mk.class_call2(gn, gf, a, b, bases, t, p, ar, br, a_offs,
-                               b_offs, 0, 2, tables=tables)
+                               b_offs, 0, 2, tables=tables,
+                               precision=precision)
             else:
                 mk.class_call(gn, gf, a, b, bases, t, p, ar, br, a_offs,
-                              b_offs, 0, tables=tables)
+                              b_offs, 0, tables=tables, precision=precision)
             torch.cuda.synchronize()
             e = macro_hold_ieee((gn, gf), (wn, wf), mn,
-                                f"non-finite class p={p!r} {entry}",
-                                key=entry)
-            worst[entry] = max(worst[entry], e)
+                                f"non-finite class p={p!r} {key}", key=key)
+            worst[key] = max(worst[key], e)
             outs.append((gn.view(torch.int32), gf))
             cases += 1
         if len(outs) == 2 and not all(torch.equal(x, y)
@@ -1274,8 +1328,62 @@ def engineered_nonfinite_cases(worst):
     return cases
 
 
+F32_MACRO_ENTRIES = ("macro_accumulate_pairs", "macro_class_ragged",
+                     "macro_class_uniform")
+LOWER_PRECISIONS = ("high", "default")
+
+
+def prerounded_case(a_dense, b_dense, plan, a_idx, b_idx, seg, c_cap,
+                    precision, worst):
+    """The second oracle on the card: each float32 entry at ``precision``
+    against the same entry at "highest" on tables rounded beforehand
+    (M.round_operands), whose split is then exact (lo = 0): the same
+    products, so values within the float32 bound and flags equal (randn
+    values never round to 0).  Returns the count of cases."""
+    ra = M.round_operands(a_dense, precision)
+    rb = ra if b_dense is a_dense else M.round_operands(b_dense, precision)
+    mag = M.accumulate_macro(a_dense.abs(), b_dense.abs(), a_idx, b_idx, seg,
+                             c_cap, 256)[0]
+    got = mk.accumulate_macro_pairs(a_dense, b_dense, a_idx, b_idx, seg,
+                                    c_cap, precision=precision)
+    want = mk.accumulate_macro_pairs(ra, rb, a_idx, b_idx, seg, c_cap)
+    torch.cuda.synchronize()
+    key = prec_key("macro_accumulate_pairs", precision)
+    worst[key] = max(worst[key], macro_hold(
+        got, want, mag, f"pre-rounded pairs, {key}", key=key))
+    cases = 1
+    for cls, bases, tables in zip(plan.classes, plan.class_bases,
+                                  plan.class_tables):
+        t, p, ar, br, a_offs, b_offs, _base = cls
+        n_steps = bases.numel() // 2
+        rows = n_steps * t
+        entries = [("macro_class_ragged", lambda x, y, out, pr: mk.class_call2(
+            *out, x, y, bases, t, p, ar, br, a_offs, b_offs, 0, n_steps,
+            tables=tables, precision=pr))]
+        if isinstance(p, int):
+            entries.append(("macro_class_uniform",
+                            lambda x, y, out, pr: mk.class_call(
+                                *out, x, y, bases, t, p, ar, br, a_offs,
+                                b_offs, 0, tables=tables, precision=pr)))
+        mn, _mf = fresh_slabs(rows, 0.0)
+        st.class_call_plain(mn, _mf, a_dense.abs(), b_dense.abs(), bases, t,
+                            p, a_offs, b_offs, 0)
+        for entry, call in entries:
+            got, want = fresh_slabs(rows), fresh_slabs(rows)
+            call(a_dense, b_dense, got, precision)
+            call(ra, rb, want, "highest")
+            torch.cuda.synchronize()
+            key = prec_key(entry, precision)
+            worst[key] = max(worst[key], macro_hold(
+                got, want, mn, f"pre-rounded class, {key}", key=key))
+            cases += 1
+    return cases
+
+
 def phase_macro_kernel_check():
-    worst = {k: 0.0 for k in mk.LAUNCHES}
+    worst = {prec_key(k, p): 0.0 for k in F32_MACRO_ENTRIES
+             for p in LOWER_PRECISIONS}
+    worst.update({k: 0.0 for k in mk.LAUNCHES})
     cases = 0
     info = {}
 
@@ -1314,6 +1422,31 @@ def phase_macro_kernel_check():
     n = engineered_class_cases(worst)
     cases += n
     cases += engineered_nonfinite_cases(worst)
+
+    # "high" and "default": every entry against its plain version at the
+    # precision (round_operands, then the "highest" plain path), and
+    # against itself at "highest" on pre-rounded tables; the engineered
+    # cases (subnormals that round to 0, values whose rounding is Inf,
+    # +-Inf, NaN) at each
+    am = coo_to_macro(wandering_device(n=16_384, seed=4))
+    ab = coo_to_macro(banded_device(n=16_384, seed=1,
+                                    bands=tuple(range(-32, 32))))
+    for p in LOWER_PRECISIONS:
+        cases += plan_case(am, am, st.plan_runs, f"wandering {p}", worst,
+                           uniform=False, precision=p)[0]
+        n, plan = plan_case(ab, ab, st.plan_stencil, f"banded64 {p}", worst,
+                            uniform=True, precision=p)
+        cases += n
+        _np, n_tiles, (_r, _c, a_idx, b_idx, seg) = macro_pairs(ab, ab)
+        c_cap = -(-n_tiles // 256) * 256
+        pairs_case(ab.dense, ab.dense, a_idx, b_idx, seg, c_cap,
+                   f"pairs banded64 {p}", worst, precision=p)
+        cases += 1
+        cases += prerounded_case(ab.dense, ab.dense, plan, a_idx, b_idx,
+                                 seg, c_cap, p, worst)
+        cases += engineered_class_cases(worst, p)
+        cases += engineered_nonfinite_cases(worst, p)
+    del am, ab, plan, a_idx, b_idx, seg
 
     # the pair stream of a gapped-band matrix (neither planner covers it),
     # with padding pairs, cut to a tile count that is no multiple of 4 and a
@@ -1456,7 +1589,8 @@ def phase_macro_kernel_check():
             raise AssertionError("tiles of a dtype the entry does not take "
                                  "did not raise")
     emit("macro_kernel_check", cases=cases, max_abs_err=worst, plans=info,
-         worst_over_bound={k: WORST_OVER.get(k) for k in mk.LAUNCHES},
+         worst_over_bound={k: WORST_OVER.get(k) for k in worst},
+         precisions=("highest",) + LOWER_PRECISIONS,
          allow_tf32=torch.backends.cuda.matmul.allow_tf32,
          flags_dtype="uint8",
          bound="abs err <= 1e-5 * sum|a*b| + 1e-6 (float32 dot product), "
@@ -2323,19 +2457,83 @@ def scipy_row_nnz(coo, rows):
     return np.diff((s[rows] @ s).tocsr().indptr)
 
 
-def bmm_ms(a_dense, b_dense, pa, pb, per=16_384):
-    """ms of torch.bmm over the pre-gathered (P, 128, 128) operands, the
-    products only (no gather, no sum per C tile), taken ``per`` pairs at a
-    time so the gathered copies fit beside the run's own tensors.  A
-    yardstick: the port never calls it on this path."""
+def bmm_at(precision):
+    """(torch.bmm at ``precision``, what it is): full float32 at "highest";
+    at "high" float32 operands with TF32 allowed (set here, inside the call,
+    and restored: the port never sets it); at "default" bfloat16 operands
+    with float32 output (``out_dtype``)."""
+    if precision == "high":
+        def fn(ad, bd):
+            old = torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                return torch.bmm(ad, bd)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = old
+        return fn, "torch.bmm, float32 operands, allow_tf32 set for the call"
+    if precision == "default":
+        return (lambda ad, bd: torch.bmm(ad.bfloat16(), bd.bfloat16(),
+                                         out_dtype=torch.float32),
+                "torch.bmm, bfloat16 operands, float32 output")
     M.require_full_fp32()
+    return torch.bmm, "torch.bmm, float32"
+
+
+def bmm_ms(a_dense, b_dense, pa, pb, per=16_384, precision="highest"):
+    """ms of torch.bmm over the pre-gathered (P, 128, 128) operands at
+    ``precision`` (bmm_at; the operands are cast to bfloat16 before the
+    timing at "default"), the products only (no gather, no sum per C tile),
+    taken ``per`` pairs at a time so the gathered copies fit beside the
+    run's own tensors.  A yardstick: the port never calls it on this
+    path."""
+    fn, _what = bmm_at(precision)
+    cast = torch.bfloat16 if precision == "default" else torch.float32
     total = 0.0
     for lo in range(0, pa.numel(), per):
-        ad = a_dense[pa[lo:lo + per].long()]
-        bd = b_dense[pb[lo:lo + per].long()]
-        total += time_ms(lambda: torch.bmm(ad, bd), 3)
+        ad = a_dense[pa[lo:lo + per].long()].to(cast)
+        bd = b_dense[pb[lo:lo + per].long()].to(cast)
+        total += time_ms(lambda: fn(ad, bd), 3)
         del ad, bd
     return total
+
+
+def precision_bounds(a, pa, pb, n_pairs, c_rows, precision):
+    """Bounds of an entry's work at "high" / "default": the larger of the
+    operations (2 * 128^3 a pair, one pass at the TF32 or the bfloat16
+    tensor-core rate) and the bytes (each distinct operand tile read once,
+    every C row written once, values and flags)."""
+    ops = TILE_FLOP * n_pairs
+    rate = TF32_OPS_PER_S if precision == "high" else BF16_OPS_PER_S
+    tiles = int(torch.unique(torch.cat([pa, pb])).numel())
+    nbytes = tiles * 128 * 128 * a.dense.element_size() \
+        + c_rows * 128 * 128 * 5
+    b_o, b_b = ops / rate, nbytes / HBM_BYTES_PER_S
+    return {"bound_ms": max(b_o, b_b) * 1e3,
+            "bound_by": "operations" if b_o >= b_b else "bytes",
+            "bound_ops_ms": b_o * 1e3, "bound_bytes_ms": b_b * 1e3,
+            "operations": ops, "bytes": nbytes, "operand_tiles": tiles,
+            "rate": "TF32 495 TFLOP/s" if precision == "high"
+                    else "bf16 989 TFLOP/s"}
+
+
+def precision_row(kernel, name, replaces, matrix, fn, plain_fn, pa, pb, a,
+                  n_pairs, c_rows, err, precision, extra):
+    """A kernels-line row of an entry at "high" / "default" (kernel
+    K4@high, ...; name entry@precision).  ``launches`` is filled in by
+    phase precision_path, whose runs are the ones at this precision."""
+    _fn, lib_what = bmm_at(precision)
+    return {
+        "name": prec_key(name, precision), "kernel": f"{kernel}@{precision}",
+        "precision": precision, "route": "cuda", "source": MACRO_SOURCE,
+        "replaces": replaces, "launches": None, "max_abs_err": err,
+        "ms": time_ms(fn), "plain_ms": time_ms(plain_fn, 2),
+        **precision_bounds(a, pa, pb, n_pairs, c_rows, precision),
+        "library_ms": bmm_ms(a.dense, a.dense, pa, pb, precision=precision),
+        "library_covers": lib_what + ", over the pre-gathered (P, 128, 128) "
+                          "operands in chunks of 16,384 pairs: the products "
+                          "only", "runs_on": "tensor cores, one wgmma a "
+                                             "k-step", "matrix": matrix,
+        "pairs": n_pairs, "c_rows": c_rows, **extra}
 
 
 def class_pairs(plan):
@@ -2396,12 +2594,15 @@ def macro_plan_of(a, cfg):
     return res, plan
 
 
-def hold_macro_output(a, plan, out, what):
-    """The steady output's C tiles against the plain pair accumulation on
-    the card, in the plan's row order.  Returns the max abs error."""
+def hold_macro_output(a, plan, out, what, precision="highest"):
+    """The steady output's C tiles against the plain pair accumulation at
+    ``precision`` on the card, in the plan's row order: flags equal, values
+    in the float32 bound (the same rounded products on both sides).
+    Returns the max abs error."""
     n_pairs, n_tiles, (_r, _c, a_idx, b_idx, seg) = macro_pairs(a, a)
     c_cap = -(-n_tiles // 256) * 256
-    want = M.accumulate_macro(a.dense, a.dense, a_idx, b_idx, seg, c_cap, 256)
+    want = M.accumulate_macro(a.dense, a.dense, a_idx, b_idx, seg, c_cap, 256,
+                              precision=precision)
     mag = M.accumulate_macro(a.dense.abs(), a.dense.abs(), a_idx, b_idx, seg,
                              c_cap, 256)[0]
     if isinstance(plan, StencilMacroPlan):
@@ -2421,36 +2622,43 @@ def hold_macro_output(a, plan, out, what):
     return worst, n_pairs, n_tiles
 
 
-def pairs_point(a, name, n_pairs, n_tiles):
-    """The pair-stream entry (K4) at this matrix's own pair stream, the
-    second point its row is timed at: held against the plain version (flags
-    equal, values in the float32 bound), then kernel, plain version and the
-    bounds as macro_row counts them."""
+def pairs_point(a, name, n_pairs, n_tiles, precision="highest"):
+    """The pair-stream entry (K4) at this matrix's own pair stream and
+    ``precision``, the second point its row is timed at: held against the
+    plain version at it (flags equal, values in the float32 bound), then
+    kernel, plain version and the bounds as macro_row (precision_bounds
+    below "highest") counts them."""
     _np, _nt, (_r, _c, a_idx, b_idx, seg) = macro_pairs(a, a)
     c_cap = -(-n_tiles // 256) * 256
-    want = M.accumulate_macro(a.dense, a.dense, a_idx, b_idx, seg, c_cap, 256)
+    key = prec_key("macro_accumulate_pairs", precision)
+    want = M.accumulate_macro(a.dense, a.dense, a_idx, b_idx, seg, c_cap, 256,
+                              precision=precision)
     mag = M.accumulate_macro(a.dense.abs(), a.dense.abs(), a_idx, b_idx, seg,
                              c_cap, 256)[0]
     got = mk.accumulate_macro_pairs(a.dense, a.dense, a_idx, b_idx, seg,
-                                    c_cap)
+                                    c_cap, precision=precision)
     torch.cuda.synchronize()
     err = 0.0
     for lo in range(0, c_cap, 8192):       # bounded temporaries
         sl = slice(lo, lo + 8192)
         err = max(err, macro_hold((got[0][sl], got[1][sl]),
                                   (want[0][sl], want[1][sl]), mag[sl],
-                                  f"{name}: K4 on its pair stream",
-                                  key="macro_accumulate_pairs"))
+                                  f"{name}: {key} on its pair stream",
+                                  key=key))
     del want, mag, got
     torch.cuda.empty_cache()
+    pa, pb = a_idx[:n_pairs], b_idx[:n_pairs]
+    bounds = macro_bounds(a, n_pairs, c_cap) if precision == "highest" \
+        else precision_bounds(a, pa, pb, n_pairs, c_cap, precision)
     return {
         "ms": time_ms(lambda: mk.accumulate_macro_pairs(
-            a.dense, a.dense, a_idx, b_idx, seg, c_cap)),
+            a.dense, a.dense, a_idx, b_idx, seg, c_cap,
+            precision=precision)),
         "plain_ms": time_ms(lambda: M.accumulate_macro(
-            a.dense, a.dense, a_idx, b_idx, seg, c_cap, 256), 2),
-        **macro_bounds(a, n_pairs, c_cap),
-        "library_ms": bmm_ms(a.dense, a.dense, a_idx[:n_pairs],
-                             b_idx[:n_pairs]),
+            a.dense, a.dense, a_idx, b_idx, seg, c_cap, 256,
+            precision=precision), 2),
+        **bounds,
+        "library_ms": bmm_ms(a.dense, a.dense, pa, pb, precision=precision),
         "max_abs_err": err, "pairs": n_pairs, "c_rows": c_cap}
 
 
@@ -2542,8 +2750,22 @@ def phase_macro_path(check_err, pairbands_ref, repeat=3):
         steady = dict(mk.LAUNCHES)
         err, n_pairs, n_tiles = hold_macro_output(
             a, plan, out, f"{name} steady output against the plain path")
+        # the same plan at each lower mode: the entry the @p rows time, at
+        # this matrix's own shapes, held against the plain path at the mode
+        lower_err = {}
+        for q in LOWER_PRECISIONS:
+            out_q = dataclasses.replace(plan, precision=q).run(a, a)
+            torch.cuda.synchronize()
+            if int(out_q[5]) != int(out[5]):
+                raise AssertionError(f"{name}: steady C_nnz {int(out_q[5])} "
+                                     f"at {q}, {int(out[5])} at highest")
+            lower_err[q] = hold_macro_output(
+                a, plan, out_q, f"{name} steady output at {q} against the "
+                f"plain path at {q}", precision=q)[0]
+            del out_q
         info.update(plan=type(plan).__name__, a_tiles=a.ntiles,
                     plain_path_equal=True, max_abs_err=err,
+                    max_abs_err_at=lower_err,
                     launches_per_multiply=per_multiply,
                     launches_steady_multiply=steady,
                     launches_interactive_multiply=interactive,
@@ -2575,22 +2797,38 @@ def phase_macro_path(check_err, pairbands_ref, repeat=3):
                         call(cls, bases, tables)
                 return run
 
-            def ragged(cls, bases, tables):
+            def ragged(cls, bases, tables, precision="highest"):
                 mk.class_call2(*slabs, a.dense, a.dense, bases, *cls,
-                               bases.numel() // 2, tables=tables)
+                               bases.numel() // 2, tables=tables,
+                               precision=precision)
 
-            def uniform_entry(cls, bases, tables):
+            def uniform_entry(cls, bases, tables, precision="highest"):
                 mk.class_call(*slabs, a.dense, a.dense, bases, *cls,
-                              tables=tables)
+                              tables=tables, precision=precision)
 
-            def plain(cls, bases, tables):
+            def plain(cls, bases, tables, precision="highest"):
                 st.class_call_plain(*slabs, a.dense, a.dense, bases, cls[0],
-                                    cls[1], cls[4], cls[5], cls[6])
+                                    cls[1], cls[4], cls[5], cls[6],
+                                    precision)
+
+            def at(call, precision):
+                return lambda *x: call(*x, precision=precision)
+
+            def lower_rows(kernel, entry, replaces, call):
+                return [precision_row(
+                    kernel, entry, replaces, name,
+                    classes_through(at(call, q)),
+                    classes_through(at(plain, q)), *lib_pairs, a,
+                    int(lib_pairs[0].numel()), class_rows,
+                    max(lower_err[q], check_err[prec_key(entry, q)]), q,
+                    {"classes": len(sp.classes), "timed": timed})
+                    for q in LOWER_PRECISIONS]
 
             timed = ("the plan's class launches, one after another: the "
                      "class path of one steady multiply")
             if name == "wandering64-1M":
-                k4_wandering = pairs_point(a, name, n_pairs, n_tiles)
+                k4_wandering = {q: pairs_point(a, name, n_pairs, n_tiles, q)
+                                for q in ("highest",) + LOWER_PRECISIONS}
                 rows_out.append(macro_row(
                     "macro_class_ragged",
                     "pem_spgemm_tpu/ops/pallas_stencil.py:309", name,
@@ -2599,20 +2837,24 @@ def phase_macro_path(check_err, pairbands_ref, repeat=3):
                     launches[entry], per_multiply,
                     max(err, check_err["macro_class_ragged"]),
                     dict(classes=len(sp.classes), timed=timed)))
+                rows_out += lower_rows(
+                    "K5", "macro_class_ragged",
+                    "pem_spgemm_tpu/ops/pallas_stencil.py:309", ragged)
             elif uniform:
-                # the uniform entry has no caller on the path: its row is
+                # the uniform entry has no caller on the path: its rows are
                 # timed on these classes beside the ragged entry, and both
-                # write the same bits
-                reset_launch_counts()
-                classes_through(uniform_entry)()
-                got_u = [x[:class_rows].clone() for x in slabs]
-                classes_through(ragged)()
-                torch.cuda.synchronize()
-                if not all(torch.equal(x, y[:class_rows])
-                           for x, y in zip(got_u, slabs)):
-                    raise AssertionError(f"{name}: the two class entries "
-                                         "disagree")
-                del got_u
+                # write the same bits at every mode (the ragged entry's
+                # output is held above, inside the plan's, at each mode)
+                for q in ("highest",) + LOWER_PRECISIONS:
+                    classes_through(at(uniform_entry, q))()
+                    got_u = [x[:class_rows].clone() for x in slabs]
+                    classes_through(at(ragged, q))()
+                    torch.cuda.synchronize()
+                    if not all(torch.equal(x, y[:class_rows])
+                               for x, y in zip(got_u, slabs)):
+                        raise AssertionError(f"{name}: the two class "
+                                             f"entries disagree at {q}")
+                    del got_u
                 rows_out.append(macro_row(
                     "macro_class_uniform",
                     "pem_spgemm_tpu/ops/pallas_stencil.py:118", name,
@@ -2623,6 +2865,10 @@ def phase_macro_path(check_err, pairbands_ref, repeat=3):
                          ragged_entry_ms=time_ms(classes_through(ragged)),
                          bit_equal_to_ragged_entry=True,
                          caller="none on the path, as in the JAX package")))
+                rows_out += lower_rows(
+                    "K6", "macro_class_uniform",
+                    "pem_spgemm_tpu/ops/pallas_stencil.py:118",
+                    uniform_entry)
             del slabs, lib_pairs
         else:
             _np, _nt, (_r, _c, a_idx, b_idx, seg) = macro_pairs(a, a)
@@ -2636,9 +2882,25 @@ def phase_macro_path(check_err, pairbands_ref, repeat=3):
                 (a_idx[:n_pairs], b_idx[:n_pairs]), a, n_pairs, plan.c_cap,
                 launches[entry], per_multiply,
                 max(err, check_err["macro_accumulate_pairs"],
-                    k4_wandering["max_abs_err"]),
+                    k4_wandering["highest"]["max_abs_err"]),
                 {"c_tiles": n_tiles, "p_cap": int(a_idx.numel()),
-                 "at_wandering64-1M": k4_wandering}))
+                 "at_wandering64-1M": k4_wandering["highest"]}))
+            for q in LOWER_PRECISIONS:
+                rows_out.append(precision_row(
+                    "K4", "macro_accumulate_pairs",
+                    "pem_spgemm_tpu/ops/pallas_macro2.py:232", name,
+                    lambda q=q: mk.accumulate_macro_pairs(
+                        a.dense, a.dense, a_idx, b_idx, seg, plan.c_cap,
+                        precision=q),
+                    lambda q=q: M.accumulate_macro(
+                        a.dense, a.dense, a_idx, b_idx, seg, plan.c_cap, 256,
+                        precision=q),
+                    a_idx[:n_pairs], b_idx[:n_pairs], a, n_pairs, plan.c_cap,
+                    max(lower_err[q],
+                        check_err[prec_key("macro_accumulate_pairs", q)],
+                        k4_wandering[q]["max_abs_err"]), q,
+                    {"c_tiles": n_tiles, "p_cap": int(a_idx.numel()),
+                     "at_wandering64-1M": k4_wandering[q]}))
             del a_idx, b_idx, seg
         emit("macro_path", **info)
         del a, plan
@@ -4091,6 +4353,173 @@ def phase_sharded(coo_pl, want_pl, pairbands_ref):
     emit("sharded_total", seconds=time.perf_counter() - t0)
 
 
+# phase precision_path: SpGEMMConfig.precision "high" and "default" beside
+# "highest".  u is the unit roundoff of the rounded operands (0 at
+# "highest"): tf32 keeps 11 significant bits (u = 2^-11), bfloat16 8
+# (u = 2^-8), so a product of two rounded values lies within (2u + u^2)
+# |a*b| of a*b
+PRECISION_U = {"highest": 0.0, "high": 2.0 ** -11, "default": 2.0 ** -8}
+# the kernels the phase's runs launched at each lower precision (counts set
+# to 0 just before each run, read just after): the @precision rows' counts
+PRECISION_LAUNCHES = {q: {} for q in LOWER_PRECISIONS}
+
+
+def hold_rounded(rows, cols, vals, want, precision, what):
+    """Exact structure (scipy's, from |A|.|A|); |got - want| <= (2u + u^2)
+    sum|a*b| + 1e-5 sum|a*b| + 1e-6: the products of operands rounded to u
+    (each within (2u + u^2) |a*b| of a*b) and the float32 bound.  Returns
+    the worst ratio."""
+    wr, wc, wv, mag = want
+    if not (np.array_equal(rows, wr) and np.array_equal(cols, wc)):
+        raise AssertionError(f"{what}: sorted COO structure differs from "
+                             "scipy's")
+    if not np.all(np.isfinite(vals)):
+        raise AssertionError(f"{what}: non-finite values")
+    u = PRECISION_U[precision]
+    bound = (2 * u + u * u + COO_RTOL) * mag + COO_ATOL
+    over = float((np.abs(vals - wv) / bound).max()) if len(wv) else 0.0
+    if not over <= 1.0:
+        raise AssertionError(f"{what}: values exceed the bound by {over}x")
+    return over
+
+
+def precision_runs(coo, name, cfg, check_values, want_entry):
+    """run_benchmark at "highest", "high" and "default" (repeat 2): C_nnz and
+    the structure (tile coordinates and flags, or the Tile16 arrays, on the
+    card) of each lower precision equal to the "highest" run's, values held
+    by ``check_values(res, precision)``, the kernel ``want_entry`` (or
+    none, for the Tile16 tier) launched at each."""
+    ref = None
+    for q in ("highest",) + LOWER_PRECISIONS:
+        reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        rec, res = run_benchmark(coo, name, cfg.with_(precision=q, repeat=2),
+                                 verbose=False)
+        launches = nonzero(all_counts())
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if q != "highest":
+            for k, v in launches.items():
+                PRECISION_LAUNCHES[q][k] = PRECISION_LAUNCHES[q].get(k, 0) + v
+        if rec.precision != q or (want_entry and not launches.get(want_entry)):
+            raise AssertionError(f"{name} at {q}: record {rec.precision}, "
+                                 f"launches {launches}")
+        tile16 = res.rowcol is not None
+        structure = [res.c_tile_row, res.c_tile_col, res.cptr] + (
+            [res.cmask, res.rowcol[:res.c_nnz], res.elem_tile[:res.c_nnz]]
+            if tile16 else [res.c_counts])
+        if ref is None:
+            ref = (res.c_nnz, [x.clone() for x in structure])
+        elif res.c_nnz != ref[0] or not all(
+                torch.equal(x, y) for x, y in zip(structure, ref[1])):
+            raise AssertionError(f"{name} at {q}: C_nnz {res.c_nnz} or the "
+                                 f"structure differs from highest's "
+                                 f"{ref[0]}")
+        over = check_values(res, q)
+        emit("precision_path", matrix=name, engine=res.engine, precision=q,
+             c_nnz=res.c_nnz, structure_equal_to_highest=True,
+             values_worst_over_bound=over,
+             bound=f"|err| <= (2u + u^2 + 1e-5) sum|a*b| + 1e-6, "
+                   f"u = {PRECISION_U[q]}",
+             launches=launches, times_ms=record_times(rec),
+             peak_mem_gb=peak)
+        del res
+        torch.cuda.empty_cache()
+
+
+def phase_precision_path():
+    """SpGEMMConfig.precision "high" and "default" beside "highest" through
+    run_benchmark: wandering64-1M as macro (K4 interactive, K5 steady),
+    pairbands-500k as macro (MacroPlan, K4) and through engine="fused" (the
+    Tile16 tier, torch ops), and the macro ring as a 4-rank plan of
+    wandering64-1M replayed on the card (one K4 a stage with pairs, at the
+    precision).  C_nnz and structure equal the "highest" run's and scipy's
+    |A|.|A| (every entry of pairbands-500k, 20,000 sampled rows of
+    wandering64-1M), values within (2u + u^2) sum|a*b| plus the float32
+    bound of scipy's float64 product."""
+    from pem_spgemm_tpu_torch.parallel import sharded_macro as sm
+    t0 = time.perf_counter()
+    name = "wandering64-1M"
+    coo = MACRO_MATRICES[name]()
+    pick = sample_rows(coo.shape[0])
+    want = scipy_rows(coo, pick)
+
+    def sampled(res, q):
+        c = res.to_coo()
+        return hold_rounded(*coo_rows(c.rows, c.cols, c.vals, pick), want, q,
+                            f"{name} at {q}")
+
+    precision_runs(coo, name, SpGEMMConfig(engine="macro"), sampled,
+                   "macro_class_ragged")
+    # the macro ring: one 4-rank plan, each rank replayed at each precision
+    m = coo_to_macro(coo)
+    n = SHARDED_RANKS
+    plans = [sm.plan_sharded_macro(m, m, n, d) for d in range(n)]
+    del m
+    stages = sum(1 for p in plans for x in p.stage_pairs if x)
+    ref = None
+    for q in ("highest",) + LOWER_PRECISIONS:
+        reset_launch_counts()
+        parts, times = [], []
+        for d, p in enumerate(plans):
+            part, ms = synced_ms(lambda: sm.local_macro_coo(
+                p, *sm.local_macro(p, sm.replay_chunks(plans, d), q)))
+            parts.append(part)
+            times.append(ms)
+        launches = nonzero(all_counts())
+        if q != "highest":
+            for k, v in launches.items():
+                PRECISION_LAUNCHES[q][k] = PRECISION_LAUNCHES[q].get(k, 0) + v
+        rows, cols, vals = union_sorted(parts)
+        if ref is None:
+            ref = (rows, cols)
+        elif not (torch.equal(rows, ref[0]) and torch.equal(cols, ref[1])):
+            raise AssertionError(f"macro ring at {q}: structure differs from "
+                                 "highest's")
+        if len(rows) != BF16_RUNS[2][2] or \
+                launches.get("macro_accumulate_pairs", 0) != stages:
+            raise AssertionError(f"macro ring at {q}: C_nnz {len(rows)}, "
+                                 f"launches {launches}, stages {stages}")
+        over = hold_rounded(*device_rows(rows, cols, vals, pick), want, q,
+                            f"macro ring at {q}")
+        emit("precision_path", matrix=name, engine="macro ring, 4 ranks "
+             "replayed", precision=q, c_nnz=len(rows),
+             structure_equal_to_highest=True, values_worst_over_bound=over,
+             launches=launches, stages_with_pairs=stages, rank_ms=times)
+        del parts, rows, cols, vals
+    del plans, ref, coo, want
+    torch.cuda.empty_cache()
+
+    name = TILE16_MATRIX
+    coo = banded_device(**DIA_MATRICES[name])
+    want = product_rows(coo)
+
+    def every(res, q):
+        c = res.to_coo()
+        return hold_rounded(c.rows, c.cols, c.vals, want, q, f"{name} at {q}")
+
+    precision_runs(coo, name, SpGEMMConfig(engine="macro"), every,
+                   "macro_accumulate_pairs")
+    precision_runs(coo, name, SpGEMMConfig(engine="fused"), every, None)
+    del coo, want
+    torch.cuda.empty_cache()
+    for q in LOWER_PRECISIONS:
+        got = PRECISION_LAUNCHES[q]
+        if not (got.get("macro_accumulate_pairs") and
+                got.get("macro_class_ragged")):
+            raise AssertionError(f"precision_path at {q} launched {got}")
+    emit("precision_total", seconds=time.perf_counter() - t0,
+         launches=PRECISION_LAUNCHES)
+
+
+def fill_precision_launches(rows):
+    """Each @precision row's launches: its entry's count over phase
+    precision_path's runs at that precision."""
+    for row in rows:
+        if row.get("precision") in PRECISION_LAUNCHES:
+            row["launches"] = PRECISION_LAUNCHES[row["precision"]].get(
+                row["name"].split("@")[0], 0)
+
+
 # A.A^T on the card (phase aat_path): (name, its generator, engine passed,
 # engine expected, the entries that must launch (one of each tuple))
 AAT_RUNS = (
@@ -4238,7 +4667,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=["kernel_check", "f64_path",
                                        "dia_path", "tile16_path",
-                                       "sharded", "aat_path", "suite"],
+                                       "sharded", "aat_path", "suite",
+                                       "precision_path"],
                     default=None,
                     help="kernel_check: build the kernels, check them, and "
                          "stop; f64_path: build them and run the f64 parity "
@@ -4248,7 +4678,9 @@ def main():
                          "steady time), then phases tile16_path and persist; "
                          "sharded: phases bf16_path, sharded_path and "
                          "sharded_ranks; aat_path: phase aat_path; suite: "
-                         "phase suite")
+                         "phase suite; precision_path: the Macro128 kernel "
+                         "check, phase macro_path and phase precision_path "
+                         "with the Macro128 kernel rows")
     ap.add_argument("--profile",
                     choices=sorted(MATRICES) + sorted(DIA_MATRICES)
                     + ["wandering64-1M"],
@@ -4333,6 +4765,16 @@ def main():
         phase_suite()
         emit("total", seconds=time.perf_counter() - t_start)
         return 0
+    if args.only == "precision_path":
+        check_err = phase_macro_kernel_check()
+        rows = phase_macro_path(check_err, scipy_square(
+            banded_device(**DIA_MATRICES["pairbands-500k"]), with_abs=True))
+        torch.cuda.empty_cache()
+        phase_precision_path()
+        fill_precision_launches(rows)
+        emit("total", seconds=time.perf_counter() - t_start)
+        print(json.dumps({"kernels": rows}), flush=True)
+        return 0
     if args.only == "f64_path":
         coo_pl = MATRICES["powerlaw-1M"]()
         kept = phase_f64_path(coo_pl, scipy_square(coo_pl, with_abs=True))
@@ -4384,6 +4826,9 @@ def main():
     phase_sharded(coo_pl, want_pl, pairbands_ref)
     del coo_pl, want_pl, pairbands_ref
     torch.cuda.empty_cache()
+    phase_precision_path()
+    fill_precision_launches(kernels)
+    torch.cuda.empty_cache()
     phase_aat_path()
     phase_suite()
     kernels += f64_rows
@@ -4398,7 +4843,7 @@ def main():
         # probe: each is held against its plain version (the uniform entry
         # also against the ragged one) and reports its count from the path
         # runs as measured, 0 today
-        if row["launches"] <= 0 and row["name"] not in (
+        if row["launches"] <= 0 and row["name"].split("@")[0] not in (
                 "macro_class_uniform", "row_copy"):
             raise AssertionError(f"{row['name']} was never launched on "
                                  "the main path")

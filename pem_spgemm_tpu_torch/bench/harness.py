@@ -60,7 +60,9 @@ def run_benchmark(coo: COOMatrix, name: str,
                   device=None):
     """Benchmark C = A@A (or A@A.T with aat=True) on one matrix.
 
-    ``device=None`` means the GPU and raises without one.
+    ``device=None`` means the GPU and raises without one.  The tiled
+    engines multiply at ``config.precision`` in every tier (the record
+    carries it).
     Returns (BenchmarkRecord, SpGEMMResult of the last iteration).
     """
     cfg = config
@@ -221,6 +223,7 @@ def run_benchmark(coo: COOMatrix, name: str,
         steady_gflops=gflops(flop, steady),
         pipelined_time=pipelined * 1e3,
         pipelined_gflops=gflops(flop, pipelined),
+        precision=cfg.precision,
     )
     if verbose:
         print(report_stdout(record))

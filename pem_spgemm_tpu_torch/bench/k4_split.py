@@ -9,7 +9,8 @@ the parent commit's, ``git show <commit>:pem_spgemm_tpu_torch/csrc/<file>``)
 as copies in the package's build directory, so that two versions run in one
 process, on one card, on the same inputs.  A baseline has the C interfaces
 of commit 2fdbfea: the ones of today, except its pairs entries
-(``declare_baseline_dia``).
+(``declare_baseline_dia``) and its float32 Macro128 entries, which take no
+precision (``declare_baseline_macro``: commit 7303942 and before).
 
   k4  the pair-stream entry at wandering64-1M's stream (70,308 pairs) and at
       pairbands-500k's (389,700 pairs): as it is (persistent, one block an
@@ -17,10 +18,13 @@ of commit 2fdbfea: the ones of today, except its pairs entries
       product without the persistent stream), and the baseline's; each
       held against the plain version (flags equal, values within
       1e-5 * sum|a*b| + 1e-6), then timed by CUDA events in turns, beside
-      the CUTS builds (one piece of a stage cut out each; timed only);
+      the CUTS builds (one piece of a stage cut out each; timed only) and
+      the entry at precision "high" and "default" (one wgmma a k-step,
+      each held against the plain version at its precision);
   k5  the ragged class entry over wandering64-1M's class launches (one
       steady multiply's): this build's and the baseline's, their slabs
-      bit for bit equal, and the no_mark cut, timed in turns;
+      bit for bit equal, the no_mark cut, and this build at "high" and
+      "default", timed in turns;
   k3, k3f64  the DIA pairs entry, float32 and float64, at pairbands-500k,
       with counts and values only: this build's, the PAIR_COLS builds
       (other columns a thread), each also at the PAIR_GROUPS row groups,
@@ -81,19 +85,13 @@ VP, LL, CI = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 # Cut builds of csrc/macro_accumulate.cu: (text of the source, what replaces
 # it), each text found once (a CPU test holds that).  Their results are
 # wrong; they are timed only, to see what each piece of a stage costs.
-_SPLIT_A = ("            hi[e] = tf32_rna(v[e]);\n"
-            "            lo[e] = tf32_rna(v[e] - __uint_as_float(hi[e]));\n")
-_SPLIT_B = ("            const unsigned hi = tf32_rna(v[c]);\n"
-            "            const unsigned lo = tf32_rna(v[c] - "
-            "__uint_as_float(hi));\n")
 _RUN = "    const bool run = !bad && (ag & bg & ANY_NZ) != 0u;\n"
 CUTS = {
-    # the tf32 split of each word (the words are stored raw)
-    "no_split": [(_SPLIT_A, "            hi[e] = __float_as_uint(v[e]);\n"
-                            "            lo[e] = 0u;\n"),
-                 (_SPLIT_B, "            const unsigned hi = "
-                            "__float_as_uint(v[c]);\n"
-                            "            const unsigned lo = 0u;\n")],
+    # the tf32 split of each word at "highest" (the words are stored raw)
+    "no_split": [("        hi = tf32_rna(v);\n"
+                  "        lo = tf32_rna(v - __uint_as_float(hi));\n",
+                  "        hi = __float_as_uint(v);\n"
+                  "        lo = 0u;\n")],
     # the pattern (flags) of each stage
     "no_pattern": [("    if ((run || bad) && (m0 | m1) != 0u) {  // pattern "
                     "of this stage\n", "    if (false) {\n")],
@@ -112,16 +110,20 @@ CUTS = {
 # entries' one-tile product of its tile): the tensor-core tile product
 # without the persistent stream.  Its result is held like the entry's.
 ONE_TILE = [
-    ("    pair_stream(a_dense, b_dense, PairWalk{seg_ptr, a_idx, b_idx, next, "
-     "c_cap},\n                c_num, c_flag, tc_shared());\n",
+    ("    pair_stream<P>(a_dense, b_dense,\n"
+     "                   PairWalk{seg_ptr, a_idx, b_idx, next, c_cap}, c_num,\n"
+     "                   c_flag, tc_shared());\n",
      "    const long long c = blockIdx.x;\n"
      "    const int lo = seg_ptr[c];\n"
-     "    tile_product_tc(a_dense, b_dense, a_idx + lo, b_idx + lo, 0, 0,\n"
-     "                    seg_ptr[c + 1] - lo, c_num + c * TILE_ELEMS,\n"
-     "                    c_flag + c * TILE_ELEMS, tc_shared());\n"),
-    ("    macro_pairs_kernel<<<grid < c_cap ? grid : c_cap,",
-     "    macro_pairs_kernel<<<c_cap,"),
+     "    tile_product_tc<P>(a_dense, b_dense, a_idx + lo, b_idx + lo, 0, 0,\n"
+     "                       seg_ptr[c + 1] - lo, c_num + c * TILE_ELEMS,\n"
+     "                       c_flag + c * TILE_ELEMS, tc_shared());\n"),
+    ("    macro_pairs_kernel<P><<<grid < c_cap ? grid : c_cap,",
+     "    macro_pairs_kernel<P><<<c_cap,"),
 ]
+# the float32 entries' precisions below "highest" (their int argument is
+# M.precision_code's)
+LOWER = ("high", "default")
 
 
 # Other builds of the float64 pair-stream entry (held and timed like it, but
@@ -219,6 +221,16 @@ def build(stem: str, name: str, source: str, declare, cuts=()):
     return _build.load(so, declare)
 
 
+def declare_baseline_macro(lib):
+    """mk._declare, but the float32 entries of commit 7303942 and before:
+    no precision argument (they ran 3xTF32 only)."""
+    mk._declare(lib)
+    lib.macro_accumulate_pairs_f32.argtypes = [VP] * 7 + [CI, CI, VP, VP]
+    lib.macro_class_ragged_f32.argtypes = [VP] * 6 + [CI, CI, LL, VP, VP, VP]
+    lib.macro_class_uniform_f32.argtypes = [VP] * 5 + [CI, CI, CI, LL, VP,
+                                                       VP, VP]
+
+
 def declare_baseline_dia(lib):
     """dk._declare, but the pairs entries of commit 2fdbfea: the float32 one
     with d1n and stage_a (it staged its A bands), the float64 one (one
@@ -294,8 +306,6 @@ def case_k4(base_lib, n_time):
         n_pairs, n_tiles, a_idx, b_idx, seg = pair_stream(a)
         c_cap = -(-n_tiles // 256) * 256
         seg_ptr = mk.segment_offsets(seg, c_cap)
-        want = M.accumulate_macro(a.dense, a.dense, a_idx, b_idx, seg, c_cap,
-                                  256)
         mag = M.accumulate_macro(a.dense.abs(), a.dense.abs(), a_idx, b_idx,
                                  seg, c_cap, 256)[0]
         num = torch.empty((c_cap, 128, 128), device="cuda")
@@ -306,29 +316,33 @@ def case_k4(base_lib, n_time):
                 b_idx.data_ptr(), seg_ptr.data_ptr(), num.data_ptr(),
                 flag.data_ptr(), c_cap)
 
-        def persistent():
-            next_tile.zero_()
-            checked(cur.macro_accumulate_pairs_f32(
-                *ptrs, sms, next_tile.data_ptr(), stream), "current")
-
-        fns = {"persistent": persistent}
-        for cut, lib in cut_libs.items():
-            fns[cut] = (lambda lib: lambda: (next_tile.zero_(), checked(
+        def launch(lib, what, *prec):
+            return lambda: (next_tile.zero_(), checked(
                 lib.macro_accumulate_pairs_f32(
-                    *ptrs, sms, next_tile.data_ptr(), stream), cut)))(lib)
+                    *ptrs, sms, next_tile.data_ptr(), *prec, stream), what))
+
+        fns = {"persistent": launch(cur, "current", 0)}
+        for p in LOWER:
+            fns[f"persistent@{p}"] = launch(cur, p, M.precision_code(p))
+        for cut, lib in cut_libs.items():
+            fns[cut] = launch(lib, cut, 0)
         if base_lib is not None:
-            fns["baseline"] = lambda: (next_tile.zero_(), checked(
-                base_lib.macro_accumulate_pairs_f32(
-                    *ptrs, sms, next_tile.data_ptr(), stream), "baseline"))
+            fns["baseline"] = launch(base_lib, "baseline")
         over = {}
-        for k, fn in fns.items():
-            num.fill_(float("nan"))
-            flag.fill_(7)
-            fn()
-            torch.cuda.synchronize()
-            if k not in CUTS:               # a cut build's result is wrong
+        for p in ("highest", *LOWER):
+            want = M.accumulate_macro(a.dense, a.dense, a_idx, b_idx, seg,
+                                      c_cap, 256, precision=p)
+            for k, fn in fns.items():
+                if k in CUTS or (p == "highest") == ("@" in k) or (
+                        "@" in k and not k.endswith(p)):
+                    continue                # a cut build's result is wrong
+                num.fill_(float("nan"))
+                flag.fill_(7)
+                fn()
+                torch.cuda.synchronize()
                 over[k] = hold((num, flag), want, mag, f"{name} {k}")
-        del want, mag
+            del want
+        del mag
         torch.cuda.empty_cache()
         times = in_turns(fns, n_time[name])
         emit("k4", matrix=name, pairs=n_pairs, c_tiles=n_tiles, c_cap=c_cap,
@@ -354,9 +368,9 @@ def case_k5(base_lib):
     slabs = {k: (torch.full((rows, 128, 128), float("nan"), device="cuda"),
                  torch.full((rows, 128, 128), 7, dtype=torch.uint8,
                             device="cuda"))
-             for k in ("current", "baseline", "no_mark")}
+             for k in ("current", "baseline", "no_mark", *LOWER)}
 
-    def classes(lib, key):
+    def classes(lib, key, *prec):
         num, flag = slabs[key]
 
         def run():
@@ -366,11 +380,13 @@ def case_k5(base_lib):
                     a.dense.data_ptr(), a.dense.data_ptr(), bases.data_ptr(),
                     p_ptr.data_ptr(), ao.data_ptr(), bo.data_ptr(), t,
                     bases.numel() // 2, base, num.data_ptr(),
-                    flag.data_ptr(), stream), key)
+                    flag.data_ptr(), *prec, stream), key)
         return run
 
-    fns = {"current": classes(cur, "current"),
-           "no_mark": classes(no_mark, "no_mark")}
+    fns = {"current": classes(cur, "current", 0),
+           "no_mark": classes(no_mark, "no_mark", 0)}
+    for p in LOWER:
+        fns[p] = classes(cur, p, M.precision_code(p))
     if base_lib is not None:
         fns["baseline"] = classes(base_lib, "baseline")
     for fn in fns.values():
@@ -383,9 +399,15 @@ def case_k5(base_lib):
         if not equal:
             raise AssertionError("K5: the current and the baseline entry "
                                  "differ on wandering64-1M")
+    flags_equal = {p: torch.equal(slabs[p][1], slabs["current"][1])
+                   for p in LOWER}
+    if not all(flags_equal.values()):
+        raise AssertionError(f"K5: flags differ across precisions "
+                             f"{flags_equal}")
     times = in_turns(fns, 10, rounds=4)
     emit("k5", matrix="wandering64-1M", classes=len(sp.classes),
-         c_rows=rows, ms=times, bit_equal_to_baseline=equal)
+         c_rows=rows, ms=times, bit_equal_to_baseline=equal,
+         flags_equal_across_precisions=True)
 
 
 def case_pairs(word, base_lib):
@@ -695,7 +717,7 @@ def main():
     base_macro = base_dia = None
     if args.baseline_macro:
         base_macro = build("macro_accumulate", "baseline",
-                           args.baseline_macro, mk._declare)
+                           args.baseline_macro, declare_baseline_macro)
     if args.baseline_dia:
         base_dia = build("dia_multiply", "baseline", args.baseline_dia,
                          declare_baseline_dia)

@@ -45,6 +45,20 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+# SpGEMMConfig.precision's values, in the order of the kernels' int code
+# (0, 1, 2)
+PRECISIONS = ("highest", "high", "default")
+
+
+def precision_code(precision: str) -> int:
+    """The kernels' int code of a precision; anything but the three modes
+    raises."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision={precision!r}: one of "
+                         f"{', '.join(map(repr, PRECISIONS))}")
+    return PRECISIONS.index(precision)
+
+
 @dataclasses.dataclass(frozen=True)
 class SpGEMMConfig:
     """Configuration for the SpGEMM pipeline."""
@@ -64,8 +78,12 @@ class SpGEMMConfig:
     # Accumulation dtype of the tiled engines (None: the value dtype).
     acc_dtype: Optional[torch.dtype] = None
 
-    # Matmul precision of the tiled engines.  The Tile16 and Macro128
-    # engines run in full float32 ("highest") and refuse anything else.
+    # Matmul precision of the tiled engines (the Tile16 and Macro128
+    # tiers), JAX's names for it: "highest" multiplies float32 operands
+    # as they are (3xTF32 on the tensor cores); "high" and "default" round
+    # both operands to tf32 and to bfloat16 first (ops/macro.py
+    # round_operands), which trades precision for tensor-core passes.  The
+    # element and DIA engines and float64 tiles ignore it.
     precision: str = "highest"
 
     # Pairs per batched product of the Tile16 engines; the granularity of
@@ -119,6 +137,9 @@ class SpGEMMConfig:
     repeat: int = 10
     # Report the min across repeats instead of the mean.
     fastest: bool = False
+
+    def __post_init__(self):
+        precision_code(self.precision)
 
     def acc(self) -> torch.dtype:
         return self.acc_dtype if self.acc_dtype is not None else self.dtype

@@ -68,6 +68,20 @@
 // full); ptxas then serializes the stage's wgmma chain (warning C7518),
 // which costs less than the skipped slabs save (PERF.md).
 //
+// The precision (SpGEMMConfig.precision, JAX's matmul precision names) is a
+// template argument of the three float32 entries, chosen once a launch; the
+// k-loop holds no branch on it.  HIGHEST is the 3xTF32 split above.  HIGH
+// and DEFAULT run ONE wgmma a k-step on hi alone, no lo: HIGH's hi is
+// tf32_rna(x) (as JAX runs "high" on an NVIDIA card; the TPU's "high" is
+// three bf16 passes), DEFAULT's the bfloat16 rounding of x, nearest-even,
+// which is exact in tf32.  Both products are then exact in float32 (11 x 11
+// and 8 x 8 bits), so a mode is "round both operands, then compute at
+// HIGHEST": its plain version (ops/macro.round_operands) and per-product
+// error ((2u + u^2) |a*b|, u = 2^-11 in tf32, 2^-8 in bfloat16).  The
+// a_lo / b_lo slabs are not written at one pass; the layout stays.  The
+// pattern, the marks and the empty-slab skip do not depend on the
+// precision.
+//
 // Non-finite operands keep IEEE results.  A stage that holds a value with
 // |x| >= 2^63, an Inf or a NaN is MARKED (the warps that split it vote):
 // both warpgroups skip its wgmma (a marked stage is never skipped as empty)
@@ -79,7 +93,9 @@
 // misses it by up to 2^-137), gives the float32 product.  Below 2^63 no
 // product of the split can overflow and a subnormal's split error stays
 // under 2^-74 of its partner's scale: unmarked stages run exactly as
-// before.
+// before.  At HIGH and DEFAULT the FMA rounds each raw operand as the mode
+// does (`rounded`): tf32_rna(3.4028235e38) is Inf, and so is its bfloat16
+// rounding, so such a value gives the plain version's Inf there.
 //
 // The float64 entry `macro_accumulate_pairs_f64` serves the f64 parity mode
 // (the JAX package runs float64 tiles through accumulate_macro_pipelined
@@ -126,6 +142,7 @@
 // persistent entry and the current stream, and raise if the returned
 // cudaError_t is not 0.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -166,6 +183,43 @@ __device__ __forceinline__ unsigned tf32_rna(float x) {
     unsigned r;
     asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
     return r;
+}
+
+// The float32 entries' precision (SpGEMMConfig.precision: 0 "highest",
+// 1 "high", 2 "default").
+enum class Prec : int { HIGHEST = 0, HIGH = 1, DEFAULT = 2 };
+
+// x as one word of the tensor-core operands: HIGHEST splits it into hi and
+// lo; HIGH and DEFAULT keep hi alone, its tf32 or its bfloat16 rounding (lo
+// is 0 and never stored).
+template <Prec P>
+__device__ __forceinline__ void split(float v, unsigned& hi, unsigned& lo) {
+    if constexpr (P == Prec::HIGHEST) {
+        hi = tf32_rna(v);
+        lo = tf32_rna(v - __uint_as_float(hi));
+    } else if constexpr (P == Prec::HIGH) {
+        hi = tf32_rna(v);
+        lo = 0u;
+    } else {
+        hi = __float_as_uint(__bfloat162float(__float2bfloat16_rn(v)));
+        lo = 0u;
+    }
+}
+
+// x as a marked stage's FMA multiplies it: raw at HIGHEST, else rounded as
+// the mode rounds it (HIGH: cvt.rna.tf32's rounding, done on the bits so
+// that the low 13 bits are 0, a NaN kept as it is).
+template <Prec P>
+__device__ __forceinline__ float rounded(float x) {
+    if constexpr (P == Prec::HIGHEST) {
+        return x;
+    } else if constexpr (P == Prec::HIGH) {
+        const unsigned b = __float_as_uint(x);
+        return (b & 0x7FFFFFFFu) > 0x7F800000u
+            ? x : __uint_as_float((b + 0x1000u) & 0xFFFFE000u);
+    } else {
+        return __bfloat162float(__float2bfloat16_rn(x));
+    }
 }
 
 // A stage with a value at or above BIG in magnitude, an Inf or a NaN is
@@ -280,8 +334,9 @@ __device__ __forceinline__ void tc_fetch(TcRegs& r, const float* ra,
     }
 }
 
-// Split the stage into hi / lo, write it swizzled, and write its k-masks and
-// the warp's ANY_NZ / ANY_BAD bits.
+// Split the stage into hi / lo (hi alone at one pass), write it swizzled,
+// and write its k-masks and the warp's ANY_NZ / ANY_BAD bits.
+template <Prec P>
 __device__ __forceinline__ void tc_store(const TcRegs& r, TcStage& s,
                                          unsigned* am, unsigned* bm,
                                          unsigned* a_any, unsigned* b_any) {
@@ -295,16 +350,16 @@ __device__ __forceinline__ void tc_store(const TcRegs& r, TcStage& s,
         unsigned hi[4], lo[4], nzb = 0;
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-            hi[e] = tf32_rna(v[e]);
-            lo[e] = tf32_rna(v[e] - __uint_as_float(hi[e]));
+            split<P>(v[e], hi[e], lo[e]);
             nzb |= (v[e] != 0.f ? 1u : 0u) << e;
             mx = max_nan(mx, fabsf(v[e]));
         }
         const unsigned off = swz(row, 4 * (l & 7));
         *reinterpret_cast<uint4*>(s.a_hi + off) =
             make_uint4(hi[0], hi[1], hi[2], hi[3]);
-        *reinterpret_cast<uint4*>(s.a_lo + off) =
-            make_uint4(lo[0], lo[1], lo[2], lo[3]);
+        if constexpr (P == Prec::HIGHEST)
+            *reinterpret_cast<uint4*>(s.a_lo + off) =
+                make_uint4(lo[0], lo[1], lo[2], lo[3]);
         unsigned m = nzb << (4 * (l & 7));  // the row's 8 lanes hold its 32 k
         m |= __shfl_xor_sync(0xFFFFFFFFu, m, 1);
         m |= __shfl_xor_sync(0xFFFFFFFFu, m, 2);
@@ -320,11 +375,12 @@ __device__ __forceinline__ void tc_store(const TcRegs& r, TcStage& s,
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
             const int n = 4 * (4 * w + (l & 3)) + c;
-            const unsigned hi = tf32_rna(v[c]);
-            const unsigned lo = tf32_rna(v[c] - __uint_as_float(hi));
+            unsigned hi, lo;
+            split<P>(v[c], hi, lo);
             const unsigned off = swz(n, k);
             *reinterpret_cast<unsigned*>(s.b_hi + off) = hi;
-            *reinterpret_cast<unsigned*>(s.b_lo + off) = lo;
+            if constexpr (P == Prec::HIGHEST)
+                *reinterpret_cast<unsigned*>(s.b_lo + off) = lo;
             cm[c] |= (v[c] != 0.f ? 1u : 0u) << k;
             mx = max_nan(mx, fabsf(v[c]));
         }
@@ -354,7 +410,9 @@ __device__ __forceinline__ void tc_store(const TcRegs& r, TcStage& s,
 // A marked stage's partial in FP32 FMA on its raw values, read again from
 // device memory (ap, bp: the pair's tiles; k0: the slab's first k), into the
 // wgmma accumulator's registers in the fragment layout (rows r0, r0 + 8;
-// see Frag).  No shared memory is touched, so no barrier is needed.
+// see Frag), each operand rounded as the precision rounds it.  No shared
+// memory is touched, so no barrier is needed.
+template <Prec P>
 __device__ __forceinline__ void fma_stage(float (&acc)[64],
                                           const float* __restrict__ ap,
                                           const float* __restrict__ bp,
@@ -365,10 +423,10 @@ __device__ __forceinline__ void fma_stage(float (&acc)[64],
         acc[4 * j] = acc[4 * j + 1] = acc[4 * j + 2] = acc[4 * j + 3] = 0.f;
 #pragma unroll 1
         for (int k = k0; k < k0 + KS; ++k) {
-            const float a0 = __ldg(ap + r0 * TILE + k);
-            const float a1 = __ldg(ap + (r0 + 8) * TILE + k);
-            const float b0 = __ldg(bp + k * TILE + n0);
-            const float b1 = __ldg(bp + k * TILE + n0 + 1);
+            const float a0 = rounded<P>(__ldg(ap + r0 * TILE + k));
+            const float a1 = rounded<P>(__ldg(ap + (r0 + 8) * TILE + k));
+            const float b0 = rounded<P>(__ldg(bp + k * TILE + n0));
+            const float b1 = rounded<P>(__ldg(bp + k * TILE + n0 + 1));
             acc[4 * j] = fmaf(a0, b0, acc[4 * j]);
             acc[4 * j + 1] = fmaf(a0, b1, acc[4 * j + 1]);
             acc[4 * j + 2] = fmaf(a1, b0, acc[4 * j + 2]);
@@ -426,8 +484,9 @@ struct Frag {
 // cores run: a marked stage runs in FP32 FMA on the raw operands that
 // operands(ap, bp, k0) names; else a k-slab whose 64 A rows or whose B slab
 // hold no non-zero adds exact zeros to values and flags, and the warpgroup
-// skips it.  The caller's barrier follows.
-template <class Operands>
+// skips it.  The caller's barrier follows.  HIGHEST runs three wgmma a
+// k-step (lo*hi, hi*lo, hi*hi), HIGH and DEFAULT one (hi*hi).
+template <Prec P, class Operands>
 __device__ __forceinline__ void tc_stage(TcShared& sh, int cur, bool next,
                                          Operands operands, TcRegs& regs,
                                          Frag& fr) {
@@ -451,17 +510,21 @@ __device__ __forceinline__ void tc_stage(TcShared& sh, int cur, bool next,
 #pragma unroll
         for (int kk = 0; kk < KS / 8; ++kk) {   // 8 tf32 = 32 bytes
             const unsigned long long dk = (unsigned long long)(kk * 2);
-            wgmma_tf32(fr.acc, a_lo + dk, b_hi + dk, kk);
-            wgmma_tf32(fr.acc, a_hi + dk, b_lo + dk, 1);
-            wgmma_tf32(fr.acc, a_hi + dk, b_hi + dk, 1);
+            if constexpr (P == Prec::HIGHEST) {
+                wgmma_tf32(fr.acc, a_lo + dk, b_hi + dk, kk);
+                wgmma_tf32(fr.acc, a_hi + dk, b_lo + dk, 1);
+                wgmma_tf32(fr.acc, a_hi + dk, b_hi + dk, 1);
+            } else {
+                wgmma_tf32(fr.acc, a_hi + dk, b_hi + dk, kk);
+            }
         }
         asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
     }
     if (next) {
         cp_async_wait1();
         tc_fetch(regs, sh.raw_a[cur ^ 1], sh.raw_b[cur ^ 1]);
-        tc_store(regs, sh.stage[cur ^ 1], sh.am[cur ^ 1], sh.bm[cur ^ 1],
-                 sh.a_any[cur ^ 1], sh.b_any[cur ^ 1]);
+        tc_store<P>(regs, sh.stage[cur ^ 1], sh.am[cur ^ 1], sh.bm[cur ^ 1],
+                    sh.a_any[cur ^ 1], sh.b_any[cur ^ 1]);
     }
     const unsigned m0 = sh.am[cur][r0], m1 = sh.am[cur][r0 + 8];
     if ((run || bad) && (m0 | m1) != 0u) {  // pattern of this stage
@@ -482,7 +545,7 @@ __device__ __forceinline__ void tc_stage(TcShared& sh, int cur, bool next,
         const float *ap, *bp;
         int k0;
         operands(ap, bp, k0);
-        fma_stage(fr.acc, ap, bp, k0, r0, l);
+        fma_stage<P>(fr.acc, ap, bp, k0, r0, l);
     }
     if (run || bad) {
 #pragma unroll
@@ -493,6 +556,7 @@ __device__ __forceinline__ void tc_stage(TcShared& sh, int cur, bool next,
 // One C tile a block (the class entries): the tile's pairs q < n_pairs,
 // operands A[a0 + a_tab[q]], B[b0 + b_tab[q]], as a stream of (pair, k-slab)
 // stages over a two-stage ring, stored at c_num / c_flag.
+template <Prec P>
 __device__ __forceinline__ void tile_product_tc(
         const float* __restrict__ a_dense, const float* __restrict__ b_dense,
         const int* __restrict__ a_tab, const int* __restrict__ b_tab,
@@ -515,20 +579,20 @@ __device__ __forceinline__ void tile_product_tc(
     if (n_stages > 0) {
         cp_async_wait1();
         tc_fetch(regs, sh.raw_a[0], sh.raw_b[0]);
-        tc_store(regs, sh.stage[0], sh.am[0], sh.bm[0], sh.a_any[0],
-                 sh.b_any[0]);
+        tc_store<P>(regs, sh.stage[0], sh.am[0], sh.bm[0], sh.a_any[0],
+                    sh.b_any[0]);
     }
     __syncthreads();
     for (int st = 0; st < n_stages; ++st) {
         if (st + 2 < n_stages) issue(st + 2);   // into the raw slab of st
         cp_async_commit();
         const int q = st / SLABS_PER_PAIR;
-        tc_stage(sh, st & 1, st + 1 < n_stages,
-                 [&](const float*& ap, const float*& bp, int& k0) {
-                     ap = a_dense + (a0 + a_tab[q]) * TILE_ELEMS;
-                     bp = b_dense + (b0 + b_tab[q]) * TILE_ELEMS;
-                     k0 = KS * (st % SLABS_PER_PAIR);
-                 }, regs, fr);
+        tc_stage<P>(sh, st & 1, st + 1 < n_stages,
+                    [&](const float*& ap, const float*& bp, int& k0) {
+                        ap = a_dense + (a0 + a_tab[q]) * TILE_ELEMS;
+                        bp = b_dense + (b0 + b_tab[q]) * TILE_ELEMS;
+                        k0 = KS * (st % SLABS_PER_PAIR);
+                    }, regs, fr);
         __syncthreads();
     }
     fr.store(c_num, c_flag, 0);
@@ -560,6 +624,7 @@ struct PairWalk {
 // stage st + 1 exists when st + 1 < issued.  The issue cursor is at most
 // one tile ahead of the compute (a tile has 4 stages or more), so at most
 // AHEAD + 3 < CLAIMS slots are in use at once.
+template <Prec P>
 __device__ __forceinline__ void pair_stream(
         const float* __restrict__ a_dense, const float* __restrict__ b_dense,
         const PairWalk& w, float* __restrict__ c_num,
@@ -650,8 +715,8 @@ __device__ __forceinline__ void pair_stream(
     if (issued > 0) {
         cp_async_wait1();
         tc_fetch(regs, sh.raw_a[0], sh.raw_b[0]);
-        tc_store(regs, sh.stage[0], sh.am[0], sh.bm[0], sh.a_any[0],
-                 sh.b_any[0]);
+        tc_store<P>(regs, sh.stage[0], sh.am[0], sh.bm[0], sh.a_any[0],
+                    sh.b_any[0]);
     }
     __syncthreads();
     for (int st = 0; st < issued; ++st) {
@@ -665,12 +730,12 @@ __device__ __forceinline__ void pair_stream(
         if (fresh && t == 0) tk_new = atomicAdd(w.next, 1);
         issue();                            // stage st + 2, into raw slot
         cp_async_commit();                  // st % 2
-        tc_stage(sh, st & 1, st + 1 < issued,
-                 [&](const float*& ap, const float*& bp, int& k0) {
-                     ap = a_dense + (long long)w.a_tab[cq] * TILE_ELEMS;
-                     bp = b_dense + (long long)w.b_tab[cq] * TILE_ELEMS;
-                     k0 = KS * cs;
-                 }, regs, fr);
+        tc_stage<P>(sh, st & 1, st + 1 < issued,
+                    [&](const float*& ap, const float*& bp, int& k0) {
+                        ap = a_dense + (long long)w.a_tab[cq] * TILE_ELEMS;
+                        bp = b_dense + (long long)w.b_tab[cq] * TILE_ELEMS;
+                        k0 = KS * cs;
+                    }, regs, fr);
         if (++cs == SLABS_PER_PAIR) {       // the compute cursor's pair
             cs = 0;
             ++cq;
@@ -702,6 +767,7 @@ __device__ __forceinline__ TcShared& tc_shared() {
 // in stream order, one at a time, from the counter `next`; tile c's pairs
 // are [seg_ptr[c], seg_ptr[c + 1]).  Padding pairs lie past seg_ptr[c_cap]
 // and are never read.
+template <Prec P>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 macro_pairs_kernel(const float* __restrict__ a_dense,
                    const float* __restrict__ b_dense,
@@ -710,13 +776,14 @@ macro_pairs_kernel(const float* __restrict__ a_dense,
                    const int* __restrict__ seg_ptr, int* next, int c_cap,
                    float* __restrict__ c_num,
                    unsigned char* __restrict__ c_flag) {
-    pair_stream(a_dense, b_dense, PairWalk{seg_ptr, a_idx, b_idx, next, c_cap},
-                c_num, c_flag, tc_shared());
+    pair_stream<P>(a_dense, b_dense,
+                   PairWalk{seg_ptr, a_idx, b_idx, next, c_cap}, c_num,
+                   c_flag, tc_shared());
 }
 
 // One block a (step, tile) of a signature class.  RAGGED: the tile's pairs
 // are [p_ptr[tt], p_ptr[tt + 1]) of the offset tables; else p pairs a tile.
-template <bool RAGGED>
+template <bool RAGGED, Prec P>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 macro_class_kernel(const float* __restrict__ a_dense,
                    const float* __restrict__ b_dense,
@@ -730,10 +797,10 @@ macro_class_kernel(const float* __restrict__ a_dense,
     const int lo = RAGGED ? p_ptr[tt] : tt * p;
     const int n = RAGGED ? p_ptr[tt + 1] - lo : p;
     const long long row = base + (long long)blockIdx.x;
-    tile_product_tc(a_dense, b_dense, a_offs + lo, b_offs + lo,
-                    ab_bases[2 * step], ab_bases[2 * step + 1], n,
-                    c_num + row * TILE_ELEMS, c_flag + row * TILE_ELEMS,
-                    tc_shared());
+    tile_product_tc<P>(a_dense, b_dense, a_offs + lo, b_offs + lo,
+                       ab_bases[2 * step], ab_bases[2 * step + 1], n,
+                       c_num + row * TILE_ELEMS, c_flag + row * TILE_ELEMS,
+                       tc_shared());
 }
 
 // The float64 entry (see the head of the file): one block of 8 warps a C
@@ -1130,15 +1197,46 @@ cudaError_t allow_tc_smem(Kernel kernel) {
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TC_SMEM);
 }
 
-template <bool RAGGED>
+// f(PrecTag<P>{}) for the Prec of `precision`: the instance of each
+// float32 entry is chosen once, at the launch.
+template <Prec P>
+struct PrecTag {
+    static constexpr Prec value = P;
+};
+template <class F>
+cudaError_t with_prec(int precision, F f) {
+    switch (precision) {
+        case (int)Prec::HIGHEST: return f(PrecTag<Prec::HIGHEST>{});
+        case (int)Prec::HIGH: return f(PrecTag<Prec::HIGH>{});
+        case (int)Prec::DEFAULT: return f(PrecTag<Prec::DEFAULT>{});
+        default: return cudaErrorInvalidValue;
+    }
+}
+
+template <Prec P>
+cudaError_t launch_pairs(const float* a_dense, const float* b_dense,
+                         const int* a_idx, const int* b_idx,
+                         const int* seg_ptr, float* c_num,
+                         unsigned char* c_flag, int c_cap, int grid, int* next,
+                         cudaStream_t stream) {
+    const cudaError_t attr = allow_tc_smem(macro_pairs_kernel<P>);
+    if (attr != cudaSuccess) return attr;
+    macro_pairs_kernel<P><<<grid < c_cap ? grid : c_cap, TC_THREADS, TC_SMEM,
+                            stream>>>(a_dense, b_dense, a_idx, b_idx,
+                                      seg_ptr, next, c_cap, c_num, c_flag);
+    return cudaGetLastError();
+}
+
+template <bool RAGGED, Prec P>
 cudaError_t launch_class(const float* a_dense, const float* b_dense,
                          const int* ab_bases, const int* p_ptr,
                          const int* a_offs, const int* b_offs, int t, int p,
                          int n_steps, long long base, float* c_num,
                          unsigned char* c_flag, cudaStream_t stream) {
-    const cudaError_t attr = allow_tc_smem(macro_class_kernel<RAGGED>);
+    const cudaError_t attr = allow_tc_smem(macro_class_kernel<RAGGED, P>);
     if (attr != cudaSuccess) return attr;
-    macro_class_kernel<RAGGED><<<n_steps * t, TC_THREADS, TC_SMEM, stream>>>(
+    macro_class_kernel<RAGGED, P><<<n_steps * t, TC_THREADS, TC_SMEM,
+                                    stream>>>(
         a_dense, b_dense, ab_bases, p_ptr, a_offs, b_offs, t, p, base,
         c_num, c_flag);
     return cudaGetLastError();
@@ -1149,20 +1247,21 @@ cudaError_t launch_class(const float* a_dense, const float* b_dense,
 // c_num (c_cap, 128, 128) f32 and c_flag (c_cap, 128, 128) u8 are written
 // whole; seg_ptr has c_cap + 1 entries; next is one int, 0 at the launch.
 // grid: blocks of the persistent kernel (the wrapper passes the SM count;
-// at most c_cap are launched).
+// at most c_cap are launched).  precision: 0 "highest", 1 "high",
+// 2 "default" (another value: cudaErrorInvalidValue), in all three float32
+// entries.
 extern "C" int macro_accumulate_pairs_f32(
         const float* a_dense, const float* b_dense, const int* a_idx,
         const int* b_idx, const int* seg_ptr, float* c_num,
-        unsigned char* c_flag, int c_cap, int grid, int* next,
+        unsigned char* c_flag, int c_cap, int grid, int* next, int precision,
         cudaStream_t stream) {
     if (c_cap <= 0) return (int)cudaSuccess;
     if (grid <= 0) return (int)cudaErrorInvalidConfiguration;
-    const cudaError_t attr = allow_tc_smem(macro_pairs_kernel);
-    if (attr != cudaSuccess) return (int)attr;
-    macro_pairs_kernel<<<grid < c_cap ? grid : c_cap, TC_THREADS, TC_SMEM,
-                         stream>>>(a_dense, b_dense, a_idx, b_idx, seg_ptr,
-                                   next, c_cap, c_num, c_flag);
-    return (int)cudaGetLastError();
+    return (int)with_prec(precision, [&](auto tag) {
+        return launch_pairs<decltype(tag)::value>(
+            a_dense, b_dense, a_idx, b_idx, seg_ptr, c_num, c_flag, c_cap,
+            grid, next, stream);
+    });
 }
 
 // Slab rows [base, base + n_steps * t) of c_num / c_flag are written whole.
@@ -1170,22 +1269,26 @@ extern "C" int macro_class_ragged_f32(
         const float* a_dense, const float* b_dense, const int* ab_bases,
         const int* p_ptr, const int* a_offs, const int* b_offs, int t,
         int n_steps, long long base, float* c_num, unsigned char* c_flag,
-        cudaStream_t stream) {
+        int precision, cudaStream_t stream) {
     if (n_steps <= 0 || t <= 0) return (int)cudaSuccess;
-    return (int)launch_class<true>(a_dense, b_dense, ab_bases, p_ptr, a_offs,
-                                   b_offs, t, 0, n_steps, base, c_num,
-                                   c_flag, stream);
+    return (int)with_prec(precision, [&](auto tag) {
+        return launch_class<true, decltype(tag)::value>(
+            a_dense, b_dense, ab_bases, p_ptr, a_offs, b_offs, t, 0, n_steps,
+            base, c_num, c_flag, stream);
+    });
 }
 
 extern "C" int macro_class_uniform_f32(
         const float* a_dense, const float* b_dense, const int* ab_bases,
         const int* a_offs, const int* b_offs, int t, int p, int n_steps,
-        long long base, float* c_num, unsigned char* c_flag,
+        long long base, float* c_num, unsigned char* c_flag, int precision,
         cudaStream_t stream) {
     if (n_steps <= 0 || t <= 0) return (int)cudaSuccess;
-    return (int)launch_class<false>(a_dense, b_dense, ab_bases, nullptr,
-                                    a_offs, b_offs, t, p, n_steps, base,
-                                    c_num, c_flag, stream);
+    return (int)with_prec(precision, [&](auto tag) {
+        return launch_class<false, decltype(tag)::value>(
+            a_dense, b_dense, ab_bases, nullptr, a_offs, b_offs, t, p,
+            n_steps, base, c_num, c_flag, stream);
+    });
 }
 
 // The float64 pair stream: c_num (c_cap, 128, 128) f64 and c_flag

@@ -272,6 +272,7 @@ class StencilMacroPlan:
     macro_chunk: int
     n_pairs: int
     planner: str             # "plan_stencil" | "plan_runs": who built it
+    precision: str = "highest"   # of the class kernels and residual pairs
 
     def grown(self):
         return self
@@ -286,7 +287,8 @@ class StencilMacroPlan:
         from pem_spgemm_tpu_torch.ops.stencil import stencil_accumulate
         am, bm = macro_operands(a, b)
         c_dense, c_flags = stencil_accumulate(am.acc_dense(), bm.acc_dense(),
-                                              self.plan, self.macro_chunk)
+                                              self.plan, self.macro_chunk,
+                                              self.precision)
         cptr = macro_structure(c_flags)
         return (self.c_tile_row, self.c_tile_col, c_dense, c_flags, cptr,
                 cptr[-1], torch.zeros((), dtype=torch.bool,
@@ -302,6 +304,7 @@ class MacroPlan:
     c_cap: int
     chunk: int
     acc_dtype: object
+    precision: str = "highest"
 
     def grown(self):
         """Next-size plan after an overflow trip (double every capacity)."""
@@ -320,7 +323,7 @@ class MacroPlan:
             am.tile_row, am.tile_col, am.acc_dense(),
             bm.tile_rowptr, bm.tile_col, bm.acc_dense(), am.ntiles,
             p_cap=self.p_cap, c_cap=self.c_cap, chunk=self.chunk,
-            acc_dtype=self.acc_dtype,
+            acc_dtype=self.acc_dtype, precision=self.precision,
             packed_coords=am.n_macro_rows < (1 << 15))
 
 
@@ -362,7 +365,7 @@ def _try_stencil_plan(config, a, b):
     return StencilMacroPlan(
         plan=plan, c_tile_row=torch.from_numpy(ctr).to(dev),
         c_tile_col=torch.from_numpy(ctc).to(dev), macro_chunk=chunk,
-        n_pairs=n_pairs, planner=planner)
+        n_pairs=n_pairs, planner=planner, precision=config.precision)
 
 
 def make_plan(result, config, a, b):
@@ -405,7 +408,8 @@ def make_plan(result, config, a, b):
                 return sp
         return MacroPlan(p_cap=gran(result.n_pairs, config.macro_chunk),
                          c_cap=gran(result.c_ntiles, 256),
-                         chunk=config.macro_chunk, acc_dtype=config.acc())
+                         chunk=config.macro_chunk, acc_dtype=config.acc(),
+                         precision=config.precision)
     return SpGEMMPlan(
         p_cap=gran(result.n_pairs, config.numeric_chunk),
         c_cap=gran(result.c_ntiles, 1024),

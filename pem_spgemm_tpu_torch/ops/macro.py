@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from pem_spgemm_tpu_torch.config import precision_code
 from pem_spgemm_tpu_torch.formats.coo import _to_numpy
 from pem_spgemm_tpu_torch.ops import symbolic
 
@@ -35,18 +36,44 @@ def require_full_fp32() -> None:
             "engine accumulates in full float32 (precision 'highest')")
 
 
+def round_operands(x, precision: str):
+    """float32 operand values as a precision multiplies them, elementwise:
+    "high" rounds to tf32 (10 stored mantissa bits, to nearest with ties
+    away from zero, as PTX cvt.rna.tf32.f32; an overflow gives Inf),
+    "default" to bfloat16 (to nearest even).  Inf and NaN stay.  Every
+    product of two rounded values is then exact in float32, so a mode is
+    "round, then compute at 'highest'".  Returns ``x`` itself at "highest"
+    and for any other dtype (float64 ignores the precision; bfloat16 values
+    are exact in both roundings)."""
+    code = precision_code(precision)
+    if code == 0 or x.dtype != torch.float32:
+        return x
+    if precision == "default":
+        return x.to(torch.bfloat16).to(torch.float32)
+    bits = x.contiguous().view(torch.int32)
+    nan = (bits & 0x7FFFFFFF) > 0x7F800000
+    out = torch.where(nan, bits, (bits + 0x1000) & ~0x1FFF)
+    return out.view(torch.float32).view(x.shape)
+
+
 def accumulate_macro(a_dense, b_dense, a_idx, b_idx, c_tile_id, c_cap: int,
-                     chunk: int, acc_dtype=torch.float32):
+                     chunk: int, acc_dtype=torch.float32,
+                     precision: str = "highest"):
     """Fused numeric + structural accumulation over macro-tile pairs.
 
     a_dense/b_dense: (T+1, 128, 128) tables (zero tile at T).  a_idx, b_idx,
     c_tile_id: (p_cap,) i32, p_cap a multiple of chunk; padding pairs carry
     c_tile_id >= c_cap and are dropped (they land in one scratch row).
+    Values are products of the operands in acc_dtype rounded as
+    ``precision`` says (round_operands; each gathered chunk is rounded,
+    which gives the rounded tables' bits); the 0/1 pattern comes from the
+    raw values, so a value that rounds to 0 still counts.
     Returns (c_dense (c_cap,128,128) acc_dtype, c_flags (c_cap,128,128)
     uint8).  index_add_ on the GPU adds duplicates with atomics, so values
     differ from run to run within the float32 bound; the flags do not.
     """
     require_full_fp32()
+    precision_code(precision)
     p_cap = a_idx.shape[0]
     assert p_cap % chunk == 0, (p_cap, chunk)
     dev = a_dense.device
@@ -59,7 +86,8 @@ def accumulate_macro(a_dense, b_dense, a_idx, b_idx, c_tile_id, c_cap: int,
         s_c = seg[sl:sl + chunk]
         ad = a_dense[a_idx[sl:sl + chunk].long()].to(acc_dtype)
         bd = b_dense[b_idx[sl:sl + chunk].long()].to(acc_dtype)
-        c_dense.index_add_(0, s_c, torch.bmm(ad, bd))
+        c_dense.index_add_(0, s_c, torch.bmm(round_operands(ad, precision),
+                                             round_operands(bd, precision)))
         c_cnt.index_add_(0, s_c, torch.bmm((ad != 0).float(),
                                            (bd != 0).float()))
     return c_dense[:c_cap], (c_cnt[:c_cap] > 0).to(torch.uint8)
@@ -91,8 +119,8 @@ def macro_structure(c_flags):
 def macro_spgemm_fixed(a_tile_row, a_tile_col, a_dense,
                        b_tile_rowptr, b_tile_col, b_dense, ntiles_a: int, *,
                        p_cap: int, c_cap: int, chunk: int,
-                       acc_dtype=torch.float32, packed: bool = True,
-                       packed_coords: bool = False):
+                       acc_dtype=torch.float32, precision: str = "highest",
+                       packed: bool = True, packed_coords: bool = False):
     """The macro SpGEMM at fixed capacities, without size feedback (no
     device-to-host copy: every size stays a device scalar).
 
@@ -112,7 +140,7 @@ def macro_spgemm_fixed(a_tile_row, a_tile_col, a_dense,
         n_pairs, p_cap, packed)
     c_dense, c_flags = accumulate_macro_pairs(
         a_dense, b_dense, a_idx, b_idx, c_tile_id, c_cap, chunk=chunk,
-        acc_dtype=acc_dtype)
+        acc_dtype=acc_dtype, precision=precision)
     c_tile_row, c_tile_col = cstruct.c_tile_coords(
         c_tile_id, c_row, c_col, c_cap, packed_coords)
     cptr = macro_structure(c_flags)

@@ -25,9 +25,13 @@ with nvcc at first use and bound with ctypes by ops/_build.py):
                            and flags.
 
 The three float32 entries compute their 128x128x128 products on the
-tensor cores (wgmma on tf32 operands with a 3xTF32 split, which keeps
-float32 accuracy; a slab holding an Inf, a NaN or a value of 2^63 or more
-runs in FP32 FMA, so non-finite operands give IEEE results), and every
+tensor cores (wgmma on tf32 operands; a slab holding an Inf, a NaN or a
+value of 2^63 or more runs in FP32 FMA, so non-finite operands give IEEE
+results) at the caller's ``precision``, which the kernel takes as a
+template argument: "highest" splits each operand into hi + lo (3xTF32, 3
+wgmma a k-step, float32 accuracy), "high" and "default" multiply its tf32
+or bfloat16 rounding in one wgmma a k-step (``ops.macro.round_operands``
+then the "highest" plain version is their plain version).  Every
 entry forms the structural pattern of the same products as uint8 flags from
 the raw values (see ops/macro.py).  Every C tile is written once by the
 block that owns it: the class entries and the float64 entry launch one
@@ -49,6 +53,7 @@ import ctypes
 
 import torch
 
+from pem_spgemm_tpu_torch.config import precision_code
 from pem_spgemm_tpu_torch.ops import _build
 from pem_spgemm_tpu_torch.ops.macro import TILE, accumulate_macro
 from pem_spgemm_tpu_torch.ops.stencil import class_call_plain, p_list_of
@@ -69,11 +74,11 @@ def reset_launch_counts() -> None:
 def _declare(lib) -> None:
     vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.macro_accumulate_pairs_f32.argtypes = [vp, vp, vp, vp, vp, vp, vp,
-                                               ci, ci, vp, vp]
+                                               ci, ci, vp, ci, vp]
     lib.macro_class_ragged_f32.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci,
-                                           ll, vp, vp, vp]
+                                           ll, vp, vp, ci, vp]
     lib.macro_class_uniform_f32.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci,
-                                            ll, vp, vp, vp]
+                                            ll, vp, vp, ci, vp]
     lib.macro_accumulate_pairs_f64.argtypes = [vp, vp, vp, vp, vp, vp, vp,
                                                ci, ci, ci, ci, vp, vp, vp,
                                                vp]
@@ -147,7 +152,8 @@ def persistent_grid(device) -> int:
 
 
 def accumulate_macro_pairs(a_dense, b_dense, a_idx, b_idx, seg, c_cap: int,
-                           *, chunk: int = 256, acc_dtype=None):
+                           *, chunk: int = 256, acc_dtype=None,
+                           precision: str = "highest"):
     """(c_dense (c_cap,128,128), c_flags (c_cap,128,128) uint8) of a pair
     stream sorted by C tile.
 
@@ -156,10 +162,13 @@ def accumulate_macro_pairs(a_dense, b_dense, a_idx, b_idx, seg, c_cap: int,
     are skipped, never used as an index).  Tiles without pairs, among them
     every tile from the stream's tile count up to c_cap, are zero.  ``chunk``
     and ``acc_dtype`` (None: the tiles' dtype) are read by the plain version
-    only (CPU tensors).
+    only (CPU tensors).  ``precision`` ("highest", "high", "default";
+    anything else raises) is the float32 products' (the float64 entry
+    ignores it, as float64 tiles do in the JAX package).
     CUDA tiles of float32 launch the float32 entry, of float64 the float64
     entry (c_dense then float64); any other dtype raises.
     """
+    prec = precision_code(precision)
     _check_tiles(a_dense, "a_dense")
     _check_tiles(b_dense, "b_dense", a_dense.device)
     dev = a_dense.device
@@ -171,7 +180,7 @@ def accumulate_macro_pairs(a_dense, b_dense, a_idx, b_idx, seg, c_cap: int,
     _require_on_gpu((a_dense, b_dense), (torch.float32, torch.float64))
     if not a_dense.is_cuda:
         return accumulate_macro(a_dense, b_dense, a_idx, b_idx, seg, c_cap,
-                                chunk, acc_dtype or a_dense.dtype)
+                                chunk, acc_dtype or a_dense.dtype, precision)
     c_num = torch.empty((c_cap, TILE, TILE), dtype=a_dense.dtype, device=dev)
     c_flag = torch.empty((c_cap, TILE, TILE), dtype=torch.uint8, device=dev)
     if c_cap == 0:                      # nothing to launch, nothing counted
@@ -202,7 +211,7 @@ def accumulate_macro_pairs(a_dense, b_dense, a_idx, b_idx, seg, c_cap: int,
         next_tile = torch.zeros(1, dtype=torch.int32, device=dev)
         with torch.cuda.device(dev):
             err = lib.macro_accumulate_pairs_f32(
-                *ptrs, persistent_grid(dev), next_tile.data_ptr(),
+                *ptrs, persistent_grid(dev), next_tile.data_ptr(), prec,
                 torch.cuda.current_stream().cuda_stream)
     _raise_on(err, entry)
     LAUNCHES[entry] += 1
@@ -252,7 +261,8 @@ def _class_tables(tables, t, n_p, dev):
 
 
 def class_call2(c_num, c_pat, a_dense, b_dense, ab_bases, t, p, ar, br,
-                a_offs, b_offs, base, n_steps, *, tables=None):
+                a_offs, b_offs, base, n_steps, *, tables=None,
+                precision: str = "highest"):
     """Run one signature class into slab rows [base, base + n_steps*t), in
     place; returns (c_num, c_pat).
 
@@ -261,13 +271,14 @@ def class_call2(c_num, c_pat, a_dense, b_dense, ab_bases, t, p, ar, br,
     the per-pair offsets from the step's bases, below the window extents
     ar / br.  ``tables`` are the class's device tables
     (``ops.stencil.class_tables``): CUDA tiles need them, CPU tiles do not
-    read them.
+    read them.  ``precision`` as in ``accumulate_macro_pairs``.
     """
+    prec = precision_code(precision)
     dev, n_p = _check_class(c_num, c_pat, a_dense, b_dense, ab_bases, t, p,
                             ar, br, a_offs, b_offs, base, n_steps)
     if not a_dense.is_cuda:
         return class_call_plain(c_num, c_pat, a_dense, b_dense, ab_bases, t,
-                                p, a_offs, b_offs, base)
+                                p, a_offs, b_offs, base, precision)
     if n_steps * t == 0:                # nothing to launch, nothing counted
         return c_num, c_pat
     p_ptr, ao, bo = _class_tables(tables, t, n_p, dev)
@@ -276,16 +287,18 @@ def class_call2(c_num, c_pat, a_dense, b_dense, ab_bases, t, p, ar, br,
         _raise_on(lib.macro_class_ragged_f32(
             a_dense.data_ptr(), b_dense.data_ptr(), ab_bases.data_ptr(),
             p_ptr.data_ptr(), ao.data_ptr(), bo.data_ptr(), t, n_steps, base,
-            c_num.data_ptr(), c_pat.data_ptr(),
+            c_num.data_ptr(), c_pat.data_ptr(), prec,
             torch.cuda.current_stream().cuda_stream), "macro_class_ragged")
     LAUNCHES["macro_class_ragged"] += 1
     return c_num, c_pat
 
 
 def class_call(c_num, c_pat, a_dense, b_dense, ab_bases, t, p, ar, br,
-               a_offs, b_offs, base, *, tables=None):
+               a_offs, b_offs, base, *, tables=None,
+               precision: str = "highest"):
     """``class_call2`` for a uniform pair count (p an int) through the entry
     that needs no per-tile table; n_steps is read off ab_bases."""
+    prec = precision_code(precision)
     if not isinstance(p, int):
         raise TypeError("class_call takes a uniform pair count (an int); "
                         "ragged classes go through class_call2")
@@ -294,7 +307,7 @@ def class_call(c_num, c_pat, a_dense, b_dense, ab_bases, t, p, ar, br,
                             ar, br, a_offs, b_offs, base, n_steps)
     if not a_dense.is_cuda:
         return class_call_plain(c_num, c_pat, a_dense, b_dense, ab_bases, t,
-                                p, a_offs, b_offs, base)
+                                p, a_offs, b_offs, base, precision)
     if n_steps * t == 0:
         return c_num, c_pat
     _p_ptr, ao, bo = _class_tables(tables, t, n_p, dev)
@@ -303,7 +316,7 @@ def class_call(c_num, c_pat, a_dense, b_dense, ab_bases, t, p, ar, br,
         _raise_on(lib.macro_class_uniform_f32(
             a_dense.data_ptr(), b_dense.data_ptr(), ab_bases.data_ptr(),
             ao.data_ptr(), bo.data_ptr(), t, p, n_steps, base,
-            c_num.data_ptr(), c_pat.data_ptr(),
+            c_num.data_ptr(), c_pat.data_ptr(), prec,
             torch.cuda.current_stream().cuda_stream), "macro_class_uniform")
     LAUNCHES["macro_class_uniform"] += 1
     return c_num, c_pat

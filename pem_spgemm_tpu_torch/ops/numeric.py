@@ -20,14 +20,18 @@ order the adds land in and match the JAX package (and one run another)
 within the float32 dot-product bound; the 0/1 pattern counts are integers
 below 2^24 in float32, exact in any order, so the structure is equal bit
 for bit.  Products run in full float32 (``macro.require_full_fp32``):
-never TF32.
+never TF32.  ``precision`` "high" or "default" rounds the operand tables
+to tf32 or bfloat16 once a call (``macro.round_operands``) before those
+float32 products, where the JAX package hands the precision to its einsum;
+the 0/1 pattern is taken from the raw tables.
 """
 
 from __future__ import annotations
 
 import torch
 
-from pem_spgemm_tpu_torch.ops.macro import require_full_fp32
+from pem_spgemm_tpu_torch.config import precision_code
+from pem_spgemm_tpu_torch.ops.macro import require_full_fp32, round_operands
 
 
 def _densify(vals, rowcol, elem_tile, rows: int):
@@ -56,11 +60,18 @@ def densify_tiles_flat(vals, rowcol, elem_tile, tile_cap: int):
 
 
 def _check_precision(precision: str) -> None:
-    if precision != "highest":
-        raise NotImplementedError(
-            f"precision={precision!r}: the Tile16 engines of this package "
-            "accumulate in full float32 only ('highest')")
+    precision_code(precision)
     require_full_fp32()
+
+
+def _rounded(table, acc_dtype, precision: str):
+    """A float32 operand table rounded as ``precision`` says, where the
+    products are float32; else the table itself (at "highest", for float64
+    products, and for bfloat16 values, which both roundings keep), so those
+    paths are unchanged."""
+    if acc_dtype != torch.float32:
+        return table
+    return round_operands(table, precision)
 
 
 def accumulate_fused_flat(a_flat, b_flat, a_idx, b_idx, c_tile_id,
@@ -72,23 +83,30 @@ def accumulate_fused_flat(a_flat, b_flat, a_idx, b_idx, c_tile_id,
     pairs: gather both operand tiles, cast them to acc_dtype (bf16 operands
     too), take one batched 16x16 product of the values and one of the 0/1
     patterns (in float32: the counts stay exact integers), and add both
-    into the C tiles.  Returns (c_dense (c_cap, 256) acc_dtype, c_counts
-    (c_cap, 256) float32).
+    into the C tiles.  Values are read from the tables rounded as
+    ``precision`` says (once a call), the patterns from the raw tables.
+    Returns (c_dense (c_cap, 256) acc_dtype, c_counts (c_cap, 256)
+    float32).
     """
     _check_precision(precision)
     p_cap = a_idx.shape[0]
     assert p_cap % chunk == 0, (p_cap, chunk)
     dev = a_flat.device
+    a_val = _rounded(a_flat, acc_dtype, precision)
+    b_val = a_val if b_flat is a_flat else _rounded(b_flat, acc_dtype,
+                                                    precision)
     seg = c_tile_id.clamp(max=c_cap).long()
     c_dense = torch.zeros((c_cap + 1, 256), dtype=acc_dtype, device=dev)
     c_cnt = torch.zeros((c_cap + 1, 256), dtype=torch.float32, device=dev)
     for sl in range(0, p_cap, chunk):
         s_c = seg[sl:sl + chunk]
-        ad = a_flat[a_idx[sl:sl + chunk].long()].view(-1, 16, 16).to(
-            acc_dtype)
-        bd = b_flat[b_idx[sl:sl + chunk].long()].view(-1, 16, 16).to(
-            acc_dtype)
-        c_dense.index_add_(0, s_c, torch.bmm(ad, bd).view(-1, 256))
+        ai = a_idx[sl:sl + chunk].long()
+        bi = b_idx[sl:sl + chunk].long()
+        ad = a_flat[ai].view(-1, 16, 16).to(acc_dtype)
+        bd = b_flat[bi].view(-1, 16, 16).to(acc_dtype)
+        av = ad if a_val is a_flat else a_val[ai].view(-1, 16, 16)
+        bv = bd if b_val is b_flat else b_val[bi].view(-1, 16, 16)
+        c_dense.index_add_(0, s_c, torch.bmm(av, bv).view(-1, 256))
         c_cnt.index_add_(0, s_c, torch.bmm(
             (ad != 0).to(torch.float32),
             (bd != 0).to(torch.float32)).view(-1, 256))
@@ -102,9 +120,13 @@ def accumulate_dense(a_dense, b_dense, a_idx, b_idx, c_tile_id, c_cap: int,
 
     a_dense / b_dense: (T, 16, 16) with no zero tile, so padding pairs'
     operand indices are clamped in range (their products land in the
-    dropped row c_cap).  Returns (c_cap, 16, 16) acc_dtype.
+    dropped row c_cap).  Values are read from the tables rounded as
+    ``precision`` says (once a call).  Returns (c_cap, 16, 16) acc_dtype.
     """
     _check_precision(precision)
+    same = b_dense is a_dense
+    a_dense = _rounded(a_dense, acc_dtype, precision)
+    b_dense = a_dense if same else _rounded(b_dense, acc_dtype, precision)
     p_cap = a_idx.shape[0]
     assert p_cap % chunk == 0, (p_cap, chunk)
     seg = c_tile_id.clamp(max=c_cap).long()

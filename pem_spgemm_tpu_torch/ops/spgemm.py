@@ -268,10 +268,6 @@ class SpGEMM:
             accumulate_macro_pairs
         from pem_spgemm_tpu_torch.ops.scanops import can_pack
         cfg = self.config
-        if cfg.precision != "highest":
-            raise NotImplementedError(
-                f"precision={cfg.precision!r}: the Macro128 engine of this "
-                "package accumulates in full float32 only")
         am, bm = macro_operands(a, b)
         if am.dense.dtype == torch.bfloat16 and cfg.acc() != torch.float32:
             raise NotImplementedError(
@@ -302,7 +298,8 @@ class SpGEMM:
             # on the operands); C stays in the accumulation dtype
             c_dense, c_flags = accumulate_macro_pairs(
                 am.acc_dense(), bm.acc_dense(), a_idx, b_idx, c_tile_id,
-                c_cap, chunk=chunk, acc_dtype=cfg.acc())
+                c_cap, chunk=chunk, acc_dtype=cfg.acc(),
+                precision=cfg.precision)
             box["sync"] = c_dense
 
         with timers.phase("step2") as box:

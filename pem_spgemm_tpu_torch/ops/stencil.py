@@ -31,7 +31,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from pem_spgemm_tpu_torch.ops.macro import TILE, require_full_fp32
+from pem_spgemm_tpu_torch.config import precision_code
+from pem_spgemm_tpu_torch.ops.macro import (TILE, require_full_fp32,
+                                            round_operands)
 
 T_STEP = 8              # C tiles per step of the stencil plan
 MIN_CLASS_STEPS = 4     # rarer patterns go to the residual path
@@ -292,13 +294,15 @@ PLAIN_PAIRS = 1024      # pairs per batched product of the plain class call
 
 
 def class_call_plain(c_num, c_pat, a_dense, b_dense, ab_bases, t, p, a_offs,
-                     b_offs, base):
+                     b_offs, base, precision: str = "highest"):
     """One class into slab rows [base, base + n_steps*t), in place: for step
     s and tile tt, row base + s*t + tt = the sum over the tile's pairs of
-    A[a0_s + a_off] @ B[b0_s + b_off], and the flag of the same sum over
-    the 0/1 patterns.  The plain version of both class kernels (ragged or
+    A[a0_s + a_off] @ B[b0_s + b_off] on operands rounded as ``precision``
+    says (ops.macro.round_operands), and the flag of the same sum over the
+    raw 0/1 patterns.  The plain version of both class kernels (ragged or
     uniform p); serves CPU tensors and is the kernels' parity oracle."""
     require_full_fp32()
+    precision_code(precision)
     dev = a_dense.device
     p_list = p_list_of(t, p)
     n_p = sum(p_list)
@@ -315,7 +319,9 @@ def class_call_plain(c_num, c_pat, a_dense, b_dense, ab_bases, t, p, a_offs,
         s = b.shape[0]
         ad = a_dense[(b[:, :1] + ao[None, :]).reshape(-1)]
         bd = b_dense[(b[:, 1:] + bo[None, :]).reshape(-1)]
-        prod = torch.bmm(ad, bd).reshape(s, n_p, TILE, TILE)
+        prod = torch.bmm(round_operands(ad, precision),
+                         round_operands(bd, precision)).reshape(
+            s, n_p, TILE, TILE)
         pat = torch.bmm((ad != 0).float(), (bd != 0).float()).reshape(
             s, n_p, TILE, TILE)
         num = torch.zeros((s, t, TILE, TILE), dtype=c_num.dtype, device=dev)
@@ -331,7 +337,7 @@ def class_call_plain(c_num, c_pat, a_dense, b_dense, ab_bases, t, p, a_offs,
 
 
 def _residual_add(c_num, c_pat, a_dense, b_dense, pa, pb, seg, row0, n_rows,
-                  chunk):
+                  chunk, precision: str = "highest"):
     """The residual pairs into slab rows [row0, row0 + n_rows), in place.
     No class writes those rows, so the pair stream (sorted by slab row) is
     accumulated into a buffer of n_rows tiles that is then copied in: by
@@ -341,16 +347,17 @@ def _residual_add(c_num, c_pat, a_dense, b_dense, pa, pb, seg, row0, n_rows,
     from pem_spgemm_tpu_torch.ops.macro_kernels import accumulate_macro_pairs
     num, flags = accumulate_macro_pairs(a_dense, b_dense, pa, pb, seg - row0,
                                         n_rows, chunk=chunk,
-                                        acc_dtype=c_num.dtype)
+                                        acc_dtype=c_num.dtype,
+                                        precision=precision)
     c_num[row0:row0 + n_rows] = num
     c_pat[row0:row0 + n_rows] = flags
     return c_num, c_pat
 
 
 def stencil_accumulate(a_dense, b_dense, plan: StencilPlan,
-                       macro_chunk: int = 256):
+                       macro_chunk: int = 256, precision: str = "highest"):
     """Full macro accumulation: one class call per class + the residual
-    pair stream.
+    pair stream, both at ``precision``.
 
     Returns (c_num (c_cap,128,128) f32, c_flags (c_cap,128,128) uint8) in
     SLAB order (plan.order maps slab row -> sorted-tile index).  Every slab
@@ -372,7 +379,7 @@ def stencil_accumulate(a_dense, b_dense, plan: StencilPlan,
             plan.classes, plan.class_bases, plan.class_tables):
         class_call2(c_num, c_pat, a_dense, b_dense, bases, t, p, ar, br,
                     a_offs, b_offs, base, bases.shape[0] // 2,
-                    tables=tables)
+                    tables=tables, precision=precision)
     n_res_pairs = plan.res_pa.shape[0]
     if n_res_pairs:
         p_cap = max(macro_chunk, -(-n_res_pairs // macro_chunk) * macro_chunk)
@@ -387,5 +394,5 @@ def stencil_accumulate(a_dense, b_dense, plan: StencilPlan,
                       padded(plan.res_pb, b_dense.shape[0] - 1),
                       padded(plan.res_seg, plan.c_cap),
                       slab_rows - plan.n_res_tiles, plan.n_res_tiles,
-                      macro_chunk)
+                      macro_chunk, precision)
     return c_num, c_pat

@@ -150,9 +150,9 @@ def sharded_numeric(plan: ShardedPlan, mesh: RankGroup | None = None,
                                            mesh), precision)
 
 
-def replay_numeric(plans, d: int):
+def replay_numeric(plans, d: int, precision: str = "highest"):
     """Rank d's C values with its chunks read from every rank's plan."""
-    return local_numeric(plans[d], replay_chunks(plans, d))
+    return local_numeric(plans[d], replay_chunks(plans, d), precision)
 
 
 def local_coo(plan: ShardedPlan, vals):

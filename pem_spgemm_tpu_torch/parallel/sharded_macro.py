@@ -265,10 +265,11 @@ def ring_chunks(first: torch.Tensor, n: int, mesh: RankGroup):
         cur = nxt
 
 
-def local_macro(plan: ShardedMacroPlan, chunks):
+def local_macro(plan: ShardedMacroPlan, chunks, precision: str = "highest"):
     """(c_dense (c_cap, 128, 128), c_flags uint8) of this rank: one K4
-    launch for each stage that has pairs, on the chunk ``chunks`` yields
-    for it, its partial sum added into C and its flags OR-ed in."""
+    launch for each stage that has pairs, at ``precision``, on the chunk
+    ``chunks`` yields for it, its partial sum added into C and its flags
+    OR-ed in."""
     from pem_spgemm_tpu_torch.ops.macro_kernels import accumulate_macro_pairs
     dev = plan.a_dense.device
     c_num = torch.zeros((plan.c_cap, TILE, TILE), dtype=plan.a_dense.dtype,
@@ -281,22 +282,27 @@ def local_macro(plan: ShardedMacroPlan, chunks):
             continue
         num, flag = accumulate_macro_pairs(
             plan.a_dense, b_cur, plan.pairs_a[s], plan.pairs_b[s],
-            plan.seg[s], plan.c_cap, chunk=chunk)
+            plan.seg[s], plan.c_cap, chunk=chunk, precision=precision)
         c_num += num
         c_flag |= flag
     return c_num, c_flag
 
 
 def sharded_macro_numeric(plan: ShardedMacroPlan,
-                          mesh: RankGroup | None = None):
-    """This rank's (c_dense, c_flags) of the ring multiply."""
+                          mesh: RankGroup | None = None,
+                          precision: str = "highest"):
+    """This rank's (c_dense, c_flags) of the ring multiply, each stage's K4
+    at ``precision``."""
     mesh = mesh or make_mesh()
-    return local_macro(plan, ring_chunks(plan.b_dense, plan.n_devices, mesh))
+    return local_macro(plan, ring_chunks(plan.b_dense, plan.n_devices, mesh),
+                       precision)
 
 
 def replay_chunks(plans, d: int):
     """The chunks rank d meets at each stage, read from every rank's plan
-    (no exchange: one card replaying the ranks in turn)."""
+    (no exchange: one card replaying the ranks in turn).  A replay at a
+    precision is ``local_macro(plans[d], replay_chunks(plans, d),
+    precision)``."""
     n = len(plans)
     return (plans[(d - s) % n].b_dense for s in range(n))
 

@@ -64,6 +64,9 @@ class BenchmarkRecord:
     # with DEVICE events (cudaEvent pairs, spgemm.cu:730-755).
     pipelined_time: float = 0.0
     pipelined_gflops: float = 0.0
+    # The run's SpGEMMConfig.precision (not in the CSV; on stdout where it
+    # is not "highest").
+    precision: str = "highest"
 
     def csv_row(self) -> str:
         return (f"{self.matrix},{self.flop},{self.c_nnz},"
@@ -118,4 +121,6 @@ def report_stdout(record: BenchmarkRecord) -> str:
             f"pipelined time (plan)       : {r.pipelined_time:.4f} ms",
             f"pipelined GFlops            : {r.pipelined_gflops:.4f}",
         ]
+    if r.precision != "highest":
+        lines.append(f"precision                   : {r.precision}")
     return "\n".join(lines)

@@ -622,7 +622,8 @@ def test_interactive_macro_goes_through_the_pair_stream_entry(monkeypatch):
     assert len(calls) == 1
     c_cap, kw = calls[0]
     assert c_cap == max(256, -(-res.c_ntiles // 256) * 256)
-    assert kw == {"chunk": 32, "acc_dtype": torch.float32}
+    assert kw == {"chunk": 32, "acc_dtype": torch.float32,
+                  "precision": "highest"}
     assert sum(mk.LAUNCHES.values()) == 0
 
 
@@ -684,9 +685,17 @@ def test_macro_plan_matches_interactive():
 
 
 def test_macro_refuses_lower_precision():
+    # "high" and "default" run (tests/test_torch_precision.py); a mode that
+    # is none of the three is refused by the config and by the kernel
+    # wrapper
     _, ta = both_tiled(MATRICES["banded"]())
-    with pytest.raises(NotImplementedError, match="float32 only"):
-        SpGEMM(SpGEMMConfig(engine="macro", precision="default"))(ta, ta)
+    with pytest.raises(ValueError, match="precision"):
+        SpGEMM(SpGEMMConfig(engine="macro", precision="bf16"))(ta, ta)
+    tm = ta.macro()
+    z = torch.zeros(256, dtype=torch.int32)
+    with pytest.raises(ValueError, match="precision"):
+        mk.accumulate_macro_pairs(tm.dense, tm.dense, z, z, z, 1,
+                                  precision="tf32")
 
 
 @pytest.mark.parametrize("kind", ["gapped", "wandering"])

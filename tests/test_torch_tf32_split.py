@@ -21,6 +21,14 @@ values instead (stage_rule_product), so the kernels' NaN positions and Inf
 signs are the plain version's (IEEE); the split alone (split_rule_old, the
 kernels' earlier rule) turns an Inf into NaN and skips an Inf that meets
 only zeros.
+
+At precision "high" and "default" the kernels keep hi alone (one_pass: the
+tf32 rounding, or the bfloat16 rounding, which is exact in tf32) and run
+one product a k-step; a marked stage rounds its raw operands the same way
+before the float32 product.  Those replays are held to the plain version
+at the precision (ops.macro.round_operands, then float32 products) and to
+the float64 product within (2u + u^2) sum|a*b| plus the float32 bound,
+u = 2^-11 (tf32) or 2^-8 (bfloat16).
 """
 
 import jax.numpy as jnp
@@ -28,12 +36,14 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_util import one_torch_thread
 from pem_spgemm_tpu.ops import macro as j_macro
 from pem_spgemm_tpu_torch.models.synthetic import (banded_device,
                                                    wandering_device)
 from pem_spgemm_tpu_torch.ops import macro, symbolic
 from pem_spgemm_tpu_torch.ops.convert import coo_to_macro
 
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 RTOL, ATOL = 1e-5, 1e-6         # chip_smoke.COO_RTOL, COO_ATOL
 KS = 32                         # the kernel's k-slab depth
 BIG = 2.0 ** 63                 # the kernel's BIG: a stage holding |x| >=
@@ -67,6 +77,29 @@ def split_product(a, b, terms=3):
             part = (torch.bmm(al[:, :, ks], bh[:, ks, :])
                     + torch.bmm(ah[:, :, ks], bl[:, ks, :])) + part
         out += part
+    return out
+
+
+U = {"high": 2.0 ** -11, "default": 2.0 ** -8}
+
+
+def one_pass(x, precision):
+    """The one-pass entries' hi (csrc split<P>): tf32_rna at "high", the
+    bfloat16 rounding (to nearest even) at "default"."""
+    if precision == "high":
+        return tf32_rna(x)
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def one_pass_product(a, b, precision):
+    """(P, 128, 128) @ (P, 128, 128) as a one-pass entry forms it: per
+    32-deep k-slab the float32 product of the hi parts (exact: 11 x 11 or
+    8 x 8 bits), the slab's partial added to the sum."""
+    ah, bh = one_pass(a, precision), one_pass(b, precision)
+    out = torch.zeros(a.shape[0], a.shape[1], b.shape[2])
+    for k0 in range(0, a.shape[2], KS):
+        ks = slice(k0, k0 + KS)
+        out += torch.bmm(ah[:, :, ks], bh[:, ks, :])
     return out
 
 
@@ -109,6 +142,37 @@ def test_split_product_holds_the_float32_bound(name):
     assert float(((tf32.double() - want).abs() / bound).max()) > 1.0
 
 
+@pytest.mark.parametrize("precision", sorted(U))
+@pytest.mark.parametrize("name", sorted(MATRICES))
+def test_one_pass_product_holds_its_bound(name, precision):
+    dense, a_idx, b_idx, seg, n_tiles = _tiles_and_pairs(MATRICES[name]())
+    # the kernels' hi is the plain version's rounding, bit for bit
+    hi = one_pass(dense, precision)
+    assert torch.equal(hi.view(torch.int32), macro.round_operands(
+        dense, precision).view(torch.int32))
+    assert not (hi.view(torch.int32) & 0x1FFF).any()     # exact in tf32
+    a, b = dense[a_idx], dense[b_idx]
+    got = torch.zeros(n_tiles, 128, 128).index_add_(
+        0, seg, one_pass_product(a, b, precision))
+    a64, b64 = a.double(), b.double()
+    want = torch.zeros(n_tiles, 128, 128, dtype=torch.float64).index_add_(
+        0, seg, torch.bmm(a64, b64))
+    mag = torch.zeros_like(want).index_add_(
+        0, seg, torch.bmm(a64.abs(), b64.abs()))
+    u = U[precision]
+    err = (got.double() - want).abs()
+    assert float((err / ((2 * u + u * u) * mag + RTOL * mag
+                         + ATOL)).max()) <= 1.0
+    # and outside the float32 bound alone: the mode does round
+    assert float((err / (RTOL * mag + ATOL)).max()) > 1.0
+    # the plain version at the precision forms the same products
+    i32 = [x.to(torch.int32) for x in (a_idx, b_idx, seg)]
+    plain, _ = macro.accumulate_macro(dense, dense, *i32, n_tiles,
+                                      a_idx.numel(), precision=precision)
+    assert float(((got - plain).double().abs()
+                  / (2 * (RTOL * mag + ATOL))).max()) <= 1.0
+
+
 def test_tf32_rounding_is_to_nearest_ties_away():
     one = torch.tensor([1.0])
     ulp = 2.0 ** -10                    # tf32's spacing above 1
@@ -144,20 +208,24 @@ def test_flags_come_from_raw_values_not_from_hi():
 # --------------------------------------------------------------------------
 # non-finite operands
 
-def stage_rule_product(a, b):
+def stage_rule_product(a, b, precision="highest"):
     """(128, 128) @ (128, 128) by the kernels' per-stage rule: each 32-deep
     k-slab is a stage; a marked stage (its A slab or its B slab holds a
     value with |x| >= BIG, an Inf or a NaN) adds its float32 product of the
-    raw values, any other stage its 3xTF32 split product; stages added in
-    order in float32."""
+    raw values (rounded as ``precision`` rounds them: csrc rounded<P>), any
+    other stage its 3xTF32 split product (at "highest") or its one-pass
+    product; stages added in order in float32."""
     out = torch.zeros(128, 128)
     for k0 in range(0, 128, KS):
         sa, sb = a[:, k0:k0 + KS], b[k0:k0 + KS, :]
         marked = not bool((sa.abs() < BIG).all() and (sb.abs() < BIG).all())
         if marked:
-            part = sa @ sb
-        else:
+            part = macro.round_operands(sa, precision) @ \
+                macro.round_operands(sb, precision)
+        elif precision == "highest":
             part = split_product(sa[None], sb[None])[0]
+        else:
+            part = one_pass_product(sa[None], sb[None], precision)[0]
         out = out + part
     return out
 
@@ -267,6 +335,43 @@ def test_nonfinite_stages_give_the_plain_results():
     # finite, not NaN (hi = Inf there)
     fin40 = torch.isfinite(want[3, 40])
     assert bool(fin40.any()) and bool(torch.isnan(old[3, 40][fin40]).any())
+
+
+@pytest.mark.parametrize("precision", sorted(U))
+def test_nonfinite_stages_at_one_pass(precision):
+    """The stage rule at "high" / "default" on the same non-finite tiles:
+    the plain version's NaN positions and Inf signs at the precision (its
+    near-FLT_MAX values round to Inf, so more entries are Inf or NaN than
+    at "highest"), flags from the raw values, finite entries within the
+    float32 bound of it."""
+    x = _nonfinite_tiles()
+    tx = torch.from_numpy(x)
+    ti = [torch.from_numpy(v) for v in _nonfinite_stream()]
+    want, want_f = macro.accumulate_macro(tx, tx, *ti, 4, 32,
+                                          precision=precision)
+    high, _ = macro.accumulate_macro(tx, tx, *ti, 4, 32)
+    got = torch.zeros(4, 128, 128)
+    for ai, bi, c in _PAIRS:
+        got[c] = got[c] + stage_rule_product(tx[ai], tx[bi], precision)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    inf = torch.isinf(want)
+    assert torch.equal(torch.isinf(got), inf)
+    assert torch.equal(got[inf] > 0, want[inf] > 0)
+    assert int((~torch.isfinite(want)).sum()) > int(
+        (~torch.isfinite(high)).sum())
+    # 3.4025e38 rounds to Inf: row 40 of tile 3 is no longer finite
+    assert not bool(torch.isfinite(want[3, 40]).any())
+    x64 = torch.from_numpy(x.astype(np.float64))
+    mag = torch.zeros(4, 128, 128, dtype=torch.float64)
+    for ai, bi, c in _PAIRS:
+        mag[c] += x64[ai].abs() @ x64[bi].abs()
+    fin = torch.isfinite(want)
+    err = (got - want).double().abs()[fin]
+    assert float((err / (2 * (RTOL * mag[fin] + ATOL))).max()) <= 1.0
+    flags = torch.zeros(4, 128, 128, dtype=torch.bool)
+    for ai, bi, c in _PAIRS:
+        flags[c] |= ((tx[ai] != 0).float() @ (tx[bi] != 0).float()) > 0
+    np.testing.assert_array_equal(flags.numpy(), want_f.numpy() > 0)
 
 
 def test_stage_marks_match_the_tf32_overflow():

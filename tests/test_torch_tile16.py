@@ -166,10 +166,10 @@ def test_accumulate_fused_flat_equal(case):
         c_tile_id, case["c_cap"], CHUNK)
     _close(c_dense, case["j"]["c_dense"], "c_dense")
     _eq(c_counts, case["j"]["c_counts"], "c_counts")
-    with pytest.raises(NotImplementedError, match="precision"):
+    with pytest.raises(ValueError, match="precision"):
         t_numeric.accumulate_fused_flat(
             case["ta"].dense_flat(), case["tb"].dense_flat(), a_idx, b_idx,
-            c_tile_id, case["c_cap"], CHUNK, precision="default")
+            c_tile_id, case["c_cap"], CHUNK, precision="medium")
 
 
 def test_accumulate_dense_equal(case):

@@ -9,6 +9,7 @@ with its counterpart in the port field by field.
 import dataclasses
 
 import numpy as np
+import pytest
 import torch
 
 from pem_spgemm_tpu.formats.coo import COOMatrix as JCOO
@@ -64,6 +65,18 @@ def assert_same(jx, tc, path="obj"):
         assert tc is None, path
     else:
         assert jx == tc, (path, jx, tc)
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """One torch intra-op thread for a module's tests (import it, and mark
+    the module ``pytest.mark.usefixtures("one_torch_thread")``): beside the
+    other test workers a thread pool a process oversubscribes the cores, and
+    its waits, not the products, take the time."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
 
 
 def both_coo(coo):
