@@ -1225,11 +1225,12 @@ def pairs_direct(a_dense, b_dense, a_idx, b_idx, seg, c_cap, grid,
     seg_ptr = mk.segment_offsets(seg, c_cap)
     next_tile = torch.zeros(1, dtype=torch.int32, device=DEV)
     num, flag = fresh_slabs(c_cap)
+    prec = M.precision_code(precision)
+    _masks, margs = mk._mask_args(a_dense, b_dense, prec, None)
     mk._raise_on(mk._library().macro_accumulate_pairs_f32(
         a_dense.data_ptr(), b_dense.data_ptr(), a_idx.data_ptr(),
         b_idx.data_ptr(), seg_ptr.data_ptr(), num.data_ptr(),
-        flag.data_ptr(), c_cap, grid, next_tile.data_ptr(),
-        M.precision_code(precision),
+        flag.data_ptr(), c_cap, grid, next_tile.data_ptr(), prec, *margs,
         torch.cuda.current_stream().cuda_stream), "pairs_direct")
     torch.cuda.synchronize()
     return num, flag
@@ -1325,6 +1326,143 @@ def engineered_nonfinite_cases(worst, precision="highest"):
         if len(outs) == 2 and not all(torch.equal(x, y)
                                       for x, y in zip(*outs)):
             raise AssertionError("non-finite: the two class entries differ")
+    return cases
+
+
+def onepass_tiles():
+    """(a, b): 4 + 1 engineered tiles each (the last the zero tile) at the
+    edges of the one-pass pipeline ("high", "default"): tile 0 holds its
+    non-zeros only in k 32-63 (A columns, B rows: stage 0 of the pair is
+    empty and skipped, stage 1 runs), tile 1 none in A rows 0-63 (the first
+    consumer warpgroup skips every stage, the second runs), tile 2 an Inf
+    in k-slab 1 alone (a marked stage between unmarked ones), tile 3 only
+    subnormals below 2^-134 in A (0 in bfloat16 and in tf32) against normal
+    B rows, whose flags must be set."""
+    a = engineered_tiles(4, seed=51)
+    b = engineered_tiles(4, seed=52)
+    a[0, :, :32] = 0.0
+    a[0, :, 64:] = 0.0
+    b[0, :32] = 0.0
+    b[0, 64:] = 0.0
+    a[1, :64] = 0.0
+    a[2, 10, 40] = float("inf")
+    b[2, 40] = torch.randn(128, device=DEV)
+    b[2, 40, ::3] = 0.0             # the Inf meets zeros too: NaN there
+    a[3] = 0.0
+    a[3, 5, 7] = 1e-41
+    a[3, 6, 100] = -1e-41
+    b[3, 7] = torch.randn(128, device=DEV).abs() + 0.5
+    b[3, 100] = torch.randn(128, device=DEV).abs() + 0.5
+    return a.contiguous(), b.contiguous()
+
+
+def class_direct(entry, slabs, a, b, bases, t, p, a_offs, b_offs, tables,
+                 base, n_steps, grid, precision):
+    """A class entry launched with ``grid`` persistent blocks (the wrapper
+    launches one an SM), so that each block takes several tiles; not
+    counted."""
+    p_ptr, ao, bo = tables
+    ticket = torch.zeros(1, dtype=torch.int32, device=DEV)
+    lib = mk._library()
+    stream = torch.cuda.current_stream().cuda_stream
+    prec = M.precision_code(precision)
+    _masks, margs = mk._mask_args(a, b, prec, None)
+    head = (a.data_ptr(), b.data_ptr(), bases.data_ptr())
+    tail = (n_steps, base, slabs[0].data_ptr(), slabs[1].data_ptr(), prec,
+            grid, ticket.data_ptr(), *margs, stream)
+    if entry == "macro_class_ragged":
+        err = lib.macro_class_ragged_f32(*head, p_ptr.data_ptr(),
+                                         ao.data_ptr(), bo.data_ptr(), t,
+                                         *tail)
+    else:
+        err = lib.macro_class_uniform_f32(*head, ao.data_ptr(),
+                                          bo.data_ptr(), t, p, *tail)
+    mk._raise_on(err, "class_direct")
+    torch.cuda.synchronize()
+    return slabs
+
+
+def engineered_onepass_cases(worst, precision):
+    """The one-pass pipeline's edges (onepass_tiles) at ``precision``, each
+    against the plain version at it (macro_hold_ieee: flags exact, NaN
+    positions, Inf signs, finite values within the float32 bound): K4
+    through the wrapper and with 2 blocks; a ragged and a uniform class of
+    150 tiles (more than the card's SMs: a persistent block takes two or
+    more) through the wrappers and with 2 blocks, the two entries bit for
+    bit equal.  Returns the count of cases."""
+    a, b = onepass_tiles()
+    amag, bmag = a.abs(), b.abs()
+    # C tiles 0-3: one pair each, tile i x tile i; tile 4: (0, 0) and (2, 2)
+    # (an unmarked stage, then marked ones); tile 5 empty
+    pairs = [(0, 0, 0), (1, 1, 1), (2, 2, 2), (3, 3, 3), (0, 0, 4),
+             (2, 2, 4)]
+    pad = 256 - len(pairs)
+    cols = torch.tensor(pairs, dtype=torch.int32, device=DEV).T
+    a_idx, b_idx, seg = (torch.cat([x, torch.full((pad,), f, dtype=torch.int32,
+                                                  device=DEV)]).contiguous()
+                         for x, f in zip(cols, (4, 4, symbolic.INT32_MAX)))
+    want = M.accumulate_macro(a, b, a_idx, b_idx, seg, 6, 256,
+                              precision=precision)
+    mag = M.accumulate_macro(amag, bmag, a_idx, b_idx, seg, 6, 256)[0]
+    if not bool(torch.isnan(want[0][2]).any()) or \
+            not bool((want[1][3, 5] == 1).all()):
+        raise AssertionError("one-pass tiles: the plain product lacks its "
+                             "NaN or its subnormal row's flags")
+    cases = 0
+    k4 = prec_key("macro_accumulate_pairs", precision)
+    for what, got in (
+            ("wrapper", mk.accumulate_macro_pairs(a, b, a_idx, b_idx, seg,
+                                                  6, precision=precision)),
+            ("2 blocks", pairs_direct(a, b, a_idx, b_idx, seg, 6, 2,
+                                      precision))):
+        torch.cuda.synchronize()
+        worst[k4] = max(worst[k4], macro_hold_ieee(
+            got, want, mag, f"one-pass pairs, {what}, {precision}", key=k4))
+        if not bool((got[1][3, 5:7] == want[1][3, 5:7]).all()) or \
+                bool(got[0][5].any()) or bool(got[1][5].any()):
+            raise AssertionError(f"one-pass pairs, {what}: the subnormal "
+                                 "rows' flags or the empty tile")
+        cases += 1
+    n_steps = 50
+    bases = torch.zeros(2 * n_steps, dtype=torch.int32, device=DEV)
+    ragged = (3, (2, 1, 3), 4, 4, (0, 1, 2, 3, 0, 2), (0, 1, 2, 3, 0, 2), 0)
+    uniform = (3, 2, 4, 4, (0, 1, 2, 3, 3, 2), (0, 1, 2, 3, 3, 2), 0)
+    for cls, entries in ((ragged, ("macro_class_ragged",)),
+                         (uniform, ("macro_class_ragged",
+                                    "macro_class_uniform"))):
+        t, p, ar, br, a_offs, b_offs, _ = cls
+        tables = st.class_tables((cls,), DEV)[0]
+        rows = n_steps * t
+        wn, wf = fresh_slabs(rows)
+        st.class_call_plain(wn, wf, a, b, bases, t, p, a_offs, b_offs, 0,
+                            precision)
+        mn, _mf = fresh_slabs(rows, 0.0)
+        st.class_call_plain(mn, _mf, amag, bmag, bases, t, p, a_offs,
+                            b_offs, 0)
+        outs = []
+        for entry in entries:
+            key = prec_key(entry, precision)
+            gn, gf = fresh_slabs(rows)
+            if entry == "macro_class_ragged":
+                mk.class_call2(gn, gf, a, b, bases, t, p, ar, br, a_offs,
+                               b_offs, 0, n_steps, tables=tables,
+                               precision=precision)
+            else:
+                mk.class_call(gn, gf, a, b, bases, t, p, ar, br, a_offs,
+                              b_offs, 0, tables=tables, precision=precision)
+            two = class_direct(entry, fresh_slabs(rows), a, b, bases, t, p,
+                               a_offs, b_offs, tables, 0, n_steps, 2,
+                               precision)
+            torch.cuda.synchronize()
+            for what, got in (("wrapper", (gn, gf)), ("2 blocks", two)):
+                worst[key] = max(worst[key], macro_hold_ieee(
+                    got, (wn, wf), mn, f"one-pass class p={p!r} {key} "
+                    f"{what}", key=key))
+                cases += 1
+            outs.append((gn.view(torch.int32), gf))
+        if len(outs) == 2 and not all(torch.equal(x, y)
+                                      for x, y in zip(*outs)):
+            raise AssertionError("one-pass: the two class entries differ")
     return cases
 
 
@@ -1446,6 +1584,7 @@ def phase_macro_kernel_check():
                                  seg, c_cap, p, worst)
         cases += engineered_class_cases(worst, p)
         cases += engineered_nonfinite_cases(worst, p)
+        cases += engineered_onepass_cases(worst, p)
     del am, ab, plan, a_idx, b_idx, seg
 
     # the pair stream of a gapped-band matrix (neither planner covers it),
@@ -2790,23 +2929,28 @@ def phase_macro_path(check_err, pairbands_ref, repeat=3):
                              zip(sp.classes, sp.class_bases))
             lib_pairs = class_pairs(sp)
 
-            def classes_through(call):
+            def classes_through(call, precision="highest"):
+                # below "highest" the launches of one multiply share the
+                # tables' masks, as stencil_accumulate's do
                 def run():
+                    masks = None if precision == "highest" else \
+                        mk.TileMasks(a.dense, a.dense)
                     for cls, bases, tables in zip(sp.classes, sp.class_bases,
                                                   sp.class_tables):
-                        call(cls, bases, tables)
+                        call(cls, bases, tables, masks)
                 return run
 
-            def ragged(cls, bases, tables, precision="highest"):
+            def ragged(cls, bases, tables, masks, precision="highest"):
                 mk.class_call2(*slabs, a.dense, a.dense, bases, *cls,
                                bases.numel() // 2, tables=tables,
-                               precision=precision)
+                               precision=precision, tile_masks=masks)
 
-            def uniform_entry(cls, bases, tables, precision="highest"):
+            def uniform_entry(cls, bases, tables, masks, precision="highest"):
                 mk.class_call(*slabs, a.dense, a.dense, bases, *cls,
-                              tables=tables, precision=precision)
+                              tables=tables, precision=precision,
+                              tile_masks=masks)
 
-            def plain(cls, bases, tables, precision="highest"):
+            def plain(cls, bases, tables, _masks, precision="highest"):
                 st.class_call_plain(*slabs, a.dense, a.dense, bases, cls[0],
                                     cls[1], cls[4], cls[5], cls[6],
                                     precision)
@@ -2817,7 +2961,7 @@ def phase_macro_path(check_err, pairbands_ref, repeat=3):
             def lower_rows(kernel, entry, replaces, call):
                 return [precision_row(
                     kernel, entry, replaces, name,
-                    classes_through(at(call, q)),
+                    classes_through(at(call, q), q),
                     classes_through(at(plain, q)), *lib_pairs, a,
                     int(lib_pairs[0].numel()), class_rows,
                     max(lower_err[q], check_err[prec_key(entry, q)]), q,
@@ -2846,9 +2990,9 @@ def phase_macro_path(check_err, pairbands_ref, repeat=3):
                 # write the same bits at every mode (the ragged entry's
                 # output is held above, inside the plan's, at each mode)
                 for q in ("highest",) + LOWER_PRECISIONS:
-                    classes_through(at(uniform_entry, q))()
+                    classes_through(at(uniform_entry, q), q)()
                     got_u = [x[:class_rows].clone() for x in slabs]
-                    classes_through(at(ragged, q))()
+                    classes_through(at(ragged, q), q)()
                     torch.cuda.synchronize()
                     if not all(torch.equal(x, y[:class_rows])
                                for x, y in zip(got_u, slabs)):

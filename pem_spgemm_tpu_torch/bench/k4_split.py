@@ -7,10 +7,11 @@ Builds csrc/macro_accumulate.cu and csrc/dia_multiply.cu as they are and,
 with --baseline-macro / --baseline-dia, another version of each (for example
 the parent commit's, ``git show <commit>:pem_spgemm_tpu_torch/csrc/<file>``)
 as copies in the package's build directory, so that two versions run in one
-process, on one card, on the same inputs.  A baseline has the C interfaces
-of commit 2fdbfea: the ones of today, except its pairs entries
-(``declare_baseline_dia``) and its float32 Macro128 entries, which take no
-precision (``declare_baseline_macro``: commit 7303942 and before).
+process, on one card, on the same inputs.  A DIA baseline has the C
+interfaces of commit 2fdbfea (``declare_baseline_dia``).  A Macro128
+baseline's float32 entries are read off its source (``macro_interface``):
+no precision (commit 7303942 and before), a precision but class entries
+without a grid and a ticket counter (666d068), or today's.
 
   k4  the pair-stream entry at wandering64-1M's stream (70,308 pairs) and at
       pairbands-500k's (389,700 pairs): as it is (persistent, one block an
@@ -18,13 +19,17 @@ precision (``declare_baseline_macro``: commit 7303942 and before).
       product without the persistent stream), and the baseline's; each
       held against the plain version (flags equal, values within
       1e-5 * sum|a*b| + 1e-6), then timed by CUDA events in turns, beside
-      the CUTS builds (one piece of a stage cut out each; timed only) and
-      the entry at precision "high" and "default" (one wgmma a k-step,
-      each held against the plain version at its precision);
+      the CUTS builds (one piece of the "highest" stage cut out each; timed
+      only), the entry at precision "high" and "default" (the one-pass
+      pipeline, each held against the plain version at its precision), the
+      baseline's at both (where it takes a precision) and the WS_CUTS builds
+      at both (one piece of the one-pass pipeline cut out; timed only);
   k5  the ragged class entry over wandering64-1M's class launches (one
       steady multiply's): this build's and the baseline's, their slabs
-      bit for bit equal, the no_mark cut, and this build at "high" and
-      "default", timed in turns;
+      bit for bit equal, the no_mark cut, this build and the baseline's at
+      "high" and "default" (each held against the plain version at the
+      precision, flags equal to "highest"'s) and the WS_CUTS builds at
+      both, timed in turns;
   k3, k3f64  the DIA pairs entry, float32 and float64, at pairbands-500k,
       with counts and values only: this build's, the PAIR_COLS builds
       (other columns a thread), each also at the PAIR_GROUPS row groups,
@@ -43,8 +48,9 @@ precision (``declare_baseline_macro``: commit 7303942 and before).
   library  torch.sparse.mm(A, A) in CSR at banded16-1M, banded64-1M and
       banded128-1M: its time, or the error cuSPARSE raises.
 
-Prints one JSON line a case (with ptxas' registers and spills of each
-build), and whether ``ncu`` is on the machine.  Needs a GPU.
+Prints one JSON line a case, and last ptxas' registers and spills of each
+build (this one's too), and whether ``ncu`` is on the machine.  Needs a
+GPU.
 """
 
 from __future__ import annotations
@@ -67,6 +73,7 @@ from pem_spgemm_tpu_torch.ops import dia as D
 from pem_spgemm_tpu_torch.ops import dia_kernels as dk
 from pem_spgemm_tpu_torch.ops import macro as M
 from pem_spgemm_tpu_torch.ops import macro_kernels as mk
+from pem_spgemm_tpu_torch.ops import stencil as st
 from pem_spgemm_tpu_torch.ops.convert import coo_to_macro
 from pem_spgemm_tpu_torch.ops.fixed import StencilMacroPlan, make_plan
 from pem_spgemm_tpu_torch.ops.spgemm import SpGEMM
@@ -88,10 +95,10 @@ VP, LL, CI = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _RUN = "    const bool run = !bad && (ag & bg & ANY_NZ) != 0u;\n"
 CUTS = {
     # the tf32 split of each word at "highest" (the words are stored raw)
-    "no_split": [("        hi = tf32_rna(v);\n"
-                  "        lo = tf32_rna(v - __uint_as_float(hi));\n",
-                  "        hi = __float_as_uint(v);\n"
-                  "        lo = 0u;\n")],
+    "no_split": [("    hi = tf32_rna(v);\n"
+                  "    lo = tf32_rna(v - __uint_as_float(hi));\n",
+                  "    hi = __float_as_uint(v);\n"
+                  "    lo = 0u;\n")],
     # the pattern (flags) of each stage
     "no_pattern": [("    if ((run || bad) && (m0 | m1) != 0u) {  // pattern "
                     "of this stage\n", "    if (false) {\n")],
@@ -106,20 +113,47 @@ CUTS = {
     "no_mark": [("            mx = max_nan(mx, fabsf(v[e]));\n", ""),
                 ("            mx = max_nan(mx, fabsf(v[c]));\n", "")],
 }
+# Cut builds of the one-pass pipeline ("high", "default"), as CUTS: timed
+# only, at both precisions, to see where a one-pass stage's time goes.
+WS_CUTS = {
+    # the pattern (flags) of each stage
+    "ws_no_pattern": [("        if (run || bad) ws_pattern(m, fr);\n", "")],
+    # the rounding of the operands (tf32 words stored raw; bfloat16 by
+    # truncation)
+    "ws_no_round": [
+        ("    return tf32_rna(x);\n", "    return __float_as_uint(x);\n"),
+        ("    const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);\n"
+         "    return *reinterpret_cast<const unsigned*>(&h);\n",
+         "    return (__float_as_uint(x) >> 16)\n"
+         "         | (__float_as_uint(y) & 0xFFFF0000u);\n")],
+    # the producer alone: the consumers release each stage unread (no
+    # wgmma, no pattern, no C store)
+    "ws_producer_only": [
+        ("        const bool run = (ag & bg & ANY_NZ) != 0u && !bad;\n",
+         "        const bool run = false;\n"),
+        ("        if (run || bad) ws_pattern(m, fr);\n", ""),
+        ("            fr.store_cs(c_num, c_flag, info.row);\n", "")],
+    # the copies and the consumers alone: the producer rounds nothing and
+    # marks every stage as holding non-zeros
+    "ws_no_convert": [
+        ("            ws_convert<P>(sh.raw[r], sh.op[s], sh.meta[s], t);\n",
+         "            if (l == 0) sh.meta[s].a_any[warp] = ANY_NZ;\n"
+         "            if (l == 0) sh.meta[s].b_any[warp] = ANY_NZ;\n")],
+}
 # The same entry with one block a C tile (grid = c_cap, each block the class
 # entries' one-tile product of its tile): the tensor-core tile product
 # without the persistent stream.  Its result is held like the entry's.
 ONE_TILE = [
-    ("    pair_stream<P>(a_dense, b_dense,\n"
-     "                   PairWalk{seg_ptr, a_idx, b_idx, next, c_cap}, c_num,\n"
-     "                   c_flag, tc_shared());\n",
+    ("    pair_stream(a_dense, b_dense,\n"
+     "                PairWalk{seg_ptr, a_idx, b_idx, next, c_cap}, c_num, c_flag,\n"
+     "                tc_shared());\n",
      "    const long long c = blockIdx.x;\n"
      "    const int lo = seg_ptr[c];\n"
-     "    tile_product_tc<P>(a_dense, b_dense, a_idx + lo, b_idx + lo, 0, 0,\n"
-     "                       seg_ptr[c + 1] - lo, c_num + c * TILE_ELEMS,\n"
-     "                       c_flag + c * TILE_ELEMS, tc_shared());\n"),
-    ("    macro_pairs_kernel<P><<<grid < c_cap ? grid : c_cap,",
-     "    macro_pairs_kernel<P><<<c_cap,"),
+     "    tile_product_tc(a_dense, b_dense, a_idx + lo, b_idx + lo, 0, 0,\n"
+     "                    seg_ptr[c + 1] - lo, c_num + c * TILE_ELEMS,\n"
+     "                    c_flag + c * TILE_ELEMS, tc_shared());\n"),
+    ("    macro_pairs_kernel<<<grid < c_cap ? grid : c_cap,",
+     "    macro_pairs_kernel<<<c_cap,"),
 ]
 # the float32 entries' precisions below "highest" (their int argument is
 # M.precision_code's)
@@ -221,14 +255,60 @@ def build(stem: str, name: str, source: str, declare, cuts=()):
     return _build.load(so, declare)
 
 
-def declare_baseline_macro(lib):
-    """mk._declare, but the float32 entries of commit 7303942 and before:
-    no precision argument (they ran 3xTF32 only)."""
-    mk._declare(lib)
-    lib.macro_accumulate_pairs_f32.argtypes = [VP] * 7 + [CI, CI, VP, VP]
-    lib.macro_class_ragged_f32.argtypes = [VP] * 6 + [CI, CI, LL, VP, VP, VP]
-    lib.macro_class_uniform_f32.argtypes = [VP] * 5 + [CI, CI, CI, LL, VP,
-                                                       VP, VP]
+def macro_interface(source: str) -> str:
+    """The float32 entries' C interface of a macro_accumulate.cu: "v12" (no
+    precision: commit 7303942 and before), "v13" (a precision; class
+    entries without grid and ticket counter: 666d068) or "current"."""
+    with open(source) as f:
+        text = f.read()
+    if "int precision" not in text:
+        return "v12"
+    head = text.split('extern "C" int macro_class_ragged_f32(')[1]
+    return "current" if "int* next" in head.split(")")[0] else "v13"
+
+
+def declare_macro(kind: str):
+    """mk._declare for a baseline of interface ``kind``."""
+    def declare(lib):
+        mk._declare(lib)
+        if kind == "current":
+            return
+        prec = [] if kind == "v12" else [CI]
+        lib.macro_accumulate_pairs_f32.argtypes = [VP] * 7 + [CI, CI, VP] \
+            + prec + [VP]
+        lib.macro_class_ragged_f32.argtypes = [VP] * 6 + [CI, CI, LL, VP,
+                                                          VP] + prec + [VP]
+        lib.macro_class_uniform_f32.argtypes = [VP] * 5 + [CI, CI, CI, LL,
+                                                           VP, VP] + prec \
+            + [VP]
+    return declare
+
+
+def tail_args(kind: str, precision: str, masks):
+    """The pair-stream entry's arguments after ``next``, for interface
+    ``kind``; ``masks``: the five mask arguments of the current one."""
+    if kind == "v12":
+        return ()
+    if kind == "v13":
+        return (M.precision_code(precision),)
+    return (M.precision_code(precision), *masks)
+
+
+def class_args(kind: str, precision: str, grid: int, ticket, masks):
+    """A class entry's arguments after c_flag, for interface ``kind``."""
+    if kind == "v12":
+        return ()
+    if kind == "v13":
+        return (M.precision_code(precision),)
+    return (M.precision_code(precision), grid, ticket, *masks)
+
+
+def mask_args(table, ready: bool):
+    """The five mask arguments of the current entries for A = B =
+    ``table`` (a (tiles, TM_WORDS) int32 buffer), computed by the launch
+    unless ``ready``."""
+    return (table.data_ptr(), table.data_ptr(), table.shape[0],
+            table.shape[0], int(ready))
 
 
 def declare_baseline_dia(lib):
@@ -291,14 +371,55 @@ def hold(got, want, mag, what):
     return over
 
 
-def case_k4(base_lib, n_time):
+def build_all(stem: str, source: str, declare, variants):
+    """{name: library} of ``build`` for each (name, cuts) of ``variants``,
+    the compilers started together."""
+    with open(source) as f:
+        text = f.read()
+    started = {}
+    for name, cuts in variants.items():
+        src_text = text
+        for old, new in cuts:
+            if src_text.count(old) != 1:
+                raise RuntimeError(f"{name}: the source no longer has one "
+                                   f"{old!r}")
+            src_text = src_text.replace(old, new)
+        os.makedirs(_build.BUILD_DIR, exist_ok=True)
+        src = os.path.join(_build.BUILD_DIR, f"{stem}_{name}.cu")
+        with open(src, "w") as f:
+            f.write(src_text)
+        so = _build.library_path(src)
+        if not os.path.isfile(so):
+            started[name] = (so, _build._start(
+                [_build.find_nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v"],
+                src, so))
+        else:
+            started[name] = (so, None)
+    libs = {}
+    for name, (so, proc) in started.items():
+        if proc is not None:
+            log = _build._finish(*proc, so)
+            PTXAS[f"{stem}_{name}"] = [
+                ln.strip() for ln in log.splitlines()
+                if re.search(r"Compiling entry|registers|spill", ln)]
+        libs[name] = _build.load(so, declare)
+    return libs
+
+
+def held_key(k: str) -> str | None:
+    """The precision a timed build's result is held at ("highest" where the
+    key names none), or None for a cut build (timed only)."""
+    name, _, prec = k.partition("@")
+    if name in CUTS or name in WS_CUTS:
+        return None
+    return prec or "highest"
+
+
+def case_k4(base, n_time):
+    base_lib, base_kind = base
     cur = mk._library()
-    cut_libs = {"one_tile_a_block": build(
-        "macro_accumulate", "one_tile", mk.SOURCE, mk._declare,
-        cuts=ONE_TILE)}
-    cut_libs.update({name: build("macro_accumulate", name, mk.SOURCE,
-                                 mk._declare, cuts=cuts)
-                     for name, cuts in CUTS.items()})
+    variants = {"one_tile_a_block": ONE_TILE, **CUTS, **WS_CUTS}
+    libs = build_all("macro_accumulate", mk.SOURCE, mk._declare, variants)
     stream = torch.cuda.current_stream().cuda_stream
     sms = mk.persistent_grid(torch.device("cuda"))
     for name, make in STREAMS.items():
@@ -315,26 +436,36 @@ def case_k4(base_lib, n_time):
         ptrs = (a.dense.data_ptr(), a.dense.data_ptr(), a_idx.data_ptr(),
                 b_idx.data_ptr(), seg_ptr.data_ptr(), num.data_ptr(),
                 flag.data_ptr(), c_cap)
+        # every launch computes the masks, as a stand-alone one does
+        table = torch.empty((a.dense.shape[0], mk.TM_WORDS),
+                            dtype=torch.int32, device="cuda")
+        masks = mask_args(table, False)
 
-        def launch(lib, what, *prec):
+        def launch(lib, what, p, kind="current"):
+            extra = tail_args(kind, p, masks)
             return lambda: (next_tile.zero_(), checked(
                 lib.macro_accumulate_pairs_f32(
-                    *ptrs, sms, next_tile.data_ptr(), *prec, stream), what))
+                    *ptrs, sms, next_tile.data_ptr(), *extra, stream), what))
 
-        fns = {"persistent": launch(cur, "current", 0)}
+        fns = {"persistent": launch(cur, "current", "highest")}
         for p in LOWER:
-            fns[f"persistent@{p}"] = launch(cur, p, M.precision_code(p))
-        for cut, lib in cut_libs.items():
-            fns[cut] = launch(lib, cut, 0)
+            fns[f"persistent@{p}"] = launch(cur, p, p)
+        for cut in ("one_tile_a_block", *CUTS):
+            fns[cut] = launch(libs[cut], cut, "highest")
+        for cut in WS_CUTS:
+            for p in LOWER:
+                fns[f"{cut}@{p}"] = launch(libs[cut], cut, p)
         if base_lib is not None:
-            fns["baseline"] = launch(base_lib, "baseline")
+            for p in ("highest",) if base_kind == "v12" else ("highest",
+                                                              *LOWER):
+                k = "baseline" if p == "highest" else f"baseline@{p}"
+                fns[k] = launch(base_lib, k, p, base_kind)
         over = {}
         for p in ("highest", *LOWER):
             want = M.accumulate_macro(a.dense, a.dense, a_idx, b_idx, seg,
                                       c_cap, 256, precision=p)
             for k, fn in fns.items():
-                if k in CUTS or (p == "highest") == ("@" in k) or (
-                        "@" in k and not k.endswith(p)):
+                if held_key(k) != p:
                     continue                # a cut build's result is wrong
                 num.fill_(float("nan"))
                 flag.fill_(7)
@@ -348,15 +479,17 @@ def case_k4(base_lib, n_time):
         emit("k4", matrix=name, pairs=n_pairs, c_tiles=n_tiles, c_cap=c_cap,
              grid=sms, ms=times, worst_over_bound=over,
              pairs_a_tile=n_pairs / n_tiles)
-        del a, a_idx, b_idx, seg, seg_ptr, num, flag, next_tile
+        del a, a_idx, b_idx, seg, seg_ptr, num, flag, next_tile, table
         torch.cuda.empty_cache()
 
 
-def case_k5(base_lib):
+def case_k5(base):
+    base_lib, base_kind = base
     cur = mk._library()
-    no_mark = build("macro_accumulate", "no_mark", mk.SOURCE, mk._declare,
-                    cuts=CUTS["no_mark"])
+    libs = build_all("macro_accumulate", mk.SOURCE, mk._declare,
+                     {"no_mark": CUTS["no_mark"], **WS_CUTS})
     stream = torch.cuda.current_stream().cuda_stream
+    sms = mk.persistent_grid(torch.device("cuda"))
     cfg = SpGEMMConfig(engine="macro")
     a = coo_to_macro(STREAMS["wandering64-1M"]())
     plan = make_plan(SpGEMM(cfg)(a, a), cfg, a, a)
@@ -365,30 +498,51 @@ def case_k5(base_lib):
     sp = plan.plan
     rows = sum(c[0] * (b.numel() // 2)
                for c, b in zip(sp.classes, sp.class_bases))
-    slabs = {k: (torch.full((rows, 128, 128), float("nan"), device="cuda"),
-                 torch.full((rows, 128, 128), 7, dtype=torch.uint8,
-                            device="cuda"))
-             for k in ("current", "baseline", "no_mark", *LOWER)}
+    tickets = torch.zeros(len(sp.classes), dtype=torch.int32, device="cuda")
+    # the first launch of a multiply computes the masks, the others read
+    # them (as ops.stencil.stencil_accumulate runs them)
+    table = torch.empty((a.dense.shape[0], mk.TM_WORDS), dtype=torch.int32,
+                        device="cuda")
+    slabs = {}
 
-    def classes(lib, key, *prec):
-        num, flag = slabs[key]
+    def classes(lib, kind, key, precision, slab):
+        if slab not in slabs:
+            slabs[slab] = (
+                torch.full((rows, 128, 128), float("nan"), device="cuda"),
+                torch.full((rows, 128, 128), 7, dtype=torch.uint8,
+                           device="cuda"))
+        num, flag = slabs[slab]
 
         def run():
-            for (t, _p, _ar, _br, _ao, _bo, base), bases, (p_ptr, ao, bo) in \
-                    zip(sp.classes, sp.class_bases, sp.class_tables):
+            tickets.zero_()
+            for i, ((t, _p, _ar, _br, _ao, _bo, base), bases,
+                    (p_ptr, ao, bo)) in enumerate(zip(
+                        sp.classes, sp.class_bases, sp.class_tables)):
                 checked(lib.macro_class_ragged_f32(
                     a.dense.data_ptr(), a.dense.data_ptr(), bases.data_ptr(),
                     p_ptr.data_ptr(), ao.data_ptr(), bo.data_ptr(), t,
                     bases.numel() // 2, base, num.data_ptr(),
-                    flag.data_ptr(), *prec, stream), key)
+                    flag.data_ptr(),
+                    *class_args(kind, precision, sms, tickets[i].data_ptr(),
+                                mask_args(table, i > 0)), stream), key)
         return run
 
-    fns = {"current": classes(cur, "current", 0),
-           "no_mark": classes(no_mark, "no_mark", 0)}
+    fns = {"current": classes(cur, "current", "current", "highest",
+                              "current"),
+           "no_mark": classes(libs["no_mark"], "current", "no_mark",
+                              "highest", "cut")}
     for p in LOWER:
-        fns[p] = classes(cur, p, M.precision_code(p))
+        fns[p] = classes(cur, "current", p, p, p)
+        for cut in WS_CUTS:
+            fns[f"{cut}@{p}"] = classes(libs[cut], "current", cut, p, "cut")
     if base_lib is not None:
-        fns["baseline"] = classes(base_lib, "baseline")
+        fns["baseline"] = classes(base_lib, base_kind, "baseline",
+                                  "highest", "baseline")
+        if base_kind != "v12":
+            for p in LOWER:
+                fns[f"baseline@{p}"] = classes(base_lib, base_kind,
+                                               f"baseline@{p}", p,
+                                               f"baseline@{p}")
     for fn in fns.values():
         fn()
     torch.cuda.synchronize()
@@ -399,15 +553,35 @@ def case_k5(base_lib):
         if not equal:
             raise AssertionError("K5: the current and the baseline entry "
                                  "differ on wandering64-1M")
-    flags_equal = {p: torch.equal(slabs[p][1], slabs["current"][1])
-                   for p in LOWER}
+    held = [k for k in slabs if k in LOWER or k.startswith("baseline@")]
+    flags_equal = {k: torch.equal(slabs[k][1], slabs["current"][1])
+                   for k in held}
     if not all(flags_equal.values()):
         raise AssertionError(f"K5: flags differ across precisions "
                              f"{flags_equal}")
+    # the lower precisions against the plain version at each
+    mag = torch.zeros((rows, 128, 128), device="cuda")
+    want = torch.empty((rows, 128, 128), device="cuda")
+    pat = torch.empty((rows, 128, 128), dtype=torch.uint8, device="cuda")
+    over = {}
+    for i, (cls, bases) in enumerate(zip(sp.classes, sp.class_bases)):
+        t, p, _ar, _br, ao, bo, base = cls
+        st.class_call_plain(mag, pat, a.dense.abs(), a.dense.abs(), bases, t,
+                            p, ao, bo, base)
+    for prec in LOWER:
+        for cls, bases in zip(sp.classes, sp.class_bases):
+            t, p, _ar, _br, ao, bo, base = cls
+            st.class_call_plain(want, pat, a.dense, a.dense, bases, t, p, ao,
+                                bo, base, prec)
+        for k in held:
+            if k.endswith(prec):
+                over[k] = hold(slabs[k], (want, pat), mag, f"K5 {k}")
+    del mag, want, pat
+    torch.cuda.empty_cache()
     times = in_turns(fns, 10, rounds=4)
     emit("k5", matrix="wandering64-1M", classes=len(sp.classes),
-         c_rows=rows, ms=times, bit_equal_to_baseline=equal,
-         flags_equal_across_precisions=True)
+         c_rows=rows, grid=sms, ms=times, bit_equal_to_baseline=equal,
+         flags_equal_across_precisions=True, worst_over_bound=over)
 
 
 def case_pairs(word, base_lib):
@@ -714,10 +888,11 @@ def main():
     M.require_full_fp32()
     emit("tools", ncu=shutil.which("ncu"),
          device=torch.cuda.get_device_name(0))
-    base_macro = base_dia = None
+    base_macro, base_dia = (None, None), None
     if args.baseline_macro:
-        base_macro = build("macro_accumulate", "baseline",
-                           args.baseline_macro, declare_baseline_macro)
+        kind = macro_interface(args.baseline_macro)
+        base_macro = (build("macro_accumulate", "baseline",
+                            args.baseline_macro, declare_macro(kind)), kind)
     if args.baseline_dia:
         base_dia = build("dia_multiply", "baseline", args.baseline_dia,
                          declare_baseline_dia)
@@ -730,11 +905,14 @@ def main():
     if args.only is None or "k3f64" in args.only:
         case_pairs(8, base_dia)
     if args.only is None or "k4f64" in args.only:
-        case_k4f64(base_macro)
+        case_k4f64(base_macro[0])
     if args.only is None or "k2f64" in args.only:
         case_k2f64(base_dia)
     if args.only is None or "library" in args.only:
         case_library()
+    # this build's registers and spills too (the package's own build keeps
+    # no compiler log)
+    build_all("macro_accumulate", mk.SOURCE, mk._declare, {"current": ()})
     emit("ptxas", builds=PTXAS)
     return 0
 

@@ -28,7 +28,9 @@
 //
 // What bounds them on an H100: 2 * 128^3 operations a pair against 128 KB of
 // operand tile a pair at most (fewer where tiles repeat) and 80 KB of C tile
-// written once: operations, on the tensor cores 3 tf32 products a product.
+// written once: operations, on the tensor cores 3 tf32 products a product
+// at "highest"; at one pass ("high", "default") the bytes (C written once
+// and each distinct operand tile read once).
 //
 // Each block runs a STREAM of (tile, pair, 32-deep k-slab) stages over a
 // two-stage ring; one stage's work (tc_stage) is the same in all three
@@ -70,17 +72,50 @@
 //
 // The precision (SpGEMMConfig.precision, JAX's matmul precision names) is a
 // template argument of the three float32 entries, chosen once a launch; the
-// k-loop holds no branch on it.  HIGHEST is the 3xTF32 split above.  HIGH
-// and DEFAULT run ONE wgmma a k-step on hi alone, no lo: HIGH's hi is
-// tf32_rna(x) (as JAX runs "high" on an NVIDIA card; the TPU's "high" is
-// three bf16 passes), DEFAULT's the bfloat16 rounding of x, nearest-even,
-// which is exact in tf32.  Both products are then exact in float32 (11 x 11
-// and 8 x 8 bits), so a mode is "round both operands, then compute at
-// HIGHEST": its plain version (ops/macro.round_operands) and per-product
-// error ((2u + u^2) |a*b|, u = 2^-11 in tf32, 2^-8 in bfloat16).  The
-// a_lo / b_lo slabs are not written at one pass; the layout stays.  The
-// pattern, the marks and the empty-slab skip do not depend on the
-// precision.
+// k-loop holds no branch on it.  HIGHEST is the 3xTF32 split above, on the
+// 256-thread stage.  HIGH and DEFAULT multiply each operand's rounding
+// once: HIGH's is tf32_rna(x) (as JAX runs "high" on an NVIDIA card; the
+// TPU's "high" is three bf16 passes), DEFAULT's the bfloat16 rounding of x,
+// nearest-even.  Both products are then exact in float32 (11 x 11 and 8 x 8
+// bits), so a mode is "round both operands, then compute at HIGHEST": its
+// plain version (ops/macro.round_operands) and per-product error ((2u +
+// u^2) |a*b|, u = 2^-11 in tf32, 2^-8 in bfloat16).
+//
+// One pass leaves the tensor cores a third of the work, and the 256-thread
+// stage's register path (wait on the raw slab, read it back, round, write it
+// swizzled, OR the pattern, all behind one barrier a stage) then sets the
+// pace, so HIGH and DEFAULT run the ONE-PASS PIPELINE instead, in all three
+// entries: persistent, one block an SM taking C tiles from a ticket counter
+// in order (the class entries too: tile tk is step tk / t, tile tk % t), and
+// warp-specialised, with no block-wide barrier after its set-up.  A
+// PRODUCER warpgroup (120 registers a thread after setmaxnreg) claims tiles
+// four ahead (ticket, then range, then the first pairs' tiles, then their
+// masks, one step a tile) in its warp 0, which publishes each stage (its tiles and slab)
+// once its raw slot is free; the 128 threads copy the stage's raw slabs
+// with 16-byte cp.async (rows padded by 16 bytes) into a ring of RAW
+// stages, the slot's mbarrier counting each thread's copies as landed
+// (cp.async.mbarrier.arrive; one cp.async.bulk a 128-byte row was 2.5x
+// slower than the parent: PERF.md); the four warps round each stage into a
+// ring of OPS operand stages with its k-masks and ANY_NZ / ANY_BAD bits
+// beside it and arrive on its `full` mbarrier.  HIGH writes tf32 words, A as it lies and B transposed by a 4 x
+// 4 exchange among a quad's lanes (one 16-byte store a lane); DEFAULT writes
+// bfloat16, A K-major in the 64-byte swizzle and B as it lies (MN-major,
+// wgmma's transpose immediate), so no transpose.  Two CONSUMER warpgroups
+// (192 registers) each wait on `full`, issue the stage's wgmma
+// (m64n128k8.tf32 x 4 or m64n128k16.bf16 x 2), OR its pattern, wait, release
+// the slot on its `empty` mbarrier and add the partial to the FP32 sums.
+// Only the slabs that can hold a non-zero product are issued at all: a
+// pre-pass (f32_tile_masks, once a multiply: ops/stencil.py hands one set
+// of masks to all of a plan's launches) records each tile's non-zero
+// columns and rows and its marked slabs, the claim reads the masks of each
+// pair's two tiles, and a slab runs where a k has a non-zero A column and a
+// non-zero B row, or either tile marks it (wandering64's stream needs 28%
+// of its slabs; PERF.md).  After a tile's last slab that runs (at once for
+// a tile none of whose slabs runs) comes a stage without copies, on which
+// the consumers store the tile evict-first; a DONE stage ends both roles.
+// Stages stay 32 deep at DEFAULT too, so that both modes share the masks,
+// the empty-slab skip and the raw ring (a 64-deep bf16 stage's raw slabs
+// would leave room for two raw stages).
 //
 // Non-finite operands keep IEEE results.  A stage that holds a value with
 // |x| >= 2^63, an Inf or a NaN is MARKED (the warps that split it vote):
@@ -189,21 +224,11 @@ __device__ __forceinline__ unsigned tf32_rna(float x) {
 // 1 "high", 2 "default").
 enum class Prec : int { HIGHEST = 0, HIGH = 1, DEFAULT = 2 };
 
-// x as one word of the tensor-core operands: HIGHEST splits it into hi and
-// lo; HIGH and DEFAULT keep hi alone, its tf32 or its bfloat16 rounding (lo
-// is 0 and never stored).
-template <Prec P>
+// x as two words of the tensor-core operands (HIGHEST, the 256-thread
+// stage): hi = tf32_rna(x), lo = tf32_rna(x - hi).
 __device__ __forceinline__ void split(float v, unsigned& hi, unsigned& lo) {
-    if constexpr (P == Prec::HIGHEST) {
-        hi = tf32_rna(v);
-        lo = tf32_rna(v - __uint_as_float(hi));
-    } else if constexpr (P == Prec::HIGH) {
-        hi = tf32_rna(v);
-        lo = 0u;
-    } else {
-        hi = __float_as_uint(__bfloat162float(__float2bfloat16_rn(v)));
-        lo = 0u;
-    }
+    hi = tf32_rna(v);
+    lo = tf32_rna(v - __uint_as_float(hi));
 }
 
 // x as a marked stage's FMA multiplies it: raw at HIGHEST, else rounded as
@@ -334,9 +359,8 @@ __device__ __forceinline__ void tc_fetch(TcRegs& r, const float* ra,
     }
 }
 
-// Split the stage into hi / lo (hi alone at one pass), write it swizzled,
-// and write its k-masks and the warp's ANY_NZ / ANY_BAD bits.
-template <Prec P>
+// Split the stage into hi / lo, write it swizzled, and write its k-masks
+// and the warp's ANY_NZ / ANY_BAD bits.
 __device__ __forceinline__ void tc_store(const TcRegs& r, TcStage& s,
                                          unsigned* am, unsigned* bm,
                                          unsigned* a_any, unsigned* b_any) {
@@ -350,16 +374,15 @@ __device__ __forceinline__ void tc_store(const TcRegs& r, TcStage& s,
         unsigned hi[4], lo[4], nzb = 0;
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-            split<P>(v[e], hi[e], lo[e]);
+            split(v[e], hi[e], lo[e]);
             nzb |= (v[e] != 0.f ? 1u : 0u) << e;
             mx = max_nan(mx, fabsf(v[e]));
         }
         const unsigned off = swz(row, 4 * (l & 7));
         *reinterpret_cast<uint4*>(s.a_hi + off) =
             make_uint4(hi[0], hi[1], hi[2], hi[3]);
-        if constexpr (P == Prec::HIGHEST)
-            *reinterpret_cast<uint4*>(s.a_lo + off) =
-                make_uint4(lo[0], lo[1], lo[2], lo[3]);
+        *reinterpret_cast<uint4*>(s.a_lo + off) =
+            make_uint4(lo[0], lo[1], lo[2], lo[3]);
         unsigned m = nzb << (4 * (l & 7));  // the row's 8 lanes hold its 32 k
         m |= __shfl_xor_sync(0xFFFFFFFFu, m, 1);
         m |= __shfl_xor_sync(0xFFFFFFFFu, m, 2);
@@ -376,11 +399,10 @@ __device__ __forceinline__ void tc_store(const TcRegs& r, TcStage& s,
         for (int c = 0; c < 4; ++c) {
             const int n = 4 * (4 * w + (l & 3)) + c;
             unsigned hi, lo;
-            split<P>(v[c], hi, lo);
+            split(v[c], hi, lo);
             const unsigned off = swz(n, k);
             *reinterpret_cast<unsigned*>(s.b_hi + off) = hi;
-            if constexpr (P == Prec::HIGHEST)
-                *reinterpret_cast<unsigned*>(s.b_lo + off) = lo;
+            *reinterpret_cast<unsigned*>(s.b_lo + off) = lo;
             cm[c] |= (v[c] != 0.f ? 1u : 0u) << k;
             mx = max_nan(mx, fabsf(v[c]));
         }
@@ -454,6 +476,64 @@ struct Frag {
         for (int i = 0; i < 64; ++i) { acc[i] = 0.f; sum[i] = 0.f; }
         f[0] = f[1] = 0u;
     }
+    // the one-pass pipeline's consumers: t counts from the first consumer
+    __device__ __forceinline__ explicit Frag(int t) {
+        l = t & 31;
+        g = t >> 7;
+        r0 = 64 * g + 16 * ((t >> 5) & 3) + (l >> 2);
+#pragma unroll
+        for (int i = 0; i < 64; ++i) { acc[i] = 0.f; sum[i] = 0.f; }
+        f[0] = f[1] = 0u;
+    }
+    // store, evict-first (st.global.cs), so that C does not push the
+    // operand tiles out of L2, in 16-byte pieces: lanes 2p, 2p + 1 of a quad
+    // swap halves so that each writes 4 consecutive values (8-column group
+    // j + (l & 1), columns 4p ..), and the quad's flag words are exchanged
+    // so that lane q writes flag bytes 32q .. 32q + 31 of each of its rows
+    // (2-byte pieces cost a third of the one-pass kernels' time: PERF.md).
+    __device__ __forceinline__ void store_cs(float* c_num,
+                                             unsigned char* c_flag,
+                                             long long row) const {
+        const int q = l & 3, odd = l & 1;
+#pragma unroll
+        for (int e2 = 0; e2 < 2; ++e2) {
+            const int r = r0 + 8 * e2;
+            float* cr = c_num + row * TILE_ELEMS + r * TILE;
+            unsigned char* fr = c_flag + row * TILE_ELEMS + r * TILE;
+#pragma unroll
+            for (int j = 0; j < 16; j += 2) {   // groups j, j + 1
+                const float a0 = sum[4 * j + 2 * e2];
+                const float a1 = sum[4 * j + 2 * e2 + 1];
+                const float c0 = sum[4 * j + 4 + 2 * e2];
+                const float c1 = sum[4 * j + 4 + 2 * e2 + 1];
+                const float s0 = __shfl_xor_sync(0xFFFFFFFFu,
+                                                 odd ? a0 : c0, 1);
+                const float s1 = __shfl_xor_sync(0xFFFFFFFFu,
+                                                 odd ? a1 : c1, 1);
+                __stcs(reinterpret_cast<float4*>(cr + 8 * (j + odd)
+                                                 + 4 * (q >> 1)),
+                       odd ? make_float4(s0, s1, c0, c1)
+                           : make_float4(a0, a1, s0, s1));
+            }
+            unsigned b[4];                  // byte q of quad lane s's word
+#pragma unroll
+            for (int s = 0; s < 4; ++s)
+                b[s] = (__shfl_sync(0xFFFFFFFFu, f[e2], (l & ~3) | s)
+                        >> (8 * q)) & 0xFFu;
+            unsigned w[8];                  // columns 32q + 4ww ..: 0 or 1
+#pragma unroll
+            for (int ww = 0; ww < 8; ++ww) {
+                const int jj = ww >> 1, s0 = 2 * (ww & 1);
+                const unsigned nib = ((b[s0] >> (2 * jj)) & 3u)
+                                   | ((b[s0 + 1] >> (2 * jj)) & 3u) << 2;
+                w[ww] = (nib * 0x00204081u) & 0x01010101u;
+            }
+            __stcs(reinterpret_cast<uint4*>(fr + 32 * q),
+                   make_uint4(w[0], w[1], w[2], w[3]));
+            __stcs(reinterpret_cast<uint4*>(fr + 32 * q + 16),
+                   make_uint4(w[4], w[5], w[6], w[7]));
+        }
+    }
     __device__ __forceinline__ void store(float* c_num, unsigned char* c_flag,
                                           long long row) const {
 #pragma unroll
@@ -484,9 +564,9 @@ struct Frag {
 // cores run: a marked stage runs in FP32 FMA on the raw operands that
 // operands(ap, bp, k0) names; else a k-slab whose 64 A rows or whose B slab
 // hold no non-zero adds exact zeros to values and flags, and the warpgroup
-// skips it.  The caller's barrier follows.  HIGHEST runs three wgmma a
-// k-step (lo*hi, hi*lo, hi*hi), HIGH and DEFAULT one (hi*hi).
-template <Prec P, class Operands>
+// skips it.  The caller's barrier follows.  Three wgmma a k-step (lo*hi,
+// hi*lo, hi*hi).
+template <class Operands>
 __device__ __forceinline__ void tc_stage(TcShared& sh, int cur, bool next,
                                          Operands operands, TcRegs& regs,
                                          Frag& fr) {
@@ -510,20 +590,16 @@ __device__ __forceinline__ void tc_stage(TcShared& sh, int cur, bool next,
 #pragma unroll
         for (int kk = 0; kk < KS / 8; ++kk) {   // 8 tf32 = 32 bytes
             const unsigned long long dk = (unsigned long long)(kk * 2);
-            if constexpr (P == Prec::HIGHEST) {
-                wgmma_tf32(fr.acc, a_lo + dk, b_hi + dk, kk);
-                wgmma_tf32(fr.acc, a_hi + dk, b_lo + dk, 1);
-                wgmma_tf32(fr.acc, a_hi + dk, b_hi + dk, 1);
-            } else {
-                wgmma_tf32(fr.acc, a_hi + dk, b_hi + dk, kk);
-            }
+            wgmma_tf32(fr.acc, a_lo + dk, b_hi + dk, kk);
+            wgmma_tf32(fr.acc, a_hi + dk, b_lo + dk, 1);
+            wgmma_tf32(fr.acc, a_hi + dk, b_hi + dk, 1);
         }
         asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
     }
     if (next) {
         cp_async_wait1();
         tc_fetch(regs, sh.raw_a[cur ^ 1], sh.raw_b[cur ^ 1]);
-        tc_store<P>(regs, sh.stage[cur ^ 1], sh.am[cur ^ 1], sh.bm[cur ^ 1],
+        tc_store(regs, sh.stage[cur ^ 1], sh.am[cur ^ 1], sh.bm[cur ^ 1],
                     sh.a_any[cur ^ 1], sh.b_any[cur ^ 1]);
     }
     const unsigned m0 = sh.am[cur][r0], m1 = sh.am[cur][r0 + 8];
@@ -545,7 +621,7 @@ __device__ __forceinline__ void tc_stage(TcShared& sh, int cur, bool next,
         const float *ap, *bp;
         int k0;
         operands(ap, bp, k0);
-        fma_stage<P>(fr.acc, ap, bp, k0, r0, l);
+        fma_stage<Prec::HIGHEST>(fr.acc, ap, bp, k0, r0, l);
     }
     if (run || bad) {
 #pragma unroll
@@ -556,7 +632,6 @@ __device__ __forceinline__ void tc_stage(TcShared& sh, int cur, bool next,
 // One C tile a block (the class entries): the tile's pairs q < n_pairs,
 // operands A[a0 + a_tab[q]], B[b0 + b_tab[q]], as a stream of (pair, k-slab)
 // stages over a two-stage ring, stored at c_num / c_flag.
-template <Prec P>
 __device__ __forceinline__ void tile_product_tc(
         const float* __restrict__ a_dense, const float* __restrict__ b_dense,
         const int* __restrict__ a_tab, const int* __restrict__ b_tab,
@@ -579,7 +654,7 @@ __device__ __forceinline__ void tile_product_tc(
     if (n_stages > 0) {
         cp_async_wait1();
         tc_fetch(regs, sh.raw_a[0], sh.raw_b[0]);
-        tc_store<P>(regs, sh.stage[0], sh.am[0], sh.bm[0], sh.a_any[0],
+        tc_store(regs, sh.stage[0], sh.am[0], sh.bm[0], sh.a_any[0],
                     sh.b_any[0]);
     }
     __syncthreads();
@@ -587,7 +662,7 @@ __device__ __forceinline__ void tile_product_tc(
         if (st + 2 < n_stages) issue(st + 2);   // into the raw slab of st
         cp_async_commit();
         const int q = st / SLABS_PER_PAIR;
-        tc_stage<P>(sh, st & 1, st + 1 < n_stages,
+        tc_stage(sh, st & 1, st + 1 < n_stages,
                     [&](const float*& ap, const float*& bp, int& k0) {
                         ap = a_dense + (a0 + a_tab[q]) * TILE_ELEMS;
                         bp = b_dense + (b0 + b_tab[q]) * TILE_ELEMS;
@@ -624,7 +699,6 @@ struct PairWalk {
 // stage st + 1 exists when st + 1 < issued.  The issue cursor is at most
 // one tile ahead of the compute (a tile has 4 stages or more), so at most
 // AHEAD + 3 < CLAIMS slots are in use at once.
-template <Prec P>
 __device__ __forceinline__ void pair_stream(
         const float* __restrict__ a_dense, const float* __restrict__ b_dense,
         const PairWalk& w, float* __restrict__ c_num,
@@ -715,7 +789,7 @@ __device__ __forceinline__ void pair_stream(
     if (issued > 0) {
         cp_async_wait1();
         tc_fetch(regs, sh.raw_a[0], sh.raw_b[0]);
-        tc_store<P>(regs, sh.stage[0], sh.am[0], sh.bm[0], sh.a_any[0],
+        tc_store(regs, sh.stage[0], sh.am[0], sh.bm[0], sh.a_any[0],
                     sh.b_any[0]);
     }
     __syncthreads();
@@ -730,7 +804,7 @@ __device__ __forceinline__ void pair_stream(
         if (fresh && t == 0) tk_new = atomicAdd(w.next, 1);
         issue();                            // stage st + 2, into raw slot
         cp_async_commit();                  // st % 2
-        tc_stage<P>(sh, st & 1, st + 1 < issued,
+        tc_stage(sh, st & 1, st + 1 < issued,
                     [&](const float*& ap, const float*& bp, int& k0) {
                         ap = a_dense + (long long)w.a_tab[cq] * TILE_ELEMS;
                         bp = b_dense + (long long)w.b_tab[cq] * TILE_ELEMS;
@@ -767,7 +841,6 @@ __device__ __forceinline__ TcShared& tc_shared() {
 // in stream order, one at a time, from the counter `next`; tile c's pairs
 // are [seg_ptr[c], seg_ptr[c + 1]).  Padding pairs lie past seg_ptr[c_cap]
 // and are never read.
-template <Prec P>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 macro_pairs_kernel(const float* __restrict__ a_dense,
                    const float* __restrict__ b_dense,
@@ -776,14 +849,14 @@ macro_pairs_kernel(const float* __restrict__ a_dense,
                    const int* __restrict__ seg_ptr, int* next, int c_cap,
                    float* __restrict__ c_num,
                    unsigned char* __restrict__ c_flag) {
-    pair_stream<P>(a_dense, b_dense,
-                   PairWalk{seg_ptr, a_idx, b_idx, next, c_cap}, c_num,
-                   c_flag, tc_shared());
+    pair_stream(a_dense, b_dense,
+                PairWalk{seg_ptr, a_idx, b_idx, next, c_cap}, c_num, c_flag,
+                tc_shared());
 }
 
 // One block a (step, tile) of a signature class.  RAGGED: the tile's pairs
 // are [p_ptr[tt], p_ptr[tt + 1]) of the offset tables; else p pairs a tile.
-template <bool RAGGED, Prec P>
+template <bool RAGGED>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 macro_class_kernel(const float* __restrict__ a_dense,
                    const float* __restrict__ b_dense,
@@ -797,10 +870,749 @@ macro_class_kernel(const float* __restrict__ a_dense,
     const int lo = RAGGED ? p_ptr[tt] : tt * p;
     const int n = RAGGED ? p_ptr[tt + 1] - lo : p;
     const long long row = base + (long long)blockIdx.x;
-    tile_product_tc<P>(a_dense, b_dense, a_offs + lo, b_offs + lo,
-                       ab_bases[2 * step], ab_bases[2 * step + 1], n,
-                       c_num + row * TILE_ELEMS, c_flag + row * TILE_ELEMS,
-                       tc_shared());
+    tile_product_tc(a_dense, b_dense, a_offs + lo, b_offs + lo,
+                    ab_bases[2 * step], ab_bases[2 * step + 1], n,
+                    c_num + row * TILE_ELEMS, c_flag + row * TILE_ELEMS,
+                    tc_shared());
+}
+
+// --------------------------------------------------------------------------
+// The one-pass pipeline (HIGH and DEFAULT; see the head of the file).
+
+constexpr int WS_THREADS = 384;             // producer WG + 2 consumer WGs
+// setmaxnreg moves registers within the block's launch allocation, 168 a
+// thread at 384 threads (65,536 / 384, rounded down to 8): 120 + 2 x 192 =
+// 3 x 168.  An increase beyond it would wait for ever.  88 / 208 spilled in
+// the producer and was 8% slower (PERF.md).
+constexpr int WS_PRODUCER_REGS = 120;
+constexpr int WS_CONSUMER_REGS = 192;
+static_assert(WS_PRODUCER_REGS + 2 * WS_CONSUMER_REGS <= 3 * 168,
+              "setmaxnreg: more registers than the launch allocates");
+constexpr int RAW_A_STRIDE = KS * 4 + 16;   // raw A row: 128 bytes + 16
+constexpr int RAW_B_STRIDE = TILE * 4 + 16; // raw B row: 512 bytes + 16
+constexpr unsigned ST_DATA = 1u;            // stage flags: slabs copied
+constexpr unsigned ST_LAST = 2u;            // the C tile's last stage
+constexpr unsigned ST_DONE = 4u;            // no tile left
+
+// Ring depths and operand bytes a stage: HIGH stores tf32 words (A [i][k]
+// and B transposed, [j][k], 128-byte rows), DEFAULT bfloat16 (A [i][k],
+// 64-byte rows in the 64-byte swizzle; B as it lies, [k][j], in two
+// 64-column halves of 128-byte rows in the 128-byte swizzle).
+template <Prec P> struct Ws;
+template <> struct Ws<Prec::HIGH> {
+    static constexpr int RAW = 3, OPS = 3;
+    static constexpr int OP_BYTES = TILE * KS * 4;
+};
+template <> struct Ws<Prec::DEFAULT> {
+    static constexpr int RAW = 4, OPS = 4;
+    static constexpr int OP_BYTES = TILE * KS * 2;
+};
+
+struct StageInfo {
+    const float* ap;                        // the pair's tiles (a marked
+    const float* bp;                        // stage reads them again)
+    long long row;                          // C row
+    int k0;                                 // the slab's first k
+    unsigned flags;
+};
+struct RawStage {                           // the raw slabs, copied as they lie
+    unsigned char a[TILE * RAW_A_STRIDE];   // A [i][k]
+    unsigned char b[KS * RAW_B_STRIDE];     // B [k][j]
+};
+struct OpMeta {                             // beside each operand stage
+    unsigned am[TILE];                      // k-mask of each A row
+    unsigned bm[TILE];                      // k-mask of each B column
+    unsigned a_any[4];                      // producer warp w's A rows
+    unsigned b_any[4];                      // and B columns: ANY_NZ, ANY_BAD
+    StageInfo info;
+};
+template <Prec P>
+struct WsShared {
+    struct alignas(1024) Op {               // 1024: the swizzle atom
+        unsigned char a[Ws<P>::OP_BYTES];
+        unsigned char b[Ws<P>::OP_BYTES];
+    } op[Ws<P>::OPS];
+    RawStage raw[Ws<P>::RAW];
+    OpMeta meta[Ws<P>::OPS];
+    StageInfo raw_info[Ws<P>::RAW];
+    unsigned long long info_full[Ws<P>::RAW];   // raw_info written
+    unsigned long long raw_full[Ws<P>::RAW];    // 128 threads' copies landed
+    unsigned long long raw_empty[Ws<P>::RAW];   // 4 producer warps read it
+    unsigned long long op_full[Ws<P>::OPS];     // 4 producer warps wrote it
+    unsigned long long op_empty[Ws<P>::OPS];    // 8 consumer warps done
+};
+template <Prec P>
+constexpr int WS_SMEM = (int)sizeof(WsShared<P>) + 1024;
+
+template <Prec P>
+__device__ __forceinline__ WsShared<P>& ws_shared() {
+    extern __shared__ unsigned char smem_raw[];
+    const unsigned raw = (unsigned)__cvta_generic_to_shared(smem_raw);
+    return *reinterpret_cast<WsShared<P>*>(
+        smem_raw + (((raw + 1023u) & ~1023u) - raw));
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+    return (unsigned)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void mbar_init(unsigned long long* bar,
+                                          unsigned count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+                 :: "r"(smem_addr(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+                 :: "r"(smem_addr(bar)) : "memory");
+}
+// an arrival on bar once this thread's cp.async copies so far have landed
+__device__ __forceinline__ void cp_async_arrive(unsigned long long* bar) {
+    asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+                 :: "r"(smem_addr(bar)) : "memory");
+}
+// until the phase of the given parity has completed (parity 1 on a fresh
+// barrier: at once)
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+    const unsigned a = smem_addr(bar);
+    unsigned done;
+    do {
+        asm volatile("{\n.reg .pred p;\n"
+                     "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                     "selp.u32 %0, 1, 0, p;\n}\n"
+                     : "=r"(done) : "r"(a), "r"(parity) : "memory");
+    } while (!done);
+}
+
+// wgmma shared-memory descriptor: start >> 4, leading and stride byte
+// offsets >> 4, layout type (1: 128-byte swizzle, 2: 64-byte swizzle).
+__device__ __forceinline__ unsigned long long op_desc(const void* p,
+                                                      unsigned lbo,
+                                                      unsigned sbo,
+                                                      unsigned layout) {
+    return (unsigned long long)((smem_addr(p) & 0x3FFFF) >> 4)
+         | ((unsigned long long)(lbo >> 4) << 16)
+         | ((unsigned long long)(sbo >> 4) << 32)
+         | ((unsigned long long)layout << 62);
+}
+
+// d (+)= A(64 x 16, bf16, K-major) @ B(16 x 128, bf16, MN-major: the
+// transpose immediate is 1); scale_d = 0 ignores d's input.
+__device__ __forceinline__ void wgmma_bf16(float (&d)[64],
+                                           unsigned long long da,
+                                           unsigned long long db,
+                                           int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+        "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+        "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// HIGH's operand word: tf32_rna(x), as split<HIGH> (loading the raw word
+// and letting the tensor cores truncate would double u).
+__device__ __forceinline__ unsigned op_tf32(float x) {
+    return tf32_rna(x);
+}
+// DEFAULT's operand pair: x and y rounded to bfloat16, nearest-even, x in
+// the low half (the lower address).
+__device__ __forceinline__ unsigned op_bf16x2(float x, float y) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+    return *reinterpret_cast<const unsigned*>(&h);
+}
+
+// The raw B slab's rows among a warp's lanes: lane l holds row k = 4 KQ(l /
+// 4) + l % 4, so that the 8 lanes of a shared-memory phase (two quads, KQ 0
+// and 5, 1 and 4, ...) read rows 8 apart mod 8 and, transposed, store 16-
+// byte chunks that the swizzle spreads over 8 bank groups.  A k-mask bit is
+// then the LANE of its k (bit 4 QOF(k / 4) + k % 4), for A and B alike, so
+// that a ballot over a B column is its mask.
+__device__ __forceinline__ constexpr int kq_of_quad(int q) {
+    return (q >> 1) ^ (5 * (q & 1));
+}
+__device__ __forceinline__ constexpr int quad_of_kq(int c) {
+    return c < 4 ? 2 * c : 2 * (c ^ 5) + 1;
+}
+__device__ __forceinline__ unsigned nz4(float4 x) {
+    return (x.x != 0.f ? 1u : 0u) | (x.y != 0.f ? 2u : 0u)
+         | (x.z != 0.f ? 4u : 0u) | (x.w != 0.f ? 8u : 0u);
+}
+__device__ __forceinline__ float max4(float m, float4 x) {
+    return max_nan(max_nan(m, fabsf(x.x)), max_nan(max_nan(fabsf(x.y),
+                   fabsf(x.z)), fabsf(x.w)));
+}
+
+// v: row e (= lane % 4) of a 4 x 4 block held by the lanes of a quad ->
+// column e of it: two butterfly steps, each swapping one bit of the row
+// and the column index.
+__device__ __forceinline__ void quad_transpose(unsigned (&v)[4], int e) {
+    const bool o1 = (e & 1) != 0, o2 = (e & 2) != 0;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const unsigned got = __shfl_xor_sync(0xFFFFFFFFu,
+                                             o1 ? v[2 * h] : v[2 * h + 1], 1);
+        if (o1) v[2 * h] = got; else v[2 * h + 1] = got;
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const unsigned got = __shfl_xor_sync(0xFFFFFFFFu,
+                                             o2 ? v[h] : v[2 + h], 2);
+        if (o2) v[h] = got; else v[2 + h] = got;
+    }
+}
+
+// One stage's raw slabs into operand stage `op` and its masks, by the 128
+// producer threads (t): thread t rounds A row t (its k-mask in the thread);
+// warp w B columns 32w .. 32w + 31, lane l raw row k of them (see
+// kq_of_quad; a column's k-mask is a ballot).  The raw rows lie 16 bytes
+// more than their length apart, so every read and write below meets 8
+// different bank groups in each phase.
+template <Prec P>
+__device__ __forceinline__ void ws_convert(const RawStage& raw,
+                                           typename WsShared<P>::Op& op,
+                                           OpMeta& m, int t) {
+    const int w = t >> 5, l = t & 31;
+    const unsigned char* ra = raw.a + t * RAW_A_STRIDE;
+    float mx = 0.f;                         // max |x|, NaN if any x is
+    unsigned am = 0u;
+    if constexpr (P == Prec::HIGH) {
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+            const float4 x = *reinterpret_cast<const float4*>(ra + 16 * c);
+            am |= nz4(x) << (4 * quad_of_kq(c));
+            mx = max4(mx, x);
+            *reinterpret_cast<uint4*>(op.a + t * 128 + ((c ^ (t & 7)) << 4)) =
+                make_uint4(op_tf32(x.x), op_tf32(x.y), op_tf32(x.z),
+                           op_tf32(x.w));
+        }
+    } else {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+            const float4 x = *reinterpret_cast<const float4*>(ra + 32 * c);
+            const float4 y = *reinterpret_cast<const float4*>(ra + 32 * c
+                                                              + 16);
+            am |= nz4(x) << (4 * quad_of_kq(2 * c))
+                | nz4(y) << (4 * quad_of_kq(2 * c + 1));
+            mx = max4(max4(mx, x), y);
+            *reinterpret_cast<uint4*>(op.a + t * 64
+                                      + ((c ^ ((t >> 1) & 3)) << 4)) =
+                make_uint4(op_bf16x2(x.x, x.y), op_bf16x2(x.z, x.w),
+                           op_bf16x2(y.x, y.y), op_bf16x2(y.z, y.w));
+        }
+    }
+    m.am[t] = am;
+    const int kq = kq_of_quad(l >> 2), k = 4 * kq + (l & 3);
+    const unsigned char* rb = raw.b + k * RAW_B_STRIDE;
+    unsigned b_nz = 0u;
+    if constexpr (P == Prec::HIGH) {
+        const int e = l & 3;                // 4 columns a quad, transposed
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+            const int c = 8 * w + r;        // columns 4c .. 4c + 3
+            const float4 x = *reinterpret_cast<const float4*>(rb + 16 * c);
+            mx = max4(mx, x);
+            const unsigned m0 = __ballot_sync(0xFFFFFFFFu, x.x != 0.f);
+            const unsigned m1 = __ballot_sync(0xFFFFFFFFu, x.y != 0.f);
+            const unsigned m2 = __ballot_sync(0xFFFFFFFFu, x.z != 0.f);
+            const unsigned m3 = __ballot_sync(0xFFFFFFFFu, x.w != 0.f);
+            if (l == 0)
+                *reinterpret_cast<uint4*>(&m.bm[4 * c]) =
+                    make_uint4(m0, m1, m2, m3);
+            b_nz |= m0 | m1 | m2 | m3;
+            unsigned v[4] = {op_tf32(x.x), op_tf32(x.y), op_tf32(x.z),
+                             op_tf32(x.w)};
+            quad_transpose(v, e);           // column 4c + e, k = 4kq ..
+            const int j = 4 * c + e;
+            *reinterpret_cast<uint4*>(op.b + j * 128 + (((kq ^ j) & 7) << 4))
+                = make_uint4(v[0], v[1], v[2], v[3]);
+        }
+    } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            const int cc = 4 * w + i;       // columns 8cc .. 8cc + 7
+            const float4 x = *reinterpret_cast<const float4*>(rb + 32 * cc);
+            const float4 y = *reinterpret_cast<const float4*>(rb + 32 * cc
+                                                              + 16);
+            mx = max4(max4(mx, x), y);
+            const float vs[8] = {x.x, x.y, x.z, x.w, y.x, y.y, y.z, y.w};
+            unsigned mb[8];
+#pragma unroll
+            for (int u = 0; u < 8; ++u)
+                mb[u] = __ballot_sync(0xFFFFFFFFu, vs[u] != 0.f);
+            if (l == 0) {
+                *reinterpret_cast<uint4*>(&m.bm[8 * cc]) =
+                    make_uint4(mb[0], mb[1], mb[2], mb[3]);
+                *reinterpret_cast<uint4*>(&m.bm[8 * cc + 4]) =
+                    make_uint4(mb[4], mb[5], mb[6], mb[7]);
+            }
+            b_nz |= mb[0] | mb[1] | mb[2] | mb[3] | mb[4] | mb[5] | mb[6]
+                  | mb[7];
+            *reinterpret_cast<uint4*>(op.b + (cc >> 3) * (KS * 128) + k * 128
+                                      + (((cc & 7) ^ (k & 7)) << 4)) =
+                make_uint4(op_bf16x2(x.x, x.y), op_bf16x2(x.z, x.w),
+                           op_bf16x2(y.x, y.y), op_bf16x2(y.z, y.w));
+        }
+    }
+    const unsigned bad = __any_sync(0xFFFFFFFFu, !(mx < BIG)) ? ANY_BAD : 0u;
+    const unsigned a_w = __any_sync(0xFFFFFFFFu, am != 0u) ? ANY_NZ : 0u;
+    if (l == 0) {
+        m.a_any[w] = a_w;
+        m.b_any[w] = (b_nz != 0u ? ANY_NZ : 0u) | bad;
+    }
+}
+
+// The one-pass pipeline's k-masks of every tile of a float32 table, once a
+// multiply, before the tiles run: words 0-3 bit k: column k holds a
+// non-zero (the tile as an A operand), word 4 bit s: columns 32s .. 32s +
+// 31 hold a value a stage is marked for (|x| >= BIG, an Inf, a NaN); words
+// 5-8 and 9 the same of the rows (the tile as a B operand).  One block a
+// tile; warp w reads rows w, w + 8, ..., lane l columns 4l .. 4l + 3.
+constexpr int TM_WORDS = 10;
+
+__global__ void __launch_bounds__(256)
+f32_tile_masks(const float* __restrict__ tiles,
+               unsigned* __restrict__ masks) {
+    __shared__ unsigned m[TM_WORDS];
+    const int t = threadIdx.x, w = t >> 5, l = t & 31;
+    if (t < TM_WORDS) m[t] = 0u;
+    __syncthreads();
+    const float4* x = reinterpret_cast<const float4*>(
+        tiles + (long long)blockIdx.x * TILE_ELEMS);
+    unsigned cnz = 0u;                      // columns 4l + e: bit e
+    bool cbad = false;
+    for (int r = w; r < TILE; r += 8) {
+        const float4 v = __ldg(x + r * (TILE / 4) + l);
+        const unsigned nz = nz4(v);
+        const bool bad = !(max4(0.f, v) < BIG);
+        cnz |= nz;
+        cbad |= bad;
+        const bool rnz = __any_sync(0xFFFFFFFFu, nz != 0u);
+        const bool rbad = __any_sync(0xFFFFFFFFu, bad);
+        if (l == 0 && rnz) atomicOr(&m[5 + (r >> 5)], 1u << (r & 31));
+        if (l == 0 && rbad) atomicOr(&m[9], 1u << (r >> 5));
+    }
+    unsigned bits = cnz << ((4 * l) & 31);  // lanes 8j .. 8j + 7: word j
+    bits |= __shfl_xor_sync(0xFFFFFFFFu, bits, 1);
+    bits |= __shfl_xor_sync(0xFFFFFFFFu, bits, 2);
+    bits |= __shfl_xor_sync(0xFFFFFFFFu, bits, 4);
+    if ((l & 7) == 0 && bits != 0u) atomicOr(&m[l >> 3], bits);
+    const unsigned sb = __ballot_sync(0xFFFFFFFFu, cbad);
+    if (l == 0) {
+        unsigned slabs = 0u;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+            slabs |= ((sb >> (8 * j)) & 0xFFu) != 0u ? 1u << j : 0u;
+        if (slabs != 0u) atomicOr(&m[4], slabs);
+    }
+    __syncthreads();
+    if (t < TM_WORDS) masks[(long long)blockIdx.x * TM_WORDS + t] = m[t];
+}
+
+// The slabs of a pair that run (bit s: slab s), from its tiles' masks: a k
+// of the slab where A's column and B's row both hold a non-zero, or a
+// marked value in either.  Every other slab multiplies only zeros (+-0,
+// which change no sum and set no flag) and is neither copied nor run.
+__device__ __forceinline__ unsigned slabs_needed(const unsigned (&mw)[10]) {
+    unsigned n = (mw[4] | mw[9]) & 0xFu;
+#pragma unroll
+    for (int s = 0; s < SLABS_PER_PAIR; ++s)
+        n |= (mw[s] & mw[5 + s]) != 0u ? 1u << s : 0u;
+    return n;
+}
+
+// The tiles of the pair-stream entry: tile tk is C row tk, its pairs
+// [seg_ptr[tk], seg_ptr[tk + 1]) of (a_idx, b_idx).
+struct StreamTiles {
+    const int* seg_ptr;
+    const int* a_idx;
+    const int* b_idx;
+    const unsigned* masks_a;                // f32_tile_masks of each table
+    const unsigned* masks_b;
+    int* next;
+    int n_tiles;
+    __device__ __forceinline__ void range(int tk, int& lo, int& hi, int& a0,
+                                          int& b0) const {
+        lo = hi = a0 = b0 = 0;
+        if (tk < n_tiles) {
+            lo = seg_ptr[tk];
+            hi = seg_ptr[tk + 1];
+        }
+    }
+    __device__ __forceinline__ void tiles(int q, int& ta, int& tb) const {
+        ta = a_idx[q];
+        tb = b_idx[q];
+    }
+    __device__ __forceinline__ long long row(int tk) const { return tk; }
+};
+
+// The tiles of a class launch: tile tk = (step tk / t, tt = tk % t) is C row
+// base + tk, its pairs [p_ptr[tt], p_ptr[tt + 1]) (RAGGED) or [tt p, tt p +
+// p) of the offset tables, at the step's bases.
+template <bool RAGGED>
+struct ClassTiles {
+    const int* ab_bases;
+    const int* p_ptr;
+    const int* a_offs;
+    const int* b_offs;
+    const unsigned* masks_a;
+    const unsigned* masks_b;
+    int t, p;
+    long long base;
+    int* next;
+    int n_tiles;
+    __device__ __forceinline__ void range(int tk, int& lo, int& hi, int& a0,
+                                          int& b0) const {
+        lo = hi = a0 = b0 = 0;
+        if (tk < n_tiles) {
+            const int step = tk / t, tt = tk - step * t;
+            lo = RAGGED ? p_ptr[tt] : tt * p;
+            hi = RAGGED ? p_ptr[tt + 1] : lo + p;
+            a0 = ab_bases[2 * step];
+            b0 = ab_bases[2 * step + 1];
+        }
+    }
+    __device__ __forceinline__ void tiles(int q, int& ta, int& tb) const {
+        ta = a_offs[q];
+        tb = b_offs[q];
+    }
+    __device__ __forceinline__ long long row(int tk) const {
+        return base + tk;
+    }
+};
+
+// The issue cursor, in producer warp 0 (its lanes hold the same scalars):
+// the tile it issues (ticket tk, pairs [lo, hi), lane i the operand tiles
+// and needed slabs of pair win + i) and four tiles claimed ahead, each a
+// step further along the claim (ticket taken; its range read; its first
+// pairs' tiles read; their masks read), one step a tile, so that no load it
+// issues is waited for before a tile's time has passed.
+template <class Tiles>
+struct Issuer {
+    int tk, lo, hi, a0, b0, ia, ib, win, q, slab;
+    unsigned nd;                            // lane i: slabs of pair win + i
+    int tk0, lo0, hi0, a00, b00, ia0, ib0;  // next: every field read
+    unsigned mw[10];                        // its lanes' mask words
+    int tk1, lo1, hi1, a01, b01, ia1, ib1;  // after it: its tiles read
+    int tk2, lo2, hi2, a02, b02;            // then: its range read
+    int tk3;                                // then: its ticket (lane 0)
+    bool done;
+
+    __device__ __forceinline__ void load_tiles(const Tiles& w, int from,
+                                               int to, int& ta, int& tb) {
+        const int qq = from + (threadIdx.x & 31);
+        ta = tb = 0;
+        if (qq < to) w.tiles(qq, ta, tb);
+    }
+    __device__ __forceinline__ void load_masks(const Tiles& w, int from,
+                                               int to, int ta, int tb) {
+#pragma unroll
+        for (int i = 0; i < 10; ++i) mw[i] = 0u;
+        if (from + (threadIdx.x & 31) < to) {
+            const unsigned* ma = w.masks_a + (long long)ta * TM_WORDS;
+            const unsigned* mb = w.masks_b + (long long)tb * TM_WORDS;
+#pragma unroll
+            for (int i = 0; i < 5; ++i) {
+                mw[i] = ma[i];
+                mw[5 + i] = mb[5 + i];
+            }
+        }
+    }
+    __device__ __forceinline__ void advance(const Tiles& w) {
+        tk = tk0; lo = lo0; hi = hi0; a0 = a00; b0 = b00; ia = ia0; ib = ib0;
+        nd = slabs_needed(mw);
+        win = q = lo;
+        slab = 0;
+        tk0 = tk1; lo0 = lo1; hi0 = hi1; a00 = a01; b00 = b01; ia0 = ia1;
+        ib0 = ib1;
+        load_masks(w, lo0, hi0, a00 + ia0, b00 + ib0);
+        tk1 = tk2; lo1 = lo2; hi1 = hi2; a01 = a02; b01 = b02;
+        load_tiles(w, lo1, hi1, ia1, ib1);
+        tk2 = __shfl_sync(0xFFFFFFFFu, tk3, 0);
+        w.range(tk2, lo2, hi2, a02, b02);
+        tk3 = w.n_tiles;
+        if ((threadIdx.x & 31) == 0 && tk2 < w.n_tiles)
+            tk3 = atomicAdd(w.next, 1);
+    }
+    __device__ __forceinline__ void start(const Tiles& w) {
+        tk0 = tk1 = tk2 = w.n_tiles;
+        lo0 = hi0 = a00 = b00 = ia0 = ib0 = 0;
+        lo1 = hi1 = a01 = b01 = ia1 = ib1 = 0;
+        lo2 = hi2 = a02 = b02 = 0;
+#pragma unroll
+        for (int i = 0; i < 10; ++i) mw[i] = 0u;
+        tk3 = (threadIdx.x & 31) == 0 ? atomicAdd(w.next, 1) : w.n_tiles;
+        done = false;
+#pragma unroll 1
+        for (int i = 0; i < 4; ++i) advance(w);
+    }
+    // the next stage's StageInfo into `info_out`, then an arrival on its
+    // barrier `ready`: the tile's next slab that runs; after its last one
+    // (or at once, for a tile none of whose slabs runs) a stage without
+    // copies that stores the tile; or the end
+    __device__ __forceinline__ void publish(const Tiles& w,
+                                            const float* a_dense,
+                                            const float* b_dense,
+                                            StageInfo& info_out,
+                                            unsigned long long* ready) {
+        StageInfo info{nullptr, nullptr, 0, 0, 0u};
+        unsigned bits = 0u;
+        if (tk >= w.n_tiles) {
+            info.flags = ST_DONE;
+            done = true;
+        } else {
+            while (q < hi) {                // the next slab that runs
+                if (q - win == 32) {        // a tile of more than 32 pairs
+                    win = q;
+                    load_tiles(w, q, hi, ia, ib);
+                    load_masks(w, q, hi, a0 + ia, b0 + ib);
+                    nd = slabs_needed(mw);
+                }
+                bits = __shfl_sync(0xFFFFFFFFu, nd, q - win)
+                     & (0xFu << slab);
+                if (bits != 0u) break;
+                ++q;
+                slab = 0;
+            }
+            info.row = w.row(tk);
+            if (q == hi) {
+                info.flags = ST_LAST;
+                advance(w);
+            } else {
+                slab = __ffs(bits) - 1;
+                const int ta = __shfl_sync(0xFFFFFFFFu, ia, q - win);
+                const int tb = __shfl_sync(0xFFFFFFFFu, ib, q - win);
+                info.ap = a_dense + (long long)(a0 + ta) * TILE_ELEMS;
+                info.bp = b_dense + (long long)(b0 + tb) * TILE_ELEMS;
+                info.k0 = KS * slab;
+                info.flags = ST_DATA;
+                if (++slab == SLABS_PER_PAIR) {
+                    slab = 0;
+                    ++q;
+                }
+            }
+        }
+        if ((threadIdx.x & 31) == 0) {
+            info_out = info;
+            mbar_arrive(ready);
+        }
+    }
+};
+
+// Producer thread t's share of stage n's raw slabs, once warp 0 has
+// published the stage: 8 16-byte cp.async of A (8 lanes a 128-byte row)
+// and 8 of B (32 lanes a 512-byte row), then an arrival on the slot's
+// `full` barrier when they have landed (at once for a stage without
+// copies).  Returns false at the DONE stage: nothing is issued after it.
+template <Prec P>
+__device__ __forceinline__ bool ws_issue(WsShared<P>& sh, int n, int t) {
+    constexpr int R = Ws<P>::RAW;
+    const int r = n % R;
+    mbar_wait(&sh.info_full[r], (n / R) & 1);
+    const StageInfo info = sh.raw_info[r];
+    if (info.flags & ST_DATA) {
+        RawStage& raw = sh.raw[r];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+            const int e = t + 128 * i;
+            const int ar = e >> 3, ac = e & 7;      // A row, 16-byte chunk
+            cp_async16(raw.a + ar * RAW_A_STRIDE + 16 * ac,
+                       info.ap + ar * TILE + info.k0 + 4 * ac);
+            const int br = e >> 5, bc = e & 31;     // B row, 16-byte chunk
+            cp_async16(raw.b + br * RAW_B_STRIDE + 16 * bc,
+                       info.bp + (info.k0 + br) * TILE + 4 * bc);
+        }
+        cp_async_arrive(&sh.raw_full[r]);
+    } else {
+        mbar_arrive(&sh.raw_full[r]);
+    }
+    return (info.flags & ST_DONE) == 0u;
+}
+
+// The producer warpgroup: stage n's raw slabs in raw slot n % RAW, its
+// operands in operand slot n % OPS.  Once the four warps have read stage
+// n's raw slabs, warp 0 publishes stage n + RAW and the 128 threads issue
+// its copies into the same slot.
+template <Prec P, class Tiles>
+__device__ __forceinline__ void ws_producer(WsShared<P>& sh,
+                                            const float* a_dense,
+                                            const float* b_dense,
+                                            const Tiles& w) {
+    constexpr int R = Ws<P>::RAW, S = Ws<P>::OPS;
+    const int t = threadIdx.x, warp = t >> 5, l = t & 31;
+    Issuer<Tiles> is;
+    if (warp == 0) {
+        is.start(w);
+#pragma unroll 1
+        for (int n = 0; n < R && !is.done; ++n)
+            is.publish(w, a_dense, b_dense, sh.raw_info[n], &sh.info_full[n]);
+    }
+    bool issuing = true;                    // the DONE stage not issued yet
+#pragma unroll 1
+    for (int n = 0; n < R && issuing; ++n) issuing = ws_issue<P>(sh, n, t);
+#pragma unroll 1
+    for (int n = 0;; ++n) {
+        const int r = n % R, s = n % S;
+        mbar_wait(&sh.raw_full[r], (n / R) & 1);
+        const StageInfo info = sh.raw_info[r];
+        mbar_wait(&sh.op_empty[s], ((n / S) & 1) ^ 1);
+        if (info.flags & ST_DATA) {
+            ws_convert<P>(sh.raw[r], sh.op[s], sh.meta[s], t);
+            // the generic-proxy writes above are read by wgmma
+            asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        } else if (l == 0) {
+            sh.meta[s].a_any[warp] = 0u;
+            sh.meta[s].b_any[warp] = 0u;
+        }
+        if (t == 0) sh.meta[s].info = info;
+        __syncwarp();
+        if (l == 0) {
+            mbar_arrive(&sh.op_full[s]);
+            mbar_arrive(&sh.raw_empty[r]);
+        }
+        if (info.flags & ST_DONE) return;
+        if (issuing) {
+            if (warp == 0) {
+                mbar_wait(&sh.raw_empty[r], (n / R) & 1);
+                is.publish(w, a_dense, b_dense, sh.raw_info[r],
+                           &sh.info_full[r]);
+            }
+            issuing = ws_issue<P>(sh, n + R, t);
+        }
+    }
+}
+
+// d = the stage's product for consumer warpgroup g (A rows 64g ..), issued
+template <Prec P>
+__device__ __forceinline__ void ws_mma(const typename WsShared<P>::Op& op,
+                                       int g, float (&d)[64]) {
+    fence_regs(d);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+    if constexpr (P == Prec::HIGH) {
+        const unsigned long long da = op_desc(op.a + 64 * g * 128, 16, 1024, 1);
+        const unsigned long long db = op_desc(op.b, 16, 1024, 1);
+#pragma unroll
+        for (int kk = 0; kk < KS / 8; ++kk)     // 8 tf32 = 32 bytes
+            wgmma_tf32(d, da + 2 * kk, db + 2 * kk, kk);
+    } else {
+        const unsigned long long da = op_desc(op.a + 64 * g * 64, 16, 512, 2);
+        // B: 64-column halves 32 x 128 bytes apart, 8-row groups 1024
+        const unsigned long long db = op_desc(op.b, KS * 128, 1024, 1);
+#pragma unroll
+        for (int kk = 0; kk < KS / 16; ++kk)    // A: 32 bytes; B: 16 rows
+            wgmma_bf16(d, da + 2 * kk, db + 128 * kk, kk);
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// OR the stage's pattern into the flags: (mask_row & mask_col) != 0
+__device__ __forceinline__ void ws_pattern(const OpMeta& m, Frag& fr) {
+    const unsigned m0 = m.am[fr.r0], m1 = m.am[fr.r0 + 8];
+    if ((m0 | m1) == 0u) return;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+        const uint2 mb = *reinterpret_cast<const uint2*>(
+            &m.bm[8 * j + 2 * (fr.l & 3)]);
+        fr.f[0] |= ((m0 & mb.x) != 0u ? 1u : 0u) << (2 * j)
+                 | ((m0 & mb.y) != 0u ? 2u : 0u) << (2 * j);
+        fr.f[1] |= ((m1 & mb.x) != 0u ? 1u : 0u) << (2 * j)
+                 | ((m1 & mb.y) != 0u ? 2u : 0u) << (2 * j);
+    }
+}
+
+// A consumer warpgroup (g = 0, 1: C rows 64g ..): per stage the wgmma
+// partial (skipped where its 64 A rows or the B slab hold no non-zero; a
+// marked stage in FP32 FMA on the raw operands instead) added to the sums,
+// the pattern ORed into the flags, the operand slot released as soon as it
+// is read; at a tile's last stage its sums and flags stored.
+template <Prec P>
+__device__ __forceinline__ void ws_consumer(WsShared<P>& sh,
+                                            float* __restrict__ c_num,
+                                            unsigned char* __restrict__ c_flag) {
+    constexpr int S = Ws<P>::OPS;
+    Frag fr(threadIdx.x - 128);
+#pragma unroll 1
+    for (int n = 0;; ++n) {
+        const int s = n % S;
+        mbar_wait(&sh.op_full[s], (n / S) & 1);
+        const OpMeta& m = sh.meta[s];
+        const StageInfo info = m.info;
+        if (info.flags & ST_DONE) return;
+        const unsigned ag = m.a_any[2 * fr.g] | m.a_any[2 * fr.g + 1];
+        const unsigned bg = m.b_any[0] | m.b_any[1] | m.b_any[2] | m.b_any[3];
+        const bool bad = (bg & ANY_BAD) != 0u;
+        const bool run = (ag & bg & ANY_NZ) != 0u && !bad;
+        if (run) ws_mma<P>(sh.op[s], fr.g, fr.acc);
+        if (run || bad) ws_pattern(m, fr);
+        if (run) {
+            asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+            fence_regs(fr.acc);
+        }
+        __syncwarp();
+        if (fr.l == 0) mbar_arrive(&sh.op_empty[s]);
+        if (bad) fma_stage<P>(fr.acc, info.ap, info.bp, info.k0, fr.r0, fr.l);
+        if (run || bad) {
+#pragma unroll
+            for (int i = 0; i < 64; ++i) fr.sum[i] += fr.acc[i];
+        }
+        if (info.flags & ST_LAST) {
+            fr.store_cs(c_num, c_flag, info.row);
+            fr.reset();
+        }
+    }
+}
+
+// Persistent: one block an SM takes the tiles of `w` from its ticket
+// counter (zero at the launch) in order.  One producer warpgroup, two
+// consumer warpgroups; no block-wide barrier after the barriers' set-up.
+template <Prec P, class Tiles>
+__global__ void __launch_bounds__(WS_THREADS, 1)
+macro_ws_kernel(const float* __restrict__ a_dense,
+                const float* __restrict__ b_dense, const Tiles w,
+                float* __restrict__ c_num,
+                unsigned char* __restrict__ c_flag) {
+    constexpr int R = Ws<P>::RAW, S = Ws<P>::OPS;
+    WsShared<P>& sh = ws_shared<P>();
+    if (threadIdx.x == 0) {
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+            mbar_init(&sh.info_full[i], 1);
+            mbar_init(&sh.raw_full[i], 128);
+            mbar_init(&sh.raw_empty[i], 4);
+        }
+#pragma unroll
+        for (int i = 0; i < S; ++i) {
+            mbar_init(&sh.op_full[i], 4);
+            mbar_init(&sh.op_empty[i], 8);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+    if (threadIdx.x < 128) {
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                     :: "n"(WS_PRODUCER_REGS));
+        ws_producer<P>(sh, a_dense, b_dense, w);
+    } else {
+        asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+                     :: "n"(WS_CONSUMER_REGS));
+        ws_consumer<P>(sh, c_num, c_flag);
+    }
 }
 
 // The float64 entry (see the head of the file): one block of 8 warps a C
@@ -1213,30 +2025,57 @@ cudaError_t with_prec(int precision, F f) {
     }
 }
 
-template <Prec P>
 cudaError_t launch_pairs(const float* a_dense, const float* b_dense,
                          const int* a_idx, const int* b_idx,
                          const int* seg_ptr, float* c_num,
                          unsigned char* c_flag, int c_cap, int grid, int* next,
                          cudaStream_t stream) {
-    const cudaError_t attr = allow_tc_smem(macro_pairs_kernel<P>);
+    const cudaError_t attr = allow_tc_smem(macro_pairs_kernel);
     if (attr != cudaSuccess) return attr;
-    macro_pairs_kernel<P><<<grid < c_cap ? grid : c_cap, TC_THREADS, TC_SMEM,
-                            stream>>>(a_dense, b_dense, a_idx, b_idx,
+    macro_pairs_kernel<<<grid < c_cap ? grid : c_cap, TC_THREADS, TC_SMEM,
+                         stream>>>(a_dense, b_dense, a_idx, b_idx,
                                       seg_ptr, next, c_cap, c_num, c_flag);
     return cudaGetLastError();
 }
 
-template <bool RAGGED, Prec P>
+// The one-pass pipeline over the tiles of `w`: one block an SM (at most one
+// a tile), taking tiles from w.next; first, unless masks_ready, the masks of
+// both tables (one pass where they are one table).
+template <Prec P, class Tiles>
+cudaError_t launch_ws(const float* a_dense, const float* b_dense,
+                      const Tiles& w, int grid, int n_a, int n_b,
+                      int masks_ready, float* c_num, unsigned char* c_flag,
+                      cudaStream_t stream) {
+    if (grid <= 0) return cudaErrorInvalidConfiguration;
+    if (w.masks_a == nullptr || w.masks_b == nullptr || n_a <= 0 || n_b <= 0)
+        return cudaErrorInvalidValue;
+    if (!masks_ready) {
+        f32_tile_masks<<<n_a, 256, 0, stream>>>(
+            a_dense, const_cast<unsigned*>(w.masks_a));
+        if (w.masks_b != w.masks_a)
+            f32_tile_masks<<<n_b, 256, 0, stream>>>(
+                b_dense, const_cast<unsigned*>(w.masks_b));
+    }
+    const cudaError_t attr = cudaFuncSetAttribute(
+        macro_ws_kernel<P, Tiles>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        WS_SMEM<P>);
+    if (attr != cudaSuccess) return attr;
+    macro_ws_kernel<P, Tiles><<<grid < w.n_tiles ? grid : w.n_tiles,
+                                WS_THREADS, WS_SMEM<P>, stream>>>(
+        a_dense, b_dense, w, c_num, c_flag);
+    return cudaGetLastError();
+}
+
+template <bool RAGGED>
 cudaError_t launch_class(const float* a_dense, const float* b_dense,
                          const int* ab_bases, const int* p_ptr,
                          const int* a_offs, const int* b_offs, int t, int p,
                          int n_steps, long long base, float* c_num,
                          unsigned char* c_flag, cudaStream_t stream) {
-    const cudaError_t attr = allow_tc_smem(macro_class_kernel<RAGGED, P>);
+    const cudaError_t attr = allow_tc_smem(macro_class_kernel<RAGGED>);
     if (attr != cudaSuccess) return attr;
-    macro_class_kernel<RAGGED, P><<<n_steps * t, TC_THREADS, TC_SMEM,
-                                    stream>>>(
+    macro_class_kernel<RAGGED><<<n_steps * t, TC_THREADS, TC_SMEM,
+                                 stream>>>(
         a_dense, b_dense, ab_bases, p_ptr, a_offs, b_offs, t, p, base,
         c_num, c_flag);
     return cudaGetLastError();
@@ -1249,46 +2088,86 @@ cudaError_t launch_class(const float* a_dense, const float* b_dense,
 // grid: blocks of the persistent kernel (the wrapper passes the SM count;
 // at most c_cap are launched).  precision: 0 "highest", 1 "high",
 // 2 "default" (another value: cudaErrorInvalidValue), in all three float32
-// entries.
+// entries; "highest" runs the 256-thread stage, the others the one-pass
+// pipeline, which also takes masks_a / masks_b (TM_WORDS words a tile of
+// the n_a A tiles and n_b B tiles; one buffer where the tables are one),
+// computed first unless masks_ready ("highest" reads none of the five).
 extern "C" int macro_accumulate_pairs_f32(
         const float* a_dense, const float* b_dense, const int* a_idx,
         const int* b_idx, const int* seg_ptr, float* c_num,
         unsigned char* c_flag, int c_cap, int grid, int* next, int precision,
-        cudaStream_t stream) {
+        unsigned* masks_a, unsigned* masks_b, int n_a, int n_b,
+        int masks_ready, cudaStream_t stream) {
     if (c_cap <= 0) return (int)cudaSuccess;
     if (grid <= 0) return (int)cudaErrorInvalidConfiguration;
     return (int)with_prec(precision, [&](auto tag) {
-        return launch_pairs<decltype(tag)::value>(
-            a_dense, b_dense, a_idx, b_idx, seg_ptr, c_num, c_flag, c_cap,
-            grid, next, stream);
+        constexpr Prec P = decltype(tag)::value;
+        if constexpr (P == Prec::HIGHEST)
+            return launch_pairs(a_dense, b_dense, a_idx, b_idx, seg_ptr,
+                                c_num, c_flag, c_cap, grid, next, stream);
+        else
+            return launch_ws<P>(a_dense, b_dense,
+                                StreamTiles{seg_ptr, a_idx, b_idx, masks_a,
+                                            masks_b, next, c_cap},
+                                grid, n_a, n_b, masks_ready, c_num, c_flag,
+                                stream);
     });
 }
 
 // Slab rows [base, base + n_steps * t) of c_num / c_flag are written whole.
+// grid, next and the masks as in the pair-stream entry: at "high" and
+// "default" the class's tiles are taken in order by at most grid persistent
+// blocks; "highest" launches one block a tile and ignores them.
+template <bool RAGGED>
+cudaError_t class_entry(const float* a_dense, const float* b_dense,
+                        const int* ab_bases, const int* p_ptr,
+                        const int* a_offs, const int* b_offs, int t, int p,
+                        int n_steps, long long base, float* c_num,
+                        unsigned char* c_flag, int precision, int grid,
+                        int* next, unsigned* masks_a, unsigned* masks_b,
+                        int n_a, int n_b, int masks_ready,
+                        cudaStream_t stream) {
+    if (n_steps <= 0 || t <= 0) return cudaSuccess;
+    return with_prec(precision, [&](auto tag) {
+        constexpr Prec P = decltype(tag)::value;
+        if constexpr (P == Prec::HIGHEST)
+            return launch_class<RAGGED>(
+                a_dense, b_dense, ab_bases, p_ptr, a_offs, b_offs, t, p,
+                n_steps, base, c_num, c_flag, stream);
+        else
+            return launch_ws<P>(a_dense, b_dense,
+                                ClassTiles<RAGGED>{ab_bases, p_ptr, a_offs,
+                                                   b_offs, masks_a, masks_b,
+                                                   t, p, base, next,
+                                                   n_steps * t},
+                                grid, n_a, n_b, masks_ready, c_num, c_flag,
+                                stream);
+    });
+}
+
 extern "C" int macro_class_ragged_f32(
         const float* a_dense, const float* b_dense, const int* ab_bases,
         const int* p_ptr, const int* a_offs, const int* b_offs, int t,
         int n_steps, long long base, float* c_num, unsigned char* c_flag,
-        int precision, cudaStream_t stream) {
-    if (n_steps <= 0 || t <= 0) return (int)cudaSuccess;
-    return (int)with_prec(precision, [&](auto tag) {
-        return launch_class<true, decltype(tag)::value>(
-            a_dense, b_dense, ab_bases, p_ptr, a_offs, b_offs, t, 0, n_steps,
-            base, c_num, c_flag, stream);
-    });
+        int precision, int grid, int* next, unsigned* masks_a,
+        unsigned* masks_b, int n_a, int n_b, int masks_ready,
+        cudaStream_t stream) {
+    return (int)class_entry<true>(a_dense, b_dense, ab_bases, p_ptr, a_offs,
+                                  b_offs, t, 0, n_steps, base, c_num, c_flag,
+                                  precision, grid, next, masks_a, masks_b,
+                                  n_a, n_b, masks_ready, stream);
 }
 
 extern "C" int macro_class_uniform_f32(
         const float* a_dense, const float* b_dense, const int* ab_bases,
         const int* a_offs, const int* b_offs, int t, int p, int n_steps,
         long long base, float* c_num, unsigned char* c_flag, int precision,
-        cudaStream_t stream) {
-    if (n_steps <= 0 || t <= 0) return (int)cudaSuccess;
-    return (int)with_prec(precision, [&](auto tag) {
-        return launch_class<false, decltype(tag)::value>(
-            a_dense, b_dense, ab_bases, nullptr, a_offs, b_offs, t, p,
-            n_steps, base, c_num, c_flag, stream);
-    });
+        int grid, int* next, unsigned* masks_a, unsigned* masks_b, int n_a,
+        int n_b, int masks_ready, cudaStream_t stream) {
+    return (int)class_entry<false>(a_dense, b_dense, ab_bases, nullptr,
+                                   a_offs, b_offs, t, p, n_steps, base, c_num,
+                                   c_flag, precision, grid, next, masks_a,
+                                   masks_b, n_a, n_b, masks_ready, stream);
 }
 
 // The float64 pair stream: c_num (c_cap, 128, 128) f64 and c_flag

@@ -25,19 +25,22 @@ with nvcc at first use and bound with ctypes by ops/_build.py):
                            and flags.
 
 The three float32 entries compute their 128x128x128 products on the
-tensor cores (wgmma on tf32 operands; a slab holding an Inf, a NaN or a
-value of 2^63 or more runs in FP32 FMA, so non-finite operands give IEEE
-results) at the caller's ``precision``, which the kernel takes as a
-template argument: "highest" splits each operand into hi + lo (3xTF32, 3
-wgmma a k-step, float32 accuracy), "high" and "default" multiply its tf32
-or bfloat16 rounding in one wgmma a k-step (``ops.macro.round_operands``
-then the "highest" plain version is their plain version).  Every
-entry forms the structural pattern of the same products as uint8 flags from
-the raw values (see ops/macro.py).  Every C tile is written once by the
-block that owns it: the class entries and the float64 entry launch one
-block a tile, the float32 pair-stream entry one persistent block an SM
-(``persistent_grid``), taking tiles in stream order from a counter the
-wrapper zeroes and running them as one stream of stages.
+tensor cores (wgmma; a slab holding an Inf, a NaN or a value of 2^63 or
+more runs in FP32 FMA, so non-finite operands give IEEE results) at the
+caller's ``precision``, which the kernel takes as a template argument:
+"highest" splits each operand into hi + lo (3xTF32, 3 wgmma a k-step,
+float32 accuracy) on a 256-thread stage; "high" and "default" multiply its
+tf32 or bfloat16 rounding once (tf32 or bf16 wgmma;
+``ops.macro.round_operands`` then the "highest" plain version is their
+plain version) in a warp-specialised pipeline (a producer warpgroup copies
+and rounds the slabs, two consumer warpgroups multiply).  Every entry forms
+the structural pattern of the same products as uint8 flags from the raw
+values (see ops/macro.py).  Every C tile is written once by the block that
+owns it: the float64 entry and the class entries at "highest" launch one
+block a tile; the float32 pair-stream entry, and the class entries at
+"high" and "default", one persistent block an SM (``persistent_grid``),
+taking tiles in order from a counter the wrapper zeroes and running them as
+one stream of stages.
 
 Dispatch is by the tensors' device and nothing else: CUDA tensors launch
 the kernel (or raise, if the build or the launch fails); CPU tensors take
@@ -60,6 +63,7 @@ from pem_spgemm_tpu_torch.ops.stencil import class_call_plain, p_list_of
 
 SOURCE = _build.cuda_source("macro_accumulate")
 F64_MASK_WORDS = 10     # the float64 entry's k-mask words a tile (the .cu's)
+TM_WORDS = 10           # the one-pass pipeline's k-mask words a tile
 
 # kernel launches per entry (plain-version calls are not counted)
 LAUNCHES = {"macro_accumulate_pairs": 0, "macro_class_ragged": 0,
@@ -73,12 +77,15 @@ def reset_launch_counts() -> None:
 
 def _declare(lib) -> None:
     vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    masks = [vp, vp, ci, ci, ci]        # masks_a, masks_b, n_a, n_b, ready
     lib.macro_accumulate_pairs_f32.argtypes = [vp, vp, vp, vp, vp, vp, vp,
-                                               ci, ci, vp, ci, vp]
+                                               ci, ci, vp, ci, *masks, vp]
     lib.macro_class_ragged_f32.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci,
-                                           ll, vp, vp, ci, vp]
+                                           ll, vp, vp, ci, ci, vp, *masks,
+                                           vp]
     lib.macro_class_uniform_f32.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci,
-                                            ll, vp, vp, ci, vp]
+                                            ll, vp, vp, ci, ci, vp, *masks,
+                                            vp]
     lib.macro_accumulate_pairs_f64.argtypes = [vp, vp, vp, vp, vp, vp, vp,
                                                ci, ci, ci, ci, vp, vp, vp,
                                                vp]
@@ -134,6 +141,45 @@ def _raise_on(err, entry):
         raise RuntimeError(f"{entry}: CUDA launch failed with error {err}")
 
 
+class TileMasks:
+    """Scratch of the one-pass pipeline ("high", "default"): the k-masks of
+    two float32 tile tables (TM_WORDS int32 a tile; one buffer where both
+    operands are one table), computed by the first launch that is handed
+    them and read by the later ones.  ops.stencil.stencil_accumulate hands
+    one to all the launches of a multiply, so the tables are read once for
+    them; a launch without one computes its own."""
+
+    def __init__(self, a_dense, b_dense):
+        self.same = b_dense.data_ptr() == a_dense.data_ptr() \
+            and b_dense.shape == a_dense.shape
+        self.key = (a_dense.data_ptr(), a_dense.shape[0], b_dense.data_ptr(),
+                    b_dense.shape[0])
+        self.a = torch.empty((a_dense.shape[0], TM_WORDS), dtype=torch.int32,
+                             device=a_dense.device)
+        self.b = self.a if self.same else torch.empty(
+            (b_dense.shape[0], TM_WORDS), dtype=torch.int32,
+            device=b_dense.device)
+        self.ready = False
+
+    def args(self, a_dense, b_dense):
+        """The entries' (masks_a, masks_b, n_a, n_b, masks_ready)."""
+        if self.key != (a_dense.data_ptr(), a_dense.shape[0],
+                        b_dense.data_ptr(), b_dense.shape[0]):
+            raise ValueError("tile masks of other tables")
+        return (self.a.data_ptr(), self.b.data_ptr(), a_dense.shape[0],
+                b_dense.shape[0], int(self.ready))
+
+
+def _mask_args(a_dense, b_dense, prec, tile_masks):
+    """(masks, the entries' five mask arguments) of a float32 launch at
+    precision code ``prec``: none at "highest", which reads no mask."""
+    if prec == 0:
+        return None, (None, None, 0, 0, 1)
+    masks = tile_masks if tile_masks is not None else TileMasks(a_dense,
+                                                                b_dense)
+    return masks, masks.args(a_dense, b_dense)
+
+
 # --------------------------------------------------------------------------
 # the pair-stream entry
 
@@ -153,7 +199,7 @@ def persistent_grid(device) -> int:
 
 def accumulate_macro_pairs(a_dense, b_dense, a_idx, b_idx, seg, c_cap: int,
                            *, chunk: int = 256, acc_dtype=None,
-                           precision: str = "highest"):
+                           precision: str = "highest", tile_masks=None):
     """(c_dense (c_cap,128,128), c_flags (c_cap,128,128) uint8) of a pair
     stream sorted by C tile.
 
@@ -164,7 +210,9 @@ def accumulate_macro_pairs(a_dense, b_dense, a_idx, b_idx, seg, c_cap: int,
     and ``acc_dtype`` (None: the tiles' dtype) are read by the plain version
     only (CPU tensors).  ``precision`` ("highest", "high", "default";
     anything else raises) is the float32 products' (the float64 entry
-    ignores it, as float64 tiles do in the JAX package).
+    ignores it, as float64 tiles do in the JAX package).  ``tile_masks``: a
+    ``TileMasks`` of these tables shared with other launches (float32 at
+    "high" / "default" on CUDA tiles; else not read).
     CUDA tiles of float32 launch the float32 entry, of float64 the float64
     entry (c_dense then float64); any other dtype raises.
     """
@@ -209,10 +257,13 @@ def accumulate_macro_pairs(a_dense, b_dense, a_idx, b_idx, seg, c_cap: int,
     else:
         entry = "macro_accumulate_pairs"
         next_tile = torch.zeros(1, dtype=torch.int32, device=dev)
+        masks, margs = _mask_args(a_dense, b_dense, prec, tile_masks)
         with torch.cuda.device(dev):
             err = lib.macro_accumulate_pairs_f32(
                 *ptrs, persistent_grid(dev), next_tile.data_ptr(), prec,
-                torch.cuda.current_stream().cuda_stream)
+                *margs, torch.cuda.current_stream().cuda_stream)
+        if masks is not None and err == 0:
+            masks.ready = True
     _raise_on(err, entry)
     LAUNCHES[entry] += 1
     return c_num, c_flag
@@ -262,7 +313,7 @@ def _class_tables(tables, t, n_p, dev):
 
 def class_call2(c_num, c_pat, a_dense, b_dense, ab_bases, t, p, ar, br,
                 a_offs, b_offs, base, n_steps, *, tables=None,
-                precision: str = "highest"):
+                precision: str = "highest", tile_masks=None):
     """Run one signature class into slab rows [base, base + n_steps*t), in
     place; returns (c_num, c_pat).
 
@@ -271,7 +322,8 @@ def class_call2(c_num, c_pat, a_dense, b_dense, ab_bases, t, p, ar, br,
     the per-pair offsets from the step's bases, below the window extents
     ar / br.  ``tables`` are the class's device tables
     (``ops.stencil.class_tables``): CUDA tiles need them, CPU tiles do not
-    read them.  ``precision`` as in ``accumulate_macro_pairs``.
+    read them.  ``precision`` and ``tile_masks`` as in
+    ``accumulate_macro_pairs``.
     """
     prec = precision_code(precision)
     dev, n_p = _check_class(c_num, c_pat, a_dense, b_dense, ab_bases, t, p,
@@ -283,19 +335,24 @@ def class_call2(c_num, c_pat, a_dense, b_dense, ab_bases, t, p, ar, br,
         return c_num, c_pat
     p_ptr, ao, bo = _class_tables(tables, t, n_p, dev)
     lib = _library()
+    next_tile = torch.zeros(1, dtype=torch.int32, device=dev)
+    masks, margs = _mask_args(a_dense, b_dense, prec, tile_masks)
     with torch.cuda.device(dev):
         _raise_on(lib.macro_class_ragged_f32(
             a_dense.data_ptr(), b_dense.data_ptr(), ab_bases.data_ptr(),
             p_ptr.data_ptr(), ao.data_ptr(), bo.data_ptr(), t, n_steps, base,
-            c_num.data_ptr(), c_pat.data_ptr(), prec,
+            c_num.data_ptr(), c_pat.data_ptr(), prec, persistent_grid(dev),
+            next_tile.data_ptr(), *margs,
             torch.cuda.current_stream().cuda_stream), "macro_class_ragged")
+    if masks is not None:
+        masks.ready = True
     LAUNCHES["macro_class_ragged"] += 1
     return c_num, c_pat
 
 
 def class_call(c_num, c_pat, a_dense, b_dense, ab_bases, t, p, ar, br,
                a_offs, b_offs, base, *, tables=None,
-               precision: str = "highest"):
+               precision: str = "highest", tile_masks=None):
     """``class_call2`` for a uniform pair count (p an int) through the entry
     that needs no per-tile table; n_steps is read off ab_bases."""
     prec = precision_code(precision)
@@ -312,11 +369,16 @@ def class_call(c_num, c_pat, a_dense, b_dense, ab_bases, t, p, ar, br,
         return c_num, c_pat
     _p_ptr, ao, bo = _class_tables(tables, t, n_p, dev)
     lib = _library()
+    next_tile = torch.zeros(1, dtype=torch.int32, device=dev)
+    masks, margs = _mask_args(a_dense, b_dense, prec, tile_masks)
     with torch.cuda.device(dev):
         _raise_on(lib.macro_class_uniform_f32(
             a_dense.data_ptr(), b_dense.data_ptr(), ab_bases.data_ptr(),
             ao.data_ptr(), bo.data_ptr(), t, p, n_steps, base,
-            c_num.data_ptr(), c_pat.data_ptr(), prec,
+            c_num.data_ptr(), c_pat.data_ptr(), prec, persistent_grid(dev),
+            next_tile.data_ptr(), *margs,
             torch.cuda.current_stream().cuda_stream), "macro_class_uniform")
+    if masks is not None:
+        masks.ready = True
     LAUNCHES["macro_class_uniform"] += 1
     return c_num, c_pat

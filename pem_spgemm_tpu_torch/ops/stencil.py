@@ -337,7 +337,7 @@ def class_call_plain(c_num, c_pat, a_dense, b_dense, ab_bases, t, p, a_offs,
 
 
 def _residual_add(c_num, c_pat, a_dense, b_dense, pa, pb, seg, row0, n_rows,
-                  chunk, precision: str = "highest"):
+                  chunk, precision: str = "highest", tile_masks=None):
     """The residual pairs into slab rows [row0, row0 + n_rows), in place.
     No class writes those rows, so the pair stream (sorted by slab row) is
     accumulated into a buffer of n_rows tiles that is then copied in: by
@@ -348,7 +348,8 @@ def _residual_add(c_num, c_pat, a_dense, b_dense, pa, pb, seg, row0, n_rows,
     num, flags = accumulate_macro_pairs(a_dense, b_dense, pa, pb, seg - row0,
                                         n_rows, chunk=chunk,
                                         acc_dtype=c_num.dtype,
-                                        precision=precision)
+                                        precision=precision,
+                                        tile_masks=tile_masks)
     c_num[row0:row0 + n_rows] = num
     c_pat[row0:row0 + n_rows] = flags
     return c_num, c_pat
@@ -364,10 +365,14 @@ def stencil_accumulate(a_dense, b_dense, plan: StencilPlan,
     row is written exactly once: by its class, by the residual path, or (the
     rows past the last real one) by the zero fill.  CUDA tables go through
     the class kernel, CPU tables through ``class_call_plain``
-    (ops/macro_kernels.class_call2 decides by the tensors' device).
+    (ops/macro_kernels.class_call2 decides by the tensors' device).  Below
+    "highest" the kernels' launches share one ``TileMasks``: the first
+    computes the tables' k-masks, the others read them.
     """
-    from pem_spgemm_tpu_torch.ops.macro_kernels import class_call2
+    from pem_spgemm_tpu_torch.ops.macro_kernels import TileMasks, class_call2
     dev = a_dense.device
+    masks = TileMasks(a_dense, b_dense) if a_dense.is_cuda \
+        and precision != "highest" else None
     c_num = torch.empty((plan.c_cap, TILE, TILE), dtype=torch.float32,
                         device=dev)
     c_pat = torch.empty((plan.c_cap, TILE, TILE), dtype=torch.uint8,
@@ -379,7 +384,7 @@ def stencil_accumulate(a_dense, b_dense, plan: StencilPlan,
             plan.classes, plan.class_bases, plan.class_tables):
         class_call2(c_num, c_pat, a_dense, b_dense, bases, t, p, ar, br,
                     a_offs, b_offs, base, bases.shape[0] // 2,
-                    tables=tables, precision=precision)
+                    tables=tables, precision=precision, tile_masks=masks)
     n_res_pairs = plan.res_pa.shape[0]
     if n_res_pairs:
         p_cap = max(macro_chunk, -(-n_res_pairs // macro_chunk) * macro_chunk)
@@ -394,5 +399,5 @@ def stencil_accumulate(a_dense, b_dense, plan: StencilPlan,
                       padded(plan.res_pb, b_dense.shape[0] - 1),
                       padded(plan.res_seg, plan.c_cap),
                       slab_rows - plan.n_res_tiles, plan.n_res_tiles,
-                      macro_chunk, precision)
+                      macro_chunk, precision, masks)
     return c_num, c_pat

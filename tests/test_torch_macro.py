@@ -512,11 +512,12 @@ def test_pair_kernel_index_arithmetic_replayed_in_numpy(gapped_stream, grid,
 
 def test_k4_split_cuts_cut_one_place_each():
     # bench/k4_split.py times the tile product with one piece of a stage cut
-    # out and with one tile a block, each a text substitution
+    # out (of the "highest" stage and of the one-pass pipeline) and with one
+    # tile a block, each a text substitution
     from pem_spgemm_tpu_torch.bench import k4_split
     with open(mk.SOURCE) as f:
         text = f.read()
-    for name, cuts in [*k4_split.CUTS.items(),
+    for name, cuts in [*k4_split.CUTS.items(), *k4_split.WS_CUTS.items(),
                        ("one tile", k4_split.ONE_TILE)]:
         for old, new in cuts:
             assert text.count(old) == 1 and new != old, name
