@@ -79,13 +79,18 @@ first two, engine="macro" for the third):
     (the c_nnz all_reduce and the gathers go through NCCL; no
     point-to-point op runs at one rank): the column-sharded element engine
     on powerlaw-1M (K1b), the DIA halo exchange on banded64-1M (K2), the
-    Macro128 ring on wandering64-1M (one K4 a stage with pairs) and the
-    Tile16 ring on pairbands-500k; phase sharded_ranks replays a 4-rank
-    plan of each on the card, rank by rank, each rank's B chunks and halos
-    read from the plan (two NCCL ranks cannot share one card: the exchange
-    is carried by the gloo tests), with each rank's time and the load
-    balance.  Each is held to scipy (sampled rows for wandering64-1M) or,
-    for banded64-1M, to the plain path on the card;
+    Macro128 ring on wandering64-1M (one K4 a stage with pairs: a rank's
+    first in K4's fresh form, the later ones in its accumulate form, which
+    adds into the rank's C) and the Tile16 ring on pairbands-500k; phase
+    sharded_ranks replays a 4-rank plan of each on the card, rank by rank,
+    each rank's B chunks and halos read from the plan (two NCCL ranks
+    cannot share one card: the exchange is carried by the gloo tests), with
+    each rank's time and the load balance; the Macro128 ring also in
+    float64.  Each is held to scipy (sampled rows for wandering64-1M) or,
+    for banded64-1M, to the plain path on the card; each rank's Macro128 C
+    also to the composition of K4's fresh form with a torch add and OR,
+    under == with flags bit for bit (timed beside it), with its time split
+    into the K4 launches and local_macro_coo and the ring's peak memory;
   * A.A^T (phase aat_path, run_benchmark(aat=True), B = A^T != A): rmat-16
     and a rectangular 1,000,000 x 500,000 uniform matrix on the binned
     element engine (K1b), banded16-1M on K2, pairbands-500k on K3 and
@@ -98,10 +103,11 @@ first two, engine="macro" for the third):
     macro (K4 interactive, K5 steady), pairbands-500k as macro (K4) and
     through engine="fused" (the Tile16 tier's torch ops), and the macro
     ring as a 4-rank plan of wandering64-1M replayed on the card (K4 a
-    stage at the precision); C_nnz and structure equal the "highest"
-    run's, sorted COO scipy's |A|.|A| (20,000 sampled rows of
-    wandering64-1M), values within (2u + u^2) sum|a*b| plus the float32
-    bound (u = 2^-11 for tf32, 2^-8 for bfloat16);
+    stage at the precision, held like sharded_ranks' to the fresh-form
+    composition); C_nnz and structure equal the "highest" run's, sorted
+    COO scipy's |A|.|A| (20,000 sampled rows of wandering64-1M), values
+    within (2u + u^2) sum|a*b| plus the float32 bound (u = 2^-11 for tf32,
+    2^-8 for bfloat16);
   * the suite driver (phase suite): python -m
     pem_spgemm_tpu_torch.bench.suite, the counterpart of the JAX package's
     bench.py, cut to its first four rows (one matrix an engine tier), in a
@@ -113,7 +119,12 @@ gives it, beside its bound (the Macro128 entries run on the tensor cores
 with a 3xTF32 split: their rows carry the tensor-core bound too; the
 pair-stream entry is timed at pairbands-500k's stream and at
 wandering64-1M's; the three float32 Macro128 entries also at "high" and
-"default", rows K4@high ... K6@default, bounded at one TF32 or bf16 pass).
+"default", rows K4@high ... K6@default, bounded at one TF32 or bf16 pass;
+K4's accumulate form at "highest", "high", "default" and in float64, rows
+macro_accumulate_pairs_acc[@...] and macro_accumulate_pairs_f64_acc, on the
+4-rank ring's largest accumulating stage, held against the plain
+accumulate into a C with -0.0, +-Inf and NaN in every tile, the tiles
+without pairs bit for bit).
 The kernel checks hold the Macro128 entries at each precision to the
 plain version at it (and each entry at "high" / "default" to itself at
 "highest" on tables rounded beforehand), with the plain version's NaN
@@ -183,6 +194,7 @@ from pem_spgemm_tpu_torch.ops.convert import coo_to_macro, coo_to_tiled
 from pem_spgemm_tpu_torch.ops.fixed import (MacroPlan, StencilMacroPlan,
                                             make_plan)
 from pem_spgemm_tpu_torch.ops.spgemm import SpGEMM
+from pem_spgemm_tpu_torch.parallel import sharded_macro as sm
 
 SENT = ss.SENTINEL
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
@@ -1218,20 +1230,21 @@ def nonfinite_tiles():
 
 
 def pairs_direct(a_dense, b_dense, a_idx, b_idx, seg, c_cap, grid,
-                 precision="highest"):
+                 precision="highest", out=None):
     """The pair-stream entry launched with ``grid`` blocks (the wrapper
-    launches one an SM), so that each block takes several C tiles; not
-    counted."""
+    launches one an SM), so that each block takes several C tiles; with
+    ``out`` its accumulate form, into ``out``; not counted."""
     seg_ptr = mk.segment_offsets(seg, c_cap)
     next_tile = torch.zeros(1, dtype=torch.int32, device=DEV)
-    num, flag = fresh_slabs(c_cap)
+    num, flag = fresh_slabs(c_cap) if out is None else out
     prec = M.precision_code(precision)
     _masks, margs = mk._mask_args(a_dense, b_dense, prec, None)
     mk._raise_on(mk._library().macro_accumulate_pairs_f32(
         a_dense.data_ptr(), b_dense.data_ptr(), a_idx.data_ptr(),
         b_idx.data_ptr(), seg_ptr.data_ptr(), num.data_ptr(),
         flag.data_ptr(), c_cap, grid, next_tile.data_ptr(), prec, *margs,
-        torch.cuda.current_stream().cuda_stream), "pairs_direct")
+        int(out is not None), torch.cuda.current_stream().cuda_stream),
+        "pairs_direct")
     torch.cuda.synchronize()
     return num, flag
 
@@ -1466,8 +1479,127 @@ def engineered_onepass_cases(worst, precision):
     return cases
 
 
+# --------------------------------------------------------------------------
+# K4's accumulate form (``out=``): the Macro128 ring's stages after a rank's
+# first add into the rank's C
+
+def acc_prior(c_cap, dtype, seed):
+    """A C on the card that a stage adds into: normal values with -0.0,
+    +-Inf and NaN in every tile (with pairs or without), flags 0 and 1."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    num = torch.randn((c_cap, 128, 128), generator=g, device=DEV,
+                      dtype=dtype)
+    u = torch.rand((c_cap, 128, 128), generator=g, device=DEV)
+    num.masked_fill_(u < 0.05, -0.0)
+    num.masked_fill_((u >= 0.05) & (u < 0.055), float("inf"))
+    num.masked_fill_((u >= 0.055) & (u < 0.06), float("-inf"))
+    num.masked_fill_((u >= 0.06) & (u < 0.065), float("nan"))
+    del u
+    flag = (torch.rand((c_cap, 128, 128), generator=g, device=DEV)
+            < 0.3).to(torch.uint8)
+    return num, flag
+
+
+def stream_tiles(seg, c_cap):
+    """(c_cap,) bool on the card: the C tiles the stream has pairs for."""
+    live = torch.zeros(c_cap, dtype=torch.bool, device=seg.device)
+    live[seg[seg < c_cap].long()] = True
+    return live
+
+
+def int_view(x):
+    return x.view(torch.int64 if x.element_size() == 8 else torch.int32)
+
+
+def hold_accumulate(got, want, prior, mag, live, what, key=None):
+    """The accumulate form (added into a copy of ``prior``) against the
+    plain one (added into another): the tiles without pairs (``live``
+    False) bit for bit the prior's, values and flags; in the others the
+    flags bit for bit, NaN where the plain version has NaN, an Inf of its
+    sign where it has one, finite values within the dot-product bound of
+    sum|a*b| + |old| (``mag`` the former).  Returns the max abs error."""
+    (gn, gf), (wn, wf) = got, want
+    dead = ~live
+    if not (torch.equal(int_view(gn[dead]), int_view(prior[0][dead]))
+            and torch.equal(gf[dead], prior[1][dead])):
+        raise AssertionError(f"{what}: a tile without pairs changed")
+    if not torch.equal(gf[live], wf[live]):
+        raise AssertionError(f"{what}: flags differ from the plain "
+                             "version's")
+    old = prior[0][live]
+    return macro_hold_ieee((gn[live], gf[live]), (wn[live], wf[live]),
+                           mag[live] + torch.nan_to_num(old.abs(), 0.0, 0.0),
+                           what, key=key)
+
+
+def accumulate_case(a, b, a_idx, b_idx, seg, c_cap, what, worst,
+                    precision="highest", seed=0, grid=None):
+    """K4's accumulate form (the float32 entry at ``precision`` or, for
+    float64 tiles, the float64 entry) through the wrapper and, with
+    ``grid``, launched with that many blocks, each into a copy of one prior
+    C (acc_prior), against the plain accumulate into another copy
+    (hold_accumulate).  Returns the wrapper's output."""
+    f64 = a.dtype == torch.float64
+    key = "macro_accumulate_pairs_f64_acc" if f64 else prec_key(
+        "macro_accumulate_pairs_acc", precision)
+    prior = acc_prior(c_cap, a.dtype, seed)
+    chunk = min(256, a_idx.numel())
+    want = M.accumulate_macro(a, b, a_idx, b_idx, seg, c_cap, chunk, a.dtype,
+                              precision,
+                              out=tuple(x.clone() for x in prior))
+    mag = M.accumulate_macro(a.abs(), b.abs(), a_idx, b_idx, seg, c_cap,
+                             chunk, a.dtype)[0]
+    live = stream_tiles(seg, c_cap)
+    got = mk.accumulate_macro_pairs(a, b, a_idx, b_idx, seg, c_cap,
+                                    chunk=chunk, precision=precision,
+                                    out=tuple(x.clone() for x in prior))
+    outs = [("wrapper", got)]
+    if grid is not None:
+        outs.append((f"{grid} blocks", pairs_direct(
+            a, b, a_idx, b_idx, seg, c_cap, grid, precision,
+            out=tuple(x.clone() for x in prior))))
+    torch.cuda.synchronize()
+    for how, out in outs:
+        worst[key] = max(worst[key], hold_accumulate(
+            out, want, prior, mag, live, f"{what}, accumulate form, {how}, "
+            f"{'float64' if f64 else precision}", key=key))
+    return got
+
+
+def engineered_accumulate_cases(worst):
+    """K4's accumulate form at each precision and in float64, on the
+    non-finite tiles (+-Inf, NaN, near-FLT_MAX, subnormals; the plain
+    version's NaNs and Inf signs) and on a stream with an empty tile, a
+    tile whose pair multiplies only zeros (A's columns and B's rows share
+    no k: no slab of it runs at "high", "default" and in float64, so the
+    kernel leaves it, where the plain version adds +0.0), and tiles past
+    the stream's count; each into a prior C with -0.0, +-Inf and NaN in
+    every tile.  The float32 entry also with 2 blocks.  Returns the
+    count."""
+    a, b = nonfinite_tiles()
+    a[8, :, 32:] = 0.0                  # A tile 8: non-zeros in k < 32
+    b[9, :32] = 0.0                     # B tile 9: non-zeros in k >= 32
+    # C tiles of 3, 2, 0, 2, 2 and 1 pairs (the last multiplies only
+    # zeros) in a c_cap of 8
+    pairs = [(0, 0, 0), (1, 1, 0), (2, 2, 0), (3, 3, 1), (7, 7, 1),
+             (4, 4, 3), (5, 5, 3), (6, 6, 4), (1, 6, 4), (8, 9, 5)]
+    pad = 256 - len(pairs)
+    cols = torch.tensor(pairs, dtype=torch.int32, device=DEV).T
+    a_idx, b_idx, seg = (torch.cat([x, torch.full((pad,), f, dtype=torch.int32,
+                                                  device=DEV)]).contiguous()
+                         for x, f in zip(cols, (12, 12, symbolic.INT32_MAX)))
+    cases = 0
+    for q in ("highest",) + LOWER_PRECISIONS:
+        accumulate_case(a, b, a_idx, b_idx, seg, 8, "engineered", worst, q,
+                        seed=61, grid=2)
+        cases += 2
+    accumulate_case(a.double(), b.double(), a_idx, b_idx, seg, 8,
+                    "engineered", worst, seed=62)
+    return cases + 1
+
+
 F32_MACRO_ENTRIES = ("macro_accumulate_pairs", "macro_class_ragged",
-                     "macro_class_uniform")
+                     "macro_class_uniform", "macro_accumulate_pairs_acc")
 LOWER_PRECISIONS = ("high", "default")
 
 
@@ -1560,6 +1692,7 @@ def phase_macro_kernel_check():
     n = engineered_class_cases(worst)
     cases += n
     cases += engineered_nonfinite_cases(worst)
+    cases += engineered_accumulate_cases(worst)
 
     # "high" and "default": every entry against its plain version at the
     # precision (round_operands, then the "highest" plain path), and
@@ -1596,6 +1729,15 @@ def phase_macro_kernel_check():
         raise AssertionError("pairs: the stream has no padding pair")
     pairs_case(ap.dense, ap.dense, a_idx, b_idx, seg,
                -(-n_tiles // 256) * 256, "pairs gapped bands", worst)
+    # its accumulate form at each precision and in float64, with tiles past
+    # the stream's count
+    for q in ("highest",) + LOWER_PRECISIONS:
+        accumulate_case(ap.dense, ap.dense, a_idx, b_idx, seg, n_tiles + 40,
+                        "pairs gapped bands", worst, q, seed=63, grid=3)
+        cases += 2
+    accumulate_case(ap.dense.double(), ap.dense.double(), a_idx, b_idx, seg,
+                    n_tiles + 40, "pairs gapped bands", worst, seed=64)
+    cases += 1
     cnt_c = n_tiles - 1 - (n_tiles - 1) % 4 + 1        # = 1 mod 4
     cut = seg >= cnt_c
     seg_cut = torch.where(cut, symbolic.INT32_MAX, seg)
@@ -2618,15 +2760,24 @@ def bmm_at(precision):
     return torch.bmm, "torch.bmm, float32"
 
 
+def bmm_cast(dtype, precision):
+    """The operands' dtype of the torch.bmm yardstick for tiles of
+    ``dtype`` at ``precision``: float64 tiles keep float64 (the float64
+    entries' rows name a float64 product), float32 tiles go bfloat16 at
+    "default" and stay float32 otherwise."""
+    if dtype == torch.float64:
+        return torch.float64
+    return torch.bfloat16 if precision == "default" else torch.float32
+
+
 def bmm_ms(a_dense, b_dense, pa, pb, per=16_384, precision="highest"):
     """ms of torch.bmm over the pre-gathered (P, 128, 128) operands at
-    ``precision`` (bmm_at; the operands are cast to bfloat16 before the
-    timing at "default"), the products only (no gather, no sum per C tile),
-    taken ``per`` pairs at a time so the gathered copies fit beside the
-    run's own tensors.  A yardstick: the port never calls it on this
-    path."""
+    ``precision`` (bmm_at; the operands are cast as bmm_cast says before
+    the timing), the products only (no gather, no sum per C tile), taken
+    ``per`` pairs at a time so the gathered copies fit beside the run's
+    own tensors.  A yardstick: the port never calls it on this path."""
     fn, _what = bmm_at(precision)
-    cast = torch.bfloat16 if precision == "default" else torch.float32
+    cast = bmm_cast(a_dense.dtype, precision)
     total = 0.0
     for lo in range(0, pa.numel(), per):
         ad = a_dense[pa[lo:lo + per].long()].to(cast)
@@ -4100,10 +4251,12 @@ def coo_rows(rows, cols, vals, pick):
 
 def device_rows(rows, cols, vals, pick):
     """The entries of sorted COO tensors on the card in the rows ``pick``,
-    copied to the host."""
+    copied to the host (float64 values as they are, others as float32)."""
     keep = torch.isin(rows, torch.as_tensor(pick, device=rows.device))
+    vals = vals[keep]
     return (rows[keep].cpu().numpy(), cols[keep].cpu().numpy(),
-            vals[keep].float().cpu().numpy())
+            (vals if vals.dtype == torch.float64 else vals.float())
+            .cpu().numpy())
 
 
 def phase_bf16_path(coo_pl):
@@ -4334,12 +4487,308 @@ def sharded_dia_runs(mesh):
          block_columns=geo.l, rank_ms=times, load_balance=balance(times))
 
 
-def sharded_macro_runs(mesh):
+def ring_composition(p, chunks, precision="highest"):
+    """(C, ms, peak GB, may_differ) of a rank's C composed from K4's fresh
+    form: a zero C, each stage's fresh output added by torch and its flags
+    ORed in (the script's reference for the ring, run after the path's
+    counts are read), with its time and its peak device memory above what
+    was allocated before it.  ``may_differ``: (c_cap,) bool, the tiles that
+    a stage after the rank's first with pairs may leave untouched in the
+    accumulate form, so that a zero's sign may differ there: the tiles
+    without pairs in that stage, and at "high" / "default" or in float64
+    (where a tile none of whose slabs runs is not stored) also the tiles
+    whose fresh output in that stage is all zeros with no flags.  Working
+    out ``may_differ`` is left out of the time."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    aside = 0.0
+    num = torch.zeros((p.c_cap, 128, 128), dtype=p.a_dense.dtype,
+                      device=DEV)
+    flag = torch.zeros((p.c_cap, 128, 128), dtype=torch.uint8, device=DEV)
+    may = torch.zeros(p.c_cap, dtype=torch.bool, device=DEV)
+    skips_runs = precision != "highest" or p.a_dense.dtype == torch.float64
+    first = True
+    for s, b in enumerate(chunks):
+        if p.stage_pairs[s]:
+            part, part_f = mk.accumulate_macro_pairs(
+                p.a_dense, b, p.pairs_a[s], p.pairs_b[s], p.seg[s], p.c_cap,
+                chunk=min(256, p.pairs_a.shape[1]), precision=precision)
+            num += part
+            flag |= part_f
+            if not first:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                may |= ~stream_tiles(p.seg[s], p.c_cap)
+                for lo in range(0, p.c_cap, 2048) if skips_runs else ():
+                    may[lo:lo + 2048] |= (
+                        (part[lo:lo + 2048] == 0).flatten(1).all(1)
+                        & (part_f[lo:lo + 2048] == 0).flatten(1).all(1))
+                torch.cuda.synchronize()
+                aside += time.perf_counter() - t1
+            first = False
+            del part, part_f
+    torch.cuda.synchronize()
+    return ((num, flag), (time.perf_counter() - t0 - aside) * 1e3,
+            (torch.cuda.max_memory_allocated() - before) / 2**30, may)
+
+
+def hold_composition(got, want, may_differ, what, tiles=4096):
+    """A ring's C against ring_composition's: values equal under == (NaN
+    where it has NaN), flags bit for bit; a zero's sign may differ only in
+    the tiles ``may_differ`` marks.  Returns the count of zeros whose sign
+    differs."""
+    (gn, gf), (wn, wf) = got, want
+    if not torch.equal(gf, wf):
+        raise AssertionError(f"{what}: flags differ from the composition's")
+    signs = 0
+    for lo in range(0, gn.shape[0], tiles):
+        g, w = gn[lo:lo + tiles], wn[lo:lo + tiles]
+        if not bool(((g == w) | (torch.isnan(g) & torch.isnan(w))).all()):
+            raise AssertionError(f"{what}: values differ from the "
+                                 "composition's")
+        flip = (g == 0) & (torch.signbit(g) != torch.signbit(w))
+        if bool((flip & ~may_differ[lo:lo + tiles, None, None]).any()):
+            raise AssertionError(f"{what}: a zero's sign differs from the "
+                                 "composition's in a tile every later "
+                                 "stage adds into")
+        signs += int(flip.sum())
+    return signs
+
+
+def ring_stage_counts(plans):
+    """(stages with pairs, of them the first of their rank: K4's fresh
+    form; the others run its accumulate form)."""
+    stages = sum(1 for p in plans for x in p.stage_pairs if x)
+    first = sum(1 for p in plans if any(p.stage_pairs))
+    return stages, first
+
+
+def check_ring_launches(launches, plans, what, f64=False, runs=1):
+    """One K4 launch a stage with pairs (``runs`` times): the first of each
+    rank's in the fresh form, the others in the accumulate form."""
+    stages, first = ring_stage_counts(plans)
+    entry = "macro_accumulate_pairs_f64" if f64 else "macro_accumulate_pairs"
+    got = (launches.get(entry, 0), launches.get(entry + "_acc", 0))
+    if got != (runs * first, runs * (stages - first)):
+        raise AssertionError(f"{what}: launches {launches}, {stages} stages "
+                             f"with pairs, {first} of them first")
+    return stages
+
+
+RING_ROUNDS = 3         # timed replays of a ring plan (median reported)
+
+
+def warm_ring(plans, precision="highest"):
+    """Each rank's local_macro once, its output dropped: the first launch
+    of a kernel instance in a process loads it, and the first C of a size
+    is a fresh allocation."""
+    for d, p in enumerate(plans):
+        sm.local_macro(p, sm.replay_chunks(plans, d), precision)
+    torch.cuda.synchronize()
+
+
+def replay_ring(plans, precision="highest"):
+    """Each rank of a ring plan replayed on the card in turn, RING_ROUNDS
+    times: its local_macro (the K4 launches) and its local_macro_coo timed
+    apart (host clock, the card synchronised; the median of the rounds:
+    both make host syncs and allocations, and single rounds spread by
+    several ms), and the peak device memory of its local_macro above what
+    was allocated before it.  Returns (outs, parts, k4_ms, coo_ms,
+    ring_peak_gb) with the last round's outputs."""
+    n = len(plans)
+    k4, coo, peaks = [[] for _ in plans], [[] for _ in plans], [0.0] * n
+    for _ in range(RING_ROUNDS):
+        outs, parts = [], []
+        for d, p in enumerate(plans):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            out, ms = synced_ms(lambda: sm.local_macro(
+                p, sm.replay_chunks(plans, d), precision))
+            peaks[d] = max(peaks[d], (torch.cuda.max_memory_allocated()
+                                      - before) / 2**30)
+            part, ms_coo = synced_ms(lambda: sm.local_macro_coo(p, *out))
+            outs.append(out)
+            parts.append(part)
+            k4[d].append(ms)
+            coo[d].append(ms_coo)
+    return (outs, parts, [float(np.median(x)) for x in k4],
+            [float(np.median(x)) for x in coo], peaks)
+
+
+def hold_ring_compositions(plans, outs, precision, what):
+    """Every rank's C against ring_composition's (hold_composition), with
+    the composition's ms and peak memory.  Returns {"zero_signs_differing",
+    "rank_composition_ms", "rank_composition_peak_mem_gb"}, a list each."""
+    out = {"zero_signs_differing": [], "rank_composition_ms": [],
+           "rank_composition_peak_mem_gb": []}
+    for d, (p, got) in enumerate(zip(plans, outs)):
+        want, ms, peak, may = ring_composition(
+            p, sm.replay_chunks(plans, d), precision)
+        out["zero_signs_differing"].append(
+            hold_composition(got, want, may, f"{what}, rank {d}"))
+        out["rank_composition_ms"].append(ms)
+        out["rank_composition_peak_mem_gb"].append(peak)
+        del want
+    return out
+
+
+def acc_stage(plans):
+    """(rank, stage) of a ring plan's stage with the most pairs among those
+    K4 runs in the accumulate form (a stage with pairs after its rank's
+    first), or None."""
+    best = None
+    for d, p in enumerate(plans):
+        live = [s for s, x in enumerate(p.stage_pairs) if x]
+        for s in live[1:]:
+            if best is None or p.stage_pairs[s] > \
+                    plans[best[0]].stage_pairs[best[1]]:
+                best = (d, s)
+    return best
+
+
+def acc_bounds(a_dense, pa, pb, n_pairs, tiles, precision):
+    """Bounds of a stage in K4's accumulate form: the operations (2 * 128^3
+    a pair, at the rate of the precision's product: FP32 at "highest" with
+    the 3xTF32 tensor-core bound beside it, TF32, bf16, FP64) and the bytes
+    (each distinct operand tile read once, each C tile the stage has pairs
+    for read and written once, values and flags; the other tiles not at
+    all)."""
+    elem = a_dense.element_size()
+    ops = TILE_FLOP * n_pairs
+    operand_tiles = int(torch.unique(pa).numel() + torch.unique(pb).numel())
+    nbytes = operand_tiles * 128 * 128 * elem \
+        + 2 * tiles * 128 * 128 * (elem + 1)
+    if a_dense.dtype == torch.float64:
+        rate, rate_name = FP64_OPS_PER_S, "FP64 67 TFLOP/s (DMMA)"
+    else:
+        rate, rate_name = {
+            "highest": (FP32_OPS_PER_S, "FP32 67 TFLOP/s"),
+            "high": (TF32_OPS_PER_S, "TF32 495 TFLOP/s"),
+            "default": (BF16_OPS_PER_S, "bf16 989 TFLOP/s")}[precision]
+    b_o, b_b = ops / rate, nbytes / HBM_BYTES_PER_S
+    out = {"bound_ms": max(b_o, b_b) * 1e3,
+           "bound_by": "operations" if b_o >= b_b else "bytes",
+           "bound_ops_ms": b_o * 1e3, "bound_bytes_ms": b_b * 1e3,
+           "operations": ops, "bytes": nbytes, "operand_tiles": operand_tiles,
+           "rate": rate_name}
+    if precision == "highest" and a_dense.dtype == torch.float32:
+        b_tc = 3 * ops / TF32_OPS_PER_S
+        out.update(bound_tc_ms=max(b_tc, b_b) * 1e3,
+                   bound_tc_by="operations (3xTF32)" if b_tc >= b_b
+                   else "bytes")
+    return out
+
+
+def acc_row(plans, matrix, launches, check_err, precision="highest",
+            extra=None):
+    """The kernels-line row of K4's accumulate form at ``precision`` (or in
+    float64, for float64 plans), timed on the ring stage acc_stage picks:
+    held first against the plain accumulate (accumulate_case's rule, into
+    a prior C with -0.0, +-Inf and NaN in every tile), then the form, its
+    plain version and K4's fresh form on the same stream, and torch.bmm
+    over the stage's pre-gathered pairs."""
+    d, s = acc_stage(plans)
+    p = plans[d]
+    b = list(sm.replay_chunks(plans, d))[s]
+    pa, pb, sg = p.pairs_a[s], p.pairs_b[s], p.seg[s]
+    n_pairs = p.stage_pairs[s]
+    f64 = p.a_dense.dtype == torch.float64
+    name = "macro_accumulate_pairs_f64_acc" if f64 else prec_key(
+        "macro_accumulate_pairs_acc", precision)
+    worst = {name: 0.0}
+    accumulate_case(p.a_dense, b, pa, pb, sg, p.c_cap, f"{matrix} ring "
+                    f"stage (rank {d}, stage {s})", worst, precision,
+                    seed=71)
+    tiles = int(stream_tiles(sg, p.c_cap).sum())
+    chunk = min(256, pa.numel())
+    c = acc_prior(p.c_cap, p.a_dense.dtype, 72)
+    fn = lambda: mk.accumulate_macro_pairs(p.a_dense, b, pa, pb, sg, p.c_cap,
+                                           precision=precision, out=c)
+    plain = lambda: M.accumulate_macro(p.a_dense, b, pa, pb, sg, p.c_cap,
+                                       chunk, p.a_dense.dtype, precision,
+                                       out=c)
+    fresh = lambda: mk.accumulate_macro_pairs(p.a_dense, b, pa, pb, sg,
+                                              p.c_cap, precision=precision)
+    ms = time_ms(fn)
+    row = {
+        "name": name,
+        "kernel": ("K4-f64" if f64 else "K4") + " accumulate form"
+                  + ("" if precision == "highest" or f64
+                     else f"@{precision}"),
+        "route": "cuda", "source": MACRO_SOURCE,
+        "replaces": "pem_spgemm_tpu/ops/pallas_macro2.py:232",
+        "jax_ring_stage": "pem_spgemm_tpu/parallel/sharded_macro.py:248 "
+                          "(c_dense.at[sg].add(prod))",
+        "launches": launches, "max_abs_err": max(
+            worst[name], check_err.get(name, 0.0)),
+        "ms": ms, "plain_ms": time_ms(plain, 2),
+        **acc_bounds(p.a_dense, pa[:n_pairs], pb[:n_pairs], n_pairs, tiles,
+                     precision),
+        "library_ms": bmm_ms(p.a_dense, b, pa[:n_pairs], pb[:n_pairs],
+                             precision=precision),
+        "library_covers": ("torch.bmm in float64" if f64 else
+                           bmm_at(precision)[1]) + " over the stage's "
+                          "pre-gathered (P, 128, 128) operands: the products "
+                          "only",
+        "fresh_form_ms": time_ms(fresh),
+        "matrix": matrix, "ring": f"{len(plans)} ranks replayed",
+        "rank": d, "stage": s, "pairs": n_pairs, "tiles_with_pairs": tiles,
+        "c_cap": p.c_cap, "precision": "float64" if f64 else precision,
+        "dtype": str(p.a_dense.dtype).replace("torch.", ""),
+        "timed": "one launch into the rank's C (c_cap tiles), the stage's "
+                 "stream as the ring hands it over; fresh_form_ms: K4's "
+                 "fresh form on the same stream (it writes all c_cap "
+                 "tiles)", **(extra or {})}
+    del c
+    torch.cuda.empty_cache()
+    return row
+
+
+def world_size_1_point(plan, precision="highest"):
+    """K4's accumulate form and its fresh form on the world-size-1 ring's
+    one stream (every pair of the product; every C tile has pairs): ms of
+    each, into the same C."""
+    s = next(i for i, x in enumerate(plan.stage_pairs) if x)
+    args = (plan.a_dense, plan.b_dense, plan.pairs_a[s], plan.pairs_b[s],
+            plan.seg[s], plan.c_cap)
+    c = mk.accumulate_macro_pairs(*args, precision=precision)
+    point = {"pairs": plan.stage_pairs[s], "c_cap": plan.c_cap,
+             "tiles_with_pairs": int(stream_tiles(plan.seg[s], plan.c_cap)
+                                     .sum()),
+             "ms": time_ms(lambda: mk.accumulate_macro_pairs(
+                 *args, precision=precision, out=c), 10),
+             "fresh_form_ms": time_ms(lambda: mk.accumulate_macro_pairs(
+                 *args, precision=precision), 10)}
+    del c
+    torch.cuda.empty_cache()
+    return point
+
+
+def check_f64_rows(got, want, what):
+    """Sampled rows: exact structure, values within the float64 bound."""
+    gr, gc, gv = got
+    wr, wc, wv, mag = want
+    if not (np.array_equal(gr, wr) and np.array_equal(gc, wc)):
+        raise AssertionError(f"{what}: sampled rows' structure differs")
+    over = float((np.abs(gv - wv) / (F64_RTOL * mag + F64_ATOL)).max())
+    if not over <= 1.0:
+        raise AssertionError(f"{what}: values exceed the float64 bound by "
+                             f"{over}x")
+    return over
+
+
+def sharded_macro_runs(mesh, check_err):
     """wandering64-1M: the macro ring at world size 1 over NCCL (one K4
-    stage), then the 4-rank replay (one K4 for each stage with pairs);
-    C_nnz as recorded, sampled rows against scipy."""
+    stage), then the 4-rank replay (one K4 for each stage with pairs: a
+    rank's first in the fresh form, the others in the accumulate form), in
+    float32 and in float64; C_nnz as recorded, sampled rows against scipy,
+    each rank's C against the composition the accumulate form replaces
+    (ring_composition) under ==.  Returns the accumulate form's rows (at
+    "highest" and in float64)."""
     from pem_spgemm_tpu_torch.parallel import distributed as PD
-    from pem_spgemm_tpu_torch.parallel import sharded_macro as sm
     name = "wandering64-1M"
     want_nnz = BF16_RUNS[2][2]
     coo = MACRO_MATRICES[name]()
@@ -4349,55 +4798,92 @@ def sharded_macro_runs(mesh):
     reset_launch_counts()
     plan, plan_ms = synced_ms(lambda: sm.plan_sharded_macro(m, m, 1, 0))
     sm.sharded_macro_numeric(plan, mesh)             # first: warms up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
     out, mul_ms = synced_ms(lambda: sm.sharded_macro_numeric(plan, mesh))
+    ring_peak = (torch.cuda.max_memory_allocated() - before) / 2**30
     c_nnz = PD.plan_nnz_macro(plan, out, mesh)
     (rows, cols, vals), asm_ms = synced_ms(
         lambda: sm.assemble_sharded_macro(plan, *out, mesh, host=False))
     launches = nonzero(all_counts())
     add_path_launches("sharded_path", launches)
-    stages = sum(1 for x in plan.stage_pairs if x)
-    if c_nnz != want_nnz or len(rows) != want_nnz \
-            or launches.get("macro_accumulate_pairs", 0) != 2 * stages:
+    stages = check_ring_launches(launches, [plan], "macro ring", runs=2)
+    if c_nnz != want_nnz or len(rows) != want_nnz:
         raise AssertionError(f"macro ring: C_nnz {c_nnz}, launches "
                              f"{launches}, stages {stages}")
     over = check_f32_rows(device_rows(rows, cols, vals, pick), want,
                           "macro ring")
+    del rows, cols, vals
+    _part, coo_ms = synced_ms(lambda: sm.local_macro_coo(plan, *out))
+    del _part
+    comp, comp_ms, comp_peak, may = ring_composition(plan, [plan.b_dense])
+    signs = hold_composition(out, comp, may, "macro ring")
+    del comp
     emit("sharded_path", decomposition="macro", matrix=name, world_size=1,
          c_nnz=c_nnz, checked_against=f"scipy, {F64_SAMPLE_ROWS:,} sampled "
-         "rows", values_worst_over_bound=over, launches=launches,
+         "rows; the fresh-form-plus-torch-add composition under ==",
+         values_worst_over_bound=over, launches=launches,
          stages_with_pairs=stages, plan_ms=plan_ms, multiply_ms=mul_ms,
-         assemble_ms=asm_ms)
-    del plan, out, rows, cols, vals
+         local_macro_coo_ms=coo_ms, ring_peak_mem_gb=ring_peak,
+         composition_ms=comp_ms, composition_peak_mem_gb=comp_peak,
+         zero_signs_differing=signs, assemble_ms=asm_ms)
+    del out
     torch.cuda.empty_cache()
+    ws1 = world_size_1_point(plan)
+    del plan
+    torch.cuda.empty_cache()
+
+    rows_out = []
     n = SHARDED_RANKS
-    reset_launch_counts()
-    plans, plan_ms = [], []
-    for d in range(n):
-        p, ms = synced_ms(lambda: sm.plan_sharded_macro(m, m, n, d))
-        plans.append(p)
-        plan_ms.append(ms)
-    parts, times = [], []
-    for d, p in enumerate(plans):
-        part, ms = synced_ms(lambda: sm.local_macro_coo(
-            p, *sm.local_macro(p, sm.replay_chunks(plans, d))))
-        parts.append(part)
-        times.append(ms)
-    launches = nonzero(all_counts())
-    add_path_launches("sharded_ranks", launches)
-    stages = sum(1 for p in plans for x in p.stage_pairs if x)
-    rows, cols, vals = union_sorted(parts)
-    if len(rows) != want_nnz \
-            or launches.get("macro_accumulate_pairs", 0) != stages:
-        raise AssertionError(f"macro replay: C_nnz {len(rows)}, launches "
-                             f"{launches}, stages {stages}")
-    over = check_f32_rows(device_rows(rows, cols, vals, pick), want,
-                          "macro replay")
-    emit("sharded_ranks", decomposition="macro", matrix=name, ranks=n,
-         c_nnz=len(rows), checked_against=f"scipy, {F64_SAMPLE_ROWS:,} "
-         "sampled rows", values_worst_over_bound=over, launches=launches,
-         stages_with_pairs=stages,
-         rank_pairs=[int(sum(p.stage_pairs)) for p in plans],
-         rank_plan_ms=plan_ms, rank_ms=times, load_balance=balance(times))
+    for dtype in (torch.float32, torch.float64):
+        f64 = dtype == torch.float64
+        what = "macro replay" + (", float64" if f64 else "")
+        md = m if not f64 else coo_to_macro(coo, dtype=torch.float64)
+        plans, plan_ms = [], []
+        for d in range(n):
+            p, ms = synced_ms(lambda: sm.plan_sharded_macro(md, md, n, d))
+            plans.append(p)
+            plan_ms.append(ms)
+        del md
+        warm_ring(plans)
+        reset_launch_counts()
+        outs, parts, k4_ms, coo_ms, peaks = replay_ring(plans)
+        launches = nonzero(all_counts())
+        add_path_launches("sharded_ranks", launches)
+        stages = check_ring_launches(launches, plans, what, f64,
+                                     runs=RING_ROUNDS)
+        rows, cols, vals = union_sorted(parts)
+        del parts
+        if len(rows) != want_nnz:
+            raise AssertionError(f"{what}: C_nnz {len(rows)}")
+        got = device_rows(rows, cols, vals, pick)
+        over = (check_f64_rows if f64 else check_f32_rows)(got, want, what)
+        del rows, cols, vals
+        held = hold_ring_compositions(plans, outs, "highest", what)
+        del outs
+        torch.cuda.empty_cache()
+        times = [x + y for x, y in zip(k4_ms, coo_ms)]
+        emit("sharded_ranks", decomposition="macro", matrix=name, ranks=n,
+             dtype=str(dtype).replace("torch.", ""), c_nnz=want_nnz,
+             checked_against=f"scipy, {F64_SAMPLE_ROWS:,} sampled rows; "
+             "each rank's C against the fresh-form-plus-torch-add "
+             "composition under ==", values_worst_over_bound=over,
+             launches=launches, stages_with_pairs=stages,
+             rank_stage_pairs=[list(p.stage_pairs) for p in plans],
+             rank_pairs=[int(sum(p.stage_pairs)) for p in plans],
+             rank_c_cap=[p.c_cap for p in plans], rank_plan_ms=plan_ms,
+             rank_ms=times, rank_k4_ms=k4_ms, rank_local_macro_coo_ms=coo_ms,
+             rank_ring_peak_mem_gb=peaks, **held,
+             load_balance=balance(times))
+        entry = "macro_accumulate_pairs_f64_acc" if f64 else \
+            "macro_accumulate_pairs_acc"
+        rows_out.append(acc_row(
+            plans, name, launches.get(entry, 0), check_err,
+            extra=None if f64 else {"at_world_size_1_stream": ws1}))
+        del plans
+        torch.cuda.empty_cache()
+    return rows_out
 
 
 def check_f32_rows(got, want, what):
@@ -4467,7 +4953,7 @@ def sharded_tile16_runs(ref, mesh):
          rank_plan_ms=plan_ms, rank_ms=times, load_balance=balance(times))
 
 
-def phase_sharded(coo_pl, want_pl, pairbands_ref):
+def phase_sharded(coo_pl, want_pl, pairbands_ref, check_err=None):
     """Phases sharded_path and sharded_ranks: the four decompositions of
     the multi-GPU layer at full size.  sharded_path runs each at world size
     1 over NCCL (a process group of this one card: no point-to-point op
@@ -4475,7 +4961,8 @@ def phase_sharded(coo_pl, want_pl, pairbands_ref):
     sharded_ranks replays a 4-rank plan on the one card, each rank's local
     function in turn, its B chunks and halos read from the plan (two NCCL
     ranks cannot share one card; the exchange itself is carried by the
-    gloo tests)."""
+    gloo tests).  Returns the kernels-line rows of K4's accumulate form
+    at "highest" and in float64."""
     from pem_spgemm_tpu_torch.parallel import distributed as PD
     t0 = time.perf_counter()
     PD.initialize(init_method=f"tcp://localhost:{free_port()}",
@@ -4488,13 +4975,14 @@ def phase_sharded(coo_pl, want_pl, pairbands_ref):
         torch.cuda.empty_cache()
         sharded_dia_runs(mesh)
         torch.cuda.empty_cache()
-        sharded_macro_runs(mesh)
+        rows = sharded_macro_runs(mesh, check_err or {})
         torch.cuda.empty_cache()
         sharded_tile16_runs(pairbands_ref, mesh)
     finally:
         torch.distributed.destroy_process_group()
     torch.cuda.empty_cache()
     emit("sharded_total", seconds=time.perf_counter() - t0)
+    return rows
 
 
 # phase precision_path: SpGEMMConfig.precision "high" and "default" beside
@@ -4570,17 +5058,20 @@ def precision_runs(coo, name, cfg, check_values, want_entry):
         torch.cuda.empty_cache()
 
 
-def phase_precision_path():
+def phase_precision_path(check_err=None):
     """SpGEMMConfig.precision "high" and "default" beside "highest" through
     run_benchmark: wandering64-1M as macro (K4 interactive, K5 steady),
     pairbands-500k as macro (MacroPlan, K4) and through engine="fused" (the
     Tile16 tier, torch ops), and the macro ring as a 4-rank plan of
     wandering64-1M replayed on the card (one K4 a stage with pairs, at the
-    precision).  C_nnz and structure equal the "highest" run's and scipy's
-    |A|.|A| (every entry of pairbands-500k, 20,000 sampled rows of
+    precision: a rank's first in the fresh form, the others in the
+    accumulate form; each rank's C against the composition that form
+    replaces, under ==).  C_nnz and structure equal the "highest" run's and
+    scipy's |A|.|A| (every entry of pairbands-500k, 20,000 sampled rows of
     wandering64-1M), values within (2u + u^2) sum|a*b| plus the float32
-    bound of scipy's float64 product."""
-    from pem_spgemm_tpu_torch.parallel import sharded_macro as sm
+    bound of scipy's float64 product.  Returns the accumulate form's rows
+    at "high" and "default"."""
+    check_err = check_err or {}
     t0 = time.perf_counter()
     name = "wandering64-1M"
     coo = MACRO_MATRICES[name]()
@@ -4598,38 +5089,49 @@ def phase_precision_path():
     m = coo_to_macro(coo)
     n = SHARDED_RANKS
     plans = [sm.plan_sharded_macro(m, m, n, d) for d in range(n)]
+    plan1 = sm.plan_sharded_macro(m, m, 1, 0)
     del m
-    stages = sum(1 for p in plans for x in p.stage_pairs if x)
     ref = None
     for q in ("highest",) + LOWER_PRECISIONS:
+        warm_ring(plans, q)
         reset_launch_counts()
-        parts, times = [], []
-        for d, p in enumerate(plans):
-            part, ms = synced_ms(lambda: sm.local_macro_coo(
-                p, *sm.local_macro(p, sm.replay_chunks(plans, d), q)))
-            parts.append(part)
-            times.append(ms)
+        outs, parts, k4_ms, coo_ms, peaks = replay_ring(plans, q)
         launches = nonzero(all_counts())
         if q != "highest":
             for k, v in launches.items():
                 PRECISION_LAUNCHES[q][k] = PRECISION_LAUNCHES[q].get(k, 0) + v
+        what = f"macro ring at {q}"
+        stages = check_ring_launches(launches, plans, what, runs=RING_ROUNDS)
         rows, cols, vals = union_sorted(parts)
+        del parts
         if ref is None:
             ref = (rows, cols)
         elif not (torch.equal(rows, ref[0]) and torch.equal(cols, ref[1])):
-            raise AssertionError(f"macro ring at {q}: structure differs from "
+            raise AssertionError(f"{what}: structure differs from "
                                  "highest's")
-        if len(rows) != BF16_RUNS[2][2] or \
-                launches.get("macro_accumulate_pairs", 0) != stages:
-            raise AssertionError(f"macro ring at {q}: C_nnz {len(rows)}, "
-                                 f"launches {launches}, stages {stages}")
+        if len(rows) != BF16_RUNS[2][2]:
+            raise AssertionError(f"{what}: C_nnz {len(rows)}")
         over = hold_rounded(*device_rows(rows, cols, vals, pick), want, q,
-                            f"macro ring at {q}")
+                            what)
+        del rows, cols, vals
+        held = hold_ring_compositions(plans, outs, q, what)
+        del outs
+        times = [x + y for x, y in zip(k4_ms, coo_ms)]
         emit("precision_path", matrix=name, engine="macro ring, 4 ranks "
-             "replayed", precision=q, c_nnz=len(rows),
+             "replayed", precision=q, c_nnz=BF16_RUNS[2][2],
              structure_equal_to_highest=True, values_worst_over_bound=over,
-             launches=launches, stages_with_pairs=stages, rank_ms=times)
-        del parts, rows, cols, vals
+             composition_equal=True, launches=launches,
+             stages_with_pairs=stages, rank_ms=times, rank_k4_ms=k4_ms,
+             rank_local_macro_coo_ms=coo_ms, rank_ring_peak_mem_gb=peaks,
+             **held)
+        torch.cuda.empty_cache()
+    # K4's accumulate form at each lower mode on the same ring stage as the
+    # "highest" row's (launches: filled in by fill_precision_launches), and
+    # on the world-size-1 ring's stream
+    rows_out = [acc_row(plans, name, None, check_err, q, extra={
+        "at_world_size_1_stream": world_size_1_point(plan1, q)})
+        for q in LOWER_PRECISIONS]
+    del plan1
     del plans, ref, coo, want
     torch.cuda.empty_cache()
 
@@ -4649,10 +5151,12 @@ def phase_precision_path():
     for q in LOWER_PRECISIONS:
         got = PRECISION_LAUNCHES[q]
         if not (got.get("macro_accumulate_pairs") and
-                got.get("macro_class_ragged")):
+                got.get("macro_class_ragged") and
+                got.get("macro_accumulate_pairs_acc")):
             raise AssertionError(f"precision_path at {q} launched {got}")
     emit("precision_total", seconds=time.perf_counter() - t0,
          launches=PRECISION_LAUNCHES)
+    return rows_out
 
 
 def fill_precision_launches(rows):
@@ -4893,11 +5397,12 @@ def main():
         coo_pl = MATRICES["powerlaw-1M"]()
         pairbands = banded_device(**DIA_MATRICES["pairbands-500k"])
         phase_bf16_path(coo_pl)
-        phase_sharded(coo_pl, scipy_square(coo_pl, with_abs=True),
-                      scipy_square(pairbands, with_abs=True))
+        rows = phase_sharded(coo_pl, scipy_square(coo_pl, with_abs=True),
+                             scipy_square(pairbands, with_abs=True))
         print(json.dumps({"launches_by_path": NEW_PATH_LAUNCHES}),
               flush=True)
         emit("total", seconds=time.perf_counter() - t_start)
+        print(json.dumps({"kernels": rows}), flush=True)
         return 0
     if args.only == "aat_path":
         phase_aat_path()
@@ -4914,7 +5419,7 @@ def main():
         rows = phase_macro_path(check_err, scipy_square(
             banded_device(**DIA_MATRICES["pairbands-500k"]), with_abs=True))
         torch.cuda.empty_cache()
-        phase_precision_path()
+        rows += phase_precision_path(check_err)
         fill_precision_launches(rows)
         emit("total", seconds=time.perf_counter() - t_start)
         print(json.dumps({"kernels": rows}), flush=True)
@@ -4967,10 +5472,10 @@ def main():
     phase_persist()
     torch.cuda.empty_cache()
     phase_bf16_path(coo_pl)
-    phase_sharded(coo_pl, want_pl, pairbands_ref)
+    kernels += phase_sharded(coo_pl, want_pl, pairbands_ref, check_err)
     del coo_pl, want_pl, pairbands_ref
     torch.cuda.empty_cache()
-    phase_precision_path()
+    kernels += phase_precision_path(check_err)
     fill_precision_launches(kernels)
     torch.cuda.empty_cache()
     phase_aat_path()

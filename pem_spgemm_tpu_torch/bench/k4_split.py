@@ -1,7 +1,8 @@
 """K4's time split, and the kernels against another version of their sources.
 
     python -m pem_spgemm_tpu_torch.bench.k4_split [--baseline-macro FILE]
-        [--baseline-dia FILE] [--only k4|k5|k3|k3f64|k4f64|k2f64|library ...]
+        [--baseline-dia FILE]
+        [--only k4|k5|k3|k3f64|k4f64|k2f64|library|k4acc ...]
 
 Builds csrc/macro_accumulate.cu and csrc/dia_multiply.cu as they are and,
 with --baseline-macro / --baseline-dia, another version of each (for example
@@ -11,7 +12,8 @@ process, on one card, on the same inputs.  A DIA baseline has the C
 interfaces of commit 2fdbfea (``declare_baseline_dia``).  A Macro128
 baseline's float32 entries are read off its source (``macro_interface``):
 no precision (commit 7303942 and before), a precision but class entries
-without a grid and a ticket counter (666d068), or today's.
+without a grid and a ticket counter (666d068), pair-stream entries without
+the accumulate argument (2abca3f), or today's.
 
   k4  the pair-stream entry at wandering64-1M's stream (70,308 pairs) and at
       pairbands-500k's (389,700 pairs): as it is (persistent, one block an
@@ -35,6 +37,11 @@ without a grid and a ticket counter (666d068), or today's.
       (other columns a thread), each also at the PAIR_GROUPS row groups,
       and the baseline's, each bit for bit equal to the baseline's
       (float32) or to the plain version (float64), timed in turns;
+  k4acc  the pair-stream entries' accumulate form at wandering64-1M's
+      stream (every C tile has pairs), float32 at each precision and
+      float64: this build's fresh form, its accumulate form and the
+      ACC_CUTS builds' (fewer of a row's pieces loaded ahead of their
+      stores), the accumulate builds bit for bit equal, timed in turns;
   k4f64  the pair-stream entry's float64 entry (DMMA) at wandering64-1M's
       stream: this build's, the F64_CUTS builds (another ring depth or
       DMMA shape; the flags cut out, timed only) and the baseline's, each
@@ -132,7 +139,8 @@ WS_CUTS = {
         ("        const bool run = (ag & bg & ANY_NZ) != 0u && !bad;\n",
          "        const bool run = false;\n"),
         ("        if (run || bad) ws_pattern(m, fr);\n", ""),
-        ("            fr.store_cs(c_num, c_flag, info.row);\n", "")],
+        ("            if (!ACC || live) fr.store_cs<ACC>(c_num, c_flag, "
+         "info.row);\n", "")],
     # the copies and the consumers alone: the producer rounds nothing and
     # marks every stage as holding non-zeros
     "ws_no_convert": [
@@ -144,20 +152,35 @@ WS_CUTS = {
 # entries' one-tile product of its tile): the tensor-core tile product
 # without the persistent stream.  Its result is held like the entry's.
 ONE_TILE = [
-    ("    pair_stream(a_dense, b_dense,\n"
-     "                PairWalk{seg_ptr, a_idx, b_idx, next, c_cap}, c_num, c_flag,\n"
-     "                tc_shared());\n",
+    ("    pair_stream<ACC>(a_dense, b_dense,\n"
+     "                     PairWalk{seg_ptr, a_idx, b_idx, next, c_cap}, c_num,\n"
+     "                     c_flag, tc_shared());\n",
      "    const long long c = blockIdx.x;\n"
      "    const int lo = seg_ptr[c];\n"
      "    tile_product_tc(a_dense, b_dense, a_idx + lo, b_idx + lo, 0, 0,\n"
      "                    seg_ptr[c + 1] - lo, c_num + c * TILE_ELEMS,\n"
      "                    c_flag + c * TILE_ELEMS, tc_shared());\n"),
-    ("    macro_pairs_kernel<<<grid < c_cap ? grid : c_cap,",
-     "    macro_pairs_kernel<<<c_cap,"),
+    ("    macro_pairs_kernel<ACC><<<grid < c_cap ? grid : c_cap,",
+     "    macro_pairs_kernel<ACC><<<c_cap,"),
 ]
 # the float32 entries' precisions below "highest" (their int argument is
 # M.precision_code's)
 LOWER = ("high", "default")
+# Other builds of the pair-stream entries' accumulate form (``accumulate``
+# 1), held bit for bit to this build's and timed beside it at the
+# precisions of ACC_CUT_RUNS ("float64": the float64 entry).
+ACC_CUTS = {
+    # fewer of a row's pieces loaded ahead of their stores (1: each load,
+    # then its store)
+    **{f"loads{n}": [("constexpr int ACC_LOADS = 8;",
+                      f"constexpr int ACC_LOADS = {n};")] for n in (1, 4)},
+    **{f"f64_loads{n}": [("constexpr int F64_ACC_LOADS = 8;",
+                          f"constexpr int F64_ACC_LOADS = {n};")]
+       for n in (1, 4)},
+}
+ACC_CUT_RUNS = {**{f"loads{n}": ("highest", "high", "default")
+                   for n in (1, 4)},
+                **{f"f64_loads{n}": ("float64",) for n in (1, 4)}}
 
 
 # Other builds of the float64 pair-stream entry (held and timed like it, but
@@ -176,11 +199,8 @@ F64_CUTS = {
     "no_slab_skip": [("        const unsigned nb = need[lo + q];\n",
                       "        const unsigned nb = 0xffu;\n")],
     # C tiles stored as any other data (not evict-first)
-    "plain_store": [(
-        "                    __stcs(reinterpret_cast<double2*>(cn + r * TILE "
-        "+ col),\n                           make_double2(",
-        "                    *reinterpret_cast<double2*>(cn + r * TILE + col)"
-        " = (\n                           make_double2(")],
+    "plain_store": [("                    __stcs(p, v);\n",
+                     "                    *p = v;\n")],
 }
 # Other thread geometries of the float64 dense DIA entry: (rows, I,
 # threads, blocks an SM), the .cu's Dense<double> and dense_launch's
@@ -256,15 +276,19 @@ def build(stem: str, name: str, source: str, declare, cuts=()):
 
 
 def macro_interface(source: str) -> str:
-    """The float32 entries' C interface of a macro_accumulate.cu: "v12" (no
-    precision: commit 7303942 and before), "v13" (a precision; class
-    entries without grid and ticket counter: 666d068) or "current"."""
+    """The C interface of a macro_accumulate.cu: "v12" (no precision:
+    commit 7303942 and before), "v13" (a precision; class entries without
+    grid and ticket counter: 666d068), "v14" (pair-stream entries without
+    the accumulate argument: 2abca3f) or "current"."""
     with open(source) as f:
         text = f.read()
     if "int precision" not in text:
         return "v12"
     head = text.split('extern "C" int macro_class_ragged_f32(')[1]
-    return "current" if "int* next" in head.split(")")[0] else "v13"
+    if "int* next" not in head.split(")")[0]:
+        return "v13"
+    head = text.split('extern "C" int macro_accumulate_pairs_f32(')[1]
+    return "current" if "int accumulate" in head.split(")")[0] else "v14"
 
 
 def declare_macro(kind: str):
@@ -272,6 +296,13 @@ def declare_macro(kind: str):
     def declare(lib):
         mk._declare(lib)
         if kind == "current":
+            return
+        # the float64 entry without the accumulate argument
+        lib.macro_accumulate_pairs_f64.argtypes = \
+            lib.macro_accumulate_pairs_f64.argtypes[:-2] + [VP]
+        if kind == "v14":
+            lib.macro_accumulate_pairs_f32.argtypes = \
+                lib.macro_accumulate_pairs_f32.argtypes[:-2] + [VP]
             return
         prec = [] if kind == "v12" else [CI]
         lib.macro_accumulate_pairs_f32.argtypes = [VP] * 7 + [CI, CI, VP] \
@@ -291,7 +322,9 @@ def tail_args(kind: str, precision: str, masks):
         return ()
     if kind == "v13":
         return (M.precision_code(precision),)
-    return (M.precision_code(precision), *masks)
+    if kind == "v14":
+        return (M.precision_code(precision), *masks)
+    return (M.precision_code(precision), *masks, 0)     # the fresh form
 
 
 def class_args(kind: str, precision: str, grid: int, ticket, masks):
@@ -690,8 +723,88 @@ def hold_f64(got, want, mag, what):
     return over
 
 
-def case_k4f64(base_lib):
-    """The float64 pair-stream entry at wandering64-1M's stream."""
+def case_k4acc(rounds=3, n=10):
+    """K4's accumulate form at wandering64-1M's stream, where every C tile
+    has pairs (the most C a stage reads), in float32 at each precision and
+    in float64: this build's fresh form, its accumulate form into the C the
+    fresh one wrote and the ACC_CUTS builds' (at the precisions of
+    ACC_CUT_RUNS), each accumulate build bit for bit this build's from the
+    same C, timed in turns.  ``c_bytes_ms``: the C the accumulate form also
+    reads, at 3.35 TB/s."""
+    cur = mk._library()
+    libs = build_all("macro_accumulate", mk.SOURCE, mk._declare, ACC_CUTS)
+    stream = torch.cuda.current_stream().cuda_stream
+    sms = mk.persistent_grid(torch.device("cuda"))
+    for dtype in (torch.float32, torch.float64):
+        f64 = dtype == torch.float64
+        a = coo_to_macro(STREAMS["wandering64-1M"](), dtype=dtype)
+        n_pairs, n_tiles, a_idx, b_idx, seg = pair_stream(a)
+        c_cap = -(-n_tiles // 256) * 256
+        seg_ptr = mk.segment_offsets(seg, c_cap)
+        num = torch.empty((c_cap, 128, 128), dtype=dtype, device="cuda")
+        flag = torch.empty((c_cap, 128, 128), dtype=torch.uint8,
+                           device="cuda")
+        ptrs = (a.dense.data_ptr(), a.dense.data_ptr(), a_idx.data_ptr(),
+                b_idx.data_ptr(), seg_ptr.data_ptr(), num.data_ptr(),
+                flag.data_ptr(), c_cap)
+        next_tile = torch.zeros(1, dtype=torch.int32, device="cuda")
+        n_t = a.dense.shape[0]
+        table = torch.empty((n_t, mk.F64_MASK_WORDS if f64 else mk.TM_WORDS),
+                            dtype=torch.int32, device="cuda")
+        need = torch.empty(a_idx.numel(), dtype=torch.uint8, device="cuda")
+
+        def launch(lib, acc, p, what):
+            if f64:
+                return lambda: checked(lib.macro_accumulate_pairs_f64(
+                    *ptrs, n_t, n_t, a_idx.numel(), table.data_ptr(),
+                    table.data_ptr(), need.data_ptr(), acc, stream), what)
+            extra = (M.precision_code(p), *mask_args(table, False), acc)
+            return lambda: (next_tile.zero_(), checked(
+                lib.macro_accumulate_pairs_f32(
+                    *ptrs, sms, next_tile.data_ptr(), *extra, stream), what))
+
+        for p in ("highest",) if f64 else ("highest", *LOWER):
+            fns = {"fresh": launch(cur, 0, p, "fresh"),
+                   "accumulate": launch(cur, 1, p, "accumulate")}
+            fns.update({k: launch(lib, 1, p, k) for k, lib in libs.items()
+                        if ("float64" if f64 else p) in ACC_CUT_RUNS[k]})
+            fns["fresh"]()
+            start = (num.clone(), flag.clone())
+            ref = None
+            for k, fn in fns.items():
+                if k == "fresh":
+                    continue
+                num.copy_(start[0])
+                flag.copy_(start[1])
+                fn()
+                torch.cuda.synchronize()
+                got = (num.clone(), flag.clone())
+                if ref is None:
+                    ref = got
+                elif not (torch.equal(got[0].view(torch.int64 if f64 else
+                                                  torch.int32),
+                                      ref[0].view(torch.int64 if f64 else
+                                                  torch.int32))
+                          and torch.equal(got[1], ref[1])):
+                    raise AssertionError(f"k4acc {k} at {p}: not bit for "
+                                         "bit this build's")
+            del start, ref, got
+            ms = {k: [] for k in fns}
+            for _ in range(rounds):
+                for k, fn in fns.items():
+                    ms[k].append(time_ms(fn, n))
+            emit("k4acc", matrix="wandering64-1M", dtype=str(dtype)[6:],
+                 precision=p, pairs=n_pairs, c_tiles=n_tiles, ms=ms,
+                 c_bytes_ms=n_tiles * 128 * 128 * (dtype.itemsize + 1)
+                 / 3.35e12 * 1e3)
+        del a, num, flag, table, need
+        torch.cuda.empty_cache()
+
+
+def case_k4f64(base):
+    """The float64 pair-stream entry at wandering64-1M's stream (its fresh
+    form)."""
+    base_lib, base_kind = base
     libs = {"current": mk._library()}
     libs.update({name: build("macro_accumulate", name, mk.SOURCE,
                              mk._declare, cuts=cuts)
@@ -718,9 +831,10 @@ def case_k4f64(base_lib):
     need = torch.empty(a_idx.numel(), dtype=torch.uint8, device="cuda")
 
     def launch(lib, k):
+        fresh = () if k == "baseline" and base_kind != "current" else (0,)
         return lambda: checked(lib.macro_accumulate_pairs_f64(
             *ptrs, n_t, n_t, a_idx.numel(), masks.data_ptr(),
-            masks.data_ptr(), need.data_ptr(), stream), k)
+            masks.data_ptr(), need.data_ptr(), *fresh, stream), k)
 
     fns = {k: launch(lib, k) for k, lib in libs.items()}
     over = {}
@@ -879,7 +993,8 @@ def main():
     ap.add_argument("--baseline-macro", default=None)
     ap.add_argument("--baseline-dia", default=None)
     ap.add_argument("--only", choices=["k4", "k5", "k3", "k3f64", "k4f64",
-                                       "k2f64", "library"], action="append",
+                                       "k2f64", "library", "k4acc"],
+                    action="append",
                     help="run this case (repeatable; default: every case)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -905,7 +1020,9 @@ def main():
     if args.only is None or "k3f64" in args.only:
         case_pairs(8, base_dia)
     if args.only is None or "k4f64" in args.only:
-        case_k4f64(base_macro[0])
+        case_k4f64(base_macro)
+    if args.only is None or "k4acc" in args.only:
+        case_k4acc()
     if args.only is None or "k2f64" in args.only:
         case_k2f64(base_dia)
     if args.only is None or "library" in args.only:

@@ -22,9 +22,22 @@
 // walks that tile's pairs in stream order with the tile's 128x128 sums in
 // registers and stores values and flags once.  No atomics on C (the
 // persistent entry takes its tiles from one atomic counter), no zero-fill
-// pass, no carry; a tile without pairs is stored as zeros.  All offsets are
-// run-time int32 tables, so one build serves every plan, and every tile
-// address is 64-bit (113k C tiles are 1.85e9 floats).
+// pass, no carry; in the fresh form a tile without pairs is stored as
+// zeros.  All offsets are run-time int32 tables, so one build serves every
+// plan, and every tile address is 64-bit (113k C tiles are 1.85e9 floats).
+//
+// The two pair-stream entries also have an ACCUMULATE form (the `accumulate`
+// argument; a template argument ACC of their kernels, so that the fresh
+// instances and the class entries compile as before): the multi-GPU ring
+// adds each stage's products into the rank's C, as the JAX ring's
+// c_dense.at[sg].add does.  A tile's sums run from zero as in the fresh form;
+// at its store the owner loads the tile's values and flags in the pieces it
+// stores (ld.global.cs), adds old + partial (one float add an element) and
+// ORs the flags.  A tile without pairs (the padding tiles up to c_cap among
+// them), or whose slabs all multiply only zeros at "high" and "default" and
+// in float64 (a store-only tile), is neither read nor written.  Bound: the
+// bytes of the tiles with pairs read and written once and each distinct
+// operand tile read once, against the fresh form's whole C written once.
 //
 // What bounds them on an H100: 2 * 128^3 operations a pair against 128 KB of
 // operand tile a pair at most (fewer where tiles repeat) and 80 KB of C tile
@@ -112,7 +125,9 @@
 // non-zero B row, or either tile marks it (wandering64's stream needs 28%
 // of its slabs; PERF.md).  After a tile's last slab that runs (at once for
 // a tile none of whose slabs runs) comes a stage without copies, on which
-// the consumers store the tile evict-first; a DONE stage ends both roles.
+// the consumers store the tile evict-first (the accumulate form adds it into
+// C, and leaves a tile none of whose slabs ran); a DONE stage ends both
+// roles.
 // Stages stay 32 deep at DEFAULT too, so that both modes share the masks,
 // the empty-slab skip and the raw ring (a 64-deep bf16 stage's raw slabs
 // would leave room for two raw stages).
@@ -135,9 +150,9 @@
 // The float64 entry `macro_accumulate_pairs_f64` serves the f64 parity mode
 // (the JAX package runs float64 tiles through accumulate_macro_pipelined
 // too).  It keeps the float32 entry's contract: a stream sorted by C tile,
-// padding pairs never read, tiles without pairs stored as zeros, uint8
-// flags from the raw values (x != 0, so NaN and Inf count), every tile
-// written once by its owner.  Its tile product runs on the FP64 tensor
+// padding pairs never read, tiles without pairs stored as zeros (the fresh
+// form; the accumulate form leaves them), uint8 flags from the raw values
+// (x != 0, so NaN and Inf count), every tile written once by its owner.  Its tile product runs on the FP64 tensor
 // cores: mma.sync m16n8k8 on f64 operands (DMMA; Hopper has no wgmma for
 // f64, and DMMA is the only way to the card's FP64 peak).  One block of
 // 8 warps a C tile; warp w owns a 32 x 64 block of it (rows 32 (w % 4),
@@ -190,6 +205,9 @@ constexpr int SLABS_PER_PAIR = TILE / KS;
 constexpr int TC_THREADS = 256;             // two consumer warpgroups
 constexpr unsigned ANY_NZ = 1u;             // a_any / b_any bits
 constexpr unsigned ANY_BAD = 2u;
+constexpr int ACC_LOADS = 8;                // C pieces of a row that an
+                                            // accumulate store loads ahead
+                                            // (Frag::store_cs; 1, 2, 4, 8)
 constexpr int CLAIMS = 8;                   // slots of the claim ring
 constexpr int AHEAD = 3;                    // claims ahead of the issue cursor
 
@@ -491,9 +509,17 @@ struct Frag {
     // j + (l & 1), columns 4p ..), and the quad's flag words are exchanged
     // so that lane q writes flag bytes 32q .. 32q + 31 of each of its rows
     // (2-byte pieces cost a third of the one-pass kernels' time: PERF.md).
+    // ACC (the accumulate form): each piece is loaded first (ld.global.cs,
+    // the same 16-byte pieces) and the sums added to its values, old +
+    // partial, one float add an element, its flags ORed in.  A load and its
+    // store run in program order, so a row's value pieces are loaded
+    // ACC_LOADS at a time ahead of their stores, into `acc` (the stage
+    // partial, spent at a tile's last stage: no registers of their own),
+    // and its flag pieces before its flag words are formed.
+    template <bool ACC = false>
     __device__ __forceinline__ void store_cs(float* c_num,
                                              unsigned char* c_flag,
-                                             long long row) const {
+                                             long long row) {
         const int q = l & 3, odd = l & 1;
 #pragma unroll
         for (int e2 = 0; e2 < 2; ++e2) {
@@ -502,6 +528,21 @@ struct Frag {
             unsigned char* fr = c_flag + row * TILE_ELEMS + r * TILE;
 #pragma unroll
             for (int j = 0; j < 16; j += 2) {   // groups j, j + 1
+                float4* p = reinterpret_cast<float4*>(cr + 8 * (j + odd)
+                                                      + 4 * (q >> 1));
+                const int k = 4 * (8 * e2 + j / 2);     // acc[k ..]: old
+                if constexpr (ACC) {
+                    if ((j / 2) % ACC_LOADS == 0) {
+#pragma unroll
+                        for (int i = 0; i < ACC_LOADS; ++i) {
+                            const float4 o = __ldcs(p + 4 * i);
+                            acc[k + 4 * i] = o.x;
+                            acc[k + 4 * i + 1] = o.y;
+                            acc[k + 4 * i + 2] = o.z;
+                            acc[k + 4 * i + 3] = o.w;
+                        }
+                    }
+                }
                 const float a0 = sum[4 * j + 2 * e2];
                 const float a1 = sum[4 * j + 2 * e2 + 1];
                 const float c0 = sum[4 * j + 4 + 2 * e2];
@@ -510,10 +551,20 @@ struct Frag {
                                                  odd ? a0 : c0, 1);
                 const float s1 = __shfl_xor_sync(0xFFFFFFFFu,
                                                  odd ? a1 : c1, 1);
-                __stcs(reinterpret_cast<float4*>(cr + 8 * (j + odd)
-                                                 + 4 * (q >> 1)),
-                       odd ? make_float4(s0, s1, c0, c1)
-                           : make_float4(a0, a1, s0, s1));
+                float4 v = odd ? make_float4(s0, s1, c0, c1)
+                               : make_float4(a0, a1, s0, s1);
+                if constexpr (ACC)
+                    v = make_float4(__fadd_rn(acc[k], v.x),
+                                    __fadd_rn(acc[k + 1], v.y),
+                                    __fadd_rn(acc[k + 2], v.z),
+                                    __fadd_rn(acc[k + 3], v.w));
+                __stcs(p, v);
+            }
+            uint4* fp = reinterpret_cast<uint4*>(fr + 32 * q);
+            uint4 o0, o1;
+            if constexpr (ACC) {
+                o0 = __ldcs(fp);
+                o1 = __ldcs(fp + 1);
             }
             unsigned b[4];                  // byte q of quad lane s's word
 #pragma unroll
@@ -528,10 +579,16 @@ struct Frag {
                                    | ((b[s0 + 1] >> (2 * jj)) & 3u) << 2;
                 w[ww] = (nib * 0x00204081u) & 0x01010101u;
             }
-            __stcs(reinterpret_cast<uint4*>(fr + 32 * q),
-                   make_uint4(w[0], w[1], w[2], w[3]));
-            __stcs(reinterpret_cast<uint4*>(fr + 32 * q + 16),
-                   make_uint4(w[4], w[5], w[6], w[7]));
+            uint4 w0 = make_uint4(w[0], w[1], w[2], w[3]);
+            uint4 w1 = make_uint4(w[4], w[5], w[6], w[7]);
+            if constexpr (ACC) {
+                w0 = make_uint4(w0.x | o0.x, w0.y | o0.y, w0.z | o0.z,
+                                w0.w | o0.w);
+                w1 = make_uint4(w1.x | o1.x, w1.y | o1.y, w1.z | o1.z,
+                                w1.w | o1.w);
+            }
+            __stcs(fp, w0);
+            __stcs(fp + 1, w1);
         }
     }
     __device__ __forceinline__ void store(float* c_num, unsigned char* c_flag,
@@ -674,8 +731,9 @@ __device__ __forceinline__ void tile_product_tc(
 }
 
 // The persistent entry's tiles: thread 0 takes tickets (atomicAdd on
-// `next`, zero at the launch), in stream order; the tiles without pairs are
-// stored as zeros before the stream, round robin, by single threads.
+// `next`, zero at the launch), in stream order; in the fresh form the tiles
+// without pairs are stored as zeros before the stream, round robin, by
+// single threads, and the accumulate form (ACC) never touches them.
 struct PairWalk {
     const int* seg_ptr;
     const int* a_tab;
@@ -698,21 +756,27 @@ struct PairWalk {
 // st % 2, whatever tile it belongs to; `issued` counts the stages issued, so
 // stage st + 1 exists when st + 1 < issued.  The issue cursor is at most
 // one tile ahead of the compute (a tile has 4 stages or more), so at most
-// AHEAD + 3 < CLAIMS slots are in use at once.
+// AHEAD + 3 < CLAIMS slots are in use at once.  ACC: each tile's sums and
+// flags are added into C, in the one-pass pipeline's 16-byte evict-first
+// pieces (Frag::store_cs<true>; in the fresh form's 8- and 2-byte pieces
+// it was slower: PERF.md).
+template <bool ACC>
 __device__ __forceinline__ void pair_stream(
         const float* __restrict__ a_dense, const float* __restrict__ b_dense,
         const PairWalk& w, float* __restrict__ c_num,
         unsigned char* __restrict__ c_flag, TcShared& sh) {
     const int t = threadIdx.x;
-    for (long long c = blockIdx.x + (long long)t * gridDim.x; c < w.c_cap;
-         c += (long long)TC_THREADS * gridDim.x) {
-        if (w.seg_ptr[c] != w.seg_ptr[c + 1]) continue;
-        float4* cv = reinterpret_cast<float4*>(c_num + c * TILE_ELEMS);
-        uint4* cf = reinterpret_cast<uint4*>(c_flag + c * TILE_ELEMS);
-        for (int i = 0; i < TILE_ELEMS / 4; ++i)
-            cv[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-        for (int i = 0; i < TILE_ELEMS / 16; ++i)
-            cf[i] = make_uint4(0u, 0u, 0u, 0u);
+    if constexpr (!ACC) {
+        for (long long c = blockIdx.x + (long long)t * gridDim.x;
+             c < w.c_cap; c += (long long)TC_THREADS * gridDim.x) {
+            if (w.seg_ptr[c] != w.seg_ptr[c + 1]) continue;
+            float4* cv = reinterpret_cast<float4*>(c_num + c * TILE_ELEMS);
+            uint4* cf = reinterpret_cast<uint4*>(c_flag + c * TILE_ELEMS);
+            for (int i = 0; i < TILE_ELEMS / 4; ++i)
+                cv[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+            for (int i = 0; i < TILE_ELEMS / 16; ++i)
+                cf[i] = make_uint4(0u, 0u, 0u, 0u);
+        }
     }
     // thread 0: slot n <- the first tile with pairs from ticket tk on, whose
     // pairs [lo, hi) were read already (row -1: none left)
@@ -815,7 +879,8 @@ __device__ __forceinline__ void pair_stream(
             ++cq;
         }
         if (--left == 0) {                  // the tile's last stage
-            fr.store(c_num, c_flag, c_row);
+            if constexpr (ACC) fr.store_cs<true>(c_num, c_flag, c_row);
+            else fr.store(c_num, c_flag, c_row);
             fr.reset();
             advance();
         }
@@ -840,7 +905,8 @@ __device__ __forceinline__ TcShared& tc_shared() {
 // Persistent: the blocks take the C tiles of a pair stream sorted by C tile
 // in stream order, one at a time, from the counter `next`; tile c's pairs
 // are [seg_ptr[c], seg_ptr[c + 1]).  Padding pairs lie past seg_ptr[c_cap]
-// and are never read.
+// and are never read.  ACC: the accumulate form.
+template <bool ACC>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 macro_pairs_kernel(const float* __restrict__ a_dense,
                    const float* __restrict__ b_dense,
@@ -849,9 +915,9 @@ macro_pairs_kernel(const float* __restrict__ a_dense,
                    const int* __restrict__ seg_ptr, int* next, int c_cap,
                    float* __restrict__ c_num,
                    unsigned char* __restrict__ c_flag) {
-    pair_stream(a_dense, b_dense,
-                PairWalk{seg_ptr, a_idx, b_idx, next, c_cap}, c_num, c_flag,
-                tc_shared());
+    pair_stream<ACC>(a_dense, b_dense,
+                     PairWalk{seg_ptr, a_idx, b_idx, next, c_cap}, c_num,
+                     c_flag, tc_shared());
 }
 
 // One block a (step, tile) of a signature class.  RAGGED: the tile's pairs
@@ -1540,13 +1606,19 @@ __device__ __forceinline__ void ws_pattern(const OpMeta& m, Frag& fr) {
 // partial (skipped where its 64 A rows or the B slab hold no non-zero; a
 // marked stage in FP32 FMA on the raw operands instead) added to the sums,
 // the pattern ORed into the flags, the operand slot released as soon as it
-// is read; at a tile's last stage its sums and flags stored.
-template <Prec P>
+// is read; at a tile's last stage its sums and flags stored.  ACC (the
+// accumulate form): added into C instead, and only where a slab of the tile
+// ran (`live`): a store-only tile, without pairs or with none of its slabs
+// run, is left as it is.  The consumers' sums and stage partial sit at the
+// edge of their 192 registers, so the accumulate instances spill 80 bytes
+// around that store (ptxas; PERF.md).
+template <Prec P, bool ACC>
 __device__ __forceinline__ void ws_consumer(WsShared<P>& sh,
                                             float* __restrict__ c_num,
                                             unsigned char* __restrict__ c_flag) {
     constexpr int S = Ws<P>::OPS;
     Frag fr(threadIdx.x - 128);
+    bool live = false;
 #pragma unroll 1
     for (int n = 0;; ++n) {
         const int s = n % S;
@@ -1554,6 +1626,7 @@ __device__ __forceinline__ void ws_consumer(WsShared<P>& sh,
         const OpMeta& m = sh.meta[s];
         const StageInfo info = m.info;
         if (info.flags & ST_DONE) return;
+        if constexpr (ACC) live |= (info.flags & ST_DATA) != 0u;
         const unsigned ag = m.a_any[2 * fr.g] | m.a_any[2 * fr.g + 1];
         const unsigned bg = m.b_any[0] | m.b_any[1] | m.b_any[2] | m.b_any[3];
         const bool bad = (bg & ANY_BAD) != 0u;
@@ -1572,8 +1645,9 @@ __device__ __forceinline__ void ws_consumer(WsShared<P>& sh,
             for (int i = 0; i < 64; ++i) fr.sum[i] += fr.acc[i];
         }
         if (info.flags & ST_LAST) {
-            fr.store_cs(c_num, c_flag, info.row);
+            if (!ACC || live) fr.store_cs<ACC>(c_num, c_flag, info.row);
             fr.reset();
+            live = false;
         }
     }
 }
@@ -1581,7 +1655,8 @@ __device__ __forceinline__ void ws_consumer(WsShared<P>& sh,
 // Persistent: one block an SM takes the tiles of `w` from its ticket
 // counter (zero at the launch) in order.  One producer warpgroup, two
 // consumer warpgroups; no block-wide barrier after the barriers' set-up.
-template <Prec P, class Tiles>
+// ACC: the accumulate form (ws_consumer).
+template <Prec P, class Tiles, bool ACC = false>
 __global__ void __launch_bounds__(WS_THREADS, 1)
 macro_ws_kernel(const float* __restrict__ a_dense,
                 const float* __restrict__ b_dense, const Tiles w,
@@ -1611,7 +1686,7 @@ macro_ws_kernel(const float* __restrict__ a_dense,
     } else {
         asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
                      :: "n"(WS_CONSUMER_REGS));
-        ws_consumer<P>(sh, c_num, c_flag);
+        ws_consumer<P, ACC>(sh, c_num, c_flag);
     }
 }
 
@@ -1624,6 +1699,9 @@ constexpr int F64_STAGES = 4;               // slabs in the ring
 constexpr int F64_NEED_CAP = 1024;          // a tile's pairs staged below
 constexpr int F64_MASK_WORDS = 10;          // tile_masks words a tile
 constexpr int F64_MMA_K = 8;                // k of one mma.sync (4 or 8)
+constexpr int F64_ACC_LOADS = 8;            // C pieces of a row that an
+                                            // accumulate store loads ahead
+                                            // (F64Frag::store; 1, 2, 4, 8)
 constexpr int F64_THREADS = 256;
 constexpr int F64_AS = F64_KS + 4;          // A row stride, 4 mod 16 words
 constexpr int F64_BS = TILE + 4;            // B row stride, 4 mod 16 words
@@ -1835,6 +1913,12 @@ struct F64Frag {
             }
         }
     }
+    // ACC (the accumulate form): each piece is loaded first (ld.global.cs,
+    // the same pieces), the sums added to its values (old + partial, one
+    // double add an element) and its flags ORed in; a row's pieces are
+    // loaded F64_ACC_LOADS at a time ahead of their stores (a load and its
+    // store run in program order).
+    template <bool ACC = false>
     __device__ __forceinline__ void store(double* __restrict__ cn,
                                           unsigned char* __restrict__ cf)
                                           const {
@@ -1843,16 +1927,37 @@ struct F64Frag {
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
                 const int r = r0 + 16 * mi + 8 * h;
+                double2 o[F64_ACC_LOADS];
+                unsigned short fo[F64_ACC_LOADS];
 #pragma unroll
                 for (int ni = 0; ni < 8; ++ni) {
                     const int col = c0 + 8 * ni;
-                    __stcs(reinterpret_cast<double2*>(cn + r * TILE + col),
-                           make_double2(acc[mi][ni][2 * h],
-                                        acc[mi][ni][2 * h + 1]));
+                    double2* p = reinterpret_cast<double2*>(cn + r * TILE
+                                                            + col);
+                    unsigned short* fp =
+                        reinterpret_cast<unsigned short*>(cf + r * TILE + col);
+                    if constexpr (ACC) {
+                        if (ni % F64_ACC_LOADS == 0) {
+#pragma unroll
+                            for (int i = 0; i < F64_ACC_LOADS; ++i) {
+                                o[i] = __ldcs(p + 4 * i);
+                                fo[i] = __ldcs(fp + 4 * i);
+                            }
+                        }
+                    }
+                    double2 v = make_double2(acc[mi][ni][2 * h],
+                                             acc[mi][ni][2 * h + 1]);
                     const unsigned bits = (f[mi] >> (4 * ni + 2 * h)) & 3u;
-                    __stcs(reinterpret_cast<unsigned short*>(
-                               cf + r * TILE + col),
-                           (unsigned short)((bits & 1u) | (bits & 2u) << 7));
+                    unsigned short fb =
+                        (unsigned short)((bits & 1u) | (bits & 2u) << 7);
+                    if constexpr (ACC) {
+                        const int i = ni % F64_ACC_LOADS;
+                        v = make_double2(__dadd_rn(o[i].x, v.x),
+                                         __dadd_rn(o[i].y, v.y));
+                        fb |= fo[i];
+                    }
+                    __stcs(p, v);
+                    __stcs(fp, fb);
                 }
             }
     }
@@ -1935,7 +2040,10 @@ f64_pair_need(const int* __restrict__ a_idx, const int* __restrict__ b_idx,
 // s - 1 and of the masks of slab s - 1), the block issues slab s +
 // F64_STAGES - 1 into the stage of slab s - 1, writes the masks of slab
 // s + 1, runs slab s's blocks on the tensor cores and ORs its pattern into
-// the flags.  A tile no slab of which runs is stored as zeros.
+// the flags.  A tile no slab of which runs is stored as zeros; in the
+// accumulate form (ACC) it is left as it is, and every other tile's sums
+// and flags are added into C.
+template <bool ACC>
 __global__ void __launch_bounds__(F64_THREADS, 1)
 macro_pairs_f64_kernel(const double* __restrict__ a_dense,
                        const double* __restrict__ b_dense,
@@ -1959,6 +2067,7 @@ macro_pairs_f64_kernel(const double* __restrict__ a_dense,
     }
     __syncthreads();
     const int n_slabs = sh.n_slabs;
+    if (ACC && n_slabs == 0) return;        // the block's threads alike
     int wq = -1;
     unsigned wbits = 0u;
     auto issue = [&](int s) {
@@ -1999,7 +2108,7 @@ macro_pairs_f64_kernel(const double* __restrict__ a_dense,
                                       sh.bg[s & 1]);
         fr.pattern(sh.am[s & 1], sh.bm[s & 1], live);
     }
-    fr.store(c_num + tile * TILE_ELEMS, c_flag + tile * TILE_ELEMS);
+    fr.store<ACC>(c_num + tile * TILE_ELEMS, c_flag + tile * TILE_ELEMS);
 }
 
 // per launch: the attribute belongs to the current device
@@ -2025,23 +2134,26 @@ cudaError_t with_prec(int precision, F f) {
     }
 }
 
+template <bool ACC>
 cudaError_t launch_pairs(const float* a_dense, const float* b_dense,
                          const int* a_idx, const int* b_idx,
                          const int* seg_ptr, float* c_num,
                          unsigned char* c_flag, int c_cap, int grid, int* next,
                          cudaStream_t stream) {
-    const cudaError_t attr = allow_tc_smem(macro_pairs_kernel);
+    const cudaError_t attr = allow_tc_smem(macro_pairs_kernel<ACC>);
     if (attr != cudaSuccess) return attr;
-    macro_pairs_kernel<<<grid < c_cap ? grid : c_cap, TC_THREADS, TC_SMEM,
-                         stream>>>(a_dense, b_dense, a_idx, b_idx,
-                                      seg_ptr, next, c_cap, c_num, c_flag);
+    macro_pairs_kernel<ACC><<<grid < c_cap ? grid : c_cap, TC_THREADS,
+                              TC_SMEM, stream>>>(a_dense, b_dense, a_idx,
+                                                 b_idx, seg_ptr, next, c_cap,
+                                                 c_num, c_flag);
     return cudaGetLastError();
 }
 
 // The one-pass pipeline over the tiles of `w`: one block an SM (at most one
 // a tile), taking tiles from w.next; first, unless masks_ready, the masks of
-// both tables (one pass where they are one table).
-template <Prec P, class Tiles>
+// both tables (one pass where they are one table).  ACC: the accumulate
+// form.
+template <Prec P, class Tiles, bool ACC = false>
 cudaError_t launch_ws(const float* a_dense, const float* b_dense,
                       const Tiles& w, int grid, int n_a, int n_b,
                       int masks_ready, float* c_num, unsigned char* c_flag,
@@ -2057,13 +2169,32 @@ cudaError_t launch_ws(const float* a_dense, const float* b_dense,
                 b_dense, const_cast<unsigned*>(w.masks_b));
     }
     const cudaError_t attr = cudaFuncSetAttribute(
-        macro_ws_kernel<P, Tiles>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        WS_SMEM<P>);
+        macro_ws_kernel<P, Tiles, ACC>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, WS_SMEM<P>);
     if (attr != cudaSuccess) return attr;
-    macro_ws_kernel<P, Tiles><<<grid < w.n_tiles ? grid : w.n_tiles,
-                                WS_THREADS, WS_SMEM<P>, stream>>>(
+    macro_ws_kernel<P, Tiles, ACC><<<grid < w.n_tiles ? grid : w.n_tiles,
+                                     WS_THREADS, WS_SMEM<P>, stream>>>(
         a_dense, b_dense, w, c_num, c_flag);
     return cudaGetLastError();
+}
+
+// The float32 pair-stream entry at precision P, fresh or accumulating.
+template <Prec P, bool ACC>
+cudaError_t launch_pair_entry(const float* a_dense, const float* b_dense,
+                              const int* a_idx, const int* b_idx,
+                              const int* seg_ptr, float* c_num,
+                              unsigned char* c_flag, int c_cap, int grid,
+                              int* next, unsigned* masks_a, unsigned* masks_b,
+                              int n_a, int n_b, int masks_ready,
+                              cudaStream_t stream) {
+    if constexpr (P == Prec::HIGHEST)
+        return launch_pairs<ACC>(a_dense, b_dense, a_idx, b_idx, seg_ptr,
+                                 c_num, c_flag, c_cap, grid, next, stream);
+    else
+        return launch_ws<P, StreamTiles, ACC>(
+            a_dense, b_dense,
+            StreamTiles{seg_ptr, a_idx, b_idx, masks_a, masks_b, next, c_cap},
+            grid, n_a, n_b, masks_ready, c_num, c_flag, stream);
 }
 
 template <bool RAGGED>
@@ -2083,34 +2214,38 @@ cudaError_t launch_class(const float* a_dense, const float* b_dense,
 
 }  // namespace
 
-// c_num (c_cap, 128, 128) f32 and c_flag (c_cap, 128, 128) u8 are written
-// whole; seg_ptr has c_cap + 1 entries; next is one int, 0 at the launch.
-// grid: blocks of the persistent kernel (the wrapper passes the SM count;
-// at most c_cap are launched).  precision: 0 "highest", 1 "high",
-// 2 "default" (another value: cudaErrorInvalidValue), in all three float32
-// entries; "highest" runs the 256-thread stage, the others the one-pass
-// pipeline, which also takes masks_a / masks_b (TM_WORDS words a tile of
-// the n_a A tiles and n_b B tiles; one buffer where the tables are one),
-// computed first unless masks_ready ("highest" reads none of the five).
+// c_num (c_cap, 128, 128) f32 and c_flag (c_cap, 128, 128) u8: with
+// accumulate 0 (the fresh form) written whole; with accumulate 1 the
+// stream's tiles are added into them (values old + partial, flags ORed),
+// and a tile without pairs, or none of whose slabs runs at "high" and
+// "default", is neither read nor written.  seg_ptr has c_cap + 1 entries;
+// next is one int, 0 at the launch.  grid: blocks of the persistent kernel
+// (the wrapper passes the SM count; at most c_cap are launched).
+// precision: 0 "highest", 1 "high", 2 "default" (another value:
+// cudaErrorInvalidValue), in all three float32 entries; "highest" runs the
+// 256-thread stage, the others the one-pass pipeline, which also takes
+// masks_a / masks_b (TM_WORDS words a tile of the n_a A tiles and n_b B
+// tiles; one buffer where the tables are one), computed first unless
+// masks_ready ("highest" reads none of the five).
 extern "C" int macro_accumulate_pairs_f32(
         const float* a_dense, const float* b_dense, const int* a_idx,
         const int* b_idx, const int* seg_ptr, float* c_num,
         unsigned char* c_flag, int c_cap, int grid, int* next, int precision,
         unsigned* masks_a, unsigned* masks_b, int n_a, int n_b,
-        int masks_ready, cudaStream_t stream) {
+        int masks_ready, int accumulate, cudaStream_t stream) {
     if (c_cap <= 0) return (int)cudaSuccess;
     if (grid <= 0) return (int)cudaErrorInvalidConfiguration;
     return (int)with_prec(precision, [&](auto tag) {
         constexpr Prec P = decltype(tag)::value;
-        if constexpr (P == Prec::HIGHEST)
-            return launch_pairs(a_dense, b_dense, a_idx, b_idx, seg_ptr,
-                                c_num, c_flag, c_cap, grid, next, stream);
-        else
-            return launch_ws<P>(a_dense, b_dense,
-                                StreamTiles{seg_ptr, a_idx, b_idx, masks_a,
-                                            masks_b, next, c_cap},
-                                grid, n_a, n_b, masks_ready, c_num, c_flag,
-                                stream);
+        return accumulate
+            ? launch_pair_entry<P, true>(a_dense, b_dense, a_idx, b_idx,
+                                         seg_ptr, c_num, c_flag, c_cap, grid,
+                                         next, masks_a, masks_b, n_a, n_b,
+                                         masks_ready, stream)
+            : launch_pair_entry<P, false>(a_dense, b_dense, a_idx, b_idx,
+                                          seg_ptr, c_num, c_flag, c_cap, grid,
+                                          next, masks_a, masks_b, n_a, n_b,
+                                          masks_ready, stream);
     });
 }
 
@@ -2171,17 +2306,20 @@ extern "C" int macro_class_uniform_f32(
 }
 
 // The float64 pair stream: c_num (c_cap, 128, 128) f64 and c_flag
-// (c_cap, 128, 128) u8 are written whole, one block a C tile; seg_ptr has
-// c_cap + 1 entries.  First the k-masks of the n_a A tiles and the n_b B
-// tiles (masks_a / masks_b, F64_MASK_WORDS words a tile; the same buffer,
-// computed once, where both operands are one table) and the slabs that
-// run of each of the p_cap pairs (need, a byte a pair).
+// (c_cap, 128, 128) u8, one block a C tile, written whole with accumulate 0
+// (the fresh form); with accumulate 1 the stream's tiles are added into
+// them, and a tile without pairs, or none of whose slabs runs, is neither
+// read nor written.  seg_ptr has c_cap + 1 entries.  First the k-masks of
+// the n_a A tiles and the n_b B tiles (masks_a / masks_b, F64_MASK_WORDS
+// words a tile; the same buffer, computed once, where both operands are one
+// table) and the slabs that run of each of the p_cap pairs (need, a byte a
+// pair).
 extern "C" int macro_accumulate_pairs_f64(
         const double* a_dense, const double* b_dense, const int* a_idx,
         const int* b_idx, const int* seg_ptr, double* c_num,
         unsigned char* c_flag, int c_cap, int n_a, int n_b, int p_cap,
         unsigned* masks_a, unsigned* masks_b, unsigned char* need,
-        cudaStream_t stream) {
+        int accumulate, cudaStream_t stream) {
     if (c_cap <= 0) return (int)cudaSuccess;
     if (n_a <= 0 || n_b <= 0 || p_cap < 0) return (int)cudaErrorInvalidValue;
     f64_tile_masks<<<n_a, F64_THREADS, 0, stream>>>(a_dense, masks_a);
@@ -2192,11 +2330,12 @@ extern "C" int macro_accumulate_pairs_f64(
                         0, stream>>>(a_idx, b_idx, masks_a, masks_b, need,
                                      p_cap);
     // per launch: the attribute belongs to the current device
+    const auto kernel = accumulate ? macro_pairs_f64_kernel<true>
+                                   : macro_pairs_f64_kernel<false>;
     const cudaError_t attr = cudaFuncSetAttribute(
-        macro_pairs_f64_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        F64_SMEM);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, F64_SMEM);
     if (attr != cudaSuccess) return (int)attr;
-    macro_pairs_f64_kernel<<<c_cap, F64_THREADS, F64_SMEM, stream>>>(
+    kernel<<<c_cap, F64_THREADS, F64_SMEM, stream>>>(
         a_dense, b_dense, a_idx, b_idx, seg_ptr, need, c_num, c_flag);
     return (int)cudaGetLastError();
 }

@@ -58,7 +58,7 @@ def round_operands(x, precision: str):
 
 def accumulate_macro(a_dense, b_dense, a_idx, b_idx, c_tile_id, c_cap: int,
                      chunk: int, acc_dtype=torch.float32,
-                     precision: str = "highest"):
+                     precision: str = "highest", out=None):
     """Fused numeric + structural accumulation over macro-tile pairs.
 
     a_dense/b_dense: (T+1, 128, 128) tables (zero tile at T).  a_idx, b_idx,
@@ -71,6 +71,11 @@ def accumulate_macro(a_dense, b_dense, a_idx, b_idx, c_tile_id, c_cap: int,
     Returns (c_dense (c_cap,128,128) acc_dtype, c_flags (c_cap,128,128)
     uint8).  index_add_ on the GPU adds duplicates with atomics, so values
     differ from run to run within the float32 bound; the flags do not.
+
+    ``out=(c_num, c_flag)`` (the accumulate form): the stream's tiles are
+    added into them in place, ``c_num += partial; c_flag |= flags`` on the
+    tiles the stream has pairs for (a tile without pairs is left bit for
+    bit, so a -0.0 there stays), and ``out`` is returned.
     """
     require_full_fp32()
     precision_code(precision)
@@ -90,7 +95,13 @@ def accumulate_macro(a_dense, b_dense, a_idx, b_idx, c_tile_id, c_cap: int,
                                              round_operands(bd, precision)))
         c_cnt.index_add_(0, s_c, torch.bmm((ad != 0).float(),
                                            (bd != 0).float()))
-    return c_dense[:c_cap], (c_cnt[:c_cap] > 0).to(torch.uint8)
+    partial, flags = c_dense[:c_cap], (c_cnt[:c_cap] > 0).to(torch.uint8)
+    if out is None:
+        return partial, flags
+    live = torch.unique(seg[seg < c_cap])
+    out[0][live] += partial[live]
+    out[1][live] |= flags[live]
+    return out
 
 
 def macro_structure(c_flags):

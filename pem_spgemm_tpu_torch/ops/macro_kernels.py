@@ -9,7 +9,9 @@ with nvcc at first use and bound with ctypes by ops/_build.py):
                            (accumulate_macro_pipelined of the reference);
                            the macro engine's interactive multiply, its
                            MacroPlan steady multiply and the stencil plan's
-                           residual pairs;
+                           residual pairs; with ``out=`` its accumulate
+                           form, which adds into a C the caller holds (the
+                           Macro128 ring's stages after the first);
   class_call2              one signature class of a stencil / run plan, per
                            tile pair counts ragged or uniform;
   class_call               the same for uniform pair counts only (the
@@ -65,9 +67,12 @@ SOURCE = _build.cuda_source("macro_accumulate")
 F64_MASK_WORDS = 10     # the float64 entry's k-mask words a tile (the .cu's)
 TM_WORDS = 10           # the one-pass pipeline's k-mask words a tile
 
-# kernel launches per entry (plain-version calls are not counted)
+# kernel launches per entry (plain-version calls are not counted); the
+# pair-stream entries' accumulate form (``out=``) counts under its own key
 LAUNCHES = {"macro_accumulate_pairs": 0, "macro_class_ragged": 0,
-            "macro_class_uniform": 0, "macro_accumulate_pairs_f64": 0}
+            "macro_class_uniform": 0, "macro_accumulate_pairs_f64": 0,
+            "macro_accumulate_pairs_acc": 0,
+            "macro_accumulate_pairs_f64_acc": 0}
 
 
 def reset_launch_counts() -> None:
@@ -79,7 +84,7 @@ def _declare(lib) -> None:
     vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     masks = [vp, vp, ci, ci, ci]        # masks_a, masks_b, n_a, n_b, ready
     lib.macro_accumulate_pairs_f32.argtypes = [vp, vp, vp, vp, vp, vp, vp,
-                                               ci, ci, vp, ci, *masks, vp]
+                                               ci, ci, vp, ci, *masks, ci, vp]
     lib.macro_class_ragged_f32.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci,
                                            ll, vp, vp, ci, ci, vp, *masks,
                                            vp]
@@ -88,7 +93,7 @@ def _declare(lib) -> None:
                                             vp]
     lib.macro_accumulate_pairs_f64.argtypes = [vp, vp, vp, vp, vp, vp, vp,
                                                ci, ci, ci, ci, vp, vp, vp,
-                                               vp]
+                                               ci, vp]
     for fn in (lib.macro_accumulate_pairs_f32, lib.macro_class_ragged_f32,
                lib.macro_class_uniform_f32, lib.macro_accumulate_pairs_f64):
         fn.restype = ci
@@ -197,9 +202,29 @@ def persistent_grid(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+def _check_out(out, c_cap, dtype, device):
+    """The accumulate form's (c_num, c_flag): (c_cap, 128, 128) each, of
+    ``dtype`` and uint8, contiguous, 16-byte aligned (the kernels load and
+    store 16-byte pieces), on ``device``."""
+    if not (isinstance(out, (tuple, list)) and len(out) == 2):
+        raise TypeError("out must be a pair (c_num, c_flag)")
+    for x, name, want in ((out[0], "out c_num", dtype),
+                          (out[1], "out c_flag", torch.uint8)):
+        _check_tiles(x, name, device)
+        if x.shape[0] != c_cap:
+            raise ValueError(f"{name} has {x.shape[0]} tiles, expected "
+                             f"c_cap={c_cap}")
+        if x.dtype != want:
+            raise TypeError(f"{name} is {x.dtype}, expected {want}")
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    return out[0], out[1]
+
+
 def accumulate_macro_pairs(a_dense, b_dense, a_idx, b_idx, seg, c_cap: int,
                            *, chunk: int = 256, acc_dtype=None,
-                           precision: str = "highest", tile_masks=None):
+                           precision: str = "highest", tile_masks=None,
+                           out=None):
     """(c_dense (c_cap,128,128), c_flags (c_cap,128,128) uint8) of a pair
     stream sorted by C tile.
 
@@ -215,6 +240,17 @@ def accumulate_macro_pairs(a_dense, b_dense, a_idx, b_idx, seg, c_cap: int,
     "high" / "default" on CUDA tiles; else not read).
     CUDA tiles of float32 launch the float32 entry, of float64 the float64
     entry (c_dense then float64); any other dtype raises.
+
+    ``out=(c_num, c_flag)``: the accumulate form.  The stream's products are
+    added into them in place (values old + partial, flags ORed) and ``out``
+    is returned; a tile without pairs is neither read nor written (on the
+    card, nor is a tile none of whose slabs runs at "high" / "default" or in
+    float64: it keeps a -0.0 the plain version turns into +0.0).  They must
+    be (c_cap, 128, 128), contiguous, on the tiles' device, of the values'
+    dtype (the tiles', or ``acc_dtype`` on the CPU) and uint8; anything else
+    raises.  On CUDA tiles it launches the entry's accumulate form (counted
+    as ``<entry>_acc``), on CPU tiles ``ops.macro.accumulate_macro(...,
+    out=out)``.
     """
     prec = precision_code(precision)
     _check_tiles(a_dense, "a_dense")
@@ -226,13 +262,19 @@ def accumulate_macro_pairs(a_dense, b_dense, a_idx, b_idx, seg, c_cap: int,
     if c_cap < 0:
         raise ValueError(f"c_cap={c_cap}")
     _require_on_gpu((a_dense, b_dense), (torch.float32, torch.float64))
+    values = a_dense.dtype if a_dense.is_cuda else acc_dtype or a_dense.dtype
+    if out is not None:
+        c_num, c_flag = _check_out(out, c_cap, values, dev)
     if not a_dense.is_cuda:
         return accumulate_macro(a_dense, b_dense, a_idx, b_idx, seg, c_cap,
-                                chunk, acc_dtype or a_dense.dtype, precision)
-    c_num = torch.empty((c_cap, TILE, TILE), dtype=a_dense.dtype, device=dev)
-    c_flag = torch.empty((c_cap, TILE, TILE), dtype=torch.uint8, device=dev)
+                                chunk, values, precision, out)
+    if out is None:
+        c_num = torch.empty((c_cap, TILE, TILE), dtype=values, device=dev)
+        c_flag = torch.empty((c_cap, TILE, TILE), dtype=torch.uint8,
+                             device=dev)
     if c_cap == 0:                      # nothing to launch, nothing counted
         return c_num, c_flag
+    acc = int(out is not None)
     seg_ptr = segment_offsets(seg, c_cap)
     lib = _library()
     ptrs = (a_dense.data_ptr(), b_dense.data_ptr(), a_idx.data_ptr(),
@@ -253,7 +295,7 @@ def accumulate_macro_pairs(a_dense, b_dense, a_idx, b_idx, seg, c_cap: int,
             err = lib.macro_accumulate_pairs_f64(
                 *ptrs, a_dense.shape[0], b_dense.shape[0], p_cap,
                 masks_a.data_ptr(), masks_b.data_ptr(), need.data_ptr(),
-                torch.cuda.current_stream().cuda_stream)
+                acc, torch.cuda.current_stream().cuda_stream)
     else:
         entry = "macro_accumulate_pairs"
         next_tile = torch.zeros(1, dtype=torch.int32, device=dev)
@@ -261,9 +303,11 @@ def accumulate_macro_pairs(a_dense, b_dense, a_idx, b_idx, seg, c_cap: int,
         with torch.cuda.device(dev):
             err = lib.macro_accumulate_pairs_f32(
                 *ptrs, persistent_grid(dev), next_tile.data_ptr(), prec,
-                *margs, torch.cuda.current_stream().cuda_stream)
+                *margs, acc, torch.cuda.current_stream().cuda_stream)
         if masks is not None and err == 0:
             masks.ready = True
+    if acc:
+        entry += "_acc"
     _raise_on(err, entry)
     LAUNCHES[entry] += 1
     return c_num, c_flag

@@ -9,13 +9,15 @@ s rank d holds B chunk (d - s) mod n, sends it to the right while it
 receives the next one from the left, and accumulates the pairs whose B tile
 lies in the chunk it holds.
 
-Each stage is one launch of the pair-stream kernel K4
+Each stage with pairs is one launch of the pair-stream kernel K4
 (``ops.macro_kernels.accumulate_macro_pairs``; its plain version on the
 CPU), on two buffers: a stage's K4 runs while the next chunk arrives, and
-the receive is waited for before the next stage reads it.  K4 zeroes every
-C tile that has no pairs in its stream, so a stage's output is a partial
-sum: it is added into the rank's C, and its flags OR-ed in.  K4 skips only
-pairs whose C tile is INT32_MAX, so this port pads a stage's ``seg`` with
+the receive is waited for before the next stage reads it.  As the JAX
+ring's stage scatter-adds into the C it carries, the first stage with
+pairs writes the rank's C (K4's fresh form, which zeroes the tiles without
+pairs) and every later one adds into it (K4's accumulate form, which reads
+and writes only the tiles the stage has pairs for).  K4 skips only pairs
+whose C tile is INT32_MAX, so this port pads a stage's ``seg`` with
 INT32_MAX where the JAX layout pads with ``c_cap`` (the C tile it drops);
 the stable key sort keeps each stage's pairs ascending in C tile, which K4
 needs.
@@ -268,24 +270,26 @@ def ring_chunks(first: torch.Tensor, n: int, mesh: RankGroup):
 def local_macro(plan: ShardedMacroPlan, chunks, precision: str = "highest"):
     """(c_dense (c_cap, 128, 128), c_flags uint8) of this rank: one K4
     launch for each stage that has pairs, at ``precision``, on the chunk
-    ``chunks`` yields for it, its partial sum added into C and its flags
-    OR-ed in."""
+    ``chunks`` yields for it.  The first writes C (the fresh form), each
+    later one adds its products into that C and ORs its flags in (the
+    accumulate form, ``out=``).  Zeros where no stage has pairs."""
     from pem_spgemm_tpu_torch.ops.macro_kernels import accumulate_macro_pairs
-    dev = plan.a_dense.device
-    c_num = torch.zeros((plan.c_cap, TILE, TILE), dtype=plan.a_dense.dtype,
-                        device=dev)
-    c_flag = torch.zeros((plan.c_cap, TILE, TILE), dtype=torch.uint8,
-                         device=dev)
+    out = None
     chunk = min(256, plan.pairs_a.shape[1])
     for s, b_cur in enumerate(chunks):
         if plan.stage_pairs[s] == 0:
             continue
-        num, flag = accumulate_macro_pairs(
+        out = accumulate_macro_pairs(
             plan.a_dense, b_cur, plan.pairs_a[s], plan.pairs_b[s],
-            plan.seg[s], plan.c_cap, chunk=chunk, precision=precision)
-        c_num += num
-        c_flag |= flag
-    return c_num, c_flag
+            plan.seg[s], plan.c_cap, chunk=chunk, precision=precision,
+            out=out)
+    if out is None:
+        dev = plan.a_dense.device
+        out = (torch.zeros((plan.c_cap, TILE, TILE),
+                           dtype=plan.a_dense.dtype, device=dev),
+               torch.zeros((plan.c_cap, TILE, TILE), dtype=torch.uint8,
+                           device=dev))
+    return out
 
 
 def sharded_macro_numeric(plan: ShardedMacroPlan,

@@ -196,7 +196,8 @@ def test_macro_kernel_source_and_loader_agree():
     assert "wgmma.mma_async" in src and ".tf32.tf32" in src
     assert "cvt.rna.tf32.f32" in src
     assert set(mk.LAUNCHES) == {e[:-4] for e in entries[:3]} | {
-        "macro_accumulate_pairs_f64"}
+        "macro_accumulate_pairs_f64", "macro_accumulate_pairs_acc",
+        "macro_accumulate_pairs_f64_acc"}
 
     # the ctypes declarations match the number of C parameters
     class Lib:

@@ -311,7 +311,7 @@ def _cu_constant(name):
 
 
 def _replay_pair_stream(dense_a, dense_b, a_idx, b_idx, seg_ptr, c_cap,
-                        grid, seed):
+                        grid, seed, prior=None):
     """Python replay of the persistent pair-stream kernel (pair_stream in
     csrc/macro_accumulate.cu): ``grid`` blocks, each a generator that runs
     from one barrier to the next, advanced in a seeded random order so
@@ -319,25 +319,38 @@ def _replay_pair_stream(dense_a, dense_b, a_idx, b_idx, seg_ptr, c_cap,
     the claim ring (CLAIMS slots, AHEAD claims ahead, a claim published two
     iterations after its ticket), the issue cursor two stages ahead of the
     compute cursor, the two-slot raw ring, the tile boundaries.  Returns
-    (values, flags, owner, events): the C tiles as the replay forms them
-    (each stage's 32-deep k-slab product added in float64, flags from the
-    raw values' k-masks), the block that wrote each tile (-1: zeroed before
-    the stream), and per tile its (pair, slab) stages in the order run."""
+    (values, flags, owner, events, reads): the C tiles as the replay forms
+    them (each stage's 32-deep k-slab product added in float64, flags from
+    the raw values' k-masks), the block that wrote each tile (-1: zeroed
+    before the stream, -2: never written), per tile its (pair, slab) stages
+    in the order run, and how often each tile was read.  ``prior`` (values,
+    flags): the accumulate form (ACC), which makes no zero pass and, at a
+    tile's store, reads the tile and writes old + partial, flags ORed."""
     CLAIMS, AHEAD = _cu_constant("CLAIMS"), _cu_constant("AHEAD")
     KS, SLABS, THREADS = 32, 4, 256
     counter = [0]
-    values = np.full((c_cap, 128, 128), np.nan)
-    flags = np.full((c_cap, 128, 128), 7, np.uint8)
+    accumulate = prior is not None
+    if accumulate:
+        values = prior[0].astype(np.float64)
+        flags = prior[1].copy()
+    else:
+        values = np.full((c_cap, 128, 128), np.nan)
+        flags = np.full((c_cap, 128, 128), 7, np.uint8)
     owner = np.full(c_cap, -2)
+    reads = np.zeros(c_cap, np.int64)
     events = {}
 
     def write(c, b, v, f):
         assert owner[c] == -2, f"tile {c} written twice"
         owner[c] = b
+        if accumulate:
+            reads[c] += 1
+            v, f = values[c] + v, flags[c] | np.asarray(f, np.uint8)
         values[c], flags[c] = v, f
 
     # tiles without pairs: round robin, a thread each, before the stream
-    for b in range(grid):
+    # (the fresh form only)
+    for b in range(grid if not accumulate else 0):
         for t in range(THREADS):
             for c in range(b + t * grid, c_cap, THREADS * grid):
                 if seg_ptr[c] == seg_ptr[c + 1]:
@@ -459,7 +472,30 @@ def _replay_pair_stream(dense_a, dense_b, a_idx, b_idx, seg_ptr, c_cap,
             next(live[b])
         except StopIteration:
             del live[b]
-    return values, flags, owner, events
+    return values, flags, owner, events, reads
+
+
+def _replayed_stream(g, stream):
+    """(seg, c_cap, seg_ptr) of a replay case: the gapped stream with 5
+    tiles past its count, or the engineered 1/70/0/3/2 stream (a tile of
+    70 pairs, an empty one) in a c_cap of 9."""
+    seg = g["t_out"][4]
+    if stream == "1/70/0/3/2":
+        per_tile = [1, 70, 0, 3, 2]
+        n = sum(per_tile)
+        seg = torch.cat([
+            torch.repeat_interleave(torch.arange(5),
+                                    torch.tensor(per_tile)).int(),
+            torch.full((seg.numel() - n,), symbolic.INT32_MAX,
+                       dtype=torch.int32)])
+        c_cap = 9
+    else:
+        c_cap = g["c_cap"] + 5          # tiles past the stream's
+    seg_ptr = mk.segment_offsets(seg, c_cap).numpy()
+    assert seg_ptr.dtype == np.int32 and seg_ptr[0] == 0
+    n_pairs = int((seg != symbolic.INT32_MAX).sum())
+    assert seg_ptr[-1] == n_pairs < seg.numel()
+    return seg, c_cap, seg_ptr
 
 
 @pytest.mark.parametrize("grid,stream", [(3, "gapped"), (64, "gapped"),
@@ -476,25 +512,11 @@ def test_pair_kernel_index_arithmetic_replayed_in_numpy(gapped_stream, grid,
     never read before they are filled, and the result is the plain
     version's."""
     g = gapped_stream
-    tm, (_r, _c, a_idx, b_idx, seg, _cnt) = g["tm"], g["t_out"]
-    if stream == "1/70/0/3/2":          # a tile of 70 pairs, an empty one
-        per_tile = [1, 70, 0, 3, 2]
-        n = sum(per_tile)
-        seg = torch.cat([
-            torch.repeat_interleave(torch.arange(5),
-                                    torch.tensor(per_tile)).int(),
-            torch.full((a_idx.numel() - n,), symbolic.INT32_MAX,
-                       dtype=torch.int32)])
-        c_cap = 9
-    else:
-        c_cap = g["c_cap"] + 5          # tiles past the stream's
-    seg_ptr = mk.segment_offsets(seg, c_cap).numpy()
-    assert seg_ptr.dtype == np.int32 and seg_ptr[0] == 0
-    n_pairs = int((seg != symbolic.INT32_MAX).sum())
-    assert seg_ptr[-1] == n_pairs < seg.numel()
+    tm, (_r, _c, a_idx, b_idx, _seg, _cnt) = g["tm"], g["t_out"]
+    seg, c_cap, seg_ptr = _replayed_stream(g, stream)
     d = tm.dense.numpy()
     pa, pb = a_idx.numpy(), b_idx.numpy()
-    num, flag, owner, events = _replay_pair_stream(
+    num, flag, owner, events, _reads = _replay_pair_stream(
         d, d, pa, pb, seg_ptr, c_cap, grid, seed=grid)
     empty = np.diff(seg_ptr) == 0
     assert (owner[empty] == -1).all() and (owner[~empty] >= 0).all()
@@ -510,14 +532,132 @@ def test_pair_kernel_index_arithmetic_replayed_in_numpy(gapped_stream, grid,
     np.testing.assert_array_equal(flag, want_f.numpy())
 
 
+def _prior_c(c_cap, dtype, seed):
+    """A C that a ring stage adds into: normal values with -0.0, +-Inf and
+    NaN in every tile (with pairs or not), flags 0 and 1."""
+    g = torch.Generator().manual_seed(seed)
+    num = torch.randn((c_cap, 128, 128), generator=g,
+                      dtype=torch.float64).to(dtype)
+    u = torch.rand(num.shape, generator=g, dtype=torch.float64)
+    num[u < 0.1] = -0.0
+    num[(u >= 0.1) & (u < 0.11)] = float("inf")
+    num[(u >= 0.11) & (u < 0.12)] = float("-inf")
+    num[(u >= 0.12) & (u < 0.13)] = float("nan")
+    flag = (torch.rand(num.shape, generator=g) < 0.3).to(torch.uint8)
+    return num, flag
+
+
+def _bits(x):
+    return x.view(torch.int64 if x.element_size() == 8 else torch.int32)
+
+
+@pytest.mark.parametrize("grid,stream", [(3, "gapped"), (2, "1/70/0/3/2")])
+def test_pair_kernel_accumulate_form_replayed_in_numpy(gapped_stream, grid,
+                                                       stream):
+    """The accumulate form of the same walk (ACC: the ring's stages after
+    the first): no zero pass, so a tile without pairs, the tiles past the
+    stream's count among them, is never read or written; each tile with
+    pairs is read once and written once, by the block that took it, its
+    stages as in the fresh form; the result is the plain version's
+    ``out=``: old + partial, flags ORed."""
+    g = gapped_stream
+    tm, (_r, _c, a_idx, b_idx, _seg, _cnt) = g["tm"], g["t_out"]
+    seg, c_cap, seg_ptr = _replayed_stream(g, stream)
+    d = tm.dense.numpy()
+    prior = _prior_c(c_cap, torch.float32, seed=grid)
+    num, flag, owner, events, reads = _replay_pair_stream(
+        d, d, a_idx.numpy(), b_idx.numpy(), seg_ptr, c_cap, grid, seed=grid,
+        prior=(prior[0].numpy(), prior[1].numpy()))
+    empty = np.diff(seg_ptr) == 0
+    assert empty.any() and (owner[empty] == -2).all()
+    assert (reads[empty] == 0).all()
+    assert (owner[~empty] >= 0).all() and (reads[~empty] == 1).all()
+    for c in np.flatnonzero(~empty):
+        lo, hi = seg_ptr[c], seg_ptr[c + 1]
+        assert events[c] == [(q, s) for q in range(lo, hi) for s in range(4)]
+    want_n, want_f = mk.accumulate_macro_pairs(
+        tm.dense, tm.dense, a_idx, b_idx, seg, c_cap, chunk=32,
+        out=(prior[0].clone(), prior[1].clone()))
+    np.testing.assert_allclose(num, want_n.numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(flag, want_f.numpy())
+    np.testing.assert_array_equal(_bits(want_n[empty]), _bits(prior[0][empty]))
+
+
+@pytest.mark.parametrize("dtype,precision", [
+    (torch.float32, "highest"), (torch.float32, "high"),
+    (torch.float32, "default"), (torch.float64, "highest")],
+    ids=["f32-highest", "f32-high", "f32-default", "f64"])
+def test_accumulate_form_adds_the_stream_into_c(gapped_stream, dtype,
+                                                precision):
+    """The pair-stream wrapper's accumulate form (``out=``) on CPU tiles:
+    the plain version adds the stream into C in place, equal under == to
+    the fresh form plus a torch add and OR, NaN where it gives NaN, flags
+    bit for bit; the
+    tiles without pairs, and those past the stream's count up to c_cap,
+    come back bit for bit (their -0.0, Inf and NaN)."""
+    g = gapped_stream
+    tm, (_r, _c, a_idx, b_idx, seg, _cnt) = g["tm"], g["t_out"]
+    c_cap = g["c_cap"] + 5
+    d = tm.dense.to(dtype)
+    mk.reset_launch_counts()
+    part, part_f = mk.accumulate_macro_pairs(d, d, a_idx, b_idx, seg, c_cap,
+                                             chunk=32, precision=precision)
+    num, flag = _prior_c(c_cap, dtype, seed=7)
+    old_n, old_f = num.clone(), flag.clone()
+    got = mk.accumulate_macro_pairs(d, d, a_idx, b_idx, seg, c_cap, chunk=32,
+                                    precision=precision, out=(num, flag))
+    assert got[0] is num and got[1] is flag and num.dtype == dtype
+    assert sum(mk.LAUNCHES.values()) == 0      # CPU tiles: the plain version
+    live = torch.zeros(c_cap, dtype=torch.bool)
+    live[seg[seg < c_cap].long()] = True
+    assert live.any() and not live[g["n_c"]:].any() and not live.all()
+    want_n, want_f = old_n + part, old_f | part_f
+    same = (num == want_n) | (torch.isnan(num) & torch.isnan(want_n))
+    assert bool(same[live].all())
+    assert bool(torch.isnan(num[live]).any())          # the prior NaNs
+    assert torch.equal(flag[live], want_f[live])
+    assert torch.equal(_bits(num[~live]), _bits(old_n[~live]))
+    assert torch.equal(flag[~live], old_f[~live])
+    assert bool((torch.signbit(num[~live]) & (num[~live] == 0)).any())
+
+
+@pytest.mark.parametrize("what", ["not a pair", "tiles", "shape", "dtype",
+                                  "flag dtype", "device", "contiguity",
+                                  "alignment"])
+def test_accumulate_form_refuses_a_wrong_out(gapped_stream, what):
+    g = gapped_stream
+    tm, (_r, _c, a_idx, b_idx, seg, _cnt) = g["tm"], g["t_out"]
+    c_cap = g["c_cap"]
+    num = torch.zeros((c_cap, 128, 128))
+    flag = torch.zeros((c_cap, 128, 128), dtype=torch.uint8)
+    out, err = {
+        "not a pair": ((num,), TypeError),
+        "tiles": ((num[:-1], flag[:-1]), ValueError),
+        "shape": ((num, flag[:, :64]), ValueError),
+        "dtype": ((num.double(), flag), TypeError),
+        "flag dtype": ((num, flag.int()), TypeError),
+        "device": ((num.to("meta"), flag), ValueError),
+        "contiguity": ((num.transpose(1, 2), flag), ValueError),
+        # contiguous, 4 bytes past a 16-byte boundary
+        "alignment": ((torch.zeros(num.numel() + 1)[1:].view(num.shape),
+                       flag), ValueError),
+    }[what]
+    with pytest.raises(err):
+        mk.accumulate_macro_pairs(tm.dense, tm.dense, a_idx, b_idx, seg,
+                                  c_cap, chunk=32, out=out)
+    assert not num.any() and not flag.any()
+
+
 def test_k4_split_cuts_cut_one_place_each():
     # bench/k4_split.py times the tile product with one piece of a stage cut
-    # out (of the "highest" stage and of the one-pass pipeline) and with one
-    # tile a block, each a text substitution
+    # out (of the "highest" stage and of the one-pass pipeline), with one
+    # tile a block and the accumulate form's other stores, each a text
+    # substitution
     from pem_spgemm_tpu_torch.bench import k4_split
     with open(mk.SOURCE) as f:
         text = f.read()
     for name, cuts in [*k4_split.CUTS.items(), *k4_split.WS_CUTS.items(),
+                       *k4_split.ACC_CUTS.items(),
                        ("one tile", k4_split.ONE_TILE)]:
         for old, new in cuts:
             assert text.count(old) == 1 and new != old, name

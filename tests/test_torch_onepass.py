@@ -769,10 +769,11 @@ def test_store_cs_writes_the_fragment_in_16_byte_pieces():
     flags land where the fragment says, and each row is written once."""
     text = _source()
     for line in ("odd ? make_float4(s0, s1, c0, c1)",
-                 ": make_float4(a0, a1, s0, s1));",
-                 "__stcs(reinterpret_cast<float4*>(cr + 8 * (j + odd)",
+                 ": make_float4(a0, a1, s0, s1);",
+                 "float4* p = reinterpret_cast<float4*>(cr + 8 * (j + odd)",
                  "w[ww] = (nib * 0x00204081u) & 0x01010101u;",
-                 "__stcs(reinterpret_cast<uint4*>(fr + 32 * q + 16),"):
+                 "uint4* fp = reinterpret_cast<uint4*>(fr + 32 * q);",
+                 "__stcs(fp + 1, w1);"):
         assert text.count(line) == 1, line
     rng = np.random.default_rng(9)
     want_v = rng.standard_normal((16, TILE)).astype(np.float32)

@@ -126,10 +126,19 @@ def _same_on_every_rank(outs):
 
 @functools.lru_cache(maxsize=None)
 def _jax_macro(n):
+    """The JAX plan, its C_nnz, its assembled COO and each device's C
+    (c_dense, c_counts), (n, c_cap, 128, 128) numpy each."""
     m = j_coo_to_macro(JCOO.from_scipy(MACRO), dtype=jnp.float32)
     plan = j_plan_macro(m, m, n)
     out = j_macro_numeric(plan, j_make_mesh(n))
-    return plan, j_plan_nnz_macro(plan, out), j_assemble_macro(plan, *out)
+    return (plan, j_plan_nnz_macro(plan, out), j_assemble_macro(plan, *out),
+            out)
+
+
+def _abs_plans(plans):
+    """The plans with |A| and |B| tiles: their ring gives sum|a*b|."""
+    return [dataclasses.replace(p, a_dense=p.a_dense.abs(),
+                                b_dense=p.b_dense.abs()) for p in plans]
 
 
 def test_sharded_macro_matches_scipy_and_jax(ranks):
@@ -137,7 +146,7 @@ def test_sharded_macro_matches_scipy_and_jax(ranks):
     outs = res["macro"]
     _same_on_every_rank(outs)
     _hold(outs[0], _want(MACRO, MACRO), "macro ring")
-    plan, c_nnz, (jr, jc, jv) = _jax_macro(n)
+    plan, c_nnz, (jr, jc, jv), (j_dense, j_cnt) = _jax_macro(n)
     assert outs[0]["c_nnz"] == c_nnz
     np.testing.assert_array_equal(outs[0]["rows"], jr)
     np.testing.assert_array_equal(outs[0]["cols"], jc)
@@ -154,9 +163,20 @@ def test_sharded_macro_matches_scipy_and_jax(ranks):
             np.testing.assert_array_equal(o[k], getattr(jp, k).numpy(),
                                           err_msg=f"{k}[{d}]")
     # the JAX plan's rank slices through the port's stage loop (K4's plain
-    # version here), the ranks replayed in turn: the same C
-    parts = [sm.local_macro_coo(p, *sm.local_macro(
-        p, sm.replay_chunks(jplans, d))) for d, p in enumerate(jplans)]
+    # version here: the first stage with pairs fresh, the later ones added
+    # into the same C), the ranks replayed in turn: each rank's C tiles are
+    # JAX _local_macro's (flags exact, values within the float32 bound) and
+    # the union is scipy's product
+    mags = _abs_plans(jplans)
+    parts = []
+    for d, p in enumerate(jplans):
+        num, flag = sm.local_macro(p, sm.replay_chunks(jplans, d))
+        mag = sm.local_macro(mags[d], sm.replay_chunks(mags, d))[0].numpy()
+        np.testing.assert_array_equal(flag.numpy() > 0, j_cnt[d] > 0,
+                                      err_msg=f"flags[{d}]")
+        assert np.all(np.abs(num.numpy() - j_dense[d]) <= RTOL * mag + ATOL)
+        parts.append(sm.local_macro_coo(p, num, flag))
+    assert sum(sum(1 for x in p.stage_pairs if x) > 1 for p in jplans)
     rows, cols, vals = (torch.cat(x) for x in zip(*parts))
     order = torch.sort((rows << 32) | cols).indices
     _hold(dict(rows=rows[order].numpy(), cols=cols[order].numpy(),
@@ -270,6 +290,51 @@ def test_replayed_rings_union_is_the_product():
     _hold(dict(rows=rows[order].numpy(), cols=cols[order].numpy(),
                vals=vals[order].numpy(), c_nnz=len(rows)),
           _want(RANDOM, RANDOM), "tile16 replay")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("n", [2, 4])
+def test_local_macro_adds_each_stage_into_one_c(n, dtype, monkeypatch):
+    """local_macro on ``n`` ranks replayed in turn: one pair-stream call a
+    stage with pairs, the first in the fresh form and every later one in
+    the accumulate form (``out=`` the C the first returned: no partial C,
+    no torch add), and each rank's C equal under == to the composition it
+    replaces, computed here (a zero C, each stage's fresh product added,
+    its flags ORed in), flags bit for bit."""
+    from pem_spgemm_tpu_torch.ops import macro_kernels as mk
+    m = coo_to_macro(COOMatrix.from_scipy(MACRO), dtype=dtype, device=CPU)
+    plans = [sm.plan_sharded_macro(m, m, n, d) for d in range(n)]
+    calls = []
+    real = mk.accumulate_macro_pairs
+
+    def spy(*args, out=None, **kw):
+        calls.append(None if out is None else tuple(x.data_ptr()
+                                                    for x in out))
+        return real(*args, out=out, **kw)
+
+    for d, p in enumerate(plans):
+        live = [s for s, x in enumerate(p.stage_pairs) if x]
+        calls.clear()
+        monkeypatch.setattr(mk, "accumulate_macro_pairs", spy)
+        num, flag = sm.local_macro(p, sm.replay_chunks(plans, d))
+        monkeypatch.setattr(mk, "accumulate_macro_pairs", real)
+        assert num.dtype == dtype and len(calls) == len(live)
+        assert calls[:1] == [None] * min(1, len(live))
+        assert all(c == (num.data_ptr(), flag.data_ptr())
+                   for c in calls[1:])
+        want_n = torch.zeros_like(num)
+        want_f = torch.zeros_like(flag)
+        chunks = list(sm.replay_chunks(plans, d))
+        for s in live:
+            part, part_f = real(p.a_dense, chunks[s], p.pairs_a[s],
+                                p.pairs_b[s], p.seg[s], p.c_cap,
+                                chunk=min(256, p.pairs_a.shape[1]))
+            want_n += part
+            want_f |= part_f
+        same = (num == want_n) | (torch.isnan(num) & torch.isnan(want_n))
+        assert bool(same.all()) and torch.equal(flag, want_f), d
+    assert any(sum(1 for x in p.stage_pairs if x) > 1 for p in plans)
 
 
 def test_rings_refuse_other_dtypes():
