@@ -55,15 +55,16 @@ first two, engine="macro" for the third):
     C tiles are held against the plain accumulation on the card; per-row
     nnz against scipy on 20,000 sampled rows of wandering64-1M, the
     recorded C_nnz for banded64-1M, scipy's sorted COO for pairbands-500k;
-  * the Tile16 tier (phase tile16_path; torch ops, no kernel of this
-    package): pairbands-500k through engine="fused" and "masks" in
-    float32, and "fused" in float64 and in bfloat16 with float32
-    accumulation, each with C_nnz as recorded, the sorted COO equal to
-    scipy's, values within the dtype's bound, exactly three host syncs in
-    an interactive multiply (torch's sync debug mode), and the steady
-    plan's CUDA graph held to the eager step (structure bit for bit, values
-    within the bound: index_add_ adds with atomics), beside the DIA
-    engine's steady time on the same matrix;
+  * the Tile16 tier (phase tile16_path; its accumulation is the Tile16
+    kernel, csrc/tile16_accumulate.cu): pairbands-500k through
+    engine="fused" and "masks" in float32, and "fused" in float64 and in
+    bfloat16 with float32 accumulation, each with C_nnz as recorded, the
+    sorted COO equal to scipy's, values within the dtype's bound, the
+    kernel's entry launched (and nothing else of this package), exactly
+    three host syncs in an interactive multiply (torch's sync debug mode),
+    and the steady plan's CUDA graph held to the eager step bit for bit,
+    values too (the kernel adds a tile's pairs in stream order, with no
+    atomics), beside the DIA engine's steady time on the same matrix;
   * persistence (phase persist): pairbands-500k's Tile16 and DIA forms
     saved, loaded onto the card and multiplied, C_nnz as recorded;
   * bfloat16 on the element, DIA and Macro128 engines (phase bf16_path:
@@ -81,7 +82,9 @@ first two, engine="macro" for the third):
     on powerlaw-1M (K1b), the DIA halo exchange on banded64-1M (K2), the
     Macro128 ring on wandering64-1M (one K4 a stage with pairs: a rank's
     first in K4's fresh form, the later ones in its accumulate form, which
-    adds into the rank's C) and the Tile16 ring on pairbands-500k; phase
+    adds into the rank's C) and the Tile16 ring on pairbands-500k (one
+    Tile16 kernel launch a stage with pairs, fresh then accumulating, in
+    the same way); phase
     sharded_ranks replays a 4-rank plan of each on the card, rank by rank,
     each rank's B chunks and halos read from the plan (two NCCL ranks
     cannot share one card: the exchange is carried by the gloo tests), with
@@ -91,6 +94,8 @@ first two, engine="macro" for the third):
     also to the composition of K4's fresh form with a torch add and OR,
     under == with flags bit for bit (timed beside it), with its time split
     into the K4 launches and local_macro_coo and the ring's peak memory;
+    each Tile16 rank's values likewise to the kernel's fresh form plus a
+    torch add, under ==, timed beside it;
   * A.A^T (phase aat_path, run_benchmark(aat=True), B = A^T != A): rmat-16
     and a rectangular 1,000,000 x 500,000 uniform matrix on the binned
     element engine (K1b), banded16-1M on K2, pairbands-500k on K3 and
@@ -101,7 +106,7 @@ first two, engine="macro" for the third):
   * SpGEMMConfig.precision "high" and "default" beside "highest" (phase
     precision_path, run_benchmark at each, repeat 2): wandering64-1M as
     macro (K4 interactive, K5 steady), pairbands-500k as macro (K4) and
-    through engine="fused" (the Tile16 tier's torch ops), and the macro
+    through engine="fused" (the Tile16 kernel at the mode), and the macro
     ring as a 4-rank plan of wandering64-1M replayed on the card (K4 a
     stage at the precision, held like sharded_ranks' to the fresh-form
     composition); C_nnz and structure equal the "highest" run's, sorted
@@ -114,6 +119,14 @@ first two, engine="macro" for the third):
     child process: its summary line has bench.py's keys, n_matrices 4 and
     no "partial", and every matrix's C_nnz is the one on record.
 
+The Tile16 kernel's two entries are held on pairbands-500k's stream in
+phase tile16_kernel_check (every form: values within the dtype's bound,
+counts bit for bit, two launches bit-equal, the accumulate form into a C
+with -0.0, +-Inf and NaN in every tile old + partial under == with the
+tiles without pairs bit for bit, and at "high" / "default" equal to itself
+at "highest" on pre-rounded tables); their rows (tile16_accumulate_pairs,
+_f64, _acc) are timed at that stream and at the 4-rank Tile16 ring's
+largest accumulating stage, beside torch.bmm over the pre-gathered pairs.
 Beside each path it times every kernel entry at the largest shape its path
 gives it, beside its bound (the Macro128 entries run on the tensor cores
 with a 3xTF32 split: their rows carry the tensor-core bound too; the
@@ -141,8 +154,8 @@ scripts/pallas_probe3.py), which no path runs.
 With --profile the script instead shows where one matrix's steady multiply
 spends its time (with --engine fused, pairbands-500k's steady Tile16
 multiply, with the eager step's device time split into the symbolic phase,
-the accumulation's gathers, bmm, index_add_ and the rest, and the
-structure functions) (with --graph: the eager multiply and its CUDA graph
+the accumulation's Tile16 kernel and the rest, and the structure
+functions) (with --graph: the eager multiply and its CUDA graph
 replay, in turns): the host-clock time per multiply (synchronising after each
 one, and only once after a batch) with the kernel launches counted per
 multiply, and a torch.profiler pass that gives device-busy time, the idle
@@ -190,6 +203,7 @@ from pem_spgemm_tpu_torch.ops import macro as M
 from pem_spgemm_tpu_torch.ops import macro_kernels as mk
 from pem_spgemm_tpu_torch.ops import segment_sort as ss
 from pem_spgemm_tpu_torch.ops import stencil as st
+from pem_spgemm_tpu_torch.ops import tile16_kernels as tk
 from pem_spgemm_tpu_torch.ops.convert import coo_to_macro, coo_to_tiled
 from pem_spgemm_tpu_torch.ops.fixed import (MacroPlan, StencilMacroPlan,
                                             make_plan)
@@ -280,6 +294,7 @@ def reset_launch_counts():
     ss.reset_launch_counts()
     dk.reset_launch_counts()
     mk.reset_launch_counts()
+    tk.reset_launch_counts()
     pr.reset_launch_counts()
     graphs.reset_replayed()
 
@@ -3772,13 +3787,16 @@ def phase_f64_kernels(kept, check_err):
 
 
 # --------------------------------------------------------------------------
-# the Tile16 tier (fused and masks engines; no kernel of this package) and
-# the persistence of converted operands
+# the Tile16 tier (fused and masks engines, the Tile16 kernel) and the
+# persistence of converted operands
 
 TILE16_MATRIX = "pairbands-500k"
 TILE16_RUNS = (("fused", torch.float32), ("masks", torch.float32),
                ("fused", torch.float64), ("fused", torch.bfloat16))
 TILE16_SYNCS = 3        # size feedbacks of an interactive Tile16 multiply
+# each tile16_path run's kernel launches (wrapper and replayed; counts set
+# to 0 just before the run, read just after), by run: the rows' counts
+TILE16_RUN_LAUNCHES = {}
 
 
 def tile16_config(engine, dtype, **kw):
@@ -3821,11 +3839,11 @@ def hold_bound(vals, want, mag, rtol, atol, what):
     return over
 
 
-def tile16_hold_replay(res, cfg, coo, ref, what):
+def tile16_hold_replay(res, cfg, coo, ref, what, entry):
     """The steady plan of this run, on freshly converted operands: a replay
-    of its CUDA graph against the eager spgemm_fixed.  Structure bit for
-    bit; values within the float32 bound (index_add_ adds with atomics, so
-    the accumulation order is not fixed), float64 within 1e-12 * sum|a*b|.
+    of its CUDA graph against the eager spgemm_fixed, bit for bit, values
+    too (the Tile16 kernel sums a C tile's pairs in stream order: the same
+    bits at every launch); each replay counts one launch of ``entry``.
     Returns the plan's own check against scipy (its values are in the
     accumulation dtype) and the replay's record."""
     from pem_spgemm_tpu_torch.ops.fixed import SpGEMMPlan
@@ -3837,7 +3855,8 @@ def tile16_hold_replay(res, cfg, coo, ref, what):
     graphs.reset_replayed()
     rep = plan.run(a, b)
     rep_again = plan.run(a, b)
-    if graphs.REPLAYED != {"spgemm_fixed": 2} or rep_again[6] is not rep[6]:
+    if graphs.REPLAYED != {"spgemm_fixed": 2, entry: 2} \
+            or rep_again[6] is not rep[6]:
         raise AssertionError(f"{what}: replays counted {graphs.REPLAYED}")
     eager = plan.multiply(a, b)
     if bool(rep[8]) or bool(eager[8]):
@@ -3845,7 +3864,10 @@ def tile16_hold_replay(res, cfg, coo, ref, what):
     for i, field in enumerate(("c_tile_row", "c_tile_col", "cmask", "cptr",
                                "c_rowcol", "c_elem_tile", "c_vals",
                                "c_nnz")):
-        if field != "c_vals" and not torch.equal(rep[i], eager[i]):
+        x, y = rep[i], eager[i]
+        if field == "c_vals":               # in the accumulation dtype
+            x, y = int_view(x), int_view(y)
+        if not torch.equal(x, y):
             raise AssertionError(f"{what}: replay {field} differs from the "
                                  "eager step")
     n = int(rep[7])
@@ -3863,7 +3885,7 @@ def tile16_hold_replay(res, cfg, coo, ref, what):
         plan=dict(p_cap=plan.p_cap, c_cap=plan.c_cap,
                   c_nnz_cap=plan.c_nnz_cap),
         replay_structure_bit_equal=True,
-        replay_values_bit_equal=bool(torch.equal(rep[6], eager[6])),
+        replay_values_bit_equal=True,
         replay_vs_eager_max_abs=float(np.abs(rv - ev).max()),
         replay_vs_eager_worst_over_bound=hold_bound(
             rv, ev, mag, rtol, atol, f"{what} replay against eager"),
@@ -3906,7 +3928,11 @@ def phase_tile16_path(ref, ref_bf16, dia_steady_ms):
     steady tiers replay one CUDA graph (ops.graphs.REPLAYED moves, no
     kernel wrapper does); the replay against the eager step; exactly
     TILE16_SYNCS host syncs in an interactive multiply.  Beside each run,
-    the DIA engine's steady time on the same matrix (phase dia_path)."""
+    the DIA engine's steady time on the same matrix (phase dia_path).  Every
+    run launches the Tile16 kernel (the float64 run its float64 entry) and
+    nothing else of this package, and its replays count the kernel's
+    launches recorded at capture; the replay's values are bit-equal to the
+    eager step's."""
     from pem_spgemm_tpu_torch.utils.timing import PhaseTimers
     name = TILE16_MATRIX
     want_nnz = DIA_RECORDED[name][0]
@@ -3921,12 +3947,14 @@ def phase_tile16_path(ref, ref_bf16, dia_steady_ms):
         rec, res = run_benchmark(coo, name, cfg, verbose=False)
         run_s = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() / 2**30
-        wrappers = nonzero(path_launches({**ss.LAUNCHES, **dk.LAUNCHES,
-                                          **mk.LAUNCHES}))
+        wrappers = nonzero(all_counts())
         replays = dict(graphs.REPLAYED)
-        if wrappers or set(replays) != {"spgemm_fixed"}:
+        entry = TILE16_ENTRY[dtype]
+        if set(wrappers) != {entry} \
+                or set(replays) != {"spgemm_fixed", entry}:
             raise AssertionError(f"{what}: kernel launches {wrappers}, "
                                  f"replays {replays}")
+        TILE16_RUN_LAUNCHES[what] = wrappers
         if res.engine != engine or res.c_nnz != want_nnz \
                 or rec.c_nnz != want_nnz:
             raise AssertionError(f"{what}: engine {res.engine}, C_nnz "
@@ -3973,7 +4001,7 @@ def phase_tile16_path(ref, ref_bf16, dia_steady_ms):
                                  f"interactive multiply, expected "
                                  f"{TILE16_SYNCS}")
         del a, b, res2
-        replay = tile16_hold_replay(res, cfg, coo, r, what)
+        replay = tile16_hold_replay(res, cfg, coo, r, what, entry)
         del res
         torch.cuda.empty_cache()
         out[what] = dict(times_ms=record_times(rec), peak_mem_gb=peak)
@@ -4041,6 +4069,441 @@ def phase_persist():
                   "(tests/test_torch_persist.py) cover their round trip")
 
 
+# --------------------------------------------------------------------------
+# the Tile16 accumulation kernel (ops/tile16_kernels.py): both entries,
+# every form, held on pairbands-500k's stream; its rows of the kernels line
+
+TILE16_SOURCE = "pem_spgemm_tpu_torch/csrc/tile16_accumulate.cu"
+TILE16_REPLACES = ("none: pem_spgemm_tpu/ops/numeric.py:58 "
+                   "accumulate_fused_flat (and :103 accumulate_dense, "
+                   "parallel/sharded.py:211 _local_numeric) run in XLA, "
+                   "no Pallas kernel")
+TILE16_FLOP = 2 * 16 ** 3       # operations of one 16x16x16 product
+TILE16_ENTRY = {torch.float32: "tile16_accumulate_pairs",
+                torch.bfloat16: "tile16_accumulate_pairs",
+                torch.float64: "tile16_accumulate_pairs_f64"}
+
+
+def tile16_stream(coo, dtype=torch.float32):
+    """A @ A's Tile16 pair stream on the card as the fused engine builds it
+    (SpGEMMConfig's defaults): (a, b, a_idx, b_idx, c_tile_id, c_cap,
+    n_pairs)."""
+    from pem_spgemm_tpu_torch.config import round_up_bucket, round_up_pow2
+    from pem_spgemm_tpu_torch.ops.scanops import can_pack
+    a = coo_to_tiled(coo, dtype=dtype)
+    b = coo_to_tiled(coo, dtype=dtype, with_tmasks=True)
+    offsets = symbolic.pair_counts(a.tile_col, b.tile_rowptr, a.ntiles)
+    n_pairs = int(offsets[-1])
+    p_cap = max(SpGEMMConfig().numeric_chunk, round_up_pow2(n_pairs))
+    _r, _c, a_idx, b_idx, seg, cnt = symbolic.expand_pairs(
+        offsets, a.tile_row, a.tile_col, b.tile_rowptr, b.tile_col, n_pairs,
+        p_cap, can_pack(a.n_tile_rows, b.n_tile_cols))
+    return a, b, a_idx, b_idx, seg, round_up_bucket(int(cnt)), n_pairs
+
+
+def tile16_hold(got, want, mag, what, tiles=1 << 16):
+    """Values of the kernel against its plain version: the same positions
+    NaN and +-Inf of the same sign, finite values within the dot-product
+    bound of their dtype (dot_bound of sum|a*b|, ``mag``).  Returns the max
+    abs error."""
+    worst, err_max = 0.0, 0.0
+    for lo in range(0, got.shape[0], tiles):
+        g, w, m = got[lo:lo + tiles], want[lo:lo + tiles], mag[lo:lo + tiles]
+        if not (torch.equal(torch.isnan(g), torch.isnan(w))
+                and torch.equal(torch.isposinf(g), torch.isposinf(w))
+                and torch.equal(torch.isneginf(g), torch.isneginf(w))):
+            raise AssertionError(f"{what}: NaN / Inf positions differ from "
+                                 "the plain version's")
+        fin = torch.isfinite(w)
+        err = torch.where(fin, (g - w).abs(), 0)
+        bound, label = dot_bound(torch.where(fin, m, 0))
+        over = float((err / bound).max()) if err.numel() else 0.0
+        if not over <= 1.0:
+            raise AssertionError(f"{what}: values exceed the {label} "
+                                 f"dot-product bound by {over}x")
+        worst = max(worst, over)
+        err_max = max(err_max, float(err.max()) if err.numel() else 0.0)
+    note_over(what.split(",")[0], worst)
+    return err_max
+
+
+def same_values(got, want):
+    """Equal under == (NaN where NaN)."""
+    return bool(((got == want) | (torch.isnan(got) & torch.isnan(want)))
+                .all())
+
+
+def tile16_prior(c_cap, dtype, seed):
+    """A C (c_cap, 16, 16) on the card that a stage adds into: normal
+    values with -0.0, +-Inf and NaN in every tile."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    c = torch.randn((c_cap, 16, 16), generator=g, device=DEV, dtype=dtype)
+    flat = c.view(c_cap, 256)
+    rows = torch.arange(c_cap, device=DEV)[:, None]
+    pos = torch.randint(0, 64, (c_cap, 4), generator=g, device=DEV) \
+        + torch.arange(4, device=DEV) * 64      # four distinct positions
+    flat[rows, pos] = torch.tensor([-0.0, float("inf"), float("-inf"),
+                                    float("nan")], dtype=dtype, device=DEV)
+    return c
+
+
+def hold_tile16_accumulate(got, fresh, prior, live, what):
+    """The accumulate form (into a copy of ``prior``) against the parent's
+    composition, the fresh form's output added by torch: the tiles without
+    pairs bit for bit the prior's, the others old + partial under ==."""
+    dead = ~live
+    if not torch.equal(int_view(got[dead]), int_view(prior[dead])):
+        raise AssertionError(f"{what}: a tile without pairs changed")
+    comp = prior[live] + fresh[live]
+    if not same_values(got[live], comp):
+        raise AssertionError(f"{what}: values differ from old + partial")
+
+
+def thinned(seg, keep_every=5, drop=3):
+    """The stream with the pairs of every C tile t % keep_every == drop
+    taken out (padding appended): interior tiles without pairs."""
+    keep = (seg % keep_every != drop) & (seg < torch.iinfo(torch.int32).max)
+    n = int(keep.sum())
+    out = torch.full_like(seg, torch.iinfo(torch.int32).max)
+    out[:n] = seg[keep]
+    return keep, n, out
+
+
+def engineered_tile16_cases(worst):
+    """Both entries on engineered tiles: +-Inf, NaN, -0.0 and subnormal
+    operands (no value near the overflow threshold, where the order of a
+    sum decides whether it overflows), C tiles of 3, 1, 0, 2 and 1 pairs
+    in a c_cap of 7 (the last two and tile 2 without pairs), padding at
+    INT32_MAX; the fresh form with counts and the accumulate form into a C
+    with -0.0, +-Inf and NaN in every tile, against the plain version's
+    NaN positions, Inf signs, counts bit for bit and the dot-product bound.
+    Returns the count of cases."""
+    from pem_spgemm_tpu_torch.ops import numeric as N
+    g = torch.Generator(device=DEV).manual_seed(23)
+    a = torch.randn((6, 256), generator=g, device=DEV)
+    b = torch.randn((5, 256), generator=g, device=DEV)
+    for t, x in ((a, 0), (b, 1)):
+        u = torch.rand(t.shape, generator=g, device=DEV)
+        t.masked_fill_(u < 0.3, 0.0)
+        t.masked_fill_((u >= 0.3) & (u < 0.35), -0.0)
+        t.masked_fill_((u >= 0.35) & (u < 0.38), 1e-40)     # subnormal
+    a[1, 5], a[2, 17], b[3, 40] = float("inf"), float("-inf"), float("nan")
+    a[4, 0:16] = 0.0                    # a row of A tile 4 all zeros
+    pairs = [(0, 0, 0), (1, 1, 0), (2, 2, 0), (3, 3, 1), (4, 4, 3),
+             (5, 3, 3), (1, 2, 4)]
+    pad = 256 - len(pairs)
+    cols = torch.tensor(pairs, dtype=torch.int32, device=DEV).T
+    ai, bi, seg = (torch.cat([x, torch.full((pad,), f, dtype=torch.int32,
+                                            device=DEV)]).contiguous()
+                   for x, f in zip(cols, (0, 0, symbolic.INT32_MAX)))
+    live = stream_tiles(seg, 7)
+    cases = 0
+    for dtype in (torch.float32, torch.float64):
+        key = TILE16_ENTRY[dtype]
+        at, bt = a.to(dtype), b.to(dtype)
+        args = (ai, bi, seg, 7, 256, dtype)
+        got = tk.accumulate_fused_flat(at, bt, *args)
+        want = N.fused_flat_plain(at, bt, *args)
+        mag = N.fused_flat_plain(at.abs(), bt.abs(), *args)[0]
+        if not torch.equal(got[1], want[1]):
+            raise AssertionError(f"engineered, {key}: counts differ")
+        worst[key] = max(worst[key], tile16_hold(
+            got[0], want[0], mag, f"{key}, engineered"))
+        ad, bd = at.view(-1, 16, 16), bt.view(-1, 16, 16)
+        prior = tile16_prior(7, dtype, 29)
+        fresh = tk.accumulate_dense(ad, bd, *args)
+        into = tk.accumulate_dense(ad, bd, *args, out=prior.clone())
+        hold_tile16_accumulate(into, fresh, prior, live,
+                               f"{key}_acc, engineered")
+        plain = N.dense_plain(ad, bd, *args, out=prior.clone())
+        worst[key + "_acc"] = max(worst[key + "_acc"], tile16_hold(
+            into, plain, mag.view(-1, 16, 16)
+            + torch.nan_to_num(prior.abs(), 0.0, 0.0),
+            f"{key}_acc, engineered"))
+        cases += 3
+    return cases
+
+
+def phase_tile16_kernel_check():
+    """The Tile16 kernel on engineered tiles (engineered_tile16_cases) and
+    on pairbands-500k's stream (3.1 M pairs, c_cap 1,048,576 in the
+    interactive multiply), against its plain version on the card: the fresh
+    form with counts at float32, float64 and bfloat16 (values within the
+    dtype's dot-product bound, counts bit for bit, two launches bit-equal),
+    the fresh values-only form bit-equal to the fused form's values, the
+    accumulate form at float32 and float64 into a C with -0.0, +-Inf and
+    NaN in every tile on a stream whose every fifth tile has no pairs (the
+    tiles without pairs bit for bit, the others equal under == to the
+    fresh form plus a torch add, and within the bound of the plain
+    accumulate form), and at "high" / "default" the entry bit-equal to
+    itself at "highest" on tables rounded beforehand, counts those of the
+    raw tables, values within the bound of the plain version at the mode.
+    Returns the max abs errors by entry."""
+    from pem_spgemm_tpu_torch.ops import numeric as N
+    t0 = time.perf_counter()
+    coo = banded_device(**DIA_MATRICES[TILE16_MATRIX])
+    chunk = SpGEMMConfig().numeric_chunk
+    worst = {k: 0.0 for k in tk.LAUNCHES}
+    worst.update({prec_key("tile16_accumulate_pairs", q): 0.0
+                  for q in LOWER_PRECISIONS})
+    info, cases = {}, engineered_tile16_cases(worst)
+    for dtype in (torch.float32, torch.float64, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        acc = torch.float64 if dtype == torch.float64 else torch.float32
+        key = TILE16_ENTRY[dtype]
+        a, b, ai, bi, seg, c_cap, n_pairs = tile16_stream(coo, dtype)
+        af, bf = a.dense_flat(), b.dense_flat()
+        args = (ai, bi, seg, c_cap, chunk, acc)
+        got = tk.accumulate_fused_flat(af, bf, *args)
+        again = tk.accumulate_fused_flat(af, bf, *args)
+        torch.cuda.synchronize()
+        if not (torch.equal(int_view(got[0]), int_view(again[0]))
+                and torch.equal(got[1], again[1])):
+            raise AssertionError(f"{name}: two launches differ")
+        del again
+        want = N.fused_flat_plain(af, bf, *args)
+        if not torch.equal(got[1], want[1]):
+            raise AssertionError(f"{name}: counts differ from the plain "
+                                 "version's")
+        mag = N.fused_flat_plain(af.abs(), bf.abs(), *args)[0]
+        worst[key] = max(worst[key], tile16_hold(
+            got[0], want[0], mag, f"{key}, fused, {name}"))
+        del want
+        cases += 3
+        # the values-only form on the masks engine's dense tables
+        ad = N.densify_tiles(a.vals, a.rowcol, a.elem_tile, a.tile_cap)
+        bd = N.densify_tiles(b.vals, b.rowcol, b.elem_tile, b.tile_cap)
+        dense = tk.accumulate_dense(ad, bd, *args)
+        if not torch.equal(int_view(dense.view(c_cap, 256)),
+                           int_view(got[0])):
+            raise AssertionError(f"{name}: the values-only form differs "
+                                 "from the fused form's values")
+        cases += 1
+        info[name] = dict(pairs=n_pairs, p_cap=int(ai.numel()), c_cap=c_cap,
+                          a_tiles=a.ntiles)
+        if dtype == torch.float32:
+            for q in LOWER_PRECISIONS:
+                got_q = tk.accumulate_fused_flat(af, bf, *args, precision=q)
+                pre = tk.accumulate_fused_flat(
+                    M.round_operands(af, q), M.round_operands(bf, q), *args)
+                if not (torch.equal(int_view(got_q[0]), int_view(pre[0]))
+                        and torch.equal(got_q[1], got[1])):
+                    raise AssertionError(f"{q}: the entry differs from "
+                                         "itself at highest on rounded "
+                                         "tables, or its counts from the "
+                                         "raw tables'")
+                del pre
+                want_q = N.fused_flat_plain(af, bf, *args, precision=q)
+                kq = prec_key("tile16_accumulate_pairs", q)
+                worst[kq] = max(worst[kq], tile16_hold(
+                    got_q[0], want_q[0], mag, f"{kq}, fused"))
+                del got_q, want_q
+                cases += 2
+        del got, mag
+        if dtype != torch.bfloat16:
+            # the accumulate form on a stream with interior tiles without
+            # pairs
+            keep, n_keep, tseg = thinned(seg)
+            tai = torch.zeros_like(ai)
+            tbi = torch.zeros_like(bi)
+            tai[:n_keep], tbi[:n_keep] = ai[keep], bi[keep]
+            targs = (tai, tbi, tseg, c_cap, chunk, acc)
+            live = stream_tiles(tseg, c_cap)
+            prior = tile16_prior(c_cap, acc, 81)
+            fresh = tk.accumulate_dense(ad, bd, *targs)
+            into = tk.accumulate_dense(ad, bd, *targs, out=prior.clone())
+            torch.cuda.synchronize()
+            akey = key + "_acc"
+            hold_tile16_accumulate(into, fresh, prior, live,
+                                   f"{akey}, {name}")
+            plain = N.dense_plain(ad, bd, *targs, out=prior.clone())
+            tmag = N.dense_plain(ad.abs(), bd.abs(), *targs)
+            tmag = tmag + torch.nan_to_num(prior.abs(), 0.0, 0.0)
+            worst[akey] = max(worst[akey], tile16_hold(
+                into, plain, tmag, f"{akey}, {name}"))
+            info[name].update(acc_pairs=n_keep,
+                              acc_tiles_with_pairs=int(live.sum()))
+            del prior, fresh, into, plain, tmag, tai, tbi, tseg, live
+            cases += 3
+        del a, b, af, bf, ad, bd, dense, ai, bi, seg
+        torch.cuda.empty_cache()
+    emit("tile16_kernel_check", matrix=TILE16_MATRIX, cases=cases,
+         max_abs_err=worst, streams=info,
+         worst_over_bound={k: WORST_OVER.get(k) for k in worst},
+         bound="abs err <= 1e-5 * sum|a*b| + 1e-6 (float32 dot product), "
+               "<= 1e-12 * sum|a*b| (float64); counts bit for bit; the "
+               "accumulate form old + partial under ==, tiles without "
+               "pairs bit for bit", seconds=time.perf_counter() - t0)
+    return worst
+
+
+def tile16_bounds(a_val, b_val, ai, bi, n_pairs, c_write, c_read, counts):
+    """Bounds of the kernel's work.  Operations: 2 * 16^3 a pair, the
+    values' products at the FP32 rate (FP64 for float64 tiles: the card's
+    peak, on the tensor cores; the kernel's DFMA runs at half of it); the
+    counts are bit operations and are not counted.  Bytes: each distinct
+    operand tile read once (A and B are two tables), ``c_write`` C tiles
+    written once (values, and counts with ``counts``), ``c_read`` read."""
+    elem = a_val.element_size()
+    ops = TILE16_FLOP * n_pairs
+    operand_tiles = int(torch.unique(ai[:n_pairs]).numel()
+                        + torch.unique(bi[:n_pairs]).numel())
+    nbytes = 256 * (operand_tiles * elem + c_write * (elem + 4 * counts)
+                    + c_read * elem)
+    rate, rate_name = (FP64_OPS_PER_S, "FP64 67 TFLOP/s") \
+        if elem == 8 else (FP32_OPS_PER_S, "FP32 67 TFLOP/s")
+    b_o, b_b = ops / rate, nbytes / HBM_BYTES_PER_S
+    return {"bound_ms": max(b_o, b_b) * 1e3,
+            "bound_by": "operations" if b_o >= b_b else "bytes",
+            "bound_ops_ms": b_o * 1e3, "bound_bytes_ms": b_b * 1e3,
+            "operations": ops, "bytes": nbytes,
+            "operand_tiles": operand_tiles, "rate": rate_name}
+
+
+def bmm16_ms(a_val, b_val, ai, bi, per=1 << 20):
+    """ms of torch.bmm over the pre-gathered (P, 16, 16) operands (the
+    tiles' dtype), the products only (no gather, no sum per C tile), taken
+    ``per`` pairs at a time.  A yardstick: the port never calls it on this
+    path."""
+    M.require_full_fp32()
+    total = 0.0
+    for lo in range(0, ai.numel(), per):
+        ad = a_val[ai[lo:lo + per].long()].view(-1, 16, 16)
+        bd = b_val[bi[lo:lo + per].long()].view(-1, 16, 16)
+        total += time_ms(lambda: torch.bmm(ad, bd), 3)
+        del ad, bd
+    return total
+
+
+def tile16_rows(check_err):
+    """The kernels-line rows of the kernel's fresh form at pairbands-500k's
+    stream: float32 with counts (the fused engine; the values-only form,
+    the masks engine's, and "high" / "default" timed beside it) and float64
+    with counts.  Launches: phase tile16_path's runs."""
+    from pem_spgemm_tpu_torch.ops import numeric as N
+    coo = banded_device(**DIA_MATRICES[TILE16_MATRIX])
+    chunk = SpGEMMConfig().numeric_chunk
+    rows = []
+    for dtype in (torch.float32, torch.float64):
+        acc = dtype
+        name = TILE16_ENTRY[dtype]
+        a, b, ai, bi, seg, c_cap, n_pairs = tile16_stream(coo, dtype)
+        af, bf = a.dense_flat(), b.dense_flat()
+        args = (ai, bi, seg, c_cap, chunk, acc)
+        ms = time_ms(lambda: tk.accumulate_fused_flat(af, bf, *args))
+        row = {
+            "name": name, "kernel": "Tile16" + ("-f64" if dtype ==
+                                                 torch.float64 else ""),
+            "route": "cuda", "source": TILE16_SOURCE,
+            "replaces": TILE16_REPLACES,
+            "launches": sum(v.get(name, 0)
+                            for v in TILE16_RUN_LAUNCHES.values()),
+            "max_abs_err": max(check_err.get(name, 0.0),
+                               check_err.get(name + "_acc", 0.0)),
+            "ms": ms,
+            "plain_ms": time_ms(lambda: N.fused_flat_plain(af, bf, *args),
+                                2),
+            **tile16_bounds(af, bf, ai, bi, n_pairs, c_cap, 0, True),
+            "library_ms": bmm16_ms(af, bf, ai[:n_pairs], bi[:n_pairs]),
+            "library_covers": f"torch.bmm in {str(dtype)[6:]} over the "
+                              "pre-gathered (P, 16, 16) operands in chunks "
+                              "of 2^20 pairs: the products only, without "
+                              "gather, counts and sum per C tile",
+            "runs_on": "FP64 FMA (DFMA)" if dtype == torch.float64
+                       else "FP32 FMA",
+            "form": "fresh, values and counts (the fused engine)",
+            "matrix": TILE16_MATRIX, "pairs": n_pairs,
+            "p_cap": int(ai.numel()), "c_cap": c_cap, "a_tiles": a.ntiles,
+            "launches_by_run": {k: v.get(name, 0) for k, v in
+                                TILE16_RUN_LAUNCHES.items()}}
+        ad = N.densify_tiles(a.vals, a.rowcol, a.elem_tile, a.tile_cap)
+        bd = N.densify_tiles(b.vals, b.rowcol, b.elem_tile, b.tile_cap)
+        row["values_only_ms"] = time_ms(
+            lambda: tk.accumulate_dense(ad, bd, *args))
+        row["values_only_plain_ms"] = time_ms(
+            lambda: N.dense_plain(ad, bd, *args), 2)
+        del ad, bd
+        if dtype == torch.float32:
+            for q in LOWER_PRECISIONS:
+                row[f"ms_at_{q}"] = time_ms(lambda: tk.accumulate_fused_flat(
+                    af, bf, *args, precision=q))
+                row[f"max_abs_err_at_{q}"] = check_err.get(
+                    prec_key(name, q), 0.0)
+        rows.append(row)
+        del a, b, af, bf, ai, bi, seg
+        torch.cuda.empty_cache()
+    return rows
+
+
+def tile16_acc_row(plans, plan1, check_err):
+    """The row of the float32 entry's accumulate form, timed on the 4-rank
+    Tile16 ring's largest accumulating stage (acc_stage) into a C with
+    -0.0, +-Inf and NaN in every tile, beside its plain version, the fresh
+    form on the same stream and torch.bmm over the stage's pairs; and on
+    the world-size-1 ring's stream (every C tile has pairs), into the same
+    C as the fresh form writes."""
+    from pem_spgemm_tpu_torch.ops import numeric as N
+    from pem_spgemm_tpu_torch.parallel import sharded as sh
+    name = "tile16_accumulate_pairs_acc"
+    d, s = acc_stage(plans)
+    p = plans[d]
+    b = list(sh.replay_chunks(plans, d))[s]
+    args = (p.pairs_a[s], p.pairs_b[s], p.seg[s], p.c_cap,
+            p.pairs_a.shape[1], torch.float32)
+    n_pairs = p.stage_pairs[s]
+    live = stream_tiles(p.seg[s], p.c_cap)
+    tiles = int(live.sum())
+    prior = tile16_prior(p.c_cap, torch.float32, 91)
+    fresh = tk.accumulate_dense(p.a_dense, b, *args)
+    into = tk.accumulate_dense(p.a_dense, b, *args, out=prior.clone())
+    hold_tile16_accumulate(into, fresh, prior, live, f"{name}, ring stage")
+    plain = N.dense_plain(p.a_dense, b, *args, out=prior.clone())
+    mag = N.dense_plain(p.a_dense.abs(), b.abs(), *args) \
+        + torch.nan_to_num(prior.abs(), 0.0, 0.0)
+    err = tile16_hold(into, plain, mag, f"{name}, ring stage")
+    del fresh, into, plain, mag
+    c = prior.clone()
+    ms = time_ms(lambda: tk.accumulate_dense(p.a_dense, b, *args, out=c))
+    s1 = next(i for i, x in enumerate(plan1.stage_pairs) if x)
+    args1 = (plan1.pairs_a[s1], plan1.pairs_b[s1], plan1.seg[s1],
+             plan1.c_cap, plan1.pairs_a.shape[1], torch.float32)
+    c1 = tk.accumulate_dense(plan1.a_dense, plan1.b_dense, *args1)
+    point = {"pairs": plan1.stage_pairs[s1], "c_cap": plan1.c_cap,
+             "tiles_with_pairs": int(stream_tiles(plan1.seg[s1],
+                                                  plan1.c_cap).sum()),
+             "ms": time_ms(lambda: tk.accumulate_dense(
+                 plan1.a_dense, plan1.b_dense, *args1, out=c1), 10),
+             "fresh_form_ms": time_ms(lambda: tk.accumulate_dense(
+                 plan1.a_dense, plan1.b_dense, *args1), 10)}
+    row = {
+        "name": name, "kernel": "Tile16 accumulate form", "route": "cuda",
+        "source": TILE16_SOURCE, "replaces": TILE16_REPLACES,
+        "jax_ring_stage": "pem_spgemm_tpu/parallel/sharded.py:225 "
+                          "(c_dense.at[sg].add(prod))",
+        "launches": None, "max_abs_err": max(err, check_err.get(name, 0.0)),
+        "ms": ms,
+        "plain_ms": time_ms(lambda: N.dense_plain(p.a_dense, b, *args,
+                                                  out=c), 2),
+        **tile16_bounds(p.a_dense, b, p.pairs_a[s], p.pairs_b[s], n_pairs,
+                        tiles, tiles, False),
+        "library_ms": bmm16_ms(p.a_dense, b, p.pairs_a[s][:n_pairs],
+                               p.pairs_b[s][:n_pairs]),
+        "library_covers": "torch.bmm over the stage's pre-gathered "
+                          "(P, 16, 16) operands: the products only",
+        "fresh_form_ms": time_ms(lambda: tk.accumulate_dense(
+            p.a_dense, b, *args)),
+        "matrix": TILE16_MATRIX, "ring": f"{len(plans)} ranks replayed",
+        "rank": d, "stage": s, "pairs": n_pairs, "tiles_with_pairs": tiles,
+        "c_cap": p.c_cap, "at_world_size_1_stream": point,
+        "timed": "one launch into the rank's C (c_cap tiles), the stage's "
+                 "stream as the ring hands it over; fresh_form_ms: the "
+                 "fresh values-only form on the same stream (it writes all "
+                 "c_cap tiles)"}
+    del c, c1, prior
+    torch.cuda.empty_cache()
+    return row
+
+
 # the Tile16 step's functions, as ops.fixed.spgemm_fixed calls them, by the
 # share of a steady multiply they stand for in --profile
 TILE16_SCOPES = {
@@ -4052,7 +4515,8 @@ TILE16_SCOPES = {
     "structure.extract_values": (("numeric", "extract_values"),),
 }
 # kernels of the accumulation, by what launches them
-ACCUMULATE_KERNELS = (("bmm", r"gemm|cutlass|xmma|Kernel2"),
+ACCUMULATE_KERNELS = (("tile16_kernel", r"tile16_kernel"),
+                      ("bmm", r"gemm|cutlass|xmma|Kernel2"),
                       ("index_add_", r"indexFunc|index_add"),
                       ("gathers", r"index|gather"))
 
@@ -4085,8 +4549,10 @@ def tile16_scoped(fn):
 
 def tile16_split(multiply, n):
     """Device ms a multiply by share (symbolic, accumulate split into
-    gathers / bmm / index_add_ / other, structure), from torch.profiler
-    over n eager multiplies with the shares' scopes."""
+    the Tile16 kernel / other, structure), from torch.profiler over n eager
+    multiplies with the shares' scopes.  The kernel is launched through
+    ctypes, not by a torch op, so the profiler ties it to no scope: its
+    share is its device time by name."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -4112,6 +4578,9 @@ def tile16_split(multiply, n):
                             ACCUMULATE_KERNELS if re.search(pat, kname)),
                            "accumulate.other")
             split[key] = split.get(key, 0.0) + us / 1e3 / n
+    split["accumulate.tile16_kernel"] = sum(
+        e.self_device_time_total for e in prof.key_averages()
+        if re.search(ACCUMULATE_KERNELS[0][1], e.key)) / 1e3 / n
     return split
 
 
@@ -4182,7 +4651,8 @@ def add_path_launches(path, launches):
 
 
 def all_counts():
-    return path_launches({**ss.LAUNCHES, **dk.LAUNCHES, **mk.LAUNCHES})
+    return path_launches({**ss.LAUNCHES, **dk.LAUNCHES, **mk.LAUNCHES,
+                          **tk.LAUNCHES})
 
 
 def product_rows(coo, rows=None, aat=False, bf16=False):
@@ -4899,9 +5369,51 @@ def check_f32_rows(got, want, what):
     return over
 
 
-def sharded_tile16_runs(ref, mesh):
-    """pairbands-500k: the Tile16 ring at world size 1 over NCCL, then the
-    4-rank replay; scipy's sorted COO, values within the float32 bound."""
+def tile16_composition(p, chunks):
+    """(values (nnz_cap,), ms, peak GB) of a Tile16 ring rank composed as
+    the parent composed it, from the kernel's fresh form: a zero C, each
+    stage's fresh output added by torch, then the values at the rank's
+    structure (the script's reference for the ring, run after the path's
+    counts are read), with its time and its peak device memory above what
+    was allocated before it."""
+    from pem_spgemm_tpu_torch.ops import numeric as N
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    c = torch.zeros((p.c_cap, 16, 16), dtype=torch.float32, device=DEV)
+    for s, b in enumerate(chunks):
+        if p.stage_pairs[s]:
+            c += tk.accumulate_dense(p.a_dense, b, p.pairs_a[s],
+                                     p.pairs_b[s], p.seg[s], p.c_cap,
+                                     p.pairs_a.shape[1])
+    vals = N.extract_values(c, p.rowcol, p.elem_tile)
+    torch.cuda.synchronize()
+    return (vals, (time.perf_counter() - t0) * 1e3,
+            (torch.cuda.max_memory_allocated() - before) / 2**30)
+
+
+def check_tile16_ring_launches(launches, plans, what, runs=1):
+    """One kernel launch a stage with pairs (``runs`` times): the first of
+    each rank's in the fresh form, the others in the accumulate form, and
+    no other kernel of this package."""
+    stages, first = ring_stage_counts(plans)
+    want = nonzero({"tile16_accumulate_pairs": runs * first,
+                    "tile16_accumulate_pairs_acc": runs * (stages - first)})
+    if launches != want:
+        raise AssertionError(f"{what}: launches {launches}, {stages} "
+                             f"stages with pairs, {first} of them first")
+    return stages
+
+
+def sharded_tile16_runs(ref, mesh, check_err):
+    """pairbands-500k: the Tile16 ring at world size 1 over NCCL (one
+    fresh kernel launch), then the 4-rank replay (one launch a stage with
+    pairs: a rank's first in the fresh form, the others in the accumulate
+    form); scipy's sorted COO, values within the float32 bound, and each
+    rank's values equal under == to the composition the accumulate form
+    replaces (tile16_composition), timed beside it in this call.  Returns
+    the accumulate form's row."""
     from pem_spgemm_tpu_torch.parallel import sharded as sh
     name = TILE16_MATRIX
     want_nnz = DIA_RECORDED[name][0]
@@ -4911,46 +5423,87 @@ def sharded_tile16_runs(ref, mesh):
     reset_launch_counts()
     plan, plan_ms = synced_ms(lambda: sh.plan_sharded_spgemm(a, b, 1, 0))
     sh.sharded_numeric(plan, mesh)                   # first: warms up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
     vals, mul_ms = synced_ms(lambda: sh.sharded_numeric(plan, mesh))
-    (rows, cols, vals), asm_ms = synced_ms(
+    ring_peak = (torch.cuda.max_memory_allocated() - before) / 2**30
+    (rows, cols, vals_h), asm_ms = synced_ms(
         lambda: sh.assemble_sharded(plan, vals, mesh))
     launches = nonzero(all_counts())
     add_path_launches("sharded_path", launches)
-    if plan.c_nnz != want_nnz or launches:
-        raise AssertionError(f"tile16 ring: C_nnz {plan.c_nnz}, launches "
-                             f"{launches}")
-    _cancelled, over = check_coo(rows, cols, vals, ref, "tile16 ring")
+    stages = check_tile16_ring_launches(launches, [plan], "tile16 ring",
+                                        runs=2)
+    if plan.c_nnz != want_nnz:
+        raise AssertionError(f"tile16 ring: C_nnz {plan.c_nnz}")
+    _cancelled, over = check_coo(rows, cols, vals_h, ref, "tile16 ring")
+    comp, comp_ms, comp_peak = tile16_composition(plan, [plan.b_dense])
+    if not same_values(vals, comp):
+        raise AssertionError("tile16 ring: values differ from the "
+                             "composition's")
     emit("sharded_path", decomposition="tile16", matrix=name, world_size=1,
-         c_nnz=plan.c_nnz, checked_against="scipy, every entry",
-         values_worst_over_bound=over, launches=launches, plan_ms=plan_ms,
-         multiply_ms=mul_ms, assemble_ms=asm_ms)
-    del plan, rows, cols, vals
+         c_nnz=plan.c_nnz, checked_against="scipy, every entry; the "
+         "fresh-form-plus-torch-add composition under ==",
+         values_worst_over_bound=over, launches=launches,
+         stages_with_pairs=stages, plan_ms=plan_ms, multiply_ms=mul_ms,
+         ring_peak_mem_gb=ring_peak, composition_ms=comp_ms,
+         composition_peak_mem_gb=comp_peak, assemble_ms=asm_ms)
+    del rows, cols, vals, vals_h, comp
+    plan1 = plan
     torch.cuda.empty_cache()
     n = SHARDED_RANKS
-    reset_launch_counts()
     plans, plan_ms = [], []
     for d in range(n):
         p, ms = synced_ms(lambda: sh.plan_sharded_spgemm(a, b, n, d))
         plans.append(p)
         plan_ms.append(ms)
-    parts, times = [], []
+    for d in range(n):                              # warm-up, not counted
+        sh.replay_numeric(plans, d)
+    reset_launch_counts()
+    parts, num_ms, coo_ms, outs = [], [], [], []
     for d, p in enumerate(plans):
-        part, ms = synced_ms(lambda: sh.local_coo(
-            p, sh.replay_numeric(plans, d)))
+        v, ms = synced_ms(lambda: sh.replay_numeric(plans, d))
+        part, ms_coo = synced_ms(lambda: sh.local_coo(p, v))
+        outs.append(v)
         parts.append(part)
-        times.append(ms)
+        num_ms.append(ms)
+        coo_ms.append(ms_coo)
     launches = nonzero(all_counts())
+    add_path_launches("sharded_ranks", launches)
+    stages = check_tile16_ring_launches(launches, plans, "tile16 replay")
     rows, cols, vals = union_sorted(parts)
-    if len(rows) != want_nnz or launches:
-        raise AssertionError(f"tile16 replay: C_nnz {len(rows)}, launches "
-                             f"{launches}")
+    del parts
+    if len(rows) != want_nnz:
+        raise AssertionError(f"tile16 replay: C_nnz {len(rows)}")
     _cancelled, over = check_coo(rows.cpu().numpy(), cols.cpu().numpy(),
                                  vals.cpu().numpy(), ref, "tile16 replay")
+    del rows, cols, vals
+    comp_ms, comp_peak = [], []
+    for d, (p, got) in enumerate(zip(plans, outs)):
+        want, ms, peak = tile16_composition(p, sh.replay_chunks(plans, d))
+        if not same_values(got, want):
+            raise AssertionError(f"tile16 replay, rank {d}: values differ "
+                                 "from the composition's")
+        comp_ms.append(ms)
+        comp_peak.append(peak)
+    del outs
+    times = [x + y for x, y in zip(num_ms, coo_ms)]
     emit("sharded_ranks", decomposition="tile16", matrix=name, ranks=n,
-         c_nnz=len(rows), checked_against="scipy, every entry",
+         c_nnz=want_nnz, checked_against="scipy, every entry; each rank's "
+         "values against the fresh-form-plus-torch-add composition under ==",
          values_worst_over_bound=over, launches=launches,
+         stages_with_pairs=stages,
+         rank_stage_pairs=[list(p.stage_pairs) for p in plans],
          rank_pairs=[int(sum(p.stage_pairs)) for p in plans],
-         rank_plan_ms=plan_ms, rank_ms=times, load_balance=balance(times))
+         rank_c_cap=[p.c_cap for p in plans], rank_plan_ms=plan_ms,
+         rank_ms=times, rank_numeric_ms=num_ms, rank_local_coo_ms=coo_ms,
+         rank_composition_ms=comp_ms,
+         rank_composition_peak_mem_gb=comp_peak, load_balance=balance(times))
+    row = tile16_acc_row(plans, plan1, check_err)
+    row["launches"] = launches.get("tile16_accumulate_pairs_acc", 0)
+    del plans, plan1
+    torch.cuda.empty_cache()
+    return row
 
 
 def phase_sharded(coo_pl, want_pl, pairbands_ref, check_err=None):
@@ -4962,7 +5515,8 @@ def phase_sharded(coo_pl, want_pl, pairbands_ref, check_err=None):
     function in turn, its B chunks and halos read from the plan (two NCCL
     ranks cannot share one card; the exchange itself is carried by the
     gloo tests).  Returns the kernels-line rows of K4's accumulate form
-    at "highest" and in float64."""
+    at "highest" and in float64, and of the Tile16 kernel's accumulate
+    form."""
     from pem_spgemm_tpu_torch.parallel import distributed as PD
     t0 = time.perf_counter()
     PD.initialize(init_method=f"tcp://localhost:{free_port()}",
@@ -4977,7 +5531,8 @@ def phase_sharded(coo_pl, want_pl, pairbands_ref, check_err=None):
         torch.cuda.empty_cache()
         rows = sharded_macro_runs(mesh, check_err or {})
         torch.cuda.empty_cache()
-        sharded_tile16_runs(pairbands_ref, mesh)
+        rows.append(sharded_tile16_runs(pairbands_ref, mesh,
+                                        check_err or {}))
     finally:
         torch.distributed.destroy_process_group()
     torch.cuda.empty_cache()
@@ -5019,8 +5574,8 @@ def precision_runs(coo, name, cfg, check_values, want_entry):
     """run_benchmark at "highest", "high" and "default" (repeat 2): C_nnz and
     the structure (tile coordinates and flags, or the Tile16 arrays, on the
     card) of each lower precision equal to the "highest" run's, values held
-    by ``check_values(res, precision)``, the kernel ``want_entry`` (or
-    none, for the Tile16 tier) launched at each."""
+    by ``check_values(res, precision)``, the kernel ``want_entry``
+    launched at each."""
     ref = None
     for q in ("highest",) + LOWER_PRECISIONS:
         reset_launch_counts()
@@ -5032,7 +5587,7 @@ def precision_runs(coo, name, cfg, check_values, want_entry):
         if q != "highest":
             for k, v in launches.items():
                 PRECISION_LAUNCHES[q][k] = PRECISION_LAUNCHES[q].get(k, 0) + v
-        if rec.precision != q or (want_entry and not launches.get(want_entry)):
+        if rec.precision != q or not launches.get(want_entry):
             raise AssertionError(f"{name} at {q}: record {rec.precision}, "
                                  f"launches {launches}")
         tile16 = res.rowcol is not None
@@ -5062,7 +5617,7 @@ def phase_precision_path(check_err=None):
     """SpGEMMConfig.precision "high" and "default" beside "highest" through
     run_benchmark: wandering64-1M as macro (K4 interactive, K5 steady),
     pairbands-500k as macro (MacroPlan, K4) and through engine="fused" (the
-    Tile16 tier, torch ops), and the macro ring as a 4-rank plan of
+    Tile16 kernel at the precision), and the macro ring as a 4-rank plan of
     wandering64-1M replayed on the card (one K4 a stage with pairs, at the
     precision: a rank's first in the fresh form, the others in the
     accumulate form; each rank's C against the composition that form
@@ -5145,14 +5700,16 @@ def phase_precision_path(check_err=None):
 
     precision_runs(coo, name, SpGEMMConfig(engine="macro"), every,
                    "macro_accumulate_pairs")
-    precision_runs(coo, name, SpGEMMConfig(engine="fused"), every, None)
+    precision_runs(coo, name, SpGEMMConfig(engine="fused"), every,
+                   "tile16_accumulate_pairs")
     del coo, want
     torch.cuda.empty_cache()
     for q in LOWER_PRECISIONS:
         got = PRECISION_LAUNCHES[q]
         if not (got.get("macro_accumulate_pairs") and
                 got.get("macro_class_ragged") and
-                got.get("macro_accumulate_pairs_acc")):
+                got.get("macro_accumulate_pairs_acc") and
+                got.get("tile16_accumulate_pairs")):
             raise AssertionError(f"precision_path at {q} launched {got}")
     emit("precision_total", seconds=time.perf_counter() - t0,
          launches=PRECISION_LAUNCHES)
@@ -5322,8 +5879,10 @@ def main():
                          "stop; f64_path: build them and run the f64 parity "
                          "phase alone; dia_path: the DIA kernel check, the "
                          "DIA path, its kernel rows and dia_graph_replay; "
-                         "tile16_path: pairbands-500k's DIA run (for its "
-                         "steady time), then phases tile16_path and persist; "
+                         "tile16_path: the Tile16 kernel check, "
+                         "pairbands-500k's DIA run (for its steady time), "
+                         "then phases tile16_path and persist and the "
+                         "Tile16 kernel rows; "
                          "sharded: phases bf16_path, sharded_path and "
                          "sharded_ranks; aat_path: phase aat_path; suite: "
                          "phase suite; precision_path: the Macro128 kernel "
@@ -5384,6 +5943,8 @@ def main():
         print(json.dumps({"kernels": rows}), flush=True)
         return 0
     if args.only == "tile16_path":
+        check_err = phase_tile16_kernel_check()
+        torch.cuda.empty_cache()
         coo = banded_device(**DIA_MATRICES[TILE16_MATRIX])
         rec, _res = run_benchmark(coo, TILE16_MATRIX,
                                   SpGEMMConfig(repeat=5), verbose=False)
@@ -5391,7 +5952,9 @@ def main():
         phase_tile16_path(scipy_square(coo, with_abs=True),
                           bf16_reference(coo), rec.steady_state_time)
         phase_persist()
+        rows = tile16_rows(check_err)
         emit("total", seconds=time.perf_counter() - t_start)
+        print(json.dumps({"kernels": rows}), flush=True)
         return 0
     if args.only == "sharded":
         coo_pl = MATRICES["powerlaw-1M"]()
@@ -5434,6 +5997,9 @@ def main():
     check_err = phase_kernel_check()
     check_err.update(phase_dia_kernel_check())
     check_err.update(phase_macro_kernel_check())
+    torch.cuda.empty_cache()
+    check_err.update(phase_tile16_kernel_check())
+    torch.cuda.empty_cache()
     if args.only == "kernel_check":
         phase_probe()
         return 0
@@ -5470,6 +6036,8 @@ def main():
     phase_tile16_path(pairbands_ref, bf16_reference(
         banded_device(**DIA_MATRICES[TILE16_MATRIX])), dia_pairbands_steady)
     phase_persist()
+    torch.cuda.empty_cache()
+    kernels += tile16_rows(check_err)
     torch.cuda.empty_cache()
     phase_bf16_path(coo_pl)
     kernels += phase_sharded(coo_pl, want_pl, pairbands_ref, check_err)

@@ -72,12 +72,14 @@ class SpGEMMPlan:
     package's one jitted ``spgemm_fixed``: the first ``run`` on a pair of
     operands multiplies eagerly once with any host synchronisation an error,
     then captures one multiply (``ops.graphs.capture``, replays counted
-    under ``"spgemm_fixed"`` in ``ops.graphs.REPLAYED``); every later run on
-    them is one replay.  The dense value tables are made outside the graph
-    (cached on the operands).  A graph reads fixed addresses: the plan
-    keeps the operand tensors it captured on, and a run on others captures
-    again.  A replay writes its outputs into the same memory every time: it
-    overwrites the outputs of the replay before.  A grown plan starts with
+    under ``"spgemm_fixed"`` in ``ops.graphs.REPLAYED``, and the Tile16
+    kernel's launches recorded at capture added there once a replay);
+    every later run on them is one replay.  The dense value tables are
+    made outside the graph (cached on the operands).  A graph reads fixed
+    addresses: the plan keeps the operand tensors it captured on, and a
+    run on others captures again.  A replay writes its outputs into the
+    same memory every time: it overwrites the outputs of the replay
+    before.  A grown plan starts with
     no graph and captures again.  CPU plans run eagerly.
     """
 
@@ -120,7 +122,7 @@ class SpGEMMPlan:
         c_vals, c_nnz, overflow), with no device-to-host copy."""
         if not a.vals.is_cuda:
             return self.multiply(a, b)
-        from pem_spgemm_tpu_torch.ops import graphs
+        from pem_spgemm_tpu_torch.ops import graphs, tile16_kernels
         from pem_spgemm_tpu_torch.ops.dia import operand_key, same_operand
         ops = self._operands(a, b)
         g = self._graph
@@ -129,7 +131,8 @@ class SpGEMMPlan:
                                 for h, x in zip(g["operands"], ops)):
                 g.clear()               # the old graph and its operands go
                 g["captured"] = graphs.capture(
-                    lambda: self.multiply(a, b), {}, name="spgemm_fixed")
+                    lambda: self.multiply(a, b), tile16_kernels.LAUNCHES,
+                    name="spgemm_fixed")
                 g["operands"] = tuple((x, operand_key(x)) for x in ops)
             return g["captured"].replay()
 

@@ -9,8 +9,7 @@ error (it would break the capture), then captures one multiply and records
 the kernel launches it made.  A replay passes no wrapper, so its wrappers'
 counters do not see it: ``Captured.replay`` adds the launches recorded at
 capture to ``REPLAYED`` instead, once a replay.  A graph captured with a
-``name`` (the Tile16 step, which launches no kernel of this package) also
-adds one under that name a replay.
+``name`` (the Tile16 step) also adds one under that name a replay.
 """
 
 from __future__ import annotations

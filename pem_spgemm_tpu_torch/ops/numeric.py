@@ -5,23 +5,30 @@ Counterpart of the JAX package's ops/numeric.py (the reference's step 3):
   * operand tiles are densified once into (tiles, 256) value rows (a single
     scatter: the tile-major element order makes the index just
     elem_tile * 256 + rowcol);
-  * each pair contributes a dense 16x16 product A_tile @ B_tile, batched
-    over a chunk of pairs (``torch.bmm``; the JAX package's ``einsum`` runs
-    outside any Pallas kernel too);
-  * contributions are added into dense C tiles with ``index_add_``;
+  * each C tile sums the 16x16 products A_tile @ B_tile of its pairs, and
+    the fused engine also the 0/1 pattern's products (the structural
+    counts);
   * compressed C values are gathered with the structure of the cstruct
     phase.
 
-Padding pairs target C tile c_cap, one extra row sliced off after, and the
-flat operand tables end in an all-zero tile that they index.
+On the card the accumulation is one hand-written kernel
+(``ops.tile16_kernels``, csrc/tile16_accumulate.cu; the JAX package runs
+its einsum and scatter-add in XLA, outside any Pallas kernel): one warp a
+C tile walks the tile's pairs in stream order and writes the tile once, so
+no atomics and the same bits at every launch.  ``accumulate_fused_flat``
+and ``accumulate_dense`` dispatch by the tensors' device: CUDA tensors
+launch the kernel, CPU tensors take the plain versions here
+(``fused_flat_plain``, ``dense_plain``: batched ``torch.bmm`` over chunks of
+gathered tiles and ``index_add_``, sequential on the CPU).  Values match
+the JAX package within the float32 dot-product bound; the 0/1 pattern
+counts are integers below 2^24 in float32, exact in any order, so the
+structure is equal bit for bit.  Padding pairs target C tile c_cap or
+above: the plain versions drop them into one extra row, the kernel never
+reads them.
 
-``index_add_`` on the GPU adds with atomics, so C values depend on the
-order the adds land in and match the JAX package (and one run another)
-within the float32 dot-product bound; the 0/1 pattern counts are integers
-below 2^24 in float32, exact in any order, so the structure is equal bit
-for bit.  Products run in full float32 (``macro.require_full_fp32``):
-never TF32.  ``precision`` "high" or "default" rounds the operand tables
-to tf32 or bfloat16 once a call (``macro.round_operands``) before those
+Products run in full float32 (``macro.require_full_fp32``): never TF32.
+``precision`` "high" or "default" rounds the float32 operand tables to
+tf32 or bfloat16 once a call (``macro.round_operands``) before those
 float32 products, where the JAX package hands the precision to its einsum;
 the 0/1 pattern is taken from the raw tables.
 """
@@ -74,19 +81,16 @@ def _rounded(table, acc_dtype, precision: str):
     return round_operands(table, precision)
 
 
-def accumulate_fused_flat(a_flat, b_flat, a_idx, b_idx, c_tile_id,
-                          c_cap: int, chunk: int, acc_dtype=torch.float32,
-                          precision: str = "highest"):
-    """Fused numeric + structural accumulation on flat operand tables.
+def fused_flat_plain(a_flat, b_flat, a_idx, b_idx, c_tile_id, c_cap: int,
+                     chunk: int, acc_dtype=torch.float32,
+                     precision: str = "highest"):
+    """The plain version of ``accumulate_fused_flat`` (CPU tensors).
 
-    a_flat / b_flat: (T+1, 256) value tables (zero tile at T).  Per chunk of
-    pairs: gather both operand tiles, cast them to acc_dtype (bf16 operands
-    too), take one batched 16x16 product of the values and one of the 0/1
-    patterns (in float32: the counts stay exact integers), and add both
-    into the C tiles.  Values are read from the tables rounded as
-    ``precision`` says (once a call), the patterns from the raw tables.
-    Returns (c_dense (c_cap, 256) acc_dtype, c_counts (c_cap, 256)
-    float32).
+    Per chunk of pairs: gather both operand tiles, cast them to acc_dtype
+    (bf16 operands too), take one batched 16x16 product of the values and
+    one of the 0/1 patterns (in float32: the counts stay exact integers),
+    and add both into the C tiles.  Values are read from the tables rounded
+    as ``precision`` says (once a call), the patterns from the raw tables.
     """
     _check_precision(precision)
     p_cap = a_idx.shape[0]
@@ -113,15 +117,15 @@ def accumulate_fused_flat(a_flat, b_flat, a_idx, b_idx, c_tile_id,
     return c_dense[:c_cap], c_cnt[:c_cap]
 
 
-def accumulate_dense(a_dense, b_dense, a_idx, b_idx, c_tile_id, c_cap: int,
-                     chunk: int, acc_dtype=torch.float32,
-                     precision: str = "highest"):
-    """C_dense[t] = sum over pairs p of tile t: A[a_idx[p]] @ B[b_idx[p]].
+def dense_plain(a_dense, b_dense, a_idx, b_idx, c_tile_id, c_cap: int,
+                chunk: int, acc_dtype=torch.float32,
+                precision: str = "highest", out=None):
+    """The plain version of ``accumulate_dense`` (CPU tensors).
 
-    a_dense / b_dense: (T, 16, 16) with no zero tile, so padding pairs'
-    operand indices are clamped in range (their products land in the
-    dropped row c_cap).  Values are read from the tables rounded as
-    ``precision`` says (once a call).  Returns (c_cap, 16, 16) acc_dtype.
+    Operand indices are clamped in range (padding pairs' products land in
+    the dropped row c_cap).  ``out=c``: the stage partial is added to
+    ``c`` as ``old + partial`` on the tiles the stream has pairs for, the
+    kernel's association; the other tiles are left bit for bit.
     """
     _check_precision(precision)
     same = b_dense is a_dense
@@ -138,7 +142,48 @@ def accumulate_dense(a_dense, b_dense, a_idx, b_idx, c_tile_id, c_cap: int,
         ad = a_dense[a_i[sl:sl + chunk]].to(acc_dtype)
         bd = b_dense[b_i[sl:sl + chunk]].to(acc_dtype)
         c_dense.index_add_(0, seg[sl:sl + chunk], torch.bmm(ad, bd))
-    return c_dense[:c_cap]
+    if out is None:
+        return c_dense[:c_cap]
+    live = torch.unique(seg[seg < c_cap])
+    out[live] = out[live] + c_dense[live]
+    return out
+
+
+def accumulate_fused_flat(a_flat, b_flat, a_idx, b_idx, c_tile_id,
+                          c_cap: int, chunk: int, acc_dtype=torch.float32,
+                          precision: str = "highest"):
+    """Fused numeric + structural accumulation on flat operand tables.
+
+    a_flat / b_flat: (T+1, 256) value tables (zero tile at T); a_idx, b_idx,
+    c_tile_id: (p_cap,) i32, c_tile_id ascending (p_cap a multiple of chunk
+    for the plain version).  Values are products of the tables rounded as
+    ``precision`` says, the counts those of the raw tables' 0/1 pattern.
+    Returns (c_dense (c_cap, 256) acc_dtype, c_counts (c_cap, 256)
+    float32).  CUDA tensors: the Tile16 kernel's fresh form with counts;
+    CPU tensors: ``fused_flat_plain``.
+    """
+    from pem_spgemm_tpu_torch.ops import tile16_kernels
+    return tile16_kernels.accumulate_fused_flat(
+        a_flat, b_flat, a_idx, b_idx, c_tile_id, c_cap, chunk, acc_dtype,
+        precision)
+
+
+def accumulate_dense(a_dense, b_dense, a_idx, b_idx, c_tile_id, c_cap: int,
+                     chunk: int, acc_dtype=torch.float32,
+                     precision: str = "highest", out=None):
+    """C_dense[t] = sum over pairs p of tile t: A[a_idx[p]] @ B[b_idx[p]].
+
+    a_dense / b_dense: (T, 16, 16) with no zero tile.  Values are read from
+    the tables rounded as ``precision`` says (once a call).  Returns
+    (c_cap, 16, 16) acc_dtype.  ``out=c`` adds the products into ``c``
+    instead (old + partial on the tiles with pairs, the others untouched)
+    and returns it.  CUDA tensors: the Tile16 kernel's fresh values-only
+    form, or its accumulate form; CPU tensors: ``dense_plain``.
+    """
+    from pem_spgemm_tpu_torch.ops import tile16_kernels
+    return tile16_kernels.accumulate_dense(
+        a_dense, b_dense, a_idx, b_idx, c_tile_id, c_cap, chunk, acc_dtype,
+        precision, out)
 
 
 def counts_to_masks(c_counts):

@@ -11,11 +11,14 @@ Macro128 ring's: ``sharded_macro``).
 
 The planner is the JAX package's: the symbolic phase expands the pairs,
 ``ops.cstruct`` builds the exact C bitmask structure, and the ring schedule
-is shared with the macro planner.  A stage's body is the Tile16 tier's torch
-ops (``ops.numeric.accumulate_dense``: batched 16x16 products and an
-``index_add_``), as the JAX package's stage is plain XLA; neither has a
-hand-written kernel here.  Padding pairs target C tile ``c_cap``, the row
-the accumulation drops, as in the JAX plan.
+is shared with the macro planner.  A stage's body is the Tile16 kernel
+(``ops.numeric.accumulate_dense`` on the card: ``ops.tile16_kernels``,
+where the JAX package's stage is plain XLA): a rank's first stage with
+pairs writes its C (the fresh form), and each later one adds its products
+into that C (the accumulate form), as the JAX ring's
+``c_dense.at[sg].add`` adds into the loop-carried C; no partial C.
+Padding pairs target C tile ``c_cap``, which the kernel never reads, as in
+the JAX plan.
 """
 
 from __future__ import annotations
@@ -127,18 +130,23 @@ def plan_sharded_spgemm(a: TiledMatrix, b: TiledMatrix, n_devices: int,
 
 
 def local_numeric(plan: ShardedPlan, chunks, precision: str = "highest"):
-    """(nnz_cap,) float32 C values of this rank: per stage with pairs, the
-    batched 16x16 products on the chunk ``chunks`` yields for it added into
-    the rank's dense C tiles; then the values at its C structure."""
+    """(nnz_cap,) float32 C values of this rank: one accumulation for each
+    stage that has pairs, on the chunk ``chunks`` yields for it.  The
+    first writes the rank's dense C tiles (the fresh form), each later one
+    adds its products into that C (the accumulate form, ``out=``); zeros
+    where no stage has pairs.  Then the values at its C structure."""
     stage_cap = plan.pairs_a.shape[1]
-    c_dense = torch.zeros((plan.c_cap, 16, 16), dtype=torch.float32,
-                          device=plan.a_dense.device)
+    c_dense = None
     for s, b_cur in enumerate(chunks):
         if plan.stage_pairs[s] == 0:
             continue
-        c_dense += numeric.accumulate_dense(
+        c_dense = numeric.accumulate_dense(
             plan.a_dense, b_cur, plan.pairs_a[s], plan.pairs_b[s],
-            plan.seg[s], plan.c_cap, stage_cap, torch.float32, precision)
+            plan.seg[s], plan.c_cap, stage_cap, torch.float32, precision,
+            out=c_dense)
+    if c_dense is None:
+        c_dense = torch.zeros((plan.c_cap, 16, 16), dtype=torch.float32,
+                              device=plan.a_dense.device)
     return numeric.extract_values(c_dense, plan.rowcol, plan.elem_tile)
 
 

@@ -63,3 +63,9 @@ def random_sparse(n_rows, n_cols, density, seed=0, dtype=np.float64):
     m = sp.coo_matrix((vals, (rows, cols)), shape=(n_rows, n_cols))
     m.sum_duplicates()
     return m
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device and nvcc (the port's kernels "
+        "on the card); the test decides inside itself and skips without one")

@@ -42,6 +42,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "pem_spgemm_tpu_torch.ops.macro",
             "pem_spgemm_tpu_torch.ops.stencil",
             "pem_spgemm_tpu_torch.ops.macro_kernels",
+            "pem_spgemm_tpu_torch.ops.tile16_kernels",
+            "pem_spgemm_tpu_torch.ops.numeric",
             "pem_spgemm_tpu_torch.io.mtx",
             "pem_spgemm_tpu_torch.ops._build",
             "pem_spgemm_tpu_torch.ops.dia_kernels",
@@ -172,7 +174,8 @@ def test_dia_kernel_source_and_loader_agree():
         == dk.ROWS
     # one build module serves every CUDA source, and each is a file
     assert set(_build.CUDA_SOURCES) == {"segment_sort", "dia_multiply",
-                                        "macro_accumulate", "row_copy"}
+                                        "macro_accumulate", "row_copy",
+                                        "tile16_accumulate"}
     for stem in _build.CUDA_SOURCES:
         assert os.path.isfile(_build.cuda_source(stem))
         assert _build.library_path(_build.cuda_source(stem)).startswith(

@@ -202,11 +202,14 @@ def test_macro_stages_ascend_in_c_tile(ranks):
 
 @functools.lru_cache(maxsize=None)
 def _jax_tile16(n):
+    """The JAX plan, its assembled COO and each device's values
+    ((n, nnz_cap): the JAX ring's ``_local_numeric``)."""
     coo = JCOO.from_scipy(RANDOM)
     a = j_coo_to_tiled(coo, dtype=jnp.float32)
     b = j_coo_to_tiled(coo, dtype=jnp.float32, with_tmasks=True)
     plan = j_plan(a, b, n)
-    return plan, j_assemble(plan, j_numeric(plan, j_make_mesh(n)))
+    vals = j_numeric(plan, j_make_mesh(n))
+    return plan, j_assemble(plan, vals), vals
 
 
 def test_sharded_matches_scipy_and_jax(ranks):
@@ -214,7 +217,7 @@ def test_sharded_matches_scipy_and_jax(ranks):
     outs = res["tile16_random"]
     _same_on_every_rank(outs)
     _hold(outs[0], _want(RANDOM, RANDOM), "tile16 ring")
-    plan, (jr, jc, jv) = _jax_tile16(n)
+    plan, (jr, jc, jv), _vals = _jax_tile16(n)
     assert outs[0]["c_nnz"] == plan.c_nnz
     o_j = np.lexsort((jc, jr))
     np.testing.assert_array_equal(outs[0]["rows"], jr[o_j])
@@ -236,6 +239,27 @@ def test_sharded_matches_scipy_and_jax(ranks):
     _hold(dict(rows=rows[order].numpy(), cols=cols[order].numpy(),
                vals=vals[order].numpy(), c_nnz=len(rows)),
           _want(RANDOM, RANDOM), "JAX plan through the port's ring")
+
+
+def test_local_numeric_matches_jax_local_numeric():
+    """Each rank of the JAX 4-rank plan through the port's stage loop
+    (``replay_numeric``: the first stage with pairs fresh, every later one
+    added into the same C) against that device's values of the JAX ring's
+    ``_local_numeric``, within the float32 dot-product bound (sum|a*b| from
+    the same ring on |A| and |B|); padding values too."""
+    n = 4
+    plan, _coo, vals = _jax_tile16(n)
+    jplans = [interop.sharded_plan_from_numpy(_fields(plan), d, CPU)
+              for d in range(n)]
+    mags = _abs_plans(jplans)
+    several = 0
+    for d, p in enumerate(jplans):
+        got = sharded.replay_numeric(jplans, d).numpy()
+        mag = sharded.replay_numeric(mags, d).numpy()
+        assert got.shape == vals[d].shape
+        assert np.all(np.abs(got - vals[d]) <= RTOL * mag + ATOL), d
+        several += sum(1 for x in p.stage_pairs if x) > 1
+    assert several
 
 
 def test_sharded_banded(ranks):
