@@ -56,15 +56,19 @@ first two, engine="macro" for the third):
     nnz against scipy on 20,000 sampled rows of wandering64-1M, the
     recorded C_nnz for banded64-1M, scipy's sorted COO for pairbands-500k;
   * the Tile16 tier (phase tile16_path; its accumulation is the Tile16
-    kernel, csrc/tile16_accumulate.cu): pairbands-500k through
+    kernel, csrc/tile16_accumulate.cu, whose masks form also gives the
+    fused engine's structure, and its structure the kernels of
+    csrc/tile16_structure.cu: tile16_c_masks for the masks engine and the
+    ring's planner, tile16_c_rowcol everywhere): pairbands-500k through
     engine="fused" and "masks" in float32, and "fused" in float64 and in
     bfloat16 with float32 accumulation, each with C_nnz as recorded, the
-    sorted COO equal to scipy's, values within the dtype's bound, the
-    kernel's entry launched (and nothing else of this package), exactly
-    three host syncs in an interactive multiply (torch's sync debug mode),
-    and the steady plan's CUDA graph held to the eager step bit for bit,
-    values too (the kernel adds a tile's pairs in stream order, with no
-    atomics), beside the DIA engine's steady time on the same matrix;
+    sorted COO equal to scipy's, values within the dtype's bound, exactly
+    the Tile16 kernels of the engine launched (and nothing else of this
+    package), exactly three host syncs in an interactive multiply (torch's
+    sync debug mode), and the steady plan's CUDA graph held to the eager
+    step bit for bit, values too (the kernels add a tile's pairs in stream
+    order, with no atomics), with its device time split by share, beside
+    the DIA engine's steady time on the same matrix;
   * persistence (phase persist): pairbands-500k's Tile16 and DIA forms
     saved, loaded onto the card and multiplied, C_nnz as recorded;
   * bfloat16 on the element, DIA and Macro128 engines (phase bf16_path:
@@ -84,7 +88,9 @@ first two, engine="macro" for the third):
     first in K4's fresh form, the later ones in its accumulate form, which
     adds into the rank's C) and the Tile16 ring on pairbands-500k (one
     Tile16 kernel launch a stage with pairs, fresh then accumulating, in
-    the same way); phase
+    the same way; its plan's structure through tile16_c_masks and
+    tile16_c_rowcol, the plan's time split into the pair expansion and
+    schedule, those two and the rest); phase
     sharded_ranks replays a 4-rank plan of each on the card, rank by rank,
     each rank's B chunks and halos read from the plan (two NCCL ranks
     cannot share one card: the exchange is carried by the gloo tests), with
@@ -121,12 +127,22 @@ first two, engine="macro" for the third):
 
 The Tile16 kernel's two entries are held on pairbands-500k's stream in
 phase tile16_kernel_check (every form: values within the dtype's bound,
-counts bit for bit, two launches bit-equal, the accumulate form into a C
-with -0.0, +-Inf and NaN in every tile old + partial under == with the
-tiles without pairs bit for bit, and at "high" / "default" equal to itself
-at "highest" on pre-rounded tables); their rows (tile16_accumulate_pairs,
-_f64, _acc) are timed at that stream and at the 4-rank Tile16 ring's
-largest accumulating stage, beside torch.bmm over the pre-gathered pairs.
+counts bit for bit, the masks form's masks and nnz scan those of the
+counts and its values bit for bit the counts form's, two launches
+bit-equal, the accumulate form into a C with -0.0, +-Inf and NaN in every
+tile old + partial under == with the tiles without pairs bit for bit, and
+at "high" / "default" equal to itself at "highest" on pre-rounded tables),
+and so are the two structure entries (tile16_c_masks: masks, nnz scan,
+pair offsets and tile coordinates; tile16_c_rowcol: coordinates, tiles
+and float32 / float64 values, padding slots included; bit for bit their
+plain versions, also on engineered streams: tiles without pairs, of one
+pair, of all 256 bits, padding at INT32_MAX and at c_cap, c_cap above the
+tile count, c_nnz_cap above and below C_nnz); their rows
+(tile16_accumulate_pairs, _f64, _masks, _f64_masks, _acc, tile16_c_masks,
+tile16_c_rowcol) are timed at that stream and at the 4-rank Tile16 ring's
+largest accumulating stage, beside torch.bmm over the pre-gathered pairs
+(the structure rows beside no library call, the value gather beside
+``flat[pos]``).
 Beside each path it times every kernel entry at the largest shape its path
 gives it, beside its bound (the Macro128 entries run on the tensor cores
 with a 3xTF32 split: their rows carry the tensor-core bound too; the
@@ -155,7 +171,7 @@ With --profile the script instead shows where one matrix's steady multiply
 spends its time (with --engine fused, pairbands-500k's steady Tile16
 multiply, with the eager step's device time split into the symbolic phase,
 the accumulation's Tile16 kernel and the rest, and the structure
-functions) (with --graph: the eager multiply and its CUDA graph
+functions and kernel) (with --graph: the eager multiply and its CUDA graph
 replay, in turns): the host-clock time per multiply (synchronising after each
 one, and only once after a batch) with the kernel launches counted per
 multiply, and a torch.profiler pass that gives device-busy time, the idle
@@ -174,6 +190,7 @@ last only when every phase passed.
 """
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -189,14 +206,14 @@ import torch
 
 from pem_spgemm_tpu_torch.bench import k1_split
 from pem_spgemm_tpu_torch.bench import probe as pr
-from pem_spgemm_tpu_torch.bench import suite
+from pem_spgemm_tpu_torch.bench import suite, tiers_ab
 from pem_spgemm_tpu_torch.bench.harness import run_benchmark
-from pem_spgemm_tpu_torch.config import SpGEMMConfig
+from pem_spgemm_tpu_torch.config import SpGEMMConfig, round_up_bucket
 from pem_spgemm_tpu_torch.formats.coo import COOMatrix
 from pem_spgemm_tpu_torch.models.synthetic import (banded_device, power_law,
                                                    rmat, uniform_random,
                                                    wandering_device)
-from pem_spgemm_tpu_torch.ops import _build, binned, graphs, symbolic
+from pem_spgemm_tpu_torch.ops import _build, binned, cstruct, graphs, symbolic
 from pem_spgemm_tpu_torch.ops import dia as D
 from pem_spgemm_tpu_torch.ops import dia_kernels as dk
 from pem_spgemm_tpu_torch.ops import macro as M
@@ -3799,6 +3816,19 @@ TILE16_SYNCS = 3        # size feedbacks of an interactive Tile16 multiply
 TILE16_RUN_LAUNCHES = {}
 
 
+def tile16_run_entries(engine, dtype):
+    """(the kernel entries a tile16_path run launches through wrappers,
+    those its replays count): the steady plan's step is the accumulation's
+    masks form and tile16_c_rowcol (with values) whatever the engine; the
+    interactive fused multiply launches the same two, the masks engine's
+    tile16_c_masks and the values-only form instead of the masks form."""
+    steady = {TILE16_MASKS_ENTRY[dtype], "tile16_c_rowcol"}
+    wrappers = set(steady)
+    if engine == "masks":
+        wrappers |= {"tile16_c_masks", TILE16_ENTRY[dtype]}
+    return wrappers, steady | {"spgemm_fixed"}
+
+
 def tile16_config(engine, dtype, **kw):
     acc = torch.float32 if dtype == torch.bfloat16 else None
     return SpGEMMConfig(engine=engine, dtype=dtype, acc_dtype=acc, **kw)
@@ -3843,9 +3873,10 @@ def tile16_hold_replay(res, cfg, coo, ref, what, entry):
     """The steady plan of this run, on freshly converted operands: a replay
     of its CUDA graph against the eager spgemm_fixed, bit for bit, values
     too (the Tile16 kernel sums a C tile's pairs in stream order: the same
-    bits at every launch); each replay counts one launch of ``entry``.
-    Returns the plan's own check against scipy (its values are in the
-    accumulation dtype) and the replay's record."""
+    bits at every launch); each replay counts one launch of ``entry`` (the
+    accumulation's masks form) and one of tile16_c_rowcol.  Returns the
+    plan's own check against scipy (its values are in the accumulation
+    dtype), the replay's record and the eager step's device ms by share."""
     from pem_spgemm_tpu_torch.ops.fixed import SpGEMMPlan
     a = coo_to_tiled(coo, dtype=cfg.dtype)
     b = coo_to_tiled(coo, dtype=cfg.dtype, with_tmasks=True)
@@ -3855,7 +3886,8 @@ def tile16_hold_replay(res, cfg, coo, ref, what, entry):
     graphs.reset_replayed()
     rep = plan.run(a, b)
     rep_again = plan.run(a, b)
-    if graphs.REPLAYED != {"spgemm_fixed": 2, entry: 2} \
+    if graphs.REPLAYED != {"spgemm_fixed": 2, entry: 2,
+                           "tile16_c_rowcol": 2} \
             or rep_again[6] is not rep[6]:
         raise AssertionError(f"{what}: replays counted {graphs.REPLAYED}")
     eager = plan.multiply(a, b)
@@ -3892,7 +3924,10 @@ def tile16_hold_replay(res, cfg, coo, ref, what, entry):
         plan_values_dtype=str(rep[6].dtype),
         plan_values_worst_over_bound=hold_bound(
             rv, wv, mag, rtol, atol, f"{what} plan against scipy"))
-    del plan, a, b, rep, rep_again, eager
+    del rep, rep_again, eager
+    info["steady_step_device_ms_by_share"] = tile16_split(
+        lambda: plan.multiply(a, b), 3)
+    del plan, a, b
     return info
 
 
@@ -3929,10 +3964,13 @@ def phase_tile16_path(ref, ref_bf16, dia_steady_ms):
     kernel wrapper does); the replay against the eager step; exactly
     TILE16_SYNCS host syncs in an interactive multiply.  Beside each run,
     the DIA engine's steady time on the same matrix (phase dia_path).  Every
-    run launches the Tile16 kernel (the float64 run its float64 entry) and
-    nothing else of this package, and its replays count the kernel's
-    launches recorded at capture; the replay's values are bit-equal to the
-    eager step's."""
+    run launches the Tile16 kernels of its engine (tile16_run_entries; the
+    float64 run the float64 entry's forms) and nothing else of this
+    package, and its replays count the kernels' launches recorded at
+    capture; the replay's structure and values are bit-equal to the eager
+    step's.  Step 1 / 2 / 3 ms of the interactive multiply from the
+    harness's timers, of the steady step (the eager plan step) from the
+    device time by share (tile16_split)."""
     from pem_spgemm_tpu_torch.utils.timing import PhaseTimers
     name = TILE16_MATRIX
     want_nnz = DIA_RECORDED[name][0]
@@ -3949,9 +3987,8 @@ def phase_tile16_path(ref, ref_bf16, dia_steady_ms):
         peak = torch.cuda.max_memory_allocated() / 2**30
         wrappers = nonzero(all_counts())
         replays = dict(graphs.REPLAYED)
-        entry = TILE16_ENTRY[dtype]
-        if set(wrappers) != {entry} \
-                or set(replays) != {"spgemm_fixed", entry}:
+        want_w, want_r = tile16_run_entries(engine, dtype)
+        if set(wrappers) != want_w or set(replays) != want_r:
             raise AssertionError(f"{what}: kernel launches {wrappers}, "
                                  f"replays {replays}")
         TILE16_RUN_LAUNCHES[what] = wrappers
@@ -4001,7 +4038,8 @@ def phase_tile16_path(ref, ref_bf16, dia_steady_ms):
                                  f"interactive multiply, expected "
                                  f"{TILE16_SYNCS}")
         del a, b, res2
-        replay = tile16_hold_replay(res, cfg, coo, r, what, entry)
+        replay = tile16_hold_replay(res, cfg, coo, r, what,
+                                    TILE16_MASKS_ENTRY[dtype])
         del res
         torch.cuda.empty_cache()
         out[what] = dict(times_ms=record_times(rec), peak_mem_gb=peak)
@@ -4015,6 +4053,7 @@ def phase_tile16_path(ref, ref_bf16, dia_steady_ms):
              a_conversion_ms=rec.a_conversion_kernel_time,
              steps_ms=dict(step1=rec.step1_time, step2=rec.step2_time,
                            step3=rec.step3_time),
+             steady_ms=rec.steady_state_time,
              peak_mem_gb=peak, dia_steady_ms=dia_steady_ms,
              run_benchmark_s=run_s)
     return out
@@ -4082,12 +4121,25 @@ TILE16_FLOP = 2 * 16 ** 3       # operations of one 16x16x16 product
 TILE16_ENTRY = {torch.float32: "tile16_accumulate_pairs",
                 torch.bfloat16: "tile16_accumulate_pairs",
                 torch.float64: "tile16_accumulate_pairs_f64"}
+TILE16_MASKS_ENTRY = {k: v + "_masks" for k, v in TILE16_ENTRY.items()}
+STRUCT_SOURCE = "pem_spgemm_tpu_torch/csrc/tile16_structure.cu"
+STRUCT_REPLACES = {
+    "tile16_c_masks": "none: pem_spgemm_tpu/ops/cstruct.py:54 c_masks (16 "
+                      "bit-plane segment_max reductions) runs in XLA, no "
+                      "Pallas kernel",
+    "tile16_c_rowcol": "none: pem_spgemm_tpu/ops/cstruct.py:108 c_rowcol "
+                       "and ops/numeric.py:201 extract_values run in XLA, "
+                       "no Pallas kernel",
+    "masks_form": "none: pem_spgemm_tpu/ops/numeric.py:60 "
+                  "accumulate_fused_flat then :186 counts_to_masks "
+                  "(ops/fixed.py:58-63) run in XLA, no Pallas kernel"}
+STRUCT_FIELDS = ("c_tile_row", "c_tile_col", "cmask", "cptr", "pair_ptr")
 
 
-def tile16_stream(coo, dtype=torch.float32):
+def tile16_stream(coo, dtype=torch.float32, coords=False):
     """A @ A's Tile16 pair stream on the card as the fused engine builds it
     (SpGEMMConfig's defaults): (a, b, a_idx, b_idx, c_tile_id, c_cap,
-    n_pairs)."""
+    n_pairs), and with ``coords`` the pairs' C tile (c_row, c_col)."""
     from pem_spgemm_tpu_torch.config import round_up_bucket, round_up_pow2
     from pem_spgemm_tpu_torch.ops.scanops import can_pack
     a = coo_to_tiled(coo, dtype=dtype)
@@ -4095,10 +4147,11 @@ def tile16_stream(coo, dtype=torch.float32):
     offsets = symbolic.pair_counts(a.tile_col, b.tile_rowptr, a.ntiles)
     n_pairs = int(offsets[-1])
     p_cap = max(SpGEMMConfig().numeric_chunk, round_up_pow2(n_pairs))
-    _r, _c, a_idx, b_idx, seg, cnt = symbolic.expand_pairs(
+    c_row, c_col, a_idx, b_idx, seg, cnt = symbolic.expand_pairs(
         offsets, a.tile_row, a.tile_col, b.tile_rowptr, b.tile_col, n_pairs,
         p_cap, can_pack(a.n_tile_rows, b.n_tile_cols))
-    return a, b, a_idx, b_idx, seg, round_up_bucket(int(cnt)), n_pairs
+    out = (a, b, a_idx, b_idx, seg, round_up_bucket(int(cnt)), n_pairs)
+    return out + (c_row, c_col) if coords else out
 
 
 def tile16_hold(got, want, mag, what, tiles=1 << 16):
@@ -4169,6 +4222,146 @@ def thinned(seg, keep_every=5, drop=3):
     return keep, n, out
 
 
+@contextlib.contextmanager
+def torch_structure_ops_refused(what):
+    """Inside: index_add_, scatter_reduce_ and numeric.counts_to_masks
+    raise (the card's structure path must run none of them: only the
+    plain versions, on the CPU, do)."""
+    from pem_spgemm_tpu_torch.ops import numeric as N
+    saved = (torch.Tensor.index_add_, torch.Tensor.scatter_reduce_,
+             N.counts_to_masks)
+
+    def refused(name):
+        def run(*args, **kw):
+            raise AssertionError(f"{what}: {name} ran on the card")
+        return run
+
+    torch.Tensor.index_add_ = refused("index_add_")
+    torch.Tensor.scatter_reduce_ = refused("scatter_reduce_")
+    N.counts_to_masks = refused("counts_to_masks")
+    try:
+        yield
+    finally:
+        (torch.Tensor.index_add_, torch.Tensor.scatter_reduce_,
+         N.counts_to_masks) = saved
+
+
+def hold_masks_form(got, again, counts_out, what):
+    """The accumulation's masks form (c_dense, cmask, cptr), two launches,
+    against the counts form's output on the same inputs: masks and nnz
+    scan those of counts_to_masks of its counts (the plain version's,
+    which the counts are held to bit for bit), values bit for bit its
+    values."""
+    from pem_spgemm_tpu_torch.ops import numeric as N
+    cmask, cptr = N.counts_to_masks(counts_out[1])
+    for g in (got, again):
+        if not (torch.equal(g[1], cmask) and torch.equal(g[2], cptr)):
+            raise AssertionError(f"{what}: masks or nnz scan differ from "
+                                 "those of the counts")
+        if not torch.equal(int_view(g[0]), int_view(counts_out[0])):
+            raise AssertionError(f"{what}: values differ from the counts "
+                                 "form's")
+
+
+def hold_structure(a_masks, b_tmasks, ai, bi, seg, c_row, c_col, c_cap,
+                   denses, caps, what):
+    """tile16_c_masks and tile16_c_rowcol against their plain versions on
+    the card, bit for bit, two launches of each: c_masks' five arrays
+    (tile coordinates, masks, nnz scan, pair offsets), then c_rowcol at
+    each c_nnz_cap of ``caps`` (of C_nnz) without values and with each
+    value table of ``denses``, padding slots included.  Returns (cases,
+    cmask, cptr)."""
+    from pem_spgemm_tpu_torch.ops import numeric as N
+    args = (a_masks, b_tmasks, ai, bi, seg, c_row, c_col, c_cap)
+    want = cstruct.c_masks_plain(*args)
+    for _ in range(2):
+        with torch_structure_ops_refused(f"{what}, c_masks"):
+            got = cstruct.c_masks(*args)
+        for f, g, w in zip(STRUCT_FIELDS, got, want):
+            if not torch.equal(g, w):
+                raise AssertionError(f"{what}: tile16_c_masks {f} differs "
+                                     "from the plain version's")
+    del want
+    cmask, cptr = got[2], got[3]
+    cases = 1
+    for cap in caps(int(cptr[-1])):
+        want = cstruct.c_rowcol_plain(cmask, cptr, cap)
+        for _ in range(2):
+            with torch_structure_ops_refused(f"{what}, c_rowcol"):
+                got = cstruct.c_rowcol(cmask, cptr, cap)
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"{what}: tile16_c_rowcol differs from "
+                                     f"the plain version's at c_nnz_cap "
+                                     f"{cap}")
+        for dense in denses:
+            wv = N.extract_values(dense, *want)
+            for _ in range(2):
+                with torch_structure_ops_refused(f"{what}, c_rowcol_values"):
+                    rc, et, cv = cstruct.c_rowcol_values(cmask, cptr, cap,
+                                                         dense)
+                if not (torch.equal(rc, want[0]) and torch.equal(et, want[1])
+                        and torch.equal(int_view(cv), int_view(wv))):
+                    raise AssertionError(
+                        f"{what}: tile16_c_rowcol with {dense.dtype} values "
+                        f"differs from the plain version's at c_nnz_cap "
+                        f"{cap}")
+        cases += 1 + len(denses)
+    return cases, cmask, cptr
+
+
+def engineered_structure_cases():
+    """tile16_c_masks and tile16_c_rowcol on an engineered stream
+    (hold_structure): tile 0 of all 256 bits (one pair of full masks),
+    tile 1 without pairs, tile 2 of one pair, tile 3 of 40 (three batches
+    of indices), the others 1-3, 10 tiles in a c_cap of 16; padding pairs
+    at INT32_MAX (the one-card stream), then at c_cap (the ring's);
+    c_nnz_cap above and below C_nnz; float32 and float64 values with -0.0,
+    NaN and +-Inf.  Returns the count of cases."""
+    g = torch.Generator(device=DEV).manual_seed(37)
+    n_a, n_b, tiles, c_cap = 12, 10, 10, 16
+    i32 = torch.int32
+
+    def table(n):
+        m = torch.randint(0, 1 << 16, (n + 1, 16), generator=g, device=DEV,
+                          dtype=i32) & torch.randint(
+            0, 1 << 16, (n + 1, 16), generator=g, device=DEV, dtype=i32)
+        m[0], m[n] = 0xFFFF, 0          # full, and the padding pairs' tile
+        return m
+
+    a_m, b_t = table(n_a), table(n_b)
+    counts = torch.tensor([1, 0, 1, 40, 2, 3, 1, 2, 3, 1], device=DEV)
+    seg = torch.repeat_interleave(torch.arange(tiles, dtype=i32,
+                                               device=DEV), counts)
+    n = seg.numel()
+    ai = torch.randint(1, n_a, (n,), generator=g, device=DEV, dtype=i32)
+    bi = torch.randint(1, n_b, (n,), generator=g, device=DEV, dtype=i32)
+    ai[0], bi[0] = 0, 0
+    dense = torch.randn((c_cap, 256), generator=g, device=DEV)
+    dense[0, :4] = torch.tensor([-0.0, float("nan"), float("inf"),
+                                 float("-inf")], device=DEV)
+    dense[c_cap - 1, 240] = -0.0        # the padding slots' entry
+    cases = 0
+    def full(v):
+        return torch.full((256 - n,), v, dtype=i32, device=DEV)
+
+    for fill in (symbolic.INT32_MAX, c_cap):
+        s = torch.cat([seg, full(fill)])
+        c_row = torch.where(s < c_cap, s // 4, symbolic.INT32_MAX)
+        c_col = torch.where(s < c_cap, s % 4, symbolic.INT32_MAX)
+        k, cmask, _cptr = hold_structure(
+            a_m, b_t, torch.cat([ai, full(n_a)]), torch.cat([bi, full(n_b)]),
+            s, c_row, c_col, c_cap, (dense, dense.double()),
+            lambda nnz: (nnz + 100, nnz - 7), f"engineered, pad {fill}")
+        if not (bool((cmask[0] == 0xFFFF).all())
+                and not bool(cmask[1].any())
+                and not bool(cmask[tiles:].any())):
+            raise AssertionError("engineered: the full tile, the tile "
+                                 "without pairs or the tiles past the "
+                                 "stream's are wrong")
+        cases += k
+    return cases
+
+
 def engineered_tile16_cases(worst):
     """Both entries on engineered tiles: +-Inf, NaN, -0.0 and subnormal
     operands (no value near the overflow threshold, where the order of a
@@ -4189,6 +4382,8 @@ def engineered_tile16_cases(worst):
         t.masked_fill_((u >= 0.35) & (u < 0.38), 1e-40)     # subnormal
     a[1, 5], a[2, 17], b[3, 40] = float("inf"), float("-inf"), float("nan")
     a[4, 0:16] = 0.0                    # a row of A tile 4 all zeros
+    a[0] = torch.rand(256, generator=g, device=DEV) + 0.5   # C tile 0's
+    b[0] = torch.rand(256, generator=g, device=DEV) + 0.5   # 256 bits
     pairs = [(0, 0, 0), (1, 1, 0), (2, 2, 0), (3, 3, 1), (4, 4, 3),
              (5, 3, 3), (1, 2, 4)]
     pad = 256 - len(pairs)
@@ -4209,6 +4404,11 @@ def engineered_tile16_cases(worst):
             raise AssertionError(f"engineered, {key}: counts differ")
         worst[key] = max(worst[key], tile16_hold(
             got[0], want[0], mag, f"{key}, engineered"))
+        if not bool((got[1][0] > 0).all()):
+            raise AssertionError("engineered: C tile 0 is not full")
+        hold_masks_form(tk.accumulate_fused_masks(at, bt, *args),
+                        tk.accumulate_fused_masks(at, bt, *args), got,
+                        f"{TILE16_MASKS_ENTRY[dtype]}, engineered")
         ad, bd = at.view(-1, 16, 16), bt.view(-1, 16, 16)
         prior = tile16_prior(7, dtype, 29)
         fresh = tk.accumulate_dense(ad, bd, *args)
@@ -4220,8 +4420,19 @@ def engineered_tile16_cases(worst):
             into, plain, mag.view(-1, 16, 16)
             + torch.nan_to_num(prior.abs(), 0.0, 0.0),
             f"{key}_acc, engineered"))
-        cases += 3
-    return cases
+        cases += 4
+    # the masks form on bfloat16 tables and at "high" / "default": against
+    # the counts form on the same tables at the same mode
+    args = (ai, bi, seg, 7, 256, torch.float32)
+    for at, bt, q in ((a.bfloat16(), b.bfloat16(), "highest"),
+                      (a, b, "high"), (a, b, "default")):
+        hold_masks_form(
+            tk.accumulate_fused_masks(at, bt, *args, precision=q),
+            tk.accumulate_fused_masks(at, bt, *args, precision=q),
+            tk.accumulate_fused_flat(at, bt, *args, precision=q),
+            f"tile16_accumulate_pairs_masks, engineered, {at.dtype}, {q}")
+        cases += 1
+    return cases + engineered_structure_cases()
 
 
 def phase_tile16_kernel_check():
@@ -4230,6 +4441,9 @@ def phase_tile16_kernel_check():
     interactive multiply), against its plain version on the card: the fresh
     form with counts at float32, float64 and bfloat16 (values within the
     dtype's dot-product bound, counts bit for bit, two launches bit-equal),
+    the masks form against it (hold_masks_form) at each dtype and mode, the
+    structure entries against their plain versions (hold_structure, on the
+    stream padded at INT32_MAX and at c_cap, and on engineered streams),
     the fresh values-only form bit-equal to the fused form's values, the
     accumulate form at float32 and float64 into a C with -0.0, +-Inf and
     NaN in every tile on a stream whose every fifth tile has no pairs (the
@@ -4251,7 +4465,8 @@ def phase_tile16_kernel_check():
         name = str(dtype).split(".")[-1]
         acc = torch.float64 if dtype == torch.float64 else torch.float32
         key = TILE16_ENTRY[dtype]
-        a, b, ai, bi, seg, c_cap, n_pairs = tile16_stream(coo, dtype)
+        a, b, ai, bi, seg, c_cap, n_pairs, c_row, c_col = tile16_stream(
+            coo, dtype, coords=True)
         af, bf = a.dense_flat(), b.dense_flat()
         args = (ai, bi, seg, c_cap, chunk, acc)
         got = tk.accumulate_fused_flat(af, bf, *args)
@@ -4269,7 +4484,32 @@ def phase_tile16_kernel_check():
         worst[key] = max(worst[key], tile16_hold(
             got[0], want[0], mag, f"{key}, fused, {name}"))
         del want
-        cases += 3
+        mkey = TILE16_MASKS_ENTRY[dtype]
+        with torch_structure_ops_refused(f"{mkey}, {name}"):
+            masks_out = [N.accumulate_fused_masks(af, bf, *args)
+                         for _ in range(2)]
+        hold_masks_form(*masks_out, got, f"{mkey}, {name}")
+        del masks_out
+        worst[mkey] = max(worst[mkey], worst[key])  # the same values
+        cases += 4
+        if dtype == torch.float32:
+            # the structure entries at the stream, padded as the one-card
+            # stream pads it and as the ring pads it (c_cap), with C_nnz's
+            # bucket (padding slots) and a c_nnz_cap below C_nnz
+            denses = (got[0], got[0].double())
+            for fill in ("int32_max", "c_cap"):
+                s = seg if fill == "int32_max" else torch.where(
+                    seg < c_cap, seg, c_cap)
+                k, cmask, cptr = hold_structure(
+                    a.masks, b.tmasks, ai, bi, s, c_row, c_col, c_cap,
+                    denses,
+                    lambda nnz: (round_up_bucket(nnz), nnz - 1001),
+                    f"pairbands-500k, pad {fill}")
+                cases += k
+            info["structure"] = dict(c_nnz=int(cptr[-1]),
+                                     c_nnz_cap=round_up_bucket(
+                                         int(cptr[-1])))
+            del cmask, cptr, s, denses
         # the values-only form on the masks engine's dense tables
         ad = N.densify_tiles(a.vals, a.rowcol, a.elem_tile, a.tile_cap)
         bd = N.densify_tiles(b.vals, b.rowcol, b.elem_tile, b.tile_cap)
@@ -4293,6 +4533,10 @@ def phase_tile16_kernel_check():
                                          "tables, or its counts from the "
                                          "raw tables'")
                 del pre
+                hold_masks_form(
+                    tk.accumulate_fused_masks(af, bf, *args, precision=q),
+                    tk.accumulate_fused_masks(af, bf, *args, precision=q),
+                    got_q, f"{TILE16_MASKS_ENTRY[dtype]}, {q}")
                 want_q = N.fused_flat_plain(af, bf, *args, precision=q)
                 kq = prec_key("tile16_accumulate_pairs", q)
                 worst[kq] = max(worst[kq], tile16_hold(
@@ -4325,31 +4569,37 @@ def phase_tile16_kernel_check():
                               acc_tiles_with_pairs=int(live.sum()))
             del prior, fresh, into, plain, tmag, tai, tbi, tseg, live
             cases += 3
-        del a, b, af, bf, ad, bd, dense, ai, bi, seg
+        del a, b, af, bf, ad, bd, dense, ai, bi, seg, c_row, c_col
         torch.cuda.empty_cache()
+    worst["tile16_c_masks"] = worst["tile16_c_rowcol"] = 0.0   # bit for bit
     emit("tile16_kernel_check", matrix=TILE16_MATRIX, cases=cases,
          max_abs_err=worst, streams=info,
          worst_over_bound={k: WORST_OVER.get(k) for k in worst},
          bound="abs err <= 1e-5 * sum|a*b| + 1e-6 (float32 dot product), "
                "<= 1e-12 * sum|a*b| (float64); counts bit for bit; the "
-               "accumulate form old + partial under ==, tiles without "
-               "pairs bit for bit", seconds=time.perf_counter() - t0)
+               "masks form's masks and nnz scan those of the counts, its "
+               "values bit for bit the counts form's; the structure "
+               "entries bit for bit their plain versions; the accumulate "
+               "form old + partial under ==, tiles without pairs bit for "
+               "bit", seconds=time.perf_counter() - t0)
     return worst
 
 
-def tile16_bounds(a_val, b_val, ai, bi, n_pairs, c_write, c_read, counts):
+def tile16_bounds(a_val, b_val, ai, bi, n_pairs, c_write, c_read, pattern):
     """Bounds of the kernel's work.  Operations: 2 * 16^3 a pair, the
     values' products at the FP32 rate (FP64 for float64 tiles: the card's
     peak, on the tensor cores; the kernel's DFMA runs at half of it); the
     counts are bit operations and are not counted.  Bytes: each distinct
     operand tile read once (A and B are two tables), ``c_write`` C tiles
-    written once (values, and counts with ``counts``), ``c_read`` read."""
+    written once (values, and ``pattern`` bytes of structure a tile: 1,024
+    of float32 counts, 68 of row masks and nnz scan, or 0), ``c_read``
+    read."""
     elem = a_val.element_size()
     ops = TILE16_FLOP * n_pairs
     operand_tiles = int(torch.unique(ai[:n_pairs]).numel()
                         + torch.unique(bi[:n_pairs]).numel())
-    nbytes = 256 * (operand_tiles * elem + c_write * (elem + 4 * counts)
-                    + c_read * elem)
+    nbytes = 256 * (operand_tiles * elem + c_write * elem + c_read * elem) \
+        + c_write * pattern
     rate, rate_name = (FP64_OPS_PER_S, "FP64 67 TFLOP/s") \
         if elem == 8 else (FP32_OPS_PER_S, "FP32 67 TFLOP/s")
     b_o, b_b = ops / rate, nbytes / HBM_BYTES_PER_S
@@ -4375,11 +4625,33 @@ def bmm16_ms(a_val, b_val, ai, bi, per=1 << 20):
     return total
 
 
+def run_launches(name):
+    """An entry's launches over phase tile16_path's runs (wrapper and
+    replayed), and by run."""
+    by_run = {k: v.get(name, 0) for k, v in TILE16_RUN_LAUNCHES.items()}
+    return sum(by_run.values()), by_run
+
+
+def bytes_bound(nbytes):
+    """The bound of a function whose work is bit operations and moves:
+    its bytes at the card's memory rate."""
+    return {"bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "bytes": nbytes}
+
+
 def tile16_rows(check_err):
-    """The kernels-line rows of the kernel's fresh form at pairbands-500k's
-    stream: float32 with counts (the fused engine; the values-only form,
-    the masks engine's, and "high" / "default" timed beside it) and float64
-    with counts.  Launches: phase tile16_path's runs."""
+    """The kernels-line rows of the Tile16 kernels at pairbands-500k's
+    stream: the accumulation's fresh form with counts in float32 and
+    float64 (the JAX package's contract; no path of the card runs it since
+    the masks form: the values-only form, the masks engine's, and "high" /
+    "default" timed beside it), its masks form in float32 and float64 (the
+    fused engine's step: values, row masks and nnz scan), and the
+    structure entries tile16_c_masks (the masks engine's step 2b, the
+    ring's planner) and tile16_c_rowcol (step 2c: timed with the values,
+    as the steady step gathers them, and without, as the interactive
+    multiply and the planner call it), those two by CUDA-graph replay
+    (``graph_ms``: a wrapper's host work outlasts their launches) beside
+    their wrappers' time.  Launches: phase tile16_path's runs."""
     from pem_spgemm_tpu_torch.ops import numeric as N
     coo = banded_device(**DIA_MATRICES[TILE16_MATRIX])
     chunk = SpGEMMConfig().numeric_chunk
@@ -4387,35 +4659,40 @@ def tile16_rows(check_err):
     for dtype in (torch.float32, torch.float64):
         acc = dtype
         name = TILE16_ENTRY[dtype]
-        a, b, ai, bi, seg, c_cap, n_pairs = tile16_stream(coo, dtype)
+        a, b, ai, bi, seg, c_cap, n_pairs, c_row, c_col = tile16_stream(
+            coo, dtype, coords=True)
         af, bf = a.dense_flat(), b.dense_flat()
         args = (ai, bi, seg, c_cap, chunk, acc)
         ms = time_ms(lambda: tk.accumulate_fused_flat(af, bf, *args))
+        launches, by_run = run_launches(name)
+        lib_ms = bmm16_ms(af, bf, ai[:n_pairs], bi[:n_pairs])
+        lib_covers = (f"torch.bmm in {str(dtype)[6:]} over the pre-gathered "
+                      "(P, 16, 16) operands in chunks of 2^20 pairs: the "
+                      "products only, without gather, structure and sum "
+                      "per C tile")
+        runs_on = "FP64 FMA (DFMA)" if dtype == torch.float64 \
+            else "FP32 FMA"
+        shape = {"matrix": TILE16_MATRIX, "pairs": n_pairs,
+                 "p_cap": int(ai.numel()), "c_cap": c_cap,
+                 "a_tiles": a.ntiles}
         row = {
             "name": name, "kernel": "Tile16" + ("-f64" if dtype ==
                                                  torch.float64 else ""),
             "route": "cuda", "source": TILE16_SOURCE,
-            "replaces": TILE16_REPLACES,
-            "launches": sum(v.get(name, 0)
-                            for v in TILE16_RUN_LAUNCHES.values()),
+            "replaces": TILE16_REPLACES, "launches": launches,
             "max_abs_err": max(check_err.get(name, 0.0),
                                check_err.get(name + "_acc", 0.0)),
             "ms": ms,
             "plain_ms": time_ms(lambda: N.fused_flat_plain(af, bf, *args),
                                 2),
-            **tile16_bounds(af, bf, ai, bi, n_pairs, c_cap, 0, True),
-            "library_ms": bmm16_ms(af, bf, ai[:n_pairs], bi[:n_pairs]),
-            "library_covers": f"torch.bmm in {str(dtype)[6:]} over the "
-                              "pre-gathered (P, 16, 16) operands in chunks "
-                              "of 2^20 pairs: the products only, without "
-                              "gather, counts and sum per C tile",
-            "runs_on": "FP64 FMA (DFMA)" if dtype == torch.float64
-                       else "FP32 FMA",
-            "form": "fresh, values and counts (the fused engine)",
-            "matrix": TILE16_MATRIX, "pairs": n_pairs,
-            "p_cap": int(ai.numel()), "c_cap": c_cap, "a_tiles": a.ntiles,
-            "launches_by_run": {k: v.get(name, 0) for k, v in
-                                TILE16_RUN_LAUNCHES.items()}}
+            **tile16_bounds(af, bf, ai, bi, n_pairs, c_cap, 0, 1024),
+            "library_ms": lib_ms, "library_covers": lib_covers,
+            "runs_on": runs_on,
+            "form": "timed: fresh, values and counts (the JAX package's "
+                    "accumulate_fused_flat contract; no path of the card "
+                    "runs it since the masks form); launches: the fresh "
+                    "forms, i.e. the values-only form of the masks engine",
+            **shape, "launches_by_run": by_run}
         ad = N.densify_tiles(a.vals, a.rowcol, a.elem_tile, a.tile_cap)
         bd = N.densify_tiles(b.vals, b.rowcol, b.elem_tile, b.tile_cap)
         row["values_only_ms"] = time_ms(
@@ -4430,8 +4707,99 @@ def tile16_rows(check_err):
                 row[f"max_abs_err_at_{q}"] = check_err.get(
                     prec_key(name, q), 0.0)
         rows.append(row)
-        del a, b, af, bf, ai, bi, seg
+        mname = TILE16_MASKS_ENTRY[dtype]
+        launches, by_run = run_launches(mname)
+        mrow = {
+            "name": mname, "kernel": "Tile16 masks form" + (
+                "-f64" if dtype == torch.float64 else ""),
+            "route": "cuda", "source": TILE16_SOURCE,
+            "replaces": STRUCT_REPLACES["masks_form"],
+            "launches": launches, "max_abs_err": check_err.get(mname, 0.0),
+            "ms": time_ms(lambda: tk.accumulate_fused_masks(af, bf, *args)),
+            "plain_ms": time_ms(lambda: N.fused_masks_plain(af, bf, *args),
+                                2),
+            **tile16_bounds(af, bf, ai, bi, n_pairs, c_cap, 0, 68),
+            "library_ms": lib_ms,
+            "library_covers": lib_covers + " (the counts form's row's "
+                              "measurement: the same call)",
+            "runs_on": runs_on,
+            "form": "fresh, values, row masks and nnz scan (the fused "
+                    "engine's step 3)",
+            **shape, "launches_by_run": by_run}
+        if dtype == torch.float32:
+            for q in LOWER_PRECISIONS:
+                mrow[f"ms_at_{q}"] = time_ms(
+                    lambda: tk.accumulate_fused_masks(af, bf, *args,
+                                                      precision=q))
+        rows.append(mrow)
+        if dtype == torch.float32:
+            dense = tk.accumulate_fused_masks(af, bf, *args)[0]
+            rows += tile16_structure_rows(a, b, ai, bi, seg, c_row, c_col,
+                                          c_cap, n_pairs, dense)
+            del dense
+        del a, b, af, bf, ai, bi, seg, c_row, c_col
         torch.cuda.empty_cache()
+    return rows
+
+
+def tile16_structure_rows(a, b, ai, bi, seg, c_row, c_col, c_cap, n_pairs,
+                          dense):
+    """The rows of tile16_c_masks and tile16_c_rowcol at a stream (the
+    interactive multiply's), the latter with ``dense``'s values and
+    without.  Bounds: bytes, each input read once and each output written
+    once (c_masks: the stream's three index arrays, each distinct A and B
+    mask tile, the masks, nnz scan and pair offsets; c_rowcol: the masks,
+    the nnz scan, the C_nnz values it gathers, three words a slot)."""
+    from pem_spgemm_tpu_torch.ops import numeric as N
+    m_args = (a.masks, b.tmasks, ai, bi, seg, c_cap)
+    cmask, cptr, _pp = tk.c_masks(*m_args)
+    c_nnz = int(cptr[-1])
+    cap = round_up_bucket(c_nnz)
+    distinct = int(torch.unique(ai[:n_pairs]).numel()
+                   + torch.unique(bi[:n_pairs]).numel())
+    launches, by_run = run_launches("tile16_c_masks")
+    shape = {"matrix": TILE16_MATRIX, "pairs": n_pairs, "c_cap": c_cap,
+             "c_nnz": c_nnz}
+    rows = [{
+        "name": "tile16_c_masks", "kernel": "Tile16 structure (step 2b)",
+        "route": "cuda", "source": STRUCT_SOURCE,
+        "replaces": STRUCT_REPLACES["tile16_c_masks"], "launches": launches,
+        "max_abs_err": 0.0,
+        "ms": graph_ms(lambda: tk.c_masks(*m_args)),
+        "wrapper_ms": time_ms(lambda: tk.c_masks(*m_args)),
+        "plain_ms": time_ms(lambda: cstruct.c_masks_plain(
+            a.masks, b.tmasks, ai, bi, seg, c_row, c_col, c_cap), 2),
+        "plain_covers": "cstruct.c_masks_plain, its two tile-coordinate "
+                        "scatters included",
+        **bytes_bound(12 * n_pairs + 64 * distinct + 72 * c_cap + 8),
+        "library_ms": None,
+        "library_covers": "none: no one PyTorch call computes it",
+        "runs_on": "integer AND / OR, shuffles", **shape,
+        "launches_by_run": by_run}]
+    rc, et = tk.c_rowcol(cmask, cptr, cap)
+    flat = dense.reshape(-1)
+    pos = et.long() * 256 + rc.long()
+    launches, by_run = run_launches("tile16_c_rowcol")
+    rows.append({
+        "name": "tile16_c_rowcol", "kernel": "Tile16 structure (step 2c)",
+        "route": "cuda", "source": STRUCT_SOURCE,
+        "replaces": STRUCT_REPLACES["tile16_c_rowcol"], "launches": launches,
+        "max_abs_err": 0.0,
+        "ms": graph_ms(lambda: tk.c_rowcol(cmask, cptr, cap, dense)),
+        "wrapper_ms": time_ms(lambda: tk.c_rowcol(cmask, cptr, cap, dense)),
+        "ms_without_values": graph_ms(lambda: tk.c_rowcol(cmask, cptr, cap)),
+        "plain_ms": time_ms(lambda: N.extract_values(
+            dense, *cstruct.c_rowcol_plain(cmask, cptr, cap)), 2),
+        "plain_ms_without_values": time_ms(
+            lambda: cstruct.c_rowcol_plain(cmask, cptr, cap), 2),
+        **bytes_bound(68 * c_cap + 4 + 4 * c_nnz + 12 * cap),
+        "bound_ms_without_values": (68 * c_cap + 4 + 8 * cap)
+        / HBM_BYTES_PER_S * 1e3,
+        "library_ms": graph_ms(lambda: flat[pos]),
+        "library_covers": "flat[pos]: the value gather alone, at the "
+                          "kernel's slots (positions made beforehand)",
+        "runs_on": "shuffle scan, __ffs", **shape, "c_nnz_cap": cap,
+        "launches_by_run": by_run})
     return rows
 
 
@@ -4485,7 +4853,7 @@ def tile16_acc_row(plans, plan1, check_err):
         "plain_ms": time_ms(lambda: N.dense_plain(p.a_dense, b, *args,
                                                   out=c), 2),
         **tile16_bounds(p.a_dense, b, p.pairs_a[s], p.pairs_b[s], n_pairs,
-                        tiles, tiles, False),
+                        tiles, tiles, 0),
         "library_ms": bmm16_ms(p.a_dense, b, p.pairs_a[s][:n_pairs],
                                p.pairs_b[s][:n_pairs]),
         "library_covers": "torch.bmm over the stage's pre-gathered "
@@ -4508,12 +4876,14 @@ def tile16_acc_row(plans, plan1, check_err):
 # share of a steady multiply they stand for in --profile
 TILE16_SCOPES = {
     "symbolic": (("symbolic", "pair_counts"), ("symbolic", "expand_pairs")),
-    "accumulate": (("numeric", "accumulate_fused_flat"),),
+    "accumulate": (("numeric", "accumulate_fused_masks"),),
     "structure.c_tile_coords": (("cstruct", "c_tile_coords"),),
-    "structure.counts_to_masks": (("numeric", "counts_to_masks"),),
-    "structure.c_rowcol": (("cstruct", "c_rowcol"),),
-    "structure.extract_values": (("numeric", "extract_values"),),
+    "structure.c_rowcol_values": (("cstruct", "c_rowcol_values"),),
 }
+# kernels launched through ctypes, which the profiler ties to no scope: by
+# name, with the share they are counted in
+TILE16_NAMED_KERNELS = {"accumulate.tile16_kernel": r"tile16_kernel",
+                        "structure.c_rowcol_kernel": r"c_rowcol_kernel"}
 # kernels of the accumulation, by what launches them
 ACCUMULATE_KERNELS = (("tile16_kernel", r"tile16_kernel"),
                       ("bmm", r"gemm|cutlass|xmma|Kernel2"),
@@ -4550,9 +4920,10 @@ def tile16_scoped(fn):
 def tile16_split(multiply, n):
     """Device ms a multiply by share (symbolic, accumulate split into
     the Tile16 kernel / other, structure), from torch.profiler over n eager
-    multiplies with the shares' scopes.  The kernel is launched through
-    ctypes, not by a torch op, so the profiler ties it to no scope: its
-    share is its device time by name."""
+    multiplies with the shares' scopes.  The kernels are launched through
+    ctypes, not by a torch op, so the profiler ties them to no scope: their
+    shares are their device times by name (TILE16_NAMED_KERNELS); with a
+    share's torch ops the step's shares sum to its device time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -4578,9 +4949,10 @@ def tile16_split(multiply, n):
                             ACCUMULATE_KERNELS if re.search(pat, kname)),
                            "accumulate.other")
             split[key] = split.get(key, 0.0) + us / 1e3 / n
-    split["accumulate.tile16_kernel"] = sum(
-        e.self_device_time_total for e in prof.key_averages()
-        if re.search(ACCUMULATE_KERNELS[0][1], e.key)) / 1e3 / n
+    for key, pat in TILE16_NAMED_KERNELS.items():
+        split[key] = sum(e.self_device_time_total
+                         for e in prof.key_averages()
+                         if re.search(pat, e.key)) / 1e3 / n
     return split
 
 
@@ -5393,17 +5765,28 @@ def tile16_composition(p, chunks):
             (torch.cuda.max_memory_allocated() - before) / 2**30)
 
 
-def check_tile16_ring_launches(launches, plans, what, runs=1):
+def check_tile16_ring_launches(launches, plans, what, runs=1, planned=0):
     """One kernel launch a stage with pairs (``runs`` times): the first of
-    each rank's in the fresh form, the others in the accumulate form, and
-    no other kernel of this package."""
+    each rank's in the fresh form, the others in the accumulate form; one
+    launch of each structure entry a plan made (``planned``); and no other
+    kernel of this package."""
     stages, first = ring_stage_counts(plans)
     want = nonzero({"tile16_accumulate_pairs": runs * first,
-                    "tile16_accumulate_pairs_acc": runs * (stages - first)})
+                    "tile16_accumulate_pairs_acc": runs * (stages - first),
+                    "tile16_c_masks": planned, "tile16_c_rowcol": planned})
     if launches != want:
         raise AssertionError(f"{what}: launches {launches}, {stages} "
                              f"stages with pairs, {first} of them first")
     return stages
+
+
+def ring_plan_split(a, b, c_nnz):
+    """The Tile16 ring's world-size-1 plan split into the pair expansion
+    and schedule, c_masks, c_rowcol and the rest (ms), its C_nnz held."""
+    split, nnz = tiers_ab.ring_plan_split(a, b, 3)
+    if nnz != c_nnz:
+        raise AssertionError(f"tile16 ring plan: C_nnz {nnz}")
+    return split
 
 
 def sharded_tile16_runs(ref, mesh, check_err):
@@ -5433,7 +5816,7 @@ def sharded_tile16_runs(ref, mesh, check_err):
     launches = nonzero(all_counts())
     add_path_launches("sharded_path", launches)
     stages = check_tile16_ring_launches(launches, [plan], "tile16 ring",
-                                        runs=2)
+                                        runs=2, planned=1)
     if plan.c_nnz != want_nnz:
         raise AssertionError(f"tile16 ring: C_nnz {plan.c_nnz}")
     _cancelled, over = check_coo(rows, cols, vals_h, ref, "tile16 ring")
@@ -5445,7 +5828,11 @@ def sharded_tile16_runs(ref, mesh, check_err):
          c_nnz=plan.c_nnz, checked_against="scipy, every entry; the "
          "fresh-form-plus-torch-add composition under ==",
          values_worst_over_bound=over, launches=launches,
-         stages_with_pairs=stages, plan_ms=plan_ms, multiply_ms=mul_ms,
+         stages_with_pairs=stages, plan_ms=plan_ms,
+         plan_split_ms=ring_plan_split(a, b, plan.c_nnz),
+         plan_split="median of 3 plans after one warm-up, synchronised "
+                    "host clocks (bench/tiers_ab.py ring_plan_split)",
+         multiply_ms=mul_ms,
          ring_peak_mem_gb=ring_peak, composition_ms=comp_ms,
          composition_peak_mem_gb=comp_peak, assemble_ms=asm_ms)
     del rows, cols, vals, vals_h, comp
@@ -5701,7 +6088,7 @@ def phase_precision_path(check_err=None):
     precision_runs(coo, name, SpGEMMConfig(engine="macro"), every,
                    "macro_accumulate_pairs")
     precision_runs(coo, name, SpGEMMConfig(engine="fused"), every,
-                   "tile16_accumulate_pairs")
+                   "tile16_accumulate_pairs_masks")
     del coo, want
     torch.cuda.empty_cache()
     for q in LOWER_PRECISIONS:
@@ -5709,7 +6096,7 @@ def phase_precision_path(check_err=None):
         if not (got.get("macro_accumulate_pairs") and
                 got.get("macro_class_ragged") and
                 got.get("macro_accumulate_pairs_acc") and
-                got.get("tile16_accumulate_pairs")):
+                got.get("tile16_accumulate_pairs_masks")):
             raise AssertionError(f"precision_path at {q} launched {got}")
     emit("precision_total", seconds=time.perf_counter() - t0,
          launches=PRECISION_LAUNCHES)
@@ -6057,11 +6444,15 @@ def main():
     for row in kernels:
         # the uniform class entry has no caller on any path (nor has the
         # kernel it replaces in the JAX package), nor has the row-copy
-        # probe: each is held against its plain version (the uniform entry
-        # also against the ragged one) and reports its count from the path
-        # runs as measured, 0 today
+        # probe, nor the Tile16 float64 entry's fresh forms (the fused
+        # engine's float64 step runs its masks form, and no float64 path
+        # runs the masks engine): each is held against its plain version
+        # (the uniform entry also against the ragged one, the Tile16 forms
+        # against each other) and reports its count from the path runs as
+        # measured, 0 today
         if row["launches"] <= 0 and row["name"].split("@")[0] not in (
-                "macro_class_uniform", "row_copy"):
+                "macro_class_uniform", "row_copy",
+                "tile16_accumulate_pairs_f64"):
             raise AssertionError(f"{row['name']} was never launched on "
                                  "the main path")
     emit("total", seconds=time.perf_counter() - t_start)

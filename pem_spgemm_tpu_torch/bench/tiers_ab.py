@@ -4,15 +4,18 @@
         [--rounds 3] [--only NAME ...]
 
 Runs ``bench.harness.run_benchmark`` on the DIA matrices (float32, and
-pairbands-500k in float64) and the Macro128 ones of ``chip_smoke.py``, at
-full size, in one child process a checkout (its own package, its own
-kernel build): parent, change, change, parent, ``--rounds`` times, on one
-card.  Each child process is one sample of each matrix's interactive,
-steady and pipelined tier (host-clock ms, the mean of ``repeat``
-multiplies).  Prints one JSON line a sample, then a summary line a matrix:
-each checkout's samples, their median and spread (max - min), and whether
-the change's median of each tier lies above the parent's by more than the
-larger of the two spreads.  DIR is a checkout's root (for example
+pairbands-500k in float64), the Macro128 ones of ``chip_smoke.py`` and
+pairbands-500k on the Tile16 engines, at full size, and the Tile16 ring's
+world-size-1 plan of pairbands-500k (``ring_plan_split``), in one child
+process a checkout (its own package, its own kernel build): parent,
+change, change, parent, ``--rounds`` times, on one card.  Each child
+process is one sample of each matrix's interactive, steady and pipelined
+tier (host-clock ms, the mean of ``repeat`` multiplies) and step 1 / 2 /
+3 ms (the harness's timers), or of the plan's parts.  Prints one JSON
+line a sample, then a summary line a matrix: each checkout's samples,
+their median and spread (max - min), and whether the change's median of
+each tier lies above the parent's by more than the larger of the two
+spreads.  DIR is a checkout's root (for example
 ``git archive <commit> | tar -x -C DIR`` inside a git-ignored directory);
 the change defaults to this package's checkout.  Needs a GPU.
 """
@@ -20,6 +23,7 @@ the change defaults to this package's checkout.  Needs a GPU.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import statistics
@@ -55,8 +59,68 @@ CASES = {
     "pairbands-500k macro": ("banded_device", dict(n=500_000, seed=9,
                                                    bands=PAIRBANDS),
                              "macro", "float32", 3),
+    "pairbands-500k fused": ("banded_device", dict(n=500_000, seed=9,
+                                                   bands=PAIRBANDS),
+                             "fused", "float32", 5),
+    "pairbands-500k masks": ("banded_device", dict(n=500_000, seed=9,
+                                                   bands=PAIRBANDS),
+                             "masks", "float32", 5),
+    # the Tile16 ring's plan at world size 1: ring_plan_split, median of 5
+    "pairbands-500k ring plan": ("banded_device", dict(n=500_000, seed=9,
+                                                       bands=PAIRBANDS),
+                                 "ring_plan", "float32", 5),
 }
-TIERS = ("pem_spgemm_time", "steady_state_time", "pipelined_time")
+TIERS = ("pem_spgemm_time", "steady_state_time", "pipelined_time",
+         "step1_time", "step2_time", "step3_time")
+PLAN_PARTS = ("total", "pairs_and_schedule", "c_masks", "c_rowcol", "rest")
+
+
+def ring_plan_split(a, b, n):
+    """The Tile16 ring's world-size-1 plan of A @ B
+    (``parallel.sharded.plan_sharded_spgemm``), median of ``n`` after one
+    warm-up, split by synchronised host clocks into the pair expansion and
+    ring schedule (``expand_schedule``), ``cstruct.c_masks``,
+    ``cstruct.c_rowcol`` and the rest, in ms; with the plan's C_nnz.  Only
+    names every checkout since the Tile16 ring has (a child process runs
+    this function's source in another checkout)."""
+    import statistics
+    import time
+    import torch
+    from pem_spgemm_tpu_torch.ops import cstruct
+    from pem_spgemm_tpu_torch.parallel import sharded as sh
+    spent = {}
+
+    def timed(name, fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            spent[name] = spent.get(name, 0.0) + time.perf_counter() - t0
+            return out
+        return run
+
+    saved = (sh.expand_schedule, cstruct.c_masks, cstruct.c_rowcol)
+    sh.expand_schedule = timed("pairs_and_schedule", sh.expand_schedule)
+    cstruct.c_masks = timed("c_masks", cstruct.c_masks)
+    cstruct.c_rowcol = timed("c_rowcol", cstruct.c_rowcol)
+    runs, c_nnz = [], set()
+    try:
+        for i in range(n + 1):
+            spent.clear()
+            c_nnz.add(timed("total", sh.plan_sharded_spgemm)(a, b, 1,
+                                                             0).c_nnz)
+            if i:                               # the first warms up
+                ms = {k: v * 1e3 for k, v in spent.items()}
+                ms["rest"] = ms["total"] - sum(
+                    v for k, v in ms.items() if k != "total")
+                runs.append(ms)
+    finally:
+        sh.expand_schedule, cstruct.c_masks, cstruct.c_rowcol = saved
+    if len(c_nnz) != 1:
+        raise AssertionError(f"ring plans of C_nnz {sorted(c_nnz)}")
+    return {k: statistics.median(r[k] for r in runs)
+            for k in runs[0]}, c_nnz.pop()
 
 # One sample of each case in the checkout the process runs in (its root is
 # the working directory and the first entry of sys.path).  Only calls that
@@ -75,22 +139,31 @@ for name, (gen, kw, engine, dtype, repeat) in cases.items():
     if "bands" in kw:
         kw = dict(kw, bands=tuple(kw["bands"]))
     coo = getattr(synthetic, gen)(**kw)
-    cfg = SpGEMMConfig(engine=engine, dtype=getattr(torch, dtype),
-                       repeat=repeat)
-    rec, res = run_benchmark(coo, name, cfg, verbose=False)
-    print(json.dumps({"tree": tag, "case": name, "c_nnz": rec.c_nnz,
-                      "package": pem_spgemm_tpu_torch.__file__,
-                      **{k: getattr(rec, k) for k in (
-                          "pem_spgemm_time", "steady_state_time",
-                          "pipelined_time", "step3_time")}}), flush=True)
-    del rec, res, coo
+    row = {"tree": tag, "case": name,
+           "package": pem_spgemm_tpu_torch.__file__}
+    if engine == "ring_plan":
+        from pem_spgemm_tpu_torch.ops.convert import coo_to_tiled
+        a, b = coo_to_tiled(coo), coo_to_tiled(coo, with_tmasks=True)
+        ms, row["c_nnz"] = ring_plan_split(a, b, repeat)
+        row.update(ms)
+        del a, b
+    else:
+        cfg = SpGEMMConfig(engine=engine, dtype=getattr(torch, dtype),
+                           repeat=repeat)
+        rec, res = run_benchmark(coo, name, cfg, verbose=False)
+        row.update(c_nnz=rec.c_nnz, **{k: getattr(rec, k) for k in TIERS})
+        del rec, res
+    print(json.dumps(row), flush=True)
+    del coo
     torch.cuda.empty_cache()
 """
 
 
 def run_child(tag, tree, cases):
     env = dict(os.environ, PYTHONPATH=tree)
-    p = subprocess.run([sys.executable, "-c", CHILD, tag, json.dumps(cases)],
+    code = (f"TIERS = {TIERS!r}\n" + inspect.getsource(ring_plan_split)
+            + CHILD)
+    p = subprocess.run([sys.executable, "-c", code, tag, json.dumps(cases)],
                        cwd=tree, env=env, capture_output=True, text=True,
                        timeout=600)
     if p.returncode != 0:
@@ -112,7 +185,8 @@ def summary(samples, names):
         if len(nnz) != 1:
             raise AssertionError(f"{name}: C_nnz {sorted(nnz)}")
         line = {"summary": name, "c_nnz": nnz.pop()}
-        for tier in TIERS:
+        ring = CASES[name][2] == "ring_plan"
+        for tier in PLAN_PARTS if ring else TIERS:
             got = {t: sorted(s[tier] for s in rows[t]) for t in rows}
             med = {t: statistics.median(v) for t, v in got.items()}
             spread = {t: v[-1] - v[0] for t, v in got.items()}

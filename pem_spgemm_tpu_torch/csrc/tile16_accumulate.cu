@@ -4,6 +4,7 @@
 //     C[c]   = sum over p in [seg_ptr[c], seg_ptr[c+1]) of
 //              A[a_idx[p]] @ B[b_idx[p]]
 //     CNT[c] = sum over the same p of (A[a_idx[p]] != 0) @ (B[b_idx[p]] != 0)
+//     MSK[c] = the row bitmasks of CNT[c] > 0, and their popc sum
 //
 // This kernel replaces no Pallas kernel: the JAX package computes the Tile16
 // tier's numeric phase in XLA (ops/numeric.py accumulate_fused_flat,
@@ -18,15 +19,24 @@
 // once: no atomics, no zero-fill pass, the same sums in the same order at
 // every launch.
 //
-// Three forms, template arguments of one kernel:
-//   * fresh with counts (COUNTS): the fused engine.  The structural counts
-//     are formed without float products: per pair, the A tile's 16 row masks
-//     and the B tile's 16 column masks (16 bits over k, from the raw values:
-//     x != 0, so NaN counts and -0.0 does not), and popc(row & col) an
-//     entry, in int32, stored as float32: exact integers, bit for bit the
-//     0/1 float product's.  SEP_PAT: the pattern comes from two other tables
-//     (the raw ones, where the values were rounded to tf32 or bfloat16 by the
-//     caller), copied beside the values.
+// Four forms, template arguments of one kernel:
+//   * fresh with masks (MASKS): the fused engine on the card.  The
+//     structural counts are formed without float products: per pair, the A
+//     tile's 16 row masks and the B tile's 16 column masks (16 bits over k,
+//     from the raw values: x != 0, so NaN counts and -0.0 does not), and
+//     popc(row & col) an entry, in int32.  Only count > 0 is ever used, so
+//     this form stores C's structure straight from the counts the lanes
+//     hold: each lane ORs its 2 x 4 block's count > 0 bits into its two row
+//     words, the four lanes of a row OR theirs together by shuffles, and one
+//     lane a row stores the (c_cap, 16) int32 row masks; lane 0 stores the
+//     tile's nnz (popc sum).  No (c_cap, 256) count table is written (0.96 GB
+//     at pairbands-500k) nor read back.  SEP_PAT: the pattern comes from two
+//     other tables (the raw ones, where the values were rounded to tf32 or
+//     bfloat16 by the caller), copied beside the values.
+//   * fresh with counts (COUNTS): the JAX package's contract
+//     (accumulate_fused_flat), the counts stored as float32: exact
+//     integers, bit for bit the 0/1 float product's.  No path of the card
+//     calls it; it is held against the masks form in the kernel check.
 //   * fresh, values only: the masks engine, and a ring rank's first stage.
 //   * accumulate (ACC), values only: a ring rank's later stages add into the
 //     rank's C.  A tile's stage partial is summed in registers from zero, as
@@ -120,15 +130,17 @@ __device__ __forceinline__ void stage(W* slot, int lane,
     }
 }
 
-template <typename W, bool COUNTS, bool SEP_PAT, bool ACC>
+template <typename W, bool COUNTS, bool MASKS, bool SEP_PAT, bool ACC>
 __global__ void __launch_bounds__(WARPS * 32)
 tile16_kernel(const W* __restrict__ a_val, const W* __restrict__ b_val,
               const W* __restrict__ a_pat, const W* __restrict__ b_pat,
               int n_a, int n_b, const int* __restrict__ a_idx,
               const int* __restrict__ b_idx, const int* __restrict__ seg_ptr,
-              int c_cap, W* __restrict__ c_val, float* __restrict__ c_cnt) {
+              int c_cap, W* __restrict__ c_val, float* __restrict__ c_cnt,
+              int* __restrict__ c_mask, int* __restrict__ c_nnz) {
     using G = Geo<W>;
-    constexpr int NT = (COUNTS && SEP_PAT) ? 4 : 2;     // tiles a slot
+    constexpr bool PAT = COUNTS || MASKS;               // the 0/1 pattern
+    constexpr int NT = (PAT && SEP_PAT) ? 4 : 2;        // tiles a slot
     __shared__ __align__(16) W s_tiles[WARPS][NT][G::SLOT];
     __shared__ __align__(16) uint32_t s_mask[WARPS][32];
 
@@ -178,7 +190,7 @@ tile16_kernel(const W* __restrict__ a_val, const W* __restrict__ b_val,
             bi = min(max(bi, 0), n_b - 1);
             fetch(a_val, ai, lane, ra);
             fetch(b_val, bi, lane, rb);
-            if constexpr (COUNTS && SEP_PAT) {
+            if constexpr (PAT && SEP_PAT) {
                 fetch(a_pat, ai, lane, pa);
                 fetch(b_pat, bi, lane, pb);
             }
@@ -188,14 +200,14 @@ tile16_kernel(const W* __restrict__ a_val, const W* __restrict__ b_val,
             __syncwarp();                   // the last pair's reads are done
             stage(sA, lane, ra);
             stage(sB, lane, rb);
-            if constexpr (COUNTS && SEP_PAT) {
+            if constexpr (PAT && SEP_PAT) {
                 stage(mA, lane, pa);
                 stage(mB, lane, pb);
             }
             __syncwarp();
             if (p + 1 < hi) issue(p + 1);   // in flight during the products
 
-            if constexpr (COUNTS) {
+            if constexpr (PAT) {
                 uint32_t m = 0;
 #pragma unroll
                 for (int k = 0; k < 16; ++k) {
@@ -257,49 +269,94 @@ tile16_kernel(const W* __restrict__ a_val, const W* __restrict__ b_val,
             st4(c_cnt + base + (r0 + i) * 16 + c0, f);
         }
     }
+    if constexpr (MASKS) {
+        // row r0 + i, bits c0 .. c0 + 3 from this lane, the rest of the
+        // row from the three other lanes of the quad (lanes 4q .. 4q + 3
+        // share r0)
+        uint32_t w[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+            w[i] = 0;
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+                w[i] |= (uint32_t)(cnt[i][j] > 0) << (c0 + j);
+            w[i] |= __shfl_xor_sync(FULL, w[i], 1);
+            w[i] |= __shfl_xor_sync(FULL, w[i], 2);
+        }
+        if ((lane & 3) == 0)
+            *reinterpret_cast<int2*>(c_mask + (size_t)c * 16 + r0) =
+                make_int2((int)w[0], (int)w[1]);
+        // every lane of a quad now holds its two rows whole: the quad's
+        // first lane counts them, and the eight quads' counts are summed
+        int pc = ((lane & 3) == 0) ? __popc(w[0]) + __popc(w[1]) : 0;
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1)
+            pc += __shfl_xor_sync(FULL, pc, off);
+        if (lane == 0) c_nnz[c] = pc;
+    }
 }
 
-template <typename W, bool COUNTS, bool SEP_PAT, bool ACC>
+template <typename W, bool COUNTS, bool MASKS, bool SEP_PAT, bool ACC>
 int launch(const W* a_val, const W* b_val, const W* a_pat, const W* b_pat,
            int n_a, int n_b, const int* a_idx, const int* b_idx,
            const int* seg_ptr, int c_cap, W* c_val, float* c_cnt,
-           cudaStream_t stream) {
+           int* c_mask, int* c_nnz, cudaStream_t stream) {
     const unsigned blocks = (unsigned)((c_cap + WARPS - 1) / WARPS);
-    tile16_kernel<W, COUNTS, SEP_PAT, ACC><<<blocks, WARPS * 32, 0, stream>>>(
-        a_val, b_val, a_pat, b_pat, n_a, n_b, a_idx, b_idx, seg_ptr, c_cap,
-        c_val, c_cnt);
+    tile16_kernel<W, COUNTS, MASKS, SEP_PAT, ACC>
+        <<<blocks, WARPS * 32, 0, stream>>>(a_val, b_val, a_pat, b_pat, n_a,
+                                           n_b, a_idx, b_idx, seg_ptr, c_cap,
+                                           c_val, c_cnt, c_mask, c_nnz);
     return (int)cudaGetLastError();
+}
+
+// the fresh forms with a pattern (counts or masks), from the value tables
+// or from separate pattern tables
+template <typename W, bool COUNTS, bool MASKS>
+int launch_pattern(const W* a_val, const W* b_val, const W* a_pat,
+                   const W* b_pat, int n_a, int n_b, const int* a_idx,
+                   const int* b_idx, const int* seg_ptr, int c_cap, W* c_val,
+                   float* c_cnt, int* c_mask, int* c_nnz,
+                   cudaStream_t stream) {
+    if (a_pat == a_val && b_pat == b_val)
+        return launch<W, COUNTS, MASKS, false, false>(
+            a_val, b_val, a_val, b_val, n_a, n_b, a_idx, b_idx, seg_ptr,
+            c_cap, c_val, c_cnt, c_mask, c_nnz, stream);
+    if constexpr (sizeof(W) == 8) {
+        // float64 ignores the precision: its pattern is its values
+        return (int)cudaErrorInvalidValue;
+    } else {
+        return launch<W, COUNTS, MASKS, true, false>(
+            a_val, b_val, a_pat, b_pat, n_a, n_b, a_idx, b_idx, seg_ptr,
+            c_cap, c_val, c_cnt, c_mask, c_nnz, stream);
+    }
 }
 
 template <typename W>
 int entry(const W* a_val, const W* b_val, const W* a_pat, const W* b_pat,
           int n_a, int n_b, const int* a_idx, const int* b_idx,
           const int* seg_ptr, int c_cap, W* c_val, float* c_cnt,
-          int accumulate, cudaStream_t stream) {
+          int* c_mask, int* c_nnz, int accumulate, cudaStream_t stream) {
     if (c_cap <= 0) return (int)cudaSuccess;
-    if (n_a <= 0 || n_b <= 0 || (accumulate && c_cnt != nullptr))
+    const bool masks = c_mask != nullptr;
+    if (n_a <= 0 || n_b <= 0 || masks != (c_nnz != nullptr)
+        || (masks && c_cnt != nullptr)
+        || (accumulate && (c_cnt != nullptr || masks)))
         return (int)cudaErrorInvalidValue;
     if (accumulate)
-        return launch<W, false, false, true>(a_val, b_val, a_val, b_val, n_a,
-                                             n_b, a_idx, b_idx, seg_ptr,
-                                             c_cap, c_val, nullptr, stream);
-    if (c_cnt == nullptr)
-        return launch<W, false, false, false>(a_val, b_val, a_val, b_val,
-                                              n_a, n_b, a_idx, b_idx,
-                                              seg_ptr, c_cap, c_val, nullptr,
-                                              stream);
-    if (a_pat == a_val && b_pat == b_val)
-        return launch<W, true, false, false>(a_val, b_val, a_val, b_val, n_a,
-                                             n_b, a_idx, b_idx, seg_ptr,
-                                             c_cap, c_val, c_cnt, stream);
-    if constexpr (sizeof(W) == 8) {
-        // float64 ignores the precision: its pattern is its values
-        return (int)cudaErrorInvalidValue;
-    } else {
-        return launch<W, true, true, false>(a_val, b_val, a_pat, b_pat, n_a,
-                                            n_b, a_idx, b_idx, seg_ptr, c_cap,
-                                            c_val, c_cnt, stream);
-    }
+        return launch<W, false, false, false, true>(
+            a_val, b_val, a_val, b_val, n_a, n_b, a_idx, b_idx, seg_ptr,
+            c_cap, c_val, nullptr, nullptr, nullptr, stream);
+    if (masks)
+        return launch_pattern<W, false, true>(
+            a_val, b_val, a_pat, b_pat, n_a, n_b, a_idx, b_idx, seg_ptr,
+            c_cap, c_val, nullptr, c_mask, c_nnz, stream);
+    if (c_cnt != nullptr)
+        return launch_pattern<W, true, false>(
+            a_val, b_val, a_pat, b_pat, n_a, n_b, a_idx, b_idx, seg_ptr,
+            c_cap, c_val, c_cnt, nullptr, nullptr, stream);
+    return launch<W, false, false, false, false>(
+        a_val, b_val, a_val, b_val, n_a, n_b, a_idx, b_idx, seg_ptr, c_cap,
+        c_val, nullptr, nullptr, nullptr, stream);
 }
 
 }  // namespace
@@ -309,18 +366,21 @@ int entry(const W* a_val, const W* b_val, const W* a_pat, const W* b_pat,
 // themselves where they are the same pointers); a_idx, b_idx: the pair
 // stream (int32); seg_ptr: (c_cap + 1,) int32, tile c owns the pairs
 // [seg_ptr[c], seg_ptr[c + 1]); c_val: (c_cap, 256) values; c_cnt: (c_cap,
-// 256) float32 counts, or null for values only; accumulate: 1 adds into
-// c_val (c_cnt must be null).  Returns the launch's cudaError_t.
+// 256) float32 counts, or null; c_mask, c_nnz: (c_cap, 16) int32 row masks
+// (8-byte aligned) and (c_cap,) int32 nnz of the pattern, or both null; at
+// most one of the two pattern forms; none for values only; accumulate: 1
+// adds into c_val (no pattern).  Returns the launch's cudaError_t.
 extern "C" int tile16_accumulate_pairs_f32(
     const void* a_val, const void* b_val, const void* a_pat,
     const void* b_pat, int n_a, int n_b, const void* a_idx,
     const void* b_idx, const void* seg_ptr, int c_cap, void* c_val,
-    void* c_cnt, int accumulate, void* stream) {
+    void* c_cnt, void* c_mask, void* c_nnz, int accumulate, void* stream) {
     return entry<float>((const float*)a_val, (const float*)b_val,
                         (const float*)a_pat, (const float*)b_pat, n_a, n_b,
                         (const int*)a_idx, (const int*)b_idx,
                         (const int*)seg_ptr, c_cap, (float*)c_val,
-                        (float*)c_cnt, accumulate, (cudaStream_t)stream);
+                        (float*)c_cnt, (int*)c_mask, (int*)c_nnz, accumulate,
+                        (cudaStream_t)stream);
 }
 
 // the same for float64 tiles (DFMA); counts stay float32
@@ -328,10 +388,11 @@ extern "C" int tile16_accumulate_pairs_f64(
     const void* a_val, const void* b_val, const void* a_pat,
     const void* b_pat, int n_a, int n_b, const void* a_idx,
     const void* b_idx, const void* seg_ptr, int c_cap, void* c_val,
-    void* c_cnt, int accumulate, void* stream) {
+    void* c_cnt, void* c_mask, void* c_nnz, int accumulate, void* stream) {
     return entry<double>((const double*)a_val, (const double*)b_val,
                          (const double*)a_pat, (const double*)b_pat, n_a, n_b,
                          (const int*)a_idx, (const int*)b_idx,
                          (const int*)seg_ptr, c_cap, (double*)c_val,
-                         (float*)c_cnt, accumulate, (cudaStream_t)stream);
+                         (float*)c_cnt, (int*)c_mask, (int*)c_nnz, accumulate,
+                         (cudaStream_t)stream);
 }

@@ -30,7 +30,7 @@ GXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-pthread", "-shared")
 
 # every CUDA source of the package, by stem (csrc/<stem>.cu)
 CUDA_SOURCES = ("segment_sort", "dia_multiply", "macro_accumulate",
-                "row_copy", "tile16_accumulate")
+                "row_copy", "tile16_accumulate", "tile16_structure")
 
 _loaded = {}            # library path -> ctypes.CDLL
 _cuda = {}              # CUDA source stem -> ctypes.CDLL

@@ -4,13 +4,25 @@ Counterpart of the JAX package's ops/cstruct.py (the reference's steps 2b
 and 2c):
   * ``c_masks``: per pair, C row-mask bit c is set iff (A row bitmap AND B
     transposed column-c bitmap) is nonzero; OR-accumulated over the pairs
-    of each C tile (16 bit-plane segmented maxima: pairs of a C tile are
-    contiguous after the symbolic sort); popcounts give the exact per-tile
-    nnz and its exclusive scan the total C nnz;
-  * ``c_rowcol``: C's set bits enumerated by a gather per output slot (its
-    tile row from the nnz scan at row granularity, its column by a bit-rank
-    select from a table);
+    of each C tile (pairs of a C tile are contiguous after the symbolic
+    sort); popcounts give the exact per-tile nnz and its exclusive scan the
+    total C nnz;
+  * ``c_rowcol`` (and ``c_rowcol_values``, with the compressed values of
+    ``numeric.extract_values``): C's set bits enumerated in tile-major,
+    row-major order;
   * ``c_tile_coords``: the per-pair C tile keys scattered to (c_cap,) arrays.
+
+On the card ``c_masks`` and ``c_rowcol`` / ``c_rowcol_values`` are
+hand-written kernels (``ops.tile16_kernels``, csrc/tile16_structure.cu: a
+half-warp a C tile, no atomics; the JAX package runs this phase in XLA):
+``tile16_c_masks`` ORs a tile's pairs in stream order, and the tiles'
+pair offsets are ``macro_kernels.segment_offsets`` of the sorted stream;
+``tile16_c_rowcol`` scans a tile's row popcounts and writes each row's
+set bits.  CPU tensors take the plain versions here (``c_masks_plain``:
+16 bit-plane segmented maxima; ``c_rowcol_plain``: a gather per output
+slot, its tile row from the nnz scan at row granularity and its column by
+a bit-rank select from a table); dispatch is by the tensors' device.
+``c_tile_coords`` is torch ops on both.
 
 Nothing here copies to the host: the steady Tile16 step (ops/fixed.py) is
 captured as one CUDA graph.  Scatters that drop a padding entry write it to
@@ -52,10 +64,10 @@ _SELECT: dict = {}
 def select16(m: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """Column of the k-th set bit (k from 0) of each 16-bit mask m; 0 where
     m has k or fewer set bits or k is out of [0, 16).  One gather from a
-    (65536 * 16,) table made once a device from device ops (no host copy:
-    the table is made outside any graph capture, by the eager multiply
-    before it).  The JAX package selects with a 16-step loop over the bits;
-    the results are equal."""
+    (65536 * 16,) table made once a device from device ops, at the first
+    call (``c_rowcol_plain``'s: the CPU's; the card enumerates C's bits in
+    the kernel and never builds it).  The JAX package selects with a
+    16-step loop over the bits; the results are equal."""
     dev = m.device
     table = _SELECT.get(dev)
     if table is None:
@@ -105,16 +117,36 @@ def _exclusive_scan(x):
 
 def c_masks(a_masks, b_tmasks, a_idx, b_idx, c_tile_id, c_row, c_col,
             c_cap: int):
-    """Per-C-tile bitmasks and exact nnz counts.
+    """Per-C-tile bitmasks and exact nnz counts of a pair stream sorted by
+    C tile (``c_tile_id`` ascending, padding at c_cap or above).
 
     Returns (c_tile_row, c_tile_col, cmask, cptr, pair_ptr):
       c_tile_row/col: (c_cap,) i32 (sentinel INT32_MAX on padding);
       cmask: (c_cap, 16) i32 row bitmaps of C tiles;
       cptr:  (c_cap+1,) i32 exclusive scan of per-tile nnz (cptr[-1] = C_nnz);
       pair_ptr: (c_cap+1,) i32 exclusive scan of per-tile pair counts.
-    Padding pairs index one past the operands' tiles; they are clamped in
-    range, their bits zeroed and their tile clamped to c_cap - 1, where a
-    zero changes neither a count nor a maximum.
+    CUDA tensors: the kernel ``tile16_c_masks`` (pair_ptr is
+    ``segment_offsets`` of the stream, which equals the scan for a sorted
+    stream); CPU tensors: ``c_masks_plain``.
+    """
+    if not a_idx.is_cuda:
+        return c_masks_plain(a_masks, b_tmasks, a_idx, b_idx, c_tile_id,
+                             c_row, c_col, c_cap)
+    from pem_spgemm_tpu_torch.ops import tile16_kernels
+    c_tile_row, c_tile_col = c_tile_coords(c_tile_id, c_row, c_col, c_cap)
+    cmask, cptr, pair_ptr = tile16_kernels.c_masks(
+        a_masks, b_tmasks, a_idx, b_idx, c_tile_id, c_cap)
+    return c_tile_row, c_tile_col, cmask, cptr, pair_ptr
+
+
+def c_masks_plain(a_masks, b_tmasks, a_idx, b_idx, c_tile_id, c_row, c_col,
+                  c_cap: int):
+    """The plain version of ``c_masks`` (CPU tensors), the JAX package's
+    algorithm: the structural product of every pair as one vector
+    expression, then 16 bit-plane segmented maxima.  Padding pairs index
+    one past the operands' tiles; they are clamped in range, their bits
+    zeroed and their tile clamped to c_cap - 1, where a zero changes
+    neither a count nor a maximum.
     """
     valid = c_tile_id < c_cap
     cid_seg = torch.where(valid, c_tile_id, c_cap).clamp(max=c_cap - 1).long()
@@ -152,7 +184,32 @@ def c_rowcol(cmask, cptr, c_nnz_cap: int):
     """Enumerate C's set bits: packed intra-tile coords + owning tile index.
 
     Returns (rowcol, elem_tile): both (c_nnz_cap,) i32, tile-major intra-tile
-    row-major order, the value order the numeric phase produces.  Each
+    row-major order, the value order the numeric phase produces; slots past
+    C_nnz hold the last row of the last tile, column 0.  CUDA tensors: the
+    kernel ``tile16_c_rowcol``; CPU tensors: ``c_rowcol_plain``.
+    """
+    if not cmask.is_cuda:
+        return c_rowcol_plain(cmask, cptr, c_nnz_cap)
+    from pem_spgemm_tpu_torch.ops import tile16_kernels
+    return tile16_kernels.c_rowcol(cmask, cptr, c_nnz_cap)
+
+
+def c_rowcol_values(cmask, cptr, c_nnz_cap: int, c_dense):
+    """(rowcol, elem_tile, c_vals): ``c_rowcol`` and the compressed values
+    ``numeric.extract_values(c_dense, rowcol, elem_tile)`` gives, padding
+    slots included (c_dense's dtype).  CUDA tensors: one launch of the
+    kernel ``tile16_c_rowcol`` with the value table; CPU tensors:
+    ``c_rowcol_plain``, then ``extract_values``."""
+    if not cmask.is_cuda:
+        from pem_spgemm_tpu_torch.ops.numeric import extract_values
+        rowcol, elem_tile = c_rowcol_plain(cmask, cptr, c_nnz_cap)
+        return rowcol, elem_tile, extract_values(c_dense, rowcol, elem_tile)
+    from pem_spgemm_tpu_torch.ops import tile16_kernels
+    return tile16_kernels.c_rowcol(cmask, cptr, c_nnz_cap, c_dense)
+
+
+def c_rowcol_plain(cmask, cptr, c_nnz_cap: int):
+    """The plain version of ``c_rowcol`` (CPU tensors).  Each
     output slot k finds its tile row (tile * 16 + row) from the nnz scan at
     row granularity (``cptr`` plus the tile's popcount scan) and its column
     by a bit-rank select (``select16``): O(c_nnz) vector work, no

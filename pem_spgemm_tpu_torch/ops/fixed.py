@@ -33,7 +33,10 @@ def spgemm_fixed(a_tile_row, a_tile_col, a_flat,
     Operands arrive as tile structure + dense flat value tables
     (``TiledMatrix.dense_flat()``).  The step covers pair expansion, fused
     numeric + structural accumulation, masks and nnz, intra-tile
-    coordinates and the compressed tile-major values, in acc_dtype.
+    coordinates and the compressed tile-major values, in acc_dtype.  On the
+    card the accumulation writes C's masks itself (the Tile16 kernel's
+    masks form: no count table, no ``counts_to_masks``) and one structure
+    kernel enumerates C's bits and gathers their values.
 
     Returns (c_tile_row, c_tile_col, cmask, cptr, c_rowcol, c_elem_tile,
     c_vals, c_nnz, overflow).  ``overflow`` is a device bool, True when a
@@ -46,17 +49,15 @@ def spgemm_fixed(a_tile_row, a_tile_col, a_flat,
     c_row, c_col, a_idx, b_idx, c_tile_id, cnt_c = symbolic.expand_pairs(
         offsets, a_tile_row, a_tile_col, b_tile_rowptr, b_tile_col,
         total.clamp(max=p_cap), p_cap, packed)
-    c_dense, c_counts = numeric.accumulate_fused_flat(
+    c_dense, cmask, cptr = numeric.accumulate_fused_masks(
         a_flat, b_flat, a_idx, b_idx, c_tile_id, c_cap, chunk, acc_dtype,
         precision)
     del a_idx, b_idx
     c_tile_row, c_tile_col = cstruct.c_tile_coords(
         c_tile_id, c_row, c_col, c_cap, packed_coords)
     del c_row, c_col, c_tile_id
-    cmask, cptr = numeric.counts_to_masks(c_counts)
-    del c_counts
-    c_rowcol, c_elem_tile = cstruct.c_rowcol(cmask, cptr, c_nnz_cap)
-    c_vals = numeric.extract_values(c_dense, c_rowcol, c_elem_tile)
+    c_rowcol, c_elem_tile, c_vals = cstruct.c_rowcol_values(
+        cmask, cptr, c_nnz_cap, c_dense)
     c_nnz = cptr[-1]
     overflow = (total > p_cap) | (cnt_c > c_cap) | (c_nnz > c_nnz_cap)
     return (c_tile_row, c_tile_col, cmask, cptr, c_rowcol, c_elem_tile,
@@ -73,7 +74,7 @@ class SpGEMMPlan:
     operands multiplies eagerly once with any host synchronisation an error,
     then captures one multiply (``ops.graphs.capture``, replays counted
     under ``"spgemm_fixed"`` in ``ops.graphs.REPLAYED``, and the Tile16
-    kernel's launches recorded at capture added there once a replay);
+    kernels' launches recorded at capture added there once a replay);
     every later run on them is one replay.  The dense value tables are
     made outside the graph (cached on the operands).  A graph reads fixed
     addresses: the plan keeps the operand tensors it captured on, and a

@@ -15,16 +15,22 @@ On the card the accumulation is one hand-written kernel
 (``ops.tile16_kernels``, csrc/tile16_accumulate.cu; the JAX package runs
 its einsum and scatter-add in XLA, outside any Pallas kernel): one warp a
 C tile walks the tile's pairs in stream order and writes the tile once, so
-no atomics and the same bits at every launch.  ``accumulate_fused_flat``
-and ``accumulate_dense`` dispatch by the tensors' device: CUDA tensors
-launch the kernel, CPU tensors take the plain versions here
-(``fused_flat_plain``, ``dense_plain``: batched ``torch.bmm`` over chunks of
+no atomics and the same bits at every launch.  ``accumulate_fused_masks``
+(the fused engine's step on the card: the kernel writes C's row masks
+straight from its counts, and no count table), ``accumulate_fused_flat``
+(the JAX package's contract, with the count table; no path of the card
+calls it) and ``accumulate_dense`` dispatch by the tensors' device: CUDA
+tensors launch the kernel, CPU tensors take the plain versions here
+(``fused_masks_plain``: ``fused_flat_plain`` then ``counts_to_masks``;
+``fused_flat_plain``, ``dense_plain``: batched ``torch.bmm`` over chunks of
 gathered tiles and ``index_add_``, sequential on the CPU).  Values match
 the JAX package within the float32 dot-product bound; the 0/1 pattern
 counts are integers below 2^24 in float32, exact in any order, so the
 structure is equal bit for bit.  Padding pairs target C tile c_cap or
 above: the plain versions drop them into one extra row, the kernel never
-reads them.
+reads them.  ``extract_values`` is a torch gather on both (on the card's
+steady step ``cstruct.c_rowcol_values`` gathers in the structure kernel
+instead).
 
 Products run in full float32 (``macro.require_full_fp32``): never TF32.
 ``precision`` "high" or "default" rounds the float32 operand tables to
@@ -117,6 +123,17 @@ def fused_flat_plain(a_flat, b_flat, a_idx, b_idx, c_tile_id, c_cap: int,
     return c_dense[:c_cap], c_cnt[:c_cap]
 
 
+def fused_masks_plain(a_flat, b_flat, a_idx, b_idx, c_tile_id, c_cap: int,
+                      chunk: int, acc_dtype=torch.float32,
+                      precision: str = "highest"):
+    """The plain version of ``accumulate_fused_masks`` (CPU tensors):
+    ``fused_flat_plain``, then ``counts_to_masks`` of its counts."""
+    c_dense, c_counts = fused_flat_plain(a_flat, b_flat, a_idx, b_idx,
+                                         c_tile_id, c_cap, chunk, acc_dtype,
+                                         precision)
+    return (c_dense, *counts_to_masks(c_counts))
+
+
 def dense_plain(a_dense, b_dense, a_idx, b_idx, c_tile_id, c_cap: int,
                 chunk: int, acc_dtype=torch.float32,
                 precision: str = "highest", out=None):
@@ -159,11 +176,29 @@ def accumulate_fused_flat(a_flat, b_flat, a_idx, b_idx, c_tile_id,
     for the plain version).  Values are products of the tables rounded as
     ``precision`` says, the counts those of the raw tables' 0/1 pattern.
     Returns (c_dense (c_cap, 256) acc_dtype, c_counts (c_cap, 256)
-    float32).  CUDA tensors: the Tile16 kernel's fresh form with counts;
-    CPU tensors: ``fused_flat_plain``.
+    float32).  CUDA tensors: the Tile16 kernel's fresh form with counts
+    (no path of the card calls it: the fused engine takes
+    ``accumulate_fused_masks``); CPU tensors: ``fused_flat_plain``.
     """
     from pem_spgemm_tpu_torch.ops import tile16_kernels
     return tile16_kernels.accumulate_fused_flat(
+        a_flat, b_flat, a_idx, b_idx, c_tile_id, c_cap, chunk, acc_dtype,
+        precision)
+
+
+def accumulate_fused_masks(a_flat, b_flat, a_idx, b_idx, c_tile_id,
+                           c_cap: int, chunk: int, acc_dtype=torch.float32,
+                           precision: str = "highest"):
+    """The fused engine's accumulation with C's structure as masks: what
+    ``accumulate_fused_flat`` followed by ``counts_to_masks`` gives.
+
+    Arguments as in ``accumulate_fused_flat``.  Returns (c_dense (c_cap,
+    256) acc_dtype, cmask (c_cap, 16) i32, cptr (c_cap+1,) i32).  CUDA
+    tensors: the Tile16 kernel's masks form (no count table); CPU tensors:
+    ``fused_masks_plain``.
+    """
+    from pem_spgemm_tpu_torch.ops import tile16_kernels
+    return tile16_kernels.accumulate_fused_masks(
         a_flat, b_flat, a_idx, b_idx, c_tile_id, c_cap, chunk, acc_dtype,
         precision)
 

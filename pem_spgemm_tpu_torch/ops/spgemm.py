@@ -168,12 +168,15 @@ class SpGEMM:
                timers: PhaseTimers) -> SpGEMMResult:
         """The Tile16 engines.  step1 = pair expansion + C tile structure
         (size feedbacks #1, pairs, and #2, C tiles).  "fused": step3 first,
-        one chunked pass over the dense tiles gives the values and the 0/1
-        pattern, then step2 derives masks and nnz from the pattern (#3,
-        C nnz).  "masks": step2 first, the bitmask structure phase (#3),
-        then step3 the values.  Then step2 enumerates C's intra-tile
-        coordinates and step3 gathers the compressed values.  These three
-        are the only device-to-host copies."""
+        one pass over the dense tiles gives the values, C's masks from the
+        0/1 pattern and their nnz scan, then step2 the tile coordinates
+        and C nnz (#3).  "masks":
+        step2 first, the bitmask structure phase (#3), then step3 the
+        values.  Then step2 enumerates C's intra-tile coordinates and step3
+        gathers the compressed values, as the reference's timers split
+        them.  These three are the only device-to-host copies.  On the
+        card the accumulation, the masks and the enumeration are the Tile16
+        kernels (``ops.tile16_kernels``)."""
         from pem_spgemm_tpu_torch.config import round_up_bucket, \
             round_up_pow2
         from pem_spgemm_tpu_torch.ops import cstruct, numeric, symbolic
@@ -205,7 +208,7 @@ class SpGEMM:
             with timers.phase("step3") as box:
                 a_flat = a.dense_flat()           # cached conversion product
                 b_flat = a_flat if b is a else b.dense_flat()
-                c_dense, c_counts = numeric.accumulate_fused_flat(
+                c_dense, cmask, cptr = numeric.accumulate_fused_masks(
                     a_flat, b_flat, a_idx, b_idx, c_tile_id, c_cap,
                     cfg.numeric_chunk, cfg.acc(), cfg.precision)
                 box["sync"] = c_dense
@@ -214,8 +217,6 @@ class SpGEMM:
                 c_tile_row, c_tile_col = cstruct.c_tile_coords(
                     c_tile_id, c_row, c_col, c_cap,
                     packed and a.n_tile_rows < (1 << 15))
-                cmask, cptr = numeric.counts_to_masks(c_counts)
-                del c_counts
                 c_nnz = int(cptr[-1])             # size feedback #3
                 box["sync"] = cmask
         else:

@@ -1,34 +1,48 @@
-"""Tile16 accumulation kernel: wrappers of csrc/tile16_accumulate.cu.
+"""Tile16 kernels: wrappers of csrc/tile16_accumulate.cu and
+csrc/tile16_structure.cu.
 
-The Tile16 tier's numeric phase on the card.  It replaces no Pallas
-kernel: the JAX package computes this phase in XLA (its ops/numeric.py
-``accumulate_fused_flat`` and ``accumulate_dense``, and the ring stage of
-its parallel/sharded.py), and the port's first version ran it as torch ops
-(gathers, 0/1 casts, two ``torch.bmm``, ``index_add_`` with atomics): 42 of
-a 48 ms steady multiply at pairbands-500k on an H100.  One CUDA source,
-two entries (built with nvcc at first use and bound with ctypes by
-ops/_build.py), each a pair stream sorted by C tile:
+The Tile16 tier's numeric and structure phases on the card.  They replace
+no Pallas kernel: the JAX package computes both phases in XLA (its
+ops/numeric.py ``accumulate_fused_flat``, ``accumulate_dense``,
+``counts_to_masks`` and ``extract_values``, its ops/cstruct.py ``c_masks``
+and ``c_rowcol``, and the ring stage of its parallel/sharded.py), and the
+port's first versions ran them as torch ops: the accumulation (gathers, 0/1
+casts, two ``torch.bmm``, ``index_add_`` with atomics) took 42 of a 48 ms
+steady multiply at pairbands-500k on an H100, ``c_masks`` (16
+``scatter_reduce_`` planes) 82 of the masks engine's 88 ms interactive
+multiply.  Two CUDA sources (built with nvcc at first use and bound with
+ctypes by ops/_build.py), four entries; the accumulation and
+``tile16_c_masks`` walk a pair stream sorted by C tile:
 
   tile16_accumulate_pairs_f32   float32 tiles (and the float32 copies of
                                 bfloat16 tiles), FP32 FMA;
-  tile16_accumulate_pairs_f64   float64 tiles, DFMA.
+  tile16_accumulate_pairs_f64   float64 tiles, DFMA;
+  tile16_c_masks                C's row bitmasks and per-tile nnz from the
+                                operands' bitmasks (the reference's step 2b);
+  tile16_c_rowcol               C's set bits enumerated (step 2c), and with
+                                a value table the compressed values.
 
-Each has three forms: fresh with the structural counts (the fused engine,
-``accumulate_fused_flat``), fresh with values only (the masks engine,
-``accumulate_dense``, and a ring rank's first stage) and accumulate
-(``accumulate_dense(..., out=c)``: a ring rank's later stages add into its
-C; a tile without pairs is neither read nor written).  One warp owns a C
-tile, sums its pairs in stream order in registers and writes it once: no
-atomics, so a launch gives the same bits every time.
+The accumulation entries have four forms: fresh with the structure as row
+masks and nnz (the fused engine, ``accumulate_fused_masks``), fresh with
+the structural counts (the JAX package's ``accumulate_fused_flat``
+contract; no path of the card calls it), fresh with values only (the masks
+engine, ``accumulate_dense``, and a ring rank's first stage) and
+accumulate (``accumulate_dense(..., out=c)``: a ring rank's later stages
+add into its C; a tile without pairs is neither read nor written).  One
+warp owns a C tile (a half-warp in the structure kernels), walks its pairs
+in stream order and writes it once: no atomics, so a launch gives the same
+bits every time.
 
 Dispatch is by the tensors' device and nothing else: CUDA tensors launch
 the kernel (or raise, if the build or the launch fails); CPU tensors take
 the plain PyTorch version (``ops.numeric.fused_flat_plain``,
-``ops.numeric.dense_plain``).  Each wrapper adds one to its entry in
-``LAUNCHES`` where it launches the kernel, and nowhere else: the float32
-entry's fresh forms count under ``tile16_accumulate_pairs``, its
-accumulate form under ``tile16_accumulate_pairs_acc`` (``_f64`` for the
-float64 entry).
+``fused_masks_plain``, ``dense_plain``, ``ops.cstruct.c_masks_plain``,
+``c_rowcol_plain``).  Each wrapper adds one to its entry in ``LAUNCHES``
+where it launches the kernel, and nowhere else: the float32 accumulation
+entry's fresh forms count under ``tile16_accumulate_pairs``, its masks form
+under ``tile16_accumulate_pairs_masks`` and its accumulate form under
+``tile16_accumulate_pairs_acc`` (``_f64`` for the float64 entry); the
+structure entries under their names.
 """
 
 from __future__ import annotations
@@ -44,12 +58,16 @@ from pem_spgemm_tpu_torch.ops.macro import require_full_fp32, round_operands
 from pem_spgemm_tpu_torch.ops.macro_kernels import segment_offsets
 
 SOURCE = _build.cuda_source("tile16_accumulate")
+STRUCT_SOURCE = _build.cuda_source("tile16_structure")
 TILE_ELEMS = 256
 
 # kernel launches per entry and form (plain-version calls are not counted)
 LAUNCHES = {"tile16_accumulate_pairs": 0, "tile16_accumulate_pairs_acc": 0,
+            "tile16_accumulate_pairs_masks": 0,
             "tile16_accumulate_pairs_f64": 0,
-            "tile16_accumulate_pairs_f64_acc": 0}
+            "tile16_accumulate_pairs_f64_acc": 0,
+            "tile16_accumulate_pairs_f64_masks": 0,
+            "tile16_c_masks": 0, "tile16_c_rowcol": 0}
 
 
 def reset_launch_counts() -> None:
@@ -61,13 +79,30 @@ def _declare(lib) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     for fn in (lib.tile16_accumulate_pairs_f32,
                lib.tile16_accumulate_pairs_f64):
-        fn.argtypes = [vp, vp, vp, vp, ci, ci, vp, vp, vp, ci, vp, vp, ci,
-                       vp]
+        fn.argtypes = [vp, vp, vp, vp, ci, ci, vp, vp, vp, ci, vp, vp, vp,
+                       vp, ci, vp]
         fn.restype = ci
+
+
+def _declare_structure(lib) -> None:
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.tile16_c_masks.argtypes = [vp, vp, ci, ci, vp, vp, vp, ci, vp, vp,
+                                   vp]
+    lib.tile16_c_masks.restype = ci
+    lib.tile16_c_rowcol.argtypes = [vp, vp, ci, ci, vp, ci, vp, vp, vp, vp]
+    lib.tile16_c_rowcol.restype = ci
 
 
 def _library():
     return _build.cuda_library("tile16_accumulate", _declare)
+
+
+def _structure_library():
+    return _build.cuda_library("tile16_structure", _declare_structure)
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
 
 
 def _raise_on(err, entry):
@@ -139,7 +174,7 @@ def _operands(a, b, acc_dtype, precision):
 
 
 def _launch(a_val, b_val, a_pat, b_pat, a_idx, b_idx, seg, c_cap, c_val,
-            c_cnt, accumulate):
+            c_cnt, accumulate, c_mask=None, c_nnz=None):
     """One launch of the entry of ``a_val``'s dtype (c_cap > 0)."""
     dev = a_val.device
     seg_ptr = segment_offsets(seg, c_cap)
@@ -151,11 +186,12 @@ def _launch(a_val, b_val, a_pat, b_pat, a_idx, b_idx, seg, c_cap, c_val,
         err = fn(a_val.data_ptr(), b_val.data_ptr(), a_pat.data_ptr(),
                  b_pat.data_ptr(), a_val.shape[0], b_val.shape[0],
                  a_idx.data_ptr(), b_idx.data_ptr(), seg_ptr.data_ptr(),
-                 c_cap, c_val.data_ptr(),
-                 None if c_cnt is None else c_cnt.data_ptr(),
-                 int(accumulate), torch.cuda.current_stream().cuda_stream)
+                 c_cap, c_val.data_ptr(), _ptr(c_cnt), _ptr(c_mask),
+                 _ptr(c_nnz), int(accumulate),
+                 torch.cuda.current_stream().cuda_stream)
     entry = "tile16_accumulate_pairs" + ("_f64" if f64 else "") \
-        + ("_acc" if accumulate else "")
+        + ("_acc" if accumulate else "") \
+        + ("_masks" if c_mask is not None else "")
     _raise_on(err, entry)
     LAUNCHES[entry] += 1
 
@@ -197,6 +233,41 @@ def accumulate_fused_flat(a_flat, b_flat, a_idx, b_idx, c_tile_id,
         _launch(a_val, b_val, a_pat, b_pat, a_idx, b_idx, c_tile_id, c_cap,
                 c_val, c_cnt, False)
     return c_val, c_cnt
+
+
+def accumulate_fused_masks(a_flat, b_flat, a_idx, b_idx, c_tile_id,
+                           c_cap: int, chunk: int, acc_dtype=torch.float32,
+                           precision: str = "highest"):
+    """(c_dense (c_cap, 256) acc_dtype, cmask (c_cap, 16) int32, cptr
+    (c_cap + 1,) int32) of a pair stream sorted by C tile:
+    ``ops.numeric.accumulate_fused_masks``'s contract, the fused engine's
+    accumulation with its structure as C's row bitmasks (bit set iff the
+    structural count is > 0) and the exclusive scan of the tiles' nnz.
+
+    Arguments as in ``accumulate_fused_flat``.  CUDA tables launch the
+    kernel's masks form (no count table is written); CPU tables take
+    ``numeric.fused_masks_plain``.
+    """
+    from pem_spgemm_tpu_torch.ops.cstruct import _exclusive_scan
+    precision_code(precision)
+    require_full_fp32()
+    if not a_flat.is_cuda:
+        return numeric.fused_masks_plain(a_flat, b_flat, a_idx, b_idx,
+                                         c_tile_id, c_cap, chunk, acc_dtype,
+                                         precision)
+    dev = a_flat.device
+    _check_table(a_flat, "a_flat", dev)
+    _check_table(b_flat, "b_flat", dev)
+    _check_stream(a_idx, b_idx, c_tile_id, dev)
+    a_val, b_val, a_pat, b_pat = _operands(a_flat, b_flat, acc_dtype,
+                                           precision)
+    c_val = torch.empty((c_cap, TILE_ELEMS), dtype=a_val.dtype, device=dev)
+    cmask = torch.empty((c_cap, 16), dtype=torch.int32, device=dev)
+    nnz = torch.empty((c_cap,), dtype=torch.int32, device=dev)
+    if c_cap > 0:
+        _launch(a_val, b_val, a_pat, b_pat, a_idx, b_idx, c_tile_id, c_cap,
+                c_val, None, False, cmask, nnz)
+    return c_val, cmask, _exclusive_scan(nnz)
 
 
 def _check_out(out, c_cap, dtype, device):
@@ -250,3 +321,95 @@ def accumulate_dense(a_dense, b_dense, a_idx, b_idx, c_tile_id, c_cap: int,
         _launch(a_val, b_val, a_val, b_val, a_idx, b_idx, c_tile_id, c_cap,
                 c, None, out is not None)
     return c
+
+
+# --------------------------------------------------------------------------
+# the structure entries
+
+def _check_int32(x, name, device, cols=None):
+    """A contiguous int32 tensor on ``device``: (n,) or, with ``cols``,
+    (n, cols) with n >= 1."""
+    want = "1-D" if cols is None else f"(n >= 1, {cols})"
+    if not isinstance(x, torch.Tensor) or x.dtype != torch.int32 or (
+            x.dim() != 1 if cols is None else
+            x.dim() != 2 or x.shape[1] != cols or x.shape[0] < 1) \
+            or x.device != device or not x.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous {want} int32 tensor "
+                         f"on {device}")
+
+
+def c_masks(a_masks, b_tmasks, a_idx, b_idx, c_tile_id, c_cap: int):
+    """(cmask (c_cap, 16) int32, cptr (c_cap + 1,) int32, pair_ptr
+    (c_cap + 1,) int32) of a pair stream sorted by C tile: bit j of row r
+    of C tile c is set iff some pair of the tile has A's row mask r and
+    B's transposed column mask j meet; cptr is the exclusive scan of the
+    tiles' nnz, pair_ptr the tiles' pair offsets (``segment_offsets``:
+    pairs at c_cap or above, the padding, lie past pair_ptr[c_cap]).
+    CUDA tensors only: one launch of ``tile16_c_masks``
+    (``ops.cstruct.c_masks`` dispatches; its plain version is
+    ``cstruct.c_masks_plain``)."""
+    from pem_spgemm_tpu_torch.ops.cstruct import _exclusive_scan
+    dev = a_idx.device
+    if dev.type != "cuda":
+        raise ValueError("tile16_kernels.c_masks launches the CUDA kernel: "
+                         "CPU tensors take cstruct.c_masks_plain")
+    _check_int32(a_masks, "a_masks", dev, 16)
+    _check_int32(b_tmasks, "b_tmasks", dev, 16)
+    _check_stream(a_idx, b_idx, c_tile_id, dev)
+    if c_cap < 1:
+        raise ValueError(f"c_cap must be >= 1, got {c_cap}")
+    pair_ptr = segment_offsets(c_tile_id, c_cap)
+    cmask = torch.empty((c_cap, 16), dtype=torch.int32, device=dev)
+    nnz = torch.empty((c_cap,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = _structure_library().tile16_c_masks(
+            a_masks.data_ptr(), b_tmasks.data_ptr(), a_masks.shape[0],
+            b_tmasks.shape[0], a_idx.data_ptr(), b_idx.data_ptr(),
+            pair_ptr.data_ptr(), c_cap, cmask.data_ptr(), nnz.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "tile16_c_masks")
+    LAUNCHES["tile16_c_masks"] += 1
+    return cmask, _exclusive_scan(nnz), pair_ptr
+
+
+def c_rowcol(cmask, cptr, c_nnz_cap: int, c_dense=None):
+    """(rowcol, elem_tile) (c_nnz_cap,) int32 of C's set bits, tile-major
+    and row-major within a tile; with ``c_dense`` ((c_cap, 256) or (c_cap,
+    16, 16), 4- or 8-byte values) also c_vals (c_nnz_cap,), the values at
+    those positions, copied bit for bit.  Slots past C_nnz hold the last
+    row of the last tile, column 0, as the plain version's.  CUDA tensors
+    only: one launch of ``tile16_c_rowcol`` (``ops.cstruct.c_rowcol`` and
+    ``c_rowcol_values`` dispatch; the plain version is
+    ``cstruct.c_rowcol_plain`` and ``numeric.extract_values``)."""
+    dev = cmask.device
+    if dev.type != "cuda":
+        raise ValueError("tile16_kernels.c_rowcol launches the CUDA kernel: "
+                         "CPU tensors take cstruct.c_rowcol_plain")
+    _check_int32(cmask, "cmask", dev, 16)
+    c_cap = cmask.shape[0]
+    _check_int32(cptr, "cptr", dev)
+    if cptr.numel() != c_cap + 1:
+        raise ValueError(f"cptr has {cptr.numel()} entries, expected "
+                         f"{c_cap + 1}")
+    word = 0
+    if c_dense is not None:
+        if c_dense.device != dev or not c_dense.is_contiguous() \
+                or c_dense.numel() != c_cap * TILE_ELEMS \
+                or c_dense.element_size() not in (4, 8):
+            raise ValueError(f"c_dense must be {c_cap} contiguous tiles of "
+                             f"4- or 8-byte values on {dev}")
+        word = c_dense.element_size()
+    rowcol = torch.empty((c_nnz_cap,), dtype=torch.int32, device=dev)
+    elem_tile = torch.empty((c_nnz_cap,), dtype=torch.int32, device=dev)
+    c_vals = None if c_dense is None else torch.empty(
+        (c_nnz_cap,), dtype=c_dense.dtype, device=dev)
+    with torch.cuda.device(dev):
+        err = _structure_library().tile16_c_rowcol(
+            cmask.data_ptr(), cptr.data_ptr(), c_cap, c_nnz_cap,
+            _ptr(c_dense), word, rowcol.data_ptr(), elem_tile.data_ptr(),
+            _ptr(c_vals), torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "tile16_c_rowcol")
+    LAUNCHES["tile16_c_rowcol"] += 1
+    if c_dense is None:
+        return rowcol, elem_tile
+    return rowcol, elem_tile, c_vals

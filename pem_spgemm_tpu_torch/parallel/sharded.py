@@ -10,8 +10,10 @@ tile lies there, while the chunk moves on (the ring and its schedule are the
 Macro128 ring's: ``sharded_macro``).
 
 The planner is the JAX package's: the symbolic phase expands the pairs,
-``ops.cstruct`` builds the exact C bitmask structure, and the ring schedule
-is shared with the macro planner.  A stage's body is the Tile16 kernel
+``ops.cstruct`` builds the exact C bitmask structure (on the card the
+structure kernels ``tile16_c_masks`` and ``tile16_c_rowcol``, over the
+whole pair stream), and the ring schedule is shared with the macro
+planner.  A stage's body is the Tile16 kernel
 (``ops.numeric.accumulate_dense`` on the card: ``ops.tile16_kernels``,
 where the JAX package's stage is plain XLA): a rank's first stage with
 pairs writes its C (the fresh form), and each later one adds its products

@@ -175,7 +175,8 @@ def test_dia_kernel_source_and_loader_agree():
     # one build module serves every CUDA source, and each is a file
     assert set(_build.CUDA_SOURCES) == {"segment_sort", "dia_multiply",
                                         "macro_accumulate", "row_copy",
-                                        "tile16_accumulate"}
+                                        "tile16_accumulate",
+                                        "tile16_structure"}
     for stem in _build.CUDA_SOURCES:
         assert os.path.isfile(_build.cuda_source(stem))
         assert _build.library_path(_build.cuda_source(stem)).startswith(

@@ -33,6 +33,7 @@ from pem_spgemm_tpu_torch.ops import cstruct as t_cstruct
 from pem_spgemm_tpu_torch.ops import fixed as t_fixed
 from pem_spgemm_tpu_torch.ops import numeric as t_numeric
 from pem_spgemm_tpu_torch.ops import symbolic as t_symbolic
+from pem_spgemm_tpu_torch.ops.macro_kernels import segment_offsets
 from pem_spgemm_tpu_torch.ops.convert import coo_to_tiled
 
 CHUNK = 1 << 10
@@ -193,6 +194,59 @@ def test_counts_to_masks_and_extract_values_equal(case):
     vals = t_numeric.extract_values(_t(j["c_dense"]), _t(j["rowcol"]),
                                     _t(j["elem_tile"]))
     _eq(vals, j["vals"], "extract_values")
+
+
+def test_accumulate_fused_masks_equal(case):
+    """The fused engine's step on the card (the kernel's masks form) has
+    ``fused_masks_plain`` as its plain version: the JAX package's
+    accumulate_fused_flat then counts_to_masks, masks and cptr bit for
+    bit, values within the float32 bound."""
+    _, _, a_idx, b_idx, c_tile_id, _ = _port_pairs(case)
+    c_dense, cmask, cptr = t_numeric.accumulate_fused_masks(
+        case["ta"].dense_flat(), case["tb"].dense_flat(), a_idx, b_idx,
+        c_tile_id, case["c_cap"], CHUNK)
+    _eq(cmask, case["j"]["cmask"], "cmask")
+    _eq(cptr, case["j"]["cptr"], "cptr")
+    _close(c_dense, case["j"]["c_dense"], "c_dense")
+
+
+def test_c_rowcol_values_equal(case):
+    """c_rowcol_values: the JAX package's c_rowcol then extract_values,
+    padding slots included (c_nnz_cap > C_nnz here)."""
+    j = case["j"]
+    assert case["c_nnz_cap"] > case["c_nnz"]
+    rowcol, elem_tile, vals = t_cstruct.c_rowcol_values(
+        _t(j["cmask"]), _t(j["cptr"]), case["c_nnz_cap"], _t(j["c_dense"]))
+    _eq(rowcol, j["rowcol"], "rowcol")
+    _eq(elem_tile, j["elem_tile"], "elem_tile")
+    _eq(vals, j["vals"], "c_vals")
+
+
+@pytest.mark.parametrize("stream", ["one_card", "ring"])
+def test_segment_offsets_is_the_jax_pair_ptr(case, stream):
+    """The structure kernel's pair offsets (``segment_offsets`` of the
+    sorted stream) equal the JAX package's pair_ptr (the scan of
+    segment_sum(valid)) on the one-card stream (padding INT32_MAX) and on
+    the same stream padded as the Tile16 ring pads it (c_cap); the port's
+    c_masks on the ring-padded stream equals the JAX package's."""
+    c_row, c_col, a_idx, b_idx, c_tile_id, _ = case["j"]["pairs"]
+    c_cap = case["c_cap"]
+    if stream == "ring":
+        c_tile_id = np.where(c_tile_id < c_cap, c_tile_id,
+                             c_cap).astype(np.int32)
+        want = [np.asarray(x) for x in j_cstruct.c_masks(
+            case["ja"].masks, case["jb"].tmasks, a_idx, b_idx, c_tile_id,
+            c_row, c_col, c_cap)]
+        got = t_cstruct.c_masks(case["ta"].masks, case["tb"].tmasks,
+                                _t(a_idx), _t(b_idx), _t(c_tile_id),
+                                _t(c_row), _t(c_col), c_cap)
+        for i, name in enumerate(("c_tile_row", "c_tile_col", "cmask",
+                                  "cptr", "pair_ptr")):
+            _eq(got[i], want[i], f"ring {name}")
+        pair_ptr = want[4]
+    else:
+        pair_ptr = case["j"]["c_masks"][4]
+    _eq(segment_offsets(_t(c_tile_id), c_cap), pair_ptr, "pair_ptr")
 
 
 def test_c_masks_equal(case):

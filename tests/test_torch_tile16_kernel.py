@@ -1,8 +1,9 @@
 """The Tile16 accumulation kernel (ops/tile16_kernels.py,
 csrc/tile16_accumulate.cu) and what surrounds it, on the CPU.
 
-The kernel runs only on the card (the test marked ``cuda`` holds its three
-forms against the plain versions there and skips here).  What the CPU can
+The kernel runs only on the card (the test marked ``cuda`` holds its
+forms against the plain versions there and skips here; the masks form and
+the structure kernels: tests/test_torch_tile16_struct.py).  What the CPU can
 hold:
 
   * the plain accumulate form (``numeric.accumulate_dense(..., out=c)``):
@@ -331,7 +332,10 @@ def test_kernel_source_and_loader_agree():
     assert re.search(r"\batomic[A-Z]\w*\(", src) is None     # no atomics
     assert set(tk.LAUNCHES) == {
         "tile16_accumulate_pairs", "tile16_accumulate_pairs_acc",
-        "tile16_accumulate_pairs_f64", "tile16_accumulate_pairs_f64_acc"}
+        "tile16_accumulate_pairs_masks", "tile16_accumulate_pairs_f64",
+        "tile16_accumulate_pairs_f64_acc",
+        "tile16_accumulate_pairs_f64_masks", "tile16_c_masks",
+        "tile16_c_rowcol"}
 
     class Lib:
         pass
