@@ -131,7 +131,8 @@ counts bit for bit, the masks form's masks and nnz scan those of the
 counts and its values bit for bit the counts form's, two launches
 bit-equal, the accumulate form into a C with -0.0, +-Inf and NaN in every
 tile old + partial under == with the tiles without pairs bit for bit, and
-at "high" / "default" equal to itself at "highest" on pre-rounded tables),
+at "high" / "default" equal to itself at "highest" on pre-rounded tables,
+bfloat16 tables read as they lie bit-equal to their float32 copies),
 and so are the two structure entries (tile16_c_masks: masks, nnz scan,
 pair offsets and tile coordinates; tile16_c_rowcol: coordinates, tiles
 and float32 / float64 values, padding slots included; bit for bit their
@@ -142,7 +143,9 @@ tile count, c_nnz_cap above and below C_nnz); their rows
 tile16_c_rowcol) are timed at that stream and at the 4-rank Tile16 ring's
 largest accumulating stage, beside torch.bmm over the pre-gathered pairs
 (the structure rows beside no library call, the value gather beside
-``flat[pos]``).
+``flat[pos]``); the accumulation's rows carry the operations bound at the
+rate of the tensor cores that run their products (3xTF32, TF32, DMMA)
+beside the FP32 one.
 Beside each path it times every kernel entry at the largest shape its path
 gives it, beside its bound (the Macro128 entries run on the tensor cores
 with a 3xTF32 split: their rows carry the tensor-core bound too; the
@@ -4484,6 +4487,16 @@ def phase_tile16_kernel_check():
         worst[key] = max(worst[key], tile16_hold(
             got[0], want[0], mag, f"{key}, fused, {name}"))
         del want
+        if dtype == torch.bfloat16:
+            # the tables read as they lie, widened in registers: bit for
+            # bit the result of their float32 copies
+            copy = tk.accumulate_fused_flat(af.float(), bf.float(), *args)
+            if not (torch.equal(int_view(got[0]), int_view(copy[0]))
+                    and torch.equal(got[1], copy[1])):
+                raise AssertionError("bfloat16: the tables read directly "
+                                     "differ from their float32 copies")
+            del copy
+            cases += 1
         mkey = TILE16_MASKS_ENTRY[dtype]
         with torch_structure_ops_refused(f"{mkey}, {name}"):
             masks_out = [N.accumulate_fused_masks(af, bf, *args)
@@ -4585,27 +4598,38 @@ def phase_tile16_kernel_check():
     return worst
 
 
-def tile16_bounds(a_val, b_val, ai, bi, n_pairs, c_write, c_read, pattern):
+def tile16_bounds(a_val, b_val, ai, bi, n_pairs, c_write, c_read, pattern,
+                  precision="highest"):
     """Bounds of the kernel's work.  Operations: 2 * 16^3 a pair, the
     values' products at the FP32 rate (FP64 for float64 tiles: the card's
-    peak, on the tensor cores; the kernel's DFMA runs at half of it); the
-    counts are bit operations and are not counted.  Bytes: each distinct
-    operand tile read once (A and B are two tables), ``c_write`` C tiles
-    written once (values, and ``pattern`` bytes of structure a tile: 1,024
-    of float32 counts, 68 of row masks and nnz scan, or 0), ``c_read``
-    read."""
+    peak, on the tensor cores, which DMMA runs at); the counts are not
+    counted.  Beside it (``bound_tc_ops_ms``) the operations at the rate
+    of the tensor cores that run the products: three TF32 products a
+    product at "highest" (3xTF32), one at "high" / "default" and on
+    bfloat16 tables, DMMA for float64.  Bytes: each distinct operand tile
+    read once (A and B are two tables), ``c_write`` C tiles written once
+    (values, and ``pattern`` bytes of structure a tile: 1,024 of float32
+    counts, 68 of row masks and nnz scan, or 0), ``c_read`` read."""
     elem = a_val.element_size()
     ops = TILE16_FLOP * n_pairs
     operand_tiles = int(torch.unique(ai[:n_pairs]).numel()
                         + torch.unique(bi[:n_pairs]).numel())
-    nbytes = 256 * (operand_tiles * elem + c_write * elem + c_read * elem) \
+    out_elem = 8 if elem == 8 else 4
+    nbytes = 256 * (operand_tiles * elem + (c_write + c_read) * out_elem) \
         + c_write * pattern
     rate, rate_name = (FP64_OPS_PER_S, "FP64 67 TFLOP/s") \
         if elem == 8 else (FP32_OPS_PER_S, "FP32 67 TFLOP/s")
     b_o, b_b = ops / rate, nbytes / HBM_BYTES_PER_S
+    if elem == 8:
+        tc, tc_name = ops / FP64_OPS_PER_S, "DMMA 67 TFLOP/s"
+    elif elem == 4 and precision == "highest":
+        tc, tc_name = 3 * ops / TF32_OPS_PER_S, "3xTF32 at 495 TFLOP/s"
+    else:
+        tc, tc_name = ops / TF32_OPS_PER_S, "TF32 495 TFLOP/s"
     return {"bound_ms": max(b_o, b_b) * 1e3,
             "bound_by": "operations" if b_o >= b_b else "bytes",
             "bound_ops_ms": b_o * 1e3, "bound_bytes_ms": b_b * 1e3,
+            "bound_tc_ops_ms": tc * 1e3, "tc_rate": tc_name,
             "operations": ops, "bytes": nbytes,
             "operand_tiles": operand_tiles, "rate": rate_name}
 
@@ -4670,8 +4694,10 @@ def tile16_rows(check_err):
                       "(P, 16, 16) operands in chunks of 2^20 pairs: the "
                       "products only, without gather, structure and sum "
                       "per C tile")
-        runs_on = "FP64 FMA (DFMA)" if dtype == torch.float64 \
-            else "FP32 FMA"
+        runs_on = "DMMA (mma.sync m16n8k8 f64)" \
+            if dtype == torch.float64 else \
+            "tf32 mma.sync m16n8k8 (3xTF32 at highest; FP32 FMA on " \
+            "marked pairs)"
         shape = {"matrix": TILE16_MATRIX, "pairs": n_pairs,
                  "p_cap": int(ai.numel()), "c_cap": c_cap,
                  "a_tiles": a.ntiles}
@@ -4731,6 +4757,15 @@ def tile16_rows(check_err):
                 mrow[f"ms_at_{q}"] = time_ms(
                     lambda: tk.accumulate_fused_masks(af, bf, *args,
                                                       precision=q))
+                mrow[f"bound_tc_ops_ms_at_{q}"] = tile16_bounds(
+                    af, bf, ai, bi, n_pairs, c_cap, 0, 68,
+                    q)["bound_tc_ops_ms"]
+            a16, b16 = af.bfloat16(), bf.bfloat16()
+            mrow["ms_bf16_tables"] = time_ms(
+                lambda: tk.accumulate_fused_masks(a16, b16, *args))
+            mrow["bound_ms_bf16_tables"] = tile16_bounds(
+                a16, b16, ai, bi, n_pairs, c_cap, 0, 68)["bound_ms"]
+            del a16, b16
         rows.append(mrow)
         if dtype == torch.float32:
             dense = tk.accumulate_fused_masks(af, bf, *args)[0]
@@ -4831,7 +4866,15 @@ def tile16_acc_row(plans, plan1, check_err):
     err = tile16_hold(into, plain, mag, f"{name}, ring stage")
     del fresh, into, plain, mag
     c = prior.clone()
-    ms = time_ms(lambda: tk.accumulate_dense(p.a_dense, b, *args, out=c))
+    # a launch this short is timed by graph replay (the wrapper's host work
+    # outlasts it; its time through the wrapper beside)
+    ms = graph_ms(lambda: tk.accumulate_dense(p.a_dense, b, *args, out=c))
+    wrapper_ms = time_ms(lambda: tk.accumulate_dense(p.a_dense, b, *args,
+                                                     out=c))
+    ad = p.a_dense[p.pairs_a[s][:n_pairs].long()]
+    bd = b[p.pairs_b[s][:n_pairs].long()]
+    lib_graph_ms = graph_ms(lambda: torch.bmm(ad, bd))
+    del ad, bd
     s1 = next(i for i, x in enumerate(plan1.stage_pairs) if x)
     args1 = (plan1.pairs_a[s1], plan1.pairs_b[s1], plan1.seg[s1],
              plan1.c_cap, plan1.pairs_a.shape[1], torch.float32)
@@ -4854,19 +4897,24 @@ def tile16_acc_row(plans, plan1, check_err):
                                                   out=c), 2),
         **tile16_bounds(p.a_dense, b, p.pairs_a[s], p.pairs_b[s], n_pairs,
                         tiles, tiles, 0),
-        "library_ms": bmm16_ms(p.a_dense, b, p.pairs_a[s][:n_pairs],
-                               p.pairs_b[s][:n_pairs]),
+        "wrapper_ms": wrapper_ms,
+        "library_ms": lib_graph_ms,
+        "library_wrapper_ms": bmm16_ms(p.a_dense, b, p.pairs_a[s][:n_pairs],
+                                       p.pairs_b[s][:n_pairs]),
         "library_covers": "torch.bmm over the stage's pre-gathered "
-                          "(P, 16, 16) operands: the products only",
+                          "(P, 16, 16) operands: the products only, by "
+                          "graph replay as the kernel (library_wrapper_ms: "
+                          "by CUDA events around eager calls)",
         "fresh_form_ms": time_ms(lambda: tk.accumulate_dense(
             p.a_dense, b, *args)),
         "matrix": TILE16_MATRIX, "ring": f"{len(plans)} ranks replayed",
         "rank": d, "stage": s, "pairs": n_pairs, "tiles_with_pairs": tiles,
         "c_cap": p.c_cap, "at_world_size_1_stream": point,
         "timed": "one launch into the rank's C (c_cap tiles), the stage's "
-                 "stream as the ring hands it over; fresh_form_ms: the "
-                 "fresh values-only form on the same stream (it writes all "
-                 "c_cap tiles)"}
+                 "stream as the ring hands it over, by graph replay "
+                 "(wrapper_ms: eager calls); fresh_form_ms: the fresh "
+                 "values-only form on the same stream (it writes all c_cap "
+                 "tiles)"}
     del c, c1, prior
     torch.cuda.empty_cache()
     return row

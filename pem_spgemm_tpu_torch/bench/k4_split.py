@@ -2,7 +2,8 @@
 
     python -m pem_spgemm_tpu_torch.bench.k4_split [--baseline-macro FILE]
         [--baseline-dia FILE]
-        [--only k4|k5|k3|k3f64|k4f64|k2f64|library|k4acc ...]
+        [--baseline-tile16 FILE]
+        [--only k4|k5|k3|k3f64|k4f64|k2f64|library|k4acc|tile16 ...]
 
 Builds csrc/macro_accumulate.cu and csrc/dia_multiply.cu as they are and,
 with --baseline-macro / --baseline-dia, another version of each (for example
@@ -53,7 +54,18 @@ the accumulate argument (2abca3f), or today's.
       version, timed in turns; then the float32 dense entry at banded16/64/
       128-1M, this build's and the baseline's, bit for bit equal, in turns;
   library  torch.sparse.mm(A, A) in CSR at banded16-1M, banded64-1M and
-      banded128-1M: its time, or the error cuSPARSE raises.
+      banded128-1M: its time, or the error cuSPARSE raises;
+  tile16  csrc/tile16_accumulate.cu at pairbands-500k's Tile16 stream
+      (3.1 M pairs): every form of this build (masks at each precision and
+      on bfloat16 tables, values only, counts, float64 masks, and the
+      accumulate form on the 4-rank ring's largest accumulating stage) and,
+      with --baseline-tile16 (a source of commit 33b3b17's interface), the
+      baseline's, as their wrappers call them and the launch alone, held
+      against each other and timed in turns, beside the baseline's cut
+      builds (TILE16_PARENT_CUTS: loads only, products only, pattern only;
+      timed only) and this build's (TILE16_CUTS: other depths of the
+      walk's ring, held; TILE16_SPLIT_CUTS: loads only, no pattern, one
+      pass at "highest", timed only).
 
 Prints one JSON line a case, and last ptxas' registers and spills of each
 build (this one's too), and whether ``ncu`` is on the machine.  Needs a
@@ -240,6 +252,15 @@ def pairs_variant(shape, cols, n_out):
     groups and staged tables of ``shape`` as they are."""
     L = dk.PAIR_THREADS * cols
     return dict(shape, cols=cols, L=L, grid_x=-(-n_out // L))
+
+
+def nvidia_smi():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    import subprocess
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
 
 
 def emit(case, **kw):
@@ -988,12 +1009,491 @@ def case_library():
         torch.cuda.empty_cache()
 
 
+# The Tile16 kernel (csrc/tile16_accumulate.cu) against another version of
+# its source: the C interface of commit 33b3b17 (one warp a C tile, FP32
+# FMA, the pattern from two more tables at "high" / "default"), whose cut
+# builds split its time.
+TILE16_PARENT_ARGS = 16                 # its entries' argument count
+# Cut builds of that version's source, as CUTS: timed only (their results
+# are wrong), on the masks form at "highest".  "products_only" keeps the
+# loads and the products, "pattern_only" the loads and the k-mask counts,
+# "loads_only" the loads and the staging into shared memory alone.
+_PARENT_PATTERN = ("            if constexpr (PAT) {\n"
+                   "                uint32_t m = 0;\n")
+_PARENT_PRODUCTS = "            for (int kq = 0; kq < 16; kq += 4) {\n"
+TILE16_PARENT_CUTS = {
+    "products_only": [(_PARENT_PATTERN, "            if constexpr (false) {\n"
+                       "                uint32_t m = 0;\n")],
+    "pattern_only": [(_PARENT_PRODUCTS,
+                      "            for (int kq = 0; kq < 0; kq += 4) {\n")],
+    "loads_only": [(_PARENT_PATTERN, "            if constexpr (false) {\n"
+                    "                uint32_t m = 0;\n"),
+                   (_PARENT_PRODUCTS,
+                    "            for (int kq = 0; kq < 0; kq += 4) {\n")],
+}
+
+
+# Other builds of this version (held like it: masks equal to the parent's,
+# values within twice the bound), timed beside it: other depths of the
+# walk's ring of register buffers.
+TILE16_CUTS = {
+    **{f"ahead{n}": [("constexpr int AHEAD = 1;",
+                      f"constexpr int AHEAD = {n};")] for n in (2, 3)},
+    # registers capped for 5 or 6 blocks an SM (20 or 24 warps)
+    **{f"blocks{n}": [("__global__ void __launch_bounds__(WARPS * 32)\n",
+                       f"__global__ void __launch_bounds__(WARPS * 32, {n})"
+                       "\n")] for n in (5, 6)},
+    # the fresh forms' grids capped as the accumulate form's
+    "fresh_capped": [("    if constexpr (F == Form::ACC) {\n"
+                      "        const long long cap",
+                      "    if constexpr (true) {\n"
+                      "        const long long cap")],
+    # every stream walked in spans of 64 pairs
+    "span64": [("constexpr long long MIN_WARPS = 8192;",
+                "constexpr long long MIN_WARPS = 0;"),
+               ("    int span = F == Form::ACC ? SPAN_MIN : SPAN_MAX;",
+                "    int span = SPAN_MAX;")],
+    # B's fragments through L1 too
+    "b_through_l1": [("    return __ldcg(reinterpret_cast<const W*>(p));",
+                      "    return __ldg(reinterpret_cast<const W*>(p));")],
+    # C stored as any other data (not evict-first)
+    "plain_store": [("    __stcs(reinterpret_cast<float4*>(p), "
+                     "make_float4(v[0], v[1], v[2], v[3]));",
+                     "    *reinterpret_cast<float4*>(p) = "
+                     "make_float4(v[0], v[1], v[2], v[3]);")],
+}
+
+
+# Cut builds of this version, as CUTS: timed only, to see where a pair's
+# time goes.  "loads_only": the walk loads each pair's fragments and folds
+# their words into one sum (no products, no pattern, no mark);
+# "no_pattern": no structural pass; "one_pass": "highest" without the
+# split (one tf32 product a block).
+_T16_ANCHOR = ("// A warp's walk over its pairs: the index batches (the "
+               "pairs [base,\n")
+_T16_FOLD = """__device__ __forceinline__ unsigned fold(const Raw<float>& r) {
+    unsigned x = 0u;
+    for (int i = 0; i < 2; ++i) x ^= r.a[i].x ^ r.a[i].y ^ r.a[i].z ^ r.a[i].w;
+    for (int i = 0; i < 4; ++i) x ^= r.b[i].x ^ r.b[i].y;
+    return x;
+}
+__device__ __forceinline__ unsigned fold(const Raw<Bf16>& r) {
+    unsigned x = 0u;
+    for (int i = 0; i < 2; ++i) x ^= r.a[i].x ^ r.a[i].y;
+    for (int i = 0; i < 4; ++i) x ^= r.b[i];
+    return x;
+}
+__device__ __forceinline__ unsigned fold(const Raw<double>& r) {
+    unsigned x = 0u;
+    for (int i = 0; i < 4; ++i)
+        x ^= r.a[i].x ^ r.a[i].y ^ r.a[i].z ^ r.a[i].w
+           ^ r.b[i].x ^ r.b[i].y ^ r.b[i].z ^ r.b[i].w;
+    return x;
+}
+"""
+TILE16_SPLIT_CUTS = {
+    "loads_only": [
+        (_T16_ANCHOR, _T16_FOLD + _T16_ANCHOR),
+        ("        product<T, P, PAT>(buf[J], a_val + (size_t)buf_a[J] * 256,\n"
+         "                           b_val + (size_t)buf_b[J] * 256, g, t, "
+         "acc, cnt);\n",
+         "        acc[0][0] += (S)(fold(buf[J]) & 1u);\n")],
+    # loads_only with the float32 B (A) fragments not loaded
+    "loads_a_only": [],
+    "loads_b_only": [],
+    "no_pattern": [
+        ("        if constexpr (PAT) pattern(cnt, v);\n"
+         "        // the words a mode multiplies",
+         "        // the words a mode multiplies"),
+        ("        if constexpr (PAT) pattern(cnt, v);\n"
+         "        pass<1>(acc, v.a, v.b, v.a, v.b);",
+         "        pass<1>(acc, v.a, v.b, v.a, v.b);")],
+    "one_pass": [("        constexpr bool SPLIT = P == Prec::HIGHEST && "
+                  "sizeof(T) == 4;",
+                  "        constexpr bool SPLIT = false;")],
+}
+
+
+TILE16_SPLIT_CUTS["loads_a_only"] = TILE16_SPLIT_CUTS["loads_only"] + [
+    ("        r.b[i] = ldb<uint2>(B + (4 * t + i) * 16 + 2 * g);\n",
+     "        r.b[i] = make_uint2(0u, (unsigned)i);\n")]
+TILE16_SPLIT_CUTS["loads_b_only"] = TILE16_SPLIT_CUTS["loads_only"] + [
+    ("        r.a[i] = lda<uint4>(A + (g + 8 * i) * 16 + 4 * t);\n",
+     "        r.a[i] = make_uint4(0u, 0u, 0u, (unsigned)i);\n")]
+
+
+def declare_tile16_parent(lib):
+    """The accumulation entries of the parent interface: (a_val, b_val,
+    a_pat, b_pat, n_a, n_b, a_idx, b_idx, seg_ptr, c_cap, c_val, c_cnt,
+    c_mask, c_nnz, accumulate, stream)."""
+    for fn in (lib.tile16_accumulate_pairs_f32,
+               lib.tile16_accumulate_pairs_f64):
+        fn.argtypes = [VP, VP, VP, VP, CI, CI, VP, VP, VP, CI, VP, VP, VP,
+                       VP, CI, VP]
+        fn.restype = CI
+
+
+def tile16_stream(coo, dtype):
+    """A @ A's Tile16 pair stream as the fused engine builds it (chip_smoke's
+    tile16_stream): (a, b, a_idx, b_idx, c_tile_id, c_cap, n_pairs)."""
+    from pem_spgemm_tpu_torch.config import round_up_bucket, round_up_pow2
+    from pem_spgemm_tpu_torch.ops.convert import coo_to_tiled
+    from pem_spgemm_tpu_torch.ops.scanops import can_pack
+    a = coo_to_tiled(coo, dtype=dtype)
+    b = coo_to_tiled(coo, dtype=dtype, with_tmasks=True)
+    offsets = symbolic.pair_counts(a.tile_col, b.tile_rowptr, a.ntiles)
+    n_pairs = int(offsets[-1])
+    p_cap = max(SpGEMMConfig().numeric_chunk, round_up_pow2(n_pairs))
+    _r, _c, a_idx, b_idx, seg, cnt = symbolic.expand_pairs(
+        offsets, a.tile_row, a.tile_col, b.tile_rowptr, b.tile_col, n_pairs,
+        p_cap, can_pack(a.n_tile_rows, b.n_tile_cols))
+    return a, b, a_idx, b_idx, seg, round_up_bucket(int(cnt)), n_pairs
+
+
+def tile16_bound(a, b, ai, bi, n_pairs, c_write, c_read, pattern):
+    """ms of the bytes bound (each distinct operand tile read once, C tiles
+    written / read once, ``pattern`` bytes of structure a written tile) and
+    of the FP32 / FP64 operations bound (2 * 16^3 a pair at 67 TFLOP/s),
+    at 3.35 TB/s."""
+    elem = a.element_size()
+    tiles = int(torch.unique(ai[:n_pairs]).numel()
+                + torch.unique(bi[:n_pairs]).numel())
+    out_elem = 8 if elem == 8 else 4
+    nbytes = 256 * (tiles * elem + (c_write + c_read) * out_elem) \
+        + c_write * pattern
+    return {"bytes_ms": nbytes / 3.35e12 * 1e3,
+            "ops_ms": 2 * 16 ** 3 * n_pairs / 67e12 * 1e3}
+
+
+def bmm16(a, b, ai, bi, per=1 << 20):
+    """ms of torch.bmm over the pre-gathered operands in float32 (float64
+    for float64 tables), 2^20 pairs at a time: the products alone."""
+    dtype = torch.float64 if a.dtype == torch.float64 else torch.float32
+    total = 0.0
+    for lo in range(0, ai.numel(), per):
+        x = a[ai[lo:lo + per].long()].view(-1, 16, 16).to(dtype)
+        y = b[bi[lo:lo + per].long()].view(-1, 16, 16).to(dtype)
+        total += time_ms(lambda: torch.bmm(x, y), 3)
+        del x, y
+    return total
+
+
+def parent_call(lib, a, b, ai, bi, seg, c_cap, c_val, precision="highest",
+                c_cnt=None, c_mask=None, c_nnz=None, accumulate=0,
+                seg_ptr=None):
+    """One call of the parent's wrapper: bfloat16 tables copied to float32,
+    float32 tables rounded as ``precision`` says (round_operands) with the
+    pattern from the raw ones, the pair offsets, the launch (and with masks
+    the nnz scan).  ``seg_ptr`` given: the launch alone, on tables already
+    rounded."""
+    from pem_spgemm_tpu_torch.ops.cstruct import _exclusive_scan
+    if seg_ptr is None:
+        if a.dtype == torch.bfloat16:
+            a = a.float()
+            b = b.float()
+            va, vb = a, b
+        else:
+            va = M.round_operands(a, precision)
+            vb = M.round_operands(b, precision)
+        seg_ptr = mk.segment_offsets(seg, c_cap)
+    else:
+        va, vb = a, b
+    pa, pb = (a, b) if (c_cnt is not None or c_mask is not None) \
+        else (va, vb)
+    fn = lib.tile16_accumulate_pairs_f64 if a.dtype == torch.float64 \
+        else lib.tile16_accumulate_pairs_f32
+    checked(fn(va.data_ptr(), vb.data_ptr(), pa.data_ptr(), pb.data_ptr(),
+               va.shape[0], vb.shape[0], ai.data_ptr(), bi.data_ptr(),
+               seg_ptr.data_ptr(), c_cap, c_val.data_ptr(),
+               None if c_cnt is None else c_cnt.data_ptr(),
+               None if c_mask is None else c_mask.data_ptr(),
+               None if c_nnz is None else c_nnz.data_ptr(), accumulate,
+               torch.cuda.current_stream().cuda_stream), "parent tile16")
+    if c_mask is not None:
+        return _exclusive_scan(c_nnz)
+    return None
+
+
+def new_kernel(a, b, ai, bi, seg, seg_ptr, c_cap, c_val, precision,
+               c_cnt=None, c_mask=None, c_nnz=None, accumulate=0, lib=None):
+    """This build's launch alone (the pair offsets made beforehand), or
+    that of ``lib``, a build of the same interface."""
+    from pem_spgemm_tpu_torch.ops import tile16_kernels as tk
+    lib = lib or tk._library()
+    fn = lib.tile16_accumulate_pairs_f64 if a.dtype == torch.float64 \
+        else lib.tile16_accumulate_pairs_f32
+    checked(fn(a.data_ptr(), b.data_ptr(), a.shape[0], b.shape[0],
+               int(a.dtype == torch.bfloat16), ai.data_ptr(), bi.data_ptr(),
+               seg.data_ptr(), ai.numel(),
+               None if accumulate else seg_ptr.data_ptr(), c_cap,
+               c_val.data_ptr(), None if c_cnt is None else c_cnt.data_ptr(),
+               None if c_mask is None else c_mask.data_ptr(),
+               None if c_nnz is None else c_nnz.data_ptr(), accumulate,
+               M.precision_code(precision),
+               torch.cuda.current_stream().cuda_stream), "tile16")
+
+
+def graph_ms(fns, n=20, rounds=2):
+    """{name: [ms, ...]}: each function launched ``n`` times in one CUDA
+    graph, the graphs replayed in turns (the order reversed every other
+    round), the device time a launch: launches too short for a host
+    clock's loop."""
+    graphs = {}
+    for k, fn in fns.items():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(n):
+                fn()
+        graphs[k] = g
+    out = {k: [] for k in fns}
+    names = list(fns)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    for r in range(rounds):
+        for k in (names if r % 2 == 0 else names[::-1]):
+            graphs[k].replay()
+            start.record()
+            for _ in range(3):
+                graphs[k].replay()
+            stop.record()
+            torch.cuda.synchronize()
+            out[k].append(start.elapsed_time(stop) / (3 * n))
+    return out
+
+
+def tile16_hold(got, ref, mag, what, f64=False):
+    """This build's values against the parent's: both within the
+    dot-product bound of the exact sums, so within twice it of each other
+    (NaN and Inf where the other has them)."""
+    rtol, atol = (1e-12, 1e-300) if f64 else (RTOL, ATOL)
+    if not (torch.equal(torch.isnan(got), torch.isnan(ref))
+            and torch.equal(torch.isinf(got), torch.isinf(ref))):
+        raise AssertionError(f"{what}: NaN / Inf positions differ")
+    fin = torch.isfinite(ref)
+    over = float((torch.where(fin, (got - ref).abs(), 0)
+                  / (2 * (rtol * mag + atol))).max())
+    if not over <= 1.0:
+        raise AssertionError(f"{what}: values {over}x twice the bound")
+    return over
+
+
+def case_tile16(parent, rounds=3, n=5):
+    """The Tile16 kernel at pairbands-500k's stream (3.1 M pairs): every
+    form of this build and of the parent (``parent``: its library, the C
+    interface of TILE16_PARENT_ARGS arguments), as their wrappers call them
+    ("call": the parent's rounding and copy passes, the pair offsets and
+    the nnz scan included) and the launch alone ("kernel"), held against
+    each other (masks and counts equal, values within twice the float32 /
+    float64 bound), timed by CUDA events in turns; the parent's cut builds
+    (TILE16_PARENT_CUTS) beside its masks form at "highest", timed only;
+    the accumulate form on the 4-rank Tile16 ring's largest accumulating
+    stage (into a C of its c_cap tiles).  Each line gives the bytes and
+    FP32 / FP64 bounds and torch.bmm's time over the pairs."""
+    from pem_spgemm_tpu_torch.ops import numeric as N
+    from pem_spgemm_tpu_torch.ops import tile16_kernels as tk
+    from pem_spgemm_tpu_torch.parallel import sharded as sh
+    from pem_spgemm_tpu_torch.parallel.sharded_macro import replay_chunks
+    cuts = {} if parent is None else build_all(
+        "tile16_accumulate", parent[1], declare_tile16_parent,
+        TILE16_PARENT_CUTS)
+    mine = build_all("tile16_accumulate", tk.SOURCE, tk._declare,
+                     TILE16_CUTS)
+    split = build_all("tile16_accumulate", tk.SOURCE, tk._declare,
+                      TILE16_SPLIT_CUTS)
+    base = None if parent is None else parent[0]
+    coo = STREAMS["pairbands-500k"]()
+    chunk = SpGEMMConfig().numeric_chunk
+    # the 4-rank Tile16 ring's plans (the ring multiplies float32; the
+    # float64 accumulate form runs on float64 copies of a stage's tiles)
+    a32, b32 = tile16_stream(coo, torch.float32)[:2]
+    plans = [sh.plan_sharded_spgemm(a32, b32, 4, d) for d in range(4)]
+    del a32, b32
+    for dtype in (torch.float32, torch.float64):
+        a, b, ai, bi, seg, c_cap, n_pairs = tile16_stream(coo, dtype)
+        af, bf = a.dense_flat(), b.dense_flat()
+        dev = af.device
+        seg_ptr = mk.segment_offsets(seg, c_cap)
+        vals = torch.empty((c_cap, 256), dtype=dtype, device=dev)
+        cmask = torch.empty((c_cap, 16), dtype=torch.int32, device=dev)
+        nnz = torch.empty((c_cap,), dtype=torch.int32, device=dev)
+        cnt = torch.empty((c_cap, 256), dtype=torch.float32, device=dev)
+        mag = N.fused_flat_plain(af.abs(), bf.abs(), ai, bi, seg, c_cap,
+                                 chunk, dtype)[0]
+        lib_ms = bmm16(af, bf, ai[:n_pairs], bi[:n_pairs])
+        f64 = dtype == torch.float64
+        runs = [("masks", "highest", af, bf)]
+        if not f64:
+            runs += [("masks", "high", af, bf), ("masks", "default", af, bf),
+                     ("masks", "highest", af.bfloat16(), bf.bfloat16()),
+                     ("values", "highest", af, bf),
+                     ("counts", "highest", af, bf)]
+        for form, prec, x, y in runs:
+            tables = str(x.dtype)[6:]
+            if form == "masks":
+                def call(x=x, y=y, prec=prec):
+                    return tk.accumulate_fused_masks(x, y, ai, bi, seg,
+                                                     c_cap, chunk, dtype,
+                                                     prec)
+                kw = dict(c_mask=cmask, c_nnz=nnz)
+                pattern = 68
+            elif form == "counts":
+                def call(x=x, y=y, prec=prec):
+                    return tk.accumulate_fused_flat(x, y, ai, bi, seg, c_cap,
+                                                    chunk, dtype, prec)
+                kw = dict(c_cnt=cnt)
+                pattern = 1024
+            else:
+                def call(x=x, y=y, prec=prec):
+                    return tk.accumulate_dense(x, y, ai, bi, seg, c_cap,
+                                               chunk, dtype, prec)
+                kw = {}
+                pattern = 0
+            fns = {"change_call": call,
+                   "change_kernel": lambda x=x, y=y, prec=prec, kw=kw:
+                   new_kernel(x, y, ai, bi, seg, seg_ptr, c_cap, vals, prec,
+                              **kw)}
+            got = call()
+            over = None
+            if base is not None:
+                fns["parent_call"] = lambda x=x, y=y, prec=prec, kw=kw: \
+                    parent_call(base, x, y, ai, bi, seg, c_cap, vals, prec,
+                                **kw)
+                if x.dtype == torch.bfloat16:
+                    rx, ry = x.float(), y.float()
+                else:
+                    rx = M.round_operands(x, prec)
+                    ry = M.round_operands(y, prec)
+                if form == "values" or prec == "highest":
+                    fns["parent_kernel"] = \
+                        lambda rx=rx, ry=ry, prec=prec, kw=kw: parent_call(
+                            base, rx, ry, ai, bi, seg, c_cap, vals, prec,
+                            seg_ptr=seg_ptr, **kw)
+                scan = parent_call(base, x, y, ai, bi, seg, c_cap, vals,
+                                   prec, **kw)
+                ref = vals.clone()
+                what = f"tile16 {tables} {form} {prec}"
+                if form == "masks":
+                    if not (torch.equal(got[1], cmask)
+                            and torch.equal(got[2], scan)):
+                        raise AssertionError(f"{what}: masks differ")
+                elif form == "counts" and not torch.equal(got[1], cnt):
+                    raise AssertionError(f"{what}: counts differ")
+                got_v = got if form == "values" else got[0]
+                over = tile16_hold(got_v.reshape(c_cap, 256), ref, mag, what,
+                                   f64)
+                del rx, ry
+                if prec == "highest" and x.dtype == dtype \
+                        and form in ("masks", "values"):
+                    for k, lib in mine.items():
+                        fns[k] = lambda lib=lib, x=x, y=y, kw=kw: \
+                            new_kernel(x, y, ai, bi, seg, seg_ptr, c_cap,
+                                       vals, prec, lib=lib, **kw)
+                        fns[k]()
+                        if form == "masks" and not torch.equal(
+                                cmask, got[1]):
+                            raise AssertionError(f"{what} {k}: masks")
+                        tile16_hold(vals, ref, mag, f"{what} {k}", f64)
+                if form == "masks" and prec == "highest" \
+                        and x.dtype == dtype:
+                    for k, lib in split.items():
+                        if not (f64 and k == "one_pass"):
+                            fns[k] = lambda lib=lib, x=x, y=y, kw=kw: \
+                                new_kernel(x, y, ai, bi, seg, seg_ptr, c_cap,
+                                           vals, prec, lib=lib, **kw)
+                if form == "masks" and prec == "highest" \
+                        and x.dtype == torch.float32:
+                    for k, lib in cuts.items():
+                        fns[f"parent_{k}"] = lambda lib=lib, kw=kw: \
+                            parent_call(lib, x, y, ai, bi, seg, c_cap, vals,
+                                        prec, seg_ptr=seg_ptr, **kw)
+            del got
+            ref = None
+            torch.cuda.synchronize()
+            times = in_turns(fns, n, rounds)
+            emit("tile16", matrix="pairbands-500k", form=form,
+                 precision=prec, tables=tables, pairs=n_pairs,
+                 p_cap=int(ai.numel()), c_cap=c_cap, ms=times,
+                 worst_over_twice_the_bound=over, bmm_ms=lib_ms,
+                 **tile16_bound(x, y, ai, bi, n_pairs, c_cap, 0, pattern))
+        # the accumulate form on the 4-rank ring's largest accumulating
+        # stage
+        best = None
+        for d, p in enumerate(plans):
+            live = [s for s, x in enumerate(p.stage_pairs) if x]
+            for s in live[1:]:
+                if best is None or p.stage_pairs[s] > \
+                        plans[best[0]].stage_pairs[best[1]]:
+                    best = (d, s)
+        d, s = best
+        p = plans[d]
+        chunk_b = list(replay_chunks(plans, d))[s].to(dtype)
+        a_st = p.a_dense.to(dtype)
+        pa, pb, pseg = p.pairs_a[s], p.pairs_b[s], p.seg[s]
+        st_pairs = int(p.stage_pairs[s])
+        tiles = int(torch.unique(pseg[:st_pairs]).numel())
+        c0 = torch.randn((p.c_cap, 16, 16), device=dev, dtype=dtype)
+        c_new, c_old = c0.clone(), c0.clone()
+        tk.accumulate_dense(a_st, chunk_b, pa, pb, pseg, p.c_cap,
+                            p.pairs_a.shape[1], dtype, out=c_new)
+        fns = {"change_call": lambda: tk.accumulate_dense(
+            a_st, chunk_b, pa, pb, pseg, p.c_cap, p.pairs_a.shape[1],
+            dtype, out=c_new)}
+        over = None
+        if base is not None:
+            parent_call(base, a_st, chunk_b, pa, pb, pseg, p.c_cap,
+                        c_old, accumulate=1)
+            amag = c0.abs() + N.dense_plain(
+                a_st.abs(), chunk_b.abs(), pa, pb, pseg, p.c_cap,
+                p.pairs_a.shape[1], dtype)
+            over = tile16_hold(c_new.view(-1, 256), c_old.view(-1, 256),
+                               amag.view(-1, 256), f"tile16 acc {dtype}",
+                               f64)
+            fns["parent_call"] = lambda: parent_call(
+                base, a_st, chunk_b, pa, pb, pseg, p.c_cap, c_old,
+                accumulate=1)
+            del amag
+        times = in_turns(fns, n, rounds)
+        # the launches alone, by graph replay (a wrapper's host work
+        # outlasts them)
+        kernels = {"change_kernel": lambda: new_kernel(
+            a_st, chunk_b, pa, pb, pseg, None, p.c_cap, c_new,
+            "highest", accumulate=1)}
+        if base is not None:
+            pseg_ptr = mk.segment_offsets(pseg, p.c_cap)
+            kernels["parent_kernel"] = lambda: parent_call(
+                base, a_st, chunk_b, pa, pb, pseg, p.c_cap, c_old,
+                accumulate=1, seg_ptr=pseg_ptr)
+        for k in ("span64", "ahead2"):
+            kernels[k] = lambda lib=mine[k]: new_kernel(
+                a_st, chunk_b, pa, pb, pseg, None, p.c_cap, c_new,
+                "highest", accumulate=1, lib=lib)
+        times.update(graph_ms(kernels, 20, rounds))
+        emit("tile16", matrix="pairbands-500k", form="accumulate",
+             precision="highest", tables=str(dtype)[6:],
+             ring="4 ranks", rank=d, stage=s, pairs=st_pairs,
+             tiles_with_pairs=tiles, c_cap=p.c_cap, ms=times,
+             worst_over_twice_the_bound=over,
+             bmm_ms=bmm16(a_st, chunk_b, pa[:st_pairs], pb[:st_pairs]),
+             **tile16_bound(a_st, chunk_b, pa, pb, st_pairs, tiles,
+                            tiles, 0))
+        del a, b, af, bf, ai, bi, seg, seg_ptr, vals, cmask, nnz, cnt, mag
+        del p, chunk_b, a_st, c0, c_new, c_old
+        torch.cuda.empty_cache()
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--baseline-macro", default=None)
     ap.add_argument("--baseline-dia", default=None)
+    ap.add_argument("--baseline-tile16", default=None)
     ap.add_argument("--only", choices=["k4", "k5", "k3", "k3f64", "k4f64",
-                                       "k2f64", "library", "k4acc"],
+                                       "k2f64", "library", "k4acc",
+                                       "tile16"],
                     action="append",
                     help="run this case (repeatable; default: every case)")
     args = ap.parse_args()
@@ -1002,7 +1502,7 @@ def main():
         return 1
     M.require_full_fp32()
     emit("tools", ncu=shutil.which("ncu"),
-         device=torch.cuda.get_device_name(0))
+         device=torch.cuda.get_device_name(0), nvidia_smi=nvidia_smi())
     base_macro, base_dia = (None, None), None
     if args.baseline_macro:
         kind = macro_interface(args.baseline_macro)
@@ -1027,6 +1527,16 @@ def main():
         case_k2f64(base_dia)
     if args.only is None or "library" in args.only:
         case_library()
+    if args.only is None or "tile16" in args.only:
+        parent = None
+        if args.baseline_tile16:
+            parent = (build("tile16_accumulate", "baseline",
+                            args.baseline_tile16, declare_tile16_parent),
+                      args.baseline_tile16)
+        case_tile16(parent)
+        from pem_spgemm_tpu_torch.ops import tile16_kernels as tk
+        build_all("tile16_accumulate", tk.SOURCE, tk._declare,
+                  {"current": ()})
     # this build's registers and spills too (the package's own build keeps
     # no compiler log)
     build_all("macro_accumulate", mk.SOURCE, mk._declare, {"current": ()})

@@ -5,9 +5,12 @@
 
 Runs ``bench.harness.run_benchmark`` on the DIA matrices (float32, and
 pairbands-500k in float64), the Macro128 ones of ``chip_smoke.py`` and
-pairbands-500k on the Tile16 engines, at full size, and the Tile16 ring's
-world-size-1 plan of pairbands-500k (``ring_plan_split``), in one child
-process a checkout (its own package, its own kernel build): parent,
+pairbands-500k on the Tile16 engines (float32 at each precision, float64,
+bfloat16), at full size, the Tile16 ring's world-size-1 plan of
+pairbands-500k (``ring_plan_split``) and its numeric part at world size 1
+and over the four ranks of a 4-rank plan replayed on the card
+(``ring_numeric``), in one child process a checkout (its own package, its
+own kernel build): parent,
 change, change, parent, ``--rounds`` times, on one card.  Each child
 process is one sample of each matrix's interactive, steady and pipelined
 tier (host-clock ms, the mean of ``repeat`` multiplies) and step 1 / 2 /
@@ -33,8 +36,9 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 PAIRBANDS = (-1201, -1200, -601, -600, 0, 1, 600, 601, 1200, 1201)
-# name: (generator, its arguments, engine, dtype, repeat), as chip_smoke.py
-# runs them (phases dia_path, f64_path and macro_path)
+# name: (generator, its arguments, engine, dtype, repeat[, precision]), as
+# chip_smoke.py runs them (phases dia_path, f64_path, macro_path,
+# tile16_path, precision_path)
 CASES = {
     "pairbands-500k": ("banded_device", dict(n=500_000, seed=9,
                                              bands=PAIRBANDS),
@@ -65,14 +69,32 @@ CASES = {
     "pairbands-500k masks": ("banded_device", dict(n=500_000, seed=9,
                                                    bands=PAIRBANDS),
                              "masks", "float32", 5),
+    "pairbands-500k fused high": ("banded_device", dict(
+        n=500_000, seed=9, bands=PAIRBANDS), "fused", "float32", 5, "high"),
+    "pairbands-500k fused default": ("banded_device", dict(
+        n=500_000, seed=9, bands=PAIRBANDS), "fused", "float32", 5,
+        "default"),
+    "pairbands-500k fused f64": ("banded_device", dict(
+        n=500_000, seed=9, bands=PAIRBANDS), "fused", "float64", 3),
+    "pairbands-500k fused bf16": ("banded_device", dict(
+        n=500_000, seed=9, bands=PAIRBANDS), "fused", "bfloat16", 5),
     # the Tile16 ring's plan at world size 1: ring_plan_split, median of 5
     "pairbands-500k ring plan": ("banded_device", dict(n=500_000, seed=9,
                                                        bands=PAIRBANDS),
                                  "ring_plan", "float32", 5),
+    # the Tile16 ring's numeric part (ring_numeric), median of 5: world
+    # size 1, and the four ranks of a 4-rank plan
+    "pairbands-500k ring": ("banded_device", dict(n=500_000, seed=9,
+                                                  bands=PAIRBANDS),
+                            "ring", "float32", 5),
+    "pairbands-500k ring4": ("banded_device", dict(n=500_000, seed=9,
+                                                   bands=PAIRBANDS),
+                             "ring4", "float32", 5),
 }
 TIERS = ("pem_spgemm_time", "steady_state_time", "pipelined_time",
          "step1_time", "step2_time", "step3_time")
 PLAN_PARTS = ("total", "pairs_and_schedule", "c_masks", "c_rowcol", "rest")
+RING_PARTS = ("numeric_ms",)
 
 
 def ring_plan_split(a, b, n):
@@ -122,6 +144,33 @@ def ring_plan_split(a, b, n):
     return {k: statistics.median(r[k] for r in runs)
             for k in runs[0]}, c_nnz.pop()
 
+def ring_numeric(a, b, n_ranks, n):
+    """ms of the Tile16 ring's numeric part (``parallel.sharded``'s
+    ``replay_numeric``: each stage with pairs in the Tile16 kernel's fresh
+    form, then its accumulate form into the same C, then the values at the
+    structure) summed over the ranks of an ``n_ranks`` plan replayed on
+    one card, median of ``n`` after one warm-up, by synchronised host
+    clocks; with the plan's C_nnz."""
+    import statistics
+    import time
+    import torch
+    from pem_spgemm_tpu_torch.parallel import sharded as sh
+    plans = [sh.plan_sharded_spgemm(a, b, n_ranks, d)
+             for d in range(n_ranks)]
+    runs = []
+    for i in range(n + 1):
+        total = 0.0
+        for d in range(n_ranks):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sh.replay_numeric(plans, d)
+            torch.cuda.synchronize()
+            total += time.perf_counter() - t0
+        if i:                                   # the first warms up
+            runs.append(total * 1e3)
+    return statistics.median(runs), plans[0].c_nnz
+
+
 # One sample of each case in the checkout the process runs in (its root is
 # the working directory and the first entry of sys.path).  Only calls that
 # every checkout of the port since its DIA and Macro128 slices has.
@@ -135,7 +184,7 @@ from pem_spgemm_tpu_torch.models import synthetic
 from pem_spgemm_tpu_torch.ops import _build
 tag, cases = sys.argv[1], json.loads(sys.argv[2])
 _build.build_kernels()
-for name, (gen, kw, engine, dtype, repeat) in cases.items():
+for name, (gen, kw, engine, dtype, repeat, *prec) in cases.items():
     if "bands" in kw:
         kw = dict(kw, bands=tuple(kw["bands"]))
     coo = getattr(synthetic, gen)(**kw)
@@ -147,9 +196,18 @@ for name, (gen, kw, engine, dtype, repeat) in cases.items():
         ms, row["c_nnz"] = ring_plan_split(a, b, repeat)
         row.update(ms)
         del a, b
+    elif engine in ("ring", "ring4"):
+        from pem_spgemm_tpu_torch.ops.convert import coo_to_tiled
+        a, b = coo_to_tiled(coo), coo_to_tiled(coo, with_tmasks=True)
+        row["numeric_ms"], row["c_nnz"] = ring_numeric(
+            a, b, 1 if engine == "ring" else 4, repeat)
+        del a, b
     else:
+        # bfloat16 tiles accumulate in float32 on the Tile16 tier
+        acc = torch.float32 if dtype == "bfloat16" else None
         cfg = SpGEMMConfig(engine=engine, dtype=getattr(torch, dtype),
-                           repeat=repeat)
+                           acc_dtype=acc, repeat=repeat,
+                           **({"precision": prec[0]} if prec else {}))
         rec, res = run_benchmark(coo, name, cfg, verbose=False)
         row.update(c_nnz=rec.c_nnz, **{k: getattr(rec, k) for k in TIERS})
         del rec, res
@@ -162,7 +220,7 @@ for name, (gen, kw, engine, dtype, repeat) in cases.items():
 def run_child(tag, tree, cases):
     env = dict(os.environ, PYTHONPATH=tree)
     code = (f"TIERS = {TIERS!r}\n" + inspect.getsource(ring_plan_split)
-            + CHILD)
+            + inspect.getsource(ring_numeric) + CHILD)
     p = subprocess.run([sys.executable, "-c", code, tag, json.dumps(cases)],
                        cwd=tree, env=env, capture_output=True, text=True,
                        timeout=600)
@@ -185,8 +243,10 @@ def summary(samples, names):
         if len(nnz) != 1:
             raise AssertionError(f"{name}: C_nnz {sorted(nnz)}")
         line = {"summary": name, "c_nnz": nnz.pop()}
-        ring = CASES[name][2] == "ring_plan"
-        for tier in PLAN_PARTS if ring else TIERS:
+        engine = CASES[name][2]
+        parts = {"ring_plan": PLAN_PARTS, "ring": RING_PARTS,
+                 "ring4": RING_PARTS}.get(engine, TIERS)
+        for tier in parts:
             got = {t: sorted(s[tier] for s in rows[t]) for t in rows}
             med = {t: statistics.median(v) for t, v in got.items()}
             spread = {t: v[-1] - v[0] for t, v in got.items()}

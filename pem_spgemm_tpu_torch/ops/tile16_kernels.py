@@ -14,9 +14,11 @@ multiply.  Two CUDA sources (built with nvcc at first use and bound with
 ctypes by ops/_build.py), four entries; the accumulation and
 ``tile16_c_masks`` walk a pair stream sorted by C tile:
 
-  tile16_accumulate_pairs_f32   float32 tiles (and the float32 copies of
-                                bfloat16 tiles), FP32 FMA;
-  tile16_accumulate_pairs_f64   float64 tiles, DFMA;
+  tile16_accumulate_pairs_f32   float32 or bfloat16 tiles (read as they
+                                lie), tf32 mma.sync: 3xTF32 at "highest",
+                                one pass of the mode's rounding, done in
+                                registers, at "high" / "default";
+  tile16_accumulate_pairs_f64   float64 tiles, DMMA (mma.sync f64);
   tile16_c_masks                C's row bitmasks and per-tile nnz from the
                                 operands' bitmasks (the reference's step 2b);
   tile16_c_rowcol               C's set bits enumerated (step 2c), and with
@@ -28,10 +30,11 @@ the structural counts (the JAX package's ``accumulate_fused_flat``
 contract; no path of the card calls it), fresh with values only (the masks
 engine, ``accumulate_dense``, and a ring rank's first stage) and
 accumulate (``accumulate_dense(..., out=c)``: a ring rank's later stages
-add into its C; a tile without pairs is neither read nor written).  One
-warp owns a C tile (a half-warp in the structure kernels), walks its pairs
-in stream order and writes it once: no atomics, so a launch gives the same
-bits every time.
+add into its C; a tile without pairs is neither read nor written).  In
+the accumulation a warp takes a fixed span of the pair stream and owns the
+C tiles that start in it (a half-warp owns a C tile in the structure
+kernels); each tile's pairs are summed in stream order and the tile is
+written once: no atomics, so a launch gives the same bits every time.
 
 Dispatch is by the tensors' device and nothing else: CUDA tensors launch
 the kernel (or raise, if the build or the launch fails); CPU tensors take
@@ -54,7 +57,7 @@ import torch
 
 from pem_spgemm_tpu_torch.config import precision_code
 from pem_spgemm_tpu_torch.ops import _build, numeric
-from pem_spgemm_tpu_torch.ops.macro import require_full_fp32, round_operands
+from pem_spgemm_tpu_torch.ops.macro import require_full_fp32
 from pem_spgemm_tpu_torch.ops.macro_kernels import segment_offsets
 
 SOURCE = _build.cuda_source("tile16_accumulate")
@@ -79,8 +82,8 @@ def _declare(lib) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     for fn in (lib.tile16_accumulate_pairs_f32,
                lib.tile16_accumulate_pairs_f64):
-        fn.argtypes = [vp, vp, vp, vp, ci, ci, vp, vp, vp, ci, vp, vp, vp,
-                       vp, ci, vp]
+        fn.argtypes = [vp, vp, ci, ci, ci, vp, vp, vp, ci, vp, ci, vp, vp,
+                       vp, vp, ci, ci, vp]
         fn.restype = ci
 
 
@@ -139,9 +142,10 @@ def _check_stream(a_idx, b_idx, seg, device):
 
 
 def _entry_dtypes(table_dtype, acc_dtype):
-    """(the entry's value dtype, whether the tables need a float32 copy) of
-    CUDA tables of ``table_dtype`` accumulated in ``acc_dtype``; any other
-    pairing raises."""
+    """(the entry's value dtype, whether the tables are bfloat16) of CUDA
+    tables of ``table_dtype`` accumulated in ``acc_dtype``: the float32
+    entry reads bfloat16 tables as they lie and widens them in registers;
+    any other pairing raises."""
     if table_dtype == torch.float64 and acc_dtype == torch.float64:
         return torch.float64, False
     if table_dtype in (torch.float32, torch.bfloat16) \
@@ -153,41 +157,34 @@ def _entry_dtypes(table_dtype, acc_dtype):
         "float64 tiles into float64")
 
 
-def _operands(a, b, acc_dtype, precision):
-    """(a_val, b_val, a_pat, b_pat) for the kernel: float32 copies of
-    bfloat16 tables (once a call), the values rounded as ``precision`` says
-    where the tables are float32 (``round_operands``, once a call), the
-    pattern from the raw tables (the same tensors at "highest")."""
-    dtype, copy = _entry_dtypes(a.dtype, acc_dtype)
+def _value_dtype(a, b, acc_dtype):
+    """The dtype of C's values for the tables ``a``, ``b``, which the
+    kernel reads as they lie (no copy, no rounding pass: a precision's
+    rounding is done in registers)."""
     if b.dtype != a.dtype:
         raise TypeError(f"tables of two dtypes: {a.dtype}, {b.dtype}")
-    same = b is a
-    if copy:
-        a = a.to(dtype)
-        b = a if same else b.to(dtype)
-    if dtype == torch.float32 and not copy:
-        a_val = round_operands(a, precision)
-        b_val = a_val if same else round_operands(b, precision)
-    else:
-        a_val, b_val = a, b
-    return a_val, b_val, a, b
+    return _entry_dtypes(a.dtype, acc_dtype)[0]
 
 
-def _launch(a_val, b_val, a_pat, b_pat, a_idx, b_idx, seg, c_cap, c_val,
-            c_cnt, accumulate, c_mask=None, c_nnz=None):
-    """One launch of the entry of ``a_val``'s dtype (c_cap > 0)."""
-    dev = a_val.device
-    seg_ptr = segment_offsets(seg, c_cap)
-    f64 = a_val.dtype == torch.float64
+def _launch(a, b, a_idx, b_idx, seg, c_cap, c_val, c_cnt, accumulate,
+            precision, c_mask=None, c_nnz=None):
+    """One launch of the entry of ``c_val``'s dtype (c_cap > 0).  The fresh
+    forms pass the tiles' pair offsets (``segment_offsets``: the kernel
+    writes the tiles without pairs from them); the accumulate form walks
+    the stream alone."""
+    dev = a.device
+    seg_ptr = None if accumulate else segment_offsets(seg, c_cap)
+    f64 = c_val.dtype == torch.float64
     lib = _library()
     fn = lib.tile16_accumulate_pairs_f64 if f64 \
         else lib.tile16_accumulate_pairs_f32
     with torch.cuda.device(dev):
-        err = fn(a_val.data_ptr(), b_val.data_ptr(), a_pat.data_ptr(),
-                 b_pat.data_ptr(), a_val.shape[0], b_val.shape[0],
-                 a_idx.data_ptr(), b_idx.data_ptr(), seg_ptr.data_ptr(),
-                 c_cap, c_val.data_ptr(), _ptr(c_cnt), _ptr(c_mask),
-                 _ptr(c_nnz), int(accumulate),
+        err = fn(a.data_ptr(), b.data_ptr(), a.shape[0], b.shape[0],
+                 int(a.dtype == torch.bfloat16), a_idx.data_ptr(),
+                 b_idx.data_ptr(), seg.data_ptr(), a_idx.numel(),
+                 _ptr(seg_ptr), c_cap, c_val.data_ptr(), _ptr(c_cnt),
+                 _ptr(c_mask), _ptr(c_nnz), int(accumulate),
+                 precision_code(precision),
                  torch.cuda.current_stream().cuda_stream)
     entry = "tile16_accumulate_pairs" + ("_f64" if f64 else "") \
         + ("_acc" if accumulate else "") \
@@ -210,9 +207,10 @@ def accumulate_fused_flat(a_flat, b_flat, a_idx, b_idx, c_tile_id,
     (p_cap,) int32, c_tile_id ascending, padding pairs at c_cap or above
     (never read on the card).  ``chunk`` is read by the plain version only.
     CUDA tables launch the kernel's fresh form with counts: float32 or
-    bfloat16 tables with acc_dtype float32 the float32 entry (bfloat16 as
-    float32 copies), float64 tables with acc_dtype float64 the float64
-    entry; anything else raises.  CPU tables take the plain version.
+    bfloat16 tables with acc_dtype float32 the float32 entry (bfloat16
+    tables read as they lie), float64 tables with acc_dtype float64 the
+    float64 entry; anything else raises.  CPU tables take the plain
+    version.
     """
     precision_code(precision)
     require_full_fp32()
@@ -224,14 +222,13 @@ def accumulate_fused_flat(a_flat, b_flat, a_idx, b_idx, c_tile_id,
     _check_table(a_flat, "a_flat", dev)
     _check_table(b_flat, "b_flat", dev)
     _check_stream(a_idx, b_idx, c_tile_id, dev)
-    a_val, b_val, a_pat, b_pat = _operands(a_flat, b_flat, acc_dtype,
-                                           precision)
-    c_val = torch.empty((c_cap, TILE_ELEMS), dtype=a_val.dtype, device=dev)
+    dtype = _value_dtype(a_flat, b_flat, acc_dtype)
+    c_val = torch.empty((c_cap, TILE_ELEMS), dtype=dtype, device=dev)
     c_cnt = torch.empty((c_cap, TILE_ELEMS), dtype=torch.float32,
                         device=dev)
     if c_cap > 0:
-        _launch(a_val, b_val, a_pat, b_pat, a_idx, b_idx, c_tile_id, c_cap,
-                c_val, c_cnt, False)
+        _launch(a_flat, b_flat, a_idx, b_idx, c_tile_id, c_cap, c_val, c_cnt,
+                False, precision)
     return c_val, c_cnt
 
 
@@ -259,14 +256,13 @@ def accumulate_fused_masks(a_flat, b_flat, a_idx, b_idx, c_tile_id,
     _check_table(a_flat, "a_flat", dev)
     _check_table(b_flat, "b_flat", dev)
     _check_stream(a_idx, b_idx, c_tile_id, dev)
-    a_val, b_val, a_pat, b_pat = _operands(a_flat, b_flat, acc_dtype,
-                                           precision)
-    c_val = torch.empty((c_cap, TILE_ELEMS), dtype=a_val.dtype, device=dev)
+    dtype = _value_dtype(a_flat, b_flat, acc_dtype)
+    c_val = torch.empty((c_cap, TILE_ELEMS), dtype=dtype, device=dev)
     cmask = torch.empty((c_cap, 16), dtype=torch.int32, device=dev)
     nnz = torch.empty((c_cap,), dtype=torch.int32, device=dev)
     if c_cap > 0:
-        _launch(a_val, b_val, a_pat, b_pat, a_idx, b_idx, c_tile_id, c_cap,
-                c_val, None, False, cmask, nnz)
+        _launch(a_flat, b_flat, a_idx, b_idx, c_tile_id, c_cap, c_val, None,
+                False, precision, cmask, nnz)
     return c_val, cmask, _exclusive_scan(nnz)
 
 
@@ -310,16 +306,15 @@ def accumulate_dense(a_dense, b_dense, a_idx, b_idx, c_tile_id, c_cap: int,
     _check_table(a_dense, "a_dense", dev)
     _check_table(b_dense, "b_dense", dev)
     _check_stream(a_idx, b_idx, c_tile_id, dev)
-    a_val, b_val, _a_pat, _b_pat = _operands(a_dense, b_dense, acc_dtype,
-                                             precision)
+    dtype = _value_dtype(a_dense, b_dense, acc_dtype)
     if out is None:
-        c = torch.empty((c_cap, 16, 16), dtype=a_val.dtype, device=dev)
+        c = torch.empty((c_cap, 16, 16), dtype=dtype, device=dev)
     else:
-        _check_out(out, c_cap, a_val.dtype, dev)
+        _check_out(out, c_cap, dtype, dev)
         c = out
     if c_cap > 0:
-        _launch(a_val, b_val, a_val, b_val, a_idx, b_idx, c_tile_id, c_cap,
-                c, None, out is not None)
+        _launch(a_dense, b_dense, a_idx, b_idx, c_tile_id, c_cap, c, None,
+                out is not None, precision)
     return c
 
 

@@ -16,10 +16,16 @@ hold:
   * ``local_numeric`` runs a rank's first stage with pairs in the fresh
     form and every later one in the accumulate form into the same C (no
     partial C), equal under == to the fresh-plus-add composition;
-  * the kernel's lane map and pattern masks replayed in numpy against the
-    0/1 product, its shared-memory rows against the bank claims of the
-    source, the wrapper's argument checks, and the source against the
-    ctypes declarations.
+  * the kernel's design replayed in numpy: its fragment maps (the k and n
+    permutations: each operand element loaded once, each C element owned
+    by one lane, the pieces aligned, one pass through the PTX m16n8k8
+    layout equal to A @ B), the 3xTF32 pass within the float32 bound, the
+    roundings it does in registers against ``round_operands`` bit for
+    bit, the pattern pass against (a != 0) @ (b != 0), the marked-pair
+    rule against the plain version's NaN and Inf positions, and the span
+    walk on random streams (every tile stored once; empty tiles only in
+    the fresh forms); the wrapper's argument checks, and the source
+    against the ctypes declarations.
 
 The values against the JAX package: tests/test_torch_tile16.py (the plain
 versions, every phase) and tests/test_torch_sharded_rings.py (each rank's
@@ -185,12 +191,20 @@ def test_one_card_stream_is_sorted_by_c_tile(packed):
     assert int(ptr[-1]) == n_pairs
 
 
-@pytest.mark.parametrize("n", [2, 4])
-def test_ring_stages_are_sorted_by_c_tile(n):
+@pytest.fixture(scope="module")
+def ring_plans():
+    """{ranks: [plan of each rank]}: the Tile16 ring's plans of RANDOM at 2
+    and 4 ranks, built once for the tests below (the planner is their
+    cost)."""
     a, b = _tiled(RANDOM)
+    return {n: [sharded.plan_sharded_spgemm(a, b, n, d) for d in range(n)]
+            for n in (2, 4)}
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_ring_stages_are_sorted_by_c_tile(n, ring_plans):
     total = 0
-    for d in range(n):
-        p = sharded.plan_sharded_spgemm(a, b, n, d)
+    for d, p in enumerate(ring_plans[n]):
         seg = p.seg.numpy().astype(np.int64)
         assert np.all(np.diff(seg, axis=1) >= 0), d
         live = (seg < p.c_cap).sum(axis=1)
@@ -200,13 +214,12 @@ def test_ring_stages_are_sorted_by_c_tile(n):
     assert total == p.n_pairs
 
 
-def test_local_numeric_fresh_then_accumulate_into_one_c(monkeypatch):
+def test_local_numeric_fresh_then_accumulate_into_one_c(monkeypatch,
+                                                        ring_plans):
     """One accumulation a stage with pairs: the first fresh (out=None),
     every later one into the C the first returned; the values equal under
     == the composition of fresh partials added by torch into a zero C."""
-    a, b = _tiled(RANDOM)
-    n = 4
-    plans = [sharded.plan_sharded_spgemm(a, b, n, d) for d in range(n)]
+    plans = ring_plans[4]
     real = numeric.accumulate_dense
     calls = []
 
@@ -241,83 +254,519 @@ def test_local_numeric_fresh_then_accumulate_into_one_c(monkeypatch):
 # --------------------------------------------------------------------------
 # the kernel's design, replayed
 
+BIG = 2.0 ** 63                 # the kernel's BIG: a pair holding |x| >=
+                                # BIG, an Inf or a NaN is marked
+RTOL, ATOL = 1e-5, 1e-6         # the float32 dot-product bound
+
+
 def _source():
     with open(tk.SOURCE) as f:
         return f.read()
 
 
-def _kernel_counts(a, b):
-    """The structural counts of one pair as the kernel forms them: lane L
-    makes one 16-bit k-mask (A row L for L < 16, its k started at L / 8;
-    B column L - 16 otherwise); the lane owning (r0 + i, c0 + j) adds
-    popc(mask[r0 + i] & mask[16 + c0 + j])."""
-    masks = []
+def _constant(name):
+    """An int constant of the source (``constexpr int NAME = v;``)."""
+    return int(re.search(rf"constexpr (?:int|long long) {name} = (\d+);",
+                         _source())[1])
+
+
+def _span(p_cap, acc_form=False):
+    """The launcher's span for a stream of p_cap pairs: SPAN_MAX (SPAN_MIN
+    in the accumulate form), halved down to SPAN_MIN while the grid would
+    have fewer than MIN_WARPS warps."""
+    span = _constant("SPAN_MIN") if acc_form else _constant("SPAN_MAX")
+    while span > _constant("SPAN_MIN") and p_cap < span * _constant(
+            "MIN_WARPS"):
+        span //= 2
+    return span
+
+
+def _lane_map(lane):
+    """Lane (g, t)'s loads and outputs: its A pieces (row g + 8i, k
+    4t..4t+3), its B pieces (row 4t + i, columns 2g, 2g + 1) and its C
+    elements (rows g, g + 8, columns 4t..4t+3), as (row, column) lists."""
+    g, t = lane >> 2, lane & 3
+    a = [[(g + 8 * i, 4 * t + j) for j in range(4)] for i in range(2)]
+    b = [[(4 * t + i, 2 * g + n) for n in range(2)] for i in range(4)]
+    c = [(g + 8 * i, 4 * t + j) for i in range(2) for j in range(4)]
+    return a, b, c
+
+
+def _fragments(a, b):
+    """The lanes' operands (32, 2, 4) and (32, 4, 2) of tiles ``a``, ``b``
+    as the kernel holds them: aw[L, i, j] = A[g + 8i, 4t + j], bw[L, i, n] =
+    B[4t + i, 2g + n]."""
+    aw = np.empty((32, 2, 4), a.dtype)
+    bw = np.empty((32, 4, 2), b.dtype)
     for lane in range(32):
-        rot = lane >> 3 if lane < 16 else 0
-        m = 0
-        for k in range(16):
-            kk = (k + rot) & 15
-            v = a[lane, kk] if lane < 16 else b[kk, lane - 16]
-            m |= int(v != 0) << kk
-        masks.append(m)
-    out = np.zeros((16, 16), np.int64)
-    owned = np.zeros((16, 16), np.int64)
-    for lane in range(32):
-        r0, c0 = 2 * (lane >> 2), 4 * (lane & 3)
+        la, lb, _c = _lane_map(lane)
         for i in range(2):
             for j in range(4):
-                out[r0 + i, c0 + j] = bin(masks[r0 + i]
-                                          & masks[16 + c0 + j]).count("1")
-                owned[r0 + i, c0 + j] += 1
-    assert np.all(owned == 1)
+                aw[lane, i, j] = a[la[i][j]]
+        for i in range(4):
+            for n in range(2):
+                bw[lane, i, n] = b[lb[i][n]]
+    return aw, bw
+
+
+def _tile(acc):
+    """The (16, 16) tile the lanes' accumulators (32, 2, 4) hold."""
+    out = np.empty((16, 16), acc.dtype)
+    for lane in range(32):
+        for (r, c), v in zip(_lane_map(lane)[2], acc[lane].reshape(-1)):
+            out[r, c] = v
     return out
 
 
-def test_lane_masks_give_the_pattern_product():
-    rs = np.random.default_rng(3)
-    for t in range(6):
-        a = rs.standard_normal((16, 16)).astype(np.float32)
-        b = rs.standard_normal((16, 16)).astype(np.float32)
-        a[rs.random((16, 16)) < 0.4] = 0.0
-        b[rs.random((16, 16)) < 0.4] = -0.0
-        a[rs.integers(16), rs.integers(16)] = np.nan
-        b[rs.integers(16), rs.integers(16)] = np.inf
-        a[rs.integers(16), rs.integers(16)] = 1e-45      # subnormal
-        want = (a != 0).astype(np.int64) @ (b != 0).astype(np.int64)
-        np.testing.assert_array_equal(_kernel_counts(a, b), want)
+def _lanes(c):
+    """The lanes' accumulators (32, 2, 4) of a (16, 16) tile (_tile's
+    inverse)."""
+    out = np.empty((32, 2, 4), c.dtype)
+    for lane in range(32):
+        for k, (r, col) in enumerate(_lane_map(lane)[2]):
+            out[lane, k // 4, k % 4] = c[r, col]
+    return out
 
 
-@pytest.mark.parametrize("word", [4, 8], ids=["f32", "f64"])
-def test_padded_rows_meet_no_bank_twice(word):
-    """Shared-memory words (4 bytes, 32 banks) of the kernel's reads of its
-    padded slot: a 16-byte row read of 8 lanes (a phase) touches distinct
-    bank groups for distinct addresses; the mask reads of the 16 A lanes,
-    and of the 16 B lanes, touch distinct banks (8-byte words: the 16
-    lanes of a half warp, two banks each)."""
+def _exact(a_blk, b_blk, c_blk):
+    return a_blk @ b_blk + c_blk
+
+
+def _tc32(a_blk, b_blk, c_blk):
+    """A tensor-core block in float32: the products summed exactly with C,
+    one rounding."""
+    return (a_blk.astype(np.float64) @ b_blk.astype(np.float64)
+            + c_blk.astype(np.float64)).astype(np.float32)
+
+
+def _pass(acc, aw, bw, block=_exact):
+    """The kernel's pass(): for k-step s and column block nb one mma
+    m16n8k8, its fragments taken from the lanes' registers as the source
+    takes them and laid out as PTX defines them (a[i] = A[g + 8 (i % 2)]
+    [t + 4 (i / 2)], b[i] = B[t + 4i][g], d[q] = C[g + 8 (q / 2)]
+    [2t + q % 2]); ``block`` computes D = A B + C of the 16 x 8 x 8 block."""
+    acc = acc.copy()
+    for s in range(2):
+        for nb in range(2):
+            a_blk = np.zeros((16, 8), aw.dtype)
+            b_blk = np.zeros((8, 8), bw.dtype)
+            c_blk = np.zeros((16, 8), acc.dtype)
+            for lane in range(32):
+                g, t = lane >> 2, lane & 3
+                a = (aw[lane, 0, 2 * s], aw[lane, 1, 2 * s],
+                     aw[lane, 0, 2 * s + 1], aw[lane, 1, 2 * s + 1])
+                b = (bw[lane, 2 * s, nb], bw[lane, 2 * s + 1, nb])
+                d = (acc[lane, 0, nb], acc[lane, 0, 2 + nb],
+                     acc[lane, 1, nb], acc[lane, 1, 2 + nb])
+                for i in range(4):
+                    a_blk[g + 8 * (i % 2), t + 4 * (i // 2)] = a[i]
+                for i in range(2):
+                    b_blk[t + 4 * i, g] = b[i]
+                for q in range(4):
+                    c_blk[g + 8 * (q // 2), 2 * t + q % 2] = d[q]
+            d_blk = block(a_blk, b_blk, c_blk)
+            for lane in range(32):
+                g, t = lane >> 2, lane & 3
+                for q, (i, j) in enumerate(((0, nb), (0, 2 + nb), (1, nb),
+                                            (1, 2 + nb))):
+                    acc[lane, i, j] = d_blk[g + 8 * (q // 2), 2 * t + q % 2]
+    return acc
+
+
+# the pieces each lane loads, by table dtype: (A piece elements, B piece
+# elements); the kernel's fetch() overloads
+PIECES = {"f32": (4, 4, 2), "bf16": (2, 4, 2), "f64": (8, 2, 2)}
+
+
+@pytest.mark.parametrize("dtype", list(PIECES))
+def test_fragment_maps_load_each_element_once(dtype):
+    """The k and n permutations: every element of A and B is loaded by one
+    lane once a pair, as pieces of consecutive elements aligned to their
+    size (16 bytes of an A row in float32 and float64, 8 in bfloat16; B
+    pieces of two elements), every C element is owned by one lane, and
+    one pass of the lanes' fragments through the PTX m16n8k8 layout is
+    A @ B."""
+    word, a_len, b_len = PIECES[dtype]
+    seen_a, seen_b, seen_c = (np.zeros((16, 16), int) for _ in range(3))
+    for lane in range(32):
+        la, lb, lc = _lane_map(lane)
+        for row in la:
+            for lo in range(0, 4, a_len):
+                piece = row[lo:lo + a_len]
+                offs = [r * 16 + k for r, k in piece]
+                assert offs == list(range(offs[0], offs[0] + a_len))
+                assert (offs[0] * word) % (a_len * word) == 0
+                assert a_len * word <= 16
+        for piece in lb:
+            offs = [k * 16 + n for k, n in piece]
+            assert offs == list(range(offs[0], offs[0] + b_len))
+            assert (offs[0] * word) % (b_len * word) == 0
+        for r, k in (x for row in la for x in row):
+            seen_a[r, k] += 1
+        for k, n in (x for piece in lb for x in piece):
+            seen_b[k, n] += 1
+        for r, c in lc:
+            seen_c[r, c] += 1
+    assert (seen_a == 1).all() and (seen_b == 1).all()
+    assert (seen_c == 1).all()
+    rs = np.random.default_rng(11)
+    a, b = rs.standard_normal((2, 16, 16))
+    got = _tile(_pass(np.zeros((32, 2, 4)), *_fragments(a, b)))
+    np.testing.assert_allclose(got, a @ b, rtol=1e-13, atol=1e-13)
+    # the source loads what the map says
     src = _source()
-    assert "static constexpr int RS = 16 + EPC;" in src
-    epc = 16 // word
-    rs = 16 + epc
-    w = word // 4                                   # banks an element
-    slot = 16 * rs * w                              # words a tile
-    for q in range(4):                              # the four phases
-        for half in range(2):                       # rows r0, r0 + 1
-            for e in range(0, 16, epc):             # each 16-byte read
-                groups = {}
-                for lane in range(8 * q, 8 * q + 8):
-                    addr = ((2 * (lane >> 2) + half) * rs + e) * w
-                    groups[addr] = {(addr + i) % 32 for i in range(4)}
-                banks = [x for g in groups.values() for x in g]
-                assert len(banks) == len(set(banks)), (q, half, e)
-    for k in range(16):
-        a_banks, b_banks = [], []
-        for lane in range(16):
-            kk = (k + (lane >> 3)) & 15
-            a_banks += [((lane * rs + kk) * w + i) % 32 for i in range(w)]
-            b_banks += [(slot + (k * rs + lane) * w + i) % 32
-                        for i in range(w)]
-        assert len(a_banks) == len(set(a_banks)), k
-        assert len(b_banks) == len(set(b_banks)), k
+    for text in ("A + (g + 8 * i) * 16", "B + (4 * t + i) * 16",
+                 "+ 2 * g", "c * 256 + (g + 8 * i) * 16 + 4 * t",
+                 "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32",
+                 "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64"):
+        assert text in src, text
+
+
+def _tf32_split():
+    """tests/test_torch_tf32_split.py's tf32 replay (imported here: that
+    module imports JAX, which the card-only test below must not)."""
+    from test_torch_tf32_split import split, tf32_rna
+    return split, tf32_rna
+
+
+def _split_words(x):
+    split, _rna = _tf32_split()
+    hi, lo = split(torch.from_numpy(np.ascontiguousarray(x)))
+    return hi.numpy(), lo.numpy()
+
+
+def _kernel_pair(acc, a, b, precision="highest"):
+    """One float32 pair into a tile's lane sums as the kernel runs it: the
+    values as the mode multiplies them (round_operands), the pair marked if
+    they hold |x| >= BIG, an Inf or a NaN (the warp's vote covers both
+    tiles) and then formed by FP32 FMA in ascending k, the partial added to
+    the sum; else the tensor-core passes (3xTF32 at "highest": lo*hi,
+    hi*lo, hi*hi a block)."""
+    from pem_spgemm_tpu_torch.ops.macro import round_operands
+    va = round_operands(torch.from_numpy(a), precision).numpy()
+    vb = round_operands(torch.from_numpy(b), precision).numpy()
+    with np.errstate(invalid="ignore", over="ignore"):
+        marked = not (np.abs(va) < BIG).all() or not (np.abs(vb) < BIG).all()
+        if marked:
+            part = np.zeros((16, 16), np.float32)
+            for k in range(16):
+                part = (va[:, k:k + 1].astype(np.float64)
+                        * vb[k:k + 1, :].astype(np.float64)
+                        + part).astype(np.float32)
+            return _lanes(_tile(acc) + part)
+        if precision != "highest":
+            return _pass(acc, *_fragments(va, vb), _tc32)
+        ah, al = _split_words(va)
+        bh, bl = _split_words(vb)
+        fh, fl = _fragments(ah, bh), _fragments(al, bl)
+        out = acc
+        for s_a, s_b in ((fl[0], fh[1]), (fh[0], fl[1]), (fh[0], fh[1])):
+            out = _pass(out, s_a, s_b, _tc32)
+        return out
+
+
+def _split_block_order():
+    """The source's products of a block in pass(), in order."""
+    src = _source()
+    body = src.split("if constexpr (TERMS == 3) {")[1]
+    body = body[:body.index("acc[0][nb] = d[0];")]
+    return re.findall(r"mma\(d, (\w+), (\w+)\);", body)
+
+
+def test_split_pass_holds_the_float32_bound():
+    """The 3xTF32 pass replayed on a C tile of 12 pairs (tf32 words from
+    tests/test_torch_tf32_split.py's replay, each block's products summed
+    with C and rounded once to float32): within 1e-5 * sum|a*b| + 1e-6 of
+    the float64 product; one tf32 pass alone is not."""
+    assert _split_block_order() == [("a_lo", "b"), ("a", "b_lo"),
+                                    ("a", "b")]
+    rs = np.random.default_rng(12)
+    a = rs.standard_normal((12, 16, 16)).astype(np.float32)
+    b = rs.standard_normal((12, 16, 16)).astype(np.float32)
+    a[rs.random(a.shape) < 0.3] = 0.0
+    acc = np.zeros((32, 2, 4), np.float32)
+    one = np.zeros((32, 2, 4), np.float32)
+    _s, rna = _tf32_split()
+    for x, y in zip(a, b):
+        acc = _kernel_pair(acc, x, y)
+        fx = rna(torch.from_numpy(x)).numpy()
+        fy = rna(torch.from_numpy(y)).numpy()
+        one = _pass(one, *_fragments(fx, fy), _tc32)
+    want = np.einsum("pik,pkj->ij", a.astype(np.float64),
+                     b.astype(np.float64))
+    mag = np.einsum("pik,pkj->ij", np.abs(a).astype(np.float64),
+                    np.abs(b).astype(np.float64))
+    assert (np.abs(_tile(acc) - want) <= RTOL * mag + ATOL).all()
+    assert not (np.abs(_tile(one) - want) <= RTOL * mag + ATOL).all()
+
+
+def _cvt_rna_tf32(x):
+    """PTX cvt.rna.tf32.f32 replayed on the bits: to nearest, ties away
+    from zero (half of the 13 dropped bits added to the magnitude), an
+    overflow to Inf; a NaN stays a NaN."""
+    bits = x.view(np.uint32)
+    out = ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)) \
+        .view(np.float32)
+    return np.where(np.isnan(x), x, out)
+
+
+def _bf16_rn(x):
+    """__float2bfloat16_rn widened back (the kernel's "default"): to
+    nearest even on the bits, an overflow to Inf; a NaN stays a NaN."""
+    bits = x.view(np.uint32)
+    lsb = (bits >> np.uint32(16)) & np.uint32(1)
+    out = ((bits + np.uint32(0x7FFF) + lsb) & np.uint32(0xFFFF0000)) \
+        .view(np.float32)
+    return np.where(np.isnan(x), x, out)
+
+
+def _rounded_high(x):
+    """The kernel's rounded<HIGH> (the marked path's rounding)."""
+    bits = x.view(np.uint32)
+    nan = (bits & np.uint32(0x7FFFFFFF)) > np.uint32(0x7F800000)
+    return np.where(nan, bits, (bits + np.uint32(0x1000))
+                    & np.uint32(0xFFFFE000)).astype(np.uint32) \
+        .view(np.float32)
+
+
+@pytest.mark.parametrize("precision", ["high", "default"])
+def test_register_roundings_equal_round_operands(precision):
+    """The roundings the kernel does in registers (the tensor-core words:
+    cvt.rna.tf32 at "high", bfloat16 to nearest even at "default"; the
+    marked path's rounded<>) against ops.macro.round_operands, the
+    modes' plain version, bit for bit: ties both ways, NaN kept, +-Inf,
+    the overflow of FLT_MAX to Inf, subnormals, -0.0."""
+    from pem_spgemm_tpu_torch.ops.macro import round_operands
+    rs = np.random.default_rng(13)
+    x = rs.standard_normal(4096).astype(np.float32) \
+        * np.float32(2.0) ** rs.integers(-60, 60, 4096).astype(np.float32)
+    ties = rs.integers(0x00800000, 0x7F000000, 256).astype(np.uint32)
+    drop = 0x1000 if precision == "high" else 0x8000
+    keep = ~np.uint32(2 * drop - 1)
+    ties = (ties & keep) | np.uint32(drop)          # exactly half way
+    ties[::2] |= np.uint32(2 * drop)                # an odd kept bit
+    special = np.array([np.nan, np.inf, -np.inf, 3.4028235e38, -3.4028235e38,
+                        1e-40, -1e-45, 0.0, -0.0, 1.0, -1.0], np.float32)
+    x = np.concatenate([x, ties.view(np.float32), -ties.view(np.float32),
+                        special])
+    want = round_operands(torch.from_numpy(x), precision).numpy()
+    kernel = (_cvt_rna_tf32, _rounded_high) if precision == "high" \
+        else (_bf16_rn,)
+    for fn in kernel:
+        got = fn(x.copy())
+        nan = np.isnan(want)
+        assert np.array_equal(np.isnan(got), nan)
+        assert np.array_equal(got[~nan].view(np.uint32),
+                              want[~nan].view(np.uint32))
+    assert np.isinf(want[-11 + 3]) and np.isinf(want[-11 + 4])
+    src = _source()
+    assert "cvt.rna.tf32.f32" in src and "__float2bfloat16_rn(x)" in src
+    assert "(b + 0x1000u) & 0xFFFFE000u" in src
+
+
+def _raw_tiles(rs, n):
+    x = rs.standard_normal((n, 16, 16)).astype(np.float32)
+    u = rs.random(x.shape)
+    x[u < 0.4] = 0.0
+    x[(u >= 0.4) & (u < 0.45)] = -0.0
+    x[(u >= 0.45) & (u < 0.48)] = 1e-40                 # subnormal
+    return x
+
+
+def test_pattern_pass_counts_the_raw_nonzeros():
+    """The structural counts: one tensor-core pass on the 0/1 words of the
+    raw values (x != 0: NaN counts, -0.0 does not, a subnormal counts),
+    summed over a tile's pairs in float32, equal (a != 0) @ (b != 0)
+    exactly; and the masks form's store of them (bit 4t + j of rows g,
+    g + 8, a row's four lanes ORed) gives counts_to_masks' row masks."""
+    rs = np.random.default_rng(14)
+    a, b = _raw_tiles(rs, 9), _raw_tiles(rs, 9)
+    a[2, 3, 4], b[5, 6, 7], a[7, 0, 0] = np.nan, np.inf, -np.inf
+    a[4] = 1.0                                          # all 256 counts
+    cnt = np.zeros((32, 2, 4), np.float32)
+    for x, y in zip(a, b):
+        one = np.float32(1.0)
+        cnt = _pass(cnt, *_fragments(np.where(x != 0, one, 0),
+                                     np.where(y != 0, one, 0)), _tc32)
+    want = np.einsum("pik,pkj->ij", (a != 0).astype(np.int64),
+                     (b != 0).astype(np.int64))
+    assert np.array_equal(_tile(cnt), want.astype(np.float32))
+    words = np.zeros(16, np.int64)
+    for lane in range(32):
+        g, t = lane >> 2, lane & 3
+        for i in range(2):
+            for j in range(4):
+                words[g + 8 * i] |= int(cnt[lane, i, j] > 0) << (4 * t + j)
+    want_m, _p = numeric.counts_to_masks(torch.from_numpy(
+        want.astype(np.float32).reshape(1, 256)))
+    assert np.array_equal(words, want_m[0].numpy())
+
+
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
+def test_marked_pairs_give_the_plain_nan_and_inf(precision):
+    """The marked-pair rule on a stream whose tiles hold NaN, +-Inf, an
+    Inf that meets only zeros, FLT_MAX (whose tf32 rounding is Inf) and
+    2^63: marked pairs by FP32 FMA, the rest by the tensor-core passes,
+    C's NaN positions and Inf signs are the plain version's
+    (fused_flat_plain), and its finite values within the float32 bound of
+    the plain version at the precision."""
+    rs = np.random.default_rng(15)
+    n = 8
+    a, b = _raw_tiles(rs, n + 1), _raw_tiles(rs, n + 1)
+    a[1, 2, 3], b[2, 4, 5], a[3, 6, 6] = np.nan, np.inf, -np.inf
+    a[4, 5, :] = 0.0
+    b[4, 9, 0] = np.inf                 # meets A tile 4's row 5 of zeros
+    a[5, 0, 1], b[6, 1, 2] = 3.4028235e38, 2.0 ** 63
+    a[n], b[n] = 0.0, 0.0
+    pairs = [(0, 0, 0), (1, 1, 0), (2, 2, 1), (3, 3, 1), (4, 4, 2),
+             (5, 0, 3), (6, 6, 3), (7, 7, 4), (0, 2, 4)]
+    c_cap = 5
+    p_cap = 2 * CHUNK
+    ai = np.full(p_cap, n, np.int32)
+    bi = np.full(p_cap, n, np.int32)
+    seg = np.full(p_cap, INT32_MAX, np.int32)
+    ai[:len(pairs)], bi[:len(pairs)], seg[:len(pairs)] = zip(*pairs)
+    want, _cnt = numeric.fused_flat_plain(
+        torch.from_numpy(a.reshape(-1, 256)),
+        torch.from_numpy(b.reshape(-1, 256)), torch.from_numpy(ai),
+        torch.from_numpy(bi), torch.from_numpy(seg), c_cap, CHUNK,
+        precision=precision)
+    want = want.numpy().reshape(c_cap, 16, 16)
+    from pem_spgemm_tpu_torch.ops.macro import round_operands
+    ra = round_operands(torch.from_numpy(a), precision).numpy()
+    rb = round_operands(torch.from_numpy(b), precision).numpy()
+    marks = 0
+    for c in range(c_cap):
+        acc = np.zeros((32, 2, 4), np.float32)
+        mag = np.zeros((16, 16))
+        for x, y, s in pairs:
+            if s == c:
+                acc = _kernel_pair(acc, a[x], b[y], precision)
+                with np.errstate(invalid="ignore"):
+                    mag += np.abs(ra[x].astype(np.float64)) \
+                        @ np.abs(rb[y].astype(np.float64))
+                    marks += not ((np.abs(ra[x]) < BIG).all()
+                                  and (np.abs(rb[y]) < BIG).all())
+        got = _tile(acc)
+        w = want[c]
+        assert np.array_equal(np.isnan(got), np.isnan(w)), c
+        assert np.array_equal(np.isposinf(got), np.isposinf(w)), c
+        assert np.array_equal(np.isneginf(got), np.isneginf(w)), c
+        fin = np.isfinite(w)
+        with np.errstate(invalid="ignore"):
+            assert (np.abs(got[fin] - w[fin])
+                    <= RTOL * mag[fin] + ATOL).all(), c
+    assert marks == 7 and np.isnan(want[2]).any()
+
+
+def _walk(c_tile, p_cap, c_cap, acc_form, span, zt, n_warps):
+    """The kernel's walk replayed warp by warp: [(tile, [pairs])] in the
+    order the warps store them (an empty tile with no pairs).  The
+    ``n_warps`` warps of the grid take the ranges of c_cap and the spans
+    w, w + n_warps, ..., each warp until a span starts in the padding."""
+    def tile_at(q):
+        return int(c_tile[q]) if q < p_cap else INT32_MAX
+
+    def span_writes(p0):
+        """The span's stores, or None where it starts in the padding."""
+        if tile_at(p0) >= c_cap:
+            return None
+        end = p0 + span
+        prev = tile_at(p0 - 1) if p0 > 0 else -1
+        base, p = p0, None
+        while True:
+            batch = [tile_at(base + lane) for lane in range(32)]
+            ups = [prev] + batch[:31]
+            starts = [lane for lane in range(32)
+                      if batch[lane] < c_cap and batch[lane] != ups[lane]
+                      and base + lane < end]
+            if starts:
+                p = base + starts[0]
+                break
+            prev, base = batch[31], base + 32
+            if base >= end:
+                return []
+            if prev >= c_cap or base >= p_cap:
+                return None
+        out, tile, pairs = [], tile_at(p), []
+        while True:
+            q = p + 1
+            q_tile = tile_at(q)
+            same = q_tile == tile
+            more = same or (q < end and q_tile < c_cap)
+            pairs.append(p)
+            if not same:
+                out.append((tile, pairs))
+                pairs = []
+                if not more:
+                    return out
+                tile = q_tile
+            p = q
+
+    seg_ptr = np.searchsorted(c_tile[:p_cap], np.arange(c_cap + 1))
+    writes = []
+    for w in range(n_warps):
+        if not acc_form:
+            for r in range(w, -(-c_cap // zt), n_warps):
+                for lane in range(32):
+                    c = r * zt + lane
+                    if c < c_cap and seg_ptr[c] == seg_ptr[c + 1]:
+                        writes.append((c, []))
+        for sp in range(w, -(-p_cap // span), n_warps):
+            got = span_writes(sp * span)
+            if got is None:
+                break
+            writes += got
+    return writes
+
+
+@pytest.mark.parametrize("pad", ["int32_max", "c_cap", "overflow"])
+def test_span_walk_writes_every_tile_once(pad):
+    """The walk on random streams (tiles of 0-40 pairs, long runs of empty
+    tiles, padding at INT32_MAX or at c_cap, or real pairs past c_cap, a
+    plan's overflow), in the launcher's spans for such streams (8 pairs)
+    and in 16- and 64-pair spans (a long stream's), the spans strided over
+    grids of 1 to 1,000 warps, each warp stopping at the first span that
+    starts in the padding: every tile with pairs
+    is stored once, by one warp, with exactly its pairs in stream order;
+    in the fresh forms every empty tile of c_cap once too, in the
+    accumulate form never."""
+    zt = _constant("ZT")
+    assert zt == 32 and _span(4_194_304) == 64 and _span(4096) == 8
+    assert _span(4_194_304, acc_form=True) == 8
+    src = _source()
+    assert "while (span > SPAN_MIN && (long long)p_cap < span * MIN_WARPS)" \
+        in src and "int span = F == Form::ACC ? SPAN_MIN : SPAN_MAX;" in src
+    rs = np.random.default_rng({"int32_max": 16, "c_cap": 17,
+                                "overflow": 18}[pad])
+    for trial in range(4):
+        c_cap = int(rs.integers(40, 400))
+        counts = rs.integers(0, 41, c_cap)
+        counts[rs.random(c_cap) < 0.4] = 0
+        counts[c_cap // 3:c_cap // 3 + 70] = 0          # a long gap
+        if trial == 3:
+            counts[:] = 0
+            counts[5] = 3                               # one short tile
+        seg = np.repeat(np.arange(c_cap), counts)
+        if pad == "overflow":
+            seg = np.concatenate([seg, np.repeat(c_cap + np.arange(3), 5)])
+        n = seg.size
+        p_cap = n + int(rs.integers(0, 100))
+        fill = c_cap if pad == "c_cap" else INT32_MAX
+        c_tile = np.concatenate([seg, np.full(p_cap - n, fill)])
+        for acc_form, span, n_warps in (
+                (False, _span(p_cap), 3), (True, _span(p_cap, True), 5),
+                (False, 16, 1), (True, 64, 2), (False, 64, 1000)):
+            writes = _walk(c_tile, p_cap, c_cap, acc_form, span, zt,
+                           n_warps)
+            tiles = [t for t, _p in writes]
+            assert len(tiles) == len(set(tiles))
+            for t, pairs in writes:
+                assert pairs == np.flatnonzero(c_tile[:p_cap] == t).tolist()
+            live = set(np.flatnonzero(counts).tolist())
+            want = set(range(c_cap)) if not acc_form else live
+            assert set(tiles) == want, (trial, acc_form)
+            assert all(bool(p) == (t in live) for t, p in writes)
 
 
 def test_kernel_source_and_loader_agree():
@@ -328,7 +777,19 @@ def test_kernel_source_and_loader_agree():
     # hand-written products: no library GEMM, no PyTorch headers
     for banned in ("torch/extension.h", "cublas", "cutlass", "wmma"):
         assert banned not in src.lower()
-    assert "fmaf(a, b, c)" in src and "fma(a, b, c)" in src
+    # the products on the tensor cores: tf32 (float32 and bfloat16 tables)
+    # and DMMA (float64); FP32 FMA only on marked pairs
+    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in src
+    assert "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64" in src
+    assert src.count("fmaf(") == 2 and "fma(" not in src.replace(
+        "fmaf(", "")
+    assert "__shared__" not in src
+    # bench/k4_split.py's other builds of the source: each text once
+    from pem_spgemm_tpu_torch.bench import k4_split
+    for name, cuts in [*k4_split.TILE16_CUTS.items(),
+                       *k4_split.TILE16_SPLIT_CUTS.items()]:
+        for old, new in cuts:
+            assert src.count(old) == 1 and new != old, name
     assert re.search(r"\batomic[A-Z]\w*\(", src) is None     # no atomics
     assert set(tk.LAUNCHES) == {
         "tile16_accumulate_pairs", "tile16_accumulate_pairs_acc",

@@ -10,8 +10,8 @@ against their plain versions there and skips here).  What the CPU can hold:
     tile's pairs (indices passed by shuffles in batches of 16, B's column
     masks by shuffles) and its popc reduction; ``tile16_c_rowcol``'s
     shuffle scan of the row popcounts, its ``__ffs`` enumeration and its
-    grid-stride padding; the masks form's four-lane OR of 2 x 4 count
-    blocks and its popc sum over the eight quads.  Streams with empty
+    grid-stride padding; the masks form's four-lane OR of the count bits
+    of rows g, g + 8 and its popc sum over the eight quads.  Streams with empty
     tiles, a tile of one pair, a tile with all 256 bits, more than 16
     pairs a tile, padding at c_cap and at INT32_MAX, real pairs past c_cap
     (a plan's overflow), c_nnz_cap above, at and below C_nnz;
@@ -271,35 +271,36 @@ def test_c_rowcol_replay_equals_the_plain_version(room, dtype):
 # the Tile16 kernel's masks form, replayed
 
 def _lane_counts(a, b):
-    """(16, 16) structural counts of one pair as the kernel's lanes form
-    them: popc of the A row's and the B column's 16-bit k-masks (x != 0)."""
-    am = [sum(int(a[r, k] != 0) << k for k in range(16)) for r in range(16)]
-    bm = [sum(int(b[k, j] != 0) << k for k in range(16)) for j in range(16)]
-    return np.array([[_popc(am[r] & bm[j]) for j in range(16)]
-                     for r in range(16)])
+    """(16, 16) structural counts of one pair as the kernel forms them: the
+    product of the 0/1 words of the raw values (x != 0), exact small
+    integers (its tensor-core pass is replayed lane by lane in
+    tests/test_torch_tile16_kernel.py)."""
+    return (a != 0).astype(np.int64) @ (b != 0).astype(np.int64)
 
 
 def replay_masks_form(cnt):
-    """The masks form's store from a tile's counts: lane L owns rows
-    r0 = 2 (L / 4), r0 + 1 and columns c0 = 4 (L % 4) .. c0 + 3; it sets
-    bit c0 + j of its row words where its count is > 0, ORs in lanes
-    L ^ 1 and L ^ 2 (the quad of a row pair), and the quad's first lane
-    stores both words; that lane's popc, summed over the eight quads by
+    """The masks form's store from a tile's counts: lane L = 4g + t owns
+    rows g, g + 8 and columns 4t .. 4t + 3; it sets bit 4t + j of its row
+    words where its count is > 0, ORs in lanes L ^ 1 and L ^ 2 (the quad
+    of a row pair), lane 4g stores row g and lane 4g + 1 row g + 8; the
+    quad's first lane's popc, summed over the eight quads by
     __shfl_xor_sync at 4, 8, 16, is the tile's nnz."""
     w = np.zeros((32, 2), np.int64)
     for lane in range(32):
-        r0, c0 = 2 * (lane >> 2), 4 * (lane & 3)
+        g, t = lane >> 2, lane & 3
         for i in range(2):
             for j in range(4):
-                w[lane, i] |= int(cnt[r0 + i, c0 + j] > 0) << (c0 + j)
+                w[lane, i] |= int(cnt[g + 8 * i, 4 * t + j] > 0) \
+                    << (4 * t + j)
     for off in (1, 2):
         w = w | w[[lane ^ off for lane in range(32)]]
     rows = np.zeros(16, np.int64)
     pc = np.zeros(32, np.int64)
     for lane in range(32):
-        if lane & 3 == 0:
-            r0 = 2 * (lane >> 2)
-            rows[r0], rows[r0 + 1] = w[lane]
+        g, t = lane >> 2, lane & 3
+        if t < 2:
+            rows[g + 8 * t] = w[lane, t]
+        if t == 0:
             pc[lane] = _popc(w[lane, 0]) + _popc(w[lane, 1])
     for off in (4, 8, 16):
         pc = pc + pc[[lane ^ off for lane in range(32)]]
@@ -314,8 +315,8 @@ def test_masks_form_replay_equals_counts_to_masks(precision):
     the raw tables (with -0.0, NaN, +-Inf and subnormals), against
     ``fused_masks_plain`` (``fused_flat_plain`` then ``counts_to_masks``)
     on a stream with empty tiles and padding; at "default" the values are
-    rounded but the pattern is the raw tables', as in the kernel's SEP_PAT
-    form."""
+    rounded but the pattern is the raw tables', as the kernel takes it from
+    the raw values it holds in registers."""
     rs = np.random.default_rng(7)
     n_a, n_b, tiles, c_cap = 6, 5, 7, 9
     a = rs.standard_normal((n_a + 1, 16, 16)).astype(np.float32)
@@ -381,8 +382,10 @@ def test_structure_source_and_loader_agree():
         assert len(fn.argtypes) == params.count(",") + 1, e
         assert fn.restype is ctypes.c_int
     acc = open(tk.SOURCE).read()
-    assert "bool MASKS" in acc and "__shfl_xor_sync(FULL, w[i], 1)" in acc \
+    assert "F == Form::MASKS" in acc \
+        and "__shfl_xor_sync(FULL, w[i], 1)" in acc \
         and "__shfl_xor_sync(FULL, w[i], 2)" in acc
+    assert "c_mask + c * 16 + g + 8 * t" in acc
     assert "for (int off = 4; off < 32; off <<= 1)" in acc
 
 
