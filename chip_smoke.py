@@ -156,7 +156,19 @@ K4's accumulate form at "highest", "high", "default" and in float64, rows
 macro_accumulate_pairs_acc[@...] and macro_accumulate_pairs_f64_acc, on the
 4-rank ring's largest accumulating stage, held against the plain
 accumulate into a C with -0.0, +-Inf and NaN in every tile, the tiles
-without pairs bit for bit).
+without pairs bit for bit, timed by CUDA-graph replay as the ring runs
+them: the tables' masks made once a plan and the chunk's carried with it,
+the walk over the stage's tiles with pairs (tiles_visited); rows
+macro_tile_masks and macro_tile_masks_f64 time the masks entries over a
+plan's A slice and B chunk).  The kernel check also holds both masks
+entries bit for bit to their plain version (tile_masks_plain) on tiles
+with NaN, +-Inf, values of 2^63 and more, -0.0 and subnormals, every
+accumulate form on a stream whose c_cap lies far above its tiles with
+pairs and on a stage of a single pair, and a stage's CUDA-graph replay
+bit for bit its eager launch (made under set_sync_debug_mode("error"));
+sharded_ranks and precision_path hold every plan's carried masks to
+masks made anew from its tables, count one masks launch a table a plan,
+and report each rank's launches (rank_launches).
 The kernel checks hold the Macro128 entries at each precision to the
 plain version at it (and each entry at "high" / "default" to itself at
 "highest" on tables rounded beforehand), with the plain version's NaN
@@ -1268,18 +1280,21 @@ def pairs_direct(a_dense, b_dense, a_idx, b_idx, seg, c_cap, grid,
                  precision="highest", out=None):
     """The pair-stream entry launched with ``grid`` blocks (the wrapper
     launches one an SM), so that each block takes several C tiles; with
-    ``out`` its accumulate form, into ``out``; not counted."""
+    ``out`` its accumulate form, into ``out`` (at "high" / "default" over
+    the stream's walk list); not counted."""
     seg_ptr = mk.segment_offsets(seg, c_cap)
     next_tile = torch.zeros(1, dtype=torch.int32, device=DEV)
     num, flag = fresh_slabs(c_cap) if out is None else out
     prec = M.precision_code(precision)
-    _masks, margs = mk._mask_args(a_dense, b_dense, prec, None)
+    _masks, margs = mk._mask_args(a_dense, b_dense, prec != 0, None)
+    walk = mk.stream_walk(seg, c_cap, min(c_cap, a_idx.numel()), next_tile) \
+        if out is not None and prec != 0 else None
     mk._raise_on(mk._library().macro_accumulate_pairs_f32(
         a_dense.data_ptr(), b_dense.data_ptr(), a_idx.data_ptr(),
         b_idx.data_ptr(), seg_ptr.data_ptr(), num.data_ptr(),
         flag.data_ptr(), c_cap, grid, next_tile.data_ptr(), prec, *margs,
-        int(out is not None), torch.cuda.current_stream().cuda_stream),
-        "pairs_direct")
+        int(out is not None), None if walk is None else walk.data_ptr(),
+        torch.cuda.current_stream().cuda_stream), "pairs_direct")
     torch.cuda.synchronize()
     return num, flag
 
@@ -1414,7 +1429,7 @@ def class_direct(entry, slabs, a, b, bases, t, p, a_offs, b_offs, tables,
     lib = mk._library()
     stream = torch.cuda.current_stream().cuda_stream
     prec = M.precision_code(precision)
-    _masks, margs = mk._mask_args(a, b, prec, None)
+    _masks, margs = mk._mask_args(a, b, prec != 0, None)
     head = (a.data_ptr(), b.data_ptr(), bases.data_ptr())
     tail = (n_steps, base, slabs[0].data_ptr(), slabs[1].data_ptr(), prec,
             grid, ticket.data_ptr(), *margs, stream)
@@ -1630,7 +1645,134 @@ def engineered_accumulate_cases(worst):
         cases += 2
     accumulate_case(a.double(), b.double(), a_idx, b_idx, seg, 8,
                     "engineered", worst, seed=62)
-    return cases + 1
+    cases += 1
+    # the same stream in a c_cap far above its 6 tiles with pairs (the walk
+    # list visits those alone), and a stage of a single pair
+    one = torch.full((256,), symbolic.INT32_MAX, dtype=torch.int32,
+                     device=DEV)
+    one[0] = 5
+    one_a, one_b = torch.full_like(one, 12), torch.full_like(one, 12)
+    one_a[0], one_b[0] = 2, 3
+    for x, y, ia, ib, sg, c_cap, what in (
+            (a, b, a_idx, b_idx, seg, 2048, "c_cap 2048, 6 tiles with pairs"),
+            (a, b, one_a, one_b, one, 8, "a single pair")):
+        for q in ("highest",) + LOWER_PRECISIONS:
+            accumulate_case(x, y, ia, ib, sg, c_cap, what, worst, q, seed=65,
+                            grid=3)
+            cases += 2
+        accumulate_case(x.double(), y.double(), ia, ib, sg, c_cap, what,
+                        worst, seed=66)
+        cases += 1
+    return cases
+
+
+def engineered_masks_cases():
+    """Both masks entries (TableMasks.make: macro_tile_masks_f32 / _f64)
+    bit for bit their plain version (tile_masks_plain) on tiles with NaN,
+    +-Inf, values of 2^63 and more, -0.0 columns, subnormals, an empty tile
+    and a full one, float32 and float64.  Returns the count."""
+    g = torch.Generator(device=DEV).manual_seed(67)
+    x = torch.randn((6, 128, 128), generator=g, device=DEV)
+    x.masked_fill_(torch.rand(x.shape, generator=g, device=DEV) < 0.85, 0.0)
+    x[0, 3, 99] = float("nan")
+    x[0, 70, 5] = float("inf")
+    x[1, 40, 33] = float("-inf")
+    x[1, 100, 64] = 2.0 ** 63
+    x[1, 101, 65] = -3.0e38
+    x[2, :, 10:20] = -0.0
+    x[2, 17, 90] = 1e-42
+    x[2, 120, 7] = -1e-45
+    x[3] = 0.0
+    x[4] = 1.0
+    x[5, 60, 127] = 2.0 ** 62
+    cases = 0
+    for t in (x, x.double()):
+        got = mk.TableMasks(t).make().words
+        if not torch.equal(got, mk.tile_masks_plain(t)):
+            raise AssertionError(f"masks entry, {t.dtype}: words differ "
+                                 "from the plain version's")
+        cases += 1
+    return cases
+
+
+def walk_stream(per_tile, c_cap, past=0, pad_to=256):
+    """A sorted stream on the card: tile i with per_tile[i] pairs, ``past``
+    pairs of tile c_cap + 1 after them, padded with INT32_MAX to a multiple
+    of ``pad_to``."""
+    seg = np.concatenate([np.repeat(np.arange(len(per_tile)), per_tile),
+                          np.full(past, c_cap + 1)]).astype(np.int64)
+    p_cap = max(pad_to, -(-len(seg) // pad_to) * pad_to)
+    seg = np.concatenate([seg, np.full(p_cap - len(seg),
+                                       symbolic.INT32_MAX)])
+    return torch.from_numpy(seg.astype(np.int32)).to(DEV)
+
+
+def engineered_walk_cases():
+    """The walk entry (mk.stream_walk: macro_stream_walk) bit for bit its
+    plain version on streams: empty, a c_cap far above its tiles, pairs
+    past c_cap, a single pair, a tile of 1,024 pairs and tiles across
+    several 4,096-pair steps; each with the ticket counter zeroed.
+    Returns the count."""
+    g = np.random.default_rng(91)
+    many = g.integers(0, 41, 300) * (g.random(300) < 0.4)
+    many[[5, 100, 200]] = (3000, 4100, 1500)
+    cases = 0
+    for per_tile, c_cap, past in (([], 8, 0), ([0, 3, 0, 0, 2], 4096, 0),
+                                  ([1, 2, 0, 4], 4, 5), ([0, 0, 1], 3, 0),
+                                  ([1024, 1, 0, 7], 9, 0),
+                                  (list(many), 300, 0)):
+        seg = walk_stream(per_tile, c_cap, past)
+        cap = min(c_cap, seg.numel())
+        ticket = torch.full((1,), 7, dtype=torch.int32, device=DEV)
+        got = mk.stream_walk(seg, c_cap, cap, ticket)
+        want = mk.stream_walk_plain(seg, c_cap, cap)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, want) and int(ticket[0]) == 0):
+            raise AssertionError(f"stream walk, tiles {per_tile[:8]}..., "
+                                 f"c_cap {c_cap}: differs from the plain "
+                                 "version")
+        cases += 1
+    return cases
+
+
+def graph_stage_case(a, b, a_idx, b_idx, seg, c_cap, precision, what):
+    """One stage's accumulate launch through the wrapper, its tables' masks
+    made beforehand as a ring plan's are: eagerly under
+    set_sync_debug_mode("error") (a host sync raises), and captured in a
+    CUDA graph and replayed once, each into a copy of one prior C: the
+    replay bit for bit the eager launch.  Returns the tiles it visits (the
+    walk list's count; c_cap at "highest" in float32)."""
+    prior = acc_prior(c_cap, a.dtype, 81)
+    masks = mk.TileMasks(a, b)
+    if mk.reads_masks(a, precision):
+        masks.a.make()
+        if masks.b is not masks.a:
+            masks.b.make()
+    run = lambda out: mk.accumulate_macro_pairs(
+        a, b, a_idx, b_idx, seg, c_cap, precision=precision,
+        tile_masks=masks, out=out)
+    eager = tuple(x.clone() for x in prior)
+    replay = tuple(x.clone() for x in prior)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        run(eager)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        run(replay)
+    graph.replay()
+    torch.cuda.synchronize()
+    del graph
+    if not (torch.equal(int_view(eager[0]), int_view(replay[0]))
+            and torch.equal(eager[1], replay[1])):
+        raise AssertionError(f"{what}: the graph replay differs from the "
+                             "eager launch")
+    if not mk.reads_masks(a, precision):
+        return c_cap
+    walk = mk.stream_walk(seg, c_cap, min(c_cap, a_idx.numel()))
+    return int(walk[0])
 
 
 F32_MACRO_ENTRIES = ("macro_accumulate_pairs", "macro_class_ragged",
@@ -1728,6 +1870,8 @@ def phase_macro_kernel_check():
     cases += n
     cases += engineered_nonfinite_cases(worst)
     cases += engineered_accumulate_cases(worst)
+    cases += engineered_masks_cases()
+    cases += engineered_walk_cases()
 
     # "high" and "default": every entry against its plain version at the
     # precision (round_operands, then the "highest" plain path), and
@@ -1773,6 +1917,20 @@ def phase_macro_kernel_check():
     accumulate_case(ap.dense.double(), ap.dense.double(), a_idx, b_idx, seg,
                     n_tiles + 40, "pairs gapped bands", worst, seed=64)
     cases += 1
+    # the stage's launch replayed from a CUDA graph, bit for bit its eager
+    # launch (no host sync in it), in every accumulate form; and the masks
+    # entries on a whole table
+    for t in (ap.dense, ap.dense.double()):
+        for q in ("highest",) + LOWER_PRECISIONS \
+                if t.dtype == torch.float32 else ("highest",):
+            graph_stage_case(t, t, a_idx, b_idx, seg, n_tiles + 40, q,
+                             f"pairs gapped bands, {t.dtype}, {q}")
+            cases += 1
+        if not torch.equal(mk.TableMasks(t).make().words,
+                           mk.tile_masks_plain(t)):
+            raise AssertionError(f"masks entry, {t.dtype}, gapped bands: "
+                                 "words differ from the plain version's")
+        cases += 1
     cnt_c = n_tiles - 1 - (n_tiles - 1) % 4 + 1        # = 1 mod 4
     cut = seg >= cnt_c
     seg_cut = torch.where(cut, symbolic.INT32_MAX, seg)
@@ -4840,15 +4998,16 @@ def tile16_structure_rows(a, b, ai, bi, seg, c_row, c_col, c_cap, n_pairs,
 
 def tile16_acc_row(plans, plan1, check_err):
     """The row of the float32 entry's accumulate form, timed on the 4-rank
-    Tile16 ring's largest accumulating stage (acc_stage) into a C with
-    -0.0, +-Inf and NaN in every tile, beside its plain version, the fresh
+    Tile16 ring's largest accumulating stage (sm.largest_accumulating_stage)
+    into a C with -0.0, +-Inf and NaN in every tile, beside its plain
+    version, the fresh
     form on the same stream and torch.bmm over the stage's pairs; and on
     the world-size-1 ring's stream (every C tile has pairs), into the same
     C as the fresh form writes."""
     from pem_spgemm_tpu_torch.ops import numeric as N
     from pem_spgemm_tpu_torch.parallel import sharded as sh
     name = "tile16_accumulate_pairs_acc"
-    d, s = acc_stage(plans)
+    d, s = sm.largest_accumulating_stage(plans)
     p = plans[d]
     b = list(sh.replay_chunks(plans, d))[s]
     args = (p.pairs_a[s], p.pairs_b[s], p.seg[s], p.c_cap,
@@ -5455,28 +5614,61 @@ def ring_stage_counts(plans):
     return stages, first
 
 
-def check_ring_launches(launches, plans, what, f64=False, runs=1):
+def check_ring_launches(launches, plans, what, f64=False, runs=1,
+                        masks=False):
     """One K4 launch a stage with pairs (``runs`` times): the first of each
-    rank's in the fresh form, the others in the accumulate form."""
+    rank's in the fresh form, the others in the accumulate form; with
+    ``masks`` (where K4 reads tile masks) one masks launch a table of each
+    plan, A slice and B chunk, whatever ``runs``: made once a plan; and one
+    walk list an accumulate launch."""
     stages, first = ring_stage_counts(plans)
     entry = "macro_accumulate_pairs_f64" if f64 else "macro_accumulate_pairs"
-    got = (launches.get(entry, 0), launches.get(entry + "_acc", 0))
-    if got != (runs * first, runs * (stages - first)):
+    masks_entry = "macro_tile_masks_f64" if f64 else "macro_tile_masks"
+    got = (launches.get(entry, 0), launches.get(entry + "_acc", 0),
+           launches.get(masks_entry, 0), launches.get("macro_stream_walk", 0))
+    if got != (runs * first, runs * (stages - first),
+               2 * len(plans) if masks else 0,
+               runs * (stages - first) if masks else 0):
         raise AssertionError(f"{what}: launches {launches}, {stages} stages "
                              f"with pairs, {first} of them first")
     return stages
 
 
+def check_carried_masks(plans, what):
+    """Each plan's masks (plan_masks: made once, the chunk's carried with
+    the chunk) against masks made anew from its A slice and its B chunk,
+    word for word.  Returns the tables checked."""
+    n = 0
+    for p in plans:
+        for have, table in zip(p.masks, (p.a_dense, p.b_dense)):
+            if not (have.ready and have.matches(table) and torch.equal(
+                    have.words, mk.TableMasks(table).make().words)):
+                raise AssertionError(f"{what}: carried masks differ from "
+                                     "the masks of their table")
+            n += 1
+    return n
+
+
 RING_ROUNDS = 3         # timed replays of a ring plan (median reported)
+
+
+def ring_carries_masks(plans, precision):
+    """Whether the ring's stages read tile masks (and its chunks carry
+    them): float64 tables, float32 at "high" / "default"."""
+    return mk.reads_masks(plans[0].b_dense, precision)
 
 
 def warm_ring(plans, precision="highest"):
     """Each rank's local_macro once, its output dropped: the first launch
     of a kernel instance in a process loads it, and the first C of a size
-    is a fresh allocation."""
+    is a fresh allocation.  The plans' masks made for it are dropped, so
+    that the counted run makes them."""
+    masks = ring_carries_masks(plans, precision)
     for d, p in enumerate(plans):
-        sm.local_macro(p, sm.replay_chunks(plans, d), precision)
+        sm.local_macro(p, sm.replay_chunks(plans, d, masks), precision)
     torch.cuda.synchronize()
+    for p in plans:
+        p.masks = None
 
 
 def replay_ring(plans, precision="highest"):
@@ -5485,18 +5677,26 @@ def replay_ring(plans, precision="highest"):
     apart (host clock, the card synchronised; the median of the rounds:
     both make host syncs and allocations, and single rounds spread by
     several ms), and the peak device memory of its local_macro above what
-    was allocated before it.  Returns (outs, parts, k4_ms, coo_ms,
-    ring_peak_gb) with the last round's outputs."""
+    was allocated before it.  The chunks carry their masks where K4 reads
+    them (made once a plan, in the first round).  Returns (outs, parts,
+    k4_ms, coo_ms, ring_peak_gb, rank_launches) with the last round's
+    outputs and each rank's kernel launches in it."""
     n = len(plans)
+    masks = ring_carries_masks(plans, precision)
     k4, coo, peaks = [[] for _ in plans], [[] for _ in plans], [0.0] * n
-    for _ in range(RING_ROUNDS):
+    rank_launches = [{} for _ in plans]
+    for r in range(RING_ROUNDS):
         outs, parts = [], []
         for d, p in enumerate(plans):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             before = torch.cuda.memory_allocated()
+            counted = dict(mk.LAUNCHES)
             out, ms = synced_ms(lambda: sm.local_macro(
-                p, sm.replay_chunks(plans, d), precision))
+                p, sm.replay_chunks(plans, d, masks), precision))
+            if r == RING_ROUNDS - 1:
+                rank_launches[d] = {k: v - counted[k] for k, v in
+                                    mk.LAUNCHES.items() if v > counted[k]}
             peaks[d] = max(peaks[d], (torch.cuda.max_memory_allocated()
                                       - before) / 2**30)
             part, ms_coo = synced_ms(lambda: sm.local_macro_coo(p, *out))
@@ -5505,7 +5705,7 @@ def replay_ring(plans, precision="highest"):
             k4[d].append(ms)
             coo[d].append(ms_coo)
     return (outs, parts, [float(np.median(x)) for x in k4],
-            [float(np.median(x)) for x in coo], peaks)
+            [float(np.median(x)) for x in coo], peaks, rank_launches)
 
 
 def hold_ring_compositions(plans, outs, precision, what):
@@ -5523,20 +5723,6 @@ def hold_ring_compositions(plans, outs, precision, what):
         out["rank_composition_peak_mem_gb"].append(peak)
         del want
     return out
-
-
-def acc_stage(plans):
-    """(rank, stage) of a ring plan's stage with the most pairs among those
-    K4 runs in the accumulate form (a stage with pairs after its rank's
-    first), or None."""
-    best = None
-    for d, p in enumerate(plans):
-        live = [s for s, x in enumerate(p.stage_pairs) if x]
-        for s in live[1:]:
-            if best is None or p.stage_pairs[s] > \
-                    plans[best[0]].stage_pairs[best[1]]:
-                best = (d, s)
-    return best
 
 
 def acc_bounds(a_dense, pa, pb, n_pairs, tiles, precision):
@@ -5575,14 +5761,21 @@ def acc_bounds(a_dense, pa, pb, n_pairs, tiles, precision):
 def acc_row(plans, matrix, launches, check_err, precision="highest",
             extra=None):
     """The kernels-line row of K4's accumulate form at ``precision`` (or in
-    float64, for float64 plans), timed on the ring stage acc_stage picks:
-    held first against the plain accumulate (accumulate_case's rule, into
-    a prior C with -0.0, +-Inf and NaN in every tile), then the form, its
-    plain version and K4's fresh form on the same stream, and torch.bmm
-    over the stage's pre-gathered pairs."""
-    d, s = acc_stage(plans)
+    float64, for float64 plans), timed on the ring stage that
+    sm.largest_accumulating_stage picks: held first against the plain
+    accumulate (accumulate_case's rule, into a prior C with -0.0, +-Inf and
+    NaN in every tile), then the launch as the ring makes it (the A slice's
+    and the chunk's masks ready, the walk list built by the wrapper) timed
+    by CUDA-graph replay (``ms``) and through the wrapper's eager calls
+    (``wrapper_ms``: its host time shows there), the masks launches the
+    plans make once for the two tables (``masks_ms``), its plain version,
+    K4's fresh form on the same stream, and torch.bmm over the stage's
+    pre-gathered pairs by graph replay (``library_ms``; ``library_eager_ms``
+    by CUDA events around eager calls)."""
+    d, s = sm.largest_accumulating_stage(plans)
     p = plans[d]
-    b = list(sm.replay_chunks(plans, d))[s]
+    owner = plans[(d - s) % len(plans)]
+    b = owner.b_dense
     pa, pb, sg = p.pairs_a[s], p.pairs_b[s], p.seg[s]
     n_pairs = p.stage_pairs[s]
     f64 = p.a_dense.dtype == torch.float64
@@ -5593,16 +5786,27 @@ def acc_row(plans, matrix, launches, check_err, precision="highest",
                     f"stage (rank {d}, stage {s})", worst, precision,
                     seed=71)
     tiles = int(stream_tiles(sg, p.c_cap).sum())
+    visited = graph_stage_case(p.a_dense, b, pa, pb, sg, p.c_cap, precision,
+                               f"{matrix} ring stage, {precision}")
     chunk = min(256, pa.numel())
     c = acc_prior(p.c_cap, p.a_dense.dtype, 72)
+    reads = mk.reads_masks(b, precision)
+    masks = mk.TileMasks(p.a_dense, b, a=sm.plan_masks(p)[0],
+                         b=sm.plan_masks(owner)[1]) if reads else None
     fn = lambda: mk.accumulate_macro_pairs(p.a_dense, b, pa, pb, sg, p.c_cap,
-                                           precision=precision, out=c)
+                                           precision=precision,
+                                           tile_masks=masks, out=c)
     plain = lambda: M.accumulate_macro(p.a_dense, b, pa, pb, sg, p.c_cap,
                                        chunk, p.a_dense.dtype, precision,
                                        out=c)
     fresh = lambda: mk.accumulate_macro_pairs(p.a_dense, b, pa, pb, sg,
                                               p.c_cap, precision=precision)
-    ms = time_ms(fn)
+    tables = (mk.TableMasks(p.a_dense), mk.TableMasks(b))
+    make_masks = lambda: [t.make() for t in tables]
+    bmm, _what = bmm_at(precision)
+    cast = bmm_cast(p.a_dense.dtype, precision)
+    ad = p.a_dense[pa[:n_pairs].long()].to(cast)
+    bd = b[pb[:n_pairs].long()].to(cast)
     row = {
         "name": name,
         "kernel": ("K4-f64" if f64 else "K4") + " accumulate form"
@@ -5614,11 +5818,13 @@ def acc_row(plans, matrix, launches, check_err, precision="highest",
                           "(c_dense.at[sg].add(prod))",
         "launches": launches, "max_abs_err": max(
             worst[name], check_err.get(name, 0.0)),
-        "ms": ms, "plain_ms": time_ms(plain, 2),
+        "ms": graph_ms(fn), "wrapper_ms": time_ms(fn),
+        "masks_ms": graph_ms(make_masks) if reads else None,
+        "plain_ms": time_ms(plain, 2),
         **acc_bounds(p.a_dense, pa[:n_pairs], pb[:n_pairs], n_pairs, tiles,
                      precision),
-        "library_ms": bmm_ms(p.a_dense, b, pa[:n_pairs], pb[:n_pairs],
-                             precision=precision),
+        "library_ms": graph_ms(lambda: bmm(ad, bd)),
+        "library_eager_ms": time_ms(lambda: bmm(ad, bd), 3),
         "library_covers": ("torch.bmm in float64" if f64 else
                            bmm_at(precision)[1]) + " over the stage's "
                           "pre-gathered (P, 128, 128) operands: the products "
@@ -5626,30 +5832,104 @@ def acc_row(plans, matrix, launches, check_err, precision="highest",
         "fresh_form_ms": time_ms(fresh),
         "matrix": matrix, "ring": f"{len(plans)} ranks replayed",
         "rank": d, "stage": s, "pairs": n_pairs, "tiles_with_pairs": tiles,
-        "c_cap": p.c_cap, "precision": "float64" if f64 else precision,
+        "tiles_visited": visited, "c_cap": p.c_cap,
+        "precision": "float64" if f64 else precision,
         "dtype": str(p.a_dense.dtype).replace("torch.", ""),
         "timed": "one launch into the rank's C (c_cap tiles), the stage's "
-                 "stream as the ring hands it over; fresh_form_ms: K4's "
-                 "fresh form on the same stream (it writes all c_cap "
-                 "tiles)", **(extra or {})}
-    del c
+                 "stream as the ring hands it over (masks ready, the walk "
+                 "list built in the call), by CUDA-graph replay; masks_ms: "
+                 "the masks entry over the A slice and the chunk, as a plan "
+                 "makes them once; fresh_form_ms: K4's fresh form on the "
+                 "same stream (it writes all c_cap tiles)", **(extra or {})}
+    del c, ad, bd, tables
     torch.cuda.empty_cache()
+    return row
+
+
+def walk_row(plans, launches):
+    """The kernels-line row of the walk entry (mk.stream_walk), timed on
+    the ring stage sm.largest_accumulating_stage picks by CUDA-graph
+    replay, against its plain version (bit for bit); its bound the bytes of
+    the stream read once and the list written once."""
+    d, s = sm.largest_accumulating_stage(plans)
+    p = plans[d]
+    sg = p.seg[s]
+    cap = min(p.c_cap, sg.numel())
+    got = mk.stream_walk(sg, p.c_cap, cap)
+    if not torch.equal(got, mk.stream_walk_plain(sg, p.c_cap, cap)):
+        raise AssertionError("stream walk at the ring stage: differs from "
+                             "the plain version")
+    nbytes = 4 * (sg.numel() + got.numel())
+    return {"name": "macro_stream_walk", "kernel": "K4 accumulate form's "
+            "walk list", "route": "cuda", "source": MACRO_SOURCE,
+            "replaces": "pem_spgemm_tpu/ops/pallas_macro2.py:232 (K4's "
+                        "accumulate form walks it: no Pallas counterpart "
+                        "of its own)",
+            "launches": launches, "max_abs_err": 0.0,
+            "ms": graph_ms(lambda: mk.stream_walk(sg, p.c_cap, cap)),
+            "plain_ms": time_ms(lambda: mk.stream_walk_plain(sg, p.c_cap,
+                                                             cap), 5),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "bytes": nbytes, "library_ms": None,
+            "library_covers": "none: no one PyTorch call lists a sorted "
+                              "stream's tiles with their first pairs",
+            "pairs": p.stage_pairs[s], "p_cap": sg.numel(), "c_cap": p.c_cap,
+            "tiles_with_pairs": int(got[0]), "rank": d, "stage": s}
+
+
+def masks_row(plans, launches, f64):
+    """The kernels-line row of a masks entry (TableMasks.make:
+    macro_tile_masks, float32, at "high" / "default"; _f64), timed over a
+    4-rank plan's A slice and B chunk, the launches a plan makes once: each
+    by CUDA-graph replay, the tiles read once and the words written once
+    its bound; against the plain version, bit for bit."""
+    p = plans[0]
+    name = "macro_tile_masks_f64" if f64 else "macro_tile_masks"
+    tables = (mk.TableMasks(p.a_dense), mk.TableMasks(p.b_dense))
+    for t in tables:
+        if not torch.equal(t.make().words, mk.tile_masks_plain(t.table)):
+            raise AssertionError(f"{name}: words differ from the plain "
+                                 "version's")
+    n_tiles = sum(t.table.shape[0] for t in tables)
+    nbytes = n_tiles * (128 * 128 * p.a_dense.element_size()
+                        + 4 * mk.TM_WORDS)
+    row = {"name": name, "kernel": "K4's tile masks"
+           + (" (float64)" if f64 else ""), "route": "cuda",
+           "source": MACRO_SOURCE,
+           "replaces": "pem_spgemm_tpu/ops/pallas_macro2.py:232 (the slab "
+                       "skip's pre-pass of K4's port: no Pallas counterpart "
+                       "of its own)",
+           "launches": launches, "max_abs_err": 0.0,
+           "ms": graph_ms(lambda: [t.make() for t in tables]),
+           "plain_ms": time_ms(lambda: [mk.tile_masks_plain(t.table)
+                                        for t in tables], 2),
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+           "bytes": nbytes, "library_ms": None,
+           "library_covers": "none: no one PyTorch call computes a tile's "
+                             "k-masks and marked slabs",
+           "tiles": n_tiles, "tables": "rank 0's A slice and B chunk",
+           "dtype": str(p.a_dense.dtype).replace("torch.", "")}
+    del tables
     return row
 
 
 def world_size_1_point(plan, precision="highest"):
     """K4's accumulate form and its fresh form on the world-size-1 ring's
     one stream (every pair of the product; every C tile has pairs): ms of
-    each, into the same C."""
+    each, into the same C, the accumulate form with the plan's masks
+    ready."""
     s = next(i for i, x in enumerate(plan.stage_pairs) if x)
     args = (plan.a_dense, plan.b_dense, plan.pairs_a[s], plan.pairs_b[s],
             plan.seg[s], plan.c_cap)
     c = mk.accumulate_macro_pairs(*args, precision=precision)
+    masks = mk.TileMasks(plan.a_dense, plan.b_dense,
+                         *sm.plan_masks(plan)) \
+        if mk.reads_masks(plan.b_dense, precision) else None
     point = {"pairs": plan.stage_pairs[s], "c_cap": plan.c_cap,
              "tiles_with_pairs": int(stream_tiles(plan.seg[s], plan.c_cap)
                                      .sum()),
              "ms": time_ms(lambda: mk.accumulate_macro_pairs(
-                 *args, precision=precision, out=c), 10),
+                 *args, precision=precision, tile_masks=masks, out=c), 10),
              "fresh_form_ms": time_ms(lambda: mk.accumulate_macro_pairs(
                  *args, precision=precision), 10)}
     del c
@@ -5738,11 +6018,12 @@ def sharded_macro_runs(mesh, check_err):
         del md
         warm_ring(plans)
         reset_launch_counts()
-        outs, parts, k4_ms, coo_ms, peaks = replay_ring(plans)
+        outs, parts, k4_ms, coo_ms, peaks, rank_launches = replay_ring(plans)
         launches = nonzero(all_counts())
         add_path_launches("sharded_ranks", launches)
         stages = check_ring_launches(launches, plans, what, f64,
-                                     runs=RING_ROUNDS)
+                                     runs=RING_ROUNDS, masks=f64)
+        carried = check_carried_masks(plans, what) if f64 else 0
         rows, cols, vals = union_sorted(parts)
         del parts
         if len(rows) != want_nnz:
@@ -5764,6 +6045,7 @@ def sharded_macro_runs(mesh, check_err):
              rank_pairs=[int(sum(p.stage_pairs)) for p in plans],
              rank_c_cap=[p.c_cap for p in plans], rank_plan_ms=plan_ms,
              rank_ms=times, rank_k4_ms=k4_ms, rank_local_macro_coo_ms=coo_ms,
+             rank_launches=rank_launches, carried_masks_checked=carried,
              rank_ring_peak_mem_gb=peaks, **held,
              load_balance=balance(times))
         entry = "macro_accumulate_pairs_f64_acc" if f64 else \
@@ -5771,6 +6053,9 @@ def sharded_macro_runs(mesh, check_err):
         rows_out.append(acc_row(
             plans, name, launches.get(entry, 0), check_err,
             extra=None if f64 else {"at_world_size_1_stream": ws1}))
+        if f64:
+            rows_out.append(masks_row(
+                plans, launches.get("macro_tile_masks_f64", 0), True))
         del plans
         torch.cuda.empty_cache()
     return rows_out
@@ -6085,13 +6370,16 @@ def phase_precision_path(check_err=None):
     for q in ("highest",) + LOWER_PRECISIONS:
         warm_ring(plans, q)
         reset_launch_counts()
-        outs, parts, k4_ms, coo_ms, peaks = replay_ring(plans, q)
+        outs, parts, k4_ms, coo_ms, peaks, rank_launches = replay_ring(
+            plans, q)
         launches = nonzero(all_counts())
         if q != "highest":
             for k, v in launches.items():
                 PRECISION_LAUNCHES[q][k] = PRECISION_LAUNCHES[q].get(k, 0) + v
         what = f"macro ring at {q}"
-        stages = check_ring_launches(launches, plans, what, runs=RING_ROUNDS)
+        stages = check_ring_launches(launches, plans, what, runs=RING_ROUNDS,
+                                     masks=q != "highest")
+        carried = check_carried_masks(plans, what) if q != "highest" else 0
         rows, cols, vals = union_sorted(parts)
         del parts
         if ref is None:
@@ -6113,6 +6401,7 @@ def phase_precision_path(check_err=None):
              composition_equal=True, launches=launches,
              stages_with_pairs=stages, rank_ms=times, rank_k4_ms=k4_ms,
              rank_local_macro_coo_ms=coo_ms, rank_ring_peak_mem_gb=peaks,
+             rank_launches=rank_launches, carried_masks_checked=carried,
              **held)
         torch.cuda.empty_cache()
     # K4's accumulate form at each lower mode on the same ring stage as the
@@ -6121,6 +6410,12 @@ def phase_precision_path(check_err=None):
     rows_out = [acc_row(plans, name, None, check_err, q, extra={
         "at_world_size_1_stream": world_size_1_point(plan1, q)})
         for q in LOWER_PRECISIONS]
+    rows_out.append(masks_row(plans, sum(
+        PRECISION_LAUNCHES[q].get("macro_tile_masks", 0)
+        for q in LOWER_PRECISIONS), False))
+    rows_out.append(walk_row(plans, sum(
+        PRECISION_LAUNCHES[q].get("macro_stream_walk", 0)
+        for q in LOWER_PRECISIONS)))
     del plan1
     del plans, ref, coo, want
     torch.cuda.empty_cache()
@@ -6144,6 +6439,8 @@ def phase_precision_path(check_err=None):
         if not (got.get("macro_accumulate_pairs") and
                 got.get("macro_class_ragged") and
                 got.get("macro_accumulate_pairs_acc") and
+                got.get("macro_tile_masks") and
+                got.get("macro_stream_walk") and
                 got.get("tile16_accumulate_pairs_masks")):
             raise AssertionError(f"precision_path at {q} launched {got}")
     emit("precision_total", seconds=time.perf_counter() - t0,

@@ -14,7 +14,8 @@ interfaces of commit 2fdbfea (``declare_baseline_dia``).  A Macro128
 baseline's float32 entries are read off its source (``macro_interface``):
 no precision (commit 7303942 and before), a precision but class entries
 without a grid and a ticket counter (666d068), pair-stream entries without
-the accumulate argument (2abca3f), or today's.
+the accumulate argument (2abca3f), one masks_ready flag (2a6978f), or
+today's.
 
   k4  the pair-stream entry at wandering64-1M's stream (70,308 pairs) and at
       pairbands-500k's (389,700 pairs): as it is (persistent, one block an
@@ -40,9 +41,15 @@ the accumulate argument (2abca3f), or today's.
       (float32) or to the plain version (float64), timed in turns;
   k4acc  the pair-stream entries' accumulate form at wandering64-1M's
       stream (every C tile has pairs), float32 at each precision and
-      float64: this build's fresh form, its accumulate form and the
-      ACC_CUTS builds' (fewer of a row's pieces loaded ahead of their
-      stores), the accumulate builds bit for bit equal, timed in turns;
+      float64: this build's fresh form, its accumulate form, the ACC_CUTS
+      builds' (fewer of a row's pieces loaded ahead of their stores) and,
+      with a baseline of interface "v18" (commit 2a6978f), the baseline's
+      two forms, the accumulate builds bit for bit equal, timed in turns;
+      then, with that baseline, the 4-rank ring's largest accumulating
+      stage (k4acc_ring: this build as the ring runs it, masks ready and
+      the walk over the tiles with pairs, its launch alone, the masks
+      entries, the fresh forms, the baseline's whole launch and its
+      PARENT_ACC_CUTS builds, torch.bmm; by graph replay, in turns);
   k4f64  the pair-stream entry's float64 entry (DMMA) at wandering64-1M's
       stream: this build's, the F64_CUTS builds (another ring depth or
       DMMA shape; the flags cut out, timed only) and the baseline's, each
@@ -193,6 +200,32 @@ ACC_CUTS = {
 ACC_CUT_RUNS = {**{f"loads{n}": ("highest", "high", "default")
                    for n in (1, 4)},
                 **{f"f64_loads{n}": ("float64",) for n in (1, 4)}}
+# Cut builds of the parent's source (interface "v18": one masks_ready flag,
+# masks made inside the float32 entry unless ready and always inside the
+# float64 one, the accumulate form walking every c_cap tile), timed only at
+# the ring stage, to split its accumulate form: "masks_only" keeps the
+# tables' masks pre-pass and cuts the pair kernels' launches (the float64
+# pairs' need pass too); "f64_ready" cuts the float64 masks pre-pass (its
+# masks made beforehand by the whole build).  The float32 entry's masks
+# ready and both walks cut to the tiles with pairs need no cut build: its
+# masks_ready flag, and the stream renumbered onto its tiles with pairs
+# (``compacted``).
+_WS_LAUNCH = ("    macro_ws_kernel<P, Tiles, ACC><<<grid < w.n_tiles ? grid : "
+              "w.n_tiles,\n")
+_F64_LAUNCH = "    kernel<<<c_cap, F64_THREADS, F64_SMEM, stream>>>(\n"
+_F64_MASKS = ("    f64_tile_masks<<<n_a, F64_THREADS, 0, stream>>>(a_dense, "
+              "masks_a);\n"
+              "    if (masks_b != masks_a)\n"
+              "        f64_tile_masks<<<n_b, F64_THREADS, 0, stream>>>("
+              "b_dense, masks_b);\n")
+PARENT_ACC_CUTS = {
+    "masks_only": [(_WS_LAUNCH, "    if (false)\n" + _WS_LAUNCH),
+                   (_F64_LAUNCH, "    if (false)\n" + _F64_LAUNCH),
+                   ("    if (p_cap > 0)\n        f64_pair_need<<<",
+                    "    if (false)\n        f64_pair_need<<<")],
+    "f64_ready": [(_F64_MASKS, "")],
+}
+RING_RANKS = 4          # chip_smoke.py's replayed macro ring
 
 
 # Other builds of the float64 pair-stream entry (held and timed like it, but
@@ -300,7 +333,8 @@ def macro_interface(source: str) -> str:
     """The C interface of a macro_accumulate.cu: "v12" (no precision:
     commit 7303942 and before), "v13" (a precision; class entries without
     grid and ticket counter: 666d068), "v14" (pair-stream entries without
-    the accumulate argument: 2abca3f) or "current"."""
+    the accumulate argument: 2abca3f), "v18" (one masks_ready flag an
+    entry, no masks entries: 2a6978f) or "current"."""
     with open(source) as f:
         text = f.read()
     if "int precision" not in text:
@@ -309,14 +343,38 @@ def macro_interface(source: str) -> str:
     if "int* next" not in head.split(")")[0]:
         return "v13"
     head = text.split('extern "C" int macro_accumulate_pairs_f32(')[1]
-    return "current" if "int accumulate" in head.split(")")[0] else "v14"
+    head = head.split(")")[0]
+    if "int accumulate" not in head:
+        return "v14"
+    return "v18" if "int masks_ready" in head else "current"
+
+
+def _declare_v18(lib):
+    """The four entries of interface "v18" (commit 2a6978f)."""
+    masks = [VP, VP, CI, CI, CI]        # masks_a, masks_b, n_a, n_b, ready
+    lib.macro_accumulate_pairs_f32.argtypes = [VP] * 7 + [CI, CI, VP, CI] \
+        + masks + [CI, VP]
+    lib.macro_class_ragged_f32.argtypes = [VP] * 6 + [CI, CI, LL, VP, VP,
+                                                      CI, CI, VP] + masks \
+        + [VP]
+    lib.macro_class_uniform_f32.argtypes = [VP] * 5 + [CI, CI, CI, LL, VP,
+                                                       VP, CI, CI, VP] \
+        + masks + [VP]
+    lib.macro_accumulate_pairs_f64.argtypes = [VP] * 7 + [CI] * 4 \
+        + [VP] * 3 + [CI, VP]
+    for fn in (lib.macro_accumulate_pairs_f32, lib.macro_class_ragged_f32,
+               lib.macro_class_uniform_f32, lib.macro_accumulate_pairs_f64):
+        fn.restype = CI
 
 
 def declare_macro(kind: str):
     """mk._declare for a baseline of interface ``kind``."""
     def declare(lib):
-        mk._declare(lib)
         if kind == "current":
+            mk._declare(lib)
+            return
+        _declare_v18(lib)
+        if kind == "v18":
             return
         # the float64 entry without the accumulate argument
         lib.macro_accumulate_pairs_f64.argtypes = \
@@ -337,15 +395,18 @@ def declare_macro(kind: str):
 
 
 def tail_args(kind: str, precision: str, masks):
-    """The pair-stream entry's arguments after ``next``, for interface
-    ``kind``; ``masks``: the five mask arguments of the current one."""
+    """The pair-stream entry's arguments after ``next`` in its fresh form,
+    for interface ``kind``; ``masks``: the six mask arguments of the
+    current one (mask_args: A = B, one ready flag for both before v19)."""
     if kind == "v12":
         return ()
     if kind == "v13":
         return (M.precision_code(precision),)
     if kind == "v14":
-        return (M.precision_code(precision), *masks)
-    return (M.precision_code(precision), *masks, 0)     # the fresh form
+        return (M.precision_code(precision), *masks[:5])
+    if kind == "v18":
+        return (M.precision_code(precision), *masks[:5], 0)
+    return (M.precision_code(precision), *masks, 0, None)   # no walk
 
 
 def class_args(kind: str, precision: str, grid: int, ticket, masks):
@@ -354,15 +415,16 @@ def class_args(kind: str, precision: str, grid: int, ticket, masks):
         return ()
     if kind == "v13":
         return (M.precision_code(precision),)
-    return (M.precision_code(precision), grid, ticket, *masks)
+    return (M.precision_code(precision), grid, ticket,
+            *(masks if kind == "current" else masks[:5]))
 
 
 def mask_args(table, ready: bool):
-    """The five mask arguments of the current entries for A = B =
+    """The six mask arguments of the current entries for A = B =
     ``table`` (a (tiles, TM_WORDS) int32 buffer), computed by the launch
     unless ``ready``."""
     return (table.data_ptr(), table.data_ptr(), table.shape[0],
-            table.shape[0], int(ready))
+            table.shape[0], int(ready), int(ready))
 
 
 def declare_baseline_dia(lib):
@@ -744,81 +806,255 @@ def hold_f64(got, want, mag, what):
     return over
 
 
-def case_k4acc(rounds=3, n=10):
-    """K4's accumulate form at wandering64-1M's stream, where every C tile
-    has pairs (the most C a stage reads), in float32 at each precision and
-    in float64: this build's fresh form, its accumulate form into the C the
-    fresh one wrote and the ACC_CUTS builds' (at the precisions of
-    ACC_CUT_RUNS), each accumulate build bit for bit this build's from the
-    same C, timed in turns.  ``c_bytes_ms``: the C the accumulate form also
-    reads, at 3.35 TB/s."""
+def acc_launch(lib, kind, a, b, pa, pb, seg_ptr, c_cap, c, precision,
+               tables, ready, acc, walk=None, next_tile=None, need=None):
+    """One launch of a pair-stream entry of a build of interface ``kind``
+    ("v18": the parent's, or "current"): float32 at ``precision`` or, for
+    float64 tables, the float64 entry; into ``c`` (c_cap tiles), the
+    fresh form (``acc`` 0) or the accumulate form (1; the current build
+    walks ``walk`` at "high" / "default" and in float64); the tables'
+    masks ``tables`` (A's, B's) made unless ``ready``."""
+    ptrs = (a.data_ptr(), b.data_ptr(), pa.data_ptr(), pb.data_ptr(),
+            seg_ptr.data_ptr(), c[0].data_ptr(), c[1].data_ptr(), c_cap)
+    masks = (tables[0].data_ptr(), tables[1].data_ptr())
+    walk = None if walk is None else walk.data_ptr()
+    stream = torch.cuda.current_stream().cuda_stream
+    if a.dtype == torch.float64:
+        ready_args = () if kind == "v18" else (int(ready), int(ready))
+        tail = (need.data_ptr(), acc) if kind == "v18" \
+            else (need.data_ptr(), acc, walk)
+        return checked(lib.macro_accumulate_pairs_f64(
+            *ptrs, a.shape[0], b.shape[0], pa.numel(), *masks, *ready_args,
+            *tail, stream), f"{kind} float64 entry")
+    ready_args = (int(ready),) if kind == "v18" else (int(ready),) * 2
+    tail = (acc,) if kind == "v18" else (acc, walk)
+    next_tile.zero_()
+    return checked(lib.macro_accumulate_pairs_f32(
+        *ptrs, mk.persistent_grid(a.device), next_tile.data_ptr(),
+        M.precision_code(precision), *masks, a.shape[0], b.shape[0],
+        *ready_args, *tail, stream), f"{kind} float32 entry")
+
+
+def same_bits(fns, prior, what):
+    """Each of ``fns`` (name: launch into a C given) once into a copy of
+    ``prior``: every result bit for bit the first's."""
+    ref = None
+    for k, fn in fns.items():
+        c = tuple(x.clone() for x in prior)
+        fn(c)
+        torch.cuda.synchronize()
+        got = (c[0].view(torch.int64 if c[0].element_size() == 8
+                         else torch.int32), c[1])
+        if ref is None:
+            ref = got
+        elif not (torch.equal(got[0], ref[0]) and torch.equal(got[1],
+                                                             ref[1])):
+            raise AssertionError(f"{what}: {k} is not bit for bit "
+                                 f"{next(iter(fns))}")
+    return list(fns)
+
+
+def case_k4acc(base, base_source, rounds=3, n=10):
+    """K4's accumulate form.  At wandering64-1M's stream, where every C
+    tile has pairs (the most C a stage reads), in float32 at each precision
+    and in float64: this build's fresh form, its accumulate form into the C
+    the fresh one wrote, the ACC_CUTS builds' (at the precisions of
+    ACC_CUT_RUNS) and, with a "v18" baseline (the parent), its two forms,
+    the accumulate builds bit for bit this build's from the same C, timed
+    in turns (each launch computing the tables' masks, as a launch handed
+    none does).  Then the ring stage (``k4acc_ring``).  ``c_bytes_ms``:
+    the C the accumulate form also reads, at 3.35 TB/s."""
     cur = mk._library()
     libs = build_all("macro_accumulate", mk.SOURCE, mk._declare, ACC_CUTS)
-    stream = torch.cuda.current_stream().cuda_stream
     sms = mk.persistent_grid(torch.device("cuda"))
+    parent = base[0] if base[1] == "v18" else None
     for dtype in (torch.float32, torch.float64):
         f64 = dtype == torch.float64
         a = coo_to_macro(STREAMS["wandering64-1M"](), dtype=dtype)
         n_pairs, n_tiles, a_idx, b_idx, seg = pair_stream(a)
         c_cap = -(-n_tiles // 256) * 256
         seg_ptr = mk.segment_offsets(seg, c_cap)
-        num = torch.empty((c_cap, 128, 128), dtype=dtype, device="cuda")
-        flag = torch.empty((c_cap, 128, 128), dtype=torch.uint8,
-                           device="cuda")
-        ptrs = (a.dense.data_ptr(), a.dense.data_ptr(), a_idx.data_ptr(),
-                b_idx.data_ptr(), seg_ptr.data_ptr(), num.data_ptr(),
-                flag.data_ptr(), c_cap)
+        walk = mk.stream_walk(seg, c_cap, min(c_cap, a_idx.numel()))
+        c = (torch.empty((c_cap, 128, 128), dtype=dtype, device="cuda"),
+             torch.empty((c_cap, 128, 128), dtype=torch.uint8,
+                         device="cuda"))
         next_tile = torch.zeros(1, dtype=torch.int32, device="cuda")
-        n_t = a.dense.shape[0]
-        table = torch.empty((n_t, mk.F64_MASK_WORDS if f64 else mk.TM_WORDS),
+        table = torch.empty((a.dense.shape[0], mk.TM_WORDS),
                             dtype=torch.int32, device="cuda")
         need = torch.empty(a_idx.numel(), dtype=torch.uint8, device="cuda")
 
-        def launch(lib, acc, p, what):
-            if f64:
-                return lambda: checked(lib.macro_accumulate_pairs_f64(
-                    *ptrs, n_t, n_t, a_idx.numel(), table.data_ptr(),
-                    table.data_ptr(), need.data_ptr(), acc, stream), what)
-            extra = (M.precision_code(p), *mask_args(table, False), acc)
-            return lambda: (next_tile.zero_(), checked(
-                lib.macro_accumulate_pairs_f32(
-                    *ptrs, sms, next_tile.data_ptr(), *extra, stream), what))
+        def launch(lib, acc, p, kind="current"):
+            return lambda out: acc_launch(
+                lib, kind, a.dense, a.dense, a_idx, b_idx, seg_ptr, c_cap,
+                out, p, (table, table), False, acc, walk, next_tile, need)
 
         for p in ("highest",) if f64 else ("highest", *LOWER):
-            fns = {"fresh": launch(cur, 0, p, "fresh"),
-                   "accumulate": launch(cur, 1, p, "accumulate")}
-            fns.update({k: launch(lib, 1, p, k) for k, lib in libs.items()
+            fns = {"fresh": launch(cur, 0, p),
+                   "accumulate": launch(cur, 1, p)}
+            fns.update({k: launch(lib, 1, p) for k, lib in libs.items()
                         if ("float64" if f64 else p) in ACC_CUT_RUNS[k]})
-            fns["fresh"]()
-            start = (num.clone(), flag.clone())
-            ref = None
-            for k, fn in fns.items():
-                if k == "fresh":
-                    continue
-                num.copy_(start[0])
-                flag.copy_(start[1])
-                fn()
-                torch.cuda.synchronize()
-                got = (num.clone(), flag.clone())
-                if ref is None:
-                    ref = got
-                elif not (torch.equal(got[0].view(torch.int64 if f64 else
-                                                  torch.int32),
-                                      ref[0].view(torch.int64 if f64 else
-                                                  torch.int32))
-                          and torch.equal(got[1], ref[1])):
-                    raise AssertionError(f"k4acc {k} at {p}: not bit for "
-                                         "bit this build's")
-            del start, ref, got
+            if parent is not None:
+                fns["parent_fresh"] = launch(parent, 0, p, "v18")
+                fns["parent_accumulate"] = launch(parent, 1, p, "v18")
+            fns["fresh"](c)
+            same_bits({k: f for k, f in fns.items() if "fresh" not in k},
+                      c, f"k4acc at {p}")
+            same_bits({k: f for k, f in fns.items() if "fresh" in k},
+                      c, f"k4acc fresh at {p}")
             ms = {k: [] for k in fns}
             for _ in range(rounds):
                 for k, fn in fns.items():
-                    ms[k].append(time_ms(fn, n))
+                    ms[k].append(time_ms(lambda: fn(c), n))
             emit("k4acc", matrix="wandering64-1M", dtype=str(dtype)[6:],
                  precision=p, pairs=n_pairs, c_tiles=n_tiles, ms=ms,
                  c_bytes_ms=n_tiles * 128 * 128 * (dtype.itemsize + 1)
                  / 3.35e12 * 1e3)
-        del a, num, flag, table, need
+        del a, c, table, need, walk
+        torch.cuda.empty_cache()
+    if base_source is not None and base[1] == "v18":
+        k4acc_ring(base_source, rounds=rounds, n=n)
+
+
+def ring_stage(dtype):
+    """The RING_RANKS-rank wandering64-1M ring's largest accumulating stage,
+    as chip_smoke.py's accumulate rows take it: {a (the rank's A slice),
+    b (the chunk it holds then), pa, pb, seg (the stage's tables), c_cap,
+    pairs, tiles (the C tiles it has pairs for), rank, stage}."""
+    from pem_spgemm_tpu_torch.parallel import sharded_macro as sm
+    m = coo_to_macro(STREAMS["wandering64-1M"](), dtype=dtype)
+    plans = [sm.plan_sharded_macro(m, m, RING_RANKS, d)
+             for d in range(RING_RANKS)]
+    del m
+    d, s = sm.largest_accumulating_stage(plans)
+    p = plans[d]
+    seg = p.seg[s]
+    return dict(a=p.a_dense, b=plans[(d - s) % RING_RANKS].b_dense,
+                pa=p.pairs_a[s], pb=p.pairs_b[s], seg=seg, c_cap=p.c_cap,
+                pairs=p.stage_pairs[s],
+                tiles=int(torch.unique(seg[seg < p.c_cap]).numel()),
+                rank=d, stage=s)
+
+
+def compacted(seg, c_cap):
+    """(seg', T): the stream's C tiles with pairs renumbered 0 .. T - 1 in
+    order (padding kept): a launch over c_cap T visits only the tiles with
+    pairs, into a C of T tiles (a cut of the walk, timed only)."""
+    live = seg < c_cap
+    first = live.clone()
+    first[1:] &= seg[1:] != seg[:-1]
+    new = torch.cumsum(first, 0, dtype=torch.int32) - 1
+    return torch.where(live, new, seg).contiguous(), int(first.sum())
+
+
+def bmm_graph_fn(a, b, pa, pb, precision):
+    """torch.bmm over the stage's pre-gathered (P, 128, 128) operands at
+    ``precision`` (float32; TF32 allowed at "high"; bfloat16 operands with
+    float32 output at "default"; float64 tiles in float64): the products
+    only, a yardstick the port never calls."""
+    cast = a.dtype if a.dtype == torch.float64 or precision != "default" \
+        else torch.bfloat16
+    ad, bd = a[pa.long()].to(cast), b[pb.long()].to(cast)
+    if cast == torch.bfloat16:
+        return lambda: torch.bmm(ad, bd, out_dtype=torch.float32)
+    if precision == "high" and a.dtype == torch.float32:
+        def fn():
+            old = torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                return torch.bmm(ad, bd)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = old
+        return fn
+    return lambda: torch.bmm(ad, bd)
+
+
+def k4acc_ring(base_source, rounds=3, n=10):
+    """K4's accumulate form at the ring stage (``ring_stage``), float32 at
+    "high", "default" and "highest" and float64, by graph replay in turns:
+    this build as the ring runs it (the wrapper: the walk list built, both
+    tables' masks ready: ``this``), its launch alone (``this_launch``), the
+    masks entries over both tables (``this_masks``) and its fresh form,
+    beside the parent's (``base_source``, interface "v18") whole launch as
+    the ring made it (masks computed inside) and its fresh form, the
+    parent's cut apart (timed only: the masks pre-pass alone, the launch
+    with the masks ready, and with them ready and the walk cut to the
+    tiles with pairs: the stream compacted), and torch.bmm over the
+    stage's pairs.  This build's accumulate form bit for bit the parent's
+    from one prior C."""
+    kind = macro_interface(base_source)
+    if kind != "v18":
+        raise ValueError(f"the ring stage takes a v18 parent, not {kind}")
+    cur = mk._library()
+    libs = build_all("macro_accumulate_parent", base_source,
+                     declare_macro(kind), {"whole": (), **PARENT_ACC_CUTS})
+    for dtype in (torch.float32, torch.float64):
+        f64 = dtype == torch.float64
+        st = ring_stage(dtype)
+        a, b, pa, pb, seg = st["a"], st["b"], st["pa"], st["pb"], st["seg"]
+        c_cap, dev = st["c_cap"], a.device
+        seg_ptr = mk.segment_offsets(seg, c_cap)
+        walk = mk.stream_walk(seg, c_cap, min(c_cap, pa.numel()))
+        cseg, n_live = compacted(seg, c_cap)
+        cseg_ptr = mk.segment_offsets(cseg, n_live)
+        g = torch.Generator(device=dev).manual_seed(5)
+        prior = (torch.randn((c_cap, 128, 128), generator=g, device=dev,
+                             dtype=dtype),
+                 (torch.rand((c_cap, 128, 128), generator=g, device=dev)
+                  < 0.3).to(torch.uint8))
+        c = tuple(x.clone() for x in prior)
+        cc = tuple(torch.zeros((n_live, 128, 128), dtype=x, device=dev)
+                   for x in (dtype, torch.uint8))
+        tables = tuple(torch.zeros((x.shape[0], mk.TM_WORDS),
+                                   dtype=torch.int32, device=dev)
+                       for x in (a, b))
+        masks = mk.TileMasks(a, b)
+        masks.a.make()
+        masks.b.make()
+        next_tile = torch.zeros(1, dtype=torch.int32, device=dev)
+        need = torch.empty(pa.numel(), dtype=torch.uint8, device=dev)
+        for p in ("float64",) if f64 else (*LOWER, "highest"):
+            def run(lib, ready, acc=1, walked=False, kind="v18"):
+                sp, cap, out = (cseg_ptr, n_live, cc) if walked \
+                    else (seg_ptr, c_cap, c)
+                return lambda into=None: acc_launch(
+                    lib, kind, a, b, pa, pb, sp, cap, into or out, p,
+                    tables, ready, acc, walk, next_tile, need)
+            this = lambda into=None: mk.accumulate_macro_pairs(
+                a, b, pa, pb, seg, c_cap, precision="highest" if f64 else p,
+                tile_masks=masks, out=into or c)
+            same_bits({"parent": run(libs["whole"], False), "this": this,
+                       "this_launch": lambda into: acc_launch(
+                           cur, "current", a, b, pa, pb, seg_ptr, c_cap,
+                           into, p, (masks.a.words, masks.b.words), True, 1,
+                           walk, next_tile, need)}, prior,
+                      f"ring stage at {p}")
+            fns = {"parent": run(libs["whole"], False), "this": this,
+                   "this_launch": lambda: acc_launch(
+                       cur, "current", a, b, pa, pb, seg_ptr, c_cap, c, p,
+                       (masks.a.words, masks.b.words), True, 1, walk,
+                       next_tile, need),
+                   "parent_fresh": run(libs["whole"], False, acc=0),
+                   "this_fresh": run(cur, False, acc=0, kind="current")}
+            if p != "highest":
+                fns.update({
+                    "this_masks": lambda: (masks.a.make(), masks.b.make()),
+                    "masks_only": run(libs["masks_only"], False),
+                    "ready": run(libs["f64_ready" if f64 else "whole"],
+                                 True),
+                    "ready_walked": run(libs["f64_ready" if f64
+                                             else "whole"], True,
+                                        walked=True)})
+            fns["bmm"] = bmm_graph_fn(a, b, pa[:st["pairs"]],
+                                      pb[:st["pairs"]], p)
+            emit("k4acc_ring", dtype=str(dtype)[6:], precision=p,
+                 rank=st["rank"], stage=st["stage"], pairs=st["pairs"],
+                 tiles_with_pairs=st["tiles"], tiles_visited=int(walk[0])
+                 if p != "highest" else c_cap, c_cap=c_cap,
+                 ms=graph_ms(fns, n, rounds), bit_equal_to_parent=True,
+                 timed="graph replay of n launches, in turns; masks_only, "
+                       "ready and ready_walked are cuts of the parent, "
+                       "timed only")
+        del st, a, b, prior, c, cc, tables, masks, need
         torch.cuda.empty_cache()
 
 
@@ -852,10 +1088,13 @@ def case_k4f64(base):
     need = torch.empty(a_idx.numel(), dtype=torch.uint8, device="cuda")
 
     def launch(lib, k):
-        fresh = () if k == "baseline" and base_kind != "current" else (0,)
+        kind = base_kind if k == "baseline" else "current"
+        ready = (0, 0) if kind == "current" else ()
+        fresh = (0, None) if kind == "current" else (0,) if kind == "v18" \
+            else ()
         return lambda: checked(lib.macro_accumulate_pairs_f64(
             *ptrs, n_t, n_t, a_idx.numel(), masks.data_ptr(),
-            masks.data_ptr(), need.data_ptr(), *fresh, stream), k)
+            masks.data_ptr(), *ready, need.data_ptr(), *fresh, stream), k)
 
     fns = {k: launch(lib, k) for k, lib in libs.items()}
     over = {}
@@ -1522,7 +1761,7 @@ def main():
     if args.only is None or "k4f64" in args.only:
         case_k4f64(base_macro)
     if args.only is None or "k4acc" in args.only:
-        case_k4acc()
+        case_k4acc(base_macro, args.baseline_macro)
     if args.only is None or "k2f64" in args.only:
         case_k2f64(base_dia)
     if args.only is None or "library" in args.only:

@@ -38,6 +38,14 @@
 // in float64 (a store-only tile), is neither read nor written.  Bound: the
 // bytes of the tiles with pairs read and written once and each distinct
 // operand tile read once, against the fresh form's whole C written once.
+// A ring stage has pairs for a few percent of the rank's C tiles, so at
+// "high" / "default" and in float64 the accumulate form walks a LIST of the
+// tiles with pairs (ListTiles; built from seg_ptr by the wrapper on the
+// device, no host sync): the one-pass pipeline's tickets and the float64
+// kernel's blocks index the list, and no tile without pairs takes either;
+// and the tables' k-masks come made (each table's once, by its own launch
+// macro_tile_masks_*, read with its ready flag set), so a stage reads
+// neither table whole.
 //
 // What bounds them on an H100: 2 * 128^3 operations a pair against 128 KB of
 // operand tile a pair at most (fewer where tiles repeat) and 80 KB of C tile
@@ -1304,8 +1312,12 @@ __device__ __forceinline__ unsigned slabs_needed(const unsigned (&mw)[10]) {
 }
 
 // The tiles of the pair-stream entry: tile tk is C row tk, its pairs
-// [seg_ptr[tk], seg_ptr[tk + 1]) of (a_idx, b_idx).
+// [seg_ptr[tk], seg_ptr[tk + 1]) of (a_idx, b_idx).  Every Tiles gives
+// `resolved()`, the copy the producer walks with, and LISTED, whether the
+// C row of a ticket is read from memory (the Issuer then reads it a tile
+// ahead).
 struct StreamTiles {
+    static constexpr bool LISTED = false;
     const int* seg_ptr;
     const int* a_idx;
     const int* b_idx;
@@ -1326,6 +1338,46 @@ struct StreamTiles {
         tb = b_idx[q];
     }
     __device__ __forceinline__ long long row(int tk) const { return tk; }
+    __device__ __forceinline__ StreamTiles resolved() const { return *this; }
+};
+
+// The tiles of the pair-stream entry's accumulate form: only the C tiles
+// with pairs, in stream order, from the walk list (stream_walk_kernel:
+// walk[0] their count, walk[1 + 2i] the C row of the i-th, walk[2 + 2i]
+// its first pair; entry `count` holds the stream's end).
+// Ticket tk is the tk-th of them, its pairs [walk[2 + 2tk], walk[4 + 2tk]);
+// n_tiles is c_cap at the launch (it bounds the grid) and the count once
+// resolved (read once a block): a ticket past it ends the walk, so no tile
+// without pairs takes a ticket.
+struct ListTiles {
+    static constexpr bool LISTED = true;
+    const int* walk;
+    const int* a_idx;
+    const int* b_idx;
+    const unsigned* masks_a;
+    const unsigned* masks_b;
+    int* next;
+    int n_tiles;
+    __device__ __forceinline__ void range(int tk, int& lo, int& hi, int& a0,
+                                          int& b0) const {
+        lo = hi = a0 = b0 = 0;
+        if (tk < n_tiles) {
+            lo = walk[2 + 2 * tk];
+            hi = walk[4 + 2 * tk];
+        }
+    }
+    __device__ __forceinline__ void tiles(int q, int& ta, int& tb) const {
+        ta = a_idx[q];
+        tb = b_idx[q];
+    }
+    __device__ __forceinline__ long long row(int tk) const {
+        return tk < n_tiles ? walk[1 + 2 * tk] : 0;
+    }
+    __device__ __forceinline__ ListTiles resolved() const {
+        ListTiles w = *this;
+        w.n_tiles = walk[0];
+        return w;
+    }
 };
 
 // The tiles of a class launch: tile tk = (step tk / t, tt = tk % t) is C row
@@ -1333,6 +1385,7 @@ struct StreamTiles {
 // p) of the offset tables, at the step's bases.
 template <bool RAGGED>
 struct ClassTiles {
+    static constexpr bool LISTED = false;
     const int* ab_bases;
     const int* p_ptr;
     const int* a_offs;
@@ -1361,6 +1414,7 @@ struct ClassTiles {
     __device__ __forceinline__ long long row(int tk) const {
         return base + tk;
     }
+    __device__ __forceinline__ ClassTiles resolved() const { return *this; }
 };
 
 // The issue cursor, in producer warp 0 (its lanes hold the same scalars):
@@ -1368,10 +1422,12 @@ struct ClassTiles {
 // and needed slabs of pair win + i) and four tiles claimed ahead, each a
 // step further along the claim (ticket taken; its range read; its first
 // pairs' tiles read; their masks read), one step a tile, so that no load it
-// issues is waited for before a tile's time has passed.
+// issues is waited for before a tile's time has passed.  A LISTED walk's C
+// rows are read a step ahead too (row0, beside the masks).
 template <class Tiles>
 struct Issuer {
     int tk, lo, hi, a0, b0, ia, ib, win, q, slab;
+    long long row, row0;                    // LISTED: the C rows of tk, tk0
     unsigned nd;                            // lane i: slabs of pair win + i
     int tk0, lo0, hi0, a00, b00, ia0, ib0;  // next: every field read
     unsigned mw[10];                        // its lanes' mask words
@@ -1402,11 +1458,13 @@ struct Issuer {
     }
     __device__ __forceinline__ void advance(const Tiles& w) {
         tk = tk0; lo = lo0; hi = hi0; a0 = a00; b0 = b00; ia = ia0; ib = ib0;
+        if constexpr (Tiles::LISTED) row = row0;
         nd = slabs_needed(mw);
         win = q = lo;
         slab = 0;
         tk0 = tk1; lo0 = lo1; hi0 = hi1; a00 = a01; b00 = b01; ia0 = ia1;
         ib0 = ib1;
+        if constexpr (Tiles::LISTED) row0 = w.row(tk0);
         load_masks(w, lo0, hi0, a00 + ia0, b00 + ib0);
         tk1 = tk2; lo1 = lo2; hi1 = hi2; a01 = a02; b01 = b02;
         load_tiles(w, lo1, hi1, ia1, ib1);
@@ -1421,6 +1479,7 @@ struct Issuer {
         lo0 = hi0 = a00 = b00 = ia0 = ib0 = 0;
         lo1 = hi1 = a01 = b01 = ia1 = ib1 = 0;
         lo2 = hi2 = a02 = b02 = 0;
+        row0 = 0;
 #pragma unroll
         for (int i = 0; i < 10; ++i) mw[i] = 0u;
         tk3 = (threadIdx.x & 31) == 0 ? atomicAdd(w.next, 1) : w.n_tiles;
@@ -1456,7 +1515,7 @@ struct Issuer {
                 ++q;
                 slab = 0;
             }
-            info.row = w.row(tk);
+            info.row = Tiles::LISTED ? row : w.row(tk);
             if (q == hi) {
                 info.flags = ST_LAST;
                 advance(w);
@@ -1519,9 +1578,10 @@ template <Prec P, class Tiles>
 __device__ __forceinline__ void ws_producer(WsShared<P>& sh,
                                             const float* a_dense,
                                             const float* b_dense,
-                                            const Tiles& w) {
+                                            const Tiles& launched) {
     constexpr int R = Ws<P>::RAW, S = Ws<P>::OPS;
     const int t = threadIdx.x, warp = t >> 5, l = t & 31;
+    const Tiles w = launched.resolved();
     Issuer<Tiles> is;
     if (warp == 0) {
         is.start(w);
@@ -1608,10 +1668,10 @@ __device__ __forceinline__ void ws_pattern(const OpMeta& m, Frag& fr) {
 // the pattern ORed into the flags, the operand slot released as soon as it
 // is read; at a tile's last stage its sums and flags stored.  ACC (the
 // accumulate form): added into C instead, and only where a slab of the tile
-// ran (`live`): a store-only tile, without pairs or with none of its slabs
-// run, is left as it is.  The consumers' sums and stage partial sit at the
-// edge of their 192 registers, so the accumulate instances spill 80 bytes
-// around that store (ptxas; PERF.md).
+// ran (`live`): a store-only tile, none of whose slabs ran, is left as it
+// is (its walk visits no tile without pairs: ListTiles).  The consumers'
+// sums and stage partial sit at the edge of their 192 registers, so the
+// accumulate instances spill 80 bytes around that store (ptxas; PERF.md).
 template <Prec P, bool ACC>
 __device__ __forceinline__ void ws_consumer(WsShared<P>& sh,
                                             float* __restrict__ c_num,
@@ -2042,7 +2102,9 @@ f64_pair_need(const int* __restrict__ a_idx, const int* __restrict__ b_idx,
 // s + 1, runs slab s's blocks on the tensor cores and ORs its pattern into
 // the flags.  A tile no slab of which runs is stored as zeros; in the
 // accumulate form (ACC) it is left as it is, and every other tile's sums
-// and flags are added into C.
+// and flags are added into C.  The fresh form runs tile blockIdx.x; the
+// accumulate form the blockIdx.x-th C tile with pairs of the walk list
+// (ListTiles' layout), and a block past their count returns at once.
 template <bool ACC>
 __global__ void __launch_bounds__(F64_THREADS, 1)
 macro_pairs_f64_kernel(const double* __restrict__ a_dense,
@@ -2050,14 +2112,25 @@ macro_pairs_f64_kernel(const double* __restrict__ a_dense,
                        const int* __restrict__ a_idx,
                        const int* __restrict__ b_idx,
                        const int* __restrict__ seg_ptr,
+                       const int* __restrict__ walk,
                        const unsigned char* __restrict__ need,
                        double* __restrict__ c_num,
                        unsigned char* __restrict__ c_flag) {
     extern __shared__ __align__(16) unsigned char f64_smem[];
     F64Shared& sh = *reinterpret_cast<F64Shared*>(f64_smem);
     const int t = threadIdx.x;
-    const long long tile = blockIdx.x;
-    const int lo = seg_ptr[tile], n_pairs = seg_ptr[tile + 1] - lo;
+    long long tile = blockIdx.x;
+    int lo, n_pairs;
+    if constexpr (ACC) {
+        const int i = blockIdx.x;
+        if (i >= walk[0]) return;           // the block's threads alike
+        tile = walk[1 + 2 * i];
+        lo = walk[2 + 2 * i];
+        n_pairs = walk[4 + 2 * i] - lo;
+    } else {
+        lo = seg_ptr[tile];
+        n_pairs = seg_ptr[tile + 1] - lo;
+    }
     if (t == 0) sh.n_slabs = 0;
     __syncthreads();
     for (int q = t; q < n_pairs; q += F64_THREADS) {
@@ -2149,25 +2222,117 @@ cudaError_t launch_pairs(const float* a_dense, const float* b_dense,
     return cudaGetLastError();
 }
 
+// The walk list of a sorted pair stream (ListTiles' layout), for i <= cap:
+// the C tiles that have pairs (seg < c_cap), in stream order, each with its
+// first pair; past their count the tile c_cap and the stream's end (the
+// pairs with seg < c_cap, which lead a sorted stream); walk[0] the count.
+// One block: WALK_PAIRS pairs a thread a step, WALK_THREADS * WALK_PAIRS a
+// step; a pair that starts a tile is found against its left neighbour,
+// its place in the list by a shuffle scan of the threads' counts in each
+// warp and a sum of the warps' before it, carried from step to step.  The
+// live pairs lead the stream, so the walk stops after the first step that
+// is not all live: a ring stage's stream (about a thousand live pairs,
+// padded to the largest stage's) takes one step.  Thread 0 also zeroes
+// `next` (the one-pass pipeline's ticket counter) where it is given.
+constexpr int WALK_THREADS = 1024;
+constexpr int WALK_PAIRS = 4;
+
+__global__ void __launch_bounds__(WALK_THREADS)
+stream_walk_kernel(const int* __restrict__ seg, int p_cap, int c_cap,
+                   int cap, int* __restrict__ walk, int* __restrict__ next) {
+    __shared__ int warp_n[WALK_THREADS / 32];
+    __shared__ int warp_live[WALK_THREADS / 32];
+    const int t = threadIdx.x, w = t >> 5, l = t & 31;
+    if (t == 0 && next != nullptr) *next = 0;
+    int count = 0, live_pairs = 0;          // carried, alike in every thread
+    for (int base = 0; base < p_cap; base += WALK_THREADS * WALK_PAIRS) {
+        const int q0 = base + WALK_PAIRS * t;
+        int prev = q0 > 0 && q0 <= p_cap ? seg[q0 - 1] : -1;
+        int v[WALK_PAIRS];
+        unsigned firsts = 0u;
+        int n = 0, live = 0;
+#pragma unroll
+        for (int e = 0; e < WALK_PAIRS; ++e)
+            v[e] = q0 + e < p_cap ? seg[q0 + e] : c_cap;
+#pragma unroll
+        for (int e = 0; e < WALK_PAIRS; ++e) {
+            const bool is_live = v[e] < c_cap;
+            const bool first = is_live && v[e] != prev;
+            firsts |= first ? 1u << e : 0u;
+            n += first ? 1 : 0;
+            live += is_live ? 1 : 0;
+            prev = v[e];
+        }
+        int incl = n;                       // inclusive scan over the warp
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+            const int up = __shfl_up_sync(0xFFFFFFFFu, incl, o);
+            incl += l >= o ? up : 0;
+        }
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+            live += __shfl_xor_sync(0xFFFFFFFFu, live, o);
+        if (l == 31) warp_n[w] = incl;
+        if (l == 0) warp_live[w] = live;
+        __syncthreads();
+        int before = 0, total = 0, live_total = 0;  // warps before w; all
+#pragma unroll 8
+        for (int i = 0; i < WALK_THREADS / 32; ++i) {
+            before += i < w ? warp_n[i] : 0;
+            total += warp_n[i];
+            live_total += warp_live[i];
+        }
+        int idx = count + before + incl - n;
+#pragma unroll
+        for (int e = 0; e < WALK_PAIRS; ++e) {
+            if ((firsts >> e & 1u) && idx <= cap) {
+                walk[1 + 2 * idx] = v[e];
+                walk[2 + 2 * idx] = q0 + e;
+            }
+            idx += firsts >> e & 1u;
+        }
+        count += total;
+        live_pairs += live_total;
+        __syncthreads();                    // the counts are read
+        if (live_total < WALK_THREADS * WALK_PAIRS) break;
+    }
+    for (int i = count + t; i <= cap; i += WALK_THREADS) {
+        walk[1 + 2 * i] = c_cap;
+        walk[2 + 2 * i] = live_pairs;
+    }
+    if (t == 0) walk[0] = count < cap ? count : cap;
+}
+
+// The tables' k-masks that are not ready (`kernel`: f32_tile_masks or
+// f64_tile_masks, `threads` a block), one pass a table, one pass where the
+// two are one buffer.
+template <class T>
+void masks_not_ready(void (*kernel)(const T*, unsigned*), int threads,
+                     const T* a_dense, const T* b_dense, unsigned* masks_a,
+                     unsigned* masks_b, int n_a, int n_b, int ready_a,
+                     int ready_b, cudaStream_t stream) {
+    const bool same = masks_b == masks_a;
+    if (!ready_a || (same && !ready_b))
+        kernel<<<n_a, threads, 0, stream>>>(a_dense, masks_a);
+    if (!same && !ready_b)
+        kernel<<<n_b, threads, 0, stream>>>(b_dense, masks_b);
+}
+
 // The one-pass pipeline over the tiles of `w`: one block an SM (at most one
-// a tile), taking tiles from w.next; first, unless masks_ready, the masks of
-// both tables (one pass where they are one table).  ACC: the accumulate
-// form.
+// a tile), taking tiles from w.next; first the masks of a table whose
+// ready flag is 0.  ACC: the accumulate form.
 template <Prec P, class Tiles, bool ACC = false>
 cudaError_t launch_ws(const float* a_dense, const float* b_dense,
                       const Tiles& w, int grid, int n_a, int n_b,
-                      int masks_ready, float* c_num, unsigned char* c_flag,
-                      cudaStream_t stream) {
+                      int ready_a, int ready_b, float* c_num,
+                      unsigned char* c_flag, cudaStream_t stream) {
     if (grid <= 0) return cudaErrorInvalidConfiguration;
     if (w.masks_a == nullptr || w.masks_b == nullptr || n_a <= 0 || n_b <= 0)
         return cudaErrorInvalidValue;
-    if (!masks_ready) {
-        f32_tile_masks<<<n_a, 256, 0, stream>>>(
-            a_dense, const_cast<unsigned*>(w.masks_a));
-        if (w.masks_b != w.masks_a)
-            f32_tile_masks<<<n_b, 256, 0, stream>>>(
-                b_dense, const_cast<unsigned*>(w.masks_b));
-    }
+    masks_not_ready<float>(f32_tile_masks, 256, a_dense, b_dense,
+                           const_cast<unsigned*>(w.masks_a),
+                           const_cast<unsigned*>(w.masks_b), n_a, n_b,
+                           ready_a, ready_b, stream);
     const cudaError_t attr = cudaFuncSetAttribute(
         macro_ws_kernel<P, Tiles, ACC>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, WS_SMEM<P>);
@@ -2178,23 +2343,30 @@ cudaError_t launch_ws(const float* a_dense, const float* b_dense,
     return cudaGetLastError();
 }
 
-// The float32 pair-stream entry at precision P, fresh or accumulating.
+// The float32 pair-stream entry at precision P, fresh or accumulating (the
+// one-pass accumulate form walks the list `walk`).
 template <Prec P, bool ACC>
 cudaError_t launch_pair_entry(const float* a_dense, const float* b_dense,
                               const int* a_idx, const int* b_idx,
                               const int* seg_ptr, float* c_num,
                               unsigned char* c_flag, int c_cap, int grid,
                               int* next, unsigned* masks_a, unsigned* masks_b,
-                              int n_a, int n_b, int masks_ready,
-                              cudaStream_t stream) {
+                              int n_a, int n_b, int ready_a, int ready_b,
+                              const int* walk, cudaStream_t stream) {
     if constexpr (P == Prec::HIGHEST)
         return launch_pairs<ACC>(a_dense, b_dense, a_idx, b_idx, seg_ptr,
                                  c_num, c_flag, c_cap, grid, next, stream);
-    else
-        return launch_ws<P, StreamTiles, ACC>(
+    else if constexpr (ACC) {
+        if (walk == nullptr) return cudaErrorInvalidValue;
+        return launch_ws<P, ListTiles, true>(
+            a_dense, b_dense,
+            ListTiles{walk, a_idx, b_idx, masks_a, masks_b, next, c_cap},
+            grid, n_a, n_b, ready_a, ready_b, c_num, c_flag, stream);
+    } else
+        return launch_ws<P, StreamTiles>(
             a_dense, b_dense,
             StreamTiles{seg_ptr, a_idx, b_idx, masks_a, masks_b, next, c_cap},
-            grid, n_a, n_b, masks_ready, c_num, c_flag, stream);
+            grid, n_a, n_b, ready_a, ready_b, c_num, c_flag, stream);
 }
 
 template <bool RAGGED>
@@ -2214,6 +2386,39 @@ cudaError_t launch_class(const float* a_dense, const float* b_dense,
 
 }  // namespace
 
+// The k-masks of the n tiles of one float32 table (TM_WORDS words a tile,
+// the one-pass pipeline's) or float64 table (F64_MASK_WORDS, the float64
+// entry's), one block a tile: the launch that makes a table's masks once
+// (ops/macro_kernels.TableMasks), so that the entries' launches read them
+// with their ready flag set.
+extern "C" int macro_tile_masks_f32(const float* tiles, int n,
+                                    unsigned* masks, cudaStream_t stream) {
+    if (n <= 0) return (int)cudaSuccess;
+    f32_tile_masks<<<n, 256, 0, stream>>>(tiles, masks);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int macro_tile_masks_f64(const double* tiles, int n,
+                                    unsigned* masks, cudaStream_t stream) {
+    if (n <= 0) return (int)cudaSuccess;
+    f64_tile_masks<<<n, F64_THREADS, 0, stream>>>(tiles, masks);
+    return (int)cudaGetLastError();
+}
+
+// The walk list (ListTiles' layout, 2 cap + 3 ints) of a pair stream sorted
+// by C tile, seg (p_cap,), padded with INT32_MAX: its tiles below c_cap
+// that have pairs, for the accumulate form at "high" / "default" and in
+// float64 (ops/macro_kernels.stream_walk).  cap >= their count
+// (min(c_cap, p_cap) is).  Zeroes *next too where next is not null.
+extern "C" int macro_stream_walk(const int* seg, int p_cap, int c_cap,
+                                 int cap, int* walk, int* next,
+                                 cudaStream_t stream) {
+    if (p_cap < 0 || c_cap < 0 || cap < 0) return (int)cudaErrorInvalidValue;
+    stream_walk_kernel<<<1, WALK_THREADS, 0, stream>>>(seg, p_cap, c_cap, cap,
+                                                       walk, next);
+    return (int)cudaGetLastError();
+}
+
 // c_num (c_cap, 128, 128) f32 and c_flag (c_cap, 128, 128) u8: with
 // accumulate 0 (the fresh form) written whole; with accumulate 1 the
 // stream's tiles are added into them (values old + partial, flags ORed),
@@ -2225,14 +2430,18 @@ cudaError_t launch_class(const float* a_dense, const float* b_dense,
 // cudaErrorInvalidValue), in all three float32 entries; "highest" runs the
 // 256-thread stage, the others the one-pass pipeline, which also takes
 // masks_a / masks_b (TM_WORDS words a tile of the n_a A tiles and n_b B
-// tiles; one buffer where the tables are one), computed first unless
-// masks_ready ("highest" reads none of the five).
+// tiles; one buffer where the tables are one), each computed first unless
+// its ready flag is set ("highest" reads none of the six), and in the
+// accumulate form `walk`, the list of the C tiles with pairs
+// (macro_stream_walk; it also zeroes next), in place of seg_ptr, which
+// that form does not read ("highest" and the fresh form read seg_ptr and
+// no walk: nullptr).
 extern "C" int macro_accumulate_pairs_f32(
         const float* a_dense, const float* b_dense, const int* a_idx,
         const int* b_idx, const int* seg_ptr, float* c_num,
         unsigned char* c_flag, int c_cap, int grid, int* next, int precision,
-        unsigned* masks_a, unsigned* masks_b, int n_a, int n_b,
-        int masks_ready, int accumulate, cudaStream_t stream) {
+        unsigned* masks_a, unsigned* masks_b, int n_a, int n_b, int ready_a,
+        int ready_b, int accumulate, const int* walk, cudaStream_t stream) {
     if (c_cap <= 0) return (int)cudaSuccess;
     if (grid <= 0) return (int)cudaErrorInvalidConfiguration;
     return (int)with_prec(precision, [&](auto tag) {
@@ -2241,11 +2450,11 @@ extern "C" int macro_accumulate_pairs_f32(
             ? launch_pair_entry<P, true>(a_dense, b_dense, a_idx, b_idx,
                                          seg_ptr, c_num, c_flag, c_cap, grid,
                                          next, masks_a, masks_b, n_a, n_b,
-                                         masks_ready, stream)
+                                         ready_a, ready_b, walk, stream)
             : launch_pair_entry<P, false>(a_dense, b_dense, a_idx, b_idx,
                                           seg_ptr, c_num, c_flag, c_cap, grid,
                                           next, masks_a, masks_b, n_a, n_b,
-                                          masks_ready, stream);
+                                          ready_a, ready_b, walk, stream);
     });
 }
 
@@ -2260,7 +2469,7 @@ cudaError_t class_entry(const float* a_dense, const float* b_dense,
                         int n_steps, long long base, float* c_num,
                         unsigned char* c_flag, int precision, int grid,
                         int* next, unsigned* masks_a, unsigned* masks_b,
-                        int n_a, int n_b, int masks_ready,
+                        int n_a, int n_b, int ready_a, int ready_b,
                         cudaStream_t stream) {
     if (n_steps <= 0 || t <= 0) return cudaSuccess;
     return with_prec(precision, [&](auto tag) {
@@ -2275,8 +2484,8 @@ cudaError_t class_entry(const float* a_dense, const float* b_dense,
                                                    b_offs, masks_a, masks_b,
                                                    t, p, base, next,
                                                    n_steps * t},
-                                grid, n_a, n_b, masks_ready, c_num, c_flag,
-                                stream);
+                                grid, n_a, n_b, ready_a, ready_b, c_num,
+                                c_flag, stream);
     });
 }
 
@@ -2285,12 +2494,12 @@ extern "C" int macro_class_ragged_f32(
         const int* p_ptr, const int* a_offs, const int* b_offs, int t,
         int n_steps, long long base, float* c_num, unsigned char* c_flag,
         int precision, int grid, int* next, unsigned* masks_a,
-        unsigned* masks_b, int n_a, int n_b, int masks_ready,
+        unsigned* masks_b, int n_a, int n_b, int ready_a, int ready_b,
         cudaStream_t stream) {
     return (int)class_entry<true>(a_dense, b_dense, ab_bases, p_ptr, a_offs,
                                   b_offs, t, 0, n_steps, base, c_num, c_flag,
                                   precision, grid, next, masks_a, masks_b,
-                                  n_a, n_b, masks_ready, stream);
+                                  n_a, n_b, ready_a, ready_b, stream);
 }
 
 extern "C" int macro_class_uniform_f32(
@@ -2298,33 +2507,38 @@ extern "C" int macro_class_uniform_f32(
         const int* a_offs, const int* b_offs, int t, int p, int n_steps,
         long long base, float* c_num, unsigned char* c_flag, int precision,
         int grid, int* next, unsigned* masks_a, unsigned* masks_b, int n_a,
-        int n_b, int masks_ready, cudaStream_t stream) {
+        int n_b, int ready_a, int ready_b, cudaStream_t stream) {
     return (int)class_entry<false>(a_dense, b_dense, ab_bases, nullptr,
                                    a_offs, b_offs, t, p, n_steps, base, c_num,
                                    c_flag, precision, grid, next, masks_a,
-                                   masks_b, n_a, n_b, masks_ready, stream);
+                                   masks_b, n_a, n_b, ready_a, ready_b,
+                                   stream);
 }
 
 // The float64 pair stream: c_num (c_cap, 128, 128) f64 and c_flag
-// (c_cap, 128, 128) u8, one block a C tile, written whole with accumulate 0
-// (the fresh form); with accumulate 1 the stream's tiles are added into
-// them, and a tile without pairs, or none of whose slabs runs, is neither
-// read nor written.  seg_ptr has c_cap + 1 entries.  First the k-masks of
-// the n_a A tiles and the n_b B tiles (masks_a / masks_b, F64_MASK_WORDS
-// words a tile; the same buffer, computed once, where both operands are one
-// table) and the slabs that run of each of the p_cap pairs (need, a byte a
-// pair).
+// (c_cap, 128, 128) u8, written whole with accumulate 0 (the fresh form:
+// one block a C tile); with accumulate 1 the stream's tiles are added into
+// them, one block a C tile of the walk list (ListTiles' layout), min(c_cap,
+// p_cap) blocks, those past its count returning at once, and a tile without
+// pairs, or none of whose slabs runs, is neither read nor written.  seg_ptr
+// has c_cap + 1 entries (the fresh form's; the accumulate form reads the
+// walk instead).  First the k-masks of the n_a A tiles and the n_b
+// B tiles whose ready flag is 0 (masks_a / masks_b, F64_MASK_WORDS words a
+// tile; one buffer where both operands are one table) and the slabs that
+// run of each of the p_cap pairs (need, a byte a pair).
 extern "C" int macro_accumulate_pairs_f64(
         const double* a_dense, const double* b_dense, const int* a_idx,
         const int* b_idx, const int* seg_ptr, double* c_num,
         unsigned char* c_flag, int c_cap, int n_a, int n_b, int p_cap,
-        unsigned* masks_a, unsigned* masks_b, unsigned char* need,
-        int accumulate, cudaStream_t stream) {
+        unsigned* masks_a, unsigned* masks_b, int ready_a, int ready_b,
+        unsigned char* need, int accumulate, const int* walk,
+        cudaStream_t stream) {
     if (c_cap <= 0) return (int)cudaSuccess;
     if (n_a <= 0 || n_b <= 0 || p_cap < 0) return (int)cudaErrorInvalidValue;
-    f64_tile_masks<<<n_a, F64_THREADS, 0, stream>>>(a_dense, masks_a);
-    if (masks_b != masks_a)
-        f64_tile_masks<<<n_b, F64_THREADS, 0, stream>>>(b_dense, masks_b);
+    if (accumulate && walk == nullptr) return (int)cudaErrorInvalidValue;
+    masks_not_ready<double>(f64_tile_masks, F64_THREADS, a_dense, b_dense,
+                            masks_a, masks_b, n_a, n_b, ready_a, ready_b,
+                            stream);
     if (p_cap > 0)
         f64_pair_need<<<(p_cap + F64_THREADS - 1) / F64_THREADS, F64_THREADS,
                         0, stream>>>(a_idx, b_idx, masks_a, masks_b, need,
@@ -2335,7 +2549,10 @@ extern "C" int macro_accumulate_pairs_f64(
     const cudaError_t attr = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, F64_SMEM);
     if (attr != cudaSuccess) return (int)attr;
-    kernel<<<c_cap, F64_THREADS, F64_SMEM, stream>>>(
-        a_dense, b_dense, a_idx, b_idx, seg_ptr, need, c_num, c_flag);
+    const int blocks = accumulate ? (c_cap < p_cap ? c_cap : p_cap) : c_cap;
+    if (blocks > 0)
+        kernel<<<blocks, F64_THREADS, F64_SMEM, stream>>>(
+            a_dense, b_dense, a_idx, b_idx, seg_ptr, walk, need, c_num,
+            c_flag);
     return (int)cudaGetLastError();
 }

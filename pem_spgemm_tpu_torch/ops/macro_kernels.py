@@ -24,7 +24,12 @@ with nvcc at first use and bound with ctypes by ops/_build.py):
                            the k-slabs and the DMMA blocks that multiply
                            only zeros are skipped (never where an Inf or a
                            NaN is among their operands); the same contract
-                           and flags.
+                           and flags;
+  TableMasks.make          the k-masks of one tile table (the slabs a pair
+                           runs come from its two tiles' masks), one launch
+                           a table, read by the entries' later launches;
+  stream_walk              the list of a sorted pair stream's C tiles with
+                           pairs, which the accumulate form walks.
 
 The three float32 entries compute their 128x128x128 products on the
 tensor cores (wgmma; a slab holding an Inf, a NaN or a value of 2^63 or
@@ -42,7 +47,9 @@ owns it: the float64 entry and the class entries at "highest" launch one
 block a tile; the float32 pair-stream entry, and the class entries at
 "high" and "default", one persistent block an SM (``persistent_grid``),
 taking tiles in order from a counter the wrapper zeroes and running them as
-one stream of stages.
+one stream of stages.  The accumulate form at "high" / "default" and in
+float64 walks only the C tiles the stream has pairs for (``stream_walk``:
+a list built on the device by one small launch, no host sync).
 
 Dispatch is by the tensors' device and nothing else: CUDA tensors launch
 the kernel (or raise, if the build or the launch fails); CPU tensors take
@@ -66,13 +73,17 @@ from pem_spgemm_tpu_torch.ops.stencil import class_call_plain, p_list_of
 SOURCE = _build.cuda_source("macro_accumulate")
 F64_MASK_WORDS = 10     # the float64 entry's k-mask words a tile (the .cu's)
 TM_WORDS = 10           # the one-pass pipeline's k-mask words a tile
+BIG = 2.0 ** 63         # the .cu's BIG: a float32 of this magnitude or more
+                        # marks its slab
 
 # kernel launches per entry (plain-version calls are not counted); the
-# pair-stream entries' accumulate form (``out=``) counts under its own key
+# pair-stream entries' accumulate form (``out=``) counts under its own key,
+# the masks entries (TableMasks.make) and the walk (stream_walk) under theirs
 LAUNCHES = {"macro_accumulate_pairs": 0, "macro_class_ragged": 0,
             "macro_class_uniform": 0, "macro_accumulate_pairs_f64": 0,
             "macro_accumulate_pairs_acc": 0,
-            "macro_accumulate_pairs_f64_acc": 0}
+            "macro_accumulate_pairs_f64_acc": 0, "macro_tile_masks": 0,
+            "macro_tile_masks_f64": 0, "macro_stream_walk": 0}
 
 
 def reset_launch_counts() -> None:
@@ -82,9 +93,11 @@ def reset_launch_counts() -> None:
 
 def _declare(lib) -> None:
     vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    masks = [vp, vp, ci, ci, ci]        # masks_a, masks_b, n_a, n_b, ready
+    # masks_a, masks_b, n_a, n_b, ready_a, ready_b
+    masks = [vp, vp, ci, ci, ci, ci]
     lib.macro_accumulate_pairs_f32.argtypes = [vp, vp, vp, vp, vp, vp, vp,
-                                               ci, ci, vp, ci, *masks, ci, vp]
+                                               ci, ci, vp, ci, *masks, ci,
+                                               vp, vp]
     lib.macro_class_ragged_f32.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci,
                                            ll, vp, vp, ci, ci, vp, *masks,
                                            vp]
@@ -92,10 +105,15 @@ def _declare(lib) -> None:
                                             ll, vp, vp, ci, ci, vp, *masks,
                                             vp]
     lib.macro_accumulate_pairs_f64.argtypes = [vp, vp, vp, vp, vp, vp, vp,
-                                               ci, ci, ci, ci, vp, vp, vp,
-                                               ci, vp]
+                                               ci, ci, ci, ci, vp, vp, ci,
+                                               ci, vp, ci, vp, vp]
+    lib.macro_tile_masks_f32.argtypes = [vp, ci, vp, vp]
+    lib.macro_tile_masks_f64.argtypes = [vp, ci, vp, vp]
+    lib.macro_stream_walk.argtypes = [vp, ci, ci, ci, vp, vp, vp]
     for fn in (lib.macro_accumulate_pairs_f32, lib.macro_class_ragged_f32,
-               lib.macro_class_uniform_f32, lib.macro_accumulate_pairs_f64):
+               lib.macro_class_uniform_f32, lib.macro_accumulate_pairs_f64,
+               lib.macro_tile_masks_f32, lib.macro_tile_masks_f64,
+               lib.macro_stream_walk):
         fn.restype = ci
 
 
@@ -146,40 +164,135 @@ def _raise_on(err, entry):
         raise RuntimeError(f"{entry}: CUDA launch failed with error {err}")
 
 
-class TileMasks:
-    """Scratch of the one-pass pipeline ("high", "default"): the k-masks of
-    two float32 tile tables (TM_WORDS int32 a tile; one buffer where both
-    operands are one table), computed by the first launch that is handed
-    them and read by the later ones.  ops.stencil.stencil_accumulate hands
-    one to all the launches of a multiply, so the tables are read once for
-    them; a launch without one computes its own."""
+def _pack_bits(bits):
+    """(T, 32 w) bool -> (T, w) int32: bit b of word i is column 32 i + b
+    (a 32-bit pattern in two's complement)."""
+    t, n = bits.shape
+    weights = torch.ones(32, dtype=torch.int64, device=bits.device) \
+        << torch.arange(32, device=bits.device)
+    words = (bits.view(t, n // 32, 32).to(torch.int64) * weights).sum(2)
+    return torch.where(words >= 2 ** 31, words - 2 ** 32, words) \
+        .to(torch.int32)
 
-    def __init__(self, a_dense, b_dense):
-        self.same = b_dense.data_ptr() == a_dense.data_ptr() \
-            and b_dense.shape == a_dense.shape
-        self.key = (a_dense.data_ptr(), a_dense.shape[0], b_dense.data_ptr(),
-                    b_dense.shape[0])
-        self.a = torch.empty((a_dense.shape[0], TM_WORDS), dtype=torch.int32,
-                             device=a_dense.device)
-        self.b = self.a if self.same else torch.empty(
-            (b_dense.shape[0], TM_WORDS), dtype=torch.int32,
-            device=b_dense.device)
+
+def _slab_word(bad, width):
+    """(T, 128) bool -> (T, 1) int32: bit s where entries [width s, width s
+    + width) hold a marked value."""
+    slabs = bad.view(bad.shape[0], 128 // width, width).any(2)
+    pad = torch.zeros((bad.shape[0], 32 - slabs.shape[1]), dtype=torch.bool,
+                      device=bad.device)
+    return _pack_bits(torch.cat([slabs, pad], 1))
+
+
+def tile_masks_plain(tiles, per=1024):
+    """(T, 10) int32: the k-masks of a (T, 128, 128) tile table, bit for bit
+    the masks entry of its dtype (plain version of ``TableMasks.make``).
+    Words 0-3 bit k: column k holds a non-zero (-0.0 is zero; a subnormal,
+    an Inf or a NaN is not); word 4: the marked column slabs; words 5-8 and
+    9 the same of the rows.  float32 (f32_tile_masks): a slab is 32 wide
+    and marked by a value of 2^63 or more in magnitude, an Inf or a NaN;
+    float64 (f64_tile_masks): 16 wide, marked by an Inf or a NaN.  Taken
+    ``per`` tiles at a time."""
+    f64 = tiles.dtype == torch.float64
+    out = torch.empty((tiles.shape[0], 10), dtype=torch.int32,
+                      device=tiles.device)
+    for lo in range(0, tiles.shape[0], per):
+        x = tiles[lo:lo + per]
+        nz = x != 0
+        bad = ~torch.isfinite(x) if f64 else ~(x.abs() < BIG)
+        width = 16 if f64 else 32
+        out[lo:lo + per] = torch.cat(
+            [_pack_bits(nz.any(1)), _slab_word(bad.any(1), width),
+             _pack_bits(nz.any(2)), _slab_word(bad.any(2), width)], 1)
+    return out
+
+
+def reads_masks(table, precision: str) -> bool:
+    """Whether a pair-stream launch on ``table`` reads tile masks: CUDA
+    tables of float64 (the float64 entry) or of float32 at "high" /
+    "default" (the one-pass pipeline)."""
+    return table.is_cuda and (table.dtype == torch.float64
+                              or precision_code(precision) != 0)
+
+
+class TableMasks:
+    """The k-masks of one tile table in its dtype's layout (TM_WORDS int32 a
+    tile for float32, the one-pass pipeline's; F64_MASK_WORDS for float64,
+    the float64 entry's; ``tile_masks_plain`` says what they hold).  One
+    launch makes them (``make``: the masks entry on the card, counted, the
+    plain version on the CPU) and the entries' later launches read them
+    with their ready flag set.  ``words`` may be received from another
+    rank (the Macro128 ring passes a chunk's masks with the chunk): the
+    receiver sets ``ready``."""
+
+    def __init__(self, table):
+        _check_tiles(table, "table")
+        if table.dtype not in (torch.float32, torch.float64):
+            raise NotImplementedError(f"masks of {table.dtype} tiles")
+        self.table = table
+        words = F64_MASK_WORDS if table.dtype == torch.float64 else TM_WORDS
+        self.words = torch.empty((table.shape[0], words), dtype=torch.int32,
+                                 device=table.device)
         self.ready = False
 
+    def matches(self, table) -> bool:
+        t = self.table
+        return (table.data_ptr() == t.data_ptr() and table.shape == t.shape
+                and table.dtype == t.dtype and table.device == t.device)
+
+    def make(self):
+        """Make the masks of the table now; returns self."""
+        t = self.table
+        if not t.is_cuda:
+            self.words.copy_(tile_masks_plain(t))
+        elif t.shape[0]:
+            f64 = t.dtype == torch.float64
+            entry = "macro_tile_masks_f64" if f64 else "macro_tile_masks"
+            fn = _library().macro_tile_masks_f64 if f64 \
+                else _library().macro_tile_masks_f32
+            with torch.cuda.device(t.device):
+                _raise_on(fn(t.data_ptr(), t.shape[0], self.words.data_ptr(),
+                             torch.cuda.current_stream().cuda_stream), entry)
+            LAUNCHES[entry] += 1
+        self.ready = True
+        return self
+
+
+class TileMasks:
+    """The k-masks of a launch's two tables: A's and B's ``TableMasks``
+    (one where the tables are one), each computed by the first launch that
+    is handed them unless ready, and read by the later ones.
+    ops.stencil.stencil_accumulate hands one to all the launches of a
+    multiply, so the tables are read once for them; a launch without one
+    computes its own.  ``a`` / ``b``: a table's masks made elsewhere (the
+    Macro128 ring's, made once a plan and carried with the chunk)."""
+
+    def __init__(self, a_dense, b_dense, a=None, b=None):
+        self.a = a if a is not None else TableMasks(a_dense)
+        same = b_dense.data_ptr() == a_dense.data_ptr() \
+            and b_dense.shape == a_dense.shape
+        self.b = b if b is not None else self.a if same \
+            else TableMasks(b_dense)
+
     def args(self, a_dense, b_dense):
-        """The entries' (masks_a, masks_b, n_a, n_b, masks_ready)."""
-        if self.key != (a_dense.data_ptr(), a_dense.shape[0],
-                        b_dense.data_ptr(), b_dense.shape[0]):
+        """The entries' (masks_a, masks_b, n_a, n_b, ready_a, ready_b)."""
+        if not (self.a.matches(a_dense) and self.b.matches(b_dense)):
             raise ValueError("tile masks of other tables")
-        return (self.a.data_ptr(), self.b.data_ptr(), a_dense.shape[0],
-                b_dense.shape[0], int(self.ready))
+        return (self.a.words.data_ptr(), self.b.words.data_ptr(),
+                a_dense.shape[0], b_dense.shape[0], int(self.a.ready),
+                int(self.b.ready))
+
+    def made(self):
+        """After a launch: both tables' masks are made."""
+        self.a.ready = self.b.ready = True
 
 
-def _mask_args(a_dense, b_dense, prec, tile_masks):
-    """(masks, the entries' five mask arguments) of a float32 launch at
-    precision code ``prec``: none at "highest", which reads no mask."""
-    if prec == 0:
-        return None, (None, None, 0, 0, 1)
+def _mask_args(a_dense, b_dense, reads, tile_masks):
+    """(masks, the entries' six mask arguments) of a launch that ``reads``
+    masks (the float64 entry; the float32 ones at "high" / "default"):
+    ``tile_masks`` or masks of its own; none otherwise ("highest")."""
+    if not reads:
+        return None, (None, None, 0, 0, 1, 1)
     masks = tile_masks if tile_masks is not None else TileMasks(a_dense,
                                                                 b_dense)
     return masks, masks.args(a_dense, b_dense)
@@ -194,6 +307,49 @@ def segment_offsets(seg, c_cap: int):
     tiles >= c_cap lie past out[c_cap]."""
     edges = torch.arange(c_cap + 1, dtype=torch.int32, device=seg.device)
     return torch.searchsorted(seg, edges, out_int32=True)
+
+
+def stream_walk_plain(seg, c_cap: int, cap: int):
+    """The plain version of ``stream_walk``: (2 cap + 3,) i32, the C tiles
+    below c_cap that the sorted stream ``seg`` has pairs for, in stream
+    order, as the accumulate form walks them (the .cu's ListTiles): [0]
+    their count T; [1 + 2 i] the i-th tile and [2 + 2 i] its first pair,
+    for i <= cap; past the count the tile is c_cap and the pair the
+    stream's end seg_ptr[c_cap] (entry T bounds tile T - 1's pairs).
+    ``cap`` at least T (min(c_cap, p_cap) always is)."""
+    dev = seg.device
+    seg_ptr = segment_offsets(seg, c_cap)
+    has = torch.cumsum(seg_ptr[1:] > seg_ptr[:-1], 0, dtype=torch.int32)
+    if has.numel() == 0:
+        has = torch.zeros(1, dtype=torch.int32, device=dev)
+    tiles = torch.searchsorted(
+        has, torch.arange(1, cap + 2, dtype=torch.int32, device=dev),
+        out_int32=True)
+    firsts = seg_ptr[tiles.long()]
+    return torch.cat([has[-1:], torch.stack([tiles, firsts], 1).view(-1)])
+
+
+def stream_walk(seg, c_cap: int, cap: int, next_tile=None):
+    """The walk list of the sorted pair stream ``seg`` (stream_walk_plain
+    says what it holds) on seg's device: on the card one launch of
+    macro_stream_walk (counted; no host sync, so a CUDA graph captures
+    it), which also zeroes ``next_tile`` (the one-pass pipeline's ticket
+    counter) where given; on the CPU the plain version."""
+    _check_i32(seg, "seg", seg.device)
+    if cap < 0 or c_cap < 0:
+        raise ValueError(f"cap={cap}, c_cap={c_cap}")
+    if not seg.is_cuda:
+        if next_tile is not None:
+            next_tile.zero_()
+        return stream_walk_plain(seg, c_cap, cap)
+    walk = torch.empty(2 * cap + 3, dtype=torch.int32, device=seg.device)
+    with torch.cuda.device(seg.device):
+        _raise_on(_library().macro_stream_walk(
+            seg.data_ptr(), seg.numel(), c_cap, cap, walk.data_ptr(),
+            None if next_tile is None else next_tile.data_ptr(),
+            torch.cuda.current_stream().cuda_stream), "macro_stream_walk")
+    LAUNCHES["macro_stream_walk"] += 1
+    return walk
 
 
 def persistent_grid(device) -> int:
@@ -236,8 +392,9 @@ def accumulate_macro_pairs(a_dense, b_dense, a_idx, b_idx, seg, c_cap: int,
     only (CPU tensors).  ``precision`` ("highest", "high", "default";
     anything else raises) is the float32 products' (the float64 entry
     ignores it, as float64 tiles do in the JAX package).  ``tile_masks``: a
-    ``TileMasks`` of these tables shared with other launches (float32 at
-    "high" / "default" on CUDA tiles; else not read).
+    ``TileMasks`` of these tables shared with other launches, or made
+    elsewhere (float64, and float32 at "high" / "default", on CUDA tiles;
+    else not read).
     CUDA tiles of float32 launch the float32 entry, of float64 the float64
     entry (c_dense then float64); any other dtype raises.
 
@@ -249,8 +406,9 @@ def accumulate_macro_pairs(a_dense, b_dense, a_idx, b_idx, seg, c_cap: int,
     be (c_cap, 128, 128), contiguous, on the tiles' device, of the values'
     dtype (the tiles', or ``acc_dtype`` on the CPU) and uint8; anything else
     raises.  On CUDA tiles it launches the entry's accumulate form (counted
-    as ``<entry>_acc``), on CPU tiles ``ops.macro.accumulate_macro(...,
-    out=out)``.
+    as ``<entry>_acc``; at "high" / "default" and in float64 over the
+    stream's ``stream_walk``: no tile without pairs is visited), on CPU
+    tiles ``ops.macro.accumulate_macro(..., out=out)``.
     """
     prec = precision_code(precision)
     _check_tiles(a_dense, "a_dense")
@@ -275,37 +433,41 @@ def accumulate_macro_pairs(a_dense, b_dense, a_idx, b_idx, seg, c_cap: int,
     if c_cap == 0:                      # nothing to launch, nothing counted
         return c_num, c_flag
     acc = int(out is not None)
-    seg_ptr = segment_offsets(seg, c_cap)
+    f64 = a_dense.dtype == torch.float64
+    masks, margs = _mask_args(a_dense, b_dense, f64 or prec != 0, tile_masks)
+    next_tile = None if f64 else torch.empty(1, dtype=torch.int32,
+                                             device=dev)
+    if acc and masks is not None:
+        # the walk over the tiles with pairs (it zeroes the ticket counter):
+        # the pair offsets are not read
+        walk = stream_walk(seg, c_cap, min(c_cap, p_cap), next_tile)
+        walk_ptr, seg_ptr = walk.data_ptr(), None
+    else:
+        walk_ptr, seg_ptr = None, segment_offsets(seg, c_cap)
+        if next_tile is not None:
+            next_tile.zero_()
     lib = _library()
     ptrs = (a_dense.data_ptr(), b_dense.data_ptr(), a_idx.data_ptr(),
-            b_idx.data_ptr(), seg_ptr.data_ptr(), c_num.data_ptr(),
-            c_flag.data_ptr(), c_cap)
-    if a_dense.dtype == torch.float64:
-        # scratch: the tiles' k-masks (one buffer where A and B are one
-        # table) and the slabs that run of each pair
+            b_idx.data_ptr(), None if seg_ptr is None else seg_ptr.data_ptr(),
+            c_num.data_ptr(), c_flag.data_ptr(), c_cap)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if f64:
+        # scratch: the slabs that run of each pair
         entry = "macro_accumulate_pairs_f64"
-        masks_a = torch.empty((a_dense.shape[0], F64_MASK_WORDS),
-                              dtype=torch.int32, device=dev)
-        masks_b = masks_a if b_dense.data_ptr() == a_dense.data_ptr() \
-            and b_dense.shape == a_dense.shape else torch.empty(
-                (b_dense.shape[0], F64_MASK_WORDS), dtype=torch.int32,
-                device=dev)
         need = torch.empty(p_cap, dtype=torch.uint8, device=dev)
         with torch.cuda.device(dev):
             err = lib.macro_accumulate_pairs_f64(
                 *ptrs, a_dense.shape[0], b_dense.shape[0], p_cap,
-                masks_a.data_ptr(), masks_b.data_ptr(), need.data_ptr(),
-                acc, torch.cuda.current_stream().cuda_stream)
+                *margs[:2], *margs[4:], need.data_ptr(), acc, walk_ptr,
+                stream)
     else:
         entry = "macro_accumulate_pairs"
-        next_tile = torch.zeros(1, dtype=torch.int32, device=dev)
-        masks, margs = _mask_args(a_dense, b_dense, prec, tile_masks)
         with torch.cuda.device(dev):
             err = lib.macro_accumulate_pairs_f32(
                 *ptrs, persistent_grid(dev), next_tile.data_ptr(), prec,
-                *margs, acc, torch.cuda.current_stream().cuda_stream)
-        if masks is not None and err == 0:
-            masks.ready = True
+                *margs, acc, walk_ptr, stream)
+    if masks is not None and err == 0:
+        masks.made()
     if acc:
         entry += "_acc"
     _raise_on(err, entry)
@@ -380,7 +542,7 @@ def class_call2(c_num, c_pat, a_dense, b_dense, ab_bases, t, p, ar, br,
     p_ptr, ao, bo = _class_tables(tables, t, n_p, dev)
     lib = _library()
     next_tile = torch.zeros(1, dtype=torch.int32, device=dev)
-    masks, margs = _mask_args(a_dense, b_dense, prec, tile_masks)
+    masks, margs = _mask_args(a_dense, b_dense, prec != 0, tile_masks)
     with torch.cuda.device(dev):
         _raise_on(lib.macro_class_ragged_f32(
             a_dense.data_ptr(), b_dense.data_ptr(), ab_bases.data_ptr(),
@@ -389,7 +551,7 @@ def class_call2(c_num, c_pat, a_dense, b_dense, ab_bases, t, p, ar, br,
             next_tile.data_ptr(), *margs,
             torch.cuda.current_stream().cuda_stream), "macro_class_ragged")
     if masks is not None:
-        masks.ready = True
+        masks.made()
     LAUNCHES["macro_class_ragged"] += 1
     return c_num, c_pat
 
@@ -414,7 +576,7 @@ def class_call(c_num, c_pat, a_dense, b_dense, ab_bases, t, p, ar, br,
     _p_ptr, ao, bo = _class_tables(tables, t, n_p, dev)
     lib = _library()
     next_tile = torch.zeros(1, dtype=torch.int32, device=dev)
-    masks, margs = _mask_args(a_dense, b_dense, prec, tile_masks)
+    masks, margs = _mask_args(a_dense, b_dense, prec != 0, tile_masks)
     with torch.cuda.device(dev):
         _raise_on(lib.macro_class_uniform_f32(
             a_dense.data_ptr(), b_dense.data_ptr(), ab_bases.data_ptr(),
@@ -423,6 +585,6 @@ def class_call(c_num, c_pat, a_dense, b_dense, ab_bases, t, p, ar, br,
             next_tile.data_ptr(), *margs,
             torch.cuda.current_stream().cuda_stream), "macro_class_uniform")
     if masks is not None:
-        masks.ready = True
+        masks.made()
     LAUNCHES["macro_class_uniform"] += 1
     return c_num, c_pat

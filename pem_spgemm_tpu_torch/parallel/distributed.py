@@ -191,14 +191,18 @@ def gather_coo(rows, cols, vals, mesh: RankGroup, host: bool = True):
     return to_numpy_tree(out) if host else out
 
 
-def ring_exchange(send: torch.Tensor, recv: torch.Tensor,
-                  mesh: RankGroup) -> list:
+def ring_exchange(send, recv, mesh: RankGroup) -> list:
     """Start passing ``send`` to the right neighbour while ``recv`` takes
-    the left neighbour's (the JAX package's cyclic ``ppermute``).  Returns
+    the left neighbour's (the JAX package's cyclic ``ppermute``); each a
+    tensor, or a list of tensors passed together, in one batch.  Returns
     the requests; ``wait()`` them before ``recv`` is read or ``send``
     written."""
-    ops = [dist.P2POp(dist.isend, send, mesh.right, mesh.group),
-           dist.P2POp(dist.irecv, recv, mesh.left, mesh.group)]
+    sends = send if isinstance(send, (list, tuple)) else [send]
+    recvs = recv if isinstance(recv, (list, tuple)) else [recv]
+    ops = []
+    for x, y in zip(sends, recvs, strict=True):
+        ops += [dist.P2POp(dist.isend, x, mesh.right, mesh.group),
+                dist.P2POp(dist.irecv, y, mesh.left, mesh.group)]
     return dist.batch_isend_irecv(ops)
 
 

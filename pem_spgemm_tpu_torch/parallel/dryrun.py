@@ -38,8 +38,11 @@ def _coo(t):
 def run_case(case: dict, mesh: D.RankGroup) -> dict:
     """One decomposition on this rank: its plan arrays and the assembled
     global COO, as numpy.  ``case``: ``kind`` ('element' | 'dia' | 'macro'
-    | 'tile16' | 'scaling'), ``coo`` (rows, cols, vals, shape) and, for A@B,
-    ``b_coo``; 'scaling' takes ``engine`` and ``max_devices``."""
+    | 'tile16' | 'scaling' | 'ring_masks'), ``coo`` (rows, cols, vals,
+    shape) and, for A@B, ``b_coo``; 'scaling' takes ``engine`` and
+    ``max_devices``; 'ring_masks' passes the macro plan's B chunk round the
+    ring with its tile masks and returns, for each stage, whether the masks
+    it holds are those of the chunk it holds."""
     from pem_spgemm_tpu_torch.ops.convert import coo_to_macro, coo_to_tiled
     from pem_spgemm_tpu_torch.ops.dia import coo_to_dia, dia_to_coo
     from pem_spgemm_tpu_torch.parallel import (sharded, sharded_dia,
@@ -49,6 +52,20 @@ def run_case(case: dict, mesh: D.RankGroup) -> dict:
     b_coo = _coo(case["b_coo"]) if case.get("b_coo") is not None else None
     n, d, dev = mesh.world_size, mesh.rank, mesh.device
     f32 = dict(dtype=torch.float32, device=dev)
+    if kind == "ring_masks":
+        from pem_spgemm_tpu_torch.ops import macro_kernels as mk
+        a = coo_to_macro(coo, **f32)
+        plan = sharded_macro.plan_sharded_macro(a, a, n, d)
+        held = []
+        for s, (b, m) in enumerate(sharded_macro.ring_chunks(
+                plan.b_dense, n, mesh, sharded_macro.plan_masks(plan)[1])):
+            want = mk.tile_masks_plain(b)
+            owner = sharded_macro.plan_sharded_macro(a, a, n, (d - s) % n)
+            held.append(dict(ready=m.ready, of_buffer=m.matches(b),
+                             chunk=bool(torch.equal(b, owner.b_dense)),
+                             masks=bool(torch.equal(m.words, want)),
+                             set_words=int(torch.count_nonzero(want))))
+        return dict(held=held)
     if kind == "scaling":
         pts = D.scaling_efficiency(coo, engine=case["engine"],
                                    max_devices=case["max_devices"],

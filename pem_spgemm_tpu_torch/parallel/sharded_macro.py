@@ -22,6 +22,12 @@ INT32_MAX where the JAX layout pads with ``c_cap`` (the C tile it drops);
 the stable key sort keeps each stage's pairs ascending in C tile, which K4
 needs.
 
+Where a launch reads tile k-masks (float64 tables, and float32 ones at
+"high" / "default", on the card), a plan makes those of its A slice and of
+its B chunk once (``plan_masks``: one launch a table) and the ring passes a
+chunk's masks with the chunk, in the same exchange (40 bytes a 64 KB
+tile), so that no stage reads a table to make masks.
+
 The schedule (pair expansion, cuts, stage keys; int arrays of O(pairs)) is
 computed whole on every rank, identically; a rank then takes its own
 slice and materializes only its own A slice and B chunk.
@@ -36,6 +42,7 @@ import torch
 
 from pem_spgemm_tpu_torch.config import round_up_bucket
 from pem_spgemm_tpu_torch.formats.macro import MacroMatrix
+from pem_spgemm_tpu_torch.ops import macro_kernels as mk
 from pem_spgemm_tpu_torch.ops import symbolic
 from pem_spgemm_tpu_torch.ops.scanops import can_pack
 from pem_spgemm_tpu_torch.parallel.distributed import (RankGroup,
@@ -203,6 +210,7 @@ class ShardedMacroPlan:
     c_tile_col: torch.Tensor
     c_counts_dev: np.ndarray  # (n,) true C tile counts of every rank
     n_pairs: int
+    masks: tuple = None      # (A slice's, B chunk's) TableMasks: plan_masks
 
     @property
     def stages(self) -> int:
@@ -249,40 +257,74 @@ def plan_sharded_macro(a: MacroMatrix, b: MacroMatrix, n_devices: int,
         n_pairs=n_pairs)
 
 
-def ring_chunks(first: torch.Tensor, n: int, mesh: RankGroup):
+def plan_masks(plan: ShardedMacroPlan):
+    """(A slice's, B chunk's) ``TableMasks`` of the plan, made once: the
+    first call makes them (one launch a table on the card, the plain
+    version on the CPU), later ones return the same (made anew only if the
+    plan's tables were replaced)."""
+    m = plan.masks
+    if m is None or not (m[0].matches(plan.a_dense)
+                         and m[1].matches(plan.b_dense)):
+        plan.masks = m = (mk.TableMasks(plan.a_dense).make(),
+                          mk.TableMasks(plan.b_dense).make())
+    return m
+
+
+def ring_chunks(first: torch.Tensor, n: int, mesh: RankGroup, masks=None):
     """The B chunk of each of n stages on this rank: ``first`` at stage 0;
     each stage passes its chunk to the right while the next arrives from
     the left, into two buffers of its own in turn (``first``, the plan's,
     is only read, so the plan runs again as it was).  The consumer computes
     a stage between two ``next()``s, so the exchange overlaps it; the
-    receive is waited for before the next stage is handed out."""
+    receive is waited for before the next stage is handed out.  With
+    ``masks`` (``first``'s TableMasks) each stage yields (chunk, its
+    masks): the masks pass with the chunk in the same exchange, into masks
+    of the receiving buffer, ready once received."""
     spare = [torch.empty_like(first) for _ in range(min(2, n - 1))]
-    cur = first
+    spare_m = [mk.TableMasks(x) for x in spare] if masks is not None \
+        else [None] * len(spare)
+    cur, cur_m = first, masks
     for s in range(n):
-        nxt = spare[s % 2] if s < n - 1 else None
-        reqs = ring_exchange(cur, nxt, mesh) if nxt is not None else []
-        yield cur
+        nxt, nxt_m = (spare[s % 2], spare_m[s % 2]) if s < n - 1 \
+            else (None, None)
+        reqs = []
+        if nxt_m is not None:
+            nxt_m.ready = False
+            reqs = ring_exchange([cur, cur_m.words], [nxt, nxt_m.words],
+                                 mesh)
+        elif nxt is not None:
+            reqs = ring_exchange(cur, nxt, mesh)
+        yield cur if masks is None else (cur, cur_m)
         for req in reqs:
             req.wait()
-        cur = nxt
+        if nxt_m is not None:
+            nxt_m.ready = True
+        cur, cur_m = nxt, nxt_m
 
 
 def local_macro(plan: ShardedMacroPlan, chunks, precision: str = "highest"):
     """(c_dense (c_cap, 128, 128), c_flags uint8) of this rank: one K4
     launch for each stage that has pairs, at ``precision``, on the chunk
-    ``chunks`` yields for it.  The first writes C (the fresh form), each
-    later one adds its products into that C and ORs its flags in (the
-    accumulate form, ``out=``).  Zeros where no stage has pairs."""
+    ``chunks`` yields for it (a chunk, or a (chunk, its TableMasks) pair).
+    The first writes C (the fresh form), each later one adds its products
+    into that C and ORs its flags in (the accumulate form, ``out=``).
+    Where the launch reads tile masks, every stage gets the A slice's
+    (plan_masks) and the chunk's it was handed (none: the launch makes
+    them).  Zeros where no stage has pairs."""
     from pem_spgemm_tpu_torch.ops.macro_kernels import accumulate_macro_pairs
     out = None
     chunk = min(256, plan.pairs_a.shape[1])
-    for s, b_cur in enumerate(chunks):
+    for s, item in enumerate(chunks):
+        b_cur, b_masks = item if isinstance(item, tuple) else (item, None)
         if plan.stage_pairs[s] == 0:
             continue
+        masks = mk.TileMasks(plan.a_dense, b_cur, a=plan_masks(plan)[0],
+                             b=b_masks) \
+            if mk.reads_masks(b_cur, precision) else None
         out = accumulate_macro_pairs(
             plan.a_dense, b_cur, plan.pairs_a[s], plan.pairs_b[s],
             plan.seg[s], plan.c_cap, chunk=chunk, precision=precision,
-            out=out)
+            tile_masks=masks, out=out)
     if out is None:
         dev = plan.a_dense.device
         out = (torch.zeros((plan.c_cap, TILE, TILE),
@@ -296,19 +338,39 @@ def sharded_macro_numeric(plan: ShardedMacroPlan,
                           mesh: RankGroup | None = None,
                           precision: str = "highest"):
     """This rank's (c_dense, c_flags) of the ring multiply, each stage's K4
-    at ``precision``."""
+    at ``precision``; the chunks carry their masks where K4 reads them."""
     mesh = mesh or make_mesh()
-    return local_macro(plan, ring_chunks(plan.b_dense, plan.n_devices, mesh),
-                       precision)
+    masks = plan_masks(plan)[1] if mk.reads_masks(plan.b_dense, precision) \
+        else None
+    return local_macro(plan, ring_chunks(plan.b_dense, plan.n_devices, mesh,
+                                         masks), precision)
 
 
-def replay_chunks(plans, d: int):
+def replay_chunks(plans, d: int, masks: bool = False):
     """The chunks rank d meets at each stage, read from every rank's plan
-    (no exchange: one card replaying the ranks in turn).  A replay at a
-    precision is ``local_macro(plans[d], replay_chunks(plans, d),
-    precision)``."""
+    (no exchange: one card replaying the ranks in turn); with ``masks``
+    each with its plan's masks (plan_masks), as the ring carries them.  A
+    replay at a precision is ``local_macro(plans[d], replay_chunks(plans,
+    d, masks), precision)``."""
     n = len(plans)
-    return (plans[(d - s) % n].b_dense for s in range(n))
+    if not masks:
+        return (plans[(d - s) % n].b_dense for s in range(n))
+    return ((plans[(d - s) % n].b_dense, plan_masks(plans[(d - s) % n])[1])
+            for s in range(n))
+
+
+def largest_accumulating_stage(plans):
+    """(rank, stage) of the stage with the most pairs among those that K4
+    runs in its accumulate form (a stage with pairs after its rank's first)
+    over a ring's plans, or None."""
+    best = None
+    for d, p in enumerate(plans):
+        live = [s for s, x in enumerate(p.stage_pairs) if x]
+        for s in live[1:]:
+            if best is None or p.stage_pairs[s] > \
+                    plans[best[0]].stage_pairs[best[1]]:
+                best = (d, s)
+    return best
 
 
 def local_macro_coo(plan: ShardedMacroPlan, c_dense, c_flags):

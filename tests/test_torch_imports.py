@@ -189,7 +189,9 @@ def test_macro_kernel_source_and_loader_agree():
     assert os.path.isfile(mk.SOURCE)
     src = open(mk.SOURCE).read()
     entries = ("macro_accumulate_pairs_f32", "macro_class_ragged_f32",
-               "macro_class_uniform_f32", "macro_accumulate_pairs_f64")
+               "macro_class_uniform_f32", "macro_accumulate_pairs_f64",
+               "macro_tile_masks_f32", "macro_tile_masks_f64",
+               "macro_stream_walk")
     for symbol in entries:
         assert f'extern "C" int {symbol}(' in src
     # hand-written products: no library GEMM, no PyTorch headers
@@ -201,7 +203,8 @@ def test_macro_kernel_source_and_loader_agree():
     assert "cvt.rna.tf32.f32" in src
     assert set(mk.LAUNCHES) == {e[:-4] for e in entries[:3]} | {
         "macro_accumulate_pairs_f64", "macro_accumulate_pairs_acc",
-        "macro_accumulate_pairs_f64_acc"}
+        "macro_accumulate_pairs_f64_acc", "macro_tile_masks",
+        "macro_tile_masks_f64", "macro_stream_walk"}
 
     # the ctypes declarations match the number of C parameters
     class Lib:

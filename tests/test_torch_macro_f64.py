@@ -15,8 +15,10 @@ by fragment, forms each DMMA product from the 32 lanes' fragments (as the
 PTX layout places them) and holds the result against the plain version
 (``ops.macro.accumulate_macro``): values within 1e-12 * sum|a*b|, flags
 exactly, and the plain version's NaN positions and Inf signs on tiles with
-Inf, -Inf, NaN, subnormal and empty slabs.  The constants are read from
-the source.
+Inf, -Inf, NaN, subnormal and empty slabs; in the accumulate form over the
+grid the walk list gives (one block a tile with pairs, min(c_cap, p_cap)
+blocks, those past the list's count returning at once).  The constants are
+read from the source.
 """
 
 import re
@@ -133,6 +135,28 @@ def tile_masks(x):
         words.append(int((bad.reshape(8, 16).any(1)
                           * (1 << np.arange(8))).sum()))
     return words
+
+
+def test_tile_masks_plain_is_the_kernels_rule():
+    """ops.macro_kernels.tile_masks_plain on float64 tiles (the plain
+    version of macro_tile_masks_f64) equals the replay of f64_tile_masks
+    word for word on tiles with NaN, +-Inf, finite values above 2^63 (not
+    marked in float64), -0.0 and subnormals."""
+    x = _tiles(8, 4)
+    x[0, 3, 99] = np.nan
+    x[0, 70, 5] = np.inf
+    x[1, 40, 33] = -np.inf
+    x[1, 100, 64] = 2.0 ** 70
+    x[2, :, 10:20] = -0.0
+    x[2, 17, 90] = 5e-324
+    with np.errstate(invalid="ignore"):
+        want = np.array([tile_masks(t) for t in x], np.int64) \
+            .astype(np.uint32).view(np.int32)
+    got = mk.tile_masks_plain(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert want[0, 4] == (1 << 6 | 1 << 0) and want[0, 9] == (1 << 0 | 1 << 4)
+    assert want[1, 4] == 1 << 2 and want[1, 9] == 1 << 2
+    assert want[2, 0] & (0x3FF << 10) == 0 and not want[4].any()
 
 
 def pair_need(ma, mb):
@@ -352,6 +376,22 @@ def _stream(pairs_per_tile, n_a, n_b, seed):
     return np.array(seg), np.array(a_idx), np.array(b_idx)
 
 
+def grid_tiles(seg, c_cap, p_cap, accumulate):
+    """The float64 entry's grid, block by block: {block: (C tile, first
+    pair, end)} of the blocks that run a tile (the fresh form: c_cap blocks,
+    block c tile c; the accumulate form: min(c_cap, p_cap) blocks over
+    stream_walk's list, a block past its count returning at once)."""
+    seg_t = torch.from_numpy(np.asarray(seg, np.int32))
+    seg_ptr = mk.segment_offsets(seg_t, c_cap).numpy()
+    if not accumulate:
+        return {c: (c, int(seg_ptr[c]), int(seg_ptr[c + 1]))
+                for c in range(c_cap)}
+    cap = min(c_cap, p_cap)
+    walk = mk.stream_walk(seg_t, c_cap, cap).numpy()
+    return {i: (int(walk[1 + 2 * i]), int(walk[2 + 2 * i]),
+                int(walk[4 + 2 * i])) for i in range(cap) if i < walk[0]}
+
+
 def _plain(a, b, seg, a_idx, b_idx, c_cap):
     pad = 256 - len(seg)
     t = lambda x, f: torch.from_numpy(np.concatenate(
@@ -364,6 +404,18 @@ def _plain(a, b, seg, a_idx, b_idx, c_cap):
 
 @pytest.mark.parametrize("case", ["finite", "nonfinite"])
 def test_slab_walk_replay_equals_plain_version(case):
+    slab_walk_case(case, "fresh")
+
+
+@pytest.mark.parametrize("case", ["finite", "nonfinite"])
+def test_list_grid_runs_each_tile_with_pairs_once(case):
+    """The accumulate form's grid over the walk list: blocks 0 .. T - 1 run
+    the T tiles with pairs, each once, in a c_cap far above them; the
+    others return at once; each tile's replay equals the plain version."""
+    slab_walk_case(case, "accumulate")
+
+
+def slab_walk_case(case, form):
     a, b = _tiles(1, 5), _tiles(2, 5)
     # a band in tiles 1 and 2 (most 16 x 8 blocks of their product multiply
     # only zeros, as in a banded matrix's tiles)
@@ -379,16 +431,30 @@ def test_slab_walk_replay_equals_plain_version(case):
         a[1, 100, 3] = np.nan               # in a block no product reaches
         b[2, 90, 5] = -np.inf
     # C tiles of 2, 0, 3 and 1 pairs (an empty tile, a ring that wraps
-    # across pairs), pairs (0, 0) and (3, 3) among them
+    # across pairs), pairs (0, 0) and (3, 3) among them; the accumulate
+    # form's c_cap far past them
+    c_cap = 4 if form == "fresh" else 40
     seg, a_idx, b_idx = _stream([2, 0, 3, 1], 5, 5, seed=3)
     a_idx[:2], b_idx[:2] = (0, 3), (0, 3)
     a_idx[2:5], b_idx[2:5] = (1, 2, 4), (1, 2, 4)
-    want_v, want_f = (x.numpy() for x in _plain(a, b, seg, a_idx, b_idx, 4))
-    mag = _plain(np.abs(a), np.abs(b), seg, a_idx, b_idx, 4)[0].numpy()
+    want_v, want_f = (x.numpy() for x in _plain(a, b, seg, a_idx, b_idx,
+                                                 c_cap))
+    mag = _plain(np.abs(a), np.abs(b), seg, a_idx, b_idx, c_cap)[0].numpy()
+    pad = np.full(256 - len(seg), symbolic.INT32_MAX)
+    blocks = grid_tiles(np.concatenate([seg, pad]), c_cap, 256,
+                        form == "accumulate")
+    run = sorted(t for t, _lo, _hi in blocks.values())
+    # every tile with pairs is run by one block (the fresh form: every
+    # tile), and no block runs a tile twice
+    assert run == (list(range(c_cap)) if form == "fresh" else [0, 2, 3])
+    # blocks 0 .. T - 1 run the T tiles with pairs; the other min(c_cap,
+    # p_cap) - T blocks return at once
+    assert sorted(blocks) == list(range(len(run)))
     skipped = []
-    for c in range(4):
-        pairs = [(int(x), int(y)) for x, y in
-                 zip(a_idx[seg == c], b_idx[seg == c])]
+    for c, lo, hi in blocks.values():
+        pairs = [(int(a_idx[q]), int(b_idx[q])) for q in range(lo, hi)]
+        assert pairs == [(int(x), int(y)) for x, y in
+                         zip(a_idx[seg == c], b_idx[seg == c])]
         got_v, got_f = replay_tile(a, b, pairs, skipped)
         np.testing.assert_array_equal(got_f, want_f[c])
         w = want_v[c]

@@ -21,7 +21,10 @@ here, so this file replays, in numpy, what the source says:
   nothing deadlocks, no slot is written while it is read, every tile is
   stored once, with its pairs' slabs in order, for the pair stream and for
   the class launches of a run plan, whose values are then held to the
-  plain version.
+  plain version; the accumulate form's walk over the list of the tiles with
+  pairs (ListTiles over ``stream_walk``) visits exactly those, once each,
+  in stream order, and takes no ticket past the list's count;
+* the tables' k-masks (f32_tile_masks) and the walk list against numpy.
 
 Change the .cu, this replay and the source lines it checks together.
 """
@@ -79,7 +82,17 @@ def test_source_has_the_replayed_lines():
             "mbar_init(&sh.op_full[i], 4);",
             "mbar_init(&sh.op_empty[i], 8);",
             "constexpr int WS_PRODUCER_REGS = 120;",
-            "constexpr int WS_CONSUMER_REGS = 192;"):
+            "constexpr int WS_CONSUMER_REGS = 192;",
+            # the accumulate form's walk (ListTiles, the Issuer's rows)
+            "            lo = walk[2 + 2 * tk];",
+            "            hi = walk[4 + 2 * tk];",
+            "        return tk < n_tiles ? walk[1 + 2 * tk] : 0;",
+            "        w.n_tiles = walk[0];",
+            "        if constexpr (Tiles::LISTED) row0 = w.row(tk0);",
+            "        if constexpr (Tiles::LISTED) row = row0;",
+            "            info.row = Tiles::LISTED ? row : w.row(tk);",
+            "            ListTiles{walk, a_idx, b_idx, masks_a, masks_b, "
+            "next, c_cap},"):
         assert text.count(line) == 1, line
     assert _ring_depths(text, "HIGH") == (3, 3)
     assert _ring_depths(text, "DEFAULT") == (4, 4)
@@ -359,6 +372,46 @@ def slabs_needed(ma, mb):
     return n
 
 
+def engineered_f32_tiles():
+    """Tiles with NaN, +-Inf, values of 2^63 and more, -0.0 only columns,
+    subnormals, an empty tile and a full one."""
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((6, 128, 128)).astype(np.float32)
+    x[rng.random(x.shape) < 0.85] = 0.0
+    x[0, 3, 99] = np.nan
+    x[0, 70, 5] = np.inf
+    x[1, 40, 33] = -np.inf
+    x[1, 100, 64] = 2.0 ** 63                # marked: at BIG
+    x[1, 101, 65] = -3.0e38
+    x[2, :, 10:20] = -0.0                    # zeros that are not +0.0
+    x[2, 17, 90] = 1e-42                     # a subnormal is a non-zero
+    x[2, 120, 7] = -1e-45
+    x[3] = 0.0
+    x[4] = 1.0
+    x[5, 64:, :] = 0.0
+    x[5, 60, 127] = 2.0 ** 62                # under BIG: not marked
+    return x
+
+
+def test_tile_masks_plain_is_the_kernels_replay():
+    """ops.macro_kernels.tile_masks_plain on float32 tiles (the plain
+    version of the masks entry, which the CPU path and the kernel check
+    use) equals the lane-by-lane replay of f32_tile_masks, word for word."""
+    x = engineered_f32_tiles()
+    got = mk.tile_masks_plain(torch.from_numpy(x)).numpy()
+    want = tile_masks(x).view(np.int32)
+    np.testing.assert_array_equal(got, want)
+    assert want[1, 4] == 0b0110 and want[1, 9] == 0b1010     # cols 33 64 65
+    assert not want[3].any() and (want[4] == [-1] * 4 + [0] + [-1] * 4
+                                  + [0]).all()
+    assert want[2, 0] & (0x3FF << 10) == 0 and want[2, 2] >> 26 & 1
+    assert want[5, 4] == want[5, 9] == want[5, 7] == want[5, 8] == 0
+    mk.reset_launch_counts()
+    t = mk.TableMasks(torch.from_numpy(x)).make()     # CPU: plain version
+    assert t.ready and torch.equal(t.words, torch.from_numpy(want))
+    assert all(v == 0 for v in mk.LAUNCHES.values())
+
+
 def test_tile_masks_replay_is_the_direct_definition():
     rng = np.random.default_rng(3)
     x = rng.standard_normal((3, 128, 128)).astype(np.float32)
@@ -378,6 +431,8 @@ def test_tile_masks_replay_is_the_direct_definition():
 
 
 class StreamTiles:
+    LISTED = False
+
     def __init__(self, seg_ptr, a_idx, b_idx, n_tiles, masks):
         self.seg_ptr, self.a_idx, self.b_idx = seg_ptr, a_idx, b_idx
         self.n_tiles, self.masks = n_tiles, masks
@@ -394,7 +449,31 @@ class StreamTiles:
         return tk
 
 
+class ListTiles:
+    """The .cu's ListTiles, resolved: ticket tk is the walk list's tk-th
+    tile (row walk[1 + 2 tk], pairs [walk[2 + 2 tk], walk[4 + 2 tk])),
+    n_tiles the list's count; ``launched`` the grid's bound (c_cap)."""
+    LISTED = True
+
+    def __init__(self, walk, a_idx, b_idx, c_cap, masks):
+        self.walk, self.a_idx, self.b_idx = walk, a_idx, b_idx
+        self.n_tiles, self.launched, self.masks = int(walk[0]), c_cap, masks
+
+    def range(self, tk):
+        if tk >= self.n_tiles:
+            return 0, 0, 0, 0
+        return int(self.walk[2 + 2 * tk]), int(self.walk[4 + 2 * tk]), 0, 0
+
+    def tiles(self, q):
+        return int(self.a_idx[q]), int(self.b_idx[q])
+
+    def row(self, tk):
+        return int(self.walk[1 + 2 * tk]) if tk < self.n_tiles else 0
+
+
 class ClassTiles:
+    LISTED = False
+
     def __init__(self, ab_bases, p_list, a_offs, b_offs, t, base, n_tiles,
                  masks):
         self.p_ptr = np.concatenate([[0], np.cumsum(p_list)])
@@ -418,8 +497,9 @@ class ClassTiles:
 
 class Issuer:
     """The issue cursor of producer warp 0 (lane values as lists): the
-    claim pipeline ticket -> range -> tiles -> masks -> issued, one step a
-    tile; the tile's slabs that run, then a stage that stores it."""
+    claim pipeline ticket -> range -> tiles -> masks (and a LISTED walk's
+    C row) -> issued, one step a tile; the tile's slabs that run, then a
+    stage that stores it."""
 
     NONE = (0, 0, 0, 0)
 
@@ -428,6 +508,7 @@ class Issuer:
         n = w.n_tiles
         self.c0 = self.c1 = (n, self.NONE, [])     # (tk, range, tiles)
         self.need0 = []
+        self.row0 = 0
         self.tk2, self.r2 = n, self.NONE
         self.tk3 = self.ticket()
         self.done = False
@@ -449,9 +530,12 @@ class Issuer:
         self.tk, (self.lo, self.hi, self.a0, self.b0), self.win_tiles = \
             self.c0
         self.nd = self.need0
+        self.row = self.row0
         self.win = self.q = self.lo
         self.slab = 0
         self.c0 = self.c1
+        if self.w.LISTED:
+            self.row0 = self.w.row(self.c0[0])
         _lo, _hi, a0, b0 = self.c0[1]
         self.need0 = self.needs(a0, b0, self.c0[2])
         self.c1 = (self.tk2, self.r2, self.lanes(self.r2[0], self.r2[1]))
@@ -477,7 +561,7 @@ class Issuer:
                 break
             self.q += 1
             self.slab = 0
-        row = self.w.row(self.tk)
+        row = self.row if self.w.LISTED else self.w.row(self.tk)
         if self.q == self.hi:
             self.advance()
             return (None, None, row, 0, 2)
@@ -607,14 +691,16 @@ def block(b, w, counter, R, S, stored, rng):
     return actors, engine()
 
 
-def run_protocol(w, grid, depths, seed):
+def run_protocol(w, grid, depths, seed, counter=None):
     """All blocks' actors in a seeded random order: {(row, g): (block,
-    [(a tile, b tile, k0), ...])}."""
+    [(a tile, b tile, k0), ...])}.  ``counter``: the ticket counter (a
+    one-element list, 0 at the launch), read back by the caller."""
     R, S = depths
     rng = np.random.default_rng(seed)
-    counter, stored = [0], {}
+    counter = [0] if counter is None else counter
+    stored = {}
     actors, engines = [], []
-    for b in range(min(grid, w.n_tiles)):
+    for b in range(min(grid, getattr(w, "launched", w.n_tiles))):
         a, e = block(b, w, counter, R, S, stored, rng)
         actors += a
         engines.append(e)
@@ -655,15 +741,42 @@ def _masks_of_bands(n, seed):
 @pytest.mark.parametrize("depths", [(3, 3), (4, 4)])
 @pytest.mark.parametrize("grid,seed", [(1, 0), (5, 2)])
 def test_pair_stream_protocol(depths, grid, seed):
+    """The fresh form (StreamTiles) stores every c_cap tile, the empty ones
+    as store-only stages."""
+    pair_stream_case(depths, grid, seed, "fresh")
+
+
+@pytest.mark.parametrize("depths", [(3, 3), (4, 4)])
+@pytest.mark.parametrize("grid,seed", [(1, 0), (5, 2)])
+def test_pair_stream_protocol_walks_the_tiles_with_pairs(depths, grid, seed):
+    """The accumulate form (ListTiles over the walk list, c_cap far above
+    the tiles with pairs) visits exactly the tiles with pairs, once each,
+    and takes its tickets in stream order, each block one past the list's
+    count and no more."""
+    pair_stream_case(depths, grid, seed, "accumulate")
+
+
+def pair_stream_case(depths, grid, seed, form):
     # tiles of 1, 0, 40 (more than a lane window), 3, 0, 0, 2 pairs; a
-    # c_cap past them
+    # c_cap past them (the accumulate form's far past)
     per_tile = [1, 0, 40, 3, 0, 0, 2, 1, 0, 0]
+    if form == "accumulate":
+        per_tile += [0] * 30
     seg_ptr, a_idx, b_idx = _stream(per_tile, seed)
     masks = _masks_of_bands(50, seed)
-    w = StreamTiles(seg_ptr, a_idx, b_idx, len(per_tile), masks)
-    stored = run_protocol(w, grid, depths, seed)
+    c_cap = len(per_tile)
+    counter = [0]
+    if form == "fresh":
+        w = StreamTiles(seg_ptr, a_idx, b_idx, c_cap, masks)
+    else:
+        seg = torch.from_numpy(np.repeat(np.arange(c_cap), per_tile)
+                               .astype(np.int32))
+        walk = mk.stream_walk(seg, c_cap, min(c_cap, len(a_idx))).numpy()
+        w = ListTiles(walk, a_idx, b_idx, c_cap, masks)
+    stored = run_protocol(w, grid, depths, seed, counter)
     skipped = 0
-    for c in range(len(per_tile)):
+    with_pairs = [c for c in range(c_cap) if per_tile[c]]
+    for c in range(c_cap) if form == "fresh" else with_pairs:
         want = [(int(a_idx[q]), int(b_idx[q]), KS * s_)
                 for q in range(seg_ptr[c], seg_ptr[c + 1]) for s_ in range(4)
                 if slabs_needed(masks[a_idx[q]], masks[b_idx[q]]) >> s_ & 1]
@@ -671,8 +784,120 @@ def test_pair_stream_protocol(depths, grid, seed):
         for g in range(2):
             assert stored[(c, g)][1] == want, (c, g)
         assert stored[(c, 0)][0] == stored[(c, 1)][0]   # one owner block
-    assert len(stored) == 2 * len(per_tile)
+    if form == "fresh":
+        assert len(stored) == 2 * c_cap
+    else:
+        assert sorted({row for row, _g in stored}) == with_pairs
+        assert len(stored) == 2 * len(with_pairs)
+        assert counter[0] == len(with_pairs) + min(grid, c_cap)
+        # a block takes its tiles in ticket order, and ticket i is the
+        # i-th tile with pairs: each block's tiles ascend in the stream
+        for b in range(grid):
+            rows = [row for (row, g), (blk, _) in stored.items()
+                    if blk == b and g == 0]
+            assert rows == sorted(rows)
     assert 0 < skipped < 4 * seg_ptr[-1]
+
+
+def walk_numpy(seg, c_cap, cap):
+    """stream_walk's list from a sorted stream, in numpy."""
+    seg = np.asarray(seg, np.int64)
+    tiles = np.unique(seg[seg < c_cap])
+    firsts = np.searchsorted(seg, tiles)
+    end = int(np.searchsorted(seg, c_cap))
+    out = [len(tiles)]
+    for i in range(cap + 1):
+        out += [int(tiles[i]), int(firsts[i])] if i < len(tiles) \
+            else [c_cap, end]
+    return np.array(out, np.int32)
+
+
+def replay_walk_kernel(seg, c_cap, cap, threads=1024, pairs=4):
+    """stream_walk_kernel replayed step by step: ``pairs`` consecutive
+    pairs a thread, those that start a tile found against their left
+    neighbour, each thread's place from an inclusive scan over its warp
+    and the counts of the warps before it, the count and the live pairs
+    carried; the walk stops after the first step that is not all live;
+    then the entries past the count."""
+    seg = np.asarray(seg, np.int64)
+    p_cap = len(seg)
+    walk = np.full(2 * cap + 3, -7, np.int64)
+    count = live_pairs = 0
+    for base in range(0, p_cap, threads * pairs):
+        q0 = base + pairs * np.arange(threads)
+        prev = np.where((q0 > 0) & (q0 <= p_cap),
+                        seg[np.clip(q0 - 1, 0, p_cap - 1)], -1)
+        q = q0[:, None] + np.arange(pairs)
+        v = np.where(q < p_cap, seg[np.minimum(q, p_cap - 1)], c_cap)
+        live = v < c_cap
+        left = np.concatenate([prev[:, None], v[:, :-1]], 1)
+        first = live & (v != left)
+        n = first.sum(1)
+        per_warp = n.reshape(-1, 32)
+        incl = per_warp.cumsum(1).reshape(-1)
+        before = np.concatenate([[0], np.cumsum(per_warp.sum(1))[:-1]])
+        idx0 = count + before[np.arange(threads) // 32] + incl - n
+        for t in np.nonzero(n)[0]:
+            idx = int(idx0[t])
+            for e in np.nonzero(first[t])[0]:
+                if idx <= cap:
+                    walk[1 + 2 * idx], walk[2 + 2 * idx] = v[t, e], q[t, e]
+                idx += 1
+        count += int(n.sum())
+        live_pairs += int(live.sum())
+        if live.sum() < threads * pairs:
+            break
+    for i in range(count, cap + 1):
+        walk[1 + 2 * i], walk[2 + 2 * i] = c_cap, live_pairs
+    walk[0] = min(count, cap)
+    return walk.astype(np.int32)
+
+
+def test_source_has_the_walk_kernels_lines():
+    text = _source()
+    for line in ("constexpr int WALK_THREADS = 1024;",
+                 "constexpr int WALK_PAIRS = 4;",
+                 "        int prev = q0 > 0 && q0 <= p_cap ? seg[q0 - 1] : "
+                 "-1;",
+                 "            const bool first = is_live && v[e] != prev;",
+                 "        int idx = count + before + incl - n;",
+                 "        if (live_total < WALK_THREADS * WALK_PAIRS) break;",
+                 "        walk[2 + 2 * i] = live_pairs;",
+                 "    if (t == 0) walk[0] = count < cap ? count : cap;"):
+        assert text.count(line) == 1, line
+
+
+@pytest.mark.parametrize("case", ["seed0", "seed1", "far_c_cap", "empty",
+                                  "long"])
+def test_stream_walk_is_the_list_of_the_tiles_with_pairs(case):
+    """The walk list on random sorted streams of tiles of 0-40 pairs,
+    padding at INT32_MAX (and pairs of tiles past c_cap), a c_cap far above
+    the tile count, an empty stream, and one of several 4,096-pair steps
+    with tiles across their edges: the plain version (stream_walk on CPU
+    tensors) and the kernel's step replay both equal numpy's, at cap =
+    min(c_cap, p_cap) as the wrapper passes it."""
+    rng = np.random.default_rng({"seed0": 0, "seed1": 1, "far_c_cap": 2,
+                                 "empty": 3, "long": 4}[case])
+    n_tiles = 200 if case == "long" else 60
+    per_tile = rng.integers(0, 41, n_tiles) * (rng.random(n_tiles) < 0.4)
+    if case == "empty":
+        per_tile[:] = 0
+    if case == "long":
+        per_tile[[3, 77, 150]] = (3000, 4100, 1500)  # across step edges
+    seg = np.repeat(np.arange(n_tiles), per_tile)
+    c_cap = {"far_c_cap": 5000, "seed1": 45}.get(case, n_tiles)
+    p_cap = -(-max(1, len(seg) + 7) // 256) * 256
+    seg = np.concatenate([seg, np.full(p_cap - len(seg), symbolic.INT32_MAX)])
+    seg_t = torch.from_numpy(seg.astype(np.int32))
+    cap = min(c_cap, p_cap)
+    got = mk.stream_walk(seg_t, c_cap, cap)
+    want = walk_numpy(seg, c_cap, cap)
+    assert got.dtype == torch.int32 and got.shape == (2 * cap + 3,)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(replay_walk_kernel(seg, c_cap, cap), want)
+    assert int(got[0]) == len(np.unique(seg[seg < c_cap]))
+    if case == "long":
+        assert p_cap > 2 * 4096
 
 
 @pytest.fixture(scope="module")

@@ -1,6 +1,7 @@
 """The port's multi-GPU layer, element and DIA decompositions, on gloo ranks
 (mirrors tests/test_sharded_element.py and
-tests/test_dia.py::test_sharded_dia_matches_single_device).
+tests/test_dia.py::test_sharded_dia_matches_single_device), and the
+Macro128 ring passing each B chunk with its tile masks.
 
 A module-scoped fixture spawns the ranks once per world size (2 and 4,
 ``parallel.launch.spawn``) and runs every case of this file there
@@ -61,11 +62,14 @@ POWER = _jcoo_scipy(j_power_law(n=3000, nnz=9000, seed=13,
                                 hub_correlation=0.15))
 AAT = random_sparse(400, 700, 0.004, seed=6)
 DIA = _jcoo_scipy(j_banded(1000, bands=(-7, -1, 0, 2, 11), seed=13))
+RING = _jcoo_scipy(j_banded(1500, bands=(0, 2, -2, 64, -64, 140, -140),
+                            seed=3))
 CASES = {
     "element_power_law": dict(kind="element", coo=_triplets(POWER)),
     "element_aat": dict(kind="element", coo=_triplets(AAT),
                         b_coo=_triplets(AAT.T)),
     "dia": dict(kind="dia", coo=_triplets(DIA)),
+    "ring_masks": dict(kind="ring_masks", coo=_triplets(RING)),
 }
 NAMES = list(CASES)
 
@@ -224,6 +228,22 @@ def test_sharded_element_refuses_other_dtypes():
                      device=CPU)
     with pytest.raises(NotImplementedError, match="float64"):
         se.plan_sharded_element(a, a, 2, 0)
+
+
+def test_ring_passes_each_chunk_with_its_masks(ranks):
+    """The macro ring with its tile masks carried (``ring_chunks(...,
+    masks)``, the path a plan takes where K4 reads masks) over gloo: at
+    every stage of every rank the chunk held is its owner's B chunk, and
+    the masks beside it, received in the same exchange, are ready, belong
+    to the buffer it was received into and equal the masks made from it
+    (``tile_masks_plain``)."""
+    n, res = ranks
+    for d, out in enumerate(res["ring_masks"]):
+        assert len(out["held"]) == n
+        for s, h in enumerate(out["held"]):
+            assert h["ready"] and h["of_buffer"], (d, s)
+            assert h["chunk"] and h["masks"], (d, s)
+        assert all(h["set_words"] > 0 for h in out["held"])
 
 
 def test_replayed_ranks_union_is_the_product():

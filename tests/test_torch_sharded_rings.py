@@ -316,6 +316,35 @@ def test_replayed_rings_union_is_the_product():
           _want(RANDOM, RANDOM), "tile16 replay")
 
 
+def test_replayed_ring_carries_each_chunks_masks(monkeypatch):
+    """replay_chunks(..., masks=True) hands each stage the chunk the ring
+    would and the tile masks of that chunk (its plan's, made once a plan:
+    plan_masks), equal to the masks made from the chunk."""
+    from pem_spgemm_tpu_torch.ops import macro_kernels as mk
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)            # beside the other test workers
+    try:
+        m = coo_to_macro(COOMatrix.from_scipy(MACRO), device=CPU)
+        plans = [sm.plan_sharded_macro(m, m, 4, d) for d in range(4)]
+        made = []
+        real = mk.TableMasks.make
+        monkeypatch.setattr(mk.TableMasks, "make",
+                            lambda self: made.append(self) or real(self))
+        for d in range(4):
+            held = list(sm.replay_chunks(plans, d, masks=True))
+            assert [b.data_ptr() for b, _m in held] == \
+                [b.data_ptr() for b in sm.replay_chunks(plans, d)]
+            for b, bm in held:
+                assert bm.ready and bm.matches(b)
+                assert torch.equal(bm.words, mk.tile_masks_plain(b))
+        # each plan's A slice and B chunk, once
+        assert len(made) == 2 * len(plans)
+        assert all(sm.plan_masks(p) is p.masks for p in plans)
+        assert len(made) == 2 * len(plans)
+    finally:
+        torch.set_num_threads(threads)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
                          ids=["f32", "f64"])
 @pytest.mark.parametrize("n", [2, 4])
