@@ -138,7 +138,9 @@ pair offsets and tile coordinates; tile16_c_rowcol: coordinates, tiles
 and float32 / float64 values, padding slots included; bit for bit their
 plain versions, also on engineered streams: tiles without pairs, of one
 pair, of all 256 bits, padding at INT32_MAX and at c_cap, c_cap above the
-tile count, c_nnz_cap above and below C_nnz); their rows
+tile count, c_nnz_cap above and below C_nnz; tile16_c_rowcol also on
+engineered row masks: tiles of 0, 1, 2 and 256 bits, rows of 0, 1 and 16
+bits, c_nnz_cap above, at and below C_nnz); their rows
 (tile16_accumulate_pairs, _f64, _masks, _f64_masks, _acc, tile16_c_masks,
 tile16_c_rowcol) are timed at that stream and at the 4-rank Tile16 ring's
 largest accumulating stage, beside torch.bmm over the pre-gathered pairs
@@ -158,7 +160,9 @@ macro_accumulate_pairs_acc[@...] and macro_accumulate_pairs_f64_acc, on the
 accumulate into a C with -0.0, +-Inf and NaN in every tile, the tiles
 without pairs bit for bit, timed by CUDA-graph replay as the ring runs
 them: the tables' masks made once a plan and the chunk's carried with it,
-the walk over the stage's tiles with pairs (tiles_visited); rows
+the walk over the stage's tiles with pairs (tiles_visited), at every
+precision (at "highest" the list kernel, which runs only the slabs the
+masks call non-zero); rows
 macro_tile_masks and macro_tile_masks_f64 time the masks entries over a
 plan's A slice and B chunk).  The kernel check also holds both masks
 entries bit for bit to their plain version (tile_masks_plain) on tiles
@@ -1280,15 +1284,17 @@ def pairs_direct(a_dense, b_dense, a_idx, b_idx, seg, c_cap, grid,
                  precision="highest", out=None):
     """The pair-stream entry launched with ``grid`` blocks (the wrapper
     launches one an SM), so that each block takes several C tiles; with
-    ``out`` its accumulate form, into ``out`` (at "high" / "default" over
-    the stream's walk list); not counted."""
+    ``out`` its accumulate form, into ``out`` (over the stream's walk list,
+    the masks made by the launch); not counted."""
     seg_ptr = mk.segment_offsets(seg, c_cap)
     next_tile = torch.zeros(1, dtype=torch.int32, device=DEV)
     num, flag = fresh_slabs(c_cap) if out is None else out
     prec = M.precision_code(precision)
-    _masks, margs = mk._mask_args(a_dense, b_dense, prec != 0, None)
+    _masks, margs = mk._mask_args(
+        a_dense, b_dense, mk.reads_masks(a_dense, precision, out is not None),
+        None)
     walk = mk.stream_walk(seg, c_cap, min(c_cap, a_idx.numel()), next_tile) \
-        if out is not None and prec != 0 else None
+        if out is not None else None
     mk._raise_on(mk._library().macro_accumulate_pairs_f32(
         a_dense.data_ptr(), b_dense.data_ptr(), a_idx.data_ptr(),
         b_idx.data_ptr(), seg_ptr.data_ptr(), num.data_ptr(),
@@ -1618,12 +1624,12 @@ def accumulate_case(a, b, a_idx, b_idx, seg, c_cap, what, worst,
 
 def engineered_accumulate_cases(worst):
     """K4's accumulate form at each precision and in float64, on the
-    non-finite tiles (+-Inf, NaN, near-FLT_MAX, subnormals; the plain
-    version's NaNs and Inf signs) and on a stream with an empty tile, a
-    tile whose pair multiplies only zeros (A's columns and B's rows share
-    no k: no slab of it runs at "high", "default" and in float64, so the
-    kernel leaves it, where the plain version adds +0.0), and tiles past
-    the stream's count; each into a prior C with -0.0, +-Inf and NaN in
+    non-finite tiles (+-Inf, NaN, near-FLT_MAX, values of 2^63 and more,
+    subnormals; the plain version's NaNs and Inf signs) and on a stream
+    with an empty tile, a tile whose pair multiplies only zeros (A's
+    columns and B's rows share no k: no slab of it runs, so the kernel
+    leaves it, where the plain version adds +0.0), and tiles past the
+    stream's count; each into a prior C with -0.0, +-Inf and NaN in
     every tile.  The float32 entry also with 2 blocks.  Returns the
     count."""
     a, b = nonfinite_tiles()
@@ -1741,13 +1747,12 @@ def graph_stage_case(a, b, a_idx, b_idx, seg, c_cap, precision, what):
     set_sync_debug_mode("error") (a host sync raises), and captured in a
     CUDA graph and replayed once, each into a copy of one prior C: the
     replay bit for bit the eager launch.  Returns the tiles it visits (the
-    walk list's count; c_cap at "highest" in float32)."""
+    walk list's count)."""
     prior = acc_prior(c_cap, a.dtype, 81)
     masks = mk.TileMasks(a, b)
-    if mk.reads_masks(a, precision):
-        masks.a.make()
-        if masks.b is not masks.a:
-            masks.b.make()
+    masks.a.make()
+    if masks.b is not masks.a:
+        masks.b.make()
     run = lambda out: mk.accumulate_macro_pairs(
         a, b, a_idx, b_idx, seg, c_cap, precision=precision,
         tile_masks=masks, out=out)
@@ -1769,8 +1774,6 @@ def graph_stage_case(a, b, a_idx, b_idx, seg, c_cap, precision, what):
             and torch.equal(eager[1], replay[1])):
         raise AssertionError(f"{what}: the graph replay differs from the "
                              "eager launch")
-    if not mk.reads_masks(a, precision):
-        return c_cap
     walk = mk.stream_walk(seg, c_cap, min(c_cap, a_idx.numel()))
     return int(walk[0])
 
@@ -4523,6 +4526,61 @@ def engineered_structure_cases():
     return cases
 
 
+def engineered_rowcol_cases():
+    """tile16_c_rowcol on engineered row masks (not from a stream), bit for
+    bit its plain version (c_rowcol_plain, and extract_values for float32
+    and float64 values), two launches each: tiles of 0, 1, 2 and 256 bits,
+    rows of 0, 1 and 16 bits, random tiles, the last tile's last row set
+    (the padding slots' entry), 300 tiles; c_nnz_cap above (padding), at
+    and below C_nnz.  Returns the count of cases."""
+    from pem_spgemm_tpu_torch.ops import numeric as N
+    g = torch.Generator(device=DEV).manual_seed(43)
+    c_cap = 300
+    m = torch.randint(0, 1 << 16, (c_cap, 16), generator=g, device=DEV,
+                      dtype=torch.int32) & torch.randint(
+        0, 1 << 16, (c_cap, 16), generator=g, device=DEV, dtype=torch.int32)
+    m[torch.rand((c_cap, 16), generator=g, device=DEV) < 0.3] = 0
+    m[0] = 0xFFFF                       # 256 bits: rows of 16
+    m[1] = 0                            # no bits
+    m[2] = 0
+    m[2, 9] = 0x0400                    # one bit
+    m[3] = 0
+    m[3, 0], m[3, 15] = 0x8000, 0x0001  # two rows of one bit
+    m[4, ::2] = 0                       # rows of 0 bits
+    m[5, 1::2] = 0xFFFF                 # rows of 16 beside others
+    m[c_cap - 1] = 0
+    m[c_cap - 1, 15] = 0x8001
+    nnz = torch.tensor([bin(int(x) & 0xFFFF).count("1")
+                        for x in m.flatten().tolist()],
+                       device=DEV).view(c_cap, 16).sum(1)
+    cptr = torch.cat([torch.zeros(1, dtype=torch.int64, device=DEV),
+                      torch.cumsum(nnz, 0)]).to(torch.int32)
+    dense = torch.randn((c_cap, 256), generator=g, device=DEV)
+    dense[0, :4] = torch.tensor([-0.0, float("nan"), float("inf"),
+                                 float("-inf")], device=DEV)
+    dense[c_cap - 1, 240] = -0.0
+    total = int(cptr[-1])
+    cases = 0
+    for cap in (total + 300, total, total - 37):
+        want = cstruct.c_rowcol_plain(m, cptr, cap)
+        for _ in range(2):
+            got = cstruct.c_rowcol(m, cptr, cap)
+            if not all(torch.equal(x, y) for x, y in zip(got, want)):
+                raise AssertionError(f"engineered rows: tile16_c_rowcol "
+                                     f"differs at c_nnz_cap {cap}")
+        for v in (dense, dense.double()):
+            wv = N.extract_values(v, *want)
+            for _ in range(2):
+                rc, et, cv = cstruct.c_rowcol_values(m, cptr, cap, v)
+                if not (torch.equal(rc, want[0]) and torch.equal(et, want[1])
+                        and torch.equal(int_view(cv), int_view(wv))):
+                    raise AssertionError(
+                        f"engineered rows: tile16_c_rowcol with {v.dtype} "
+                        f"values differs at c_nnz_cap {cap}")
+        cases += 3
+    return cases
+
+
 def engineered_tile16_cases(worst):
     """Both entries on engineered tiles: +-Inf, NaN, -0.0 and subnormal
     operands (no value near the overflow threshold, where the order of a
@@ -4593,7 +4651,7 @@ def engineered_tile16_cases(worst):
             tk.accumulate_fused_flat(at, bt, *args, precision=q),
             f"tile16_accumulate_pairs_masks, engineered, {at.dtype}, {q}")
         cases += 1
-    return cases + engineered_structure_cases()
+    return cases + engineered_structure_cases() + engineered_rowcol_cases()
 
 
 def phase_tile16_kernel_check():
@@ -4991,7 +5049,9 @@ def tile16_structure_rows(a, b, ai, bi, seg, c_row, c_col, c_cap, n_pairs,
         "library_ms": graph_ms(lambda: flat[pos]),
         "library_covers": "flat[pos]: the value gather alone, at the "
                           "kernel's slots (positions made beforehand)",
-        "runs_on": "shuffle scan, __ffs", **shape, "c_nnz_cap": cap,
+        "runs_on": "shuffle scan, slots to lanes in order (binary search "
+                   "of the row, popc rank-select of the column)", **shape,
+        "c_nnz_cap": cap,
         "launches_by_run": by_run})
     return rows
 
@@ -5544,9 +5604,9 @@ def ring_composition(p, chunks, precision="highest"):
     was allocated before it.  ``may_differ``: (c_cap,) bool, the tiles that
     a stage after the rank's first with pairs may leave untouched in the
     accumulate form, so that a zero's sign may differ there: the tiles
-    without pairs in that stage, and at "high" / "default" or in float64
-    (where a tile none of whose slabs runs is not stored) also the tiles
-    whose fresh output in that stage is all zeros with no flags.  Working
+    without pairs in that stage, and (a tile none of whose slabs runs is
+    not stored) the tiles whose fresh output in that stage is all zeros
+    with no flags.  Working
     out ``may_differ`` is left out of the time."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -5557,7 +5617,6 @@ def ring_composition(p, chunks, precision="highest"):
                       device=DEV)
     flag = torch.zeros((p.c_cap, 128, 128), dtype=torch.uint8, device=DEV)
     may = torch.zeros(p.c_cap, dtype=torch.bool, device=DEV)
-    skips_runs = precision != "highest" or p.a_dense.dtype == torch.float64
     first = True
     for s, b in enumerate(chunks):
         if p.stage_pairs[s]:
@@ -5570,7 +5629,7 @@ def ring_composition(p, chunks, precision="highest"):
                 torch.cuda.synchronize()
                 t1 = time.perf_counter()
                 may |= ~stream_tiles(p.seg[s], p.c_cap)
-                for lo in range(0, p.c_cap, 2048) if skips_runs else ():
+                for lo in range(0, p.c_cap, 2048):
                     may[lo:lo + 2048] |= (
                         (part[lo:lo + 2048] == 0).flatten(1).all(1)
                         & (part_f[lo:lo + 2048] == 0).flatten(1).all(1))
@@ -5650,12 +5709,15 @@ def check_carried_masks(plans, what):
 
 
 RING_ROUNDS = 3         # timed replays of a ring plan (median reported)
+RING_HIGHEST_LAUNCHES = {}  # phase sharded's float32 4-rank replay's counts
 
 
 def ring_carries_masks(plans, precision):
     """Whether the ring's stages read tile masks (and its chunks carry
-    them): float64 tables, float32 at "high" / "default"."""
-    return mk.reads_masks(plans[0].b_dense, precision)
+    them): sm.ring_reads_masks (float64 tables, float32 at "high" /
+    "default", and at "highest" a ring of several ranks, whose accumulating
+    stages read them)."""
+    return sm.ring_reads_masks(plans[0], precision)
 
 
 def warm_ring(plans, precision="highest"):
@@ -5725,15 +5787,37 @@ def hold_ring_compositions(plans, outs, precision, what):
     return out
 
 
-def acc_bounds(a_dense, pa, pb, n_pairs, tiles, precision):
-    """Bounds of a stage in K4's accumulate form: the operations (2 * 128^3
-    a pair, at the rate of the precision's product: FP32 at "highest" with
-    the 3xTF32 tensor-core bound beside it, TF32, bf16, FP64) and the bytes
-    (each distinct operand tile read once, each C tile the stage has pairs
-    for read and written once, values and flags; the other tiles not at
-    all)."""
+def needed_slabs(a_dense, b_dense, pa, pb):
+    """(slabs that run, slabs) over the pairs (pa, pb): the k-slabs (32
+    wide in float32, 16 in float64, as the kernels take them) whose product
+    can be non-zero by the tables' k-masks (tile_masks_plain): a k where
+    A's column and B's row hold a non-zero, or a marked slab."""
+    f64 = a_dense.dtype == torch.float64
+    width, per = (16, 8) if f64 else (32, 4)
+    ma = mk.tile_masks_plain(a_dense)[pa.long()].to(torch.int64) & 0xFFFFFFFF
+    mb = mk.tile_masks_plain(b_dense)[pb.long()].to(torch.int64) & 0xFFFFFFFF
+    both = ma[:, :4] & mb[:, 5:9]              # (P, 4): k bits, 32 a word
+    marks = ma[:, 4] | mb[:, 9]
+    run = 0
+    for slab in range(per):
+        word, shift = divmod(slab * width, 32)
+        bits = (both[:, word] >> shift) & ((1 << width) - 1)
+        run += int(((bits != 0) | ((marks >> slab) & 1 != 0)).sum())
+    return run, per * pa.numel()
+
+
+def acc_bounds(a_dense, b_dense, pa, pb, n_pairs, tiles, precision):
+    """Bounds of a stage in K4's accumulate form: the operations (the
+    slabs this stage's data needs, needed_slabs: 2 * 128^2 * the slab's
+    depth each, at the rate of the precision's product: FP32 at "highest"
+    with the 3xTF32 tensor-core bound beside it, TF32, bf16, FP64;
+    ``operations_every_slab`` the 2 * 128^3 a pair of a dense product) and
+    the bytes (each distinct operand tile read once, each C tile the stage
+    has pairs for read and written once, values and flags; the other tiles
+    not at all)."""
     elem = a_dense.element_size()
-    ops = TILE_FLOP * n_pairs
+    slabs_run, slabs = needed_slabs(a_dense, b_dense, pa, pb)
+    ops = TILE_FLOP * n_pairs * slabs_run // max(slabs, 1)
     operand_tiles = int(torch.unique(pa).numel() + torch.unique(pb).numel())
     nbytes = operand_tiles * 128 * 128 * elem \
         + 2 * tiles * 128 * 128 * (elem + 1)
@@ -5748,8 +5832,9 @@ def acc_bounds(a_dense, pa, pb, n_pairs, tiles, precision):
     out = {"bound_ms": max(b_o, b_b) * 1e3,
            "bound_by": "operations" if b_o >= b_b else "bytes",
            "bound_ops_ms": b_o * 1e3, "bound_bytes_ms": b_b * 1e3,
-           "operations": ops, "bytes": nbytes, "operand_tiles": operand_tiles,
-           "rate": rate_name}
+           "operations": ops, "operations_every_slab": TILE_FLOP * n_pairs,
+           "slabs_run": slabs_run, "slabs": slabs, "bytes": nbytes,
+           "operand_tiles": operand_tiles, "rate": rate_name}
     if precision == "highest" and a_dense.dtype == torch.float32:
         b_tc = 3 * ops / TF32_OPS_PER_S
         out.update(bound_tc_ms=max(b_tc, b_b) * 1e3,
@@ -5790,7 +5875,7 @@ def acc_row(plans, matrix, launches, check_err, precision="highest",
                                f"{matrix} ring stage, {precision}")
     chunk = min(256, pa.numel())
     c = acc_prior(p.c_cap, p.a_dense.dtype, 72)
-    reads = mk.reads_masks(b, precision)
+    reads = mk.reads_masks(b, precision, True)
     masks = mk.TileMasks(p.a_dense, b, a=sm.plan_masks(p)[0],
                          b=sm.plan_masks(owner)[1]) if reads else None
     fn = lambda: mk.accumulate_macro_pairs(p.a_dense, b, pa, pb, sg, p.c_cap,
@@ -5821,7 +5906,7 @@ def acc_row(plans, matrix, launches, check_err, precision="highest",
         "ms": graph_ms(fn), "wrapper_ms": time_ms(fn),
         "masks_ms": graph_ms(make_masks) if reads else None,
         "plain_ms": time_ms(plain, 2),
-        **acc_bounds(p.a_dense, pa[:n_pairs], pb[:n_pairs], n_pairs, tiles,
+        **acc_bounds(p.a_dense, b, pa[:n_pairs], pb[:n_pairs], n_pairs, tiles,
                      precision),
         "library_ms": graph_ms(lambda: bmm(ad, bd)),
         "library_eager_ms": time_ms(lambda: bmm(ad, bd), 3),
@@ -5924,7 +6009,7 @@ def world_size_1_point(plan, precision="highest"):
     c = mk.accumulate_macro_pairs(*args, precision=precision)
     masks = mk.TileMasks(plan.a_dense, plan.b_dense,
                          *sm.plan_masks(plan)) \
-        if mk.reads_masks(plan.b_dense, precision) else None
+        if mk.reads_masks(plan.b_dense, precision, True) else None
     point = {"pairs": plan.stage_pairs[s], "c_cap": plan.c_cap,
              "tiles_with_pairs": int(stream_tiles(plan.seg[s], plan.c_cap)
                                      .sum()),
@@ -6022,8 +6107,8 @@ def sharded_macro_runs(mesh, check_err):
         launches = nonzero(all_counts())
         add_path_launches("sharded_ranks", launches)
         stages = check_ring_launches(launches, plans, what, f64,
-                                     runs=RING_ROUNDS, masks=f64)
-        carried = check_carried_masks(plans, what) if f64 else 0
+                                     runs=RING_ROUNDS, masks=True)
+        carried = check_carried_masks(plans, what)
         rows, cols, vals = union_sorted(parts)
         del parts
         if len(rows) != want_nnz:
@@ -6056,6 +6141,8 @@ def sharded_macro_runs(mesh, check_err):
         if f64:
             rows_out.append(masks_row(
                 plans, launches.get("macro_tile_masks_f64", 0), True))
+        else:
+            RING_HIGHEST_LAUNCHES.update(launches)
         del plans
         torch.cuda.empty_cache()
     return rows_out
@@ -6378,8 +6465,10 @@ def phase_precision_path(check_err=None):
                 PRECISION_LAUNCHES[q][k] = PRECISION_LAUNCHES[q].get(k, 0) + v
         what = f"macro ring at {q}"
         stages = check_ring_launches(launches, plans, what, runs=RING_ROUNDS,
-                                     masks=q != "highest")
-        carried = check_carried_masks(plans, what) if q != "highest" else 0
+                                     masks=True)
+        carried = check_carried_masks(plans, what)
+        if q == "highest":
+            highest_launches = launches
         rows, cols, vals = union_sorted(parts)
         del parts
         if ref is None:
@@ -6410,12 +6499,19 @@ def phase_precision_path(check_err=None):
     rows_out = [acc_row(plans, name, None, check_err, q, extra={
         "at_world_size_1_stream": world_size_1_point(plan1, q)})
         for q in LOWER_PRECISIONS]
+    # the masks and walk entries at every precision (at "highest" the
+    # accumulating stages read them too): this phase's ring runs and the
+    # float32 4-rank replay of phase sharded, where it ran
     rows_out.append(masks_row(plans, sum(
         PRECISION_LAUNCHES[q].get("macro_tile_masks", 0)
-        for q in LOWER_PRECISIONS), False))
+        for q in LOWER_PRECISIONS) + highest_launches.get(
+            "macro_tile_masks", 0) + RING_HIGHEST_LAUNCHES.get(
+            "macro_tile_masks", 0), False))
     rows_out.append(walk_row(plans, sum(
         PRECISION_LAUNCHES[q].get("macro_stream_walk", 0)
-        for q in LOWER_PRECISIONS)))
+        for q in LOWER_PRECISIONS) + highest_launches.get(
+            "macro_stream_walk", 0) + RING_HIGHEST_LAUNCHES.get(
+            "macro_stream_walk", 0)))
     del plan1
     del plans, ref, coo, want
     torch.cuda.empty_cache()

@@ -2,8 +2,8 @@
 
     python -m pem_spgemm_tpu_torch.bench.k4_split [--baseline-macro FILE]
         [--baseline-dia FILE]
-        [--baseline-tile16 FILE]
-        [--only k4|k5|k3|k3f64|k4f64|k2f64|library|k4acc|tile16 ...]
+        [--baseline-tile16 FILE] [--baseline-structure FILE]
+        [--only k4|k5|k3|k3f64|k4f64|k2f64|library|k4acc|tile16|c_rowcol ...]
 
 Builds csrc/macro_accumulate.cu and csrc/dia_multiply.cu as they are and,
 with --baseline-macro / --baseline-dia, another version of each (for example
@@ -43,13 +43,17 @@ today's.
       stream (every C tile has pairs), float32 at each precision and
       float64: this build's fresh form, its accumulate form, the ACC_CUTS
       builds' (fewer of a row's pieces loaded ahead of their stores) and,
-      with a baseline of interface "v18" (commit 2a6978f), the baseline's
-      two forms, the accumulate builds bit for bit equal, timed in turns;
-      then, with that baseline, the 4-rank ring's largest accumulating
-      stage (k4acc_ring: this build as the ring runs it, masks ready and
-      the walk over the tiles with pairs, its launch alone, the masks
-      entries, the fresh forms, the baseline's whole launch and its
-      PARENT_ACC_CUTS builds, torch.bmm; by graph replay, in turns);
+      with a baseline of this C interface (commit f8f1c89: its accumulate
+      form at "highest" walks every c_cap tile and runs every slab), the
+      baseline's two forms, the accumulate builds bit for bit equal, timed
+      in turns; then, with that baseline, the 4-rank ring's largest
+      accumulating stage (k4acc_ring: this build as the ring runs it,
+      masks ready and the walk over the tiles with pairs, its launch
+      alone, the walk alone, the masks entries, the fresh forms, the
+      baseline's whole launch and, at "highest", the baseline split by its
+      inputs: on the stream compacted onto its tiles with pairs, and so
+      compacted with the pairs that run no slab dropped; torch.bmm; by
+      graph replay, in turns);
   k4f64  the pair-stream entry's float64 entry (DMMA) at wandering64-1M's
       stream: this build's, the F64_CUTS builds (another ring depth or
       DMMA shape; the flags cut out, timed only) and the baseline's, each
@@ -72,7 +76,16 @@ today's.
       builds (TILE16_PARENT_CUTS: loads only, products only, pattern only;
       timed only) and this build's (TILE16_CUTS: other depths of the
       walk's ring, held; TILE16_SPLIT_CUTS: loads only, no pattern, one
-      pass at "highest", timed only).
+      pass at "highest", timed only);
+  c_rowcol  csrc/tile16_structure.cu's tile16_c_rowcol at pairbands-500k's
+      interactive stream (c_cap 1,048,576): this build's and, with
+      --baseline-structure (a source of the same C interface, e.g. commit
+      f8f1c89's, whose lanes enumerate a row each by __ffs), the
+      baseline's, with float32 values and without, each bit for bit the
+      plain version (c_rowcol_plain, extract_values), padding slots
+      included, beside the baseline's ROWCOL_PARENT_CUTS builds (the
+      rowcol stores alone, the padding loop alone; timed only), by
+      CUDA-graph replay in turns.
 
 Prints one JSON line a case, and last ptxas' registers and spills of each
 build (this one's too), and whether ``ncu`` is on the machine.  Needs a
@@ -171,16 +184,16 @@ WS_CUTS = {
 # entries' one-tile product of its tile): the tensor-core tile product
 # without the persistent stream.  Its result is held like the entry's.
 ONE_TILE = [
-    ("    pair_stream<ACC>(a_dense, b_dense,\n"
-     "                     PairWalk{seg_ptr, a_idx, b_idx, next, c_cap}, c_num,\n"
-     "                     c_flag, tc_shared());\n",
+    ("    pair_stream(a_dense, b_dense, PairWalk{seg_ptr, a_idx, b_idx, next, "
+     "c_cap},\n"
+     "                c_num, c_flag, tc_shared());\n",
      "    const long long c = blockIdx.x;\n"
      "    const int lo = seg_ptr[c];\n"
      "    tile_product_tc(a_dense, b_dense, a_idx + lo, b_idx + lo, 0, 0,\n"
      "                    seg_ptr[c + 1] - lo, c_num + c * TILE_ELEMS,\n"
      "                    c_flag + c * TILE_ELEMS, tc_shared());\n"),
-    ("    macro_pairs_kernel<ACC><<<grid < c_cap ? grid : c_cap,",
-     "    macro_pairs_kernel<ACC><<<c_cap,"),
+    ("    macro_pairs_kernel<<<grid < c_cap ? grid : c_cap,",
+     "    macro_pairs_kernel<<<c_cap,"),
 ]
 # the float32 entries' precisions below "highest" (their int argument is
 # M.precision_code's)
@@ -200,31 +213,6 @@ ACC_CUTS = {
 ACC_CUT_RUNS = {**{f"loads{n}": ("highest", "high", "default")
                    for n in (1, 4)},
                 **{f"f64_loads{n}": ("float64",) for n in (1, 4)}}
-# Cut builds of the parent's source (interface "v18": one masks_ready flag,
-# masks made inside the float32 entry unless ready and always inside the
-# float64 one, the accumulate form walking every c_cap tile), timed only at
-# the ring stage, to split its accumulate form: "masks_only" keeps the
-# tables' masks pre-pass and cuts the pair kernels' launches (the float64
-# pairs' need pass too); "f64_ready" cuts the float64 masks pre-pass (its
-# masks made beforehand by the whole build).  The float32 entry's masks
-# ready and both walks cut to the tiles with pairs need no cut build: its
-# masks_ready flag, and the stream renumbered onto its tiles with pairs
-# (``compacted``).
-_WS_LAUNCH = ("    macro_ws_kernel<P, Tiles, ACC><<<grid < w.n_tiles ? grid : "
-              "w.n_tiles,\n")
-_F64_LAUNCH = "    kernel<<<c_cap, F64_THREADS, F64_SMEM, stream>>>(\n"
-_F64_MASKS = ("    f64_tile_masks<<<n_a, F64_THREADS, 0, stream>>>(a_dense, "
-              "masks_a);\n"
-              "    if (masks_b != masks_a)\n"
-              "        f64_tile_masks<<<n_b, F64_THREADS, 0, stream>>>("
-              "b_dense, masks_b);\n")
-PARENT_ACC_CUTS = {
-    "masks_only": [(_WS_LAUNCH, "    if (false)\n" + _WS_LAUNCH),
-                   (_F64_LAUNCH, "    if (false)\n" + _F64_LAUNCH),
-                   ("    if (p_cap > 0)\n        f64_pair_need<<<",
-                    "    if (false)\n        f64_pair_need<<<")],
-    "f64_ready": [(_F64_MASKS, "")],
-}
 RING_RANKS = 4          # chip_smoke.py's replayed macro ring
 
 
@@ -859,7 +847,8 @@ def case_k4acc(base, base_source, rounds=3, n=10):
     tile has pairs (the most C a stage reads), in float32 at each precision
     and in float64: this build's fresh form, its accumulate form into the C
     the fresh one wrote, the ACC_CUTS builds' (at the precisions of
-    ACC_CUT_RUNS) and, with a "v18" baseline (the parent), its two forms,
+    ACC_CUT_RUNS) and, with a baseline of this interface (the parent), its
+    two forms,
     the accumulate builds bit for bit this build's from the same C, timed
     in turns (each launch computing the tables' masks, as a launch handed
     none does).  Then the ring stage (``k4acc_ring``).  ``c_bytes_ms``:
@@ -867,7 +856,7 @@ def case_k4acc(base, base_source, rounds=3, n=10):
     cur = mk._library()
     libs = build_all("macro_accumulate", mk.SOURCE, mk._declare, ACC_CUTS)
     sms = mk.persistent_grid(torch.device("cuda"))
-    parent = base[0] if base[1] == "v18" else None
+    parent = base[0] if base[1] == "current" else None
     for dtype in (torch.float32, torch.float64):
         f64 = dtype == torch.float64
         a = coo_to_macro(STREAMS["wandering64-1M"](), dtype=dtype)
@@ -894,8 +883,8 @@ def case_k4acc(base, base_source, rounds=3, n=10):
             fns.update({k: launch(lib, 1, p) for k, lib in libs.items()
                         if ("float64" if f64 else p) in ACC_CUT_RUNS[k]})
             if parent is not None:
-                fns["parent_fresh"] = launch(parent, 0, p, "v18")
-                fns["parent_accumulate"] = launch(parent, 1, p, "v18")
+                fns["parent_fresh"] = launch(parent, 0, p)
+                fns["parent_accumulate"] = launch(parent, 1, p)
             fns["fresh"](c)
             same_bits({k: f for k, f in fns.items() if "fresh" not in k},
                       c, f"k4acc at {p}")
@@ -911,7 +900,7 @@ def case_k4acc(base, base_source, rounds=3, n=10):
                  / 3.35e12 * 1e3)
         del a, c, table, need, walk
         torch.cuda.empty_cache()
-    if base_source is not None and base[1] == "v18":
+    if base_source is not None and base[1] == "current":
         k4acc_ring(base_source, rounds=rounds, n=n)
 
 
@@ -968,34 +957,65 @@ def bmm_graph_fn(a, b, pa, pb, precision):
     return lambda: torch.bmm(ad, bd)
 
 
+def needed_slabs(a, b, pa, pb):
+    """(P,) int32: the slabs each pair runs (the .cu's slabs_needed, from
+    the tables' k-masks: mk.tile_masks_plain)."""
+    ma = mk.tile_masks_plain(a)[pa.long()]
+    mb = mk.tile_masks_plain(b)[pb.long()]
+    need = (ma[:, 4] | mb[:, 9]) & 0xF
+    for s_ in range(4):
+        need |= ((ma[:, s_] & mb[:, 5 + s_]) != 0).to(torch.int32) << s_
+    return need
+
+
+def dropped(seg, pa, pb, keep, c_cap):
+    """(seg', pa', pb', P'): the stream with the pairs ``keep`` marks
+    False moved past its live pairs (INT32_MAX), still sorted."""
+    live = (seg < c_cap) & keep
+    order = torch.argsort((~live).to(torch.int8), stable=True)
+    seg2 = torch.where(live, seg, symbolic.INT32_MAX)[order].contiguous()
+    return (seg2, pa[order].contiguous(), pb[order].contiguous(),
+            int(live.sum()))
+
+
 def k4acc_ring(base_source, rounds=3, n=10):
     """K4's accumulate form at the ring stage (``ring_stage``), float32 at
     "high", "default" and "highest" and float64, by graph replay in turns:
     this build as the ring runs it (the wrapper: the walk list built, both
     tables' masks ready: ``this``), its launch alone (``this_launch``), the
-    masks entries over both tables (``this_masks``) and its fresh form,
-    beside the parent's (``base_source``, interface "v18") whole launch as
-    the ring made it (masks computed inside) and its fresh form, the
-    parent's cut apart (timed only: the masks pre-pass alone, the launch
-    with the masks ready, and with them ready and the walk cut to the
-    tiles with pairs: the stream compacted), and torch.bmm over the
-    stage's pairs.  This build's accumulate form bit for bit the parent's
-    from one prior C."""
+    walk alone (``this_walk``), the masks entries over both tables
+    (``this_masks``) and its fresh form, beside the parent's
+    (``base_source``, this C interface: commit f8f1c89) whole launch as
+    the ring made it and its fresh form and, at "highest", the parent
+    split by its inputs (timed only): its launch on the stream compacted
+    onto the tiles with pairs (the c_cap walk cut: ``parent_walked``), and
+    so compacted with the pairs none of whose slabs runs dropped
+    (``parent_walked_needed``: the slabs that multiply only zeros dropped
+    as far as whole pairs go; the parent runs a pair's four slabs), and
+    torch.bmm over the stage's pairs.  This build's accumulate form bit for
+    bit the parent's from one prior C (no -0.0 in it: a tile none of whose
+    slabs runs keeps its -0.0 here and not in the parent)."""
     kind = macro_interface(base_source)
-    if kind != "v18":
-        raise ValueError(f"the ring stage takes a v18 parent, not {kind}")
+    if kind != "current":
+        raise ValueError(f"the ring stage takes a parent of this interface, "
+                         f"not {kind}")
     cur = mk._library()
-    libs = build_all("macro_accumulate_parent", base_source,
-                     declare_macro(kind), {"whole": (), **PARENT_ACC_CUTS})
+    parent = build("macro_accumulate_parent", "whole", base_source,
+                   declare_macro(kind))
     for dtype in (torch.float32, torch.float64):
         f64 = dtype == torch.float64
         st = ring_stage(dtype)
         a, b, pa, pb, seg = st["a"], st["b"], st["pa"], st["pb"], st["seg"]
         c_cap, dev = st["c_cap"], a.device
         seg_ptr = mk.segment_offsets(seg, c_cap)
-        walk = mk.stream_walk(seg, c_cap, min(c_cap, pa.numel()))
+        cap = min(c_cap, pa.numel())
+        walk = mk.stream_walk(seg, c_cap, cap)
         cseg, n_live = compacted(seg, c_cap)
         cseg_ptr = mk.segment_offsets(cseg, n_live)
+        need = needed_slabs(a, b, pa, pb)
+        live = seg < c_cap
+        nseg, npa, npb, n_needed = dropped(cseg, pa, pb, need != 0, n_live)
+        nseg_ptr = mk.segment_offsets(nseg, n_live)
         g = torch.Generator(device=dev).manual_seed(5)
         prior = (torch.randn((c_cap, 128, 128), generator=g, device=dev,
                              dtype=dtype),
@@ -1011,50 +1031,52 @@ def k4acc_ring(base_source, rounds=3, n=10):
         masks.a.make()
         masks.b.make()
         next_tile = torch.zeros(1, dtype=torch.int32, device=dev)
-        need = torch.empty(pa.numel(), dtype=torch.uint8, device=dev)
+        scratch = torch.empty(pa.numel(), dtype=torch.uint8, device=dev)
         for p in ("float64",) if f64 else (*LOWER, "highest"):
-            def run(lib, ready, acc=1, walked=False, kind="v18"):
-                sp, cap, out = (cseg_ptr, n_live, cc) if walked \
-                    else (seg_ptr, c_cap, c)
+            def run(lib, acc=1, stream=None):
+                sp, x, y, cap_, out = (seg_ptr, pa, pb, c_cap, c) \
+                    if stream is None else stream
                 return lambda into=None: acc_launch(
-                    lib, kind, a, b, pa, pb, sp, cap, into or out, p,
-                    tables, ready, acc, walk, next_tile, need)
+                    lib, "current", a, b, x, y, sp, cap_, into or out, p,
+                    tables, False, acc, walk, next_tile, scratch)
             this = lambda into=None: mk.accumulate_macro_pairs(
                 a, b, pa, pb, seg, c_cap, precision="highest" if f64 else p,
                 tile_masks=masks, out=into or c)
-            same_bits({"parent": run(libs["whole"], False), "this": this,
-                       "this_launch": lambda into: acc_launch(
-                           cur, "current", a, b, pa, pb, seg_ptr, c_cap,
-                           into, p, (masks.a.words, masks.b.words), True, 1,
-                           walk, next_tile, need)}, prior,
+            this_launch = lambda into=None: acc_launch(
+                cur, "current", a, b, pa, pb, seg_ptr, c_cap, into or c, p,
+                (masks.a.words, masks.b.words), True, 1, walk, next_tile,
+                scratch)
+            same_bits({"parent": run(parent), "this": this,
+                       "this_launch": this_launch}, prior,
                       f"ring stage at {p}")
-            fns = {"parent": run(libs["whole"], False), "this": this,
-                   "this_launch": lambda: acc_launch(
-                       cur, "current", a, b, pa, pb, seg_ptr, c_cap, c, p,
-                       (masks.a.words, masks.b.words), True, 1, walk,
-                       next_tile, need),
-                   "parent_fresh": run(libs["whole"], False, acc=0),
-                   "this_fresh": run(cur, False, acc=0, kind="current")}
-            if p != "highest":
-                fns.update({
-                    "this_masks": lambda: (masks.a.make(), masks.b.make()),
-                    "masks_only": run(libs["masks_only"], False),
-                    "ready": run(libs["f64_ready" if f64 else "whole"],
-                                 True),
-                    "ready_walked": run(libs["f64_ready" if f64
-                                             else "whole"], True,
-                                        walked=True)})
+            fns = {"parent": run(parent), "this": this,
+                   "this_launch": this_launch,
+                   "this_walk": lambda: mk.stream_walk(seg, c_cap, cap,
+                                                       next_tile),
+                   "this_masks": lambda: (masks.a.make(), masks.b.make()),
+                   "parent_fresh": run(parent, acc=0),
+                   "this_fresh": run(cur, acc=0)}
+            if p == "highest":
+                fns["parent_walked"] = run(parent, stream=(
+                    cseg_ptr, pa, pb, n_live, cc))
+                fns["parent_walked_needed"] = run(parent, stream=(
+                    nseg_ptr, npa, npb, n_live, cc))
             fns["bmm"] = bmm_graph_fn(a, b, pa[:st["pairs"]],
                                       pb[:st["pairs"]], p)
+            slabs = int(torch.bitwise_and(
+                need[live].unsqueeze(1) >> torch.arange(4, device=dev),
+                1).sum())
             emit("k4acc_ring", dtype=str(dtype)[6:], precision=p,
                  rank=st["rank"], stage=st["stage"], pairs=st["pairs"],
-                 tiles_with_pairs=st["tiles"], tiles_visited=int(walk[0])
-                 if p != "highest" else c_cap, c_cap=c_cap,
+                 tiles_with_pairs=st["tiles"], tiles_visited=int(walk[0]),
+                 c_cap=c_cap, slabs_run=slabs, slabs=4 * st["pairs"],
+                 pairs_running_a_slab=n_needed,
                  ms=graph_ms(fns, n, rounds), bit_equal_to_parent=True,
-                 timed="graph replay of n launches, in turns; masks_only, "
-                       "ready and ready_walked are cuts of the parent, "
-                       "timed only")
-        del st, a, b, prior, c, cc, tables, masks, need
+                 timed="graph replay of n launches, in turns; "
+                       "parent_walked and parent_walked_needed: the parent "
+                       "on cut streams (the walk, the pairs that run no "
+                       "slab), timed only")
+        del st, a, b, prior, c, cc, tables, masks, scratch
         torch.cuda.empty_cache()
 
 
@@ -1725,14 +1747,124 @@ def case_tile16(parent, rounds=3, n=5):
         torch.cuda.empty_cache()
 
 
+# Cut builds of the baseline's csrc/tile16_structure.cu (commit f8f1c89: a
+# half-warp a tile, lane r enumerating row r's bits by __ffs), as CUTS:
+# timed only, at pairbands-500k's stream.  "rowcol_stores": the tiles'
+# rowcol words alone (the tile ids cut; called without values);
+# "padding_only": the tiles' slots cut, the padding loop alone.
+ROWCOL_PARENT_CUTS = {
+    "rowcol_stores": [("                elem_tile[slot] = c;\n", "")],
+    "padding_only": [("    if (c < c_cap) {                                "
+                      "// half-warp-uniform\n        const unsigned hm = "
+                      "half_mask();\n        uint32_t m =",
+                      "    if (false) {\n        const unsigned hm = "
+                      "half_mask();\n        uint32_t m =")],
+}
+
+
+# Other builds of this version's tile16_c_rowcol, held bit for bit like it
+# and timed beside it: other spans (C tiles a block) and other counts of
+# slots a thread has in flight.
+ROWCOL_CUTS = {
+    **{f"span{k}": [("constexpr int SPAN = 64;", f"constexpr int SPAN = {k};")]
+       for k in (32, 128)},
+    **{f"ahead{k}": [("constexpr int AHEAD = 4;",
+                      f"constexpr int AHEAD = {k};")] for k in (1, 2, 8)}}
+
+
+def case_c_rowcol(base_source, rounds=3, n=20):
+    """tile16_c_rowcol at pairbands-500k's interactive stream (the fused
+    engine's: c_cap 1,048,576): this build's and the baseline's
+    (``base_source``), each with float32 values (the steady step's call)
+    and without (the interactive step's, the ring planner's), held bit for
+    bit to the plain version (c_rowcol_plain, extract_values: three arrays,
+    padding slots included), timed by CUDA-graph replay in turns beside
+    this version's ROWCOL_CUTS builds (held too), the baseline's
+    ROWCOL_PARENT_CUTS builds (timed only) and the value gather flat[pos]
+    (a yardstick)."""
+    from pem_spgemm_tpu_torch.config import round_up_bucket
+    from pem_spgemm_tpu_torch.ops import cstruct
+    from pem_spgemm_tpu_torch.ops import numeric as N
+    from pem_spgemm_tpu_torch.ops import tile16_kernels as tk
+    coo = STREAMS["pairbands-500k"]()
+    a, b, ai, bi, seg, c_cap, n_pairs = tile16_stream(coo, torch.float32)
+    del coo
+    cmask, cptr, _pp = tk.c_masks(a.masks, b.tmasks, ai, bi, seg, c_cap)
+    del a, b, ai, bi, seg, _pp
+    c_nnz = int(cptr[-1])
+    cap = round_up_bucket(c_nnz)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    dense = torch.randn((c_cap, 256), generator=g, device="cuda")
+    dense[-1, 240] = -0.0                   # the padding slots' entry
+    want = cstruct.c_rowcol_plain(cmask, cptr, cap)
+    want_v = N.extract_values(dense, *want)
+    outs = [torch.empty(cap, dtype=torch.int32, device="cuda")
+            for _ in range(2)] + [torch.empty(cap, device="cuda")]
+
+    def call(lib, values):
+        return lambda: checked(lib.tile16_c_rowcol(
+            cmask.data_ptr(), cptr.data_ptr(), c_cap, cap,
+            dense.data_ptr() if values else None, 4 if values else 0,
+            outs[0].data_ptr(), outs[1].data_ptr(),
+            outs[2].data_ptr() if values else None,
+            torch.cuda.current_stream().cuda_stream), "c_rowcol")
+
+    libs = {"this": tk._structure_library()}
+    libs.update({f"this_{k}": v for k, v in build_all(
+        "tile16_structure", tk.STRUCT_SOURCE, tk._declare_structure,
+        ROWCOL_CUTS).items()})
+    if base_source is not None:
+        libs.update({f"baseline_{k}" if k != "whole" else "baseline": v
+                     for k, v in build_all(
+                         "tile16_structure_baseline", base_source,
+                         tk._declare_structure,
+                         {"whole": (), **ROWCOL_PARENT_CUTS}).items()})
+    for k in libs:
+        if k.startswith("baseline_"):
+            continue
+        for values in (False, True):
+            for x in outs:
+                x.fill_(-1)
+            call(libs[k], values)()
+            torch.cuda.synchronize()
+            ok = torch.equal(outs[0], want[0]) and torch.equal(outs[1],
+                                                               want[1])
+            if values:
+                ok = ok and torch.equal(outs[2].view(torch.int32),
+                                        want_v.view(torch.int32))
+            if not ok:
+                raise AssertionError(f"c_rowcol: {k} (values {values}) is "
+                                     "not bit for bit the plain version")
+    fns = {}
+    for k, lib in libs.items():
+        if not k.startswith("baseline_"):
+            fns[f"{k}_values"] = call(lib, True)
+        fns[k] = call(lib, False)
+    pos = want[1].long() * 256 + want[0].long()
+    flat = dense.reshape(-1)
+    fns["gather_flat_pos"] = lambda: flat[pos]
+    emit("c_rowcol", matrix="pairbands-500k", c_cap=c_cap, c_nnz=c_nnz,
+         c_nnz_cap=cap, pairs=n_pairs, ms=graph_ms(fns, n, rounds),
+         bound_ms=(68 * c_cap + 4 + 4 * c_nnz + 12 * cap) / 3.35e12 * 1e3,
+         bound_ms_without_values=(68 * c_cap + 4 + 8 * cap) / 3.35e12 * 1e3,
+         held="this, its ROWCOL_CUTS builds and the baseline, with and "
+              "without values: bit for bit c_rowcol_plain / extract_values",
+         timed="graph replay of n launches, in turns; keys without "
+               "'_values' are called without values; baseline_* are the "
+               "baseline's cut builds, timed only")
+    del cmask, cptr, dense, outs, want, want_v, pos
+    torch.cuda.empty_cache()
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--baseline-macro", default=None)
     ap.add_argument("--baseline-dia", default=None)
     ap.add_argument("--baseline-tile16", default=None)
+    ap.add_argument("--baseline-structure", default=None)
     ap.add_argument("--only", choices=["k4", "k5", "k3", "k3f64", "k4f64",
                                        "k2f64", "library", "k4acc",
-                                       "tile16"],
+                                       "tile16", "c_rowcol"],
                     action="append",
                     help="run this case (repeatable; default: every case)")
     args = ap.parse_args()
@@ -1776,6 +1908,8 @@ def main():
         from pem_spgemm_tpu_torch.ops import tile16_kernels as tk
         build_all("tile16_accumulate", tk.SOURCE, tk._declare,
                   {"current": ()})
+    if args.only is None or "c_rowcol" in args.only:
+        case_c_rowcol(args.baseline_structure)
     # this build's registers and spills too (the package's own build keeps
     # no compiler log)
     build_all("macro_accumulate", mk.SOURCE, mk._declare, {"current": ()})

@@ -27,25 +27,27 @@
 // plan, and every tile address is 64-bit (113k C tiles are 1.85e9 floats).
 //
 // The two pair-stream entries also have an ACCUMULATE form (the `accumulate`
-// argument; a template argument ACC of their kernels, so that the fresh
-// instances and the class entries compile as before): the multi-GPU ring
+// argument; a template argument ACC of the one-pass and float64 kernels,
+// macro_list_kernel at "highest", so that the fresh instances and the
+// class entries compile as before): the multi-GPU ring
 // adds each stage's products into the rank's C, as the JAX ring's
 // c_dense.at[sg].add does.  A tile's sums run from zero as in the fresh form;
 // at its store the owner loads the tile's values and flags in the pieces it
 // stores (ld.global.cs), adds old + partial (one float add an element) and
 // ORs the flags.  A tile without pairs (the padding tiles up to c_cap among
-// them), or whose slabs all multiply only zeros at "high" and "default" and
-// in float64 (a store-only tile), is neither read nor written.  Bound: the
-// bytes of the tiles with pairs read and written once and each distinct
-// operand tile read once, against the fresh form's whole C written once.
-// A ring stage has pairs for a few percent of the rank's C tiles, so at
-// "high" / "default" and in float64 the accumulate form walks a LIST of the
+// them), or whose slabs all multiply only zeros (a store-only tile), is
+// neither read nor written.  Bound: the bytes of the tiles with pairs read
+// and written once and each distinct operand tile read once, against the
+// fresh form's whole C written once.  A ring stage has pairs for a few
+// percent of the rank's C tiles, so the accumulate form walks a LIST of the
 // tiles with pairs (ListTiles; built from seg_ptr by the wrapper on the
-// device, no host sync): the one-pass pipeline's tickets and the float64
-// kernel's blocks index the list, and no tile without pairs takes either;
-// and the tables' k-masks come made (each table's once, by its own launch
-// macro_tile_masks_*, read with its ready flag set), so a stage reads
-// neither table whole.
+// device, no host sync) at every precision: the tickets of the one-pass
+// pipeline and of the "highest" list kernel (macro_list_kernel) and the
+// float64 kernel's blocks index the list, and no tile without pairs takes
+// either; each runs only a pair's slabs that its tiles' k-masks call
+// non-zero; and the tables' k-masks come made (each table's once, by its
+// own launch macro_tile_masks_*, read with its ready flag set), so a stage
+// reads neither table whole.
 //
 // What bounds them on an H100: 2 * 128^3 operations a pair against 128 KB of
 // operand tile a pair at most (fewer where tiles repeat) and 80 KB of C tile
@@ -629,12 +631,16 @@ struct Frag {
 // cores run: a marked stage runs in FP32 FMA on the raw operands that
 // operands(ap, bp, k0) names; else a k-slab whose 64 A rows or whose B slab
 // hold no non-zero adds exact zeros to values and flags, and the warpgroup
-// skips it.  The caller's barrier follows.  Three wgmma a k-step (lo*hi,
-// hi*lo, hi*hi).
-template <class Operands>
+// skips it.  during() runs once the stage's wgmma are issued (the list
+// kernel's issue cursor; nothing elsewhere).  The caller's barrier
+// follows.  Three wgmma a k-step (lo*hi, hi*lo, hi*hi).
+struct NoWork {
+    __device__ __forceinline__ void operator()() const {}
+};
+template <class Operands, class During = NoWork>
 __device__ __forceinline__ void tc_stage(TcShared& sh, int cur, bool next,
                                          Operands operands, TcRegs& regs,
-                                         Frag& fr) {
+                                         Frag& fr, During during = {}) {
     const int g = fr.g, l = fr.l, r0 = fr.r0;
     const TcStage& s = sh.stage[cur];
     const unsigned ag = sh.a_any[cur][4 * g] | sh.a_any[cur][4 * g + 1] |
@@ -661,6 +667,7 @@ __device__ __forceinline__ void tc_stage(TcShared& sh, int cur, bool next,
         }
         asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
     }
+    during();
     if (next) {
         cp_async_wait1();
         tc_fetch(regs, sh.raw_a[cur ^ 1], sh.raw_b[cur ^ 1]);
@@ -739,9 +746,9 @@ __device__ __forceinline__ void tile_product_tc(
 }
 
 // The persistent entry's tiles: thread 0 takes tickets (atomicAdd on
-// `next`, zero at the launch), in stream order; in the fresh form the tiles
-// without pairs are stored as zeros before the stream, round robin, by
-// single threads, and the accumulate form (ACC) never touches them.
+// `next`, zero at the launch), in stream order; the tiles without pairs are
+// stored as zeros before the stream, round robin, by single threads.  (The
+// accumulate form at "highest" walks a list instead: macro_list_kernel.)
 struct PairWalk {
     const int* seg_ptr;
     const int* a_tab;
@@ -764,27 +771,21 @@ struct PairWalk {
 // st % 2, whatever tile it belongs to; `issued` counts the stages issued, so
 // stage st + 1 exists when st + 1 < issued.  The issue cursor is at most
 // one tile ahead of the compute (a tile has 4 stages or more), so at most
-// AHEAD + 3 < CLAIMS slots are in use at once.  ACC: each tile's sums and
-// flags are added into C, in the one-pass pipeline's 16-byte evict-first
-// pieces (Frag::store_cs<true>; in the fresh form's 8- and 2-byte pieces
-// it was slower: PERF.md).
-template <bool ACC>
+// AHEAD + 3 < CLAIMS slots are in use at once.
 __device__ __forceinline__ void pair_stream(
         const float* __restrict__ a_dense, const float* __restrict__ b_dense,
         const PairWalk& w, float* __restrict__ c_num,
         unsigned char* __restrict__ c_flag, TcShared& sh) {
     const int t = threadIdx.x;
-    if constexpr (!ACC) {
-        for (long long c = blockIdx.x + (long long)t * gridDim.x;
-             c < w.c_cap; c += (long long)TC_THREADS * gridDim.x) {
-            if (w.seg_ptr[c] != w.seg_ptr[c + 1]) continue;
-            float4* cv = reinterpret_cast<float4*>(c_num + c * TILE_ELEMS);
-            uint4* cf = reinterpret_cast<uint4*>(c_flag + c * TILE_ELEMS);
-            for (int i = 0; i < TILE_ELEMS / 4; ++i)
-                cv[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-            for (int i = 0; i < TILE_ELEMS / 16; ++i)
-                cf[i] = make_uint4(0u, 0u, 0u, 0u);
-        }
+    for (long long c = blockIdx.x + (long long)t * gridDim.x;
+         c < w.c_cap; c += (long long)TC_THREADS * gridDim.x) {
+        if (w.seg_ptr[c] != w.seg_ptr[c + 1]) continue;
+        float4* cv = reinterpret_cast<float4*>(c_num + c * TILE_ELEMS);
+        uint4* cf = reinterpret_cast<uint4*>(c_flag + c * TILE_ELEMS);
+        for (int i = 0; i < TILE_ELEMS / 4; ++i)
+            cv[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+        for (int i = 0; i < TILE_ELEMS / 16; ++i)
+            cf[i] = make_uint4(0u, 0u, 0u, 0u);
     }
     // thread 0: slot n <- the first tile with pairs from ticket tk on, whose
     // pairs [lo, hi) were read already (row -1: none left)
@@ -887,8 +888,7 @@ __device__ __forceinline__ void pair_stream(
             ++cq;
         }
         if (--left == 0) {                  // the tile's last stage
-            if constexpr (ACC) fr.store_cs<true>(c_num, c_flag, c_row);
-            else fr.store(c_num, c_flag, c_row);
+            fr.store(c_num, c_flag, c_row);
             fr.reset();
             advance();
         }
@@ -913,8 +913,7 @@ __device__ __forceinline__ TcShared& tc_shared() {
 // Persistent: the blocks take the C tiles of a pair stream sorted by C tile
 // in stream order, one at a time, from the counter `next`; tile c's pairs
 // are [seg_ptr[c], seg_ptr[c + 1]).  Padding pairs lie past seg_ptr[c_cap]
-// and are never read.  ACC: the accumulate form.
-template <bool ACC>
+// and are never read.
 __global__ void __launch_bounds__(TC_THREADS, 1)
 macro_pairs_kernel(const float* __restrict__ a_dense,
                    const float* __restrict__ b_dense,
@@ -923,9 +922,8 @@ macro_pairs_kernel(const float* __restrict__ a_dense,
                    const int* __restrict__ seg_ptr, int* next, int c_cap,
                    float* __restrict__ c_num,
                    unsigned char* __restrict__ c_flag) {
-    pair_stream<ACC>(a_dense, b_dense,
-                     PairWalk{seg_ptr, a_idx, b_idx, next, c_cap}, c_num,
-                     c_flag, tc_shared());
+    pair_stream(a_dense, b_dense, PairWalk{seg_ptr, a_idx, b_idx, next, c_cap},
+                c_num, c_flag, tc_shared());
 }
 
 // One block a (step, tile) of a signature class.  RAGGED: the tile's pairs
@@ -1488,9 +1486,11 @@ struct Issuer {
         for (int i = 0; i < 4; ++i) advance(w);
     }
     // the next stage's StageInfo into `info_out`, then an arrival on its
-    // barrier `ready`: the tile's next slab that runs; after its last one
-    // (or at once, for a tile none of whose slabs runs) a stage without
-    // copies that stores the tile; or the end
+    // barrier `ready` (ARRIVE; macro_list_kernel's barrier is the block's):
+    // the tile's next slab that runs; after its last one (or at once, for a
+    // tile none of whose slabs runs) a stage without copies that stores the
+    // tile; or the end
+    template <bool ARRIVE = true>
     __device__ __forceinline__ void publish(const Tiles& w,
                                             const float* a_dense,
                                             const float* b_dense,
@@ -1535,7 +1535,7 @@ struct Issuer {
         }
         if ((threadIdx.x & 31) == 0) {
             info_out = info;
-            mbar_arrive(ready);
+            if constexpr (ARRIVE) mbar_arrive(ready);
         }
     }
 };
@@ -1747,6 +1747,97 @@ macro_ws_kernel(const float* __restrict__ a_dense,
         asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
                      :: "n"(WS_CONSUMER_REGS));
         ws_consumer<P, ACC>(sh, c_num, c_flag);
+    }
+}
+
+// The accumulate form at "highest" (the Macro128 ring's stages after the
+// first, at the reference's precision): pair_stream's 256-thread stage (the
+// 3xTF32 split, the marked-stage FMA, the empty-slab skip of a warpgroup,
+// all unchanged) over the STAGES that the one-pass pipeline's Issuer
+// publishes from the walk list (ListTiles): no tile without pairs takes a
+// ticket, and only a pair's slabs that can hold a non-zero product (its
+// tiles' k-masks: a k with a non-zero A column and B row, or a marked slab)
+// are copied and run.  Warp 0 runs the Issuer (its claims a tile ahead
+// each, as in the producer) and publishes stage n + 3 into a ring of
+// LIST_INFO StageInfo slots while the block computes stage n; every thread
+// issues stage n + 2's copies from its slot (raw slot n % 2), splits stage
+// n + 1 into split slot (n + 1) % 2, and the block's barrier ends the
+// iteration, as in pair_stream.  A tile's store-only stage (ST_LAST) adds
+// its sums into C where a slab of it ran, and leaves a tile none of whose
+// slabs ran; the DONE stage ends the block.  A stage without copies commits
+// an empty cp.async group, so stage n's copies are always group n.
+// (pair_stream's accumulate form took tickets over all c_cap tiles, thread
+// 0 looping over the empty ones, and ran all four slabs of every pair:
+// 0.1565 ms at the ring stage against torch.bmm's 0.0925; PERF.md.)
+constexpr int LIST_INFO = 4;                // stages n .. n + 3 in flight
+
+__global__ void __launch_bounds__(TC_THREADS, 1)
+macro_list_kernel(const float* __restrict__ a_dense,
+                  const float* __restrict__ b_dense, const ListTiles launched,
+                  float* __restrict__ c_num,
+                  unsigned char* __restrict__ c_flag) {
+    __shared__ StageInfo info[LIST_INFO];
+    TcShared& sh = tc_shared();
+    const bool issuer = threadIdx.x < 32;
+    const ListTiles w = launched.resolved();
+    Issuer<ListTiles> is;
+    if (issuer) {
+        is.start(w);
+#pragma unroll 1
+        for (int n = 0; n < LIST_INFO - 1; ++n)
+            is.publish<false>(w, a_dense, b_dense, info[n], nullptr);
+    }
+    __syncthreads();
+    auto issue = [&](int n) {               // stage n's raw slabs, in flight
+        const StageInfo& in = info[n % LIST_INFO];
+        if (in.flags & ST_DATA)
+            tc_issue(sh.raw_a[n & 1], sh.raw_b[n & 1], in.ap, in.bp, in.k0);
+        cp_async_commit();
+    };
+    auto split = [&](int n, TcRegs& regs) { // stage n, landed, split
+        cp_async_wait1();
+        tc_fetch(regs, sh.raw_a[n & 1], sh.raw_b[n & 1]);
+        tc_store(regs, sh.stage[n & 1], sh.am[n & 1], sh.bm[n & 1],
+                 sh.a_any[n & 1], sh.b_any[n & 1]);
+    };
+    Frag fr;
+    TcRegs regs;
+    bool live = false;                      // a slab of the tile ran
+    issue(0);
+    issue(1);
+    if (info[0].flags & ST_DATA) split(0, regs);
+    __syncthreads();
+#pragma unroll 1
+    for (int n = 0;; ++n) {
+        const StageInfo in = info[n % LIST_INFO];
+        if (in.flags & ST_DONE) break;
+        const bool next = (info[(n + 1) % LIST_INFO].flags & ST_DATA) != 0u;
+        issue(n + 2);                       // into raw slot n % 2
+        // stage n + 3 into the slot of stage n - 1, while the tensor cores
+        // run stage n
+        auto publish = [&]() {
+            if (issuer)
+                is.publish<false>(w, a_dense, b_dense,
+                                  info[(n + 3) % LIST_INFO], nullptr);
+        };
+        if (in.flags & ST_DATA) {
+            live = true;
+            tc_stage(sh, n & 1, next,
+                     [&](const float*& ap, const float*& bp, int& k0) {
+                         ap = in.ap;
+                         bp = in.bp;
+                         k0 = in.k0;
+                     }, regs, fr, publish);
+        } else {
+            publish();
+            if (next) split(n + 1, regs);
+        }
+        if (in.flags & ST_LAST) {
+            if (live) fr.store_cs<true>(c_num, c_flag, in.row);
+            fr.reset();
+            live = false;
+        }
+        __syncthreads();
     }
 }
 
@@ -2207,18 +2298,16 @@ cudaError_t with_prec(int precision, F f) {
     }
 }
 
-template <bool ACC>
 cudaError_t launch_pairs(const float* a_dense, const float* b_dense,
                          const int* a_idx, const int* b_idx,
                          const int* seg_ptr, float* c_num,
                          unsigned char* c_flag, int c_cap, int grid, int* next,
                          cudaStream_t stream) {
-    const cudaError_t attr = allow_tc_smem(macro_pairs_kernel<ACC>);
+    const cudaError_t attr = allow_tc_smem(macro_pairs_kernel);
     if (attr != cudaSuccess) return attr;
-    macro_pairs_kernel<ACC><<<grid < c_cap ? grid : c_cap, TC_THREADS,
-                              TC_SMEM, stream>>>(a_dense, b_dense, a_idx,
-                                                 b_idx, seg_ptr, next, c_cap,
-                                                 c_num, c_flag);
+    macro_pairs_kernel<<<grid < c_cap ? grid : c_cap, TC_THREADS, TC_SMEM,
+                         stream>>>(a_dense, b_dense, a_idx, b_idx, seg_ptr,
+                                   next, c_cap, c_num, c_flag);
     return cudaGetLastError();
 }
 
@@ -2343,8 +2432,30 @@ cudaError_t launch_ws(const float* a_dense, const float* b_dense,
     return cudaGetLastError();
 }
 
+// The accumulate form at "highest" over the tiles of `w` (the walk list):
+// at most grid blocks (one an SM, at most one a tile), first the masks of a
+// table whose ready flag is 0.
+cudaError_t launch_list(const float* a_dense, const float* b_dense,
+                        const ListTiles& w, int grid, int n_a, int n_b,
+                        int ready_a, int ready_b, float* c_num,
+                        unsigned char* c_flag, cudaStream_t stream) {
+    if (w.masks_a == nullptr || w.masks_b == nullptr || n_a <= 0 || n_b <= 0)
+        return cudaErrorInvalidValue;
+    masks_not_ready<float>(f32_tile_masks, 256, a_dense, b_dense,
+                           const_cast<unsigned*>(w.masks_a),
+                           const_cast<unsigned*>(w.masks_b), n_a, n_b,
+                           ready_a, ready_b, stream);
+    const cudaError_t attr = allow_tc_smem(macro_list_kernel);
+    if (attr != cudaSuccess) return attr;
+    macro_list_kernel<<<grid < w.n_tiles ? grid : w.n_tiles, TC_THREADS,
+                        TC_SMEM, stream>>>(a_dense, b_dense, w, c_num,
+                                           c_flag);
+    return cudaGetLastError();
+}
+
 // The float32 pair-stream entry at precision P, fresh or accumulating (the
-// one-pass accumulate form walks the list `walk`).
+// accumulate form walks the list `walk`: macro_list_kernel at "highest",
+// the one-pass pipeline below it).
 template <Prec P, bool ACC>
 cudaError_t launch_pair_entry(const float* a_dense, const float* b_dense,
                               const int* a_idx, const int* b_idx,
@@ -2353,16 +2464,20 @@ cudaError_t launch_pair_entry(const float* a_dense, const float* b_dense,
                               int* next, unsigned* masks_a, unsigned* masks_b,
                               int n_a, int n_b, int ready_a, int ready_b,
                               const int* walk, cudaStream_t stream) {
-    if constexpr (P == Prec::HIGHEST)
-        return launch_pairs<ACC>(a_dense, b_dense, a_idx, b_idx, seg_ptr,
-                                 c_num, c_flag, c_cap, grid, next, stream);
-    else if constexpr (ACC) {
+    if constexpr (ACC) {
         if (walk == nullptr) return cudaErrorInvalidValue;
-        return launch_ws<P, ListTiles, true>(
-            a_dense, b_dense,
-            ListTiles{walk, a_idx, b_idx, masks_a, masks_b, next, c_cap},
-            grid, n_a, n_b, ready_a, ready_b, c_num, c_flag, stream);
-    } else
+        const ListTiles w{walk, a_idx, b_idx, masks_a, masks_b, next, c_cap};
+        if constexpr (P == Prec::HIGHEST)
+            return launch_list(a_dense, b_dense, w, grid, n_a, n_b, ready_a,
+                               ready_b, c_num, c_flag, stream);
+        else
+            return launch_ws<P, ListTiles, true>(a_dense, b_dense, w, grid,
+                                                 n_a, n_b, ready_a, ready_b,
+                                                 c_num, c_flag, stream);
+    } else if constexpr (P == Prec::HIGHEST)
+        return launch_pairs(a_dense, b_dense, a_idx, b_idx, seg_ptr, c_num,
+                            c_flag, c_cap, grid, next, stream);
+    else
         return launch_ws<P, StreamTiles>(
             a_dense, b_dense,
             StreamTiles{seg_ptr, a_idx, b_idx, masks_a, masks_b, next, c_cap},
@@ -2407,8 +2522,7 @@ extern "C" int macro_tile_masks_f64(const double* tiles, int n,
 
 // The walk list (ListTiles' layout, 2 cap + 3 ints) of a pair stream sorted
 // by C tile, seg (p_cap,), padded with INT32_MAX: its tiles below c_cap
-// that have pairs, for the accumulate form at "high" / "default" and in
-// float64 (ops/macro_kernels.stream_walk).  cap >= their count
+// that have pairs, for the accumulate form (ops/macro_kernels.stream_walk).  cap >= their count
 // (min(c_cap, p_cap) is).  Zeroes *next too where next is not null.
 extern "C" int macro_stream_walk(const int* seg, int p_cap, int c_cap,
                                  int cap, int* walk, int* next,
@@ -2422,8 +2536,8 @@ extern "C" int macro_stream_walk(const int* seg, int p_cap, int c_cap,
 // c_num (c_cap, 128, 128) f32 and c_flag (c_cap, 128, 128) u8: with
 // accumulate 0 (the fresh form) written whole; with accumulate 1 the
 // stream's tiles are added into them (values old + partial, flags ORed),
-// and a tile without pairs, or none of whose slabs runs at "high" and
-// "default", is neither read nor written.  seg_ptr has c_cap + 1 entries;
+// and a tile without pairs, or none of whose slabs runs, is neither read
+// nor written.  seg_ptr has c_cap + 1 entries;
 // next is one int, 0 at the launch.  grid: blocks of the persistent kernel
 // (the wrapper passes the SM count; at most c_cap are launched).
 // precision: 0 "highest", 1 "high", 2 "default" (another value:
@@ -2431,11 +2545,12 @@ extern "C" int macro_stream_walk(const int* seg, int p_cap, int c_cap,
 // 256-thread stage, the others the one-pass pipeline, which also takes
 // masks_a / masks_b (TM_WORDS words a tile of the n_a A tiles and n_b B
 // tiles; one buffer where the tables are one), each computed first unless
-// its ready flag is set ("highest" reads none of the six), and in the
-// accumulate form `walk`, the list of the C tiles with pairs
+// its ready flag is set (the fresh form at "highest" reads none of the
+// six; its accumulate form reads them as the one-pass pipeline does), and
+// in the accumulate form `walk`, the list of the C tiles with pairs
 // (macro_stream_walk; it also zeroes next), in place of seg_ptr, which
-// that form does not read ("highest" and the fresh form read seg_ptr and
-// no walk: nullptr).
+// that form does not read (the fresh form reads seg_ptr and no walk:
+// nullptr).
 extern "C" int macro_accumulate_pairs_f32(
         const float* a_dense, const float* b_dense, const int* a_idx,
         const int* b_idx, const int* seg_ptr, float* c_num,

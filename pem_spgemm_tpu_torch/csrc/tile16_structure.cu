@@ -27,14 +27,26 @@
 //     where its row meets column j.  The pairs' indices are loaded 16 at a
 //     time, one a lane, and passed by shuffles.  Lane r writes its row
 //     word once, and lane 0 the tile's popc sum.
-//   * tile16_c_rowcol: a half-warp a C tile, lane r its row r.  An
-//     exclusive shuffle scan of the 16 rows' popcounts gives each row's
-//     first slot after cptr[c]; lane r enumerates its bits in ascending
-//     column (__ffs) and writes its slots.  The slots past C_nnz are
-//     padding: they take the last row of the last tile, column 0 (and its
-//     value), as the JAX package's gather gives them.  Value offsets are
-//     64-bit (c_cap * 256 passes 2^31 at full size); values are copied as
-//     words (4 or 8 bytes), bit for bit.
+//   * tile16_c_rowcol: a block takes SPAN C tiles and gives their output
+//     slots to its threads IN ORDER (slot-major, as the JAX package's
+//     c_rowcol): thread t writes the span's slots first + t, + THREADS,
+//     ..., AHEAD of them at a time, their value loads in flight together.
+//     The span's row words, each tile's bits above each row (a quad of
+//     threads a tile, 4 rows a thread, shuffle scan) and its tiles' first
+//     slots are staged in shared memory; a slot finds its tile (the last
+//     whose first slot is <= it: 6 steps), its row (the last whose bits
+//     above are <= its rank: 4 steps) and its column (a 4-step popc
+//     rank-select in the row word).  So each of the three arrays is
+//     stored in whole runs of consecutive words, every lane busy, and the
+//     values are read in order from each tile's 1 KB (2 KB).  (Lane r
+//     enumerating its row's bits by __ffs stored 16 rows' slots at once,
+//     48 partial sectors a step, and read 16 rows: 0.3157 ms with values
+//     at pairbands-500k against 0.0992 of bytes; a half-warp a tile with
+//     its slots in order 0.2733; PERF.md.)  The
+//     slots past C_nnz are padding: they take the last row of the last
+//     tile, column 0 (and its value), as the JAX package's gather gives
+//     them.  Value offsets are 64-bit (c_cap * 256 passes 2^31 at full
+//     size); values are copied as words (4 or 8 bytes), bit for bit.
 //
 // What bounds them on an H100: bytes.  c_masks reads 64 + 64 bytes of
 // masks and 8 bytes of indices a pair (the mask tables are small and stay
@@ -50,6 +62,9 @@ namespace {
 
 constexpr int TILES = 16;               // C tiles (half-warps) a block
 constexpr int THREADS = TILES * 16;
+constexpr int SPAN = 64;                // c_rowcol: C tiles a block
+constexpr int AHEAD = 4;                // c_rowcol: slots a thread has in
+                                        // flight (their value loads)
 
 // the shuffle mask of the half-warp that holds this lane
 __device__ __forceinline__ unsigned half_mask() {
@@ -97,42 +112,99 @@ c_masks_kernel(const int* __restrict__ a_masks,
     if (r == 0) nnz[c] = pc;
 }
 
+// The j-th set bit of a 16-bit row word: a 4-step popc rank-select.
+__device__ __forceinline__ int select_bit(uint32_t w, int j) {
+    int col = 0;
+#pragma unroll
+    for (int step = 8; step > 0; step >>= 1) {
+        const int low = __popc(w & ((1u << step) - 1u));
+        if (low <= j) {
+            j -= low;
+            w >>= step;
+            col += step;
+        }
+    }
+    return col;
+}
+
 template <typename V>
 __global__ void __launch_bounds__(THREADS)
 c_rowcol_kernel(const int* __restrict__ cmask, const int* __restrict__ cptr,
                 int c_cap, int c_nnz_cap, const V* __restrict__ c_dense,
                 int* __restrict__ rowcol, int* __restrict__ elem_tile,
                 V* __restrict__ c_vals) {
-    const int r = threadIdx.x & 15;
-    const int c = blockIdx.x * TILES + (threadIdx.x >> 4);
-    if (c < c_cap) {                                // half-warp-uniform
-        const unsigned hm = half_mask();
-        uint32_t m = (uint32_t)cmask[(size_t)c * 16 + r] & 0xffffu;
-        const int pc = __popc(m);
-        int incl = pc;                              // inclusive scan
+    __shared__ uint32_t rows[SPAN][16];     // the span's row words
+    __shared__ int before[SPAN][16];        // bits of a tile's rows above r
+    __shared__ int first[SPAN + 1];         // cptr of the span's tiles
+    const int t = threadIdx.x;
+    const long long c0 = (long long)blockIdx.x * SPAN;
+    const int n_t = (int)min((long long)SPAN, c_cap - c0);
+    const int pad0 = cptr[c_cap];
+    for (int e = t; e < SPAN * 16; e += THREADS)
+        rows[e >> 4][e & 15] = (e >> 4) < n_t
+            ? (uint32_t)cmask[c0 * 16 + e] & 0xffffu : 0u;
+    if (t <= SPAN) first[t] = cptr[c0 + min(t, n_t)];
+    __syncthreads();
+    for (int q = t; q < SPAN * 4; q += THREADS) {   // 4 rows a thread
+        const int tt = q >> 2, r0 = 4 * (q & 3);
+        int cnt[4], sum = 0;
 #pragma unroll
-        for (int off = 1; off < 16; off <<= 1) {
-            const int x = __shfl_up_sync(hm, incl, off, 16);
-            if (r >= off) incl += x;
+        for (int j = 0; j < 4; ++j) {
+            cnt[j] = __popc(rows[tt][r0 + j]);
+            sum += cnt[j];
         }
-        int slot = cptr[c] + incl - pc;
-        const size_t row0 = (size_t)c * 256 + r * 16;
-        while (m) {
-            const int col = __ffs(m) - 1;
-            m &= m - 1;
-            if (slot < c_nnz_cap) {
-                rowcol[slot] = (r << 4) | col;
-                elem_tile[slot] = c;
-                if (c_vals != nullptr) c_vals[slot] = c_dense[row0 + col];
-            }
-            ++slot;
+        int incl = sum;                             // over the tile's quad
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1) {
+            const int x = __shfl_up_sync(0xffffffffu, incl, off, 4);
+            if ((q & 3) >= off) incl += x;
+        }
+        int run = incl - sum;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            before[tt][r0 + j] = run;
+            run += cnt[j];
+        }
+    }
+    __syncthreads();
+    // the span's slots, in order over the threads: slot s's tile (the last
+    // whose first slot is <= s: 6 steps), row (4 steps) and column
+    const int s0 = first[0];
+    const int s_end = min(first[n_t], c_nnz_cap);
+    for (int base = s0 + t; base < s_end; base += THREADS * AHEAD) {
+        int rc[AHEAD], tile[AHEAD];
+        V v[AHEAD];
+#pragma unroll
+        for (int a = 0; a < AHEAD; ++a) {           // value loads in flight
+            const int slot = base + a * THREADS;
+            if (slot >= s_end) continue;
+            int tt = 0;
+#pragma unroll
+            for (int step = SPAN / 2; step > 0; step >>= 1)
+                if (tt + step < n_t && first[tt + step] <= slot) tt += step;
+            const int k = slot - first[tt];
+            int r = 0;                              // the last row whose
+#pragma unroll                                      // bits above are <= k
+            for (int step = 8; step > 0; step >>= 1)
+                if (before[tt][r + step] <= k) r += step;
+            rc[a] = (r << 4) | select_bit(rows[tt][r], k - before[tt][r]);
+            tile[a] = tt;
+            if (c_vals != nullptr) v[a] = c_dense[(c0 + tt) * 256 + rc[a]];
+        }
+#pragma unroll
+        for (int a = 0; a < AHEAD; ++a) {
+            const int slot = base + a * THREADS;
+            if (slot >= s_end) continue;
+            rowcol[slot] = rc[a];
+            elem_tile[slot] = (int)(c0 + tile[a]);
+            if (c_vals != nullptr) c_vals[slot] = v[a];
         }
     }
     // the padding slots [cptr[c_cap], c_nnz_cap), grid-stride
     const int pad_rc = (15 << 4) | 0, pad_t = c_cap - 1;
     const size_t pad_pos = (size_t)pad_t * 256 + pad_rc;
     const int stride = gridDim.x * THREADS;
-    for (int s = cptr[c_cap] + blockIdx.x * THREADS + threadIdx.x;
+    for (int s = pad0 + blockIdx.x * THREADS + threadIdx.x;
          s < c_nnz_cap; s += stride) {
         rowcol[s] = pad_rc;
         elem_tile[s] = pad_t;
@@ -140,8 +212,8 @@ c_rowcol_kernel(const int* __restrict__ cmask, const int* __restrict__ cptr,
     }
 }
 
-unsigned blocks_of(int c_cap) {
-    return (unsigned)((c_cap + TILES - 1) / TILES);
+unsigned blocks_of(int c_cap, int tiles = TILES) {
+    return (unsigned)((c_cap + tiles - 1) / tiles);
 }
 
 }  // namespace
@@ -182,12 +254,14 @@ extern "C" int tile16_c_rowcol(const void* cmask, const void* cptr,
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
     if (word == 8)
-        c_rowcol_kernel<uint64_t><<<blocks_of(c_cap), THREADS, 0, s>>>(
+        c_rowcol_kernel<uint64_t><<<blocks_of(c_cap, SPAN),
+                                    THREADS, 0, s>>>(
             (const int*)cmask, (const int*)cptr, c_cap, c_nnz_cap,
             (const uint64_t*)c_dense, (int*)rowcol, (int*)elem_tile,
             (uint64_t*)c_vals);
     else
-        c_rowcol_kernel<uint32_t><<<blocks_of(c_cap), THREADS, 0, s>>>(
+        c_rowcol_kernel<uint32_t><<<blocks_of(c_cap, SPAN),
+                                    THREADS, 0, s>>>(
             (const int*)cmask, (const int*)cptr, c_cap, c_nnz_cap,
             (const uint32_t*)c_dense, (int*)rowcol, (int*)elem_tile,
             (uint32_t*)c_vals);

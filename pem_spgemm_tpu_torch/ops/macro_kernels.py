@@ -47,9 +47,11 @@ owns it: the float64 entry and the class entries at "highest" launch one
 block a tile; the float32 pair-stream entry, and the class entries at
 "high" and "default", one persistent block an SM (``persistent_grid``),
 taking tiles in order from a counter the wrapper zeroes and running them as
-one stream of stages.  The accumulate form at "high" / "default" and in
-float64 walks only the C tiles the stream has pairs for (``stream_walk``:
-a list built on the device by one small launch, no host sync).
+one stream of stages.  The accumulate form walks only the C tiles the
+stream has pairs for (``stream_walk``: a list built on the device by one
+small launch, no host sync) and, at every precision, runs only the k-slabs
+of a pair that its tiles' k-masks call non-zero (at "highest" the list
+kernel: the 256-thread stage fed by the one-pass pipeline's issue cursor).
 
 Dispatch is by the tensors' device and nothing else: CUDA tensors launch
 the kernel (or raise, if the build or the launch fails); CPU tensors take
@@ -207,11 +209,14 @@ def tile_masks_plain(tiles, per=1024):
     return out
 
 
-def reads_masks(table, precision: str) -> bool:
+def reads_masks(table, precision: str, accumulate: bool = False) -> bool:
     """Whether a pair-stream launch on ``table`` reads tile masks: CUDA
-    tables of float64 (the float64 entry) or of float32 at "high" /
-    "default" (the one-pass pipeline)."""
-    return table.is_cuda and (table.dtype == torch.float64
+    tables of float64 (the float64 entry), of float32 at "high" /
+    "default" (the one-pass pipeline), and the accumulate form
+    (``accumulate``) at every precision (at "highest" the list kernel
+    runs only the slabs the masks call non-zero); the fresh form at
+    "highest" and the class entries at "highest" read none."""
+    return table.is_cuda and (table.dtype == torch.float64 or accumulate
                               or precision_code(precision) != 0)
 
 
@@ -289,8 +294,8 @@ class TileMasks:
 
 def _mask_args(a_dense, b_dense, reads, tile_masks):
     """(masks, the entries' six mask arguments) of a launch that ``reads``
-    masks (the float64 entry; the float32 ones at "high" / "default"):
-    ``tile_masks`` or masks of its own; none otherwise ("highest")."""
+    masks (``reads_masks``): ``tile_masks`` or masks of its own; none
+    otherwise (the fresh form and the class entries at "highest")."""
     if not reads:
         return None, (None, None, 0, 0, 1, 1)
     masks = tile_masks if tile_masks is not None else TileMasks(a_dense,
@@ -393,22 +398,23 @@ def accumulate_macro_pairs(a_dense, b_dense, a_idx, b_idx, seg, c_cap: int,
     anything else raises) is the float32 products' (the float64 entry
     ignores it, as float64 tiles do in the JAX package).  ``tile_masks``: a
     ``TileMasks`` of these tables shared with other launches, or made
-    elsewhere (float64, and float32 at "high" / "default", on CUDA tiles;
-    else not read).
+    elsewhere (read where ``reads_masks``: float64, float32 at "high" /
+    "default", and the accumulate form, on CUDA tiles; else not read).
     CUDA tiles of float32 launch the float32 entry, of float64 the float64
     entry (c_dense then float64); any other dtype raises.
 
     ``out=(c_num, c_flag)``: the accumulate form.  The stream's products are
     added into them in place (values old + partial, flags ORed) and ``out``
     is returned; a tile without pairs is neither read nor written (on the
-    card, nor is a tile none of whose slabs runs at "high" / "default" or in
-    float64: it keeps a -0.0 the plain version turns into +0.0).  They must
+    card, nor is a tile none of whose slabs runs: it keeps a -0.0 the plain
+    version turns into +0.0).  They must
     be (c_cap, 128, 128), contiguous, on the tiles' device, of the values'
     dtype (the tiles', or ``acc_dtype`` on the CPU) and uint8; anything else
     raises.  On CUDA tiles it launches the entry's accumulate form (counted
-    as ``<entry>_acc``; at "high" / "default" and in float64 over the
-    stream's ``stream_walk``: no tile without pairs is visited), on CPU
-    tiles ``ops.macro.accumulate_macro(..., out=out)``.
+    as ``<entry>_acc``) over the stream's ``stream_walk`` (no tile without
+    pairs is visited), running only the slabs the tiles' k-masks call
+    non-zero (at every precision); on CPU tiles
+    ``ops.macro.accumulate_macro(..., out=out)``.
     """
     prec = precision_code(precision)
     _check_tiles(a_dense, "a_dense")
@@ -434,10 +440,12 @@ def accumulate_macro_pairs(a_dense, b_dense, a_idx, b_idx, seg, c_cap: int,
         return c_num, c_flag
     acc = int(out is not None)
     f64 = a_dense.dtype == torch.float64
-    masks, margs = _mask_args(a_dense, b_dense, f64 or prec != 0, tile_masks)
+    masks, margs = _mask_args(a_dense, b_dense,
+                              reads_masks(a_dense, precision, bool(acc)),
+                              tile_masks)
     next_tile = None if f64 else torch.empty(1, dtype=torch.int32,
                                              device=dev)
-    if acc and masks is not None:
+    if acc:
         # the walk over the tiles with pairs (it zeroes the ticket counter):
         # the pair offsets are not read
         walk = stream_walk(seg, c_cap, min(c_cap, p_cap), next_tile)

@@ -22,11 +22,12 @@ INT32_MAX where the JAX layout pads with ``c_cap`` (the C tile it drops);
 the stable key sort keeps each stage's pairs ascending in C tile, which K4
 needs.
 
-Where a launch reads tile k-masks (float64 tables, and float32 ones at
-"high" / "default", on the card), a plan makes those of its A slice and of
-its B chunk once (``plan_masks``: one launch a table) and the ring passes a
-chunk's masks with the chunk, in the same exchange (40 bytes a 64 KB
-tile), so that no stage reads a table to make masks.
+Where a launch reads tile k-masks (on the card: float64 tables, float32
+ones at "high" / "default", and every accumulating stage, which runs only
+the k-slabs the masks call non-zero), a plan makes those of its A slice and
+of its B chunk once (``plan_masks``: one launch a table) and the ring
+passes a chunk's masks with the chunk, in the same exchange (40 bytes a
+64 KB tile), so that no stage reads a table to make masks.
 
 The schedule (pair expansion, cuts, stage keys; int arrays of O(pairs)) is
 computed whole on every rank, identically; a rank then takes its own
@@ -320,7 +321,7 @@ def local_macro(plan: ShardedMacroPlan, chunks, precision: str = "highest"):
             continue
         masks = mk.TileMasks(plan.a_dense, b_cur, a=plan_masks(plan)[0],
                              b=b_masks) \
-            if mk.reads_masks(b_cur, precision) else None
+            if mk.reads_masks(b_cur, precision, out is not None) else None
         out = accumulate_macro_pairs(
             plan.a_dense, b_cur, plan.pairs_a[s], plan.pairs_b[s],
             plan.seg[s], plan.c_cap, chunk=chunk, precision=precision,
@@ -338,12 +339,20 @@ def sharded_macro_numeric(plan: ShardedMacroPlan,
                           mesh: RankGroup | None = None,
                           precision: str = "highest"):
     """This rank's (c_dense, c_flags) of the ring multiply, each stage's K4
-    at ``precision``; the chunks carry their masks where K4 reads them."""
+    at ``precision``; the chunks carry their masks where K4 reads them
+    (``ring_reads_masks``)."""
     mesh = mesh or make_mesh()
-    masks = plan_masks(plan)[1] if mk.reads_masks(plan.b_dense, precision) \
+    masks = plan_masks(plan)[1] if ring_reads_masks(plan, precision) \
         else None
     return local_macro(plan, ring_chunks(plan.b_dense, plan.n_devices, mesh,
                                          masks), precision)
+
+
+def ring_reads_masks(plan: ShardedMacroPlan, precision: str) -> bool:
+    """Whether the ring's stages read tile masks, so that the chunks carry
+    them: on the card, at "high" / "default" and in float64 every stage,
+    at "highest" the accumulating ones (a ring of two ranks or more)."""
+    return mk.reads_masks(plan.b_dense, precision, plan.n_devices > 1)
 
 
 def replay_chunks(plans, d: int, masks: bool = False):

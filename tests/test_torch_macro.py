@@ -311,7 +311,7 @@ def _cu_constant(name):
 
 
 def _replay_pair_stream(dense_a, dense_b, a_idx, b_idx, seg_ptr, c_cap,
-                        grid, seed, prior=None):
+                        grid, seed, prior=None, walk=None):
     """Python replay of the persistent pair-stream kernel (pair_stream in
     csrc/macro_accumulate.cu): ``grid`` blocks, each a generator that runs
     from one barrier to the next, advanced in a seeded random order so
@@ -324,18 +324,17 @@ def _replay_pair_stream(dense_a, dense_b, a_idx, b_idx, seg_ptr, c_cap,
     the raw values' k-masks), the block that wrote each tile (-1: zeroed
     before the stream, -2: never written), per tile its (pair, slab) stages
     in the order run, and how often each tile was read.  ``prior`` (values,
-    flags): the accumulate form (ACC), which makes no zero pass and, at a
-    tile's store, reads the tile and writes old + partial, flags ORed."""
+    flags) and ``walk`` (the stream's ``stream_walk``): the accumulate form
+    at "highest" (macro_list_kernel: ``_replay_list_stream``), whose events
+    are (A tile, B tile, slab)."""
+    if prior is not None:
+        return _replay_list_stream(dense_a, dense_b, a_idx, b_idx, walk,
+                                   c_cap, grid, seed, prior)
     CLAIMS, AHEAD = _cu_constant("CLAIMS"), _cu_constant("AHEAD")
     KS, SLABS, THREADS = 32, 4, 256
     counter = [0]
-    accumulate = prior is not None
-    if accumulate:
-        values = prior[0].astype(np.float64)
-        flags = prior[1].copy()
-    else:
-        values = np.full((c_cap, 128, 128), np.nan)
-        flags = np.full((c_cap, 128, 128), 7, np.uint8)
+    values = np.full((c_cap, 128, 128), np.nan)
+    flags = np.full((c_cap, 128, 128), 7, np.uint8)
     owner = np.full(c_cap, -2)
     reads = np.zeros(c_cap, np.int64)
     events = {}
@@ -343,14 +342,10 @@ def _replay_pair_stream(dense_a, dense_b, a_idx, b_idx, seg_ptr, c_cap,
     def write(c, b, v, f):
         assert owner[c] == -2, f"tile {c} written twice"
         owner[c] = b
-        if accumulate:
-            reads[c] += 1
-            v, f = values[c] + v, flags[c] | np.asarray(f, np.uint8)
         values[c], flags[c] = v, f
 
     # tiles without pairs: round robin, a thread each, before the stream
-    # (the fresh form only)
-    for b in range(grid if not accumulate else 0):
+    for b in range(grid):
         for t in range(THREADS):
             for c in range(b + t * grid, c_cap, THREADS * grid):
                 if seg_ptr[c] == seg_ptr[c + 1]:
@@ -464,15 +459,127 @@ def _replay_pair_stream(dense_a, dense_b, a_idx, b_idx, seg_ptr, c_cap,
             st += 1
             yield
 
+    return _run_blocks(block, min(grid, c_cap), seed) + (values, flags,
+                                                            owner, events,
+                                                            reads)
+
+
+def _run_blocks(block, n_blocks, seed):
+    """Advance the blocks' generators in a seeded random order; ()."""
     rng = np.random.default_rng(seed)
-    live = {b: block(b) for b in range(min(grid, c_cap))}
+    live = {b: block(b) for b in range(n_blocks)}
     while live:
         b = list(live)[rng.integers(len(live))]
         try:
             next(live[b])
         except StopIteration:
             del live[b]
-    return values, flags, owner, events, reads
+    return ()
+
+
+def _replay_list_stream(dense_a, dense_b, a_idx, b_idx, walk, c_cap, grid,
+                        seed, prior):
+    """Python replay of macro_list_kernel (the accumulate form at
+    "highest"): ``grid`` blocks (at most c_cap), each a generator from one
+    barrier to the next, advanced in a seeded random order around one
+    ticket counter; per block warp 0's Issuer over the walk list
+    (test_torch_onepass's replay of the .cu's Issuer and ListTiles: the
+    claim pipeline, the tiles' k-masks, the slabs that run, a store-only
+    stage a tile, DONE) publishing stage n + 3 into a ring of LIST_INFO
+    slots while stage n computes, every thread issuing stage n + 2's copies
+    into raw slot n % 2 and splitting stage n + 1 into split slot
+    (n + 1) % 2.  At a store-only stage a tile of which a slab ran is read
+    and written once (old + partial, flags ORed); one none of whose slabs
+    ran is left.  Returns (values, flags, owner, events, reads, counter):
+    as ``_replay_pair_stream``, events per tile its (A tile, B tile, slab)
+    in the order run, and the ticket counter at the end."""
+    from test_torch_onepass import Issuer, ListTiles
+    L = _cu_constant("LIST_INFO")
+    KS = 32
+    masks = mk.tile_masks_plain(torch.from_numpy(
+        np.ascontiguousarray(dense_a))).numpy().view(np.uint32)
+    assert dense_a is dense_b       # the replayed streams are A @ A
+    w = ListTiles(walk, a_idx, b_idx, c_cap, masks)
+    counter = [0]
+    values = prior[0].astype(np.float64)
+    flags = prior[1].copy()
+    owner = np.full(c_cap, -2)
+    reads = np.zeros(c_cap, np.int64)
+    events = {}
+
+    def block(b):
+        info = [None] * L               # (stage, its StageInfo) a slot
+        computed = [-1]                 # the last stage computed
+
+        def publish(iss, n):
+            old = info[n % L]
+            assert old is None or old[0] <= computed[0], \
+                "a stage slot overwritten before its stage ran"
+            info[n % L] = (n, iss.publish())
+
+        def read(n):
+            e = info[n % L]
+            assert e is not None and e[0] == n, "a stage read unpublished"
+            return e[1]
+
+        iss = Issuer(w, counter)        # warp 0: start, tickets taken
+        for n in range(L - 1):
+            publish(iss, n)
+        yield                           # __syncthreads
+        raw, split = [None, None], set()
+
+        def issue(n):
+            if read(n)[4] & 1:
+                raw[n % 2] = n
+
+        issue(0)
+        issue(1)
+        if read(0)[4] & 1:
+            assert raw[0] == 0
+            split.add(0)
+        yield
+        n, live = 0, False
+        v, f = np.zeros((128, 128)), np.zeros((128, 128), bool)
+        while True:
+            ta, tb, row, k0, fl = read(n)
+            if fl & 4:                  # DONE
+                return
+            nxt = read(n + 1)[4] & 1
+            if read(n + 2)[4] & 1:      # raw slot n % 2: what it holds
+                assert raw[n % 2] is None or raw[n % 2] in split  # is split
+            issue(n + 2)
+            publish(iss, n + 3)         # the slot of stage n - 1
+            if fl & 1:
+                assert n in split       # split in the iteration before
+                live = True
+                events.setdefault(row, []).append((ta, tb, k0 // KS))
+                ks = slice(k0, k0 + KS)
+                a = dense_a[ta][:, ks].astype(np.float64)
+                bb = dense_b[tb][ks, :].astype(np.float64)
+                with np.errstate(invalid="ignore"):
+                    v += a @ bb
+                f |= ((a != 0).astype(np.int64)
+                      @ (bb != 0).astype(np.int64)) > 0
+            if nxt:
+                assert raw[(n + 1) % 2] == n + 1
+                split.add(n + 1)
+            if fl & 2:                  # the tile's store-only stage
+                events.setdefault(row, [])
+                if live:
+                    assert owner[row] == -2, f"tile {row} written twice"
+                    owner[row] = b
+                    reads[row] += 1
+                    with np.errstate(invalid="ignore"):
+                        values[row] += v
+                    flags[row] |= f.astype(np.uint8)
+                v, f = np.zeros((128, 128)), np.zeros((128, 128), bool)
+                live = False
+            computed[0] = n
+            n += 1
+            yield
+
+    _run_blocks(block, min(grid, c_cap), seed)
+    return values, flags, owner, events, reads, counter[0]
 
 
 def _replayed_stream(g, stream):
@@ -551,36 +658,136 @@ def _bits(x):
     return x.view(torch.int64 if x.element_size() == 8 else torch.int32)
 
 
+def _needed(masks, a_idx, b_idx, q):
+    """The slabs of pair q that run (the .cu's slabs_needed)."""
+    from test_torch_onepass import slabs_needed
+    return slabs_needed(masks[a_idx[q]], masks[b_idx[q]])
+
+
+def _hold_list_replay(d, a_idx, b_idx, seg, c_cap, grid, prior):
+    """The list kernel's replay on the stream ``seg`` (A = B = ``d``) into
+    ``prior``, held to the plain version's ``out=``: only the tiles with
+    pairs are visited, each once, by one block, its stages the slabs its
+    tiles' masks call non-zero, in stream order; each block takes one
+    ticket past the list's count; a tile none of whose slabs runs is left
+    bit for bit, as is every tile without pairs.  Returns (the tiles with
+    pairs, those none of whose slabs runs, the skipped slabs)."""
+    c_cap_ = int(c_cap)
+    seg_ptr = mk.segment_offsets(seg, c_cap_).numpy()
+    pa, pb = a_idx.numpy(), b_idx.numpy()
+    walk = mk.stream_walk(seg, c_cap_, min(c_cap_, seg.numel())).numpy()
+    num, flag, owner, events, reads, tickets = _replay_pair_stream(
+        d, d, pa, pb, seg_ptr, c_cap_, grid, seed=grid,
+        prior=(prior[0].numpy(), prior[1].numpy()), walk=walk)
+    masks = mk.tile_masks_plain(torch.from_numpy(d)).numpy().view(np.uint32)
+    with_pairs = np.flatnonzero(np.diff(seg_ptr) > 0)
+    assert sorted(events) == with_pairs.tolist()        # listed tiles only
+    assert tickets == len(with_pairs) + min(grid, c_cap_)
+    idle, skipped = [], 0
+    for c in with_pairs:
+        lo, hi = seg_ptr[c], seg_ptr[c + 1]
+        want = [(int(pa[q]), int(pb[q]), s_) for q in range(lo, hi)
+                for s_ in range(4) if _needed(masks, pa, pb, q) >> s_ & 1]
+        assert events[c] == want, c
+        skipped += 4 * (hi - lo) - len(want)
+        if want:
+            assert owner[c] >= 0 and reads[c] == 1
+        else:
+            idle.append(int(c))
+            assert owner[c] == -2 and reads[c] == 0
+    untouched = owner == -2
+    assert (reads[untouched] == 0).all()
+    want_n, want_f = mk.accumulate_macro_pairs(
+        torch.from_numpy(d), torch.from_numpy(d), a_idx, b_idx, seg, c_cap_,
+        chunk=32, out=(prior[0].clone(), prior[1].clone()))
+    np.testing.assert_allclose(num, want_n.numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(flag, want_f.numpy())
+    np.testing.assert_array_equal(num[untouched].astype(np.float32).view(
+        np.int32), _bits(prior[0][torch.from_numpy(untouched)]).numpy())
+    np.testing.assert_array_equal(flag[untouched],
+                                  prior[1].numpy()[untouched])
+    return with_pairs, idle, skipped
+
+
 @pytest.mark.parametrize("grid,stream", [(3, "gapped"), (2, "1/70/0/3/2")])
 def test_pair_kernel_accumulate_form_replayed_in_numpy(gapped_stream, grid,
                                                        stream):
-    """The accumulate form of the same walk (ACC: the ring's stages after
-    the first): no zero pass, so a tile without pairs, the tiles past the
-    stream's count among them, is never read or written; each tile with
-    pairs is read once and written once, by the block that took it, its
-    stages as in the fresh form; the result is the plain version's
+    """The accumulate form (the ring's stages after the first) at
+    "highest": macro_list_kernel replayed block by block over the stream's
+    walk list (no zero pass; the tiles past the stream's count never take
+    a ticket), each tile with pairs read once and written once, by the
+    block that took it, where a slab of it runs, its stages only the slabs
+    its tiles' masks call non-zero; the result is the plain version's
     ``out=``: old + partial, flags ORed."""
     g = gapped_stream
     tm, (_r, _c, a_idx, b_idx, _seg, _cnt) = g["tm"], g["t_out"]
-    seg, c_cap, seg_ptr = _replayed_stream(g, stream)
-    d = tm.dense.numpy()
+    seg, c_cap, _seg_ptr = _replayed_stream(g, stream)
     prior = _prior_c(c_cap, torch.float32, seed=grid)
-    num, flag, owner, events, reads = _replay_pair_stream(
-        d, d, a_idx.numpy(), b_idx.numpy(), seg_ptr, c_cap, grid, seed=grid,
-        prior=(prior[0].numpy(), prior[1].numpy()))
-    empty = np.diff(seg_ptr) == 0
-    assert empty.any() and (owner[empty] == -2).all()
-    assert (reads[empty] == 0).all()
-    assert (owner[~empty] >= 0).all() and (reads[~empty] == 1).all()
-    for c in np.flatnonzero(~empty):
-        lo, hi = seg_ptr[c], seg_ptr[c + 1]
-        assert events[c] == [(q, s) for q in range(lo, hi) for s in range(4)]
-    want_n, want_f = mk.accumulate_macro_pairs(
-        tm.dense, tm.dense, a_idx, b_idx, seg, c_cap, chunk=32,
-        out=(prior[0].clone(), prior[1].clone()))
-    np.testing.assert_allclose(num, want_n.numpy(), rtol=1e-5, atol=1e-5)
-    np.testing.assert_array_equal(flag, want_f.numpy())
-    np.testing.assert_array_equal(_bits(want_n[empty]), _bits(prior[0][empty]))
+    with_pairs, _idle, skipped = _hold_list_replay(
+        tm.dense.numpy(), a_idx, b_idx, seg, c_cap, grid, prior)
+    assert len(with_pairs) < c_cap and skipped > 0
+
+
+def _engineered_list_stream():
+    """(dense, a_idx, b_idx, seg, c_cap): tiles whose non-zeros fill one
+    block of rows and columns (so a pair's slabs run or not), C tile 5
+    whose pairs' tiles share no k (none of its slabs runs), a pair of tile
+    17 that runs no slab beside two that do, an Inf in tile 3 and a value
+    of 2^63 in tile 4 (their slabs run whatever the other side holds,
+    giving NaN where an Inf meets zeros), 36 pairs in C tile 40 (more than
+    a lane window); c_cap far above the tiles."""
+    rs = np.random.default_rng(21)
+    d = np.zeros((8, 128, 128), np.float32)
+    for t, (rows, cols) in {0: ((0, 32), (0, 32)), 1: ((96, 128), (64, 72)),
+                            2: ((64, 96), (96, 128)),
+                            7: ((0, 32), (64, 96))}.items():
+        (r0, r1), (c0, c1) = rows, cols             # A: k = cols, B: rows
+        d[t, r0:r1, c0:c1] = rs.standard_normal((r1 - r0, c1 - c0))
+    d[3, 5, 40] = np.inf                                # a marked slab
+    d[4, 7, 77] = 2.0 ** 63
+    d[6] = rs.standard_normal((128, 128))
+    d[6][rs.random((128, 128)) < 0.9] = 0.0
+    per = {2: [(0, 0), (1, 2)], 5: [(2, 2), (7, 7)], 9: [(3, 0), (0, 3)],
+           17: [(4, 6), (6, 6), (1, 1)],
+           40: [(int(a), int(b)) for a, b in rs.integers(0, 8, (36, 2))],
+           41: [(0, 0)]}
+    pairs = [(c, a, b) for c in sorted(per) for a, b in per[c]]
+    n = len(pairs)
+    p_cap = -(-(n + 3) // 32) * 32
+    seg = np.full(p_cap, symbolic.INT32_MAX, np.int64)
+    a_idx = np.zeros(p_cap, np.int32)
+    b_idx = np.zeros(p_cap, np.int32)
+    for q, (c, a, b) in enumerate(pairs):
+        seg[q], a_idx[q], b_idx[q] = c, a, b
+    return (d, torch.from_numpy(a_idx), torch.from_numpy(b_idx),
+            torch.from_numpy(seg.astype(np.int32)), 300)
+
+
+@pytest.mark.parametrize("grid", [1, 4])
+def test_list_kernel_walks_the_listed_tiles_and_runs_the_needed_slabs(grid):
+    """macro_list_kernel's replay on an engineered stage whose c_cap lies
+    far above its tiles: only the listed tiles are visited, once each, in
+    stream order; exactly the slabs the masks call zero are skipped, and
+    the marked ones (an Inf, a value of 2^63) run, so an Inf meeting only
+    zeros gives the plain version's NaN; the tile whose pairs run no slab
+    is neither read nor written (its -0.0 stays), and so is every tile
+    past the list."""
+    d, a_idx, b_idx, seg, c_cap = _engineered_list_stream()
+    prior = _prior_c(c_cap, torch.float32, seed=grid)
+    prior[0][5] = -0.0
+    with_pairs, idle, skipped = _hold_list_replay(d, a_idx, b_idx, seg,
+                                                  c_cap, grid, prior)
+    assert with_pairs.tolist() == [2, 5, 9, 17, 40, 41] and idle == [5]
+    assert skipped > 0
+    masks = mk.tile_masks_plain(torch.from_numpy(d)).numpy().view(np.uint32)
+    need = [_needed(masks, a_idx.numpy(), b_idx.numpy(), q) for q in range(9)]
+    assert need[:2] == [0b0001, 0b0100] and need[2:4] == [0, 0]  # tile 5
+    assert need[4:6] == [0b0010, 0b0001]        # marked: (3, 0), (0, 3)
+    assert need[8] == 0                         # tile 17's pair (1, 1)
+    want_n, _f = mk.accumulate_macro_pairs(
+        torch.from_numpy(d), torch.from_numpy(d), a_idx, b_idx, seg, c_cap,
+        chunk=32, out=(prior[0].clone(), prior[1].clone()))
+    assert bool(torch.isnan(want_n[9]).any())           # Inf times zeros
 
 
 @pytest.mark.parametrize("dtype,precision", [
@@ -646,6 +853,28 @@ def test_accumulate_form_refuses_a_wrong_out(gapped_stream, what):
         mk.accumulate_macro_pairs(tm.dense, tm.dense, a_idx, b_idx, seg,
                                   c_cap, chunk=32, out=out)
     assert not num.any() and not flag.any()
+
+
+def test_reads_masks_names_the_launches_that_read_tile_masks():
+    """mk.reads_masks: on the card the float64 entry, the float32 entry at
+    "high" / "default" and the accumulate form at every precision read
+    tile masks; the fresh form and the class entries at "highest" do not,
+    and no CPU table does.  sm.ring_reads_masks: a ring of several ranks
+    carries them at "highest" (its accumulating stages read them), a ring
+    of one does not."""
+    import types
+    from pem_spgemm_tpu_torch.parallel import sharded_macro as sm
+    f32, f64 = (types.SimpleNamespace(is_cuda=True, dtype=d)
+                for d in (torch.float32, torch.float64))
+    assert not mk.reads_masks(f32, "highest")
+    assert mk.reads_masks(f32, "highest", accumulate=True)
+    assert mk.reads_masks(f32, "high") and mk.reads_masks(f32, "default")
+    assert mk.reads_masks(f64, "highest")
+    assert not mk.reads_masks(torch.zeros((1, 128, 128)), "high", True)
+    for n, want in ((1, False), (4, True)):
+        plan = types.SimpleNamespace(b_dense=f32, n_devices=n)
+        assert sm.ring_reads_masks(plan, "highest") is want
+        assert sm.ring_reads_masks(plan, "default")
 
 
 def test_k4_split_cuts_cut_one_place_each():

@@ -91,8 +91,22 @@ def test_source_has_the_replayed_lines():
             "        if constexpr (Tiles::LISTED) row0 = w.row(tk0);",
             "        if constexpr (Tiles::LISTED) row = row0;",
             "            info.row = Tiles::LISTED ? row : w.row(tk);",
-            "            ListTiles{walk, a_idx, b_idx, masks_a, masks_b, "
-            "next, c_cap},"):
+            "        const ListTiles w{walk, a_idx, b_idx, masks_a, masks_b, "
+            "next, c_cap};",
+            # the list kernel at "highest" (tests/test_torch_macro.py
+            # replays it): warp 0's Issuer a stage ring ahead of the block
+            "constexpr int LIST_INFO = 4;",
+            "            is.publish<false>(w, a_dense, b_dense, info[n], "
+            "nullptr);",
+            "                is.publish<false>(w, a_dense, b_dense,\n"
+            "                                  info[(n + 3) % LIST_INFO], "
+            "nullptr);",
+            "    during();\n    if (next) {\n        cp_async_wait1();",
+            "            tc_issue(sh.raw_a[n & 1], sh.raw_b[n & 1], in.ap, "
+            "in.bp, in.k0);",
+            "        issue(n + 2);                       // into raw slot n % 2",
+            "            if (live) fr.store_cs<true>(c_num, c_flag, in.row);",
+            "            if constexpr (ARRIVE) mbar_arrive(ready);"):
         assert text.count(line) == 1, line
     assert _ring_depths(text, "HIGH") == (3, 3)
     assert _ring_depths(text, "DEFAULT") == (4, 4)

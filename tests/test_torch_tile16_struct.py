@@ -9,8 +9,9 @@ against their plain versions there and skips here).  What the CPU can hold:
     the plain version the CPU runs: ``tile16_c_masks``'s per-row OR over a
     tile's pairs (indices passed by shuffles in batches of 16, B's column
     masks by shuffles) and its popc reduction; ``tile16_c_rowcol``'s
-    shuffle scan of the row popcounts, its ``__ffs`` enumeration and its
-    grid-stride padding; the masks form's four-lane OR of the count bits
+    span of tiles a block, their slots given to the threads in order (tile
+    and row by binary searches over staged counts, column by a
+    rank-select) and its grid-stride padding; the masks form's four-lane OR of the count bits
     of rows g, g + 8 and its popc sum over the eight quads.  Streams with empty
     tiles, a tile of one pair, a tile with all 256 bits, more than 16
     pairs a tile, padding at c_cap and at INT32_MAX, real pairs past c_cap
@@ -42,6 +43,12 @@ CHUNK = 8
 def _source():
     with open(tk.STRUCT_SOURCE) as f:
         return f.read()
+
+
+def _cu_int(name):
+    """An int constexpr of csrc/tile16_structure.cu, read from the source."""
+    m = re.search(rf"constexpr int {name} = (\d+);", _source())
+    return int(m.group(1))
 
 
 def _popc(x):
@@ -169,40 +176,79 @@ def test_c_masks_replay_equals_the_plain_version(pad):
 # --------------------------------------------------------------------------
 # tile16_c_rowcol, replayed
 
-def replay_c_rowcol(cmask, cptr, c_nnz_cap, c_dense=None):
-    """tile16_c_rowcol as the kernel runs it: a half-warp a tile, lane r
-    its row; an inclusive scan of the 16 popcounts by __shfl_up_sync at 1,
-    2, 4, 8 (a lane below the offset keeps its value) gives each row's
-    first slot; lane r writes its bits in ascending column while the slot
-    is below c_nnz_cap; then every thread of the grid (16 tiles a block of
-    256) writes padding slots from cptr[c_cap], grid-stride: the last row
-    of the last tile, column 0, and that entry's value."""
+def replay_c_rowcol(cmask, cptr, c_nnz_cap, c_dense=None, writes=None):
+    """tile16_c_rowcol as the kernel runs it: block b (256 threads) takes
+    the SPAN tiles from b * SPAN; it stages their row words, each tile's
+    bits above each row (a quad of threads a tile, 4 rows a thread, an
+    exclusive shuffle scan over the quad) and their first slots (cptr);
+    thread t writes the span's slots first + t + 256 (AHEAD i + a), below
+    the span's end and c_nnz_cap: the slot's tile (the last whose first
+    slot is <= it, a binary search of SPAN / 2, ..., 1 steps), row (the
+    last whose bits above are <= its rank k, steps 8, 4, 2, 1) and column
+    (the rank's set bit of the row word, a 4-step popc rank-select); then
+    every thread of the grid writes padding slots from cptr[c_cap],
+    grid-stride: the last row of the last tile, column 0, and that entry's
+    value.  ``writes``: a list that gets (slot, tile, (block, thread),
+    its slot count in the thread) of every tile slot written."""
+    span, ahead = _cu_int("SPAN"), _cu_int("AHEAD")
     c_cap = cmask.shape[0]
     rowcol = np.full(c_nnz_cap, -1, np.int64)
     elem = np.full(c_nnz_cap, -1, np.int64)
     vals = None if c_dense is None else np.zeros(c_nnz_cap, c_dense.dtype)
     flat = None if c_dense is None else c_dense.reshape(-1)
-    for c in range(c_cap):
-        m = [int(x) & 0xFFFF for x in cmask[c]]
-        pc = [_popc(x) for x in m]
-        incl = list(pc)
-        for off in (1, 2, 4, 8):
-            up = [incl[r - off] if r >= off else incl[r] for r in range(16)]
-            incl = [incl[r] + up[r] if r >= off else incl[r]
-                    for r in range(16)]
-        for r in range(16):
-            slot = int(cptr[c]) + incl[r] - pc[r]
-            w = m[r]
-            while w:
-                col = (w & -w).bit_length() - 1             # __ffs - 1
-                w &= w - 1
-                if slot < c_nnz_cap:
-                    rowcol[slot] = (r << 4) | col
-                    elem[slot] = c
+    blocks = -(-c_cap // span)
+
+    def select_bit(w, j):
+        col = 0
+        for step in (8, 4, 2, 1):
+            low = _popc(w & ((1 << step) - 1))
+            if low <= j:
+                j -= low
+                w >>= step
+                col += step
+        return col
+
+    for b in range(blocks):
+        c0 = b * span
+        n_t = min(span, c_cap - c0)
+        rows = [[int(cmask[c0 + tt, r]) & 0xFFFF if tt < n_t else 0
+                 for r in range(16)] for tt in range(span)]
+        first = [int(cptr[c0 + min(t, n_t)]) for t in range(span + 1)]
+        before = [[0] * 16 for _ in range(span)]
+        for q in range(span * 4):               # quads: a tile's 4 threads
+            tt, r0 = q >> 2, 4 * (q & 3)
+            sums = [sum(_popc(rows[tt][4 * x + j]) for j in range(4))
+                    for x in range(4)]
+            run = sum(sums[:q & 3])             # the quad's exclusive scan
+            for j in range(4):
+                before[tt][r0 + j] = run
+                run += _popc(rows[tt][r0 + j])
+        s0, s_end = first[0], min(first[n_t], c_nnz_cap)
+        for t in range(256):
+            for i, base in enumerate(range(s0 + t, s_end, 256 * ahead)):
+                for a in range(ahead):
+                    slot = base + 256 * a
+                    if slot >= s_end:
+                        continue
+                    tt = 0
+                    step = span // 2
+                    while step:
+                        if tt + step < n_t and first[tt + step] <= slot:
+                            tt += step
+                        step >>= 1
+                    k = slot - first[tt]
+                    r = 0
+                    for step in (8, 4, 2, 1):
+                        if before[tt][r + step] <= k:
+                            r += step
+                    rc = (r << 4) | select_bit(rows[tt][r], k - before[tt][r])
+                    rowcol[slot] = rc
+                    elem[slot] = c0 + tt
                     if vals is not None:
-                        vals[slot] = flat[c * 256 + r * 16 + col]
-                slot += 1
-    threads = -(-c_cap // 16) * 256
+                        vals[slot] = flat[(c0 + tt) * 256 + rc]
+                    if writes is not None:
+                        writes.append((slot, c0 + tt, (b, t), ahead * i + a))
+    threads = blocks * 256
     for tid in range(threads):
         s = int(cptr[c_cap]) + tid
         while s < c_nnz_cap:
@@ -214,10 +260,15 @@ def replay_c_rowcol(cmask, cptr, c_nnz_cap, c_dense=None):
 
 
 def _rowcol_case(rs, c_cap):
-    """Row masks with empty tiles, one tile of all 256 bits, the last
-    tile's last row set, and values with -0.0, NaN and +-Inf."""
+    """Row masks with empty rows and tiles, one tile of all 256 bits, rows
+    and a tile of one bit, the last tile's last row set, and values with
+    -0.0, NaN and +-Inf."""
     m = _masks_table(rs, c_cap)
     m[2] = 0xFFFF
+    m[5, :] = 0
+    m[5, 7] = 0x0100                        # a tile of one bit
+    m[6, :] = 0
+    m[6, 0], m[6, 15] = 0x8000, 0x0001      # rows of one bit, a tile of two
     m[c_cap - 1, 15] = 0x8001
     vals = rs.standard_normal((c_cap, 256))
     vals[0, :4] = [-0.0, np.nan, np.inf, -np.inf]
@@ -265,6 +316,56 @@ def test_c_rowcol_replay_equals_the_plain_version(room, dtype):
     if room == "padding":
         assert (r_rc[c_nnz:] == 240).all() and (r_et[c_nnz:] == c_cap - 1).all()
         assert np.signbit(r_v[c_nnz:]).all()            # entry (last, 15, 0)
+
+
+@pytest.mark.parametrize("room", ["padding", "overflow"])
+def test_c_rowcol_lanes_write_their_slots_in_order(room):
+    """The slot-to-thread map of tile16_c_rowcol: every slot below C_nnz
+    and c_nnz_cap is written once, by one thread of the block whose span
+    holds its tile; thread t's n-th slot is its span's first + t + 256 n,
+    so the 32 lanes of a warp write 32 consecutive slots (every lane busy
+    but at a span's end), across tile boundaries; a slot's row and column
+    are its rank among its tile's bits; the padding is as before: the last
+    row of the last tile, column 0.  With 300 tiles the spans cut tiles of
+    0, 1, 2 and 256 bits and more than one block."""
+    rs = np.random.default_rng(9)
+    c_cap = 300
+    m, cptr, vals = _rowcol_case(rs, c_cap)
+    c_nnz = int(cptr[-1])
+    cap = c_nnz + 50 if room == "padding" else c_nnz - 40
+    writes = []
+    rc, et, _v = replay_c_rowcol(m, cptr, cap, vals, writes=writes)
+    span = _cu_int("SPAN")
+    slots = [w[0] for w in writes]
+    assert sorted(slots) == list(range(min(c_nnz, cap)))    # each once
+    firsts = {}
+    for slot, c, (b, t), n in writes:
+        assert c // span == b                   # the span holding its tile
+        s0 = int(cptr[b * span])
+        assert slot == s0 + t + 256 * n
+        firsts.setdefault((b, n, t // 32), []).append((t % 32, slot))
+    whole = 0
+    for ls in firsts.values():                  # a warp's store: one run
+        ls.sort()
+        assert [s_ for _, s_ in ls] == list(range(ls[0][1],
+                                                  ls[0][1] + len(ls)))
+        assert [lane for lane, _ in ls] == list(range(len(ls)))
+        whole += len(ls) == 32
+    assert whole > 0.8 * len(firsts)
+    assert len({b for _s, _c, (b, _t), _n in writes}) > 1
+    assert cptr[3] - cptr[2] == 256
+    assert cptr[6] - cptr[5] == 1 and rc[cptr[5]] == (7 << 4) | 8
+    assert cptr[7] - cptr[6] == 2
+    assert rc[cptr[6]] == 15 and rc[cptr[6] + 1] == 15 << 4
+    for c in range(c_cap):                                  # rank order
+        bits = [(r << 4) | col for r in range(16) for col in range(16)
+                if int(m[c, r]) >> col & 1]
+        lo, hi = int(cptr[c]), min(int(cptr[c + 1]), cap)
+        if lo < hi:
+            assert rc[lo:hi].tolist() == bits[:hi - lo]
+            assert (et[lo:hi] == c).all()
+    if room == "padding":
+        assert (rc[c_nnz:] == 240).all() and (et[c_nnz:] == c_cap - 1).all()
 
 
 # --------------------------------------------------------------------------
@@ -364,8 +465,20 @@ def test_structure_source_and_loader_agree():
         assert banned not in src.lower()
     assert re.search(r"\batomic[A-Z]\w*\(", src) is None     # no atomics
     assert "constexpr int TILES = 16;" in src
-    assert "__shfl_up_sync(hm, incl, off, 16)" in src
-    assert "__ffs(m) - 1" in src
+    assert "__shfl_up_sync" in src
+    assert "__ffs(" not in src                # slots in order, not by row
+    assert "const int low = __popc(w & ((1u << step) - 1u));" in src
+    for line in (
+            "const long long c0 = (long long)blockIdx.x * SPAN;",
+            "if (t <= SPAN) first[t] = cptr[c0 + min(t, n_t)];",
+            "const int x = __shfl_up_sync(0xffffffffu, incl, off, 4);",
+            "for (int base = s0 + t; base < s_end; base += THREADS * AHEAD)",
+            "if (tt + step < n_t && first[tt + step] <= slot) tt += step;",
+            "if (before[tt][r + step] <= k) r += step;",
+            "rc[a] = (r << 4) | select_bit(rows[tt][r], k - before[tt][r]);"):
+        assert src.count(line) == 1, line
+    assert src.count("blocks_of(c_cap, SPAN)") == 2
+    assert src.count("const int slot = base + a * THREADS;") == 2
 
     class Lib:
         pass
@@ -387,6 +500,16 @@ def test_structure_source_and_loader_agree():
         and "__shfl_xor_sync(FULL, w[i], 2)" in acc
     assert "c_mask + c * 16 + g + 8 * t" in acc
     assert "for (int off = 4; off < 32; off <<= 1)" in acc
+
+
+def test_rowcol_cut_builds_cut_one_place_each():
+    # bench/k4_split.py times tile16_c_rowcol at other ROUNDS, each a text
+    # substitution of the source
+    from pem_spgemm_tpu_torch.bench import k4_split
+    src = _source()
+    for name, cuts in k4_split.ROWCOL_CUTS.items():
+        for old, new in cuts:
+            assert src.count(old) == 1 and new != old, name
 
 
 def test_structure_wrappers_refuse_cpu_tensors_and_bad_arguments():
