@@ -2098,10 +2098,15 @@ def scipy_square(coo, with_abs=False):
     return want, order, mag.data[mo]
 
 
-def check_coo(rows, cols, vals, ref, what):
-    """Exact structure, finite values within the float32 dot-product bound.
-    Returns (entries outside rtol*|want|+atol, max error over the bound)."""
+def check_coo(rows, cols, vals, ref, what, f64=False):
+    """Exact structure, finite values within the float32 dot-product bound
+    (with ``f64``: float64 values within the float64 bound).  Returns
+    (entries outside rtol*|want|+atol, max error over the bound)."""
     want, order, mag = ref
+    rtol, atol, label = (F64_RTOL, F64_ATOL, "float64") if f64 \
+        else (COO_RTOL, COO_ATOL, "float32")
+    if f64 and vals.dtype != np.float64:
+        raise AssertionError(f"{what}: values are {vals.dtype}")
     if len(rows) != want.nnz:
         raise AssertionError(f"{what}: C_nnz {len(rows)} != {want.nnz}")
     if not (np.array_equal(rows, want.row[order])
@@ -2110,12 +2115,11 @@ def check_coo(rows, cols, vals, ref, what):
     if not np.all(np.isfinite(vals)):
         raise AssertionError(f"{what}: non-finite values")
     err = np.abs(vals - want.data[order])
-    ratio = float((err / (COO_RTOL * mag + COO_ATOL)).max())
+    ratio = float((err / (rtol * mag + atol)).max())
     if ratio > 1.0:
-        raise AssertionError(f"{what}: values exceed the float32 "
+        raise AssertionError(f"{what}: values exceed the {label} "
                              f"dot-product bound by {ratio}x")
-    cancelled = int((err > COO_RTOL * np.abs(want.data[order])
-                     + COO_ATOL).sum())
+    cancelled = int((err > rtol * np.abs(want.data[order]) + atol).sum())
     return cancelled, ratio
 
 
@@ -4933,7 +4937,9 @@ def tile16_rows(check_err):
             "form": "timed: fresh, values and counts (the JAX package's "
                     "accumulate_fused_flat contract; no path of the card "
                     "runs it since the masks form); launches: the fresh "
-                    "forms, i.e. the values-only form of the masks engine",
+                    "forms, i.e. the values-only form of the masks engine "
+                    "(float32) and of a ring rank's first stage (the "
+                    "sharded paths' launches are added to the row in main)",
             **shape, "launches_by_run": by_run}
         ad = N.densify_tiles(a.vals, a.rowcol, a.elem_tile, a.tile_cap)
         bd = N.densify_tiles(b.vals, b.rowcol, b.elem_tile, b.tile_cap)
@@ -5056,8 +5062,9 @@ def tile16_structure_rows(a, b, ai, bi, seg, c_row, c_col, c_cap, n_pairs,
     return rows
 
 
-def tile16_acc_row(plans, plan1, check_err):
-    """The row of the float32 entry's accumulate form, timed on the 4-rank
+def tile16_acc_row(plans, plan1, check_err, acc=torch.float32):
+    """The row of the float32 entry's accumulate form (of the float64
+    entry's, for float64 plans with ``acc`` float64), timed on the 4-rank
     Tile16 ring's largest accumulating stage (sm.largest_accumulating_stage)
     into a C with -0.0, +-Inf and NaN in every tile, beside its plain
     version, the fresh
@@ -5066,16 +5073,17 @@ def tile16_acc_row(plans, plan1, check_err):
     C as the fresh form writes."""
     from pem_spgemm_tpu_torch.ops import numeric as N
     from pem_spgemm_tpu_torch.parallel import sharded as sh
-    name = "tile16_accumulate_pairs_acc"
+    f64 = acc == torch.float64
+    name = "tile16_accumulate_pairs" + ("_f64" if f64 else "") + "_acc"
     d, s = sm.largest_accumulating_stage(plans)
     p = plans[d]
     b = list(sh.replay_chunks(plans, d))[s]
     args = (p.pairs_a[s], p.pairs_b[s], p.seg[s], p.c_cap,
-            p.pairs_a.shape[1], torch.float32)
+            p.pairs_a.shape[1], acc)
     n_pairs = p.stage_pairs[s]
     live = stream_tiles(p.seg[s], p.c_cap)
     tiles = int(live.sum())
-    prior = tile16_prior(p.c_cap, torch.float32, 91)
+    prior = tile16_prior(p.c_cap, acc, 91)
     fresh = tk.accumulate_dense(p.a_dense, b, *args)
     into = tk.accumulate_dense(p.a_dense, b, *args, out=prior.clone())
     hold_tile16_accumulate(into, fresh, prior, live, f"{name}, ring stage")
@@ -5096,7 +5104,7 @@ def tile16_acc_row(plans, plan1, check_err):
     del ad, bd
     s1 = next(i for i, x in enumerate(plan1.stage_pairs) if x)
     args1 = (plan1.pairs_a[s1], plan1.pairs_b[s1], plan1.seg[s1],
-             plan1.c_cap, plan1.pairs_a.shape[1], torch.float32)
+             plan1.c_cap, plan1.pairs_a.shape[1], acc)
     c1 = tk.accumulate_dense(plan1.a_dense, plan1.b_dense, *args1)
     point = {"pairs": plan1.stage_pairs[s1], "c_cap": plan1.c_cap,
              "tiles_with_pairs": int(stream_tiles(plan1.seg[s1],
@@ -5106,7 +5114,8 @@ def tile16_acc_row(plans, plan1, check_err):
              "fresh_form_ms": time_ms(lambda: tk.accumulate_dense(
                  plan1.a_dense, plan1.b_dense, *args1), 10)}
     row = {
-        "name": name, "kernel": "Tile16 accumulate form", "route": "cuda",
+        "name": name, "kernel": "Tile16 accumulate form"
+        + ("-f64" if f64 else ""), "route": "cuda",
         "source": TILE16_SOURCE, "replaces": TILE16_REPLACES,
         "jax_ring_stage": "pem_spgemm_tpu/parallel/sharded.py:225 "
                           "(c_dense.at[sg].add(prod))",
@@ -5120,7 +5129,8 @@ def tile16_acc_row(plans, plan1, check_err):
         "library_ms": lib_graph_ms,
         "library_wrapper_ms": bmm16_ms(p.a_dense, b, p.pairs_a[s][:n_pairs],
                                        p.pairs_b[s][:n_pairs]),
-        "library_covers": "torch.bmm over the stage's pre-gathered "
+        "library_covers": "torch.bmm" + (" in float64" if f64 else "")
+                          + " over the stage's pre-gathered "
                           "(P, 16, 16) operands: the products only, by "
                           "graph replay as the kernel (library_wrapper_ms: "
                           "by CUDA events around eager calls)",
@@ -5601,7 +5611,8 @@ def ring_composition(p, chunks, precision="highest"):
     form: a zero C, each stage's fresh output added by torch and its flags
     ORed in (the script's reference for the ring, run after the path's
     counts are read), with its time and its peak device memory above what
-    was allocated before it.  ``may_differ``: (c_cap,) bool, the tiles that
+    was allocated before it (bfloat16 tables as their float32 copies, as
+    local_macro takes them).  ``may_differ``: (c_cap,) bool, the tiles that
     a stage after the rank's first with pairs may leave untouched in the
     accumulate form, so that a zero's sign may differ there: the tiles
     without pairs in that stage, and (a tile none of whose slabs runs is
@@ -5613,16 +5624,17 @@ def ring_composition(p, chunks, precision="highest"):
     before = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     aside = 0.0
-    num = torch.zeros((p.c_cap, 128, 128), dtype=p.a_dense.dtype,
-                      device=DEV)
+    a = sm.acc_slice(p)
+    num = torch.zeros((p.c_cap, 128, 128), dtype=a.dtype, device=DEV)
     flag = torch.zeros((p.c_cap, 128, 128), dtype=torch.uint8, device=DEV)
     may = torch.zeros(p.c_cap, dtype=torch.bool, device=DEV)
     first = True
     for s, b in enumerate(chunks):
         if p.stage_pairs[s]:
             part, part_f = mk.accumulate_macro_pairs(
-                p.a_dense, b, p.pairs_a[s], p.pairs_b[s], p.seg[s], p.c_cap,
-                chunk=min(256, p.pairs_a.shape[1]), precision=precision)
+                a, b.to(a.dtype), p.pairs_a[s], p.pairs_b[s], p.seg[s],
+                p.c_cap, chunk=min(256, p.pairs_a.shape[1]),
+                precision=precision)
             num += part
             flag |= part_f
             if not first:
@@ -5699,7 +5711,7 @@ def check_carried_masks(plans, what):
     word for word.  Returns the tables checked."""
     n = 0
     for p in plans:
-        for have, table in zip(p.masks, (p.a_dense, p.b_dense)):
+        for have, table in zip(p.masks, (sm.acc_slice(p), p.b_dense)):
             if not (have.ready and have.matches(table) and torch.equal(
                     have.words, mk.TableMasks(table).make().words)):
                 raise AssertionError(f"{what}: carried masks differ from "
@@ -6035,23 +6047,16 @@ def check_f64_rows(got, want, what):
     return over
 
 
-def sharded_macro_runs(mesh, check_err):
-    """wandering64-1M: the macro ring at world size 1 over NCCL (one K4
-    stage), then the 4-rank replay (one K4 for each stage with pairs: a
-    rank's first in the fresh form, the others in the accumulate form), in
-    float32 and in float64; C_nnz as recorded, sampled rows against scipy,
-    each rank's C against the composition the accumulate form replaces
-    (ring_composition) under ==.  Returns the accumulate form's rows (at
-    "highest" and in float64)."""
+def macro_ring_world_size_1(md, mesh, want, pick, what):
+    """The macro ring on ``md`` at world size 1 over NCCL (one K4 stage):
+    C_nnz as recorded, sampled rows against ``want`` within the float32
+    bound, C float32 (float64 for float64 tiles) and equal under == to the
+    composition (ring_composition).  Emits the sharded_path line and
+    returns the plan."""
     from pem_spgemm_tpu_torch.parallel import distributed as PD
-    name = "wandering64-1M"
     want_nnz = BF16_RUNS[2][2]
-    coo = MACRO_MATRICES[name]()
-    pick = sample_rows(coo.shape[0])
-    want = scipy_rows(coo, pick)
-    m = coo_to_macro(coo)
     reset_launch_counts()
-    plan, plan_ms = synced_ms(lambda: sm.plan_sharded_macro(m, m, 1, 0))
+    plan, plan_ms = synced_ms(lambda: sm.plan_sharded_macro(md, md, 1, 0))
     sm.sharded_macro_numeric(plan, mesh)             # first: warms up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -6063,21 +6068,26 @@ def sharded_macro_runs(mesh, check_err):
         lambda: sm.assemble_sharded_macro(plan, *out, mesh, host=False))
     launches = nonzero(all_counts())
     add_path_launches("sharded_path", launches)
-    stages = check_ring_launches(launches, [plan], "macro ring", runs=2)
+    stages = check_ring_launches(launches, [plan], what, runs=2)
     if c_nnz != want_nnz or len(rows) != want_nnz:
-        raise AssertionError(f"macro ring: C_nnz {c_nnz}, launches "
+        raise AssertionError(f"{what}: C_nnz {c_nnz}, launches "
                              f"{launches}, stages {stages}")
-    over = check_f32_rows(device_rows(rows, cols, vals, pick), want,
-                          "macro ring")
+    if out[0].dtype != sm.acc_slice(plan).dtype:
+        raise AssertionError(f"{what}: C is {out[0].dtype}")
+    over = check_f32_rows(device_rows(rows, cols, vals, pick), want, what)
     del rows, cols, vals
     _part, coo_ms = synced_ms(lambda: sm.local_macro_coo(plan, *out))
     del _part
     comp, comp_ms, comp_peak, may = ring_composition(plan, [plan.b_dense])
-    signs = hold_composition(out, comp, may, "macro ring")
+    signs = hold_composition(out, comp, may, what)
     del comp
-    emit("sharded_path", decomposition="macro", matrix=name, world_size=1,
-         c_nnz=c_nnz, checked_against=f"scipy, {F64_SAMPLE_ROWS:,} sampled "
-         "rows; the fresh-form-plus-torch-add composition under ==",
+    emit("sharded_path", decomposition="macro", matrix="wandering64-1M",
+         world_size=1, dtype=str(md.dense.dtype).replace("torch.", ""),
+         c_dtype=str(out[0].dtype).replace("torch.", ""), c_nnz=c_nnz,
+         checked_against=f"scipy, {F64_SAMPLE_ROWS:,} sampled rows"
+         + (" of the bfloat16-rounded operands' product"
+            if md.dense.dtype == torch.bfloat16 else "")
+         + "; the fresh-form-plus-torch-add composition under ==",
          values_worst_over_bound=over, launches=launches,
          stages_with_pairs=stages, plan_ms=plan_ms, multiply_ms=mul_ms,
          local_macro_coo_ms=coo_ms, ring_peak_mem_gb=ring_peak,
@@ -6085,16 +6095,68 @@ def sharded_macro_runs(mesh, check_err):
          zero_signs_differing=signs, assemble_ms=asm_ms)
     del out
     torch.cuda.empty_cache()
+    return plan
+
+
+def ring_widening(p):
+    """What the bfloat16 macro ring's chunk costs a stage: the bytes it
+    sends (the bfloat16 chunk and its masks) against those of a float32
+    copy, and the ms of widening it into the float32 buffer K4 reads (one
+    copy, by CUDA-graph replay, beside its bound: the chunk read and its
+    copy written once), and of widening the A slice, once a plan."""
+    tiles = p.b_dense.shape[0]
+    masks = 4 * mk.TM_WORDS * tiles
+    wide = torch.empty(p.b_dense.shape, dtype=torch.float32, device=DEV)
+    moved = p.b_dense.numel() * (2 + 4)
+    out = {"chunk_tiles": tiles,
+           "stage_sends_bytes": p.b_dense.numel() * 2 + masks,
+           "stage_sends_bytes_as_float32": p.b_dense.numel() * 4 + masks,
+           "widen_ms": graph_ms(lambda: wide.copy_(p.b_dense)),
+           "widen_bound_ms": moved / HBM_BYTES_PER_S * 1e3,
+           "a_slice_tiles": p.a_dense.shape[0],
+           "a_slice_widen_ms": time_ms(lambda: p.a_dense.to(torch.float32),
+                                       3),
+           "timed": "widen_ms: wide.copy_(chunk), as local_macro widens each "
+                    "chunk, by CUDA-graph replay; a_slice_widen_ms: "
+                    "acc_slice's copy, once a plan, by CUDA events"}
+    del wide
+    return out
+
+
+def sharded_macro_runs(mesh, check_err):
+    """wandering64-1M: the macro ring at world size 1 over NCCL (one K4
+    stage), then the 4-rank replay (one K4 for each stage with pairs: a
+    rank's first in the fresh form, the others in the accumulate form), in
+    float32, float64 and bfloat16 (the chunks go round in bfloat16; K4
+    reads their float32 copies and C is float32); C_nnz as recorded,
+    sampled rows against scipy (the bfloat16-rounded operands' product for
+    bfloat16), each rank's C against the composition the accumulate form
+    replaces (ring_composition) under ==.  Returns the accumulate form's
+    rows (at "highest" and in float64)."""
+    name = "wandering64-1M"
+    want_nnz = BF16_RUNS[2][2]
+    coo = MACRO_MATRICES[name]()
+    pick = sample_rows(coo.shape[0])
+    want = scipy_rows(coo, pick)
+    want16 = product_rows(coo, pick, bf16=True)
+    m = coo_to_macro(coo)
+    plan = macro_ring_world_size_1(m, mesh, want, pick, "macro ring")
     ws1 = world_size_1_point(plan)
     del plan
+    torch.cuda.empty_cache()
+    m16 = coo_to_macro(coo, dtype=torch.bfloat16)
+    macro_ring_world_size_1(m16, mesh, want16, pick, "macro ring, bf16")
     torch.cuda.empty_cache()
 
     rows_out = []
     n = SHARDED_RANKS
-    for dtype in (torch.float32, torch.float64):
+    for dtype in (torch.float32, torch.float64, torch.bfloat16):
         f64 = dtype == torch.float64
-        what = "macro replay" + (", float64" if f64 else "")
-        md = m if not f64 else coo_to_macro(coo, dtype=torch.float64)
+        bf16 = dtype == torch.bfloat16
+        what = "macro replay" + (", float64" if f64 else ", bf16" if bf16
+                                 else "")
+        md = m if dtype == torch.float32 else m16 if bf16 \
+            else coo_to_macro(coo, dtype=torch.float64)
         plans, plan_ms = [], []
         for d in range(n):
             p, ms = synced_ms(lambda: sm.plan_sharded_macro(md, md, n, d))
@@ -6113,8 +6175,11 @@ def sharded_macro_runs(mesh, check_err):
         del parts
         if len(rows) != want_nnz:
             raise AssertionError(f"{what}: C_nnz {len(rows)}")
+        if vals.dtype != (torch.float64 if f64 else torch.float32):
+            raise AssertionError(f"{what}: C is {vals.dtype}")
         got = device_rows(rows, cols, vals, pick)
-        over = (check_f64_rows if f64 else check_f32_rows)(got, want, what)
+        over = (check_f64_rows if f64 else check_f32_rows)(
+            got, want16 if bf16 else want, what)
         del rows, cols, vals
         held = hold_ring_compositions(plans, outs, "highest", what)
         del outs
@@ -6122,9 +6187,11 @@ def sharded_macro_runs(mesh, check_err):
         times = [x + y for x, y in zip(k4_ms, coo_ms)]
         emit("sharded_ranks", decomposition="macro", matrix=name, ranks=n,
              dtype=str(dtype).replace("torch.", ""), c_nnz=want_nnz,
-             checked_against=f"scipy, {F64_SAMPLE_ROWS:,} sampled rows; "
-             "each rank's C against the fresh-form-plus-torch-add "
-             "composition under ==", values_worst_over_bound=over,
+             checked_against=f"scipy, {F64_SAMPLE_ROWS:,} sampled rows"
+             + (" of the bfloat16-rounded operands' product" if bf16
+                else "") + "; each rank's C against the "
+             "fresh-form-plus-torch-add composition under ==",
+             values_worst_over_bound=over,
              launches=launches, stages_with_pairs=stages,
              rank_stage_pairs=[list(p.stage_pairs) for p in plans],
              rank_pairs=[int(sum(p.stage_pairs)) for p in plans],
@@ -6132,16 +6199,18 @@ def sharded_macro_runs(mesh, check_err):
              rank_ms=times, rank_k4_ms=k4_ms, rank_local_macro_coo_ms=coo_ms,
              rank_launches=rank_launches, carried_masks_checked=carried,
              rank_ring_peak_mem_gb=peaks, **held,
+             **({"widening": ring_widening(plans[0])} if bf16 else {}),
              load_balance=balance(times))
         entry = "macro_accumulate_pairs_f64_acc" if f64 else \
             "macro_accumulate_pairs_acc"
-        rows_out.append(acc_row(
-            plans, name, launches.get(entry, 0), check_err,
-            extra=None if f64 else {"at_world_size_1_stream": ws1}))
+        if not bf16:
+            rows_out.append(acc_row(
+                plans, name, launches.get(entry, 0), check_err,
+                extra=None if f64 else {"at_world_size_1_stream": ws1}))
         if f64:
             rows_out.append(masks_row(
                 plans, launches.get("macro_tile_masks_f64", 0), True))
-        else:
+        elif not bf16:
             RING_HIGHEST_LAUNCHES.update(launches)
         del plans
         torch.cuda.empty_cache()
@@ -6161,7 +6230,7 @@ def check_f32_rows(got, want, what):
     return over
 
 
-def tile16_composition(p, chunks):
+def tile16_composition(p, chunks, acc_dtype=torch.float32):
     """(values (nnz_cap,), ms, peak GB) of a Tile16 ring rank composed as
     the parent composed it, from the kernel's fresh form: a zero C, each
     stage's fresh output added by torch, then the values at the rank's
@@ -6173,26 +6242,28 @@ def tile16_composition(p, chunks):
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    c = torch.zeros((p.c_cap, 16, 16), dtype=torch.float32, device=DEV)
+    c = torch.zeros((p.c_cap, 16, 16), dtype=acc_dtype, device=DEV)
     for s, b in enumerate(chunks):
         if p.stage_pairs[s]:
             c += tk.accumulate_dense(p.a_dense, b, p.pairs_a[s],
                                      p.pairs_b[s], p.seg[s], p.c_cap,
-                                     p.pairs_a.shape[1])
+                                     p.pairs_a.shape[1], acc_dtype)
     vals = N.extract_values(c, p.rowcol, p.elem_tile)
     torch.cuda.synchronize()
     return (vals, (time.perf_counter() - t0) * 1e3,
             (torch.cuda.max_memory_allocated() - before) / 2**30)
 
 
-def check_tile16_ring_launches(launches, plans, what, runs=1, planned=0):
+def check_tile16_ring_launches(launches, plans, what, runs=1, planned=0,
+                               f64=False):
     """One kernel launch a stage with pairs (``runs`` times): the first of
-    each rank's in the fresh form, the others in the accumulate form; one
-    launch of each structure entry a plan made (``planned``); and no other
-    kernel of this package."""
+    each rank's in the fresh form, the others in the accumulate form (the
+    float64 entry's with ``f64``); one launch of each structure entry a
+    plan made (``planned``); and no other kernel of this package."""
     stages, first = ring_stage_counts(plans)
-    want = nonzero({"tile16_accumulate_pairs": runs * first,
-                    "tile16_accumulate_pairs_acc": runs * (stages - first),
+    entry = "tile16_accumulate_pairs" + ("_f64" if f64 else "")
+    want = nonzero({entry: runs * first,
+                    entry + "_acc": runs * (stages - first),
                     "tile16_c_masks": planned, "tile16_c_rowcol": planned})
     if launches != want:
         raise AssertionError(f"{what}: launches {launches}, {stages} "
@@ -6209,108 +6280,142 @@ def ring_plan_split(a, b, c_nnz):
     return split
 
 
+# the Tile16 ring's runs: (table dtype, acc_dtype)
+TILE16_RING_DTYPES = ((torch.float32, torch.float32),
+                      (torch.bfloat16, torch.float32),
+                      (torch.float64, torch.float64))
+
+
 def sharded_tile16_runs(ref, mesh, check_err):
     """pairbands-500k: the Tile16 ring at world size 1 over NCCL (one
     fresh kernel launch), then the 4-rank replay (one launch a stage with
     pairs: a rank's first in the fresh form, the others in the accumulate
-    form); scipy's sorted COO, values within the float32 bound, and each
-    rank's values equal under == to the composition the accumulate form
-    replaces (tile16_composition), timed beside it in this call.  Returns
-    the accumulate form's row."""
+    form), on float32 tables, on bfloat16 ones (accumulated in float32: the
+    float32 entry reads them as they lie) and on float64 ones accumulated
+    in float64 (the float64 entry, fresh and accumulate forms); scipy's
+    sorted COO (of the bfloat16-rounded operands for bfloat16), values
+    within the float32 bound (float64 bound in float64), and each rank's
+    values equal under == to the composition the accumulate form replaces
+    (tile16_composition), timed beside it in this call.  Returns the
+    accumulate forms' rows, float32 and float64."""
     from pem_spgemm_tpu_torch.parallel import sharded as sh
     name = TILE16_MATRIX
     want_nnz = DIA_RECORDED[name][0]
     coo = banded_device(**DIA_MATRICES[name])
-    a = coo_to_tiled(coo)
-    b = coo_to_tiled(coo, with_tmasks=True)
-    reset_launch_counts()
-    plan, plan_ms = synced_ms(lambda: sh.plan_sharded_spgemm(a, b, 1, 0))
-    sh.sharded_numeric(plan, mesh)                   # first: warms up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    before = torch.cuda.memory_allocated()
-    vals, mul_ms = synced_ms(lambda: sh.sharded_numeric(plan, mesh))
-    ring_peak = (torch.cuda.max_memory_allocated() - before) / 2**30
-    (rows, cols, vals_h), asm_ms = synced_ms(
-        lambda: sh.assemble_sharded(plan, vals, mesh))
-    launches = nonzero(all_counts())
-    add_path_launches("sharded_path", launches)
-    stages = check_tile16_ring_launches(launches, [plan], "tile16 ring",
-                                        runs=2, planned=1)
-    if plan.c_nnz != want_nnz:
-        raise AssertionError(f"tile16 ring: C_nnz {plan.c_nnz}")
-    _cancelled, over = check_coo(rows, cols, vals_h, ref, "tile16 ring")
-    comp, comp_ms, comp_peak = tile16_composition(plan, [plan.b_dense])
-    if not same_values(vals, comp):
-        raise AssertionError("tile16 ring: values differ from the "
-                             "composition's")
-    emit("sharded_path", decomposition="tile16", matrix=name, world_size=1,
-         c_nnz=plan.c_nnz, checked_against="scipy, every entry; the "
-         "fresh-form-plus-torch-add composition under ==",
-         values_worst_over_bound=over, launches=launches,
-         stages_with_pairs=stages, plan_ms=plan_ms,
-         plan_split_ms=ring_plan_split(a, b, plan.c_nnz),
-         plan_split="median of 3 plans after one warm-up, synchronised "
-                    "host clocks (bench/tiers_ab.py ring_plan_split)",
-         multiply_ms=mul_ms,
-         ring_peak_mem_gb=ring_peak, composition_ms=comp_ms,
-         composition_peak_mem_gb=comp_peak, assemble_ms=asm_ms)
-    del rows, cols, vals, vals_h, comp
-    plan1 = plan
-    torch.cuda.empty_cache()
-    n = SHARDED_RANKS
-    plans, plan_ms = [], []
-    for d in range(n):
-        p, ms = synced_ms(lambda: sh.plan_sharded_spgemm(a, b, n, d))
-        plans.append(p)
-        plan_ms.append(ms)
-    for d in range(n):                              # warm-up, not counted
-        sh.replay_numeric(plans, d)
-    reset_launch_counts()
-    parts, num_ms, coo_ms, outs = [], [], [], []
-    for d, p in enumerate(plans):
-        v, ms = synced_ms(lambda: sh.replay_numeric(plans, d))
-        part, ms_coo = synced_ms(lambda: sh.local_coo(p, v))
-        outs.append(v)
-        parts.append(part)
-        num_ms.append(ms)
-        coo_ms.append(ms_coo)
-    launches = nonzero(all_counts())
-    add_path_launches("sharded_ranks", launches)
-    stages = check_tile16_ring_launches(launches, plans, "tile16 replay")
-    rows, cols, vals = union_sorted(parts)
-    del parts
-    if len(rows) != want_nnz:
-        raise AssertionError(f"tile16 replay: C_nnz {len(rows)}")
-    _cancelled, over = check_coo(rows.cpu().numpy(), cols.cpu().numpy(),
-                                 vals.cpu().numpy(), ref, "tile16 replay")
-    del rows, cols, vals
-    comp_ms, comp_peak = [], []
-    for d, (p, got) in enumerate(zip(plans, outs)):
-        want, ms, peak = tile16_composition(p, sh.replay_chunks(plans, d))
-        if not same_values(got, want):
-            raise AssertionError(f"tile16 replay, rank {d}: values differ "
-                                 "from the composition's")
-        comp_ms.append(ms)
-        comp_peak.append(peak)
-    del outs
-    times = [x + y for x, y in zip(num_ms, coo_ms)]
-    emit("sharded_ranks", decomposition="tile16", matrix=name, ranks=n,
-         c_nnz=want_nnz, checked_against="scipy, every entry; each rank's "
-         "values against the fresh-form-plus-torch-add composition under ==",
-         values_worst_over_bound=over, launches=launches,
-         stages_with_pairs=stages,
-         rank_stage_pairs=[list(p.stage_pairs) for p in plans],
-         rank_pairs=[int(sum(p.stage_pairs)) for p in plans],
-         rank_c_cap=[p.c_cap for p in plans], rank_plan_ms=plan_ms,
-         rank_ms=times, rank_numeric_ms=num_ms, rank_local_coo_ms=coo_ms,
-         rank_composition_ms=comp_ms,
-         rank_composition_peak_mem_gb=comp_peak, load_balance=balance(times))
-    row = tile16_acc_row(plans, plan1, check_err)
-    row["launches"] = launches.get("tile16_accumulate_pairs_acc", 0)
-    del plans, plan1
-    torch.cuda.empty_cache()
-    return row
+    rows_out = []
+    for dtype, acc in TILE16_RING_DTYPES:
+        f64 = acc == torch.float64
+        label = {torch.float32: "", torch.bfloat16: ", bf16",
+                 torch.float64: ", float64"}[dtype]
+        dref = bf16_reference(coo) if dtype == torch.bfloat16 else ref
+        a = coo_to_tiled(coo, dtype=dtype)
+        b = coo_to_tiled(coo, dtype=dtype, with_tmasks=True)
+        what = "tile16 ring" + label
+        reset_launch_counts()
+        plan, plan_ms = synced_ms(lambda: sh.plan_sharded_spgemm(a, b, 1, 0))
+        sh.sharded_numeric(plan, mesh, acc_dtype=acc)    # first: warms up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        vals, mul_ms = synced_ms(lambda: sh.sharded_numeric(plan, mesh,
+                                                            acc_dtype=acc))
+        ring_peak = (torch.cuda.max_memory_allocated() - before) / 2**30
+        (rows, cols, vals_h), asm_ms = synced_ms(
+            lambda: sh.assemble_sharded(plan, vals, mesh))
+        launches = nonzero(all_counts())
+        add_path_launches("sharded_path", launches)
+        stages = check_tile16_ring_launches(launches, [plan], what, runs=2,
+                                            planned=1, f64=f64)
+        if plan.c_nnz != want_nnz or vals.dtype != acc:
+            raise AssertionError(f"{what}: C_nnz {plan.c_nnz}, values "
+                                 f"{vals.dtype}")
+        _cancelled, over = check_coo(rows, cols, vals_h, dref, what, f64)
+        comp, comp_ms, comp_peak = tile16_composition(plan, [plan.b_dense],
+                                                      acc)
+        if not same_values(vals, comp):
+            raise AssertionError(f"{what}: values differ from the "
+                                 "composition's")
+        split = {} if dtype != torch.float32 else dict(
+            plan_split_ms=ring_plan_split(a, b, plan.c_nnz),
+            plan_split="median of 3 plans after one warm-up, synchronised "
+                       "host clocks (bench/tiers_ab.py ring_plan_split)")
+        emit("sharded_path", decomposition="tile16", matrix=name,
+             world_size=1, dtype=str(dtype).replace("torch.", ""),
+             acc_dtype=str(acc).replace("torch.", ""), c_nnz=plan.c_nnz,
+             checked_against="scipy, every entry"
+             + (" of the bfloat16-rounded operands' product"
+                if dtype == torch.bfloat16 else "")
+             + "; the fresh-form-plus-torch-add composition under ==",
+             values_worst_over_bound=over, launches=launches,
+             stages_with_pairs=stages, plan_ms=plan_ms, **split,
+             multiply_ms=mul_ms, ring_peak_mem_gb=ring_peak,
+             composition_ms=comp_ms, composition_peak_mem_gb=comp_peak,
+             assemble_ms=asm_ms)
+        del rows, cols, vals, vals_h, comp
+        plan1 = plan
+        torch.cuda.empty_cache()
+        n = SHARDED_RANKS
+        plans, plan_ms = [], []
+        for d in range(n):
+            p, ms = synced_ms(lambda: sh.plan_sharded_spgemm(a, b, n, d))
+            plans.append(p)
+            plan_ms.append(ms)
+        del a, b
+        for d in range(n):                          # warm-up, not counted
+            sh.replay_numeric(plans, d, acc_dtype=acc)
+        reset_launch_counts()
+        parts, num_ms, coo_ms, outs = [], [], [], []
+        for d, p in enumerate(plans):
+            v, ms = synced_ms(lambda: sh.replay_numeric(plans, d,
+                                                        acc_dtype=acc))
+            part, ms_coo = synced_ms(lambda: sh.local_coo(p, v))
+            outs.append(v)
+            parts.append(part)
+            num_ms.append(ms)
+            coo_ms.append(ms_coo)
+        launches = nonzero(all_counts())
+        add_path_launches("sharded_ranks", launches)
+        what = "tile16 replay" + label
+        stages = check_tile16_ring_launches(launches, plans, what, f64=f64)
+        rows, cols, vals = union_sorted(parts)
+        del parts
+        if len(rows) != want_nnz:
+            raise AssertionError(f"{what}: C_nnz {len(rows)}")
+        _cancelled, over = check_coo(rows.cpu().numpy(), cols.cpu().numpy(),
+                                     vals.cpu().numpy(), dref, what, f64)
+        del rows, cols, vals
+        comp_ms, comp_peak = [], []
+        for d, (p, got) in enumerate(zip(plans, outs)):
+            want, ms, peak = tile16_composition(p, sh.replay_chunks(plans, d),
+                                                acc)
+            if not same_values(got, want):
+                raise AssertionError(f"{what}, rank {d}: values differ from "
+                                     "the composition's")
+            comp_ms.append(ms)
+            comp_peak.append(peak)
+        del outs
+        times = [x + y for x, y in zip(num_ms, coo_ms)]
+        emit("sharded_ranks", decomposition="tile16", matrix=name, ranks=n,
+             dtype=str(dtype).replace("torch.", ""),
+             acc_dtype=str(acc).replace("torch.", ""), c_nnz=want_nnz,
+             checked_against="scipy, every entry; each rank's values "
+             "against the fresh-form-plus-torch-add composition under ==",
+             values_worst_over_bound=over, launches=launches,
+             stages_with_pairs=stages,
+             rank_stage_pairs=[list(p.stage_pairs) for p in plans],
+             rank_pairs=[int(sum(p.stage_pairs)) for p in plans],
+             rank_c_cap=[p.c_cap for p in plans], rank_plan_ms=plan_ms,
+             rank_ms=times, rank_numeric_ms=num_ms, rank_local_coo_ms=coo_ms,
+             rank_composition_ms=comp_ms,
+             rank_composition_peak_mem_gb=comp_peak,
+             load_balance=balance(times))
+        if dtype != torch.bfloat16:
+            row = tile16_acc_row(plans, plan1, check_err, acc)
+            row["launches"] = launches.get(row["name"], 0)
+            rows_out.append(row)
+        del plans, plan1
+        torch.cuda.empty_cache()
+    return rows_out
 
 
 def phase_sharded(coo_pl, want_pl, pairbands_ref, check_err=None):
@@ -6323,7 +6428,7 @@ def phase_sharded(coo_pl, want_pl, pairbands_ref, check_err=None):
     ranks cannot share one card; the exchange itself is carried by the
     gloo tests).  Returns the kernels-line rows of K4's accumulate form
     at "highest" and in float64, and of the Tile16 kernel's accumulate
-    form."""
+    form in float32 and in float64."""
     from pem_spgemm_tpu_torch.parallel import distributed as PD
     t0 = time.perf_counter()
     PD.initialize(init_method=f"tcp://localhost:{free_port()}",
@@ -6338,8 +6443,7 @@ def phase_sharded(coo_pl, want_pl, pairbands_ref, check_err=None):
         torch.cuda.empty_cache()
         rows = sharded_macro_runs(mesh, check_err or {})
         torch.cuda.empty_cache()
-        rows.append(sharded_tile16_runs(pairbands_ref, mesh,
-                                        check_err or {}))
+        rows += sharded_tile16_runs(pairbands_ref, mesh, check_err or {})
     finally:
         torch.distributed.destroy_process_group()
     torch.cuda.empty_cache()
@@ -6882,18 +6986,18 @@ def main():
         row["launches_by_path"] = {path: counts.get(row["name"], 0)
                                    for path, counts in
                                    NEW_PATH_LAUNCHES.items()}
+        if row["name"] == "tile16_accumulate_pairs_f64":
+            # its fresh form's one caller: a float64 Tile16 ring rank's
+            # first stage (phases sharded_path and sharded_ranks)
+            row["launches"] += sum(row["launches_by_path"].values())
     for row in kernels:
         # the uniform class entry has no caller on any path (nor has the
         # kernel it replaces in the JAX package), nor has the row-copy
-        # probe, nor the Tile16 float64 entry's fresh forms (the fused
-        # engine's float64 step runs its masks form, and no float64 path
-        # runs the masks engine): each is held against its plain version
-        # (the uniform entry also against the ragged one, the Tile16 forms
-        # against each other) and reports its count from the path runs as
-        # measured, 0 today
+        # probe: each is held against its plain version (the uniform entry
+        # also against the ragged one) and reports its count from the path
+        # runs as measured, 0 today
         if row["launches"] <= 0 and row["name"].split("@")[0] not in (
-                "macro_class_uniform", "row_copy",
-                "tile16_accumulate_pairs_f64"):
+                "macro_class_uniform", "row_copy"):
             raise AssertionError(f"{row['name']} was never launched on "
                                  "the main path")
     emit("total", seconds=time.perf_counter() - t_start)

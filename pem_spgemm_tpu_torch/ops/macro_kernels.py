@@ -228,11 +228,15 @@ class TableMasks:
     plain version on the CPU) and the entries' later launches read them
     with their ready flag set.  ``words`` may be received from another
     rank (the Macro128 ring passes a chunk's masks with the chunk): the
-    receiver sets ``ready``."""
+    receiver sets ``ready``.  A bfloat16 table's masks are those of its
+    float32 copy, in the float32 layout (a bfloat16 value is zero, or
+    marked, exactly where its float32 copy is): ``make`` reads the copy,
+    and the Macro128 ring carries them with a bfloat16 chunk for the
+    float32 buffer K4 reads it from."""
 
     def __init__(self, table):
         _check_tiles(table, "table")
-        if table.dtype not in (torch.float32, torch.float64):
+        if table.dtype not in (torch.float32, torch.float64, torch.bfloat16):
             raise NotImplementedError(f"masks of {table.dtype} tiles")
         self.table = table
         words = F64_MASK_WORDS if table.dtype == torch.float64 else TM_WORDS
@@ -248,6 +252,8 @@ class TableMasks:
     def make(self):
         """Make the masks of the table now; returns self."""
         t = self.table
+        if t.dtype == torch.bfloat16:
+            t = t.to(torch.float32)
         if not t.is_cuda:
             self.words.copy_(tile_masks_plain(t))
         elif t.shape[0]:

@@ -152,9 +152,9 @@ def _entry_dtypes(table_dtype, acc_dtype):
             and acc_dtype == torch.float32:
         return torch.float32, table_dtype == torch.bfloat16
     raise NotImplementedError(
-        f"{table_dtype} tiles accumulated in {acc_dtype} on the GPU: the "
-        "Tile16 kernel takes float32 or bfloat16 tiles into float32, or "
-        "float64 tiles into float64")
+        f"{table_dtype} tiles accumulated in {acc_dtype}: the Tile16 kernel "
+        "takes float32 or bfloat16 tiles into float32, or float64 tiles "
+        "into float64")
 
 
 def _value_dtype(a, b, acc_dtype):

@@ -21,6 +21,15 @@ into that C (the accumulate form), as the JAX ring's
 ``c_dense.at[sg].add`` adds into the loop-carried C; no partial C.
 Padding pairs target C tile ``c_cap``, which the kernel never reads, as in
 the JAX plan.
+
+The tables keep the operands' dtype, as the JAX plan's do, so a bfloat16
+chunk goes round the ring in bfloat16.  The stages accumulate in
+``acc_dtype``, as the JAX ring's ``sharded_numeric(..., acc_dtype)``:
+float32 for float32 tables and for bfloat16 ones (which the kernel's
+float32 entry reads as they lie: C is float32, not rounded to bfloat16),
+float64 for float64 tables (the kernel's float64 entry, fresh and
+accumulate forms).  The other pairings, which the JAX ring runs by
+casting the gathered tiles to ``acc_dtype``, raise.
 """
 
 from __future__ import annotations
@@ -41,7 +50,6 @@ from pem_spgemm_tpu_torch.parallel.sharded_macro import (expand_schedule,
                                                          rank_tiles,
                                                          replay_chunks,
                                                          ring_chunks)
-
 
 @dataclasses.dataclass
 class ShardedPlan:
@@ -76,12 +84,16 @@ def plan_sharded_spgemm(a: TiledMatrix, b: TiledMatrix, n_devices: int,
     """Rank ``rank``'s plan: pair expansion, the ring schedule (computed
     whole, identically on every rank), the exact C structure, then this
     rank's stage tables, A slice, B chunk, element structure and C tile
-    coordinates.  Capacities are the JAX planner's."""
+    coordinates.  Capacities are the JAX planner's.  The tables keep the
+    operands' dtype (float32, bfloat16 or float64, both of one), as the
+    JAX plan's do: a bfloat16 chunk goes round the ring in bfloat16."""
     from pem_spgemm_tpu_torch.ops.convert import transpose_masks
-    if a.vals.dtype != torch.float32 or b.vals.dtype != torch.float32:
+    if a.vals.dtype not in (torch.float32, torch.bfloat16, torch.float64) \
+            or b.vals.dtype != a.vals.dtype:
         raise NotImplementedError(
             f"values of dtype {a.vals.dtype} / {b.vals.dtype}: the Tile16 "
-            "ring multiplies float32")
+            "ring takes float32, bfloat16 or float64 values, both of one "
+            "dtype")
     n, d = n_devices, rank
     if not 0 <= d < n:
         raise ValueError(f"rank {d} of {n}")
@@ -131,12 +143,19 @@ def plan_sharded_spgemm(a: TiledMatrix, b: TiledMatrix, n_devices: int,
         c_nnz_per_dev=nnz_dev, c_nnz=c_nnz, n_pairs=n_pairs)
 
 
-def local_numeric(plan: ShardedPlan, chunks, precision: str = "highest"):
-    """(nnz_cap,) float32 C values of this rank: one accumulation for each
-    stage that has pairs, on the chunk ``chunks`` yields for it.  The
+def local_numeric(plan: ShardedPlan, chunks, precision: str = "highest",
+                  acc_dtype=torch.float32):
+    """(nnz_cap,) acc_dtype C values of this rank: one accumulation for
+    each stage that has pairs, on the chunk ``chunks`` yields for it.  The
     first writes the rank's dense C tiles (the fresh form), each later one
     adds its products into that C (the accumulate form, ``out=``); zeros
-    where no stage has pairs.  Then the values at its C structure."""
+    where no stage has pairs.  Then the values at its C structure.
+    ``acc_dtype``: float32 for float32 and bfloat16 tables (bfloat16 ones
+    read as they lie: the values are float32, not rounded to bfloat16, as
+    the JAX ring's), float64 for float64 tables; the other pairings raise
+    on every device, as the kernel's entries refuse them."""
+    from pem_spgemm_tpu_torch.ops.tile16_kernels import _entry_dtypes
+    _entry_dtypes(plan.a_dense.dtype, acc_dtype)
     stage_cap = plan.pairs_a.shape[1]
     c_dense = None
     for s, b_cur in enumerate(chunks):
@@ -144,25 +163,27 @@ def local_numeric(plan: ShardedPlan, chunks, precision: str = "highest"):
             continue
         c_dense = numeric.accumulate_dense(
             plan.a_dense, b_cur, plan.pairs_a[s], plan.pairs_b[s],
-            plan.seg[s], plan.c_cap, stage_cap, torch.float32, precision,
+            plan.seg[s], plan.c_cap, stage_cap, acc_dtype, precision,
             out=c_dense)
     if c_dense is None:
-        c_dense = torch.zeros((plan.c_cap, 16, 16), dtype=torch.float32,
+        c_dense = torch.zeros((plan.c_cap, 16, 16), dtype=acc_dtype,
                               device=plan.a_dense.device)
     return numeric.extract_values(c_dense, plan.rowcol, plan.elem_tile)
 
 
 def sharded_numeric(plan: ShardedPlan, mesh: RankGroup | None = None,
-                    precision: str = "highest"):
-    """This rank's C values (nnz_cap,) of the ring multiply."""
+                    precision: str = "highest", acc_dtype=torch.float32):
+    """This rank's C values (nnz_cap,) acc_dtype of the ring multiply."""
     mesh = mesh or make_mesh()
     return local_numeric(plan, ring_chunks(plan.b_dense, plan.n_devices,
-                                           mesh), precision)
+                                           mesh), precision, acc_dtype)
 
 
-def replay_numeric(plans, d: int, precision: str = "highest"):
+def replay_numeric(plans, d: int, precision: str = "highest",
+                   acc_dtype=torch.float32):
     """Rank d's C values with its chunks read from every rank's plan."""
-    return local_numeric(plans[d], replay_chunks(plans, d), precision)
+    return local_numeric(plans[d], replay_chunks(plans, d), precision,
+                         acc_dtype)
 
 
 def local_coo(plan: ShardedPlan, vals):

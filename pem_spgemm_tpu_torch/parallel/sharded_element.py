@@ -94,11 +94,17 @@ def plan_sharded_element(a, b, n_devices: int, rank: int
     """Plan rank ``rank``'s shard of A @ B over ``n_devices`` column
     shards.  Every rank computes the same bounds and the same chunk width
     (B's whole, as ``binned.chunk_b(b).w`` gives it) and plans only its
-    own shard."""
-    if a.vals.dtype != torch.float32 or b.vals.dtype != torch.float32:
+    own shard.  float32 and bfloat16 values (both of one dtype): the
+    binned engine widens bfloat16 values to float32, as the JAX
+    decomposition does, and C is float32.  float64 raises: the JAX
+    decomposition computes float64 input in float32, which the port's
+    float64 parity mode does not do."""
+    if a.vals.dtype not in (torch.float32, torch.bfloat16) \
+            or b.vals.dtype != a.vals.dtype:
         raise NotImplementedError(
             f"values of dtype {a.vals.dtype} / {b.vals.dtype}: the sharded "
-            "element engine multiplies float32 (the binned engine's dtype)")
+            "element engine multiplies float32 or bfloat16 values (widened "
+            "to float32, the binned engine's dtype), both of one dtype")
     if not 0 <= rank < n_devices:
         raise ValueError(f"rank {rank} of {n_devices}")
     _rowptr, _rows, b_cols, _vals = b.element_csr()

@@ -22,6 +22,12 @@ INT32_MAX where the JAX layout pads with ``c_cap`` (the C tile it drops);
 the stable key sort keeps each stage's pairs ascending in C tile, which K4
 needs.
 
+bfloat16 tiles go round the ring as they lie, in bfloat16 as in the JAX
+ring (half the bytes of their float32 copies a stage); K4 takes float32
+or float64 tiles, so a rank widens each chunk it holds into one float32
+buffer before its stage, and its A slice once a plan (``local_macro``).
+C is float32, as the JAX stage's ``preferred_element_type``.
+
 Where a launch reads tile k-masks (on the card: float64 tables, float32
 ones at "high" / "default", and every accumulating stage, which runs only
 the k-slabs the masks call non-zero), a plan makes those of its A slice and
@@ -42,6 +48,7 @@ import numpy as np
 import torch
 
 from pem_spgemm_tpu_torch.config import round_up_bucket
+from pem_spgemm_tpu_torch.formats.coo import widened
 from pem_spgemm_tpu_torch.formats.macro import MacroMatrix
 from pem_spgemm_tpu_torch.ops import macro_kernels as mk
 from pem_spgemm_tpu_torch.ops import symbolic
@@ -228,11 +235,12 @@ def plan_sharded_macro(a: MacroMatrix, b: MacroMatrix, n_devices: int,
     every rank), then this rank's stage tables, A slice, B chunk and C tile
     coordinates.  Capacities are the JAX planner's: a_cap and stage_cap
     bucketed, c_cap the largest rank's C tile count."""
-    if a.dense.dtype not in (torch.float32, torch.float64) \
+    if a.dense.dtype not in (torch.float32, torch.float64, torch.bfloat16) \
             or b.dense.dtype != a.dense.dtype:
         raise NotImplementedError(
             f"tiles of dtype {a.dense.dtype} / {b.dense.dtype}: the macro "
-            "ring takes float32 (or float64) tiles, both of one dtype")
+            "ring takes float32, float64 or bfloat16 tiles, both of one "
+            "dtype")
     n, d = n_devices, rank
     if not 0 <= d < n:
         raise ValueError(f"rank {d} of {n}")
@@ -258,15 +266,24 @@ def plan_sharded_macro(a: MacroMatrix, b: MacroMatrix, n_devices: int,
         n_pairs=n_pairs)
 
 
+def acc_slice(plan: ShardedMacroPlan) -> torch.Tensor:
+    """The plan's A slice as K4 takes it: ``a_dense`` itself, or for
+    bfloat16 tiles its float32 copy, made once a plan and cached on it
+    (``formats.coo.widened``)."""
+    return widened(plan, "_a_acc", plan.a_dense)
+
+
 def plan_masks(plan: ShardedMacroPlan):
     """(A slice's, B chunk's) ``TableMasks`` of the plan, made once: the
     first call makes them (one launch a table on the card, the plain
     version on the CPU), later ones return the same (made anew only if the
-    plan's tables were replaced)."""
+    plan's tables were replaced).  The A slice's are those of the table K4
+    reads (``acc_slice``); a bfloat16 chunk's are made from its float32
+    copy (``TableMasks``)."""
     m = plan.masks
-    if m is None or not (m[0].matches(plan.a_dense)
-                         and m[1].matches(plan.b_dense)):
-        plan.masks = m = (mk.TableMasks(plan.a_dense).make(),
+    a = acc_slice(plan)
+    if m is None or not (m[0].matches(a) and m[1].matches(plan.b_dense)):
+        plan.masks = m = (mk.TableMasks(a).make(),
                           mk.TableMasks(plan.b_dense).make())
     return m
 
@@ -311,25 +328,43 @@ def local_macro(plan: ShardedMacroPlan, chunks, precision: str = "highest"):
     into that C and ORs its flags in (the accumulate form, ``out=``).
     Where the launch reads tile masks, every stage gets the A slice's
     (plan_masks) and the chunk's it was handed (none: the launch makes
-    them).  Zeros where no stage has pairs."""
+    them).  Zeros where no stage has pairs.
+
+    bfloat16 tiles run as float32 copies, as on one card, and C is
+    float32 (the JAX stage's ``preferred_element_type``): the A slice's is
+    made once a plan (``acc_slice``), and each bfloat16 chunk is widened
+    into one float32 buffer kept for the run, with the masks it was handed
+    as that buffer's.  The launches run in stream order, so a stage's
+    widening waits for the K4 launch before it."""
     from pem_spgemm_tpu_torch.ops.macro_kernels import accumulate_macro_pairs
-    out = None
+    a_acc = acc_slice(plan)
+    out = wide = None
     chunk = min(256, plan.pairs_a.shape[1])
     for s, item in enumerate(chunks):
         b_cur, b_masks = item if isinstance(item, tuple) else (item, None)
         if plan.stage_pairs[s] == 0:
             continue
-        masks = mk.TileMasks(plan.a_dense, b_cur, a=plan_masks(plan)[0],
+        if b_cur.dtype == torch.bfloat16:
+            if wide is None or wide.shape != b_cur.shape:
+                wide = torch.empty(b_cur.shape, dtype=torch.float32,
+                                   device=b_cur.device)
+                wide_masks = mk.TableMasks(wide)
+            b_cur = wide.copy_(b_cur)
+            if b_masks is not None:
+                wide_masks.words, wide_masks.ready = (b_masks.words,
+                                                      b_masks.ready)
+                b_masks = wide_masks
+        masks = mk.TileMasks(a_acc, b_cur, a=plan_masks(plan)[0],
                              b=b_masks) \
             if mk.reads_masks(b_cur, precision, out is not None) else None
         out = accumulate_macro_pairs(
-            plan.a_dense, b_cur, plan.pairs_a[s], plan.pairs_b[s],
+            a_acc, b_cur, plan.pairs_a[s], plan.pairs_b[s],
             plan.seg[s], plan.c_cap, chunk=chunk, precision=precision,
             tile_masks=masks, out=out)
     if out is None:
         dev = plan.a_dense.device
-        out = (torch.zeros((plan.c_cap, TILE, TILE),
-                           dtype=plan.a_dense.dtype, device=dev),
+        out = (torch.zeros((plan.c_cap, TILE, TILE), dtype=a_acc.dtype,
+                           device=dev),
                torch.zeros((plan.c_cap, TILE, TILE), dtype=torch.uint8,
                            device=dev))
     return out

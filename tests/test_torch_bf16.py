@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_util import one_torch_thread, xla_unoptimized
 from pem_spgemm_tpu.config import SpGEMMConfig as JConfig
 from pem_spgemm_tpu.formats.coo import COOMatrix as JCOO
 from pem_spgemm_tpu.models.synthetic import banded as j_banded
@@ -45,6 +46,9 @@ from pem_spgemm_tpu_torch.ops.convert import coo_to_macro, coo_to_tiled
 from pem_spgemm_tpu_torch.ops.dia import coo_to_dia, make_dia_plan
 from pem_spgemm_tpu_torch.ops.fixed import MacroPlan, make_plan
 from pem_spgemm_tpu_torch.ops.spgemm import SpGEMM
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__,
+                                     xla_unoptimized.__name__)
 
 CPU = "cpu"
 BF = torch.bfloat16

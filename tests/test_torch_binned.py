@@ -12,11 +12,13 @@ the device plan itself.
 
 import jax
 import numpy as np
+import pytest
 import scipy.sparse as sp
 import torch
 
 from conftest import random_sparse
-from test_torch_util import both_tiled, scipy_product, to_np
+from test_torch_util import (both_tiled, one_torch_thread, scipy_product,
+                             to_np, xla_unoptimized)
 from pem_spgemm_tpu.formats.coo import COOMatrix as JCOO
 from pem_spgemm_tpu.models.synthetic import power_law
 from pem_spgemm_tpu.ops import binned as jb
@@ -25,6 +27,9 @@ from pem_spgemm_tpu_torch.config import SpGEMMConfig as TConfig
 from pem_spgemm_tpu_torch.ops import binned as tb
 from pem_spgemm_tpu_torch.ops import segment_sort as ss
 from pem_spgemm_tpu_torch.ops.spgemm import SpGEMM as TSpGEMM
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__,
+                                     xla_unoptimized.__name__)
 
 
 def _coo_of(stream):

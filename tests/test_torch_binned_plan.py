@@ -10,11 +10,15 @@ import pytest
 import scipy.sparse as sp
 
 from conftest import random_sparse
-from test_torch_util import assert_same, both_tiled
+from test_torch_util import (assert_same, both_tiled, one_torch_thread,
+                             xla_unoptimized)
 from pem_spgemm_tpu.formats.coo import COOMatrix as JCOO
 from pem_spgemm_tpu.models.synthetic import power_law
 from pem_spgemm_tpu.ops import binned as jb
 from pem_spgemm_tpu_torch.ops import binned as tb
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__,
+                                     xla_unoptimized.__name__)
 
 
 def _hub_matrix():

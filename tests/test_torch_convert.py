@@ -7,7 +7,8 @@ import pytest
 import torch
 
 from conftest import random_sparse
-from test_torch_util import assert_same, both_coo, both_tiled
+from test_torch_util import (assert_same, both_coo, both_tiled,
+                             one_torch_thread, xla_unoptimized)
 from pem_spgemm_tpu.formats.coo import COOMatrix as JCOO
 from pem_spgemm_tpu.models.synthetic import power_law
 from pem_spgemm_tpu.ops import scanops as j_scanops
@@ -18,6 +19,9 @@ from pem_spgemm_tpu_torch.ops import scanops as t_scanops
 from pem_spgemm_tpu_torch.ops.convert import coo_to_tiled as t_coo_to_tiled
 from pem_spgemm_tpu_torch.ops.convert import transpose_masks \
     as t_transpose_masks
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__,
+                                     xla_unoptimized.__name__)
 
 
 def _matrix(kind):

@@ -7,12 +7,16 @@ import pytest
 import torch
 
 from conftest import random_sparse
+from test_torch_util import one_torch_thread, xla_unoptimized
 from pem_spgemm_tpu.formats.coo import COOMatrix as JCOO
 from pem_spgemm_tpu.ops.csr import csr_spgemm as j_csr_spgemm
 from pem_spgemm_tpu_torch import SpGEMM, SpGEMMConfig
 from pem_spgemm_tpu_torch.formats.coo import COOMatrix
 from pem_spgemm_tpu_torch.ops.convert import coo_to_tiled
 from pem_spgemm_tpu_torch.ops.csr import csr_spgemm
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__,
+                                     xla_unoptimized.__name__)
 
 CPU = "cpu"
 

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_util import one_torch_thread, xla_unoptimized
 from pem_spgemm_tpu.config import SpGEMMConfig as JConfig
 from pem_spgemm_tpu.formats.coo import COOMatrix as JCOO
 from pem_spgemm_tpu.ops import dia as j_dia
@@ -30,6 +31,9 @@ from pem_spgemm_tpu_torch.ops.dia import (_dia_multiply_torch, _plan_maps,
                                           diag_offsets, make_dia_plan)
 from pem_spgemm_tpu_torch.ops.fixed import make_plan
 from pem_spgemm_tpu_torch.ops.spgemm import SpGEMM
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__,
+                                     xla_unoptimized.__name__)
 
 CPU = "cpu"
 PAIRBANDS = (0, 1, 60, 61, -60, -61, 120, 121, -120, -121)

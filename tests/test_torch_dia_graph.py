@@ -30,12 +30,16 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_util import one_torch_thread, xla_unoptimized
 from pem_spgemm_tpu.formats.coo import COOMatrix as JCOO
 from pem_spgemm_tpu.ops import dia as j_dia
 from pem_spgemm_tpu_torch.formats.coo import COOMatrix
 from pem_spgemm_tpu_torch.ops.dia import (_hold, _plan_maps, coo_to_dia,
                                           graph_step, make_dia_plan,
                                           operand_key, same_operand)
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__,
+                                     xla_unoptimized.__name__)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = "cpu"

@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_util import one_torch_thread, xla_unoptimized
 from pem_spgemm_tpu import SpGEMM as JSpGEMM, SpGEMMConfig as JConfig
 from pem_spgemm_tpu.bench.harness import run_benchmark as j_run_benchmark
 from pem_spgemm_tpu.formats.coo import COOMatrix as JCOO
@@ -17,6 +18,9 @@ from pem_spgemm_tpu_torch import SpGEMM, SpGEMMConfig
 from pem_spgemm_tpu_torch.bench.harness import run_benchmark
 from pem_spgemm_tpu_torch.formats.coo import COOMatrix
 from pem_spgemm_tpu_torch.ops.convert import coo_to_macro, coo_to_tiled
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__,
+                                     xla_unoptimized.__name__)
 
 CPU = "cpu"
 

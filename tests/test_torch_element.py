@@ -17,13 +17,16 @@ import pytest
 import torch
 
 from conftest import random_sparse
-from test_torch_util import both_tiled
+from test_torch_util import both_tiled, one_torch_thread, xla_unoptimized
 from pem_spgemm_tpu.formats.coo import COOMatrix as JCOO
 from pem_spgemm_tpu.models.synthetic import power_law
 from pem_spgemm_tpu.ops import element as JE
 from pem_spgemm_tpu.ops import scanops as JS
 from pem_spgemm_tpu_torch.ops import element as TE
 from pem_spgemm_tpu_torch.ops import scanops as TS
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__,
+                                     xla_unoptimized.__name__)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MAX = 0x7FFFFFFF

@@ -12,8 +12,11 @@ scipy's and to the JAX package's, a relative error under 1e-12.
 
 x64 is process-global, so the JAX references come from ONE subprocess for
 this file (a module-scoped fixture) with JAX_ENABLE_X64=1 and
-JAX_PLATFORMS=cpu in its environment, as tests/test_f64.py does."""
+JAX_PLATFORMS=cpu in its environment, as tests/test_f64.py does; it also
+runs the JAX Tile16 ring on float64 tiles (acc_dtype float64) on four of
+the virtual CPU devices, for the port's float64 ring."""
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -23,6 +26,7 @@ import pytest
 import scipy.sparse as sp
 import torch
 
+from test_torch_util import one_torch_thread, xla_unoptimized
 from pem_spgemm_tpu_torch import (SpGEMM, SpGEMMConfig, coo_to_dia,
                                   coo_to_macro, coo_to_tiled, interop)
 from pem_spgemm_tpu_torch.bench.harness import run_benchmark
@@ -30,6 +34,9 @@ from pem_spgemm_tpu_torch.formats.coo import COOMatrix
 from pem_spgemm_tpu_torch.ops.element import compact_stream
 from pem_spgemm_tpu_torch.ops.fixed import ElementPlan, MacroPlan, make_plan
 from pem_spgemm_tpu_torch.utils.csv_report import CSV_HEADER
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__,
+                                     xla_unoptimized.__name__)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = "cpu"
@@ -91,6 +98,17 @@ for engine in ("element", "dia", "macro", "fused", "masks"):
         for i, f in enumerate(("rows", "cols", "vals", "first", "c_nnz",
                                "overflow")):
             out["fixed_" + f] = np.asarray(fixed[i])
+# the Tile16 ring on 4 devices, float64 tiles accumulated in float64
+import dataclasses
+from pem_spgemm_tpu.parallel.sharded import (make_mesh, plan_sharded_spgemm,
+                                             sharded_numeric)
+coo = COOMatrix(d["m_rows"], d["m_cols"], d["m_vals"], tuple(d["m_shape"]))
+a = coo_to_tiled(coo, dtype=jnp.float64)
+b = coo_to_tiled(coo, dtype=jnp.float64, with_tmasks=True)
+plan = plan_sharded_spgemm(a, b, 4)
+out["ring_vals"] = sharded_numeric(plan, make_mesh(4), acc_dtype=jnp.float64)
+for f in dataclasses.fields(plan):
+    out["ring_plan_" + f.name] = np.asarray(getattr(plan, f.name))
 np.savez(sys.argv[2], **out)
 print("ok")
 """
@@ -175,6 +193,51 @@ def test_f64_matches_the_jax_package_in_x64(engine, x64):
     assert x64[engine + "_vals"].dtype == np.float64
     np.testing.assert_allclose(got.vals, x64[engine + "_vals"], rtol=1e-12,
                                atol=1e-300)
+
+
+def test_f64_tile16_ring_matches_the_jax_ring_in_x64(x64):
+    """The Tile16 ring on float64 tiles with acc_dtype float64: the port's
+    rank plans are the rows of the JAX 4-device plan (x64), and each rank
+    of that plan, carried across and replayed through the port's stage
+    loop (the float64 fresh form, then the accumulate form), gives that
+    device's float64 values of the JAX ring within 1e-12 * sum|a*b| (from
+    the same ring on |A| and |B|); the union is scipy's product."""
+    from pem_spgemm_tpu_torch.parallel import sharded
+    fields = {k[len("ring_plan_"):]: x64[k] for k in x64
+              if k.startswith("ring_plan_")}
+    n = int(fields["n_devices"])
+    jplans = [interop.sharded_plan_from_numpy(fields, d, CPU)
+              for d in range(n)]
+    m, _op = _operand("fused")
+    a = coo_to_tiled(_port_coo(m), dtype=torch.float64, device=CPU)
+    b = coo_to_tiled(_port_coo(m), dtype=torch.float64, with_tmasks=True,
+                     device=CPU)
+    for d, jp in enumerate(jplans):
+        own = sharded.plan_sharded_spgemm(a, b, n, d)
+        assert own.a_dense.dtype == jp.a_dense.dtype == torch.float64
+        assert (own.c_cap, own.c_nnz, own.stage_pairs) == (
+            jp.c_cap, jp.c_nnz, jp.stage_pairs)
+        for k in ("pairs_a", "pairs_b", "seg", "rowcol", "elem_tile",
+                  "c_tile_row", "c_tile_col", "a_dense", "b_dense"):
+            assert torch.equal(getattr(own, k), getattr(jp, k)), (k, d)
+    mags = [dataclasses.replace(p, a_dense=p.a_dense.abs(),
+                                b_dense=p.b_dense.abs()) for p in jplans]
+    f64 = torch.float64
+    parts = []
+    for d, p in enumerate(jplans):
+        got = sharded.replay_numeric(jplans, d, acc_dtype=f64)
+        mag = sharded.replay_numeric(mags, d, acc_dtype=f64).numpy()
+        want = x64["ring_vals"][d]
+        assert got.dtype == f64 and want.dtype == np.float64
+        assert np.all(np.abs(got.numpy() - want) <= 1e-12 * mag + 1e-300), d
+        parts.append(sharded.local_coo(p, got))
+    assert sum(sum(1 for x in p.stage_pairs if x) > 1 for p in jplans)
+    rows, cols, vals = (torch.cat(x) for x in zip(*parts))
+    order = torch.sort((rows << 32) | cols).indices
+    wr, wc, wv = _scipy(m)
+    np.testing.assert_array_equal(rows[order].numpy(), wr)
+    np.testing.assert_array_equal(cols[order].numpy(), wc)
+    assert _rel_err(vals[order].numpy(), wv) < 1e-12
 
 
 def test_f64_error_bound_table():

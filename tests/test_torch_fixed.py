@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from conftest import random_sparse
+from test_torch_util import one_torch_thread, xla_unoptimized
 from pem_spgemm_tpu.models.synthetic import power_law
 from pem_spgemm_tpu_torch import SpGEMM, SpGEMMConfig
 from pem_spgemm_tpu_torch.formats.coo import COOMatrix
@@ -19,6 +20,9 @@ from pem_spgemm_tpu_torch.ops.convert import coo_to_tiled
 from pem_spgemm_tpu_torch.ops.element import compact_stream
 from pem_spgemm_tpu_torch.ops.fixed import (BinnedElementPlan, ElementPlan,
                                             make_plan)
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__,
+                                     xla_unoptimized.__name__)
 
 CPU = "cpu"
 

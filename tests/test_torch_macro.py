@@ -14,7 +14,8 @@ import pytest
 import torch
 
 from conftest import random_sparse
-from test_torch_util import assert_same, both_coo, both_tiled, to_np
+from test_torch_util import (assert_same, both_coo, both_tiled,
+                             one_torch_thread, to_np, xla_unoptimized)
 from pem_spgemm_tpu import SpGEMM as JSpGEMM, SpGEMMConfig as JConfig
 from pem_spgemm_tpu.formats.coo import COOMatrix as JCOO
 from pem_spgemm_tpu.models.synthetic import (
@@ -32,6 +33,9 @@ from pem_spgemm_tpu_torch.ops import cstruct, macro, macro_kernels as mk, \
     scanops, symbolic
 from pem_spgemm_tpu_torch.ops.convert import coo_to_macro, tiled_to_macro
 from pem_spgemm_tpu_torch.ops.fixed import MacroPlan, make_plan
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__,
+                                     xla_unoptimized.__name__)
 
 
 def _blocks():

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_util import one_torch_thread, xla_unoptimized
 from pem_spgemm_tpu import config as j_config
 from pem_spgemm_tpu.formats.coo import COOMatrix as JCOO
 from pem_spgemm_tpu.models import synthetic as j_syn
@@ -23,6 +24,9 @@ from pem_spgemm_tpu_torch.ops import dia as t_dia
 from pem_spgemm_tpu_torch.utils import csv_report as t_csv
 from pem_spgemm_tpu_torch.utils import flops as t_flops
 from pem_spgemm_tpu_torch.utils.timing import PhaseTimers, force_sync
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__,
+                                     xla_unoptimized.__name__)
 
 
 def _same_coo(a, b):

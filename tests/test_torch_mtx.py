@@ -8,6 +8,7 @@ import os
 import numpy as np
 import pytest
 
+from test_torch_util import one_torch_thread, xla_unoptimized
 from pem_spgemm_tpu.io import mtx as j_mtx
 from pem_spgemm_tpu_torch.bench import cli
 from pem_spgemm_tpu_torch.formats.coo import COOMatrix
@@ -16,6 +17,9 @@ from pem_spgemm_tpu_torch.io.mtx import (read_matrix_market,
                                          save_result_files,
                                          write_matrix_market)
 from pem_spgemm_tpu_torch.ops import _build
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__,
+                                     xla_unoptimized.__name__)
 
 HEADERS = {
     "real_general": (

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_util import one_torch_thread, xla_unoptimized
 from pem_spgemm_tpu.io import persist as j_persist
 from pem_spgemm_tpu.models.synthetic import banded, power_law
 from pem_spgemm_tpu.ops.convert import coo_to_macro as j_coo_to_macro
@@ -18,6 +19,9 @@ from pem_spgemm_tpu_torch.formats.coo import COOMatrix
 from pem_spgemm_tpu_torch.io import persist
 from pem_spgemm_tpu_torch.ops.convert import coo_to_macro, coo_to_tiled
 from pem_spgemm_tpu_torch.ops.dia import coo_to_dia
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__,
+                                     xla_unoptimized.__name__)
 
 CPU = "cpu"
 FIELDS = {

@@ -14,9 +14,13 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_util import one_torch_thread, xla_unoptimized
 from pem_spgemm_tpu.ops import binned as jb
 from pem_spgemm_tpu.ops.pallas_sort import segment_sort_dedup as j_ssd
 from pem_spgemm_tpu_torch.ops import segment_sort as ss
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__,
+                                     xla_unoptimized.__name__)
 
 SENT = 0x7FFFFFFF
 

@@ -28,11 +28,15 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_util import one_torch_thread, xla_unoptimized
 from pem_spgemm_tpu.ops import binned as jb
 from pem_spgemm_tpu.ops.pallas_sort import segment_sort_dedup as j_ssd
 from pem_spgemm_tpu_torch.bench import k1_split
 from pem_spgemm_tpu_torch.ops import binned as tb
 from pem_spgemm_tpu_torch.ops import segment_sort as ss
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__,
+                                     xla_unoptimized.__name__)
 
 SENT = ss.SENTINEL
 T = ss.THREADS

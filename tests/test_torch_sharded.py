@@ -21,6 +21,8 @@ import pytest
 import torch
 
 from conftest import random_sparse
+from test_torch_util import (bf16_rounded, one_torch_thread,
+                             structural_product, xla_unoptimized)
 from pem_spgemm_tpu.formats.coo import COOMatrix as JCOO
 from pem_spgemm_tpu.models.synthetic import banded as j_banded
 from pem_spgemm_tpu.models.synthetic import power_law as j_power_law
@@ -42,6 +44,9 @@ from pem_spgemm_tpu_torch.config import SpGEMMConfig
 from pem_spgemm_tpu_torch.parallel import distributed as D
 from pem_spgemm_tpu_torch.parallel import launch, dryrun, sharded_dia
 from pem_spgemm_tpu_torch.parallel import sharded_element as se
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__,
+                                     xla_unoptimized.__name__)
 
 CPU = "cpu"
 RTOL, ATOL = 1e-5, 1e-6
@@ -70,6 +75,8 @@ CASES = {
                         b_coo=_triplets(AAT.T)),
     "dia": dict(kind="dia", coo=_triplets(DIA)),
     "ring_masks": dict(kind="ring_masks", coo=_triplets(RING)),
+    "element_aat_bf16": dict(kind="element", coo=_triplets(AAT),
+                             b_coo=_triplets(AAT.T), dtype=torch.bfloat16),
 }
 NAMES = list(CASES)
 
@@ -224,10 +231,82 @@ def test_sharded_dia_refuses_a_halo_wider_than_a_block():
 
 
 def test_sharded_element_refuses_other_dtypes():
-    a = coo_to_tiled(COOMatrix.from_scipy(AAT), dtype=torch.float64,
-                     device=CPU)
-    with pytest.raises(NotImplementedError, match="float64"):
-        se.plan_sharded_element(a, a, 2, 0)
+    """What the element decomposition still refuses: float64 (the JAX
+    decomposition computes float64 input in float32, which the port's
+    float64 parity mode does not do), integer values, and operands of two
+    dtypes."""
+    coo = COOMatrix.from_scipy(AAT)
+    a = coo_to_tiled(coo, device=CPU)
+    a64 = coo_to_tiled(coo, dtype=torch.float64, device=CPU)
+    a16 = coo_to_tiled(coo, dtype=torch.bfloat16, device=CPU)
+    ai = dataclasses.replace(a, vals=a.vals.to(torch.int32))
+    for x, y in ((a64, a64), (ai, ai), (a, a16), (a16, a64)):
+        with pytest.raises(NotImplementedError,
+                           match=f"{x.vals.dtype} / {y.vals.dtype}"):
+            se.plan_sharded_element(x, y, 2, 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_element_aat_bf16(n):
+    """The JAX decomposition on the bfloat16 operands (it widens the values
+    to float32): its plan, C_nnz, assembled COO, and each device's own
+    entries, sorted."""
+    coo = JCOO.from_scipy(AAT)
+    a = j_coo_to_tiled(coo, dtype=jnp.bfloat16)
+    b = j_coo_to_tiled(coo.transpose(), dtype=jnp.bfloat16)
+    plan = j_plan_element(a, b, n)
+    per_class, res, c_nnz = j_element_multiply(plan, j_make_mesh(n))
+    devices = []
+    for d in range(n):
+        rs, cs, vs = [], [], []
+        for i, (k3, v3, f3) in enumerate(per_class):
+            fm = np.asarray(f3)[d]
+            rows = np.asarray(plan.bucket_rows[i])[d]
+            rs.append(np.broadcast_to(rows[:, None], fm.shape)[fm])
+            cs.append(np.asarray(k3)[d][fm])
+            vs.append(np.asarray(v3)[d][fm])
+        rr, rc, rv, rf = (np.asarray(x)[d] for x in res)
+        rs.append(rr[rf])
+        cs.append(rc[rf])
+        vs.append(rv[rf])
+        r, c, v = (np.concatenate(x) for x in (rs, cs, vs))
+        o = np.lexsort((c, r))
+        devices.append((r[o], c[o], v[o]))
+    return plan, c_nnz, j_assemble_element(plan, per_class, res), devices
+
+
+def test_sharded_element_bf16(ranks):
+    """The element decomposition on bfloat16 operands over gloo: the values
+    widened to float32 as the JAX decomposition widens them, C float32,
+    scipy's product of the bfloat16-rounded operands (structure |A|@|B|,
+    values within the float32 bound); each rank's own entries lie in its
+    column range and together make the assembled C; at world size 2, each
+    rank's entries against the JAX device's and the assembled COO against
+    the JAX decomposition on the same bfloat16 operands."""
+    n, res = ranks
+    outs = res["element_aat_bf16"]
+    _same_on_every_rank(outs)
+    assert outs[0]["vals"].dtype == np.float32
+    want = structural_product(bf16_rounded(AAT), bf16_rounded(AAT.T))
+    _hold(outs[0], want, "element A@A.T, bf16")
+    bounds = outs[0]["col_bounds"]
+    mag = dict(zip(zip(want[0].tolist(), want[1].tolist()), want[3]))
+    for d, o in enumerate(outs):
+        r, c, v = o["local"]
+        assert np.all((c >= bounds[d]) & (c < bounds[d + 1])), d
+    assert sum(len(o["local"][0]) for o in outs) == outs[0]["c_nnz"]
+    if n == 2:
+        plan, c_nnz, (jr, jc, jv), devices = _jax_element_aat_bf16(n)
+        np.testing.assert_array_equal(bounds, plan.col_bounds)
+        assert outs[0]["w"] == plan.w and outs[0]["c_nnz"] == c_nnz
+        np.testing.assert_array_equal(outs[0]["rows"], jr)
+        np.testing.assert_array_equal(outs[0]["cols"], jc)
+        for d, (o, (wr, wc, wv)) in enumerate(zip(outs, devices)):
+            r, c, v = o["local"]
+            np.testing.assert_array_equal(r, wr, err_msg=f"rows[{d}]")
+            np.testing.assert_array_equal(c, wc, err_msg=f"cols[{d}]")
+            m = np.array([mag[k] for k in zip(r.tolist(), c.tolist())])
+            assert np.all(np.abs(v - wv) <= RTOL * m + ATOL), d
 
 
 def test_ring_passes_each_chunk_with_its_masks(ranks):

@@ -11,6 +11,11 @@ INT32_MAX (the pair-stream kernel skips only that) where the JAX plan pads
 with ``c_cap``; everything else pads as the JAX plan does.  C_nnz and the
 sorted COO are exact; values are held within the float32 dot-product
 bound, |err| <= 1e-5 * sum|a*b| + 1e-6 against scipy's float64 product.
+The rings also run on bfloat16 operands (C float32: against scipy's
+product of the bfloat16-rounded values, and each rank against the JAX
+ring's device on the same bfloat16 plan) and the Tile16 ring on float64
+ones accumulated in float64 (within 1e-12 * sum|a*b|; against the JAX
+ring in x64 in tests/test_torch_f64.py).
 """
 
 import dataclasses
@@ -22,6 +27,8 @@ import pytest
 import torch
 
 from conftest import random_sparse
+from test_torch_util import (bf16_rounded, one_torch_thread,
+                             structural_product, xla_unoptimized)
 from pem_spgemm_tpu.formats.coo import COOMatrix as JCOO
 from pem_spgemm_tpu.models.synthetic import banded as j_banded
 from pem_spgemm_tpu.models.synthetic import power_law as j_power_law
@@ -43,8 +50,12 @@ from pem_spgemm_tpu_torch.ops.convert import coo_to_macro, coo_to_tiled
 from pem_spgemm_tpu_torch.parallel import dryrun, launch, sharded
 from pem_spgemm_tpu_torch.parallel import sharded_macro as sm
 
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__,
+                                     xla_unoptimized.__name__)
+
 CPU = "cpu"
 RTOL, ATOL = 1e-5, 1e-6
+F64_RTOL, F64_ATOL = 1e-12, 1e-300
 INT32_MAX = 0x7FFFFFFF
 
 
@@ -79,6 +90,13 @@ def _cases(n):
                                engine="tile16", max_devices=n),
         "scaling_element": dict(kind="scaling", coo=_triplets(SCALE_EL),
                                 engine="element", max_devices=n),
+        "macro_bf16": dict(kind="macro", coo=_triplets(MACRO),
+                           dtype=torch.bfloat16),
+        "tile16_random_bf16": dict(kind="tile16", coo=_triplets(RANDOM),
+                                   dtype=torch.bfloat16),
+        "tile16_banded_f64": dict(kind="tile16", coo=_triplets(BANDED),
+                                  dtype=torch.float64,
+                                  acc_dtype=torch.float64),
     }
 
 
@@ -104,12 +122,12 @@ def _want(a, b):
     return want.row[o], want.col[o], want.data[o], mag.data[mo]
 
 
-def _hold(out, want, what):
+def _hold(out, want, what, rtol=RTOL, atol=ATOL):
     r, c, v, mag = want
     assert out["c_nnz"] == len(r), what
     np.testing.assert_array_equal(out["rows"], r, err_msg=what)
     np.testing.assert_array_equal(out["cols"], c, err_msg=what)
-    assert np.all(np.abs(out["vals"] - v) <= RTOL * mag + ATOL), what
+    assert np.all(np.abs(out["vals"] - v) <= rtol * mag + atol), what
 
 
 def _fields(plan):
@@ -262,6 +280,147 @@ def test_local_numeric_matches_jax_local_numeric():
     assert several
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_bf16(ring, n):
+    """The JAX ring on bfloat16 operands: its plan and each device's
+    output (the macro ring's (c_dense, c_counts), float32; the Tile16
+    ring's values (n, nnz_cap), float32)."""
+    if ring == "macro":
+        m = j_coo_to_macro(JCOO.from_scipy(MACRO), dtype=jnp.bfloat16)
+        plan = j_plan_macro(m, m, n)
+        return plan, j_macro_numeric(plan, j_make_mesh(n))
+    coo = JCOO.from_scipy(RANDOM)
+    a = j_coo_to_tiled(coo, dtype=jnp.bfloat16)
+    b = j_coo_to_tiled(coo, dtype=jnp.bfloat16, with_tmasks=True)
+    plan = j_plan(a, b, n)
+    return plan, j_numeric(plan, j_make_mesh(n))
+
+
+@pytest.mark.parametrize("ring", ["macro", "tile16"])
+def test_bf16_rings_match_the_jax_rings(ring):
+    """The JAX 4-rank plan on bfloat16 operands carried into the port
+    (interop: bfloat16 tables as their bits), each rank replayed through
+    the port's stage loop against that device of the JAX ring: the macro
+    ring's C float32 and its flags exact, the Tile16 ring's values
+    float32; values within the float32 bound (both sides multiply the
+    same bfloat16 values, exact in float32: only the order of the sums
+    differs).  The union is scipy's product of the rounded values."""
+    n = 4
+    plan, jout = _jax_bf16(ring, n)
+    if ring == "macro":
+        jplans = [interop.sharded_macro_plan_from_numpy(_fields(plan), d,
+                                                         CPU)
+                  for d in range(n)]
+    else:
+        jplans = [interop.sharded_plan_from_numpy(_fields(plan), d, CPU)
+                  for d in range(n)]
+    assert all(p.a_dense.dtype == torch.bfloat16 for p in jplans)
+    mags = _abs_plans(jplans)
+    parts = []
+    for d, p in enumerate(jplans):
+        if ring == "macro":
+            num, flag = sm.local_macro(p, sm.replay_chunks(jplans, d))
+            mag = sm.local_macro(mags[d], sm.replay_chunks(mags, d))[0]
+            assert num.dtype == torch.float32
+            np.testing.assert_array_equal(flag.numpy() > 0, jout[1][d] > 0,
+                                          err_msg=f"flags[{d}]")
+            got, want = num.numpy(), jout[0][d]
+            parts.append(sm.local_macro_coo(p, num, flag))
+        else:
+            vals = sharded.replay_numeric(jplans, d)
+            mag = sharded.replay_numeric(mags, d)
+            assert vals.dtype == torch.float32
+            got, want = vals.numpy(), jout[d]
+            parts.append(sharded.local_coo(p, vals))
+        assert got.shape == want.shape
+        assert np.all(np.abs(got - want) <= RTOL * mag.numpy() + ATOL), d
+    assert sum(sum(1 for x in p.stage_pairs if x) > 1 for p in jplans)
+    rows, cols, vals = (torch.cat(x) for x in zip(*parts))
+    order = torch.sort((rows << 32) | cols).indices
+    m = MACRO if ring == "macro" else RANDOM
+    _hold(dict(rows=rows[order].numpy(), cols=cols[order].numpy(),
+               vals=vals[order].numpy(), c_nnz=len(rows)),
+          structural_product(bf16_rounded(m), bf16_rounded(m)),
+          f"bf16 {ring} replay")
+
+
+@functools.lru_cache(maxsize=None)
+def _bf16_plans(ring, n):
+    """The port's own n-rank plans of the ring on bfloat16 operands."""
+    coo = COOMatrix.from_scipy(MACRO if ring == "macro" else RANDOM)
+    if ring == "macro":
+        m = coo_to_macro(coo, dtype=torch.bfloat16, device=CPU)
+        return [sm.plan_sharded_macro(m, m, n, d) for d in range(n)]
+    a = coo_to_tiled(coo, dtype=torch.bfloat16, device=CPU)
+    b = coo_to_tiled(coo, dtype=torch.bfloat16, with_tmasks=True, device=CPU)
+    return [sharded.plan_sharded_spgemm(a, b, n, d) for d in range(n)]
+
+
+@functools.lru_cache(maxsize=None)
+def _bf16_highest(ring, d):
+    """Rank d's output of the 4-rank bfloat16 ring at "highest"."""
+    plans = _bf16_plans(ring, 4)
+    if ring == "macro":
+        return sm.local_macro(plans[d], sm.replay_chunks(plans, d))
+    return sharded.replay_numeric(plans, d)
+
+
+@pytest.mark.parametrize("precision", ["high", "default"])
+@pytest.mark.parametrize("ring", ["macro", "tile16"])
+def test_bf16_rings_at_lower_precisions_equal_highest(ring, precision):
+    """Rounding a bfloat16 value to TF32 or to bfloat16 keeps it, so each
+    rank of a bfloat16 ring at "high" and "default" gives values bit for
+    bit those at "highest" (and the macro ring's flags)."""
+    plans = _bf16_plans(ring, 4)
+    for d, p in enumerate(plans):
+        want = _bf16_highest(ring, d)
+        if ring == "macro":
+            got = sm.local_macro(p, sm.replay_chunks(plans, d), precision)
+            assert torch.equal(got[1], want[1]), d
+            got, want = got[0], want[0]
+        else:
+            got = sharded.replay_numeric(plans, d, precision)
+        assert got.dtype == torch.float32
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), d
+
+
+def test_bf16_macro_ring_widens_each_chunk(monkeypatch):
+    """The bfloat16 macro ring: the plan keeps its tables in bfloat16 (the
+    chunk goes round in bfloat16), its A slice is widened once a plan
+    (acc_slice), and K4 gets float32 tables at every stage: the A slice's
+    copy and one float32 buffer each chunk is widened into, with the
+    masks the chunk was handed, which equal the masks of the widened
+    buffer (a bfloat16 value is zero exactly where its float32 copy is)."""
+    from pem_spgemm_tpu_torch.ops import macro_kernels as mk
+    plans = _bf16_plans("macro", 4)
+    assert all(p.b_dense.dtype == torch.bfloat16 for p in plans)
+    for p in plans:
+        assert sm.acc_slice(p) is sm.acc_slice(p)
+        assert torch.equal(sm.acc_slice(p), p.a_dense.float())
+    seen = []
+    real = mk.accumulate_macro_pairs
+
+    def spy(a, b, *args, tile_masks=None, **kw):
+        seen.append((a.data_ptr(), b.data_ptr(), a.dtype, b.dtype,
+                     None if tile_masks is None else
+                     (tile_masks.b.matches(b),
+                      torch.equal(tile_masks.b.words,
+                                  mk.tile_masks_plain(b)))))
+        return real(a, b, *args, tile_masks=tile_masks, **kw)
+
+    monkeypatch.setattr(mk, "accumulate_macro_pairs", spy)
+    monkeypatch.setattr(mk, "reads_masks", lambda *a: True)
+    for d, p in enumerate(plans):
+        seen.clear()
+        num, _flag = sm.local_macro(p, sm.replay_chunks(plans, d,
+                                                        masks=True))
+        assert num.dtype == torch.float32
+        assert seen and {x[:4] for x in seen} == {
+            (sm.acc_slice(p).data_ptr(), seen[0][1], torch.float32,
+             torch.float32)}
+        assert all(x[4] == (True, True) for x in seen), d
+
+
 def test_sharded_banded(ranks):
     _n, res = ranks
     outs = res["tile16_banded"]
@@ -274,6 +433,29 @@ def test_sharded_aat_rectangular(ranks):
     outs = res["tile16_aat"]
     _same_on_every_rank(outs)
     _hold(outs[0], _want(RECT, RECT.T), "tile16 ring, A@A.T")
+
+
+@pytest.mark.parametrize("case", ["macro_bf16", "tile16_random_bf16",
+                                  "tile16_banded_f64"])
+def test_rings_on_bf16_and_f64_values(ranks, case):
+    """The bfloat16 rings (float32 C) and the float64 Tile16 ring
+    (float64 accumulation) over gloo: the same sorted COO on every rank,
+    C_nnz and structure those of scipy's |A|@|A| (C's structure; no entry
+    cancels in the float64 case), values within the float32 bound against
+    scipy's float64 product of the bfloat16-rounded values, or within
+    1e-12 * sum|a*b| + 1e-300 against the float64 product."""
+    _n, res = ranks
+    outs = res[case]
+    _same_on_every_rank(outs)
+    if case.endswith("f64"):
+        assert outs[0]["vals"].dtype == np.float64
+        _hold(outs[0], structural_product(BANDED, BANDED), case,
+              rtol=F64_RTOL, atol=F64_ATOL)
+    else:
+        m = MACRO if case.startswith("macro") else RANDOM
+        assert outs[0]["vals"].dtype == np.float32
+        _hold(outs[0], structural_product(bf16_rounded(m),
+                                          bf16_rounded(m)), case)
 
 
 @pytest.mark.parametrize("case", ["scaling_tile16", "scaling_element"])
@@ -391,10 +573,31 @@ def test_local_macro_adds_each_stage_into_one_c(n, dtype, monkeypatch):
 
 
 def test_rings_refuse_other_dtypes():
-    coo = COOMatrix.from_scipy(RANDOM)
-    m = coo_to_macro(coo, dtype=torch.bfloat16, device=CPU)
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        sm.plan_sharded_macro(m, m, 2, 0)
-    t = coo_to_tiled(coo, dtype=torch.float64, device=CPU)
-    with pytest.raises(NotImplementedError, match="float64"):
-        sharded.plan_sharded_spgemm(t, t, 2, 0)
+    """What the rings still refuse: integer tiles, operands of two dtypes,
+    and the Tile16 ring's two cross pairings of table and accumulation
+    dtype (float32 tables into float64, float64 tables into float32: the
+    JAX ring casts the gathered tiles; the port's kernel entries take
+    float32 or bfloat16 tables into float32 and float64 into float64),
+    each naming both dtypes."""
+    coo = COOMatrix.from_scipy(RECT)
+    m = coo_to_macro(coo, device=CPU)
+    m16 = coo_to_macro(coo, dtype=torch.bfloat16, device=CPU)
+    mi = dataclasses.replace(m, dense=m.dense.to(torch.int32))
+    for a, b in ((mi, mi), (m, m16), (m16, m)):
+        with pytest.raises(NotImplementedError, match="both of one dtype"):
+            sm.plan_sharded_macro(a, b, 2, 0)
+    t = coo_to_tiled(coo, device=CPU)
+    t64 = coo_to_tiled(coo, dtype=torch.float64, device=CPU)
+    ti = dataclasses.replace(t, vals=t.vals.to(torch.int32))
+    for a, b in ((ti, ti), (t, t64), (t64, t)):
+        with pytest.raises(NotImplementedError, match="both of one dtype"):
+            sharded.plan_sharded_spgemm(a, b, 2, 0)
+    small = COOMatrix.from_scipy(random_sparse(64, 64, 0.05, seed=2))
+    for dtype, acc in ((torch.float32, torch.float64),
+                       (torch.float64, torch.float32),
+                       (torch.bfloat16, torch.float64)):
+        table = coo_to_tiled(small, dtype=dtype, device=CPU)
+        plans = [sharded.plan_sharded_spgemm(table, table, 1, 0)]
+        with pytest.raises(NotImplementedError,
+                           match=f"{dtype} tiles accumulated in {acc}"):
+            sharded.replay_numeric(plans, 0, acc_dtype=acc)

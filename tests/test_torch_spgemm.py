@@ -8,7 +8,8 @@ import pytest
 import torch
 
 from conftest import random_sparse
-from test_torch_util import both_tiled, scipy_product
+from test_torch_util import (both_tiled, one_torch_thread, scipy_product,
+                             xla_unoptimized)
 from pem_spgemm_tpu import SpGEMM as JSpGEMM, SpGEMMConfig as JConfig
 from pem_spgemm_tpu.formats.coo import COOMatrix as JCOO
 from pem_spgemm_tpu.models.synthetic import banded, power_law
@@ -21,6 +22,9 @@ from pem_spgemm_tpu_torch.ops import segment_sort as ss
 from pem_spgemm_tpu_torch.ops.fixed import (BinnedElementPlan, MacroPlan,
                                             SpGEMMPlan, make_plan)
 from pem_spgemm_tpu_torch.utils.timing import PhaseTimers
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__,
+                                     xla_unoptimized.__name__)
 
 
 def _inputs(kind):

@@ -11,7 +11,8 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from test_torch_util import assert_same, both_coo, to_np
+from test_torch_util import (assert_same, both_coo, one_torch_thread, to_np,
+                             xla_unoptimized)
 from pem_spgemm_tpu.formats.coo import COOMatrix as JCOO
 from pem_spgemm_tpu.models.synthetic import banded, wandering_device
 from pem_spgemm_tpu.ops import pallas_stencil as ps, symbolic as j_symbolic
@@ -22,6 +23,9 @@ from pem_spgemm_tpu_torch.ops import macro, macro_kernels as mk, \
 from pem_spgemm_tpu_torch.ops.convert import coo_to_macro
 from pem_spgemm_tpu_torch.ops.fixed import (MacroPlan, StencilMacroPlan,
                                             _try_stencil_plan, make_plan)
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__,
+                                     xla_unoptimized.__name__)
 
 
 def _irregular():

@@ -16,7 +16,8 @@ import scipy.sparse as sp
 import torch
 
 from conftest import random_sparse
-from test_torch_util import both_tiled, scipy_product
+from test_torch_util import (both_tiled, one_torch_thread, scipy_product,
+                             xla_unoptimized)
 from pem_spgemm_tpu import SpGEMM as JSpGEMM, SpGEMMConfig as JConfig
 from pem_spgemm_tpu.formats.coo import COOMatrix as JCOO
 from pem_spgemm_tpu.ops import assemble as j_assemble
@@ -35,6 +36,9 @@ from pem_spgemm_tpu_torch.ops import numeric as t_numeric
 from pem_spgemm_tpu_torch.ops import symbolic as t_symbolic
 from pem_spgemm_tpu_torch.ops.macro_kernels import segment_offsets
 from pem_spgemm_tpu_torch.ops.convert import coo_to_tiled
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__,
+                                     xla_unoptimized.__name__)
 
 CHUNK = 1 << 10
 CFG = SpGEMMConfig(numeric_chunk=CHUNK)

@@ -79,6 +79,22 @@ def one_torch_thread():
     torch.set_num_threads(old)
 
 
+@pytest.fixture(scope="module")
+def xla_unoptimized():
+    """XLA's optimizations off for a module's JAX references (mark the
+    module ``pytest.mark.usefixtures("xla_unoptimized")``): those modules
+    compile hundreds of small programs once each (the JAX planners run op
+    by op), and unoptimized these compile about a fifth faster.  The
+    references are the same functions on the same inputs, and the tests
+    hold the port to them as before; the setting is restored after the
+    module."""
+    import jax
+    old = jax.config.read("jax_disable_most_optimizations")
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.config.update("jax_disable_most_optimizations", old)
+
+
 def both_coo(coo):
     """(JAX COOMatrix, port COOMatrix) from one set of numpy triplets."""
     rows, cols, vals = (np.asarray(coo.rows), np.asarray(coo.cols),
@@ -102,6 +118,26 @@ def scipy_product(coo, b_coo=None):
     want.sum_duplicates()
     order = np.lexsort((want.col, want.row))
     return want.row[order], want.col[order], want.data[order], want.nnz
+
+
+def bf16_rounded(m):
+    """A scipy matrix with its values rounded to bfloat16 (what a
+    bfloat16 run multiplies), in float64."""
+    m = m.tocoo()
+    v = torch.from_numpy(m.data.astype(np.float64)).to(torch.bfloat16)
+    return type(m)((v.double().numpy(), (m.row, m.col)), shape=m.shape)
+
+
+def structural_product(a, b):
+    """Sorted (rows, cols, vals, sum|a*b|) of the scipy matrices' A@B with
+    C's structure from |A|@|B| (values that cancel to an exact 0.0, which
+    scipy drops and the engines keep, are read there as 0.0)."""
+    a, b = a.tocsr().astype(np.float64), b.tocsr().astype(np.float64)
+    mag = (abs(a) @ abs(b)).tocoo()
+    mag.sum_duplicates()
+    o = np.lexsort((mag.col, mag.row))
+    r, c = mag.row[o], mag.col[o]
+    return r, c, np.asarray((a @ b)[r, c]).ravel(), mag.data[o]
 
 
 def test_to_np_and_assert_same_roundtrip():
