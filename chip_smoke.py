@@ -223,7 +223,7 @@ import time
 import numpy as np
 import torch
 
-from pem_spgemm_tpu_torch.bench import k1_split
+from pem_spgemm_tpu_torch.bench import k1_split, k2_split, k4_split
 from pem_spgemm_tpu_torch.bench import probe as pr
 from pem_spgemm_tpu_torch.bench import suite, tiers_ab
 from pem_spgemm_tpu_torch.bench.harness import run_benchmark
@@ -799,7 +799,7 @@ def phase_dia_kernel_check():
         run(offs, offs, n, n, n, both if d <= 16 else ("dense",),
             f"stencil D={d}", seed=d)
     # the dense entry's last column block holds one column: n = 1 mod L
-    # (dk.dense_launch: 32 columns a block at 128 bands, 256 at 16)
+    # (dk.dense_launch: 64 columns a range at 128 bands, 256 at 16)
     for d, n in ((128, 6_401), (16, 6_145)):
         offs = tuple(range(-(d // 2), d - d // 2))
         if n % dk.dense_launch(offs, d, 2 * d - 1)["L"] != 1:
@@ -826,6 +826,37 @@ def phase_dia_kernel_check():
         raise AssertionError(f"banded128 offsets: kc {kc}")
     run(offs128, offs128, 40_009, 40_009, 40_009, ("dense",),
         f"banded128 offsets, kc {kc[4]} / {kc[8]}", 58)
+    # 1,000 B bands: the dense entry's ring holds a row group of the C rows
+    # (4 groups in float32, 8 in float64), each staging the B rows it
+    # reaches
+    wide_b = tuple(range(-500, 500))
+    if not all(dk.dense_launch((0, 1, 2), 1000, 1002, w)["grid_y"] > 1
+               for w in (4, 8)):
+        raise AssertionError("1,000 B bands: expected row groups")
+    run((0, 1, 2), wide_b, 20_011, 20_011, 20_011, ("dense",),
+        "dense row groups, 1,000 B bands", 59)
+    # NaN words count as non-zero (x != 0): every entry's counts, both
+    # words, exactly the plain version's, with NaNs in A and in B
+    nan_offs = tuple(range(-8, 8))
+    for dt in (torch.float32, torch.float64):
+        an = make_bands(nan_offs, 4_099, 4_099, 61).to(dt)
+        bn = make_bands(nan_offs, 4_099, 4_099, 62).to(dt)
+        an[3, 100:140] = float("nan")
+        bn[:, 2_000:2_003] = float("nan")
+        dc_n, idx_n = D._plan_maps(nan_offs, nan_offs)
+        want_n = D._dia_multiply_torch(an, bn, offs_a=nan_offs,
+                                       idx_map=idx_n, dc_count=len(dc_n),
+                                       n_out=4_099)[1]
+        for mode in both:
+            got_n = dk.dia_multiply(
+                an, bn, offs_a=nan_offs, offs_b=nan_offs, dc_list=dc_n,
+                n_out=4_099, mode=mode,
+                tables=dk.dia_tables(nan_offs, nan_offs, dc_n, mode,
+                                     DEV))[1]
+            if not torch.equal(got_n, want_n):
+                raise AssertionError(f"NaN words, mode={mode}, {dt}: the "
+                                     "counts differ from the plain version")
+            cases += 1
     # one A band against five B bands (a B stack that is no multiple of 8)
     run((5,), (-2, -1, 0, 1, 2), 6_001, 6_001, 6_001, both, "D2=5", 50)
     # A and B with different offset sets
@@ -2461,6 +2492,28 @@ LIBRARY_COVERS = {True: "torch.sparse.mm(A, A) on this matrix in CSR: "
 DENSE_LIBRARY_MATRIX = "banded16-1M"
 
 
+def dense_staging_fields(offs, n, word, device):
+    """What the dense entry's launch at this matrix stages into shared
+    memory (dk.dense_staging of the launch shape the wrapper uses): bytes,
+    and words a column range against the useful A and B words; beside it
+    the same ratio under the launch rule of commit 5b9f52f, which staged a
+    window a row block and chunk (k2_split.parent_staging)."""
+    dcn = len(D._plan_maps(offs, offs)[0])
+    sh = dk.dense_launch(offs, len(offs), dcn, word, n, dk.sm_count(device))
+    st = dk.dense_staging(offs, len(offs), dcn, sh)
+    parent = k2_split.parent_staging(
+        offs, len(offs), dcn, n,
+        k4_split.parent_dense_launch(offs, len(offs), dcn, word))
+    return {"staged_bytes": st["staged_bytes"],
+            "staging_factor": st["factor"],
+            "staging_factor_parent_rule": parent["factor"],
+            "staged_words_per_range": st["per_range"],
+            "useful_words_per_range": st["useful_per_range"],
+            "launch": {k: sh[k] for k in ("threads", "L", "passes", "grid_y",
+                                          "chunks", "strip", "grid_x",
+                                          "smem_bytes")}}
+
+
 def dia_kernel_row(name, matrix, kept, check_err, per_multiply):
     launches, a, offs, dc_list, idx_map, err = (
         kept[k] for k in ("launches", "a", "offs", "dc_list", "idx_map",
@@ -2495,7 +2548,10 @@ def dia_kernel_row(name, matrix, kept, check_err, per_multiply):
         return max(by, ops) * 1e3, "bytes" if by >= ops else "operations"
 
     (b_ms, b_by), (bv_ms, bv_by) = bound(True), bound(False)
+    staging = dense_staging_fields(offs, a.n, 4, a.device) \
+        if mode == "dense" else {}
     return {
+        **staging,
         "name": name, "route": "cuda", "source": DIA_SOURCE,
         "replaces": "pem_spgemm_tpu/ops/pallas_dia.py:"
                     + ("140" if mode == "dense" else "171"),
@@ -3875,6 +3931,8 @@ def f64_dia_row(entry, info, check_err):
                         lib_coo.shape)
     library = sparse_mm_ms(lib_coo)
     row = {
+        **(dense_staging_fields(offs, a.n, 8, a.device)
+           if mode == "dense" else {}),
         "name": entry, "route": "cuda", "source": DIA_SOURCE,
         "replaces": "pem_spgemm_tpu/ops/pallas_dia.py:280",
         "launches": info["launches"],

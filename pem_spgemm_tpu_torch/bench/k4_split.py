@@ -9,8 +9,10 @@ Builds csrc/macro_accumulate.cu and csrc/dia_multiply.cu as they are and,
 with --baseline-macro / --baseline-dia, another version of each (for example
 the parent commit's, ``git show <commit>:pem_spgemm_tpu_torch/csrc/<file>``)
 as copies in the package's build directory, so that two versions run in one
-process, on one card, on the same inputs.  A DIA baseline has the C
-interfaces of commit 2fdbfea (``declare_baseline_dia``).  A Macro128
+process, on one card, on the same inputs.  A DIA baseline's
+interface is read off its source (``dia_interface``): the pairs entries of
+commit 2fdbfea or today's, the dense entries of commit 5b9f52f and before
+(launched at their own rule, ``parent_dense_launch``) or today's.  A Macro128
 baseline's float32 entries are read off its source (``macro_interface``):
 no precision (commit 7303942 and before), a precision but class entries
 without a grid and a ticket counter (666d068), pair-stream entries without
@@ -61,9 +63,12 @@ today's.
       1e-12 * sum|a*b|), timed in turns;
   k2f64  the float64 dense DIA entry at banded64-1M (with counts and
       values only): this build's, the DENSE64 builds (other thread
-      geometries) and the baseline's, each bit for bit against the plain
-      version, timed in turns; then the float32 dense entry at banded16/64/
-      128-1M, this build's and the baseline's, bit for bit equal, in turns;
+      geometries), the count_select build (counts added by the compiler's
+      select) and the baseline's (at its own launch rule), each bit for bit
+      against the plain version, timed in turns; then the float32 dense
+      entry at banded16/64/128-1M, this build's, the DENSE32 builds (512
+      threads, plain C stores, count_select) and the baseline's, bit for
+      bit equal, in turns;
   library  torch.sparse.mm(A, A) in CSR at banded16-1M, banded64-1M and
       banded128-1M: its time, or the error cuSPARSE raises;
   tile16  csrc/tile16_accumulate.cu at pairbands-500k's Tile16 stream
@@ -235,22 +240,50 @@ F64_CUTS = {
     "plain_store": [("                    __stcs(p, v);\n",
                      "                    *p = v;\n")],
 }
-# Other thread geometries of the float64 dense DIA entry: (rows, I,
-# threads, blocks an SM), the .cu's Dense<double> and dense_launch's
-# DENSE_GEOMETRY[8] changed together.
+# Other thread geometries of the dense DIA entries: (rows, I, threads,
+# blocks an SM), the .cu's Dense<float> / Dense<double> and dense_launch's
+# DENSE_GEOMETRY changed together.
 _DENSE64 = ("template <> struct Dense<double> {\n"
-            "    static constexpr int ROWS = 4;\n"
+            "    static constexpr int ROWS = 8;\n"
+            "    static constexpr int I = 2;\n"
+            "    static constexpr int THREADS = 256;\n"
+            "    static constexpr int MIN_BLOCKS = 1;\n")
+DENSE64 = {
+    "r4_i4_256x1": (4, 4, 256, 1),
+    "r4_i4_512x1": (4, 4, 512, 1),
+}
+# the C and count stores as plain stores (not evict-first), both words
+DENSE_PLAIN_STORE = [
+    ("    __stcs(reinterpret_cast<float4*>(p), make_float4(w[0], w[1], w[2], "
+     "w[3]));\n",
+     "    *reinterpret_cast<float4*>(p) = make_float4(w[0], w[1], w[2], "
+     "w[3]);\n"),
+    ("    __stcs(reinterpret_cast<double2*>(p), make_double2(w[0], w[1]));\n",
+     "    *reinterpret_cast<double2*>(p) = make_double2(w[0], w[1]);\n")]
+_DENSE32 = ("template <> struct Dense<float> {\n"
+            "    static constexpr int ROWS = 8;\n"
             "    static constexpr int I = 4;\n"
             "    static constexpr int THREADS = 256;\n"
-            "    static constexpr int MIN_BLOCKS = 2;\n")
-DENSE64 = {
-    "r8_i2_256x1": (8, 2, 256, 1),
-    "r8_i2_128x2": (8, 2, 128, 2),
+            "    static constexpr int MIN_BLOCKS = 1;\n")
+# the counts added by the compiler's select (n or n + inc), both words
+DENSE_COUNT_SELECT = [
+    ("                                    add_if_nonzero(num[r][i / 2], x, "
+     "inc[i]);\n",
+     "                                    num[r][i / 2] += x != T(0) ? inc[i] "
+     ": 0u;\n")]
+# the float32 entry's other builds: a geometry (rows, I, threads, blocks),
+# or cuts of this source
+DENSE32 = {
+    "r8_i4_512x1": (8, 4, 512, 1),
+    "plain_store": DENSE_PLAIN_STORE,
+    "count_select": DENSE_COUNT_SELECT,
 }
 
 
-def dense64_cut(rows, i, threads, blocks):
-    return [(_DENSE64, "template <> struct Dense<double> {\n"
+def dense64_cut(rows, i, threads, blocks, word=8):
+    head = _DENSE64 if word == 8 else _DENSE32
+    t = "double" if word == 8 else "float"
+    return [(head, f"template <> struct Dense<{t}> {{\n"
              f"    static constexpr int ROWS = {rows};\n"
              f"    static constexpr int I = {i};\n"
              f"    static constexpr int THREADS = {threads};\n"
@@ -415,14 +448,103 @@ def mask_args(table, ready: bool):
             table.shape[0], int(ready), int(ready))
 
 
-def declare_baseline_dia(lib):
-    """dk._declare, but the pairs entries of commit 2fdbfea: the float32 one
-    with d1n and stage_a (it staged its A bands), the float64 one (one
-    thread a C element) without a launch shape."""
-    dk._declare(lib)
-    lib.dia_multiply_pairs_f32.argtypes = [VP] * 6 + [CI] * 5 + [LL] * 3 \
-        + [CI] * 4 + [VP]
-    lib.dia_multiply_pairs_f64.argtypes = [VP] * 6 + [CI, LL, LL, LL, VP]
+def dia_interface(source: str) -> str:
+    """The C interface of a dia_multiply.cu: "v8" (pairs entries of commit
+    2fdbfea: the float32 one with d1n and stage_a, the float64 one without
+    a launch shape; dense entries as below), "v21" (today's pairs entries;
+    the dense entries of commit 5b9f52f and before, with a row-block grid
+    and a window staged a chunk: ``parent_dense_launch``) or "current"."""
+    with open(source) as f:
+        text = f.read()
+    if "int cw_log2" not in text:
+        return "current"
+    return "v8" if "int stage_a" in text else "v21"
+
+
+def declare_baseline_dia(kind: str):
+    """dk._declare for a baseline of ``kind`` (``dia_interface``)."""
+    def declare(lib):
+        dk._declare(lib)
+        if kind == "current":
+            return
+        lib.dia_multiply_dense_f32.argtypes = [VP] * 5 + [CI] * 3 \
+            + [LL] * 3 + [CI] * 7 + [VP]
+        lib.dia_multiply_dense_f64.argtypes = \
+            lib.dia_multiply_dense_f32.argtypes
+        if kind == "v8":
+            lib.dia_multiply_pairs_f32.argtypes = [VP] * 6 + [CI] * 5 \
+                + [LL] * 3 + [CI] * 4 + [VP]
+            lib.dia_multiply_pairs_f64.argtypes = [VP] * 6 + [CI, LL, LL,
+                                                              LL, VP]
+    return declare
+
+
+# The dense entries' launch rule of commit 5b9f52f (and before): a block of
+# (at most 8) row blocks x column blocks owns one column range of some C
+# rows, grid_y blocks a range, and stages per chunk of at most kc bands the
+# A chunk and a B window within 112 KB (two blocks an SM).
+PARENT_DENSE_GEOMETRY = {4: dict(rows=8, cols=4, threads=256),
+                         8: dict(rows=4, cols=4, threads=256)}
+
+
+def parent_dense_launch(offs_a, d2n: int, dcn: int, word: int = 4):
+    """The parent's dk.dense_launch (commit 5b9f52f), for a baseline of
+    interface "v8" or "v21"."""
+    offs_a = tuple(offs_a)
+    geo = PARENT_DENSE_GEOMETRY[word]
+    rows, cols, threads = geo["rows"], geo["cols"], geo["threads"]
+    tr = min(8, threads // 32, dk._pow2_at_least(-(-dcn // rows)))
+    tc_n = min(threads // tr, 64)
+    L = tc_n * cols
+    rb = rows * tr
+    for kc in (128, 64, 32, 16, 8, 4, 2, 1):
+        chunks = dk.dense_chunks(offs_a, kc)
+        a_rows = max(ke - kb for kb, ke in chunks)
+        span = max(offs_a[ke - 1] - offs_a[kb] for kb, ke in chunks)
+        rows_cap = min(d2n, rb + span) + 2 * (rows - 1)
+        cols_cap = L + span
+        s = -(-max(cols_cap, rows_cap + 3) // 32) * 32
+        b_off = a_rows * L
+        stage = b_off + rows_cap * s
+        if word * stage <= 112 * 1024:
+            break
+    else:
+        raise ValueError("the parent's window does not fit")
+    cw = min(32, dk._pow2_at_least(cols_cap))
+    return dict(tr_log2=tr.bit_length() - 1, tc_n=tc_n, L=L, kc=kc, s=s,
+                cw_log2=cw.bit_length() - 1, b_off=b_off, stage_words=stage,
+                smem_bytes=word * stage, grid_y=-(-dcn // rb),
+                rows_per_block=rb, chunks=len(chunks), rows=rows, cols=cols,
+                threads=tr * tc_n)
+
+
+def dense_launcher(lib, word, kind, a, offs, offs_dev, c, cnt, stream,
+                   geometry=None):
+    """(launch, shape): one dense DIA launch of ``lib`` (interface
+    ``kind``) for A * A on the stencil ``a`` (bands, n) into c / cnt, at
+    the launch shape of its own rule (``geometry`` in place of
+    dk.DENSE_GEOMETRY[word] for the current rule)."""
+    dcn, n = c.shape
+    fn = lib.dia_multiply_dense_f64 if word == 8 \
+        else lib.dia_multiply_dense_f32
+    head = [a.data_ptr(), a.data_ptr(), offs_dev.data_ptr(), c.data_ptr(),
+            None if cnt is None else cnt.data_ptr(), a.shape[0], a.shape[0],
+            dcn, n, n, n]
+    if kind == "current":
+        keep = dk.DENSE_GEOMETRY[word]
+        dk.DENSE_GEOMETRY[word] = geometry or keep
+        try:
+            shape = dk.dense_launch(offs, len(offs), dcn, word, n,
+                                    dk.sm_count(a.device))
+        finally:
+            dk.DENSE_GEOMETRY[word] = keep
+        tail = list(dk.dense_args(shape))
+    else:
+        shape = parent_dense_launch(offs, len(offs), dcn, word)
+        tail = [shape[k] for k in ("tr_log2", "tc_n", "kc", "s", "cw_log2",
+                                   "b_off", "stage_words")]
+    args = head + tail
+    return (lambda: checked(fn(*args, stream), "dense")), shape
 
 
 def time_ms(fn, n):
@@ -688,13 +810,15 @@ def case_k5(base):
          flags_equal_across_precisions=True, worst_over_bound=over)
 
 
-def case_pairs(word, base_lib):
+def case_pairs(word, base):
     """A pairs DIA entry at pairbands-500k (``word`` 4: K3, float32; 8:
     K3-f64), with counts and values only: this build, the PAIR_COLS builds,
-    each also at the PAIR_GROUPS row groups, and the baseline (commit
-    2fdbfea's entry at its own launch shape), in turns.  Every run is held
-    bit for bit: the float32 ones to the baseline's (to this build's
-    without one), the float64 ones to the plain version."""
+    each also at the PAIR_GROUPS row groups, and the baseline (``base``:
+    (library, interface); commit 2fdbfea's entry at its own launch shape,
+    or today's at this build's), in turns.  Every run is held bit for bit:
+    the float32 ones to the baseline's (to this build's without one), the
+    float64 ones to the plain version."""
+    base_lib, base_kind = base if base is not None else (None, None)
     case = "k3" if word == 4 else "k3f64"
     dtype = torch.float32 if word == 4 else torch.float64
     entry = "dia_multiply_pairs_f32" if word == 4 else "dia_multiply_pairs_f64"
@@ -729,7 +853,13 @@ def case_pairs(word, base_lib):
                 *ptrs, c, cnt, dcn, n_pairs, offs[0], offs[-1], n, n, n,
                 sh["grid_y"], int(sh["stage_tables"]), sh["smem_bytes"],
                 stream))(getattr(lib, entry), sh), sh)
-    if base_lib is not None:
+    if base_lib is not None and base_kind != "v8":
+        sh = runs["current"][1]
+        runs["baseline"] = ((lambda fn: lambda c, cnt: fn(
+            *ptrs, c, cnt, dcn, n_pairs, offs[0], offs[-1], n, n, n,
+            sh["grid_y"], int(sh["stage_tables"]), sh["smem_bytes"],
+            stream))(getattr(base_lib, entry)), None)
+    elif base_lib is not None:
         fn = getattr(base_lib, entry)
         if word == 4:               # every C row a block, A and tables staged
             t_bytes = 4 * (dcn + 1 + 3 * n_pairs)
@@ -1135,29 +1265,24 @@ def case_k4f64(base):
          bound="2 * 128^3 operations a pair at FP64 67 TFLOP/s (DMMA)")
 
 
-def dense_args(lib_fn, a, offs, c, cnt, shape, stream):
-    """A launch of a dense DIA entry on the stencil ``a`` (bands, n) with
-    ``shape``."""
-    dcn, n = c.shape
-    args = [a.data_ptr(), a.data_ptr(), offs.data_ptr(), c.data_ptr(),
-            None if cnt is None else cnt.data_ptr(), a.shape[0], a.shape[0],
-            dcn, n, n, n, shape["tr_log2"], shape["tc_n"], shape["kc"],
-            shape["s"], shape["cw_log2"], shape["b_off"],
-            shape["stage_words"]]
-    return lambda: checked(lib_fn(*args, stream), "dense")
-
-
-def case_k2f64(base_lib):
+def case_k2f64(base):
     """The float64 dense entry at banded64-1M in this build, the DENSE64
-    geometries and the baseline, each bit for bit against the plain
+    geometries and the baseline (``base``: (library, interface) or None;
+    each at its own launch rule), each bit for bit against the plain
     version; then the float32 dense entry against the baseline's at the
-    three stencils."""
+    three stencils, bit for bit, in turns."""
     stream = torch.cuda.current_stream().cuda_stream
-    builds = {"current": (dk._library(), dk.DENSE_GEOMETRY[8])}
+    base_lib, base_kind = base if base is not None else (None, None)
+    build_all("dia_multiply", dk.SOURCE, dk._declare, {"current": ()})
+    builds = {"current": (dk._library(), None)}
     for name, (rows, i, threads, blocks) in DENSE64.items():
         builds[name] = (build("dia_multiply", name, dk.SOURCE, dk._declare,
                               cuts=dense64_cut(rows, i, threads, blocks)),
-                        dict(rows=rows, cols=i, threads=threads))
+                        dict(rows=rows, cols=i, threads=threads,
+                             blocks=blocks))
+    builds["count_select"] = (build("dia_multiply", "count_select",
+                                    dk.SOURCE, dk._declare,
+                                    cuts=DENSE_COUNT_SELECT), None)
     half = STENCILS["banded64-1M"]
     offs = tuple(range(-half, half))
     a = D.coo_to_dia(banded_device(n=1_000_000, seed=1, bands=offs),
@@ -1165,34 +1290,23 @@ def case_k2f64(base_lib):
     dc_list, idx_map = D._plan_maps(offs, offs)
     dcn, n = len(dc_list), a.shape[1]
     offs_dev = torch.tensor(offs, dtype=torch.int32, device="cuda")
-    geo = dk.DENSE_GEOMETRY[8]
+    runs = dict(builds)
+    if base_lib is not None:
+        runs["baseline"] = (base_lib, None)
     for values_only in (False, True):
         want = D._dia_multiply_torch(a, a, offs_a=offs, idx_map=idx_map,
                                      dc_count=dcn, n_out=n,
                                      values_only=values_only)
         fns, equal, shapes, outs = {}, {}, {}, {}
-        for name, (lib, g) in builds.items():
-            dk.DENSE_GEOMETRY[8] = g
-            try:
-                shapes[name] = dk.dense_launch(offs, len(offs), dcn, 8)
-            finally:
-                dk.DENSE_GEOMETRY[8] = geo
+        for name, (lib, g) in runs.items():
             c = torch.full((dcn, n), float("nan"), dtype=torch.float64,
                            device="cuda")
             cnt = None if values_only else torch.empty(
                 (dcn, n), device="cuda")
             outs[name] = (c, cnt)       # alive while fns[name] is
-            fns[name] = dense_args(lib.dia_multiply_dense_f64, a, offs_dev,
-                                   c, cnt, shapes[name], stream)
-        if base_lib is not None:
-            outs["baseline"] = (
-                torch.full((dcn, n), float("nan"), dtype=torch.float64,
-                           device="cuda"),
-                None if values_only else torch.empty((dcn, n),
-                                                     device="cuda"))
-            fns["baseline"] = dense_args(base_lib.dia_multiply_dense_f64, a,
-                                         offs_dev, *outs["baseline"],
-                                         shapes["current"], stream)
+            fns[name], shapes[name] = dense_launcher(
+                lib, 8, base_kind if name == "baseline" else "current", a,
+                offs, offs_dev, c, cnt, stream, g)
         for name, fn in fns.items():
             fn()
             torch.cuda.synchronize()
@@ -1206,18 +1320,32 @@ def case_k2f64(base_lib):
                                  f"version: {equal}")
         emit("k2f64", matrix="banded64-1M", values_only=values_only,
              shape=[len(offs), n], c_rows=dcn,
-             launch={k: {x: v[x] for x in ("rows", "cols", "threads", "kc",
-                                          "chunks", "smem_bytes")}
+             launch={k: {x: v.get(x) for x in ("rows", "cols", "threads",
+                                              "kc", "chunks", "smem_bytes",
+                                              "L", "strip", "grid_x",
+                                              "grid_y")}
                      for k, v in shapes.items()},
-             ms=in_turns(fns, 5), bit_equal_to_plain=equal)
+             ms=in_turns(fns, 5, rounds=4), bit_equal_to_plain=equal)
         del fns, outs
         torch.cuda.empty_cache()
     del a
     torch.cuda.empty_cache()
     if base_lib is None:
         return
-    # the float32 dense entry: this build's against the baseline's
-    libs = {"current": dk._library(), "baseline": base_lib}
+    # the float32 dense entry: this build's, the DENSE32 builds and the
+    # baseline's
+    libs = {"current": (dk._library(), "current", None),
+            "baseline": (base_lib, base_kind, None)}
+    for name, geo in DENSE32.items():
+        if isinstance(geo, list):   # the current geometry, other cuts
+            libs[name] = (build("dia_multiply", name, dk.SOURCE,
+                                dk._declare, cuts=geo), "current", None)
+            continue
+        rows, i, threads, blocks = geo
+        libs[name] = (build("dia_multiply", name, dk.SOURCE, dk._declare,
+                            cuts=dense64_cut(rows, i, threads, blocks, 4)),
+                      "current", dict(rows=rows, cols=i, threads=threads,
+                                      blocks=blocks))
     for name, half in STENCILS.items():
         offs = tuple(range(-half, half))
         a = D.coo_to_dia(banded_device(n=1_000_000, seed=1,
@@ -1225,23 +1353,23 @@ def case_k2f64(base_lib):
         dc_list, _ = D._plan_maps(offs, offs)
         dcn, n = len(dc_list), a.shape[1]
         offs_dev = torch.tensor(offs, dtype=torch.int32, device="cuda")
-        shape = dk.dense_launch(offs, len(offs), dcn)
         for values_only in (False, True):
             outs, fns = {}, {}
-            for k, lib in libs.items():
+            for k, (lib, kind, g) in libs.items():
                 outs[k] = (torch.empty((dcn, n), device="cuda"),
                            None if values_only else torch.empty(
                                (dcn, n), device="cuda"))
-                fns[k] = dense_args(lib.dia_multiply_dense_f32, a, offs_dev,
-                                    *outs[k], shape, stream)
+                fns[k], _sh = dense_launcher(lib, 4, kind, a, offs,
+                                             offs_dev, *outs[k], stream, g)
                 fns[k]()
             torch.cuda.synchronize()
-            (c0, n0), (c1, n1) = outs["current"], outs["baseline"]
-            equal = torch.equal(c0.view(torch.int32), c1.view(torch.int32)) \
-                and (values_only or torch.equal(n0, n1))
-            if not equal:
-                raise AssertionError(f"K2 at {name}: the float32 entry "
-                                     "differs from the baseline's")
+            c1, n1 = outs["baseline"]
+            for k, (c0, n0) in outs.items():
+                if not (torch.equal(c0.view(torch.int32),
+                                    c1.view(torch.int32))
+                        and (values_only or torch.equal(n0, n1))):
+                    raise AssertionError(f"K2 at {name}: build {k} differs "
+                                         "from the baseline's")
             emit("k2", matrix=name, values_only=values_only,
                  ms=in_turns(fns, 10, rounds=4), bit_equal_to_baseline=True)
             del fns, outs, c0, n0, c1, n1
@@ -1880,8 +2008,9 @@ def main():
         base_macro = (build("macro_accumulate", "baseline",
                             args.baseline_macro, declare_macro(kind)), kind)
     if args.baseline_dia:
-        base_dia = build("dia_multiply", "baseline", args.baseline_dia,
-                         declare_baseline_dia)
+        kind = dia_interface(args.baseline_dia)
+        base_dia = (build("dia_multiply", "baseline", args.baseline_dia,
+                          declare_baseline_dia(kind)), kind)
     if args.only is None or "k4" in args.only:
         case_k4(base_macro, {"wandering64-1M": 10, "pairbands-500k": 5})
     if args.only is None or "k5" in args.only:

@@ -18,9 +18,11 @@ plain version does); the bands' dtype picks it.
 ``values_only=True`` launches the variant without the mask algebra and
 returns ``None`` for the counts.  Each float64 entry is its float32
 entry's kernel on 8-byte words: the dense one with a geometry of its own,
-the pairs one with the float32 one's.  The dense entries stage a window
-of B in shared memory: ``dense_launch`` gives the block shape and
-shared-memory layout for a word size, ``dense_chunks`` the band chunks.
+the pairs one with the float32 one's.  The dense entries keep a ring of
+B's window columns in shared memory, walking strips of column ranges:
+``dense_launch`` gives the grid, the block shape and the shared-memory
+layout for a word size, ``dense_chunks`` the band chunks,
+``dense_staging`` the words a launch stages.
 The pairs entries read A and B where they lie, a few C rows a block, and
 stage their pair tables: ``pairs_launch`` gives the grid and what is
 staged.
@@ -44,15 +46,20 @@ from pem_spgemm_tpu_torch.ops.dia import _dia_multiply_torch, _plan_maps
 
 SOURCE = _build.cuda_source("dia_multiply")
 # The dense entries' geometry by word size (the .cu's Dense<float>,
-# Dense<double>): C rows and columns a thread, threads a block at most.
-DENSE_GEOMETRY = {4: dict(rows=8, cols=4, threads=256),
-                  8: dict(rows=4, cols=4, threads=256)}
+# Dense<double>): C rows and columns a thread, threads a block at most,
+# blocks an SM the launch bounds ask for (up to 255 registers a thread at
+# 256 x 1).
+DENSE_GEOMETRY = {4: dict(rows=8, cols=4, threads=256, blocks=1),
+                  8: dict(rows=8, cols=2, threads=256, blocks=1)}
 ROWS = DENSE_GEOMETRY[4]["rows"]    # the float32 entry's
 COLS = DENSE_GEOMETRY[4]["cols"]
-MAX_ROW_BLOCKS = 8          # row blocks a thread block, at most
+MAX_ROW_BLOCKS = 32         # row blocks a pass of a thread block, at most
 MAX_COL_BLOCKS = 64         # column blocks a thread block, at most
-COPY_WIDTH = 32             # window columns a pass of the staging copies
-SMEM_BUDGET = 112 * 1024    # bytes a dense-entry block: two an SM
+MIN_COL_BLOCKS = 16         # at least: a warp spans at most two row blocks
+COPY_COLS = 32              # window columns a pass of the B copies (.cu's)
+SMEM_BLOCK = 227 * 1024     # shared memory a block may have
+SMEM_SM = 228 * 1024        # an SM's, of which each block takes 1 KB more
+H100_SMS = 132              # the launch shape's default SM count
 # The pairs entries' geometry, both words (the .cu's PAIR_THREADS and
 # PAIR_COLS): threads a block, columns a thread, and the C rows a row group
 # holds at most.  Short groups of one column range run together, so their
@@ -80,15 +87,14 @@ def _declare(lib) -> None:
     vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.dia_multiply_dense_f32.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci,
                                            ll, ll, ll, ci, ci, ci, ci, ci,
-                                           ci, ci, vp]
+                                           ci, ci, ci, ci, vp]
     lib.dia_multiply_dense_f32.restype = ci
     lib.dia_multiply_pairs_f32.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci,
                                            ci, ci, ll, ll, ll, ci, ci, ci,
                                            vp]
     lib.dia_multiply_pairs_f32.restype = ci
-    lib.dia_multiply_dense_f64.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci,
-                                           ll, ll, ll, ci, ci, ci, ci, ci,
-                                           ci, ci, vp]
+    lib.dia_multiply_dense_f64.argtypes = \
+        lib.dia_multiply_dense_f32.argtypes
     lib.dia_multiply_dense_f64.restype = ci
     lib.dia_multiply_pairs_f64.argtypes = lib.dia_multiply_pairs_f32.argtypes
     lib.dia_multiply_pairs_f64.restype = ci
@@ -96,6 +102,30 @@ def _declare(lib) -> None:
 
 def _library():
     return _build.cuda_library("dia_multiply", _declare)
+
+
+_SMS = {}
+
+
+def sm_count(device) -> int:
+    """The SMs of a CUDA device, looked up once a device."""
+    idx = torch.device(device).index
+    idx = torch.cuda.current_device() if idx is None else idx
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
+
+
+# the dense entry's launch arguments by (offs_a, d2n, dcn, word, n_out,
+# SMs): a wrapper call searches for its shape once
+_DENSE_ARGS = {}
+
+
+def dense_args(shape):
+    """The launch-shape arguments of a dense entry, in the C order."""
+    return tuple(shape[k] for k in ("tr_log2", "tc_n", "passes", "grid_y",
+                                    "kc", "strip", "s", "a_words",
+                                    "stage_words"))
 
 
 # --------------------------------------------------------------------------
@@ -148,30 +178,52 @@ def dense_chunks(offs_a, kc: int):
     return out
 
 
-def dense_launch(offs_a, d2n: int, dcn: int, word: int = 4):
+def _pass_cost(offs_a, d2n, rows, nrb, tr, tc_n, passes):
+    """The bands the busiest warp of a row group walks in a column range:
+    a warp holds max(1, 32 / tc_n) neighbouring row blocks of a pass, and
+    walks, each pass, every band that reaches the rows of one of them."""
+    d = np.asarray(offs_a) - offs_a[0]
+    r0 = np.arange(nrb)[:, None] * rows
+    visits = ((r0 - d + rows > 0) & (r0 - d < d2n)).sum(axis=1)
+    visits = np.concatenate([visits, np.zeros(tr * passes, visits.dtype)])
+    per_warp = max(1, 32 // tc_n)
+    worst = 0
+    for g in range(-(-nrb // (tr * passes))):
+        q = g * tr * passes + np.arange(tr * passes).reshape(passes, -1,
+                                                              per_warp)
+        worst = max(worst, int(visits[q].max(axis=2).sum(axis=0).max()))
+    return worst
+
+
+def dense_launch(offs_a, d2n: int, dcn: int, word: int = 4, n_out=None,
+                 sms: int = H100_SMS):
     """The dense entry's launch shape for A's offsets, B's d2n bands, dcn
     C rows and ``word``-byte words (4: the float32 entry, 8: the float64
-    one; the same for the values-only variants).
+    one; the same for the values-only variants), on ``sms`` SMs; the grid
+    (``strip``, ``grid_x``) only where ``n_out`` is given.
 
     A thread owns rows x cols C elements (``DENSE_GEOMETRY[word]``); a block
-    2^tr_log2 row blocks (enough for every C row, at most threads / 32) x
-    tc_n column blocks (at most 64, at most ``threads`` threads, so at
-    least 32), so L = tc_n * cols columns; threads take column blocks
-    first, so the lanes of a warp share their rows and skip or take a band
-    together.  Per
-    chunk of at most kc A bands spanning less than kc (``dense_chunks``),
-    the block stages the A chunk (a_rows x L words: a_rows the most bands a
-    chunk has) and, from word b_off, the B window: at most rows_cap rows
-    (the B rows the block's C rows reach, plus rows - 1 zero rows on each
-    side) of at most cols_cap = L + the widest chunk's offset span columns,
-    each row a ring of s words (a multiple of 32 holding cols_cap and
-    rows_cap + 3 words) rotated by its row index, which keeps the .cu's
-    positions below 2 s.  kc is the largest power of two up to 128 whose
-    shared memory fits in SMEM_BUDGET (fewer chunks stage fewer windows).
-    The grid is one-dimensional: grid_y row blocks of each column range,
-    neighbours.  Returns a dict; raises ValueError where even kc = 1 does
-    not fit or there are 2^16 A bands or more (a count is kept in 16
-    bits)."""
+    2^tr_log2 row blocks x tc_n column blocks (16 to 64; threads take column
+    blocks first, so the lanes of a warp share their rows, or two
+    neighbouring row blocks at 16), L = tc_n * cols columns.  A block owns a
+    row group of ``passes`` such passes of rows (every C row where the ring
+    fits, else grid_y groups) and a strip of ``strip`` consecutive column
+    ranges; the grid is grid_x strips x grid_y groups, about blocks_per_sm
+    blocks on each of the ``sms`` SMs.  Shared memory: two A buffers of
+    a_words = a_rows x L words (a_rows the most bands a chunk has), then
+    the ring of B's window: rows_cap rows (the B rows a group's C rows
+    reach, plus rows - 1 zero rows on each side) of s words, s a multiple
+    of 32 holding the 2 L + span columns a range and the next one read.
+    The band set is one chunk where that fits in SMEM_BLOCK bytes, else
+    chunks of at most kc bands spanning less than kc (``dense_chunks``,
+    kc the largest power of two that fits).  The search prefers, in order:
+    the most threads (at most ``threads``), one chunk (else the fewest),
+    the row blocks a pass (with L) that give the busiest warp the fewest
+    bands a column (``_pass_cost``: the bands that reach a row block fall
+    off towards both ends of C, so two passes of half the row blocks even
+    them out), every C row in one group.  Returns a dict;
+    raises ValueError where even one band a chunk does not fit or there
+    are 2^16 A bands or more (a count is kept in 16 bits)."""
     offs_a = tuple(offs_a)
     if word not in DENSE_GEOMETRY:
         raise ValueError(f"{word}-byte words: the dense entries take 4 or 8")
@@ -181,35 +233,107 @@ def dense_launch(offs_a, d2n: int, dcn: int, word: int = 4):
         raise ValueError(f"{len(offs_a)} A bands: the kernel's counts are "
                          "16-bit")
     geo = DENSE_GEOMETRY[word]
-    rows, cols, threads = geo["rows"], geo["cols"], geo["threads"]
-    tr = min(MAX_ROW_BLOCKS, threads // 32,
-             _pow2_at_least(-(-dcn // rows)))
-    tc_n = min(threads // tr, MAX_COL_BLOCKS)
-    L = tc_n * cols
-    rb = rows * tr
-    grid_y = -(-dcn // rb)
-    for kc in (128, 64, 32, 16, 8, 4, 2, 1):
-        chunks = dense_chunks(offs_a, kc)
-        a_rows = max(ke - kb for kb, ke in chunks)
-        span = max(offs_a[ke - 1] - offs_a[kb] for kb, ke in chunks)
-        rows_cap = min(d2n, rb + span) + 2 * (rows - 1)
-        cols_cap = L + span
-        s = -(-max(cols_cap, rows_cap + 3) // 32) * 32
-        b_off = a_rows * L
-        stage = b_off + rows_cap * s
-        if word * stage <= SMEM_BUDGET:
-            break
-    else:
+    rows, cols, top = geo["rows"], geo["cols"], geo["threads"]
+    pad = rows - 1
+    nrb = -(-dcn // rows)
+    tr_top = min(MAX_ROW_BLOCKS, _pow2_at_least(nrb), top // MIN_COL_BLOCKS)
+    one = max(len(offs_a), offs_a[-1] - offs_a[0] + 1)
+    kcs = [one] + [k for k in (128, 64, 32, 16, 8, 4, 2, 1) if k < one]
+    threads = min(top, tr_top * MAX_COL_BLOCKS)
+    found = None
+    while found is None and threads >= COPY_COLS:
+        for kc in kcs:
+            chunks = dense_chunks(offs_a, kc)
+            a_rows = max(ke - kb for kb, ke in chunks)
+            span = max(offs_a[ke - 1] - offs_a[kb] for kb, ke in chunks)
+            fits = []
+            tr = min(tr_top, threads // MIN_COL_BLOCKS)
+            while tr >= 1 and threads // tr <= MAX_COL_BLOCKS:
+                L = threads // tr * cols
+                s = -(-(2 * L + span) // 32) * 32
+                per = rows * tr
+
+                def fits_in(p):     # shared memory of p passes a group
+                    ring = min(d2n, per * p + span) + 2 * pad
+                    return word * (2 * a_rows * L + ring * s) \
+                        <= SMEM_BLOCK
+
+                if fits_in(1):
+                    lo, hi = 1, -(-nrb // tr)   # the most passes that fit
+                    while lo < hi:
+                        mid = (lo + hi + 1) // 2
+                        lo, hi = (mid, hi) if fits_in(mid) else (lo, mid - 1)
+                    passes = lo
+                    fits.append((_pass_cost(offs_a, d2n, rows, nrb, tr,
+                                            threads // tr, passes) / L,
+                                 -tr, (kc, chunks, a_rows, span, tr, L, s,
+                                       passes)))
+                tr //= 2
+            if fits:
+                found = min(fits, key=lambda f: f[:2])[2]
+                break
+        else:
+            threads //= 2
+    if found is None:
         raise ValueError(f"the dense entry's window for {d2n} B bands does "
                          "not fit in shared memory")
-    cw = min(COPY_WIDTH, _pow2_at_least(cols_cap))
-    return dict(tr_log2=tr.bit_length() - 1, tc_n=tc_n, rows=rows,
-                cols=cols, L=L, rows_per_block=rb, grid_y=grid_y, kc=kc,
-                a_rows=a_rows, span=span, rows_cap=rows_cap,
-                cols_cap=cols_cap, s=s, cw_log2=cw.bit_length() - 1,
-                b_off=b_off, word=word, stage_words=stage,
-                smem_bytes=word * stage, threads=tr * tc_n,
-                chunks=len(chunks))
+    kc, chunks, a_rows, span, tr, L, s, passes = found
+    group_rows = rows * tr * passes
+    rows_cap = min(d2n, group_rows + span) + 2 * pad
+    a_words = a_rows * L
+    stage = 2 * a_words + rows_cap * s
+    # blocks an SM: threads, the registers the launch bounds leave a thread
+    # (a multiple of 8, at most 255) and shared memory
+    regs = min(255, 65536 // (top * geo["blocks"])) // 8 * 8
+    bps = max(1, min(2048 // threads, 65536 // (threads * regs),
+                     SMEM_SM // (word * stage + 1024), 32))
+    grid_y = -(-dcn // group_rows)
+    shape = dict(tr_log2=tr.bit_length() - 1, tc_n=threads // tr, rows=rows,
+                 cols=cols, L=L, threads=threads, rows_per_pass=rows * tr,
+                 passes=passes, group_rows=group_rows, grid_y=grid_y, kc=kc,
+                 chunks=len(chunks), a_rows=a_rows, span=span,
+                 rows_cap=rows_cap, s=s, a_words=a_words, b_off=2 * a_words,
+                 word=word, stage_words=stage, smem_bytes=word * stage,
+                 blocks_per_sm=bps, sms=sms, n_ranges=None, strip=None,
+                 grid_x=None)
+    if n_out is not None:
+        n_ranges = -(-int(n_out) // L)
+        strip = -(-n_ranges // max(1, sms * bps // grid_y))
+        shape.update(n_ranges=n_ranges, strip=strip,
+                     grid_x=-(-n_ranges // strip))
+    return shape
+
+
+def dense_staging(offs_a, d2n: int, dcn: int, shape) -> dict:
+    """The words a dense launch of ``shape`` (``dense_launch``'s, with its
+    grid) writes into shared memory, against the useful words: each A word
+    once and each B word once, (d1n + d2n) x L a column range.  Every
+    range stages its chunks' A words; the first range of a strip stages a
+    chunk's whole window (L + the chunk's span columns of each B row its
+    group reaches) and zeroes its pad rows, every later range its L new
+    columns.  Returns the totals, the words a column range and their
+    ratio (``factor``)."""
+    offs_a = tuple(offs_a)
+    L, pad, s = shape["L"], shape["rows"] - 1, shape["s"]
+    n_ranges, strips = shape["n_ranges"], shape["grid_x"]
+    a_words = b_words = zero_words = 0
+    for g in range(shape["grid_y"]):
+        rc0 = g * shape["group_rows"]
+        for kb, ke in dense_chunks(offs_a, shape["kc"]):
+            dlo, dhi = offs_a[kb] - offs_a[0], offs_a[ke - 1] - offs_a[0]
+            real = min(d2n, rc0 + shape["group_rows"] - dlo) - max(0,
+                                                                  rc0 - dhi)
+            if real <= 0:
+                continue
+            a_words += n_ranges * (ke - kb) * L
+            b_words += (n_ranges * L + strips * (dhi - dlo)) * real
+            zero_words += strips * 2 * pad * s
+    staged = a_words + b_words + zero_words
+    useful = (len(offs_a) + d2n) * L
+    return dict(a_words=a_words, b_words=b_words, zero_words=zero_words,
+                staged_words=staged, staged_bytes=shape["word"] * staged,
+                per_range=staged / n_ranges, useful_per_range=useful,
+                factor=staged / (n_ranges * useful))
 
 
 # --------------------------------------------------------------------------
@@ -340,8 +464,8 @@ def dia_multiply(a_bands, b_bands, *, offs_a, offs_b, dc_list, n_out,
         (dcn, n_out), dtype=torch.float32, device=dev)
     if c.numel() == 0:                  # nothing to launch, nothing counted
         return c, cnt
-    shape = dense_launch(offs_a, len(offs_b), dcn,
-                         a_bands.element_size()) if mode == "dense" else None
+    shape_key = (offs_a, len(offs_b), dcn, a_bands.element_size(), n_out,
+                 sm_count(dev)) if mode == "dense" else None
     for t in tables:
         if t.device != dev or t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError("tables must be contiguous int32 tensors on "
@@ -357,12 +481,12 @@ def dia_multiply(a_bands, b_bands, *, offs_a, offs_b, dc_list, n_out,
                 raise ValueError("tables do not match offs_a")
             fn = lib.dia_multiply_dense_f64 if wide \
                 else lib.dia_multiply_dense_f32
+            if shape_key not in _DENSE_ARGS:    # the search, once a shape
+                _DENSE_ARGS[shape_key] = dense_args(dense_launch(*shape_key))
             err = fn(
                 a_bands.data_ptr(), b_bands.data_ptr(), offs_dev.data_ptr(),
                 c.data_ptr(), cnt_ptr, len(offs_a), len(offs_b), dcn, n_i,
-                n_k, n_out, shape["tr_log2"], shape["tc_n"], shape["kc"],
-                shape["s"], shape["cw_log2"], shape["b_off"],
-                shape["stage_words"], stream)
+                n_k, n_out, *_DENSE_ARGS[shape_key], stream)
         else:
             row_ptr, trip = tables
             n_pairs = len(offs_a) * len(offs_b)

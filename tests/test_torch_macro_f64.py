@@ -489,10 +489,15 @@ def test_k4_split_f64_builds_cut_one_place_each():
     for name, geo in k4_split.DENSE64.items():
         for old, new in k4_split.dense64_cut(*geo):
             assert dia.count(old) == 1 and new != old, name
+    for name, geo in k4_split.DENSE32.items():
+        cuts = geo if isinstance(geo, list) \
+            else k4_split.dense64_cut(*geo, word=4)
+        for old, new in cuts:
+            assert dia.count(old) == 1 and new != old, name
     # the cut that leaves the geometry as it is names DENSE_GEOMETRY[8]
     g = dk.DENSE_GEOMETRY[8]
-    assert k4_split.dense64_cut(g["rows"], g["cols"], g["threads"], 2) \
-        [0][1] == k4_split._DENSE64
+    assert k4_split.dense64_cut(g["rows"], g["cols"], g["threads"],
+                                g["blocks"])[0][1] == k4_split._DENSE64
 
 
 def test_chip_smoke_skipped_share_is_the_kernels_rule():
