@@ -161,10 +161,15 @@ accumulate into a C with -0.0, +-Inf and NaN in every tile, the tiles
 without pairs bit for bit, timed by CUDA-graph replay as the ring runs
 them: the tables' masks made once a plan and the chunk's carried with it,
 the walk over the stage's tiles with pairs (tiles_visited), at every
-precision (at "highest" the list kernel, which runs only the slabs the
-masks call non-zero); rows
-macro_tile_masks and macro_tile_masks_f64 time the masks entries over a
-plan's A slice and B chunk).  The kernel check also holds both masks
+precision; rows macro_tile_masks and macro_tile_masks_f64 time the masks
+entries over a plan's A slice and B chunk; the K4, K5 and K6 rows carry
+the share of their pairs' slabs that the masks let run
+(slabs_run_share), the masks entry's ms over A's table apart (masks_ms,
+inside the rows' ms once a multiply) and ptxas' registers and spills of
+their "highest" kernel instance (ptxas)).  The pair stream of tiles of
+1, 70, 0, 3 and 2 pairs runs at every precision, fresh and accumulating,
+through the wrapper and with 2 blocks, so that a block's next tile
+follows a tile of more than 32 pairs.  The kernel check also holds both masks
 entries bit for bit to their plain version (tile_masks_plain) on tiles
 with NaN, +-Inf, values of 2^63 and more, -0.0 and subnormals, every
 accumulate form on a stream whose c_cap lies far above its tiles with
@@ -1172,7 +1177,8 @@ def f64_skipped_share(a_dense, b_dense, a_idx, b_idx, chunk=8_192):
     of the slab has a non-zero in both, and neither side an Inf or a NaN;
     and the slabs it copies (those with a block that runs; the others it
     skips whole).  Computed from the tiles on the card, as the kernel
-    decides.  The bound counts every product; this says how many the
+    decides.  The bound counts the products of the slabs copied
+    (k4_split.slab_share); this also says how many blocks of those the
     kernel did not run."""
     # A: (T, 8 slabs, 8 row groups, 16 k) non-zeros, (T, slab, row group)
     # Inf / NaN; B: (T, slab, 16 k, 16 column groups), (T, slab, group)
@@ -1321,9 +1327,7 @@ def pairs_direct(a_dense, b_dense, a_idx, b_idx, seg, c_cap, grid,
     next_tile = torch.zeros(1, dtype=torch.int32, device=DEV)
     num, flag = fresh_slabs(c_cap) if out is None else out
     prec = M.precision_code(precision)
-    _masks, margs = mk._mask_args(
-        a_dense, b_dense, mk.reads_masks(a_dense, precision, out is not None),
-        None)
+    _masks, margs = mk._mask_args(a_dense, b_dense, None)
     walk = mk.stream_walk(seg, c_cap, min(c_cap, a_idx.numel()), next_tile) \
         if out is not None else None
     mk._raise_on(mk._library().macro_accumulate_pairs_f32(
@@ -1466,7 +1470,7 @@ def class_direct(entry, slabs, a, b, bases, t, p, a_offs, b_offs, tables,
     lib = mk._library()
     stream = torch.cuda.current_stream().cuda_stream
     prec = M.precision_code(precision)
-    _masks, margs = mk._mask_args(a, b, prec != 0, None)
+    _masks, margs = mk._mask_args(a, b, None)
     head = (a.data_ptr(), b.data_ptr(), bases.data_ptr())
     tail = (n_steps, base, slabs[0].data_ptr(), slabs[1].data_ptr(), prec,
             grid, ticket.data_ptr(), *margs, stream)
@@ -1994,12 +1998,22 @@ def phase_macro_kernel_check():
     if bool(got[1][2].any()) or bool(got[1][5:].any()):
         raise AssertionError("pairs: a tile without pairs is not zero")
     # the same stream with 2 blocks: each takes several tiles, the empty
-    # tile 2 and the tiles past the stream's count are zeroed on the way
-    two = pairs_direct(ap.dense, ap.dense, idx[0].contiguous(),
-                       idx[1].contiguous(), seg_e, 9, 2)
-    if not all(torch.equal(x, y) for x, y in zip(two, got)):
-        raise AssertionError("pairs: 2 blocks and one a tile disagree")
-    cases += 2
+    # tile 2 and the tiles past the stream's count are zeroed on the way,
+    # and a block's next tile follows the tile of 70 pairs (whose slabs
+    # are read a window of 32 pairs at a time); at each precision, and the
+    # accumulate form too
+    ia, ib = idx[0].contiguous(), idx[1].contiguous()
+    for q in ("highest",) + LOWER_PRECISIONS:
+        if q != "highest":
+            got = pairs_case(ap.dense, ap.dense, ia, ib, seg_e, 9,
+                             "pairs 1/70/0/3/2", worst, precision=q)
+        two = pairs_direct(ap.dense, ap.dense, ia, ib, seg_e, 9, 2, q)
+        if not all(torch.equal(x, y) for x, y in zip(two, got)):
+            raise AssertionError(f"pairs 1/70/0/3/2 at {q}: 2 blocks and "
+                                 "one a tile disagree")
+        accumulate_case(ap.dense, ap.dense, ia, ib, seg_e, 9,
+                        "pairs 1/70/0/3/2", worst, q, seed=68, grid=2)
+        cases += 4
     del ap
     # a float64 stream alone: a C tile of 40 pairs (the float64 entry's slab
     # ring wraps across 320 slabs), an empty tile, tiles of 1, 7 and 2
@@ -3045,10 +3059,14 @@ def bmm_ms(a_dense, b_dense, pa, pb, per=16_384, precision="highest"):
 
 def precision_bounds(a, pa, pb, n_pairs, c_rows, precision):
     """Bounds of an entry's work at "high" / "default": the larger of the
-    operations (2 * 128^3 a pair, one pass at the TF32 or the bfloat16
-    tensor-core rate) and the bytes (each distinct operand tile read once,
-    every C row written once, values and flags)."""
-    ops = TILE_FLOP * n_pairs
+    operations (2 * 128^2 * 32 for each k-slab this run's data needs,
+    k4_split.slab_share, one pass at the TF32 or the bfloat16 tensor-core
+    rate; ``operations_every_slab`` the 2 * 128^3 a pair of a dense
+    product) and the bytes (each distinct operand tile read once, every C
+    row written once, values and flags)."""
+    run, slabs = k4_split.slab_share(a.dense, a.dense, pa, pb)
+    every = TILE_FLOP * n_pairs
+    ops = every * run // max(slabs, 1)
     rate = TF32_OPS_PER_S if precision == "high" else BF16_OPS_PER_S
     tiles = int(torch.unique(torch.cat([pa, pb])).numel())
     nbytes = tiles * 128 * 128 * a.dense.element_size() \
@@ -3057,8 +3075,9 @@ def precision_bounds(a, pa, pb, n_pairs, c_rows, precision):
     return {"bound_ms": max(b_o, b_b) * 1e3,
             "bound_by": "operations" if b_o >= b_b else "bytes",
             "bound_ops_ms": b_o * 1e3, "bound_bytes_ms": b_b * 1e3,
-            "operations": ops, "bytes": nbytes, "operand_tiles": tiles,
-            "rate": "TF32 495 TFLOP/s" if precision == "high"
+            "operations": ops, "operations_every_slab": every,
+            "slabs_run": run, "slabs": slabs, "bytes": nbytes,
+            "operand_tiles": tiles, "rate": "TF32 495 TFLOP/s" if precision == "high"
                     else "bf16 989 TFLOP/s"}
 
 
@@ -3082,42 +3101,40 @@ def precision_row(kernel, name, replaces, matrix, fn, plain_fn, pa, pb, a,
         "pairs": n_pairs, "c_rows": c_rows, **extra}
 
 
-def class_pairs(plan):
-    """(pa, pb) int32 on the card: every pair of the plan's class path."""
-    pa, pb = [], []
-    for (t, p, _ar, _br, a_offs, b_offs, _base), bases in zip(
-            plan.classes, plan.class_bases):
-        b2 = bases.reshape(-1, 2)
-        pa.append((b2[:, :1] + torch.tensor(a_offs, dtype=torch.int32,
-                                            device=DEV)[None, :]).reshape(-1))
-        pb.append((b2[:, 1:] + torch.tensor(b_offs, dtype=torch.int32,
-                                            device=DEV)[None, :]).reshape(-1))
-    return torch.cat(pa), torch.cat(pb)
-
-
-def macro_bounds(a, n_pairs, c_rows):
-    """Bounds of a Macro128 entry's work.  Operations: 2 * 128^3 a pair,
-    the values' product; the pattern is a bit operation per k-slab in the
-    kernel and is not counted.  Bytes: the operand table read once (A @ A
-    reads one table) and every C row written once, values and flags.
-    bound_ms takes the operations at the FP32 rate; bound_tc_ms the same
-    products as three tf32 products each at the TF32 tensor-core rate (the
-    3xTF32 split every entry runs), or the bytes where those take longer."""
-    ops = TILE_FLOP * n_pairs
-    nbytes = a.dense.numel() * 4 + c_rows * 128 * 128 * 5
+def macro_bounds(a, pa, pb, c_rows):
+    """Bounds of a float32 Macro128 entry's work at "highest" over the
+    pairs (pa, pb) of A @ A.  Operations: 2 * 128^2 * 32 for each k-slab
+    this run's data needs (k4_split.slab_share: the slabs the kernel copies
+    and multiplies, ``slabs_run`` of ``slabs``), the values' product; the
+    pattern is a bit operation per k-slab in the kernel and is not counted;
+    ``operations_every_slab`` is the 2 * 128^3 a pair of a dense product.
+    Bytes: each distinct operand tile read once (A @ A reads one table)
+    and every C row written once, values and flags.  bound_ms takes the operations at
+    the FP32 rate; bound_tc_ms the same products as three tf32 products
+    each at the TF32 tensor-core rate (the 3xTF32 split every entry runs),
+    or the bytes where those take longer."""
+    run, slabs = k4_split.slab_share(a.dense, a.dense, pa, pb)
+    every = TILE_FLOP * pa.numel()
+    ops = every * run // max(slabs, 1)
+    tiles = int(torch.unique(torch.cat([pa, pb])).numel())
+    nbytes = tiles * 128 * 128 * 4 + c_rows * 128 * 128 * 5
     b_o, b_b = ops / FP32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
     b_tc = 3 * ops / TF32_OPS_PER_S
     return {"bound_ms": max(b_o, b_b) * 1e3,
             "bound_by": "operations" if b_o >= b_b else "bytes",
             "bound_tc_ms": max(b_tc, b_b) * 1e3,
             "bound_tc_by": "operations (3xTF32)" if b_tc >= b_b else "bytes",
-            "operations": ops, "tf32_operations": 3 * ops, "bytes": nbytes}
+            "bound_ops_ms": b_o * 1e3, "bound_tc_ops_ms": b_tc * 1e3,
+            "bound_bytes_ms": b_b * 1e3, "operations": ops,
+            "operations_every_slab": every, "tf32_operations": 3 * ops,
+            "bytes": nbytes, "operand_tiles": tiles, "slabs_run": run,
+            "slabs": slabs, "slabs_run_share": run / max(slabs, 1)}
 
 
 def macro_row(name, replaces, matrix, fn, plain_fn, lib_pairs, a, n_pairs,
               c_rows, launches, per_multiply, err, extra):
     """One row of the kernels line, bounds as macro_bounds counts them."""
-    bounds = macro_bounds(a, n_pairs, c_rows)
+    bounds = macro_bounds(a, *lib_pairs, c_rows)
     ms = time_ms(fn)
     return {
         "name": name, "route": "cuda", "source": MACRO_SOURCE,
@@ -3130,6 +3147,54 @@ def macro_row(name, replaces, matrix, fn, plain_fn, lib_pairs, a, n_pairs,
         "runs_on": "tensor cores, 3xTF32", "matrix": matrix,
         "pairs": n_pairs, "c_rows": c_rows, "a_tiles": a.ntiles,
         "launches_per_multiply": per_multiply, "kernel_ms": ms, **extra}
+
+
+PTXAS = {}      # CUDA source stem: ptxas' report of its build in this run
+
+
+def ptxas_entries(stem, *parts):
+    """ptxas' report (``-Xptxas -v``, put into PTXAS by
+    _build.build_kernels) of the kernels of csrc/<stem>.cu whose mangled
+    names hold each of ``parts``: {name: {"registers", "stack_bytes",
+    "spill_stores", "spill_loads"}}; "not measured" where this run built no
+    library (it was there)."""
+    log = PTXAS.get(stem)
+    if log is None:
+        return "not measured: the library was built before this run"
+    out, entry, props = {}, None, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            entry = m.group(1)
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            props = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m and props is not None:
+            out.setdefault(props, {}).update(
+                stack_bytes=int(m.group(1)), spill_stores=int(m.group(2)),
+                spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and entry is not None:
+            out.setdefault(entry, {})["registers"] = int(m.group(1))
+    return {k: v for k, v in out.items()
+            if "registers" in v and all(x in k for x in parts)}
+
+
+def tc_fields(a, walk):
+    """What a float32 Macro128 row at "highest" (macro_tc_kernel) adds
+    beside its slab share (macro_bounds): the masks entry's ms over A's
+    table (one table: A @ A; CUDA-graph replay), which the row's ms
+    includes once a multiply, and ptxas' registers and spills of its
+    kernel instance (``walk``: StreamTiles, ClassTilesILb1E (ragged),
+    ClassTilesILb0E (uniform))."""
+    masks = mk.TableMasks(a.dense)
+    return {"masks_ms": graph_ms(masks.make),
+            "masks_covers": "macro_tile_masks_f32 over A's table, once a "
+                            "multiply (inside the first launch)",
+            "ptxas": ptxas_entries("macro_accumulate", "macro_tc_kernel",
+                                   walk)}
 
 
 def macro_plan_of(a, cfg):
@@ -3194,8 +3259,10 @@ def pairs_point(a, name, n_pairs, n_tiles, precision="highest"):
     del want, mag, got
     torch.cuda.empty_cache()
     pa, pb = a_idx[:n_pairs], b_idx[:n_pairs]
-    bounds = macro_bounds(a, n_pairs, c_cap) if precision == "highest" \
+    bounds = macro_bounds(a, pa, pb, c_cap) if precision == "highest" \
         else precision_bounds(a, pa, pb, n_pairs, c_cap, precision)
+    if precision == "highest":
+        bounds.update(tc_fields(a, "StreamTiles"))
     return {
         "ms": time_ms(lambda: mk.accumulate_macro_pairs(
             a.dense, a.dense, a_idx, b_idx, seg, c_cap,
@@ -3334,14 +3401,13 @@ def phase_macro_path(check_err, pairbands_ref, repeat=3):
                                  device=DEV))
             class_rows = sum(c[0] * (b.numel() // 2) for c, b in
                              zip(sp.classes, sp.class_bases))
-            lib_pairs = class_pairs(sp)
+            lib_pairs = k4_split.class_pairs(sp)
 
             def classes_through(call, precision="highest"):
-                # below "highest" the launches of one multiply share the
-                # tables' masks, as stencil_accumulate's do
+                # the launches of one multiply share the tables' masks, as
+                # stencil_accumulate's do
                 def run():
-                    masks = None if precision == "highest" else \
-                        mk.TileMasks(a.dense, a.dense)
+                    masks = mk.TileMasks(a.dense, a.dense)
                     for cls, bases, tables in zip(sp.classes, sp.class_bases,
                                                   sp.class_tables):
                         call(cls, bases, tables, masks)
@@ -3387,7 +3453,8 @@ def phase_macro_path(check_err, pairbands_ref, repeat=3):
                     lib_pairs, a, int(lib_pairs[0].numel()), class_rows,
                     launches[entry], per_multiply,
                     max(err, check_err["macro_class_ragged"]),
-                    dict(classes=len(sp.classes), timed=timed)))
+                    dict(classes=len(sp.classes), timed=timed,
+                         **tc_fields(a, "ClassTilesILb1E"))))
                 rows_out += lower_rows(
                     "K5", "macro_class_ragged",
                     "pem_spgemm_tpu/ops/pallas_stencil.py:309", ragged)
@@ -3415,7 +3482,8 @@ def phase_macro_path(check_err, pairbands_ref, repeat=3):
                     dict(classes=len(sp.classes), timed=timed,
                          ragged_entry_ms=time_ms(classes_through(ragged)),
                          bit_equal_to_ragged_entry=True,
-                         caller="none on the path, as in the JAX package")))
+                         caller="none on the path, as in the JAX package",
+                         **tc_fields(a, "ClassTilesILb0E"))))
                 rows_out += lower_rows(
                     "K6", "macro_class_uniform",
                     "pem_spgemm_tpu/ops/pallas_stencil.py:118",
@@ -3435,7 +3503,8 @@ def phase_macro_path(check_err, pairbands_ref, repeat=3):
                 max(err, check_err["macro_accumulate_pairs"],
                     k4_wandering["highest"]["max_abs_err"]),
                 {"c_tiles": n_tiles, "p_cap": int(a_idx.numel()),
-                 "at_wandering64-1M": k4_wandering["highest"]}))
+                 "at_wandering64-1M": k4_wandering["highest"],
+                 **tc_fields(a, "StreamTiles")}))
             for q in LOWER_PRECISIONS:
                 rows_out.append(precision_row(
                     "K4", "macro_accumulate_pairs",
@@ -3984,8 +4053,15 @@ def f64_macro_row(info, check_err):
     err = macro_hold(got, want, mag, f"{entry} at wandering64-1M", key=entry)
     del got, want, mag
     interactive, steady = f64_per_multiply(a, "macro", entry)
-    ops = TILE_FLOP * n_pairs
-    nbytes = a.dense.numel() * 8 + c_cap * 128 * 128 * 9
+    # the operations of the 16-deep slabs this run's data needs (the
+    # slabs the kernel copies), as macro_bounds counts them in float32
+    run, slabs = k4_split.slab_share(a.dense, a.dense, a_idx[:n_pairs],
+                                     b_idx[:n_pairs])
+    every = TILE_FLOP * n_pairs
+    ops = every * run // max(slabs, 1)
+    tiles = int(torch.unique(torch.cat([a_idx[:n_pairs],
+                                        b_idx[:n_pairs]])).numel())
+    nbytes = tiles * 128 * 128 * 8 + c_cap * 128 * 128 * 9
     b_o, b_b = ops / FP64_OPS_PER_S, nbytes / HBM_BYTES_PER_S
     skipped = f64_skipped_share(a.dense, a.dense, a_idx[:n_pairs],
                                 b_idx[:n_pairs])
@@ -4011,10 +4087,12 @@ def f64_macro_row(info, check_err):
                         "columns share no k with non-zeros on both sides, "
                         "and hold no Inf or NaN, multiplies only zeros and "
                         "is not run; a slab none of whose blocks runs is "
-                        "not copied; the bound counts every product",
+                        "not copied; the bound counts the products of "
+                        "the slabs copied",
         "pairs": n_pairs,
-        "c_rows": c_cap, "operations": ops, "bytes": nbytes,
-        "dtype": "float64", "kernel_ms": ms,
+        "c_rows": c_cap, "operations": ops, "operations_every_slab": every,
+        "slabs_run": run, "slabs": slabs, "bytes": nbytes,
+        "operand_tiles": tiles, "dtype": "float64", "kernel_ms": ms,
         "launches_per_multiply": steady,
         "launches_interactive_multiply": interactive,
     }
@@ -5782,20 +5860,12 @@ RING_ROUNDS = 3         # timed replays of a ring plan (median reported)
 RING_HIGHEST_LAUNCHES = {}  # phase sharded's float32 4-rank replay's counts
 
 
-def ring_carries_masks(plans, precision):
-    """Whether the ring's stages read tile masks (and its chunks carry
-    them): sm.ring_reads_masks (float64 tables, float32 at "high" /
-    "default", and at "highest" a ring of several ranks, whose accumulating
-    stages read them)."""
-    return sm.ring_reads_masks(plans[0], precision)
-
-
 def warm_ring(plans, precision="highest"):
     """Each rank's local_macro once, its output dropped: the first launch
     of a kernel instance in a process loads it, and the first C of a size
     is a fresh allocation.  The plans' masks made for it are dropped, so
     that the counted run makes them."""
-    masks = ring_carries_masks(plans, precision)
+    masks = mk.reads_masks(plans[0].b_dense)
     for d, p in enumerate(plans):
         sm.local_macro(p, sm.replay_chunks(plans, d, masks), precision)
     torch.cuda.synchronize()
@@ -5814,7 +5884,7 @@ def replay_ring(plans, precision="highest"):
     k4_ms, coo_ms, ring_peak_gb, rank_launches) with the last round's
     outputs and each rank's kernel launches in it."""
     n = len(plans)
-    masks = ring_carries_masks(plans, precision)
+    masks = mk.reads_masks(plans[0].b_dense)
     k4, coo, peaks = [[] for _ in plans], [[] for _ in plans], [0.0] * n
     rank_launches = [{} for _ in plans]
     for r in range(RING_ROUNDS):
@@ -5857,36 +5927,17 @@ def hold_ring_compositions(plans, outs, precision, what):
     return out
 
 
-def needed_slabs(a_dense, b_dense, pa, pb):
-    """(slabs that run, slabs) over the pairs (pa, pb): the k-slabs (32
-    wide in float32, 16 in float64, as the kernels take them) whose product
-    can be non-zero by the tables' k-masks (tile_masks_plain): a k where
-    A's column and B's row hold a non-zero, or a marked slab."""
-    f64 = a_dense.dtype == torch.float64
-    width, per = (16, 8) if f64 else (32, 4)
-    ma = mk.tile_masks_plain(a_dense)[pa.long()].to(torch.int64) & 0xFFFFFFFF
-    mb = mk.tile_masks_plain(b_dense)[pb.long()].to(torch.int64) & 0xFFFFFFFF
-    both = ma[:, :4] & mb[:, 5:9]              # (P, 4): k bits, 32 a word
-    marks = ma[:, 4] | mb[:, 9]
-    run = 0
-    for slab in range(per):
-        word, shift = divmod(slab * width, 32)
-        bits = (both[:, word] >> shift) & ((1 << width) - 1)
-        run += int(((bits != 0) | ((marks >> slab) & 1 != 0)).sum())
-    return run, per * pa.numel()
-
-
 def acc_bounds(a_dense, b_dense, pa, pb, n_pairs, tiles, precision):
     """Bounds of a stage in K4's accumulate form: the operations (the
-    slabs this stage's data needs, needed_slabs: 2 * 128^2 * the slab's
-    depth each, at the rate of the precision's product: FP32 at "highest"
+    slabs this stage's data needs, k4_split.slab_share: 2 * 128^2 * the
+    slab's depth each, at the rate of the precision's product: FP32 at "highest"
     with the 3xTF32 tensor-core bound beside it, TF32, bf16, FP64;
     ``operations_every_slab`` the 2 * 128^3 a pair of a dense product) and
     the bytes (each distinct operand tile read once, each C tile the stage
     has pairs for read and written once, values and flags; the other tiles
     not at all)."""
     elem = a_dense.element_size()
-    slabs_run, slabs = needed_slabs(a_dense, b_dense, pa, pb)
+    slabs_run, slabs = k4_split.slab_share(a_dense, b_dense, pa, pb)
     ops = TILE_FLOP * n_pairs * slabs_run // max(slabs, 1)
     operand_tiles = int(torch.unique(pa).numel() + torch.unique(pb).numel())
     nbytes = operand_tiles * 128 * 128 * elem \
@@ -5945,7 +5996,7 @@ def acc_row(plans, matrix, launches, check_err, precision="highest",
                                f"{matrix} ring stage, {precision}")
     chunk = min(256, pa.numel())
     c = acc_prior(p.c_cap, p.a_dense.dtype, 72)
-    reads = mk.reads_masks(b, precision, True)
+    reads = mk.reads_masks(b)
     masks = mk.TileMasks(p.a_dense, b, a=sm.plan_masks(p)[0],
                          b=sm.plan_masks(owner)[1]) if reads else None
     fn = lambda: mk.accumulate_macro_pairs(p.a_dense, b, pa, pb, sg, p.c_cap,
@@ -6079,7 +6130,7 @@ def world_size_1_point(plan, precision="highest"):
     c = mk.accumulate_macro_pairs(*args, precision=precision)
     masks = mk.TileMasks(plan.a_dense, plan.b_dense,
                          *sm.plan_masks(plan)) \
-        if mk.reads_masks(plan.b_dense, precision, True) else None
+        if mk.reads_masks(plan.b_dense) else None
     point = {"pairs": plan.stage_pairs[s], "c_cap": plan.c_cap,
              "tiles_with_pairs": int(stream_tiles(plan.seg[s], plan.c_cap)
                                      .sum()),
@@ -6126,7 +6177,8 @@ def macro_ring_world_size_1(md, mesh, want, pick, what):
         lambda: sm.assemble_sharded_macro(plan, *out, mesh, host=False))
     launches = nonzero(all_counts())
     add_path_launches("sharded_path", launches)
-    stages = check_ring_launches(launches, [plan], what, runs=2)
+    stages = check_ring_launches(launches, [plan], what, runs=2,
+                                 masks=True)
     if c_nnz != want_nnz or len(rows) != want_nnz:
         raise AssertionError(f"{what}: C_nnz {c_nnz}, launches "
                              f"{launches}, stages {stages}")
@@ -6901,7 +6953,8 @@ def main():
         return 1
     t_start = time.perf_counter()
     smi = nvidia_smi_line()
-    build_s = _build.build_kernels(verbose=args.only is not None)
+    build_s = _build.build_kernels(verbose=args.only is not None,
+                                   ptxas=PTXAS)
     emit("device", kind=torch.cuda.get_device_name(0), nvidia_smi=smi,
          torch=torch.__version__, cuda=torch.version.cuda,
          kernel_build_s=build_s)

@@ -2,7 +2,7 @@
 
     python -m pem_spgemm_tpu_torch.bench.k4_split [--baseline-macro FILE]
         [--baseline-dia FILE]
-        [--baseline-tile16 FILE] [--baseline-structure FILE]
+        [--baseline-tile16 FILE] [--baseline-structure FILE] [--dense-tiles]
         [--only k4|k5|k3|k3f64|k4f64|k2f64|library|k4acc|tile16|c_rowcol ...]
 
 Builds csrc/macro_accumulate.cu and csrc/dia_multiply.cu as they are and,
@@ -19,23 +19,33 @@ without a grid and a ticket counter (666d068), pair-stream entries without
 the accumulate argument (2abca3f), one masks_ready flag (2a6978f), or
 today's.
 
-  k4  the pair-stream entry at wandering64-1M's stream (70,308 pairs) and at
-      pairbands-500k's (389,700 pairs): as it is (persistent, one block an
-      SM), built as ONE_TILE (one block a C tile: the tensor-core tile
-      product without the persistent stream), and the baseline's; each
-      held against the plain version (flags equal, values within
-      1e-5 * sum|a*b| + 1e-6), then timed by CUDA events in turns, beside
-      the CUTS builds (one piece of the "highest" stage cut out each; timed
-      only), the entry at precision "high" and "default" (the one-pass
-      pipeline, each held against the plain version at its precision), the
-      baseline's at both (where it takes a precision) and the WS_CUTS builds
-      at both (one piece of the one-pass pipeline cut out; timed only);
+  k4  the pair-stream entry's fresh form at wandering64-1M's stream (70,308
+      pairs) and at pairbands-500k's (389,700 pairs): as the wrapper
+      launches it (the tables' masks made inside the launch), the launch
+      alone (masks made beforehand), the masks entry alone, the
+      NO_SLAB_SKIP build (every slab of a pair published) and the
+      baseline's; each held against the plain version (flags equal,
+      values within 1e-5 * sum|a*b| + 1e-6) and bit for bit (values' bits
+      and flags) the first's at its precision, then timed by CUDA events
+      in turns, beside the CUTS builds (one piece of the "highest" stage
+      cut out each; timed only), the entry at precision "high" and
+      "default" (the one-pass pipeline, each held likewise at its
+      precision), the baseline's at both (where it takes a precision) and
+      the WS_CUTS builds at both (one piece of the one-pass pipeline cut
+      out; timed only); with the share of the slabs the masks call
+      non-zero (``slabs_run_share``);
   k5  the ragged class entry over wandering64-1M's class launches (one
-      steady multiply's): this build's and the baseline's, their slabs
-      bit for bit equal, the no_mark cut, this build and the baseline's at
-      "high" and "default" (each held against the plain version at the
-      precision, flags equal to "highest"'s) and the WS_CUTS builds at
-      both, timed in turns;
+      steady multiply's, the first computing the masks the others read):
+      this build's, its launches alone (masks made beforehand), the masks
+      entry alone, the NO_SLAB_SKIP build and the baseline's, their slabs
+      bit for bit equal, the no_mark cut, this build at "highest" and,
+      with the baseline's, at "high" and "default" (each held against the
+      plain version at the precision, flags equal to "highest"'s) and the WS_CUTS builds at
+      both, timed in turns, with the class pairs' slab share;
+      with --dense-tiles, k4 and k5 run on the same streams and classes
+      with every entry of the table made non-zero (``densify``: every slab
+      runs), at "highest" only and without the cut builds: this build, its
+      launch alone, the masks entry, NO_SLAB_SKIP and the baseline;
   k3, k3f64  the DIA pairs entry, float32 and float64, at pairbands-500k,
       with counts and values only: this build's, the PAIR_COLS builds
       (other columns a thread), each also at the PAIR_GROUPS row groups,
@@ -185,21 +195,11 @@ WS_CUTS = {
          "            if (l == 0) sh.meta[s].a_any[warp] = ANY_NZ;\n"
          "            if (l == 0) sh.meta[s].b_any[warp] = ANY_NZ;\n")],
 }
-# The same entry with one block a C tile (grid = c_cap, each block the class
-# entries' one-tile product of its tile): the tensor-core tile product
-# without the persistent stream.  Its result is held like the entry's.
-ONE_TILE = [
-    ("    pair_stream(a_dense, b_dense, PairWalk{seg_ptr, a_idx, b_idx, next, "
-     "c_cap},\n"
-     "                c_num, c_flag, tc_shared());\n",
-     "    const long long c = blockIdx.x;\n"
-     "    const int lo = seg_ptr[c];\n"
-     "    tile_product_tc(a_dense, b_dense, a_idx + lo, b_idx + lo, 0, 0,\n"
-     "                    seg_ptr[c + 1] - lo, c_num + c * TILE_ELEMS,\n"
-     "                    c_flag + c * TILE_ELEMS, tc_shared());\n"),
-    ("    macro_pairs_kernel<<<grid < c_cap ? grid : c_cap,",
-     "    macro_pairs_kernel<<<c_cap,"),
-]
+# Every slab of a pair published (slabs_needed calls all four): the skip's
+# share of a launch.  Its results are the same bits (a skipped slab adds
+# +-0 to sums that start at +0), so it is held like the entry.
+NO_SLAB_SKIP = [("    unsigned n = (mw[4] | mw[9]) & 0xFu;\n",
+                 "    unsigned n = 0xFu;\n")]
 # the float32 entries' precisions below "highest" (their int argument is
 # M.precision_code's)
 LOWER = ("high", "default")
@@ -587,6 +587,21 @@ def pair_stream(a):
     return n_pairs, int(out[5]), out[2], out[3], out[4]
 
 
+def densify(table, seed=23, per=1024):
+    """Every entry of a (T, 128, 128) float32 tile table made non-zero, in
+    place (a random sign times a value in [0.5, 1.5), from ``seed``), the
+    tiles and so the pairs unchanged: every k-slab of every pair then
+    runs (slab share 1), the case of a Macro128 operand whose tiles are
+    dense."""
+    g = torch.Generator(device=table.device).manual_seed(seed)
+    for lo in range(0, table.shape[0], per):
+        x = table[lo:lo + per]
+        x.copy_(torch.rand(x.shape, generator=g, device=x.device) + 0.5)
+        x.mul_(torch.randint(0, 2, x.shape, generator=g, device=x.device)
+               * 2 - 1)
+    return table
+
+
 def hold(got, want, mag, what):
     (gn, gf), (wn, wf) = got, want
     if not torch.equal(gf, wf):
@@ -634,23 +649,43 @@ def build_all(stem: str, source: str, declare, variants):
 
 def held_key(k: str) -> str | None:
     """The precision a timed build's result is held at ("highest" where the
-    key names none), or None for a cut build (timed only)."""
+    key names none), or None for a cut build (timed only) and the masks
+    entry (no C)."""
     name, _, prec = k.partition("@")
-    if name in CUTS or name in WS_CUTS:
+    if name in CUTS or name in WS_CUTS or name == "masks":
         return None
     return prec or "highest"
 
 
-def case_k4(base, n_time):
+def slab_share(a, b, pa, pb):
+    """(slabs that run, slabs) of the pairs (pa, pb) of A @ B: the k-slabs
+    slabs_needed calls from the tables' k-masks (``needed_slabs``)."""
+    per = 8 if a.dtype == torch.float64 else 4
+    need = needed_slabs(a, b, pa, pb)
+    run = int(((need.unsqueeze(1) >> torch.arange(per, device=need.device))
+               & 1).sum())
+    return run, per * pa.numel()
+
+
+def same_as(ref, got):
+    """Values' bits and flags equal."""
+    return torch.equal(ref[0], got[0].view(torch.int32)) and \
+        torch.equal(ref[1], got[1])
+
+
+def case_k4(base, n_time, dense=False):
     base_lib, base_kind = base
     cur = mk._library()
-    variants = {"one_tile_a_block": ONE_TILE, **CUTS, **WS_CUTS}
-    libs = build_all("macro_accumulate", mk.SOURCE, mk._declare, variants)
+    cuts, ws_cuts, lower = ({}, {}, ()) if dense else (CUTS, WS_CUTS, LOWER)
+    libs = build_all("macro_accumulate", mk.SOURCE, mk._declare,
+                     {**cuts, **ws_cuts, "no_slab_skip": NO_SLAB_SKIP})
     stream = torch.cuda.current_stream().cuda_stream
     sms = mk.persistent_grid(torch.device("cuda"))
     for name, make in STREAMS.items():
         a = coo_to_macro(make())
         n_pairs, n_tiles, a_idx, b_idx, seg = pair_stream(a)
+        if dense:
+            densify(a.dense)
         c_cap = -(-n_tiles // 256) * 256
         seg_ptr = mk.segment_offsets(seg, c_cap)
         mag = M.accumulate_macro(a.dense.abs(), a.dense.abs(), a_idx, b_idx,
@@ -662,34 +697,44 @@ def case_k4(base, n_time):
         ptrs = (a.dense.data_ptr(), a.dense.data_ptr(), a_idx.data_ptr(),
                 b_idx.data_ptr(), seg_ptr.data_ptr(), num.data_ptr(),
                 flag.data_ptr(), c_cap)
-        # every launch computes the masks, as a stand-alone one does
+        # the launch computes the masks, as the wrapper's does when handed
+        # none; the launch alone reads masks made beforehand
         table = torch.empty((a.dense.shape[0], mk.TM_WORDS),
                             dtype=torch.int32, device="cuda")
-        masks = mask_args(table, False)
+        made = mk.TableMasks(a.dense).make().words
+        masks, ready = mask_args(table, False), mask_args(made, True)
 
-        def launch(lib, what, p, kind="current"):
-            extra = tail_args(kind, p, masks)
+        def launch(lib, what, p, kind="current", margs=masks):
+            extra = tail_args(kind, p, margs)
             return lambda: (next_tile.zero_(), checked(
                 lib.macro_accumulate_pairs_f32(
                     *ptrs, sms, next_tile.data_ptr(), *extra, stream), what))
 
-        fns = {"persistent": launch(cur, "current", "highest")}
-        for p in LOWER:
+        fns = {"persistent": launch(cur, "current", "highest"),
+               "launch_alone": launch(cur, "launch_alone", "highest",
+                                      margs=ready),
+               "masks": lambda: checked(cur.macro_tile_masks_f32(
+                   a.dense.data_ptr(), a.dense.shape[0], table.data_ptr(),
+                   stream), "masks"),
+               "no_slab_skip": launch(libs["no_slab_skip"], "no_slab_skip",
+                                      "highest")}
+        for p in lower:
             fns[f"persistent@{p}"] = launch(cur, p, p)
-        for cut in ("one_tile_a_block", *CUTS):
+        for cut in cuts:
             fns[cut] = launch(libs[cut], cut, "highest")
-        for cut in WS_CUTS:
-            for p in LOWER:
+        for cut in ws_cuts:
+            for p in lower:
                 fns[f"{cut}@{p}"] = launch(libs[cut], cut, p)
         if base_lib is not None:
             for p in ("highest",) if base_kind == "v12" else ("highest",
-                                                              *LOWER):
+                                                              *lower):
                 k = "baseline" if p == "highest" else f"baseline@{p}"
                 fns[k] = launch(base_lib, k, p, base_kind)
-        over = {}
-        for p in ("highest", *LOWER):
+        over, equal = {}, {}
+        for p in ("highest", *lower):
             want = M.accumulate_macro(a.dense, a.dense, a_idx, b_idx, seg,
                                       c_cap, 256, precision=p)
+            ref = None                      # the first held build's bits
             for k, fn in fns.items():
                 if held_key(k) != p:
                     continue                # a cut build's result is wrong
@@ -698,22 +743,38 @@ def case_k4(base, n_time):
                 fn()
                 torch.cuda.synchronize()
                 over[k] = hold((num, flag), want, mag, f"{name} {k}")
-            del want
+                if ref is None:
+                    ref = (num.view(torch.int32).clone(), flag.clone())
+                    continue
+                equal[k] = same_as(ref, (num, flag))
+                if not equal[k]:
+                    raise AssertionError(f"{name} {k}: not bit for bit the "
+                                         f"first build held at {p}")
+            del want, ref
         del mag
         torch.cuda.empty_cache()
+        run, slabs = slab_share(a.dense, a.dense, a_idx[:n_pairs],
+                                b_idx[:n_pairs])
         times = in_turns(fns, n_time[name])
-        emit("k4", matrix=name, pairs=n_pairs, c_tiles=n_tiles, c_cap=c_cap,
+        emit("k4", matrix=name, tiles="dense" if dense else "as made",
+             pairs=n_pairs, c_tiles=n_tiles, c_cap=c_cap,
              grid=sms, ms=times, worst_over_bound=over,
-             pairs_a_tile=n_pairs / n_tiles)
-        del a, a_idx, b_idx, seg, seg_ptr, num, flag, next_tile, table
+             bit_equal_to_the_first_held=equal, slabs_run=run, slabs=slabs,
+             slabs_run_share=run / slabs, pairs_a_tile=n_pairs / n_tiles,
+             timed="persistent: the launch computing the tables' masks; "
+                   "launch_alone: with masks made; masks: the masks entry "
+                   "alone; CUDA events, in turns")
+        del a, a_idx, b_idx, seg, seg_ptr, num, flag, next_tile, table, made
         torch.cuda.empty_cache()
 
 
-def case_k5(base):
+def case_k5(base, dense=False):
     base_lib, base_kind = base
     cur = mk._library()
+    cuts, ws_cuts, lower = ({}, {}, ()) if dense else (
+        {"no_mark": CUTS["no_mark"]}, WS_CUTS, LOWER)
     libs = build_all("macro_accumulate", mk.SOURCE, mk._declare,
-                     {"no_mark": CUTS["no_mark"], **WS_CUTS})
+                     {**cuts, **ws_cuts, "no_slab_skip": NO_SLAB_SKIP})
     stream = torch.cuda.current_stream().cuda_stream
     sms = mk.persistent_grid(torch.device("cuda"))
     cfg = SpGEMMConfig(engine="macro")
@@ -722,6 +783,8 @@ def case_k5(base):
     if not isinstance(plan, StencilMacroPlan):
         raise AssertionError(f"wandering64-1M: plan {type(plan).__name__}")
     sp = plan.plan
+    if dense:
+        densify(a.dense)
     rows = sum(c[0] * (b.numel() // 2)
                for c, b in zip(sp.classes, sp.class_bases))
     tickets = torch.zeros(len(sp.classes), dtype=torch.int32, device="cuda")
@@ -729,9 +792,10 @@ def case_k5(base):
     # them (as ops.stencil.stencil_accumulate runs them)
     table = torch.empty((a.dense.shape[0], mk.TM_WORDS), dtype=torch.int32,
                         device="cuda")
+    made = mk.TableMasks(a.dense).make().words
     slabs = {}
 
-    def classes(lib, kind, key, precision, slab):
+    def classes(lib, kind, key, precision, slab, ready=False):
         if slab not in slabs:
             slabs[slab] = (
                 torch.full((rows, 128, 128), float("nan"), device="cuda"),
@@ -750,42 +814,53 @@ def case_k5(base):
                     bases.numel() // 2, base, num.data_ptr(),
                     flag.data_ptr(),
                     *class_args(kind, precision, sms, tickets[i].data_ptr(),
-                                mask_args(table, i > 0)), stream), key)
+                                mask_args(made, True) if ready
+                                else mask_args(table, i > 0)), stream), key)
         return run
 
     fns = {"current": classes(cur, "current", "current", "highest",
                               "current"),
-           "no_mark": classes(libs["no_mark"], "current", "no_mark",
-                              "highest", "cut")}
-    for p in LOWER:
+           "launch_alone": classes(cur, "current", "launch_alone",
+                                   "highest", "launch_alone", ready=True),
+           "masks": lambda: checked(cur.macro_tile_masks_f32(
+               a.dense.data_ptr(), a.dense.shape[0], table.data_ptr(),
+               stream), "masks"),
+           "no_slab_skip": classes(libs["no_slab_skip"], "current",
+                                   "no_slab_skip", "highest",
+                                   "no_slab_skip")}
+    for cut in cuts:
+        fns[cut] = classes(libs[cut], "current", cut, "highest", "cut")
+    for p in lower:
         fns[p] = classes(cur, "current", p, p, p)
-        for cut in WS_CUTS:
+        for cut in ws_cuts:
             fns[f"{cut}@{p}"] = classes(libs[cut], "current", cut, p, "cut")
     if base_lib is not None:
         fns["baseline"] = classes(base_lib, base_kind, "baseline",
                                   "highest", "baseline")
         if base_kind != "v12":
-            for p in LOWER:
+            for p in lower:
                 fns[f"baseline@{p}"] = classes(base_lib, base_kind,
                                                f"baseline@{p}", p,
                                                f"baseline@{p}")
     for fn in fns.values():
         fn()
     torch.cuda.synchronize()
-    equal = None
-    if base_lib is not None:
-        equal = all(torch.equal(x, y) for x, y in
-                    zip(slabs["current"], slabs["baseline"]))
-        if not equal:
-            raise AssertionError("K5: the current and the baseline entry "
-                                 "differ on wandering64-1M")
-    held = [k for k in slabs if k in LOWER or k.startswith("baseline@")]
+    equal = {}
+    ref = (slabs["current"][0].view(torch.int32), slabs["current"][1])
+    for k in ("launch_alone", "no_slab_skip", "baseline"):
+        if k in slabs:
+            equal[k] = same_as(ref, slabs[k])
+            if not equal[k]:
+                raise AssertionError(f"K5: {k} and the current entry differ "
+                                     "on wandering64-1M")
+    held = [k for k in slabs if k in lower or k.startswith("baseline@")]
     flags_equal = {k: torch.equal(slabs[k][1], slabs["current"][1])
                    for k in held}
     if not all(flags_equal.values()):
         raise AssertionError(f"K5: flags differ across precisions "
                              f"{flags_equal}")
-    # the lower precisions against the plain version at each
+    # this build at "highest" and the lower precisions against the plain
+    # version at each
     mag = torch.zeros((rows, 128, 128), device="cuda")
     want = torch.empty((rows, 128, 128), device="cuda")
     pat = torch.empty((rows, 128, 128), dtype=torch.uint8, device="cuda")
@@ -794,20 +869,41 @@ def case_k5(base):
         t, p, _ar, _br, ao, bo, base = cls
         st.class_call_plain(mag, pat, a.dense.abs(), a.dense.abs(), bases, t,
                             p, ao, bo, base)
-    for prec in LOWER:
+    for prec in ("highest", *lower):
         for cls, bases in zip(sp.classes, sp.class_bases):
             t, p, _ar, _br, ao, bo, base = cls
             st.class_call_plain(want, pat, a.dense, a.dense, bases, t, p, ao,
                                 bo, base, prec)
-        for k in held:
-            if k.endswith(prec):
+        for k in ["current"] if prec == "highest" else held:
+            if k == "current" or k.endswith(prec):
                 over[k] = hold(slabs[k], (want, pat), mag, f"K5 {k}")
     del mag, want, pat
     torch.cuda.empty_cache()
+    run, n_slabs = slab_share(a.dense, a.dense, *class_pairs(sp))
     times = in_turns(fns, 10, rounds=4)
-    emit("k5", matrix="wandering64-1M", classes=len(sp.classes),
-         c_rows=rows, grid=sms, ms=times, bit_equal_to_baseline=equal,
-         flags_equal_across_precisions=True, worst_over_bound=over)
+    emit("k5", matrix="wandering64-1M", tiles="dense" if dense else
+         "as made", classes=len(sp.classes),
+         c_rows=rows, grid=sms, ms=times, bit_equal_to_current=equal,
+         flags_equal_across_precisions=True, worst_over_bound=over,
+         slabs_run=run, slabs=n_slabs, slabs_run_share=run / n_slabs,
+         timed="current: the 25 launches, the first computing the masks; "
+               "launch_alone: with masks made; masks: the masks entry "
+               "alone; CUDA events, in turns")
+
+
+def class_pairs(sp):
+    """(pa, pb) int32 on the card: every pair of the plan's class path."""
+    pa, pb = [], []
+    for (t, p, _ar, _br, a_offs, b_offs, _base), bases in zip(
+            sp.classes, sp.class_bases):
+        b2 = bases.reshape(-1, 2)
+        pa.append((b2[:, :1] + torch.tensor(a_offs, dtype=torch.int32,
+                                            device=b2.device)[None, :])
+                  .reshape(-1))
+        pb.append((b2[:, 1:] + torch.tensor(b_offs, dtype=torch.int32,
+                                            device=b2.device)[None, :])
+                  .reshape(-1))
+    return torch.cat(pa), torch.cat(pb)
 
 
 def case_pairs(word, base):
@@ -1088,13 +1184,21 @@ def bmm_graph_fn(a, b, pa, pb, precision):
 
 
 def needed_slabs(a, b, pa, pb):
-    """(P,) int32: the slabs each pair runs (the .cu's slabs_needed, from
-    the tables' k-masks: mk.tile_masks_plain)."""
+    """(P,) int32: the slabs each pair runs, a bit a slab (the .cu's
+    slabs_needed, from the tables' k-masks: mk.tile_masks_plain): a slab
+    where A's column and B's row hold a non-zero, or a marked slab; four
+    32-deep slabs in float32, eight 16-deep in float64, as the kernels take
+    them."""
+    width, per = (16, 8) if a.dtype == torch.float64 else (32, 4)
     ma = mk.tile_masks_plain(a)[pa.long()]
     mb = mk.tile_masks_plain(b)[pb.long()]
-    need = (ma[:, 4] | mb[:, 9]) & 0xF
-    for s_ in range(4):
-        need |= ((ma[:, s_] & mb[:, 5 + s_]) != 0).to(torch.int32) << s_
+    need = (ma[:, 4] | mb[:, 9]) & ((1 << per) - 1)
+    for s_ in range(per):
+        word, shift = divmod(s_ * width, 32)
+        both = ma[:, word] & mb[:, 5 + word]
+        if width < 32:
+            both = (both >> shift) & ((1 << width) - 1)
+        need |= (both != 0).to(torch.int32) << s_
     return need
 
 
@@ -1990,6 +2094,11 @@ def main():
     ap.add_argument("--baseline-dia", default=None)
     ap.add_argument("--baseline-tile16", default=None)
     ap.add_argument("--baseline-structure", default=None)
+    ap.add_argument("--dense-tiles", action="store_true",
+                    help="k4 and k5 on the same streams with every entry "
+                         "of the table made non-zero (densify): every slab "
+                         "runs; at \"highest\" only, without the cut "
+                         "builds")
     ap.add_argument("--only", choices=["k4", "k5", "k3", "k3f64", "k4f64",
                                        "k2f64", "library", "k4acc",
                                        "tile16", "c_rowcol"],
@@ -2012,9 +2121,10 @@ def main():
         base_dia = (build("dia_multiply", "baseline", args.baseline_dia,
                           declare_baseline_dia(kind)), kind)
     if args.only is None or "k4" in args.only:
-        case_k4(base_macro, {"wandering64-1M": 10, "pairbands-500k": 5})
+        case_k4(base_macro, {"wandering64-1M": 10, "pairbands-500k": 5},
+                args.dense_tiles)
     if args.only is None or "k5" in args.only:
-        case_k5(base_macro)
+        case_k5(base_macro, args.dense_tiles)
     if args.only is None or "k3" in args.only:
         case_pairs(4, base_dia)
     if args.only is None or "k3f64" in args.only:

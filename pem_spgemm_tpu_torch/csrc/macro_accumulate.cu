@@ -21,15 +21,15 @@
 // order, and OWNERSHIP does the work: every C tile has one owner block, which
 // walks that tile's pairs in stream order with the tile's 128x128 sums in
 // registers and stores values and flags once.  No atomics on C (the
-// persistent entry takes its tiles from one atomic counter), no zero-fill
-// pass, no carry; in the fresh form a tile without pairs is stored as
-// zeros.  All offsets are run-time int32 tables, so one build serves every
-// plan, and every tile address is 64-bit (113k C tiles are 1.85e9 floats).
+// float32 entries' persistent blocks take their tiles from one atomic
+// counter), no zero-fill pass, no carry; in the fresh form a tile without
+// pairs is stored as zeros.  All offsets are run-time int32 tables, so one
+// build serves every plan, and every tile address is 64-bit (113k C tiles
+// are 1.85e9 floats).
 //
 // The two pair-stream entries also have an ACCUMULATE form (the `accumulate`
-// argument; a template argument ACC of the one-pass and float64 kernels,
-// macro_list_kernel at "highest", so that the fresh instances and the
-// class entries compile as before): the multi-GPU ring
+// argument; a template argument ACC of the kernels, so that the fresh
+// instances and the class entries compile without it): the multi-GPU ring
 // adds each stage's products into the rank's C, as the JAX ring's
 // c_dense.at[sg].add does.  A tile's sums run from zero as in the fresh form;
 // at its store the owner loads the tile's values and flags in the pieces it
@@ -41,13 +41,11 @@
 // fresh form's whole C written once.  A ring stage has pairs for a few
 // percent of the rank's C tiles, so the accumulate form walks a LIST of the
 // tiles with pairs (ListTiles; built from seg_ptr by the wrapper on the
-// device, no host sync) at every precision: the tickets of the one-pass
-// pipeline and of the "highest" list kernel (macro_list_kernel) and the
-// float64 kernel's blocks index the list, and no tile without pairs takes
-// either; each runs only a pair's slabs that its tiles' k-masks call
-// non-zero; and the tables' k-masks come made (each table's once, by its
-// own launch macro_tile_masks_*, read with its ready flag set), so a stage
-// reads neither table whole.
+// device, no host sync) at every precision: the float32 kernels' tickets
+// and the float64 kernel's blocks index the list, and no tile without pairs
+// takes either; and the tables' k-masks come made (each table's once, by
+// its own launch macro_tile_masks_*, read with its ready flag set), so a
+// stage reads neither table whole.
 //
 // What bounds them on an H100: 2 * 128^3 operations a pair against 128 KB of
 // operand tile a pair at most (fewer where tiles repeat) and 80 KB of C tile
@@ -55,43 +53,59 @@
 // at "highest"; at one pass ("high", "default") the bytes (C written once
 // and each distinct operand tile read once).
 //
-// Each block runs a STREAM of (tile, pair, 32-deep k-slab) stages over a
-// two-stage ring; one stage's work (tc_stage) is the same in all three
-// entries.  The class entries run one C tile a block (tile_product_tc, their
-// launch shape).  The pair-stream entry is PERSISTENT (pair_stream): one
-// block an SM takes C tiles in stream order from an atomic counter, so the
-// tiles in flight stay neighbours in the C-sorted stream and share operand
-// tiles in L2 (a fixed round robin lets the blocks drift apart and loses
-// that); a tile has few pairs (1.6-3.3 on the suite's streams, 7-13
-// stages), and the stream runs across tile boundaries: the next tile's
-// first raw slabs are in flight while the current one runs its last
-// products and stores its sums, and no tile fills or drains the ring on its
-// own.
+// Every float32 launch is PERSISTENT: one block an SM takes C tiles in
+// order from a ticket counter (`next`, zeroed by the wrapper), so the tiles
+// in flight stay neighbours and share operand tiles in L2 (a fixed round
+// robin lets the blocks drift apart and loses that).  The tiles are a
+// launch's WALK: a pair stream's c_cap tiles in stream order (StreamTiles),
+// a class launch's tile tk = (step tk / t, tile tk % t) (ClassTiles), or
+// the accumulate form's list of the tiles with pairs (ListTiles).  A tile
+// has few pairs (1.6-3.3 on the suite's streams), so a block runs one
+// STREAM of (tile, pair, 32-deep k-slab) stages across tile boundaries: the
+// next tile's first slabs are in flight while the current one runs its last
+// products and stores its sums, and no tile fills or drains a ring on its
+// own.  An ISSUER (one warp: the Issuer below) claims tiles four ahead
+// (ticket, then range, then the first pairs' tiles, then their masks, one
+// step a tile) and publishes only the slabs that can hold a non-zero
+// product: the tables' k-masks (f32_tile_masks; made once a multiply where
+// ops/stencil.py hands one set to all of a plan's launches) give each
+// tile's non-zero columns and rows and its marked slabs, and a pair's slab
+// runs where a k has a non-zero A column and a non-zero B row, or either
+// tile marks it (slabs_needed; wandering64's stream needs 28% of its slabs:
+// PERF.md).  A slab it skips holds only products with a zero factor: +-0,
+// which change no sum (a sum starts at +0 and so never becomes -0) and set
+// no flag, so the result is the bits of running every slab.  After a
+// tile's last slab that runs (at once for a tile none of whose slabs runs,
+// or without pairs) comes a stage without copies, at which the tile is
+// stored evict-first in 16-byte pieces (Frag::store_cs: +0.0 and flags 0
+// where no slab ran; the accumulate form adds it into C, and leaves a tile
+// none of whose slabs ran); a DONE stage ends the block.
 //
-// The tile product runs on the tensor cores: wgmma on tf32 operands with a
-// 3xTF32 split, which keeps the reference's precision "highest" (one tf32
-// product keeps 11 bits of each operand; plain TF32 is not allowed).  Every
-// operand x is split as hi = tf32_rna(x), lo = tf32_rna(x - hi), and C
-// accumulates hi*hi + hi*lo + lo*hi: each product is then exact to about
-// 2^-22 of |a*b|.  wgmma takes tf32 operands K-major only: A's tiles lie so
-// (row i, contiguous k), B's do not (row k, contiguous j), so every slab
-// passes through registers once: 256 threads copy it raw with cp.async two
-// stages ahead (a ring of two raw 32 KB slabs), read it back, split it, and
-// write A as it lies and B transposed, each into the 128-byte swizzle that
-// the shared-memory descriptors name, over a ring of two split stages (4 x
-// 16 KB a stage) while the tensor cores work on the other one.  Two
-// warpgroups each own a 64 x 128 half of the C tile (64 f32 registers a
-// thread) and issue 3 x 4 wgmma.m64n128k8 a stage; the stage's partial is
-// added to a second register sum in FP32 (round to nearest), so the tensor
-// cores' accumulation rounds over one 32-deep slab only.  The pattern comes
-// from the raw f32 values (x != 0; the tf32 hi of a subnormal can be 0):
-// per stage a 32-bit k-mask of each A row and of each B column, and a
-// thread ORs (mask_row & mask_col) != 0 into the 64 bits of the accumulator
-// elements it owns, so values and flags are stored together.  A slab in
-// which a warpgroup's 64 A rows or the B slab hold no non-zero adds exact
-// zeros, and the warpgroup skips it (wandering64's tiles are about 1/6
-// full); ptxas then serializes the stage's wgmma chain (warning C7518),
-// which costs less than the skipped slabs save (PERF.md).
+// At HIGHEST every launch runs macro_tc_kernel, whose 256 threads stage, split
+// and multiply each published slab (tc_stage) behind one barrier a stage.  The
+// tile product runs on the tensor cores: wgmma on tf32 operands with a 3xTF32
+// split, which keeps the reference's precision "highest" (one tf32 product
+// keeps 11 bits of each operand; plain TF32 is not allowed).  Every operand x
+// is split as hi = tf32_rna(x), lo = tf32_rna(x - hi), and C accumulates hi*hi
+// + hi*lo + lo*hi: each product is then exact to about 2^-22 of |a*b|.  wgmma
+// takes tf32 operands K-major only: A's tiles lie so (row i, contiguous k),
+// B's do not (row k, contiguous j), so every slab passes through registers
+// once: 256 threads copy it raw with cp.async two stages ahead (a ring of two
+// raw 32 KB slabs), read it back, split it, and write A as it lies and B
+// transposed, each into the 128-byte swizzle that the shared-memory
+// descriptors name, over a ring of two split stages (4 x 16 KB a stage) while
+// the tensor cores work on the other one.  Two warpgroups each own a 64 x 128
+// half of the C tile (64 f32 registers a thread) and issue 3 x 4
+// wgmma.m64n128k8 a stage; the stage's partial is added to a second register
+// sum in FP32 (round to nearest), so the tensor cores' accumulation rounds
+// over one 32-deep slab only.  The pattern comes from the raw f32 values (x !=
+// 0; the tf32 hi of a subnormal can be 0): per stage a 32-bit k-mask of each A
+// row and of each B column, and a thread ORs (mask_row & mask_col) != 0 into
+// the 64 bits of the accumulator elements it owns, so values and flags are
+// stored together.  A slab in which a warpgroup's 64 A rows or the B slab hold
+// no non-zero adds exact zeros, and the warpgroup skips it (wandering64's
+// tiles are about 1/6 full); ptxas then serializes the stage's wgmma chain
+// (warning C7518), which costs less than the skipped slabs save (PERF.md).
 //
 // The precision (SpGEMMConfig.precision, JAX's matmul precision names) is a
 // template argument of the three float32 entries, chosen once a launch; the
@@ -108,39 +122,26 @@
 // stage's register path (wait on the raw slab, read it back, round, write it
 // swizzled, OR the pattern, all behind one barrier a stage) then sets the
 // pace, so HIGH and DEFAULT run the ONE-PASS PIPELINE instead, in all three
-// entries: persistent, one block an SM taking C tiles from a ticket counter
-// in order (the class entries too: tile tk is step tk / t, tile tk % t), and
-// warp-specialised, with no block-wide barrier after its set-up.  A
-// PRODUCER warpgroup (120 registers a thread after setmaxnreg) claims tiles
-// four ahead (ticket, then range, then the first pairs' tiles, then their
-// masks, one step a tile) in its warp 0, which publishes each stage (its tiles and slab)
-// once its raw slot is free; the 128 threads copy the stage's raw slabs
-// with 16-byte cp.async (rows padded by 16 bytes) into a ring of RAW
-// stages, the slot's mbarrier counting each thread's copies as landed
-// (cp.async.mbarrier.arrive; one cp.async.bulk a 128-byte row was 2.5x
-// slower than the parent: PERF.md); the four warps round each stage into a
-// ring of OPS operand stages with its k-masks and ANY_NZ / ANY_BAD bits
-// beside it and arrive on its `full` mbarrier.  HIGH writes tf32 words, A as it lies and B transposed by a 4 x
-// 4 exchange among a quad's lanes (one 16-byte store a lane); DEFAULT writes
-// bfloat16, A K-major in the 64-byte swizzle and B as it lies (MN-major,
-// wgmma's transpose immediate), so no transpose.  Two CONSUMER warpgroups
-// (192 registers) each wait on `full`, issue the stage's wgmma
-// (m64n128k8.tf32 x 4 or m64n128k16.bf16 x 2), OR its pattern, wait, release
-// the slot on its `empty` mbarrier and add the partial to the FP32 sums.
-// Only the slabs that can hold a non-zero product are issued at all: a
-// pre-pass (f32_tile_masks, once a multiply: ops/stencil.py hands one set
-// of masks to all of a plan's launches) records each tile's non-zero
-// columns and rows and its marked slabs, the claim reads the masks of each
-// pair's two tiles, and a slab runs where a k has a non-zero A column and a
-// non-zero B row, or either tile marks it (wandering64's stream needs 28%
-// of its slabs; PERF.md).  After a tile's last slab that runs (at once for
-// a tile none of whose slabs runs) comes a stage without copies, on which
-// the consumers store the tile evict-first (the accumulate form adds it into
-// C, and leaves a tile none of whose slabs ran); a DONE stage ends both
-// roles.
-// Stages stay 32 deep at DEFAULT too, so that both modes share the masks,
-// the empty-slab skip and the raw ring (a 64-deep bf16 stage's raw slabs
-// would leave room for two raw stages).
+// entries: over the same walks and the same Issuer, but warp-specialised, with
+// no block-wide barrier after its set-up.  A PRODUCER warpgroup (120 registers
+// a thread after setmaxnreg) runs the Issuer in its warp 0, which publishes
+// each stage (its tiles and slab) once its raw slot is free; the 128 threads
+// copy the stage's raw slabs with 16-byte cp.async (rows padded by 16 bytes)
+// into a ring of RAW stages, the slot's mbarrier counting each thread's copies
+// as landed (cp.async.mbarrier.arrive; one cp.async.bulk a 128-byte row was
+// 2.5x slower than the parent: PERF.md); the four warps round each stage into
+// a ring of OPS operand stages with its k-masks and ANY_NZ / ANY_BAD bits
+// beside it and arrive on its `full` mbarrier.  HIGH writes tf32 words, A as it
+// lies and B transposed by a 4 x 4 exchange among a quad's lanes (one 16-byte
+// store a lane); DEFAULT writes bfloat16, A K-major in the 64-byte swizzle and
+// B as it lies (MN-major, wgmma's transpose immediate), so no transpose.  Two
+// CONSUMER warpgroups (192 registers) each wait on `full`, issue the stage's
+// wgmma (m64n128k8.tf32 x 4 or m64n128k16.bf16 x 2), OR its pattern, wait,
+// release the slot on its `empty` mbarrier and add the partial to the FP32
+// sums; at a tile's store-only stage they store it, and the DONE stage ends
+// both roles.  Stages stay 32 deep at DEFAULT too, so that both modes share
+// the masks, the empty-slab skip and the raw ring (a 64-deep bf16 stage's
+// raw slabs would leave room for two raw stages).
 //
 // Non-finite operands keep IEEE results.  A stage that holds a value with
 // |x| >= 2^63, an Inf or a NaN is MARKED (the warps that split it vote):
@@ -218,8 +219,6 @@ constexpr unsigned ANY_BAD = 2u;
 constexpr int ACC_LOADS = 8;                // C pieces of a row that an
                                             // accumulate store loads ahead
                                             // (Frag::store_cs; 1, 2, 4, 8)
-constexpr int CLAIMS = 8;                   // slots of the claim ring
-constexpr int AHEAD = 3;                    // claims ahead of the issue cursor
 
 struct alignas(1024) TcStage {              // 1024: the swizzle atom
     unsigned char a_hi[OPERAND];            // [i][k], 128-byte swizzle
@@ -236,9 +235,6 @@ struct TcShared {
     unsigned a_any[2][8];                   // warp w's A rows: ANY_NZ if any
     unsigned b_any[2][8];                   // non-zero; b_any: ANY_BAD if the
                                             // warp's A or B words mark it
-    long long q_row[CLAIMS];                // claimed tiles: C row (-1: none
-    int q_lo[CLAIMS];                       // left) and pairs [lo, hi)
-    int q_hi[CLAIMS];
 };
 constexpr int TC_SMEM = (int)sizeof(TcShared) + 1024;   // + alignment slack
 
@@ -495,16 +491,8 @@ struct Frag {
     float sum[64];                          // the tile's sums
     unsigned f[2];                          // the tile's flags
     int g, r0, l;
-    __device__ __forceinline__ Frag() {
-        const int t = threadIdx.x;
-        l = t & 31;
-        g = t >> 7;
-        r0 = 64 * g + 16 * ((t >> 5) & 3) + (l >> 2);
-#pragma unroll
-        for (int i = 0; i < 64; ++i) { acc[i] = 0.f; sum[i] = 0.f; }
-        f[0] = f[1] = 0u;
-    }
-    // the one-pass pipeline's consumers: t counts from the first consumer
+    // t: the thread among the two warpgroups (the one-pass pipeline's
+    // consumers count from the first consumer)
     __device__ __forceinline__ explicit Frag(int t) {
         l = t & 31;
         g = t >> 7;
@@ -601,24 +589,6 @@ struct Frag {
             __stcs(fp + 1, w1);
         }
     }
-    __device__ __forceinline__ void store(float* c_num, unsigned char* c_flag,
-                                          long long row) const {
-#pragma unroll
-        for (int e2 = 0; e2 < 2; ++e2) {
-            const int r = r0 + 8 * e2;
-            float* cr = c_num + row * TILE_ELEMS + r * TILE;
-            unsigned char* fr = c_flag + row * TILE_ELEMS + r * TILE;
-#pragma unroll
-            for (int j = 0; j < 16; ++j) {
-                const int col = 8 * j + 2 * (l & 3);
-                *reinterpret_cast<float2*>(cr + col) =
-                    make_float2(sum[4 * j + 2 * e2], sum[4 * j + 2 * e2 + 1]);
-                const unsigned bits = (f[e2] >> (2 * j)) & 3u;
-                *reinterpret_cast<unsigned short*>(fr + col) =
-                    (unsigned short)((bits & 1u) | (bits & 2u) << 7);
-            }
-        }
-    }
     __device__ __forceinline__ void reset() {
 #pragma unroll
         for (int i = 0; i < 64; ++i) sum[i] = 0.f;
@@ -631,16 +601,13 @@ struct Frag {
 // cores run: a marked stage runs in FP32 FMA on the raw operands that
 // operands(ap, bp, k0) names; else a k-slab whose 64 A rows or whose B slab
 // hold no non-zero adds exact zeros to values and flags, and the warpgroup
-// skips it.  during() runs once the stage's wgmma are issued (the list
-// kernel's issue cursor; nothing elsewhere).  The caller's barrier
-// follows.  Three wgmma a k-step (lo*hi, hi*lo, hi*hi).
-struct NoWork {
-    __device__ __forceinline__ void operator()() const {}
-};
-template <class Operands, class During = NoWork>
+// skips it.  during() runs once the stage's wgmma are issued (the issue
+// cursor of macro_tc_kernel).  The caller's barrier follows.  Three wgmma
+// a k-step (lo*hi, hi*lo, hi*hi).
+template <class Operands, class During>
 __device__ __forceinline__ void tc_stage(TcShared& sh, int cur, bool next,
                                          Operands operands, TcRegs& regs,
-                                         Frag& fr, During during = {}) {
+                                         Frag& fr, During during) {
     const int g = fr.g, l = fr.l, r0 = fr.r0;
     const TcStage& s = sh.stage[cur];
     const unsigned ag = sh.a_any[cur][4 * g] | sh.a_any[cur][4 * g + 1] |
@@ -701,251 +668,12 @@ __device__ __forceinline__ void tc_stage(TcShared& sh, int cur, bool next,
     }
 }
 
-// One C tile a block (the class entries): the tile's pairs q < n_pairs,
-// operands A[a0 + a_tab[q]], B[b0 + b_tab[q]], as a stream of (pair, k-slab)
-// stages over a two-stage ring, stored at c_num / c_flag.
-__device__ __forceinline__ void tile_product_tc(
-        const float* __restrict__ a_dense, const float* __restrict__ b_dense,
-        const int* __restrict__ a_tab, const int* __restrict__ b_tab,
-        long long a0, long long b0, int n_pairs, float* __restrict__ c_num,
-        unsigned char* __restrict__ c_flag, TcShared& sh) {
-    Frag fr;
-    const int n_stages = n_pairs * SLABS_PER_PAIR;
-    TcRegs regs;
-    auto issue = [&](int st) {              // stage st's raw slabs, in flight
-        const int q = st / SLABS_PER_PAIR;
-        tc_issue(sh.raw_a[st & 1], sh.raw_b[st & 1],
-                 a_dense + (a0 + a_tab[q]) * TILE_ELEMS,
-                 b_dense + (b0 + b_tab[q]) * TILE_ELEMS,
-                 KS * (st % SLABS_PER_PAIR));
-    };
-    if (n_stages > 0) issue(0);
-    cp_async_commit();
-    if (n_stages > 1) issue(1);
-    cp_async_commit();
-    if (n_stages > 0) {
-        cp_async_wait1();
-        tc_fetch(regs, sh.raw_a[0], sh.raw_b[0]);
-        tc_store(regs, sh.stage[0], sh.am[0], sh.bm[0], sh.a_any[0],
-                    sh.b_any[0]);
-    }
-    __syncthreads();
-    for (int st = 0; st < n_stages; ++st) {
-        if (st + 2 < n_stages) issue(st + 2);   // into the raw slab of st
-        cp_async_commit();
-        const int q = st / SLABS_PER_PAIR;
-        tc_stage(sh, st & 1, st + 1 < n_stages,
-                    [&](const float*& ap, const float*& bp, int& k0) {
-                        ap = a_dense + (a0 + a_tab[q]) * TILE_ELEMS;
-                        bp = b_dense + (b0 + b_tab[q]) * TILE_ELEMS;
-                        k0 = KS * (st % SLABS_PER_PAIR);
-                    }, regs, fr);
-        __syncthreads();
-    }
-    fr.store(c_num, c_flag, 0);
-}
-
-// The persistent entry's tiles: thread 0 takes tickets (atomicAdd on
-// `next`, zero at the launch), in stream order; the tiles without pairs are
-// stored as zeros before the stream, round robin, by single threads.  (The
-// accumulate form at "highest" walks a list instead: macro_list_kernel.)
-struct PairWalk {
-    const int* seg_ptr;
-    const int* a_tab;
-    const int* b_tab;
-    int* next;
-    int c_cap;
-};
-
-// The block's tiles with pairs come through a ring of CLAIMS slots in shared
-// memory, which thread 0 keeps AHEAD claims in front of the issue cursor.
-// A claim takes two iterations, so that no thread waits on it: a ticket
-// (the atomic) is taken at the top of one iteration, its pair range read
-// from seg_ptr at the top of the next, and the slot written at that
-// iteration's end, before the barrier that precedes the slot's first read.
-// Two cursors read the ring in order: the ISSUE cursor (pair iq of [iq,
-// iq_end), slab is) two stages ahead of the compute, and the COMPUTE
-// cursor (the tile at C row c_row, `left` stages to go), which stores a
-// tile's sums and flags after its last stage and resets them.
-// Stage st's raw slabs sit in raw slot st % 2, its split in stage slot
-// st % 2, whatever tile it belongs to; `issued` counts the stages issued, so
-// stage st + 1 exists when st + 1 < issued.  The issue cursor is at most
-// one tile ahead of the compute (a tile has 4 stages or more), so at most
-// AHEAD + 3 < CLAIMS slots are in use at once.
-__device__ __forceinline__ void pair_stream(
-        const float* __restrict__ a_dense, const float* __restrict__ b_dense,
-        const PairWalk& w, float* __restrict__ c_num,
-        unsigned char* __restrict__ c_flag, TcShared& sh) {
-    const int t = threadIdx.x;
-    for (long long c = blockIdx.x + (long long)t * gridDim.x;
-         c < w.c_cap; c += (long long)TC_THREADS * gridDim.x) {
-        if (w.seg_ptr[c] != w.seg_ptr[c + 1]) continue;
-        float4* cv = reinterpret_cast<float4*>(c_num + c * TILE_ELEMS);
-        uint4* cf = reinterpret_cast<uint4*>(c_flag + c * TILE_ELEMS);
-        for (int i = 0; i < TILE_ELEMS / 4; ++i)
-            cv[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-        for (int i = 0; i < TILE_ELEMS / 16; ++i)
-            cf[i] = make_uint4(0u, 0u, 0u, 0u);
-    }
-    // thread 0: slot n <- the first tile with pairs from ticket tk on, whose
-    // pairs [lo, hi) were read already (row -1: none left)
-    auto publish = [&](int n, int tk, int lo, int hi) {
-        while (tk < w.c_cap && hi == lo) {  // a tile without pairs: rare
-            tk = atomicAdd(w.next, 1);
-            if (tk < w.c_cap) {
-                lo = w.seg_ptr[tk];
-                hi = w.seg_ptr[tk + 1];
-            }
-        }
-        const int slot = n % CLAIMS;
-        sh.q_row[slot] = tk < w.c_cap ? tk : -1;
-        sh.q_lo[slot] = lo;
-        sh.q_hi[slot] = hi;
-    };
-    auto read_range = [&](int tk, int& lo, int& hi) {
-        lo = hi = 0;
-        if (tk < w.c_cap) {
-            lo = w.seg_ptr[tk];
-            hi = w.seg_ptr[tk + 1];
-        }
-    };
-    if (t == 0) {
-        for (int n = 0; n <= AHEAD; ++n) {
-            int lo, hi;
-            const int tk = atomicAdd(w.next, 1);
-            read_range(tk, lo, hi);
-            publish(n, tk, lo, hi);
-        }
-    }
-    int n_claimed = AHEAD + 1, n_used = 0;
-    bool pending = false;                   // a ticket taken, not published
-    int tk_pend = 0;                        // thread 0: its ticket
-    __syncthreads();
-
-    Frag fr;
-    TcRegs regs;
-    int iq = 0, iq_end = 0, is = 0, issued = 0;
-    bool i_live = true;
-    auto take = [&]() {                     // the issue cursor's next tile
-        const int slot = n_used++ % CLAIMS;
-        i_live = sh.q_row[slot] >= 0;
-        iq = sh.q_lo[slot];
-        iq_end = sh.q_hi[slot];
-    };
-    auto issue = [&]() {                    // the next stage's raw slabs
-        if (!i_live) return;
-        tc_issue(sh.raw_a[issued & 1], sh.raw_b[issued & 1],
-                 a_dense + (long long)w.a_tab[iq] * TILE_ELEMS,
-                 b_dense + (long long)w.b_tab[iq] * TILE_ELEMS, KS * is);
-        ++issued;
-        if (++is == SLABS_PER_PAIR) {
-            is = 0;
-            if (++iq == iq_end) take();
-        }
-    };
-    int c_used = 0, left = 0, cq = 0, cs = 0;
-    long long c_row = 0;
-    auto advance = [&]() {                  // the compute cursor's next tile
-        const int slot = c_used++ % CLAIMS;
-        c_row = sh.q_row[slot];
-        cq = sh.q_lo[slot];
-        cs = 0;
-        left = c_row >= 0 ? (sh.q_hi[slot] - cq) * SLABS_PER_PAIR : 0;
-    };
-
-    take();
-    issue();
-    cp_async_commit();
-    issue();
-    cp_async_commit();
-    advance();
-    if (issued > 0) {
-        cp_async_wait1();
-        tc_fetch(regs, sh.raw_a[0], sh.raw_b[0]);
-        tc_store(regs, sh.stage[0], sh.am[0], sh.bm[0], sh.a_any[0],
-                    sh.b_any[0]);
-    }
-    __syncthreads();
-    for (int st = 0; st < issued; ++st) {
-        // the claim pipeline: the pending ticket's range, a new ticket
-        const bool publish_now = pending;
-        int lo_p = 0, hi_p = 0;
-        if (publish_now && t == 0) read_range(tk_pend, lo_p, hi_p);
-        const bool fresh = i_live && n_claimed + (pending ? 1 : 0) <
-                                         n_used + AHEAD;
-        int tk_new = 0;
-        if (fresh && t == 0) tk_new = atomicAdd(w.next, 1);
-        issue();                            // stage st + 2, into raw slot
-        cp_async_commit();                  // st % 2
-        tc_stage(sh, st & 1, st + 1 < issued,
-                    [&](const float*& ap, const float*& bp, int& k0) {
-                        ap = a_dense + (long long)w.a_tab[cq] * TILE_ELEMS;
-                        bp = b_dense + (long long)w.b_tab[cq] * TILE_ELEMS;
-                        k0 = KS * cs;
-                    }, regs, fr);
-        if (++cs == SLABS_PER_PAIR) {       // the compute cursor's pair
-            cs = 0;
-            ++cq;
-        }
-        if (--left == 0) {                  // the tile's last stage
-            fr.store(c_num, c_flag, c_row);
-            fr.reset();
-            advance();
-        }
-        if (publish_now) {
-            if (t == 0) publish(n_claimed, tk_pend, lo_p, hi_p);
-            ++n_claimed;
-        }
-        pending = fresh;
-        tk_pend = tk_new;
-        __syncthreads();
-    }
-}
-
 // Aligns the dynamic shared memory to the swizzle atom.
 __device__ __forceinline__ TcShared& tc_shared() {
     extern __shared__ unsigned char smem_raw[];
     const unsigned raw = (unsigned)__cvta_generic_to_shared(smem_raw);
     return *reinterpret_cast<TcShared*>(
         smem_raw + (((raw + 1023u) & ~1023u) - raw));
-}
-
-// Persistent: the blocks take the C tiles of a pair stream sorted by C tile
-// in stream order, one at a time, from the counter `next`; tile c's pairs
-// are [seg_ptr[c], seg_ptr[c + 1]).  Padding pairs lie past seg_ptr[c_cap]
-// and are never read.
-__global__ void __launch_bounds__(TC_THREADS, 1)
-macro_pairs_kernel(const float* __restrict__ a_dense,
-                   const float* __restrict__ b_dense,
-                   const int* __restrict__ a_idx,
-                   const int* __restrict__ b_idx,
-                   const int* __restrict__ seg_ptr, int* next, int c_cap,
-                   float* __restrict__ c_num,
-                   unsigned char* __restrict__ c_flag) {
-    pair_stream(a_dense, b_dense, PairWalk{seg_ptr, a_idx, b_idx, next, c_cap},
-                c_num, c_flag, tc_shared());
-}
-
-// One block a (step, tile) of a signature class.  RAGGED: the tile's pairs
-// are [p_ptr[tt], p_ptr[tt + 1]) of the offset tables; else p pairs a tile.
-template <bool RAGGED>
-__global__ void __launch_bounds__(TC_THREADS, 1)
-macro_class_kernel(const float* __restrict__ a_dense,
-                   const float* __restrict__ b_dense,
-                   const int* __restrict__ ab_bases,
-                   const int* __restrict__ p_ptr,
-                   const int* __restrict__ a_offs,
-                   const int* __restrict__ b_offs, int t, int p,
-                   long long base, float* __restrict__ c_num,
-                   unsigned char* __restrict__ c_flag) {
-    const int step = blockIdx.x / t, tt = blockIdx.x % t;
-    const int lo = RAGGED ? p_ptr[tt] : tt * p;
-    const int n = RAGGED ? p_ptr[tt + 1] - lo : p;
-    const long long row = base + (long long)blockIdx.x;
-    tile_product_tc(a_dense, b_dense, a_offs + lo, b_offs + lo,
-                    ab_bases[2 * step], ab_bases[2 * step + 1], n,
-                    c_num + row * TILE_ELEMS, c_flag + row * TILE_ELEMS,
-                    tc_shared());
 }
 
 // --------------------------------------------------------------------------
@@ -1440,17 +1168,19 @@ struct Issuer {
         ta = tb = 0;
         if (qq < to) w.tiles(qq, ta, tb);
     }
+    // lane i: the mask words of pair from + i into m (zeros past `to`)
     __device__ __forceinline__ void load_masks(const Tiles& w, int from,
-                                               int to, int ta, int tb) {
+                                               int to, int ta, int tb,
+                                               unsigned (&m)[10]) {
 #pragma unroll
-        for (int i = 0; i < 10; ++i) mw[i] = 0u;
+        for (int i = 0; i < 10; ++i) m[i] = 0u;
         if (from + (threadIdx.x & 31) < to) {
             const unsigned* ma = w.masks_a + (long long)ta * TM_WORDS;
             const unsigned* mb = w.masks_b + (long long)tb * TM_WORDS;
 #pragma unroll
             for (int i = 0; i < 5; ++i) {
-                mw[i] = ma[i];
-                mw[5 + i] = mb[5 + i];
+                m[i] = ma[i];
+                m[5 + i] = mb[5 + i];
             }
         }
     }
@@ -1463,7 +1193,7 @@ struct Issuer {
         tk0 = tk1; lo0 = lo1; hi0 = hi1; a00 = a01; b00 = b01; ia0 = ia1;
         ib0 = ib1;
         if constexpr (Tiles::LISTED) row0 = w.row(tk0);
-        load_masks(w, lo0, hi0, a00 + ia0, b00 + ib0);
+        load_masks(w, lo0, hi0, a00 + ia0, b00 + ib0, mw);
         tk1 = tk2; lo1 = lo2; hi1 = hi2; a01 = a02; b01 = b02;
         load_tiles(w, lo1, hi1, ia1, ib1);
         tk2 = __shfl_sync(0xFFFFFFFFu, tk3, 0);
@@ -1486,7 +1216,7 @@ struct Issuer {
         for (int i = 0; i < 4; ++i) advance(w);
     }
     // the next stage's StageInfo into `info_out`, then an arrival on its
-    // barrier `ready` (ARRIVE; macro_list_kernel's barrier is the block's):
+    // barrier `ready` (ARRIVE; macro_tc_kernel's barrier is the block's):
     // the tile's next slab that runs; after its last one (or at once, for a
     // tile none of whose slabs runs) a stage without copies that stores the
     // tile; or the end
@@ -1504,10 +1234,11 @@ struct Issuer {
         } else {
             while (q < hi) {                // the next slab that runs
                 if (q - win == 32) {        // a tile of more than 32 pairs
-                    win = q;
+                    win = q;        // (mw holds the next tile's masks)
                     load_tiles(w, q, hi, ia, ib);
-                    load_masks(w, q, hi, a0 + ia, b0 + ib);
-                    nd = slabs_needed(mw);
+                    unsigned m[10];
+                    load_masks(w, q, hi, a0 + ia, b0 + ib, m);
+                    nd = slabs_needed(m);
                 }
                 bits = __shfl_sync(0xFFFFFFFFu, nd, q - win)
                      & (0xFu << slab);
@@ -1750,46 +1481,49 @@ macro_ws_kernel(const float* __restrict__ a_dense,
     }
 }
 
-// The accumulate form at "highest" (the Macro128 ring's stages after the
-// first, at the reference's precision): pair_stream's 256-thread stage (the
-// 3xTF32 split, the marked-stage FMA, the empty-slab skip of a warpgroup,
-// all unchanged) over the STAGES that the one-pass pipeline's Issuer
-// publishes from the walk list (ListTiles): no tile without pairs takes a
-// ticket, and only a pair's slabs that can hold a non-zero product (its
-// tiles' k-masks: a k with a non-zero A column and B row, or a marked slab)
-// are copied and run.  Warp 0 runs the Issuer (its claims a tile ahead
-// each, as in the producer) and publishes stage n + 3 into a ring of
-// LIST_INFO StageInfo slots while the block computes stage n; every thread
-// issues stage n + 2's copies from its slot (raw slot n % 2), splits stage
-// n + 1 into split slot (n + 1) % 2, and the block's barrier ends the
-// iteration, as in pair_stream.  A tile's store-only stage (ST_LAST) adds
-// its sums into C where a slab of it ran, and leaves a tile none of whose
-// slabs ran; the DONE stage ends the block.  A stage without copies commits
-// an empty cp.async group, so stage n's copies are always group n.
-// (pair_stream's accumulate form took tickets over all c_cap tiles, thread
-// 0 looping over the empty ones, and ran all four slabs of every pair:
-// 0.1565 ms at the ring stage against torch.bmm's 0.0925; PERF.md.)
-constexpr int LIST_INFO = 4;                // stages n .. n + 3 in flight
+// "highest": every float32 launch at the reference's precision, fresh or
+// accumulating (ACC), over the tiles of `launched` (StreamTiles: a pair
+// stream's c_cap tiles; ClassTiles: a class launch's; ListTiles: the
+// accumulate form's tiles with pairs).  The 256-thread 3xTF32 stage
+// (tc_stage: the split, the marked-stage FMA, the empty-slab skip of a
+// warpgroup) runs the STAGES that the one-pass pipeline's Issuer publishes:
+// only a pair's slabs that can hold a non-zero product (slabs_needed: its
+// tiles' k-masks call a k non-zero in A's column and B's row, or either
+// marks the slab), then a store-only stage a tile.  Warp 0 runs the Issuer
+// (its claims a tile ahead each, as in the producer) and publishes stage
+// n + 3 into a ring of TC_INFO StageInfo slots while the block computes
+// stage n; every thread issues stage n + 2's copies from its slot (raw slot
+// n % 2), splits stage n + 1 into split slot (n + 1) % 2, and the block's
+// barrier ends the iteration.  At a tile's store-only stage (ST_LAST) the
+// fresh form stores the tile whole, evict-first in 16-byte pieces (+0.0
+// and flags 0 where no slab of it ran, among them the tiles without
+// pairs); the accumulate form adds its sums into C where a slab of it ran,
+// and leaves a tile none of whose slabs ran.  The DONE stage ends the
+// block.  A stage without copies commits an empty cp.async group, so stage
+// n's copies are always group n.
+constexpr int TC_INFO = 4;                  // stages n .. n + 3 in flight
 
+template <class Tiles, bool ACC>
 __global__ void __launch_bounds__(TC_THREADS, 1)
-macro_list_kernel(const float* __restrict__ a_dense,
-                  const float* __restrict__ b_dense, const ListTiles launched,
-                  float* __restrict__ c_num,
-                  unsigned char* __restrict__ c_flag) {
-    __shared__ StageInfo info[LIST_INFO];
+macro_tc_kernel(const float* __restrict__ a_dense,
+                const float* __restrict__ b_dense, const Tiles launched,
+                float* __restrict__ c_num,
+                unsigned char* __restrict__ c_flag) {
+    __shared__ StageInfo info[TC_INFO];
     TcShared& sh = tc_shared();
     const bool issuer = threadIdx.x < 32;
-    const ListTiles w = launched.resolved();
-    Issuer<ListTiles> is;
+    const Tiles w = launched.resolved();
+    Issuer<Tiles> is;
     if (issuer) {
         is.start(w);
 #pragma unroll 1
-        for (int n = 0; n < LIST_INFO - 1; ++n)
-            is.publish<false>(w, a_dense, b_dense, info[n], nullptr);
+        for (int n = 0; n < TC_INFO - 1; ++n)
+            is.template publish<false>(w, a_dense, b_dense, info[n],
+                                       nullptr);
     }
     __syncthreads();
     auto issue = [&](int n) {               // stage n's raw slabs, in flight
-        const StageInfo& in = info[n % LIST_INFO];
+        const StageInfo& in = info[n % TC_INFO];
         if (in.flags & ST_DATA)
             tc_issue(sh.raw_a[n & 1], sh.raw_b[n & 1], in.ap, in.bp, in.k0);
         cp_async_commit();
@@ -1800,25 +1534,25 @@ macro_list_kernel(const float* __restrict__ a_dense,
         tc_store(regs, sh.stage[n & 1], sh.am[n & 1], sh.bm[n & 1],
                  sh.a_any[n & 1], sh.b_any[n & 1]);
     };
-    Frag fr;
+    Frag fr(threadIdx.x);
     TcRegs regs;
-    bool live = false;                      // a slab of the tile ran
+    bool live = false;                      // ACC: a slab of the tile ran
     issue(0);
     issue(1);
     if (info[0].flags & ST_DATA) split(0, regs);
     __syncthreads();
 #pragma unroll 1
     for (int n = 0;; ++n) {
-        const StageInfo in = info[n % LIST_INFO];
+        const StageInfo in = info[n % TC_INFO];
         if (in.flags & ST_DONE) break;
-        const bool next = (info[(n + 1) % LIST_INFO].flags & ST_DATA) != 0u;
+        const bool next = (info[(n + 1) % TC_INFO].flags & ST_DATA) != 0u;
         issue(n + 2);                       // into raw slot n % 2
         // stage n + 3 into the slot of stage n - 1, while the tensor cores
         // run stage n
         auto publish = [&]() {
             if (issuer)
-                is.publish<false>(w, a_dense, b_dense,
-                                  info[(n + 3) % LIST_INFO], nullptr);
+                is.template publish<false>(w, a_dense, b_dense,
+                                           info[(n + 3) % TC_INFO], nullptr);
         };
         if (in.flags & ST_DATA) {
             live = true;
@@ -1833,7 +1567,7 @@ macro_list_kernel(const float* __restrict__ a_dense,
             if (next) split(n + 1, regs);
         }
         if (in.flags & ST_LAST) {
-            if (live) fr.store_cs<true>(c_num, c_flag, in.row);
+            if (!ACC || live) fr.store_cs<ACC>(c_num, c_flag, in.row);
             fr.reset();
             live = false;
         }
@@ -2275,13 +2009,6 @@ macro_pairs_f64_kernel(const double* __restrict__ a_dense,
     fr.store<ACC>(c_num + tile * TILE_ELEMS, c_flag + tile * TILE_ELEMS);
 }
 
-// per launch: the attribute belongs to the current device
-template <class Kernel>
-cudaError_t allow_tc_smem(Kernel kernel) {
-    return cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TC_SMEM);
-}
-
 // f(PrecTag<P>{}) for the Prec of `precision`: the instance of each
 // float32 entry is chosen once, at the launch.
 template <Prec P>
@@ -2296,19 +2023,6 @@ cudaError_t with_prec(int precision, F f) {
         case (int)Prec::DEFAULT: return f(PrecTag<Prec::DEFAULT>{});
         default: return cudaErrorInvalidValue;
     }
-}
-
-cudaError_t launch_pairs(const float* a_dense, const float* b_dense,
-                         const int* a_idx, const int* b_idx,
-                         const int* seg_ptr, float* c_num,
-                         unsigned char* c_flag, int c_cap, int grid, int* next,
-                         cudaStream_t stream) {
-    const cudaError_t attr = allow_tc_smem(macro_pairs_kernel);
-    if (attr != cudaSuccess) return attr;
-    macro_pairs_kernel<<<grid < c_cap ? grid : c_cap, TC_THREADS, TC_SMEM,
-                         stream>>>(a_dense, b_dense, a_idx, b_idx, seg_ptr,
-                                   next, c_cap, c_num, c_flag);
-    return cudaGetLastError();
 }
 
 // The walk list of a sorted pair stream (ListTiles' layout), for i <= cap:
@@ -2407,14 +2121,15 @@ void masks_not_ready(void (*kernel)(const T*, unsigned*), int threads,
         kernel<<<n_b, threads, 0, stream>>>(b_dense, masks_b);
 }
 
-// The one-pass pipeline over the tiles of `w`: one block an SM (at most one
-// a tile), taking tiles from w.next; first the masks of a table whose
-// ready flag is 0.  ACC: the accumulate form.
-template <Prec P, class Tiles, bool ACC = false>
-cudaError_t launch_ws(const float* a_dense, const float* b_dense,
-                      const Tiles& w, int grid, int n_a, int n_b,
-                      int ready_a, int ready_b, float* c_num,
-                      unsigned char* c_flag, cudaStream_t stream) {
+// Every float32 launch over the tiles of `w`: one persistent block an SM (at
+// most one a tile) taking tiles from w.next, macro_tc_kernel at HIGHEST and
+// the one-pass pipeline below it; first the masks of a table whose ready
+// flag is 0.  ACC: the accumulate form.
+template <Prec P, class Tiles, bool ACC>
+cudaError_t launch_tiles(const float* a_dense, const float* b_dense,
+                         const Tiles& w, int grid, int n_a, int n_b,
+                         int ready_a, int ready_b, float* c_num,
+                         unsigned char* c_flag, cudaStream_t stream) {
     if (grid <= 0) return cudaErrorInvalidConfiguration;
     if (w.masks_a == nullptr || w.masks_b == nullptr || n_a <= 0 || n_b <= 0)
         return cudaErrorInvalidValue;
@@ -2422,40 +2137,29 @@ cudaError_t launch_ws(const float* a_dense, const float* b_dense,
                            const_cast<unsigned*>(w.masks_a),
                            const_cast<unsigned*>(w.masks_b), n_a, n_b,
                            ready_a, ready_b, stream);
-    const cudaError_t attr = cudaFuncSetAttribute(
-        macro_ws_kernel<P, Tiles, ACC>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, WS_SMEM<P>);
-    if (attr != cudaSuccess) return attr;
-    macro_ws_kernel<P, Tiles, ACC><<<grid < w.n_tiles ? grid : w.n_tiles,
-                                     WS_THREADS, WS_SMEM<P>, stream>>>(
-        a_dense, b_dense, w, c_num, c_flag);
+    const int blocks = grid < w.n_tiles ? grid : w.n_tiles;
+    // per launch: the attribute belongs to the current device
+    if constexpr (P == Prec::HIGHEST) {
+        const cudaError_t attr = cudaFuncSetAttribute(
+            macro_tc_kernel<Tiles, ACC>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, TC_SMEM);
+        if (attr != cudaSuccess) return attr;
+        macro_tc_kernel<Tiles, ACC><<<blocks, TC_THREADS, TC_SMEM, stream>>>(
+            a_dense, b_dense, w, c_num, c_flag);
+    } else {
+        const cudaError_t attr = cudaFuncSetAttribute(
+            macro_ws_kernel<P, Tiles, ACC>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, WS_SMEM<P>);
+        if (attr != cudaSuccess) return attr;
+        macro_ws_kernel<P, Tiles, ACC><<<blocks, WS_THREADS, WS_SMEM<P>,
+                                         stream>>>(a_dense, b_dense, w, c_num,
+                                                   c_flag);
+    }
     return cudaGetLastError();
 }
 
-// The accumulate form at "highest" over the tiles of `w` (the walk list):
-// at most grid blocks (one an SM, at most one a tile), first the masks of a
-// table whose ready flag is 0.
-cudaError_t launch_list(const float* a_dense, const float* b_dense,
-                        const ListTiles& w, int grid, int n_a, int n_b,
-                        int ready_a, int ready_b, float* c_num,
-                        unsigned char* c_flag, cudaStream_t stream) {
-    if (w.masks_a == nullptr || w.masks_b == nullptr || n_a <= 0 || n_b <= 0)
-        return cudaErrorInvalidValue;
-    masks_not_ready<float>(f32_tile_masks, 256, a_dense, b_dense,
-                           const_cast<unsigned*>(w.masks_a),
-                           const_cast<unsigned*>(w.masks_b), n_a, n_b,
-                           ready_a, ready_b, stream);
-    const cudaError_t attr = allow_tc_smem(macro_list_kernel);
-    if (attr != cudaSuccess) return attr;
-    macro_list_kernel<<<grid < w.n_tiles ? grid : w.n_tiles, TC_THREADS,
-                        TC_SMEM, stream>>>(a_dense, b_dense, w, c_num,
-                                           c_flag);
-    return cudaGetLastError();
-}
-
-// The float32 pair-stream entry at precision P, fresh or accumulating (the
-// accumulate form walks the list `walk`: macro_list_kernel at "highest",
-// the one-pass pipeline below it).
+// The float32 pair-stream entry at precision P, fresh (the stream's c_cap
+// tiles) or accumulating (the walk list `walk` of its tiles with pairs).
 template <Prec P, bool ACC>
 cudaError_t launch_pair_entry(const float* a_dense, const float* b_dense,
                               const int* a_idx, const int* b_idx,
@@ -2467,36 +2171,16 @@ cudaError_t launch_pair_entry(const float* a_dense, const float* b_dense,
     if constexpr (ACC) {
         if (walk == nullptr) return cudaErrorInvalidValue;
         const ListTiles w{walk, a_idx, b_idx, masks_a, masks_b, next, c_cap};
-        if constexpr (P == Prec::HIGHEST)
-            return launch_list(a_dense, b_dense, w, grid, n_a, n_b, ready_a,
-                               ready_b, c_num, c_flag, stream);
-        else
-            return launch_ws<P, ListTiles, true>(a_dense, b_dense, w, grid,
-                                                 n_a, n_b, ready_a, ready_b,
-                                                 c_num, c_flag, stream);
-    } else if constexpr (P == Prec::HIGHEST)
-        return launch_pairs(a_dense, b_dense, a_idx, b_idx, seg_ptr, c_num,
-                            c_flag, c_cap, grid, next, stream);
-    else
-        return launch_ws<P, StreamTiles>(
-            a_dense, b_dense,
-            StreamTiles{seg_ptr, a_idx, b_idx, masks_a, masks_b, next, c_cap},
-            grid, n_a, n_b, ready_a, ready_b, c_num, c_flag, stream);
-}
-
-template <bool RAGGED>
-cudaError_t launch_class(const float* a_dense, const float* b_dense,
-                         const int* ab_bases, const int* p_ptr,
-                         const int* a_offs, const int* b_offs, int t, int p,
-                         int n_steps, long long base, float* c_num,
-                         unsigned char* c_flag, cudaStream_t stream) {
-    const cudaError_t attr = allow_tc_smem(macro_class_kernel<RAGGED>);
-    if (attr != cudaSuccess) return attr;
-    macro_class_kernel<RAGGED><<<n_steps * t, TC_THREADS, TC_SMEM,
-                                 stream>>>(
-        a_dense, b_dense, ab_bases, p_ptr, a_offs, b_offs, t, p, base,
-        c_num, c_flag);
-    return cudaGetLastError();
+        return launch_tiles<P, ListTiles, true>(a_dense, b_dense, w, grid,
+                                                n_a, n_b, ready_a, ready_b,
+                                                c_num, c_flag, stream);
+    } else {
+        const StreamTiles w{seg_ptr, a_idx, b_idx, masks_a, masks_b, next,
+                            c_cap};
+        return launch_tiles<P, StreamTiles, false>(a_dense, b_dense, w, grid,
+                                                   n_a, n_b, ready_a, ready_b,
+                                                   c_num, c_flag, stream);
+    }
 }
 
 }  // namespace
@@ -2522,8 +2206,9 @@ extern "C" int macro_tile_masks_f64(const double* tiles, int n,
 
 // The walk list (ListTiles' layout, 2 cap + 3 ints) of a pair stream sorted
 // by C tile, seg (p_cap,), padded with INT32_MAX: its tiles below c_cap
-// that have pairs, for the accumulate form (ops/macro_kernels.stream_walk).  cap >= their count
-// (min(c_cap, p_cap) is).  Zeroes *next too where next is not null.
+// that have pairs, for the accumulate form (ops/macro_kernels.stream_walk).
+// cap >= their count (min(c_cap, p_cap) is).  Zeroes *next too where next
+// is not null.
 extern "C" int macro_stream_walk(const int* seg, int p_cap, int c_cap,
                                  int cap, int* walk, int* next,
                                  cudaStream_t stream) {
@@ -2541,16 +2226,14 @@ extern "C" int macro_stream_walk(const int* seg, int p_cap, int c_cap,
 // next is one int, 0 at the launch.  grid: blocks of the persistent kernel
 // (the wrapper passes the SM count; at most c_cap are launched).
 // precision: 0 "highest", 1 "high", 2 "default" (another value:
-// cudaErrorInvalidValue), in all three float32 entries; "highest" runs the
-// 256-thread stage, the others the one-pass pipeline, which also takes
+// cudaErrorInvalidValue), in all three float32 entries; "highest" runs
+// macro_tc_kernel, the others the one-pass pipeline.  Every form reads
 // masks_a / masks_b (TM_WORDS words a tile of the n_a A tiles and n_b B
 // tiles; one buffer where the tables are one), each computed first unless
-// its ready flag is set (the fresh form at "highest" reads none of the
-// six; its accumulate form reads them as the one-pass pipeline does), and
-// in the accumulate form `walk`, the list of the C tiles with pairs
-// (macro_stream_walk; it also zeroes next), in place of seg_ptr, which
-// that form does not read (the fresh form reads seg_ptr and no walk:
-// nullptr).
+// its ready flag is set, and the accumulate form `walk`, the list of the C
+// tiles with pairs (macro_stream_walk; it also zeroes next), in place of
+// seg_ptr, which that form does not read (the fresh form reads seg_ptr and
+// no walk: nullptr).
 extern "C" int macro_accumulate_pairs_f32(
         const float* a_dense, const float* b_dense, const int* a_idx,
         const int* b_idx, const int* seg_ptr, float* c_num,
@@ -2574,9 +2257,8 @@ extern "C" int macro_accumulate_pairs_f32(
 }
 
 // Slab rows [base, base + n_steps * t) of c_num / c_flag are written whole.
-// grid, next and the masks as in the pair-stream entry: at "high" and
-// "default" the class's tiles are taken in order by at most grid persistent
-// blocks; "highest" launches one block a tile and ignores them.
+// grid, next and the masks as in the pair-stream entry: at every precision
+// the class's tiles are taken in order by at most grid persistent blocks.
 template <bool RAGGED>
 cudaError_t class_entry(const float* a_dense, const float* b_dense,
                         const int* ab_bases, const int* p_ptr,
@@ -2589,18 +2271,11 @@ cudaError_t class_entry(const float* a_dense, const float* b_dense,
     if (n_steps <= 0 || t <= 0) return cudaSuccess;
     return with_prec(precision, [&](auto tag) {
         constexpr Prec P = decltype(tag)::value;
-        if constexpr (P == Prec::HIGHEST)
-            return launch_class<RAGGED>(
-                a_dense, b_dense, ab_bases, p_ptr, a_offs, b_offs, t, p,
-                n_steps, base, c_num, c_flag, stream);
-        else
-            return launch_ws<P>(a_dense, b_dense,
-                                ClassTiles<RAGGED>{ab_bases, p_ptr, a_offs,
-                                                   b_offs, masks_a, masks_b,
-                                                   t, p, base, next,
-                                                   n_steps * t},
-                                grid, n_a, n_b, ready_a, ready_b, c_num,
-                                c_flag, stream);
+        const ClassTiles<RAGGED> w{ab_bases, p_ptr, a_offs, b_offs, masks_a,
+                                   masks_b, t, p, base, next, n_steps * t};
+        return launch_tiles<P, ClassTiles<RAGGED>, false>(
+            a_dense, b_dense, w, grid, n_a, n_b, ready_a, ready_b, c_num,
+            c_flag, stream);
     });
 }
 

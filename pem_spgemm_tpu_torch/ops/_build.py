@@ -114,14 +114,15 @@ def cuda_library(stem: str, declare) -> ctypes.CDLL:
     return _cuda[stem]
 
 
-def build_kernels(verbose: bool = False) -> float:
+def build_kernels(verbose: bool = False, ptxas: dict | None = None) -> float:
     """Build every CUDA source that is not built for its current content,
     one nvcc per source, all started together.  The wrappers load their
     library at their first launch.
 
     Returns the seconds the builds took (0.0 when every library was already
-    there).  With ``verbose`` ptxas prints each kernel's registers and
-    shared memory.  A failed build raises.
+    there).  ptxas reports each kernel's registers, spills and shared
+    memory: printed with ``verbose``, and put into ``ptxas`` (source stem:
+    the report of its build) where it is given.  A failed build raises.
     """
     todo = []
     t0 = time.perf_counter()
@@ -129,14 +130,14 @@ def build_kernels(verbose: bool = False) -> float:
         src = cuda_source(stem)
         so_path = library_path(src)
         if not os.path.isfile(so_path):
-            cmd = [find_nvcc(), *NVCC_FLAGS]
-            if verbose:
-                cmd += ["-Xptxas", "-v"]
-            todo.append(_start(cmd, src, so_path) + (so_path,))
+            cmd = [find_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v"]
+            todo.append((stem, *_start(cmd, src, so_path), so_path))
     errors = []
-    for job in todo:                    # wait for all before raising
+    for stem, *job in todo:             # wait for all before raising
         try:
             log = _finish(*job)
+            if ptxas is not None:
+                ptxas[stem] = log
             if verbose:
                 print(log, flush=True)
         except RuntimeError as e:

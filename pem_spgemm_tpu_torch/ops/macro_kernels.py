@@ -43,15 +43,14 @@ plain version) in a warp-specialised pipeline (a producer warpgroup copies
 and rounds the slabs, two consumer warpgroups multiply).  Every entry forms
 the structural pattern of the same products as uint8 flags from the raw
 values (see ops/macro.py).  Every C tile is written once by the block that
-owns it: the float64 entry and the class entries at "highest" launch one
-block a tile; the float32 pair-stream entry, and the class entries at
-"high" and "default", one persistent block an SM (``persistent_grid``),
+owns it: the float64 entry launches one block a tile; every float32 launch,
+at every precision, one persistent block an SM (``persistent_grid``),
 taking tiles in order from a counter the wrapper zeroes and running them as
-one stream of stages.  The accumulate form walks only the C tiles the
-stream has pairs for (``stream_walk``: a list built on the device by one
-small launch, no host sync) and, at every precision, runs only the k-slabs
-of a pair that its tiles' k-masks call non-zero (at "highest" the list
-kernel: the 256-thread stage fed by the one-pass pipeline's issue cursor).
+one stream of stages, of which it copies and multiplies only the k-slabs
+of a pair that its tiles' k-masks call non-zero (so every launch on the
+card reads the tables' masks: ``reads_masks``).  The accumulate form walks
+only the C tiles the stream has pairs for (``stream_walk``: a list built
+on the device by one small launch, no host sync).
 
 Dispatch is by the tensors' device and nothing else: CUDA tensors launch
 the kernel (or raise, if the build or the launch fails); CPU tensors take
@@ -209,15 +208,12 @@ def tile_masks_plain(tiles, per=1024):
     return out
 
 
-def reads_masks(table, precision: str, accumulate: bool = False) -> bool:
-    """Whether a pair-stream launch on ``table`` reads tile masks: CUDA
-    tables of float64 (the float64 entry), of float32 at "high" /
-    "default" (the one-pass pipeline), and the accumulate form
-    (``accumulate``) at every precision (at "highest" the list kernel
-    runs only the slabs the masks call non-zero); the fresh form at
-    "highest" and the class entries at "highest" read none."""
-    return table.is_cuda and (table.dtype == torch.float64 or accumulate
-                              or precision_code(precision) != 0)
+def reads_masks(table) -> bool:
+    """Whether a launch on ``table`` reads tile masks: every launch on a
+    CUDA table (each runs only the slabs its tiles' masks call non-zero,
+    at every precision, fresh or accumulating); the plain version on a CPU
+    table reads none."""
+    return table.is_cuda
 
 
 class TableMasks:
@@ -298,12 +294,9 @@ class TileMasks:
         self.a.ready = self.b.ready = True
 
 
-def _mask_args(a_dense, b_dense, reads, tile_masks):
-    """(masks, the entries' six mask arguments) of a launch that ``reads``
-    masks (``reads_masks``): ``tile_masks`` or masks of its own; none
-    otherwise (the fresh form and the class entries at "highest")."""
-    if not reads:
-        return None, (None, None, 0, 0, 1, 1)
+def _mask_args(a_dense, b_dense, tile_masks):
+    """(masks, the entries' six mask arguments) of a launch on the card:
+    ``tile_masks``, or masks of its own that the launch makes."""
     masks = tile_masks if tile_masks is not None else TileMasks(a_dense,
                                                                 b_dense)
     return masks, masks.args(a_dense, b_dense)
@@ -404,8 +397,7 @@ def accumulate_macro_pairs(a_dense, b_dense, a_idx, b_idx, seg, c_cap: int,
     anything else raises) is the float32 products' (the float64 entry
     ignores it, as float64 tiles do in the JAX package).  ``tile_masks``: a
     ``TileMasks`` of these tables shared with other launches, or made
-    elsewhere (read where ``reads_masks``: float64, float32 at "high" /
-    "default", and the accumulate form, on CUDA tiles; else not read).
+    elsewhere (read on CUDA tiles: ``reads_masks``; else not read).
     CUDA tiles of float32 launch the float32 entry, of float64 the float64
     entry (c_dense then float64); any other dtype raises.
 
@@ -446,9 +438,7 @@ def accumulate_macro_pairs(a_dense, b_dense, a_idx, b_idx, seg, c_cap: int,
         return c_num, c_flag
     acc = int(out is not None)
     f64 = a_dense.dtype == torch.float64
-    masks, margs = _mask_args(a_dense, b_dense,
-                              reads_masks(a_dense, precision, bool(acc)),
-                              tile_masks)
+    masks, margs = _mask_args(a_dense, b_dense, tile_masks)
     next_tile = None if f64 else torch.empty(1, dtype=torch.int32,
                                              device=dev)
     if acc:
@@ -480,7 +470,7 @@ def accumulate_macro_pairs(a_dense, b_dense, a_idx, b_idx, seg, c_cap: int,
             err = lib.macro_accumulate_pairs_f32(
                 *ptrs, persistent_grid(dev), next_tile.data_ptr(), prec,
                 *margs, acc, walk_ptr, stream)
-    if masks is not None and err == 0:
+    if err == 0:
         masks.made()
     if acc:
         entry += "_acc"
@@ -556,7 +546,7 @@ def class_call2(c_num, c_pat, a_dense, b_dense, ab_bases, t, p, ar, br,
     p_ptr, ao, bo = _class_tables(tables, t, n_p, dev)
     lib = _library()
     next_tile = torch.zeros(1, dtype=torch.int32, device=dev)
-    masks, margs = _mask_args(a_dense, b_dense, prec != 0, tile_masks)
+    masks, margs = _mask_args(a_dense, b_dense, tile_masks)
     with torch.cuda.device(dev):
         _raise_on(lib.macro_class_ragged_f32(
             a_dense.data_ptr(), b_dense.data_ptr(), ab_bases.data_ptr(),
@@ -564,8 +554,7 @@ def class_call2(c_num, c_pat, a_dense, b_dense, ab_bases, t, p, ar, br,
             c_num.data_ptr(), c_pat.data_ptr(), prec, persistent_grid(dev),
             next_tile.data_ptr(), *margs,
             torch.cuda.current_stream().cuda_stream), "macro_class_ragged")
-    if masks is not None:
-        masks.made()
+    masks.made()
     LAUNCHES["macro_class_ragged"] += 1
     return c_num, c_pat
 
@@ -590,7 +579,7 @@ def class_call(c_num, c_pat, a_dense, b_dense, ab_bases, t, p, ar, br,
     _p_ptr, ao, bo = _class_tables(tables, t, n_p, dev)
     lib = _library()
     next_tile = torch.zeros(1, dtype=torch.int32, device=dev)
-    masks, margs = _mask_args(a_dense, b_dense, prec != 0, tile_masks)
+    masks, margs = _mask_args(a_dense, b_dense, tile_masks)
     with torch.cuda.device(dev):
         _raise_on(lib.macro_class_uniform_f32(
             a_dense.data_ptr(), b_dense.data_ptr(), ab_bases.data_ptr(),
@@ -598,7 +587,6 @@ def class_call(c_num, c_pat, a_dense, b_dense, ab_bases, t, p, ar, br,
             c_num.data_ptr(), c_pat.data_ptr(), prec, persistent_grid(dev),
             next_tile.data_ptr(), *margs,
             torch.cuda.current_stream().cuda_stream), "macro_class_uniform")
-    if masks is not None:
-        masks.made()
+    masks.made()
     LAUNCHES["macro_class_uniform"] += 1
     return c_num, c_pat

@@ -365,14 +365,13 @@ def stencil_accumulate(a_dense, b_dense, plan: StencilPlan,
     row is written exactly once: by its class, by the residual path, or (the
     rows past the last real one) by the zero fill.  CUDA tables go through
     the class kernel, CPU tables through ``class_call_plain``
-    (ops/macro_kernels.class_call2 decides by the tensors' device).  Below
-    "highest" the kernels' launches share one ``TileMasks``: the first
-    computes the tables' k-masks, the others read them.
+    (ops/macro_kernels.class_call2 decides by the tensors' device).  The
+    kernels' launches share one ``TileMasks``: the first computes the
+    tables' k-masks, the others read them.
     """
     from pem_spgemm_tpu_torch.ops.macro_kernels import TileMasks, class_call2
     dev = a_dense.device
-    masks = TileMasks(a_dense, b_dense) if a_dense.is_cuda \
-        and precision != "highest" else None
+    masks = TileMasks(a_dense, b_dense) if a_dense.is_cuda else None
     c_num = torch.empty((plan.c_cap, TILE, TILE), dtype=torch.float32,
                         device=dev)
     c_pat = torch.empty((plan.c_cap, TILE, TILE), dtype=torch.uint8,

@@ -28,9 +28,9 @@ or float64 tiles, so a rank widens each chunk it holds into one float32
 buffer before its stage, and its A slice once a plan (``local_macro``).
 C is float32, as the JAX stage's ``preferred_element_type``.
 
-Where a launch reads tile k-masks (on the card: float64 tables, float32
-ones at "high" / "default", and every accumulating stage, which runs only
-the k-slabs the masks call non-zero), a plan makes those of its A slice and
+Every launch on the card reads tile k-masks (it runs only the k-slabs the
+masks call non-zero, at every precision, fresh or accumulating), so a plan
+makes those of its A slice and
 of its B chunk once (``plan_masks``: one launch a table) and the ring
 passes a chunk's masks with the chunk, in the same exchange (40 bytes a
 64 KB tile), so that no stage reads a table to make masks.
@@ -355,8 +355,7 @@ def local_macro(plan: ShardedMacroPlan, chunks, precision: str = "highest"):
                                                       b_masks.ready)
                 b_masks = wide_masks
         masks = mk.TileMasks(a_acc, b_cur, a=plan_masks(plan)[0],
-                             b=b_masks) \
-            if mk.reads_masks(b_cur, precision, out is not None) else None
+                             b=b_masks) if mk.reads_masks(b_cur) else None
         out = accumulate_macro_pairs(
             a_acc, b_cur, plan.pairs_a[s], plan.pairs_b[s],
             plan.seg[s], plan.c_cap, chunk=chunk, precision=precision,
@@ -375,19 +374,12 @@ def sharded_macro_numeric(plan: ShardedMacroPlan,
                           precision: str = "highest"):
     """This rank's (c_dense, c_flags) of the ring multiply, each stage's K4
     at ``precision``; the chunks carry their masks where K4 reads them
-    (``ring_reads_masks``)."""
+    (``mk.reads_masks``: every stage on the card, a ring of one rank's
+    too)."""
     mesh = mesh or make_mesh()
-    masks = plan_masks(plan)[1] if ring_reads_masks(plan, precision) \
-        else None
+    masks = plan_masks(plan)[1] if mk.reads_masks(plan.b_dense) else None
     return local_macro(plan, ring_chunks(plan.b_dense, plan.n_devices, mesh,
                                          masks), precision)
-
-
-def ring_reads_masks(plan: ShardedMacroPlan, precision: str) -> bool:
-    """Whether the ring's stages read tile masks, so that the chunks carry
-    them: on the card, at "high" / "default" and in float64 every stage,
-    at "highest" the accumulating ones (a ring of two ranks or more)."""
-    return mk.reads_masks(plan.b_dense, precision, plan.n_devices > 1)
 
 
 def replay_chunks(plans, d: int, masks: bool = False):

@@ -201,14 +201,16 @@ def test_macro_kernel_source_and_loader_agree():
     # the class entries multiply on the tensor cores with the 3xTF32 split
     assert "wgmma.mma_async" in src and ".tf32.tf32" in src
     assert "cvt.rna.tf32.f32" in src
-    # the accumulate form at "highest": the 256-thread stage over the walk
-    # list, fed by the one-pass pipeline's issue cursor (the slabs the
-    # masks call non-zero); the fresh form's kernel keeps its own walk
-    assert "macro_list_kernel<<<grid < w.n_tiles ? grid : w.n_tiles," in src
-    assert "    Issuer<ListTiles> is;\n" in src
-    assert "macro_pairs_kernel<<<grid < c_cap ? grid : c_cap," in src
-    assert "if constexpr (ACC)" not in src.split("pair_stream(")[1] \
-        .split("// Aligns the dynamic shared memory")[0]
+    # every launch at "highest": the 256-thread stage over a launch's walk
+    # (the pair stream's tiles, a class's, the accumulate form's list), fed
+    # by the one-pass pipeline's issue cursor (the slabs the masks call
+    # non-zero), one persistent kernel templated on the walk and the form
+    assert "macro_tc_kernel<Tiles, ACC><<<blocks, TC_THREADS, TC_SMEM, " \
+        "stream>>>(" in src
+    assert "    Issuer<Tiles> is;\n" in src
+    for gone in ("pair_stream(", "tile_product_tc(", "macro_pairs_kernel",
+                 "macro_class_kernel", "void store(float* c_num"):
+        assert gone not in src, gone
     assert set(mk.LAUNCHES) == {e[:-4] for e in entries[:3]} | {
         "macro_accumulate_pairs_f64", "macro_accumulate_pairs_acc",
         "macro_accumulate_pairs_f64_acc", "macro_tile_masks",

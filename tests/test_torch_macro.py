@@ -30,7 +30,7 @@ from pem_spgemm_tpu_torch.formats.coo import COOMatrix as TCOO
 from pem_spgemm_tpu_torch.formats.macro import MacroMatrix
 from pem_spgemm_tpu_torch.models import synthetic as t_synthetic
 from pem_spgemm_tpu_torch.ops import cstruct, macro, macro_kernels as mk, \
-    scanops, symbolic
+    scanops, stencil as st, symbolic
 from pem_spgemm_tpu_torch.ops.convert import coo_to_macro, tiled_to_macro
 from pem_spgemm_tpu_torch.ops.fixed import MacroPlan, make_plan
 
@@ -314,201 +314,39 @@ def _cu_constant(name):
     return int(m.group(1))
 
 
-def _replay_pair_stream(dense_a, dense_b, a_idx, b_idx, seg_ptr, c_cap,
-                        grid, seed, prior=None, walk=None):
-    """Python replay of the persistent pair-stream kernel (pair_stream in
-    csrc/macro_accumulate.cu): ``grid`` blocks, each a generator that runs
-    from one barrier to the next, advanced in a seeded random order so
-    that the shared ticket counter is taken in every interleaving; per block
-    the claim ring (CLAIMS slots, AHEAD claims ahead, a claim published two
-    iterations after its ticket), the issue cursor two stages ahead of the
-    compute cursor, the two-slot raw ring, the tile boundaries.  Returns
-    (values, flags, owner, events, reads): the C tiles as the replay forms
-    them (each stage's 32-deep k-slab product added in float64, flags from
-    the raw values' k-masks), the block that wrote each tile (-1: zeroed
-    before the stream, -2: never written), per tile its (pair, slab) stages
-    in the order run, and how often each tile was read.  ``prior`` (values,
-    flags) and ``walk`` (the stream's ``stream_walk``): the accumulate form
-    at "highest" (macro_list_kernel: ``_replay_list_stream``), whose events
-    are (A tile, B tile, slab)."""
-    if prior is not None:
-        return _replay_list_stream(dense_a, dense_b, a_idx, b_idx, walk,
-                                   c_cap, grid, seed, prior)
-    CLAIMS, AHEAD = _cu_constant("CLAIMS"), _cu_constant("AHEAD")
-    KS, SLABS, THREADS = 32, 4, 256
-    counter = [0]
-    values = np.full((c_cap, 128, 128), np.nan)
-    flags = np.full((c_cap, 128, 128), 7, np.uint8)
-    owner = np.full(c_cap, -2)
-    reads = np.zeros(c_cap, np.int64)
-    events = {}
-
-    def write(c, b, v, f):
-        assert owner[c] == -2, f"tile {c} written twice"
-        owner[c] = b
-        values[c], flags[c] = v, f
-
-    # tiles without pairs: round robin, a thread each, before the stream
-    for b in range(grid):
-        for t in range(THREADS):
-            for c in range(b + t * grid, c_cap, THREADS * grid):
-                if seg_ptr[c] == seg_ptr[c + 1]:
-                    write(c, -1, 0.0, 0)
-
-    def block(b):
-        ring = [None] * CLAIMS
-        published = [0]             # entries visible after the last barrier
-        used_by_compute = [0]
-
-        def ticket():
-            counter[0] += 1
-            return counter[0] - 1
-
-        def read_range(tk):
-            return (seg_ptr[tk], seg_ptr[tk + 1]) if tk < c_cap else (0, 0)
-
-        def publish(n, tk, lo, hi):
-            while tk < c_cap and hi == lo:
-                tk = ticket()
-                lo, hi = read_range(tk)
-            # the slot's last entry was read by the compute cursor already
-            assert n - CLAIMS < used_by_compute[0], "a slot overwritten early"
-            ring[n % CLAIMS] = (tk if tk < c_cap else -1, lo, hi, n)
-
-        def read(n):
-            assert n < published[0], "a slot read before it was published"
-            e = ring[n % CLAIMS]
-            assert e[3] == n
-            return e
-
-        for n in range(AHEAD + 1):
-            tk = ticket()
-            publish(n, tk, *read_range(tk))
-        n_claimed, n_used, pending, tk_pend = AHEAD + 1, 0, False, 0
-        published[0] = n_claimed
-        yield                               # __syncthreads
-        cur = dict(iq=0, iq_end=0, slab=0, live=True)
-        issued, raw = [], [None, None]
-
-        def take():
-            nonlocal n_used
-            row, lo, hi, _ = read(n_used)
-            n_used += 1
-            cur.update(live=row >= 0, iq=lo, iq_end=hi)
-
-        def issue():
-            if not cur["live"]:
-                return
-            raw[len(issued) % 2] = len(issued)
-            issued.append((cur["iq"], cur["slab"]))
-            cur["slab"] += 1
-            if cur["slab"] == SLABS:
-                cur["slab"] = 0
-                cur["iq"] += 1
-                if cur["iq"] == cur["iq_end"]:
-                    take()
-
-        comp = {}
-
-        def advance():
-            row, lo, hi, _ = read(used_by_compute[0])
-            used_by_compute[0] += 1
-            comp.update(row=row, cq=lo, cs=0, left=(hi - lo) * SLABS,
-                        v=np.zeros((128, 128)), f=np.zeros((128, 128), bool))
-            if row >= 0:
-                events[row] = []
-
-        take()
-        issue()
-        issue()
-        advance()
-        split = set()
-        if issued:
-            assert raw[0] == 0              # the split reads stage 0
-            split.add(0)
-        yield
-        st = 0
-        while st < len(issued):
-            publish_now = pending
-            rng_p = read_range(tk_pend) if publish_now else None
-            fresh = cur["live"] and n_claimed + pending < n_used + AHEAD
-            tk_new = ticket() if fresh else 0
-            assert st in split              # this stage was split already
-            issue()                         # stage st + 2, raw slot st % 2
-            if st + 1 < len(issued):        # split stage st + 1
-                assert raw[(st + 1) % 2] == st + 1
-                split.add(st + 1)
-            q, slab = issued[st]
-            assert (q, slab) == (comp["cq"], comp["cs"])
-            events[comp["row"]].append((q, slab))
-            ks = slice(KS * slab, KS * slab + KS)
-            a = dense_a[a_idx[q]][:, ks].astype(np.float64)
-            bb = dense_b[b_idx[q]][ks, :].astype(np.float64)
-            comp["v"] += a @ bb
-            comp["f"] |= ((a != 0).astype(np.int64)
-                          @ (bb != 0).astype(np.int64)) > 0
-            comp["cs"] += 1
-            if comp["cs"] == SLABS:
-                comp["cs"] = 0
-                comp["cq"] += 1
-            comp["left"] -= 1
-            if comp["left"] == 0:
-                write(comp["row"], b, comp["v"], comp["f"])
-                advance()
-            if publish_now:
-                publish(n_claimed, tk_pend, *rng_p)
-                n_claimed += 1
-            pending, tk_pend = fresh, tk_new
-            published[0] = n_claimed
-            st += 1
-            yield
-
-    return _run_blocks(block, min(grid, c_cap), seed) + (values, flags,
-                                                            owner, events,
-                                                            reads)
-
-
-def _run_blocks(block, n_blocks, seed):
-    """Advance the blocks' generators in a seeded random order; ()."""
-    rng = np.random.default_rng(seed)
-    live = {b: block(b) for b in range(n_blocks)}
-    while live:
-        b = list(live)[rng.integers(len(live))]
-        try:
-            next(live[b])
-        except StopIteration:
-            del live[b]
-    return ()
-
-
-def _replay_list_stream(dense_a, dense_b, a_idx, b_idx, walk, c_cap, grid,
-                        seed, prior):
-    """Python replay of macro_list_kernel (the accumulate form at
-    "highest"): ``grid`` blocks (at most c_cap), each a generator from one
+def _replay_tc_kernel(dense, w, n_rows, grid, seed, prior=None):
+    """Python replay of macro_tc_kernel (every float32 launch at
+    "highest") over the walk ``w`` (test_torch_onepass's StreamTiles,
+    ClassTiles or ListTiles of the .cu; A = B = ``dense``): ``grid`` blocks
+    (at most the tiles the launch is sized for), each a generator from one
     barrier to the next, advanced in a seeded random order around one
-    ticket counter; per block warp 0's Issuer over the walk list
-    (test_torch_onepass's replay of the .cu's Issuer and ListTiles: the
-    claim pipeline, the tiles' k-masks, the slabs that run, a store-only
-    stage a tile, DONE) publishing stage n + 3 into a ring of LIST_INFO
-    slots while stage n computes, every thread issuing stage n + 2's copies
-    into raw slot n % 2 and splitting stage n + 1 into split slot
-    (n + 1) % 2.  At a store-only stage a tile of which a slab ran is read
-    and written once (old + partial, flags ORed); one none of whose slabs
-    ran is left.  Returns (values, flags, owner, events, reads, counter):
-    as ``_replay_pair_stream``, events per tile its (A tile, B tile, slab)
-    in the order run, and the ticket counter at the end."""
-    from test_torch_onepass import Issuer, ListTiles
-    L = _cu_constant("LIST_INFO")
+    ticket counter; per block warp 0's Issuer (test_torch_onepass's replay
+    of the .cu's: the claim pipeline, the tiles' k-masks, the slabs that
+    run, a store-only stage a tile, DONE) publishing stage n + 3 into a
+    ring of TC_INFO slots while stage n computes, every thread issuing
+    stage n + 2's copies into raw slot n % 2 and splitting stage n + 1 into
+    split slot (n + 1) % 2.  At a tile's store-only stage the fresh form
+    (``prior`` None) writes the tile whole: its sums, which start at +0.0,
+    and flags; the accumulate form (``prior`` (values, flags)) reads and
+    writes a tile of which a slab ran once (old + partial, flags ORed) and
+    leaves one none of whose slabs ran.  Returns (values, flags, owner,
+    events, reads, counter): the n_rows C rows as the replay forms them
+    (the fresh form's start NaN and 7, so a row never written shows), the
+    block that wrote each row (-2: none), per row its (A tile, B tile,
+    slab) in the order run, how often each row was read, and the ticket
+    counter at the end."""
+    from test_torch_onepass import Issuer
+    L = _cu_constant("TC_INFO")
     KS = 32
-    masks = mk.tile_masks_plain(torch.from_numpy(
-        np.ascontiguousarray(dense_a))).numpy().view(np.uint32)
-    assert dense_a is dense_b       # the replayed streams are A @ A
-    w = ListTiles(walk, a_idx, b_idx, c_cap, masks)
     counter = [0]
-    values = prior[0].astype(np.float64)
-    flags = prior[1].copy()
-    owner = np.full(c_cap, -2)
-    reads = np.zeros(c_cap, np.int64)
+    if prior is None:
+        values = np.full((n_rows, 128, 128), np.nan)
+        flags = np.full((n_rows, 128, 128), 7, np.uint8)
+    else:
+        values = prior[0].astype(np.float64)
+        flags = prior[1].copy()
+    owner = np.full(n_rows, -2)
+    reads = np.zeros(n_rows, np.int64)
     events = {}
 
     def block(b):
@@ -558,8 +396,8 @@ def _replay_list_stream(dense_a, dense_b, a_idx, b_idx, walk, c_cap, grid,
                 live = True
                 events.setdefault(row, []).append((ta, tb, k0 // KS))
                 ks = slice(k0, k0 + KS)
-                a = dense_a[ta][:, ks].astype(np.float64)
-                bb = dense_b[tb][ks, :].astype(np.float64)
+                a = dense[ta][:, ks].astype(np.float64)
+                bb = dense[tb][ks, :].astype(np.float64)
                 with np.errstate(invalid="ignore"):
                     v += a @ bb
                 f |= ((a != 0).astype(np.int64)
@@ -569,9 +407,12 @@ def _replay_list_stream(dense_a, dense_b, a_idx, b_idx, walk, c_cap, grid,
                 split.add(n + 1)
             if fl & 2:                  # the tile's store-only stage
                 events.setdefault(row, [])
-                if live:
+                if prior is None or live:
                     assert owner[row] == -2, f"tile {row} written twice"
                     owner[row] = b
+                if prior is None:
+                    values[row], flags[row] = v, f
+                elif live:
                     reads[row] += 1
                     with np.errstate(invalid="ignore"):
                         values[row] += v
@@ -582,8 +423,21 @@ def _replay_list_stream(dense_a, dense_b, a_idx, b_idx, walk, c_cap, grid,
             n += 1
             yield
 
-    _run_blocks(block, min(grid, c_cap), seed)
+    _run_blocks(block, min(grid, getattr(w, "launched", w.n_tiles)), seed)
     return values, flags, owner, events, reads, counter[0]
+
+
+def _run_blocks(block, n_blocks, seed):
+    """Advance the blocks' generators in a seeded random order; ()."""
+    rng = np.random.default_rng(seed)
+    live = {b: block(b) for b in range(n_blocks)}
+    while live:
+        b = list(live)[rng.integers(len(live))]
+        try:
+            next(live[b])
+        except StopIteration:
+            del live[b]
+    return ()
 
 
 def _replayed_stream(g, stream):
@@ -613,34 +467,24 @@ def _replayed_stream(g, stream):
                                          (2, "1/70/0/3/2")])
 def test_pair_kernel_index_arithmetic_replayed_in_numpy(gapped_stream, grid,
                                                         stream):
-    """What the persistent pair-stream kernel does with the tables its
-    wrapper uploads, replayed block by block in every interleaving of a
-    seeded schedule: tiles are taken in stream order from one counter,
-    every C tile is written once (a tile with pairs by the block that took
-    it, a tile without pairs, among them every tile from the stream's count
-    up to c_cap, as zeros before the stream), a tile's stages are its pairs
-    in stream order, each in 4 k-slabs, the claim ring and the raw ring are
-    never read before they are filled, and the result is the plain
-    version's."""
+    """What the pair-stream entry's fresh form at "highest" does with the
+    tables its wrapper uploads (macro_tc_kernel over StreamTiles), replayed
+    block by block in every interleaving of a seeded schedule: tiles are
+    taken in stream order from one counter, every c_cap tile is written
+    once, by the block that took it (a tile without pairs, among them every
+    tile from the stream's count up to c_cap, and a tile none of whose
+    slabs runs as +0.0 with flags 0), a tile's stages are exactly the slabs
+    its tiles' masks call non-zero, in stream order, the stage ring and the
+    raw ring are never read before they are filled, and the result is the
+    plain version's."""
     g = gapped_stream
     tm, (_r, _c, a_idx, b_idx, _seg, _cnt) = g["tm"], g["t_out"]
     seg, c_cap, seg_ptr = _replayed_stream(g, stream)
-    d = tm.dense.numpy()
-    pa, pb = a_idx.numpy(), b_idx.numpy()
-    num, flag, owner, events, _reads = _replay_pair_stream(
-        d, d, pa, pb, seg_ptr, c_cap, grid, seed=grid)
-    empty = np.diff(seg_ptr) == 0
-    assert (owner[empty] == -1).all() and (owner[~empty] >= 0).all()
-    assert empty[-5:].all() if stream == "gapped" else empty[2]
-    assert np.bincount(owner[~empty]).max() > 1     # a block's stream
-                                                    # crosses tiles
-    for c in np.flatnonzero(~empty):
-        lo, hi = seg_ptr[c], seg_ptr[c + 1]
-        assert events[c] == [(q, s) for q in range(lo, hi) for s in range(4)]
-    want_n, want_f = macro.accumulate_macro(tm.dense, tm.dense, a_idx, b_idx,
-                                            seg, c_cap, 32)
-    np.testing.assert_allclose(num, want_n.numpy(), rtol=1e-5, atol=1e-5)
-    np.testing.assert_array_equal(flag, want_f.numpy())
+    with_pairs, idle, skipped = _hold_tc_replay(
+        tm.dense.numpy(), a_idx, b_idx, seg, c_cap, grid)
+    assert len(with_pairs) < c_cap and skipped > 0
+    assert (np.diff(seg_ptr) == 0)[-5:].all() if stream == "gapped" \
+        else (np.diff(seg_ptr) == 0)[2]
 
 
 def _prior_c(c_cap, dtype, seed):
@@ -668,25 +512,36 @@ def _needed(masks, a_idx, b_idx, q):
     return slabs_needed(masks[a_idx[q]], masks[b_idx[q]])
 
 
-def _hold_list_replay(d, a_idx, b_idx, seg, c_cap, grid, prior):
-    """The list kernel's replay on the stream ``seg`` (A = B = ``d``) into
-    ``prior``, held to the plain version's ``out=``: only the tiles with
-    pairs are visited, each once, by one block, its stages the slabs its
-    tiles' masks call non-zero, in stream order; each block takes one
-    ticket past the list's count; a tile none of whose slabs runs is left
-    bit for bit, as is every tile without pairs.  Returns (the tiles with
-    pairs, those none of whose slabs runs, the skipped slabs)."""
+def _hold_tc_replay(d, a_idx, b_idx, seg, c_cap, grid, prior=None):
+    """macro_tc_kernel's replay on the stream ``seg`` (A = B = ``d``),
+    fresh (StreamTiles over the stream's c_cap tiles) or, with ``prior``,
+    accumulating into it (ListTiles over its walk list), held to the plain
+    version (``out=prior`` for the latter): each block takes one ticket
+    past the walk's count; every visited tile is stored once, by one block,
+    its stages the slabs its tiles' masks call non-zero, in stream order.
+    The fresh form visits every c_cap tile and stores a tile none of whose
+    slabs runs (or without pairs) as +0.0 with flags 0, bit for bit the
+    plain version's; the accumulate form visits the tiles with pairs alone
+    and leaves a tile none of whose slabs runs bit for bit, as it leaves
+    every tile without pairs.  Returns (the tiles with pairs, those none
+    of whose slabs runs, the skipped slabs)."""
+    from test_torch_onepass import ListTiles, StreamTiles
     c_cap_ = int(c_cap)
     seg_ptr = mk.segment_offsets(seg, c_cap_).numpy()
     pa, pb = a_idx.numpy(), b_idx.numpy()
-    walk = mk.stream_walk(seg, c_cap_, min(c_cap_, seg.numel())).numpy()
-    num, flag, owner, events, reads, tickets = _replay_pair_stream(
-        d, d, pa, pb, seg_ptr, c_cap_, grid, seed=grid,
-        prior=(prior[0].numpy(), prior[1].numpy()), walk=walk)
     masks = mk.tile_masks_plain(torch.from_numpy(d)).numpy().view(np.uint32)
+    if prior is None:
+        w = StreamTiles(seg_ptr, pa, pb, c_cap_, masks)
+    else:
+        walk = mk.stream_walk(seg, c_cap_, min(c_cap_, seg.numel())).numpy()
+        w = ListTiles(walk, pa, pb, c_cap_, masks)
+    num, flag, owner, events, reads, tickets = _replay_tc_kernel(
+        d, w, c_cap_, grid, seed=grid, prior=None if prior is None else
+        (prior[0].numpy(), prior[1].numpy()))
     with_pairs = np.flatnonzero(np.diff(seg_ptr) > 0)
-    assert sorted(events) == with_pairs.tolist()        # listed tiles only
-    assert tickets == len(with_pairs) + min(grid, c_cap_)
+    visited = list(range(c_cap_)) if prior is None else with_pairs.tolist()
+    assert sorted(events) == visited
+    assert tickets == len(visited) + min(grid, c_cap_)
     idle, skipped = [], 0
     for c in with_pairs:
         lo, hi = seg_ptr[c], seg_ptr[c + 1]
@@ -694,22 +549,37 @@ def _hold_list_replay(d, a_idx, b_idx, seg, c_cap, grid, prior):
                 for s_ in range(4) if _needed(masks, pa, pb, q) >> s_ & 1]
         assert events[c] == want, c
         skipped += 4 * (hi - lo) - len(want)
-        if want:
-            assert owner[c] >= 0 and reads[c] == 1
-        else:
+        if not want:
             idle.append(int(c))
-            assert owner[c] == -2 and reads[c] == 0
-    untouched = owner == -2
-    assert (reads[untouched] == 0).all()
-    want_n, want_f = mk.accumulate_macro_pairs(
-        torch.from_numpy(d), torch.from_numpy(d), a_idx, b_idx, seg, c_cap_,
-        chunk=32, out=(prior[0].clone(), prior[1].clone()))
+    if prior is None:
+        assert (owner >= 0).all()
+        assert np.bincount(owner).max() > 1     # a block's stream crosses
+        want_n, want_f = mk.accumulate_macro_pairs(     # tiles
+            torch.from_numpy(d), torch.from_numpy(d), a_idx, b_idx, seg,
+            c_cap_, chunk=32)
+        zero = np.ones(c_cap_, bool)
+        zero[with_pairs] = False
+        zero[idle] = True
+        assert not num[zero].any() and not flag[zero].any()
+        assert not np.signbit(num[zero]).any()          # +0.0
+        np.testing.assert_array_equal(
+            _bits(want_n[torch.from_numpy(zero)]).numpy(), 0)
+    else:
+        for c in with_pairs:
+            assert (owner[c] == -2 and reads[c] == 0) if c in idle \
+                else (owner[c] >= 0 and reads[c] == 1)
+        untouched = owner == -2
+        assert (reads[untouched] == 0).all()
+        want_n, want_f = mk.accumulate_macro_pairs(
+            torch.from_numpy(d), torch.from_numpy(d), a_idx, b_idx, seg,
+            c_cap_, chunk=32, out=(prior[0].clone(), prior[1].clone()))
+        np.testing.assert_array_equal(
+            num[untouched].astype(np.float32).view(np.int32),
+            _bits(prior[0][torch.from_numpy(untouched)]).numpy())
+        np.testing.assert_array_equal(flag[untouched],
+                                      prior[1].numpy()[untouched])
     np.testing.assert_allclose(num, want_n.numpy(), rtol=1e-5, atol=1e-5)
     np.testing.assert_array_equal(flag, want_f.numpy())
-    np.testing.assert_array_equal(num[untouched].astype(np.float32).view(
-        np.int32), _bits(prior[0][torch.from_numpy(untouched)]).numpy())
-    np.testing.assert_array_equal(flag[untouched],
-                                  prior[1].numpy()[untouched])
     return with_pairs, idle, skipped
 
 
@@ -717,7 +587,7 @@ def _hold_list_replay(d, a_idx, b_idx, seg, c_cap, grid, prior):
 def test_pair_kernel_accumulate_form_replayed_in_numpy(gapped_stream, grid,
                                                        stream):
     """The accumulate form (the ring's stages after the first) at
-    "highest": macro_list_kernel replayed block by block over the stream's
+    "highest": macro_tc_kernel replayed block by block over the stream's
     walk list (no zero pass; the tiles past the stream's count never take
     a ticket), each tile with pairs read once and written once, by the
     block that took it, where a slab of it runs, its stages only the slabs
@@ -727,7 +597,7 @@ def test_pair_kernel_accumulate_form_replayed_in_numpy(gapped_stream, grid,
     tm, (_r, _c, a_idx, b_idx, _seg, _cnt) = g["tm"], g["t_out"]
     seg, c_cap, _seg_ptr = _replayed_stream(g, stream)
     prior = _prior_c(c_cap, torch.float32, seed=grid)
-    with_pairs, _idle, skipped = _hold_list_replay(
+    with_pairs, _idle, skipped = _hold_tc_replay(
         tm.dense.numpy(), a_idx, b_idx, seg, c_cap, grid, prior)
     assert len(with_pairs) < c_cap and skipped > 0
 
@@ -769,9 +639,9 @@ def _engineered_list_stream():
 
 @pytest.mark.parametrize("grid", [1, 4])
 def test_list_kernel_walks_the_listed_tiles_and_runs_the_needed_slabs(grid):
-    """macro_list_kernel's replay on an engineered stage whose c_cap lies
-    far above its tiles: only the listed tiles are visited, once each, in
-    stream order; exactly the slabs the masks call zero are skipped, and
+    """macro_tc_kernel's accumulate replay on an engineered stage whose
+    c_cap lies far above its tiles: only the listed tiles are visited, once
+    each, in stream order; exactly the slabs the masks call zero are skipped, and
     the marked ones (an Inf, a value of 2^63) run, so an Inf meeting only
     zeros gives the plain version's NaN; the tile whose pairs run no slab
     is neither read nor written (its -0.0 stays), and so is every tile
@@ -779,8 +649,8 @@ def test_list_kernel_walks_the_listed_tiles_and_runs_the_needed_slabs(grid):
     d, a_idx, b_idx, seg, c_cap = _engineered_list_stream()
     prior = _prior_c(c_cap, torch.float32, seed=grid)
     prior[0][5] = -0.0
-    with_pairs, idle, skipped = _hold_list_replay(d, a_idx, b_idx, seg,
-                                                  c_cap, grid, prior)
+    with_pairs, idle, skipped = _hold_tc_replay(d, a_idx, b_idx, seg,
+                                                c_cap, grid, prior)
     assert with_pairs.tolist() == [2, 5, 9, 17, 40, 41] and idle == [5]
     assert skipped > 0
     masks = mk.tile_masks_plain(torch.from_numpy(d)).numpy().view(np.uint32)
@@ -792,6 +662,102 @@ def test_list_kernel_walks_the_listed_tiles_and_runs_the_needed_slabs(grid):
         torch.from_numpy(d), torch.from_numpy(d), a_idx, b_idx, seg, c_cap,
         chunk=32, out=(prior[0].clone(), prior[1].clone()))
     assert bool(torch.isnan(want_n[9]).any())           # Inf times zeros
+
+
+@pytest.mark.parametrize("grid", [1, 4])
+def test_fresh_form_stores_the_tile_none_of_whose_slabs_runs_as_zero(grid):
+    """macro_tc_kernel's fresh replay (StreamTiles) on the engineered stream
+    whose c_cap lies far above its tiles: every c_cap tile is stored once;
+    C tile 5, whose pairs' tiles share no k, runs no slab and is stored as
+    +0.0 with flags 0, as is every tile without pairs; the marked slabs (an
+    Inf, a value of 2^63) run whatever the other side holds, so the Inf
+    tile gives the plain version's NaN where the Inf meets only zeros."""
+    d, a_idx, b_idx, seg, c_cap = _engineered_list_stream()
+    with_pairs, idle, skipped = _hold_tc_replay(d, a_idx, b_idx, seg, c_cap,
+                                                grid)
+    assert with_pairs.tolist() == [2, 5, 9, 17, 40, 41] and idle == [5]
+    assert skipped > 0
+    want_n, _f = mk.accumulate_macro_pairs(
+        torch.from_numpy(d), torch.from_numpy(d), a_idx, b_idx, seg, c_cap,
+        chunk=32)
+    assert bool(torch.isnan(want_n[9]).any())           # Inf times zeros
+    assert _bits(want_n[5]).eq(0).all()                 # +0.0 in the plain
+
+
+@pytest.fixture(scope="module")
+def class_plans():
+    """{"ragged": (A, run plan), "uniform": (A, stencil plan)}: the classes
+    of a small wandering matrix's run plan (per-tile pair counts ragged)
+    and of a small banded one's stencil plan (uniform), A @ A."""
+    out = {}
+    for kind, coo, planner in (
+            ("ragged", t_synthetic.wandering_device(n=4096, seed=4,
+                                                    device="cpu"),
+             st.plan_runs),
+            ("uniform", t_synthetic.banded_device(
+                n=4096, seed=1, bands=tuple(range(-32, 32)), device="cpu"),
+             st.plan_stencil)):
+        a = coo_to_macro(coo, device="cpu")
+        offsets = symbolic.pair_counts(a.tile_col, a.tile_rowptr, a.ntiles)
+        n_pairs = int(offsets[-1])
+        p_cap = max(256, -(-n_pairs // 256) * 256)
+        c_row, c_col, a_idx, b_idx, seg, n_tiles = symbolic.expand_pairs(
+            offsets, a.tile_row, a.tile_col, a.tile_rowptr, a.tile_col,
+            n_pairs, p_cap, True)
+        out[kind] = (a, planner(seg, a_idx, b_idx, c_row, c_col, n_pairs,
+                                int(n_tiles), a.dense.shape[0],
+                                a.dense.shape[0]))
+    return out
+
+
+@pytest.mark.parametrize("kind", ["ragged", "uniform"])
+def test_class_launch_at_highest_replayed_against_the_plain_class_call(
+        class_plans, kind):
+    """K5 (ragged) and K6 (uniform) at "highest": macro_tc_kernel over each
+    class's ClassTiles (ticket tk = step tk / t, tile tk % t, at the
+    step's bases), replayed block by block with 3 blocks: every row of the
+    class is stored once, its stages exactly the slabs its pairs' masks
+    call non-zero, pair by pair, a row none of whose slabs runs as +0.0
+    with flags 0, and values and flags are the plain class call's
+    (class_call_plain)."""
+    from test_torch_onepass import ClassTiles, slabs_needed
+    a, plan = class_plans[kind]
+    assert plan.classes and all(isinstance(c[1], int) == (kind == "uniform")
+                                for c in plan.classes)
+    dense = a.dense.numpy()
+    masks = mk.tile_masks_plain(a.dense).numpy().view(np.uint32)
+    skipped = 0
+    for i, (cls, bases) in enumerate(zip(plan.classes, plan.class_bases)):
+        t, p, _ar, _br, a_offs, b_offs, _base = cls
+        rows = bases.numel() // 2 * t
+        p_list = st.p_list_of(t, p)
+        w = ClassTiles(bases.numpy(), p_list, np.asarray(a_offs),
+                       np.asarray(b_offs), t, 0, rows, masks)
+        num, flag, owner, events, _reads, tickets = _replay_tc_kernel(
+            dense, w, rows, 3, seed=i)
+        assert (owner >= 0).all() and tickets == rows + min(3, rows)
+        p_ptr = np.concatenate([[0], np.cumsum(p_list)])
+        b2 = bases.numpy().reshape(-1, 2)
+        for row in range(rows):
+            step, tt = divmod(row, t)
+            tiles = [(int(b2[step, 0] + a_offs[q]), int(b2[step, 1]
+                                                       + b_offs[q]))
+                     for q in range(p_ptr[tt], p_ptr[tt + 1])]
+            want = [(ta, tb, s_) for ta, tb in tiles for s_ in range(4)
+                    if slabs_needed(masks[ta], masks[tb]) >> s_ & 1]
+            assert events[row] == want, (i, row)
+            skipped += 4 * len(tiles) - len(want)
+            if not want:
+                assert not num[row].any() and not flag[row].any()
+                assert not np.signbit(num[row]).any()
+        want_n = torch.full((rows, 128, 128), float("nan"))
+        want_f = torch.full((rows, 128, 128), 7, dtype=torch.uint8)
+        st.class_call_plain(want_n, want_f, a.dense, a.dense, bases, t, p,
+                            a_offs, b_offs, 0)
+        np.testing.assert_array_equal(flag, want_f.numpy())
+        np.testing.assert_allclose(num, want_n.double().numpy(), rtol=1e-5,
+                                   atol=1e-5)
+    assert skipped > 0
 
 
 @pytest.mark.parametrize("dtype,precision", [
@@ -859,39 +825,95 @@ def test_accumulate_form_refuses_a_wrong_out(gapped_stream, what):
     assert not num.any() and not flag.any()
 
 
-def test_reads_masks_names_the_launches_that_read_tile_masks():
-    """mk.reads_masks: on the card the float64 entry, the float32 entry at
-    "high" / "default" and the accumulate form at every precision read
-    tile masks; the fresh form and the class entries at "highest" do not,
-    and no CPU table does.  sm.ring_reads_masks: a ring of several ranks
-    carries them at "highest" (its accumulating stages read them), a ring
-    of one does not."""
+def test_reads_masks_names_the_launches_that_read_tile_masks(monkeypatch):
+    """mk.reads_masks: every launch on a CUDA table reads tile masks (the
+    float64 entry, and the float32 entries at every precision, fresh or
+    accumulating, the class entries too: each runs only the slabs the
+    masks call non-zero); no CPU table does.  The ring asks the same
+    predicate of its B table, so every ring on the card carries masks, a
+    ring of one rank too, and no ring on the CPU does."""
     import types
     from pem_spgemm_tpu_torch.parallel import sharded_macro as sm
     f32, f64 = (types.SimpleNamespace(is_cuda=True, dtype=d)
                 for d in (torch.float32, torch.float64))
-    assert not mk.reads_masks(f32, "highest")
-    assert mk.reads_masks(f32, "highest", accumulate=True)
-    assert mk.reads_masks(f32, "high") and mk.reads_masks(f32, "default")
-    assert mk.reads_masks(f64, "highest")
-    assert not mk.reads_masks(torch.zeros((1, 128, 128)), "high", True)
-    for n, want in ((1, False), (4, True)):
-        plan = types.SimpleNamespace(b_dense=f32, n_devices=n)
-        assert sm.ring_reads_masks(plan, "highest") is want
-        assert sm.ring_reads_masks(plan, "default")
+    assert mk.reads_masks(f32) and mk.reads_masks(f64)
+    assert not mk.reads_masks(torch.zeros((1, 128, 128)))
+    carried = []
+    monkeypatch.setattr(sm, "plan_masks", lambda plan: (None, "masks"))
+    monkeypatch.setattr(sm, "ring_chunks",
+                        lambda b, n, mesh, masks: carried.append(masks))
+    monkeypatch.setattr(sm, "local_macro", lambda *a: None)
+    for n in (1, 4):
+        for table, want in ((f32, "masks"), (torch.zeros((1, 128, 128)),
+                                             None)):
+            carried.clear()
+            sm.sharded_macro_numeric(
+                types.SimpleNamespace(b_dense=table, n_devices=n),
+                mesh=object())
+            assert carried == [want], (n, table)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_slab_share_counts_the_slabs_a_direct_count_finds(dtype):
+    # bench/k4_split.needed_slabs / slab_share (the slab counts of the
+    # kernel rows' bounds) against a direct count over the tiles: a slab
+    # runs where some k of it has a non-zero in A's column and in B's row,
+    # or where A's columns or B's rows of it hold a marked value; and a
+    # densified table runs every slab
+    from pem_spgemm_tpu_torch.bench import k4_split
+    f64 = dtype == torch.float64
+    width = 16 if f64 else 32
+    rng = np.random.default_rng(41)
+    t = 8
+    keep = rng.random((t, 1, 128)) < rng.choice([0.0, 0.05, 0.3, 1.0],
+                                                 (t, 1, 1))
+    x = rng.standard_normal((t, 128, 128)) \
+        * (rng.random((t, 128, 128)) < 0.02) * keep
+    x[1, 5, 70] = np.inf
+    x[2, 100, 3] = np.nan
+    x[3, 40, 127] = -0.0
+    x[4, 9, 33] = 2.0 ** 64
+    a = torch.from_numpy(x).to(dtype)
+    b = torch.from_numpy(np.ascontiguousarray(x[::-1].transpose(0, 2, 1))) \
+        .to(dtype)
+    pa = torch.from_numpy(rng.integers(0, t, 200).astype(np.int32))
+    pb = torch.from_numpy(rng.integers(0, t, 200).astype(np.int32))
+    xa, xb = a.double().numpy(), b.double().numpy()
+
+    def marked(v):
+        bad = ~np.isfinite(v)
+        return bad if f64 else bad | (np.abs(v) >= 2.0 ** 63)
+
+    want = np.zeros(200, dtype=np.int64)
+    for p, (i, j) in enumerate(zip(pa.tolist(), pb.tolist())):
+        for s_ in range(128 // width):
+            ks = slice(s_ * width, (s_ + 1) * width)
+            both = (xa[i][:, ks] != 0).any(0) & (xb[j][ks, :] != 0).any(1)
+            if both.any() or marked(xa[i][:, ks]).any() \
+                    or marked(xb[j][ks, :]).any():
+                want[p] |= 1 << s_
+    got = k4_split.needed_slabs(a, b, pa, pb)
+    assert got.tolist() == want.tolist()
+    run, slabs = k4_split.slab_share(a, b, pa, pb)
+    assert slabs == 200 * (128 // width)
+    assert run == sum(bin(w).count("1") for w in want.tolist())
+    assert 0 < run < slabs
+    dense = k4_split.densify(a.clone())
+    assert bool((dense != 0).all()) and bool(dense.abs().max() < 1.5)
+    assert k4_split.slab_share(dense, dense, pa, pb) == (slabs, slabs)
 
 
 def test_k4_split_cuts_cut_one_place_each():
     # bench/k4_split.py times the tile product with one piece of a stage cut
-    # out (of the "highest" stage and of the one-pass pipeline), with one
-    # tile a block and the accumulate form's other stores, each a text
-    # substitution
+    # out (of the "highest" stage and of the one-pass pipeline), with every
+    # slab of a pair published and the accumulate form's other stores, each
+    # a text substitution
     from pem_spgemm_tpu_torch.bench import k4_split
     with open(mk.SOURCE) as f:
         text = f.read()
     for name, cuts in [*k4_split.CUTS.items(), *k4_split.WS_CUTS.items(),
                        *k4_split.ACC_CUTS.items(),
-                       ("one tile", k4_split.ONE_TILE)]:
+                       ("no slab skip", k4_split.NO_SLAB_SKIP)]:
         for old, new in cuts:
             assert text.count(old) == 1 and new != old, name
 

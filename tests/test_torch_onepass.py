@@ -93,21 +93,29 @@ def test_source_has_the_replayed_lines():
             "            info.row = Tiles::LISTED ? row : w.row(tk);",
             "        const ListTiles w{walk, a_idx, b_idx, masks_a, masks_b, "
             "next, c_cap};",
-            # the list kernel at "highest" (tests/test_torch_macro.py
+            # the 256-thread kernel at "highest" (tests/test_torch_macro.py
             # replays it): warp 0's Issuer a stage ring ahead of the block
-            "constexpr int LIST_INFO = 4;",
-            "            is.publish<false>(w, a_dense, b_dense, info[n], "
-            "nullptr);",
-            "                is.publish<false>(w, a_dense, b_dense,\n"
-            "                                  info[(n + 3) % LIST_INFO], "
-            "nullptr);",
+            "constexpr int TC_INFO = 4;",
+            "            is.template publish<false>(w, a_dense, b_dense, "
+            "info[n],\n                                       nullptr);",
+            "                is.template publish<false>(w, a_dense, b_dense,\n"
+            "                                           info[(n + 3) % "
+            "TC_INFO], nullptr);",
             "    during();\n    if (next) {\n        cp_async_wait1();",
             "            tc_issue(sh.raw_a[n & 1], sh.raw_b[n & 1], in.ap, "
             "in.bp, in.k0);",
             "        issue(n + 2);                       // into raw slot n % 2",
-            "            if (live) fr.store_cs<true>(c_num, c_flag, in.row);",
-            "            if constexpr (ARRIVE) mbar_arrive(ready);"):
+            "            if (!ACC || live) fr.store_cs<ACC>(c_num, c_flag, "
+            "in.row);",
+            "            if constexpr (ARRIVE) mbar_arrive(ready);",
+            # the next tile's masks (mw, the replay's need0) are written by
+            # advance() alone; a tile of more than 32 pairs reloads its
+            # window's masks into words of its own
+            "        load_masks(w, lo0, hi0, a00 + ia0, b00 + ib0, mw);",
+            "                    load_masks(w, q, hi, a0 + ia, b0 + ib, m);\n"
+            "                    nd = slabs_needed(m);"):
         assert text.count(line) == 1, line
+    assert text.count(", mw);") == 1
     assert _ring_depths(text, "HIGH") == (3, 3)
     assert _ring_depths(text, "DEFAULT") == (4, 4)
 
