@@ -47,14 +47,23 @@ first two, engine="macro" for the third):
     after two runs on other band stacks (the first eager, the second
     captures again), and times both, and what a run on new band stacks
     costs beside one eager multiply;
-  * the Macro128 engine on wandering64-1M (run-plan classes, the ragged class
-    kernel), banded64-1M (stencil classes) and pairbands-500k (neither
-    planner covers it: the pair-stream kernel); every interactive multiply
-    goes through the pair-stream kernel (one launch, counted), each
-    matrix's C_nnz is equal on the interactive and the steady path and its
-    C tiles are held against the plain accumulation on the card; per-row
-    nnz against scipy on 20,000 sampled rows of wandering64-1M, the
-    recorded C_nnz for banded64-1M, scipy's sorted COO for pairbands-500k;
+  * the Macro128 engine on wandering64-1M (run-plan classes), banded64-1M
+    (stencil classes), both through ONE launch of the class kernel over
+    all of the plan's classes (macro_classes_f32), and pairbands-500k
+    (neither planner covers it: the pair-stream kernel); every interactive
+    multiply goes through the pair-stream kernel (one launch, counted,
+    after one launch of the masks entry over A's table, which A keeps), a
+    steady multiply launches its plan's entry once (and the pair stream
+    for a class plan's residual pairs) and no masks entry; the one launch
+    is held bit for bit to the per-class launches and to the plain version
+    at every precision on the two class plans; each matrix's C_nnz is
+    equal on the interactive and the steady path and its C tiles are held
+    against the plain accumulation on the card; per-row nnz against scipy
+    on 20,000 sampled rows of wandering64-1M, the recorded C_nnz for
+    banded64-1M, scipy's sorted COO for pairbands-500k; at wandering64-1M
+    and pairbands-500k a zero k-slab of A is then made non-zero in place:
+    the next steady multiply must make A's masks again and hold to the
+    plain path (stale_masks_check);
   * the Tile16 tier (phase tile16_path; its accumulation is the Tile16
     kernel, csrc/tile16_accumulate.cu, whose masks form also gives the
     fused engine's structure, and its structure the kernels of
@@ -323,8 +332,8 @@ MACRO_MATRICES = {
     "pairbands-500k": lambda: banded_device(**DIA_MATRICES["pairbands-500k"]),
 }
 MACRO_EXPECT = {        # name: (plan type, planner, entry on the steady path)
-    "wandering64-1M": (StencilMacroPlan, "plan_runs", "macro_class_ragged"),
-    "banded64-1M": (StencilMacroPlan, "plan_stencil", "macro_class_ragged"),
+    "wandering64-1M": (StencilMacroPlan, "plan_runs", "macro_classes"),
+    "banded64-1M": (StencilMacroPlan, "plan_stencil", "macro_classes"),
     "pairbands-500k": (MacroPlan, None, "macro_accumulate_pairs"),
 }
 MACRO_SAMPLE_ROWS = 20_000
@@ -1105,6 +1114,8 @@ def plan_case(am, bm, planner, what, worst, uniform, precision="highest"):
     run(cls, bases, tables, 1, "one step")
     run(cls, bases, tables, n0 - 1 if n0 % 2 == 0 else n0, "odd steps")
 
+    cases += classes_case(am.dense, bm.dense, plan, what, worst, precision,
+                          grid=7)
     c_cap = -(-n_tiles // 256) * 256
     want = M.accumulate_macro(am.dense, bm.dense, a_idx, b_idx, seg, c_cap,
                               256, precision=precision)
@@ -1117,7 +1128,7 @@ def plan_case(am, bm, planner, what, worst, uniform, precision="highest"):
     rows = len(plan.order)
     if not (np.unique(plan.order).size == n_tiles == rows):
         raise AssertionError(f"{what}: slab order is no permutation")
-    key = prec_key("macro_class_ragged", precision)
+    key = prec_key("macro_classes", precision)
     e = macro_hold((got[0][:rows], got[1][:rows]),
                    (want[0][order], want[1][order]), mag[order],
                    f"{what} stencil_accumulate", key=key)
@@ -1125,6 +1136,137 @@ def plan_case(am, bm, planner, what, worst, uniform, precision="highest"):
         raise AssertionError(f"{what}: slab rows past the last are not zero")
     worst[key] = max(worst[key], e)
     return cases + 1, plan
+
+
+def classes_direct(slabs, a, b, plan, grid, precision):
+    """The one launch over all classes (macro_classes_f32) with ``grid``
+    persistent blocks (the wrapper launches one an SM), its masks made in
+    the launch; not counted."""
+    ab_bases, p_ptr, ao, bo, desc, n_rows = plan.plan_tables
+    desc = desc.reshape(-1)
+    ticket = torch.zeros(1, dtype=torch.int32, device=DEV)
+    _masks, margs = mk._mask_args(a, b, None)
+    err = mk._library().macro_classes_f32(
+        a.data_ptr(), b.data_ptr(), ab_bases.data_ptr(), p_ptr.data_ptr(),
+        ao.data_ptr(), bo.data_ptr(), len(desc) // 4, desc.ctypes.data,
+        n_rows, slabs[0].data_ptr(), slabs[1].data_ptr(),
+        M.precision_code(precision), grid, ticket.data_ptr(), *margs,
+        torch.cuda.current_stream().cuda_stream)
+    mk._raise_on(err, "classes_direct")
+    torch.cuda.synchronize()
+    return slabs
+
+
+def bits_equal(x, y):
+    """Values' bits and flags equal (NaN and -0.0 included)."""
+    return torch.equal(x[0].view(torch.int32), y[0].view(torch.int32)) \
+        and torch.equal(x[1], y[1])
+
+
+def classes_case(a_dense, b_dense, plan, what, worst, precision="highest",
+                 hold=None, grid=None):
+    """Every class of ``plan`` in ONE launch (macro_classes_f32, through
+    mk.classes_call, the tables' masks shared as a multiply shares them) at
+    ``precision``: bit for bit (values' bits and flags) the per-class
+    launches of the same classes (class_call2, one launch a class, as the
+    parent ran a plan), no slab row past the classes' written, and within
+    the dot bound of classes_call_plain with flags equal (``hold``:
+    macro_hold, or macro_hold_ieee for non-finite operands); with ``grid``
+    also launched with that many persistent blocks (several tiles a block,
+    across the classes' boundaries), bit for bit.  Returns the count of
+    cases."""
+    hold = hold or macro_hold
+    rows = plan.plan_tables[5]
+    n = rows + 3
+    key = prec_key("macro_classes", precision)
+    masks = mk.TileMasks(a_dense, b_dense)
+    one = fresh_slabs(n)
+    mk.classes_call(*one, a_dense, b_dense, plan, precision=precision,
+                    tile_masks=masks)
+    per = fresh_slabs(n)
+    for cls, bases, tables in zip(plan.classes, plan.class_bases,
+                                  plan.class_tables):
+        mk.class_call2(*per, a_dense, b_dense, bases, *cls,
+                       bases.numel() // 2, tables=tables,
+                       precision=precision, tile_masks=masks)
+    torch.cuda.synchronize()
+    outs = [("the per-class launches", per)]
+    if grid:
+        outs.append((f"{grid} blocks", classes_direct(
+            fresh_slabs(n), a_dense, b_dense, plan, grid, precision)))
+    for label, got in outs:
+        if not bits_equal(one, got):
+            raise AssertionError(f"{what} {key}: one launch and {label} "
+                                 "differ")
+    if not (bool(torch.isnan(one[0][rows:]).all())
+            and bool((one[1][rows:] == 7).all())):
+        raise AssertionError(f"{what} {key}: wrote past the classes' rows")
+    cases = 1 + len(outs)
+    del per, outs
+    want = fresh_slabs(n)
+    st.classes_call_plain(*want, a_dense, b_dense, plan, precision)
+    mag = fresh_slabs(n, 0.0)
+    st.classes_call_plain(*mag, a_dense.abs(), b_dense.abs(), plan)
+    err = 0.0
+    for lo in range(0, rows, 8192):         # bounded temporaries
+        sl = slice(lo, min(rows, lo + 8192))
+        err = max(err, hold((one[0][sl], one[1][sl]),
+                            (want[0][sl], want[1][sl]), mag[0][sl],
+                            f"{what} {key}", key=key))
+    worst[key] = max(worst[key], err)
+    return cases
+
+
+def plan_of(classes, class_bases):
+    """A StencilPlan of hand-made classes (t, p, ar, br, a_offs, b_offs),
+    their slab rows laid back to back from row 0 as the planners lay them;
+    no residual pair."""
+    out, row = [], 0
+    for cls, bases in zip(classes, class_bases):
+        out.append(tuple(cls[:6]) + (row,))
+        row += cls[0] * (bases.numel() // 2)
+    empty = torch.zeros(0, dtype=torch.int32, device=DEV)
+    return st.StencilPlan(
+        classes=tuple(out), class_bases=tuple(class_bases), res_pa=empty,
+        res_pb=empty, res_seg=empty, n_res_tiles=0, order=np.arange(row),
+        c_cap=max(256, -(-row // 256) * 256), n_tiles=row, coverage=1.0,
+        class_tables=st.class_tables(out, DEV),
+        plan_tables=st.plan_tables(out, class_bases, DEV))
+
+
+def engineered_classes_cases(worst, precision="highest"):
+    """The one launch over all classes on engineered plans at
+    ``precision``: ragged classes with tiles of 1/0/9/3 and of 1/70/0/3/2
+    pairs (a tile of more than a lane window of 32 pairs, one of none)
+    beside uniform ones of 9 and of 1 pair, on tiles with subnormal and
+    -0.0 entries; and the one-pass tiles' ragged and uniform classes of
+    150 tiles each (Inf, NaN, empty stages; macro_hold_ieee).  Each bit for
+    bit the per-class launches and the same entry with 2 blocks, within the
+    bound of the plain version.  Returns the count of cases."""
+    g = np.random.default_rng(73)
+    a = engineered_tiles(24, seed=71)
+    b = engineered_tiles(24, seed=72)
+    classes, bases = [], []
+    for t, p, n_steps in ((4, (1, 0, 9, 3), 3), (3, 9, 2),
+                          (5, (1, 70, 0, 3, 2), 2), (1, 1, 7)):
+        n_p = sum(st.p_list_of(t, p))
+        classes.append((t, p, 12, 12,
+                        tuple(int(x) for x in g.integers(0, 12, n_p)),
+                        tuple(int(x) for x in g.integers(0, 12, n_p))))
+        bases.append(torch.from_numpy(g.integers(
+            0, 13, 2 * n_steps).astype(np.int32)).to(DEV))
+    cases = classes_case(a, b, plan_of(classes, bases),
+                         "engineered classes 1/0/9/3, 9, 1/70/0/3/2, 1",
+                         worst, precision, grid=2)
+    a, b = onepass_tiles()
+    zeros = torch.zeros(100, dtype=torch.int32, device=DEV)
+    plan = plan_of(((3, (2, 1, 3), 4, 4, (0, 1, 2, 3, 0, 2),
+                     (0, 1, 2, 3, 0, 2)),
+                    (3, 2, 4, 4, (0, 1, 2, 3, 3, 2), (0, 1, 2, 3, 3, 2))),
+                   (zeros, zeros))
+    cases += classes_case(a, b, plan, "one-pass tiles' classes", worst,
+                          precision, hold=macro_hold_ieee, grid=2)
+    return cases
 
 
 def pairs_case(a_dense, b_dense, a_idx, b_idx, seg, c_cap, what, worst,
@@ -1813,8 +1955,9 @@ def graph_stage_case(a, b, a_idx, b_idx, seg, c_cap, precision, what):
     return int(walk[0])
 
 
-F32_MACRO_ENTRIES = ("macro_accumulate_pairs", "macro_class_ragged",
-                     "macro_class_uniform", "macro_accumulate_pairs_acc")
+F32_MACRO_ENTRIES = ("macro_accumulate_pairs", "macro_classes",
+                     "macro_class_ragged", "macro_class_uniform",
+                     "macro_accumulate_pairs_acc")
 LOWER_PRECISIONS = ("high", "default")
 
 
@@ -1906,6 +2049,7 @@ def phase_macro_kernel_check():
 
     n = engineered_class_cases(worst)
     cases += n
+    cases += engineered_classes_cases(worst)
     cases += engineered_nonfinite_cases(worst)
     cases += engineered_accumulate_cases(worst)
     cases += engineered_masks_cases()
@@ -1933,6 +2077,7 @@ def phase_macro_kernel_check():
         cases += prerounded_case(ab.dense, ab.dense, plan, a_idx, b_idx,
                                  seg, c_cap, p, worst)
         cases += engineered_class_cases(worst, p)
+        cases += engineered_classes_cases(worst, p)
         cases += engineered_nonfinite_cases(worst, p)
         cases += engineered_onepass_cases(worst, p)
     del am, ab, plan, a_idx, b_idx, seg
@@ -3275,6 +3420,65 @@ def pairs_point(a, name, n_pairs, n_tiles, precision="highest"):
         "max_abs_err": err, "pairs": n_pairs, "c_rows": c_cap}
 
 
+def stale_masks_check(a, plan, name):
+    """The masks a Macro128 operand keeps are never read stale: a zero
+    k-slab of one of A's tiles (its columns, which some pair's B tile meets
+    with non-zero rows) gets non-zero values in place, and the steady plan
+    runs again: it must make A's masks again (one masks launch, into the
+    same words, equal to masks made anew) and its C must hold against the
+    plain pair accumulation of the changed A.  The check has teeth: the
+    same multiply reading the old masks gives another C (it skips the
+    slab's products)."""
+    table = a.dense
+    kept = a.tile_masks()
+    old = mk.TableMasks(table)
+    old.words.copy_(kept.words)
+    old.ready = True
+    ptr = kept.words.data_ptr()
+    nz = table != 0
+    col = nz.any(1).view(-1, 4, 32).any(2)      # A's column slabs
+    row = nz.any(2).view(-1, 4, 32).any(2)      # B's row slabs
+    _np, n_tiles, (_r, _c, a_idx, b_idx, _seg) = macro_pairs(a, a)
+    pa, pb = a_idx[:_np].long(), b_idx[:_np].long()
+    q, s = (int(x) for x in torch.nonzero(~col[pa] & row[pb])[0])
+    t = int(pa[q])
+    g = torch.Generator(device=DEV).manual_seed(29)
+    table[t, :, 32 * s:32 * s + 32] = torch.randn(
+        (128, 32), generator=g, device=DEV)     # in place: version moves
+    reset_launch_counts()
+    out = plan.run(a, a)
+    torch.cuda.synchronize()
+    launches = nonzero(mk.LAUNCHES)
+    if launches.get("macro_tile_masks") != 1 or a.tile_masks() is not kept \
+            or kept.words.data_ptr() != ptr:
+        raise AssertionError(f"{name}: after an in-place change of A the "
+                             f"steady multiply launched {launches}; the "
+                             "kept masks were not made again in place")
+    if not torch.equal(kept.words, mk.TableMasks(table).make().words):
+        raise AssertionError(f"{name}: the kept masks differ from masks "
+                             "made anew after an in-place change")
+    err = hold_macro_output(a, plan, out, f"{name} steady output after an "
+                            "in-place change of A")[0]
+    stale = mk.TileMasks(table, table, a=old, b=old)
+    if isinstance(plan, StencilMacroPlan):
+        stale_c = st.stencil_accumulate(table, table, plan.plan,
+                                        plan.macro_chunk, plan.precision,
+                                        tile_masks=stale)[0]
+    else:
+        stale_c = M.macro_spgemm_fixed(
+            a.tile_row, a.tile_col, table, a.tile_rowptr, a.tile_col, table,
+            a.ntiles, p_cap=plan.p_cap, c_cap=plan.c_cap, chunk=plan.chunk,
+            acc_dtype=plan.acc_dtype, precision=plan.precision,
+            tile_masks=stale)[2]
+    torch.cuda.synchronize()
+    if torch.equal(stale_c, out[2]):
+        raise AssertionError(f"{name}: the old masks give the same C: the "
+                             "check cannot see a stale read")
+    return {"tile": t, "k_slab": s, "pair": q, "launches": launches,
+            "masks_made_again_in_place": True, "max_abs_err": err,
+            "stale_read_differs": True}
+
+
 def phase_macro_path(check_err, pairbands_ref, repeat=3):
     """wandering64-1M, banded64-1M and pairbands-500k through
     run_benchmark(engine="macro") at full size, and the three kernel rows,
@@ -3299,9 +3503,10 @@ def phase_macro_path(check_err, pairbands_ref, repeat=3):
                 f"{name}: C_nnz {res.c_nnz} on the interactive path, "
                 f"{steady_nnz} on the steady path")
         # interactive multiplies through the pair-stream entry, steady ones
-        # through the plan's entry; the uniform class entry has no caller
+        # through the plan's entry; the per-class entries have no caller
         if (launches[entry] <= 0 or launches["macro_accumulate_pairs"] <= 0
-                or launches["macro_class_uniform"] != 0):
+                or launches["macro_class_uniform"] != 0
+                or launches["macro_class_ragged"] != 0):
             raise AssertionError(f"{name}: launches {launches}")
         info = dict(matrix=name, engine=res.engine, n=n, nnz=coo.nnz,
                     flop=rec.flop, c_nnz=res.c_nnz, steady_c_nnz=steady_nnz,
@@ -3344,8 +3549,10 @@ def phase_macro_path(check_err, pairbands_ref, repeat=3):
         reset_launch_counts()
         res = SpGEMM(cfg)(a, a)
         interactive = dict(mk.LAUNCHES)
-        if interactive["macro_accumulate_pairs"] != 1 or \
-                sum(interactive.values()) != 1:
+        # the pair-stream entry, after the masks of A's table (one table:
+        # A @ A), which A keeps for the steady multiplies
+        if nonzero(interactive) != {"macro_accumulate_pairs": 1,
+                                    "macro_tile_masks": 1}:
             raise AssertionError(f"{name}: one interactive multiply "
                                  f"launched {interactive}")
         plan = make_plan(res, cfg, a, a)
@@ -3361,6 +3568,16 @@ def phase_macro_path(check_err, pairbands_ref, repeat=3):
         torch.cuda.synchronize()
         per_multiply = mk.LAUNCHES[entry]
         steady = dict(mk.LAUNCHES)
+        # one launch of the plan's entry (a class plan's residual pairs
+        # through the pair stream after it), reading the masks A keeps: no
+        # masks launch, no launch a class
+        want_steady = {entry: 1}
+        if isinstance(plan, StencilMacroPlan) and plan.plan.res_pa.numel():
+            want_steady["macro_accumulate_pairs"] = 1
+        if nonzero(steady) != want_steady:
+            raise AssertionError(f"{name}: one steady multiply launched "
+                                 f"{nonzero(steady)}, expected "
+                                 f"{want_steady}")
         err, n_pairs, n_tiles = hold_macro_output(
             a, plan, out, f"{name} steady output against the plain path")
         # the same plan at each lower mode: the entry the @p rows time, at
@@ -3431,33 +3648,92 @@ def phase_macro_path(check_err, pairbands_ref, repeat=3):
             def at(call, precision):
                 return lambda *x: call(*x, precision=precision)
 
-            def lower_rows(kernel, entry, replaces, call):
+            kept = mk.operand_masks(a, a)   # made by the interactive step
+
+            def one_launch(precision="highest", made_in_launch=False):
+                # the plan's class path as a steady multiply runs it: one
+                # launch over every class, reading the masks A keeps (or,
+                # made_in_launch, making them first, as the parent's first
+                # class launch did)
+                def run():
+                    masks = mk.TileMasks(a.dense, a.dense) \
+                        if made_in_launch else kept
+                    mk.classes_call(*slabs, a.dense, a.dense, sp,
+                                    precision=precision, tile_masks=masks)
+                return run
+
+            # the one launch bit for bit the per-class launches and within
+            # the bound of classes_call_plain, at this plan's full size
+            one_err = {}
+            for q in ("highest",) + LOWER_PRECISIONS:
+                held = {prec_key("macro_classes", q): 0.0}
+                classes_case(a.dense, a.dense, sp, f"{name} plan", held, q)
+                one_err[q] = max(held.values())
+            info.update(one_launch_bit_equal_to_per_class_launches=True,
+                        one_launch_max_abs_err=one_err)
+
+            def lower_rows(kernel, entry, replaces, fn_at, timed):
                 return [precision_row(
-                    kernel, entry, replaces, name,
-                    classes_through(at(call, q), q),
+                    kernel, entry, replaces, name, fn_at(q),
                     classes_through(at(plain, q)), *lib_pairs, a,
                     int(lib_pairs[0].numel()), class_rows,
-                    max(lower_err[q], check_err[prec_key(entry, q)]), q,
+                    max(lower_err[q], check_err[prec_key(entry, q)],
+                        one_err[q]), q,
                     {"classes": len(sp.classes), "timed": timed})
                     for q in LOWER_PRECISIONS]
 
-            timed = ("the plan's class launches, one after another: the "
-                     "class path of one steady multiply")
+            timed = ("the plan's class launches, one after another, the "
+                     "masks made in the first (the parent's class path of "
+                     "one steady multiply)")
+            timed_one = ("one launch over every class of the plan, reading "
+                         "the masks A keeps: the class path of one steady "
+                         "multiply")
             if name == "wandering64-1M":
                 k4_wandering = {q: pairs_point(a, name, n_pairs, n_tiles, q)
                                 for q in ("highest",) + LOWER_PRECISIONS}
+                rows_out.append(macro_row(
+                    "macro_classes",
+                    "pem_spgemm_tpu/ops/pallas_stencil.py:309", name,
+                    one_launch(), classes_through(plain),
+                    lib_pairs, a, int(lib_pairs[0].numel()), class_rows,
+                    launches[entry], per_multiply,
+                    max(err, check_err["macro_classes"], one_err["highest"]),
+                    {"classes": len(sp.classes), "timed": timed_one,
+                     "loop_replaced": "pem_spgemm_tpu/ops/pallas_stencil.py"
+                                      ":581-600 (one class_call2 a class)",
+                     "masks_in_launch_ms": time_ms(one_launch(
+                         made_in_launch=True)),
+                     "per_class_launches_ms": time_ms(
+                         classes_through(ragged)),
+                     **tc_fields(a, "PlanTiles"),
+                     "masks_covers": "macro_tile_masks_f32 over A's table: "
+                                     "made once an operand "
+                                     "(MacroMatrix.tile_masks), in no "
+                                     "steady multiply; inside "
+                                     "masks_in_launch_ms",
+                     "ptxas_one_pass": ptxas_entries(
+                         "macro_accumulate", "macro_ws_kernel",
+                         "PlanTiles")}))
+                rows_out += lower_rows(
+                    "K5", "macro_classes",
+                    "pem_spgemm_tpu/ops/pallas_stencil.py:309",
+                    lambda q: one_launch(q), timed_one)
                 rows_out.append(macro_row(
                     "macro_class_ragged",
                     "pem_spgemm_tpu/ops/pallas_stencil.py:309", name,
                     classes_through(ragged), classes_through(plain),
                     lib_pairs, a, int(lib_pairs[0].numel()), class_rows,
-                    launches[entry], per_multiply,
+                    launches["macro_class_ragged"], 0,
                     max(err, check_err["macro_class_ragged"]),
                     dict(classes=len(sp.classes), timed=timed,
+                         caller="none on the path: one launch a class, "
+                                "the counterpart of class_call2, held bit "
+                                "for bit to macro_classes",
                          **tc_fields(a, "ClassTilesILb1E"))))
                 rows_out += lower_rows(
-                    "K5", "macro_class_ragged",
-                    "pem_spgemm_tpu/ops/pallas_stencil.py:309", ragged)
+                    "K5 (one class a launch)", "macro_class_ragged",
+                    "pem_spgemm_tpu/ops/pallas_stencil.py:309",
+                    lambda q: classes_through(at(ragged, q), q), timed)
             elif uniform:
                 # the uniform entry has no caller on the path: its rows are
                 # timed on these classes beside the ragged entry, and both
@@ -3487,7 +3763,8 @@ def phase_macro_path(check_err, pairbands_ref, repeat=3):
                 rows_out += lower_rows(
                     "K6", "macro_class_uniform",
                     "pem_spgemm_tpu/ops/pallas_stencil.py:118",
-                    uniform_entry)
+                    lambda q: classes_through(at(uniform_entry, q), q),
+                    timed)
             del slabs, lib_pairs
         else:
             _np, _nt, (_r, _c, a_idx, b_idx, seg) = macro_pairs(a, a)
@@ -3504,6 +3781,11 @@ def phase_macro_path(check_err, pairbands_ref, repeat=3):
                     k4_wandering["highest"]["max_abs_err"]),
                 {"c_tiles": n_tiles, "p_cap": int(a_idx.numel()),
                  "at_wandering64-1M": k4_wandering["highest"],
+                 "steady_ms": time_ms(lambda: mk.accumulate_macro_pairs(
+                     a.dense, a.dense, a_idx, b_idx, seg, plan.c_cap,
+                     tile_masks=mk.operand_masks(a, a))),
+                 "steady_covers": "the launch as MacroPlan.run makes it: "
+                                  "the masks A keeps read, none made",
                  **tc_fields(a, "StreamTiles")}))
             for q in LOWER_PRECISIONS:
                 rows_out.append(precision_row(
@@ -3522,6 +3804,8 @@ def phase_macro_path(check_err, pairbands_ref, repeat=3):
                     {"c_tiles": n_tiles, "p_cap": int(a_idx.numel()),
                      "at_wandering64-1M": k4_wandering[q]}))
             del a_idx, b_idx, seg
+        if name in ("wandering64-1M", "pairbands-500k"):
+            info["stale_masks_check"] = stale_masks_check(a, plan, name)
         emit("macro_path", **info)
         del a, plan
         torch.cuda.empty_cache()
@@ -3873,13 +4157,17 @@ def phase_f64_path(coo_pl, want_pl):
                                  f"{want_nnz}")
         if res.vals.dtype != torch.float64:
             raise AssertionError(f"{name} f64: values {res.vals.dtype}")
+        masks = "macro_tile_masks_f64" if engine == "macro" else None
         if entry is None:
             if res.engine != "element" or res.binned is not None \
                     or any(launches.values()):
                 raise AssertionError(f"{name} f64: not the merge engine "
                                      f"({res.engine}, {launches})")
         elif launches[entry] <= 0 or any(
-                v for k, v in launches.items() if k != entry):
+                v for k, v in launches.items() if k not in (entry, masks)) \
+                or launches.get(masks, 0) >= launches[entry]:
+            # a macro multiply's operands keep their masks: the masks entry
+            # runs once an operand, fewer times than the multiplies
             raise AssertionError(f"{name} f64: launches {launches}")
         c = res.to_coo()
         del res
@@ -3941,7 +4229,11 @@ def f64_per_multiply(a, engine, entry):
         counted.append({**path_launches(ss.LAUNCHES), **dict(dk.LAUNCHES),
                         **dict(mk.LAUNCHES)})
     for what, got in zip(("interactive", "steady"), counted):
-        if got[entry] <= 0 or any(v for k, v in got.items() if k != entry):
+        # an interactive macro multiply first makes the masks of A's table
+        # (A @ A: one), which A keeps: a steady one makes none
+        masks = {"macro_tile_masks_f64": 1} \
+            if what == "interactive" and engine == "macro" else {}
+        if got[entry] <= 0 or nonzero(got) != {entry: got[entry], **masks}:
             raise AssertionError(f"{entry}: one {what} multiply launched "
                                  f"{got}")
     torch.cuda.empty_cache()
@@ -4066,11 +4358,18 @@ def f64_macro_row(info, check_err):
     skipped = f64_skipped_share(a.dense, a.dense, a_idx[:n_pairs],
                                 b_idx[:n_pairs])
     ms = time_ms(fn, 3)
+    steady_ms = time_ms(lambda: mk.accumulate_macro_pairs(
+        a.dense, a.dense, a_idx, b_idx, seg, c_cap,
+        tile_masks=mk.operand_masks(a, a)), 3)
     return {
         "name": entry, "route": "cuda", "source": MACRO_SOURCE,
         "replaces": "pem_spgemm_tpu/ops/pallas_macro2.py:232",
         "launches": info["launches"], "max_abs_err": max(err,
                                                          check_err[entry]),
+        "steady_ms": steady_ms,
+        "steady_covers": "the launch as MacroPlan.run makes it: the masks "
+                         "A keeps read, no masks pre-pass in the launch; "
+                         "ms makes them in the launch",
         "ms": ms, "plain_ms": time_ms(plain, 1),
         "bound_ms": max(b_o, b_b) * 1e3,
         "bound_by": "operations" if b_o >= b_b else "bytes",
@@ -5582,7 +5881,7 @@ def phase_bf16_path(coo_pl):
             del a, wide, want, got, bound
         else:
             if launches.get("macro_accumulate_pairs", 0) <= 0 or \
-                    launches.get("macro_class_ragged", 0) <= 0:
+                    launches.get("macro_classes", 0) <= 0:
                 raise AssertionError(f"{what}: launches {launches}")
             c = res.to_coo()
             pick = sample_rows(coo.shape[0])
@@ -6660,7 +6959,7 @@ def phase_precision_path(check_err=None):
                             f"{name} at {q}")
 
     precision_runs(coo, name, SpGEMMConfig(engine="macro"), sampled,
-                   "macro_class_ragged")
+                   "macro_classes")
     # the macro ring: one 4-rank plan, each rank replayed at each precision
     m = coo_to_macro(coo)
     n = SHARDED_RANKS
@@ -6747,7 +7046,7 @@ def phase_precision_path(check_err=None):
     for q in LOWER_PRECISIONS:
         got = PRECISION_LAUNCHES[q]
         if not (got.get("macro_accumulate_pairs") and
-                got.get("macro_class_ragged") and
+                got.get("macro_classes") and
                 got.get("macro_accumulate_pairs_acc") and
                 got.get("macro_tile_masks") and
                 got.get("macro_stream_walk") and
@@ -6783,12 +7082,12 @@ AAT_RUNS = (
      "auto", "dia", (("dia_multiply_pairs",),)),
     ("wandering64-1M", MACRO_MATRICES["wandering64-1M"], "macro", "macro",
      (("macro_accumulate_pairs",),
-      ("macro_class_ragged", "macro_accumulate_pairs"))),
+      ("macro_classes", "macro_accumulate_pairs"))),
 )
 # the kernels A.A^T must reach on the card, over the whole phase
 AAT_KERNELS = (("segment_dedup",), ("dia_multiply_dense",),
                ("dia_multiply_pairs",),
-               ("macro_accumulate_pairs", "macro_class_ragged"))
+               ("macro_accumulate_pairs", "macro_classes"))
 
 
 def phase_aat_path(repeat=3):
@@ -6840,8 +7139,8 @@ def phase_aat_path(repeat=3):
                              product_rows(coo, pick, aat=True),
                              f"{what} sampled rows", ulp=0.0)
             info.update(steady_c_nnz=steady_nnz,
-                        steady_entry=("macro_class_ragged" if launches.get(
-                            "macro_class_ragged", 0) else
+                        steady_entry=("macro_classes" if launches.get(
+                            "macro_classes", 0) else
                             "macro_accumulate_pairs"),
                         checked_against=f"scipy, {len(pick):,} sampled rows")
         else:
@@ -7103,12 +7402,13 @@ def main():
             row["launches"] += sum(row["launches_by_path"].values())
     for row in kernels:
         # the uniform class entry has no caller on any path (nor has the
-        # kernel it replaces in the JAX package), nor has the row-copy
-        # probe: each is held against its plain version (the uniform entry
-        # also against the ragged one) and reports its count from the path
-        # runs as measured, 0 today
+        # kernel it replaces in the JAX package), the ragged one none since
+        # a plan's classes run as one launch (macro_classes), nor has the
+        # row-copy probe: each is held against its plain version (the class
+        # entries also against each other and the one launch) and reports
+        # its count from the path runs as measured, 0 today
         if row["launches"] <= 0 and row["name"].split("@")[0] not in (
-                "macro_class_uniform", "row_copy"):
+                "macro_class_ragged", "macro_class_uniform", "row_copy"):
             raise AssertionError(f"{row['name']} was never launched on "
                                  "the main path")
     emit("total", seconds=time.perf_counter() - t_start)

@@ -34,13 +34,16 @@ today's.
       the WS_CUTS builds at both (one piece of the one-pass pipeline cut
       out; timed only); with the share of the slabs the masks call
       non-zero (``slabs_run_share``);
-  k5  the ragged class entry over wandering64-1M's class launches (one
-      steady multiply's, the first computing the masks the others read):
-      this build's, its launches alone (masks made beforehand), the masks
-      entry alone, the NO_SLAB_SKIP build and the baseline's, their slabs
-      bit for bit equal, the no_mark cut, this build at "highest" and,
-      with the baseline's, at "high" and "default" (each held against the
-      plain version at the precision, flags equal to "highest"'s) and the WS_CUTS builds at
+  k5  the ragged class entry over wandering64-1M's class launches (the
+      parent's steady multiply, the first computing the masks the others
+      read): this build's, its launches alone (masks made beforehand), the
+      masks entry alone, the NO_SLAB_SKIP build and the baseline's, and
+      every class in one launch (macro_classes_f32, at each precision,
+      with the masks made beforehand as a steady multiply reads them, and
+      at "highest" also making them), their slabs bit for bit equal, the
+      no_mark cut, this build at "highest" and, with the baseline's, at
+      "high" and "default" (each held against the plain version at the
+      precision, flags equal to "highest"'s) and the WS_CUTS builds at
       both, timed in turns, with the class pairs' slab share;
       with --dense-tiles, k4 and k5 run on the same streams and classes
       with every entry of the table made non-zero (``densify``: every slab
@@ -116,6 +119,7 @@ import os
 import re
 import shutil
 import sys
+import types
 
 import torch
 
@@ -392,6 +396,10 @@ def declare_macro(kind: str):
     """mk._declare for a baseline of interface ``kind``."""
     def declare(lib):
         if kind == "current":
+            if not hasattr(lib, "macro_classes_f32"):
+                # a source before the one launch over a plan's classes
+                # (b01afac and before): nothing calls the entry it lacks
+                lib.macro_classes_f32 = types.SimpleNamespace()
             mk._declare(lib)
             return
         _declare_v18(lib)
@@ -818,8 +826,37 @@ def case_k5(base, dense=False):
                                 else mask_args(table, i > 0)), stream), key)
         return run
 
+    # every class in one launch (macro_classes_f32, as a steady multiply
+    # runs the class path since it took the place of the launches a class)
+    ab_all, p_ptr_all, ao_all, bo_all, desc, n_rows = sp.plan_tables
+    desc_flat = desc.reshape(-1)
+    one_ticket = torch.zeros(1, dtype=torch.int32, device="cuda")
+
+    def one_launch(key, precision, slab, ready=True):
+        if slab not in slabs:
+            slabs[slab] = (
+                torch.full((rows, 128, 128), float("nan"), device="cuda"),
+                torch.full((rows, 128, 128), 7, dtype=torch.uint8,
+                           device="cuda"))
+        num, flag = slabs[slab]
+
+        def run():
+            one_ticket.zero_()
+            checked(cur.macro_classes_f32(
+                a.dense.data_ptr(), a.dense.data_ptr(), ab_all.data_ptr(),
+                p_ptr_all.data_ptr(), ao_all.data_ptr(), bo_all.data_ptr(),
+                len(desc), desc_flat.ctypes.data, n_rows, num.data_ptr(),
+                flag.data_ptr(), M.precision_code(precision), sms,
+                one_ticket.data_ptr(), *(mask_args(made, True) if ready
+                                         else mask_args(table, False)),
+                stream), key)
+        return run
+
     fns = {"current": classes(cur, "current", "current", "highest",
                               "current"),
+           "one_launch": one_launch("one_launch", "highest", "one_launch"),
+           "one_launch_masks": one_launch("one_launch_masks", "highest",
+                                          "one_launch_masks", ready=False),
            "launch_alone": classes(cur, "current", "launch_alone",
                                    "highest", "launch_alone", ready=True),
            "masks": lambda: checked(cur.macro_tile_masks_f32(
@@ -832,6 +869,8 @@ def case_k5(base, dense=False):
         fns[cut] = classes(libs[cut], "current", cut, "highest", "cut")
     for p in lower:
         fns[p] = classes(cur, "current", p, p, p)
+        fns[f"one_launch@{p}"] = one_launch(f"one_launch@{p}", p,
+                                            f"one_launch@{p}")
         for cut in ws_cuts:
             fns[f"{cut}@{p}"] = classes(libs[cut], "current", cut, p, "cut")
     if base_lib is not None:
@@ -847,13 +886,22 @@ def case_k5(base, dense=False):
     torch.cuda.synchronize()
     equal = {}
     ref = (slabs["current"][0].view(torch.int32), slabs["current"][1])
-    for k in ("launch_alone", "no_slab_skip", "baseline"):
+    for k in ("launch_alone", "no_slab_skip", "baseline", "one_launch",
+              "one_launch_masks"):
         if k in slabs:
             equal[k] = same_as(ref, slabs[k])
             if not equal[k]:
                 raise AssertionError(f"K5: {k} and the current entry differ "
                                      "on wandering64-1M")
-    held = [k for k in slabs if k in lower or k.startswith("baseline@")]
+    for p in lower:                 # one launch: the launches a class' bits
+        equal[f"one_launch@{p}"] = same_as(
+            (slabs[p][0].view(torch.int32), slabs[p][1]),
+            slabs[f"one_launch@{p}"])
+        if not equal[f"one_launch@{p}"]:
+            raise AssertionError(f"K5 at {p}: one launch and the launches "
+                                 "a class differ on wandering64-1M")
+    held = [k for k in slabs if k in lower or k.startswith("baseline@")
+            or k.startswith("one_launch@")]
     flags_equal = {k: torch.equal(slabs[k][1], slabs["current"][1])
                    for k in held}
     if not all(flags_equal.values()):
@@ -888,7 +936,10 @@ def case_k5(base, dense=False):
          slabs_run=run, slabs=n_slabs, slabs_run_share=run / n_slabs,
          timed="current: the 25 launches, the first computing the masks; "
                "launch_alone: with masks made; masks: the masks entry "
-               "alone; CUDA events, in turns")
+               "alone; one_launch: every class in one launch "
+               "(macro_classes_f32), masks made (a steady multiply's class "
+               "path); one_launch_masks: the same making the masks first; "
+               "CUDA events, in turns")
 
 
 def class_pairs(sp):
@@ -1343,16 +1394,23 @@ def case_k4f64(base):
                         device="cuda")
     need = torch.empty(a_idx.numel(), dtype=torch.uint8, device="cuda")
 
-    def launch(lib, k):
+    made = mk.TableMasks(a.dense).make().words
+
+    def launch(lib, k, ready_masks=False):
         kind = base_kind if k == "baseline" else "current"
-        ready = (0, 0) if kind == "current" else ()
+        ready = ((1, 1) if ready_masks else (0, 0)) if kind == "current" \
+            else ()
+        table = made if ready_masks else masks
         fresh = (0, None) if kind == "current" else (0,) if kind == "v18" \
             else ()
         return lambda: checked(lib.macro_accumulate_pairs_f64(
-            *ptrs, n_t, n_t, a_idx.numel(), masks.data_ptr(),
-            masks.data_ptr(), *ready, need.data_ptr(), *fresh, stream), k)
+            *ptrs, n_t, n_t, a_idx.numel(), table.data_ptr(),
+            table.data_ptr(), *ready, need.data_ptr(), *fresh, stream), k)
 
     fns = {k: launch(lib, k) for k, lib in libs.items()}
+    # the launch as a steady multiply makes it: the masks A keeps read, no
+    # masks pre-pass in the launch
+    fns["launch_alone"] = launch(libs["current"], "launch_alone", True)
     over = {}
     for k, fn in fns.items():
         num.fill_(float("nan"))

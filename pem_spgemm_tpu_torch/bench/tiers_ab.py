@@ -57,6 +57,15 @@ CASES = {
                            "auto", "float64", 2),
     "wandering64-1M macro": ("wandering_device", dict(n=999_936, seed=4),
                              "macro", "float32", 3),
+    # the steady class path at the lower modes, and the float64 pair stream
+    "wandering64-1M macro high": ("wandering_device", dict(n=999_936,
+                                                           seed=4),
+                                  "macro", "float32", 3, "high"),
+    "wandering64-1M macro default": ("wandering_device", dict(n=999_936,
+                                                              seed=4),
+                                     "macro", "float32", 3, "default"),
+    "wandering64-1M macro f64": ("wandering_device", dict(n=999_936, seed=4),
+                                 "macro", "float64", 3),
     "banded64-1M macro": ("banded_device", dict(n=1_000_000, seed=1,
                                                 bands=list(range(-32, 32))),
                           "macro", "float32", 3),

@@ -1039,7 +1039,8 @@ __device__ __forceinline__ unsigned slabs_needed(const unsigned (&mw)[10]) {
 
 // The tiles of the pair-stream entry: tile tk is C row tk, its pairs
 // [seg_ptr[tk], seg_ptr[tk + 1]) of (a_idx, b_idx).  Every Tiles gives
-// `resolved()`, the copy the producer walks with, and LISTED, whether the
+// `resolved()`, the copy the producer walks with (PlanTiles is walked in
+// place: WalkOf), and LISTED, whether the
 // C row of a ticket is read from memory (the Issuer then reads it a tile
 // ahead).
 struct StreamTiles {
@@ -1141,6 +1142,72 @@ struct ClassTiles {
         return base + tk;
     }
     __device__ __forceinline__ ClassTiles resolved() const { return *this; }
+};
+
+// The tiles of a whole plan's classes in one launch: the planners lay the
+// classes' slab rows back to back from row 0 (ops/stencil.py
+// _finish_plan), so ticket tk is slab row tk.  Its class is the last whose
+// first ticket is at most tk (a binary search over the descriptors, which
+// the launch carries by value, so that no claim waits on a global load
+// for them); within the class it is ClassTiles' tile (step, tt) of the
+// plan's concatenated tables: the class's steps from `step` in ab_bases,
+// its p_ptr from `ptr`, rebased so that it indexes the concatenated
+// a_offs / b_offs directly.  Uniform classes come as ragged ones.
+constexpr int PLAN_MAX_CLASSES = 32;        // ops/stencil.py MAX_CLASSES_R
+
+struct PlanClass {
+    int first, t, step, ptr;
+};
+
+struct PlanTiles {
+    static constexpr bool LISTED = false;
+    const int* ab_bases;
+    const int* p_ptr;
+    const int* a_offs;
+    const int* b_offs;
+    const unsigned* masks_a;
+    const unsigned* masks_b;
+    int* next;
+    int n_tiles;
+    int n_classes;
+    PlanClass cls[PLAN_MAX_CLASSES];
+    __device__ __forceinline__ void range(int tk, int& lo, int& hi, int& a0,
+                                          int& b0) const {
+        lo = hi = a0 = b0 = 0;
+        if (tk < n_tiles) {
+            int c = 0;
+#pragma unroll
+            for (int s = PLAN_MAX_CLASSES / 2; s > 0; s >>= 1)
+                if (c + s < n_classes && cls[c + s].first <= tk) c += s;
+            const PlanClass pc = cls[c];
+            const int k = tk - pc.first, step = k / pc.t, tt = k - step * pc.t;
+            lo = p_ptr[pc.ptr + tt];
+            hi = p_ptr[pc.ptr + tt + 1];
+            a0 = ab_bases[2 * (pc.step + step)];
+            b0 = ab_bases[2 * (pc.step + step) + 1];
+        }
+    }
+    __device__ __forceinline__ void tiles(int q, int& ta, int& tb) const {
+        ta = a_offs[q];
+        tb = b_offs[q];
+    }
+    __device__ __forceinline__ long long row(int tk) const { return tk; }
+};
+
+// The walk a block runs: `launched.resolved()`, a copy; PlanTiles is read
+// where the launch put it (its descriptors, indexed at run time, would make
+// a copy live in local memory), so it needs no resolved().
+template <class Tiles>
+struct WalkOf {
+    const Tiles w;
+    __device__ __forceinline__ explicit WalkOf(const Tiles& launched)
+        : w(launched.resolved()) {}
+};
+template <>
+struct WalkOf<PlanTiles> {
+    const PlanTiles& w;
+    __device__ __forceinline__ explicit WalkOf(const PlanTiles& launched)
+        : w(launched) {}
 };
 
 // The issue cursor, in producer warp 0 (its lanes hold the same scalars):
@@ -1312,7 +1379,8 @@ __device__ __forceinline__ void ws_producer(WsShared<P>& sh,
                                             const Tiles& launched) {
     constexpr int R = Ws<P>::RAW, S = Ws<P>::OPS;
     const int t = threadIdx.x, warp = t >> 5, l = t & 31;
-    const Tiles w = launched.resolved();
+    const WalkOf<Tiles> walk(launched);
+    const Tiles& w = walk.w;
     Issuer<Tiles> is;
     if (warp == 0) {
         is.start(w);
@@ -1450,7 +1518,8 @@ __device__ __forceinline__ void ws_consumer(WsShared<P>& sh,
 template <Prec P, class Tiles, bool ACC = false>
 __global__ void __launch_bounds__(WS_THREADS, 1)
 macro_ws_kernel(const float* __restrict__ a_dense,
-                const float* __restrict__ b_dense, const Tiles w,
+                const float* __restrict__ b_dense,
+                const __grid_constant__ Tiles w,
                 float* __restrict__ c_num,
                 unsigned char* __restrict__ c_flag) {
     constexpr int R = Ws<P>::RAW, S = Ws<P>::OPS;
@@ -1506,13 +1575,15 @@ constexpr int TC_INFO = 4;                  // stages n .. n + 3 in flight
 template <class Tiles, bool ACC>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 macro_tc_kernel(const float* __restrict__ a_dense,
-                const float* __restrict__ b_dense, const Tiles launched,
+                const float* __restrict__ b_dense,
+                const __grid_constant__ Tiles launched,
                 float* __restrict__ c_num,
                 unsigned char* __restrict__ c_flag) {
     __shared__ StageInfo info[TC_INFO];
     TcShared& sh = tc_shared();
     const bool issuer = threadIdx.x < 32;
-    const Tiles w = launched.resolved();
+    const WalkOf<Tiles> walk(launched);
+    const Tiles& w = walk.w;
     Issuer<Tiles> is;
     if (issuer) {
         is.start(w);
@@ -2303,6 +2374,42 @@ extern "C" int macro_class_uniform_f32(
                                    c_flag, precision, grid, next, masks_a,
                                    masks_b, n_a, n_b, ready_a, ready_b,
                                    stream);
+}
+
+// Every class of a plan in one launch (PlanTiles): slab rows [0, n_tiles)
+// of c_num / c_flag are written whole, row tk by the class whose rows hold
+// it.  `classes` is a host array of 4 ints a class, in slab order: its
+// first slab row (ascending, the first 0), its tiles a step t, its first
+// step in ab_bases (2 ints a step) and its first entry in p_ptr (t + 1
+// entries a class, each giving positions in the concatenated a_offs /
+// b_offs).  At most PLAN_MAX_CLASSES classes.  grid, next and the masks as
+// in the pair-stream entry.
+extern "C" int macro_classes_f32(
+        const float* a_dense, const float* b_dense, const int* ab_bases,
+        const int* p_ptr, const int* a_offs, const int* b_offs,
+        int n_classes, const int* classes, int n_tiles, float* c_num,
+        unsigned char* c_flag, int precision, int grid, int* next,
+        unsigned* masks_a, unsigned* masks_b, int n_a, int n_b, int ready_a,
+        int ready_b, cudaStream_t stream) {
+    if (n_tiles <= 0) return (int)cudaSuccess;
+    if (n_classes <= 0 || n_classes > PLAN_MAX_CLASSES || classes == nullptr)
+        return (int)cudaErrorInvalidValue;
+    PlanTiles w{ab_bases, p_ptr, a_offs, b_offs, masks_a, masks_b, next,
+                n_tiles, n_classes, {}};
+    for (int c = 0; c < n_classes; ++c) {
+        w.cls[c] = PlanClass{classes[4 * c], classes[4 * c + 1],
+                             classes[4 * c + 2], classes[4 * c + 3]};
+        if (w.cls[c].t <= 0 || (c == 0 && w.cls[c].first != 0)
+                || (c > 0 && w.cls[c].first < w.cls[c - 1].first)
+                || w.cls[c].first >= n_tiles)
+            return (int)cudaErrorInvalidValue;
+    }
+    return (int)with_prec(precision, [&](auto tag) {
+        constexpr Prec P = decltype(tag)::value;
+        return launch_tiles<P, PlanTiles, false>(
+            a_dense, b_dense, w, grid, n_a, n_b, ready_a, ready_b, c_num,
+            c_flag, stream);
+    });
 }
 
 // The float64 pair stream: c_num (c_cap, 128, 128) f64 and c_flag

@@ -65,6 +65,27 @@ class MacroMatrix:
         (``formats.coo.widened``)."""
         return widened(self, "_acc_cache", self.dense)
 
+    def tile_masks(self):
+        """The k-masks of ``acc_dense()`` (``ops.macro_kernels.TableMasks``,
+        made): made at first use and kept here, so that a steady multiply
+        reads them and launches no masks entry.  Masks depend on the
+        values, so they are never read stale: where the table changed in
+        place since they were made (its version counter moved; a bfloat16
+        operand's float32 copy is refreshed by ``acc_dense`` first), they
+        are made again into the same words, which keep their address.  On
+        CPU tables they hold ``tile_masks_plain``'s words, which no plain
+        version reads."""
+        from pem_spgemm_tpu_torch.ops.macro_kernels import TableMasks
+        table = self.acc_dense()
+        held = getattr(self, "_masks_cache", None)
+        if held is None or held[0] is not table:
+            held = [table, table._version, TableMasks(table).make()]
+            object.__setattr__(self, "_masks_cache", held)
+        elif held[1] != table._version:
+            held[2].make()
+            held[1] = table._version
+        return held[2]
+
 
 def macro_operands(a, b):
     """(A, B) as MacroMatrix: operands that are not already (Tile16

@@ -74,7 +74,8 @@ def stencil_plan_from_numpy(d: dict, device=None):
     """ops.stencil.StencilPlan from a dict of the JAX package's StencilPlan
     fields (``classes`` tuples, ``class_bases`` a list of arrays); the class
     kernels' tables are rebuilt for ``device``."""
-    from pem_spgemm_tpu_torch.ops.stencil import StencilPlan, class_tables
+    from pem_spgemm_tpu_torch.ops.stencil import (StencilPlan, class_tables,
+                                                  plan_tables)
     dev = resolve_device(device)
     classes = tuple(
         (int(t), int(p) if np.ndim(p) == 0 else tuple(int(x) for x in p),
@@ -87,7 +88,8 @@ def stencil_plan_from_numpy(d: dict, device=None):
         res_seg=_t(d["res_seg"], dev), n_res_tiles=int(d["n_res_tiles"]),
         order=np.asarray(d["order"], np.int64), c_cap=int(d["c_cap"]),
         n_tiles=int(d["n_tiles"]), coverage=float(d["coverage"]),
-        class_tables=class_tables(classes, dev))
+        class_tables=class_tables(classes, dev),
+        plan_tables=plan_tables(classes, d["class_bases"], dev))
 
 
 def element_plan_from_numpy(d: dict):

@@ -287,12 +287,18 @@ class StencilMacroPlan:
         return out[4]
 
     def run(self, a, b):
+        """One steady multiply: on the card one class launch over all of
+        the plan's classes, then the residual pairs, both reading the
+        masks the operands keep (``MacroMatrix.tile_masks``: no masks
+        launch while the operands are unchanged)."""
         from pem_spgemm_tpu_torch.ops.macro import macro_structure
+        from pem_spgemm_tpu_torch.ops.macro_kernels import operand_masks
         from pem_spgemm_tpu_torch.ops.stencil import stencil_accumulate
         am, bm = macro_operands(a, b)
         c_dense, c_flags = stencil_accumulate(am.acc_dense(), bm.acc_dense(),
                                               self.plan, self.macro_chunk,
-                                              self.precision)
+                                              self.precision,
+                                              operand_masks(am, bm))
         cptr = macro_structure(c_flags)
         return (self.c_tile_row, self.c_tile_col, c_dense, c_flags, cptr,
                 cptr[-1], torch.zeros((), dtype=torch.bool,
@@ -320,15 +326,18 @@ class MacroPlan:
 
     def run(self, a, b):
         """(c_tile_row, c_tile_col, c_dense, c_flags, cptr, c_nnz,
-        overflow), with no device-to-host copy."""
+        overflow), with no device-to-host copy; the pair-stream launch
+        reads the masks the operands keep (``MacroMatrix.tile_masks``)."""
         from pem_spgemm_tpu_torch.ops.macro import macro_spgemm_fixed
+        from pem_spgemm_tpu_torch.ops.macro_kernels import operand_masks
         am, bm = macro_operands(a, b)
         return macro_spgemm_fixed(
             am.tile_row, am.tile_col, am.acc_dense(),
             bm.tile_rowptr, bm.tile_col, bm.acc_dense(), am.ntiles,
             p_cap=self.p_cap, c_cap=self.c_cap, chunk=self.chunk,
             acc_dtype=self.acc_dtype, precision=self.precision,
-            packed_coords=am.n_macro_rows < (1 << 15))
+            packed_coords=am.n_macro_rows < (1 << 15),
+            tile_masks=operand_masks(am, bm))
 
 
 def _try_stencil_plan(config, a, b):

@@ -131,13 +131,15 @@ def macro_spgemm_fixed(a_tile_row, a_tile_col, a_dense,
                        b_tile_rowptr, b_tile_col, b_dense, ntiles_a: int, *,
                        p_cap: int, c_cap: int, chunk: int,
                        acc_dtype=torch.float32, precision: str = "highest",
-                       packed: bool = True, packed_coords: bool = False):
+                       packed: bool = True, packed_coords: bool = False,
+                       tile_masks=None):
     """The macro SpGEMM at fixed capacities, without size feedback (no
     device-to-host copy: every size stays a device scalar).
 
     The accumulation goes through ``macro_kernels.accumulate_macro_pairs``:
     the hand-written pair-stream kernel for CUDA tensors, ``accumulate_macro``
-    for CPU tensors.  Returns (c_tile_row, c_tile_col, c_dense, c_flags,
+    for CPU tensors, reading ``tile_masks`` (the tables' ``TileMasks``, as
+    there) where given.  Returns (c_tile_row, c_tile_col, c_dense, c_flags,
     cptr, c_nnz, overflow); ``overflow`` True means a capacity was exceeded
     and the result is truncated: re-plan with larger caps (the harness does).
     """
@@ -151,7 +153,7 @@ def macro_spgemm_fixed(a_tile_row, a_tile_col, a_dense,
         n_pairs, p_cap, packed)
     c_dense, c_flags = accumulate_macro_pairs(
         a_dense, b_dense, a_idx, b_idx, c_tile_id, c_cap, chunk=chunk,
-        acc_dtype=acc_dtype, precision=precision)
+        acc_dtype=acc_dtype, precision=precision, tile_masks=tile_masks)
     c_tile_row, c_tile_col = cstruct.c_tile_coords(
         c_tile_id, c_row, c_col, c_cap, packed_coords)
     cptr = macro_structure(c_flags)

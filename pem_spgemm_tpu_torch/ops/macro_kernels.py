@@ -1,7 +1,7 @@
 """Macro128 accumulation kernels: wrappers of csrc/macro_accumulate.cu.
 
 Counterpart of the JAX package's ops/pallas_macro2.py and of the kernel
-half of its ops/pallas_stencil.py.  Four entries, one CUDA source (built
+half of its ops/pallas_stencil.py.  These entries, one CUDA source (built
 with nvcc at first use and bound with ctypes by ops/_build.py):
 
   accumulate_macro_pairs   a pair stream sorted by C tile:
@@ -12,6 +12,10 @@ with nvcc at first use and bound with ctypes by ops/_build.py):
                            residual pairs; with ``out=`` its accumulate
                            form, which adds into a C the caller holds (the
                            Macro128 ring's stages after the first);
+  classes_call             every signature class of a stencil / run plan
+                           in one launch (the stencil plan's steady
+                           multiply; the reference calls one kernel a
+                           class);
   class_call2              one signature class of a stencil / run plan, per
                            tile pair counts ragged or uniform;
   class_call               the same for uniform pair counts only (the
@@ -55,9 +59,9 @@ on the device by one small launch, no host sync).
 Dispatch is by the tensors' device and nothing else: CUDA tensors launch
 the kernel (or raise, if the build or the launch fails); CPU tensors take
 the plain PyTorch version (``ops.macro.accumulate_macro``,
-``ops.stencil.class_call_plain``).  ``SpGEMMConfig.use_pallas`` is not read.
-Each wrapper adds one to its entry in ``LAUNCHES`` where it launches its
-kernel, and nowhere else.
+``ops.stencil.class_call_plain``, ``ops.stencil.classes_call_plain``).
+``SpGEMMConfig.use_pallas`` is not read.  Each wrapper adds one to its
+entry in ``LAUNCHES`` where it launches its kernel, and nowhere else.
 """
 
 from __future__ import annotations
@@ -69,7 +73,8 @@ import torch
 from pem_spgemm_tpu_torch.config import precision_code
 from pem_spgemm_tpu_torch.ops import _build
 from pem_spgemm_tpu_torch.ops.macro import TILE, accumulate_macro
-from pem_spgemm_tpu_torch.ops.stencil import class_call_plain, p_list_of
+from pem_spgemm_tpu_torch.ops.stencil import (class_call_plain,
+                                              classes_call_plain, p_list_of)
 
 SOURCE = _build.cuda_source("macro_accumulate")
 F64_MASK_WORDS = 10     # the float64 entry's k-mask words a tile (the .cu's)
@@ -80,9 +85,9 @@ BIG = 2.0 ** 63         # the .cu's BIG: a float32 of this magnitude or more
 # kernel launches per entry (plain-version calls are not counted); the
 # pair-stream entries' accumulate form (``out=``) counts under its own key,
 # the masks entries (TableMasks.make) and the walk (stream_walk) under theirs
-LAUNCHES = {"macro_accumulate_pairs": 0, "macro_class_ragged": 0,
-            "macro_class_uniform": 0, "macro_accumulate_pairs_f64": 0,
-            "macro_accumulate_pairs_acc": 0,
+LAUNCHES = {"macro_accumulate_pairs": 0, "macro_classes": 0,
+            "macro_class_ragged": 0, "macro_class_uniform": 0,
+            "macro_accumulate_pairs_f64": 0, "macro_accumulate_pairs_acc": 0,
             "macro_accumulate_pairs_f64_acc": 0, "macro_tile_masks": 0,
             "macro_tile_masks_f64": 0, "macro_stream_walk": 0}
 
@@ -105,6 +110,8 @@ def _declare(lib) -> None:
     lib.macro_class_uniform_f32.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci,
                                             ll, vp, vp, ci, ci, vp, *masks,
                                             vp]
+    lib.macro_classes_f32.argtypes = [vp, vp, vp, vp, vp, vp, ci, vp, ci, vp,
+                                      vp, ci, ci, vp, *masks, vp]
     lib.macro_accumulate_pairs_f64.argtypes = [vp, vp, vp, vp, vp, vp, vp,
                                                ci, ci, ci, ci, vp, vp, ci,
                                                ci, vp, ci, vp, vp]
@@ -112,9 +119,9 @@ def _declare(lib) -> None:
     lib.macro_tile_masks_f64.argtypes = [vp, ci, vp, vp]
     lib.macro_stream_walk.argtypes = [vp, ci, ci, ci, vp, vp, vp]
     for fn in (lib.macro_accumulate_pairs_f32, lib.macro_class_ragged_f32,
-               lib.macro_class_uniform_f32, lib.macro_accumulate_pairs_f64,
-               lib.macro_tile_masks_f32, lib.macro_tile_masks_f64,
-               lib.macro_stream_walk):
+               lib.macro_class_uniform_f32, lib.macro_classes_f32,
+               lib.macro_accumulate_pairs_f64, lib.macro_tile_masks_f32,
+               lib.macro_tile_masks_f64, lib.macro_stream_walk):
         fn.restype = ci
 
 
@@ -269,10 +276,11 @@ class TileMasks:
     """The k-masks of a launch's two tables: A's and B's ``TableMasks``
     (one where the tables are one), each computed by the first launch that
     is handed them unless ready, and read by the later ones.
-    ops.stencil.stencil_accumulate hands one to all the launches of a
+    ops.stencil.stencil_accumulate hands one to both launches of a
     multiply, so the tables are read once for them; a launch without one
     computes its own.  ``a`` / ``b``: a table's masks made elsewhere (the
-    Macro128 ring's, made once a plan and carried with the chunk)."""
+    ones a Macro128 operand keeps, ``operand_masks``; the Macro128 ring's,
+    made once a plan and carried with the chunk)."""
 
     def __init__(self, a_dense, b_dense, a=None, b=None):
         self.a = a if a is not None else TableMasks(a_dense)
@@ -292,6 +300,17 @@ class TileMasks:
     def made(self):
         """After a launch: both tables' masks are made."""
         self.a.ready = self.b.ready = True
+
+
+def operand_masks(am, bm):
+    """The ``TileMasks`` of two Macro128 operands' tables (``acc_dense``)
+    from the masks each operand keeps (``MacroMatrix.tile_masks``: made
+    once, made again where the values changed), one set where B is A; None
+    on CPU tables, where no plain version reads masks."""
+    a_dense, b_dense = am.acc_dense(), bm.acc_dense()
+    if not reads_masks(a_dense):
+        return None
+    return TileMasks(a_dense, b_dense, a=am.tile_masks(), b=bm.tile_masks())
 
 
 def _mask_args(a_dense, b_dense, tile_masks):
@@ -589,4 +608,63 @@ def class_call(c_num, c_pat, a_dense, b_dense, ab_bases, t, p, ar, br,
             torch.cuda.current_stream().cuda_stream), "macro_class_uniform")
     masks.made()
     LAUNCHES["macro_class_uniform"] += 1
+    return c_num, c_pat
+
+
+PLAN_MAX_CLASSES = 32   # the .cu's: classes one launch carries by value
+
+
+def classes_call(c_num, c_pat, a_dense, b_dense, plan, *,
+                 precision: str = "highest", tile_masks=None):
+    """Every class of the stencil / run plan ``plan`` into its slab rows,
+    in place; returns (c_num, c_pat).
+
+    The classes' rows lie back to back from slab row 0, so on CUDA tiles
+    one launch of the class kernel (``macro_classes_f32``, counted as
+    ``macro_classes``) takes them all, ticket tk being slab row tk, over
+    the plan's ``plan_tables`` (built once, with the plan); each tile's
+    products run in the order a launch of its class alone runs them, so
+    the rows are those launches' bits.  CPU tiles take
+    ``ops.stencil.classes_call_plain``.  ``precision`` and ``tile_masks``
+    as in ``accumulate_macro_pairs``.  A failed build or launch raises; it
+    never falls back to a launch a class.
+    """
+    prec = precision_code(precision)
+    _check_tiles(a_dense, "a_dense")
+    dev = a_dense.device
+    for x, name in ((b_dense, "b_dense"), (c_num, "c_num"), (c_pat, "c_pat")):
+        _check_tiles(x, name, dev)
+    if c_num.dtype != torch.float32 or c_pat.dtype != torch.uint8:
+        raise TypeError("slabs must be float32 values and uint8 flags, got "
+                        f"{c_num.dtype}, {c_pat.dtype}")
+    _require_on_gpu((a_dense, b_dense), (torch.float32,))
+    if not a_dense.is_cuda:
+        return classes_call_plain(c_num, c_pat, a_dense, b_dense, plan,
+                                  precision)
+    if not plan.plan_tables:
+        raise ValueError("CUDA tiles need the plan's int32 tables "
+                         "(ops.stencil.plan_tables)")
+    ab_bases, p_ptr, ao, bo, desc, n_rows = plan.plan_tables
+    if n_rows > min(c_num.shape[0], c_pat.shape[0]):
+        raise ValueError(f"the classes' {n_rows} rows exceed the slabs")
+    if len(desc) > PLAN_MAX_CLASSES:
+        raise ValueError(f"{len(desc)} classes with rows: one launch takes "
+                         f"at most {PLAN_MAX_CLASSES}")
+    for x, name in ((ab_bases, "ab_bases"), (p_ptr, "p_ptr"),
+                    (ao, "a_offs table"), (bo, "b_offs table")):
+        _check_i32(x, name, dev)
+    if n_rows == 0:                     # nothing to launch, nothing counted
+        return c_num, c_pat
+    desc = desc.reshape(-1)             # int32, read by the entry now
+    next_tile = torch.zeros(1, dtype=torch.int32, device=dev)
+    masks, margs = _mask_args(a_dense, b_dense, tile_masks)
+    with torch.cuda.device(dev):
+        _raise_on(_library().macro_classes_f32(
+            a_dense.data_ptr(), b_dense.data_ptr(), ab_bases.data_ptr(),
+            p_ptr.data_ptr(), ao.data_ptr(), bo.data_ptr(), len(desc) // 4,
+            desc.ctypes.data, n_rows, c_num.data_ptr(), c_pat.data_ptr(),
+            prec, persistent_grid(dev), next_tile.data_ptr(), *margs,
+            torch.cuda.current_stream().cuda_stream), "macro_classes")
+    masks.made()
+    LAUNCHES["macro_classes"] += 1
     return c_num, c_pat

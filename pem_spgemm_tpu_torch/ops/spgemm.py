@@ -265,8 +265,8 @@ class SpGEMM:
         for CPU tiles); step2 = tile coordinates + the exact-nnz scan and
         its size feedback."""
         from pem_spgemm_tpu_torch.ops import cstruct, macro as M, symbolic
-        from pem_spgemm_tpu_torch.ops.macro_kernels import \
-            accumulate_macro_pairs
+        from pem_spgemm_tpu_torch.ops.macro_kernels import (
+            accumulate_macro_pairs, operand_masks)
         from pem_spgemm_tpu_torch.ops.scanops import can_pack
         cfg = self.config
         am, bm = macro_operands(a, b)
@@ -296,11 +296,13 @@ class SpGEMM:
         c_cap = max(256, -(-c_ntiles // 256) * 256)
         with timers.phase("step3") as box:
             # bfloat16 tiles run as their float32 copies (made once, cached
-            # on the operands); C stays in the accumulation dtype
+            # on the operands); C stays in the accumulation dtype.  The
+            # tables' masks are made here, once an operand, and kept with
+            # it for the steady plan's multiplies
             c_dense, c_flags = accumulate_macro_pairs(
                 am.acc_dense(), bm.acc_dense(), a_idx, b_idx, c_tile_id,
                 c_cap, chunk=chunk, acc_dtype=cfg.acc(),
-                precision=cfg.precision)
+                precision=cfg.precision, tile_masks=operand_masks(am, bm))
             box["sync"] = c_dense
 
         with timers.phase("step2") as box:

@@ -12,9 +12,11 @@ Counterpart of the planner half of the JAX package's ops/pallas_stencil.py
     pair lists and the operand windows they reference), grouped by the same
     kind of signature: the plan for locally regular, globally aperiodic
     matrices (a wandering band).
-  * one class call per class computes, for every step and tile, the sum of
-    the tile's pair products from ``base + offset`` operand positions and
-    writes the tile's slab row once.
+  * the class calls compute, for every step and tile, the sum of the
+    tile's pair products from ``base + offset`` operand positions and write
+    the tile's slab row once: on the card one launch over all of a plan's
+    classes (``plan_tables``), where the reference compiles and calls one
+    kernel a class.
   * steps whose pattern is rare or too wide fall back to the residual path:
     their pairs, sorted by slab row, go through the pair-stream entry into
     reserved rows of the same slabs.
@@ -65,6 +67,8 @@ class StencilPlan:
     # per class: (p_ptr (t+1,), a_offs (P,), b_offs (P,)) i32 tensors, the
     # run-time tables of the class kernels (built once, with the plan)
     class_tables: tuple = ()
+    # the same for all classes in one launch (plan_tables, built once)
+    plan_tables: tuple = ()
 
 
 def p_list_of(t: int, p) -> tuple:
@@ -82,6 +86,45 @@ def class_tables(classes, device) -> tuple:
             torch.from_numpy(np.asarray(x, np.int32)).to(device)
             for x in (p_ptr, a_offs, b_offs)))
     return tuple(out)
+
+
+def plan_tables(classes, class_bases, device) -> tuple:
+    """The tables of every class of a plan in one launch, on ``device``:
+    (ab_bases, p_ptr, a_offs, b_offs, descriptors, n_rows).  The first four
+    are int32 tensors, the classes' ``class_bases`` and ``class_tables``
+    concatenated in class order, each class's p_ptr rebased by the pairs of
+    the classes before it so that it indexes the concatenated offset
+    tables; ``descriptors`` is a host (classes with rows, 4) int32 array:
+    a class's first slab row, its t, its first step in ab_bases and its
+    first entry in p_ptr; n_rows the slab rows of all classes.  The
+    classes' rows must lie back to back from row 0, as the planners lay
+    them (a slab row is then the launch's ticket)."""
+    bases_l, ptr_l, ao_l, bo_l, desc = [], [], [], [], []
+    row = step = ptr = pairs = 0
+    for (t, p, _ar, _br, a_offs, b_offs, base), bases in zip(classes,
+                                                               class_bases):
+        n_steps = int(bases.shape[0]) // 2
+        if base != row:
+            raise ValueError(f"class rows start at {base}, expected {row}: "
+                             "the classes' slab rows must lie back to back "
+                             "from row 0")
+        if n_steps * t:
+            desc.append((row, t, step, ptr))
+        bases_l.append(_host(bases, 2 * n_steps).astype(np.int32))
+        ptr_l.append(pairs + np.concatenate([[0], np.cumsum(p_list_of(t, p))]))
+        ao_l.append(np.asarray(a_offs, np.int64))
+        bo_l.append(np.asarray(b_offs, np.int64))
+        row += n_steps * t
+        step += n_steps
+        ptr += t + 1
+        pairs += sum(p_list_of(t, p))
+
+    def cat(xs):
+        return torch.from_numpy(np.concatenate(xs).astype(np.int32)
+                                if xs else np.zeros(0, np.int32)).to(device)
+
+    return (cat(bases_l), cat(ptr_l), cat(ao_l), cat(bo_l),
+            np.asarray(desc, np.int32).reshape(-1, 4), row)
 
 
 def _host(x, n):
@@ -284,7 +327,8 @@ def _finish_plan(sig_steps, res_tiles, segn, pan, pbn, n_pairs, n_tiles,
         res_pa=dev(res_pa), res_pb=dev(res_pb), res_seg=dev(res_seg),
         n_res_tiles=n_res, order=order, c_cap=c_cap, n_tiles=n_tiles,
         coverage=1.0 - len(res_pa) / max(1, n_pairs),
-        class_tables=class_tables(classes, device))
+        class_tables=class_tables(classes, device),
+        plan_tables=plan_tables(classes, bases_l, device))
 
 
 # --------------------------------------------------------------------------
@@ -336,6 +380,18 @@ def class_call_plain(c_num, c_pat, a_dense, b_dense, ab_bases, t, p, a_offs,
     return c_num, c_pat
 
 
+def classes_call_plain(c_num, c_pat, a_dense, b_dense, plan: StencilPlan,
+                       precision: str = "highest"):
+    """Every class of ``plan`` into its slab rows, in place: the plain
+    version of the one launch over all classes (``macro_kernels.
+    classes_call``), one ``class_call_plain`` a class."""
+    for (t, p, _ar, _br, a_offs, b_offs, base), bases in zip(
+            plan.classes, plan.class_bases):
+        class_call_plain(c_num, c_pat, a_dense, b_dense, bases, t, p,
+                         a_offs, b_offs, base, precision)
+    return c_num, c_pat
+
+
 def _residual_add(c_num, c_pat, a_dense, b_dense, pa, pb, seg, row0, n_rows,
                   chunk, precision: str = "highest", tile_masks=None):
     """The residual pairs into slab rows [row0, row0 + n_rows), in place.
@@ -356,22 +412,28 @@ def _residual_add(c_num, c_pat, a_dense, b_dense, pa, pb, seg, row0, n_rows,
 
 
 def stencil_accumulate(a_dense, b_dense, plan: StencilPlan,
-                       macro_chunk: int = 256, precision: str = "highest"):
-    """Full macro accumulation: one class call per class + the residual
-    pair stream, both at ``precision``.
+                       macro_chunk: int = 256, precision: str = "highest",
+                       tile_masks=None):
+    """Full macro accumulation: every class in one call + the residual pair
+    stream, both at ``precision``.
 
     Returns (c_num (c_cap,128,128) f32, c_flags (c_cap,128,128) uint8) in
     SLAB order (plan.order maps slab row -> sorted-tile index).  Every slab
     row is written exactly once: by its class, by the residual path, or (the
     rows past the last real one) by the zero fill.  CUDA tables go through
-    the class kernel, CPU tables through ``class_call_plain``
-    (ops/macro_kernels.class_call2 decides by the tensors' device).  The
-    kernels' launches share one ``TileMasks``: the first computes the
-    tables' k-masks, the others read them.
+    one launch of the class kernel over all of the plan's classes, CPU
+    tables through ``classes_call_plain`` (ops/macro_kernels.classes_call
+    decides by the tensors' device).  ``tile_masks``: the tables'
+    ``TileMasks``, made where the operands keep them
+    (``MacroMatrix.tile_masks``, as StencilMacroPlan.run passes them);
+    without it, on the card, the two launches share one made by the
+    first.
     """
-    from pem_spgemm_tpu_torch.ops.macro_kernels import TileMasks, class_call2
+    from pem_spgemm_tpu_torch.ops.macro_kernels import TileMasks, classes_call
     dev = a_dense.device
-    masks = TileMasks(a_dense, b_dense) if a_dense.is_cuda else None
+    masks = tile_masks
+    if masks is None and a_dense.is_cuda:
+        masks = TileMasks(a_dense, b_dense)
     c_num = torch.empty((plan.c_cap, TILE, TILE), dtype=torch.float32,
                         device=dev)
     c_pat = torch.empty((plan.c_cap, TILE, TILE), dtype=torch.uint8,
@@ -379,11 +441,8 @@ def stencil_accumulate(a_dense, b_dense, plan: StencilPlan,
     slab_rows = len(plan.order)
     c_num[slab_rows:].zero_()
     c_pat[slab_rows:].zero_()
-    for (t, p, ar, br, a_offs, b_offs, base), bases, tables in zip(
-            plan.classes, plan.class_bases, plan.class_tables):
-        class_call2(c_num, c_pat, a_dense, b_dense, bases, t, p, ar, br,
-                    a_offs, b_offs, base, bases.shape[0] // 2,
-                    tables=tables, precision=precision, tile_masks=masks)
+    classes_call(c_num, c_pat, a_dense, b_dense, plan, precision=precision,
+                 tile_masks=masks)
     n_res_pairs = plan.res_pa.shape[0]
     if n_res_pairs:
         p_cap = max(macro_chunk, -(-n_res_pairs // macro_chunk) * macro_chunk)

@@ -191,7 +191,7 @@ def test_macro_kernel_source_and_loader_agree():
     entries = ("macro_accumulate_pairs_f32", "macro_class_ragged_f32",
                "macro_class_uniform_f32", "macro_accumulate_pairs_f64",
                "macro_tile_masks_f32", "macro_tile_masks_f64",
-               "macro_stream_walk")
+               "macro_stream_walk", "macro_classes_f32")
     for symbol in entries:
         assert f'extern "C" int {symbol}(' in src
     # hand-written products: no library GEMM, no PyTorch headers
@@ -214,7 +214,7 @@ def test_macro_kernel_source_and_loader_agree():
     assert set(mk.LAUNCHES) == {e[:-4] for e in entries[:3]} | {
         "macro_accumulate_pairs_f64", "macro_accumulate_pairs_acc",
         "macro_accumulate_pairs_f64_acc", "macro_tile_masks",
-        "macro_tile_masks_f64", "macro_stream_walk"}
+        "macro_tile_masks_f64", "macro_stream_walk", "macro_classes"}
 
     # the ctypes declarations match the number of C parameters
     class Lib:

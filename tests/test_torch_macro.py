@@ -1003,7 +1003,9 @@ def test_interactive_macro_goes_through_the_pair_stream_entry(monkeypatch):
     macro_kernels.accumulate_macro_pairs, the wrapper that launches the
     pair-stream kernel for CUDA tiles and takes the plain version for CPU
     tiles (so no launch is counted here): called once, with the stream's
-    c_cap and the config's chunk, and the result is the JAX package's."""
+    c_cap and the config's chunk, and the result is the JAX package's.  It
+    is handed the operands' kept masks (ops.macro_kernels.operand_masks):
+    none on CPU tiles, where no plain version reads them."""
     calls = []
     real = mk.accumulate_macro_pairs
 
@@ -1019,7 +1021,7 @@ def test_interactive_macro_goes_through_the_pair_stream_entry(monkeypatch):
     c_cap, kw = calls[0]
     assert c_cap == max(256, -(-res.c_ntiles // 256) * 256)
     assert kw == {"chunk": 32, "acc_dtype": torch.float32,
-                  "precision": "highest"}
+                  "precision": "highest", "tile_masks": None}
     assert sum(mk.LAUNCHES.values()) == 0
 
 
@@ -1078,6 +1080,135 @@ def test_macro_plan_matches_interactive():
     assert (grown.p_cap, grown.c_cap) == (512, 4096)
     out = grown.run(a, a)
     assert not bool(out[-1]) and int(out[5]) == res.c_nnz
+
+
+# --------------------------------------------------------------------------
+# the masks a Macro128 operand keeps (MacroMatrix.tile_masks)
+
+def _own_macro(kind, dtype=torch.float32):
+    """A fresh port MacroMatrix of MATRICES[kind] (its values changed in
+    place by the tests below, so not the shared fixture's)."""
+    _, tc = both_coo(MATRICES[kind]())
+    return coo_to_macro(tc, dtype=dtype, device="cpu")
+
+
+def test_operand_masks_are_made_once_and_kept():
+    """A second call returns the same TableMasks, ready, its words
+    tile_masks_plain's of the table; A's and B's are one object where B is
+    A (TileMasks as operand_masks builds it)."""
+    m = _own_macro("gapped")
+    first = m.tile_masks()
+    assert first.ready and first.table is m.acc_dense()
+    assert torch.equal(first.words, mk.tile_masks_plain(m.dense))
+    ptr = first.words.data_ptr()
+    again = m.tile_masks()
+    assert again is first and again.words.data_ptr() == ptr
+    both = mk.TileMasks(m.dense, m.dense, a=m.tile_masks(),
+                        b=m.tile_masks())
+    assert both.a is both.b is first
+    assert both.args(m.dense, m.dense)[4:] == (1, 1)
+    # on CPU tables no plain version reads masks: operand_masks makes none
+    assert mk.operand_masks(m, m) is None
+
+
+@pytest.mark.parametrize("change", ["zero_slab", "nan", "new_column"])
+def test_operand_masks_are_remade_after_an_in_place_change(change):
+    """An in-place change of the values moves the table's version counter:
+    the next call makes the masks again, into the same words (same
+    address), equal to tile_masks_plain of the new values."""
+    m = _own_macro("gapped")
+    masks = m.tile_masks()
+    ptr, old = masks.words.data_ptr(), masks.words.clone()
+    t = int(torch.nonzero(m.dense.flatten(1).any(1))[0])
+    if change == "zero_slab":
+        m.dense[t, :, :32] = 0.0
+    elif change == "nan":
+        m.dense[t, 5, 77] = float("nan")
+    else:                               # a k with no non-zero before
+        t, k = (int(x) for x in torch.nonzero(
+            ~m.dense[:-1].any(1) & m.dense[:-1].flatten(1).any(1)[:, None])[0])
+        m.dense[t, :, k] = 1.5
+    again = m.tile_masks()
+    assert again is masks and again.ready
+    assert again.words.data_ptr() == ptr
+    assert torch.equal(again.words, mk.tile_masks_plain(m.dense))
+    assert not torch.equal(again.words, old)
+    assert m.tile_masks() is masks and torch.equal(masks.words,
+                                                   again.words)
+
+
+def test_bfloat16_operands_keep_their_float32_copys_masks():
+    """A bfloat16 operand's masks are those of its float32 copy (the table
+    the kernels read), in the float32 layout; an in-place change of the
+    bfloat16 values refreshes the copy, then the masks, at the same
+    addresses."""
+    m = _own_macro("gapped", torch.bfloat16)
+    masks = m.tile_masks()
+    wide = m.acc_dense()
+    assert wide.dtype == torch.float32 and masks.table is wide
+    assert masks.words.shape == (wide.shape[0], mk.TM_WORDS)
+    assert torch.equal(masks.words, mk.tile_masks_plain(wide))
+    ptr = masks.words.data_ptr()
+    t = int(torch.nonzero(m.dense.flatten(1).any(1))[0])
+    m.dense[t] = 0
+    again = m.tile_masks()
+    assert again is masks and m.acc_dense() is wide
+    assert again.words.data_ptr() == ptr
+    assert torch.equal(again.words, mk.tile_masks_plain(wide))
+    assert not bool(again.words[t].any())
+
+
+@pytest.mark.parametrize("plan_kind", ["macro", "stencil"])
+def test_steady_plans_read_the_kept_masks_and_see_changes(monkeypatch,
+                                                          plan_kind):
+    """MacroPlan.run and StencilMacroPlan.run on CPU operands, with the
+    masks path taken as on the card (reads_masks forced): each equals the
+    interactive result, the operands' masks are made once and kept over
+    runs, and after an in-place change of A the next run equals the new
+    interactive result with the masks made again."""
+    from pem_spgemm_tpu_torch.ops.fixed import _try_stencil_plan
+    monkeypatch.setattr(mk, "reads_masks", lambda table: True)
+    kind = "gapped" if plan_kind == "macro" else "wandering"
+    m = _own_macro(kind)
+    cfg = SpGEMMConfig(engine="macro", macro_chunk=32)
+    made = []
+    real = mk.TableMasks.make
+
+    def counted(self):
+        made.append(self)
+        return real(self)
+
+    monkeypatch.setattr(mk.TableMasks, "make", counted)
+
+    def steady_equals_interactive(plan):
+        res = SpGEMM(cfg)(m, m)
+        out = plan.run(m, m)
+        assert int(out[5]) == res.c_nnz and not bool(out[6])
+        want = res.to_coo()
+        (res.c_tile_row, res.c_tile_col, res.vals, res.c_counts,
+         res.cptr) = out[:5]
+        got = res.to_coo()
+        np.testing.assert_array_equal(got.rows, want.rows)
+        np.testing.assert_array_equal(got.cols, want.cols)
+        np.testing.assert_allclose(got.vals, want.vals, rtol=1e-5,
+                                   atol=1e-5)
+
+    res = SpGEMM(cfg)(m, m)
+    plan = make_plan(res, cfg, m, m) if plan_kind == "macro" \
+        else _try_stencil_plan(cfg, m, m)
+    assert type(plan).__name__ == ("MacroPlan" if plan_kind == "macro"
+                                   else "StencilMacroPlan")
+    assert len(made) == 1                   # the interactive step's
+    masks = m.tile_masks()
+    steady_equals_interactive(plan)
+    steady_equals_interactive(plan)
+    assert made == [masks]                  # kept over three multiplies
+    t = int(torch.nonzero(m.dense.flatten(1).any(1))[-1])
+    m.dense[t] *= -2.0
+    m.dense[t, 3, 3] = 0.25
+    steady_equals_interactive(plan)
+    assert made == [masks, masks]           # made again, once
+    assert torch.equal(masks.words, mk.tile_masks_plain(m.dense))
 
 
 def test_macro_refuses_lower_precision():

@@ -517,6 +517,43 @@ class ClassTiles:
         return self.base + tk
 
 
+class PlanTiles:
+    """The .cu's PlanTiles: every class of a plan in one launch, ticket tk
+    being slab row tk; its class the last whose first row is at most tk
+    (the .cu's binary search over the descriptors), then ClassTiles' tile
+    (step, tt) of the concatenated tables (ops.stencil.plan_tables)."""
+    LISTED = False
+
+    def __init__(self, tables, masks):
+        ab, p_ptr, ao, bo, desc, n_rows = tables
+        self.ab_bases, self.p_ptr, self.a_offs, self.b_offs = (
+            np.asarray(x) for x in (ab, p_ptr, ao, bo))
+        self.desc, self.n_tiles, self.masks = desc, n_rows, masks
+
+    def class_of(self, tk):
+        c, s = 0, mk.PLAN_MAX_CLASSES // 2
+        while s:
+            if c + s < len(self.desc) and self.desc[c + s][0] <= tk:
+                c += s
+            s >>= 1
+        return c
+
+    def range(self, tk):
+        if tk >= self.n_tiles:
+            return 0, 0, 0, 0
+        first, t, step0, ptr0 = (int(x) for x in self.desc[self.class_of(tk)])
+        step, tt = divmod(tk - first, t)
+        ab = 2 * (step0 + step)
+        return (int(self.p_ptr[ptr0 + tt]), int(self.p_ptr[ptr0 + tt + 1]),
+                int(self.ab_bases[ab]), int(self.ab_bases[ab + 1]))
+
+    def tiles(self, q):
+        return int(self.a_offs[q]), int(self.b_offs[q])
+
+    def row(self, tk):
+        return tk
+
+
 class Issuer:
     """The issue cursor of producer warp 0 (lane values as lists): the
     claim pipeline ticket -> range -> tiles -> masks (and a LISTED walk's
@@ -970,6 +1007,115 @@ def test_class_launch_protocol_against_the_plain_class_call(run_plan):
         np.testing.assert_array_equal(got_f, want_f.numpy() > 0)
         np.testing.assert_allclose(got, want_n.double().numpy(), rtol=1e-5,
                                    atol=1e-5)
+
+
+# --------------------------------------------------------------------------
+# every class of a plan in one launch (PlanTiles)
+
+def test_source_has_the_plan_walks_lines():
+    text = _source()
+    for line in (
+            "constexpr int PLAN_MAX_CLASSES = 32;",
+            "            for (int s = PLAN_MAX_CLASSES / 2; s > 0; s >>= 1)\n"
+            "                if (c + s < n_classes && cls[c + s].first <= tk) "
+            "c += s;",
+            "            const int k = tk - pc.first, step = k / pc.t, "
+            "tt = k - step * pc.t;",
+            "            lo = p_ptr[pc.ptr + tt];",
+            "            hi = p_ptr[pc.ptr + tt + 1];",
+            "            a0 = ab_bases[2 * (pc.step + step)];",
+            "            b0 = ab_bases[2 * (pc.step + step) + 1];",
+            "        return launch_tiles<P, PlanTiles, false>("):
+        assert text.count(line) == 1, line
+    assert mk.PLAN_MAX_CLASSES == st.MAX_CLASSES_R >= st.MAX_CLASSES
+
+
+def _engineered_plan(which):
+    """(classes, class_bases, masks) of a hand-made plan whose classes lie
+    back to back from row 0: "three" a ragged class with a tile of 0 pairs
+    (1/0/9/3), a uniform one (2 a tile) and a ragged one whose tile of 70
+    pairs is more than a lane window (1/70/0/3/2); "one" the first alone."""
+    rng = np.random.default_rng(31)
+    kinds = [(4, (1, 0, 9, 3), 3), (3, 2, 4), (5, (1, 70, 0, 3, 2), 2)]
+    classes, bases_l, row = [], [], 0
+    for t, p, n_steps in kinds[:1 if which == "one" else 3]:
+        n_p = sum(st.p_list_of(t, p))
+        a_offs = tuple(int(x) for x in rng.integers(0, 12, n_p))
+        b_offs = tuple(int(x) for x in rng.integers(0, 12, n_p))
+        classes.append((t, p, 12, 12, a_offs, b_offs, row))
+        bases_l.append(torch.from_numpy(
+            rng.integers(0, 38, 2 * n_steps).astype(np.int32)))
+        row += n_steps * t
+    return tuple(classes), tuple(bases_l), _masks_of_bands(50, 31)
+
+
+def _plan_cases(run_plan, which):
+    if which in ("one", "three"):
+        return _engineered_plan(which)
+    a, plan = run_plan
+    return plan.classes, plan.class_bases, tile_masks(a.dense)
+
+
+@pytest.mark.parametrize("which", ["run_plan", "three", "one"])
+def test_plan_walk_is_the_class_walks_ticket_by_ticket(run_plan, which):
+    """PlanTiles' ticket tk against the ClassTiles walk of its class at tk
+    less the class's first row, for every ticket of every class (their
+    boundaries included) and past the last: the slab row, the pair range
+    (less the pairs of the classes before), the step's bases and the
+    operand tiles of each pair."""
+    classes, class_bases, masks = _plan_cases(run_plan, which)
+    w = PlanTiles(st.plan_tables(classes, class_bases, "cpu"), masks)
+    pairs = 0
+    for (t, p, _ar, _br, a_offs, b_offs, base), bases in zip(classes,
+                                                               class_bases):
+        n_steps = bases.numel() // 2
+        cw = ClassTiles(bases.numpy(), st.p_list_of(t, p),
+                        np.asarray(a_offs), np.asarray(b_offs), t, base,
+                        n_steps * t, masks)
+        for tk in range(n_steps * t):
+            lo, hi, a0, b0 = w.range(base + tk)
+            c_lo, c_hi, c_a0, c_b0 = cw.range(tk)
+            assert (lo - pairs, hi - pairs, a0, b0) == \
+                (c_lo, c_hi, c_a0, c_b0), (base, tk)
+            assert w.row(base + tk) == cw.row(tk)
+            assert [w.tiles(q) for q in range(lo, hi)] == \
+                [cw.tiles(q) for q in range(c_lo, c_hi)]
+        pairs += sum(st.p_list_of(t, p))
+    assert w.range(w.n_tiles) == w.range(w.n_tiles + 40) == (0, 0, 0, 0)
+    assert w.n_tiles == sum(c[0] * (b.numel() // 2)
+                            for c, b in zip(classes, class_bases))
+
+
+@pytest.mark.parametrize("which", ["run_plan", "three", "one"])
+@pytest.mark.parametrize("grid,seed", [(1, 0), (5, 2)])
+def test_plan_walk_protocol(run_plan, which, grid, seed):
+    """One launch over every class of a plan through the ring protocol:
+    every slab row stored once by one block, with its pairs' slabs that
+    the masks call, in order (a tile of 0 pairs as a store-only stage);
+    tickets in slab order, each block one past the rows and no more."""
+    classes, class_bases, masks = _plan_cases(run_plan, which)
+    tables = st.plan_tables(classes, class_bases, "cpu")
+    w = PlanTiles(tables, masks)
+    counter = [0]
+    stored = run_protocol(w, grid, (4, 4), seed, counter)
+    n_rows = w.n_tiles
+    assert len(stored) == 2 * n_rows
+    assert counter[0] == n_rows + min(grid, n_rows)
+    for row in range(n_rows):
+        lo, hi, a0, b0 = w.range(row)
+        want = []
+        for q in range(lo, hi):
+            ta, tb = w.tiles(q)
+            need = slabs_needed(masks[a0 + ta], masks[b0 + tb])
+            want += [(a0 + ta, b0 + tb, KS * s_) for s_ in range(4)
+                     if need >> s_ & 1]
+        for g in range(2):
+            assert stored[(row, g)][1] == want, (row, g)
+        assert stored[(row, 0)][0] == stored[(row, 1)][0]
+    for b in range(grid):
+        rows = [row for (row, g), (blk, _) in stored.items()
+                if blk == b and g == 0]
+        assert rows == sorted(rows)
 
 
 @pytest.mark.parametrize("precision", ["highest", "high", "default"])

@@ -325,6 +325,97 @@ def test_class_call_equals_class_call2_on_uniform_classes(cases):
                       br, a_offs, b_offs, base)
 
 
+@pytest.mark.parametrize("planner", sorted(PLANNERS))
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_plan_tables_are_the_class_tables_concatenated(cases, case, planner):
+    """The one launch's tables: class_bases and class_tables concatenated in
+    class order, each class's p_ptr rebased by the pairs before it, and a
+    descriptor a class with rows (first slab row, t, first step, first
+    p_ptr entry); the rows of all classes; the same from the JAX plan
+    handed over."""
+    plan = cases(case)["plans"][planner][1]
+    ab, p_ptr, ao, bo, desc, n_rows = plan.plan_tables
+    assert all(x.dtype == torch.int32 for x in (ab, p_ptr, ao, bo))
+    def cat(xs):
+        xs = list(xs)
+        return torch.cat(xs) if xs else torch.zeros(0, dtype=torch.int32)
+
+    assert torch.equal(ab, cat(plan.class_bases))
+    assert torch.equal(ao, cat(x[1] for x in plan.class_tables))
+    assert torch.equal(bo, cat(x[2] for x in plan.class_tables))
+    pairs, rebased, want_desc = 0, [], []
+    row = step = ptr = 0
+    for (t, _p, *_rest), bases, (pp, _ao, _bo) in zip(
+            plan.classes, plan.class_bases, plan.class_tables):
+        rebased.append(pp + pairs)
+        want_desc.append((row, t, step, ptr))
+        assert plan.classes[len(want_desc) - 1][6] == row   # back to back
+        pairs += int(pp[-1])
+        row += t * (bases.numel() // 2)
+        step += bases.numel() // 2
+        ptr += t + 1
+    assert torch.equal(p_ptr, cat(rebased))
+    assert desc.dtype == np.int32 and desc.shape == (len(plan.classes), 4)
+    assert desc.tolist() == [list(d) for d in want_desc] and n_rows == row
+    handed = interop.stencil_plan_from_numpy(
+        to_np(cases(case)["plans"][planner][0]), device="cpu")
+    for x, y in zip(handed.plan_tables, plan.plan_tables):
+        assert np.array_equal(np.asarray(x), np.asarray(y))
+
+
+def test_plan_tables_refuse_classes_that_do_not_lie_back_to_back(cases):
+    plan = cases("wandering")["plans"]["plan_runs"][1]
+    shifted = tuple(c[:6] + (c[6] + 1,) for c in plan.classes)
+    with pytest.raises(ValueError, match="back to back"):
+        st.plan_tables(shifted, plan.class_bases, "cpu")
+
+
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
+def test_classes_call_plain_is_the_class_loop_and_jax(cases, precision):
+    """The plain version of the one launch over all classes: bit for bit
+    the per-class loop of class_call_plain at each precision (and the
+    wrapper on CPU tiles, counting no launch), and its class rows the JAX
+    package's stencil_accumulate of the same plan (class kernel in
+    interpret mode) within the mode's bound: (2u + u^2) sum|a*b| plus two
+    float32 bounds 1e-5 sum|a*b| + 1e-6 (XLA:CPU computes every mode in
+    float32); flags equal exactly."""
+    u = {"highest": 0.0, "high": 2.0 ** -11, "default": 2.0 ** -8}[precision]
+    c = cases("wandering")
+    jplan = c["plans"]["plan_runs"][0]
+    plan = interop.stencil_plan_from_numpy(to_np(jplan), device="cpu")
+    d = c["tm"].dense
+    rows = plan.plan_tables[5]
+    assert rows and len(plan.classes) > 1
+
+    def slabs(fill=float("nan")):
+        return (torch.full((plan.c_cap, 128, 128), fill),
+                torch.full((plan.c_cap, 128, 128), 7, dtype=torch.uint8))
+
+    got = st.classes_call_plain(*slabs(), d, d, plan, precision)
+    loop = slabs()
+    for (t, p, _ar, _br, ao, bo, base), bases in zip(plan.classes,
+                                                     plan.class_bases):
+        st.class_call_plain(*loop, d, d, bases, t, p, ao, bo, base,
+                            precision)
+    mk.reset_launch_counts()
+    wrapped = mk.classes_call(*slabs(), d, d, plan, precision=precision)
+    assert sum(mk.LAUNCHES.values()) == 0       # CPU tensors: plain version
+    for x in (loop, wrapped):
+        assert torch.equal(got[0].view(torch.int32), x[0].view(torch.int32))
+        assert torch.equal(got[1], x[1])
+    assert torch.isnan(got[0][rows:]).all() and (got[1][rows:] == 7).all()
+    mag = st.classes_call_plain(*slabs(0.0), d.abs(), d.abs(), plan)[0]
+    j_num, j_pat = ps.stencil_accumulate(c["jm"].dense, c["jm"].dense,
+                                         jplan, precision, interpret=True)
+    j_num = np.asarray(j_num)[:rows].astype(np.float64)
+    m = mag[:rows].double().numpy()
+    over = np.abs(got[0][:rows].double().numpy() - j_num) / (
+        (2 * u + u * u) * m + 2 * (1e-5 * m + 1e-6))
+    assert over.max() <= 1.0, float(over.max())
+    np.testing.assert_array_equal(got[1][:rows].numpy() > 0,
+                                  np.asarray(j_pat, np.float32)[:rows] > 0)
+
+
 def test_class_wrappers_refuse_what_the_kernels_do_not_take(cases):
     c = cases("banded32")
     plan, cls, bases, tables = _one_class(c, "plan_stencil")
